@@ -1,0 +1,138 @@
+// The BoW classifier tail: quantize + histogram, then the linear SVM score.
+//
+// bow_quantize_hist replaces src/repro/kernels/bow.py `_hist_kernel` (via
+// `bow_quantize_hist`).  Bound on an H100: operations.  At the predict
+// batch (B*N = 32768 descriptors of D = 128 against K = 250 words) it does
+// 2*B*N*K*D = 2.1 GFLOP of fp32 on CUDA cores and moves ~17 MB, so the dot
+// products, not the bytes, set its floor.  Design: one block per (image,
+// block of descriptors).  The descriptors stay in shared memory while the
+// codebook streams through it in tiles; each of a descriptor's `lanes`
+// threads keeps a running argmin over its strided share of the words, and a
+// warp-shuffle merge picks the minimum with ties to the lower word index.
+// The (N, K) score matrix and the word indices never reach device memory:
+// each descriptor's valid weight is added to its image's histogram row with
+// atomicAdd (sums of {0, 1} weights are exact in any order).
+//
+// linear_score replaces src/repro/kernels/bow.py `_score_kernel` (via
+// `linear_score`).  Bound on an H100: launch latency; (B, K) x (C, K)^T is
+// ~5 MFLOP at the predict batch.  Design: one thread per (image, class),
+// looping over K in order, then adding the bias.
+//
+// Arithmetic (both kernels): fp32 on CUDA cores, no tensor cores, no TF32;
+// every product and sum is rounded on its own (__fmul_rn / __fadd_rn, no
+// FMA contraction), in ascending index order, as the plain PyTorch
+// versions in kernels/bow.py compute them.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+__global__ void quantize_hist_kernel(const float* __restrict__ descs,
+                                     const float* __restrict__ valids,
+                                     const float* __restrict__ cents, float* __restrict__ hist,
+                                     int N, int D, int K, int bn, int tk, int n_blocks) {
+  extern __shared__ float sm[];
+  const int ds = D + 1;  // padded row: a warp's lanes read distinct banks
+  float* d_s = sm;                // bn x ds descriptors
+  float* c_s = d_s + bn * ds;     // tk x ds codebook tile
+  float* c2_s = c_s + tk * ds;    // tk |c|^2, +inf past K
+  const int b = blockIdx.x / n_blocks;
+  const int n0 = (blockIdx.x - b * n_blocks) * bn;
+  const int lanes = blockDim.x / bn;
+  const int i = threadIdx.x / lanes, lane = threadIdx.x - i * lanes;
+
+  for (int e = threadIdx.x; e < bn * D; e += blockDim.x) {
+    const int r = e / D, q = e - r * D, n = n0 + r;
+    d_s[r * ds + q] = n < N ? descs[(size_t(b) * N + n) * D + q] : 0.f;
+  }
+
+  float best = CUDART_INF_F;
+  int best_k = 0;
+  for (int k0 = 0; k0 < K; k0 += tk) {
+    __syncthreads();  // the previous tile is consumed (and d_s is loaded)
+    for (int e = threadIdx.x; e < tk * D; e += blockDim.x) {
+      const int r = e / D, q = e - r * D, k = k0 + r;
+      c_s[r * ds + q] = k < K ? cents[size_t(k) * D + q] : 0.f;
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < tk; r += blockDim.x) {
+      const float* c = c_s + r * ds;
+      float a = __fmul_rn(c[0], c[0]);
+      for (int q = 1; q < D; ++q) a = __fadd_rn(a, __fmul_rn(c[q], c[q]));
+      c2_s[r] = k0 + r < K ? a : CUDART_INF_F;
+    }
+    __syncthreads();
+    const float* d = d_s + i * ds;
+    for (int r = lane; r < tk; r += lanes) {
+      const float* c = c_s + r * ds;
+      float acc = __fmul_rn(d[0], c[0]);
+      for (int q = 1; q < D; ++q) acc = __fadd_rn(acc, __fmul_rn(d[q], c[q]));
+      const float s = __fadd_rn(__fmul_rn(-2.f, acc), c2_s[r]);
+      if (s < best) {  // strict: ascending k keeps the lowest index on ties
+        best = s;
+        best_k = k0 + r;
+      }
+    }
+  }
+  // merge the descriptor's lanes (consecutive threads of one warp)
+  for (int off = lanes / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, best_k, off);
+    if (ov < best || (ov == best && ok < best_k)) {
+      best = ov;
+      best_k = ok;
+    }
+  }
+  const int n = n0 + i;
+  if (lane == 0 && n < N) {
+    const float wv = valids[size_t(b) * N + n];
+    if (wv != 0.f) atomicAdd(hist + size_t(b) * K + best_k, wv);
+  }
+}
+
+__global__ void linear_score_kernel(const float* __restrict__ h, const float* __restrict__ w,
+                                    const float* __restrict__ bias, float* __restrict__ out,
+                                    int B, int K, int C) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)B * C) return;
+  const int bi = int(t / C), c = int(t - (long long)bi * C);
+  const float* hr = h + size_t(bi) * K;
+  const float* wr = w + size_t(c) * K;
+  float acc = 0.f;
+  if (K > 0) {
+    acc = __fmul_rn(hr[0], wr[0]);
+    for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(hr[k], wr[k]));
+  }
+  out[t] = __fadd_rn(acc, bias[c]);
+}
+
+}  // namespace
+
+// hist (B, K) must be zeroed by the caller.  Returns cudaGetLastError().
+extern "C" int quantize_hist_launch(const float* descs, const float* valids, const float* cents,
+                                    float* hist, int B, int N, int D, int K, int bn, int tk,
+                                    int threads, void* stream) {
+  const int n_blocks = (N + bn - 1) / bn;
+  const long long blocks = (long long)B * n_blocks;
+  if (blocks == 0 || K == 0) return 0;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  const size_t smem = (size_t(bn + tk) * (D + 1) + tk) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      quantize_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  quantize_hist_kernel<<<unsigned(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      descs, valids, cents, hist, N, D, K, bn, tk, n_blocks);
+  return int(cudaGetLastError());
+}
+
+extern "C" int linear_score_launch(const float* h, const float* w, const float* bias, float* out,
+                                   int B, int K, int C, int threads, void* stream) {
+  const long long total = (long long)B * C;
+  if (total == 0) return 0;
+  const long long blocks = (total + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  linear_score_kernel<<<unsigned(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      h, w, bias, out, B, K, C);
+  return int(cudaGetLastError());
+}

@@ -1,0 +1,193 @@
+"""The BoW classifier tail on the card: quantize + histogram, then the linear
+SVM score (the counterpart of `repro.kernels.bow`).
+
+`bow_quantize_hist` replaces `repro.kernels.bow._hist_kernel` (TPU,
+Pallas).  Bound on an H100: operations, 2*B*N*K*D fp32 dot-product FLOP on
+CUDA cores (2.1 GFLOP at the predict batch), against ~17 MB moved.  Design:
+one block per (image, descriptor block); the codebook streams through
+shared memory in tiles, a running argmin per descriptor (ties to the lowest
+word) never leaves the block, and each valid weight is `atomicAdd`ed into
+its image's histogram row.  Normalisation happens outside the kernel, as in
+JAX.
+
+`linear_score` replaces `repro.kernels.bow._score_kernel`.  Bound on an
+H100: launch latency (~5 MFLOP).  Design: one thread per (image, class).
+
+Both kernels compute in fp32 on CUDA cores with every product and sum
+rounded on its own, in ascending index order; the plain versions here do
+the same arithmetic in PyTorch, so the card's kernels and the plain
+versions agree bit for bit (``csrc/bow.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.device import DEFAULT, LaunchConfig
+from . import _build, counters
+
+DESC_BLOCK = 32  # descriptors per bow_quantize_hist block (one per lane group)
+CODE_TILE = 32  # codebook rows staged through shared memory at a time
+
+
+def normalize_hist(h: torch.Tensor) -> torch.Tensor:
+    """Word counts (B, K) -> per-image frequencies."""
+    return h / torch.clamp(torch.sum(h, dim=1, keepdim=True), min=1e-6)
+
+
+def _sequential_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, D) . b (K, D)^T -> (M, K), summed over D in ascending order with
+    a rounding after every product and every sum (the kernels' order)."""
+    acc = a[:, 0:1] * b[:, 0][None, :]
+    for q in range(1, a.shape[1]):
+        acc = acc + a[:, q : q + 1] * b[:, q][None, :]
+    return acc
+
+
+def quantize_hist_plain(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor):
+    """Plain version of the quantize + histogram kernel: descs (B, N, D),
+    valids (B, N), centroids (K, D) -> unnormalised word counts (B, K)."""
+    counters.PLAIN_CALLS["bow_quantize_hist"] += 1
+    B, N, D = descs.shape
+    K = centroids.shape[0]
+    h = torch.zeros((B, K), dtype=torch.float32, device=descs.device)
+    if B * N == 0 or K == 0:
+        return h
+    c = centroids.to(torch.float32)
+    c2 = c[:, 0] * c[:, 0]
+    for q in range(1, D):
+        c2 = c2 + c[:, q] * c[:, q]
+    s = -2.0 * _sequential_dot(descs.to(torch.float32).reshape(B * N, D), c) + c2[None, :]
+    idx = torch.argmin(s, dim=1).reshape(B, N)
+    h.scatter_add_(1, idx, valids.to(torch.float32))
+    return h
+
+
+def linear_score_plain(hists: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the score kernel: hists (B, K), w (C, K), b (C,) ->
+    (B, C) = hists . w^T + b."""
+    counters.PLAIN_CALLS["linear_score"] += 1
+    h, w = hists.to(torch.float32), w.to(torch.float32)
+    if h.shape[1] == 0:
+        acc = torch.zeros((h.shape[0], w.shape[0]), dtype=torch.float32, device=h.device)
+    else:
+        acc = _sequential_dot(h, w)
+    return acc + b.to(torch.float32)[None, :]
+
+
+# C signatures in csrc/bow.cu: pointers and the stream as c_void_p, ints as c_int
+LAUNCH_ARGTYPES = {
+    # (descs, valids, cents, hist, B, N, D, K, bn, tk, threads, stream)
+    "quantize_hist_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    # (h, w, bias, out, B, K, C, threads, stream)
+    "linear_score_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+}
+
+
+@functools.cache
+def _launchers():
+    lib = _build.library("bow")
+    fns = []
+    for name, argtypes in LAUNCH_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return tuple(fns)
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float32 tensors, got {t.dtype}")
+    return dev
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def bow_quantize_hist(
+    descs: torch.Tensor,
+    valids: torch.Tensor,
+    centroids: torch.Tensor,
+    *,
+    normalize: bool = True,
+    lc: LaunchConfig = DEFAULT,
+) -> torch.Tensor:
+    """Fused quantize -> histogram: descs (B, N, D), valids (B, N) -> word
+    histograms (B, K) in one launch.  A CPU tensor runs the plain version;
+    any other tensor launches the kernel or raises."""
+    if descs.device.type == "cpu":
+        h = quantize_hist_plain(descs, valids, centroids)
+        return normalize_hist(h) if normalize else h
+    qh, _ = _launchers()
+    if descs.ndim != 3 or centroids.ndim != 2 or descs.shape[2] != centroids.shape[1]:
+        raise ValueError(
+            f"bow_quantize_hist: shapes {tuple(descs.shape)} / {tuple(centroids.shape)}"
+        )
+    B, N, D = descs.shape
+    K = centroids.shape[0]
+    if valids.shape != (B, N) or D == 0:
+        raise ValueError(f"bow_quantize_hist: valids {tuple(valids.shape)} for descs ({B}, {N})")
+    w = valids.to(torch.float32).contiguous()
+    dev = _check_cuda("bow_quantize_hist", descs, w, centroids)
+    h = torch.zeros((B, K), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = qh(
+            descs.data_ptr(),
+            w.data_ptr(),
+            centroids.data_ptr(),
+            h.data_ptr(),
+            B,
+            N,
+            D,
+            K,
+            DESC_BLOCK,
+            CODE_TILE,
+            lc.threads,
+            _stream(dev),
+        )
+    _build.check(err, "bow_quantize_hist")
+    counters.LAUNCHES["bow_quantize_hist"] += 1
+    return normalize_hist(h) if normalize else h
+
+
+def linear_score(
+    hists: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, lc: LaunchConfig = DEFAULT
+) -> torch.Tensor:
+    """One-vs-rest decision scores: hists (B, K), w (C, K), b (C,) -> (B, C)
+    in one launch.  A CPU tensor runs the plain version; any other tensor
+    launches the kernel or raises."""
+    if hists.device.type == "cpu":
+        return linear_score_plain(hists, w, b)
+    _, ls = _launchers()
+    if hists.ndim != 2 or w.ndim != 2 or w.shape[1] != hists.shape[1] or b.shape != w.shape[:1]:
+        raise ValueError(
+            f"linear_score: shapes {tuple(hists.shape)} / {tuple(w.shape)} / {tuple(b.shape)}"
+        )
+    dev = _check_cuda("linear_score", hists, w, b)
+    B, K = hists.shape
+    C = w.shape[0]
+    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = ls(
+            hists.data_ptr(),
+            w.data_ptr(),
+            b.data_ptr(),
+            out.data_ptr(),
+            B,
+            K,
+            C,
+            lc.threads,
+            _stream(dev),
+        )
+    _build.check(err, "linear_score")
+    counters.LAUNCHES["linear_score"] += 1
+    return out
