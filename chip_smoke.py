@@ -8,17 +8,26 @@ Phases (any failure exits non-zero; nothing is caught):
      ``src/repro_torch/csrc`` with nvcc and print the build time;
   2. hold each kernel against its plain PyTorch version on the card at
      shapes beyond the BoW path's (phase 5 repeats it on the path's tensors);
-  3. train a BoW model on the CPU (explicit ``device="cpu"``): 1000
-     ImageStream images at 32x32, a 250-word dictionary, the §4.5 config;
-  4. move the model to the card and answer 4 requests of 256 test images
-     through `pipeline.predict`: every kernel launched in every request,
-     no plain version called, accuracy above chance, labels identical
-     across two runs and in agreement with a CPU plain `predict`;
-  5. on the first request's own tensors, hold each kernel against its plain
+  3. the training path on the card, once per head (SVM, GBDT): 1000
+     ImageStream images at 32x32, a 250-word dictionary, the §4.5 config,
+     k-means seeded from a CPU generator at seed 0.  Each training launches
+     `stencil_chain` twice and `bow_assign` 21 times (20 k-means iterations
+     + the histograms) and calls no plain version.  Both heads are also
+     trained on the CPU from the same seed, for the accuracy check of 4;
+  4. the predict path on the card, once per head: 4 requests of 256 test
+     images through `pipeline.predict`, each launching its head's kernels
+     (SVM: stencil_chain x2, bow_quantize_hist, linear_score; GBDT: the
+     same with gbdt_score) and no plain version; accuracy above 0.15 and
+     within 0.05 of the CPU-trained model's, labels identical across two
+     runs and within 1% of a CPU plain `predict` of the same model;
+  5. on the paths' own tensors (the first request, the training
+     descriptors and final centroids), hold each kernel against its plain
      version again, then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
-  6. print the ``kernels`` JSON line, then the device line.
+  6. print the ``kernels`` JSON line, then the card line and the device line.
 
+Each path is driven with the launch counters set to 0 just before it and
+read just after; a kernel's ``launches`` in the JSON line sums the paths'.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -44,6 +53,8 @@ PREDICT_BATCH = 256
 N_REQUESTS = 4
 N_TRAIN = 1000
 DICT_SIZE = 250
+HEADS = ("svm", "gbdt")
+HEAD_KERNEL = {"svm": "linear_score", "gbdt": "gbdt_score"}
 
 
 class SmokeFailure(Exception):
@@ -115,6 +126,21 @@ def chain_flops(stages) -> int:
     return total
 
 
+def counted(counters, fn):
+    """Run `fn` with the counters set to 0 just before; -> (its result, the
+    launches and plain calls it made)."""
+    counters.reset()
+    out = fn()
+    return out, counters.snapshot()
+
+
+def expect_counts(what: str, snap: dict, launches: dict) -> None:
+    """Exactly `launches` (every other kernel 0) and no plain call."""
+    want = {k: launches.get(k, 0) for k in snap["launches"]}
+    check(snap["launches"] == want, f"{what}: launches {snap['launches']} != {want}")
+    check(not any(snap["plain_calls"].values()), f"{what}: plain ran: {snap['plain_calls']}")
+
+
 def main() -> int:
     import torch
 
@@ -128,25 +154,28 @@ def main() -> int:
 
     from repro_torch.cv import classify, features, imgproc, pipeline
     from repro_torch.cv.config import PipelineConfig
+    from repro_torch.cv.gbdt import GbdtModel
     from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels import _build, counters, ref
     from repro_torch.kernels import bow as kbow
+    from repro_torch.kernels import gbdt as kgbdt
     from repro_torch.kernels import stencil
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    results = {"card": None, "checks": {}, "timing": {}, "predict": {}}
+    results = {"card": None, "checks": {}, "timing": {}, "train": {}, "predict": {}}
 
     # -- 1. card and build ---------------------------------------------------
     card = card_line()
     results["card"] = card
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}")
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t_build = _build.build_all()
-    print(f"build: {t_build:.2f} s (nvcc, sm_90a, {len(list(_build.CSRC.glob('*.cu')))} sources)")
-    for name in ("stencil_chain", "bow"):
+    print(f"build: {t_build:.2f} s (nvcc, sm_90a, {len(sources)} sources: {sources})")
+    for name in sources:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
@@ -213,118 +242,234 @@ def main() -> int:
         max_err["linear_score"] = max(max_err["linear_score"], err)
         results["checks"][f"linear_score {name}"] = err
 
+    def check_assign(name, desc, cents):
+        got_i, got_d2 = kbow.bow_assign(desc, cents)
+        want_i, want_d2 = kbow.bow_assign_plain(desc, cents)
+        torch.cuda.synchronize()
+        err = max(
+            float((got_i - want_i).abs().max()), float((got_d2 - want_d2).abs().max())
+        )
+        ties = int(near_tie_mask(desc, cents).sum())
+        print(
+            f"check bow_assign {name} {tuple(desc.shape)} K={cents.shape[0]}: "
+            f"max_abs_err={err:.3g} (idx and d2) near_ties={ties}"
+        )
+        check(err == 0.0, f"bow_assign {name}: differs from its plain version")
+        max_err["bow_assign"] = max(max_err["bow_assign"], err)
+        results["checks"][f"bow_assign {name}"] = {"max_abs_err": err, "near_ties": ties}
+        return got_i
+
+    def check_gbdt(name, x, m):
+        got_s, got_li = kgbdt.gbdt_score(x, m.feat, m.thr, m.leaf, m.base)
+        want_s, want_li = kgbdt.gbdt_score_plain(x, m.feat, m.thr, m.leaf, m.base)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got_s).all()), f"gbdt_score {name}: non-finite scores")
+        err = max(
+            float((got_s - want_s).abs().max()), float((got_li - want_li).abs().max())
+        )
+        print(
+            f"check gbdt_score {name} {tuple(x.shape)} trees={tuple(m.feat.shape)} "
+            f"C={m.leaf.shape[2]}: max_abs_err={err:.3g} (scores and leaf indices)"
+        )
+        check(err == 0.0, f"gbdt_score {name}: differs from its plain version")
+        max_err["gbdt_score"] = max(max_err["gbdt_score"], err)
+        results["checks"][f"gbdt_score {name}"] = err
+        return got_li
+
+    def unit_rows(*shape):
+        t = torch.rand(shape, generator=gen, device=dev)
+        return t / t.norm(dim=-1, keepdim=True)
+
     B, N, D, K, C = 1024, 32, 128, DICT_SIZE, 10
-    descs = torch.rand((B, N, D), generator=gen, device=dev)
-    descs = descs / descs.norm(dim=-1, keepdim=True)
+    descs = unit_rows(B, N, D)
     valids = torch.rand((B, N), generator=gen, device=dev) < 0.9
-    cents = torch.rand((K, D), generator=gen, device=dev)
-    cents = cents / cents.norm(dim=-1, keepdim=True)
+    cents = unit_rows(K, D)
     check_hist("random", descs, valids, cents)
     h = kbow.normalize_hist(kbow.quantize_hist_plain(descs, valids, cents))
     w = torch.randn((C, K), generator=gen, device=dev)
     b = torch.randn((C,), generator=gen, device=dev)
     check_score("random", h, w, b)
 
-    # -- 3. train on the CPU, by explicit request ------------------------------
-    cfg = PipelineConfig(preprocess=True, n_octaves=1, max_kp=32, head="svm")
+    # bow_assign at N = 32768, K = 250 (the last codebook tile has 26 words
+    # and 6 pad rows): word 249 duplicates word 3 and 64 descriptors sit on
+    # it, so their best two words tie exactly and the lower index must win
+    desc = unit_rows(32 * 1024, D)
+    cents_t = cents.clone()
+    cents_t[K - 1] = cents_t[3]
+    desc[:64] = cents_t[3] + 1e-4 * unit_rows(64, D)
+    idx = check_assign("random+ties", desc, cents_t)
+    check(bool((idx[:64] == 3).all()), "bow_assign: a tie did not go to the lower word")
+
+    # gbdt_score at B = 1024, F = 250, 16 trees of depth 3, 10 classes; the
+    # first 8 rows hold x == thr at every level of tree 0 (goes left: leaf 0)
+    T, depth = 16, 3
+    feat = torch.randint(0, K, (T, depth), generator=gen, device=dev, dtype=torch.int32)
+    feat[0] = torch.arange(depth, dtype=torch.int32, device=dev)
+    gm = GbdtModel(
+        feat,
+        torch.rand((T, depth), generator=gen, device=dev) * 0.02,
+        torch.randn((T, 2**depth, C), generator=gen, device=dev),
+        torch.randn((C,), generator=gen, device=dev),
+        C,
+    )
+    xg = kbow.normalize_hist(kbow.quantize_hist_plain(descs, valids, cents))
+    xg[:8, :depth] = gm.thr[0]
+    li = check_gbdt("random+boundary", xg.contiguous(), gm)
+    check(bool((li[:8, 0] == 0).all()), "gbdt_score: x == thr did not go left")
+
+    # -- 3. the training path on the card, once per head -----------------------
     stream = ImageStream(res=32)
     imgs, labels = stream.batch(N_TRAIN, split="train")
-    t0 = time.perf_counter()
-    model_cpu = pipeline.train(
-        imgs,
-        labels,
-        cfg,
-        dict_size=DICT_SIZE,
-        generator=torch.Generator().manual_seed(0),
-        device="cpu",
-    )
-    t_train = time.perf_counter() - t0
-    check(bool(torch.isfinite(model_cpu.centroids).all()), "train: non-finite centroids")
-    print(f"train (CPU): {N_TRAIN} images, K={DICT_SIZE}, {t_train:.1f} s")
-
-    # -- 4. the main path on the card: 4 requests through predict --------------
     test_imgs, test_labels = stream.batch(N_REQUESTS * PREDICT_BATCH, split="test")
-    batches = test_imgs.split(PREDICT_BATCH)
-    model_gpu = copy.deepcopy(model_cpu).to(dev)
-
-    preds, per_batch, walls = [], [], []
-    counters.reset()
-    for xb in batches:
-        before = counters.snapshot()
+    cfgs = {h: PipelineConfig(preprocess=True, n_octaves=1, max_kp=32, head=h) for h in HEADS}
+    path_counts = {}
+    models, models_cpu = {}, {}
+    for head, cfg in cfgs.items():
         timing = {}
         t0 = time.perf_counter()
-        pb = pipeline.predict(model_gpu, xb, cfg, device=dev, timing=timing)
-        walls.append(time.perf_counter() - t0)
-        after = counters.snapshot()
-        delta = {
-            kind: {k: after[kind][k] - before[kind][k] for k in counters.KERNELS}
-            for kind in ("launches", "plain_calls")
-        }
-        per_batch.append({"counters": delta, "timing": timing})
-        preds.append(pb)
-    main_path = counters.snapshot()
-    for i, pb in enumerate(per_batch):
-        c = pb["counters"]
-        check(all(c["launches"][k] >= 1 for k in counters.KERNELS), f"batch {i}: {c}")
-        check(all(v == 0 for v in c["plain_calls"].values()), f"batch {i}: plain ran: {c}")
-        stages_s = {k: round(v, 5) for k, v in pb["timing"].items()}
-        print(
-            f"predict batch {i}: launches={c['launches']} plain_calls={c['plain_calls']} "
-            f"stages_s={stages_s} wall_s={walls[i]:.4f}"
+        model, snap = counted(
+            counters,
+            lambda: pipeline.train(
+                imgs,
+                labels,
+                cfg,
+                dict_size=DICT_SIZE,
+                generator=torch.Generator().manual_seed(0),
+                device=dev,
+                timing=timing,
+            ),
         )
-    pred = torch.cat(preds).cpu()
-    check(pred.shape == (len(test_labels),), f"predict: shape {tuple(pred.shape)}")
-    acc = float((pred.long() == test_labels.long()).float().mean())
-    print(f"accuracy: {acc:.4f} on {len(pred)} test images (chance 0.1, required > 0.15)")
-    check(acc > 0.15, f"accuracy {acc} not above 0.15")
+        wall = time.perf_counter() - t0
+        expect_counts(f"train {head}", snap, {"stencil_chain": 2, "bow_assign": 21})
+        path_counts[f"train {head}"] = snap
+        check(bool(torch.isfinite(model.centroids).all()), f"train {head}: non-finite centroids")
+        stages = {k: round(v, 4) for k, v in timing.items()}
+        print(
+            f"train {head} (card): {N_TRAIN} images, K={DICT_SIZE}, wall_s={wall:.3f} "
+            f"stages_s={stages} launches={snap['launches']}"
+        )
+        t0 = time.perf_counter()
+        model_cpu = pipeline.train(
+            imgs,
+            labels,
+            cfg,
+            dict_size=DICT_SIZE,
+            generator=torch.Generator().manual_seed(0),
+            device="cpu",
+        )
+        t_cpu = time.perf_counter() - t0
+        print(f"train {head} (CPU, same seed): {t_cpu:.1f} s")
+        models[head], models_cpu[head] = model, model_cpu
+        results["train"][head] = {"wall_s": wall, "stages_s": timing, "cpu_s": t_cpu}
 
-    again = torch.cat([pipeline.predict(model_gpu, xb, cfg, device=dev) for xb in batches]).cpu()
-    check(torch.equal(pred, again), "labels differ between two runs on the card")
-    print("determinism: labels identical across two runs on the card")
+    # -- 4. the predict path on the card, once per head -------------------------
+    batches = test_imgs.split(PREDICT_BATCH)
+    test_feats_cpu = pipeline.extract_features(test_imgs, cfgs["svm"], device="cpu")
 
-    cpu_pred = pipeline.predict(model_cpu, test_imgs, cfg, device="cpu")
-    feats = pipeline.extract_features(test_imgs, cfg, device="cpu")
-    plan = classify.build_plan(model_cpu, cfg, device="cpu")
-    cpu_scores = plan.scores(plan.histograms(feats["desc"], feats["valid"]))
-    mism = torch.nonzero(cpu_pred != pred).flatten().tolist()
-    for i in mism:
-        gap = float(cpu_scores[i, cpu_pred[i]] - cpu_scores[i, pred[i]])
-        print(f"mismatch image {i}: card={int(pred[i])} cpu={int(cpu_pred[i])} cpu_gap={gap:.3g}")
-    # the card and the CPU run the same arithmetic except f32 atan2/sqrt in the
-    # descriptors, whose last ulp can move an orientation bin: allow 1%
-    print(f"card vs CPU plain predict: {len(mism)} of {len(pred)} labels differ (limit 1%)")
-    check(len(mism) <= 0.01 * len(pred), "card and CPU predictions disagree beyond 1%")
-    results["predict"] = {
-        "accuracy": acc,
-        "mismatches_vs_cpu": len(mism),
-        "train_s": t_train,
-        "batches": per_batch,
-        "wall_s": walls,
-        "main_path_counters": main_path,
+    def cpu_scores(model, cfg):
+        """What `pipeline.predict(model, test_imgs, device="cpu")` computes,
+        from the CPU features taken once."""
+        plan = classify.build_plan(copy.deepcopy(model).cpu(), cfg, device="cpu")
+        return plan.scores(plan.histograms(test_feats_cpu["desc"], test_feats_cpu["valid"]))
+
+    for head, cfg in cfgs.items():
+        model = models[head]
+        preds, per_batch, walls = [], [], []
+        path = {"launches": dict.fromkeys(counters.KERNELS, 0), "plain_calls": {}}
+        for i, xb in enumerate(batches):
+            timing = {}
+            t0 = time.perf_counter()
+            pb, snap = counted(
+                counters, lambda: pipeline.predict(model, xb, cfg, device=dev, timing=timing)
+            )
+            walls.append(time.perf_counter() - t0)
+            expect_counts(
+                f"predict {head} request {i}",
+                snap,
+                {"stencil_chain": 2, "bow_quantize_hist": 1, HEAD_KERNEL[head]: 1},
+            )
+            for k, v in snap["launches"].items():
+                path["launches"][k] += v
+            per_batch.append({"counters": snap, "timing": timing})
+            preds.append(pb)
+            stages_s = {k: round(v, 5) for k, v in timing.items()}
+            print(
+                f"predict {head} request {i}: launches={snap['launches']} "
+                f"plain_calls={snap['plain_calls']} stages_s={stages_s} wall_s={walls[i]:.4f}"
+            )
+        path_counts[f"predict {head}"] = path
+        pred = torch.cat(preds).cpu()
+        check(pred.shape == (len(test_labels),), f"predict {head}: shape {tuple(pred.shape)}")
+        acc = float((pred.long() == test_labels.long()).float().mean())
+        acc_cpu = float(
+            (cpu_scores(models_cpu[head], cfg).argmax(1) == test_labels.long()).float().mean()
+        )
+        print(
+            f"accuracy {head}: card-trained {acc:.4f}, CPU-trained {acc_cpu:.4f} on "
+            f"{len(pred)} test images (chance 0.1; required > 0.15 and within 0.05)"
+        )
+        check(acc > 0.15, f"accuracy {head} {acc} not above 0.15")
+        check(abs(acc - acc_cpu) <= 0.05, f"accuracy {head}: card {acc} vs CPU-trained {acc_cpu}")
+
+        again = torch.cat([pipeline.predict(model, xb, cfg, device=dev) for xb in batches]).cpu()
+        check(torch.equal(pred, again), f"{head}: labels differ between two runs on the card")
+        print(f"determinism {head}: labels identical across two runs on the card")
+
+        scores = cpu_scores(model, cfg)
+        cpu_pred = scores.argmax(1).to(torch.int32)
+        mism = torch.nonzero(cpu_pred != pred).flatten().tolist()
+        for i in mism:
+            gap = float(scores[i, cpu_pred[i]] - scores[i, pred[i]])
+            print(f"mismatch {head} image {i}: card={int(pred[i])} cpu={int(cpu_pred[i])} "
+                  f"cpu_gap={gap:.3g}")
+        # the card and the CPU run the same arithmetic except f32 atan2/sqrt in
+        # the descriptors, whose last ulp can move an orientation bin: allow 1%
+        print(f"card vs CPU plain predict {head}: {len(mism)} of {len(pred)} labels differ "
+              "(limit 1%)")
+        check(len(mism) <= 0.01 * len(pred), f"{head}: card and CPU predictions disagree")
+        results["predict"][head] = {
+            "accuracy": acc,
+            "accuracy_cpu_trained": acc_cpu,
+            "mismatches_vs_cpu": len(mism),
+            "batches": per_batch,
+            "wall_s": walls,
+        }
+    main_launches = {
+        k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
+    results["path_counts"] = path_counts
+    print(f"main-path launches (training x2 + predict x2): {main_launches}")
+    check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 5. timing at the main path's shapes ----------------------------------
+    # -- 5. the kernels on the paths' own tensors, then timing ------------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
-    det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfg.max_kp)
+    det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
     d = features.describe_keypoints(det)
     qd, qv = d["desc"].contiguous(), d["valid"]
-    cents_g = model_gpu.centroids.contiguous()
+    m_svm, m_gbdt = models["svm"], models["gbdt"].gbdt
+    cents_g = models["svm"].centroids.contiguous()
     hist = kbow.bow_quantize_hist(qd, qv, cents_g)
-    wg, bg = model_gpu.w.contiguous(), model_gpu.b.contiguous()
-    # each kernel against its plain version on the main path's own tensors
+    hist_g = kbow.bow_quantize_hist(qd, qv, models["gbdt"].centroids.contiguous())
+    wg, bg = m_svm.w.contiguous(), m_svm.b.contiguous()
+    train_desc = pipeline.extract_features(imgs, cfgs["svm"], device=dev)["desc"]
+    train_desc = train_desc.reshape(-1, train_desc.shape[-1]).contiguous()
+    # each kernel against its plain version on the paths' own tensors
     check_chain("preprocess main path", xb, pre_chain)
     check_chain("octave main path", gray[..., None], oct_chain)
     check_hist("main path", qd, qv, cents_g)
     check_score("main path", hist, wg, bg)
+    check_assign("training descriptors", train_desc, cents_g)
+    check_gbdt("main path", hist_g, m_gbdt)
     f32 = 4
     pre_planes = ref.to_planes(xb)
     oct_planes = ref.to_planes(gray[..., None])
     n_pre, n_oct = pre_planes.numel(), oct_planes.numel()
+    n_tr, k_w = train_desc.shape[0], cents_g.shape[0]
+    g_out = hist_g.shape[0] * (m_gbdt.leaf.shape[2] + m_gbdt.feat.shape[0])
     kernels = [
         {
             "name": "stencil_chain",
-            "route": "cuda",
             "source": "src/repro_torch/csrc/stencil_chain.cu",
             "replaces": "src/repro/kernels/stencil/exec_window.py:427",
             "run": lambda: (
@@ -339,10 +484,10 @@ def main() -> int:
             # both launches of a request: inputs read once, every band written once
             "bytes": f32 * (2 * n_pre + n_oct * (1 + len(oct_chain))),
             "flops": n_pre * chain_flops(pre_chain) + n_oct * chain_flops(oct_chain),
+            "shape": f"request of {PREDICT_BATCH} images",
         },
         {
             "name": "bow_quantize_hist",
-            "route": "cuda",
             "source": "src/repro_torch/csrc/bow.cu",
             "replaces": "src/repro/kernels/bow.py:135",
             "run": lambda: kbow.bow_quantize_hist(qd, qv, cents_g),
@@ -350,10 +495,10 @@ def main() -> int:
             "library": None,
             "bytes": f32 * (qd.numel() + qv.numel() + cents_g.numel() + hist.numel()),
             "flops": 2 * qd.shape[0] * qd.shape[1] * cents_g.shape[0] * qd.shape[2],
+            "shape": f"request of {PREDICT_BATCH} images",
         },
         {
             "name": "linear_score",
-            "route": "cuda",
             "source": "src/repro_torch/csrc/bow.cu",
             "replaces": "src/repro/kernels/bow.py:227",
             "run": lambda: kbow.linear_score(hist, wg, bg),
@@ -361,6 +506,41 @@ def main() -> int:
             "library": lambda: torch.addmm(bg, hist, wg.T),
             "bytes": f32 * (hist.numel() + wg.numel() + bg.numel() + hist.shape[0] * wg.shape[0]),
             "flops": 2 * hist.shape[0] * wg.shape[0] * wg.shape[1],
+            "shape": f"request of {PREDICT_BATCH} images",
+        },
+        {
+            "name": "bow_assign",
+            "source": "src/repro_torch/csrc/bow.cu",
+            "replaces": "src/repro/kernels/bow.py:55",
+            "run": lambda: kbow.bow_assign(train_desc, cents_g),
+            "plain": lambda: kbow.bow_assign_plain(train_desc, cents_g),
+            "library": None,
+            # descriptors and codebook read once; word index (i32) and d2 written once
+            "bytes": f32 * (train_desc.numel() + cents_g.numel() + 2 * n_tr),
+            "flops": 2 * n_tr * k_w * train_desc.shape[1],
+            "shape": f"one assignment of the {n_tr} training descriptors",
+        },
+        {
+            "name": "gbdt_score",
+            "source": "src/repro_torch/csrc/gbdt.cu",
+            "replaces": "src/repro/kernels/gbdt.py:42",
+            "run": lambda: kgbdt.gbdt_score(
+                hist_g, m_gbdt.feat, m_gbdt.thr, m_gbdt.leaf, m_gbdt.base
+            ),
+            "plain": lambda: kgbdt.gbdt_score_plain(
+                hist_g, m_gbdt.feat, m_gbdt.thr, m_gbdt.leaf, m_gbdt.base
+            ),
+            "library": None,
+            "bytes": f32
+            * (
+                hist_g.numel()
+                + sum(t.numel() for t in (m_gbdt.feat, m_gbdt.thr, m_gbdt.leaf, m_gbdt.base))
+                + g_out
+            ),
+            # one compare per (row, tree, level), one add per (row, tree, class) + the base
+            "flops": hist_g.shape[0]
+            * (m_gbdt.feat.numel() + m_gbdt.leaf.shape[0] * m_gbdt.leaf.shape[2] + m_gbdt.leaf.shape[2]),
+            "shape": f"request of {PREDICT_BATCH} images",
         },
     ]
     lib_check = torch.addmm(bg, hist, wg.T)
@@ -377,10 +557,10 @@ def main() -> int:
         bms, by = bound_ms(k["bytes"], k["flops"])
         entry = {
             "name": k["name"],
-            "route": k["route"],
+            "route": "cuda",
             "source": k["source"],
             "replaces": k["replaces"],
-            "launches": main_path["launches"][k["name"]],
+            "launches": main_launches[k["name"]],
             "max_abs_err": max_err[k["name"]],
             "ms": min(k1, k2),
             "plain_ms": min(p1, p2),
@@ -390,7 +570,7 @@ def main() -> int:
         }
         line.append(entry)
         print(
-            f"time {k['name']} batch={PREDICT_BATCH}: ms={k1:.5f}/{k2:.5f} "
+            f"time {k['name']} ({k['shape']}): ms={k1:.5f}/{k2:.5f} "
             f"plain_ms={p1:.4f}/{p2:.4f} "
             f"library_ms={lib} bound_ms={bms:.5f} ({by}; {k['bytes']} B, {k['flops']} FLOP) "
             f"card={card}"

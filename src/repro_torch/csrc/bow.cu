@@ -1,4 +1,13 @@
-// The BoW classifier tail: quantize + histogram, then the linear SVM score.
+// The BoW kernels: nearest-word assignment for training, and the classifier
+// tail (quantize + histogram, then the linear SVM score).
+//
+// bow_assign replaces src/repro/kernels/bow.py `_bow_kernel` (via
+// `bow_assign`).  Bound on an H100: operations.  At the training shape
+// (N = 32000 descriptors of D = 128 against K = 250 words) it does
+// 2*N*K*D = 2.05 GFLOP of fp32 and moves ~16.8 MB.  Design: the nearest-word
+// search of bow_quantize_hist (below), over the flattened descriptor rows,
+// writing each descriptor's word index and min + |d|^2 instead of adding
+// into a histogram; the (N, K) score matrix never reaches device memory.
 //
 // bow_quantize_hist replaces src/repro/kernels/bow.py `_hist_kernel` (via
 // `bow_quantize_hist`).  Bound on an H100: operations.  At the predict
@@ -18,7 +27,7 @@
 // ~5 MFLOP at the predict batch.  Design: one thread per (image, class),
 // looping over K in order, then adding the bias.
 //
-// Arithmetic (both kernels): fp32 on CUDA cores, no tensor cores, no TF32;
+// Arithmetic (every kernel here): fp32 on CUDA cores, no tensor cores, no TF32;
 // every product and sum is rounded on its own (__fmul_rn / __fadd_rn, no
 // FMA contraction), in ascending index order, as the plain PyTorch
 // versions in kernels/bow.py compute them.
@@ -28,27 +37,30 @@
 
 namespace {
 
-__global__ void quantize_hist_kernel(const float* __restrict__ descs,
-                                     const float* __restrict__ valids,
-                                     const float* __restrict__ cents, float* __restrict__ hist,
-                                     int N, int D, int K, int bn, int tk, int n_blocks) {
+// Loads the block's descriptors (rows row0 .. row0 + n_valid - 1 of a
+// row-major (rows, D) matrix; bn slots, zero past n_valid) into shared
+// memory and finds each one's nearest word: the minimum over k of
+// s = -2 d.c_k + |c_k|^2, ties to the lowest k.  Every thread of the block
+// must call it; on return, every lane of descriptor slot `i` holds the
+// slot's minimum and word.  Returns the slot's descriptor row in shared
+// memory.
+__device__ const float* nearest_words(const float* __restrict__ descs,
+                                      const float* __restrict__ cents, size_t row0,
+                                      int n_valid, int D, int K, int bn, int tk, int i, int lane,
+                                      int lanes, float& best, int& best_k) {
   extern __shared__ float sm[];
   const int ds = D + 1;  // padded row: a warp's lanes read distinct banks
   float* d_s = sm;                // bn x ds descriptors
   float* c_s = d_s + bn * ds;     // tk x ds codebook tile
   float* c2_s = c_s + tk * ds;    // tk |c|^2, +inf past K
-  const int b = blockIdx.x / n_blocks;
-  const int n0 = (blockIdx.x - b * n_blocks) * bn;
-  const int lanes = blockDim.x / bn;
-  const int i = threadIdx.x / lanes, lane = threadIdx.x - i * lanes;
 
   for (int e = threadIdx.x; e < bn * D; e += blockDim.x) {
-    const int r = e / D, q = e - r * D, n = n0 + r;
-    d_s[r * ds + q] = n < N ? descs[(size_t(b) * N + n) * D + q] : 0.f;
+    const int r = e / D, q = e - r * D;
+    d_s[r * ds + q] = r < n_valid ? descs[(row0 + r) * D + q] : 0.f;
   }
 
-  float best = CUDART_INF_F;
-  int best_k = 0;
+  best = CUDART_INF_F;
+  best_k = 0;
   for (int k0 = 0; k0 < K; k0 += tk) {
     __syncthreads();  // the previous tile is consumed (and d_s is loaded)
     for (int e = threadIdx.x; e < tk * D; e += blockDim.x) {
@@ -84,10 +96,44 @@ __global__ void quantize_hist_kernel(const float* __restrict__ descs,
       best_k = ok;
     }
   }
+  return d_s + i * ds;
+}
+
+__global__ void quantize_hist_kernel(const float* __restrict__ descs,
+                                     const float* __restrict__ valids,
+                                     const float* __restrict__ cents, float* __restrict__ hist,
+                                     int N, int D, int K, int bn, int tk, int n_blocks) {
+  const int b = blockIdx.x / n_blocks;
+  const int n0 = (blockIdx.x - b * n_blocks) * bn;
+  const int lanes = blockDim.x / bn;
+  const int i = threadIdx.x / lanes, lane = threadIdx.x - i * lanes;
+  float best;
+  int best_k;
+  nearest_words(descs, cents, size_t(b) * N + n0, N - n0, D, K, bn, tk, i, lane, lanes, best,
+                best_k);
   const int n = n0 + i;
   if (lane == 0 && n < N) {
     const float wv = valids[size_t(b) * N + n];
     if (wv != 0.f) atomicAdd(hist + size_t(b) * K + best_k, wv);
+  }
+}
+
+__global__ void bow_assign_kernel(const float* __restrict__ descs,
+                                  const float* __restrict__ cents, int* __restrict__ idx,
+                                  float* __restrict__ d2, int N, int D, int K, int bn, int tk) {
+  const int n0 = blockIdx.x * bn;
+  const int lanes = blockDim.x / bn;
+  const int i = threadIdx.x / lanes, lane = threadIdx.x - i * lanes;
+  float best;
+  int best_k;
+  const float* d = nearest_words(descs, cents, size_t(n0), N - n0, D, K, bn, tk, i, lane, lanes,
+                                 best, best_k);
+  const int n = n0 + i;
+  if (lane == 0 && n < N) {
+    float dd = __fmul_rn(d[0], d[0]);
+    for (int q = 1; q < D; ++q) dd = __fadd_rn(dd, __fmul_rn(d[q], d[q]));
+    idx[n] = best_k;
+    d2[n] = __fadd_rn(best, dd);
   }
 }
 
@@ -109,6 +155,10 @@ __global__ void linear_score_kernel(const float* __restrict__ h, const float* __
 
 }  // namespace
 
+static size_t nearest_words_smem(int D, int bn, int tk) {
+  return (size_t(bn + tk) * (D + 1) + tk) * sizeof(float);
+}
+
 // hist (B, K) must be zeroed by the caller.  Returns cudaGetLastError().
 extern "C" int quantize_hist_launch(const float* descs, const float* valids, const float* cents,
                                     float* hist, int B, int N, int D, int K, int bn, int tk,
@@ -117,12 +167,28 @@ extern "C" int quantize_hist_launch(const float* descs, const float* valids, con
   const long long blocks = (long long)B * n_blocks;
   if (blocks == 0 || K == 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  const size_t smem = (size_t(bn + tk) * (D + 1) + tk) * sizeof(float);
+  const size_t smem = nearest_words_smem(D, bn, tk);
   cudaError_t err = cudaFuncSetAttribute(
       quantize_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   quantize_hist_kernel<<<unsigned(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       descs, valids, cents, hist, N, D, K, bn, tk, n_blocks);
+  return int(cudaGetLastError());
+}
+
+// idx (N,) i32 and d2 (N,) f32 are written for every row.  Returns
+// cudaGetLastError().
+extern "C" int bow_assign_launch(const float* descs, const float* cents, int* idx, float* d2,
+                                 int N, int D, int K, int bn, int tk, int threads, void* stream) {
+  const long long blocks = (N + (long long)bn - 1) / bn;
+  if (blocks == 0 || K == 0) return 0;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  const size_t smem = nearest_words_smem(D, bn, tk);
+  cudaError_t err = cudaFuncSetAttribute(
+      bow_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  bow_assign_kernel<<<unsigned(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      descs, cents, idx, d2, N, D, K, bn, tk);
   return int(cudaGetLastError());
 }
 

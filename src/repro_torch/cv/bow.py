@@ -1,27 +1,30 @@
 """Bag-of-visual-words training: k-means dictionary + word histograms (the
 counterpart of `repro.cv.bow`).
 
-Plain PyTorch on the CPU.  Their kernel, `bow_assign`, belongs to the
-training slice (ROADMAP: "`bow_assign` and training on the card"), so
-`cv.pipeline.train` runs them only on the CPU for now.
+Both assign descriptors to words through `kernels.bow.bow_assign`: the
+kernel for a CUDA tensor, its plain version for a CPU tensor.  The rest is
+plain PyTorch on the descriptors' device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels import ref as kref
+from ..kernels import bow as kbow
 
 
-def _init_indices(weights: torch.Tensor, k: int, generator) -> torch.Tensor:
+def _init_indices(weights: torch.Tensor, k: int, generator: torch.Generator) -> torch.Tensor:
     """k distinct indices drawn with probability proportional to `weights`
-    (Gumbel top-k), uniform when every weight is zero."""
-    n = weights.shape[0]
-    total = torch.sum(weights)
-    p = weights / torch.clamp(total, min=1e-6) if total > 0 else torch.full((n,), 1.0 / n)
+    (Gumbel top-k), uniform when every weight is zero.  The noise comes from
+    the CPU `generator` on the CPU, so one seed picks the same indices
+    whatever device the weights lie on; they are returned on that device."""
+    w = weights.detach().to("cpu", torch.float32)
+    n = w.shape[0]
+    total = torch.sum(w)
+    p = w / torch.clamp(total, min=1e-6) if total > 0 else torch.full((n,), 1.0 / n)
     u = torch.rand(n, generator=generator, dtype=torch.float64).clamp(min=1e-300)
     keys = torch.log(p.to(torch.float64)) - torch.log(-torch.log(u))
-    return torch.sort(keys, descending=True, stable=True).indices[:k]
+    return torch.sort(keys, descending=True, stable=True).indices[:k].to(weights.device)
 
 
 def kmeans(
@@ -33,22 +36,27 @@ def kmeans(
     generator: torch.Generator | None = None,
     init: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Lloyd's k-means over descriptors (N, D) with sample weights (N,).
+    """Lloyd's k-means over descriptors (N, D) with sample weights (N,), on
+    the descriptors' device.
 
     Returns centroids (k, D).  `init` gives the starting centroids (else k
-    weighted draws from `desc` with `generator`).  Empty clusters keep their
-    previous centroid.
+    weighted draws from `desc` with the CPU `generator`, seed 0 when None).
+    Empty clusters keep their previous centroid.  Each iteration assigns
+    through `kernels.bow.bow_assign` (argmin of -2 d.c + |c|^2, one launch on
+    the card), where JAX's `kmeans` assigns by the true squared distance
+    (`kernels.ref.bow_assign_ref`): the two pick different words only where
+    two distances lie within rounding of each other.
     """
-    desc = desc.to(torch.float32)
+    desc = desc.to(torch.float32).contiguous()
     weights = weights.to(torch.float32)
     if init is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         cents = desc[_init_indices(weights, k, generator)]
     else:
-        cents = init.to(torch.float32)
+        cents = init.to(device=desc.device, dtype=torch.float32)
     for _ in range(iters):
-        idx, _ = kref.bow_assign_ref(desc, cents)
+        idx, _ = kbow.bow_assign(desc, cents.contiguous())
         oh = torch.nn.functional.one_hot(idx.long(), k).to(torch.float32) * weights[:, None]
         counts = torch.sum(oh, dim=0)
         sums = oh.T @ desc
@@ -59,9 +67,13 @@ def kmeans(
 
 def histograms(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Normalised word histograms: descs (B, N, D) + valids (B, N) -> (B, K),
-    assigning by true squared distance (`kernels.ref.bow_assign_ref`)."""
+    assigning through `kernels.bow.bow_assign`, as JAX's default
+    (``use_kernel=True``) does."""
     B, N, D = descs.shape
-    idx, _ = kref.bow_assign_ref(descs.reshape(B * N, D).to(torch.float32), centroids)
+    idx, _ = kbow.bow_assign(
+        descs.reshape(B * N, D).to(torch.float32).contiguous(),
+        centroids.to(torch.float32).contiguous(),
+    )
     h = torch.zeros((B, centroids.shape[0]), dtype=torch.float32, device=descs.device)
     h.scatter_add_(1, idx.long().reshape(B, N), valids.to(torch.float32))
-    return h / torch.clamp(torch.sum(h, dim=1, keepdim=True), min=1e-6)
+    return kbow.normalize_hist(h)

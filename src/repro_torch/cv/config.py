@@ -25,8 +25,8 @@ class PipelineConfig:
     n_octaves: >1 routes detection through the multi-octave pyramid
         (queued in the port).
     mode: fused-chain execution plan (`kernels.stencil.MODES`).
-    head: classifier head; "svm" (one-vs-rest linear) is ported, "gbdt"
-        is queued.
+    head: classifier head that `cv.pipeline.train` fits: "svm" (one-vs-rest
+        linear) or "gbdt" (oblivious-tree ensemble).
     classify_mode: `ClassifyPlan` mode, "fused" or "ref"; None = "fused".
     lc: the kernels' launch configuration (`core.device.LaunchConfig`).
     """

@@ -1,11 +1,15 @@
 """End-to-end BoW image-classification pipeline, paper §4.5 (the counterpart
 of `repro.cv.pipeline`).
 
+Training: SIFT keypoints -> descriptors -> k-means dictionary -> word
+histograms -> classifier head (one-vs-rest SVM or oblivious-tree GBDT),
+on the card: the stencil chains as in prediction, and every word
+assignment of k-means and of the histograms one `bow_assign` launch.
 Prediction, the timed path: (I) keypoint detection, with the optional
 fused preprocess chain and the octave chain each one `stencil_chain`
 launch per batch; (II) descriptors and the word histograms
-(`bow_quantize_hist`); (III) the SVM scores (`linear_score`) and argmax.
-Training fits the dictionary and the SVM in plain PyTorch on the CPU.
+(`bow_quantize_hist`); (III) the head's scores (`linear_score` or
+`gbdt_score`) and argmax.
 
 Every entry point takes ``device=None`` (= ``"cuda"``, raising
 `RuntimeError` when there is no CUDA device); pass ``device="cpu"`` to run
@@ -21,6 +25,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from . import bow, classify, features, imgproc, svm
+from . import gbdt as gbdt_mod
 from .config import PipelineConfig
 
 
@@ -32,6 +37,16 @@ class BowSvmModel(nn.Module):
         self.register_buffer("centroids", torch.as_tensor(centroids, dtype=torch.float32))
         self.register_buffer("w", torch.as_tensor(w, dtype=torch.float32))
         self.register_buffer("b", torch.as_tensor(b, dtype=torch.float32))
+        self.n_classes = int(n_classes)
+
+
+class BowGbdtModel(nn.Module):
+    """Trained BoW model: the word dictionary and the oblivious-tree GBDT."""
+
+    def __init__(self, centroids, gbdt: gbdt_mod.GbdtModel, n_classes: int):
+        super().__init__()
+        self.register_buffer("centroids", torch.as_tensor(centroids, dtype=torch.float32))
+        self.gbdt = gbdt
         self.n_classes = int(n_classes)
 
 
@@ -90,29 +105,46 @@ def train(
     dict_size: int = 250,
     generator: torch.Generator | None = None,
     device=None,
-) -> BowSvmModel:
-    """Fit the dictionary and the SVM head.  Runs on the CPU only for now."""
+    timing: dict | None = None,
+):
+    """Fit the dictionary and the configured head on `device` (None = the
+    card).  Returns a `BowSvmModel` (``config.head == "svm"``) or a
+    `BowGbdtModel` (``"gbdt"``).  `generator` is a CPU generator that
+    seeds the k-means initialisation (seed 0 when None).  `timing`, when
+    given, receives the seconds of the "features", "kmeans", "histograms"
+    and "head" stages."""
     cfg = config if config is not None else PipelineConfig()
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        raise NotImplementedError(
-            "train on a CUDA device waits for the bow_assign kernel "
-            "(ROADMAP: `bow_assign` and training on the card); pass device='cpu'"
-        )
-    if cfg.head != "svm":
-        raise NotImplementedError(f"train: the {cfg.head!r} head is not ported yet")
+    t0 = time.perf_counter()
     feats = extract_features(imgs, cfg, device=dev)
     B, N, D = feats["desc"].shape
     desc = feats["desc"].reshape(B * N, D)
     wts = feats["valid"].reshape(B * N).to(torch.float32)
+    _sync(dev)
+    t1 = time.perf_counter()
     cents = bow.kmeans(desc, wts, k=dict_size, generator=generator)
+    _sync(dev)
+    t2 = time.perf_counter()
     hists = bow.histograms(feats["desc"], feats["valid"], cents)
-    model = svm.svm_train(hists, _on_device(labels, dev), n_classes=n_classes)
-    return BowSvmModel(cents, model["w"], model["b"], n_classes)
+    _sync(dev)
+    t3 = time.perf_counter()
+    y = _on_device(labels, dev)
+    if cfg.head == "gbdt":
+        model = BowGbdtModel(cents, gbdt_mod.gbdt_train(hists, y, n_classes=n_classes), n_classes)
+    else:
+        head = svm.svm_train(hists, y, n_classes=n_classes)
+        model = BowSvmModel(cents, head["w"], head["b"], n_classes)
+    _sync(dev)
+    if timing is not None:
+        timing["features"] = t1 - t0
+        timing["kmeans"] = t2 - t1
+        timing["histograms"] = t3 - t2
+        timing["head"] = time.perf_counter() - t3
+    return model
 
 
 def predict(
-    model: BowSvmModel,
+    model,
     imgs,
     config: PipelineConfig | None = None,
     *,
@@ -121,8 +153,9 @@ def predict(
     timing: dict | None = None,
     plan: classify.ClassifyPlan | None = None,
 ) -> torch.Tensor:
-    """The paper's three timed test stages; returns labels (B,) i32 on the
-    device.  Pass ``plan=`` to reuse a ClassifyPlan built on that device."""
+    """The paper's three timed test stages for a `BowSvmModel` or a
+    `BowGbdtModel`; returns labels (B,) i32 on the device.  Pass ``plan=`` to
+    reuse a ClassifyPlan built on that device."""
     cfg = config if config is not None else PipelineConfig()
     dev = resolve_device(device)
     imgs = _on_device(imgs, dev)

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -106,3 +108,20 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device that all ``tensors`` lie on; raise unless each is
+    a contiguous float32 tensor there."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous float32 tensors, got {t.dtype}")
+    return dev
+
+
+def cuda_stream(dev: torch.device) -> int:
+    """The raw ``cudaStream_t`` of ``dev``'s current stream, for a launcher."""
+    return torch.cuda.current_stream(dev).cuda_stream

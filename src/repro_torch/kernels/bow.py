@@ -1,5 +1,12 @@
-"""The BoW classifier tail on the card: quantize + histogram, then the linear
-SVM score (the counterpart of `repro.kernels.bow`).
+"""The BoW kernels on the card: nearest-word assignment for training, then the
+classifier tail, quantize + histogram and the linear SVM score (the
+counterpart of `repro.kernels.bow`).
+
+`bow_assign` replaces `repro.kernels.bow._bow_kernel` (TPU, Pallas).  Bound
+on an H100: operations, 2*N*K*D fp32 dot-product FLOP on CUDA cores (2.05
+GFLOP at the training shape, N = 32000), against ~16.8 MB moved.  Design:
+the nearest-word search of `bow_quantize_hist` over the flattened
+descriptor rows, writing each row's word index and min + |d|^2.
 
 `bow_quantize_hist` replaces `repro.kernels.bow._hist_kernel` (TPU,
 Pallas).  Bound on an H100: operations, 2*B*N*K*D fp32 dot-product FLOP on
@@ -13,7 +20,7 @@ JAX.
 `linear_score` replaces `repro.kernels.bow._score_kernel`.  Bound on an
 H100: launch latency (~5 MFLOP).  Design: one thread per (image, class).
 
-Both kernels compute in fp32 on CUDA cores with every product and sum
+The kernels compute in fp32 on CUDA cores with every product and sum
 rounded on its own, in ascending index order; the plain versions here do
 the same arithmetic in PyTorch, so the card's kernels and the plain
 versions agree bit for bit (``csrc/bow.cu``).
@@ -29,7 +36,7 @@ import torch
 from ..core.device import DEFAULT, LaunchConfig
 from . import _build, counters
 
-DESC_BLOCK = 32  # descriptors per bow_quantize_hist block (one per lane group)
+DESC_BLOCK = 32  # descriptors per block of the nearest-word search (one per lane group)
 CODE_TILE = 32  # codebook rows staged through shared memory at a time
 
 
@@ -47,6 +54,32 @@ def _sequential_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """|x_m|^2 of every row of x (M, D), summed in the kernels' order."""
+    acc = x[:, 0] * x[:, 0]
+    for q in range(1, x.shape[1]):
+        acc = acc + x[:, q] * x[:, q]
+    return acc
+
+
+def _word_scores(d: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """s = -2 d.c + |c|^2: d (M, D), centroids (K, D) -> (M, K), in the
+    kernels' order and rounding."""
+    c = centroids.to(torch.float32)
+    return -2.0 * _sequential_dot(d.to(torch.float32), c) + _sq_norms(c)[None, :]
+
+
+def bow_assign_plain(desc: torch.Tensor, centroids: torch.Tensor):
+    """Plain version of the assignment kernel: desc (N, D), centroids (K, D)
+    -> (word index (N,) i32, min s + |d|^2 (N,) f32), ties to the lowest
+    word."""
+    counters.PLAIN_CALLS["bow_assign"] += 1
+    d = desc.to(torch.float32)
+    s = _word_scores(d, centroids)
+    idx = torch.argmin(s, dim=1)
+    return idx.to(torch.int32), torch.gather(s, 1, idx[:, None])[:, 0] + _sq_norms(d)
+
+
 def quantize_hist_plain(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor):
     """Plain version of the quantize + histogram kernel: descs (B, N, D),
     valids (B, N), centroids (K, D) -> unnormalised word counts (B, K)."""
@@ -56,12 +89,7 @@ def quantize_hist_plain(descs: torch.Tensor, valids: torch.Tensor, centroids: to
     h = torch.zeros((B, K), dtype=torch.float32, device=descs.device)
     if B * N == 0 or K == 0:
         return h
-    c = centroids.to(torch.float32)
-    c2 = c[:, 0] * c[:, 0]
-    for q in range(1, D):
-        c2 = c2 + c[:, q] * c[:, q]
-    s = -2.0 * _sequential_dot(descs.to(torch.float32).reshape(B * N, D), c) + c2[None, :]
-    idx = torch.argmin(s, dim=1).reshape(B, N)
+    idx = torch.argmin(_word_scores(descs.reshape(B * N, D), centroids), dim=1).reshape(B, N)
     h.scatter_add_(1, idx, valids.to(torch.float32))
     return h
 
@@ -80,6 +108,8 @@ def linear_score_plain(hists: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
 
 # C signatures in csrc/bow.cu: pointers and the stream as c_void_p, ints as c_int
 LAUNCH_ARGTYPES = {
+    # (descs, cents, idx, d2, N, D, K, bn, tk, threads, stream)
+    "bow_assign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     # (descs, valids, cents, hist, B, N, D, K, bn, tk, threads, stream)
     "quantize_hist_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     # (h, w, bias, out, B, K, C, threads, stream)
@@ -90,27 +120,59 @@ LAUNCH_ARGTYPES = {
 @functools.cache
 def _launchers():
     lib = _build.library("bow")
-    fns = []
+    fns = {}
     for name, argtypes in LAUNCH_ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns.append(fn)
-    return tuple(fns)
+        fns[name] = fn
+    return fns
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous float32 tensors, got {t.dtype}")
-    return dev
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def bow_assign(desc: torch.Tensor, centroids: torch.Tensor, *, lc: LaunchConfig = DEFAULT):
+    """Nearest word of every descriptor: desc (N, D) or (B, N, D), centroids
+    (K, D) f32 -> (word index i32, min s + |d|^2 f32) with the input's
+    leading shape, in one launch.  N = 0 returns empty tensors and launches
+    nothing.  A CPU tensor runs the plain version; any other tensor launches
+    the kernel or raises."""
+    if desc.ndim == 3:  # flattened into one (B*N, D) launch, as JAX does
+        B, N, D = desc.shape
+        idx, d2 = bow_assign(desc.reshape(B * N, D), centroids, lc=lc)
+        return idx.reshape(B, N), d2.reshape(B, N)
+    if desc.ndim != 2 or centroids.ndim != 2 or desc.shape[1] != centroids.shape[1]:
+        raise ValueError(f"bow_assign: shapes {tuple(desc.shape)} / {tuple(centroids.shape)}")
+    N, D = desc.shape
+    K = centroids.shape[0]
+    if K == 0 or D == 0:
+        raise ValueError(f"bow_assign: needs K >= 1 words of D >= 1, got ({K}, {D})")
+    if N == 0:
+        return (
+            torch.zeros((0,), dtype=torch.int32, device=desc.device),
+            torch.zeros((0,), dtype=torch.float32, device=desc.device),
+        )
+    if desc.device.type == "cpu":
+        return bow_assign_plain(desc, centroids)
+    launch = _launchers()["bow_assign_launch"]
+    dev = _build.check_cuda("bow_assign", desc, centroids)
+    idx = torch.empty((N,), dtype=torch.int32, device=dev)
+    d2 = torch.empty((N,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = launch(
+            desc.data_ptr(),
+            centroids.data_ptr(),
+            idx.data_ptr(),
+            d2.data_ptr(),
+            N,
+            D,
+            K,
+            DESC_BLOCK,
+            CODE_TILE,
+            lc.threads,
+            _build.cuda_stream(dev),
+        )
+    _build.check(err, "bow_assign")
+    counters.LAUNCHES["bow_assign"] += 1
+    return idx, d2
 
 
 def bow_quantize_hist(
@@ -127,7 +189,7 @@ def bow_quantize_hist(
     if descs.device.type == "cpu":
         h = quantize_hist_plain(descs, valids, centroids)
         return normalize_hist(h) if normalize else h
-    qh, _ = _launchers()
+    qh = _launchers()["quantize_hist_launch"]
     if descs.ndim != 3 or centroids.ndim != 2 or descs.shape[2] != centroids.shape[1]:
         raise ValueError(
             f"bow_quantize_hist: shapes {tuple(descs.shape)} / {tuple(centroids.shape)}"
@@ -137,7 +199,7 @@ def bow_quantize_hist(
     if valids.shape != (B, N) or D == 0:
         raise ValueError(f"bow_quantize_hist: valids {tuple(valids.shape)} for descs ({B}, {N})")
     w = valids.to(torch.float32).contiguous()
-    dev = _check_cuda("bow_quantize_hist", descs, w, centroids)
+    dev = _build.check_cuda("bow_quantize_hist", descs, w, centroids)
     h = torch.zeros((B, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = qh(
@@ -152,7 +214,7 @@ def bow_quantize_hist(
             DESC_BLOCK,
             CODE_TILE,
             lc.threads,
-            _stream(dev),
+            _build.cuda_stream(dev),
         )
     _build.check(err, "bow_quantize_hist")
     counters.LAUNCHES["bow_quantize_hist"] += 1
@@ -167,12 +229,12 @@ def linear_score(
     launches the kernel or raises."""
     if hists.device.type == "cpu":
         return linear_score_plain(hists, w, b)
-    _, ls = _launchers()
+    ls = _launchers()["linear_score_launch"]
     if hists.ndim != 2 or w.ndim != 2 or w.shape[1] != hists.shape[1] or b.shape != w.shape[:1]:
         raise ValueError(
             f"linear_score: shapes {tuple(hists.shape)} / {tuple(w.shape)} / {tuple(b.shape)}"
         )
-    dev = _check_cuda("linear_score", hists, w, b)
+    dev = _build.check_cuda("linear_score", hists, w, b)
     B, K = hists.shape
     C = w.shape[0]
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
@@ -186,7 +248,7 @@ def linear_score(
             K,
             C,
             lc.threads,
-            _stream(dev),
+            _build.cuda_stream(dev),
         )
     _build.check(err, "linear_score")
     counters.LAUNCHES["linear_score"] += 1

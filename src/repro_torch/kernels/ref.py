@@ -1,5 +1,5 @@
 """Plain PyTorch oracles: the counterpart of `repro.kernels.ref`, for the ops
-on the BoW predict path.
+on the BoW predict and training paths.
 
 They define the semantics the kernels are held to.  The stencil oracle runs
 the chain on the extended domain (the input is edge-padded once by the
@@ -158,6 +158,16 @@ def bow_assign_ref(desc: torch.Tensor, centroids: torch.Tensor):
     return idx.to(torch.int32), torch.gather(d2, 1, idx[:, None])[:, 0]
 
 
+def bow_histogram_ref(assign: torch.Tensor, K: int, *, normalize: bool = True) -> torch.Tensor:
+    """Word counts of one image's assignments (N,) -> (K,), divided by their
+    sum (at least 1) when `normalize`."""
+    h = torch.zeros((K,), dtype=torch.float32, device=assign.device)
+    h.index_add_(0, assign.long(), torch.ones(assign.shape, dtype=torch.float32, device=h.device))
+    if normalize:
+        h = h / torch.clamp(torch.sum(h), min=1.0)
+    return h
+
+
 def svm_decision_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Linear multi-class decision values: x (N, D), w (C, D), b (C,)."""
     return x @ w.T + b[None, :]
@@ -177,3 +187,22 @@ def bow_hist_ref(descs, valids, centroids, *, normalize: bool = True) -> torch.T
     if normalize:
         h = h / torch.clamp(torch.sum(h, dim=1, keepdim=True), min=1e-6)
     return h
+
+
+def gbdt_leaf_ref(x: torch.Tensor, feat: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """Oblivious-tree leaf indices: x (B, F), feat/thr (T, depth) -> (B, T)
+    int32.  Level l contributes bit 2^l when x[feat] > thr (strict: x == thr
+    goes left)."""
+    xv = x.to(torch.float32)[:, feat.long()]  # (B, T, depth)
+    bits = (xv > thr.to(torch.float32)[None]).to(torch.int32)
+    pw = 2 ** torch.arange(feat.shape[1], dtype=torch.int32, device=x.device)
+    return torch.sum(bits * pw[None, None, :], dim=-1).to(torch.int32)
+
+
+def gbdt_scores_ref(x, feat, thr, leaf, base) -> torch.Tensor:
+    """GBDT ensemble scores: leaf (T, 2^depth, C), base (C,) ->
+    (B, C) = base + sum_t leaf[t, leaf_index_t]."""
+    lidx = gbdt_leaf_ref(x, feat, thr)  # (B, T)
+    T = leaf.shape[0]
+    picked = leaf.to(torch.float32)[torch.arange(T, device=x.device)[None, :], lidx.long()]
+    return base.to(torch.float32)[None, :] + torch.sum(picked, dim=1)

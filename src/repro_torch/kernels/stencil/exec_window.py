@@ -238,7 +238,6 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
     N, H, W = planes.shape
     out = torch.empty((prog.n_bands, N, H, W), dtype=torch.float32, device=planes.device)
     with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
         err = fn(
             planes.data_ptr(),
             out.data_ptr(),
@@ -252,7 +251,7 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
             prog.halo[1],
             prog.n_slots,
             lc.threads,
-            stream,
+            _build.cuda_stream(planes.device),
         )
     _build.check(err, "stencil_chain")
     counters.LAUNCHES["stencil_chain"] += 1

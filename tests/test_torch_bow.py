@@ -1,7 +1,7 @@
-"""The port's classifier-tail kernels against the JAX package's.
+"""The port's BoW kernels against the JAX package's.
 
-On the CPU the port's `bow_quantize_hist` and `linear_score` run their plain
-versions; the JAX side runs its Pallas kernels in interpret mode, as the
+On the CPU the port's `bow_assign`, `bow_quantize_hist` and `linear_score`
+run their plain versions; the JAX side runs its Pallas kernels in interpret mode, as the
 JAX package's own tests do, and its staged oracles.
 
 Rules, with their reasons:
@@ -10,6 +10,8 @@ Rules, with their reasons:
     second-best s = -2 d.c + |c|^2 lie within 4 ulp the word may differ.
     Such descriptors are counted (from an f64 recomputation) and only
     images that hold one may differ, by at most one count move each;
+  * `bow_assign` word indices follow the same rule, one descriptor at a
+    time; its d2 = min s + |d|^2 agrees at rtol 1e-5;
   * scores agree at 1e-6: the sum over K is ordered differently.
 """
 
@@ -172,5 +174,66 @@ def test_cpu_wrappers_count_plain_calls():
     h = tbow.bow_quantize_hist(torch.from_numpy(descs), torch.from_numpy(valids),
                                torch.from_numpy(cents))
     tbow.linear_score(h, torch.zeros((2, 3)), torch.zeros(2))
-    assert counters.PLAIN_CALLS == {"stencil_chain": 0, "bow_quantize_hist": 1, "linear_score": 1}
+    assert counters.PLAIN_CALLS == {
+        "stencil_chain": 0,
+        "bow_quantize_hist": 1,
+        "linear_score": 1,
+        "bow_assign": 0,
+        "gbdt_score": 0,
+    }
     assert sum(counters.LAUNCHES.values()) == 0
+
+
+def assert_assign_near_tie_rule(got_idx, want_idx, descs, cents):
+    """Word indices are equal wherever the best and second-best s are not a
+    near-tie; returns how many near-ties there were."""
+    ties = near_ties(descs, cents)
+    np.testing.assert_array_equal(got_idx[~ties], want_idx[~ties])
+    return int(ties.sum())
+
+
+@pytest.mark.parametrize("shape,K", [((200, 128), 250), ((3, 32, 128), 250), ((45, 16), 33)])
+def test_bow_assign_matches_jax_kernel(shape, K):
+    rng = np.random.default_rng(sum(shape) + K)
+    desc = rng.standard_normal(shape).astype(np.float32)
+    cents = rng.standard_normal((K, shape[-1])).astype(np.float32)
+    ji, jd2 = jbow.bow_assign(jnp.asarray(desc), jnp.asarray(cents), vc=VC)
+    counters.reset()
+    ti, td2 = tbow.bow_assign(torch.from_numpy(desc), torch.from_numpy(cents))
+    assert counters.PLAIN_CALLS["bow_assign"] == 1 and counters.LAUNCHES["bow_assign"] == 0
+    assert ti.shape == td2.shape == shape[:-1]
+    assert ti.dtype == torch.int32 and td2.dtype == torch.float32
+    n_ties = assert_assign_near_tie_rule(ti.numpy(), np.asarray(ji), desc, cents)
+    assert n_ties == 0  # random data: a near-tie here would be a one-in-a-million event
+    np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), rtol=1e-5)
+
+
+def test_bow_assign_ties_pads_and_empty():
+    """Duplicate words go to the lower index, the last tile's pad rows never
+    win (every real s > 0), and N = 0 gives empty outputs without a call."""
+    rng = np.random.default_rng(10)
+    base = (rng.random((4, 32)) + 1.0).astype(np.float32)
+    cents = np.concatenate([base, base[::-1]])
+    desc = -base
+    ji, jd2 = jbow.bow_assign(jnp.asarray(desc), jnp.asarray(cents), vc=VC)
+    ti, td2 = tbow.bow_assign(torch.from_numpy(desc), torch.from_numpy(cents))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert np.all(ti.numpy() < 4)  # word k + 4 duplicates word 3 - k
+    np.testing.assert_allclose(td2.numpy(), np.asarray(jd2), rtol=1e-5)
+    counters.reset()
+    ei, ed2 = tbow.bow_assign(torch.zeros((0, 32)), torch.from_numpy(cents))
+    ji, jd2 = jbow.bow_assign(jnp.zeros((0, 32)), jnp.asarray(cents), vc=VC)
+    assert ei.shape == ed2.shape == tuple(ji.shape) == (0,)
+    assert ei.dtype == torch.int32 and ed2.dtype == torch.float32
+    assert counters.PLAIN_CALLS["bow_assign"] == 0
+
+
+def test_bow_assign_plain_is_the_quantize_argmin():
+    """Assignment and quantize + histogram share one argmin: the histogram
+    of bow_assign's words is the quantize kernel's plain histogram."""
+    descs, valids, cents = _problem(11, 3, 20, 64, 40)
+    idx, _ = tbow.bow_assign(torch.from_numpy(descs), torch.from_numpy(cents))
+    h = torch.zeros((3, 40)).scatter_add_(1, idx.long(), torch.from_numpy(valids).float())
+    want = tbow.quantize_hist_plain(torch.from_numpy(descs), torch.from_numpy(valids),
+                                    torch.from_numpy(cents))
+    np.testing.assert_array_equal(h.numpy(), want.numpy())

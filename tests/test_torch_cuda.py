@@ -9,8 +9,8 @@ on a machine with the card:
 This file imports nothing of JAX, so it runs where JAX is not installed.
 
 Tolerances: the plain versions repeat the kernels' arithmetic (every
-product and sum rounded on its own, in the same order), so the bow kernels
-must match exactly and the stencil chain within the repo's f32 oracle
+product and sum rounded on its own, in the same order), so the bow and
+gbdt kernels must match exactly and the stencil chain within the repo's f32 oracle
 tolerance (rtol 2e-5, atol 2e-3).
 """
 
@@ -18,9 +18,12 @@ import pytest
 import torch
 
 from repro_torch.core.device import LaunchConfig
-from repro_torch.cv import features
+from repro_torch.cv import features, pipeline
+from repro_torch.cv.config import PipelineConfig
+from repro_torch.data.synthetic import ImageStream
 from repro_torch.kernels import bow as kbow
 from repro_torch.kernels import counters
+from repro_torch.kernels import gbdt as kgbdt
 from repro_torch.kernels import stencil
 
 pytestmark = pytest.mark.cuda
@@ -84,6 +87,80 @@ def test_bow_quantize_hist_ties_and_pad_words(dev):
     assert torch.equal(got, kbow.quantize_hist_plain(descs, valids, cents))
     assert torch.equal(got.sum(1), torch.full((2,), 4.0, device=dev))
     assert torch.equal(got[:, 4:], torch.zeros_like(got[:, 4:]))
+
+
+@pytest.mark.parametrize("N,D,K", [(32768, 128, 250), (45, 16, 33), (1, 8, 1)])
+def test_bow_assign_matches_plain(dev, N, D, K):
+    """Random descriptors, then two rows that tie exactly (a duplicated word)
+    and a codebook whose last tile is mostly pad rows (K % 32 != 0)."""
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    desc = torch.randn((N, D), generator=g, device=dev)
+    cents = torch.randn((K, D), generator=g, device=dev)
+    if K > 2:
+        cents[K - 1] = cents[1]  # a duplicate: ties go to word 1
+        desc[0] = cents[1] + 1e-3
+    counters.reset()
+    got_i, got_d2 = kbow.bow_assign(desc, cents)
+    want_i, want_d2 = kbow.bow_assign_plain(desc, cents)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["bow_assign"] == 1
+    assert torch.equal(got_i, want_i) and torch.equal(got_d2, want_d2)
+    if K > 2:
+        assert int(got_i[0]) == 1
+
+
+def test_bow_assign_ties_and_pad_words(dev):
+    """The quantize test's codebook: duplicate words (the lower index wins)
+    in a tile whose pad rows must never win; batched input keeps its shape."""
+    base = torch.rand((4, 32), device=dev) + 1.0
+    cents = torch.cat([base, base.flip(0)])
+    descs = (-base)[None].repeat(2, 1, 1)
+    got_i, got_d2 = kbow.bow_assign(descs, cents)
+    want_i, want_d2 = kbow.bow_assign_plain(descs.reshape(8, 32), cents)
+    assert got_i.shape == (2, 4)
+    assert torch.equal(got_i.reshape(8), want_i) and torch.equal(got_d2.reshape(8), want_d2)
+    assert bool((got_i < 4).all())
+    empty_i, _ = kbow.bow_assign(torch.zeros((0, 32), device=dev), cents)
+    assert empty_i.shape == (0,)
+
+
+@pytest.mark.parametrize("B,F,T,depth,C", [(1024, 250, 16, 3, 10), (5, 7, 3, 2, 1)])
+def test_gbdt_score_matches_plain(dev, B, F, T, depth, C):
+    g = torch.Generator(device=dev).manual_seed(B + F)
+    x = torch.rand((B, F), generator=g, device=dev)
+    feat = torch.randint(0, F, (T, depth), generator=g, device=dev, dtype=torch.int32)
+    thr = torch.rand((T, depth), generator=g, device=dev)
+    leaf = torch.randn((T, 2**depth, C), generator=g, device=dev)
+    base = torch.randn((C,), generator=g, device=dev)
+    feat[0] = torch.arange(depth, dtype=torch.int32, device=dev)
+    x[: min(B, 4), :depth] = thr[0]  # x == thr goes left at every level of tree 0
+    counters.reset()
+    got_s, got_li = kgbdt.gbdt_score(x, feat, thr, leaf, base)
+    want_s, want_li = kgbdt.gbdt_score_plain(x, feat, thr, leaf, base)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["gbdt_score"] == 1
+    assert torch.equal(got_li, want_li) and torch.equal(got_s, want_s)
+    assert bool((got_li[: min(B, 4), 0] == 0).all())
+
+
+@pytest.mark.parametrize("head", ["svm", "gbdt"])
+def test_train_on_the_card(dev, head):
+    """Training on the card runs every assignment through the kernel and no
+    plain version: 2 chain launches (preprocess + octave) and 21 bow_assign
+    launches (20 k-means iterations + the histograms)."""
+    stream = ImageStream(res=32)
+    imgs, labels = stream.batch(64, split=31)
+    cfg = PipelineConfig(preprocess=True, head=head)
+    counters.reset()
+    model = pipeline.train(imgs, labels, cfg, dict_size=32, device=dev)
+    torch.cuda.synchronize()
+    snap = counters.snapshot()
+    assert snap["launches"]["stencil_chain"] == 2 and snap["launches"]["bow_assign"] == 21
+    assert sum(snap["plain_calls"].values()) == 0
+    assert model.centroids.device.type == "cuda"
+    assert bool(torch.isfinite(model.centroids).all())
+    pred = pipeline.predict(model, imgs, cfg, device=dev)
+    assert pred.shape == (64,) and pred.device.type == "cuda"
 
 
 @pytest.mark.parametrize("B,K,C", [(256, 250, 10), (3, 1, 7)])

@@ -19,10 +19,12 @@ import torch
 
 from repro_torch.core import device as tdevice
 from repro_torch.cv import classify as tclassify
+from repro_torch.cv import gbdt as tgbdt_cv
 from repro_torch.cv import pipeline as tpipeline
 from repro_torch.cv.config import PipelineConfig
 from repro_torch.kernels import _build, counters
 from repro_torch.kernels import bow as tbow
+from repro_torch.kernels import gbdt as tgbdt
 from repro_torch.kernels import stencil as tstencil
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -73,12 +75,14 @@ def test_ctypes_signatures_match_the_c_launchers():
 
     c = _c_launchers()
     assert c["stencil_chain_launch"] == exec_window.LAUNCH_ARGTYPES
-    for name, argtypes in kbow.LAUNCH_ARGTYPES.items():
+    from repro_torch.kernels import gbdt as kgbdt
+
+    for name, argtypes in {**kbow.LAUNCH_ARGTYPES, **kgbdt.LAUNCH_ARGTYPES}.items():
         assert c[name] == argtypes, name
 
 
 def test_every_kernel_has_a_source_and_a_counter():
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"stencil_chain", "bow"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"stencil_chain", "bow", "gbdt"}
     assert set(counters.LAUNCHES) == set(counters.PLAIN_CALLS) == set(counters.KERNELS)
 
 
@@ -102,9 +106,23 @@ def test_device_none_means_cuda_and_raises_without_it():
 
 
 def test_train_on_cuda_names_the_roadmap_item(monkeypatch):
-    monkeypatch.setattr(tpipeline, "resolve_device", lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="bow_assign"):
-        tpipeline.train(torch.zeros((2, 32, 32, 3)), torch.zeros(2))
+    """Training on the card reaches the `bow_assign` kernel: with the loader
+    made to fail, the error propagates from k-means and no plain version
+    runs (the meta device stands in for the card)."""
+    from repro_torch.cv import bow as tbow_cv
+    from repro_torch.kernels import bow as kbow
+
+    meta = torch.device("meta")
+    feats = {"desc": torch.zeros((2, 4, 8), device=meta), "valid": torch.ones((2, 4), device=meta)}
+    monkeypatch.setattr(tpipeline, "resolve_device", lambda device: meta)
+    monkeypatch.setattr(tpipeline, "extract_features", lambda *a, **k: feats)
+    monkeypatch.setattr(tbow_cv, "_init_indices", lambda w, k, g: torch.arange(k, device=w.device))
+    monkeypatch.setattr(_build, "library", _boom)
+    kbow._launchers.cache_clear()
+    counters.reset()
+    with pytest.raises(RuntimeError, match="loader failed for bow"):
+        tpipeline.train(torch.zeros((2, 32, 32, 3)), torch.zeros(2), dict_size=3)
+    assert sum(counters.PLAIN_CALLS.values()) == 0 and sum(counters.LAUNCHES.values()) == 0
 
 
 def _boom(name):
@@ -130,16 +148,27 @@ def _meta_calls():
             torch.zeros((4, 3), device=meta),
             torch.zeros(4, device=meta),
         ),
+        "bow_assign": lambda: tbow.bow_assign(
+            torch.zeros((2, 4, 8), device=meta), torch.zeros((3, 8), device=meta)
+        ),
+        "gbdt_score": lambda: tgbdt.gbdt_score(
+            torch.zeros((2, 5), device=meta),
+            torch.zeros((3, 2), dtype=torch.int32, device=meta),
+            torch.zeros((3, 2), device=meta),
+            torch.zeros((3, 4, 6), device=meta),
+            torch.zeros(6, device=meta),
+        ),
     }
 
 
-@pytest.mark.parametrize("kernel", ["stencil_chain", "bow_quantize_hist", "linear_score"])
+@pytest.mark.parametrize("kernel", counters.KERNELS)
 def test_kernel_dispatch_propagates_loader_failure(kernel, monkeypatch):
     from repro_torch.kernels import bow as kbow
     from repro_torch.kernels.stencil import exec_window
 
     monkeypatch.setattr(_build, "library", _boom)
     kbow._launchers.cache_clear()
+    tgbdt._launcher.cache_clear()
     exec_window._launcher.cache_clear()
     counters.reset()
     with pytest.raises(RuntimeError, match="loader failed"):
@@ -177,8 +206,20 @@ def test_classify_plan_modes_and_heads():
     assert counters.PLAIN_CALLS["bow_quantize_hist"] == 1
     with pytest.raises(ValueError):
         plan.histograms(descs, valids, mode="bogus")
-    with pytest.raises(NotImplementedError):
-        tclassify.build_plan(model, PipelineConfig(head="gbdt"))
+    gbdt = tgbdt_cv.GbdtModel(
+        torch.tensor([[0, 1], [2, 3]]), torch.full((2, 2), 0.1), torch.ones((2, 4, 3)),
+        torch.zeros(3), 3,
+    )
+    gmodel = tpipeline.BowGbdtModel(torch.eye(4, 8), gbdt, 3)
+    gplan = tclassify.build_plan(gmodel, PipelineConfig(classify_mode="ref"))
+    assert gplan.head == "gbdt" and gplan.gbdt.feat.dtype == torch.int32
+    counters.reset()
+    gout = gplan(descs, valids)
+    assert gout["scores"].shape == (2, 3) and gout["label"].shape == (2,)
+    assert torch.equal(gplan.leaf_indices(gout["hist"]), torch.full((2, 2), 3, dtype=torch.int32))
+    assert counters.PLAIN_CALLS["gbdt_score"] == 0  # ref mode: the staged oracle
+    with pytest.raises(ValueError):
+        plan.leaf_indices(out["hist"])
 
 
 @pytest.mark.parametrize("bad", [{"smem_budget": 300_000}, {"threads": 96}, {"threads": 16}])
