@@ -32,6 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 N_TRAIN = 1000  # the §4.5 training size, as in chip_smoke.py
 OWN_KERNELS = (
     "stencil_chain_kernel",
+    "stencil_stream_kernel",
     "quantize_hist_kernel",
     "linear_score_kernel",
     "bow_assign_kernel",

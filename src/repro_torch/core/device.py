@@ -42,12 +42,23 @@ class LaunchConfig:
         `bow_quantize_hist` block gives each of its 32 descriptors
         threads / 32 lanes).
     smem_budget: shared memory a block may use.
+    stream_rows: output rows one `stencil_stream` step advances by (the
+        counterpart of `VectorConfig.rows()`); every ring holds this many
+        rows beyond what its consumers lag.
+    tile2d_cols: column-tile width of the tiled2d plan; None lets the
+        planner pick the widest tile whose rings fit `smem_budget`.
+    row_segments: row segments per plane of a `stencil_stream` launch;
+        None takes the rule of `plan.row_segments` (about two blocks per
+        SM, at least two steps a segment).
     """
 
     tile_rows: int = 32
     tile_cols: int = 32
     threads: int = 256
     smem_budget: int = SMEM_MAX_BYTES
+    stream_rows: int = 8
+    tile2d_cols: int | None = None
+    row_segments: int | None = None
 
     def __post_init__(self):
         if not 0 < self.smem_budget <= SMEM_MAX_BYTES:
@@ -57,6 +68,12 @@ class LaunchConfig:
         if self.threads not in (32, 64, 128, 256, 512, 1024):
             # one descriptor's threads / 32 lanes reduce with warp shuffles
             raise ValueError(f"threads must be a power of two in [32, 1024], got {self.threads}")
+        if not 1 <= self.stream_rows <= 64:
+            raise ValueError(f"stream_rows must be in [1, 64], got {self.stream_rows}")
+        for name in ("tile2d_cols", "row_segments"):
+            v = getattr(self, name)
+            if v is not None and (not isinstance(v, int) or v < 1):
+                raise ValueError(f"{name} must be None or a positive int, got {v!r}")
 
 
 DEFAULT = LaunchConfig()

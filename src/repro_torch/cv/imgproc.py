@@ -1,11 +1,25 @@
-"""Image processing ops on the BoW path (the counterpart of `repro.cv.imgproc`)."""
+"""Image processing ops (the counterpart of `repro.cv.imgproc`): the
+paper's filter2D / erode family, and the BoW preprocess chain."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.device import DEFAULT, LaunchConfig
+from ..kernels import ops as kops
+from ..kernels import ref as kref
 from ..kernels import stencil
+
+filter2d = kops.filter2d
+sep_filter2d = kops.sep_filter2d
+gaussian_blur = kops.gaussian_blur
+gaussian_filter2d = kops.gaussian_filter2d
+erode = kops.erode
+dilate = kops.dilate
+threshold = kops.threshold
+box_blur = kops.box_blur
+gaussian_kernel1d = kref.gaussian_kernel1d
+fused_chain = stencil.fused_chain
 
 _GRAY_WEIGHTS = (0.299, 0.587, 0.114)  # OpenCV BT.601
 

@@ -9,7 +9,14 @@ and reads them back to show that every kernel ran and no plain version did.
 
 from __future__ import annotations
 
-KERNELS = ("stencil_chain", "bow_quantize_hist", "linear_score", "bow_assign", "gbdt_score")
+KERNELS = (
+    "stencil_chain",
+    "stencil_stream",
+    "bow_quantize_hist",
+    "linear_score",
+    "bow_assign",
+    "gbdt_score",
+)
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)

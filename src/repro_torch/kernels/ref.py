@@ -1,21 +1,26 @@
 """Plain PyTorch oracles: the counterpart of `repro.kernels.ref`, for the ops
-on the BoW predict and training paths.
+the port has carried over.
 
 They define the semantics the kernels are held to.  The stencil oracle runs
 the chain on the extended domain (the input is edge-padded once by the
 chain's accumulated halo and every stage is a valid-mode op), vectorised
 over planes.  Border policy: BORDER_REPLICATE.
 
-Carried over so far: ``sep_filter``, ``erode`` and single-band ``grad_mag``
-stages in ``map`` and ``tap`` modes on an f32 carrier.  The JAX oracle's
-other stage ops raise `NotImplementedError` until their slice lands.
+Carried over so far: ``filter2d``, ``sep_filter``, ``box``, ``erode``,
+``dilate``, ``threshold``, ``affine`` and single-band ``grad_mag`` stages
+in ``map`` and ``tap`` modes, on a u8 or f32 carrier.  On u8 every stage
+widens to f32 and packs back with round-half-even and a clip to [0, 255]
+(OpenCV's saturate_cast), as the JAX oracle's `_saturate` does.  The JAX
+oracle's other stage ops raise `NotImplementedError` until their slice
+lands.
 """
 
 from __future__ import annotations
 
 import torch
 
-SUPPORTED_OPS = ("sep_filter", "erode", "grad_mag")
+SUPPORTED_OPS = ("filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "affine", "grad_mag")
+CARRIERS = (torch.uint8, torch.float32)
 
 
 def gaussian_kernel1d(ksize: int, sigma: float | None = None) -> torch.Tensor:
@@ -35,13 +40,94 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
+def pack(x: torch.Tensor, carrier: torch.dtype) -> torch.Tensor:
+    """A stage's f32 result as the carrier holds it, still in f32: on u8
+    rounded half to even and clipped to [0, 255] (``rintf`` and a clamp in
+    the kernels); on f32 unchanged."""
+    if carrier == torch.uint8:
+        return torch.clamp(torch.round(x), 0.0, 255.0)
+    return x
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def _pad_edge(img: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Edge-pad the first two axes of an (H, W) or (H, W, C) image."""
+    h, w = img.shape[:2]
+    rows = torch.arange(-ph, h + ph, device=img.device).clamp(0, h - 1)
+    cols = torch.arange(-pw, w + pw, device=img.device).clamp(0, w - 1)
+    return img[rows][:, cols]
+
+
+def _out(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return pack(acc, dtype).to(dtype)
+
+
+def filter2d_ref(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """2D correlation (OpenCV filter2D), (H, W) or (H, W, C); u8 input
+    accumulates in f32 and packs back once, float stays float."""
+    kernel = torch.as_tensor(kernel, dtype=torch.float32).to(img.device)
+    kh, kw = kernel.shape
+    x = _pad_edge(img, kh // 2, kw // 2).to(torch.float32)
+    H, W = img.shape[:2]
+    out = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    for i in range(kh):
+        for j in range(kw):
+            out = out + kernel[i, j] * x[i : i + H, j : j + W]
+    return _out(out, img.dtype)
+
+
+def sep_filter2d_ref(img: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor) -> torch.Tensor:
+    """Separable filter: row pass kx, then column pass ky, f32 throughout
+    and one packing at the end."""
+    kx = torch.as_tensor(kx, dtype=torch.float32).to(img.device)
+    ky = torch.as_tensor(ky, dtype=torch.float32).to(img.device)
+    H, W = img.shape[:2]
+    x = _pad_edge(img, 0, kx.shape[0] // 2).to(torch.float32)
+    row = torch.zeros((H, W) + tuple(img.shape[2:]), dtype=torch.float32, device=img.device)
+    for j in range(kx.shape[0]):
+        row = row + kx[j] * x[:, j : j + W]
+    row = _pad_edge(row, ky.shape[0] // 2, 0)
+    out = torch.zeros_like(row[:H])
+    for i in range(ky.shape[0]):
+        out = out + ky[i] * row[i : i + H]
+    return _out(out, img.dtype)
+
+
+def _morph_ref(img: torch.Tensor, r: int, red) -> torch.Tensor:
+    x = _pad_edge(img, r, r)
+    H, W = img.shape[:2]
+    out = x[0:H, 0:W]
+    for i in range(2 * r + 1):
+        for j in range(2 * r + 1):
+            out = red(out, x[i : i + H, j : j + W])
+    return out.to(img.dtype)
+
+
+def erode_ref(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Morphological erosion with a (2*ksize+1)^2 rectangle (the paper's
+    'filter size' is the half-width)."""
+    return _morph_ref(img, ksize, torch.minimum)
+
+
+def dilate_ref(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    return _morph_ref(img, ksize, torch.maximum)
+
+
 def _stage_halo(s) -> tuple[int, int]:
+    if s.op == "filter2d":
+        kh, kw = s.weights[0].shape
+        return kh // 2, kw // 2
     if s.op == "sep_filter":
         kx, ky = s.weights
         return ky.shape[0] // 2, kx.shape[0] // 2
-    if s.op == "erode":
+    if s.op in ("erode", "dilate", "box"):
         return s.static[0], s.static[0]
-    return 1, 1  # grad_mag, single-band central differences
+    if s.op == "grad_mag":
+        return 1, 1  # single-band central differences
+    return 0, 0  # threshold, affine
 
 
 def _walk(stages) -> list:
@@ -64,29 +150,57 @@ def _walk(stages) -> list:
     return out
 
 
-def _valid_op(s, x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """One stage in valid mode on (N, h + 2ph, w + 2pw) f32 planes.  Sums run
-    in tap order with a rounding after every multiply and every add, the
-    order the `stencil_chain` kernel keeps."""
+def _valid_op(s, x: torch.Tensor, ph: int, pw: int, carrier: torch.dtype) -> torch.Tensor:
+    """One stage in valid mode on (N, h + 2ph, w + 2pw) f32 planes that hold
+    carrier values, packed to the carrier.  Sums run in tap order with a
+    rounding after every multiply and every add, the order the kernels
+    keep (row pass, then column pass, for the separable ops)."""
     h, w = x.shape[-2] - 2 * ph, x.shape[-1] - 2 * pw
+    dev = x.device
+    if s.op == "filter2d":
+        k = s.weights[0].to(device=dev, dtype=torch.float32)
+        kh, kw = k.shape
+        acc = k[0, 0] * x[..., 0:h, 0:w]
+        for i in range(kh):
+            for j in range(kw):
+                if i or j:
+                    acc = acc + k[i, j] * x[..., i : i + h, j : j + w]
+        return pack(acc, carrier)
     if s.op == "sep_filter":
-        kx, ky = (t.to(device=x.device, dtype=torch.float32) for t in s.weights)
+        kx, ky = (t.to(device=dev, dtype=torch.float32) for t in s.weights)
         row = kx[0] * x[..., :, 0:w]
         for j in range(1, kx.shape[0]):
             row = row + kx[j] * x[..., :, j : j + w]
         acc = ky[0] * row[..., 0:h, :]
         for i in range(1, ky.shape[0]):
             acc = acc + ky[i] * row[..., i : i + h, :]
-        return acc
-    if s.op == "erode":
+        return pack(acc, carrier)
+    if s.op == "box":
+        k = 2 * s.static[0] + 1
+        row = x[..., :, 0:w]
+        for j in range(1, k):
+            row = row + x[..., :, j : j + w]
+        acc = row[..., 0:h, :]
+        for i in range(1, k):
+            acc = acc + row[..., i : i + h, :]
+        return pack(acc * _f32(1.0 / (k * k), dev), carrier)
+    if s.op in ("erode", "dilate"):
+        red = torch.minimum if s.op == "erode" else torch.maximum
         acc = x[..., 0:h, 0:w]
         for i in range(2 * ph + 1):
             for j in range(2 * pw + 1):
-                acc = torch.minimum(acc, x[..., i : i + h, j : j + w])
+                acc = red(acc, x[..., i : i + h, j : j + w])
         return acc
+    if s.op == "threshold":
+        t, maxval = s.static
+        hi = pack(_f32(maxval, dev), carrier)
+        return torch.where(x > _f32(t, dev), hi, _f32(0.0, dev))
+    if s.op == "affine":
+        scale, offset = s.static
+        return pack(x * _f32(scale, dev) + _f32(offset, dev), carrier)
     dy = (x[..., 2 : 2 + h, 1 : 1 + w] - x[..., 0:h, 1 : 1 + w]) * 0.5
     dx = (x[..., 1 : 1 + h, 2 : 2 + w] - x[..., 1 : 1 + h, 0:w]) * 0.5
-    return sqrt_rn(dx * dx + dy * dy)
+    return pack(sqrt_rn(dx * dx + dy * dy), carrier)
 
 
 def pad_replicate(planes: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -98,21 +212,24 @@ def pad_replicate(planes: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def chain_ref_planes(planes: torch.Tensor, stages) -> tuple:
-    """(N, H, W) f32 planes -> tuple of (N, H, W) output bands."""
-    if planes.dtype != torch.float32:
-        raise NotImplementedError(f"chain_ref: f32 carrier only, got {planes.dtype}")
+    """(N, H, W) u8 or f32 planes -> tuple of (N, H, W) output bands of the
+    same dtype.  The bands are held in f32 between stages, each holding
+    values of the carrier."""
+    carrier = planes.dtype
+    if carrier not in CARRIERS:
+        raise NotImplementedError(f"chain_ref: u8 and f32 carriers only, got {carrier}")
     walk = _walk(stages)
     ph_acc = sum(halo[0] for _, halo, _ in walk)
     pw_acc = sum(halo[1] for _, halo, _ in walk)
-    bands = [pad_replicate(planes, ph_acc, pw_acc)]
+    bands = [pad_replicate(planes, ph_acc, pw_acc).to(torch.float32)]
     for s, (mode, (ph, pw), tap) in zip(stages, walk):
         if mode == "tap":
-            new = _valid_op(s, bands[tap], ph, pw)
+            new = _valid_op(s, bands[tap], ph, pw, carrier)
             bands = [b[..., ph : b.shape[-2] - ph, pw : b.shape[-1] - pw] for b in bands]
             bands.append(new)
         else:
-            bands = [_valid_op(s, b, ph, pw) for b in bands]
-    return tuple(bands)
+            bands = [_valid_op(s, b, ph, pw, carrier) for b in bands]
+    return tuple(b.to(carrier) for b in bands)
 
 
 def to_planes(img: torch.Tensor) -> torch.Tensor:
@@ -139,7 +256,7 @@ def from_planes(band: torch.Tensor, like_shape) -> torch.Tensor:
 
 def chain_ref(img: torch.Tensor, stages):
     """Oracle for `stencil.fused_chain`: (H, W), (H, W, C) or (B, H, W, C)
-    f32 in; one array out, or a tuple when the chain ends with several
+    u8 or f32 in; one array out, or a tuple when the chain ends with several
     live bands (taps)."""
     stages = tuple(stages)
     outs = tuple(from_planes(b, img.shape) for b in chain_ref_planes(to_planes(img), stages))

@@ -1,20 +1,27 @@
 """Chain driver: `fused_chain`, the public entry point of the stencil engine
 (the counterpart of `repro.kernels.stencil.driver`).
 
-Mode resolution:
+Modes, and the kernel each names:
 
-  ====================  ======  =====================================
-  mode                  device  what runs
-  ====================  ======  =====================================
-  None or "window"      CUDA    the `stencil_chain` kernel
-  None or "window"      CPU     the kernel's plain PyTorch version
-  "ref"                 either  the plain PyTorch version
-  "streaming"/"tiled2d" any     `NotImplementedError` (queued)
-  ====================  ======  =====================================
+  ===========  ===========================================================
+  mode         what runs
+  ===========  ===========================================================
+  "window"     `stencil_chain`: one block per (plane, 32x32 tile), each
+               recomputing the chain over its own overlapping window
+  "streaming"  `stencil_stream` with one full-width column tile; a chain
+               whose rings do not fit shared memory raises `ValueError`
+  "tiled2d"    `stencil_stream` with column tiles (`tile_w=`, else
+               `LaunchConfig.tile2d_cols`, else the planner's width)
+  "ref"        the plain PyTorch version, on any device
+  None         "window" for planes no larger than the chain's accumulated
+               halo (the port's stand-in for JAX's no-launch fallback) and
+               for chains without row halo; else "streaming", or "tiled2d"
+               when one full-width tile's rings do not fit
+  ===========  ===========================================================
 
-There is no fallback: a kernel that fails on the card raises.  Unlike the
-JAX driver, planes no larger than the chain's halo launch the kernel too;
-only the CPU runs the plain version for them.
+A CPU tensor runs the plain version of the kernel its mode names; a CUDA
+tensor launches that kernel or raises.  There is no fallback to another
+kernel or to the plain version.
 """
 
 from __future__ import annotations
@@ -23,18 +30,34 @@ import torch
 
 from ...core.device import DEFAULT, LaunchConfig
 from .. import ref
-from . import exec_window
+from . import exec_streaming, exec_window, plan
 
-MODES = ("window", "ref")
-QUEUED_MODES = ("streaming", "tiled2d")
+MODES = ("window", "streaming", "tiled2d", "ref")
+
+
+def resolve_mode(stages, shape, dtype, lc: LaunchConfig = DEFAULT) -> str:
+    """The mode `mode=None` takes for (N, H, W) planes of `dtype`."""
+    _, H, W = shape
+    ph, pw = plan.chain_accumulated_halo(stages)
+    if H <= ph or W <= pw or ph == 0:
+        return "window"
+    prog, _ = exec_streaming.program(stages, lc.stream_rows, dtype, torch.device("cpu"))
+    fits = prog.layout.smem_bytes(W) + exec_streaming.PROGRAM_BYTES <= lc.smem_budget
+    return "streaming" if fits else "tiled2d"
 
 
 def fused_chain(
-    img: torch.Tensor, stages, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+    img: torch.Tensor,
+    stages,
+    *,
+    mode: str | None = None,
+    lc: LaunchConfig = DEFAULT,
+    tile_w: int | None = None,
 ):
     """Run a stage chain over an image in one launch.
 
-    img: (H, W), (H, W, C) or (B, H, W, C), f32, on the device it runs on.
+    img: (H, W), (H, W, C) or (B, H, W, C), u8 or f32, on the device it
+    runs on.  tile_w: the column-tile width of mode "tiled2d" only.
     Returns one array when the chain ends with one live band, else a tuple
     (one per band, e.g. a Gaussian ladder's scales)."""
     stages = tuple(stages)
@@ -42,16 +65,20 @@ def fused_chain(
         return img
     if img.ndim not in (2, 3, 4):
         raise ValueError(f"fused_chain: unsupported rank {img.ndim}")
-    if mode in QUEUED_MODES:
-        raise NotImplementedError(
-            f"fused_chain: mode {mode!r} (row-carry redesign) is queued in ROADMAP"
-        )
     if mode is not None and mode not in MODES:
         raise ValueError(f"fused_chain: unknown mode {mode!r} (expected one of {MODES} or None)")
+    if tile_w is not None and mode != "tiled2d":
+        raise ValueError(f"fused_chain: tile_w= only applies to mode='tiled2d', not {mode!r}")
     planes = ref.to_planes(img)
+    if mode is None:
+        mode = resolve_mode(stages, planes.shape, planes.dtype, lc)
     if mode == "ref":
         outs = exec_window.stencil_chain_plain(planes, stages)
-    else:
+    elif mode == "window":
         outs = exec_window.stencil_chain(planes, stages, lc)
+    else:
+        outs = exec_streaming.stencil_stream(
+            planes, stages, lc, tiled=mode == "tiled2d", tile_w=tile_w
+        )
     outs = tuple(ref.from_planes(o, img.shape) for o in outs)
     return outs[0] if len(outs) == 1 else outs

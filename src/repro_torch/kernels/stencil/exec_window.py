@@ -25,12 +25,23 @@ import torch
 from ...core.device import DEFAULT, LaunchConfig
 from .. import _build, counters, ref
 from .ir import resolve_chain
-from .plan import chain_accumulated_halo
+from .plan import SEPARABLE_OPS, chain_accumulated_halo
 
 MAX_STEPS = 32
 MAX_WEIGHTS = 512
-_OP_CODES = {"sep_filter": 0, "erode": 1, "grad_mag": 2}
+# stage op -> the kernels' op code (csrc/stencil_ops.cuh `stencil::Op`)
+OP_CODES = {
+    "sep_filter": 0,
+    "erode": 1,
+    "grad_mag": 2,
+    "filter2d": 4,
+    "dilate": 5,
+    "box": 6,
+    "threshold": 7,
+    "affine": 8,
+}
 _STORE = 3
+CARRIERS = (torch.uint8, torch.float32)
 _STEP_FIELDS = ("op", "src", "dst", "tmp", "kh", "kw", "wx", "wy", "rh", "rw", "store", "pad")
 
 
@@ -50,8 +61,9 @@ class _Program(ctypes.Structure):
 
 
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_chain_launch(in, out, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# stencil_chain_launch(in, out, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, u8,
+#                      stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
@@ -74,15 +86,46 @@ class ChainProgram:
         return bytes(p)
 
 
-def compile_chain(stages) -> ChainProgram:
-    """Plan the kernel's steps for a chain of sep_filter / erode / grad_mag
-    stages in map and tap modes (others raise `NotImplementedError`)."""
-    resolved = resolve_chain(stages)
+def check_ported(resolved, kernel: str) -> None:
+    """Raise `NotImplementedError` for a stage the kernels do not run yet."""
     for op, mode, _, stride, up, *_ in resolved:
-        if op not in _OP_CODES or mode not in ("map", "tap") or stride != (1, 1) or up != (1, 1):
-            raise NotImplementedError(
-                f"stencil_chain: {op!r} in {mode!r} mode is not ported to the kernel yet"
-            )
+        if op not in OP_CODES or mode not in ("map", "tap") or stride != (1, 1) or up != (1, 1):
+            raise NotImplementedError(f"{kernel}: {op!r} in {mode!r} mode is not ported to the kernel yet")
+
+
+def stage_params(s, weights: list, carrier: torch.dtype) -> dict:
+    """One stage's op code, extents and the offsets of its taps or scalars,
+    appending them to `weights` (the step table's shared weight array).
+    Threshold's maxval goes in as the carrier holds it (packed on u8)."""
+    hy, hx = s.halo
+    kh, kw = 2 * hy + 1, 2 * hx + 1
+    wx = wy = len(weights)
+    if s.op == "sep_filter":
+        kx, ky = s.weights
+        if (len(ky), len(kx)) != (kh, kw):
+            raise NotImplementedError("stencil kernels: even-length filter taps")
+        weights += kx.tolist()
+        wy = len(weights)
+        weights += ky.tolist()
+    elif s.op == "filter2d":
+        if tuple(s.weights[0].shape) != (kh, kw):
+            raise NotImplementedError("stencil kernels: even-sized filter2d kernels")
+        weights += s.weights[0].reshape(-1).tolist()
+    elif s.op == "box":
+        weights.append(float(torch.tensor(1.0 / (kh * kw), dtype=torch.float32)))
+    elif s.op == "threshold":
+        t, maxval = s.static
+        weights += [t, ref.pack(torch.tensor(maxval), carrier).item()]
+    elif s.op == "affine":
+        weights += list(s.static)
+    return {"op": OP_CODES[s.op], "kh": kh, "kw": kw, "wx": wx, "wy": wy}
+
+
+def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
+    """Plan the kernel's steps for a chain of the ported stages in map and
+    tap modes (others raise `NotImplementedError`)."""
+    resolved = resolve_chain(stages)
+    check_ported(resolved, "stencil_chain")
     ph_acc, pw_acc = chain_accumulated_halo(stages)
     last_map = max((k for k, r in enumerate(resolved) if r[1] == "map"), default=-1)
 
@@ -111,38 +154,15 @@ def compile_chain(stages) -> ChainProgram:
     if last_map < 0:  # band 0 is the input itself, final from the start
         steps.append(step(op=_STORE, rh=rh, rw=rw, store=0))
     for k, (s, (op, mode, (hy, hx), *_rest, tap)) in enumerate(zip(stages, resolved)):
-        wx = wy = 0
-        kh, kw = 2 * hy + 1, 2 * hx + 1
-        if op == "sep_filter":
-            kx, ky = s.weights
-            if (len(ky), len(kx)) != (kh, kw):
-                raise NotImplementedError("stencil_chain: even-length filter taps")
-            wx = len(weights)
-            weights += kx.tolist()
-            wy = len(weights)
-            weights += ky.tolist()
+        params = stage_params(s, weights, carrier)
         for b in range(len(bands)) if mode == "map" else [tap]:
             src, dst = bands[b], alloc()
-            tmp = alloc() if op != "grad_mag" else dst
+            tmp = alloc() if op in SEPARABLE_OPS else dst
             if mode == "map":
                 store = b if k == last_map else -1
             else:
                 store = len(bands) if k > last_map else -1
-            steps.append(
-                step(
-                    op=_OP_CODES[op],
-                    src=src,
-                    dst=dst,
-                    tmp=tmp,
-                    kh=kh,
-                    kw=kw,
-                    wx=wx,
-                    wy=wy,
-                    rh=rh,
-                    rw=rw,
-                    store=store,
-                )
-            )
+            steps.append(step(src=src, dst=dst, tmp=tmp, rh=rh, rw=rw, store=store, **params))
             if tmp != dst:
                 in_use[tmp] = False
             if mode == "map":
@@ -177,23 +197,24 @@ def pick_tile(prog: ChainProgram, lc: LaunchConfig) -> tuple[int, int, int]:
         th, tw = max(1, th // 2), max(1, tw // 2)
 
 
-def _chain_key(stages) -> tuple:
+def chain_key(stages) -> tuple:
     return tuple(
-        (s.op, s.static, s.tap, tuple(tuple(w.tolist()) for w in s.weights)) for s in stages
+        (s.op, s.static, s.tap, tuple((tuple(w.shape), tuple(w.reshape(-1).tolist())) for w in s.weights))
+        for s in stages
     )
 
 
-# (chain, device) -> (ChainProgram, its packed step table on the device)
+# (chain, carrier, device) -> (ChainProgram, its packed step table on the device)
 _PROGRAMS: dict = {}
 
 
-def _program(stages, device: torch.device) -> tuple:
+def _program(stages, carrier: torch.dtype, device: torch.device) -> tuple:
     """The chain's compiled program, and its step table copied to `device`
     once per chain (not once per launch)."""
-    key = (_chain_key(stages), str(device))
+    key = (chain_key(stages), carrier, str(device))
     hit = _PROGRAMS.get(key)
     if hit is None:
-        prog = compile_chain(stages)
+        prog = compile_chain(stages, carrier)
         table = torch.frombuffer(bytearray(prog.packed()), dtype=torch.uint8).to(device)
         hit = _PROGRAMS[key] = (prog, table)
     return hit
@@ -216,8 +237,19 @@ def stencil_chain_plain(planes: torch.Tensor, stages) -> tuple:
     return ref.chain_ref_planes(planes, tuple(stages))
 
 
+def check_planes(name: str, planes: torch.Tensor) -> None:
+    if not planes.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {planes.device}")
+    if planes.dtype not in CARRIERS or planes.ndim != 3 or not planes.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous (N, H, W) uint8 or float32 planes, got "
+            f"{planes.dtype} {tuple(planes.shape)}"
+        )
+
+
 def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> tuple:
-    """(N, H, W) f32 planes -> tuple of (N, H, W) output bands, in one launch.
+    """(N, H, W) u8 or f32 planes -> tuple of (N, H, W) output bands of the
+    same dtype, in one launch.
 
     A CPU tensor runs the plain version; any other tensor launches the
     kernel or raises.  Every plane size launches, planes smaller than the
@@ -226,17 +258,11 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
     if planes.device.type == "cpu":
         return stencil_chain_plain(planes, stages)
     fn = _launcher()
-    if not planes.is_cuda:
-        raise ValueError(f"stencil_chain: expected a CUDA tensor, got {planes.device}")
-    if planes.dtype != torch.float32 or planes.ndim != 3 or not planes.is_contiguous():
-        raise ValueError(
-            "stencil_chain: expected contiguous (N, H, W) float32 planes, got "
-            f"{planes.dtype} {tuple(planes.shape)}"
-        )
-    prog, dev_prog = _program(stages, planes.device)
+    check_planes("stencil_chain", planes)
+    prog, dev_prog = _program(stages, planes.dtype, planes.device)
     th, tw, _ = pick_tile(prog, lc)
     N, H, W = planes.shape
-    out = torch.empty((prog.n_bands, N, H, W), dtype=torch.float32, device=planes.device)
+    out = torch.empty((prog.n_bands, N, H, W), dtype=planes.dtype, device=planes.device)
     with torch.cuda.device(planes.device):
         err = fn(
             planes.data_ptr(),
@@ -251,6 +277,7 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
             prog.halo[1],
             prog.n_slots,
             lc.threads,
+            int(planes.dtype == torch.uint8),
             _build.cuda_stream(planes.device),
         )
     _build.check(err, "stencil_chain")

@@ -7,9 +7,10 @@ switches the stage from mapping over the band state to appending its
 result.  `resolve_chain` is the static band-arity walk every executor
 consumes.
 
-Ported so far: ``sep_filter`` (and its Gaussian builder), ``erode`` and
+Ported so far: ``filter2d``, ``sep_filter`` (and its Gaussian builder),
+``box``, ``erode``, ``dilate``, ``threshold``, ``affine`` and
 ``grad_mag``.  The JAX IR's other ops are queued (ROADMAP, the chain
-kernel's stage bodies (a)-(e)) and raise `NotImplementedError`.
+kernel's stage bodies (b)-(e)) and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -21,15 +22,19 @@ import torch
 from .. import ref
 
 # tap arrays each ported op carries
-_N_WEIGHTS = {"sep_filter": 2, "erode": 0, "grad_mag": 0}
+_N_WEIGHTS = {
+    "filter2d": 1,
+    "sep_filter": 2,
+    "box": 0,
+    "erode": 0,
+    "dilate": 0,
+    "threshold": 0,
+    "affine": 0,
+    "grad_mag": 0,
+}
 # ops of the JAX IR whose port is queued
 QUEUED_OPS = frozenset(
     {
-        "filter2d",
-        "dilate",
-        "threshold",
-        "affine",
-        "box",
         "pyr_down",
         "resize2",
         "sobel",
@@ -67,12 +72,17 @@ class Stage:
     @property
     def halo(self) -> tuple[int, int]:
         """(row, col) halo this stage consumes per side (single-band form)."""
+        if self.op == "filter2d":
+            kh, kw = self.weights[0].shape
+            return kh // 2, kw // 2
         if self.op == "sep_filter":
             kx, ky = self.weights
             return ky.shape[0] // 2, kx.shape[0] // 2
-        if self.op == "erode":
+        if self.op in ("erode", "dilate", "box"):
             return self.static[0], self.static[0]
-        return 1, 1
+        if self.op == "grad_mag":
+            return 1, 1
+        return 0, 0
 
     @property
     def stride(self) -> tuple[int, int]:
@@ -81,6 +91,12 @@ class Stage:
     @property
     def upsample(self) -> tuple[int, int]:
         return 1, 1
+
+
+def filter_stage(kernel, *, tap: int | None = None) -> Stage:
+    """Direct 2D correlation with an odd (kh, kw) tap matrix."""
+    kernel = torch.as_tensor(kernel, dtype=torch.float32).cpu()
+    return Stage("filter2d", weights=(kernel,), tap=tap)
 
 
 def sep_filter_stage(kx, ky, *, tap: int | None = None) -> Stage:
@@ -99,6 +115,27 @@ def gaussian_stage(ksize: int, sigma: float | None = None, *, tap: int | None = 
 def erode_stage(r: int) -> Stage:
     """Rectangular (2r+1)^2 erosion."""
     return Stage("erode", static=(int(r),))
+
+
+def dilate_stage(r: int) -> Stage:
+    return Stage("dilate", static=(int(r),))
+
+
+def box_stage(r: int, *, tap: int | None = None) -> Stage:
+    """OpenCV blur(): normalised (2r+1)^2 box filter."""
+    return Stage("box", static=(int(r),), tap=tap)
+
+
+def threshold_stage(thresh: float, maxval: float = 255.0) -> Stage:
+    """Binary threshold: maxval where x > thresh else 0 (OpenCV
+    THRESH_BINARY), compared in f32 so a fractional threshold binds on a u8
+    carrier (127.5 means x >= 128)."""
+    return Stage("threshold", static=(float(thresh), float(maxval)))
+
+
+def affine_stage(scale: float, offset: float = 0.0) -> Stage:
+    """Pointwise saturating scale*x + offset (OpenCV convertScaleAbs-style)."""
+    return Stage("affine", static=(float(scale), float(offset)))
 
 
 def grad_stage() -> Stage:

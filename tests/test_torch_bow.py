@@ -176,6 +176,7 @@ def test_cpu_wrappers_count_plain_calls():
     tbow.linear_score(h, torch.zeros((2, 3)), torch.zeros(2))
     assert counters.PLAIN_CALLS == {
         "stencil_chain": 0,
+        "stencil_stream": 0,
         "bow_quantize_hist": 1,
         "linear_score": 1,
         "bow_assign": 0,

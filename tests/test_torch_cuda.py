@@ -10,8 +10,9 @@ This file imports nothing of JAX, so it runs where JAX is not installed.
 
 Tolerances: the plain versions repeat the kernels' arithmetic (every
 product and sum rounded on its own, in the same order), so the bow and
-gbdt kernels must match exactly and the stencil chain within the repo's f32 oracle
-tolerance (rtol 2e-5, atol 2e-3).
+gbdt kernels must match exactly, `stencil_stream` exactly on u8 and f32,
+and `stencil_chain` within the repo's f32 oracle tolerance (rtol 2e-5,
+atol 2e-3) in its older test and exactly in the mode-agreement test.
 """
 
 import pytest
@@ -24,7 +25,7 @@ from repro_torch.data.synthetic import ImageStream
 from repro_torch.kernels import bow as kbow
 from repro_torch.kernels import counters
 from repro_torch.kernels import gbdt as kgbdt
-from repro_torch.kernels import stencil
+from repro_torch.kernels import ref, stencil
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +54,7 @@ def test_stencil_chain_matches_plain(dev, name, shape, tile):
     chain = _chains()[name]
     lc = LaunchConfig(tile_rows=tile, tile_cols=tile)
     counters.reset()
-    got = stencil.fused_chain(x, chain, lc=lc)
+    got = stencil.fused_chain(x, chain, mode="window", lc=lc)
     want = stencil.fused_chain(x, chain, mode="ref")
     torch.cuda.synchronize()
     assert counters.LAUNCHES["stencil_chain"] == 1
@@ -61,6 +62,81 @@ def test_stencil_chain_matches_plain(dev, name, shape, tile):
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want, strict=True):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-3)
+
+
+def _slice_chains():
+    k1 = stencil.filter_stage(torch.outer(*(2 * (ref.gaussian_kernel1d(13),))))
+    return {
+        **_chains(),
+        "filter2d_k13": (k1,),
+        "erode_r3": (stencil.erode_stage(3),),
+        "acceptance": (stencil.gaussian_stage(5), stencil.erode_stage(1),
+                       stencil.threshold_stage(100.0)),
+        "mixed": (stencil.box_stage(1), stencil.gaussian_stage(3, tap=0), stencil.dilate_stage(1),
+                  stencil.affine_stage(0.5, 3.25), stencil.gaussian_stage(5, tap=-1)),
+    }
+
+
+def _image(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+    return torch.rand(shape, generator=g, device=dev) * 255.0
+
+
+@pytest.mark.parametrize("name", ["preprocess", "octave", "taps_only", "filter2d_k13",
+                                  "erode_r3", "acceptance", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape,lc", [
+    ((2, 37, 53, 3), LaunchConfig()),
+    ((1, 300, 211, 1), LaunchConfig(row_segments=5, stream_rows=4)),
+    ((1, 77, 640, 1), LaunchConfig(tile2d_cols=96, row_segments=3)),
+])
+@pytest.mark.parametrize("mode", ["streaming", "tiled2d"])
+def test_stencil_stream_matches_plain(dev, name, dtype, shape, lc, mode):
+    """Bit for bit against the plain version, in one launch, on ragged
+    tiles, several row segments and heights that are not whole steps."""
+    x = _image(dev, shape, dtype, seed=sum(shape))
+    chain = _slice_chains()[name]
+    counters.reset()
+    if mode == "streaming" and stencil.resolve_mode(chain, shape[:0] + (1,) + shape[1:3], dtype,
+                                                    lc) == "tiled2d":
+        # full-width rings over the budget: the explicit plan refuses
+        with pytest.raises(ValueError, match="bytes"):
+            stencil.fused_chain(x, chain, mode=mode, lc=lc)
+        assert sum(counters.LAUNCHES.values()) == 0
+        return
+    got = stencil.fused_chain(x, chain, mode=mode, lc=lc)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["stencil_stream"] == 1 and sum(counters.PLAIN_CALLS.values()) == 0
+    want = stencil.fused_chain(x, chain, mode="ref")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["acceptance", "filter2d_k13", "mixed", "octave"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+def test_window_streaming_and_tiled2d_are_bit_identical(dev, name, dtype):
+    x = _image(dev, (2, 96, 130, 1), dtype, seed=3)
+    chain = _slice_chains()[name]
+    outs = {}
+    for mode in ("window", "streaming", "tiled2d"):
+        lc = LaunchConfig(tile2d_cols=64) if mode == "tiled2d" else LaunchConfig()
+        o = stencil.fused_chain(x, chain, mode=mode, lc=lc)
+        outs[mode] = o if isinstance(o, tuple) else (o,)
+    for mode in ("streaming", "tiled2d"):
+        for a, b in zip(outs[mode], outs["window"], strict=True):
+            assert torch.equal(a, b), mode
+
+
+def test_streaming_over_the_budget_raises_on_the_card(dev):
+    x = torch.zeros((2160, 3840), dtype=torch.uint8, device=dev)
+    counters.reset()
+    with pytest.raises(ValueError, match="bytes"):
+        stencil.fused_chain(x, _slice_chains()["filter2d_k13"], mode="streaming")
+    assert counters.snapshot()["launches"]["stencil_stream"] == 0
 
 
 @pytest.mark.parametrize("B,N,D,K", [(3, 32, 128, 250), (2, 45, 128, 5), (1, 1, 16, 33)])
@@ -146,8 +222,9 @@ def test_gbdt_score_matches_plain(dev, B, F, T, depth, C):
 @pytest.mark.parametrize("head", ["svm", "gbdt"])
 def test_train_on_the_card(dev, head):
     """Training on the card runs every assignment through the kernel and no
-    plain version: 2 chain launches (preprocess + octave) and 21 bow_assign
-    launches (20 k-means iterations + the histograms)."""
+    plain version: the preprocess chain through `stencil_stream`, the octave
+    (32x32 planes under its 34-pixel halo) through `stencil_chain`, and 21
+    bow_assign launches (20 k-means iterations + the histograms)."""
     stream = ImageStream(res=32)
     imgs, labels = stream.batch(64, split=31)
     cfg = PipelineConfig(preprocess=True, head=head)
@@ -155,7 +232,8 @@ def test_train_on_the_card(dev, head):
     model = pipeline.train(imgs, labels, cfg, dict_size=32, device=dev)
     torch.cuda.synchronize()
     snap = counters.snapshot()
-    assert snap["launches"]["stencil_chain"] == 2 and snap["launches"]["bow_assign"] == 21
+    assert snap["launches"]["stencil_chain"] == 1 and snap["launches"]["stencil_stream"] == 1
+    assert snap["launches"]["bow_assign"] == 21
     assert sum(snap["plain_calls"].values()) == 0
     assert model.centroids.device.type == "cuda"
     assert bool(torch.isfinite(model.centroids).all())

@@ -31,6 +31,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "scripts" / "torch_predict_profile.py",
+    ROOT / "scripts" / "torch_stencil_sweep.py",
 ]
 
 
@@ -75,6 +76,9 @@ def test_ctypes_signatures_match_the_c_launchers():
 
     c = _c_launchers()
     assert c["stencil_chain_launch"] == exec_window.LAUNCH_ARGTYPES
+    from repro_torch.kernels.stencil import exec_streaming
+
+    assert c["stencil_stream_launch"] == exec_streaming.LAUNCH_ARGTYPES
     from repro_torch.kernels import gbdt as kgbdt
 
     for name, argtypes in {**kbow.LAUNCH_ARGTYPES, **kgbdt.LAUNCH_ARGTYPES}.items():
@@ -82,7 +86,12 @@ def test_ctypes_signatures_match_the_c_launchers():
 
 
 def test_every_kernel_has_a_source_and_a_counter():
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"stencil_chain", "bow", "gbdt"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {
+        "stencil_chain",
+        "stencil_stream",
+        "bow",
+        "gbdt",
+    }
     assert set(counters.LAUNCHES) == set(counters.PLAIN_CALLS) == set(counters.KERNELS)
 
 
@@ -136,6 +145,9 @@ def _meta_calls():
     chain = (tstencil.gaussian_stage(5), tstencil.erode_stage(1), tstencil.grad_stage())
     return {
         "stencil_chain": lambda: tstencil.fused_chain(
+            torch.zeros((2, 8, 8, 3), device=meta), chain, mode="window"
+        ),
+        "stencil_stream": lambda: tstencil.fused_chain(
             torch.zeros((2, 8, 8, 3), device=meta), chain
         ),
         "bow_quantize_hist": lambda: tbow.bow_quantize_hist(
@@ -164,12 +176,13 @@ def _meta_calls():
 @pytest.mark.parametrize("kernel", counters.KERNELS)
 def test_kernel_dispatch_propagates_loader_failure(kernel, monkeypatch):
     from repro_torch.kernels import bow as kbow
-    from repro_torch.kernels.stencil import exec_window
+    from repro_torch.kernels.stencil import exec_streaming, exec_window
 
     monkeypatch.setattr(_build, "library", _boom)
     kbow._launchers.cache_clear()
     tgbdt._launcher.cache_clear()
     exec_window._launcher.cache_clear()
+    exec_streaming._launcher.cache_clear()
     counters.reset()
     with pytest.raises(RuntimeError, match="loader failed"):
         _meta_calls()[kernel]()
