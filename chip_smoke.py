@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 6 repeats it on the path's tensors);
+     shapes beyond the BoW path's (phase 7 repeats it on the path's tensors);
      each chain runs under the kernel `mode=None` resolves to and under the
      window kernel;
   3. the training path on the card, once per head (SVM, GBDT): 1000
@@ -38,13 +38,31 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      and `stencil_chain` are timed on each shape, the plain version on the
      4K shapes, and `conv2d` as the library call for gaussian_filter2d
      k = 5 and 13;
-  6. on the paths' own tensors (the first request, the training
+  6. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
+     d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
+     from a seeded generator; `flash_attention` held against its plain
+     version within `kernels.attention.AGREE` (one rounding to the output
+     dtype apart: rtol 2^-7 + atol 1e-4 in bf16, 2e-4 in f32) on every
+     layer's q, k, v of the prefill (8 x 1024 x 16 x 256, bf16), on an f32
+     copy of layer 0's and on the JAX kernel test's shapes; greedy
+     `generate` of 8 requests x 1024 prompt tokens + 32 new tokens,
+     launching `flash_attention` exactly 28 times (the prefill; decode runs
+     `dense_attention`) and no plain version; tokens identical across two
+     runs, and each the argmax of a `mode="ref"` (plain) teacher-forced
+     prefill + decode but at counted near-ties (at random init the argmax
+     is the token fed in, so these two cannot see a kernel fault); then the
+     kernel, its plain version and SDPA (`is_causal=True`, the yardstick),
+     the prefill and a decode step are timed; last, the same weights
+     widened to f32: the kernel and plain paths' final hidden states at
+     every prompt position within 2e-4 and last-token logits within 2e-3,
+     and the bf16 paths' logits within twice the bf16 model's own error;
+  7. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
-  7. print the ``kernels`` JSON line (all six kernels; `stencil_stream` at
-     the 4K u8 gaussian_filter2d k = 13 under mode=None), then the card line
-     and the device line.
+  8. print the ``kernels`` JSON line (all seven kernels; `stencil_stream` at
+     the 4K u8 gaussian_filter2d k = 13 under mode=None, `flash_attention`
+     at the prefill's layer 0), then the card line and the device line.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; a kernel's ``launches`` in the JSON line sums the paths'.
@@ -64,10 +82,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and fp32
-# FLOP/s on CUDA cores (the kernels use no tensor cores)
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, fp32
+# FLOP/s on the CUDA cores, and bf16 / f16 FLOP/s on the tensor cores (with
+# f32 accumulation), the rate of a product whose operands are bf16 or f16
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 PREDICT_BATCH = 256
 N_REQUESTS = 4
@@ -77,6 +97,9 @@ HEADS = ("svm", "gbdt")
 HEAD_KERNEL = {"svm": "linear_score", "gbdt": "gbdt_score"}
 # the image-path shape whose stencil_stream numbers go on the kernels line
 STREAM_ENTRY = "gaussian_filter2d k=13 4K u8"
+# the LM serving path: gemma-7b at full width, 8 requests of 1024 + 32 tokens
+LM_ARCH = "gemma-7b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 
 
 class SmokeFailure(Exception):
@@ -259,6 +282,312 @@ def time_image_case(case, planes, resolved, want, stencil, ref) -> dict:
     }
 
 
+def flash_bound(q, k, causal: bool = True) -> dict:
+    """The least time one flash-attention call could take on the card: q, k,
+    v read once and o written once, over the memory rate; or 2 FLOP per
+    (query, key, channel) for q.k and as many for p.v, over the (query, key)
+    pairs the mask keeps.  q.k multiplies operands of q's dtype: a bf16 or
+    f16 product is exact in f32, so it runs at the tensor cores' rate; p.v
+    takes f32 probabilities, so it runs at the f32 rate."""
+    import torch
+
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
+    half = 2 * B * H * hd * pairs
+    qk_rate = PEAK_FP32_FLOPS if q.dtype == torch.float32 else PEAK_BF16_FLOPS
+    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (half / qk_rate + half / PEAK_FP32_FLOPS) * 1e3
+    return {"bytes": n_bytes, "flops": 2 * half, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_all_f32": max(t_bytes, 2 * half / PEAK_FP32_FLOPS * 1e3)}
+
+
+def walk_prefill(model, tokens, *, mode=None, visit=None):
+    """The prefill's layers over `tokens` (`lm.prefill`'s loop) -> the
+    final-normed hidden states at every position, (B, S, D); `visit(i, x)`
+    sees layer i's normed input first."""
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.layers import apply_norm
+
+    cfg = model.cfg
+    norm = dict(kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
+    h = lm._embed(model, tokens)
+    i = 0
+    for kind, layers in model.groups():
+        for p in layers:
+            if visit is not None:
+                visit(i, apply_norm(h, p["ln1"], **norm))
+            h, _ = blocks.apply_block(kind, p, h, cfg, mode=mode)
+            i += 1
+    return apply_norm(h, model.final_norm, **norm)
+
+
+def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: dict,
+             judge=check, timed: bool = True) -> dict:
+    """The LM serving path: build `cfg`'s model on the card from a seeded
+    generator; hold `flash_attention` against its plain version within
+    `AGREE` on the path's own tensors (every layer's q, k, v of the bf16
+    prefill, an f32 copy of layer 0's) and on the JAX kernel test's shapes;
+    greedy-generate `batch` x `prompt_len` + `gen_len` tokens (one launch
+    per layer, no plain call); check the tokens (identical across two runs;
+    teacher-forced through a `mode="ref"` prefill, each the plain path's
+    argmax but at counted near-ties); time the kernel, its plain version,
+    SDPA, the prefill and a decode step (when `timed`); last, widen the
+    weights to f32 and hold the kernel path's hidden states at every prompt
+    position, and its last-token logits, against the plain path's.
+    `judge(ok, msg)` takes each check's verdict: `check` raises at the
+    first failure, scripts/torch_flash_faults.py records them all."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import counters
+    from repro_torch.models import lm
+    from repro_torch.models.attention import gqa_project_qkv
+    from repro_torch.serve import cv_engine
+
+    out: dict = {"config": cfg.name, "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["weights_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"lm {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"params={out['params']} weights={out['weights_bytes']} B init_s={out['init_s']:.2f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+
+    # -- the kernel against its plain version --------------------------------
+    # held to kattn.AGREE (one rounding to the output dtype apart); the JAX
+    # kernel test's looser rtol = atol (tests/test_kernels_attention.py:20,
+    # :29) is reported beside it
+    jax_test_tol = {torch.float32: 2e-4, torch.float16: 3e-2, torch.bfloat16: 3e-2}
+    checks = {}
+
+    def check_flash(name, q, k, v, causal):
+        got = kattn.flash_attention(q, k, v, causal=causal)
+        want = kattn.flash_attention(q, k, v, causal=causal, mode="ref")
+        torch.cuda.synchronize(dev)
+        judge(got.shape == q.shape and got.dtype == q.dtype, f"flash {name}: shape or dtype")
+        judge(bool(torch.isfinite(got).all()), f"flash {name}: non-finite output")
+        rtol, atol = kattn.AGREE[q.dtype]
+        jt = jax_test_tol[q.dtype]
+        w = want.float()
+        diff = (got.float() - w).abs()
+        err = float(diff.max())
+        # the largest |got - want| / (atol + rtol |want|): over 1 fails
+        excess = float((diff / (atol + rtol * w.abs())).max())
+        excess_jax = float((diff / (jt + jt * w.abs())).max())
+        print(f"check flash_attention {name} {tuple(q.shape)} T={k.shape[1]} {q.dtype} "
+              f"causal={causal}: max_abs_err={err:.3g} share of the tolerance={excess:.3g} "
+              f"(rtol {rtol:.3g}, atol {atol:.3g}); at the JAX test's {jt}: {excess_jax:.3g}")
+        judge(excess <= 1.0, f"flash {name} {q.dtype}: {excess:.3g} times its tolerance")
+        checks[f"{name} {tuple(q.shape)} {q.dtype} causal={causal}"] = {
+            "max_abs_err": err, "share_of_tol": excess, "share_of_jax_test_tol": excess_jax}
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+
+    with torch.inference_mode():
+        pos = torch.arange(prompt_len, device=dev)[None, :]
+        layer0 = {}
+
+        def visit(i, x):
+            q, k, v = gqa_project_qkv(model.blocks[i]["attn"], x, cfg, pos)
+            check_flash(f"layer {i} of the prefill", q, k, v, True)
+            if i == 0:
+                layer0["qkv"] = (q, k, v)
+
+        walk_prefill(model, prompts, visit=visit)
+        q, k, v = layer0.pop("qkv")
+        check_flash("layer 0 of the prefill, f32 copy", q.float(), k.float(), v.float(), True)
+        g = torch.Generator(dev).manual_seed(1)
+        for (b, s, t, h, hd) in [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128),
+                                 (1, 257, 257, 2, 64), (2, 100, 160, 2, 16), (1, 150, 70, 2, 256)]:
+            for dt in (torch.float32, torch.bfloat16):
+                qq, kk, vv = (torch.randn((b, n, h, hd), generator=g, device=dev).to(dt)
+                              for n in (s, t, t))
+                for causal in (True, False):
+                    check_flash("JAX test shape", qq, kk, vv, causal)
+    out["checks"] = checks
+
+    # -- generate: one flash launch per layer, no plain call -----------------
+    def run_generate():
+        return cv_engine.generate(model, prompts, steps=gen_len, device=dev)
+
+    t0 = time.perf_counter()
+    tokens, snap = counted(counters, run_generate)
+    torch.cuda.synchronize(dev)
+    wall1 = time.perf_counter() - t0
+    expect_counts(f"generate {cfg.name}", snap, {"flash_attention": cfg.n_layers}, judge)
+    judge(tokens.shape == (batch, gen_len), f"generate: shape {tuple(tokens.shape)}")
+    t0 = time.perf_counter()
+    again = run_generate()
+    torch.cuda.synchronize(dev)
+    wall2 = time.perf_counter() - t0
+    judge(torch.equal(tokens, again), "generate: tokens differ between two runs on the card")
+    out["generate"] = {"counters": snap, "wall_s": [wall1, wall2],
+                       "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    print(f"generate {cfg.name}: {batch} x {prompt_len} + {gen_len} tokens, "
+          f"launches={snap['launches']} plain_calls={snap['plain_calls']} "
+          f"wall_s={wall1:.3f}/{wall2:.3f} (first / second) identical across runs; "
+          f"max_memory_allocated={out['generate']['max_memory_allocated']}")
+    print(f"generate {cfg.name}: first request's tokens {tokens[0].tolist()}")
+
+    # -- teacher-forced through the kernel path and the plain path -----------
+    # At random init these checks cannot see a kernel fault: the tied
+    # embedding, scaled by sqrt(d), dominates the residual stream, so every
+    # step's argmax is the token fed in, whatever attention returns.  The
+    # checks that depend on attention are the per-layer one above and the
+    # f32 hidden states at every position below.
+    def forced(mode):
+        with torch.inference_mode():
+            lg, pc = lm.prefill(model, prompts, mode=mode)
+            cache = lm.init_cache(cfg, batch, prompt_len + gen_len, device=dev)
+            cache = cv_engine._adopt_prefill(cache, pc, cfg)
+            del pc
+            steps = [lg.float()]
+            for t in range(gen_len - 1):
+                lg, cache = lm.decode_step(model, tokens[:, t : t + 1], cache)
+                steps.append(lg.float())
+            return torch.stack(steps, dim=1)  # (B, gen_len, V)
+
+    lk = forced(None)
+    judge(torch.equal(lk.argmax(-1).to(tokens.dtype), tokens),
+          "teacher-forced kernel path does not reproduce generate's tokens")
+    lp = forced("ref")
+    diff = float((lk - lp).abs().max())
+    pre_k, pre_p = lk[:, 0].clone(), lp[:, 0].clone()  # prefill's last-token logits
+    top2 = torch.topk(lp, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    off = lp.argmax(-1).to(tokens.dtype) != tokens
+    n_off = int(off.sum())
+    print(f"teacher-forced: {n_off} of {off.numel()} tokens are not the plain path's argmax; "
+          f"each a near-tie (plain top-2 margin <= {diff:.4g}, the largest logit difference)")
+    judge(bool((margin[off] <= diff).all()), "a token differs from the plain path off a near-tie")
+    out["tokens"] = {"max_logit_diff": diff, "not_plain_argmax": n_off, "of": off.numel()}
+    del lk, lp
+
+    # -- times ---------------------------------------------------------------
+    if timed:
+        out["flash"] = time_flash(q, k, v)
+        lm_times(model, prompts, tokens, out)
+    del q, k, v
+
+    # -- the same weights in f32: every position, and the last-token logits --
+    # The kernel changes an attention output by a bf16 rounding at most, and
+    # 28 layers carry such changes to the logits, as they carry every other
+    # bf16 rounding.  So the bf16 tolerance is the bf16 model's own error,
+    # e = max |plain bf16 - plain f32| on the same weights, and the kernel
+    # path must be as accurate: |kernel - f32| <~ e, so by the triangle
+    # inequality |kernel - plain| <= 2e.  The f32 model takes the kernel
+    # through every layer at f32 rounding: its kernel and plain paths agree
+    # within 2e-3 on the logits (tests/test_decode_consistency.py), and
+    # within the kernel's own f32 tolerance on the final-normed hidden
+    # states at every prompt position.
+    model.float()  # widens the bf16 weights exactly
+    with torch.inference_mode():
+        l32k, snap = counted(counters, lambda: lm.prefill(model, prompts)[0])
+        expect_counts("f32 prefill", snap, {"flash_attention": cfg.n_layers}, judge)
+        l32p = lm.prefill(model, prompts, mode="ref")[0]
+        hk, hp = walk_prefill(model, prompts), walk_prefill(model, prompts, mode="ref")
+    rtol, atol = kattn.AGREE[torch.float32]
+    h_share = float(((hk - hp).abs() / (atol + rtol * hp.abs())).max())
+    h_err = float((hk - hp).abs().max())
+    print(f"f32 hidden states at all {batch} x {prompt_len} positions (max |h| "
+          f"{float(hp.abs().max()):.4g}): kernel vs plain max={h_err:.4g} "
+          f"share of the tolerance={h_share:.4g} (rtol = atol = {rtol})")
+    judge(h_share <= 1.0, f"f32 hidden states: kernel vs plain {h_share:.3g} times the tolerance")
+    out["hidden_f32"] = {"max": h_err, "share_of_tol": h_share}
+    del hk, hp
+    gaps = {"f32 kernel vs plain": (l32k, l32p), "bf16 kernel vs plain": (pre_k, pre_p),
+            "bf16 plain vs f32 plain": (pre_p, l32p), "bf16 kernel vs f32 plain": (pre_k, l32p)}
+    gaps = {name: {"max": float((a - b).abs().max()), "rms": float((a - b).square().mean().sqrt()),
+                   "share_differing": float((a != b).float().mean())}
+            for name, (a, b) in gaps.items()}
+    print(f"prefill last-token logits (max |logit| {float(l32p.abs().max()):.4g}): "
+          + "; ".join(f"{k} max={v['max']:.4g} rms={v['rms']:.4g} differing={v['share_differing']:.4f}"
+                      for k, v in gaps.items()))
+    err32, pre_err = gaps["f32 kernel vs plain"]["max"], gaps["bf16 kernel vs plain"]["max"]
+    bf16_err = gaps["bf16 plain vs f32 plain"]["max"]
+    judge(err32 <= 2e-3, f"f32 prefill logits: kernel and plain paths differ by {err32}")
+    judge(pre_err <= 2 * bf16_err,
+          f"bf16 prefill logits: kernel vs plain {pre_err} > twice the bf16 error {bf16_err}")
+    out["prefill_logits"] = gaps
+    del model, l32k, l32p
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash(q, k, v) -> dict:
+    """The kernel, its plain version and SDPA (`is_causal=True`, the
+    yardstick) on one causal call, and its bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as kattn
+
+    run = lambda: kattn.flash_attention(q, k, v)  # noqa: E731
+    plain = lambda: kattn.flash_attention(q, k, v, mode="ref")  # noqa: E731
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    lib_err = float((sdpa().transpose(1, 2).float() - plain().float()).abs().max())
+    check(lib_err <= 3e-2 * (1 + float(plain().float().abs().max())),
+          f"SDPA disagrees with the plain version by {lib_err}")
+    p1 = time_ms(plain, iters=3, warmup=1)
+    k1 = time_ms(run, iters=10)
+    k2 = time_ms(run, iters=10)
+    p2 = time_ms(plain, iters=3, warmup=1)
+    lib = time_ms(sdpa, iters=20)
+    t = {"ms_runs": [k1, k2], "plain_runs": [p1, p2], "library_ms": lib,
+         "sdpa_max_abs_diff": lib_err} | flash_bound(q, k)
+    print(f"time flash_attention ({tuple(q.shape)} {q.dtype} causal): ms={k1:.4f}/{k2:.4f} "
+          f"plain_ms={p1:.3f}/{p2:.3f} sdpa_ms={lib:.4f} bound_ms={t['bound_ms']:.4f} "
+          f"({t['bound_by']}: q.k on the tensor cores, p.v in f32; {t['bytes']} B, "
+          f"{t['flops']} FLOP) share of the bound={t['bound_ms'] / min(k1, k2):.3f}; "
+          f"all-f32 bound_ms={t['bound_ms_all_f32']:.4f}")
+    return t
+
+
+def lm_times(model, prompts, tokens, out: dict) -> None:
+    """The prefill (three runs) and each decode step of `tokens`, into `out`."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import cv_engine
+
+    cfg, dev = model.cfg, prompts.device
+    batch, prompt_len = prompts.shape
+    gen_len = tokens.shape[1]
+    with torch.inference_mode():
+        t_pre = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, pc = lm.prefill(model, prompts)
+            torch.cuda.synchronize(dev)
+            t_pre.append(time.perf_counter() - t0)
+        cache = cv_engine._adopt_prefill(
+            lm.init_cache(cfg, batch, prompt_len + gen_len, device=dev), pc, cfg)
+        del pc
+        t_dec = []
+        for t in range(gen_len - 1):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, cache = lm.decode_step(model, tokens[:, t : t + 1], cache)
+            torch.cuda.synchronize(dev)
+            t_dec.append(time.perf_counter() - t0)
+        del cache
+    pre_s, dec_s = min(t_pre), sorted(t_dec)[len(t_dec) // 2]
+    out["prefill_s"], out["decode_step_s"] = t_pre, t_dec
+    out["prefill_tok_s"] = batch * prompt_len / pre_s
+    out["decode_tok_s"] = batch / dec_s
+    print(f"time prefill {batch} x {prompt_len}: s={[round(x, 4) for x in t_pre]} "
+          f"({out['prefill_tok_s']:.0f} tok/s at the fastest); decode step (median of "
+          f"{len(t_dec)}): {dec_s * 1e3:.3f} ms ({out['decode_tok_s']:.1f} tok/s)")
+
+
 def counted(counters, fn):
     """Run `fn` with the counters set to 0 just before; -> (its result, the
     launches and plain calls it made)."""
@@ -267,11 +596,11 @@ def counted(counters, fn):
     return out, counters.snapshot()
 
 
-def expect_counts(what: str, snap: dict, launches: dict) -> None:
+def expect_counts(what: str, snap: dict, launches: dict, judge=check) -> None:
     """Exactly `launches` (every other kernel 0) and no plain call."""
     want = {k: launches.get(k, 0) for k in snap["launches"]}
-    check(snap["launches"] == want, f"{what}: launches {snap['launches']} != {want}")
-    check(not any(snap["plain_calls"].values()), f"{what}: plain ran: {snap['plain_calls']}")
+    judge(snap["launches"] == want, f"{what}: launches {snap['launches']} != {want}")
+    judge(not any(snap["plain_calls"].values()), f"{what}: plain ran: {snap['plain_calls']}")
 
 
 def main() -> int:
@@ -285,6 +614,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch.configs import get_config
     from repro_torch.cv import classify, features, imgproc, pipeline
     from repro_torch.cv.config import PipelineConfig
     from repro_torch.cv.gbdt import GbdtModel
@@ -632,14 +962,21 @@ def main() -> int:
               f"({t['bound_by']}; {t['bytes']} B, {t['flops']} FLOP) card={card}")
     results["image_path"] = slice_times
 
+    # -- 6. the LM serving path ------------------------------------------------
+    lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
+                      gen_len=LM_GEN, max_err=max_err)
+    path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
+    results["lm"] = lm_out
+
     main_launches = {
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
-    print(f"main-path launches (training x2 + predict x2 + image path): {main_launches}")
+    print(f"main-path launches (training x2 + predict x2 + image path + generate): "
+          f"{main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 6. the kernels on the paths' own tensors, then timing ------------------
+    # -- 7. the kernels on the paths' own tensors, then timing ------------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -741,13 +1078,20 @@ def main() -> int:
             * (m_gbdt.feat.numel() + m_gbdt.leaf.shape[0] * m_gbdt.leaf.shape[2] + m_gbdt.leaf.shape[2]),
             "shape": f"request of {PREDICT_BATCH} images",
         },
+        {
+            "name": "flash_attention",
+            "source": "src/repro_torch/csrc/flash_attn.cu",
+            "replaces": "src/repro/kernels/attention.py:31",
+            "measured": lm_out["flash"],
+            "shape": f"layer 0 of the {LM_ARCH} prefill, ({LM_BATCH}, {LM_PROMPT}, 16, 256) bf16",
+        },
     ]
     lib_check = torch.addmm(bg, hist, wg.T)
     ok = torch.allclose(lib_check, kbow.linear_score(hist, wg, bg), rtol=1e-5, atol=1e-5)
     check(bool(ok), "linear_score disagrees with torch.addmm")
     line = []
     for k in kernels:
-        if "measured" in k:  # timed in phase 5 on its image-path shape
+        if "measured" in k:  # timed in phase 5 or 6 on its path's shape
             t = k["measured"]
             (k1, k2), (p1, p2), lib = t["ms_runs"], t["plain_runs"], t["library_ms"]
             bms, by = t["bound_ms"], t["bound_by"]

@@ -1,0 +1,136 @@
+"""Where the time of LM serving goes on the card (PyTorch port).
+
+    python3 scripts/torch_lm_profile.py [--reduced] [--requests 8]
+        [--prompt-len 1024] [--decode-steps 8]
+
+Builds gemma-7b at full width (or ``--reduced``) on the card from a seeded
+generator, warms up with one `generate`, then traces with `torch.profiler`
+one prefill of ``--requests`` x ``--prompt-len`` tokens and, separately,
+``--decode-steps`` decode steps against the prefill's cache, and prints for
+each:
+
+  * the host wall time (work ending in a synchronise) and the summed
+    kernel time, whose ratio is the device busy share;
+  * the device time by kernel name, `flash_attention`'s kernel first.
+
+Needs a CUDA device; writes the same report to
+``chiprun_out/torch_lm_profile.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OWN_KERNELS = ("flash_attn_kernel",)
+
+
+def _by_kernel(prof, torch) -> dict:
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        total, calls = out.get(e.key, (0.0, 0))
+        out[e.key] = (total + t, calls + e.count)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_lm_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve import cv_engine
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+        timeout=60,
+    ).stdout.strip()
+    dev = torch.device("cuda")
+    cfg = reduced_config("gemma-7b") if args.reduced else get_config("gemma-7b")
+    model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len))
+    ).to(dev)
+    steps = args.decode_steps
+    tokens = cv_engine.generate(model, prompts, steps=steps + 1)  # warm-up
+    torch.cuda.synchronize()
+
+    report = {"card": card, "arch": cfg.name, "reduced": args.reduced,
+              "requests": args.requests, "prompt_len": args.prompt_len,
+              "decode_steps": steps, "phases": {}}
+    print(f"card: {card}")
+    with torch.inference_mode():
+        for phase in ("prefill", "decode"):
+            if phase == "decode":
+                cache = lm.init_cache(cfg, args.requests, args.prompt_len + steps, device=dev)
+                cache = cv_engine._adopt_prefill(cache, pcache, cfg)
+                del pcache
+                torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if phase == "prefill":
+                    _, pcache = lm.prefill(model, prompts)
+                else:
+                    for t in range(steps):
+                        _, cache = lm.decode_step(model, tokens[:, t : t + 1], cache)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            by_kernel = _by_kernel(prof, torch)
+            busy_us = sum(t for t, _ in by_kernel.values())
+            own = [kv for kv in by_kernel.items() if any(k in kv[0] for k in OWN_KERNELS)]
+            rows = own + sorted(
+                (kv for kv in by_kernel.items() if kv not in own), key=lambda kv: -kv[1][0]
+            )
+            what = (
+                f"prefill of {args.requests} x {args.prompt_len}"
+                if phase == "prefill"
+                else f"{steps} decode steps of {args.requests}"
+            )
+            print(
+                f"traced {what} ({cfg.name}{' reduced' if args.reduced else ''}): wall "
+                f"{wall_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms, device busy "
+                f"{busy_us / wall_us:.4f}, kernel launches {sum(n for _, n in by_kernel.values())}"
+            )
+            print(f"{'device us':>12} {'calls':>7}  kernel")
+            for name, (t, n) in rows[:15]:
+                print(f"{t:12.1f} {n:7d}  {name[:110]}")
+            report["phases"][phase] = {
+                "wall_us": wall_us,
+                "kernel_us": busy_us,
+                "device_busy_share": busy_us / wall_us,
+                "kernels": {k: {"device_us": t, "calls": n} for k, (t, n) in rows},
+            }
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "torch_lm_profile.json").write_text(json.dumps(report, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

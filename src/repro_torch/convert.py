@@ -1,11 +1,14 @@
-"""Carry a trained model across from the JAX package.
+"""Carry a trained model, or a language model's parameters, across from the
+JAX package.
 
 `from_jax_model` takes plain numpy arrays (what ``np.asarray(model.centroids)``,
 ``np.asarray(model.svm["w"])`` and ``np.asarray(model.svm["b"])`` give for a
 `repro.cv.pipeline.BowSvmModel`), and `from_jax_gbdt_model` those of a
 `repro.cv.pipeline.BowGbdtModel` (``model.centroids`` and
 ``model.gbdt.{feat, thr, leaf, base}``), so both packages compute with the
-same model and this package never imports JAX.
+same model and this package never imports JAX.  `from_jax_lm_params` takes
+the parameter tree of `repro.models.lm.init_params` as nested dicts and
+lists of numpy arrays (``jax.tree.map(np.asarray, params)``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from .core.device import resolve_device
 from .cv.gbdt import GbdtModel
 from .cv.pipeline import BowGbdtModel, BowSvmModel
+from .models.lm import LM
 
 
 def from_jax_model(centroids, w, b, n_classes: int, *, device=None) -> BowSvmModel:
@@ -64,3 +68,54 @@ def from_jax_gbdt_model(
         )
     gbdt = GbdtModel(feat_i.astype(np.int32), thr, leaf, base, n_classes)
     return BowGbdtModel(torch.from_numpy(centroids), gbdt, n_classes).to(dev)
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, array) of every leaf of a nested dict."""
+    for name, sub in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(sub, dict):
+            yield from _leaves(sub, f"{path}.")
+        else:
+            yield path, sub
+
+
+def from_jax_lm_params(params: dict, cfg, *, device=None) -> LM:
+    """The JAX parameter tree of `cfg`'s language model -> the port's `LM`
+    on `device` (None = "cuda").  Each run of layers is stacked on a leading
+    axis in JAX and is unstacked into one module per layer.  bf16 arrives as
+    ``ml_dtypes.bfloat16``, which torch does not take: every array is widened
+    to f32 in numpy and cast to its parameter's dtype, a round trip that is
+    exact.  The tree must name exactly the model's parameters."""
+    dev = resolve_device(device)
+    model = LM(cfg, device="meta").to_empty(device=dev)
+    flat = {}
+    for name in ("embed", "lm_head"):
+        if name in params:
+            flat[name] = params[name]
+    for path, arr in _leaves(params["final_norm"], "final_norm."):
+        flat[path] = arr
+    first = 0
+    for (kind, count), group in zip(cfg.blocks, params["groups"], strict=True):
+        for path, arr in _leaves(group):
+            if len(arr) != count:
+                raise ValueError(f"from_jax_lm_params: {kind} {path} stacks {len(arr)} of {count}")
+            for li in range(count):
+                flat[f"blocks.{first + li}.{path}"] = arr[li]
+        first += count
+    state = model.state_dict()
+    if set(flat) != set(state):
+        raise ValueError(
+            "from_jax_lm_params: the tree does not match the model: missing "
+            f"{sorted(set(state) - set(flat))}, extra {sorted(set(flat) - set(state))}"
+        )
+    with torch.no_grad():
+        for name, arr in flat.items():
+            a = np.array(arr, dtype=np.float32)
+            if a.shape != tuple(state[name].shape):
+                raise ValueError(
+                    f"from_jax_lm_params: {name} has shape {a.shape}, "
+                    f"the model {tuple(state[name].shape)}"
+                )
+            state[name].copy_(torch.from_numpy(a))
+    return model

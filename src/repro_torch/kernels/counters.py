@@ -16,6 +16,7 @@ KERNELS = (
     "linear_score",
     "bow_assign",
     "gbdt_score",
+    "flash_attention",
 )
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

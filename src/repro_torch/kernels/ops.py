@@ -1,6 +1,7 @@
-"""Public image ops (the counterpart of `repro.kernels.ops`), each one launch
-of the fused stencil engine.  `pyr_down`, `pyr_up`, `sobel` and
-`flash_attention` are queued with their slices (ROADMAP)."""
+"""Public ops (the counterpart of `repro.kernels.ops`): the image ops, each
+one launch of the fused stencil engine, the BoW and GBDT kernels, and
+`flash_attention`.  `pyr_down`, `pyr_up` and `sobel` are queued with their
+slices (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 
 from ..core.device import DEFAULT, LaunchConfig
 from . import ref
+from .attention import flash_attention  # noqa: F401
 from .bow import bow_assign, bow_quantize_hist, linear_score  # noqa: F401
 from .erode import dilate, erode  # noqa: F401
 from .filter2d import filter2d, sep_filter2d

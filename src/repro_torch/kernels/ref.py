@@ -12,7 +12,8 @@ in ``map`` and ``tap`` modes, on a u8 or f32 carrier.  On u8 every stage
 widens to f32 and packs back with round-half-even and a clip to [0, 255]
 (OpenCV's saturate_cast), as the JAX oracle's `_saturate` does.  The JAX
 oracle's other stage ops raise `NotImplementedError` until their slice
-lands.
+lands.  Beside the stencil oracle: the BoW and GBDT oracles and
+`attention_ref`.
 """
 
 from __future__ import annotations
@@ -323,3 +324,18 @@ def gbdt_scores_ref(x, feat, thr, leaf, base) -> torch.Tensor:
     T = leaf.shape[0]
     picked = leaf.to(torch.float32)[torch.arange(T, device=x.device)[None, :], lidx.long()]
     return base.to(torch.float32)[None, :] + torch.sum(picked, dim=1)
+
+
+def attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+) -> torch.Tensor:
+    """q/k/v (B, S, H, hd) -> (B, S, H, hd), f32 softmax; causal masks key
+    index ki > query index qi (raw indices, also when S != T)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
+    s = s / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
+    if causal:
+        S, T = q.shape[1], k.shape[1]
+        mask = torch.arange(T, device=q.device)[None, :] <= torch.arange(S, device=q.device)[:, None]
+        s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,61 @@
+"""Serving launcher: batched greedy generation (the counterpart of
+`repro.launch.serve`).
+
+    python -m repro_torch.launch.serve --arch gemma-7b [--reduced] \\
+        --requests 8 --prompt-len 1024 --gen-len 32 [--device cuda] [--seed 0]
+
+Parameters come from the model's own seeded init (no weights are
+downloaded or needed); prompts from ``np.random.default_rng(seed)``.  The
+device defaults to CUDA and the launcher raises without one; ``--device
+cpu --reduced`` runs the plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config, reduced_config
+from ..core.device import resolve_device
+from ..models.lm import LM
+from ..serve.cv_engine import generate
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int64)
+    )
+
+    t0 = time.perf_counter()
+    out = generate(model, prompts, steps=args.gen_len, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt_s = time.perf_counter() - t0
+    toks = args.requests * args.gen_len
+    print(
+        f"[serve] {cfg.name} on {dev}: generated {toks} tokens in {dt_s:.2f}s "
+        f"({toks / dt_s:.1f} tok/s, first call, kernel builds included) - "
+        f"output shape {tuple(out.shape)}"
+    )
+    print("[serve] first request tokens:", out[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

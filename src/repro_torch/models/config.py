@@ -1,0 +1,69 @@
+"""Model configuration (the counterpart of `repro.models.config`).
+
+A ModelConfig describes one architecture: the repeating layer pattern
+(`blocks`, run-length encoded), the attention settings, the FFN and the
+embedding/head layout.  It holds the JAX config's fields that the ported
+blocks read; a later slice adds the fields of what it ports (the MLA,
+MoE, SSM and xLSTM sub-configs, the encoder and cross-attention layout,
+the sharding and training settings), so a config that sets one of them
+before then is refused at construction.  `SHAPES` waits for the dry-run
+(ROADMAP Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # layer pattern, run-length encoded: (("attn", 28),)
+    blocks: tuple[tuple[str, int], ...] = ()
+
+    # norms / activations / mlp
+    norm: str = "rms"  # rms | layernorm
+    gemma_norm: bool = False
+    norm_eps: float = 1e-6
+    act: str = "silu"
+    mlp_style: str = "glu"  # glu | plain
+    qkv_bias: bool = False
+
+    # attention
+    causal: bool = True
+    rope_theta: float = 10000.0
+    rotary_dim: int | None = None
+    window: int | None = None  # sliding-window attention
+    attn_soft_cap: float | None = None
+    attn_scale: float | None = None
+
+    # embeddings
+    tie_embeddings: bool = False
+    scale_embed: bool = False  # gemma multiplies embeddings by sqrt(d)
+
+    dtype: str = "bfloat16"
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def block_list(self) -> list[str]:
+        out: list[str] = []
+        for kind, count in self.blocks:
+            out.extend([kind] * count)
+        return out
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,178 @@
+"""Shared neural-net primitives: norms, activations, RoPE, initializers, MLPs
+(the counterpart of `repro.models.layers`).
+
+Parameters live in `nn.ParameterDict`s named as the JAX package's pytree
+leaves (``w_q``, ``scale``, ...), so a JAX parameter tree maps onto a
+module's ``state_dict`` name by name (`convert.from_jax_lm_params`).
+Weights keep the JAX layout ``(in, out)`` and are applied as ``x @ w``.
+The port serves only: parameters carry no gradient.
+`softmax_cross_entropy` waits for training (ROADMAP Queue 2 item 8).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(
+    x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6, gemma_style: bool = False
+) -> torch.Tensor:
+    """RMSNorm, computed in f32.  gemma_style applies (1 + w) scaling."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    w = scale.to(torch.float32)
+    if gemma_style:
+        w = 1.0 + w
+    return (y * w).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, eps: float = 1e-5
+) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+def apply_norm(
+    x: torch.Tensor, p, *, eps: float, kind: str = "rms", gemma_style: bool = False
+) -> torch.Tensor:
+    if kind == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"], eps=eps)
+    return rms_norm(x, p["scale"], eps=eps, gemma_style=gemma_style)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def init_norm(
+    d: int, *, kind: str = "rms", gemma_style: bool = False, device=None
+) -> nn.ParameterDict:
+    # gemma stores w with effective scale (1 + w): init 0; plain RMS init 1
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "layernorm":
+        return nn.ParameterDict(
+            {"scale": _param(torch.ones(d, **f32)), "bias": _param(torch.zeros(d, **f32))}
+        )
+    scale = torch.zeros(d, **f32) if gemma_style else torch.ones(d, **f32)
+    return nn.ParameterDict({"scale": _param(scale)})
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu_exact": lambda x: F.gelu(x, approximate="none"),
+    "relu": F.relu,
+}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-rotation layout)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(rotary_dim: int, *, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (rotary_dim // 2,) in f32."""
+    exponent = torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=device) / rotary_dim
+    return 1.0 / (theta**exponent)
+
+
+def apply_rope(
+    x: torch.Tensor, positions: torch.Tensor, *, theta: float, rotary_dim: int | None = None
+) -> torch.Tensor:
+    """x (..., S, H, head_dim): rotates the first `rotary_dim` channels.
+    positions: broadcastable to (..., S); absolute token positions.  The
+    angles and the rotation are f32; the result is cast back to x's dtype."""
+    head_dim = x.shape[-1]
+    rd = rotary_dim if rotary_dim is not None else head_dim
+    inv_freq = rope_frequencies(rd, theta=theta, device=x.device)
+    ang = positions.to(torch.float32)[..., None, None] * inv_freq  # (..., S, 1, rd//2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    xr, xp = x[..., :rd], x[..., rd:]
+    x1, x2 = torch.chunk(xr.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rd < head_dim else out
+
+
+# ---------------------------------------------------------------------------
+# Linear / embedding initializers
+# ---------------------------------------------------------------------------
+
+
+def _trunc_normal(shape, *, device, generator) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=generator)
+
+
+def dense_init(
+    shape: tuple[int, ...], *, dtype, device=None, generator=None, scale: float | None = None
+) -> nn.Parameter:
+    """Truncated-normal (at +-3 std) fan-in init, drawn in f32 and then cast."""
+    fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
+    std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    return _param((_trunc_normal(shape, device=device, generator=generator) * std).to(dtype))
+
+
+def embed_init(vocab: int, d: int, *, dtype, device=None, generator=None) -> nn.Parameter:
+    t = _trunc_normal((vocab, d), device=device, generator=generator) * 0.02
+    return _param(t.to(dtype))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    y = x @ w
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(
+    d: int, f: int, *, style: str, dtype, device=None, generator=None
+) -> nn.ParameterDict:
+    """style: 'glu' (gate + up + down) or 'plain' (up + down, with biases)."""
+    init = dict(dtype=dtype, device=device, generator=generator)
+    if style == "glu":
+        return nn.ParameterDict(
+            {
+                "w_gate": dense_init((d, f), **init),
+                "w_up": dense_init((d, f), **init),
+                "w_down": dense_init((f, d), **init),
+            }
+        )
+    f32 = dict(dtype=torch.float32, device=device)
+    return nn.ParameterDict(
+        {
+            "w_up": dense_init((d, f), **init),
+            "b_up": _param(torch.zeros(f, **f32)),
+            "w_down": dense_init((f, d), **init),
+            "b_down": _param(torch.zeros(d, **f32)),
+        }
+    )
+
+
+def apply_mlp(p, x: torch.Tensor, *, act: str, style: str) -> torch.Tensor:
+    a = ACTIVATIONS[act]
+    if style == "glu":
+        return (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return linear(a(linear(x, p["w_up"], p["b_up"])), p["w_down"], p["b_down"])

@@ -1,0 +1,184 @@
+"""Top-level language model (the counterpart of `repro.models.lm`): the
+embedding, the layers and the head, and the two serving entry points.
+
+  prefill(model, tokens)              -> (last_logits, cache)
+  decode_step(model, tokens, cache)   -> (logits, cache)
+
+`LM` holds the parameters as modules named like the JAX parameter tree,
+with one module per layer where JAX stacks each homogeneous run of layers
+on a leading axis (`convert.from_jax_lm_params` unstacks it).  The KV
+cache keeps JAX's layout: per run of layers, ``k`` and ``v`` of shape
+(L, B, T, G, hd), and the next position ``pos`` (a Python int here).
+`forward` and the loss, and the encoder, context, shared-block and MoE
+branches wait (ROADMAP Queue 2 item 8); so does sharding, since this is
+one card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from . import blocks as blocks_mod
+from .layers import apply_norm, dense_init, embed_init, init_norm
+
+
+def _model_device(device) -> torch.device:
+    """`resolve_device`, and the meta device for a model whose parameters
+    are filled in afterwards (`convert.from_jax_lm_params`)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+class LM(nn.Module):
+    """The parameters of a `ModelConfig`'s language model on `device`
+    (None = "cuda"), drawn from `generator` (a generator of that device;
+    None = torch's default): JAX's initializers, not JAX's numbers."""
+
+    def __init__(self, cfg, *, device=None, generator: torch.Generator | None = None):
+        super().__init__()
+        for kind, _ in cfg.blocks:
+            blocks_mod.check_kind(kind)
+        dev = _model_device(device)
+        init = dict(device=dev, generator=generator)
+        self.cfg = cfg
+        self.embed = embed_init(cfg.vocab_size, cfg.d_model, dtype=cfg.param_dtype, **init)
+        self.blocks = nn.ModuleList(blocks_mod.init_block(k, cfg, **init) for k in cfg.block_list)
+        self.final_norm = init_norm(
+            cfg.d_model, kind=cfg.norm, gemma_style=cfg.gemma_norm, device=dev
+        )
+        if not cfg.tie_embeddings:
+            self.lm_head = dense_init(
+                (cfg.d_model, cfg.vocab_size), dtype=cfg.param_dtype, scale=0.02, **init
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def groups(self):
+        """(kind, the run's layer modules) for each run of `cfg.blocks`."""
+        i = 0
+        for kind, count in self.cfg.blocks:
+            yield kind, self.blocks[i : i + count]
+            i += count
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+
+def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    x = model.embed[tokens]
+    if model.cfg.scale_embed:
+        # JAX rounds sqrt(d) to the weight dtype first: 55.5 in bf16 at d 3072
+        # (and so does a bf16 model whose weights were widened to f32)
+        scale = torch.tensor(math.sqrt(model.cfg.d_model), dtype=model.cfg.param_dtype)
+        x = x * scale.to(device=x.device, dtype=x.dtype)
+    return x
+
+
+def _head(model: LM, h: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    h = apply_norm(
+        h, model.final_norm, kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm
+    )
+    if cfg.tie_embeddings:
+        return h @ model.embed.T
+    return h @ model.lm_head
+
+
+# ---------------------------------------------------------------------------
+# Prefill: forward + cache extraction
+# ---------------------------------------------------------------------------
+
+
+def prefill(model: LM, tokens: torch.Tensor, *, mode: str | None = None):
+    """tokens (B, S) -> (logits of the last position (B, V), cache).
+    `mode` reaches the attention kernel (``"ref"``: its plain version)."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    h = _embed(model, tokens)
+    cache: dict = {"groups": [], "pos": S}
+    for kind, layers in model.groups():
+        ks, vs = [], []
+        for p in layers:
+            h, c = blocks_mod.apply_block(kind, p, h, cfg, mode=mode)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        cache["groups"].append({"k": torch.stack(ks), "v": torch.stack(vs)})
+    logits = _head(model, h[:, -1:, :])
+    return logits[:, 0, :], cache
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def ring_positions(pos: int, cache_len: int, *, device=None):
+    """Absolute position held by each ring-buffer slot after writing `pos`.
+
+    slot(i) holds the largest position p <= pos with p % cache_len == i.
+    Slots with p > pos have not been written this lap: they hold
+    p - cache_len (valid only if >= 0).  Also right for a full cache
+    (cache_len >= S).
+    """
+    i = torch.arange(cache_len, device=device)
+    lap = pos - ((pos - i) % cache_len)
+    valid = lap >= 0
+    kv_pos = torch.where(valid, lap, 2**30)
+    return kv_pos, valid
+
+
+def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
+    """tokens (B, 1): append one token at absolute position ``cache["pos"]``
+    -> (logits (B, V), cache).  The cache's tensors are written in place;
+    the returned dict holds them and ``pos + 1``."""
+    cfg = model.cfg
+    pos = cache["pos"]
+    h = _embed(model, tokens)
+    new_cache: dict = {"groups": [], "pos": pos + 1}
+    for (kind, layers), gcache in zip(model.groups(), cache["groups"]):
+        kv_pos, kv_valid = ring_positions(
+            pos, _group_cache_len(kind, gcache), device=tokens.device
+        )
+        for li, p in enumerate(layers):
+            c = {"k": gcache["k"][li], "v": gcache["v"][li]}
+            h, _ = blocks_mod.apply_block_decode(
+                kind, p, h, cfg, cache=c, pos=pos, kv_pos=kv_pos, kv_valid=kv_valid
+            )
+        new_cache["groups"].append(gcache)
+    logits = _head(model, h)
+    return logits[:, 0, :], new_cache
+
+
+def _group_cache_len(kind: str, gcache) -> int:
+    blocks_mod.check_kind(kind)
+    return gcache["k"].shape[2]  # (L, B, T, G, hd)
+
+
+# ---------------------------------------------------------------------------
+# Cache init (for the serving engine)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch: int, cache_len: int, *, device=None) -> dict:
+    """Zero KV cache in the weights' dtype for `cache_len` positions (a ring
+    of `cfg.window` slots when the arch has a window) on `device`
+    (None = "cuda")."""
+    dev = resolve_device(device)
+    dtype = cfg.param_dtype
+    clen = min(cache_len, cfg.window) if cfg.window else cache_len
+    cache: dict = {"groups": [], "pos": 0}
+    for kind, count in cfg.blocks:
+        one = blocks_mod.init_block_cache(kind, cfg, batch, clen, dtype, device=dev)
+        cache["groups"].append(
+            {name: t.new_zeros((count, *t.shape)) for name, t in one.items()}
+        )
+    return cache

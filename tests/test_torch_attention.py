@@ -1,0 +1,245 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+On the CPU the port's `flash_attention` runs its plain version; the JAX side
+runs its Pallas kernel in interpret mode (``VectorConfig(lmul=1)`` and the
+default lmul, as tests/test_kernels_attention.py runs it) and its oracle
+`ref.attention_ref`.
+
+Tolerances, with their reasons:
+  * `flash_attention_plain` against JAX's kernel and oracle:
+    `kernels.attention.AGREE`, rtol = atol = 2e-4 in f32 (the JAX kernel
+    test's, tests/test_kernels_attention.py:20) and one bf16 rounding apart
+    in bf16 (rtol 2^-7, atol 1e-4; within the JAX test's 3e-2, l.29): all
+    three compute in f32 and round once, summing dot products in another
+    order;
+  * the port's `attention_ref` and `dense_attention` against JAX's: rtol =
+    atol = 1e-5 in f32, the same formula in another summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.core.vector import VectorConfig
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro.models import lm as jlm
+
+from repro_torch.core.device import SMEM_MAX_BYTES
+from repro_torch.kernels import attention as kattn
+from repro_torch.kernels import counters
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+from repro_torch.models import lm as tlm
+
+
+# (B, S, T, H, hd): the JAX kernel test's shapes, hd 16 and 256, S != T
+SHAPES = [
+    (1, 128, 128, 1, 64),
+    (2, 200, 200, 4, 64),
+    (1, 300, 300, 2, 128),
+    (2, 96, 96, 3, 16),
+    (1, 130, 130, 2, 256),
+    (1, 100, 160, 2, 64),
+    (2, 150, 70, 1, 32),
+]
+
+
+def _qkv(shape, dtype, seed):
+    B, S, T, H, hd = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    v = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    jx = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    # the port gets JAX's rounding of the inputs, widened exactly
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype)) for a in jx]
+    return jx, tx
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_plain_matches_jax_kernel_and_oracle(shape, causal, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(shape, dtype, sum(shape) + causal)
+    counters.reset()
+    got = kattn.flash_attention(tq, tk, tv, causal=causal)
+    assert counters.PLAIN_CALLS["flash_attention"] == 1
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    rtol, atol = kattn.AGREE[tq.dtype]
+    for vc in (VectorConfig(lmul=1), VectorConfig()):
+        want = jops.flash_attention(jq, jk, jv, causal=causal, vc=vc)
+        np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)), rtol=rtol, atol=atol)
+    oracle = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(oracle.astype(jnp.float32)), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 40, 40, 2, 16), (1, 33, 70, 3, 8)])
+def test_attention_ref_matches_jax(shape, causal):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(shape, "float32", 7)
+    got = tref.attention_ref(tq, tk, tv, causal=causal)
+    want = jref.attention_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_plain_first_row_and_empty_keys():
+    """Causal row 0 sees key 0 alone, whatever T; with no keys at all every
+    row stays masked and the output is 0, as the kernel's acc / max(l, 1e-30)."""
+    _, (tq, tk, tv) = _qkv((1, 70, 130, 1, 16), "float32", 3)
+    got = kattn.flash_attention_plain(tq, tk, tv, causal=True)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got[:, 0].numpy(), tv[:, 0].numpy(), rtol=1e-6, atol=1e-6)
+    empty = kattn.flash_attention_plain(tq, tk[:, :0], tv[:, :0], causal=False)
+    assert torch.equal(empty, torch.zeros_like(tq))
+
+
+def test_ops_exports_the_wrapper():
+    assert tops.flash_attention is kattn.flash_attention
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["gqa", "dtype", "mixed_dtype", "head_dim", "noncontig", "mode", "rank"],
+)
+def test_flash_attention_refuses(bad):
+    q = torch.zeros((1, 8, 4, 16))
+    k = v = torch.zeros((1, 8, 4, 16))
+    kw = {}
+    if bad == "gqa":
+        k = v = torch.zeros((1, 8, 2, 16))
+    elif bad == "dtype":
+        q = k = v = torch.zeros((1, 8, 4, 16), dtype=torch.float64)
+    elif bad == "mixed_dtype":
+        k = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16)
+    elif bad == "head_dim":
+        q = k = v = torch.zeros((1, 8, 4, 12))
+    elif bad == "noncontig":
+        q = torch.zeros((1, 4, 8, 16)).transpose(1, 2)
+    elif bad == "mode":
+        kw = {"mode": "window"}
+    elif bad == "rank":
+        q = torch.zeros((8, 4, 16))
+    counters.reset()
+    with pytest.raises(ValueError):
+        kattn.flash_attention(q, k, v, **kw)
+    assert counters.PLAIN_CALLS["flash_attention"] == 0
+
+
+def test_smem_bytes_fit_the_card_at_hd_256():
+    """gemma-7b's head dim: 116,224 bytes a block in bf16 (a q, k and v tile
+    in their own dtype) and 214,528 in f32, both under the 227 KB a block
+    may use; f32 staging of all three tiles in bf16's place would not fit
+    beside the scores at BKV = 128 (the JAX kernel's block)."""
+    assert kattn.smem_bytes(256, 2) == 116_224
+    assert kattn.smem_bytes(256, 4) == 214_528 <= SMEM_MAX_BYTES
+    assert kattn.smem_bytes(16, 2) < kattn.smem_bytes(64, 2) < kattn.smem_bytes(128, 2)
+
+
+# ---------------------------------------------------------------------------
+# dense_attention and the routing of models.attention.attention
+# ---------------------------------------------------------------------------
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("pos", [5, 11, 17, 30])
+@pytest.mark.parametrize("window,soft_cap", [(None, None), (8, None), (None, 30.0)])
+def test_dense_attention_ring_cache_matches_jax(pos, window, soft_cap):
+    """Decode against a 12-slot ring cache (wrapped once pos >= 12), GQA
+    (4 query heads over 2 KV heads), grouped as the decode path runs it."""
+    B, T, Hq, G, hd = 2, 12, 4, 2, 16
+    q, k, v = _rand((B, 1, Hq, hd), pos), _rand((B, T, G, hd), pos + 1), _rand((B, T, G, hd), pos + 2)
+    jkv, jvalid = jlm.ring_positions(jnp.asarray(pos), T)
+    tkv, tvalid = tlm.ring_positions(pos, T)
+    np.testing.assert_array_equal(tkv.numpy(), np.asarray(jkv))
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+    jpos = jnp.full((B, 1), pos, jnp.int32)
+    want = jattn.dense_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, q_pos=jpos, kv_pos=jkv,
+        window=window, kv_valid=jvalid, soft_cap=soft_cap, grouped=True,
+    )
+    got = tattn.dense_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=True,
+        q_pos=torch.full((B, 1), pos, dtype=torch.int32), kv_pos=tkv, window=window,
+        kv_valid=tvalid, soft_cap=soft_cap, grouped=True,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_attention_full_sequence_matches_jax(grouped, causal):
+    B, S, Hq, G, hd = 2, 24, 6, 3, 8
+    q, k, v = _rand((B, S, Hq, hd), 1), _rand((B, S, G, hd), 2), _rand((B, S, G, hd), 3)
+    pos = np.arange(S)[None, :]
+    want = jattn.dense_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_pos=jnp.asarray(pos), kv_pos=jnp.asarray(pos), scale=0.3, grouped=grouped,
+    )
+    got = tattn.dense_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal=causal,
+        q_pos=torch.from_numpy(pos), kv_pos=torch.from_numpy(pos), scale=0.3, grouped=grouped,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def _route(**kw):
+    """(which path ran, output) for one `attention` call on small tensors."""
+    q = torch.from_numpy(_rand((1, 10, kw.pop("hq", 2), 8), 4))
+    k = torch.from_numpy(_rand((1, 10, 2, 8), 5))
+    v = torch.from_numpy(_rand((1, 10, 2, 8), 6))
+    counters.reset()
+    out = tattn.attention(q, k, v, **kw)
+    return ("flash" if counters.PLAIN_CALLS["flash_attention"] else "dense"), out, (q, k, v)
+
+
+@pytest.mark.parametrize(
+    "kw,path",
+    [
+        ({}, "flash"),
+        ({"causal": False}, "flash"),
+        ({"mode": "ref"}, "flash"),
+        ({"hq": 4}, "dense"),
+        ({"window": 4}, "dense"),
+        ({"soft_cap": 20.0}, "dense"),
+        ({"scale": 0.5}, "dense"),
+        ({"kv_valid": torch.ones(10, dtype=torch.bool)}, "dense"),
+        ({"q_pos": torch.arange(10), "kv_pos": torch.arange(10)}, "dense"),
+    ],
+)
+def test_attention_routing(kw, path):
+    got, out, (q, k, v) = _route(**kw)
+    assert got == path
+    if path == "flash" or set(kw) <= {"q_pos", "kv_pos", "kv_valid"}:
+        # the same function either way: dense_attention agrees
+        causal = kw.get("causal", True)
+        want = tattn.dense_attention(q, k, v, causal=causal)
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_attention_above_8192_positions_needs_blockwise():
+    q = torch.zeros((1, 1, 2, 8))
+    k = v = torch.zeros((1, 8193, 2, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.attention(q, k, v, q_pos=torch.tensor([8192]), kv_pos=torch.arange(8193))
+    # a ring cache (kv_valid) stays dense at any length, as in JAX
+    out = tattn.attention(
+        q, k, v, q_pos=torch.tensor([8192]), kv_pos=torch.arange(8193),
+        kv_valid=torch.ones(8193, dtype=torch.bool),
+    )
+    assert out.shape == q.shape
+    # and the kernel route takes any length
+    x = torch.zeros((1, 8193, 1, 8))
+    counters.reset()
+    assert tattn.attention(x, x, x).shape == x.shape
+    assert counters.PLAIN_CALLS["flash_attention"] == 1

@@ -181,6 +181,7 @@ def test_cpu_wrappers_count_plain_calls():
         "linear_score": 1,
         "bow_assign": 0,
         "gbdt_score": 0,
+        "flash_attention": 0,
     }
     assert sum(counters.LAUNCHES.values()) == 0
 

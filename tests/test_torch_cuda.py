@@ -13,6 +13,11 @@ product and sum rounded on its own, in the same order), so the bow and
 gbdt kernels must match exactly, `stencil_stream` exactly on u8 and f32,
 and `stencil_chain` within the repo's f32 oracle tolerance (rtol 2e-5,
 atol 2e-3) in its older test and exactly in the mode-agreement test.
+`flash_attention` sums its dot products in another order than its plain
+version and the f32 oracle, and each rounds once to the output dtype, so
+it is held to `kernels.attention.AGREE`: one rounding apart in f16 / bf16
+(rtol 2^-10 / 2^-7, atol 1e-4), rtol = atol = 2e-4 in f32 (the JAX kernel
+test's, tests/test_kernels_attention.py:20).
 """
 
 import pytest
@@ -22,10 +27,14 @@ from repro_torch.core.device import LaunchConfig
 from repro_torch.cv import features, pipeline
 from repro_torch.cv.config import PipelineConfig
 from repro_torch.data.synthetic import ImageStream
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import bow as kbow
 from repro_torch.kernels import counters
 from repro_torch.kernels import gbdt as kgbdt
 from repro_torch.kernels import ref, stencil
+from repro_torch.models.lm import LM
+from repro_torch.serve import cv_engine
 
 pytestmark = pytest.mark.cuda
 
@@ -257,3 +266,54 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         kbow.linear_score(torch.zeros((2, 3), device=dev), torch.zeros((3, 4), device=dev).T,
                           torch.zeros(4, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "B,S,T,H,hd",
+    [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128), (2, 257, 257, 2, 16),
+     (1, 130, 130, 2, 256), (1, 100, 160, 2, 64), (2, 150, 70, 3, 32), (1, 1, 65, 1, 8)],
+)
+def test_flash_attention_matches_plain(dev, dtype, causal, B, S, T, H, hd):
+    g = torch.Generator(device=dev).manual_seed(S * 7 + T + hd)
+    q, k, v = (torch.randn((B, n, H, hd), generator=g, device=dev).to(dtype) for n in (S, T, T))
+    counters.reset()
+    got = kattn.flash_attention(q, k, v, causal=causal)
+    want = kattn.flash_attention(q, k, v, causal=causal, mode="ref")
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["flash_attention"] == 1
+    assert counters.PLAIN_CALLS["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = kattn.AGREE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    oracle = ref.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), oracle.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_refuses_gqa_and_an_over_budget_tile(dev):
+    q = torch.zeros((1, 64, 4, 256), device=dev)
+    kv = torch.zeros((1, 64, 2, 256), device=dev)
+    counters.reset()
+    with pytest.raises(ValueError, match="KV heads"):
+        kattn.flash_attention(q, kv, kv)
+    # f32 at hd 256 needs 214,528 bytes a block: it fits the card, not a smaller budget
+    with pytest.raises(ValueError, match="214528 bytes"):
+        kattn.flash_attention(q, q, q, lc=LaunchConfig(smem_budget=150_000))
+    assert counters.LAUNCHES["flash_attention"] == 0
+    assert counters.PLAIN_CALLS["flash_attention"] == 0
+    out = kattn.flash_attention(q, q, q)
+    assert counters.LAUNCHES["flash_attention"] == 1 and out.shape == q.shape
+
+
+def test_reduced_generate_launches_flash_once_per_layer(dev):
+    cfg = reduced_config("gemma-7b")
+    model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=torch.Generator().manual_seed(1))
+    counters.reset()
+    out = cv_engine.generate(model, prompts, steps=5)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 5) and out.device.type == "cuda"
+    assert counters.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert sum(counters.PLAIN_CALLS.values()) == 0
+    assert torch.equal(out, cv_engine.generate(model, prompts, steps=5))

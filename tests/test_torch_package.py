@@ -1,7 +1,7 @@
 """Structural rules of the PyTorch port, checked on the CPU.
 
 * No module of ``src/repro_torch``, and neither ``chip_smoke.py`` nor
-  ``scripts/torch_predict_profile.py``, imports ``jax`` or the JAX
+  the port's ``scripts/torch_*.py``, imports ``jax`` or the JAX
   package ``repro`` (checked on the source, so a lazy import inside a
   function counts too).
 * Entry points resolve ``device=None`` to CUDA and raise without one.
@@ -23,6 +23,7 @@ from repro_torch.cv import gbdt as tgbdt_cv
 from repro_torch.cv import pipeline as tpipeline
 from repro_torch.cv.config import PipelineConfig
 from repro_torch.kernels import _build, counters
+from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import bow as tbow
 from repro_torch.kernels import gbdt as tgbdt
 from repro_torch.kernels import stencil as tstencil
@@ -32,6 +33,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "scripts" / "torch_predict_profile.py",
     ROOT / "scripts" / "torch_stencil_sweep.py",
+    ROOT / "scripts" / "torch_lm_profile.py",
+    ROOT / "scripts" / "torch_flash_faults.py",
 ]
 
 
@@ -83,6 +86,9 @@ def test_ctypes_signatures_match_the_c_launchers():
 
     for name, argtypes in {**kbow.LAUNCH_ARGTYPES, **kgbdt.LAUNCH_ARGTYPES}.items():
         assert c[name] == argtypes, name
+    from repro_torch.kernels import attention as kattn
+
+    assert c["flash_attn_launch"] == kattn.LAUNCH_ARGTYPES
 
 
 def test_every_kernel_has_a_source_and_a_counter():
@@ -91,6 +97,7 @@ def test_every_kernel_has_a_source_and_a_counter():
         "stencil_stream",
         "bow",
         "gbdt",
+        "flash_attn",
     }
     assert set(counters.LAUNCHES) == set(counters.PLAIN_CALLS) == set(counters.KERNELS)
 
@@ -170,6 +177,9 @@ def _meta_calls():
             torch.zeros((3, 4, 6), device=meta),
             torch.zeros(6, device=meta),
         ),
+        "flash_attention": lambda: tattn.flash_attention(
+            *(torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=meta),) * 3
+        ),
     }
 
 
@@ -181,6 +191,7 @@ def test_kernel_dispatch_propagates_loader_failure(kernel, monkeypatch):
     monkeypatch.setattr(_build, "library", _boom)
     kbow._launchers.cache_clear()
     tgbdt._launcher.cache_clear()
+    tattn._launcher.cache_clear()
     exec_window._launcher.cache_clear()
     exec_streaming._launcher.cache_clear()
     counters.reset()

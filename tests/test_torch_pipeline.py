@@ -79,6 +79,7 @@ def test_predict_labels_identical_to_jax(trained):
         "linear_score": 1,
         "bow_assign": 0,
         "gbdt_score": 0,
+        "flash_attention": 0,
     }
     assert sum(counters.LAUNCHES.values()) == 0
 
