@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 7 repeats it on the path's tensors);
+     shapes beyond the BoW path's (phase 8 repeats it on the path's tensors);
      each chain runs under the kernel `mode=None` resolves to and under the
      window kernel;
   3. the training path on the card, once per head (SVM, GBDT): 1000
@@ -29,8 +29,8 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      `cv.imgproc` and `fused_chain`: gaussian_filter2d at 1080p and 4K u8,
      k = 3..13; erode at 1080p, 4K and 8K u8, r = 1..3; the acceptance
      chain gaussian(5) -> erode(1) -> threshold(100) on (8, 512, 512, 3) u8;
-     the BoW preprocess chain on the same batch in f32; one octave ladder on
-     a 512x512 f32 plane.  Each shape runs in every mode (None, window,
+     the BoW preprocess chain on the same batch in f32; one octave ladder
+     (without its next base) on a 512x512 f32 plane.  Each shape runs in every mode (None, window,
      streaming, tiled2d), one launch of the named kernel each and no plain
      call, max_abs_err 0 against the plain version, and the three kernel
      modes bit-identical; a full-width streaming plan over the
@@ -38,7 +38,26 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      and `stencil_chain` are timed on each shape, the plain version on the
      4K shapes, and `conv2d` as the library call for gaussian_filter2d
      k = 5 and 13;
-  6. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
+  6. the fused-vs-staged-vs-seed pipeline benchmark (`pipeline_phase`):
+     the seed kernels against their plain versions (512x512, 1081x1919 and
+     37x53 u8, k = 3, 5, 7, r = 1, 2, 3, the thresholds of the seed's
+     table), max_abs_err 0; then `scripts/torch_pipeline_bench.py` `run`:
+     the chain gaussian(5) -> erode(1) -> threshold(100) on (8, 512, 512,
+     3) u8 fused in every mode (one launch each, bit-identical to the plain
+     version), staged (72 stencil launches) and seed (24 launches of each
+     seed kernel, no plain call), the seed equal to its plain version and
+     to the staged path, the fused interior equal to the staged one, and
+     the host wall of each form (best and median of 5); and its
+     `run_octave`: the octave with its next base on a 512x512 f32 plane in
+     every mode (one launch, every band bit-identical to the plain
+     version; full-width streaming must raise) and staged (8 launches);
+     `ops.pyr_down` at 1080p and 4K u8 in every mode; the strided geometry
+     at odd sizes with several tiles and segments; each octave kernel's
+     device time with and without the next base; and each seed kernel's
+     device time (a CUDA graph of 100 calls replayed), plain time, bound
+     and library call (`conv2d` for the blur, `torch.where` for the
+     threshold);
+  7. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
      d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
      from a seeded generator; `flash_attention` held against its plain
      version within `kernels.attention.AGREE` (one rounding to the output
@@ -56,13 +75,14 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
      and the bf16 paths' logits within twice the bf16 model's own error;
-  7. on the paths' own tensors (the first request, the training
+  8. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
-  8. print the ``kernels`` JSON line (all seven kernels; `stencil_stream` at
+  9. print the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
      the 4K u8 gaussian_filter2d k = 13 under mode=None, `flash_attention`
-     at the prefill's layer 0), then the card line and the device line.
+     at the prefill's layer 0, the seed kernels on one 512x512 u8 plane),
+     then the card line and the device line.
 
 Each path is driven with the launch counters set to 0 just before it and
 read just after; a kernel's ``launches`` in the JSON line sums the paths'.
@@ -176,6 +196,10 @@ def chain_flops(stages) -> int:
             total += 2
         elif s.op == "grad_mag":
             total += 7  # 2 sub, 2 scale, 2 square, 1 add (+ sqrt)
+        elif s.op == "pyr_down":
+            # 5 row taps at the even columns of every row, 5 column taps at
+            # the even (row, column) pairs: 2 * (5/2 + 5/4) per input pixel
+            total += 7.5
         else:
             raise ValueError(f"chain_flops: no count for stage op {s.op!r}")
     return total
@@ -222,8 +246,9 @@ def image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream) -> 
     add("preprocess (8,512,512,3) f32", fbatch, pre,
         lambda mode: imgproc.preprocess_bow(fbatch, mode=mode))
     plane = stream.image((512, 512), seed=2).to(dev).float()
-    add("octave (512,512) f32", plane, features.octave_chain(4),
-        lambda mode: tuple(features.gaussian_octave(plane[None], mode=mode)[0].unbind(0)))
+    add("octave (512,512) f32", plane, features.octave_chain(4, with_next_base=False),
+        lambda mode: tuple(features.gaussian_octave(
+            plane[None], with_next_base=False, mode=mode)[0][0].unbind(0)))
     return cases
 
 
@@ -280,6 +305,213 @@ def time_image_case(case, planes, resolved, want, stencil, ref) -> dict:
         "bytes": n_bytes,
         "flops": n_flops,
     }
+
+
+def load_bench():
+    """`scripts/torch_pipeline_bench.py`, the pipeline benchmark whose
+    `run` and `run_octave` the pipeline phase drives."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_pipeline_bench", ROOT / "scripts" / "torch_pipeline_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (thresh, thresh cast to u8): the seed threshold's table
+SEED_THRESHOLDS = (0, 100.5, 254.5, 255.9, 255.99999999, 256, -0.5, -1, -5, 300, 511.7, -256)
+
+
+def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: dict) -> dict:
+    """The fused-vs-staged-vs-seed pipeline benchmark (the fifth slice):
+    the seed kernels against their plain versions at odd sizes; the
+    pipeline path (fused in every mode, staged, seed) and the octave with
+    its next base through `scripts/torch_pipeline_bench.py` `run` and
+    `run_octave`, which check them, count each path and take the host
+    walls; `ops.pyr_down` and the strided geometry at odd sizes; each
+    octave kernel's device time with and without the next base; then each
+    seed kernel's device time, plain time, bound and library call.
+    Returns the seed kernels' timings."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.device import LaunchConfig
+    from repro_torch.cv import features
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ops, ref, stencil, unfused
+    from repro_torch.kernels.stencil import exec_streaming, exec_window
+
+    bench = load_bench()
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    def exact(kernel, what, got, want):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape or dtype")
+        err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+        check(err == 0.0, f"{what}: max_abs_err {err} against the plain version")
+        max_err[kernel] = max(max_err[kernel], err)
+        return err
+
+    # -- the seed kernels against their plain versions -------------------------
+    for name, x in (("512x512", u8(512, 512)), ("1081x1919", u8(1081, 1919)),
+                    ("37x53", u8(37, 53))):
+        small = name == "37x53"
+        for k in (3, 5, 7) if small else (5,):
+            exact("seed_gaussian_blur", f"seed blur k={k} {name}",
+                  unfused.seed_gaussian_blur_2d(x, k), unfused.seed_gaussian_blur_2d(x, k, mode="ref"))
+        for r in (1, 2, 3) if small else (1,):
+            exact("seed_erode", f"seed erode r={r} {name}",
+                  unfused.seed_erode_2d(x, r), unfused.seed_erode_2d(x, r, mode="ref"))
+        for t in SEED_THRESHOLDS if small else (100.0,):
+            exact("seed_threshold", f"seed threshold {t} {name}",
+                  unfused.seed_threshold_2d(x, t), unfused.seed_threshold_2d(x, t, mode="ref"))
+        print(f"check seed kernels {name} u8: max_abs_err 0 (blur k={(3, 5, 7) if small else 5}, "
+              f"erode r={(1, 2, 3) if small else 1}, thresholds "
+              f"{SEED_THRESHOLDS if small else (100.0,)})")
+
+    # -- the pipeline path and the octave with its next base, by the bench -------
+    row, rec = bench.run(dev)
+    o_row, o_rec = bench.run_octave(dev)
+    for r in (rec, o_rec):
+        path_counts.update(r.paths)
+        for k, e in r.max_err.items():
+            max_err[k] = max(max_err[k], e)
+    print(f"check pipeline ({row['batch']}) u8: fused one launch in each mode, bit-identical "
+          f"to the plain version; staged {row['pallas_calls_staged']} stencil launches "
+          f"{snap_nonzero(rec.paths['pipeline staged'])}; seed "
+          f"{snap_nonzero(rec.paths['pipeline seed'])}, no plain call, equal to its plain "
+          f"version; seed vs staged: "
+          f"{row['seed_pixels_differing_from_staged']} pixels differ (predicted 0); fused interior "
+          f"equals staged: {row['interior_bitexact']}")
+    print(f"check octave+next base {o_row['image']} f32: one launch in each mode that fits, every "
+          f"band bit-identical to the plain version (next base {o_row['next_base']}); staged "
+          f"{o_row['pallas_calls_staged']} launches {snap_nonzero(o_rec.paths['octave staged'])}")
+    for name, r in (("pipeline", row), ("octave", o_row)):
+        walls = "; ".join(f"{k} {v * 1e3:.4f} ms" for k, v in r.items()
+                          if k.endswith("_s") and not k.endswith("median_s"))
+        graphs = "; ".join(f"{k} {v:.5f}" for k, v in r.items() if k.endswith("_graph_ms"))
+        ratios = " ".join(f"{k}={v:.3f}" for k, v in r.items() if k.startswith("fused_speedup"))
+        print(f"time {name} (host wall, best of {bench.RUNS}): {walls}; best mode "
+              f"{r['fused_mode']}; {ratios}; device (graph replay): {graphs} card={card}")
+
+    # -- ops.pyr_down at 1080p and 4K, and the strided geometry at odd sizes ----
+    stream = ImageStream()
+    g = stream.image((512, 512), channels=1, seed=0).to(dev).float()
+    oct_nb = features.octave_chain(bench.N_SCALES)
+    for res in ("1080p", "4K"):
+        x = stream.image(RES[res], seed=3).to(dev)
+        p_res = stencil.resolve_mode((stencil.pyr_down_stage(),), (1, *RES[res]), x.dtype)
+        p_want = ops.pyr_down(x, mode="ref")
+        for mode in (None, "window", "streaming", "tiled2d"):
+            what = f"pyr_down {res} u8 mode={mode}"
+            if mode == "streaming" and p_res == "tiled2d":
+                counters.reset()
+                try:
+                    ops.pyr_down(x, mode=mode)
+                    raised = False
+                except ValueError:
+                    raised = True
+                check(raised, f"{what}: over-budget streaming did not raise")
+                continue
+            kernel = "stencil_chain" if (mode or p_res) == "window" else "stencil_stream"
+            got, snap = counted(counters, lambda: ops.pyr_down(x, mode=mode))
+            expect_counts(what, snap, {kernel: 1})
+            path_counts[what] = snap
+            exact(kernel, what, got, p_want)
+        print(f"check pyr_down {res} u8 -> {tuple(p_want.shape)}: every mode one launch, "
+              f"bit-identical to the plain version (mode None -> {p_res})")
+    geoms = [
+        ("octave+next base (301, 97) f32 streaming", g[:301, :97], oct_nb, "streaming",
+         LaunchConfig(row_segments=3)),
+        ("octave+next base (301, 203) f32 tiled2d", g[:301, :203], oct_nb, "tiled2d",
+         LaunchConfig(tile2d_cols=64, row_segments=3)),
+        ("octave+next base (301, 203) f32 window", g[:301, :203], oct_nb, "window",
+         LaunchConfig(tile_rows=16, tile_cols=16)),
+        ("pyr_down (1081, 1919) u8 tiled2d", stream.image((1081, 1919), seed=4).to(dev),
+         (stencil.pyr_down_stage(),), "tiled2d", LaunchConfig(tile2d_cols=64, row_segments=5)),
+    ]
+    for what, x, chain, mode, lc in geoms:
+        x = x.contiguous()
+        planes = ref.to_planes(x)
+        if mode != "window":
+            prog, _ = exec_streaming.program(chain, lc.stream_rows, x.dtype, dev)
+            geo = exec_streaming.stream_geometry(prog, tuple(planes.shape), lc,
+                                                 tiled=mode == "tiled2d")
+            check(geo.n_seg >= 2 and (mode == "streaming" or geo.n_tiles >= 2),
+                  f"{what}: {geo.n_tiles} tiles, {geo.n_seg} segments")
+        kernel = "stencil_chain" if mode == "window" else "stencil_stream"
+        got = as_tuple(stencil.fused_chain(x, chain, mode=mode, lc=lc))
+        for a, b in zip(got, as_tuple(stencil.fused_chain(x, chain, mode="ref")), strict=True):
+            exact(kernel, what, a, b)
+        print(f"check {what}: bit-identical to the plain version, bands "
+              f"{[tuple(a.shape) for a in got]}")
+
+    # -- times ------------------------------------------------------------------
+    o_ms = {}
+    planes = ref.to_planes(g)
+    for name, chain in (("next base", oct_nb),
+                        ("no next base", features.octave_chain(4, with_next_base=False))):
+        o_ms[f"stencil_chain {name}"] = time_ms(
+            lambda chain=chain: exec_window.stencil_chain(planes, chain), iters=20)
+        o_ms[f"stencil_stream tiled2d {name}"] = time_ms(
+            lambda chain=chain: exec_streaming.stencil_stream(planes, chain, tiled=True), iters=20)
+    print("time octave 512x512 f32 (device): " + "; ".join(
+        f"{k} {v:.5f} ms" for k, v in o_ms.items()) + f" card={card}")
+
+    batch = torch.stack([stream.image((512, 512), channels=3, seed=b) for b in range(8)]).to(dev)
+    plane = batch[0, :, :, 0].contiguous()
+    n_px = plane.numel()
+    k1 = ref.gaussian_kernel1d(bench.BLUR_K).to(dev)
+    hk = bench.BLUR_K // 2
+    xpad = ref.pad_replicate(plane.float(), hk, hk)[None, None].contiguous()
+    wt = torch.outer(k1, k1)[None, None].contiguous()
+    conv = torch.clamp(torch.round(F.conv2d(xpad, wt)[0, 0]), 0, 255)
+    lib_diff = float((conv - unfused.seed_gaussian_blur_2d(plane, bench.BLUR_K).float()).abs().max())
+    check(lib_diff <= 1.0, f"conv2d differs from the seed blur by {lib_diff}")
+    t8 = unfused.to_u8(bench.THRESH)
+    hi, lo = (torch.tensor(v, dtype=torch.uint8, device=dev) for v in (255, 0))
+    check(torch.equal(torch.where(plane > t8, hi, lo), unfused.seed_threshold_2d(plane, bench.THRESH)),
+          "torch.where differs from the seed threshold")
+    seeds = {
+        "seed_gaussian_blur": (lambda: unfused.seed_gaussian_blur_2d(plane, bench.BLUR_K),
+                               lambda: unfused.seed_gaussian_blur_2d(plane, bench.BLUR_K, mode="ref"),
+                               lambda: F.conv2d(xpad, wt), 2 * 2 * bench.BLUR_K),
+        "seed_erode": (lambda: unfused.seed_erode_2d(plane, bench.ERODE_R),
+                       lambda: unfused.seed_erode_2d(plane, bench.ERODE_R, mode="ref"),
+                       None, 2 * 2 * bench.ERODE_R),
+        "seed_threshold": (lambda: unfused.seed_threshold_2d(plane, bench.THRESH),
+                           lambda: unfused.seed_threshold_2d(plane, bench.THRESH, mode="ref"),
+                           lambda: torch.where(plane > t8, hi, lo), 1),
+    }
+    # Each call is a few microseconds of device work behind tens of host
+    # work, so the kernel, its plain version and the library call are each
+    # timed as the replay of a CUDA graph of 100 calls (plain, kernel,
+    # kernel, plain); `issued_ms` is the kernel issued from Python.
+    timings = {}
+    for name, (run, plain, lib, flops_px) in seeds.items():
+        p1 = bench.graph_ms(plain, reps=100)
+        k_1 = bench.graph_ms(run, reps=100)
+        k_2 = bench.graph_ms(run, reps=100)
+        p2 = bench.graph_ms(plain, reps=100)
+        lib_ms = bench.graph_ms(lib, reps=100) if lib else None
+        issued = time_ms(run, iters=100)
+        n_bytes = 2 * n_px  # the u8 plane read once and written once
+        bms, by = bound_ms(n_bytes, n_px * flops_px)
+        timings[name] = {"ms_runs": [k_1, k_2], "plain_runs": [p1, p2], "library_ms": lib_ms,
+                         "issued_ms": issued, "bound_ms": bms, "bound_by": by,
+                         "bytes": n_bytes, "flops": n_px * flops_px}
+        print(f"time {name} (one 512x512 u8 plane, graph replay): ms={k_1:.5f}/{k_2:.5f} "
+              f"plain_ms={p1:.4f}/{p2:.4f} library_ms={lib_ms} issued_ms={issued:.5f} "
+              f"bound_ms={bms:.6f} ({by}; {n_bytes} B, {n_px * flops_px} FLOP) card={card}")
+    results["pipeline"] = {"bench": row, "octave": o_row, "octave_ms": o_ms, "seed_times": timings}
+    return timings
+
+
+def snap_nonzero(snap: dict) -> dict:
+    return {k: v for k, v in snap["launches"].items() if v}
 
 
 def flash_bound(q, k, causal: bool = True) -> dict:
@@ -645,7 +877,7 @@ def main() -> int:
     results["build_s"] = t_build
 
     pre_chain = (stencil.gaussian_stage(5), stencil.erode_stage(1), stencil.grad_stage())
-    oct_chain = features.octave_chain(4)
+    oct_chain = features.octave_chain(4, with_next_base=False)
     max_err = {k: 0.0 for k in counters.KERNELS}
 
     # -- 2. each kernel against its plain version on the card -----------------
@@ -788,8 +1020,9 @@ def main() -> int:
 
     # -- 3. the training path on the card, once per head -----------------------
     stream = ImageStream(res=32)
-    imgs, labels = stream.batch(N_TRAIN, split="train")
-    test_imgs, test_labels = stream.batch(N_REQUESTS * PREDICT_BATCH, split="test")
+    # integer splits: `hash` of a string is salted per process, of an int not
+    imgs, labels = stream.batch(N_TRAIN, split=0)
+    test_imgs, test_labels = stream.batch(N_REQUESTS * PREDICT_BATCH, split=1)
     cfgs = {h: PipelineConfig(preprocess=True, n_octaves=1, max_kp=32, head=h) for h in HEADS}
     path_counts = {}
     models, models_cpu = {}, {}
@@ -962,7 +1195,10 @@ def main() -> int:
               f"({t['bound_by']}; {t['bytes']} B, {t['flops']} FLOP) card={card}")
     results["image_path"] = slice_times
 
-    # -- 6. the LM serving path ------------------------------------------------
+    # -- 6. the fused-vs-staged-vs-seed pipeline benchmark ---------------------
+    seed_times = pipeline_phase(dev, card, max_err, path_counts, results)
+
+    # -- 7. the LM serving path ------------------------------------------------
     lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
                       gen_len=LM_GEN, max_err=max_err)
     path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
@@ -972,11 +1208,11 @@ def main() -> int:
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
-    print(f"main-path launches (training x2 + predict x2 + image path + generate): "
-          f"{main_launches}")
+    print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
+          f"generate): {main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 7. the kernels on the paths' own tensors, then timing ------------------
+    # -- 8. the kernels on the paths' own tensors, then timing ------------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -1085,13 +1321,24 @@ def main() -> int:
             "measured": lm_out["flash"],
             "shape": f"layer 0 of the {LM_ARCH} prefill, ({LM_BATCH}, {LM_PROMPT}, 16, 256) bf16",
         },
+        *(
+            {
+                "name": name,
+                "source": "src/repro_torch/csrc/unfused.cu",
+                "replaces": f"benchmarks/unfused_baseline.py:{line}",
+                "measured": seed_times[name],
+                "shape": "one 512x512 u8 plane of the pipeline batch",
+            }
+            for name, line in (("seed_gaussian_blur", 51), ("seed_erode", 65),
+                               ("seed_threshold", 80))
+        ),
     ]
     lib_check = torch.addmm(bg, hist, wg.T)
     ok = torch.allclose(lib_check, kbow.linear_score(hist, wg, bg), rtol=1e-5, atol=1e-5)
     check(bool(ok), "linear_score disagrees with torch.addmm")
     line = []
     for k in kernels:
-        if "measured" in k:  # timed in phase 5 or 6 on its path's shape
+        if "measured" in k:  # timed in phase 5, 6 or 7 on its path's shape
             t = k["measured"]
             (k1, k2), (p1, p2), lib = t["ms_runs"], t["plain_runs"], t["library_ms"]
             bms, by = t["bound_ms"], t["bound_by"]

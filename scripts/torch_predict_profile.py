@@ -68,7 +68,7 @@ def main() -> int:
     ).stdout.strip()
     cfg = PipelineConfig(preprocess=True, n_octaves=1, max_kp=32, head=args.head)
     stream = ImageStream(res=32)
-    imgs, labels = stream.batch(N_TRAIN, split="train")
+    imgs, labels = stream.batch(N_TRAIN, split=0)
 
     def train(timing=None):
         gen = torch.Generator().manual_seed(0)
@@ -77,7 +77,7 @@ def main() -> int:
         )
 
     model = train()  # also the warm-up of the training path
-    test, _ = stream.batch(args.batch * (args.requests + 2), split="test")
+    test, _ = stream.batch(args.batch * (args.requests + 2), split=1)
     batches = [b.to("cuda") for b in test.split(args.batch)]
     for xb in batches[:2]:
         pipeline.predict(model, xb, cfg)

@@ -30,6 +30,13 @@
 // stencil_stream.cu (every product and sum rounded on its own, in tap order,
 // as the plain PyTorch version computes it; u8 packed after every stage).
 // The window is held in f32 whatever the carrier; a u8 layout is queued.
+//
+// A pyrDown (the octave's next-base tap, or a lone map pyrDown) runs only as
+// the chain's last stage.  Tiles are even and the window's pad is aligned to
+// the stride, so the block computes the row pass at the tile's image-even
+// columns, the column pass at its image-even rows, and stores the result
+// straight to the half-resolution output (`out_half`, (ceil(H/2), ceil(W/2))
+// a plane): a quarter of the column work of the full-resolution stage.
 
 #include "stencil_ops.cuh"
 
@@ -47,7 +54,7 @@ struct Step {
   int wx, wy;          // offsets of the row / column taps (or scalars) in weights[]
   int rh, rw;          // halo the source band still carries before the step
   int store;           // output band written from dst after the step, or -1
-  int pad;
+  int down;            // 2: a pyrDown, stored to out_half[store] by the step itself
 };
 
 struct ChainProgram {
@@ -59,6 +66,7 @@ struct ChainProgram {
 
 template <typename T>
 __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                     T* __restrict__ out_half,
                                      const ChainProgram* __restrict__ prog, int n, int h, int w,
                                      int tile_h, int tile_w, int ph, int pw, int tiles_x,
                                      int tiles_y) {
@@ -105,7 +113,30 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
     const int hy = s.kh / 2, hx = s.kw / 2;
     const float* wts = sp.weights + s.wx;
 
-    if (separable(s.op)) {
+    if (s.down > 1) {
+      // pyrDown, the chain's last stage: the row pass at the tile's
+      // image-even columns -> tmp, then the column pass at its image-even
+      // rows, stored straight to the half-resolution band
+      const int oy = ty0 - ph, ox = tx0 - pw;  // image coordinate of window (0, 0)
+      const int i0 = first_even(r0 + hy, oy), j0 = first_even(c0 + hx, ox);
+      const int orows = (r1 - hy - i0 + 1) / 2, ocols = (c1 - hx - j0 + 1) / 2;
+      const int nr = r1 - r0;
+      for (int e = threadIdx.x; e < nr * ocols; e += blockDim.x) {
+        const int i = r0 + e / ocols, j = j0 + 2 * (e % ocols);
+        tmp[i * WW + j] = row_pass(s.op, src + i * WW + j - hx, wts, s.kw);
+      }
+      __syncthreads();
+      const int hh = (h + 1) / 2, hw = (w + 1) / 2;
+      T* ob = out_half + (size_t(s.store) * n + plane) * (size_t(hh) * hw);
+      for (int e = threadIdx.x; e < orows * ocols; e += blockDim.x) {
+        const int i = i0 + 2 * (e / ocols), j = j0 + 2 * (e % ocols);
+        const int y = (oy + i) / 2, x = (ox + j) / 2;
+        if (y < hh && x < hw) {
+          const float v = col_pass(s.op, tmp + (i - hy) * WW + j, WW, sp.weights + s.wy, s.kh, wts[0]);
+          store_val(ob + size_t(y) * hw + x, pack(v, u8));
+        }
+      }
+    } else if (separable(s.op)) {
       // row pass over every valid row -> tmp
       const int nr = r1 - r0, cols = c1 - c0 - 2 * hx;
       for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
@@ -137,7 +168,7 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
     }
     __syncthreads();
 
-    if (s.store >= 0) {
+    if (s.store >= 0 && s.down <= 1) {
       // the band is final: write the tile's interior, clipped to the plane
       T* ob = out + (size_t(s.store) * n + plane) * plane_size;
       for (int e = threadIdx.x; e < tile_h * tile_w; e += blockDim.x) {
@@ -151,8 +182,8 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
 }
 
 template <typename T>
-int launch(const void* in, void* out, const void* prog, int n, int h, int w, int tile_h,
-           int tile_w, int ph, int pw, int n_slots, int threads, cudaStream_t stream) {
+int launch(const void* in, void* out, void* out_half, const void* prog, int n, int h, int w,
+           int tile_h, int tile_w, int ph, int pw, int n_slots, int threads, cudaStream_t stream) {
   const int tiles_x = (w + tile_w - 1) / tile_w;
   const int tiles_y = (h + tile_h - 1) / tile_h;
   const size_t smem = size_t(n_slots) * (tile_h + 2 * ph) * (tile_w + 2 * pw) * sizeof(float);
@@ -163,8 +194,8 @@ int launch(const void* in, void* out, const void* prog, int n, int h, int w, int
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
   stencil_chain_kernel<T><<<unsigned(blocks), threads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), static_cast<const ChainProgram*>(prog), n,
-      h, w, tile_h, tile_w, ph, pw, tiles_x, tiles_y);
+      static_cast<const T*>(in), static_cast<T*>(out), static_cast<T*>(out_half),
+      static_cast<const ChainProgram*>(prog), n, h, w, tile_h, tile_w, ph, pw, tiles_x, tiles_y);
   return int(cudaGetLastError());
 }
 
@@ -172,13 +203,16 @@ int launch(const void* in, void* out, const void* prog, int n, int h, int w, int
 
 extern "C" int stencil_chain_program_bytes() { return int(sizeof(ChainProgram)); }
 
-// Launch on `stream` for u8 (u8 != 0) or f32 planes; returns
+// Launch on `stream` for u8 (u8 != 0) or f32 planes; `out` holds the
+// full-resolution bands, `out_half` the bands a pyrDown made.  Returns
 // cudaGetLastError() after the launch (0 = ok).
-extern "C" int stencil_chain_launch(const void* in, void* out, const void* prog, int n, int h,
-                                    int w, int tile_h, int tile_w, int ph, int pw, int n_slots,
-                                    int threads, int u8, void* stream) {
+extern "C" int stencil_chain_launch(const void* in, void* out, void* out_half, const void* prog,
+                                    int n, int h, int w, int tile_h, int tile_w, int ph, int pw,
+                                    int n_slots, int threads, int u8, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (u8)
-    return launch<uint8_t>(in, out, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, st);
-  return launch<float>(in, out, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, st);
+    return launch<uint8_t>(in, out, out_half, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots,
+                           threads, st);
+  return launch<float>(in, out, out_half, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads,
+                       st);
 }

@@ -5,7 +5,9 @@
 // Arithmetic contract, which the plain PyTorch version (kernels/ref.py
 // `chain_ref_planes`) repeats: every product and sum is rounded on its own
 // (__fmul_rn, __fadd_rn; no FMA contraction), in the JAX body's index order;
-// separable stages run a row pass, then a column pass; sqrt is the correctly
+// separable stages run a row pass, then a column pass; pyrDown is the 5-tap
+// separable Gaussian computed at image-even rows and columns only (the row
+// pass at even columns, the column pass at even rows); sqrt is the correctly
 // rounded __fsqrt_rn.  Bands are held in f32.  On a u8 carrier each stage's
 // result is packed back (rintf, half to even, and a clamp to [0, 255]),
 // exactly what OpenCV's saturate_cast and the JAX oracle's `_saturate` do.
@@ -28,11 +30,18 @@ enum Op : int {
   kBox = 6,        // separable sum, then * weights[wx] (= 1 / (kh*kw))
   kThreshold = 7,  // weights[wx] < x ? weights[wx + 1] : 0
   kAffine = 8,     // x * weights[wx] + weights[wx + 1]
+  kPyrDown = 9,    // kSep with the 5 taps [1,4,6,4,1]/16 both ways, then 2x decimation
 };
 
 __device__ __forceinline__ bool separable(int op) {
-  return op == kSep || op == kErode || op == kDilate || op == kBox;
+  return op == kSep || op == kErode || op == kDilate || op == kBox || op == kPyrDown;
 }
+
+// pyrDown keeps the rows and columns that are even in image coordinates
+// (OpenCV's alignment): the first index >= i whose image coordinate
+// (origin + index) is even.  The planners align every origin, so this is
+// i rounded up to even in practice; it is exact for any origin.
+__device__ __forceinline__ int first_even(int i, int origin) { return i + ((origin + i) & 1); }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const uint8_t* p) { return float(*p); }
@@ -48,7 +57,7 @@ __device__ __forceinline__ float pack(float v, bool u8) {
 // Row pass of a separable stage over the kw contiguous values at x.
 __device__ __forceinline__ float row_pass(int op, const float* x, const float* kx, int kw) {
   float acc;
-  if (op == kSep) {
+  if (op == kSep || op == kPyrDown) {
     acc = __fmul_rn(kx[0], x[0]);
     for (int q = 1; q < kw; ++q) acc = __fadd_rn(acc, __fmul_rn(kx[q], x[q]));
   } else if (op == kBox) {
@@ -69,7 +78,7 @@ __device__ __forceinline__ float row_pass(int op, const float* x, const float* k
 __device__ __forceinline__ float col_pass(int op, const float* x, int ld, const float* ky, int kh,
                                           float scale) {
   float acc;
-  if (op == kSep) {
+  if (op == kSep || op == kPyrDown) {
     acc = __fmul_rn(ky[0], x[0]);
     for (int q = 1; q < kh; ++q) acc = __fadd_rn(acc, __fmul_rn(ky[q], x[q * ld]));
   } else if (op == kBox) {

@@ -31,6 +31,13 @@
 // the rows inside the segment and the plane.  A final band with lead 0 that
 // nothing reads is stored straight from registers.
 //
+// A pyrDown runs only as the chain's last stage, planned at full resolution:
+// its step computes the row pass at the image-even columns of the tile and
+// the column pass at the image-even rows among the step's rows, and stores
+// them straight to the half-resolution output (`out_half`).  Step rows,
+// segment starts and column tiles are even, so the steps of a segment and
+// the segments of a plane cover disjoint half-resolution rows.
+//
 // Arithmetic: the stage bodies of stencil_ops.cuh, shared with
 // stencil_chain.cu, so both kernels and the plain version agree bit for bit.
 
@@ -52,6 +59,7 @@ struct StreamStep {
   int rw;          // column halo the source stream still carries
   int lead;        // rows the destination stream runs ahead of the output rows
   int store;       // output band of a direct store, else -1
+  int down;        // 2: a pyrDown, stored directly to out_half[store]
 };
 
 struct Stream {
@@ -71,6 +79,7 @@ __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; 
 
 template <typename T>
 __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
+                                      T* __restrict__ out_half,
                                       const StreamProgram* __restrict__ prog, int n, int h, int w,
                                       int tile_w, int tiles_x, int n_seg, int seg_rows) {
   __shared__ StreamProgram sp;
@@ -141,7 +150,29 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
         }
       };
 
-      if (separable(s.op)) {
+      if (s.down > 1) {
+        // pyrDown, the chain's last stage: the row pass over rows
+        // [lo - hy, hi + hy) at the image-even columns -> scratch, then the
+        // column pass at the image-even rows, stored to the half-size band
+        const int ox = tx0 - pw;  // image column of local column 0
+        const int j0 = first_even(c0, ox), ocols = (c1 - j0 + 1) / 2;
+        const int ry0 = first_even(lo, 0), orows = (hi - ry0 + 1) / 2;
+        for (int e = threadIdx.x; e < (nr + 2 * hy) * ocols; e += blockDim.x) {
+          const int a = e / ocols, j = j0 + 2 * (e % ocols);
+          scratch[a * WW + j] = row_pass(s.op, src(lo - hy + a) + j - hx, wts, s.kw);
+        }
+        __syncthreads();
+        const int hh = (h + 1) / 2, hw = (w + 1) / 2;
+        T* oh = out_half + (size_t(s.store) * n + plane) * (size_t(hh) * hw);
+        for (int e = threadIdx.x; e < orows * ocols; e += blockDim.x) {
+          const int r = ry0 + 2 * (e / ocols), j = j0 + 2 * (e % ocols), x = ox + j;
+          if (r >= y0 && r < y1 && x >= tx0 && x < tx0 + tw) {
+            const float v = col_pass(s.op, scratch + (r - lo) * WW + j, WW, sp.weights + s.wy,
+                                     s.kh, wts[0]);
+            store_val(oh + size_t(r / 2) * hw + x / 2, pack(v, u8));
+          }
+        }
+      } else if (separable(s.op)) {
         // row pass over rows [lo - hy, hi + hy) -> scratch, then column pass
         for (int e = threadIdx.x; e < (nr + 2 * hy) * cols; e += blockDim.x) {
           const int a = e / cols, j = c0 + e % cols;
@@ -186,8 +217,9 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
 }
 
 template <typename T>
-int launch(const void* in, void* out, const void* prog, int n, int h, int w, int tile_w,
-           int n_seg, int seg_rows, int smem_rows, int pw, int threads, cudaStream_t stream) {
+int launch(const void* in, void* out, void* out_half, const void* prog, int n, int h, int w,
+           int tile_w, int n_seg, int seg_rows, int smem_rows, int pw, int threads,
+           cudaStream_t stream) {
   const int tiles_x = (w + tile_w - 1) / tile_w;
   const size_t smem = size_t(smem_rows) * (tile_w + 2 * pw) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(stencil_stream_kernel<T>,
@@ -197,8 +229,8 @@ int launch(const void* in, void* out, const void* prog, int n, int h, int w, int
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
   stencil_stream_kernel<T><<<unsigned(blocks), threads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), static_cast<const StreamProgram*>(prog), n,
-      h, w, tile_w, tiles_x, n_seg, seg_rows);
+      static_cast<const T*>(in), static_cast<T*>(out), static_cast<T*>(out_half),
+      static_cast<const StreamProgram*>(prog), n, h, w, tile_w, tiles_x, n_seg, seg_rows);
   return int(cudaGetLastError());
 }
 
@@ -206,15 +238,16 @@ int launch(const void* in, void* out, const void* prog, int n, int h, int w, int
 
 extern "C" int stencil_stream_program_bytes() { return int(sizeof(StreamProgram)); }
 
-// Launch on `stream` for u8 (u8 != 0) or f32 planes; returns
+// Launch on `stream` for u8 (u8 != 0) or f32 planes; `out` holds the
+// full-resolution bands, `out_half` the bands a pyrDown made.  Returns
 // cudaGetLastError() after the launch (0 = ok).
-extern "C" int stencil_stream_launch(const void* in, void* out, const void* prog, int n, int h,
-                                     int w, int tile_w, int n_seg, int seg_rows, int smem_rows,
-                                     int pw, int threads, int u8, void* stream) {
+extern "C" int stencil_stream_launch(const void* in, void* out, void* out_half, const void* prog,
+                                     int n, int h, int w, int tile_w, int n_seg, int seg_rows,
+                                     int smem_rows, int pw, int threads, int u8, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (u8)
-    return launch<uint8_t>(in, out, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
-                           threads, st);
-  return launch<float>(in, out, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw, threads,
-                       st);
+    return launch<uint8_t>(in, out, out_half, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows,
+                           pw, threads, st);
+  return launch<float>(in, out, out_half, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
+                       threads, st);
 }

@@ -42,16 +42,16 @@ def ladder_taps(n_scales: int, sigma0: float, max_ksize: int | None = None) -> l
 
 
 def octave_chain(
-    n_scales: int = 4, sigma0: float = 1.6, max_ksize: int = 15, with_next_base: bool = False
+    n_scales: int = 4, sigma0: float = 1.6, max_ksize: int = 15, with_next_base: bool = True
 ) -> tuple:
-    """The stage chain of one octave: base blur -> incremental tap ladder.
-    The terminal pyrDown tap (``with_next_base``) is queued with the
-    multi-octave pyramid."""
-    if with_next_base:
-        raise NotImplementedError("octave_chain: the pyr_down next-base tap is not ported yet")
+    """The stage chain of one octave: base blur -> incremental tap ladder ->
+    optional terminal pyrDown tap of scale `n_scales` (the 2x-sigma image),
+    emitting the next octave's base."""
     taps = ladder_taps(n_scales, sigma0, max_ksize)
     stages = [stencil.gaussian_stage(*taps[0])]
     stages += [stencil.gaussian_stage(k, s, tap=-1) for k, s in taps[1:]]
+    if with_next_base:
+        stages.append(stencil.pyr_down_stage(tap=n_scales))
     return tuple(stages)
 
 
@@ -61,14 +61,23 @@ def gaussian_octave(
     n_scales: int = 4,
     sigma0: float = 1.6,
     max_ksize: int = 15,
+    with_next_base: bool = True,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
-) -> torch.Tensor:
-    """One SIFT octave over a (B, H, W) gray batch as one launch: returns the
-    (B, n_scales + 3, H, W) scale stack."""
-    stages = octave_chain(n_scales, sigma0, max_ksize)
+) -> tuple:
+    """One SIFT octave over an (H, W) gray plane or a (B, H, W) batch as one
+    launch.  Returns (pyr, next_base): pyr the (n_scales + 3, H, W) scale
+    stack (with a leading B for a batch), next_base the pyrDown of scale
+    `n_scales`, (ceil(H/2), ceil(W/2)) (with a leading B), or None when
+    `with_next_base` is False (single-octave callers skip its work and its
+    +2 rows of halo)."""
+    stages = octave_chain(n_scales, sigma0, max_ksize, with_next_base)
     outs = stencil.fused_chain(g[..., None], stages, mode=mode, lc=lc)
-    return torch.stack([o[..., 0] for o in outs], dim=1)
+    outs = [o[..., 0] for o in outs]
+    axis = g.ndim - 2  # the scale axis: after the batch axis, if any
+    if with_next_base:
+        return torch.stack(outs[:-1], dim=axis), outs[-1]
+    return torch.stack(outs, dim=axis), None
 
 
 def _shift2(a: torch.Tensor, di: int, dj: int) -> torch.Tensor:
@@ -155,7 +164,7 @@ def detect_keypoints(
     """Single-octave DoG detector over a batch.  Returns dict: xy (B, max_kp,
     2) f32, scale (B, max_kp) i32, resp, valid (B, max_kp) bool, gray."""
     g = _normalize_gray(imgs)
-    pyr = gaussian_octave(g, n_scales=n_scales, mode=mode, lc=lc)
+    pyr, _ = gaussian_octave(g, n_scales=n_scales, with_next_base=False, mode=mode, lc=lc)
     return _keypoints_from_pyr(
         pyr,
         g,

@@ -1,5 +1,5 @@
 """Image processing ops (the counterpart of `repro.cv.imgproc`): the
-paper's filter2D / erode family, and the BoW preprocess chain."""
+paper's filter2D / erode family, pyrDown, and the BoW preprocess chain."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ erode = kops.erode
 dilate = kops.dilate
 threshold = kops.threshold
 box_blur = kops.box_blur
+pyr_down = kops.pyr_down
 gaussian_kernel1d = kref.gaussian_kernel1d
 fused_chain = stencil.fused_chain
 

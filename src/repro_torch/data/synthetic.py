@@ -1,9 +1,10 @@
 """Synthetic CIFAR-like image data (a copy of `repro.data.synthetic.ImageStream`
 that returns CPU torch tensors).
 
-`batch` seeds its generator with ``hash(split)``, which Python salts per
-process, as the JAX package's does: the same split gives the same images
-within one process only.
+`batch` seeds its generator with ``hash(split)``, as the JAX package's
+does.  Python salts the hash of a string per process, so a string split
+gives the same images within one process only; an integer split (whose
+hash is itself) gives the same images in every process.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ class ImageStream:
         self.res = res
         self.seed = seed
 
-    def batch(self, n: int, *, split: str = "train"):
+    def batch(self, n: int, *, split: str | int = "train"):
         """-> (images (n, res, res, 3) uint8, labels (n,) int32), on the CPU."""
         rng = np.random.default_rng((self.seed, hash(split) % 2**31))
         y = rng.integers(0, self.n_classes, n)

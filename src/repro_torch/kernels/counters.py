@@ -17,6 +17,9 @@ KERNELS = (
     "bow_assign",
     "gbdt_score",
     "flash_attention",
+    "seed_gaussian_blur",
+    "seed_erode",
+    "seed_threshold",
 )
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

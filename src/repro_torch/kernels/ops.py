@@ -1,7 +1,7 @@
 """Public ops (the counterpart of `repro.kernels.ops`): the image ops, each
 one launch of the fused stencil engine, the BoW and GBDT kernels, and
-`flash_attention`.  `pyr_down`, `pyr_up` and `sobel` are queued with their
-slices (ROADMAP)."""
+`flash_attention`.  `pyr_up` and `sobel` are queued with their slices
+(ROADMAP)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from .stencil import (  # noqa: F401
     fused_chain,
     gaussian_stage,
     grad_stage,
+    pyr_down_stage,
     sep_filter_stage,
     threshold_stage,
 )
@@ -40,6 +41,14 @@ def threshold(
     """OpenCV THRESH_BINARY: maxval where img > thresh else 0 (an f32
     compare, so a fractional threshold binds on u8)."""
     return fused_chain(img, (threshold_stage(thresh, maxval),), mode=mode, lc=lc)
+
+
+def pyr_down(
+    img: torch.Tensor, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+) -> torch.Tensor:
+    """OpenCV pyrDown: the 5x5 [1,4,6,4,1]/16 Gaussian, then 2x decimation on
+    even image coordinates; out = ceil(size/2), dtype preserved."""
+    return fused_chain(img, (pyr_down_stage(),), mode=mode, lc=lc)
 
 
 def box_blur(

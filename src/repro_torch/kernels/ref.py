@@ -7,8 +7,11 @@ chain's accumulated halo and every stage is a valid-mode op), vectorised
 over planes.  Border policy: BORDER_REPLICATE.
 
 Carried over so far: ``filter2d``, ``sep_filter``, ``box``, ``erode``,
-``dilate``, ``threshold``, ``affine`` and single-band ``grad_mag`` stages
-in ``map`` and ``tap`` modes, on a u8 or f32 carrier.  On u8 every stage
+``dilate``, ``threshold``, ``affine``, single-band ``grad_mag`` and the
+strided ``pyr_down`` stages in ``map`` and ``tap`` modes, on a u8 or f32
+carrier.  Each band is tracked with the image coordinate of its local
+origin, so a strided stage decimates on image-even rows and columns
+(OpenCV pyrDown alignment) however much halo the band still carries.  On u8 every stage
 widens to f32 and packs back with round-half-even and a clip to [0, 255]
 (OpenCV's saturate_cast), as the JAX oracle's `_saturate` does.  The JAX
 oracle's other stage ops raise `NotImplementedError` until their slice
@@ -20,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
-SUPPORTED_OPS = ("filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "affine", "grad_mag")
+SUPPORTED_OPS = (
+    "filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "affine", "grad_mag", "pyr_down",
+)
 CARRIERS = (torch.uint8, torch.float32)
 
 
@@ -128,12 +133,22 @@ def _stage_halo(s) -> tuple[int, int]:
         return s.static[0], s.static[0]
     if s.op == "grad_mag":
         return 1, 1  # single-band central differences
+    if s.op == "pyr_down":
+        return 2, 2
     return 0, 0  # threshold, affine
+
+
+def out_hw(op: str, h: int, w: int) -> tuple[int, int]:
+    """Image size after one stage: pyrDown halves with ceil (OpenCV), every
+    other ported op keeps the size."""
+    if op == "pyr_down":
+        return (h + 1) // 2, (w + 1) // 2
+    return h, w
 
 
 def _walk(stages) -> list:
     """Band-arity walk, kept apart from `stencil.ir` so this stays an
-    independent oracle: per stage (mode, halo, normalised tap)."""
+    independent oracle: per stage (mode, halo, stride, normalised tap)."""
     out, n = [], 1
     for s in stages:
         if s.op not in SUPPORTED_OPS:
@@ -141,12 +156,13 @@ def _walk(stages) -> list:
         if s.op == "grad_mag" and n >= 2:
             raise NotImplementedError("chain_ref: the grad_mag pair reduction is not ported yet")
         tap = getattr(s, "tap", None)
+        stride = tuple(getattr(s, "stride", (1, 1)))
         if tap is None:
-            out.append(("map", _stage_halo(s), None))
+            out.append(("map", _stage_halo(s), stride, None))
             continue
         if not -n <= tap < n:
             raise ValueError(f"chain_ref: stage {s.op!r} tap={tap} out of range for {n} band(s)")
-        out.append(("tap", _stage_halo(s), tap % n))
+        out.append(("tap", _stage_halo(s), stride, tap % n))
         n += 1
     return out
 
@@ -167,8 +183,10 @@ def _valid_op(s, x: torch.Tensor, ph: int, pw: int, carrier: torch.dtype) -> tor
                 if i or j:
                     acc = acc + k[i, j] * x[..., i : i + h, j : j + w]
         return pack(acc, carrier)
-    if s.op == "sep_filter":
-        kx, ky = (t.to(device=dev, dtype=torch.float32) for t in s.weights)
+    if s.op in ("sep_filter", "pyr_down"):
+        # pyr_down: the 5-tap Gaussian both ways, before its decimation
+        taps = s.weights if s.op == "sep_filter" else s.weights * 2
+        kx, ky = (t.to(device=dev, dtype=torch.float32) for t in taps)
         row = kx[0] * x[..., :, 0:w]
         for j in range(1, kx.shape[0]):
             row = row + kx[j] * x[..., :, j : j + w]
@@ -213,24 +231,58 @@ def pad_replicate(planes: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def chain_ref_planes(planes: torch.Tensor, stages) -> tuple:
-    """(N, H, W) u8 or f32 planes -> tuple of (N, H, W) output bands of the
-    same dtype.  The bands are held in f32 between stages, each holding
-    values of the carrier."""
+    """(N, H, W) u8 or f32 planes -> tuple of (N, h_b, w_b) output bands of
+    the same dtype: (H, W) for a full-resolution band, (ceil(H/2),
+    ceil(W/2)) after a pyrDown.  The bands are held in f32 between stages,
+    each holding values of the carrier, with the image coordinate of their
+    local origin."""
     carrier = planes.dtype
     if carrier not in CARRIERS:
         raise NotImplementedError(f"chain_ref: u8 and f32 carriers only, got {carrier}")
     walk = _walk(stages)
-    ph_acc = sum(halo[0] for _, halo, _ in walk)
-    pw_acc = sum(halo[1] for _, halo, _ in walk)
-    bands = [pad_replicate(planes, ph_acc, pw_acc).to(torch.float32)]
-    for s, (mode, (ph, pw), tap) in zip(stages, walk):
+    # accumulated halo: each stage's halo scaled by the map strides before it
+    ph_acc = pw_acc = 0
+    ny = nx = 1
+    for mode, (ph, pw), stride, _ in walk:
+        ph_acc += ph * ny
+        pw_acc += pw * nx
+        if mode == "map":
+            ny, nx = ny * stride[0], nx * stride[1]
+    # final size of each band: the full-resolution state, or a tap's own
+    h_fin, w_fin = planes.shape[-2:]
+    for s, (mode, *_rest) in zip(stages, walk):
+        if mode == "map":
+            h_fin, w_fin = out_hw(s.op, h_fin, w_fin)
+    sizes = [(h_fin, w_fin)]
+    for s, (mode, *_rest) in zip(stages, walk):
         if mode == "tap":
-            new = _valid_op(s, bands[tap], ph, pw, carrier)
-            bands = [b[..., ph : b.shape[-2] - ph, pw : b.shape[-1] - pw] for b in bands]
-            bands.append(new)
+            sizes.append(out_hw(s.op, h_fin, w_fin))
+
+    def apply(s, ph, pw, stride, b, oy, ox):
+        new = _valid_op(s, b, ph, pw, carrier)
+        oy, ox = oy + ph, ox + pw
+        if stride != (1, 1):
+            s0, s1 = (-oy) % stride[0], (-ox) % stride[1]
+            new = new[..., s0 :: stride[0], s1 :: stride[1]]
+            oy, ox = (oy + s0) // stride[0], (ox + s1) // stride[1]
+        return new, oy, ox
+
+    def crop(b, oy, ox, ph, pw):
+        return b[..., ph : b.shape[-2] - ph, pw : b.shape[-1] - pw], oy + ph, ox + pw
+
+    bands = [(pad_replicate(planes, ph_acc, pw_acc).to(torch.float32), -ph_acc, -pw_acc)]
+    for s, (mode, (ph, pw), stride, tap) in zip(stages, walk):
+        if mode == "tap":
+            new = apply(s, ph, pw, stride, *bands[tap])
+            bands = [crop(*b, ph, pw) for b in bands] + [new]
         else:
-            bands = [_valid_op(s, b, ph, pw, carrier) for b in bands]
-    return tuple(b.to(carrier) for b in bands)
+            bands = [apply(s, ph, pw, stride, *b) for b in bands]
+    outs = []
+    for (b, oy, ox), (hk, wk) in zip(bands, sizes):
+        if oy > 0 or ox > 0:
+            raise AssertionError("chain_ref: halo over-consumed")
+        outs.append(b[..., -oy : -oy + hk, -ox : -ox + wk].to(carrier))
+    return tuple(outs)
 
 
 def to_planes(img: torch.Tensor) -> torch.Tensor:

@@ -28,11 +28,18 @@ from .ir import (
     filter_stage,
     gaussian_stage,
     grad_stage,
+    pyr_down_stage,
     resolve_chain,
     sep_filter_stage,
     threshold_stage,
 )
-from .plan import chain_accumulated_halo, chain_halo, chain_iface, chain_stream_plan
+from .plan import (
+    chain_accumulated_halo,
+    chain_halo,
+    chain_iface,
+    chain_stream_plan,
+    stage_out_hw,
+)
 
 __all__ = [
     "MODES",
@@ -49,8 +56,10 @@ __all__ = [
     "fused_chain",
     "gaussian_stage",
     "grad_stage",
+    "pyr_down_stage",
     "resolve_chain",
     "resolve_mode",
     "sep_filter_stage",
+    "stage_out_hw",
     "threshold_stage",
 ]

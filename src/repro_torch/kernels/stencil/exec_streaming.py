@@ -12,7 +12,11 @@ no stage's halo is recomputed from step to step.  See
 `compile_stream` turns a chain and `LaunchConfig.stream_rows` into the
 kernel's program: `plan.stream_layout`'s streams with their ring offsets
 and depths, and one step per stage application.  `stream_geometry` picks
-the column tile and the row segments of a launch.
+the column tile and the row segments of a launch.  A strided last stage
+(pyrDown) is planned at full resolution; its step computes the image-even
+rows and columns of each step's rows and stores them straight to the
+half-resolution output, so step rows, segment starts and column tiles are
+all even.
 """
 
 from __future__ import annotations
@@ -29,14 +33,15 @@ from . import plan
 from .exec_window import (
     MAX_STEPS,
     MAX_WEIGHTS,
+    band_outputs,
     check_planes,
     check_ported,
     chain_key,
     stage_params,
+    store_slots,
 )
-from .ir import resolve_chain
 
-_STEP_FIELDS = ("op", "src", "dst", "kh", "kw", "wx", "wy", "rw", "lead", "store")
+_STEP_FIELDS = ("op", "src", "dst", "kh", "kw", "wx", "wy", "rw", "lead", "store", "down")
 _STREAM_FIELDS = ("depth", "offset", "store")
 # threads of a block: its rings leave room for about one block per SM, so it
 # takes more than the other kernels (scripts/torch_stencil_sweep.py)
@@ -69,9 +74,9 @@ class _Program(ctypes.Structure):
 
 
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_stream_launch(in, out, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw, threads,
-#                       u8, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# stencil_stream_launch(in, out, out_half, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
+#                       threads, u8, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
@@ -85,10 +90,16 @@ class StreamProgram:
     weights: tuple
     layout: plan.StreamLayout
     scratch: int
+    downs: tuple
 
     @property
     def halo(self) -> tuple:
         return self.layout.halo
+
+    @property
+    def down(self) -> tuple:
+        """(row, col) stride product: a pyrDown band's 2 both ways, else 1."""
+        return (max(self.downs),) * 2
 
     @property
     def n_bands(self) -> int:
@@ -119,8 +130,8 @@ class StreamProgram:
 def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> StreamProgram:
     """Plan the kernel's streams and steps for a chain of the ported stages
     in map and tap modes, `rows` output rows per step."""
-    resolved = resolve_chain(stages)
-    check_ported(resolved, "stencil_stream")
+    resolved = check_ported(stages, "stencil_stream")
+    plan.check_strides(plan.stride_product(stages), rows, 0)
     layout = plan.stream_layout(stages, rows)
     if len(layout.apps) > MAX_STEPS:
         raise ValueError(f"stencil_stream: {len(layout.apps)} steps exceed the table's {MAX_STEPS}")
@@ -128,7 +139,9 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
     params = [stage_params(s, weights, carrier) for s in stages]
     if len(weights) > MAX_WEIGHTS:
         raise ValueError(f"stencil_stream: {len(weights)} weights exceed the table's {MAX_WEIGHTS}")
-    band_of = {s: b for b, s in enumerate(layout.outs)}
+    downs = tuple(plan.band_downs(stages))
+    slot_of = store_slots(downs)
+    band_of = {s: slot_of[b] for b, s in enumerate(layout.outs)}
     streams, offset = [], 0
     for s, depth in enumerate(layout.depths):
         buffered_out = s in band_of and depth > 0
@@ -151,7 +164,7 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
             store=band_of[dst] if direct else -1,
         )
         steps.append(st)
-    return StreamProgram(tuple(steps), tuple(streams), tuple(weights), layout, offset)
+    return StreamProgram(tuple(steps), tuple(streams), tuple(weights), layout, offset, downs)
 
 
 @dataclass(frozen=True)
@@ -194,6 +207,7 @@ def stream_geometry(
         tw = min(tile_w if tile_w is not None else lc.tile2d_cols, W)
         if tw < 1:
             raise ValueError(f"stencil_stream: tile_w must be positive, got {tw}")
+        plan.check_strides(prog.down, layout.rows, W, tw)
     else:
         tw = plan.pick_tile_plan(layout, W, lc.smem_budget, PROGRAM_BYTES) or W
     smem = layout.smem_bytes(tw)
@@ -257,8 +271,9 @@ def stencil_stream(
     tiled: bool = False,
     tile_w: int | None = None,
 ) -> tuple:
-    """(N, H, W) u8 or f32 planes -> tuple of (N, H, W) output bands of the
-    same dtype, in one launch.
+    """(N, H, W) u8 or f32 planes -> tuple of output bands of the same
+    dtype, in one launch: (N, H, W) each, or (N, ceil(H/2), ceil(W/2)) for
+    a band a pyrDown made.
 
     The chain is planned first on every device (an untiled chain whose
     rings exceed `lc.smem_budget` raises `ValueError`).  Then a CPU tensor
@@ -275,11 +290,12 @@ def stencil_stream(
     fn = _launcher()
     check_planes("stencil_stream", planes)
     N, H, W = planes.shape
-    out = torch.empty((prog.n_bands, N, H, W), dtype=planes.dtype, device=planes.device)
+    full, half, bands = band_outputs(planes, prog.downs)
     with torch.cuda.device(planes.device):
         err = fn(
             planes.data_ptr(),
-            out.data_ptr(),
+            full.data_ptr(),
+            half.data_ptr(),
             table.data_ptr(),
             N,
             H,
@@ -295,4 +311,4 @@ def stencil_stream(
         )
     _build.check(err, "stencil_stream")
     counters.LAUNCHES["stencil_stream"] += 1
-    return tuple(out.unbind(0))
+    return bands

@@ -8,9 +8,10 @@ result.  `resolve_chain` is the static band-arity walk every executor
 consumes.
 
 Ported so far: ``filter2d``, ``sep_filter`` (and its Gaussian builder),
-``box``, ``erode``, ``dilate``, ``threshold``, ``affine`` and
-``grad_mag``.  The JAX IR's other ops are queued (ROADMAP, the chain
-kernel's stage bodies (b)-(e)) and raise `NotImplementedError`.
+``box``, ``erode``, ``dilate``, ``threshold``, ``affine``, ``grad_mag``
+and the strided ``pyr_down``.  The JAX IR's other ops are queued
+(ROADMAP, the chain kernel's stage bodies (c)-(e)) and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -31,11 +32,13 @@ _N_WEIGHTS = {
     "threshold": 0,
     "affine": 0,
     "grad_mag": 0,
+    "pyr_down": 1,
 }
+# (row, col) output decimation of the strided ops
+STRIDES = {"pyr_down": (2, 2)}
 # ops of the JAX IR whose port is queued
 QUEUED_OPS = frozenset(
     {
-        "pyr_down",
         "resize2",
         "sobel",
         "warp_affine",
@@ -82,11 +85,14 @@ class Stage:
             return self.static[0], self.static[0]
         if self.op == "grad_mag":
             return 1, 1
+        if self.op == "pyr_down":
+            return 2, 2
         return 0, 0
 
     @property
     def stride(self) -> tuple[int, int]:
-        return 1, 1
+        """(row, col) output decimation factor."""
+        return STRIDES.get(self.op, (1, 1))
 
     @property
     def upsample(self) -> tuple[int, int]:
@@ -143,6 +149,15 @@ def grad_stage() -> Stage:
     on a single-band state; after a >= 2-band state it is the pair
     reduction, which is not ported yet."""
     return Stage("grad_mag")
+
+
+def pyr_down_stage(*, tap: int | None = None) -> Stage:
+    """OpenCV pyrDown: the 5-tap [1,4,6,4,1]/16 separable Gaussian, then 2x
+    decimation on even image coordinates; out = ceil(size/2).  As a map
+    stage it downsamples the whole state; as a terminal tap it appends the
+    next pyramid octave's base beside the full-resolution bands."""
+    k1 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], dtype=torch.float32) / 16.0
+    return Stage("pyr_down", weights=(k1,), tap=tap)
 
 
 def resolve_chain(stages) -> list:

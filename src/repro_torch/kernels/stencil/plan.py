@@ -11,17 +11,27 @@ to what the port's two kernels need.
     rings against `LaunchConfig.smem_budget` (the JAX planner's
     `pick_tile_plan` / `pick_tile_w` charge a working set against VMEM);
   * `row_segments` — how many row segments of a plane run as blocks of
-    their own.
+    their own;
+  * `stage_out_hw`, `band_downs`, `stride_product`, `check_strides` and
+    `aligned_pad` — the geometry of a strided stage (the JAX planner's
+    `build_chain_geom`): each band's own decimation and output size, the
+    stride product that step rows and column tiles must be multiples of,
+    and a left pad that puts local-even columns on image-even ones.
+
+The kernels run a strided stage only as the chain's last stage (a map
+pyrDown, or the octave's terminal next-base tap): they compute it at full
+resolution and keep its image-even rows and columns as they store them,
+so they plan its rows as those of a stride-1 stage (`kernel_walk`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .ir import resolve_chain
+from .ir import STRIDES, resolve_chain
 
 # ops whose body runs a row pass into scratch, then a column pass
-SEPARABLE_OPS = frozenset({"sep_filter", "box", "erode", "dilate"})
+SEPARABLE_OPS = frozenset({"sep_filter", "box", "erode", "dilate", "pyr_down"})
 # tile-width step of the tiled2d candidates: one warp of columns
 LANE = 32
 F32 = 4
@@ -43,6 +53,91 @@ def chain_accumulated_halo(stages) -> tuple[int, int]:
             dy *= up[0]
             dx *= up[1]
     return ph, pw
+
+
+def stage_out_hw(op: str | None, h: int, w: int) -> tuple[int, int]:
+    """Output (h, w) of one stage applied to an (h, w) image: pyrDown is
+    ceil-half (OpenCV), resize2 floor-half, pyrUp doubles, every other op
+    keeps the size (JAX `plan.stage_out_hw`)."""
+    if op == "pyr_down":
+        return (h + 1) // 2, (w + 1) // 2
+    if op == "resize2":
+        return h // 2, w // 2
+    if op == "pyr_up":
+        return 2 * h, 2 * w
+    return h, w
+
+
+def _band_sources(resolved) -> list:
+    """Per final band, the op of the tap that made it, or None for a band
+    at the state's resolution."""
+    bands = [None]
+    for op, mode, *_rest in resolved:
+        if mode == "tap":
+            bands.append(op)
+    return bands
+
+
+def band_downs(stages) -> list:
+    """Per output band, its decimation against the input: 2 for a band a
+    pyrDown made (its size is `stage_out_hw("pyr_down", H, W)`), else 1."""
+    resolved = resolve_chain(stages)
+    ny = 1
+    for _op, mode, _h, stride, *_rest in resolved:
+        if mode == "map":
+            ny *= stride[0]
+    divs = [STRIDES.get(src, (1, 1))[0] for src in _band_sources(resolved)]
+    return [ny * d for d in divs]
+
+
+def stride_product(stages) -> tuple[int, int]:
+    """(row, col) stride product of the chain: the map strides times the
+    largest tap stride (JAX `build_chain_geom`'s down_y, down_x)."""
+    resolved = resolve_chain(stages)
+    ny = nx = 1
+    dy = dx = 1
+    for _op, mode, _h, stride, *_rest in resolved:
+        if mode == "map":
+            ny, nx = ny * stride[0], nx * stride[1]
+        else:
+            dy, dx = max(dy, stride[0]), max(dx, stride[1])
+    return ny * dy, nx * dx
+
+
+def check_strides(down: tuple, rows: int, width: int, tile_w: int | None = None) -> None:
+    """JAX's geometry errors for a chain of stride product `down`: it must
+    divide the rows of a step, and a column tile narrower than the plane
+    must be a multiple of its column part (tile seams land on image-even
+    columns)."""
+    down_y, down_x = down
+    if rows % down_y:
+        raise ValueError(
+            f"chain stride product ({down_y}, {down_x}) must divide the band rows ({rows})"
+        )
+    if tile_w is not None and tile_w < width and tile_w % down_x:
+        raise ValueError(
+            f"fused_chain: tile_w={tile_w} must be divisible by the chain's column stride "
+            f"product {down_x} (tile seams must land on image-aligned decimation coordinates)"
+        )
+
+
+def aligned_pad(pad: int, down: int) -> int:
+    """A left pad rounded up to a multiple of the stride product, so that
+    local-even columns are image-even ones (JAX's ``pw_l``)."""
+    return pad + (-pad) % down
+
+
+def kernel_walk(stages) -> list:
+    """`resolve_chain` as the kernels plan it: a strided stage must be the
+    last one (else `NotImplementedError`), and its rows are planned at full
+    resolution (stride 1); the kernels decimate as they store."""
+    resolved = resolve_chain(stages)
+    for k, (op, mode, halo, stride, *rest) in enumerate(resolved):
+        if stride != (1, 1) and k != len(resolved) - 1:
+            raise NotImplementedError(
+                f"stencil kernels: a strided {op!r} stage before the chain's last is not ported yet"
+            )
+    return [(op, mode, halo, (1, 1), *rest) for op, mode, halo, _stride, *rest in resolved]
 
 
 def chain_halo(stages) -> tuple[int, int]:
@@ -148,8 +243,10 @@ class StreamLayout:
 
 
 def stream_layout(stages, rows: int) -> StreamLayout:
-    """Plan the streams, their leads and ring depths for `rows` per step."""
-    plan = resolve_chain(stages)
+    """Plan the streams, their leads and ring depths for `rows` per step
+    (a strided last stage planned at full resolution, `kernel_walk`).  The
+    column pad is aligned to the column stride product."""
+    plan = kernel_walk(stages)
     iface = chain_iface(plan, rows)
     sp = chain_stream_plan(plan, iface)
     leads = [-iface[0][1]]
@@ -180,9 +277,10 @@ def stream_layout(stages, rows: int) -> StreamLayout:
         depths.append(0 if direct else rows + lag)
     sep_halo = [halo[0] for op, _, halo, *_ in plan if op in SEPARABLE_OPS]
     scratch = rows + 2 * max(sep_halo) if sep_halo else 0
+    ph, pw = chain_accumulated_halo(stages)
+    halo = (ph, aligned_pad(pw, stride_product(stages)[1]))
     return StreamLayout(
-        rows, chain_accumulated_halo(stages), tuple(leads), tuple(depths), tuple(apps),
-        tuple(bands), scratch,
+        rows, halo, tuple(leads), tuple(depths), tuple(apps), tuple(bands), scratch,
     )
 
 
@@ -238,7 +336,9 @@ def row_segments(n_planes: int, n_tiles: int, height: int, rows: int, sms: int) 
 def fix_segments(n: int, height: int, rows: int) -> tuple[int, int]:
     """About `n` segments of whole steps: (segments, rows per segment), the
     rows per segment a multiple of `rows`, the count nearest `n` (ties to
-    fewer segments)."""
+    fewer segments).  Every segment starts on a multiple of `rows`, which
+    `check_strides` makes even for a pyrDown chain, so each segment's
+    decimation stays on image-even rows."""
     per_seg = -(-height // max(1, n))
     lo = max(rows, per_seg // rows * rows)
     hi = -(-per_seg // rows) * rows

@@ -182,6 +182,9 @@ def test_cpu_wrappers_count_plain_calls():
         "bow_assign": 0,
         "gbdt_score": 0,
         "flash_attention": 0,
+        "seed_gaussian_blur": 0,
+        "seed_erode": 0,
+        "seed_threshold": 0,
     }
     assert sum(counters.LAUNCHES.values()) == 0
 

@@ -32,7 +32,7 @@ from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import bow as kbow
 from repro_torch.kernels import counters
 from repro_torch.kernels import gbdt as kgbdt
-from repro_torch.kernels import ref, stencil
+from repro_torch.kernels import ops, ref, stencil, unfused
 from repro_torch.models.lm import LM
 from repro_torch.serve import cv_engine
 
@@ -49,12 +49,14 @@ def dev():
 def _chains():
     return {
         "preprocess": (stencil.gaussian_stage(5), stencil.erode_stage(1), stencil.grad_stage()),
-        "octave": features.octave_chain(4),
+        "octave": features.octave_chain(4, with_next_base=False),
+        "octave_nb": features.octave_chain(4),
+        "pyr_down": (stencil.pyr_down_stage(),),
         "taps_only": (stencil.gaussian_stage(3, tap=0), stencil.gaussian_stage(5, tap=-1)),
     }
 
 
-@pytest.mark.parametrize("name", ["preprocess", "octave", "taps_only"])
+@pytest.mark.parametrize("name", ["preprocess", "octave", "taps_only", "octave_nb", "pyr_down"])
 @pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 70, 45, 2), (3, 7, 9, 1)])
 @pytest.mark.parametrize("tile", [32, 8])
 def test_stencil_chain_matches_plain(dev, name, shape, tile):
@@ -94,7 +96,7 @@ def _image(dev, shape, dtype, seed):
 
 
 @pytest.mark.parametrize("name", ["preprocess", "octave", "taps_only", "filter2d_k13",
-                                  "erode_r3", "acceptance", "mixed"])
+                                  "erode_r3", "acceptance", "mixed", "octave_nb", "pyr_down"])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("shape,lc", [
     ((2, 37, 53, 3), LaunchConfig()),
@@ -125,7 +127,8 @@ def test_stencil_stream_matches_plain(dev, name, dtype, shape, lc, mode):
         assert a.dtype == dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", ["acceptance", "filter2d_k13", "mixed", "octave"])
+@pytest.mark.parametrize("name", ["acceptance", "filter2d_k13", "mixed", "octave", "octave_nb",
+                                  "pyr_down"])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 def test_window_streaming_and_tiled2d_are_bit_identical(dev, name, dtype):
     x = _image(dev, (2, 96, 130, 1), dtype, seed=3)
@@ -146,6 +149,72 @@ def test_streaming_over_the_budget_raises_on_the_card(dev):
     with pytest.raises(ValueError, match="bytes"):
         stencil.fused_chain(x, _slice_chains()["filter2d_k13"], mode="streaming")
     assert counters.snapshot()["launches"]["stencil_stream"] == 0
+
+
+@pytest.mark.parametrize("mode", ["window", "streaming", "tiled2d"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape", [(1081, 1919), (37, 53), (5, 5), (2, 64, 48, 3)])
+def test_pyr_down_matches_plain(dev, mode, dtype, shape):
+    """`ops.pyr_down` in one launch, bit for bit, at odd and even sizes."""
+    x = _image(dev, shape, dtype, seed=sum(shape))
+    lc = LaunchConfig(tile2d_cols=64, row_segments=3) if mode == "tiled2d" else LaunchConfig()
+    counters.reset()
+    got = ops.pyr_down(x, mode=mode, lc=lc)
+    torch.cuda.synchronize()
+    kernel = "stencil_chain" if mode == "window" else "stencil_stream"
+    assert counters.LAUNCHES[kernel] == 1 and sum(counters.PLAIN_CALLS.values()) == 0
+    want = ops.pyr_down(x, mode="ref")
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ksize", [3, 5, 7])
+@pytest.mark.parametrize("shape", [(37, 53), (512, 512), (1081, 1919)])
+def test_seed_gaussian_blur_matches_plain(dev, ksize, shape):
+    x = _image(dev, shape, torch.uint8, seed=ksize + shape[0])
+    counters.reset()
+    got = unfused.seed_gaussian_blur_2d(x, ksize)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["seed_gaussian_blur"] == 1
+    assert torch.equal(got, unfused.seed_gaussian_blur_2d(x, ksize, mode="ref"))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(37, 53), (512, 512), (1081, 1919)])
+def test_seed_erode_matches_plain(dev, r, shape):
+    x = _image(dev, shape, torch.uint8, seed=r + shape[1])
+    counters.reset()
+    got = unfused.seed_erode_2d(x, r)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["seed_erode"] == 1
+    assert torch.equal(got, unfused.seed_erode_2d(x, r, mode="ref"))
+
+
+@pytest.mark.parametrize(
+    "thresh", [0, 100.5, 254.5, 255.9, 255.99999999, 256, -0.5, -1, -5, 300, 511.7, -256])
+def test_seed_threshold_matches_plain(dev, thresh):
+    x = (torch.arange(37 * 53, device=dev) % 256).to(torch.uint8).reshape(37, 53)  # every value
+    got = unfused.seed_threshold_2d(x, thresh)
+    assert torch.equal(got, unfused.seed_threshold_2d(x, thresh, mode="ref"))
+
+
+def test_seed_pipeline_launches_per_plane_and_equals_staged(dev):
+    """B*C launches of each seed kernel, no plain call; equal to its plain
+    version and to the staged per-op path through the fused engine."""
+    batch = _image(dev, (2, 40, 72, 3), torch.uint8, seed=9)
+    counters.reset()
+    got = unfused.seed_pipeline(batch, blur_ksize=5, erode_r=1, thresh=100.0)
+    torch.cuda.synchronize()
+    snap = counters.snapshot()
+    assert {k: snap["launches"][k] for k in ("seed_gaussian_blur", "seed_erode",
+                                             "seed_threshold")} == dict.fromkeys(
+        ("seed_gaussian_blur", "seed_erode", "seed_threshold"), 6)
+    assert sum(snap["plain_calls"].values()) == 0
+    want = unfused.seed_pipeline(batch, blur_ksize=5, erode_r=1, thresh=100.0, mode="ref")
+    assert torch.equal(got, want)
+    staged = torch.stack([torch.stack([
+        ops.threshold(ops.erode(ops.gaussian_blur(batch[b, :, :, c], 5), 1), 100.0)
+        for c in range(3)], -1) for b in range(2)])
+    assert torch.equal(got, staged)
 
 
 @pytest.mark.parametrize("B,N,D,K", [(3, 32, 128, 250), (2, 45, 128, 5), (1, 1, 16, 33)])

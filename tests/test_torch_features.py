@@ -119,13 +119,18 @@ def test_gray_normalisation_is_per_image():
 def test_ladder_taps_and_octave_chain_match_jax():
     assert tfeatures.ladder_taps(4, 1.6, 15) == jfeatures.ladder_taps(4, 1.6, 15)
     jc = jfeatures.octave_chain(4, with_next_base=False)
-    tc = tfeatures.octave_chain(4)
+    tc = tfeatures.octave_chain(4, with_next_base=False)
     assert [(s.op, s.tap) for s in tc] == [(s.op, s.tap) for s in jc]
     for js, ts in zip(jc, tc):
         for jw, tw in zip(js.weights, ts.weights):
             np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError):
-        tfeatures.octave_chain(4, with_next_base=True)
+    # with the next base (the default in both): the terminal pyrDown tap
+    jn, tn = jfeatures.octave_chain(4, with_next_base=True), tfeatures.octave_chain(4)
+    assert [(s.op, s.tap) for s in tn] == [(s.op, s.tap) for s in jn]
+    assert (tn[-1].op, tn[-1].tap, tn[-1].stride) == ("pyr_down", 4, (2, 2))
+    for js, ts in zip(jn, tn):
+        for jw, tw in zip(js.weights, ts.weights):
+            np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])

@@ -1,9 +1,9 @@
 """Structural rules of the PyTorch port, checked on the CPU.
 
 * No module of ``src/repro_torch``, and neither ``chip_smoke.py`` nor
-  the port's ``scripts/torch_*.py``, imports ``jax`` or the JAX
-  package ``repro`` (checked on the source, so a lazy import inside a
-  function counts too).
+  the port's ``scripts/torch_*.py``, imports ``jax``, the JAX package
+  ``repro`` or its ``benchmarks`` (checked on the source, so a lazy
+  import inside a function counts too).
 * Entry points resolve ``device=None`` to CUDA and raise without one.
 * A tensor that is not on the CPU goes to the kernel or raises: with the
   kernel loader made to fail, the error propagates and no plain version
@@ -27,6 +27,7 @@ from repro_torch.kernels import attention as tattn
 from repro_torch.kernels import bow as tbow
 from repro_torch.kernels import gbdt as tgbdt
 from repro_torch.kernels import stencil as tstencil
+from repro_torch.kernels import unfused as tunfused
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -35,6 +36,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "scripts" / "torch_stencil_sweep.py",
     ROOT / "scripts" / "torch_lm_profile.py",
     ROOT / "scripts" / "torch_flash_faults.py",
+    ROOT / "scripts" / "torch_pipeline_bench.py",
 ]
 
 
@@ -53,7 +55,7 @@ def _imported_roots(path: pathlib.Path) -> set:
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax_or_repro(path):
     assert path.exists()
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -83,8 +85,10 @@ def test_ctypes_signatures_match_the_c_launchers():
 
     assert c["stencil_stream_launch"] == exec_streaming.LAUNCH_ARGTYPES
     from repro_torch.kernels import gbdt as kgbdt
+    from repro_torch.kernels import unfused as kunfused
 
-    for name, argtypes in {**kbow.LAUNCH_ARGTYPES, **kgbdt.LAUNCH_ARGTYPES}.items():
+    for name, argtypes in {**kbow.LAUNCH_ARGTYPES, **kgbdt.LAUNCH_ARGTYPES,
+                           **kunfused.LAUNCH_ARGTYPES}.items():
         assert c[name] == argtypes, name
     from repro_torch.kernels import attention as kattn
 
@@ -98,6 +102,7 @@ def test_every_kernel_has_a_source_and_a_counter():
         "bow",
         "gbdt",
         "flash_attn",
+        "unfused",
     }
     assert set(counters.LAUNCHES) == set(counters.PLAIN_CALLS) == set(counters.KERNELS)
 
@@ -150,6 +155,10 @@ def _meta_calls():
     stands in for the card here)."""
     meta = torch.device("meta")
     chain = (tstencil.gaussian_stage(5), tstencil.erode_stage(1), tstencil.grad_stage())
+
+    def plane():
+        return torch.zeros((8, 8), dtype=torch.uint8, device=meta)
+
     return {
         "stencil_chain": lambda: tstencil.fused_chain(
             torch.zeros((2, 8, 8, 3), device=meta), chain, mode="window"
@@ -180,6 +189,9 @@ def _meta_calls():
         "flash_attention": lambda: tattn.flash_attention(
             *(torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=meta),) * 3
         ),
+        "seed_gaussian_blur": lambda: tunfused.seed_gaussian_blur_2d(plane(), 5),
+        "seed_erode": lambda: tunfused.seed_erode_2d(plane(), 1),
+        "seed_threshold": lambda: tunfused.seed_threshold_2d(plane(), 100.0),
     }
 
 
@@ -194,6 +206,7 @@ def test_kernel_dispatch_propagates_loader_failure(kernel, monkeypatch):
     tattn._launcher.cache_clear()
     exec_window._launcher.cache_clear()
     exec_streaming._launcher.cache_clear()
+    tunfused._launchers.cache_clear()
     counters.reset()
     with pytest.raises(RuntimeError, match="loader failed"):
         _meta_calls()[kernel]()

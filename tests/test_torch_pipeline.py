@@ -80,6 +80,9 @@ def test_predict_labels_identical_to_jax(trained):
         "bow_assign": 0,
         "gbdt_score": 0,
         "flash_attention": 0,
+        "seed_gaussian_blur": 0,
+        "seed_erode": 0,
+        "seed_threshold": 0,
     }
     assert sum(counters.LAUNCHES.values()) == 0
 

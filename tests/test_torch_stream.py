@@ -36,7 +36,7 @@ from repro_torch.kernels import counters
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stencil as tstencil
-from repro_torch.kernels.stencil import driver, exec_streaming, plan
+from repro_torch.kernels.stencil import driver, exec_streaming, exec_window, plan
 
 RTOL, ATOL = 2e-5, 2e-3
 U8_OFF_BY_ONE = 0.01  # largest share of u8 pixels allowed one apart from JAX
@@ -63,7 +63,10 @@ def _stages(pkg, name):
         "acceptance": (pkg.gaussian_stage(5), pkg.erode_stage(1), pkg.threshold_stage(100.0)),
         "preprocess": (pkg.gaussian_stage(5), pkg.erode_stage(1), pkg.grad_stage()),
         "octave": (jfeatures.octave_chain(4, with_next_base=False) if pkg is jstencil
-                   else tfeatures.octave_chain(4)),
+                   else tfeatures.octave_chain(4, with_next_base=False)),
+        "octave_nb": (jfeatures if pkg is jstencil else tfeatures).octave_chain(4),
+        "pyr_down": (pkg.pyr_down_stage(),),
+        "pyr_down_tap": (pkg.gaussian_stage(3), pkg.pyr_down_stage(tap=0)),
         "mixed": (pkg.box_stage(1), pkg.gaussian_stage(3, tap=0), pkg.dilate_stage(1),
                   pkg.affine_stage(0.5, 3.25), pkg.filter_stage(K, tap=-1)),
     }[name]
@@ -79,7 +82,8 @@ def _outer(pkg, k):
 
 SINGLE_OPS = ["filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "affine"]
 EXACT = {"erode", "dilate", "threshold", "erode_r3"}
-SLICE_CHAINS = ["gaussian_filter2d_k13", "erode_r3", "acceptance", "preprocess", "octave"]
+SLICE_CHAINS = ["gaussian_filter2d_k13", "erode_r3", "acceptance", "preprocess", "octave",
+                "octave_nb", "pyr_down", "pyr_down_tap"]
 LAYOUTS = {"hw": (37, 53), "hwc": (37, 53, 3), "bhwc": (2, 40, 72, 3)}
 
 
@@ -151,6 +155,10 @@ SLICE_CASES = [
     ("octave", "f32", (48, 56)),
     ("mixed", "u8", (2, 21, 30, 2)),
     ("mixed", "f32", (2, 21, 30, 2)),
+    ("octave_nb", "f32", (45, 39)),
+    ("pyr_down", "u8", (2, 37, 53, 3)),
+    ("pyr_down", "f32", (37, 53)),
+    ("pyr_down_tap", "u8", (2, 21, 30, 2)),
 ]
 
 
@@ -252,6 +260,12 @@ def test_mode_resolution_rules():
     assert driver.resolve_mode(_stages(tstencil, "threshold"), (1, 64, 64), f32) == "window"
     assert driver.resolve_mode(_stages(tstencil, "octave"), (1, 32, 32), f32) == "window"
     assert driver.resolve_mode(_stages(tstencil, "octave"), (1, 512, 512), f32) == "tiled2d"
+    assert driver.resolve_mode(_stages(tstencil, "octave_nb"), (1, 512, 512), f32) == "tiled2d"
+    assert driver.resolve_mode(_stages(tstencil, "octave_nb"), (1, 36, 36), f32) == "window"
+    assert driver.resolve_mode(_stages(tstencil, "octave_nb"), (1, 37, 37), f32) == "streaming"
+    pyr = _stages(tstencil, "pyr_down")
+    assert driver.resolve_mode(pyr, (1, 1080, 1920), torch.uint8) == "streaming"
+    assert driver.resolve_mode(pyr, (1, 2160, 3840), torch.uint8) == "tiled2d"
     k13 = _stages(tstencil, "gaussian_filter2d_k13")
     assert driver.resolve_mode(k13, (1, 1080, 1920), torch.uint8) == "streaming"
     assert driver.resolve_mode(k13, (1, 2160, 3840), torch.uint8) == "tiled2d"
@@ -323,7 +337,9 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
     wts = np.asarray(prog.weights, np.float32)
     u8 = planes.dtype == np.uint8
     streams = prog.streams
-    out = np.full((prog.n_bands, N, H, W), np.nan)
+    n_half = sum(d > 1 for d in prog.downs)
+    out = np.full((prog.n_bands - n_half, N, H, W), np.nan)
+    half = np.full((n_half, N, (H + 1) // 2, (W + 1) // 2), np.nan)
 
     def pack(v):
         return np.clip(np.rint(v), 0, 255).astype(np.float32) if u8 else v
@@ -351,6 +367,23 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
                         nr = hi - lo
                         X = sm[rr(st["src"], np.arange(lo - hy, hi + hy))]
                         w0 = wts[st["wx"]:]
+                        if st["down"] > 1:  # pyrDown: image-even rows and columns -> half
+                            ox = tx0 - pw  # image column of local column 0
+                            cols = np.arange(c0 + (ox + c0) % 2, c1, 2)
+                            rows_e = np.arange(lo + lo % 2, hi, 2)
+                            ky = wts[st["wy"]:]
+                            acc = w0[0] * X[:, cols - hx]
+                            for q in range(1, 5):
+                                acc = acc + w0[q] * X[:, cols - hx + q]
+                            v = ky[0] * acc[rows_e - lo]
+                            for q in range(1, 5):
+                                v = v + ky[q] * acc[rows_e - lo + q]
+                            v = pack(v)
+                            keep_r = (rows_e >= y0) & (rows_e < y1)
+                            keep_c = (ox + cols >= tx0) & (ox + cols < tx0 + tw)
+                            half[st["store"], n, rows_e[keep_r][:, None] // 2,
+                                 (ox + cols[keep_c])[None, :] // 2] = v[keep_r][:, keep_c]
+                            continue
                         if op in (0, 1, 5, 6):  # separable: row pass -> scratch
                             taps = [X[:, c0 - hx + q:c1 - hx + q] for q in range(st["kw"])]
                             acc = w0[0] * taps[0] if op == 0 else taps[0]
@@ -395,7 +428,8 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
                             if stream["store"] >= 0:
                                 out[stream["store"], n, rows, tx0:tx0 + tw] = \
                                     sm[rr(s, rows), pw:pw + tw]
-    return out
+    slots = exec_window.store_slots(prog.downs)
+    return [(out if d == 1 else half)[i] for d, i in zip(prog.downs, slots)]
 
 
 REPLAY = [
@@ -408,6 +442,12 @@ REPLAY = [
     ("octave", "f32", (1, 40, 70), {"tiled": True, "tile_w": 32}),
     ("mixed", "u8", (2, 21, 30), {"tiled": True, "tile_w": 8, "segments": 2, "rows": 3}),
     ("threshold", "u8", (1, 9, 11), {"rows": 4}),
+    ("octave_nb", "f32", (1, 75, 41), {"segments": 2}),
+    ("octave_nb", "f32", (1, 41, 71), {"tiled": True, "tile_w": 32, "segments": 2}),
+    ("pyr_down", "u8", (2, 37, 53), {"tiled": True, "tile_w": 16, "segments": 3}),
+    ("pyr_down", "f32", (1, 5, 5), {"rows": 2}),
+    ("pyr_down_tap", "u8", (1, 39, 45), {"tiled": True, "tile_w": 8, "segments": 2,
+                                         "rows": 4}),
 ]
 
 
