@@ -57,7 +57,24 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      device time (a CUDA graph of 100 calls replayed), plain time, bound
      and library call (`conv2d` for the blur, `torch.where` for the
      threshold);
-  7. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
+  7. the geometric path (`geometric_phase`): `imgproc.warp_affine` (a
+     1-degree rotation about the centre and a (4, -3) translation),
+     `imgproc.remap` (an identity map plus a smooth field), `resize_half`,
+     `ops.sobel`, sobel -> grad_mag and gaussian(3) -> resize2(tap=0) at
+     1080p and 4K u8, and again at 1081x1919 u8 and 37x53 f32 with several
+     window tiles, column tiles and row segments, each in every mode (one
+     launch, every band equal to the plain version in dtype, shape and
+     bits, the three kernel modes bit-identical; over-budget full-width
+     streaming must raise); `run_warp` of the benchmark (the warp -> ladder
+     chain of `align_and_detect` on a 512x512 f32 plane, one launch in each
+     mode that fits against 8 staged launches, its interior equal to the
+     staged one, host walls and graph-replay device times);
+     `features.align_and_detect` on the same plane against a `mode="ref"`
+     run on the card (keypoints equal but at counted near-ties); then each
+     1080p / 4K shape's and the warp chain's kernel times (both kernels),
+     plain time, bound and library call (`grid_sample` for the gathers,
+     `avg_pool2d` for resize_half, `conv2d` for sobel);
+  8. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
      d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
      from a seeded generator; `flash_attention` held against its plain
      version within `kernels.attention.AGREE` (one rounding to the output
@@ -75,11 +92,11 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
      and the bf16 paths' logits within twice the bf16 model's own error;
-  8. on the paths' own tensors (the first request, the training
+  9. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
-  9. print the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
+ 10. print the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
      the 4K u8 gaussian_filter2d k = 13 under mode=None, `flash_attention`
      at the prefill's layer 0, the seed kernels on one 512x512 u8 plane),
      then the card line and the device line.
@@ -178,10 +195,12 @@ def near_tie_mask(descs, cents, ulps: int = 4):
     return (two[:, 1] - two[:, 0]) <= ulps * ulp.double()
 
 
-def chain_flops(stages) -> int:
-    """FLOP per output pixel of a chain (the image domain, halo excluded)."""
+def chain_flops(stages) -> float:
+    """FLOP per input pixel of a chain (the image domain, halo excluded)."""
+    from repro_torch.kernels.stencil import resolve_chain
+
     total = 0
-    for s in stages:
+    for s, (_op, mode, *_rest) in zip(stages, resolve_chain(stages)):
         if s.op == "filter2d":
             total += 2 * s.weights[0].numel()  # a product and a sum per tap
         elif s.op == "sep_filter":
@@ -194,12 +213,22 @@ def chain_flops(stages) -> int:
             total += 1
         elif s.op == "affine":
             total += 2
+        elif s.op == "grad_mag" and mode == "reduce":
+            total += 3  # 2 squares, 1 add (+ sqrt)
         elif s.op == "grad_mag":
             total += 7  # 2 sub, 2 scale, 2 square, 1 add (+ sqrt)
         elif s.op == "pyr_down":
             # 5 row taps at the even columns of every row, 5 column taps at
             # the even (row, column) pairs: 2 * (5/2 + 5/4) per input pixel
             total += 7.5
+        elif s.op == "resize2":
+            total += 1  # 3 adds and a scaling per 2x2 block
+        elif s.op == "sobel":
+            total += 13  # 3 column differences, 2 column sums (2 adds, 1 doubling), dx 3, dy 1
+        elif s.op == "warp_affine":
+            total += 19  # coordinates 4 mul + 4 add, 2 fracs, 3 lerps of 3
+        elif s.op == "remap":
+            total += 11  # 2 fracs, 3 lerps of 3
         else:
             raise ValueError(f"chain_flops: no count for stage op {s.op!r}")
     return total
@@ -216,14 +245,17 @@ def image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream) -> 
     """The third slice's shapes: the paper's filter2D (Tables 1-3) and erode
     (Tables 4-6) benches at their sizes, the acceptance chain of
     benchmarks/pipeline_bench.py, the BoW preprocess chain and one octave
-    ladder.  Images come from `ImageStream().image`, seeded per image."""
+    ladder.  Images come from `ImageStream().image`, seeded per image; the
+    plain version is timed on the 4K shapes, `conv2d` for the Gaussian
+    filter2D at k = 5 and 13."""
     import torch
 
     stream = ImageStream()
     cases = []
 
-    def add(name, img, chain, call):
-        cases.append({"name": name, "img": img, "chain": chain, "call": call})
+    def add(name, img, chain, call, lib=None):
+        cases.append({"name": name, "img": img, "chain": chain, "call": call, "lib": lib,
+                      "plain": " 4K " in name})
 
     for res in ("1080p", "4K"):
         img = stream.image(RES[res], seed=0).to(dev)
@@ -231,7 +263,8 @@ def image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream) -> 
             k1 = ref.gaussian_kernel1d(k)
             chain = (stencil.filter_stage(torch.outer(k1, k1)),)
             add(f"gaussian_filter2d k={k} {res} u8", img, chain,
-                lambda mode, img=img, k=k: ops.gaussian_filter2d(img, k, mode=mode))
+                lambda mode, img=img, k=k: ops.gaussian_filter2d(img, k, mode=mode),
+                "conv2d" if k in (5, 13) else None)
     for res in ("1080p", "4K", "8K"):
         img = stream.image(RES[res], seed=1).to(dev)
         for r in (1, 2, 3):
@@ -252,53 +285,104 @@ def image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream) -> 
     return cases
 
 
-def time_image_case(case, planes, resolved, want, stencil, ref) -> dict:
-    """Kernel times on the planes (the kernel the case resolves to, and the
-    window kernel), the plain version's on the 4K shapes, and for the
-    Gaussian filter2D at k = 5 and 13 one `conv2d` of the edge-padded f32
-    image (TF32 off, padding outside the timed call)."""
+def check_modes(case, counters, stencil, ref, path_counts: dict, max_err: dict) -> tuple:
+    """One image-path shape in every mode (None, window, streaming,
+    tiled2d): one launch of the kernel the mode names and no plain call,
+    every band equal to the plain version's in dtype, shape and bits, and
+    the three kernel modes bit-identical; an explicit full-width streaming
+    plan over the shared-memory budget must raise.  -> (the plain version's
+    bands, the planes, the mode None resolves to)."""
     import torch
-    import torch.nn.functional as F
+
+    name, img, chain, call = case["name"], case["img"], case["chain"], case["call"]
+    want = as_tuple(stencil.fused_chain(img, chain, mode="ref"))
+    planes = ref.to_planes(img)
+    resolved = stencil.resolve_mode(chain, planes.shape, img.dtype)
+    outs = {}
+    for mode in (None, "window", "streaming", "tiled2d"):
+        kernel = "stencil_chain" if (mode or resolved) == "window" else "stencil_stream"
+        what = f"{name} mode={mode}"
+        if mode == "streaming" and resolved == "tiled2d":
+            # full-width rings over the budget: the explicit plan must refuse
+            counters.reset()
+            try:
+                call("streaming")
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+            check(raised is not None, f"{what}: over-budget streaming did not raise")
+            expect_counts(what, counters.snapshot(), {})
+            print(f"check {what}: ValueError as required ({raised})")
+            continue
+        got, snap = counted(counters, lambda: as_tuple(call(mode)))
+        torch.cuda.synchronize()
+        expect_counts(what, snap, {kernel: 1})
+        path_counts[what] = snap
+        check(len(got) == len(want), f"{what}: {len(got)} bands, want {len(want)}")
+        err = 0.0
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: shape or dtype")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        check(err == 0.0, f"{what}: max_abs_err {err} against the plain version")
+        max_err[kernel] = max(max_err[kernel], err)
+        outs[mode] = got
+        print(f"check {what} ({kernel}, {mode or resolved}): launches={snap['launches'][kernel]} "
+              f"max_abs_err={err} bands={[(tuple(g.shape), str(g.dtype)) for g in got]}")
+    for mode in ("streaming", "tiled2d"):
+        if mode in outs:
+            same = all(torch.equal(a, b) for a, b in zip(outs[mode], outs["window"]))
+            check(same, f"{name}: {mode} differs from window")
+    print(f"check {name}: window, streaming and tiled2d bit-identical "
+          f"({'streaming over budget' if 'streaming' not in outs else 'all three ran'})")
+    return want, planes, resolved
+
+
+def time_image_case(case, planes, resolved, want) -> dict:
+    """Times of one image-path shape on its planes: `stencil_stream` (tiled
+    as `mode=None` resolves it; a halo-free chain, which resolves to the
+    window kernel, streams full width or, over the budget, tiled) and
+    `stencil_chain`, each the faster of two CUDA-event means of 20 calls,
+    `ms` the kernel `mode=None` takes; the plain version where the case
+    asks for it (``case["plain"]``); the library call ``case["lib"]``
+    names (`library_call`).  Bound: the input read once, every band (and
+    a remap's map planes) moved once, or the chain's FLOP at the f32 rate."""
     from repro_torch.kernels.stencil import exec_streaming, exec_window
 
-    chain, name = case["chain"], case["name"]
+    chain = case["chain"]
     tiled = resolved == "tiled2d"
     if resolved == "window":
-        raise SmokeFailure(f"{name}: resolves to the window kernel, not stencil_stream")
+        try:
+            exec_streaming.stencil_stream(planes, chain)
+        except ValueError:
+            tiled = True
     run = lambda: exec_streaming.stencil_stream(planes, chain, tiled=tiled)  # noqa: E731
     win = lambda: exec_window.stencil_chain(planes, chain)  # noqa: E731
     plain = lambda: exec_streaming.stencil_stream_plain(planes, chain)  # noqa: E731
-    has_plain = " 4K " in name
-    p1 = time_ms(plain, iters=3, warmup=1) if has_plain else None
-    k1 = time_ms(run, iters=20)
-    w1 = time_ms(win, iters=20)
-    k2 = time_ms(run, iters=20)
-    w2 = time_ms(win, iters=20)
-    p2 = time_ms(plain, iters=3, warmup=1) if has_plain else None
+    p1 = time_ms(plain, iters=3, warmup=1) if case.get("plain") else None
+    s1, w1 = time_ms(run, iters=20), time_ms(win, iters=20)
+    s2, w2 = time_ms(run, iters=20), time_ms(win, iters=20)
+    p2 = time_ms(plain, iters=3, warmup=1) if case.get("plain") else None
     lib = None
-    k = chain[0].weights[0].shape[0] if chain[0].op == "filter2d" else 0
-    if k in (5, 13):
-        h = k // 2
-        x = ref.pad_replicate(planes.float(), h, h)[:, None].contiguous()
-        wt = chain[0].weights[0].to(planes.device)[None, None].contiguous()
-        conv = F.conv2d(x, wt)[:, 0]
-        packed = torch.clamp(torch.round(conv), 0, 255)
-        diff = float((packed - want[0].reshape(packed.shape).float()).abs().max())
-        check(diff <= 1.0, f"{name}: conv2d differs from the plain version by {diff}")
-        lib = time_ms(lambda: F.conv2d(x, wt), iters=20)
-    item = planes.element_size()
-    n_px = planes.numel()
-    n_bytes = item * n_px * (1 + len(want))
-    n_flops = n_px * chain_flops(chain)
+    if case.get("lib"):
+        lib = time_ms(library_call(case["lib"], chain, planes, want), iters=20)
+    n_bytes = planes.numel() * planes.element_size() + sum(
+        w.numel() * w.element_size() for w in want)
+    n_bytes += sum(4 * w.numel() for s in chain if s.op == "remap" for w in s.weights)
+    n_flops = planes.numel() * chain_flops(chain)
     bms, by = bound_ms(n_bytes, n_flops)
+    k1, k2 = (w1, w2) if resolved == "window" else (s1, s2)
     return {
         "resolved": resolved,
         "ms": min(k1, k2),
         "ms_runs": [k1, k2],
+        "stream_ms": min(s1, s2),
+        "stream_runs": [s1, s2],
+        "stream_tiled": tiled,
         "window_ms": min(w1, w2),
         "window_runs": [w1, w2],
         "plain_ms": None if p1 is None else min(p1, p2),
         "plain_runs": None if p1 is None else [p1, p2],
+        "library": case.get("lib"),
         "library_ms": lib,
         "bound_ms": bms,
         "bound_by": by,
@@ -508,6 +592,212 @@ def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: di
               f"bound_ms={bms:.6f} ({by}; {n_bytes} B, {n_px * flops_px} FLOP) card={card}")
     results["pipeline"] = {"bench": row, "octave": o_row, "octave_ms": o_ms, "seed_times": timings}
     return timings
+
+
+def rot_about_centre(hw, deg: float = 1.0, shift=(4.0, -3.0)) -> list:
+    """Inverse map of a `deg` rotation about the image centre plus an (x, y)
+    translation: src = R (dst - c) + c + shift."""
+    h, w = hw
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+    return [[c, -s, cx - c * cx + s * cy + shift[0]], [s, c, cy - s * cx - c * cy + shift[1]]]
+
+
+def smooth_maps(hw, dev) -> tuple:
+    """An identity map plus a smooth field (tests/test_stencil.py:516), f32
+    (H, W) on the card: (map_x, map_y)."""
+    import torch
+
+    yy, xx = torch.meshgrid(torch.arange(hw[0], dtype=torch.float32, device=dev),
+                            torch.arange(hw[1], dtype=torch.float32, device=dev), indexing="ij")
+    return xx + 1.2 * torch.cos(yy / 5.0), yy + 1.5 * torch.sin(xx / 7.0)
+
+
+def geometric_cases(dev, imgproc, ops, stencil, ImageStream) -> list:
+    """The sixth slice's image-op shapes at 1080p and 4K u8: warp_affine (a
+    1-degree rotation about the centre and a (4, -3) translation), remap
+    (an identity map plus a smooth field), resize_half, sobel, sobel ->
+    grad_mag and gaussian(3) -> resize2(tap=0); then the same bodies at
+    odd sizes with several window tiles, column tiles and row segments,
+    where a gather origin off by a row or a column shows."""
+    from repro_torch.core.device import LaunchConfig
+
+    stream = ImageStream()
+    cases = []
+
+    def add(name, img, chain, call, lib=None):
+        cases.append({"name": name, "img": img, "chain": chain, "call": call, "lib": lib,
+                      "plain": True})
+
+    def shapes(tag, img, lc=None):
+        hw = tuple(img.shape[-2:])
+        kw = {} if lc is None else {"lc": lc}
+        M = rot_about_centre(hw)
+        warp = (stencil.warp_affine_stage(M, shape=hw),)
+        mx, my = smooth_maps(hw, dev)
+        remap = (stencil.remap_stage(mx, my),)
+        sob, sob_grad = (stencil.sobel_stage(),), (stencil.sobel_stage(), stencil.grad_stage())
+        res, g_res = (stencil.resize2_stage(),), (stencil.gaussian_stage(3),
+                                                  stencil.resize2_stage(tap=0))
+        add(f"warp_affine {tag}", img, warp,
+            lambda mode: stencil.fused_chain(img, warp, mode=mode, **kw)
+            if lc else imgproc.warp_affine(img, M, mode=mode), "grid_sample")
+        add(f"remap {tag}", img, remap,
+            lambda mode: stencil.fused_chain(img, remap, mode=mode, **kw)
+            if lc else imgproc.remap(img, mx, my, mode=mode), "grid_sample")
+        add(f"resize_half {tag}", img, res,
+            lambda mode: imgproc.resize_half(img, mode=mode, **kw), "avg_pool2d")
+        add(f"sobel {tag}", img, sob, lambda mode: ops.sobel(img, mode=mode, **kw),
+            "conv2d")
+        add(f"sobel->grad_mag {tag}", img, sob_grad,
+            lambda mode: stencil.fused_chain(img, sob_grad, mode=mode, **kw))
+        add(f"gaussian(3)->resize2(tap=0) {tag}", img, g_res,
+            lambda mode: stencil.fused_chain(img, g_res, mode=mode, **kw))
+
+    for res in ("1080p", "4K"):
+        shapes(f"{res} u8", stream.image(RES[res], seed=5).to(dev))
+    odd = LaunchConfig(tile_rows=16, tile_cols=16, tile2d_cols=224, row_segments=7)
+    shapes("1081x1919 u8 (16x16 tiles, 224 columns, 7 segments)",
+           stream.image((1081, 1919), seed=6).to(dev), odd)
+    small = LaunchConfig(tile_rows=8, tile_cols=8, tile2d_cols=16, row_segments=3, stream_rows=4)
+    shapes("37x53 f32 (8x8 tiles, 16 columns, 3 segments)",
+           stream.image((37, 53), seed=7).to(dev).float(), small)
+    return cases
+
+
+def library_call(kind: str, chain, planes, want):
+    """The PyTorch call that computes a case's function, as a time
+    yardstick: `grid_sample` (bilinear, border, align_corners) on the
+    gather's coordinates precomputed as a grid, `avg_pool2d` for
+    resize_half, `conv2d` with the filter2D taps or the (2, 1, 3, 3) Sobel
+    weight on the edge-padded plane; inputs widened and padded to f32
+    outside the timed call (TF32 off).  Checked within 1 of the plain
+    version's first band (its rounding is not the reference's).  -> the
+    call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+
+    x = planes.float()[:, None].contiguous()
+    N, H, W = planes.shape
+    if kind == "grid_sample":
+        yy, xx = torch.meshgrid(torch.arange(H, device=planes.device),
+                                torch.arange(W, device=planes.device), indexing="ij")
+        s = chain[0]
+        if s.op == "warp_affine":
+            sy, sx = ref.affine_coords(s.static, yy, xx)
+        else:
+            sx, sy = s.weights
+        grid = torch.stack([sx / (W - 1) * 2 - 1, sy / (H - 1) * 2 - 1], dim=-1)
+        grid = grid[None].expand(N, H, W, 2).contiguous()
+
+        def call():
+            return F.grid_sample(x, grid, mode="bilinear", padding_mode="border",
+                                 align_corners=True)
+        out = call()[:, 0]
+    elif kind == "avg_pool2d":
+        def call():
+            return F.avg_pool2d(x, 2)
+        out = call()[:, 0]
+    else:  # conv2d: the filter2D taps, or the (2, 1, 3, 3) Sobel pair
+        if chain[0].op == "filter2d":
+            wt = chain[0].weights[0].to(planes.device)[None, None].contiguous()
+        else:
+            wt = torch.tensor([[[[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]],
+                               [[[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]]]],
+                              device=planes.device)
+        h = wt.shape[-1] // 2
+        xp = ref.pad_replicate(x, h, h).contiguous()
+
+        def call():
+            return F.conv2d(xp, wt)
+        out = call()[:, 0]
+    diff = float((out - want[0].float()).abs().max())
+    check(diff <= 1.0, f"library call {kind} differs from the plain version by {diff}")
+    return call
+
+
+def geometric_phase(dev, card: str, max_err: dict, path_counts: dict, results: dict) -> None:
+    """The geometric path (the sixth slice): the image-op shapes of
+    `geometric_cases` in every mode (`check_modes`); `run_warp` of
+    `scripts/torch_pipeline_bench.py` (the warp -> ladder chain fused in
+    every mode that fits against 8 staged launches, with its checks and
+    walls); `features.align_and_detect` on the benchmark's plane against a
+    `mode="ref"` run on the card, keypoints equal but at counted near-ties;
+    then each shape's kernel times (the kernel `mode=None` takes and the
+    other one, CUDA-event means), plain time, bound and library call."""
+    import torch
+    from repro_torch.cv import features, imgproc
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ops, ref, stencil
+
+    cases = geometric_cases(dev, imgproc, ops, stencil, ImageStream)
+    timed = []
+    for case in cases:
+        want, planes, resolved = check_modes(case, counters, stencil, ref, path_counts, max_err)
+        results["checks"][f"geometric {case['name']}"] = {"resolved": resolved, "max_abs_err": 0.0}
+        if " 4K " in case["name"] or " 1080p " in case["name"]:
+            timed.append((case, want, planes, resolved))
+
+    # -- run_warp, by the benchmark -------------------------------------------
+    bench = load_bench()
+    row, rec = bench.run_warp(dev)
+    path_counts.update(rec.paths)
+    for k, e in rec.max_err.items():
+        max_err[k] = max(max_err[k], e)
+    walls = "; ".join(f"{k} {v * 1e3:.4f} ms" for k, v in row.items()
+                      if k.endswith("_s") and not k.endswith("median_s"))
+    print(f"check warp chain {row['image']} f32 (halo {row['halo']}): one launch in each mode that "
+          f"fits, every band bit-identical to the plain version; staged "
+          f"{row['pallas_calls_staged']} launches {snap_nonzero(rec.paths['warp staged'])}; fused "
+          f"interior equals staged: {row['interior_bitexact']}")
+    print(f"time warp chain (host wall, best of {bench.RUNS}): {walls}; best mode "
+          f"{row['fused_mode']}; fused_speedup={row['fused_speedup']:.3f}; device (graph replay): "
+          + " ".join(f"{k} {v:.5f}" for k, v in row.items() if k.endswith("_graph_ms"))
+          + f" ms card={card}")
+
+    # -- align_and_detect on the benchmark's plane ----------------------------
+    plane = ImageStream().image((512, 512), channels=1, seed=0).to(dev).float()[None]
+    M = bench.warp_matrix()
+    chain = features.aligned_octave_chain(M, (512, 512), n_scales=bench.N_SCALES)
+    a_res = stencil.resolve_mode(chain, (1, 512, 512), plane.dtype)
+    a_kernel = "stencil_chain" if a_res == "window" else "stencil_stream"
+    det, snap = counted(counters, lambda: features.align_and_detect(plane, M, max_kp=64))
+    expect_counts("align_and_detect", snap, {a_kernel: 1})
+    path_counts["align_and_detect"] = snap
+    want = features.align_and_detect(plane, M, max_kp=64, mode="ref")
+    torch.cuda.synchronize()
+    check(torch.equal(det["gray"], want["gray"]), "align_and_detect: warped gray differs")
+    off = ((det["xy"] != want["xy"]).any(-1) | (det["scale"] != want["scale"]))[0]
+    resp = want["resp"][0]
+    ulp = torch.nextafter(resp.abs(), torch.full_like(resp, math.inf)) - resp.abs()
+    gap = torch.minimum(torch.cat([resp[:-1] - resp[1:], resp[-1:]]),
+                       torch.cat([resp[:1], resp[:-1] - resp[1:]]))
+    near = gap <= 4 * ulp
+    n_off = int(off.sum())
+    check(bool((near[off]).all()), "align_and_detect: a keypoint differs off a near-tie")
+    print(f"check align_and_detect 512x512 f32 ({a_kernel}, {a_res}): one launch, "
+          f"{int(det['valid'].sum())} valid keypoints; {n_off} of {off.numel()} differ from the "
+          f"mode='ref' run, each at a near-tie (resp within 4 ulp of a neighbour; "
+          f"{int(near.sum())} near-ties in all)")
+    results["geometric"] = {"warp_bench": row, "align_and_detect": {
+        "resolved": a_res, "keypoints_differing": n_off, "near_ties": int(near.sum())}}
+
+    # -- times ----------------------------------------------------------------
+    times = {}
+    g = plane[0]
+    timed.append(({"name": "warp chain 512x512 f32", "chain": chain, "plain": True},
+                  as_tuple(stencil.fused_chain(g, chain, mode="ref")), ref.to_planes(g),
+                  stencil.resolve_mode(chain, (1, 512, 512), g.dtype)))
+    for case, want, planes, resolved in timed:
+        name = case["name"]
+        t = times[name] = time_image_case(case, planes, resolved, want)
+        print(f"time {name}: ms={t['ms']:.5f} ({resolved}) stream_ms={t['stream_ms']:.5f} "
+              f"({'tiled2d' if t['stream_tiled'] else 'streaming'}) window_ms={t['window_ms']:.5f} "
+              f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']} ({t['library']}) "
+              f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}; {t['bytes']} B, {t['flops']} FLOP) "
+              f"card={card}")
+    results["geometric"]["times"] = times
 
 
 def snap_nonzero(snap: dict) -> dict:
@@ -1147,48 +1437,10 @@ def main() -> int:
     slice_cases = image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream)
     slice_times = {}
     for case in slice_cases:
-        name, img, chain, call = case["name"], case["img"], case["chain"], case["call"]
-        want = as_tuple(stencil.fused_chain(img, chain, mode="ref"))
-        planes = ref.to_planes(img)
-        resolved = stencil.resolve_mode(chain, planes.shape, img.dtype)
-        outs = {}
-        for mode in (None, "window", "streaming", "tiled2d"):
-            kernel = "stencil_chain" if (mode or resolved) == "window" else "stencil_stream"
-            what = f"{name} mode={mode}"
-            if mode == "streaming" and resolved == "tiled2d":
-                # full-width rings over the budget: the explicit plan must refuse
-                counters.reset()
-                try:
-                    call("streaming")
-                    raised = None
-                except ValueError as e:
-                    raised = str(e)
-                check(raised is not None, f"{what}: over-budget streaming did not raise")
-                expect_counts(what, counters.snapshot(), {})
-                print(f"check {what}: ValueError as required ({raised})")
-                continue
-            got, snap = counted(counters, lambda: as_tuple(call(mode)))
-            torch.cuda.synchronize()
-            expect_counts(what, snap, {kernel: 1})
-            path_counts[what] = snap
-            check(len(got) == len(want), f"{what}: {len(got)} bands, want {len(want)}")
-            err = 0.0
-            for g, w in zip(got, want):
-                check(g.shape == w.shape and g.dtype == w.dtype, f"{what}: shape or dtype")
-                err = max(err, float((g.float() - w.float()).abs().max()))
-            check(err == 0.0, f"{what}: max_abs_err {err} against the plain version")
-            max_err[kernel] = max(max_err[kernel], err)
-            outs[mode] = got
-            print(f"check {what} ({kernel}, {mode or resolved}): launches={snap['launches'][kernel]} "
-                  f"max_abs_err={err}")
-        for mode in ("streaming", "tiled2d"):
-            if mode in outs:
-                same = all(torch.equal(a, b) for a, b in zip(outs[mode], outs["window"]))
-                check(same, f"{name}: {mode} differs from window")
-        print(f"check {name}: window, streaming and tiled2d bit-identical "
-              f"({'streaming over budget' if 'streaming' not in outs else 'all three ran'})")
+        name = case["name"]
+        want, planes, resolved = check_modes(case, counters, stencil, ref, path_counts, max_err)
         results["checks"][f"image path {name}"] = {"resolved": resolved, "max_abs_err": 0.0}
-        slice_times[name] = time_image_case(case, planes, resolved, want, stencil, ref)
+        slice_times[name] = time_image_case(case, planes, resolved, want)
         t = slice_times[name]
         print(f"time {name}: stream_ms={t['ms']:.5f} ({resolved}) window_ms={t['window_ms']:.5f} "
               f"plain_ms={t['plain_ms']} library_ms={t['library_ms']} bound_ms={t['bound_ms']:.5f} "
@@ -1198,7 +1450,10 @@ def main() -> int:
     # -- 6. the fused-vs-staged-vs-seed pipeline benchmark ---------------------
     seed_times = pipeline_phase(dev, card, max_err, path_counts, results)
 
-    # -- 7. the LM serving path ------------------------------------------------
+    # -- 7. the geometric path -------------------------------------------------
+    geometric_phase(dev, card, max_err, path_counts, results)
+
+    # -- 8. the LM serving path ------------------------------------------------
     lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
                       gen_len=LM_GEN, max_err=max_err)
     path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
@@ -1209,10 +1464,10 @@ def main() -> int:
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
-          f"generate): {main_launches}")
+          f"geometric path + generate): {main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 8. the kernels on the paths' own tensors, then timing ------------------
+    # -- 9. the kernels on the paths' own tensors, then timing ------------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Fused vs staged vs seed on one NVIDIA GPU: the port's counterpart of
-`benchmarks/pipeline_bench.py` `run` and `run_octave`.
+`benchmarks/pipeline_bench.py` `run`, `run_octave` and `run_warp`.
 
     PYTHONPATH=src python3 scripts/torch_pipeline_bench.py [--quick]
 
@@ -20,6 +20,19 @@ the shared-memory budget and must raise), against the staged octave (7
 `gaussian_blur` calls and one `pyr_down`: 8 launches).  Checks: every mode
 bit-identical to the plain version on every band, and the launch counts.
 
+`run_warp`: the geometric transform fused into the octave, the chain of
+`features.align_and_detect` (an affine warp as a gather stage whose bound
+is extended by the ladder's halo, then the 7-scale incremental Gaussian
+ladder as tap stages: 8 bands, the warped plane first) on a 512x512 f32
+plane with the JAX benchmark's M (a 0.05 rad rotation about the origin and
+a (4, -3) translation), in every mode that fits (full-width streaming is
+over the shared-memory budget and must raise), against the staged path
+(`imgproc.warp_affine`, then one `gaussian_blur` a scale: 8 launches).
+Checks: every mode one launch and bit-identical to the plain version on
+every band, the fused interior (the chain's accumulated halo cut off)
+equal to the staged interior, and the launch counts; the device time of
+each fused mode as well as the best one's.
+
 Times are host wall around a synchronised call, best and median of `RUNS`
 after one warm-up: every form is launch-bound, so the host's wall is what it
 costs.  Beside it, each form's device time with the host's issue cost taken
@@ -32,15 +45,16 @@ the card; they go to ``chiprun_out/torch_pipeline_bench.json``, never to
 ``BENCH_results.json``.  A fused speedup under 1.3x is printed as a
 warning, as the JAX benchmark does.  Exits non-zero without a CUDA device.
 
-`run` and `run_octave` also return what `chip_smoke.py` reads of them: each
-path's launch counts and each kernel's largest error against its plain
-version.
+`run`, `run_octave` and `run_warp` also return what `chip_smoke.py` reads
+of them: each path's launch counts and each kernel's largest error against
+its plain version.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -103,6 +117,27 @@ def staged_octave(g, ops):
     sigmas = [1.6 * 2 ** (i / N_SCALES) for i in range(N_SCALES + 3)]
     pyr = [ops.gaussian_blur(g, int(min(2 * round(3 * s) + 1, 15)), s) for s in sigmas]
     return torch.stack(pyr), ops.pyr_down(pyr[N_SCALES])
+
+
+def warp_matrix(theta: float = 0.05) -> list:
+    """The JAX benchmark's inverse map: a rotation by `theta` about the
+    origin and a (4, -3) translation."""
+    c, s = math.cos(theta), math.sin(theta)
+    return [[c, -s, 4.0], [s, c, -3.0]]
+
+
+def staged_warp(g, M, imgproc, ops, features):
+    """A warp launch and the same incremental full-width ladder as the
+    fused chain, one `gaussian_blur` launch a scale: 1 + n_scales+3
+    launches."""
+    import torch
+
+    prev = imgproc.warp_affine(g, M)
+    pyr = []
+    for k, s in features.ladder_taps(N_SCALES, 1.6):
+        prev = ops.gaussian_blur(prev, k, s)
+        pyr.append(prev)
+    return torch.stack(pyr)
 
 
 def kernel_of(mode: str) -> str:
@@ -305,6 +340,67 @@ def run_octave(dev, *, quick: bool = False) -> tuple[dict, Record]:
     }, rec
 
 
+def run_warp(dev, *, quick: bool = False) -> tuple[dict, Record]:
+    import torch
+    from repro_torch.cv import features, imgproc
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ops, stencil
+
+    H, W = (256, 256) if quick else (512, 512)
+    g = ImageStream().image((H, W), channels=1, seed=0).to(dev).float()
+    M = warp_matrix()
+    stages = features.aligned_octave_chain(M, (H, W), n_scales=N_SCALES)
+    rec = Record(counters)
+
+    def fused(m):
+        return stencil.fused_chain(g, stages, mode=m)
+
+    want = fused("ref")
+    resolved = stencil.resolve_mode(stages, (1, H, W), g.dtype)
+    modes = []
+    for m in CHECK_MODES:
+        what = f"warp chain mode={m}"
+        if m == "streaming" and resolved == "tiled2d":
+            counters.reset()
+            try:
+                fused(m)
+            except ValueError as e:
+                check(not any(counters.snapshot()["launches"].values()), f"{what}: launched")
+                print(f"{what}: ValueError as required ({e})")
+                continue
+            raise BenchFailure(f"{what}: over-budget full-width streaming did not raise")
+        kernel = kernel_of(m or resolved)
+        got = rec.counted(what, lambda m=m: fused(m), {kernel: 1})
+        check(len(got) == len(want) == N_SCALES + 4, f"{what}: {len(got)} bands")
+        for b, (a, w) in enumerate(zip(got, want)):
+            rec.exact(kernel, f"{what} band {b}", a, w)
+        if m:
+            modes.append(m)
+    staged = rec.counted("warp staged", lambda: staged_warp(g, M, imgproc, ops, features))
+    n_staged = sum(rec.paths["warp staged"]["launches"].values())
+    check(n_staged == N_SCALES + 4, f"staged warp: {n_staged} launches, want {N_SCALES + 4}")
+    ph, pw = stencil.chain_halo(stages)
+    pyr = torch.stack(want[1:])
+    interior = bool(torch.equal(pyr[:, ph:-ph, pw:-pw], staged[:, ph:-ph, pw:-pw]))
+    check(interior, "fused warp chain diverges from the staged interior")
+
+    fields = time_modes(lambda m: (lambda: torch.stack(fused(m)[1:])), modes)
+    best = fields["fused_mode"]
+    t_staged = wall_stats(lambda: staged_warp(g, M, imgproc, ops, features))
+    return {
+        "image": f"{H}x{W}", "dtype": "f32", "n_scales": N_SCALES, "bands": N_SCALES + 4,
+        "chain": "warp_affine -> gauss ladder", "halo": f"{ph}x{pw}",
+        "pallas_calls_fused": 1, "pallas_calls_staged": n_staged,
+        **fields,
+        "staged_best_s": t_staged["best_s"], "staged_median_s": t_staged["median_s"],
+        "fused_speedup": t_staged["best_s"] / fields["fused_best_s"],
+        "interior_bitexact": interior,
+        "fused_graph_ms": graph_ms(lambda: torch.stack(fused(best)[1:])),
+        **{f"fused_{m}_graph_ms": graph_ms(lambda m=m: torch.stack(fused(m)[1:])) for m in modes},
+        "staged_graph_ms": graph_ms(lambda: staged_warp(g, M, imgproc, ops, features)),
+    }, rec
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -313,7 +409,8 @@ def card_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--quick", action="store_true", help="(4, 256, 256, 3) and a 256x256 octave")
+    ap.add_argument("--quick", action="store_true",
+                    help="(4, 256, 256, 3), a 256x256 octave and warp chain")
     args = ap.parse_args()
     import torch
 
@@ -324,7 +421,8 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     rows = {"pipeline": run(dev, quick=args.quick)[0],
-            "octave": run_octave(dev, quick=args.quick)[0]}
+            "octave": run_octave(dev, quick=args.quick)[0],
+            "warp": run_warp(dev, quick=args.quick)[0]}
     for name, row in rows.items():
         print(f"{name}: " + " ".join(f"{k}={v}" for k, v in row.items()))
     speedup = rows["pipeline"]["fused_speedup"]

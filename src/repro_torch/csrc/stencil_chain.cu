@@ -31,12 +31,22 @@
 // as the plain PyTorch version computes it; u8 packed after every stage).
 // The window is held in f32 whatever the carrier; a u8 layout is queued.
 //
-// A pyrDown (the octave's next-base tap, or a lone map pyrDown) runs only as
-// the chain's last stage.  Tiles are even and the window's pad is aligned to
-// the stride, so the block computes the row pass at the tile's image-even
-// columns, the column pass at its image-even rows, and stores the result
-// straight to the half-resolution output (`out_half`, (ceil(H/2), ceil(W/2))
-// a plane): a quarter of the column work of the full-resolution stage.
+// A strided stage (pyrDown, resize2; the octave's next-base tap, or a lone
+// map stage) runs only as the chain's last.  Tiles are even and the
+// window's pad is aligned to the stride, so the block computes it at the
+// tile's image-even rows and columns only (pyrDown: the row pass at the even
+// columns, the column pass at the even rows) and stores the result straight
+// to its decimated band: a quarter of the work of the full-resolution stage.
+//
+// Bands of two dtypes share a launch: a Sobel emits an f32 (dx, dy) pair on
+// a u8 chain.  Every band has its own output buffer (`Bands`, by value) and
+// every step its own pack flag; slots hold f32 whatever the band.  A Sobel
+// step writes two slots, the pair reduction reads two.  The gathers (warp,
+// remap) sample their source slot at absolute image coordinates: the
+// window's origin (ty0 - ph, tx0 - pw) plus the window index, which is the
+// JAX kernel's (row step, row offset, column origin) meta for this tile.
+// Remap's map planes are read from device memory, so they cost no shared
+// memory; an output coordinate outside the image clamps to the map's edge.
 
 #include "stencil_ops.cuh"
 
@@ -49,12 +59,14 @@ constexpr int kMaxWeights = 512;
 
 struct Step {
   int op;              // stencil::Op
-  int src, dst, tmp;   // shared-memory slots
+  int src, src2;       // shared-memory slots read (src2: the reduction's second band)
+  int dst, dst2, tmp;  // slots written (dst2: a Sobel's dy) and the row-pass scratch
   int kh, kw;          // column and row extents of the stencil (halo = k / 2)
   int wx, wy;          // offsets of the row / column taps (or scalars) in weights[]
   int rh, rw;          // halo the source band still carries before the step
-  int store;           // output band written from dst after the step, or -1
-  int down;            // 2: a pyrDown, stored to out_half[store] by the step itself
+  int store, store2;   // output bands written from dst / dst2 after the step, or -1
+  int down;            // 2: a strided stage, stored to band `store` by the step itself
+  int pk;              // 1: pack the step's result to u8
 };
 
 struct ChainProgram {
@@ -65,14 +77,12 @@ struct ChainProgram {
 };
 
 template <typename T>
-__global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                     T* __restrict__ out_half,
+__global__ void stencil_chain_kernel(const T* __restrict__ in, const Bands bd,
                                      const ChainProgram* __restrict__ prog, int n, int h, int w,
                                      int tile_h, int tile_w, int ph, int pw, int tiles_x,
                                      int tiles_y) {
   __shared__ ChainProgram sp;
   extern __shared__ float smem[];
-  constexpr bool u8 = sizeof(T) == 1;
 
   {
     const int* from = reinterpret_cast<const int*>(prog);
@@ -89,14 +99,14 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
   const int t = blockIdx.x - plane * tiles;
   const int ty0 = (t / tiles_x) * tile_h;
   const int tx0 = (t % tiles_x) * tile_w;
-  const size_t plane_size = size_t(h) * w;
-  const T* src_plane = in + plane * plane_size;
+  const int oy = ty0 - ph, ox = tx0 - pw;  // image coordinate of window (0, 0)
+  const T* src_plane = in + plane * (size_t(h) * w);
 
   // slot 0 <- the input window, edge-padded by clamping the read coordinate
   for (int e = threadIdx.x; e < slot_size; e += blockDim.x) {
     const int i = e / WW, j = e - (e / WW) * WW;
-    const int y = min(max(ty0 - ph + i, 0), h - 1);
-    const int x = min(max(tx0 - pw + j, 0), w - 1);
+    const int y = min(max(oy + i, 0), h - 1);
+    const int x = min(max(ox + j, 0), w - 1);
     smem[e] = load_f32(src_plane + size_t(y) * w + x);
   }
   __syncthreads();
@@ -104,7 +114,9 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
   for (int si = 0; si < sp.n_steps; ++si) {
     const Step s = sp.steps[si];
     const float* src = smem + s.src * slot_size;
+    const float* src2 = smem + s.src2 * slot_size;
     float* dst = smem + s.dst * slot_size;
+    float* dst2 = smem + s.dst2 * slot_size;
     float* tmp = smem + s.tmp * slot_size;
     const LinRows rows{src, WW};
     // the source band is valid on window rows [r0, r1) and columns [c0, c1)
@@ -112,69 +124,103 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
     const int c0 = pw - s.rw, c1 = pw + tile_w + s.rw;
     const int hy = s.kh / 2, hx = s.kw / 2;
     const float* wts = sp.weights + s.wx;
+    const int orows = r1 - r0 - 2 * hy, cols = c1 - c0 - 2 * hx;  // the step's output region
 
-    if (s.down > 1) {
-      // pyrDown, the chain's last stage: the row pass at the tile's
-      // image-even columns -> tmp, then the column pass at its image-even
-      // rows, stored straight to the half-resolution band
-      const int oy = ty0 - ph, ox = tx0 - pw;  // image coordinate of window (0, 0)
+    if (s.op == kPyrDown) {
+      // the chain's last stage: the row pass at the tile's image-even
+      // columns -> tmp, then the column pass at its image-even rows, stored
+      // straight to the decimated band
       const int i0 = first_even(r0 + hy, oy), j0 = first_even(c0 + hx, ox);
-      const int orows = (r1 - hy - i0 + 1) / 2, ocols = (c1 - hx - j0 + 1) / 2;
+      const int erows = (r1 - hy - i0 + 1) / 2, ecols = (c1 - hx - j0 + 1) / 2;
       const int nr = r1 - r0;
-      for (int e = threadIdx.x; e < nr * ocols; e += blockDim.x) {
-        const int i = r0 + e / ocols, j = j0 + 2 * (e % ocols);
+      for (int e = threadIdx.x; e < nr * ecols; e += blockDim.x) {
+        const int i = r0 + e / ecols, j = j0 + 2 * (e % ecols);
         tmp[i * WW + j] = row_pass(s.op, src + i * WW + j - hx, wts, s.kw);
       }
       __syncthreads();
-      const int hh = (h + 1) / 2, hw = (w + 1) / 2;
-      T* ob = out_half + (size_t(s.store) * n + plane) * (size_t(hh) * hw);
-      for (int e = threadIdx.x; e < orows * ocols; e += blockDim.x) {
-        const int i = i0 + 2 * (e / ocols), j = j0 + 2 * (e % ocols);
+      for (int e = threadIdx.x; e < erows * ecols; e += blockDim.x) {
+        const int i = i0 + 2 * (e / ecols), j = j0 + 2 * (e % ecols);
         const int y = (oy + i) / 2, x = (ox + j) / 2;
-        if (y < hh && x < hw) {
+        if (y < bd.h[s.store] && x < bd.w[s.store]) {
           const float v = col_pass(s.op, tmp + (i - hy) * WW + j, WW, sp.weights + s.wy, s.kh, wts[0]);
-          store_val(ob + size_t(y) * hw + x, pack(v, u8));
+          store_band(bd, s.store, plane, y, x, pack(v, s.pk));
         }
+      }
+    } else if (s.op == kResize2) {
+      // the chain's last stage: 2x2 means at the tile's image-even rows and
+      // columns, stored straight to the decimated band (floor size)
+      const int i0 = first_even(r0, oy), j0 = first_even(c0, ox);
+      const int erows = (r1 - i0) / 2, ecols = (c1 - j0) / 2;
+      for (int e = threadIdx.x; e < erows * ecols; e += blockDim.x) {
+        const int i = i0 + 2 * (e / ecols), j = j0 + 2 * (e % ecols);
+        const int y = (oy + i) / 2, x = (ox + j) / 2;
+        if (y < bd.h[s.store] && x < bd.w[s.store])
+          store_band(bd, s.store, plane, y, x, pack(resize2_at(rows, i, j), s.pk));
       }
     } else if (separable(s.op)) {
       // row pass over every valid row -> tmp
-      const int nr = r1 - r0, cols = c1 - c0 - 2 * hx;
+      const int nr = r1 - r0;
       for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
         const int i = r0 + e / cols, j = c0 + hx + e % cols;
         tmp[i * WW + j] = row_pass(s.op, src + i * WW + j - hx, wts, s.kw);
       }
       __syncthreads();
       // column pass -> dst
-      const int orows = nr - 2 * hy;
       for (int e = threadIdx.x; e < orows * cols; e += blockDim.x) {
         const int i = r0 + hy + e / cols, j = c0 + hx + e % cols;
         const float v = col_pass(s.op, tmp + (i - hy) * WW + j, WW, sp.weights + s.wy, s.kh, wts[0]);
-        dst[i * WW + j] = pack(v, u8);
+        dst[i * WW + j] = pack(v, s.pk);
+      }
+    } else if (s.op == kSobel) {
+      for (int e = threadIdx.x; e < orows * cols; e += blockDim.x) {
+        const int i = r0 + 1 + e / cols, j = c0 + 1 + e % cols;
+        float dx, dy;
+        sobel_at(rows, i, j, dx, dy);
+        dst[i * WW + j] = dx;
+        dst2[i * WW + j] = dy;
+      }
+    } else if (s.op == kWarp || s.op == kRemap) {
+      const float* mx = bd.maps[2 * s.wx];
+      const float* my = bd.maps[2 * s.wx + 1];
+      for (int e = threadIdx.x; e < orows * cols; e += blockDim.x) {
+        const int i = r0 + hy + e / cols, j = c0 + hx + e % cols;
+        float sy, sx;
+        if (s.op == kWarp)
+          warp_coords(wts, oy + i, ox + j, sy, sx);
+        else
+          remap_coords(mx, my, h, w, oy + i, ox + j, sy, sx);
+        dst[i * WW + j] = pack(bilinear_at(rows, sy, sx, oy, ox, r0, r1, c0, c1), s.pk);
       }
     } else if (s.op == kFilter2d || s.op == kGrad) {
-      const int orows = r1 - r0 - 2 * hy, cols = c1 - c0 - 2 * hx;
       for (int e = threadIdx.x; e < orows * cols; e += blockDim.x) {
         const int i = r0 + hy + e / cols, j = c0 + hx + e % cols;
         const float v = s.op == kGrad ? grad_at(rows, i, j)
                                       : filter2d_at(rows, i - hy, j - hx, wts, s.kh, s.kw);
-        dst[i * WW + j] = pack(v, u8);
+        dst[i * WW + j] = pack(v, s.pk);
+      }
+    } else if (s.op == kGradPair) {
+      for (int e = threadIdx.x; e < orows * cols; e += blockDim.x) {
+        const int k = (r0 + e / cols) * WW + c0 + e % cols;
+        dst[k] = pack(grad_pair(src[k], src2[k]), s.pk);
       }
     } else if (s.op == kThreshold || s.op == kAffine) {
-      const int nr = r1 - r0, cols = c1 - c0;
-      for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
-        const int i = r0 + e / cols, j = c0 + e % cols;
-        dst[i * WW + j] = pack(pointwise(s.op, src[i * WW + j], wts), u8);
+      for (int e = threadIdx.x; e < orows * cols; e += blockDim.x) {
+        const int k = (r0 + e / cols) * WW + c0 + e % cols;
+        dst[k] = pack(pointwise(s.op, src[k], wts), s.pk);
       }
     }
     __syncthreads();
 
-    if (s.store >= 0 && s.down <= 1) {
-      // the band is final: write the tile's interior, clipped to the plane
-      T* ob = out + (size_t(s.store) * n + plane) * plane_size;
+    if (s.down <= 1 && (s.store >= 0 || s.store2 >= 0)) {
+      // final bands: write the tile's interior, clipped to the plane
       for (int e = threadIdx.x; e < tile_h * tile_w; e += blockDim.x) {
         const int i = e / tile_w, j = e % tile_w;
         const int y = ty0 + i, x = tx0 + j;
-        if (y < h && x < w) store_val(ob + size_t(y) * w + x, dst[(ph + i) * WW + pw + j]);
+        if (y < h && x < w) {
+          const int k = (ph + i) * WW + pw + j;
+          if (s.store >= 0) store_band(bd, s.store, plane, y, x, dst[k]);
+          if (s.store2 >= 0) store_band(bd, s.store2, plane, y, x, dst2[k]);
+        }
       }
       __syncthreads();
     }
@@ -182,8 +228,8 @@ __global__ void stencil_chain_kernel(const T* __restrict__ in, T* __restrict__ o
 }
 
 template <typename T>
-int launch(const void* in, void* out, void* out_half, const void* prog, int n, int h, int w,
-           int tile_h, int tile_w, int ph, int pw, int n_slots, int threads, cudaStream_t stream) {
+int launch(const void* in, const Bands& bd, const void* prog, int n, int h, int w, int tile_h,
+           int tile_w, int ph, int pw, int n_slots, int threads, cudaStream_t stream) {
   const int tiles_x = (w + tile_w - 1) / tile_w;
   const int tiles_y = (h + tile_h - 1) / tile_h;
   const size_t smem = size_t(n_slots) * (tile_h + 2 * ph) * (tile_w + 2 * pw) * sizeof(float);
@@ -194,8 +240,8 @@ int launch(const void* in, void* out, void* out_half, const void* prog, int n, i
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
   stencil_chain_kernel<T><<<unsigned(blocks), threads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), static_cast<T*>(out_half),
-      static_cast<const ChainProgram*>(prog), n, h, w, tile_h, tile_w, ph, pw, tiles_x, tiles_y);
+      static_cast<const T*>(in), bd, static_cast<const ChainProgram*>(prog), n, h, w, tile_h,
+      tile_w, ph, pw, tiles_x, tiles_y);
   return int(cudaGetLastError());
 }
 
@@ -203,16 +249,17 @@ int launch(const void* in, void* out, void* out_half, const void* prog, int n, i
 
 extern "C" int stencil_chain_program_bytes() { return int(sizeof(ChainProgram)); }
 
-// Launch on `stream` for u8 (u8 != 0) or f32 planes; `out` holds the
-// full-resolution bands, `out_half` the bands a pyrDown made.  Returns
-// cudaGetLastError() after the launch (0 = ok).
-extern "C" int stencil_chain_launch(const void* in, void* out, void* out_half, const void* prog,
-                                    int n, int h, int w, int tile_h, int tile_w, int ph, int pw,
+extern "C" int stencil_bands_bytes() { return int(sizeof(Bands)); }
+
+// Launch on `stream` for u8 (u8 != 0) or f32 planes; `bands` (host memory)
+// names every output band's buffer and the remap stages' map planes.
+// Returns cudaGetLastError() after the launch (0 = ok).
+extern "C" int stencil_chain_launch(const void* in, const void* bands, const void* prog, int n,
+                                    int h, int w, int tile_h, int tile_w, int ph, int pw,
                                     int n_slots, int threads, int u8, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  const Bands& bd = *static_cast<const Bands*>(bands);
   if (u8)
-    return launch<uint8_t>(in, out, out_half, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots,
-                           threads, st);
-  return launch<float>(in, out, out_half, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads,
-                       st);
+    return launch<uint8_t>(in, bd, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, st);
+  return launch<float>(in, bd, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, st);
 }

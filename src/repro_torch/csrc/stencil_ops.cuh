@@ -7,10 +7,14 @@
 // (__fmul_rn, __fadd_rn; no FMA contraction), in the JAX body's index order;
 // separable stages run a row pass, then a column pass; pyrDown is the 5-tap
 // separable Gaussian computed at image-even rows and columns only (the row
-// pass at even columns, the column pass at even rows); sqrt is the correctly
-// rounded __fsqrt_rn.  Bands are held in f32.  On a u8 carrier each stage's
-// result is packed back (rintf, half to even, and a clamp to [0, 255]),
-// exactly what OpenCV's saturate_cast and the JAX oracle's `_saturate` do.
+// pass at even columns, the column pass at even rows); resize2 is the 2x2
+// mean at image-even rows and columns; sqrt is the correctly rounded
+// __fsqrt_rn; a gather takes floor and frac of the *global* f32 source
+// coordinate (the window-local one would round the frac apart by an ulp
+// and flip u8 .5 ties).  Bands are held in f32.  Each stage's result is
+// packed back to its band's dtype: on u8 rintf (half to even) and a clamp
+// to [0, 255], exactly what OpenCV's saturate_cast and the JAX oracle's
+// `_saturate` do; a Sobel pair stays f32 whatever the carrier.
 
 #pragma once
 
@@ -31,7 +35,36 @@ enum Op : int {
   kThreshold = 7,  // weights[wx] < x ? weights[wx + 1] : 0
   kAffine = 8,     // x * weights[wx] + weights[wx + 1]
   kPyrDown = 9,    // kSep with the 5 taps [1,4,6,4,1]/16 both ways, then 2x decimation
+  kSobel = 10,     // emit: the f32 (dx, dy) pair of the last band, two destinations
+  kGradPair = 11,  // reduce: sqrt(a^2 + b^2) of the last two bands
+  kResize2 = 12,   // 2x2 mean at image-even rows and columns, floor size
+  kWarp = 13,      // bilinear gather at M (6 weights at wx) applied to (x, y)
+  kRemap = 14,     // bilinear gather at (map_x, map_y) = Bands::maps[2wx], [2wx + 1]
 };
+
+constexpr int kMaxBands = 16;
+constexpr int kMaxMaps = 4;
+
+// The output bands of a launch and the remap stages' map planes, passed to
+// the kernel by value: band b is an (n, h[b], w[b]) array at out[b], u8 when
+// u8[b] else f32; map planes are (h, w) f32, the image's size.
+// kernels/stencil/exec_window.py `Bands` mirrors it.
+struct Bands {
+  void* out[kMaxBands];
+  const float* maps[2 * kMaxMaps];
+  int u8[kMaxBands];
+  int h[kMaxBands];
+  int w[kMaxBands];
+};
+
+// Write v (already packed to the band's dtype) to band b, plane p, (y, x).
+__device__ __forceinline__ void store_band(const Bands& bd, int b, int p, int y, int x, float v) {
+  const size_t i = (size_t(p) * bd.h[b] + y) * bd.w[b] + x;
+  if (bd.u8[b])
+    static_cast<uint8_t*>(bd.out[b])[i] = uint8_t(v);
+  else
+    static_cast<float*>(bd.out[b])[i] = v;
+}
 
 __device__ __forceinline__ bool separable(int op) {
   return op == kSep || op == kErode || op == kDilate || op == kBox || op == kPyrDown;
@@ -143,6 +176,73 @@ __device__ __forceinline__ float grad_at(const Rows& rows, int i, int j) {
   const float* c = rows.ptr(q1);
   const float dx = __fmul_rn(__fsub_rn(c[j + 1], c[j - 1]), 0.5f);
   return __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
+}
+
+// Sobel ksize=3 at (i, j), halo 1: per row the column difference cd =
+// x[j+1] - x[j-1] and sum cs = (x[j-1] + x[j+1]) + 2 x[j]; then dx = (cd[i-1]
+// + 2 cd[i]) + cd[i+1] and dy = cs[i+1] - cs[i-1].
+template <class Rows>
+__device__ __forceinline__ void sobel_at(const Rows& rows, int i, int j, float& dx, float& dy) {
+  const int q0 = rows.at(i - 1), q1 = rows.next(q0), q2 = rows.next(q1);
+  const float* a = rows.ptr(q0) + j;
+  const float* b = rows.ptr(q1) + j;
+  const float* c = rows.ptr(q2) + j;
+  const float cd0 = __fsub_rn(a[1], a[-1]), cd1 = __fsub_rn(b[1], b[-1]), cd2 = __fsub_rn(c[1], c[-1]);
+  const float cs0 = __fadd_rn(__fadd_rn(a[-1], a[1]), __fmul_rn(2.0f, a[0]));
+  const float cs2 = __fadd_rn(__fadd_rn(c[-1], c[1]), __fmul_rn(2.0f, c[0]));
+  dx = __fadd_rn(__fadd_rn(cd0, __fmul_rn(2.0f, cd1)), cd2);
+  dy = __fsub_rn(cs2, cs0);
+}
+
+// The pair reduction: sqrt(a^2 + b^2), to be packed to the carrier.
+__device__ __forceinline__ float grad_pair(float a, float b) {
+  return __fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
+}
+
+// resize2 of the 2x2 block whose top-left value is row i, column j:
+// ((x00 + x10) + (x01 + x11)) * 0.25.
+template <class Rows>
+__device__ __forceinline__ float resize2_at(const Rows& rows, int i, int j) {
+  const int q0 = rows.at(i);
+  const float* a = rows.ptr(q0) + j;
+  const float* b = rows.ptr(rows.next(q0)) + j;
+  return __fmul_rn(__fadd_rn(__fadd_rn(a[0], b[0]), __fadd_rn(a[1], b[1])), 0.25f);
+}
+
+// Source coordinates of an inverse-map affine at image (y, x): m holds M00,
+// M01, M02, M10, M11, M12 (f32); two rounded products, two rounded sums.
+__device__ __forceinline__ void warp_coords(const float* m, int y, int x, float& sy, float& sx) {
+  const float yf = float(y), xf = float(x);
+  sx = __fadd_rn(__fadd_rn(__fmul_rn(xf, m[0]), __fmul_rn(yf, m[1])), m[2]);
+  sy = __fadd_rn(__fadd_rn(__fmul_rn(xf, m[3]), __fmul_rn(yf, m[4])), m[5]);
+}
+
+// remap's source coordinates at image (y, x), clamped to the map's edge.
+__device__ __forceinline__ void remap_coords(const float* mx, const float* my, int h, int w, int y,
+                                             int x, float& sy, float& sx) {
+  const size_t i = size_t(min(max(y, 0), h - 1)) * w + min(max(x, 0), w - 1);
+  sy = my[i];
+  sx = mx[i];
+}
+
+// Bilinear sample of a band whose local row r, column c sits at image (r +
+// oy, c + ox), at image coordinates (sy, sx): floor and frac of the global
+// coordinate, the taps' local row clamped to [rlo, rhi - 2] and column to
+// [clo, chi - 2] (the rows and columns the band holds), then top = v00 +
+// (v01 - v00) fx, bot likewise, top + (bot - top) fy.
+template <class Rows>
+__device__ __forceinline__ float bilinear_at(const Rows& rows, float sy, float sx, int oy, int ox,
+                                             int rlo, int rhi, int clo, int chi) {
+  const float iy = floorf(sy), ix = floorf(sx);
+  const float fy = __fsub_rn(sy, iy), fx = __fsub_rn(sx, ix);
+  const int ly = min(max(int(iy) - oy, rlo), rhi - 2);
+  const int lx = min(max(int(ix) - ox, clo), chi - 2);
+  const int q = rows.at(ly);
+  const float* a = rows.ptr(q) + lx;
+  const float* b = rows.ptr(rows.next(q)) + lx;
+  const float top = __fadd_rn(a[0], __fmul_rn(__fsub_rn(a[1], a[0]), fx));
+  const float bot = __fadd_rn(b[0], __fmul_rn(__fsub_rn(b[1], b[0]), fx));
+  return __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), fy));
 }
 
 // Pointwise stages: threshold compares in f32; `hi` is maxval as the

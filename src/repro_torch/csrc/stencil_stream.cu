@@ -31,12 +31,22 @@
 // the rows inside the segment and the plane.  A final band with lead 0 that
 // nothing reads is stored straight from registers.
 //
-// A pyrDown runs only as the chain's last stage, planned at full resolution:
-// its step computes the row pass at the image-even columns of the tile and
-// the column pass at the image-even rows among the step's rows, and stores
-// them straight to the half-resolution output (`out_half`).  Step rows,
-// segment starts and column tiles are even, so the steps of a segment and
-// the segments of a plane cover disjoint half-resolution rows.
+// A strided stage (pyrDown, resize2) runs only as the chain's last stage,
+// planned at full resolution: its step computes at the image-even columns
+// of the tile and the image-even rows among the step's rows (pyrDown: the
+// row pass at the even columns, the column pass at the even rows), and
+// stores them straight to the decimated band.  Step rows, segment starts
+// and column tiles are even, so the steps of a segment and the segments of
+// a plane cover disjoint decimated rows.
+//
+// Every band has its own output buffer and dtype (`Bands`, by value): a
+// Sobel emits an f32 (dx, dy) pair into two streams on a u8 chain, and the
+// pair reduction reads two streams.  The bands a Sobel passes by lag as
+// those of a tap stage do (the JAX kernel's `delayed(news[:-1])`), in the
+// extra depth of their own rings.  A gather's ring holds its source rows
+// out to the displacement halo on both sides; ring rows are absolute image
+// rows, so the gather's row origin is the block's global row, not the
+// segment-local step, and its column origin is the tile's, tx0 - pw.
 //
 // Arithmetic: the stage bodies of stencil_ops.cuh, shared with
 // stencil_chain.cu, so both kernels and the plain version agree bit for bit.
@@ -53,13 +63,16 @@ constexpr int kMaxWeights = 512;
 
 struct StreamStep {
   int op;          // stencil::Op
-  int src, dst;    // streams; dst -1: store straight to output band `store`
+  int src, src2;   // streams read (src2: the reduction's second band)
+  int dst, dst2;   // streams written (dst2: a Sobel's dy); -1: store straight to
+                   // output band `store` / `store2`
   int kh, kw;      // stencil extents (halo = k / 2)
-  int wx, wy;      // offsets of taps or scalars in weights[]
+  int wx, wy;      // offsets of taps or scalars in weights[] (a remap: its maps)
   int rw;          // column halo the source stream still carries
   int lead;        // rows the destination stream runs ahead of the output rows
-  int store;       // output band of a direct store, else -1
-  int down;        // 2: a pyrDown, stored directly to out_half[store]
+  int store, store2;  // output bands of direct stores, else -1
+  int down;        // 2: a strided stage, stored directly to band `store`
+  int pk;          // 1: pack the step's result to u8
 };
 
 struct Stream {
@@ -78,13 +91,11 @@ struct StreamProgram {
 __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T>
-__global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                      T* __restrict__ out_half,
+__global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
                                       const StreamProgram* __restrict__ prog, int n, int h, int w,
                                       int tile_w, int tiles_x, int n_seg, int seg_rows) {
   __shared__ StreamProgram sp;
   extern __shared__ float smem[];
-  constexpr bool u8 = sizeof(T) == 1;
 
   {
     const int* from = reinterpret_cast<const int*>(prog);
@@ -102,11 +113,11 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
   const int tile = rem / n_seg;
   const int seg = rem - tile * n_seg;
   const int tx0 = tile * tile_w;
+  const int ox = tx0 - pw;              // image column of local column 0
   const int tw = min(tile_w, w - tx0);  // columns of this tile inside the plane
   const int y0 = seg * seg_rows;
   const int y1 = min(y0 + seg_rows, h);
-  const size_t plane_size = size_t(h) * w;
-  const T* src_plane = in + plane * plane_size;
+  const T* src_plane = in + plane * (size_t(h) * w);
   float* scratch = smem + sp.scratch * WW;
 
   auto ring = [&](int s) {
@@ -122,7 +133,7 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
       for (int e = threadIdx.x; e < (hi - lo) * WW; e += blockDim.x) {
         const int r = lo + e / WW, j = e % WW;
         const int y = min(max(r, 0), h - 1);
-        const int x = min(max(tx0 - pw + j, 0), w - 1);
+        const int x = min(max(ox + j, 0), w - 1);
         r0(r)[j] = load_f32(src_plane + size_t(y) * w + x);
       }
       __syncthreads();
@@ -138,39 +149,49 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
       const int c0 = pw - s.rw + hx, c1 = pw + tile_w + s.rw - hx;  // output columns
       const int cols = c1 - c0, nr = hi - lo;
       const float* wts = sp.weights + s.wx;
-      T* ob = s.dst < 0 ? out + (size_t(s.store) * n + plane) * plane_size : nullptr;
       const RingRows dst = s.dst < 0 ? RingRows{nullptr, 1, 0} : ring(s.dst);
+      const RingRows dst2 = s.dst2 < 0 ? RingRows{nullptr, 1, 0} : ring(s.dst2);
 
-      auto put = [&](int r, int j, float v) {
-        v = pack(v, u8);
-        if (s.dst >= 0) {
-          dst(r)[j] = v;
+      // write v (packed) to the destination ring, or store it when the band
+      // is final and stored straight from registers
+      auto put = [&](const RingRows& d, int dk, int b, int r, int j, float v) {
+        if (dk >= 0) {
+          d(r)[j] = v;
         } else if (r >= y0 && r < y1 && j >= pw && j < pw + tw) {
-          store_val(ob + size_t(r) * w + tx0 + j - pw, v);
+          store_band(bd, b, plane, r, ox + j, v);
         }
       };
 
-      if (s.down > 1) {
-        // pyrDown, the chain's last stage: the row pass over rows
-        // [lo - hy, hi + hy) at the image-even columns -> scratch, then the
-        // column pass at the image-even rows, stored to the half-size band
-        const int ox = tx0 - pw;  // image column of local column 0
-        const int j0 = first_even(c0, ox), ocols = (c1 - j0 + 1) / 2;
-        const int ry0 = first_even(lo, 0), orows = (hi - ry0 + 1) / 2;
-        for (int e = threadIdx.x; e < (nr + 2 * hy) * ocols; e += blockDim.x) {
-          const int a = e / ocols, j = j0 + 2 * (e % ocols);
+      if (s.op == kPyrDown) {
+        // the chain's last stage: the row pass over rows [lo - hy, hi + hy)
+        // at the image-even columns -> scratch, then the column pass at the
+        // image-even rows, stored to the decimated band
+        const int j0 = first_even(c0, ox), ecols = (c1 - j0 + 1) / 2;
+        const int ry0 = first_even(lo, 0), erows = (hi - ry0 + 1) / 2;
+        for (int e = threadIdx.x; e < (nr + 2 * hy) * ecols; e += blockDim.x) {
+          const int a = e / ecols, j = j0 + 2 * (e % ecols);
           scratch[a * WW + j] = row_pass(s.op, src(lo - hy + a) + j - hx, wts, s.kw);
         }
         __syncthreads();
-        const int hh = (h + 1) / 2, hw = (w + 1) / 2;
-        T* oh = out_half + (size_t(s.store) * n + plane) * (size_t(hh) * hw);
-        for (int e = threadIdx.x; e < orows * ocols; e += blockDim.x) {
-          const int r = ry0 + 2 * (e / ocols), j = j0 + 2 * (e % ocols), x = ox + j;
-          if (r >= y0 && r < y1 && x >= tx0 && x < tx0 + tw) {
+        for (int e = threadIdx.x; e < erows * ecols; e += blockDim.x) {
+          const int r = ry0 + 2 * (e / ecols), j = j0 + 2 * (e % ecols), x = ox + j;
+          if (r >= y0 && r < y1 && x >= tx0 && x < tx0 + tw && r / 2 < bd.h[s.store] &&
+              x / 2 < bd.w[s.store]) {
             const float v = col_pass(s.op, scratch + (r - lo) * WW + j, WW, sp.weights + s.wy,
                                      s.kh, wts[0]);
-            store_val(oh + size_t(r / 2) * hw + x / 2, pack(v, u8));
+            store_band(bd, s.store, plane, r / 2, x / 2, pack(v, s.pk));
           }
+        }
+      } else if (s.op == kResize2) {
+        // the chain's last stage: 2x2 means at the image-even rows and
+        // columns, stored to the decimated band (floor size)
+        const int j0 = first_even(c0, ox), ecols = (c1 - j0) / 2;
+        const int ry0 = first_even(lo, 0), erows = (hi - ry0) / 2;
+        for (int e = threadIdx.x; e < erows * ecols; e += blockDim.x) {
+          const int r = ry0 + 2 * (e / ecols), j = j0 + 2 * (e % ecols), x = ox + j;
+          if (r >= y0 && r < y1 && x >= tx0 && x < tx0 + tw && r / 2 < bd.h[s.store] &&
+              x / 2 < bd.w[s.store])
+            store_band(bd, s.store, plane, r / 2, x / 2, pack(resize2_at(src, r, j), s.pk));
         }
       } else if (separable(s.op)) {
         // row pass over rows [lo - hy, hi + hy) -> scratch, then column pass
@@ -181,18 +202,49 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
         __syncthreads();
         for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
           const int a = e / cols, j = c0 + e % cols;
-          put(lo + a, j, col_pass(s.op, scratch + a * WW + j, WW, sp.weights + s.wy, s.kh, wts[0]));
+          const float v = col_pass(s.op, scratch + a * WW + j, WW, sp.weights + s.wy, s.kh, wts[0]);
+          put(dst, s.dst, s.store, lo + a, j, pack(v, s.pk));
+        }
+      } else if (s.op == kSobel) {
+        for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
+          const int r = lo + e / cols, j = c0 + e % cols;
+          float dx, dy;
+          sobel_at(src, r, j, dx, dy);
+          put(dst, s.dst, s.store, r, j, dx);
+          put(dst2, s.dst2, s.store2, r, j, dy);
+        }
+      } else if (s.op == kWarp || s.op == kRemap) {
+        // the source ring holds rows [lo - hy, hi + hy) and columns
+        // [c0 - hx, c1 + hx); coordinates are absolute image ones
+        const float* mx = bd.maps[2 * s.wx];
+        const float* my = bd.maps[2 * s.wx + 1];
+        for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
+          const int r = lo + e / cols, j = c0 + e % cols;
+          float sy, sx;
+          if (s.op == kWarp)
+            warp_coords(wts, r, ox + j, sy, sx);
+          else
+            remap_coords(mx, my, h, w, r, ox + j, sy, sx);
+          const float v = bilinear_at(src, sy, sx, 0, ox, lo - hy, hi + hy, c0 - hx, c1 + hx);
+          put(dst, s.dst, s.store, r, j, pack(v, s.pk));
         }
       } else if (s.op == kFilter2d || s.op == kGrad) {
         for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
           const int r = lo + e / cols, j = c0 + e % cols;
-          put(r, j, s.op == kGrad ? grad_at(src, r, j)
-                                  : filter2d_at(src, r - hy, j - hx, wts, s.kh, s.kw));
+          const float v = s.op == kGrad ? grad_at(src, r, j)
+                                        : filter2d_at(src, r - hy, j - hx, wts, s.kh, s.kw);
+          put(dst, s.dst, s.store, r, j, pack(v, s.pk));
+        }
+      } else if (s.op == kGradPair) {
+        const RingRows src2 = ring(s.src2);
+        for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
+          const int r = lo + e / cols, j = c0 + e % cols;
+          put(dst, s.dst, s.store, r, j, pack(grad_pair(src(r)[j], src2(r)[j]), s.pk));
         }
       } else {
         for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
           const int r = lo + e / cols, j = c0 + e % cols;
-          put(r, j, pointwise(s.op, src(r)[j], wts));
+          put(dst, s.dst, s.store, r, j, pack(pointwise(s.op, src(r)[j], wts), s.pk));
         }
       }
       __syncthreads();
@@ -205,10 +257,9 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
         const Stream& st = sp.streams[k];
         if (st.store < 0 || st.depth == 0) continue;
         const RingRows rr = ring(k);
-        T* ob = out + (size_t(st.store) * n + plane) * plane_size;
         for (int e = threadIdx.x; e < (hi - lo) * tw; e += blockDim.x) {
           const int r = lo + e / tw, j = e % tw;
-          store_val(ob + size_t(r) * w + tx0 + j, rr(r)[pw + j]);
+          store_band(bd, st.store, plane, r, tx0 + j, rr(r)[pw + j]);
         }
       }
       __syncthreads();
@@ -217,9 +268,8 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, T* __restrict__ 
 }
 
 template <typename T>
-int launch(const void* in, void* out, void* out_half, const void* prog, int n, int h, int w,
-           int tile_w, int n_seg, int seg_rows, int smem_rows, int pw, int threads,
-           cudaStream_t stream) {
+int launch(const void* in, const Bands& bd, const void* prog, int n, int h, int w, int tile_w,
+           int n_seg, int seg_rows, int smem_rows, int pw, int threads, cudaStream_t stream) {
   const int tiles_x = (w + tile_w - 1) / tile_w;
   const size_t smem = size_t(smem_rows) * (tile_w + 2 * pw) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(stencil_stream_kernel<T>,
@@ -229,8 +279,8 @@ int launch(const void* in, void* out, void* out_half, const void* prog, int n, i
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
   stencil_stream_kernel<T><<<unsigned(blocks), threads, smem, stream>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), static_cast<T*>(out_half),
-      static_cast<const StreamProgram*>(prog), n, h, w, tile_w, tiles_x, n_seg, seg_rows);
+      static_cast<const T*>(in), bd, static_cast<const StreamProgram*>(prog), n, h, w, tile_w,
+      tiles_x, n_seg, seg_rows);
   return int(cudaGetLastError());
 }
 
@@ -238,16 +288,18 @@ int launch(const void* in, void* out, void* out_half, const void* prog, int n, i
 
 extern "C" int stencil_stream_program_bytes() { return int(sizeof(StreamProgram)); }
 
-// Launch on `stream` for u8 (u8 != 0) or f32 planes; `out` holds the
-// full-resolution bands, `out_half` the bands a pyrDown made.  Returns
-// cudaGetLastError() after the launch (0 = ok).
-extern "C" int stencil_stream_launch(const void* in, void* out, void* out_half, const void* prog,
-                                     int n, int h, int w, int tile_w, int n_seg, int seg_rows,
+extern "C" int stencil_bands_bytes() { return int(sizeof(Bands)); }
+
+// Launch on `stream` for u8 (u8 != 0) or f32 planes; `bands` (host memory)
+// names every output band's buffer and the remap stages' map planes.
+// Returns cudaGetLastError() after the launch (0 = ok).
+extern "C" int stencil_stream_launch(const void* in, const void* bands, const void* prog, int n,
+                                     int h, int w, int tile_w, int n_seg, int seg_rows,
                                      int smem_rows, int pw, int threads, int u8, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  const Bands& bd = *static_cast<const Bands*>(bands);
   if (u8)
-    return launch<uint8_t>(in, out, out_half, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows,
-                           pw, threads, st);
-  return launch<float>(in, out, out_half, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
-                       threads, st);
+    return launch<uint8_t>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw, threads,
+                           st);
+  return launch<float>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw, threads, st);
 }

@@ -1,5 +1,6 @@
 """SIFT-lite: DoG keypoints + 128-d gradient-histogram descriptors (the
-counterpart of `repro.cv.features`, single octave).
+counterpart of `repro.cv.features`, single octave), and `align_and_detect`:
+an affine warp fused into the octave's launch.
 
 The JAX package runs these per image under `jax.lax.map`; here every
 function takes a batch, (B, H, W) gray or (B, H, W, 3) RGB, and keeps the
@@ -168,6 +169,49 @@ def detect_keypoints(
     return _keypoints_from_pyr(
         pyr,
         g,
+        max_kp=max_kp,
+        contrast_thresh=contrast_thresh,
+        edge_thresh=edge_thresh,
+        border=border,
+    )
+
+
+def aligned_octave_chain(M, shape, *, n_scales: int = 4, sigma0: float = 1.6) -> tuple:
+    """The warp -> incremental Gaussian ladder chain of `align_and_detect`:
+    the inverse-map affine is a gather stage whose displacement bound is
+    extended by the ladder's accumulated halo, and every Gaussian is a tap
+    stage, so the warped gray stays live as band 0 and every scale is an
+    output band of the one launch."""
+    taps = ladder_taps(n_scales, sigma0)
+    ladder = tuple(stencil.gaussian_stage(k, s, tap=-1) for k, s in taps)
+    ey, ex = stencil.chain_halo(ladder)
+    warp = stencil.warp_affine_stage(M, shape=shape, extend=(ey, ex))
+    return (warp,) + ladder
+
+
+def align_and_detect(
+    imgs: torch.Tensor,
+    M,
+    *,
+    n_scales: int = 4,
+    max_kp: int = 64,
+    contrast_thresh: float = 0.02,
+    edge_thresh: float = 10.0,
+    border: int = 8,
+    mode: str | None = None,
+    lc: LaunchConfig = DEFAULT,
+) -> dict:
+    """Warp -> Gaussian ladder -> DoG keypoints on the aligned images, the
+    warp fused into the octave: one launch for the whole aligned scale
+    stack of a (B, H, W) gray or (B, H, W, 3) RGB batch.  M is the 2x3 dst
+    -> src matrix (OpenCV WARP_INVERSE_MAP), the same for every image.
+    Returns `detect_keypoints`' dict, with "gray" the warped gray."""
+    g = _normalize_gray(imgs)
+    chain = aligned_octave_chain(M, tuple(g.shape[-2:]), n_scales=n_scales)
+    outs = [o[..., 0] for o in stencil.fused_chain(g[..., None], chain, mode=mode, lc=lc)]
+    return _keypoints_from_pyr(
+        torch.stack(outs[1:], dim=1),  # band 0 is the warped gray
+        outs[0],
         max_kp=max_kp,
         contrast_thresh=contrast_thresh,
         edge_thresh=edge_thresh,

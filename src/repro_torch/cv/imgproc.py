@@ -1,5 +1,6 @@
 """Image processing ops (the counterpart of `repro.cv.imgproc`): the
-paper's filter2D / erode family, pyrDown, and the BoW preprocess chain."""
+paper's filter2D / erode family, pyrDown, the geometric ops (warpAffine,
+remap, the 2x2-mean resize, Sobel), and the BoW preprocess chain."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ dilate = kops.dilate
 threshold = kops.threshold
 box_blur = kops.box_blur
 pyr_down = kops.pyr_down
+sobel = kops.sobel
 gaussian_kernel1d = kref.gaussian_kernel1d
 fused_chain = stencil.fused_chain
 
@@ -42,6 +44,52 @@ def preprocess_bow(
         stencil.grad_stage(),
     )
     return stencil.fused_chain(imgs, chain, mode=mode, lc=lc)
+
+
+def _hw(img: torch.Tensor) -> tuple[int, int]:
+    return tuple(img.shape[-2:]) if img.ndim == 2 else tuple(img.shape[-3:-1])
+
+
+def warp_affine(
+    img: torch.Tensor, M, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+) -> torch.Tensor:
+    """OpenCV warpAffine with WARP_INVERSE_MAP (dst -> src matrix M,
+    bilinear, replicate border) as one gather-stage launch: dst(x, y)
+    samples src at (M00 x + M01 y + M02, M10 x + M11 y + M12).  The
+    displacement bound, and so the gather halo, comes from M over the image
+    rectangle; to fuse a warp into a longer chain, build
+    `stencil.warp_affine_stage` with extend=<the later stages' halo> (see
+    `features.align_and_detect`)."""
+    stage = stencil.warp_affine_stage(M, shape=_hw(img))
+    return stencil.fused_chain(img, (stage,), mode=mode, lc=lc)
+
+
+def remap(
+    img: torch.Tensor,
+    map_x,
+    map_y,
+    *,
+    bound=None,
+    extend=(0, 0),
+    mode: str | None = None,
+    lc: LaunchConfig = DEFAULT,
+) -> torch.Tensor:
+    """OpenCV remap (bilinear, replicate border) as one gather-stage launch:
+    dst(x, y) samples src at (map_x[y, x], map_y[y, x]).  The (H, W) f32
+    map planes go to the kernel as they are (on the image's device); the
+    gather halo comes from their largest displacement |map - identity|
+    unless `bound=` gives it."""
+    stage = stencil.remap_stage(map_x, map_y, bound=bound, extend=extend)
+    return stencil.fused_chain(img, (stage,), mode=mode, lc=lc)
+
+
+def resize_half(
+    img: torch.Tensor, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+) -> torch.Tensor:
+    """2x downsample by 2x2 mean as one launch (out = floor(size/2)).  The
+    input dtype is kept: u8 is rounded and saturated (OpenCV
+    saturate_cast), not promoted to f32."""
+    return stencil.fused_chain(img, (stencil.resize2_stage(),), mode=mode, lc=lc)
 
 
 def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,6 @@
 """Public ops (the counterpart of `repro.kernels.ops`): the image ops, each
 one launch of the fused stencil engine, the BoW and GBDT kernels, and
-`flash_attention`.  `pyr_up` and `sobel` are queued with their slices
-(ROADMAP)."""
+`flash_attention`.  `pyr_up` is queued with its slice (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -25,8 +24,12 @@ from .stencil import (  # noqa: F401
     gaussian_stage,
     grad_stage,
     pyr_down_stage,
+    remap_stage,
+    resize2_stage,
     sep_filter_stage,
+    sobel_stage,
     threshold_stage,
+    warp_affine_stage,
 )
 
 
@@ -56,6 +59,14 @@ def box_blur(
 ) -> torch.Tensor:
     """OpenCV blur(): normalised (2r+1)^2 box filter."""
     return fused_chain(img, (box_stage(r),), mode=mode, lc=lc)
+
+
+def sobel(
+    img: torch.Tensor, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """OpenCV Sobel ksize=3 pair: (dx, dy), widened f32 whatever the input
+    dtype, in one launch."""
+    return fused_chain(img, (sobel_stage(),), mode=mode, lc=lc)
 
 
 def gaussian_blur(

@@ -7,24 +7,31 @@ chain's accumulated halo and every stage is a valid-mode op), vectorised
 over planes.  Border policy: BORDER_REPLICATE.
 
 Carried over so far: ``filter2d``, ``sep_filter``, ``box``, ``erode``,
-``dilate``, ``threshold``, ``affine``, single-band ``grad_mag`` and the
-strided ``pyr_down`` stages in ``map`` and ``tap`` modes, on a u8 or f32
-carrier.  Each band is tracked with the image coordinate of its local
-origin, so a strided stage decimates on image-even rows and columns
-(OpenCV pyrDown alignment) however much halo the band still carries.  On u8 every stage
-widens to f32 and packs back with round-half-even and a clip to [0, 255]
-(OpenCV's saturate_cast), as the JAX oracle's `_saturate` does.  The JAX
-oracle's other stage ops raise `NotImplementedError` until their slice
-lands.  Beside the stencil oracle: the BoW and GBDT oracles and
-`attention_ref`.
+``dilate``, ``threshold``, ``affine``, ``grad_mag`` (single-band central
+differences, and the pair reduction after a Sobel), ``sobel`` (emits a
+widened f32 (dx, dy) pair), the strided ``pyr_down`` and ``resize2``, and
+the bilinear gathers ``warp_affine`` and ``remap``, in ``map``, ``tap``,
+``emit`` and ``reduce`` modes, on a u8 or f32 carrier.  Each band is
+tracked with the image coordinate of its local origin, so a strided stage
+decimates on image-even rows and columns (OpenCV pyrDown alignment) and a
+gather samples at absolute image coordinates however much halo the band
+still carries, and with its own dtype (a Sobel pair is f32 on a u8 chain).
+On u8 every stage widens to f32 and packs back to its band's dtype with
+round-half-even and a clip to [0, 255] (OpenCV's saturate_cast), as the
+JAX oracle's `_saturate` does.  ``pyr_up`` raises `NotImplementedError`
+until its slice lands.  Beside the stencil oracle: the BoW and GBDT oracles
+and `attention_ref`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 SUPPORTED_OPS = (
     "filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "affine", "grad_mag", "pyr_down",
+    "resize2", "sobel", "warp_affine", "remap",
 )
 CARRIERS = (torch.uint8, torch.float32)
 
@@ -122,6 +129,12 @@ def dilate_ref(img: torch.Tensor, ksize: int) -> torch.Tensor:
     return _morph_ref(img, ksize, torch.maximum)
 
 
+def _gather_halo(by: float, bx: float) -> tuple[int, int]:
+    """Halo of a gather for a (row, col) displacement bound: floor(b) rows
+    of reach + 1 for the far bilinear tap."""
+    return int(math.floor(by)) + 1, int(math.floor(bx)) + 1
+
+
 def _stage_halo(s) -> tuple[int, int]:
     if s.op == "filter2d":
         kh, kw = s.weights[0].shape
@@ -131,39 +144,52 @@ def _stage_halo(s) -> tuple[int, int]:
         return ky.shape[0] // 2, kx.shape[0] // 2
     if s.op in ("erode", "dilate", "box"):
         return s.static[0], s.static[0]
-    if s.op == "grad_mag":
-        return 1, 1  # single-band central differences
+    if s.op in ("grad_mag", "sobel"):
+        return 1, 1  # single-band central differences; the Sobel 3x3
     if s.op == "pyr_down":
         return 2, 2
-    return 0, 0  # threshold, affine
+    if s.op == "warp_affine":
+        return _gather_halo(s.static[6], s.static[7])
+    if s.op == "remap":
+        by, bx, ey, ex = s.static
+        return _gather_halo(by + ey, bx + ex)
+    return 0, 0  # threshold, affine, resize2
 
 
 def out_hw(op: str, h: int, w: int) -> tuple[int, int]:
-    """Image size after one stage: pyrDown halves with ceil (OpenCV), every
-    other ported op keeps the size."""
+    """Image size after one stage: pyrDown halves with ceil (OpenCV),
+    resize2 with floor, every other ported op keeps the size."""
     if op == "pyr_down":
         return (h + 1) // 2, (w + 1) // 2
+    if op == "resize2":
+        return h // 2, w // 2
     return h, w
 
 
 def _walk(stages) -> list:
     """Band-arity walk, kept apart from `stencil.ir` so this stays an
-    independent oracle: per stage (mode, halo, stride, normalised tap)."""
+    independent oracle: per stage (mode, halo, stride, normalised tap).
+    A Sobel emits (replaces the last band with its pair); grad_mag over two
+    or more live bands reduces the last two to their magnitude."""
     out, n = [], 1
     for s in stages:
         if s.op not in SUPPORTED_OPS:
             raise NotImplementedError(f"chain_ref: stage op {s.op!r} is not ported yet")
-        if s.op == "grad_mag" and n >= 2:
-            raise NotImplementedError("chain_ref: the grad_mag pair reduction is not ported yet")
         tap = getattr(s, "tap", None)
         stride = tuple(getattr(s, "stride", (1, 1)))
-        if tap is None:
+        if s.op == "sobel":
+            out.append(("emit", (1, 1), stride, None))
+            n += 1
+        elif s.op == "grad_mag" and n >= 2:
+            out.append(("reduce", (0, 0), stride, None))
+            n -= 1
+        elif tap is None:
             out.append(("map", _stage_halo(s), stride, None))
-            continue
-        if not -n <= tap < n:
-            raise ValueError(f"chain_ref: stage {s.op!r} tap={tap} out of range for {n} band(s)")
-        out.append(("tap", _stage_halo(s), stride, tap % n))
-        n += 1
+        else:
+            if not -n <= tap < n:
+                raise ValueError(f"chain_ref: stage {s.op!r} tap={tap} out of range for {n} band(s)")
+            out.append(("tap", _stage_halo(s), stride, tap % n))
+            n += 1
     return out
 
 
@@ -222,6 +248,84 @@ def _valid_op(s, x: torch.Tensor, ph: int, pw: int, carrier: torch.dtype) -> tor
     return pack(sqrt_rn(dx * dx + dy * dy), carrier)
 
 
+def sobel_pair(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Valid-mode Sobel ksize=3 pair of (N, h + 2, w + 2) f32 planes: dx =
+    [1,2,1]^T (x) [-1,0,1] and dy its transpose, as the column difference
+    and the column sum (x[j-1] + x[j+1]) + 2 x[j] of each row, then
+    (cd[i-1] + 2 cd[i]) + cd[i+1] and cs[i+1] - cs[i-1].  Widened f32:
+    never packed to the carrier."""
+    h = x.shape[-2] - 2
+    cd = x[..., :, 2:] - x[..., :, :-2]
+    cs = (x[..., :, :-2] + x[..., :, 2:]) + 2.0 * x[..., :, 1:-1]
+    dx = (cd[..., 0:h, :] + 2.0 * cd[..., 1 : 1 + h, :]) + cd[..., 2 : 2 + h, :]
+    dy = cs[..., 2 : 2 + h, :] - cs[..., 0:h, :]
+    return dx, dy
+
+
+def resize2_valid(x: torch.Tensor, oy: int, ox: int) -> tuple:
+    """2x2 mean of (N, r, c) f32 planes whose local origin sits at image (oy,
+    ox): pairs start on image-even rows and columns, (x00 + x10) + (x01 +
+    x11), then * 0.25.  -> (means, origin of the decimated band)."""
+    s0, s1 = (-oy) % 2, (-ox) % 2
+    m, mw = (x.shape[-2] - s0) // 2, (x.shape[-1] - s1) // 2
+    rs = x[..., s0 : s0 + 2 * m : 2, :] + x[..., s0 + 1 : s0 + 1 + 2 * m : 2, :]
+    cs = rs[..., s1 : s1 + 2 * mw : 2] + rs[..., s1 + 1 : s1 + 1 + 2 * mw : 2]
+    return cs * 0.25, (oy + s0) // 2, (ox + s1) // 2
+
+
+def affine_coords(m, yy: torch.Tensor, xx: torch.Tensor) -> tuple:
+    """Source coordinates of an inverse-map affine at integer image
+    coordinates: M rounded to f32, then ``x*m00 + y*m01 + m02`` as two
+    rounded products and two rounded sums, in that order (the kernels'
+    ``__fmul_rn`` / ``__fadd_rn``).  -> (sy, sx)."""
+    dev = xx.device
+    m00, m01, m02, m10, m11, m12 = (_f32(v, dev) for v in m[:6])
+    yf, xf = yy.to(torch.float32), xx.to(torch.float32)
+    sx = (xf * m00 + yf * m01) + m02
+    sy = (xf * m10 + yf * m11) + m12
+    return sy, sx
+
+
+def bilinear(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor, oy: int, ox: int):
+    """Bilinear sample of (N, r, c) f32 planes (local origin at image (oy,
+    ox)) at image coordinates (sy, sx) of shape (h, w): floor and frac of
+    the *global* coordinate, taps clamped into the band, ``top = v00 + (v01
+    - v00)*fx``, ``bot`` likewise, ``top + (bot - top)*fy``."""
+    iy, ix = torch.floor(sy), torch.floor(sx)
+    fy, fx = sy - iy, sx - ix
+    ly = torch.clamp(iy.to(torch.int64) - oy, 0, x.shape[-2] - 2)
+    lx = torch.clamp(ix.to(torch.int64) - ox, 0, x.shape[-1] - 2)
+    flat = x.reshape(*x.shape[:-2], -1)
+    c = x.shape[-1]
+
+    def take(dy, dx):
+        idx = ((ly + dy) * c + (lx + dx)).reshape(-1)
+        return flat[..., idx].reshape(*x.shape[:-2], *sy.shape)
+
+    v00, v01, v10, v11 = take(0, 0), take(0, 1), take(1, 0), take(1, 1)
+    top = v00 + (v01 - v00) * fx
+    bot = v10 + (v11 - v10) * fx
+    return top + (bot - top) * fy
+
+
+def _gather(s, b: torch.Tensor, oy: int, ox: int, hy: int, hx: int) -> torch.Tensor:
+    """One gather stage on (N, r, c) planes: evaluate the dst -> src map at
+    the output's absolute image coordinates and sample bilinearly; remap's
+    out-of-image lookups clamp to the map edge."""
+    h, w = b.shape[-2] - 2 * hy, b.shape[-1] - 2 * hx
+    dev = b.device
+    yy = (oy + hy + torch.arange(h, device=dev))[:, None]
+    xx = (ox + hx + torch.arange(w, device=dev))[None, :]
+    if s.op == "warp_affine":
+        sy, sx = affine_coords(s.static, yy.expand(h, w), xx.expand(h, w))
+    else:
+        map_x, map_y = (m.to(device=dev, dtype=torch.float32) for m in s.weights)
+        hm, wm = map_y.shape
+        yc, xc = yy.clamp(0, hm - 1), xx.clamp(0, wm - 1)
+        sy, sx = map_y[yc, xc], map_x[yc, xc]
+    return bilinear(b, sy, sx, oy, ox)
+
+
 def pad_replicate(planes: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     """Edge-pad the last two axes by (ph, pw) per side."""
     h, w = planes.shape[-2:]
@@ -231,11 +335,12 @@ def pad_replicate(planes: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def chain_ref_planes(planes: torch.Tensor, stages) -> tuple:
-    """(N, H, W) u8 or f32 planes -> tuple of (N, h_b, w_b) output bands of
-    the same dtype: (H, W) for a full-resolution band, (ceil(H/2),
-    ceil(W/2)) after a pyrDown.  The bands are held in f32 between stages,
-    each holding values of the carrier, with the image coordinate of their
-    local origin."""
+    """(N, H, W) u8 or f32 planes -> tuple of (N, h_b, w_b) output bands:
+    (H, W) for a full-resolution band, (ceil(H/2), ceil(W/2)) after a
+    pyrDown, (H//2, W//2) after a resize2; each of its own dtype (the
+    carrier, or f32 for a Sobel pair).  The bands are held in f32 between
+    stages, each holding values of its dtype, with the image coordinate of
+    its local origin."""
     carrier = planes.dtype
     if carrier not in CARRIERS:
         raise NotImplementedError(f"chain_ref: u8 and f32 carriers only, got {carrier}")
@@ -255,33 +360,51 @@ def chain_ref_planes(planes: torch.Tensor, stages) -> tuple:
             h_fin, w_fin = out_hw(s.op, h_fin, w_fin)
     sizes = [(h_fin, w_fin)]
     for s, (mode, *_rest) in zip(stages, walk):
-        if mode == "tap":
+        if mode == "emit":
+            sizes = sizes[:-1] + [(h_fin, w_fin)] * 2
+        elif mode == "reduce":
+            sizes = sizes[:-2] + [(h_fin, w_fin)]
+        elif mode == "tap":
             sizes.append(out_hw(s.op, h_fin, w_fin))
 
-    def apply(s, ph, pw, stride, b, oy, ox):
-        new = _valid_op(s, b, ph, pw, carrier)
+    def apply(s, ph, pw, stride, b, oy, ox, dt):
+        """A band is (f32 planes, origin row, origin col, dtype)."""
+        if s.op == "resize2":
+            new, oy, ox = resize2_valid(b, oy, ox)
+            return pack(new, dt), oy, ox, dt
+        if s.op in ("warp_affine", "remap"):
+            return pack(_gather(s, b, oy, ox, ph, pw), dt), oy + ph, ox + pw, dt
+        new = _valid_op(s, b, ph, pw, dt)
         oy, ox = oy + ph, ox + pw
         if stride != (1, 1):
             s0, s1 = (-oy) % stride[0], (-ox) % stride[1]
             new = new[..., s0 :: stride[0], s1 :: stride[1]]
             oy, ox = (oy + s0) // stride[0], (ox + s1) // stride[1]
-        return new, oy, ox
+        return new, oy, ox, dt
 
-    def crop(b, oy, ox, ph, pw):
-        return b[..., ph : b.shape[-2] - ph, pw : b.shape[-1] - pw], oy + ph, ox + pw
+    def crop(b, oy, ox, dt, ph, pw):
+        return b[..., ph : b.shape[-2] - ph, pw : b.shape[-1] - pw], oy + ph, ox + pw, dt
 
-    bands = [(pad_replicate(planes, ph_acc, pw_acc).to(torch.float32), -ph_acc, -pw_acc)]
+    bands = [(pad_replicate(planes, ph_acc, pw_acc).to(torch.float32), -ph_acc, -pw_acc, carrier)]
     for s, (mode, (ph, pw), stride, tap) in zip(stages, walk):
-        if mode == "tap":
+        if mode == "emit":
+            b, oy, ox, _ = bands[-1]
+            dx, dy = sobel_pair(b)
+            bands = [crop(*c, ph, pw) for c in bands[:-1]]
+            bands += [(dx, oy + 1, ox + 1, torch.float32), (dy, oy + 1, ox + 1, torch.float32)]
+        elif mode == "reduce":
+            (a, oy, ox, _), (b, _, _, _) = bands[-2], bands[-1]
+            bands = bands[:-2] + [(pack(sqrt_rn(a * a + b * b), carrier), oy, ox, carrier)]
+        elif mode == "tap":
             new = apply(s, ph, pw, stride, *bands[tap])
             bands = [crop(*b, ph, pw) for b in bands] + [new]
         else:
             bands = [apply(s, ph, pw, stride, *b) for b in bands]
     outs = []
-    for (b, oy, ox), (hk, wk) in zip(bands, sizes):
+    for (b, oy, ox, dt), (hk, wk) in zip(bands, sizes):
         if oy > 0 or ox > 0:
             raise AssertionError("chain_ref: halo over-consumed")
-        outs.append(b[..., -oy : -oy + hk, -ox : -ox + wk].to(carrier))
+        outs.append(b[..., -oy : -oy + hk, -ox : -ox + wk].to(dt))
     return tuple(outs)
 
 

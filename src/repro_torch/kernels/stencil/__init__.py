@@ -10,7 +10,8 @@ column tile, row segment), carrying rows from step to step in
 shared-memory rings).  Border semantics are the JAX package's extended
 domain: the input is edge-padded once by the chain's accumulated halo and
 every stage is a valid-mode op (`kernels.ref.chain_ref`), on a u8 or f32
-carrier.
+carrier; a Sobel pair is f32 whatever the carrier, and a gather
+(warp_affine, remap) samples at absolute image coordinates.
 
 Modules: `ir` (Stage IR and the band-arity walk), `plan` (halo, row walk,
 carry plan, ring layout, tile width, row segments), `exec_window` and
@@ -21,6 +22,7 @@ carry plan, ring layout, tile width, row segments), `exec_window` and
 from .driver import MODES, fused_chain, resolve_mode
 from .ir import (
     Stage,
+    affine_disp_bound,
     affine_stage,
     box_stage,
     dilate_stage,
@@ -29,21 +31,27 @@ from .ir import (
     gaussian_stage,
     grad_stage,
     pyr_down_stage,
+    remap_stage,
+    resize2_stage,
     resolve_chain,
     sep_filter_stage,
+    sobel_stage,
     threshold_stage,
+    warp_affine_stage,
 )
 from .plan import (
     chain_accumulated_halo,
     chain_halo,
     chain_iface,
     chain_stream_plan,
+    gather_metas,
     stage_out_hw,
 )
 
 __all__ = [
     "MODES",
     "Stage",
+    "affine_disp_bound",
     "affine_stage",
     "box_stage",
     "chain_accumulated_halo",
@@ -54,12 +62,17 @@ __all__ = [
     "erode_stage",
     "filter_stage",
     "fused_chain",
+    "gather_metas",
     "gaussian_stage",
     "grad_stage",
     "pyr_down_stage",
+    "remap_stage",
+    "resize2_stage",
     "resolve_chain",
     "resolve_mode",
     "sep_filter_stage",
+    "sobel_stage",
     "stage_out_hw",
     "threshold_stage",
+    "warp_affine_stage",
 ]

@@ -59,9 +59,12 @@ def fused_chain(
     img: (H, W), (H, W, C) or (B, H, W, C), u8 or f32, on the device it
     runs on.  tile_w: the column-tile width of mode "tiled2d" only.
     Returns one array when the chain ends with one live band, else a tuple
-    (one per band, e.g. a Gaussian ladder's scales).  A band a pyrDown made
-    is (ceil(H/2), ceil(W/2)) where the input is (H, W); a pyrDown stage
-    must be the chain's last on the kernels (`plan.kernel_walk`)."""
+    (one per band, e.g. a Gaussian ladder's scales or a Sobel pair).  A
+    band a pyrDown made is (ceil(H/2), ceil(W/2)) where the input is (H,
+    W), one a resize2 made (H//2, W//2); a strided stage must be the
+    chain's last on the kernels (`plan.kernel_walk`).  A band has the
+    input's dtype, but a Sobel pair is f32.  A remap stage's map planes
+    go to the kernel as they lie: on the image's device."""
     stages = tuple(stages)
     if not stages:
         return img

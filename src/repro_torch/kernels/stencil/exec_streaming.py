@@ -11,12 +11,16 @@ no stage's halo is recomputed from step to step.  See
 
 `compile_stream` turns a chain and `LaunchConfig.stream_rows` into the
 kernel's program: `plan.stream_layout`'s streams with their ring offsets
-and depths, and one step per stage application.  `stream_geometry` picks
-the column tile and the row segments of a launch.  A strided last stage
-(pyrDown) is planned at full resolution; its step computes the image-even
-rows and columns of each step's rows and stores them straight to the
-half-resolution output, so step rows, segment starts and column tiles are
-all even.
+and depths, and one step per stage application (a Sobel writes two
+streams, the pair reduction reads two; the bands a Sobel passes by wait
+in their own rings, as the bands of a tap stage do).  `stream_geometry`
+picks the column tile and the row segments of a launch.  A strided last
+stage (pyrDown, resize2) is planned at full resolution; its step computes
+the image-even rows and columns of each step's rows and stores them
+straight to the decimated output, so step rows, segment starts and column
+tiles are all even.  A gather's ring holds its source rows up to the
+displacement halo on each side; it samples at the absolute image row of
+the ring and the image column ``co0 + t*cstep`` of tile t's column 0.
 """
 
 from __future__ import annotations
@@ -33,15 +37,18 @@ from . import plan
 from .exec_window import (
     MAX_STEPS,
     MAX_WEIGHTS,
+    Bands,
     band_outputs,
     check_planes,
     check_ported,
     chain_key,
     stage_params,
-    store_slots,
 )
 
-_STEP_FIELDS = ("op", "src", "dst", "kh", "kw", "wx", "wy", "rw", "lead", "store", "down")
+_STEP_FIELDS = (
+    "op", "src", "src2", "dst", "dst2", "kh", "kw", "wx", "wy", "rw", "lead", "store", "store2",
+    "down", "pk",
+)
 _STREAM_FIELDS = ("depth", "offset", "store")
 # threads of a block: its rings leave room for about one block per SM, so it
 # takes more than the other kernels (scripts/torch_stencil_sweep.py)
@@ -74,23 +81,24 @@ class _Program(ctypes.Structure):
 
 
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_stream_launch(in, out, out_half, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
+# stencil_stream_launch(in, bands*, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
 #                       threads, u8, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
 class StreamProgram:
     """A chain compiled for `stencil_stream`: steps and streams as field
-    dicts, the flat weights, the ring layout and the rows of shared memory
-    (rings + scratch) one block needs per column of its tile window."""
+    dicts, the flat weights, the ring layout, the rows of shared memory
+    (rings + scratch) one block needs per column of its tile window, and
+    each output band's ``(dtype, strided op)`` (`plan.band_meta`)."""
 
     steps: tuple
     streams: tuple
     weights: tuple
     layout: plan.StreamLayout
     scratch: int
-    downs: tuple
+    bands: tuple
 
     @property
     def halo(self) -> tuple:
@@ -98,8 +106,8 @@ class StreamProgram:
 
     @property
     def down(self) -> tuple:
-        """(row, col) stride product: a pyrDown band's 2 both ways, else 1."""
-        return (max(self.downs),) * 2
+        """(row, col) stride product: a decimated band's 2 both ways, else 1."""
+        return (2, 2) if any(op for _dt, op in self.bands) else (1, 1)
 
     @property
     def n_bands(self) -> int:
@@ -128,20 +136,21 @@ class StreamProgram:
 
 
 def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> StreamProgram:
-    """Plan the kernel's streams and steps for a chain of the ported stages
-    in map and tap modes, `rows` output rows per step."""
+    """Plan the kernel's streams and steps for a chain of the ported
+    stages, `rows` output rows per step."""
     resolved = check_ported(stages, "stencil_stream")
     plan.check_strides(plan.stride_product(stages), rows, 0)
     layout = plan.stream_layout(stages, rows)
     if len(layout.apps) > MAX_STEPS:
         raise ValueError(f"stencil_stream: {len(layout.apps)} steps exceed the table's {MAX_STEPS}")
     weights: list = []
-    params = [stage_params(s, weights, carrier) for s in stages]
+    maps: list = []
+    params = [
+        stage_params(s, r[1], r[2], weights, maps) for s, r in zip(stages, resolved)
+    ]
     if len(weights) > MAX_WEIGHTS:
         raise ValueError(f"stencil_stream: {len(weights)} weights exceed the table's {MAX_WEIGHTS}")
-    downs = tuple(plan.band_downs(stages))
-    slot_of = store_slots(downs)
-    band_of = {s: slot_of[b] for b, s in enumerate(layout.outs)}
+    band_of = {s: b for b, s in enumerate(layout.outs)}
     streams, offset = [], 0
     for s, depth in enumerate(layout.depths):
         buffered_out = s in band_of and depth > 0
@@ -151,20 +160,26 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
         offset += depth
     # column halo the source still carries before stage k: the halos of k..end
     col_halo = [sum(r[2][1] for r in resolved[k:]) for k in range(len(resolved))]
+    walk = plan.band_walk(stages, carrier)
     steps = []
-    for k, src, dst in layout.apps:
-        direct = layout.depths[dst] == 0
+    for k, srcs, dsts in layout.apps:
+        direct = [layout.depths[d] == 0 for d in dsts]
         st = dict.fromkeys(_STEP_FIELDS, 0)
         st.update(params[k])
         st.update(
-            src=src,
-            dst=-1 if direct else dst,
+            src=srcs[0],
+            src2=srcs[-1],
+            dst=-1 if direct[0] else dsts[0],
+            dst2=-1 if direct[-1] else dsts[-1],
             rw=col_halo[k],
-            lead=layout.leads[dst],
-            store=band_of[dst] if direct else -1,
+            lead=layout.leads[dsts[0]],
+            store=band_of[dsts[0]] if direct[0] else -1,
+            store2=band_of[dsts[-1]] if len(dsts) > 1 and direct[-1] else -1,
+            pk=int(walk.meta[dsts[0]][0] == torch.uint8),
         )
         steps.append(st)
-    return StreamProgram(tuple(steps), tuple(streams), tuple(weights), layout, offset, downs)
+    bands = tuple(walk.meta[i] for i in walk.outs)
+    return StreamProgram(tuple(steps), tuple(streams), tuple(weights), layout, offset, bands)
 
 
 @dataclass(frozen=True)
@@ -251,6 +266,8 @@ def _launcher():
     lib = _build.library("stencil_stream")
     if lib.stencil_stream_program_bytes() != PROGRAM_BYTES:
         raise RuntimeError("stencil_stream: StreamProgram layout differs between C and Python")
+    if lib.stencil_bands_bytes() != ctypes.sizeof(Bands):
+        raise RuntimeError("stencil_stream: Bands layout differs between C and Python")
     fn = lib.stencil_stream_launch
     fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
@@ -271,31 +288,31 @@ def stencil_stream(
     tiled: bool = False,
     tile_w: int | None = None,
 ) -> tuple:
-    """(N, H, W) u8 or f32 planes -> tuple of output bands of the same
-    dtype, in one launch: (N, H, W) each, or (N, ceil(H/2), ceil(W/2)) for
-    a band a pyrDown made.
+    """(N, H, W) u8 or f32 planes -> tuple of output bands in one launch:
+    (N, H, W) each, or decimated for a band a pyrDown (ceil) or resize2
+    (floor) made; of the carrier's dtype, f32 for a Sobel pair.
 
     The chain is planned first on every device (an untiled chain whose
-    rings exceed `lc.smem_budget` raises `ValueError`).  Then a CPU tensor
-    runs the plain version; any other tensor launches the kernel or
-    raises."""
+    rings exceed `lc.smem_budget` raises `ValueError`, as does a gather
+    whose displacement bound is too small).  Then a CPU tensor runs the
+    plain version; any other tensor launches the kernel or raises."""
     stages = tuple(stages)
     prog, table = program(stages, lc.stream_rows, planes.dtype, planes.device)
     sms = 132
     if planes.is_cuda:
         sms = torch.cuda.get_device_properties(planes.device).multi_processor_count
     geom = stream_geometry(prog, tuple(planes.shape), lc, tiled=tiled, tile_w=tile_w, sms=sms)
+    plan.check_gathers(stages, planes.shape[-2:], lc.stream_rows, geom.tile_w)
     if planes.device.type == "cpu":
         return stencil_stream_plain(planes, stages)
     fn = _launcher()
     check_planes("stencil_stream", planes)
     N, H, W = planes.shape
-    full, half, bands = band_outputs(planes, prog.downs)
+    outs, bands = band_outputs(planes, prog.bands, stages)
     with torch.cuda.device(planes.device):
         err = fn(
             planes.data_ptr(),
-            full.data_ptr(),
-            half.data_ptr(),
+            ctypes.addressof(bands),
             table.data_ptr(),
             N,
             H,
@@ -311,4 +328,4 @@ def stencil_stream(
         )
     _build.check(err, "stencil_stream")
     counters.LAUNCHES["stencil_stream"] += 1
-    return bands
+    return outs

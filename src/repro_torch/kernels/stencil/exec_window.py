@@ -10,11 +10,17 @@ per (plane, output tile) loads the tile's window, clamping coordinates only
 on that read, and runs the chain there; see ``csrc/stencil_chain.cu``.
 
 `compile_chain` turns a chain into the kernel's step table: which
-shared-memory slot each stage reads and writes, which halo the source band
-still carries, and after which step each output band is final and stored.
-A strided last stage (pyrDown) computes only the image-even rows and
-columns of the tile and stores them straight to the half-resolution
-output; tiles then start on even rows and columns.
+shared-memory slots each stage reads and writes (a Sobel writes two, the
+pair reduction reads two), which halo the source band still carries,
+whether the step packs its result to u8, and which output bands are final
+after the step and stored.  Every output band has a buffer of its own
+dtype and size (`band_outputs`): the carrier's, or f32 for a Sobel pair.
+A strided last stage (pyrDown, resize2) computes only the image-even rows
+and columns of the tile and stores them straight to its decimated output;
+tiles then start on even rows and columns.  A gather (warp_affine, remap)
+samples its source band at absolute image coordinates, the window's
+origin (tile origin minus the pad) plus the window index; remap's map
+planes are read from device memory.
 """
 
 from __future__ import annotations
@@ -30,8 +36,9 @@ from .. import _build, counters, ref
 from .plan import (
     SEPARABLE_OPS,
     aligned_pad,
-    band_downs,
+    band_walk,
     chain_accumulated_halo,
+    check_gathers,
     kernel_walk,
     stage_out_hw,
     stride_product,
@@ -39,7 +46,10 @@ from .plan import (
 
 MAX_STEPS = 32
 MAX_WEIGHTS = 512
-# stage op -> the kernels' op code (csrc/stencil_ops.cuh `stencil::Op`)
+MAX_BANDS = 16
+MAX_MAPS = 4
+# stage op -> the kernels' op code (csrc/stencil_ops.cuh `stencil::Op`);
+# grad_mag in reduce mode is the pair magnitude, GRAD_PAIR
 OP_CODES = {
     "sep_filter": 0,
     "erode": 1,
@@ -50,10 +60,18 @@ OP_CODES = {
     "threshold": 7,
     "affine": 8,
     "pyr_down": 9,
+    "sobel": 10,
+    "resize2": 12,
+    "warp_affine": 13,
+    "remap": 14,
 }
 _STORE = 3
+GRAD_PAIR = 11
 CARRIERS = (torch.uint8, torch.float32)
-_STEP_FIELDS = ("op", "src", "dst", "tmp", "kh", "kw", "wx", "wy", "rh", "rw", "store", "down")
+_STEP_FIELDS = (
+    "op", "src", "src2", "dst", "dst2", "tmp", "kh", "kw", "wx", "wy", "rh", "rw", "store",
+    "store2", "down", "pk",
+)
 
 
 class _Step(ctypes.Structure):
@@ -71,28 +89,47 @@ class _Program(ctypes.Structure):
     ]
 
 
+class Bands(ctypes.Structure):
+    """Mirror of ``stencil::Bands`` in csrc/stencil_ops.cuh: each output
+    band's buffer, dtype and (h, w), and each remap stage's map planes
+    (map_x, map_y), passed to the kernel by value."""
+
+    _fields_ = [
+        ("out", ctypes.c_void_p * MAX_BANDS),
+        ("maps", ctypes.c_void_p * (2 * MAX_MAPS)),
+        ("u8", ctypes.c_int * MAX_BANDS),
+        ("h", ctypes.c_int * MAX_BANDS),
+        ("w", ctypes.c_int * MAX_BANDS),
+    ]
+
+
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_chain_launch(in, out, out_half, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots,
-#                      threads, u8, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# stencil_chain_launch(in, bands*, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, u8,
+#                      stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
 class ChainProgram:
     """A chain compiled for the kernel: steps as field dicts, the flat tap
-    weights, the shared-memory slots it needs, each output band's
-    decimation (1, or 2 after a pyrDown) and the window's pad: the chain's
+    weights, the shared-memory slots it needs, each output band's ``(dtype,
+    strided op)`` (`plan.band_meta`) and the window's pad: the chain's
     accumulated halo, aligned to its stride product."""
 
     steps: tuple
     weights: tuple
     n_slots: int
-    downs: tuple
+    bands: tuple
     halo: tuple
 
     @property
     def n_bands(self) -> int:
-        return len(self.downs)
+        return len(self.bands)
+
+    @property
+    def downs(self) -> tuple:
+        """Each band's decimation: 2 after a pyrDown or resize2, else 1."""
+        return tuple(1 if op is None else 2 for _dt, op in self.bands)
 
     def packed(self) -> bytes:
         p = _Program(n_steps=len(self.steps))
@@ -105,32 +142,31 @@ class ChainProgram:
 
 def check_ported(stages, kernel: str) -> list:
     """The chain's `plan.kernel_walk`; raise `NotImplementedError` for a
-    stage the kernels do not run yet."""
+    stage the kernels do not run yet (an upsample, a strided stage before
+    the last, more remap stages or output bands than the tables hold)."""
     resolved = kernel_walk(stages)
     for op, mode, _, _, up, *_ in resolved:
-        if op not in OP_CODES or mode not in ("map", "tap") or up != (1, 1):
+        if op not in OP_CODES or up != (1, 1):
             raise NotImplementedError(f"{kernel}: {op!r} in {mode!r} mode is not ported to the kernel yet")
+    n_bands = resolved[-1][6] if resolved else 1
+    if n_bands > MAX_BANDS or sum(s.op == "remap" for s in stages) > MAX_MAPS:
+        raise NotImplementedError(
+            f"{kernel}: at most {MAX_BANDS} output bands and {MAX_MAPS} remap stages a launch"
+        )
     return resolved
 
 
-def store_slots(downs) -> list:
-    """Each band's index in its output: full-resolution bands in one
-    buffer, decimated bands in the other, each in band order."""
-    seen = {1: 0, 2: 0}
-    out = []
-    for d in downs:
-        out.append(seen[d])
-        seen[d] += 1
-    return out
-
-
-def stage_params(s, weights: list, carrier: torch.dtype) -> dict:
+def stage_params(s, mode: str, halo: tuple, weights: list, maps: list) -> dict:
     """One stage's op code, extents and the offsets of its taps or scalars,
-    appending them to `weights` (the step table's shared weight array).
-    Threshold's maxval goes in as the carrier holds it (packed on u8)."""
-    hy, hx = s.halo
+    appending them to `weights` (the step table's shared weight array; an
+    affine warp's M goes in rounded to f32).  Threshold's maxval goes in as
+    it is: the step packs it to its band's dtype as it packs any result.  A
+    remap's `wx` is the index of its map planes in `maps`, which it is
+    appended to."""
+    hy, hx = halo
     kh, kw = 2 * hy + 1, 2 * hx + 1
     wx = wy = len(weights)
+    op = GRAD_PAIR if mode == "reduce" else OP_CODES[s.op]
     if s.op in ("sep_filter", "pyr_down"):
         kx, ky = s.weights if s.op == "sep_filter" else s.weights * 2
         if (len(ky), len(kx)) != (kh, kw):
@@ -145,25 +181,26 @@ def stage_params(s, weights: list, carrier: torch.dtype) -> dict:
     elif s.op == "box":
         weights.append(float(torch.tensor(1.0 / (kh * kw), dtype=torch.float32)))
     elif s.op == "threshold":
-        t, maxval = s.static
-        weights += [t, ref.pack(torch.tensor(maxval), carrier).item()]
+        weights += list(s.static)
     elif s.op == "affine":
         weights += list(s.static)
-    return {"op": OP_CODES[s.op], "kh": kh, "kw": kw, "wx": wx, "wy": wy, "down": s.stride[0]}
+    elif s.op == "warp_affine":
+        weights += list(s.static[:6])
+    elif s.op == "remap":
+        wx = len(maps)
+        maps.append(s)
+    return {"op": op, "kh": kh, "kw": kw, "wx": wx, "wy": wy, "down": s.stride[0]}
 
 
 def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
-    """Plan the kernel's steps for a chain of the ported stages in map and
-    tap modes (others raise `NotImplementedError`)."""
+    """Plan the kernel's steps for a chain of the ported stages (others
+    raise `NotImplementedError`).  Slot 0 holds the input window; each band
+    takes a slot from its step until the last stage that reads it, and is
+    stored by the step that makes it when it is an output band."""
     resolved = check_ported(stages, "stencil_chain")
     ph_acc, pw_acc = chain_accumulated_halo(stages)
-    downs = band_downs(stages)
-    slot_of = store_slots(downs)
-    last_map = max((k for k, r in enumerate(resolved) if r[1] == "map"), default=-1)
-
-    def needed_after(k: int, band: int) -> bool:
-        return any(r[1] == "map" or r[7] == band for r in resolved[k + 1 :])
-
+    walk = band_walk(stages, carrier)
+    final = {d: b for b, d in enumerate(walk.outs)}
     in_use = [True]  # slot 0 holds the input window
 
     def alloc() -> int:
@@ -174,41 +211,37 @@ def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
         in_use.append(True)
         return len(in_use) - 1
 
-    steps, weights = [], []
-    bands = [0]  # slot of each live band
-    rh, rw = ph_acc, pw_acc
-
     def step(**kw) -> dict:
-        st = dict.fromkeys(_STEP_FIELDS, 0) | {"down": 1}
+        st = dict.fromkeys(_STEP_FIELDS, 0) | {"down": 1, "store": -1, "store2": -1}
         st.update(kw)
         return st
 
-    if last_map < 0:  # band 0 is the input itself, final from the start
-        steps.append(step(op=_STORE, rh=rh, rw=rw, store=0))
-    for k, (s, (op, mode, (hy, hx), *_rest, tap)) in enumerate(zip(stages, resolved)):
-        params = stage_params(s, weights, carrier)
-        for b in range(len(bands)) if mode == "map" else [tap]:
-            # a pyrDown stores straight from its column pass: no dst slot
-            src, dst = bands[b], alloc() if params["down"] == 1 else -1
-            tmp = alloc() if op in SEPARABLE_OPS else dst
-            if mode == "map":
-                store = slot_of[b] if k == last_map else -1
-            else:
-                store = slot_of[len(bands)] if k > last_map else -1
-            steps.append(step(src=src, dst=dst, tmp=tmp, rh=rh, rw=rw, store=store, **params))
-            if tmp != dst:
+    steps, weights, maps = [], [], []
+    slot_of = {0: 0}
+    rh, rw = ph_acc, pw_acc
+    if 0 in final:  # the input band is an output as it is
+        steps.append(step(op=_STORE, rh=rh, rw=rw, store=final[0]))
+    for k, (s, (op, mode, (hy, hx), *_rest), stage) in enumerate(zip(stages, resolved, walk.apps)):
+        params = stage_params(s, mode, (hy, hx), weights, maps)
+        for srcs, dsts in stage:
+            # a strided stage stores straight from its last pass: no dst slot
+            dslots = [alloc() if params["down"] == 1 else -1 for _ in dsts]
+            tmp = alloc() if op in SEPARABLE_OPS else dslots[0]
+            src = [slot_of[i] for i in srcs]
+            steps.append(step(
+                src=src[0], src2=src[-1], dst=dslots[0], dst2=dslots[-1], tmp=tmp, rh=rh, rw=rw,
+                store=final.get(dsts[0], -1), store2=final.get(dsts[-1], -1) if len(dsts) > 1 else -1,
+                pk=int(walk.meta[dsts[0]][0] == torch.uint8), **params,
+            ))
+            if tmp != dslots[0]:
                 in_use[tmp] = False
-            new = dst if dst >= 0 else None
-            if mode == "map":
-                in_use[src] = False
-                bands[b] = new
-            else:
-                bands.append(new)
+            slot_of.update(zip(dsts, dslots))
+            for i in srcs:  # a map's source is replaced: free it at once
+                if walk.last_read[i] <= k and slot_of.get(i, -1) >= 0:
+                    in_use[slot_of.pop(i)] = False
         rh, rw = rh - hy, rw - hx
-        for b, slot in enumerate(bands):
-            if slot is not None and not needed_after(k, b):
-                in_use[slot] = False
-                bands[b] = None
+        for i in [i for i, sl in slot_of.items() if sl >= 0 and walk.last_read[i] <= k]:
+            in_use[slot_of.pop(i)] = False
     if len(steps) > MAX_STEPS or len(weights) > MAX_WEIGHTS:
         raise ValueError(
             f"stencil_chain: {len(steps)} steps / {len(weights)} weights exceed the "
@@ -216,14 +249,16 @@ def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
         )
     down_y, down_x = stride_product(stages)
     halo = (aligned_pad(ph_acc, down_y), aligned_pad(pw_acc, down_x))
-    return ChainProgram(tuple(steps), tuple(weights), len(in_use), tuple(downs), halo)
+    bands = tuple(walk.meta[i] for i in walk.outs)
+    return ChainProgram(tuple(steps), tuple(weights), len(in_use), bands, halo)
 
 
 def pick_tile(prog: ChainProgram, lc: LaunchConfig) -> tuple[int, int, int]:
     """Largest tile (halving from the configured one) whose window slots fit
     the block's shared-memory budget.  Returns (tile_h, tile_w, bytes).  A
     chain with a pyrDown needs even tiles, so that every tile starts on an
-    image-even row and column."""
+    image-even row and column.  The window is the tile plus the chain's
+    accumulated halo, the gathers' included."""
     down = max(prog.downs)
     th, tw = lc.tile_rows, lc.tile_cols
     if th % down or tw % down:
@@ -234,13 +269,22 @@ def pick_tile(prog: ChainProgram, lc: LaunchConfig) -> tuple[int, int, int]:
         if smem + PROGRAM_BYTES <= lc.smem_budget:
             return th, tw, smem
         if th == tw == down:
-            raise ValueError(f"stencil_chain: halo {prog.halo} does not fit shared memory")
+            raise ValueError(
+                f"stencil_chain: a {th}x{tw} tile under the halo {prog.halo} needs "
+                f"{smem + PROGRAM_BYTES} bytes of shared memory, over the budget of {lc.smem_budget}"
+            )
         th, tw = max(down, th // 2 // down * down), max(down, tw // 2 // down * down)
 
 
 def chain_key(stages) -> tuple:
+    """A chain's cache key: its ops, statics, taps and tap weights.  A
+    remap's map planes are bound at each launch, not in the program, so
+    only their shape enters."""
     return tuple(
-        (s.op, s.static, s.tap, tuple((tuple(w.shape), tuple(w.reshape(-1).tolist())) for w in s.weights))
+        (s.op, s.static, s.tap, tuple(
+            (tuple(w.shape), () if s.op == "remap" else tuple(w.reshape(-1).tolist()))
+            for w in s.weights
+        ))
         for s in stages
     )
 
@@ -266,6 +310,8 @@ def _launcher():
     lib = _build.library("stencil_chain")
     if lib.stencil_chain_program_bytes() != PROGRAM_BYTES:
         raise RuntimeError("stencil_chain: ChainProgram layout differs between C and Python")
+    if lib.stencil_bands_bytes() != ctypes.sizeof(Bands):
+        raise RuntimeError("stencil_chain: Bands layout differs between C and Python")
     fn = lib.stencil_chain_launch
     fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
@@ -288,29 +334,40 @@ def check_planes(name: str, planes: torch.Tensor) -> None:
         )
 
 
-def band_outputs(planes: torch.Tensor, downs) -> tuple:
-    """The two output buffers of a launch, (bands, N, H, W) at full
-    resolution and (bands, N, ceil(H/2), ceil(W/2)) after a pyrDown, and
-    the tuple of per-band views in band order."""
+def band_outputs(planes: torch.Tensor, bands, stages) -> tuple:
+    """One buffer per output band, (N, h_b, w_b) of the band's dtype ((H,
+    W), or `stage_out_hw` of the strided op that made it), and the `Bands`
+    table the kernel takes: those buffers and the remap stages' map planes,
+    which must lie on the planes' device as contiguous f32 (H, W)."""
     N, H, W = planes.shape
-    n_half = sum(d > 1 for d in downs)
-    full = torch.empty((len(downs) - n_half, N, H, W), dtype=planes.dtype, device=planes.device)
-    half = torch.empty(
-        (n_half, N, *stage_out_hw("pyr_down", H, W)), dtype=planes.dtype, device=planes.device
-    )
-    views = [(full if d == 1 else half)[i] for d, i in zip(downs, store_slots(downs))]
-    return full, half, tuple(views)
+    outs, table = [], Bands()
+    for b, (dt, op) in enumerate(bands):
+        h, w = stage_out_hw(op, H, W)
+        o = torch.empty((N, h, w), dtype=dt, device=planes.device)
+        outs.append(o)
+        table.out[b], table.u8[b], table.h[b], table.w[b] = o.data_ptr(), dt == torch.uint8, h, w
+    maps = [m for s in stages if s.op == "remap" for m in s.weights]
+    for i, m in enumerate(maps):
+        if m.device != planes.device or m.dtype != torch.float32 or not m.is_contiguous():
+            raise ValueError(
+                f"remap stage: map planes must be contiguous float32 on {planes.device}, got "
+                f"{m.dtype} on {m.device}"
+            )
+        table.maps[i] = m.data_ptr()
+    return tuple(outs), table
 
 
 def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> tuple:
-    """(N, H, W) u8 or f32 planes -> tuple of output bands of the same
-    dtype, in one launch: (N, H, W) each, or (N, ceil(H/2), ceil(W/2)) for
-    a band a pyrDown made.
+    """(N, H, W) u8 or f32 planes -> tuple of output bands in one launch:
+    (N, H, W) each, or decimated for a band a pyrDown (ceil) or resize2
+    (floor) made; of the carrier's dtype, f32 for a Sobel pair.
 
-    A CPU tensor runs the plain version; any other tensor launches the
-    kernel or raises.  Every plane size launches, planes smaller than the
-    chain's halo included."""
+    The gathers' displacement bounds are checked first (`plan.check_gathers`,
+    `ValueError`).  Then a CPU tensor runs the plain version; any other
+    tensor launches the kernel or raises.  Every plane size launches,
+    planes smaller than the chain's halo included."""
     stages = tuple(stages)
+    check_gathers(stages, planes.shape[-2:], lc.stream_rows)
     if planes.device.type == "cpu":
         return stencil_chain_plain(planes, stages)
     fn = _launcher()
@@ -318,12 +375,11 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
     prog, dev_prog = _program(stages, planes.dtype, planes.device)
     th, tw, _ = pick_tile(prog, lc)
     N, H, W = planes.shape
-    full, half, bands = band_outputs(planes, prog.downs)
+    outs, table = band_outputs(planes, prog.bands, stages)
     with torch.cuda.device(planes.device):
         err = fn(
             planes.data_ptr(),
-            full.data_ptr(),
-            half.data_ptr(),
+            ctypes.addressof(table),
             dev_prog.data_ptr(),
             N,
             H,
@@ -339,4 +395,4 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
         )
     _build.check(err, "stencil_chain")
     counters.LAUNCHES["stencil_chain"] += 1
-    return bands
+    return outs

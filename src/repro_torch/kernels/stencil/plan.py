@@ -12,14 +12,19 @@ to what the port's two kernels need.
     `pick_tile_plan` / `pick_tile_w` charge a working set against VMEM);
   * `row_segments` — how many row segments of a plane run as blocks of
     their own;
-  * `stage_out_hw`, `band_downs`, `stride_product`, `check_strides` and
-    `aligned_pad` — the geometry of a strided stage (the JAX planner's
-    `build_chain_geom`): each band's own decimation and output size, the
+  * `band_walk` — which stage reads and makes which band, and its dtype;
+  * `stage_out_hw`, `band_meta`, `stride_product`,
+    `check_strides` and `aligned_pad` — the geometry of a strided stage
+    and of each output band (the JAX planner's `build_chain_geom` and
+    `_band_meta`): each band's dtype, decimation and output size, the
     stride product that step rows and column tiles must be multiples of,
-    and a left pad that puts local-even columns on image-even ones.
+    and a left pad that puts local-even columns on image-even ones;
+  * `gather_metas` — the gather stages' absolute origins (row step, row
+    offset, column origin, column-origin step) and the check that each
+    declared displacement bound covers the halo ring later stages read.
 
 The kernels run a strided stage only as the chain's last stage (a map
-pyrDown, or the octave's terminal next-base tap): they compute it at full
+pyrDown or resize2, or a terminal tap of one): they compute it at full
 resolution and keep its image-even rows and columns as they store them,
 so they plan its rows as those of a stride-1 stage (`kernel_walk`).
 """
@@ -28,7 +33,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .ir import STRIDES, resolve_chain
+import torch
+
+from .ir import GATHER_OPS, _affine_disp_over, _gather_halo, resolve_chain
 
 # ops whose body runs a row pass into scratch, then a column pass
 SEPARABLE_OPS = frozenset({"sep_filter", "box", "erode", "dilate", "pyr_down"})
@@ -68,26 +75,67 @@ def stage_out_hw(op: str | None, h: int, w: int) -> tuple[int, int]:
     return h, w
 
 
-def _band_sources(resolved) -> list:
-    """Per final band, the op of the tap that made it, or None for a band
-    at the state's resolution."""
-    bands = [None]
-    for op, mode, *_rest in resolved:
-        if mode == "tap":
-            bands.append(op)
-    return bands
+@dataclass(frozen=True)
+class BandWalk:
+    """The chain's bands, each with an id in order of creation (0 is the
+    input): ``apps[k]`` lists stage k's applications ``(source ids,
+    destination ids)``: one per band of a map, one for a tap, a Sobel's
+    two destinations, the pair reduction's two sources.  ``outs[b]`` is
+    the id of output band b; ``last_read[i]`` the last stage that reads
+    band i (-1: none); ``meta[i]`` its ``(dtype, strided op)``."""
+
+    apps: tuple
+    outs: tuple
+    last_read: dict
+    meta: dict
 
 
-def band_downs(stages) -> list:
-    """Per output band, its decimation against the input: 2 for a band a
-    pyrDown made (its size is `stage_out_hw("pyr_down", H, W)`), else 1."""
-    resolved = resolve_chain(stages)
-    ny = 1
-    for _op, mode, _h, stride, *_rest in resolved:
+def band_walk(stages, carrier: torch.dtype = torch.float32) -> BandWalk:
+    """Walk the chain's band arity: a map replaces every band, a tap
+    appends one, a Sobel replaces the last band with an f32 pair and the
+    pair reduction the last two with their magnitude in the carrier.  A
+    band's strided op is the pyrDown or resize2 that made it or its
+    source (JAX `_band_meta` names the op of a tapped band)."""
+    ids, apps, last_read, meta = [0], [], {0: -1}, {0: (carrier, None)}
+    for k, (op, mode, _h, stride, _up, _n_in, _n_out, tap) in enumerate(resolve_chain(stages)):
         if mode == "map":
-            ny *= stride[0]
-    divs = [STRIDES.get(src, (1, 1))[0] for src in _band_sources(resolved)]
-    return [ny * d for d in divs]
+            groups = [((b,), 1) for b in ids]
+        elif mode == "tap":
+            groups = [((ids[tap],), 1)]
+        elif mode == "emit":
+            groups = [((ids[-1],), 2)]
+        else:
+            groups = [((ids[-2], ids[-1]), 1)]
+        stage, news = [], []
+        for srcs, n_dst in groups:
+            dt, src_op = meta[srcs[0]]
+            dt = torch.float32 if mode == "emit" else carrier if mode == "reduce" else dt
+            src_op = op if stride != (1, 1) else src_op
+            dsts = tuple(range(len(meta), len(meta) + n_dst))
+            for d in dsts:
+                last_read[d], meta[d] = -1, (dt, src_op)
+            for src in srcs:
+                last_read[src] = k
+            stage.append((srcs, dsts))
+            news.extend(dsts)
+        apps.append(tuple(stage))
+        if mode == "map":
+            ids = news
+        elif mode == "tap":
+            ids = ids + news
+        elif mode == "emit":
+            ids = ids[:-1] + news
+        else:
+            ids = ids[:-2] + news
+    return BandWalk(tuple(apps), tuple(ids), last_read, meta)
+
+
+def band_meta(stages, carrier: torch.dtype = torch.float32) -> list:
+    """Per output band, ``(dtype, op)``: the carrier, or f32 for a band of a
+    Sobel pair; and the strided op that made it ("pyr_down", "resize2"), or
+    None for a band at the input's resolution."""
+    walk = band_walk(stages, carrier)
+    return [walk.meta[i] for i in walk.outs]
 
 
 def stride_product(stages) -> tuple[int, int]:
@@ -125,6 +173,86 @@ def aligned_pad(pad: int, down: int) -> int:
     """A left pad rounded up to a multiple of the stride product, so that
     local-even columns are image-even ones (JAX's ``pw_l``)."""
     return pad + (-pad) % down
+
+
+def gather_metas(stages, shape: tuple, rows: int, tile_w: int | None = None) -> list:
+    """Per stage, the gather's ``(row step, row offset, column origin,
+    column-origin step)`` meta, else None (JAX `build_chain_geom`'s forward
+    walk, for `rows` rows a step and column tiles of `tile_w`): step i of
+    tile t reads the stage's input rows from image row ``i*mult + off`` and
+    columns from image column ``co0 + t*cstep``.  The kernels recover the
+    same origins from their own geometry (the window's, or the stream's
+    absolute rows).  Raises `ValueError` where a declared displacement
+    bound undershoots what the chain evaluates, the image rectangle
+    extended by the halo later stages read (outputs beyond it are slack
+    the stores discard, so their clamped gathers need no budget), or where
+    remap's map planes do not match the image."""
+    resolved = resolve_chain(stages)
+    H, W = shape
+    h_fin = H
+    for op, mode, *_rest in resolved:
+        if mode == "map":
+            h_fin = stage_out_hw(op, h_fin, 1)[0]
+    iface = chain_iface(resolved, rows)
+    n_bands = max(1, -(-h_fin // rows))
+    down_x = stride_product(stages)[1]
+    n_tiles = 1 if tile_w is None or tile_w >= W else -(-W // tile_w)
+    # (row, col) halo still needed after each stage, at its output resolution
+    needr = [0] * (len(resolved) + 1)
+    needc = [0] * (len(resolved) + 1)
+    for k in range(len(resolved) - 1, -1, -1):
+        _op, mode, halo, stride, up, *_rest = resolved[k]
+        r, c = needr[k + 1], needc[k + 1]
+        if mode == "map":
+            r = -(-r // up[0]) * stride[0]
+            c = -(-c // up[1]) * stride[1]
+        needr[k], needc[k] = halo[0] + r, halo[1] + c
+    metas = []
+    co = -aligned_pad(chain_accumulated_halo(stages)[1], down_x)
+    cstep = tile_w if n_tiles > 1 else 0
+    h_cur, w_cur = H, W
+    for k, (op, mode, halo, stride, up, *_rest) in enumerate(resolved):
+        mult_k, off_k, r_k = iface[k]
+        if op not in GATHER_OPS:
+            metas.append(None)
+        else:
+            metas.append((mult_k, off_k, co, cstep))
+            hy, hx = halo
+            cya, cxa = needr[k + 1], needc[k + 1]
+            min_y = max(off_k + hy, -cya)
+            max_y = min((n_bands - 1) * mult_k + off_k + r_k - hy - 1, h_cur - 1 + cya)
+            min_x, max_x = -cxa, w_cur - 1 + cxa
+            st = stages[k].static
+            if op == "warp_affine":
+                req_y, req_x = _affine_disp_over((st[0:3], st[3:6]), min_y, max_y, min_x, max_x)
+            else:
+                hw = tuple(stages[k].weights[1].shape)
+                if hw != (h_cur, w_cur):
+                    raise ValueError(
+                        f"remap stage: map planes are {hw}, but the image at this stage is "
+                        f"{(h_cur, w_cur)}"
+                    )
+                req_y = st[0] + max(0, -min_y, max_y - (h_cur - 1))
+                req_x = st[1] + max(0, -min_x, max_x - (w_cur - 1))
+            req_hy, req_hx = _gather_halo(req_y, req_x)
+            if req_hy > hy or req_hx > hx:
+                raise ValueError(
+                    f"{op} stage: declared displacement bound gives halo ({hy}, {hx}) but the "
+                    f"fused window evaluates outputs over rows [{min_y}, {max_y}] x cols "
+                    f"[{min_x}, {max_x}], needing displacement ({req_y:.2f}, {req_x:.2f}) — "
+                    "declare it via bound=/extend= (downstream stages consume the halo ring)"
+                )
+        if mode == "map":
+            h_cur, w_cur = stage_out_hw(op, h_cur, w_cur)
+            if stride[1] > 1:
+                co, cstep = co // stride[1], cstep // stride[1]
+    return metas
+
+
+def check_gathers(stages, shape: tuple, rows: int, tile_w: int | None = None) -> None:
+    """`gather_metas`'s checks, for a chain with a gather stage."""
+    if any(s.op in GATHER_OPS for s in stages):
+        gather_metas(stages, shape, rows, tile_w)
 
 
 def kernel_walk(stages) -> list:
@@ -221,8 +349,10 @@ class StreamLayout:
     else reads has depth 0: it is stored from registers.
 
     ``apps`` lists one record per stage application in launch order:
-    ``(stage index, source stream, destination stream)``.
-    ``outs[b]`` is the stream of output band b.
+    ``(stage index, source streams, destination streams)``: one source and
+    one destination, but two destinations for a Sobel (its dx and dy) and
+    two sources for the pair reduction.  ``outs[b]`` is the stream of
+    output band b.
     """
 
     rows: int
@@ -249,26 +379,24 @@ def stream_layout(stages, rows: int) -> StreamLayout:
     plan = kernel_walk(stages)
     iface = chain_iface(plan, rows)
     sp = chain_stream_plan(plan, iface)
+    walk = band_walk(stages)
     leads = [-iface[0][1]]
     lags = [0]
     op_read = [False]
-    bands = [0]
     apps = []
-    for k, (op, mode, halo, *_rest, tap) in enumerate(plan):
+    for k, stage in enumerate(walk.apps):
         sin_off = sp[k][0]
         lead_out = -iface[k + 1][1]
-        news = []
-        for src in bands if mode == "map" else [bands[tap]]:
-            # the reader's oldest row at step i is y0 + i*rows + sin_off
-            lags[src] = max(lags[src], leads[src] - sin_off)
-            op_read[src] = True
-            dst = len(leads)
-            leads.append(lead_out)
-            lags.append(0)
-            op_read.append(False)
-            apps.append((k, src, dst))
-            news.append(dst)
-        bands = news if mode == "map" else bands + news
+        for srcs, dsts in stage:
+            for src in srcs:
+                # the reader's oldest row at step i is y0 + i*rows + sin_off
+                lags[src] = max(lags[src], leads[src] - sin_off)
+                op_read[src] = True
+            leads.extend([lead_out] * len(dsts))
+            lags.extend([0] * len(dsts))
+            op_read.extend([False] * len(dsts))
+            apps.append((k, srcs, dsts))
+    bands = walk.outs
     depths = []
     for s, (lead, lag) in enumerate(zip(leads, lags)):
         if s in bands:

@@ -12,13 +12,18 @@ Tolerances: the plain versions repeat the kernels' arithmetic (every
 product and sum rounded on its own, in the same order), so the bow and
 gbdt kernels must match exactly, `stencil_stream` exactly on u8 and f32,
 and `stencil_chain` within the repo's f32 oracle tolerance (rtol 2e-5,
-atol 2e-3) in its older test and exactly in the mode-agreement test.
+atol 2e-3) in its older test and exactly in the mode-agreement test and
+on the geometric chains (Sobel, the pair reduction, resize2, the
+gathers), whose every band must equal the plain version's in dtype, shape
+and bits.
 `flash_attention` sums its dot products in another order than its plain
 version and the f32 oracle, and each rounds once to the output dtype, so
 it is held to `kernels.attention.AGREE`: one rounding apart in f16 / bf16
 (rtol 2^-10 / 2^-7, atol 1e-4), rtol = atol = 2e-4 in f32 (the JAX kernel
 test's, tests/test_kernels_attention.py:20).
 """
+
+import math
 
 import pytest
 import torch
@@ -33,6 +38,7 @@ from repro_torch.kernels import bow as kbow
 from repro_torch.kernels import counters
 from repro_torch.kernels import gbdt as kgbdt
 from repro_torch.kernels import ops, ref, stencil, unfused
+from repro_torch.kernels.stencil import exec_streaming
 from repro_torch.models.lm import LM
 from repro_torch.serve import cv_engine
 
@@ -386,3 +392,128 @@ def test_reduced_generate_launches_flash_once_per_layer(dev):
     assert counters.LAUNCHES["flash_attention"] == cfg.n_layers
     assert sum(counters.PLAIN_CALLS.values()) == 0
     assert torch.equal(out, cv_engine.generate(model, prompts, steps=5))
+
+
+def _rot_about_centre(hw, deg: float = 1.0, shift=(4.0, -3.0)) -> list:
+    """Inverse map of a rotation about the image centre plus a translation."""
+    h, w = hw
+    cy, cx = (h - 1) / 2, (w - 1) / 2
+    c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+    return [[c, -s, cx - c * cx + s * cy + shift[0]], [s, c, cy - s * cx - c * cy + shift[1]]]
+
+
+def _geometric_chain(dev, name, hw):
+    """The geometric path's chains for an (h, w) image; remap's map planes
+    on the card."""
+    h, w = hw
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    bench = [[math.cos(0.05), -math.sin(0.05), 4.0], [math.sin(0.05), math.cos(0.05), -3.0]]
+    return {
+        "warp": (stencil.warp_affine_stage(_rot_about_centre(hw, 7.0), shape=hw),),
+        "warp_ladder": features.aligned_octave_chain(bench, hw, n_scales=2),
+        "gauss_warp_tap": (stencil.gaussian_stage(3),
+                           stencil.warp_affine_stage(_rot_about_centre(hw, -4.0), shape=hw,
+                                                     extend=(2, 2), tap=0),
+                           stencil.box_stage(2)),
+        "remap": (stencil.remap_stage(xx + 1.2 * torch.cos(yy / 5.0),
+                                      yy + 1.5 * torch.sin(xx / 7.0)),),
+        "remap_erode": (stencil.remap_stage(xx + torch.cos(yy / 3.0), yy + torch.sin(xx / 4.0),
+                                            extend=(1, 1)), stencil.erode_stage(1)),
+        "sobel": (stencil.sobel_stage(),),
+        "sobel_grad": (stencil.sobel_stage(), stencil.grad_stage()),
+        "tap_sobel_thresh": (stencil.gaussian_stage(3, tap=0), stencil.sobel_stage(),
+                             stencil.threshold_stage(20.0, 300.0)),
+        "resize2": (stencil.resize2_stage(),),
+        "gauss_resize2_tap": (stencil.gaussian_stage(3), stencil.resize2_stage(tap=0)),
+        "sobel_resize2": (stencil.sobel_stage(), stencil.resize2_stage()),
+    }[name]
+
+
+GEOMETRIC = ["warp", "warp_ladder", "gauss_warp_tap", "remap", "remap_erode", "sobel", "sobel_grad",
+             "tap_sobel_thresh", "resize2", "gauss_resize2_tap", "sobel_resize2"]
+
+
+@pytest.mark.parametrize("name", GEOMETRIC)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape,lc", [
+    ((2, 37, 53, 1), LaunchConfig(tile_rows=16, tile_cols=16)),
+    ((1, 301, 211, 1), LaunchConfig(row_segments=5, stream_rows=4, tile_rows=8, tile_cols=8)),
+    ((1, 77, 640, 2), LaunchConfig(tile2d_cols=96, row_segments=3)),
+])
+@pytest.mark.parametrize("mode", ["window", "streaming", "tiled2d"])
+def test_geometric_chains_match_plain(dev, name, dtype, shape, lc, mode):
+    """Every band bit for bit against the plain version (dtype and shape
+    too), in one launch and no plain call, across several window tiles,
+    column tiles and row segments."""
+    x = _image(dev, shape, dtype, seed=sum(shape) + len(name))
+    chain = _geometric_chain(dev, name, shape[1:3])
+    want = stencil.fused_chain(x, chain, mode="ref")
+    counters.reset()
+    if mode != "window":
+        prog, _ = exec_streaming.program(chain, lc.stream_rows, dtype, dev)
+        planes = (shape[0] * shape[3], *shape[1:3])
+        try:
+            exec_streaming.stream_geometry(prog, planes, lc, tiled=mode == "tiled2d")
+        except ValueError:  # rings over the budget: the explicit plan refuses
+            with pytest.raises(ValueError, match="bytes"):
+                stencil.fused_chain(x, chain, mode=mode, lc=lc)
+            assert sum(counters.LAUNCHES.values()) == 0
+            return
+    got = stencil.fused_chain(x, chain, mode=mode, lc=lc)
+    torch.cuda.synchronize()
+    kernel = "stencil_chain" if mode == "window" else "stencil_stream"
+    assert counters.LAUNCHES[kernel] == 1 and sum(counters.LAUNCHES.values()) == 1
+    assert counters.PLAIN_CALLS[kernel] == 0
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), float((a.float() - b.float()).abs().max())
+
+
+def test_geometric_entry_points_on_the_card(dev):
+    """The image ops at an odd size: warp_affine, remap, resize_half and
+    sobel in every mode equal their plain versions; sobel's pair is f32 on
+    a u8 image."""
+    from repro_torch.cv import imgproc
+
+    x = _image(dev, (1081, 1919), torch.uint8, seed=5)
+    hw = (1081, 1919)
+    yy, xx = torch.meshgrid(torch.arange(hw[0], dtype=torch.float32, device=dev),
+                            torch.arange(hw[1], dtype=torch.float32, device=dev), indexing="ij")
+    mx, my = xx + 1.2 * torch.cos(yy / 5.0), yy + 1.5 * torch.sin(xx / 7.0)
+    calls = {
+        "warp": lambda m: imgproc.warp_affine(x, _rot_about_centre(hw), mode=m),
+        "remap": lambda m: imgproc.remap(x, mx, my, mode=m),
+        "resize_half": lambda m: imgproc.resize_half(x, mode=m),
+        "sobel": lambda m: imgproc.sobel(x, mode=m),
+    }
+    for name, call in calls.items():
+        want = call("ref")
+        want = want if isinstance(want, tuple) else (want,)
+        for mode in (None, "window", "tiled2d"):
+            got = call(mode)
+            got = got if isinstance(got, tuple) else (got,)
+            for a, b in zip(got, want, strict=True):
+                assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (name, mode)
+    assert imgproc.sobel(x)[0].dtype == torch.float32
+
+
+def test_align_and_detect_on_the_card(dev):
+    """One launch of the warp -> ladder chain; keypoints equal to a
+    `mode="ref"` run of the same batch on the card."""
+    h, w = 64, 80
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    blob = 0.1 + torch.exp(-((yy - 30) ** 2 + (xx - 40) ** 2) / (2 * 2.3 ** 2))
+    imgs = torch.stack([blob, blob.flip(0)])
+    m = [[1.0, 0.0, 3.0], [0.0, 1.0, 5.0]]
+    counters.reset()
+    got = features.align_and_detect(imgs, m, max_kp=8)
+    torch.cuda.synchronize()
+    assert sum(counters.LAUNCHES.values()) == 1 and sum(counters.PLAIN_CALLS.values()) == 0
+    want = features.align_and_detect(imgs, m, max_kp=8, mode="ref")
+    for k in ("xy", "scale", "valid", "resp", "gray"):
+        assert torch.equal(got[k], want[k]), k
+    assert tuple(int(v) for v in got["xy"][0, 0]) == (37, 25)

@@ -141,11 +141,13 @@ def test_plans_of_the_new_chains_match_jax(name, rows):
 
 
 def test_band_downs_and_stride_product():
+    """Each band's decimation (`plan.band_meta` names the strided op that
+    made a band) and the chain's stride product."""
     octave = tfeatures.octave_chain(4)
-    assert tplan.band_downs(octave) == [1] * 7 + [2]
+    assert [op for _, op in tplan.band_meta(octave)] == [None] * 7 + ["pyr_down"]
     assert tplan.stride_product(octave) == (2, 2)
-    assert tplan.band_downs((tstencil.gaussian_stage(3, tap=0), tstencil.pyr_down_stage())) \
-        == [2, 2]
+    assert [op for _, op in tplan.band_meta((tstencil.gaussian_stage(3, tap=0),
+                                             tstencil.pyr_down_stage()))] == ["pyr_down"] * 2
     assert tplan.stride_product(tfeatures.octave_chain(4, with_next_base=False)) == (1, 1)
     assert tplan.aligned_pad(35, 2) == 36 and tplan.aligned_pad(36, 2) == 36
 

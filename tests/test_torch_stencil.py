@@ -27,7 +27,7 @@ from repro_torch.cv import features as tfeatures
 from repro_torch.kernels import counters
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stencil as tstencil
-from repro_torch.kernels.stencil import exec_window
+from repro_torch.kernels.stencil import exec_streaming, exec_window
 
 RTOL, ATOL = 2e-5, 2e-3
 
@@ -149,99 +149,191 @@ def test_gaussian_kernel_matches_jax():
                                    np.asarray(jref.gaussian_kernel1d(k)), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("op", ["resize2", "sobel", "pyr_up"])
-def test_unported_stage_ops_raise(op):
-    with pytest.raises(NotImplementedError):
-        tstencil.Stage(op)
+@pytest.mark.parametrize("case", ["resize2", "resize2_stream", "pyr_up"])
+def test_unported_stage_ops_raise(case):
+    """pyrUp is still queued, and so is a strided stage before a chain's
+    last on the kernels (resize2 here; the plain version runs it)."""
+    if case == "pyr_up":
+        with pytest.raises(NotImplementedError):
+            tstencil.Stage("pyr_up")
+        return
+    chain = (tstencil.resize2_stage(), tstencil.gaussian_stage(3))
+    compile_ = (exec_window.compile_chain if case == "resize2"
+                else lambda c: exec_streaming.compile_stream(c, 8))
+    with pytest.raises(NotImplementedError, match="before the chain's last"):
+        compile_(chain)
+    x = torch.from_numpy(_input((12, 10)))
+    got = tstencil.fused_chain(x, chain, mode="ref")
+    want = jref.chain_ref(jnp.asarray(x.numpy()),
+                          (jstencil.resize2_stage(), jstencil.gaussian_stage(3)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
 def test_grad_pair_reduction_not_ported():
+    """The grad_mag pair reduction (the name dates from before it was
+    ported): over two live bands it reduces the last two to their
+    magnitude, in the plain version and in both kernels' step tables, equal
+    to JAX's `chain_ref` on u8 and f32."""
     chain = (tstencil.gaussian_stage(3), tstencil.gaussian_stage(3, tap=-1), tstencil.grad_stage())
+    jchain = (jstencil.gaussian_stage(3), jstencil.gaussian_stage(3, tap=-1), jstencil.grad_stage())
     assert tstencil.resolve_chain(chain)[-1][1] == "reduce"
-    with pytest.raises(NotImplementedError):
-        exec_window.compile_chain(chain)
-    with pytest.raises(NotImplementedError):
-        tstencil.fused_chain(torch.zeros((8, 8)), chain)
+    prog = exec_window.compile_chain(chain)
+    assert prog.steps[-1]["op"] == exec_window.GRAD_PAIR and prog.n_bands == 1
+    assert exec_streaming.compile_stream(chain, 8).steps[-1]["op"] == exec_window.GRAD_PAIR
+    rng = np.random.default_rng(9)
+    for x in (rng.integers(0, 256, (2, 19, 23, 2), dtype=np.uint8), _input((2, 19, 23, 2))):
+        want = np.asarray(jref.chain_ref(jnp.asarray(x), jchain))
+        for mode in (None, "window", "streaming", "tiled2d"):
+            got = tstencil.fused_chain(torch.from_numpy(x), chain, mode=mode).numpy()
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if x.dtype == np.uint8:
+                assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+            else:
+                np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
 # The kernel's block loop, replayed in numpy from the planned step table
 # ---------------------------------------------------------------------------
 
-def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int) -> list:
+F32 = np.float32
+
+
+def _pack(v, pk):
+    return np.clip(np.rint(v), 0, 255).astype(F32) if pk else np.asarray(v, F32)
+
+
+def _bilinear(X, sy, sx, oy, ox, rlo, rhi, clo, chi):
+    """`bilinear_at` of csrc/stencil_ops.cuh on a numpy band X whose local
+    (row, col) sits at image (row + oy, col + ox); taps clamped into [rlo,
+    rhi - 2] x [clo, chi - 2] (local)."""
+    iy, ix = np.floor(sy), np.floor(sx)
+    fy, fx = (sy - iy).astype(F32), (sx - ix).astype(F32)
+    ly = np.clip(iy.astype(np.int64) - oy, rlo, rhi - 2)
+    lx = np.clip(ix.astype(np.int64) - ox, clo, chi - 2)
+    v00, v01, v10, v11 = X[ly, lx], X[ly, lx + 1], X[ly + 1, lx], X[ly + 1, lx + 1]
+    top = v00 + (v01 - v00) * fx
+    bot = v10 + (v11 - v10) * fx
+    return top + (bot - top) * fy
+
+
+def _gather_coords(op, w0, maps, wx, yy, xx, H, W):
+    """Source (sy, sx) of a gather step at integer image coordinates."""
+    if op == 13:
+        yf, xf = yy.astype(F32), xx.astype(F32)
+        return (xf * w0[3] + yf * w0[4]) + w0[5], (xf * w0[0] + yf * w0[1]) + w0[2]
+    mx, my = maps[wx]
+    yc, xc = np.clip(yy, 0, H - 1), np.clip(xx, 0, W - 1)
+    return my[yc, xc], mx[yc, xc]
+
+
+def _sobel(X):
+    """`sobel_at` over the interior of a numpy band: (dx, dy)."""
+    cd = X[:, 2:] - X[:, :-2]
+    cs = (X[:, :-2] + X[:, 2:]) + F32(2) * X[:, 1:-1]
+    return (cd[:-2] + F32(2) * cd[1:-1]) + cd[2:], cs[2:] - cs[:-2]
+
+
+def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int, maps=()) -> list:
+    """Replay of `stencil_chain_kernel`: per (plane, tile) block, the window
+    load with clamped reads, then each step on its slots and region, and
+    the stores to each band's own buffer.  `maps`: each remap stage's
+    (map_x, map_y), in chain order."""
     N, H, W = planes.shape
     ph, pw = prog.halo
     WH, WW = th + 2 * ph, tw + 2 * pw
-    wts = np.asarray(prog.weights, np.float32)
-    n_half = sum(d > 1 for d in prog.downs)
-    out = np.full((prog.n_bands - n_half, N, H, W), np.nan, np.float32)
-    half = np.full((n_half, N, (H + 1) // 2, (W + 1) // 2), np.nan, np.float32)
-    u8 = planes.dtype == np.uint8
-
-    def pack(v):
-        return np.clip(np.rint(v), 0, 255).astype(np.float32) if u8 else v
-
+    wts = np.asarray(prog.weights, F32)
+    outs = [np.full((N, *tstencil.stage_out_hw(op, H, W)), np.nan, F32) for _dt, op in prog.bands]
     for n in range(N):
         for ty0 in range(0, H, th):
             for tx0 in range(0, W, tw):
-                sm = np.full((prog.n_slots, WH, WW), np.nan, np.float32)
-                ys = np.clip(ty0 - ph + np.arange(WH), 0, H - 1)
-                xs = np.clip(tx0 - pw + np.arange(WW), 0, W - 1)
+                oy, ox = ty0 - ph, tx0 - pw  # image coordinate of window (0, 0)
+                sm = np.full((prog.n_slots, WH, WW), np.nan, F32)
+                ys = np.clip(oy + np.arange(WH), 0, H - 1)
+                xs = np.clip(ox + np.arange(WW), 0, W - 1)
                 sm[0] = planes[n][ys][:, xs]
                 for s in prog.steps:
+                    op, pk = s["op"], s["pk"]
                     r0, r1 = ph - s["rh"], ph + th + s["rh"]
                     c0, c1 = pw - s["rw"], pw + tw + s["rw"]
                     hy, hx = s["kh"] // 2, s["kw"] // 2
-                    src = sm[s["src"]].copy()
-                    if s["down"] > 1:  # pyrDown: image-even rows and columns -> half
-                        oy, ox = ty0 - ph, tx0 - pw  # image coordinate of window (0, 0)
+                    src, src2 = sm[s["src"]].copy(), sm[s["src2"]].copy()
+                    w0 = wts[s["wx"]:]
+                    I, J = slice(r0 + hy, r1 - hy), slice(c0 + hx, c1 - hx)
+                    nr, nc = r1 - r0 - 2 * hy, c1 - c0 - 2 * hx
+                    if op in (9, 12):  # strided: image-even rows and columns -> own band
+                        band = outs[s["store"]]
                         i0 = r0 + hy + (oy + r0 + hy) % 2
                         j0 = c0 + hx + (ox + c0 + hx) % 2
-                        cols, rows = np.arange(j0, c1 - hx, 2), np.arange(i0, r1 - hy, 2)
-                        kx, ky = wts[s["wx"]:s["wx"] + 5], wts[s["wy"]:s["wy"] + 5]
-                        acc = kx[0] * src[r0:r1][:, cols - hx]
-                        for q in range(1, 5):
-                            acc = acc + kx[q] * src[r0:r1][:, cols - hx + q]
-                        v = ky[0] * acc[rows - hy - r0]
-                        for q in range(1, 5):
-                            v = v + ky[q] * acc[rows - hy - r0 + q]
+                        if op == 9:
+                            rows, cols = np.arange(i0, r1 - hy, 2), np.arange(j0, c1 - hx, 2)
+                            kx, ky = wts[s["wx"]:s["wx"] + 5], wts[s["wy"]:s["wy"] + 5]
+                            acc = kx[0] * src[r0:r1][:, cols - hx]
+                            for q in range(1, 5):
+                                acc = acc + kx[q] * src[r0:r1][:, cols - hx + q]
+                            v = ky[0] * acc[rows - hy - r0]
+                            for q in range(1, 5):
+                                v = v + ky[q] * acc[rows - hy - r0 + q]
+                        else:
+                            rows, cols = np.arange(i0, r1 - 1, 2), np.arange(j0, c1 - 1, 2)
+                            a, b = src[rows][:, cols], src[rows + 1][:, cols]
+                            c, d = src[rows][:, cols + 1], src[rows + 1][:, cols + 1]
+                            v = ((a + b) + (c + d)) * F32(0.25)
                         ys, xs = (oy + rows) // 2, (ox + cols) // 2
-                        keep_y, keep_x = ys < half.shape[2], xs < half.shape[3]
-                        half[s["store"], n, ys[keep_y][:, None], xs[keep_x][None, :]] = \
-                            pack(v)[keep_y][:, keep_x]
+                        ky_, kx_ = ys < band.shape[1], xs < band.shape[2]
+                        band[n, ys[ky_][:, None], xs[kx_][None, :]] = _pack(v, pk)[ky_][:, kx_]
                         continue
-                    if s["op"] in (0, 1):
-                        cols = slice(c0 + hx, c1 - hx)
+                    if op in (0, 1, 5, 6):  # separable: row pass -> tmp, column pass
                         taps = [src[r0:r1, c0 + q:c1 - 2 * hx + q] for q in range(s["kw"])]
-                        if s["op"] == 0:
-                            kx = wts[s["wx"]:s["wx"] + s["kw"]]
-                            acc = kx[0] * taps[0]
-                            for q in range(1, s["kw"]):
-                                acc = acc + kx[q] * taps[q]
-                        else:
-                            acc = np.minimum.reduce(taps)
-                        sm[s["tmp"], r0:r1, cols] = acc
-                        tmp = sm[s["tmp"]]
-                        ctaps = [tmp[r0 + q:r1 - 2 * hy + q, cols] for q in range(s["kh"])]
-                        if s["op"] == 0:
-                            ky = wts[s["wy"]:s["wy"] + s["kh"]]
-                            acc = ky[0] * ctaps[0]
-                            for q in range(1, s["kh"]):
-                                acc = acc + ky[q] * ctaps[q]
-                        else:
-                            acc = np.minimum.reduce(ctaps)
-                        sm[s["dst"], r0 + hy:r1 - hy, cols] = pack(acc)
-                    elif s["op"] == 2:
-                        i, j = slice(r0 + 1, r1 - 1), slice(c0 + 1, c1 - 1)
-                        dy = (src[r0 + 2:r1, j] - src[r0:r1 - 2, j]) * np.float32(0.5)
-                        dx = (src[i, c0 + 2:c1] - src[i, c0:c1 - 2]) * np.float32(0.5)
-                        sm[s["dst"], i, j] = pack(np.sqrt(dx * dx + dy * dy))
-                    if s["store"] >= 0:
-                        hh, ww = min(th, H - ty0), min(tw, W - tx0)
-                        out[s["store"], n, ty0:ty0 + hh, tx0:tx0 + ww] = \
-                            sm[s["dst"], ph:ph + hh, pw:pw + ww]
-    slots = exec_window.store_slots(prog.downs)
-    return [(out if d == 1 else half)[i] for d, i in zip(prog.downs, slots)]
+                        acc = w0[0] * taps[0] if op == 0 else taps[0]
+                        for q in range(1, s["kw"]):
+                            acc = (acc + w0[q] * taps[q] if op == 0 else acc + taps[q] if op == 6
+                                   else np.minimum(acc, taps[q]) if op == 1
+                                   else np.maximum(acc, taps[q]))
+                        sm[s["tmp"], r0:r1, J] = acc
+                        T = sm[s["tmp"], r0:r1, J]
+                        ky = wts[s["wy"]:]
+                        acc = ky[0] * T[0:nr] if op == 0 else T[0:nr]
+                        for q in range(1, s["kh"]):
+                            c = T[q:q + nr]
+                            acc = (acc + ky[q] * c if op == 0 else acc + c if op == 6
+                                   else np.minimum(acc, c) if op == 1 else np.maximum(acc, c))
+                        sm[s["dst"], I, J] = _pack(acc * w0[0] if op == 6 else acc, pk)
+                    elif op == 4:  # filter2d, taps row-major
+                        v = w0[0] * src[r0:r0 + nr, c0:c0 + nc]
+                        for a in range(s["kh"]):
+                            for b in range(s["kw"]):
+                                if a or b:
+                                    v = v + w0[a * s["kw"] + b] * src[r0 + a:r0 + a + nr,
+                                                                      c0 + b:c0 + b + nc]
+                        sm[s["dst"], I, J] = _pack(v, pk)
+                    elif op == 2:
+                        dy = (src[r0 + 2:r1, J] - src[r0:r1 - 2, J]) * F32(0.5)
+                        dx = (src[I, c0 + 2:c1] - src[I, c0:c1 - 2]) * F32(0.5)
+                        sm[s["dst"], I, J] = _pack(np.sqrt(dx * dx + dy * dy), pk)
+                    elif op == 10:
+                        dx, dy = _sobel(src[r0:r1, c0:c1])
+                        sm[s["dst"], I, J], sm[s["dst2"], I, J] = dx, dy
+                    elif op == 11:
+                        a, b = src[I, J], src2[I, J]
+                        sm[s["dst"], I, J] = _pack(np.sqrt(a * a + b * b), pk)
+                    elif op in (13, 14):
+                        ii, jj = np.meshgrid(np.arange(r0 + hy, r1 - hy), np.arange(c0 + hx, c1 - hx),
+                                             indexing="ij")
+                        sy, sx = _gather_coords(op, w0, maps, s["wx"], oy + ii, ox + jj, H, W)
+                        v = _bilinear(src, sy, sx, oy, ox, r0, r1, c0, c1)
+                        sm[s["dst"], I, J] = _pack(v, pk)
+                    elif op == 7:
+                        v = np.where(src[I, J] > w0[0], w0[1], F32(0))
+                        sm[s["dst"], I, J] = _pack(v, pk)
+                    elif op == 8:
+                        sm[s["dst"], I, J] = _pack(src[I, J] * w0[0] + w0[1], pk)
+                    hh, ww = min(th, H - ty0), min(tw, W - tx0)
+                    for key, slot in (("store", "dst"), ("store2", "dst2")):
+                        if s[key] >= 0:
+                            outs[s[key]][n, ty0:ty0 + hh, tx0:tx0 + ww] = \
+                                sm[s[slot], ph:ph + hh, pw:pw + ww]
+    return outs
 
 
 @pytest.mark.parametrize("name,shape", CASES)
@@ -282,7 +374,7 @@ def test_compile_chain_slot_plan_for_the_octave_with_next_base():
     prog = exec_window.compile_chain(tfeatures.octave_chain(4))
     assert prog.n_slots == 4 and prog.downs == (1,) * 7 + (2,) and prog.halo == (36, 36)
     last = prog.steps[-1]
-    assert (last["op"], last["down"], last["dst"], last["store"]) == (9, 2, -1, 0)
+    assert (last["op"], last["down"], last["dst"], last["store"]) == (9, 2, -1, 7)
     assert [s["store"] for s in prog.steps[:-1]] == list(range(7))
     th, tw, smem = exec_window.pick_tile(prog, LaunchConfig())
     assert (th, tw) == (32, 32) and smem == 4 * 104 * 104 * 4

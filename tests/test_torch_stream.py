@@ -36,7 +36,7 @@ from repro_torch.kernels import counters
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import stencil as tstencil
-from repro_torch.kernels.stencil import driver, exec_streaming, exec_window, plan
+from repro_torch.kernels.stencil import driver, exec_streaming, plan
 
 RTOL, ATOL = 2e-5, 2e-3
 U8_OFF_BY_ONE = 0.01  # largest share of u8 pixels allowed one apart from JAX
@@ -328,21 +328,29 @@ def test_row_segment_rule():
 # The kernel's block loop, replayed in numpy from the planned program
 # ---------------------------------------------------------------------------
 
-def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
+F32 = np.float32
+
+
+def _pack(v, pk):
+    return np.clip(np.rint(v), 0, 255).astype(F32) if pk else np.asarray(v, F32)
+
+
+def _emulate_stream(planes: np.ndarray, prog, geom, maps=()) -> list:
+    """Replay of `stencil_stream_kernel`: per (plane, tile, segment) block,
+    the steps from the priming ones on, each stage's new rows from its
+    ring(s), direct stores from registers and the stores of ring-held
+    bands, into each band's own buffer.  `maps`: each remap stage's (map_x,
+    map_y), in chain order."""
+    from test_torch_stencil import _bilinear, _gather_coords, _sobel
+
     N, H, W = planes.shape
     lay = prog.layout
     m = lay.rows
     ph, pw = lay.halo
     WW = geom.tile_w + 2 * pw
-    wts = np.asarray(prog.weights, np.float32)
-    u8 = planes.dtype == np.uint8
+    wts = np.asarray(prog.weights, F32)
     streams = prog.streams
-    n_half = sum(d > 1 for d in prog.downs)
-    out = np.full((prog.n_bands - n_half, N, H, W), np.nan)
-    half = np.full((n_half, N, (H + 1) // 2, (W + 1) // 2), np.nan)
-
-    def pack(v):
-        return np.clip(np.rint(v), 0, 255).astype(np.float32) if u8 else v
+    outs = [np.full((N, *tstencil.stage_out_hw(op, H, W)), np.nan) for _dt, op in prog.bands]
 
     def rr(s, rows):
         return streams[s]["offset"] + np.mod(rows, streams[s]["depth"])
@@ -350,10 +358,11 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
     for n in range(N):
         for t in range(geom.n_tiles):
             for sg in range(geom.n_seg):
-                sm = np.full((prog.smem_rows, WW), np.nan, np.float32)
+                sm = np.full((prog.smem_rows, WW), np.nan, F32)
                 tx0, y0 = t * geom.tile_w, sg * geom.seg_rows
+                ox = tx0 - pw  # image column of local column 0
                 tw, y1 = min(geom.tile_w, W - tx0), min(y0 + geom.seg_rows, H)
-                xs = np.clip(tx0 - pw + np.arange(WW), 0, W - 1)
+                xs = np.clip(ox + np.arange(WW), 0, W - 1)
                 for i in range((-2 * ph) // m, -(-(y1 - y0) // m)):
                     rows = np.arange(max(y0 + i * m + ph, y0 - ph), y0 + (i + 1) * m + ph)
                     sm[rr(0, rows)] = planes[n][np.clip(rows, 0, H - 1)][:, xs]
@@ -362,28 +371,35 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
                         hi = y0 + (i + 1) * m + st["lead"]
                         if lo >= hi:
                             continue
-                        hy, hx, op = st["kh"] // 2, st["kw"] // 2, st["op"]
+                        hy, hx, op, pk = st["kh"] // 2, st["kw"] // 2, st["op"], st["pk"]
                         c0, c1 = pw - st["rw"] + hx, pw + geom.tile_w + st["rw"] - hx
                         nr = hi - lo
                         X = sm[rr(st["src"], np.arange(lo - hy, hi + hy))]
                         w0 = wts[st["wx"]:]
-                        if st["down"] > 1:  # pyrDown: image-even rows and columns -> half
-                            ox = tx0 - pw  # image column of local column 0
-                            cols = np.arange(c0 + (ox + c0) % 2, c1, 2)
-                            rows_e = np.arange(lo + lo % 2, hi, 2)
-                            ky = wts[st["wy"]:]
-                            acc = w0[0] * X[:, cols - hx]
-                            for q in range(1, 5):
-                                acc = acc + w0[q] * X[:, cols - hx + q]
-                            v = ky[0] * acc[rows_e - lo]
-                            for q in range(1, 5):
-                                v = v + ky[q] * acc[rows_e - lo + q]
-                            v = pack(v)
-                            keep_r = (rows_e >= y0) & (rows_e < y1)
-                            keep_c = (ox + cols >= tx0) & (ox + cols < tx0 + tw)
-                            half[st["store"], n, rows_e[keep_r][:, None] // 2,
+                        if op in (9, 12):  # strided: image-even rows and columns -> own band
+                            band = outs[st["store"]]
+                            cols = np.arange(c0 + (ox + c0) % 2, c1 - (op == 12), 2)
+                            rows_e = np.arange(lo + lo % 2, hi - (op == 12), 2)
+                            if op == 9:
+                                ky = wts[st["wy"]:]
+                                acc = w0[0] * X[:, cols - hx]
+                                for q in range(1, 5):
+                                    acc = acc + w0[q] * X[:, cols - hx + q]
+                                v = ky[0] * acc[rows_e - lo]
+                                for q in range(1, 5):
+                                    v = v + ky[q] * acc[rows_e - lo + q]
+                            else:
+                                a, b = X[rows_e - lo][:, cols], X[rows_e - lo + 1][:, cols]
+                                c, d = X[rows_e - lo][:, cols + 1], X[rows_e - lo + 1][:, cols + 1]
+                                v = ((a + b) + (c + d)) * F32(0.25)
+                            v = _pack(v, pk)
+                            keep_r = (rows_e >= y0) & (rows_e < y1) & (rows_e // 2 < band.shape[1])
+                            keep_c = ((ox + cols >= tx0) & (ox + cols < tx0 + tw)
+                                      & ((ox + cols) // 2 < band.shape[2]))
+                            band[n, rows_e[keep_r][:, None] // 2,
                                  (ox + cols[keep_c])[None, :] // 2] = v[keep_r][:, keep_c]
                             continue
+                        v2 = None
                         if op in (0, 1, 5, 6):  # separable: row pass -> scratch
                             taps = [X[:, c0 - hx + q:c1 - hx + q] for q in range(st["kw"])]
                             acc = w0[0] * taps[0] if op == 0 else taps[0]
@@ -399,7 +415,7 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
                                 c = T[q:q + nr]
                                 acc = (acc + ky[q] * c if op == 0 else acc + c if op == 6
                                        else np.minimum(acc, c) if op == 1 else np.maximum(acc, c))
-                            v = acc * w0[0] if op == 6 else acc
+                            v = _pack(acc * w0[0] if op == 6 else acc, pk)
                         elif op == 4:  # filter2d, taps row-major
                             kw = st["kw"]
                             v = w0[0] * X[0:nr, c0 - hx:c1 - hx]
@@ -407,29 +423,44 @@ def _emulate_stream(planes: np.ndarray, prog, geom) -> np.ndarray:
                                 for b in range(kw):
                                     if a or b:
                                         v = v + w0[a * kw + b] * X[a:a + nr, c0 - hx + b:c1 - hx + b]
+                            v = _pack(v, pk)
                         elif op == 2:
-                            dy = (X[2:, c0:c1] - X[:-2, c0:c1]) * np.float32(0.5)
-                            dx = (X[1:-1, c0 + 1:c1 + 1] - X[1:-1, c0 - 1:c1 - 1]) * np.float32(0.5)
-                            v = np.sqrt(dx * dx + dy * dy)
+                            dy = (X[2:, c0:c1] - X[:-2, c0:c1]) * F32(0.5)
+                            dx = (X[1:-1, c0 + 1:c1 + 1] - X[1:-1, c0 - 1:c1 - 1]) * F32(0.5)
+                            v = _pack(np.sqrt(dx * dx + dy * dy), pk)
+                        elif op == 10:
+                            v, v2 = _sobel(X[:, c0 - 1:c1 + 1])
+                        elif op == 11:
+                            Y = sm[rr(st["src2"], np.arange(lo, hi))]
+                            a, b = X[:, c0:c1], Y[:, c0:c1]
+                            v = _pack(np.sqrt(a * a + b * b), pk)
+                        elif op in (13, 14):
+                            ii, jj = np.meshgrid(np.arange(lo, hi), np.arange(c0, c1), indexing="ij")
+                            sy, sx = _gather_coords(op, w0, maps, st["wx"], ii, ox + jj, H, W)
+                            # X holds rows [lo - hy, hi + hy): local row 0 is image row lo - hy
+                            v = _bilinear(X, sy, sx, lo - hy, ox, 0, nr + 2 * hy, c0 - hx, c1 + hx)
+                            v = _pack(v, pk)
                         elif op == 7:
-                            v = np.where(X[:, c0:c1] > w0[0], w0[1], np.float32(0)).astype(np.float32)
+                            v = _pack(np.where(X[:, c0:c1] > w0[0], w0[1], F32(0)), pk)
                         else:
-                            v = X[:, c0:c1] * w0[0] + w0[1]
-                        v = pack(v)
-                        if st["dst"] >= 0:
-                            sm[rr(st["dst"], np.arange(lo, hi)), c0:c1] = v
-                        else:
-                            for a, r in enumerate(range(lo, hi)):
-                                if y0 <= r < y1:
-                                    out[st["store"], n, r, tx0:tx0 + tw] = v[a, pw - c0:pw - c0 + tw]
+                            v = _pack(X[:, c0:c1] * w0[0] + w0[1], pk)
+                        for val, dst, store in ((v, st["dst"], st["store"]),
+                                                (v2, st["dst2"], st["store2"])):
+                            if val is None:
+                                continue
+                            if dst >= 0:
+                                sm[rr(dst, np.arange(lo, hi)), c0:c1] = val
+                            elif store >= 0:
+                                for a, r in enumerate(range(lo, hi)):
+                                    if y0 <= r < y1:
+                                        outs[store][n, r, tx0:tx0 + tw] = val[a, pw - c0:pw - c0 + tw]
                     if i >= 0:
                         rows = np.arange(y0 + i * m, min(y0 + (i + 1) * m, y1))
                         for s, stream in enumerate(streams):
                             if stream["store"] >= 0:
-                                out[stream["store"], n, rows, tx0:tx0 + tw] = \
+                                outs[stream["store"]][n, rows, tx0:tx0 + tw] = \
                                     sm[rr(s, rows), pw:pw + tw]
-    slots = exec_window.store_slots(prog.downs)
-    return [(out if d == 1 else half)[i] for d, i in zip(prog.downs, slots)]
+    return outs
 
 
 REPLAY = [
