@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 8 repeats it on the path's tensors);
+     shapes beyond the BoW path's (phase 10 repeats it on the path's tensors);
      each chain runs under the kernel `mode=None` resolves to and under the
      window kernel;
   3. the training path on the card, once per head (SVM, GBDT): 1000
@@ -74,7 +74,27 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      1080p / 4K shape's and the warp chain's kernel times (both kernels),
      plain time, bound and library call (`grid_sample` for the gathers,
      `avg_pool2d` for resize_half, `conv2d` for sobel);
-  8. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
+  8. the multi-octave pyramid path (`pyramid_phase`): `ops.pyr_up` at
+     1080p and 4K u8 (outputs 2160x3840 and 4320x7680) and the chains
+     pyrDown -> pyrUp, gaussian(5) -> pyrDown -> erode(1), resize2 ->
+     gaussian(3) and pyrUp -> gaussian(3) at 1080p u8 and at 1081x1919 u8
+     and 37x53 f32 with several window tiles, column tiles and row
+     segments, each in every mode (one launch, every band equal to the
+     plain version in dtype, shape and bits; over-budget full-width
+     streaming must raise); `features.sift_pyramid` with 4 octaves on
+     512x512, 1080p and 4K gray f32 (exactly 4 launches and no plain call,
+     every band bit-equal to the plain version, keypoints equal to a
+     `mode="ref"` run on the card but at counted near-ties); BoW `train` and
+     `predict` with both heads at `PipelineConfig(preprocess=True,
+     n_octaves=3, max_kp=32)` on phase 3's images (`stencil_stream` once,
+     `stencil_chain` three times, then `bow_assign` x21 or
+     `bow_quantize_hist` and the head's kernel; labels identical across two
+     runs and within 1% of a plain CPU predict); `run_pyramid` of the
+     benchmark (4 launches in each mode that fits against 31 staged, host
+     walls and graph-replay device times); then pyr_up's times (both
+     kernels, plain, `conv_transpose2d`, bound) and each pyramid link's
+     mode, time, plain time and bound;
+  9. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
      d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
      from a seeded generator; `flash_attention` held against its plain
      version within `kernels.attention.AGREE` (one rounding to the output
@@ -92,11 +112,11 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
      and the bf16 paths' logits within twice the bf16 model's own error;
-  9. on the paths' own tensors (the first request, the training
+  10. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 10. print the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
+ 11. print the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
      the 4K u8 gaussian_filter2d k = 13 under mode=None, `flash_attention`
      at the prefill's layer 0, the seed kernels on one 512x512 u8 plane),
      then the card line and the device line.
@@ -196,42 +216,57 @@ def near_tie_mask(descs, cents, ulps: int = 4):
 
 
 def chain_flops(stages) -> float:
-    """FLOP per input pixel of a chain (the image domain, halo excluded)."""
-    from repro_torch.kernels.stencil import resolve_chain
+    """FLOP per input pixel of a chain (the image domain, halo excluded):
+    each stage's count per pixel of its own input, times that input's area
+    against the chain's (a quarter past a stride, four times past a pyrUp)."""
+    from repro_torch.kernels.stencil import chain_levels, resolve_chain
 
+    lv = chain_levels(stages)
     total = 0
-    for s, (_op, mode, *_rest) in zip(stages, resolve_chain(stages)):
-        if s.op == "filter2d":
-            total += 2 * s.weights[0].numel()  # a product and a sum per tap
-        elif s.op == "sep_filter":
-            total += 2 * (s.weights[0].numel() + s.weights[1].numel())
-        elif s.op in ("erode", "dilate"):
-            total += 2 * (2 * s.static[0])  # separable min / max: row + column compares
-        elif s.op == "box":
-            total += 2 * (2 * s.static[0]) + 1  # row + column sums, one scaling
-        elif s.op == "threshold":
-            total += 1
-        elif s.op == "affine":
-            total += 2
-        elif s.op == "grad_mag" and mode == "reduce":
-            total += 3  # 2 squares, 1 add (+ sqrt)
-        elif s.op == "grad_mag":
-            total += 7  # 2 sub, 2 scale, 2 square, 1 add (+ sqrt)
-        elif s.op == "pyr_down":
-            # 5 row taps at the even columns of every row, 5 column taps at
-            # the even (row, column) pairs: 2 * (5/2 + 5/4) per input pixel
-            total += 7.5
-        elif s.op == "resize2":
-            total += 1  # 3 adds and a scaling per 2x2 block
-        elif s.op == "sobel":
-            total += 13  # 3 column differences, 2 column sums (2 adds, 1 doubling), dx 3, dy 1
-        elif s.op == "warp_affine":
-            total += 19  # coordinates 4 mul + 4 add, 2 fracs, 3 lerps of 3
-        elif s.op == "remap":
-            total += 11  # 2 fracs, 3 lerps of 3
-        else:
-            raise ValueError(f"chain_flops: no count for stage op {s.op!r}")
+    for k, (s, (_op, mode, *_rest)) in enumerate(zip(stages, resolve_chain(stages))):
+        area = 1.0
+        for _o, (sy, sx), (uy, ux) in lv.steps[lv.lv_in[k]]:
+            area *= uy * ux / (sy * sx)
+        total += area * stage_flops(s, mode)
     return total
+
+
+def stage_flops(s, mode: str) -> float:
+    """FLOP per input pixel of one stage."""
+    if s.op == "filter2d":
+        return 2 * s.weights[0].numel()  # a product and a sum per tap
+    elif s.op == "sep_filter":
+        return 2 * (s.weights[0].numel() + s.weights[1].numel())
+    elif s.op in ("erode", "dilate"):
+        return 2 * (2 * s.static[0])  # separable min / max: row + column compares
+    elif s.op == "box":
+        return 2 * (2 * s.static[0]) + 1  # row + column sums, one scaling
+    elif s.op == "threshold":
+        return 1
+    elif s.op == "affine":
+        return 2
+    elif s.op == "grad_mag" and mode == "reduce":
+        return 3  # 2 squares, 1 add (+ sqrt)
+    elif s.op == "grad_mag":
+        return 7  # 2 sub, 2 scale, 2 square, 1 add (+ sqrt)
+    elif s.op == "pyr_down":
+        # 5 row taps at the even columns of every row, 5 column taps at
+        # the even (row, column) pairs: 2 * (5/2 + 5/4) per input pixel
+        return 7.5
+    elif s.op == "resize2":
+        return 1  # 3 adds and a scaling per 2x2 block
+    elif s.op == "sobel":
+        return 13  # 3 column differences, 2 column sums (2 adds, 1 doubling), dx 3, dy 1
+    elif s.op == "warp_affine":
+        return 19  # coordinates 4 mul + 4 add, 2 fracs, 3 lerps of 3
+    elif s.op == "remap":
+        return 11  # 2 fracs, 3 lerps of 3
+    elif s.op == "pyr_up":
+        # per output pixel 4.5 (a row phase per output row and source
+        # column: even 4, odd 2, so 3 per pair of rows, 1.5 an output;
+        # then its column phase, 3 on average): 4 outputs an input
+        return 18
+    raise ValueError(f"chain_flops: no count for stage op {s.op!r}")
 
 
 def as_tuple(x) -> tuple:
@@ -670,8 +705,8 @@ def library_call(kind: str, chain, planes, want):
     yardstick: `grid_sample` (bilinear, border, align_corners) on the
     gather's coordinates precomputed as a grid, `avg_pool2d` for
     resize_half, `conv2d` with the filter2D taps or the (2, 1, 3, 3) Sobel
-    weight on the edge-padded plane; inputs widened and padded to f32
-    outside the timed call (TF32 off).  Checked within 1 of the plain
+    weight on the edge-padded plane, `conv_transpose2d` for pyrUp; inputs
+    widened and padded to f32 outside the timed call (TF32 off).  Checked within 1 of the plain
     version's first band (its rounding is not the reference's).  -> the
     call."""
     import torch
@@ -699,6 +734,17 @@ def library_call(kind: str, chain, planes, want):
         def call():
             return F.avg_pool2d(x, 2)
         out = call()[:, 0]
+    elif kind == "conv_transpose2d":
+        # pyrUp: the plane edge-padded by one, transposed-convolved at stride
+        # 2 with 4 k (x) k (k the 5-tap [1,4,6,4,1]/16), rows and columns
+        # [4, 4 + 2H) of the result
+        k1 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=planes.device) / 16.0
+        wt = (4.0 * torch.outer(k1, k1))[None, None].contiguous()
+        xp = ref.pad_replicate(x, 1, 1).contiguous()
+
+        def call():
+            return F.conv_transpose2d(xp, wt, stride=2)
+        out = call()[:, 0, 4:4 + 2 * H, 4:4 + 2 * W]
     else:  # conv2d: the filter2D taps, or the (2, 1, 3, 3) Sobel pair
         if chain[0].op == "filter2d":
             wt = chain[0].weights[0].to(planes.device)[None, None].contiguous()
@@ -798,6 +844,265 @@ def geometric_phase(dev, card: str, max_err: dict, path_counts: dict, results: d
               f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}; {t['bytes']} B, {t['flops']} FLOP) "
               f"card={card}")
     results["geometric"]["times"] = times
+
+
+def level_cases(dev, ops, stencil, ImageStream) -> list:
+    """The seventh slice's shapes: `ops.pyr_up` at 1080p and 4K u8 (outputs
+    2160x3840 and 4320x7680, `conv_transpose2d` as the library call), and
+    the chains with a resolution change before their last stage, pyrDown ->
+    pyrUp, gaussian(5) -> pyrDown -> erode(1), resize2 -> gaussian(3) and
+    pyrUp -> gaussian(3), at 1080p u8 and again at 1081x1919 u8 and 37x53
+    f32 with several window tiles, column tiles and row segments, where a
+    frame or phase off by one row or column shows."""
+    from repro_torch.core.device import LaunchConfig
+
+    stream = ImageStream()
+    cases = []
+    up = (stencil.pyr_up_stage(),)
+    chains = {
+        "pyr_down->pyr_up": (stencil.pyr_down_stage(), stencil.pyr_up_stage()),
+        "gaussian(5)->pyr_down->erode(1)": (stencil.gaussian_stage(5), stencil.pyr_down_stage(),
+                                            stencil.erode_stage(1)),
+        "resize2->gaussian(3)": (stencil.resize2_stage(), stencil.gaussian_stage(3)),
+        "pyr_up->gaussian(3)": (stencil.pyr_up_stage(), stencil.gaussian_stage(3)),
+    }
+    for res in ("1080p", "4K"):
+        img = stream.image(RES[res], seed=8).to(dev)
+        cases.append({"name": f"pyr_up {res} u8", "img": img, "chain": up, "plain": True,
+                      "lib": "conv_transpose2d",
+                      "call": lambda mode, img=img: ops.pyr_up(img, mode=mode)})
+    shapes = [
+        ("1080p u8", stream.image(RES["1080p"], seed=9).to(dev), None),
+        ("1081x1919 u8 (16x16 tiles, 224 columns, 7 segments)",
+         stream.image((1081, 1919), seed=10).to(dev),
+         LaunchConfig(tile_rows=16, tile_cols=16, tile2d_cols=224, row_segments=7)),
+        ("37x53 f32 (8x8 tiles, 16 columns, 3 segments)",
+         stream.image((37, 53), seed=11).to(dev).float(),
+         LaunchConfig(tile_rows=8, tile_cols=8, tile2d_cols=16, row_segments=3, stream_rows=4)),
+    ]
+    for tag, img, lc in shapes:
+        kw = {} if lc is None else {"lc": lc}
+        for name, chain in chains.items():
+            cases.append({"name": f"{name} {tag}", "img": img, "chain": chain, "plain": False,
+                          "lib": None, "call": lambda mode, img=img, chain=chain, kw=kw:
+                          stencil.fused_chain(img, chain, mode=mode, **kw)})
+    return cases
+
+
+def blob_image(hw, dev, seed: int, cell: int = 64):
+    """An (H, W) f32 image of Gaussian blobs on a dim ramp, one blob in each
+    `cell` x `cell` square (sigma 1.5 to 16 pixels, centre and amplitude
+    jittered, from a CPU generator at `seed`), each summed over its own and
+    the neighbouring squares: structure at every octave's scale, apart
+    enough that each octave of a 4-octave pyramid holds keypoints."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    h, w = hw
+    ny, nx = -(-h // cell), -(-w // cell)
+    p = torch.rand((ny, nx, 4), generator=gen).to(dev)
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    iy0, ix0 = (yy // cell).long(), (xx // cell).long()
+    img = 20.0 + 10.0 * xx / w
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            iy, ix = iy0 + dy, ix0 + dx
+            inside = ((iy >= 0) & (iy < ny) & (ix >= 0) & (ix < nx)).float()
+            iy, ix = iy.clamp(0, ny - 1), ix.clamp(0, nx - 1)
+            q = p[iy, ix]
+            s = 1.5 + 14.5 * q[..., 0]
+            cy = (iy.float() + 0.25 + 0.5 * q[..., 1]) * cell
+            cx = (ix.float() + 0.25 + 0.5 * q[..., 2]) * cell
+            img = img + inside * (40.0 + 80.0 * q[..., 3]) * torch.exp(
+                -((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+    return img / img.max() * 255.0
+
+
+def keypoints_equal_but_near_ties(what: str, got: dict, want: dict, keys) -> tuple:
+    """Per image, the keypoints of `got` equal `want`'s on `keys` except
+    where `want`'s response lies within 4 ulps of a neighbour's; -> (the
+    keypoints differing, the near-ties)."""
+    import torch
+
+    n_off = n_near = 0
+    for i in range(want["resp"].shape[0]):
+        off = torch.zeros_like(want["valid"][i])
+        for k in keys:
+            d = got[k][i] != want[k][i]
+            off |= d.any(-1) if d.ndim > 1 else d
+        resp = want["resp"][i]
+        ulp = torch.nextafter(resp.abs(), torch.full_like(resp, math.inf)) - resp.abs()
+        gap = torch.minimum(torch.cat([resp[:-1] - resp[1:], resp[-1:]]),
+                           torch.cat([resp[:1], resp[:-1] - resp[1:]]))
+        near = gap <= 4 * ulp
+        check(bool(near[off].all()), f"{what}: a keypoint differs off a near-tie")
+        n_off, n_near = n_off + int(off.sum()), n_near + int(near.sum())
+    return n_off, n_near
+
+
+def pyramid_phase(dev, card: str, max_err: dict, path_counts: dict, results: dict,
+                  train_set: tuple, test_imgs) -> None:
+    """The multi-octave pyramid path (the seventh slice): `level_cases` in
+    every mode (`check_modes`); `features.sift_pyramid` with 4 octaves (16
+    keypoints an octave, 64 in all) on 512x512, 1080p and 4K gray f32
+    images of Gaussian blobs at every octave's scale (`blob_image`; 4
+    launches, no plain call, every band
+    bit-equal to the plain version, keypoints equal to a `mode="ref"` run
+    on the card but at counted near-ties); BoW `train` and `predict` with
+    both heads at `PipelineConfig(preprocess=True, n_octaves=3, max_kp=32)`
+    on the fourth slice's images (1 `stencil_stream` for the preprocess
+    chain and 3 `stencil_chain`, one an octave: the 32, 16 and 8 pixel
+    planes are no larger than the 36-pixel halo), labels identical across
+    two runs and within 1% of a plain predict on the CPU; `run_pyramid` of
+    the benchmark; then the times of pyr_up (both kernels, plain,
+    `conv_transpose2d`, bound) and of each 1080p pyramid link."""
+    import torch
+    from repro_torch.cv import classify, features, pipeline
+    from repro_torch.cv.config import PipelineConfig
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ops, ref, stencil
+
+    timed = []
+    for case in level_cases(dev, ops, stencil, ImageStream):
+        want, planes, resolved = check_modes(case, counters, stencil, ref, path_counts, max_err)
+        results["checks"][f"pyramid path {case['name']}"] = {"resolved": resolved,
+                                                             "max_abs_err": 0.0}
+        if case["name"].startswith("pyr_up "):
+            timed.append((case, want, planes, resolved))
+
+    # -- sift_pyramid, 4 octaves, at three sizes --------------------------------
+    chains = features.pyramid_chains(4)
+    pyr = {}
+    for name, hw in (("512x512", (512, 512)), ("1080p", RES["1080p"]), ("4K", RES["4K"])):
+        g = blob_image(hw, dev, seed=12)[None]
+        plan = stencil.pyramid_plan(chains, hw)
+        kernels = ["stencil_chain" if p["mode"] == "window" else "stencil_stream" for p in plan]
+        launches = {k: kernels.count(k) for k in set(kernels)}
+        # 16 a octave: the merge then keeps each octave's best, not only octave 0's
+        det, snap = counted(counters, lambda: features.sift_pyramid(g, n_octaves=4, max_kp=64,
+                                                                    kp_per_octave=16))
+        expect_counts(f"sift_pyramid {name}", snap, launches)
+        path_counts[f"sift_pyramid {name}"] = snap
+        want = features.sift_pyramid(g, n_octaves=4, max_kp=64, kp_per_octave=16, mode="ref")
+        gn = features._normalize_gray(g)[..., None]
+        (outs, _), snap_b = counted(counters, lambda: stencil.chained_launches(gn, chains))
+        expect_counts(f"chained_launches {name}", snap_b, launches)
+        path_counts[f"chained_launches {name}"] = snap_b
+        ref_outs, _ = stencil.chained_launches(gn, chains, mode="ref")
+        torch.cuda.synchronize()
+        for o, (a, b) in enumerate(zip(outs, ref_outs, strict=True)):
+            for x, y in zip(a, b, strict=True):
+                check(x.shape == y.shape and torch.equal(x, y),
+                      f"sift_pyramid {name}: octave {o} band differs from the plain version")
+        n_off, n_near = keypoints_equal_but_near_ties(f"sift_pyramid {name}", det, want,
+                                                      ("xy", "octave", "scale", "valid"))
+        per_octave = [int(((det["octave"][0] == o) & det["valid"][0]).sum()) for o in range(4)]
+        print(f"check sift_pyramid {name} f32: {snap_nonzero(snap)} (links "
+              f"{[p['mode'] for p in plan]}), every band bit-equal to the plain version; "
+              f"{int(det['valid'].sum())} valid keypoints {per_octave} by octave; {n_off} differ "
+              f"from mode='ref', each at a near-tie ({n_near} near-ties)")
+        pyr[name] = {"links": plan, "launches": snap_nonzero(snap), "keypoints_differing": n_off,
+                     "near_ties": n_near, "per_octave": per_octave, "g": gn, "outs": outs}
+
+    # -- BoW train + predict at n_octaves=3, both heads --------------------------
+    imgs, labels = train_set
+    batches = test_imgs.split(PREDICT_BATCH)
+    bow = {}
+    for head in HEADS:
+        cfg = PipelineConfig(preprocess=True, n_octaves=3, max_kp=32, head=head)
+        model, snap = counted(counters, lambda cfg=cfg: pipeline.train(
+            imgs, labels, cfg, dict_size=DICT_SIZE, generator=torch.Generator().manual_seed(0),
+            device=dev))
+        expect_counts(f"train {head} n_octaves=3", snap,
+                      {"stencil_stream": 1, "stencil_chain": 3, "bow_assign": 21})
+        path_counts[f"train {head} n_octaves=3"] = snap
+        preds = []
+        path = {"launches": dict.fromkeys(counters.KERNELS, 0), "plain_calls": {}}
+        for i, xb in enumerate(batches):
+            pb, snap = counted(counters, lambda xb=xb, cfg=cfg: pipeline.predict(
+                model, xb, cfg, device=dev))
+            expect_counts(f"predict {head} n_octaves=3 request {i}", snap,
+                          {"stencil_stream": 1, "stencil_chain": 3, "bow_quantize_hist": 1,
+                           HEAD_KERNEL[head]: 1})
+            for k, v in snap["launches"].items():
+                path["launches"][k] += v
+            preds.append(pb)
+        path_counts[f"predict {head} n_octaves=3"] = path
+        pred = torch.cat(preds).cpu()
+        again = torch.cat([pipeline.predict(model, xb, cfg, device=dev) for xb in batches]).cpu()
+        check(torch.equal(pred, again), f"{head} n_octaves=3: labels differ between two runs")
+        plan_cpu = classify.build_plan(copy.deepcopy(model).cpu(), cfg, device="cpu")
+        feats = pipeline.extract_features(test_imgs, cfg, device="cpu")
+        scores = plan_cpu.scores(plan_cpu.histograms(feats["desc"], feats["valid"]))
+        mism = int((scores.argmax(1).to(torch.int32) != pred).sum())
+        print(f"check BoW {head} n_octaves=3: train {snap_nonzero(path_counts[f'train {head} n_octaves=3'])}, "
+              f"predict {len(batches)} requests {snap_nonzero(path)}; labels identical across two "
+              f"runs; {mism} of {len(pred)} differ from a plain CPU predict (limit 1%)")
+        check(mism <= 0.01 * len(pred), f"{head} n_octaves=3: card and CPU predictions disagree")
+        bow[head] = {"mismatches_vs_cpu": mism}
+
+    # -- run_pyramid, by the benchmark -------------------------------------------
+    bench = load_bench()
+    row, rec = bench.run_pyramid(dev)
+    path_counts.update(rec.paths)
+    for k, e in rec.max_err.items():
+        max_err[k] = max(max_err[k], e)
+    walls = "; ".join(f"{k} {v * 1e3:.4f} ms" for k, v in row.items()
+                      if k.endswith("_s") and not k.endswith("median_s"))
+    print(f"check pyramid {row['image']} f32, {row['n_octaves']} octaves (links "
+          f"{row['link_modes']}): {row['pallas_calls_fused']} launches in each mode that fits, "
+          f"every band bit-identical to the plain version; staged {row['pallas_calls_staged']} "
+          f"launches {snap_nonzero(rec.paths['pyramid staged'])}")
+    print(f"time pyramid (host wall, best of {bench.RUNS}): {walls}; best mode "
+          f"{row['fused_mode']}; fused_speedup={row['fused_speedup']:.3f}; device (graph replay): "
+          + " ".join(f"{k} {v:.5f}" for k, v in row.items() if k.endswith("_graph_ms"))
+          + f" ms card={card}")
+
+    # -- times ----------------------------------------------------------------
+    times = {}
+    for case, want, planes, resolved in timed:
+        name = case["name"]
+        t = times[name] = time_image_case(case, planes, resolved, want)
+        print(f"time {name}: ms={t['ms']:.5f} ({resolved}) stream_ms={t['stream_ms']:.5f} "
+              f"({'tiled2d' if t['stream_tiled'] else 'streaming'}) window_ms={t['window_ms']:.5f} "
+              f"plain_ms={t['plain_ms']:.4f} library_ms={t['library_ms']} ({t['library']}) "
+              f"bound_ms={t['bound_ms']:.5f} ({t['bound_by']}; {t['bytes']} B, {t['flops']} FLOP) "
+              f"card={card}")
+    links = {}
+    for name, p in pyr.items():
+        base = p.pop("g")  # (1, H, W, 1): the normalised gray; then each next base
+        del p["outs"]
+        total = {"ms": 0.0, "bytes": 0, "flops": 0.0}
+        for k, (chain, link) in enumerate(zip(chains, p["links"])):
+            want = as_tuple(stencil.fused_chain(base, chain, mode="ref"))
+            mode = link["mode"]
+            run = lambda base=base, chain=chain, mode=mode: stencil.fused_chain(  # noqa: E731
+                base, chain, mode=mode)
+            plain = lambda base=base, chain=chain: stencil.fused_chain(  # noqa: E731
+                base, chain, mode="ref")
+            ms = min(time_ms(run, iters=10), time_ms(run, iters=10))
+            pms = time_ms(plain, iters=2, warmup=1)
+            n_bytes = 4 * (base.numel() + sum(w.numel() for w in want))
+            n_flops = base.numel() * chain_flops(chain)
+            bms, by = bound_ms(n_bytes, n_flops)
+            links[f"{name} link {k}"] = {"shape": link["shape"], "mode": mode, "ms": ms,
+                                         "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                                         "bytes": n_bytes, "flops": n_flops}
+            print(f"time sift_pyramid {name} link {k} {link['shape']} ({mode}): ms={ms:.5f} "
+                  f"plain_ms={pms:.4f} bound_ms={bms:.5f} ({by}; {n_bytes} B, {n_flops} FLOP) "
+                  f"card={card}")
+            total["ms"] += ms
+            total["bytes"] += n_bytes
+            total["flops"] += n_flops
+            base = want[-1]
+        bms, by = bound_ms(total["bytes"], total["flops"])
+        links[f"{name} all links"] = {"ms": total["ms"], "bound_ms": bms, "bound_by": by,
+                                      "bytes": total["bytes"], "flops": total["flops"]}
+        print(f"time sift_pyramid {name} 4 links: ms={total['ms']:.5f} bound_ms={bms:.6f} ({by}; "
+              f"{total['bytes']} B) card={card}")
+    results["pyramid"] = {"times": times, "links": links, "sift_pyramid": pyr, "bow": bow,
+                          "bench": row}
 
 
 def snap_nonzero(snap: dict) -> dict:
@@ -1453,7 +1758,10 @@ def main() -> int:
     # -- 7. the geometric path -------------------------------------------------
     geometric_phase(dev, card, max_err, path_counts, results)
 
-    # -- 8. the LM serving path ------------------------------------------------
+    # -- 8. the multi-octave pyramid path ---------------------------------------
+    pyramid_phase(dev, card, max_err, path_counts, results, (imgs, labels), test_imgs)
+
+    # -- 9. the LM serving path ------------------------------------------------
     lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
                       gen_len=LM_GEN, max_err=max_err)
     path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
@@ -1464,10 +1772,10 @@ def main() -> int:
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
-          f"geometric path + generate): {main_launches}")
+          f"geometric path + pyramid path + generate): {main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 9. the kernels on the paths' own tensors, then timing ------------------
+    # -- 10. the kernels on the paths' own tensors, then timing -----------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -1593,7 +1901,7 @@ def main() -> int:
     check(bool(ok), "linear_score disagrees with torch.addmm")
     line = []
     for k in kernels:
-        if "measured" in k:  # timed in phase 5, 6 or 7 on its path's shape
+        if "measured" in k:  # timed in phase 5, 6, 7 or 9 on its path's shape
             t = k["measured"]
             (k1, k2), (p1, p2), lib = t["ms_runs"], t["plain_runs"], t["library_ms"]
             bms, by = t["bound_ms"], t["bound_by"]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Fused vs staged vs seed on one NVIDIA GPU: the port's counterpart of
-`benchmarks/pipeline_bench.py` `run`, `run_octave` and `run_warp`.
+`benchmarks/pipeline_bench.py` `run`, `run_octave`, `run_warp` and
+`run_pyramid`.
 
     PYTHONPATH=src python3 scripts/torch_pipeline_bench.py [--quick]
 
@@ -33,6 +34,22 @@ every band, the fused interior (the chain's accumulated halo cut off)
 equal to the staged interior, and the launch counts; the device time of
 each fused mode as well as the best one's.
 
+`run_pyramid`: the multi-octave SIFT pyramid, 4 octaves of 4 scales on a
+512x512 f32 plane: fused (`stencil.chained_launches` over
+`features.pyramid_chains`, one launch per octave, 4 in all, each octave's
+chain taking the previous one's next-base band) in every mode that fits
+(full-width streaming of octave 0 is over the shared-memory budget and
+must raise) and under mode None (each link resolved for its own planes),
+against the staged pyramid (per octave one `gaussian_blur` a scale from
+the octave's base, and a `pyr_down` to the next base: 4*7 + 3 = 31
+launches).  Checks: `stencil.pyramid_plan` launches every link (the port
+has no plain-version tail on the card); `features.sift_pyramid` in each
+mode makes exactly 4 launches and no plain call, with keypoints equal to
+its plain version's; every band of every link bit-identical to the plain
+version; the launch counts.  JAX's `autotune.measure_pyramid` (the
+per-link measured-mode cache) is not ported (ROADMAP, Queue 1 item 6):
+the fastest kernel mode timed is the best mode.
+
 Times are host wall around a synchronised call, best and median of `RUNS`
 after one warm-up: every form is launch-bound, so the host's wall is what it
 costs.  Beside it, each form's device time with the host's issue cost taken
@@ -45,9 +62,9 @@ the card; they go to ``chiprun_out/torch_pipeline_bench.json``, never to
 ``BENCH_results.json``.  A fused speedup under 1.3x is printed as a
 warning, as the JAX benchmark does.  Exits non-zero without a CUDA device.
 
-`run`, `run_octave` and `run_warp` also return what `chip_smoke.py` reads
-of them: each path's launch counts and each kernel's largest error against
-its plain version.
+`run`, `run_octave`, `run_warp` and `run_pyramid` also return what
+`chip_smoke.py` reads of them: each path's launch counts and each
+kernel's largest error against its plain version.
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BLUR_K, ERODE_R, THRESH = 5, 1, 100.0
 N_SCALES = 4
+N_OCTAVES = 4
 RUNS = 5  # timed runs of each form, after one warm-up
 KERNEL_MODES = ("window", "streaming", "tiled2d")
 CHECK_MODES = (None, *KERNEL_MODES)
@@ -117,6 +135,23 @@ def staged_octave(g, ops):
     sigmas = [1.6 * 2 ** (i / N_SCALES) for i in range(N_SCALES + 3)]
     pyr = [ops.gaussian_blur(g, int(min(2 * round(3 * s) + 1, 15)), s) for s in sigmas]
     return torch.stack(pyr), ops.pyr_down(pyr[N_SCALES])
+
+
+def staged_pyramid(g, ops):
+    """Per octave one from-base `gaussian_blur` a scale (ksize capped at 15,
+    as `staged_octave`) and a `pyr_down` of scale `N_SCALES` to the next
+    octave's base: N_OCTAVES*(N_SCALES+3) + (N_OCTAVES-1) launches, every
+    intermediate through device memory."""
+    import torch
+
+    sigmas = [1.6 * 2 ** (i / N_SCALES) for i in range(N_SCALES + 3)]
+    pyrs, base = [], g
+    for octv in range(N_OCTAVES):
+        pyr = [ops.gaussian_blur(base, int(min(2 * round(3 * s) + 1, 15)), s) for s in sigmas]
+        pyrs.append(torch.stack(pyr))
+        if octv < N_OCTAVES - 1:
+            base = ops.pyr_down(pyr[N_SCALES])
+    return pyrs
 
 
 def warp_matrix(theta: float = 0.05) -> list:
@@ -401,6 +436,73 @@ def run_warp(dev, *, quick: bool = False) -> tuple[dict, Record]:
     }, rec
 
 
+def run_pyramid(dev, *, quick: bool = False) -> tuple[dict, Record]:
+    from repro_torch.cv import features
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ops, stencil
+
+    # 512x512 under --quick too: the 64x64 tail octave stays above the
+    # ladder's halo, as in the JAX benchmark
+    H, W = 512, 512
+    g = ImageStream().image((H, W), channels=1, seed=0).to(dev).float()
+    chains = features.pyramid_chains(N_OCTAVES, N_SCALES, 1.6, 15)
+    plan = stencil.pyramid_plan(chains, (H, W))
+    check(len(plan) == N_OCTAVES and all(p["mode"] in KERNEL_MODES for p in plan),
+          f"pyramid plan: {plan}")
+    rec = Record(counters)
+
+    def bands(m):
+        return stencil.chained_launches(g[..., None], chains, mode=m)[0]
+
+    want = bands("ref")
+    want_kp = features.sift_pyramid(g[None], n_octaves=N_OCTAVES, n_scales=N_SCALES, mode="ref")
+    modes = []
+    for m in CHECK_MODES:
+        what = f"pyramid mode={m}"
+        if m == "streaming" and plan[0]["mode"] == "tiled2d":
+            counters.reset()
+            try:
+                bands(m)
+            except ValueError as e:
+                check(not any(counters.snapshot()["launches"].values()), f"{what}: launched")
+                print(f"{what}: ValueError as required ({e})")
+                continue
+            raise BenchFailure(f"{what}: over-budget full-width streaming did not raise")
+        kernels = [kernel_of(m or p["mode"]) for p in plan]
+        launches = {k: kernels.count(k) for k in set(kernels)}
+        kp = rec.counted(f"sift_pyramid mode={m}", lambda m=m: features.sift_pyramid(
+            g[None], n_octaves=N_OCTAVES, n_scales=N_SCALES, mode=m), launches)
+        for k in ("xy", "octave", "scale", "resp", "valid"):
+            check(bool((kp[k] == want_kp[k]).all()), f"sift_pyramid mode={m}: {k} differs")
+        got = rec.counted(what, lambda m=m: bands(m), launches)
+        for o, (a, b) in enumerate(zip(got, want, strict=True)):
+            for j, (x, y) in enumerate(zip(a, b, strict=True)):
+                rec.exact(kernels[o], f"{what} octave {o} band {j}", x, y)
+        if m:
+            modes.append(m)
+    rec.counted("pyramid staged", lambda: staged_pyramid(g, ops))
+    n_staged = sum(rec.paths["pyramid staged"]["launches"].values())
+    launches_staged = N_OCTAVES * (N_SCALES + 3) + (N_OCTAVES - 1)
+    check(n_staged == launches_staged, f"staged pyramid: {n_staged} launches, want "
+          f"{launches_staged}")
+
+    fields = time_modes(lambda m: (lambda: bands(m)), modes)
+    fields["fused_auto_s"] = wall_stats(lambda: bands(None))["best_s"]
+    best = fields["fused_mode"]
+    t_staged = wall_stats(lambda: staged_pyramid(g, ops))
+    return {
+        "image": f"{H}x{W}", "dtype": "f32", "n_scales": N_SCALES, "n_octaves": N_OCTAVES,
+        "bands_per_octave": N_SCALES + 3, "link_modes": [p["mode"] for p in plan],
+        "pallas_calls_fused": N_OCTAVES, "pallas_calls_staged": n_staged,
+        **fields,
+        "staged_best_s": t_staged["best_s"], "staged_median_s": t_staged["median_s"],
+        "fused_speedup": t_staged["best_s"] / fields["fused_best_s"],
+        "fused_graph_ms": graph_ms(lambda: bands(best)),
+        "fused_auto_graph_ms": graph_ms(lambda: bands(None)),
+        "staged_graph_ms": graph_ms(lambda: staged_pyramid(g, ops)),
+    }, rec
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -410,7 +512,8 @@ def card_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="(4, 256, 256, 3), a 256x256 octave and warp chain")
+                    help="(4, 256, 256, 3), a 256x256 octave and warp chain (the pyramid "
+                    "stays 512x512)")
     args = ap.parse_args()
     import torch
 
@@ -422,7 +525,8 @@ def main() -> int:
     card = card_line()
     rows = {"pipeline": run(dev, quick=args.quick)[0],
             "octave": run_octave(dev, quick=args.quick)[0],
-            "warp": run_warp(dev, quick=args.quick)[0]}
+            "warp": run_warp(dev, quick=args.quick)[0],
+            "pyramid": run_pyramid(dev, quick=args.quick)[0]}
     for name, row in rows.items():
         print(f"{name}: " + " ".join(f"{k}={v}" for k, v in row.items()))
     speedup = rows["pipeline"]["fused_speedup"]

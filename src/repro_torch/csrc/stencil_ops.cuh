@@ -8,7 +8,10 @@
 // separable stages run a row pass, then a column pass; pyrDown is the 5-tap
 // separable Gaussian computed at image-even rows and columns only (the row
 // pass at even columns, the column pass at even rows); resize2 is the 2x2
-// mean at image-even rows and columns; sqrt is the correctly rounded
+// mean at image-even rows and columns; pyrUp is, per axis, the even phase
+// ((a + 6 b) + c) * 0.125 and the odd phase (b + c) * 0.5 of the three
+// source values a, b, c around the output's source coordinate, rows first,
+// then columns, the row phases not packed; sqrt is the correctly rounded
 // __fsqrt_rn; a gather takes floor and frac of the *global* f32 source
 // coordinate (the window-local one would round the frac apart by an ulp
 // and flip u8 .5 ties).  Bands are held in f32.  Each stage's result is
@@ -40,21 +43,31 @@ enum Op : int {
   kResize2 = 12,   // 2x2 mean at image-even rows and columns, floor size
   kWarp = 13,      // bilinear gather at M (6 weights at wx) applied to (x, y)
   kRemap = 14,     // bilinear gather at (map_x, map_y) = Bands::maps[2wx], [2wx + 1]
+  kPyrUp = 15,     // 2x upsample: the even / odd phases per axis, rows then columns
 };
 
 constexpr int kMaxBands = 16;
 constexpr int kMaxMaps = 4;
+constexpr int kMaxLevels = 8;
 
-// The output bands of a launch and the remap stages' map planes, passed to
-// the kernel by value: band b is an (n, h[b], w[b]) array at out[b], u8 when
-// u8[b] else f32; map planes are (h, w) f32, the image's size.
-// kernels/stencil/exec_window.py `Bands` mirrors it.
+// The output bands of a launch, the remap stages' map planes and the
+// chain's levels, passed to the kernel by value: band b is an (n, h[b],
+// w[b]) array at out[b], u8 when u8[b] else f32; map planes are f32, the
+// size of the image at their stage's level.  Level l (the input's, then one
+// per resolution change) holds an (lh[l], lw[l]) image, and a block's tile
+// there is th[l] x tw[l] (the input tile, halved through each stride,
+// doubled through each upsample).  kernels/stencil/exec_window.py `Bands`
+// mirrors it.
 struct Bands {
   void* out[kMaxBands];
   const float* maps[2 * kMaxMaps];
   int u8[kMaxBands];
   int h[kMaxBands];
   int w[kMaxBands];
+  int lh[kMaxLevels];
+  int lw[kMaxLevels];
+  int th[kMaxLevels];
+  int tw[kMaxLevels];
 };
 
 // Write v (already packed to the band's dtype) to band b, plane p, (y, x).
@@ -75,6 +88,10 @@ __device__ __forceinline__ bool separable(int op) {
 // (origin + index) is even.  The planners align every origin, so this is
 // i rounded up to even in practice; it is exact for any origin.
 __device__ __forceinline__ int first_even(int i, int origin) { return i + ((origin + i) & 1); }
+
+// floor(v / 2) for any sign: the source coordinate of an upsampled one, or
+// the level-down coordinate of an image-even one
+__device__ __forceinline__ int floor2(int v) { return (v - (v & 1)) / 2; }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const uint8_t* p) { return float(*p); }
@@ -207,6 +224,17 @@ __device__ __forceinline__ float resize2_at(const Rows& rows, int i, int j) {
   const float* a = rows.ptr(q0) + j;
   const float* b = rows.ptr(rows.next(q0)) + j;
   return __fmul_rn(__fadd_rn(__fadd_rn(a[0], b[0]), __fadd_rn(a[1], b[1])), 0.25f);
+}
+
+// pyrUp's two phases over three source values a, b, c (b the source row or
+// column of the output, c the one after): even ((a + 6 b) + c) * 0.125, odd
+// (b + c) * 0.5, every product and sum rounded on its own.
+__device__ __forceinline__ float pyr_up_even(float a, float b, float c) {
+  return __fmul_rn(__fadd_rn(__fadd_rn(a, __fmul_rn(6.0f, b)), c), 0.125f);
+}
+
+__device__ __forceinline__ float pyr_up_odd(float b, float c) {
+  return __fmul_rn(__fadd_rn(b, c), 0.5f);
 }
 
 // Source coordinates of an inverse-map affine at image (y, x): m holds M00,

@@ -31,13 +31,26 @@
 // the rows inside the segment and the plane.  A final band with lead 0 that
 // nothing reads is stored straight from registers.
 //
-// A strided stage (pyrDown, resize2) runs only as the chain's last stage,
-// planned at full resolution: its step computes at the image-even columns
-// of the tile and the image-even rows among the step's rows (pyrDown: the
-// row pass at the even columns, the column pass at the even rows), and
-// stores them straight to the decimated band.  Step rows, segment starts
-// and column tiles are even, so the steps of a segment and the segments of
-// a plane cover disjoint decimated rows.
+// Levels: a stream lives at the resolution of the stage that made it (the
+// input's, then one level per strided or upsampling stage before the last).
+// Rows are counted at each stream's own level: a step adds `mult` rows to a
+// stream (twice the last level's rows above a stride, half below a pyrUp),
+// its segment starts at that level's image of the segment's first row, and
+// its ring is indexed by the absolute row at its level.  Columns: the
+// streams of a level share its frame, the tile at that resolution plus the
+// level's pad.  A stride before the last stage reads its source rows at
+// twice its output rows; a pyrUp reads rows floor(Y/2) - 1 .. floor(Y/2) + 1
+// for output row Y and interleaves the phases by Y's parity, so a step that
+// starts on an odd row needs one more source row (JAX's 2*halo + 1 ring on
+// an odd-phase interface), which the plan's depths hold.
+//
+// A strided last stage (pyrDown, resize2) is planned at its input's
+// resolution: its step computes at the image-even columns of the tile and
+// the image-even rows among the step's rows (pyrDown: the row pass at the
+// even columns, the column pass at the even rows), and stores them straight
+// to the decimated band.  Step rows, segment starts and column tiles are
+// multiples of the stride product, so the steps of a segment and the
+// segments of a plane cover disjoint decimated rows.
 //
 // Every band has its own output buffer and dtype (`Bands`, by value): a
 // Sobel emits an f32 (dx, dy) pair into two streams on a u8 chain, and the
@@ -68,23 +81,29 @@ struct StreamStep {
                    // output band `store` / `store2`
   int kh, kw;      // stencil extents (halo = k / 2)
   int wx, wy;      // offsets of taps or scalars in weights[] (a remap: its maps)
-  int rw;          // column halo the source stream still carries
-  int lead;        // rows the destination stream runs ahead of the output rows
+  int rw;          // columns around the tile the source stream holds (its level)
+  int cw;          // columns around the tile the output covers (its level)
+  int lead;        // rows the destination stream runs ahead of the step's rows
+  int mult;        // rows the destination stream adds a step
+  int ls, lo;      // levels of the source and of the output
   int store, store2;  // output bands of direct stores, else -1
-  int down;        // 2: a strided stage, stored directly to band `store`
+  int down;        // 2: a strided last stage, stored directly to band `store`
   int pk;          // 1: pack the step's result to u8
 };
 
 struct Stream {
-  int depth;   // ring rows (0: never buffered)
-  int offset;  // first ring row in shared memory, in rows of the tile's width
-  int store;   // output band stored from this ring after every step, or -1
+  int depth;  // ring rows (0: never buffered)
+  int level;  // its level: the ring's row width is that level's frame
+  int mult;   // rows it adds a step
+  int lead;   // rows it runs ahead of a step's rows (and starts above a segment)
+  int store;  // output band stored from this ring after every step, or -1
 };
 
 struct StreamProgram {
-  int n_steps, n_streams, ph, pw, rows, scratch, pad[2];
+  int n_steps, n_streams, n_levels, rows, prime, pad[3];
   StreamStep steps[kMaxSteps];
   Stream streams[kMaxStreams];
+  int col_pads[kMaxLevels];
   float weights[kMaxWeights];
 };
 
@@ -95,6 +114,7 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
                                       const StreamProgram* __restrict__ prog, int n, int h, int w,
                                       int tile_w, int tiles_x, int n_seg, int seg_rows) {
   __shared__ StreamProgram sp;
+  __shared__ int ring_at[kMaxStreams + 1];  // each ring's first float; then the scratch
   extern __shared__ float smem[];
 
   {
@@ -104,36 +124,53 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
       to[e] = from[e];
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    int at = 0;
+    for (int s = 0; s < sp.n_streams; ++s) {
+      ring_at[s] = at;
+      const int l = sp.streams[s].level;
+      at += sp.streams[s].depth * (bd.tw[l] + 2 * sp.col_pads[l]);
+    }
+    ring_at[sp.n_streams] = at;
+  }
+  __syncthreads();
 
-  const int ph = sp.ph, pw = sp.pw, m = sp.rows;
-  const int WW = tile_w + 2 * pw;
+  const int m = sp.rows, last = sp.n_levels - 1;
   const int per_plane = tiles_x * n_seg;
   const int plane = blockIdx.x / per_plane;
   const int rem = blockIdx.x - plane * per_plane;
   const int tile = rem / n_seg;
   const int seg = rem - tile * n_seg;
-  const int tx0 = tile * tile_w;
-  const int ox = tx0 - pw;              // image column of local column 0
-  const int tw = min(tile_w, w - tx0);  // columns of this tile inside the plane
-  const int y0 = seg * seg_rows;
-  const int y1 = min(y0 + seg_rows, h);
+  // the last level's frame: stores and direct stores
+  const int pwT = sp.col_pads[last], tileT = bd.tw[last];
+  const int tx0 = tile * tileT;                 // image column of the tile at the last level
+  const int oxT = tx0 - pwT;                    // ... of its frame's column 0
+  const int tw = min(tileT, bd.lw[last] - tx0);  // columns of this tile inside the band
+  const int y0 = seg * seg_rows;                // segment rows at the last level
+  const int y1 = min(y0 + seg_rows, bd.lh[last]);
+  const int step0 = y0 / m;                     // the segment's first step of the plane
   const T* src_plane = in + plane * (size_t(h) * w);
-  float* scratch = smem + sp.scratch * WW;
+  float* scratch = smem + ring_at[sp.n_streams];
 
+  auto width = [&](int l) { return bd.tw[l] + 2 * sp.col_pads[l]; };
+  auto origin = [&](int l) { return tile * bd.tw[l] - sp.col_pads[l]; };
   auto ring = [&](int s) {
     const Stream& st = sp.streams[s];
-    return RingRows{smem + st.offset * WW, st.depth, WW};
+    return RingRows{smem + ring_at[s], st.depth, width(st.level)};
   };
 
-  for (int i = -ceil_div(2 * ph, m); i < ceil_div(y1 - y0, m); ++i) {
+  for (int i = -sp.prime; i < ceil_div(y1 - y0, m); ++i) {
     // stream 0: the input rows this step adds, read with clamped coordinates
     {
+      const Stream& st = sp.streams[0];
       const RingRows r0 = ring(0);
-      const int lo = max(y0 + i * m + ph, y0 - ph), hi = y0 + (i + 1) * m + ph;
-      for (int e = threadIdx.x; e < (hi - lo) * WW; e += blockDim.x) {
-        const int r = lo + e / WW, j = e % WW;
+      const int W0 = width(0), ox0 = origin(0), Y0 = step0 * st.mult;
+      const int lo = max(Y0 + i * st.mult + st.lead, Y0 - st.lead);
+      const int hi = Y0 + (i + 1) * st.mult + st.lead;
+      for (int e = threadIdx.x; e < (hi - lo) * W0; e += blockDim.x) {
+        const int r = lo + e / W0, j = e % W0;
         const int y = min(max(r, 0), h - 1);
-        const int x = min(max(ox + j, 0), w - 1);
+        const int x = min(max(ox0 + j, 0), w - 1);
         r0(r)[j] = load_f32(src_plane + size_t(y) * w + x);
       }
       __syncthreads();
@@ -141,12 +178,15 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
 
     for (int si = 0; si < sp.n_steps; ++si) {
       const StreamStep s = sp.steps[si];
-      // the destination stream's new rows [lo, hi) at this step
-      const int lo = max(y0 + i * m + s.lead, y0 - s.lead), hi = y0 + (i + 1) * m + s.lead;
+      // the destination stream's new rows [lo, hi) at this step, at its level
+      const int Y0 = step0 * s.mult;
+      const int lo = max(Y0 + i * s.mult + s.lead, Y0 - s.lead), hi = Y0 + (i + 1) * s.mult + s.lead;
       if (lo >= hi) continue;  // not primed this far yet (uniform across the block)
       const RingRows src = ring(s.src);
       const int hy = s.kh / 2, hx = s.kw / 2;
-      const int c0 = pw - s.rw + hx, c1 = pw + tile_w + s.rw - hx;  // output columns
+      const int pw = sp.col_pads[s.lo], WWd = width(s.lo), oxd = origin(s.lo);
+      const int WWs = width(s.ls), ox = origin(s.ls);
+      const int c0 = pw - s.cw, c1 = pw + bd.tw[s.lo] + s.cw;  // output columns
       const int cols = c1 - c0, nr = hi - lo;
       const float* wts = sp.weights + s.wx;
       const RingRows dst = s.dst < 0 ? RingRows{nullptr, 1, 0} : ring(s.dst);
@@ -157,12 +197,55 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
       auto put = [&](const RingRows& d, int dk, int b, int r, int j, float v) {
         if (dk >= 0) {
           d(r)[j] = v;
-        } else if (r >= y0 && r < y1 && j >= pw && j < pw + tw) {
-          store_band(bd, b, plane, r, ox + j, v);
+        } else if (r >= y0 && r < y1 && j >= pwT && j < pwT + tw) {
+          store_band(bd, b, plane, r, oxT + j, v);
         }
       };
 
-      if (s.op == kPyrDown) {
+      if (s.op == kPyrUp) {
+        // row pass: each output row's phase over the source columns the
+        // outputs read -> scratch (the step's rows at the source's width),
+        // then the column pass
+        const int x0 = floor2(oxd + c0) - 1 - ox, x1 = floor2(oxd + c1 - 1) + 2 - ox;
+        const int nx = x1 - x0;
+        for (int e = threadIdx.x; e < nr * nx; e += blockDim.x) {
+          const int a = e / nx, x = x0 + e % nx;
+          const int Y = lo + a, y = floor2(Y);
+          const float b = src(y)[x], c = src(y + 1)[x];
+          scratch[a * WWs + x] = (Y & 1) ? pyr_up_odd(b, c) : pyr_up_even(src(y - 1)[x], b, c);
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
+          const int a = e / cols, j = c0 + e % cols;
+          const int X = oxd + j, q = floor2(X) - ox;
+          const float* r = scratch + a * WWs;
+          const float v = (X & 1) ? pyr_up_odd(r[q], r[q + 1]) : pyr_up_even(r[q - 1], r[q], r[q + 1]);
+          put(dst, s.dst, s.store, lo + a, j, pack(v, s.pk));
+        }
+      } else if (s.op == kPyrDown && s.down == 1) {
+        // a stride before the last stage: the row pass over source rows
+        // [2 lo - hy, 2 (hi - 1) + hy] at the image-even source columns of
+        // the output's columns -> scratch, then the column pass
+        const int ra = 2 * lo - hy, na = 2 * (nr - 1) + 2 * hy + 1;
+        for (int e = threadIdx.x; e < na * cols; e += blockDim.x) {
+          const int a = e / cols, j = c0 + e % cols;
+          const int x = 2 * (oxd + j) - ox;
+          scratch[a * WWd + j] = row_pass(s.op, src(ra + a) + x - hx, wts, s.kw);
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
+          const int a = e / cols, j = c0 + e % cols;
+          const float v = col_pass(s.op, scratch + 2 * a * WWd + j, WWd, sp.weights + s.wy, s.kh,
+                                   wts[0]);
+          put(dst, s.dst, s.store, lo + a, j, pack(v, s.pk));
+        }
+      } else if (s.op == kResize2 && s.down == 1) {
+        for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
+          const int r = lo + e / cols, j = c0 + e % cols;
+          const float v = resize2_at(src, 2 * r, 2 * (oxd + j) - ox);
+          put(dst, s.dst, s.store, r, j, pack(v, s.pk));
+        }
+      } else if (s.op == kPyrDown) {
         // the chain's last stage: the row pass over rows [lo - hy, hi + hy)
         // at the image-even columns -> scratch, then the column pass at the
         // image-even rows, stored to the decimated band
@@ -170,14 +253,14 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
         const int ry0 = first_even(lo, 0), erows = (hi - ry0 + 1) / 2;
         for (int e = threadIdx.x; e < (nr + 2 * hy) * ecols; e += blockDim.x) {
           const int a = e / ecols, j = j0 + 2 * (e % ecols);
-          scratch[a * WW + j] = row_pass(s.op, src(lo - hy + a) + j - hx, wts, s.kw);
+          scratch[a * WWs + j] = row_pass(s.op, src(lo - hy + a) + j - hx, wts, s.kw);
         }
         __syncthreads();
         for (int e = threadIdx.x; e < erows * ecols; e += blockDim.x) {
           const int r = ry0 + 2 * (e / ecols), j = j0 + 2 * (e % ecols), x = ox + j;
           if (r >= y0 && r < y1 && x >= tx0 && x < tx0 + tw && r / 2 < bd.h[s.store] &&
               x / 2 < bd.w[s.store]) {
-            const float v = col_pass(s.op, scratch + (r - lo) * WW + j, WW, sp.weights + s.wy,
+            const float v = col_pass(s.op, scratch + (r - lo) * WWs + j, WWs, sp.weights + s.wy,
                                      s.kh, wts[0]);
             store_band(bd, s.store, plane, r / 2, x / 2, pack(v, s.pk));
           }
@@ -197,12 +280,12 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
         // row pass over rows [lo - hy, hi + hy) -> scratch, then column pass
         for (int e = threadIdx.x; e < (nr + 2 * hy) * cols; e += blockDim.x) {
           const int a = e / cols, j = c0 + e % cols;
-          scratch[a * WW + j] = row_pass(s.op, src(lo - hy + a) + j - hx, wts, s.kw);
+          scratch[a * WWs + j] = row_pass(s.op, src(lo - hy + a) + j - hx, wts, s.kw);
         }
         __syncthreads();
         for (int e = threadIdx.x; e < nr * cols; e += blockDim.x) {
           const int a = e / cols, j = c0 + e % cols;
-          const float v = col_pass(s.op, scratch + a * WW + j, WW, sp.weights + s.wy, s.kh, wts[0]);
+          const float v = col_pass(s.op, scratch + a * WWs + j, WWs, sp.weights + s.wy, s.kh, wts[0]);
           put(dst, s.dst, s.store, lo + a, j, pack(v, s.pk));
         }
       } else if (s.op == kSobel) {
@@ -224,7 +307,7 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
           if (s.op == kWarp)
             warp_coords(wts, r, ox + j, sy, sx);
           else
-            remap_coords(mx, my, h, w, r, ox + j, sy, sx);
+            remap_coords(mx, my, bd.lh[s.ls], bd.lw[s.ls], r, ox + j, sy, sx);
           const float v = bilinear_at(src, sy, sx, 0, ox, lo - hy, hi + hy, c0 - hx, c1 + hx);
           put(dst, s.dst, s.store, r, j, pack(v, s.pk));
         }
@@ -259,7 +342,7 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
         const RingRows rr = ring(k);
         for (int e = threadIdx.x; e < (hi - lo) * tw; e += blockDim.x) {
           const int r = lo + e / tw, j = e % tw;
-          store_band(bd, st.store, plane, r, tx0 + j, rr(r)[pw + j]);
+          store_band(bd, st.store, plane, r, tx0 + j, rr(r)[pwT + j]);
         }
       }
       __syncthreads();
@@ -269,9 +352,9 @@ __global__ void stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
 
 template <typename T>
 int launch(const void* in, const Bands& bd, const void* prog, int n, int h, int w, int tile_w,
-           int n_seg, int seg_rows, int smem_rows, int pw, int threads, cudaStream_t stream) {
+           int n_seg, int seg_rows, int smem_floats, int threads, cudaStream_t stream) {
   const int tiles_x = (w + tile_w - 1) / tile_w;
-  const size_t smem = size_t(smem_rows) * (tile_w + 2 * pw) * sizeof(float);
+  const size_t smem = size_t(smem_floats) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(stencil_stream_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -290,16 +373,18 @@ extern "C" int stencil_stream_program_bytes() { return int(sizeof(StreamProgram)
 
 extern "C" int stencil_bands_bytes() { return int(sizeof(Bands)); }
 
-// Launch on `stream` for u8 (u8 != 0) or f32 planes; `bands` (host memory)
-// names every output band's buffer and the remap stages' map planes.
-// Returns cudaGetLastError() after the launch (0 = ok).
+// Launch on `stream` for u8 (u8 != 0) or f32 planes, column tiles of tile_w
+// input columns, n_seg segments of seg_rows rows (at the chain's last level)
+// a plane, smem_floats of rings and scratch a block; `bands` (host memory)
+// names every output band's buffer, the remap stages' map planes and the
+// levels' sizes.  Returns cudaGetLastError() after the launch (0 = ok).
 extern "C" int stencil_stream_launch(const void* in, const void* bands, const void* prog, int n,
                                      int h, int w, int tile_w, int n_seg, int seg_rows,
-                                     int smem_rows, int pw, int threads, int u8, void* stream) {
+                                     int smem_floats, int threads, int u8, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const Bands& bd = *static_cast<const Bands*>(bands);
   if (u8)
-    return launch<uint8_t>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw, threads,
+    return launch<uint8_t>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_floats, threads,
                            st);
-  return launch<float>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw, threads, st);
+  return launch<float>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_floats, threads, st);
 }

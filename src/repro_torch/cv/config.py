@@ -23,7 +23,7 @@ class PipelineConfig:
     max_kp: keypoints (= descriptors) per image.
     preprocess: run the fused blur -> erode -> grad denoise chain first.
     n_octaves: >1 routes detection through the multi-octave pyramid
-        (queued in the port).
+        (`features.sift_pyramid`, one launch per octave).
     mode: fused-chain execution plan (`kernels.stencil.MODES`).
     head: classifier head that `cv.pipeline.train` fits: "svm" (one-vs-rest
         linear) or "gbdt" (oblivious-tree ensemble).

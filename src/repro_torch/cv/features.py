@@ -1,6 +1,8 @@
 """SIFT-lite: DoG keypoints + 128-d gradient-histogram descriptors (the
-counterpart of `repro.cv.features`, single octave), and `align_and_detect`:
-an affine warp fused into the octave's launch.
+counterpart of `repro.cv.features`): the single-octave detector, the
+multi-octave pyramid (`sift_pyramid`: one launch per octave, chained
+through the next-base band), and `align_and_detect`: an affine warp fused
+into the octave's launch.
 
 The JAX package runs these per image under `jax.lax.map`; here every
 function takes a batch, (B, H, W) gray or (B, H, W, 3) RGB, and keeps the
@@ -79,6 +81,30 @@ def gaussian_octave(
     if with_next_base:
         return torch.stack(outs[:-1], dim=axis), outs[-1]
     return torch.stack(outs, dim=axis), None
+
+
+def pyramid_chains(
+    n_octaves: int, n_scales: int = 4, sigma0: float = 1.6, max_ksize: int = 15
+) -> tuple:
+    """Per-octave stage chains of the multi-octave SIFT pyramid.  Octave 0
+    is `octave_chain` (base blur + incremental ladder); every later
+    octave's base arrives already blurred to sigma0 in its own coordinates
+    (the pyrDown of the previous octave's 2x-sigma scale, Lowe's
+    construction), so its chain is the tap ladder alone, the carried base
+    staying live as scale 0.  Every octave but the last ends with the
+    next-base pyrDown tap (`stencil.validate_next_base`)."""
+    taps = ladder_taps(n_scales, sigma0, max_ksize)
+    chains = []
+    for k in range(n_octaves):
+        carry = k < n_octaves - 1
+        if k == 0:
+            chains.append(octave_chain(n_scales, sigma0, max_ksize, with_next_base=carry))
+            continue
+        stages = [stencil.gaussian_stage(kz, s, tap=-1) for kz, s in taps[1:]]
+        if carry:
+            stages.append(stencil.pyr_down_stage(tap=n_scales))
+        chains.append(tuple(stages))
+    return tuple(chains)
 
 
 def _shift2(a: torch.Tensor, di: int, dj: int) -> torch.Tensor:
@@ -170,6 +196,105 @@ def detect_keypoints(
         pyr,
         g,
         max_kp=max_kp,
+        contrast_thresh=contrast_thresh,
+        edge_thresh=edge_thresh,
+        border=border,
+    )
+
+
+def _merge_octave_keypoints(dets: list, scales: list, g: torch.Tensor, *, max_kp: int) -> dict:
+    """Merge per-octave detections into one fixed-capacity set per image:
+    each octave's (y, x) mapped to base-image coordinates by its scale
+    (exact: strided taps decimate on image-even coordinates), then the
+    top `max_kp` responses across octaves, equal responses in index order
+    (octave-major, as `lax.top_k` keeps them), padded with zeros (invalid)
+    when the octaves hold fewer candidates."""
+    xs = torch.cat([d["xy"][..., 0] * float(s[1]) for d, s in zip(dets, scales)], dim=1)
+    ys = torch.cat([d["xy"][..., 1] * float(s[0]) for d, s in zip(dets, scales)], dim=1)
+    resp = torch.cat([d["resp"] for d in dets], dim=1)
+    scale = torch.cat([d["scale"] for d in dets], dim=1)
+    octave = torch.cat([torch.full_like(d["scale"], k) for k, d in enumerate(dets)], dim=1)
+    k_take = min(max_kp, resp.shape[1])
+    top, idx = torch.sort(resp, dim=1, descending=True, stable=True)
+    top, idx = top[:, :k_take], idx[:, :k_take]
+    out = {
+        "xy": torch.stack([xs.gather(1, idx), ys.gather(1, idx)], dim=-1).to(torch.float32),
+        "octave": octave.gather(1, idx),
+        "scale": scale.gather(1, idx),
+        "resp": top,
+    }
+    pad = max_kp - k_take
+    if pad:
+        out = {k: torch.cat([v, v.new_zeros((v.shape[0], pad, *v.shape[2:]))], dim=1)
+               for k, v in out.items()}
+    out["valid"] = out["resp"] > 0.0
+    out["gray"] = g
+    return out
+
+
+def pyramid_keypoints(
+    octaves,
+    scales,
+    g: torch.Tensor,
+    *,
+    max_kp: int = 64,
+    kp_per_octave: int | None = None,
+    contrast_thresh: float = 0.02,
+    edge_thresh: float = 10.0,
+    border: int = 8,
+) -> dict:
+    """Octave-aware DoG keypoints from the per-octave scale bands of
+    `stencil.chained_launches` (or `ref.pyramid_ref`): each octave's bands
+    (B, h, w) stacked, the 3x3x3 extremum and edge tests per octave, then
+    the merge into base-image coordinates.  Returns dict: xy (B, max_kp, 2)
+    f32 in base-image coordinates, octave and scale (B, max_kp) i32 (the
+    scale is the ladder index within the octave), resp, valid, gray (the
+    base-resolution gray, which `describe_keypoints` samples)."""
+    kp_per_octave = kp_per_octave or max_kp
+    dets = [
+        _keypoints_from_pyr(
+            torch.stack(tuple(bands), dim=1),
+            bands[0],
+            max_kp=kp_per_octave,
+            contrast_thresh=contrast_thresh,
+            edge_thresh=edge_thresh,
+            border=border,
+        )
+        for bands in octaves
+    ]
+    return _merge_octave_keypoints(dets, scales, g, max_kp=max_kp)
+
+
+def sift_pyramid(
+    imgs: torch.Tensor,
+    *,
+    n_octaves: int = 4,
+    n_scales: int = 4,
+    sigma0: float = 1.6,
+    max_ksize: int = 15,
+    max_kp: int = 64,
+    kp_per_octave: int | None = None,
+    contrast_thresh: float = 0.02,
+    edge_thresh: float = 10.0,
+    border: int = 8,
+    mode: str | None = None,
+    lc: LaunchConfig = DEFAULT,
+) -> dict:
+    """Multi-octave SIFT detector over a (B, H, W) gray or (B, H, W, 3) RGB
+    batch: one launch per octave for the whole batch, octave k+1's chain
+    taking octave k's next-base band (`stencil.chained_launches`), each
+    launch's mode resolved for its own planes.  Returns
+    `pyramid_keypoints`' dict."""
+    g = _normalize_gray(imgs)
+    chains = pyramid_chains(n_octaves, n_scales, sigma0, max_ksize)
+    outs, scales = stencil.chained_launches(g[..., None], chains, mode=mode, lc=lc)
+    octaves = [tuple(b[..., 0] for b in bands) for bands in outs]
+    return pyramid_keypoints(
+        octaves,
+        scales,
+        g,
+        max_kp=max_kp,
+        kp_per_octave=kp_per_octave,
         contrast_thresh=contrast_thresh,
         edge_thresh=edge_thresh,
         border=border,
@@ -292,12 +417,17 @@ def describe_keypoints(det: dict, *, patch: int = 16) -> dict:
 
 
 def sift(imgs: torch.Tensor, config: PipelineConfig | None = None) -> dict:
-    """SIFT keypoints + descriptors for a batch (single octave; the
-    multi-octave pyramid is queued).  Standalone calls keep the JAX
-    package's max_kp=64 default; a passed config carries its own."""
+    """SIFT keypoints + descriptors for a batch.  ``config.n_octaves`` 1 is
+    the single-octave detector; more route through `sift_pyramid` (one
+    launch per octave), with keypoints in base-image coordinates and
+    descriptors sampled from the base-resolution gray there.  Standalone
+    calls keep the JAX package's max_kp=64 default; a passed config
+    carries its own."""
     cfg = config if config is not None else PipelineConfig(max_kp=64)
-    if cfg.n_octaves > 1:
-        raise NotImplementedError("sift: n_octaves > 1 (the pyramid engine) is not ported yet")
-    det = detect_keypoints(imgs, max_kp=cfg.max_kp, mode=cfg.mode, lc=cfg.lc)
+    if cfg.n_octaves <= 1:
+        det = detect_keypoints(imgs, max_kp=cfg.max_kp, mode=cfg.mode, lc=cfg.lc)
+    else:
+        det = sift_pyramid(imgs, n_octaves=cfg.n_octaves, max_kp=cfg.max_kp, mode=cfg.mode,
+                           lc=cfg.lc)
     d = describe_keypoints(det)
     return {"xy": det["xy"], "desc": d["desc"], "valid": det["valid"], "resp": det["resp"]}

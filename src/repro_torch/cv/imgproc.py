@@ -1,5 +1,5 @@
 """Image processing ops (the counterpart of `repro.cv.imgproc`): the
-paper's filter2D / erode family, pyrDown, the geometric ops (warpAffine,
+paper's filter2D / erode family, pyrDown and pyrUp, the geometric ops (warpAffine,
 remap, the 2x2-mean resize, Sobel), and the BoW preprocess chain."""
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ dilate = kops.dilate
 threshold = kops.threshold
 box_blur = kops.box_blur
 pyr_down = kops.pyr_down
+pyr_up = kops.pyr_up
 sobel = kops.sobel
 gaussian_kernel1d = kref.gaussian_kernel1d
 fused_chain = stencil.fused_chain

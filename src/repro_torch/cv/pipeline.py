@@ -6,8 +6,10 @@ histograms -> classifier head (one-vs-rest SVM or oblivious-tree GBDT),
 on the card: the stencil chains as in prediction, and every word
 assignment of k-means and of the histograms one `bow_assign` launch.
 Prediction, the timed path: (I) keypoint detection, with the optional
-fused preprocess chain and the octave chain each one `stencil_chain`
-launch per batch; (II) descriptors and the word histograms
+fused preprocess chain one launch per batch and the octave chain one
+launch per batch per octave (``config.n_octaves`` > 1 runs the pyramid,
+each octave's chain taking the previous one's next base); (II)
+descriptors and the word histograms
 (`bow_quantize_hist`); (III) the head's scores (`linear_score` or
 `gbdt_score`) and argmax.
 
@@ -80,7 +82,9 @@ def extract_features(
 ) -> dict:
     """(B, H, W[, C]) -> {"desc": (B, max_kp, 128), "valid": (B, max_kp)}.
     config.preprocess runs the fused blur -> erode -> gradient-magnitude
-    chain over the whole batch first."""
+    chain over the whole batch first; config.n_octaves > 1 detects through
+    the pyramid, keypoints in base-image coordinates, so the descriptor and
+    histogram stages downstream are unchanged."""
     cfg = config if config is not None else PipelineConfig()
     dev = resolve_device(device)
     imgs = _on_device(imgs, dev)

@@ -1,6 +1,6 @@
 """Public ops (the counterpart of `repro.kernels.ops`): the image ops, each
 one launch of the fused stencil engine, the BoW and GBDT kernels, and
-`flash_attention`.  `pyr_up` is queued with its slice (ROADMAP)."""
+`flash_attention`."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from .stencil import (  # noqa: F401
     gaussian_stage,
     grad_stage,
     pyr_down_stage,
+    pyr_up_stage,
     remap_stage,
     resize2_stage,
     sep_filter_stage,
@@ -52,6 +53,15 @@ def pyr_down(
     """OpenCV pyrDown: the 5x5 [1,4,6,4,1]/16 Gaussian, then 2x decimation on
     even image coordinates; out = ceil(size/2), dtype preserved."""
     return fused_chain(img, (pyr_down_stage(),), mode=mode, lc=lc)
+
+
+def pyr_up(
+    img: torch.Tensor, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+) -> torch.Tensor:
+    """OpenCV pyrUp: the 2x zero-insert upsample convolved with 4x the 5x5
+    [1,4,6,4,1]/16 Gaussian (per axis the even phase [1,6,1]/8, the odd
+    phase [4,4]/8); out = 2*size, dtype preserved."""
+    return fused_chain(img, (pyr_up_stage(),), mode=mode, lc=lc)
 
 
 def box_blur(

@@ -10,17 +10,19 @@ Carried over so far: ``filter2d``, ``sep_filter``, ``box``, ``erode``,
 ``dilate``, ``threshold``, ``affine``, ``grad_mag`` (single-band central
 differences, and the pair reduction after a Sobel), ``sobel`` (emits a
 widened f32 (dx, dy) pair), the strided ``pyr_down`` and ``resize2``, and
-the bilinear gathers ``warp_affine`` and ``remap``, in ``map``, ``tap``,
-``emit`` and ``reduce`` modes, on a u8 or f32 carrier.  Each band is
-tracked with the image coordinate of its local origin, so a strided stage
-decimates on image-even rows and columns (OpenCV pyrDown alignment) and a
-gather samples at absolute image coordinates however much halo the band
-still carries, and with its own dtype (a Sobel pair is f32 on a u8 chain).
-On u8 every stage widens to f32 and packs back to its band's dtype with
-round-half-even and a clip to [0, 255] (OpenCV's saturate_cast), as the
-JAX oracle's `_saturate` does.  ``pyr_up`` raises `NotImplementedError`
-until its slice lands.  Beside the stencil oracle: the BoW and GBDT oracles
-and `attention_ref`.
+the bilinear gathers ``warp_affine`` and ``remap``, and the 2x upsample
+``pyr_up``, in ``map``, ``tap``, ``emit`` and ``reduce`` modes, on a u8 or
+f32 carrier; a strided or upsampling map stage may sit anywhere in a chain.
+Each band is tracked with the image coordinate of its local origin at its
+own resolution, so a strided stage decimates on image-even rows and columns
+(OpenCV pyrDown alignment), a pyrUp interleaves its phases at the doubled
+origin, and a gather samples at absolute image coordinates however much
+halo the band still carries; each band keeps its own dtype (a Sobel pair is
+f32 on a u8 chain).  On u8 every stage widens to f32 and packs back to its
+band's dtype with round-half-even and a clip to [0, 255] (OpenCV's
+saturate_cast), as the JAX oracle's `_saturate` does.  `pyramid_ref` chains
+the oracle across the links of a multi-octave pyramid.  Beside the stencil
+oracle: the BoW and GBDT oracles and `attention_ref`.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 SUPPORTED_OPS = (
     "filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "affine", "grad_mag", "pyr_down",
-    "resize2", "sobel", "warp_affine", "remap",
+    "resize2", "sobel", "warp_affine", "remap", "pyr_up",
 )
 CARRIERS = (torch.uint8, torch.float32)
 
@@ -144,8 +146,8 @@ def _stage_halo(s) -> tuple[int, int]:
         return ky.shape[0] // 2, kx.shape[0] // 2
     if s.op in ("erode", "dilate", "box"):
         return s.static[0], s.static[0]
-    if s.op in ("grad_mag", "sobel"):
-        return 1, 1  # single-band central differences; the Sobel 3x3
+    if s.op in ("grad_mag", "sobel", "pyr_up"):
+        return 1, 1  # central differences; the Sobel 3x3; pyrUp's 3-tap phases
     if s.op == "pyr_down":
         return 2, 2
     if s.op == "warp_affine":
@@ -158,11 +160,13 @@ def _stage_halo(s) -> tuple[int, int]:
 
 def out_hw(op: str, h: int, w: int) -> tuple[int, int]:
     """Image size after one stage: pyrDown halves with ceil (OpenCV),
-    resize2 with floor, every other ported op keeps the size."""
+    resize2 with floor, pyrUp doubles, every other op keeps the size."""
     if op == "pyr_down":
         return (h + 1) // 2, (w + 1) // 2
     if op == "resize2":
         return h // 2, w // 2
+    if op == "pyr_up":
+        return 2 * h, 2 * w
     return h, w
 
 
@@ -170,13 +174,16 @@ def _walk(stages) -> list:
     """Band-arity walk, kept apart from `stencil.ir` so this stays an
     independent oracle: per stage (mode, halo, stride, normalised tap).
     A Sobel emits (replaces the last band with its pair); grad_mag over two
-    or more live bands reduces the last two to their magnitude."""
+    or more live bands reduces the last two to their magnitude; an
+    upsampling stage is map-only."""
     out, n = [], 1
     for s in stages:
         if s.op not in SUPPORTED_OPS:
-            raise NotImplementedError(f"chain_ref: stage op {s.op!r} is not ported yet")
+            raise ValueError(f"chain_ref: unknown stage op {s.op!r}")
         tap = getattr(s, "tap", None)
         stride = tuple(getattr(s, "stride", (1, 1)))
+        if s.op == "pyr_up" and tap is not None:
+            raise ValueError("chain_ref: upsampling stage 'pyr_up' does not support tap=")
         if s.op == "sobel":
             out.append(("emit", (1, 1), stride, None))
             n += 1
@@ -246,6 +253,26 @@ def _valid_op(s, x: torch.Tensor, ph: int, pw: int, carrier: torch.dtype) -> tor
     dy = (x[..., 2 : 2 + h, 1 : 1 + w] - x[..., 0:h, 1 : 1 + w]) * 0.5
     dx = (x[..., 1 : 1 + h, 2 : 2 + w] - x[..., 1 : 1 + h, 0:w]) * 0.5
     return pack(sqrt_rn(dx * dx + dy * dy), carrier)
+
+
+def pyr_up_valid(x: torch.Tensor) -> torch.Tensor:
+    """Valid-mode pyrUp of (N, h, w) f32 planes -> (N, 2(h - 2), 2(w - 2)):
+    per axis the even phase ((a + 6 b) + c) * 0.125 and the odd phase (b +
+    c) * 0.5 of the three rows (columns) a, b, c around each source row,
+    interleaved, rows first, then columns; every product and sum rounded on
+    its own (the kernels' ``__fmul_rn`` / ``__fadd_rn``).  Not packed: the
+    caller packs once.  Output local row 2i (2i + 1) is the even (odd)
+    phase around input local row i + 1, so the output origin is 2*(origin
+    + 1)."""
+    h, w = x.shape[-2] - 2, x.shape[-1] - 2
+    a, b, c = x[..., :-2, :], x[..., 1:-1, :], x[..., 2:, :]
+    ev = ((a + 6.0 * b) + c) * 0.125
+    od = (b + c) * 0.5
+    t = torch.stack([ev, od], dim=-2).reshape(*x.shape[:-2], 2 * h, w + 2)
+    left, mid, right = t[..., :-2], t[..., 1:-1], t[..., 2:]
+    evc = ((left + 6.0 * mid) + right) * 0.125
+    odc = (mid + right) * 0.5
+    return torch.stack([evc, odc], dim=-1).reshape(*x.shape[:-2], 2 * h, 2 * w)
 
 
 def sobel_pair(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -345,14 +372,17 @@ def chain_ref_planes(planes: torch.Tensor, stages) -> tuple:
     if carrier not in CARRIERS:
         raise NotImplementedError(f"chain_ref: u8 and f32 carriers only, got {carrier}")
     walk = _walk(stages)
-    # accumulated halo: each stage's halo scaled by the map strides before it
+    # accumulated halo: each stage's halo scaled by the net resolution
+    # factor before it (map strides times, upsamples divide, rounded up)
     ph_acc = pw_acc = 0
-    ny = nx = 1
-    for mode, (ph, pw), stride, _ in walk:
-        ph_acc += ph * ny
-        pw_acc += pw * nx
+    ny = nx = uy = ux = 1
+    for s, (mode, (ph, pw), stride, _) in zip(stages, walk):
+        ph_acc += -(-ph * ny // uy)
+        pw_acc += -(-pw * nx // ux)
         if mode == "map":
             ny, nx = ny * stride[0], nx * stride[1]
+            if s.op == "pyr_up":
+                uy, ux = uy * 2, ux * 2
     # final size of each band: the full-resolution state, or a tap's own
     h_fin, w_fin = planes.shape[-2:]
     for s, (mode, *_rest) in zip(stages, walk):
@@ -374,6 +404,8 @@ def chain_ref_planes(planes: torch.Tensor, stages) -> tuple:
             return pack(new, dt), oy, ox, dt
         if s.op in ("warp_affine", "remap"):
             return pack(_gather(s, b, oy, ox, ph, pw), dt), oy + ph, ox + pw, dt
+        if s.op == "pyr_up":
+            return pack(pyr_up_valid(b), dt), 2 * (oy + 1), 2 * (ox + 1), dt
         new = _valid_op(s, b, ph, pw, dt)
         oy, ox = oy + ph, ox + pw
         if stride != (1, 1):
@@ -437,6 +469,39 @@ def chain_ref(img: torch.Tensor, stages):
     stages = tuple(stages)
     outs = tuple(from_planes(b, img.shape) for b in chain_ref_planes(to_planes(img), stages))
     return outs[0] if len(outs) == 1 else outs
+
+
+def pyramid_ref(img: torch.Tensor, chains) -> tuple[list, list]:
+    """Multi-octave oracle for `stencil.chained_launches`: `chain_ref` per
+    link, the last output band of every link but the last (its strided
+    terminal tap, the next base) feeding the next link as its input.
+    Returns ``(outs, scales)`` as `chained_launches` does: ``outs[k]`` is
+    link k's bands without the carry band, ``scales[k]`` the (row, col)
+    factor that maps its pixel (y, x) to base-image (y * sy, x * sx)."""
+    chains = tuple(tuple(c) for c in chains)
+    if not chains:
+        raise ValueError("pyramid_ref: need at least one chain")
+    outs_all, scales = [], []
+    base = img
+    sy = sx = 1
+    for k, stages in enumerate(chains):
+        last = k == len(chains) - 1
+        stride = tuple(getattr(stages[-1], "stride", (1, 1)))
+        if not last and (getattr(stages[-1], "tap", None) is None or stride == (1, 1)):
+            raise ValueError(
+                f"pyramid_ref: link {k}'s final stage ({stages[-1].op!r}) is not a strided "
+                "terminal tap; every link but the last must emit a next-base band"
+            )
+        outs = chain_ref(base, stages)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        scales.append((sy, sx))
+        if last:
+            outs_all.append(outs)
+        else:
+            outs_all.append(outs[:-1])
+            base = outs[-1]
+            sy, sx = sy * stride[0], sx * stride[1]
+    return outs_all, scales
 
 
 def bow_assign_ref(desc: torch.Tensor, centroids: torch.Tensor):

@@ -13,13 +13,14 @@ every stage is a valid-mode op (`kernels.ref.chain_ref`), on a u8 or f32
 carrier; a Sobel pair is f32 whatever the carrier, and a gather
 (warp_affine, remap) samples at absolute image coordinates.
 
-Modules: `ir` (Stage IR and the band-arity walk), `plan` (halo, row walk,
-carry plan, ring layout, tile width, row segments), `exec_window` and
-`exec_streaming` (each kernel's planner, wrapper and plain version),
-`driver` (`fused_chain` and its mode resolution).
+Modules: `ir` (Stage IR, the band-arity walk and the next-base contract),
+`plan` (halo, levels, row walk, carry plan, ring layout, tile width, row
+segments), `exec_window` and `exec_streaming` (each kernel's planner,
+wrapper and plain version), `driver` (`fused_chain`, its mode resolution,
+and `chained_launches`: a pyramid, one launch per link).
 """
 
-from .driver import MODES, fused_chain, resolve_mode
+from .driver import MODES, chained_launches, fused_chain, resolve_mode
 from .ir import (
     Stage,
     affine_disp_bound,
@@ -31,20 +32,25 @@ from .ir import (
     gaussian_stage,
     grad_stage,
     pyr_down_stage,
+    pyr_up_stage,
     remap_stage,
     resize2_stage,
     resolve_chain,
     sep_filter_stage,
     sobel_stage,
     threshold_stage,
+    validate_next_base,
     warp_affine_stage,
 )
 from .plan import (
     chain_accumulated_halo,
     chain_halo,
     chain_iface,
+    chain_levels,
     chain_stream_plan,
     gather_metas,
+    pyramid_plan,
+    pyr_up_metas,
     stage_out_hw,
 )
 
@@ -55,8 +61,10 @@ __all__ = [
     "affine_stage",
     "box_stage",
     "chain_accumulated_halo",
+    "chained_launches",
     "chain_halo",
     "chain_iface",
+    "chain_levels",
     "chain_stream_plan",
     "dilate_stage",
     "erode_stage",
@@ -66,6 +74,9 @@ __all__ = [
     "gaussian_stage",
     "grad_stage",
     "pyr_down_stage",
+    "pyr_up_metas",
+    "pyr_up_stage",
+    "pyramid_plan",
     "remap_stage",
     "resize2_stage",
     "resolve_chain",
@@ -74,5 +85,6 @@ __all__ = [
     "sobel_stage",
     "stage_out_hw",
     "threshold_stage",
+    "validate_next_base",
     "warp_affine_stage",
 ]

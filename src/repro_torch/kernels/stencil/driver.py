@@ -21,7 +21,9 @@ Modes, and the kernel each names:
 
 A CPU tensor runs the plain version of the kernel its mode names; a CUDA
 tensor launches that kernel or raises.  There is no fallback to another
-kernel or to the plain version.
+kernel or to the plain version.  `chained_launches` runs a pyramid: one
+`fused_chain` launch per link, each link's next-base band the next one's
+input.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from ...core.device import DEFAULT, LaunchConfig
 from .. import ref
-from . import exec_streaming, exec_window, plan
+from . import exec_streaming, exec_window, ir, plan
 
 MODES = ("window", "streaming", "tiled2d", "ref")
 
@@ -61,9 +63,10 @@ def fused_chain(
     Returns one array when the chain ends with one live band, else a tuple
     (one per band, e.g. a Gaussian ladder's scales or a Sobel pair).  A
     band a pyrDown made is (ceil(H/2), ceil(W/2)) where the input is (H,
-    W), one a resize2 made (H//2, W//2); a strided stage must be the
-    chain's last on the kernels (`plan.kernel_walk`).  A band has the
-    input's dtype, but a Sobel pair is f32.  A remap stage's map planes
+    W), one a resize2 made (H//2, W//2), one a pyrUp made (2H, 2W), in the
+    order of the chain's resolution changes; a strided or upsampling map
+    stage may sit anywhere in the chain (`plan.chain_levels`).  A band has
+    the input's dtype, but a Sobel pair is f32.  A remap stage's map planes
     go to the kernel as they lie: on the image's device."""
     stages = tuple(stages)
     if not stages:
@@ -87,3 +90,41 @@ def fused_chain(
         )
     outs = tuple(ref.from_planes(o, img.shape) for o in outs)
     return outs[0] if len(outs) == 1 else outs
+
+
+def chained_launches(
+    img: torch.Tensor, chains, *, mode: str | None = None, lc: LaunchConfig = DEFAULT
+) -> tuple[list, list]:
+    """A pyramid of chains, one `fused_chain` launch per link over the whole
+    batch: link k+1 takes link k's last output band (its next base, the
+    strided terminal tap `ir.validate_next_base` requires of every link but
+    the last) as its input.  `mode=None` resolves each link's mode for its
+    own, shrinking planes; a link whose planes are no larger than its halo
+    launches `stencil_chain` like any other (the port has no plain-version
+    tail on the card), so the launches are the links.
+
+    Returns ``(outs, scales)``: ``outs[k]`` is link k's output bands
+    without the carry band, ``scales[k]`` the (row, col) factor that maps
+    link k's pixel (y, x) to base-image (y * sy, x * sx), exact because
+    strided taps decimate on image-even coordinates."""
+    chains = tuple(tuple(c) for c in chains)
+    if not chains:
+        raise ValueError("chained_launches: need at least one chain")
+    outs_all, scales = [], []
+    base = img
+    sy = sx = 1
+    for k, stages in enumerate(chains):
+        last = k == len(chains) - 1
+        if not last:
+            ir.validate_next_base(stages)
+        outs = fused_chain(base, stages, mode=mode, lc=lc)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        scales.append((sy, sx))
+        if last:
+            outs_all.append(outs)
+        else:
+            outs_all.append(outs[:-1])
+            base = outs[-1]
+            st = tuple(stages[-1].stride)
+            sy, sx = sy * st[0], sx * st[1]
+    return outs_all, scales

@@ -10,24 +10,29 @@ no stage's halo is recomputed from step to step.  See
 ``csrc/stencil_stream.cu`` for the design.
 
 `compile_stream` turns a chain and `LaunchConfig.stream_rows` into the
-kernel's program: `plan.stream_layout`'s streams with their ring offsets
-and depths, and one step per stage application (a Sobel writes two
+kernel's program: `plan.stream_layout`'s streams with their ring depths,
+levels, row rates and leads (the kernel lays the rings out by their
+levels' widths), and one step per stage application (a Sobel writes two
 streams, the pair reduction reads two; the bands a Sobel passes by wait
 in their own rings, as the bands of a tap stage do).  `stream_geometry`
-picks the column tile and the row segments of a launch.  A strided last
-stage (pyrDown, resize2) is planned at full resolution; its step computes
+picks the column tile and the row segments of a launch.  Each stream lives
+at its stage's level (`plan.chain_levels`) and advances its own rows a
+step: twice the rows above a stride before the last stage, half below a
+pyrUp; its ring's columns are its level's frame.  A strided last stage
+(pyrDown, resize2) is planned at its input's resolution; its step computes
 the image-even rows and columns of each step's rows and stores them
 straight to the decimated output, so step rows, segment starts and column
-tiles are all even.  A gather's ring holds its source rows up to the
-displacement halo on each side; it samples at the absolute image row of
-the ring and the image column ``co0 + t*cstep`` of tile t's column 0.
+tiles are all multiples of the stride product.  A gather's ring holds its
+source rows up to the displacement halo on each side; it samples at the
+absolute image row of the ring and the image column ``co0 + t*cstep`` of
+tile t's column 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -35,6 +40,7 @@ from ...core.device import DEFAULT, LaunchConfig
 from .. import _build, counters, ref
 from . import plan
 from .exec_window import (
+    MAX_LEVELS,
     MAX_STEPS,
     MAX_WEIGHTS,
     Bands,
@@ -46,10 +52,10 @@ from .exec_window import (
 )
 
 _STEP_FIELDS = (
-    "op", "src", "src2", "dst", "dst2", "kh", "kw", "wx", "wy", "rw", "lead", "store", "store2",
-    "down", "pk",
+    "op", "src", "src2", "dst", "dst2", "kh", "kw", "wx", "wy", "rw", "cw", "lead", "mult", "ls",
+    "lo", "store", "store2", "down", "pk",
 )
-_STREAM_FIELDS = ("depth", "offset", "store")
+_STREAM_FIELDS = ("depth", "level", "mult", "lead", "store")
 # threads of a block: its rings leave room for about one block per SM, so it
 # takes more than the other kernels (scripts/torch_stencil_sweep.py)
 MAX_THREADS = 1024
@@ -69,45 +75,43 @@ class _Program(ctypes.Structure):
     _fields_ = [
         ("n_steps", ctypes.c_int),
         ("n_streams", ctypes.c_int),
-        ("ph", ctypes.c_int),
-        ("pw", ctypes.c_int),
+        ("n_levels", ctypes.c_int),
         ("rows", ctypes.c_int),
-        ("scratch", ctypes.c_int),
-        ("pad", ctypes.c_int * 2),
+        ("prime", ctypes.c_int),
+        ("pad", ctypes.c_int * 3),
         ("steps", _Step * MAX_STEPS),
         ("streams", _Stream * (MAX_STEPS + 1)),
+        ("col_pads", ctypes.c_int * MAX_LEVELS),
         ("weights", ctypes.c_float * MAX_WEIGHTS),
     ]
 
 
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_stream_launch(in, bands*, prog, n, h, w, tile_w, n_seg, seg_rows, smem_rows, pw,
+# stencil_stream_launch(in, bands*, prog, n, h, w, tile_w, n_seg, seg_rows, smem_floats,
 #                       threads, u8, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
 class StreamProgram:
     """A chain compiled for `stencil_stream`: steps and streams as field
     dicts, the flat weights, the ring layout, the rows of shared memory
-    (rings + scratch) one block needs per column of its tile window, and
-    each output band's ``(dtype, strided op)`` (`plan.band_meta`)."""
+    (rings + scratch) one block needs per column of its tile window (one
+    level; `layout.smem_floats` in general), each output band's ``(dtype,
+    resolution ops)`` (`plan.band_meta`) and the chain's stride product."""
 
     steps: tuple
     streams: tuple
     weights: tuple
     layout: plan.StreamLayout
-    scratch: int
     bands: tuple
+    down: tuple = (1, 1)
+    # (shape, LaunchConfig, tiled, tile_w, sms) -> StreamGeometry: planned once
+    _memo: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def halo(self) -> tuple:
         return self.layout.halo
-
-    @property
-    def down(self) -> tuple:
-        """(row, col) stride product: a decimated band's 2 both ways, else 1."""
-        return (2, 2) if any(op for _dt, op in self.bands) else (1, 1)
 
     @property
     def n_bands(self) -> int:
@@ -118,18 +122,20 @@ class StreamProgram:
         return self.layout.smem_rows
 
     def packed(self) -> bytes:
+        lay = self.layout
         p = _Program(
             n_steps=len(self.steps),
             n_streams=len(self.streams),
-            ph=self.halo[0],
-            pw=self.halo[1],
-            rows=self.layout.rows,
-            scratch=self.scratch,
+            n_levels=len(lay.col_pads),
+            rows=lay.rows,
+            prime=lay.prime_steps,
         )
         for k, st in enumerate(self.steps):
             p.steps[k] = _Step(**st)
         for k, st in enumerate(self.streams):
             p.streams[k] = _Stream(**st)
+        for k, v in enumerate(lay.col_pads):
+            p.col_pads[k] = v
         for k, v in enumerate(self.weights):
             p.weights[k] = v
         return bytes(p)
@@ -139,8 +145,10 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
     """Plan the kernel's streams and steps for a chain of the ported
     stages, `rows` output rows per step."""
     resolved = check_ported(stages, "stencil_stream")
-    plan.check_strides(plan.stride_product(stages), rows, 0)
+    down = plan.stride_product(stages)
+    plan.check_strides(down, rows, 0)
     layout = plan.stream_layout(stages, rows)
+    lv = layout.lv
     if len(layout.apps) > MAX_STEPS:
         raise ValueError(f"stencil_stream: {len(layout.apps)} steps exceed the table's {MAX_STEPS}")
     weights: list = []
@@ -151,16 +159,15 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
     if len(weights) > MAX_WEIGHTS:
         raise ValueError(f"stencil_stream: {len(weights)} weights exceed the table's {MAX_WEIGHTS}")
     band_of = {s: b for b, s in enumerate(layout.outs)}
-    streams, offset = [], 0
+    streams = []
     for s, depth in enumerate(layout.depths):
         buffered_out = s in band_of and depth > 0
-        streams.append(
-            {"depth": depth, "offset": offset, "store": band_of[s] if buffered_out else -1}
-        )
-        offset += depth
-    # column halo the source still carries before stage k: the halos of k..end
-    col_halo = [sum(r[2][1] for r in resolved[k:]) for k in range(len(resolved))]
+        streams.append({
+            "depth": depth, "level": layout.levels[s], "mult": layout.mults[s],
+            "lead": layout.leads[s], "store": band_of[s] if buffered_out else -1,
+        })
     walk = plan.band_walk(stages, carrier)
+    last = len(resolved) - 1
     steps = []
     for k, srcs, dsts in layout.apps:
         direct = [layout.depths[d] == 0 for d in dsts]
@@ -171,15 +178,21 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
             src2=srcs[-1],
             dst=-1 if direct[0] else dsts[0],
             dst2=-1 if direct[-1] else dsts[-1],
-            rw=col_halo[k],
+            # the columns around the tile the source holds and the output covers
+            rw=lv.need[k][1],
+            cw=lv.need_out(k)[1],
             lead=layout.leads[dsts[0]],
+            mult=layout.mults[dsts[0]],
+            ls=lv.lv_in[k],
+            lo=lv.lv_out[k],
+            down=params[k]["down"] if k == last else 1,
             store=band_of[dsts[0]] if direct[0] else -1,
             store2=band_of[dsts[-1]] if len(dsts) > 1 and direct[-1] else -1,
             pk=int(walk.meta[dsts[0]][0] == torch.uint8),
         )
         steps.append(st)
     bands = tuple(walk.meta[i] for i in walk.outs)
-    return StreamProgram(tuple(steps), tuple(streams), tuple(weights), layout, offset, bands)
+    return StreamProgram(tuple(steps), tuple(streams), tuple(weights), layout, bands, down)
 
 
 @dataclass(frozen=True)
@@ -210,10 +223,22 @@ def stream_geometry(
     Untiled ("streaming"), the tile is the full width, and a chain whose
     rings do not fit `lc.smem_budget` raises `ValueError` naming the bytes.
     Tiled, the width is `tile_w`, else `lc.tile2d_cols`, else
-    `plan.pick_tile_plan`'s.  Segments: `lc.row_segments`, else
-    `plan.row_segments` for `sms` multiprocessors.  Threads: `MAX_THREADS`,
-    halved while they are at least as many as the values in one step's
-    rows of the tile window (small planes)."""
+    `plan.pick_tile_plan`'s; a tile is at the input's resolution and its
+    frame halves through each stride and doubles through each pyrUp (one
+    full-width tile is rounded up to the stride product, so that each
+    level's tile is whole).
+    Segments (of the rows at the chain's last level): `lc.row_segments`,
+    else `plan.row_segments` for `sms` multiprocessors.  Threads:
+    `MAX_THREADS`, halved while they are at least as many as the values in
+    one step's rows of the tile window (small planes)."""
+    key = (tuple(shape), lc, tiled, tile_w, sms)
+    hit = prog._memo.get(key)
+    if hit is None:
+        hit = prog._memo[key] = _stream_geometry(prog, tuple(shape), lc, tiled, tile_w, sms)
+    return hit
+
+
+def _stream_geometry(prog, shape, lc, tiled, tile_w, sms) -> StreamGeometry:
     N, H, W = shape
     layout = prog.layout
     if not tiled:
@@ -224,7 +249,9 @@ def stream_geometry(
             raise ValueError(f"stencil_stream: tile_w must be positive, got {tw}")
         plan.check_strides(prog.down, layout.rows, W, tw)
     else:
-        tw = plan.pick_tile_plan(layout, W, lc.smem_budget, PROGRAM_BYTES) or W
+        tw = plan.pick_tile_plan(layout, W, lc.smem_budget, PROGRAM_BYTES, prog.down[1]) or W
+    if tw >= W:  # one tile: as wide as the plane, rounded up to the stride product
+        tw = -(-W // prog.down[1]) * prog.down[1]
     smem = layout.smem_bytes(tw)
     if smem + PROGRAM_BYTES > lc.smem_budget:
         what = "full-width" if not tiled else f"{tw}-column"
@@ -233,10 +260,11 @@ def stream_geometry(
             f"(+{PROGRAM_BYTES} for the step table), over the budget of {lc.smem_budget}"
         )
     n_tiles = -(-W // tw)
+    h_last = layout.lv.size(layout.lv.n_levels - 1, H, W)[0]
     if lc.row_segments is not None:
-        n_seg, seg_rows = plan.fix_segments(lc.row_segments, H, layout.rows)
+        n_seg, seg_rows = plan.fix_segments(lc.row_segments, h_last, layout.rows)
     else:
-        n_seg, seg_rows = plan.row_segments(N, n_tiles, H, layout.rows, sms)
+        n_seg, seg_rows = plan.row_segments(N, n_tiles, h_last, layout.rows, sms)
     threads = MAX_THREADS
     while threads > 32 and threads >= layout.rows * (tw + 2 * layout.halo[1]):
         threads //= 2
@@ -289,8 +317,9 @@ def stencil_stream(
     tile_w: int | None = None,
 ) -> tuple:
     """(N, H, W) u8 or f32 planes -> tuple of output bands in one launch:
-    (N, H, W) each, or decimated for a band a pyrDown (ceil) or resize2
-    (floor) made; of the carrier's dtype, f32 for a Sobel pair.
+    (N, H, W) each, or resized by the pyrDowns (ceil half), resize2s (floor
+    half) and pyrUps (double) that made the band; of the carrier's dtype,
+    f32 for a Sobel pair.
 
     The chain is planned first on every device (an untiled chain whose
     rings exceed `lc.smem_budget` raises `ValueError`, as does a gather
@@ -308,7 +337,7 @@ def stencil_stream(
     fn = _launcher()
     check_planes("stencil_stream", planes)
     N, H, W = planes.shape
-    outs, bands = band_outputs(planes, prog.bands, stages)
+    outs, bands = band_outputs(planes, prog.bands, stages, prog.layout.lv, (1, geom.tile_w))
     with torch.cuda.device(planes.device):
         err = fn(
             planes.data_ptr(),
@@ -320,8 +349,7 @@ def stencil_stream(
             geom.tile_w,
             geom.n_seg,
             geom.seg_rows,
-            prog.smem_rows,
-            prog.halo[1],
+            geom.smem_bytes // 4,
             geom.threads,
             int(planes.dtype == torch.uint8),
             _build.cuda_stream(planes.device),

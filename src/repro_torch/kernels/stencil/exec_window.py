@@ -15,19 +15,23 @@ pair reduction reads two), which halo the source band still carries,
 whether the step packs its result to u8, and which output bands are final
 after the step and stored.  Every output band has a buffer of its own
 dtype and size (`band_outputs`): the carrier's, or f32 for a Sobel pair.
-A strided last stage (pyrDown, resize2) computes only the image-even rows
-and columns of the tile and stores them straight to its decimated output;
-tiles then start on even rows and columns.  A gather (warp_affine, remap)
-samples its source band at absolute image coordinates, the window's
-origin (tile origin minus the pad) plus the window index; remap's map
-planes are read from device memory.
+Each step runs in the frame of its level (`plan.chain_levels`): the tile
+at that resolution plus the level's pad, a tile that is a multiple of the
+chain's stride product, so every level's tile is whole.  A strided stage
+before the last halves the frame of the stages after it and a pyrUp
+doubles it, writing both phases into the doubled frame; a strided last
+stage (pyrDown, resize2) computes only the image-even rows and columns of
+the tile and stores them straight to its decimated output.  A gather
+(warp_affine, remap) samples its source band at absolute image
+coordinates, its level's origin (tile origin minus the pad) plus the
+frame index; remap's map planes are read from device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -35,12 +39,14 @@ from ...core.device import DEFAULT, LaunchConfig
 from .. import _build, counters, ref
 from .plan import (
     SEPARABLE_OPS,
+    Levels,
     aligned_pad,
+    band_hw,
     band_walk,
     chain_accumulated_halo,
+    chain_levels,
     check_gathers,
     kernel_walk,
-    stage_out_hw,
     stride_product,
 )
 
@@ -48,6 +54,7 @@ MAX_STEPS = 32
 MAX_WEIGHTS = 512
 MAX_BANDS = 16
 MAX_MAPS = 4
+MAX_LEVELS = 8
 # stage op -> the kernels' op code (csrc/stencil_ops.cuh `stencil::Op`);
 # grad_mag in reduce mode is the pair magnitude, GRAD_PAIR
 OP_CODES = {
@@ -64,13 +71,14 @@ OP_CODES = {
     "resize2": 12,
     "warp_affine": 13,
     "remap": 14,
+    "pyr_up": 15,
 }
 _STORE = 3
 GRAD_PAIR = 11
 CARRIERS = (torch.uint8, torch.float32)
 _STEP_FIELDS = (
-    "op", "src", "src2", "dst", "dst2", "tmp", "kh", "kw", "wx", "wy", "rh", "rw", "store",
-    "store2", "down", "pk",
+    "op", "src", "src2", "dst", "dst2", "tmp", "kh", "kw", "wx", "wy", "rh", "rw", "oh", "ow",
+    "ls", "lo", "store", "store2", "down", "pk",
 )
 
 
@@ -83,16 +91,19 @@ class _Program(ctypes.Structure):
 
     _fields_ = [
         ("n_steps", ctypes.c_int),
-        ("pad", ctypes.c_int * 3),
+        ("n_levels", ctypes.c_int),
+        ("pad", ctypes.c_int * 2),
         ("steps", _Step * MAX_STEPS),
+        ("pads", ctypes.c_int * (2 * MAX_LEVELS)),
         ("weights", ctypes.c_float * MAX_WEIGHTS),
     ]
 
 
 class Bands(ctypes.Structure):
     """Mirror of ``stencil::Bands`` in csrc/stencil_ops.cuh: each output
-    band's buffer, dtype and (h, w), and each remap stage's map planes
-    (map_x, map_y), passed to the kernel by value."""
+    band's buffer, dtype and (h, w), each remap stage's map planes (map_x,
+    map_y), and each level's image (h, w) and tile (rows, cols) at this
+    launch, passed to the kernel by value."""
 
     _fields_ = [
         ("out", ctypes.c_void_p * MAX_BANDS),
@@ -100,58 +111,83 @@ class Bands(ctypes.Structure):
         ("u8", ctypes.c_int * MAX_BANDS),
         ("h", ctypes.c_int * MAX_BANDS),
         ("w", ctypes.c_int * MAX_BANDS),
+        ("lh", ctypes.c_int * MAX_LEVELS),
+        ("lw", ctypes.c_int * MAX_LEVELS),
+        ("th", ctypes.c_int * MAX_LEVELS),
+        ("tw", ctypes.c_int * MAX_LEVELS),
     ]
 
 
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_chain_launch(in, bands*, prog, n, h, w, tile_h, tile_w, ph, pw, n_slots, threads, u8,
+# stencil_chain_launch(in, bands*, prog, n, h, w, tile_h, tile_w, slot, n_slots, threads, u8,
 #                      stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
 class ChainProgram:
     """A chain compiled for the kernel: steps as field dicts, the flat tap
     weights, the shared-memory slots it needs, each output band's ``(dtype,
-    strided op)`` (`plan.band_meta`) and the window's pad: the chain's
-    accumulated halo, aligned to its stride product."""
+    resolution ops)`` (`plan.band_meta`), the window's pad (the chain's
+    accumulated halo, aligned to its stride product), the levels of the
+    chain (`plan.Levels`) with each level's pad (level 0: `halo`), and the
+    stride product a tile must be a multiple of."""
 
     steps: tuple
     weights: tuple
     n_slots: int
     bands: tuple
     halo: tuple
+    levels: Levels | None = None
+    pads: tuple = ()
+    unit: tuple = (1, 1)
+    # (tile) -> slot floats and (LaunchConfig) -> pick_tile: planned once
+    _memo: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def n_bands(self) -> int:
         return len(self.bands)
 
-    @property
-    def downs(self) -> tuple:
-        """Each band's decimation: 2 after a pyrDown or resize2, else 1."""
-        return tuple(1 if op is None else 2 for _dt, op in self.bands)
+    def frame(self, level: int, th: int, tw: int) -> tuple:
+        """(rows, cols) of a level's frame for a (th, tw) input tile."""
+        lt = self.levels.tile(level, th, tw)
+        return lt[0] + 2 * self.pads[level][0], lt[1] + 2 * self.pads[level][1]
+
+    def slot_floats(self, th: int, tw: int) -> int:
+        """Floats of one slot: the largest level frame, or the row-pass
+        scratch of a resolution change (a pyrUp's: its output rows at its
+        input's width; a strided stage's: its input rows at its output's
+        width), if larger."""
+        areas = [r * c for r, c in (self.frame(lv, th, tw) for lv in range(len(self.pads)))]
+        for st in self.steps:
+            if st["ls"] != st["lo"]:
+                (rs, cs), (rd, cd) = self.frame(st["ls"], th, tw), self.frame(st["lo"], th, tw)
+                areas.append(rd * cs if st["op"] == OP_CODES["pyr_up"] else rs * cd)
+        return max(areas)
 
     def packed(self) -> bytes:
-        p = _Program(n_steps=len(self.steps))
+        p = _Program(n_steps=len(self.steps), n_levels=len(self.pads))
         for k, st in enumerate(self.steps):
             p.steps[k] = _Step(**st)
+        for k, (py, px) in enumerate(self.pads):
+            p.pads[2 * k], p.pads[2 * k + 1] = py, px
         for k, v in enumerate(self.weights):
             p.weights[k] = v
         return bytes(p)
 
 
 def check_ported(stages, kernel: str) -> list:
-    """The chain's `plan.kernel_walk`; raise `NotImplementedError` for a
-    stage the kernels do not run yet (an upsample, a strided stage before
-    the last, more remap stages or output bands than the tables hold)."""
+    """The chain's `plan.kernel_walk`; raise `NotImplementedError` where a
+    chain needs more output bands, remap stages or resolution levels than
+    the kernels' tables hold."""
     resolved = kernel_walk(stages)
-    for op, mode, _, _, up, *_ in resolved:
-        if op not in OP_CODES or up != (1, 1):
-            raise NotImplementedError(f"{kernel}: {op!r} in {mode!r} mode is not ported to the kernel yet")
     n_bands = resolved[-1][6] if resolved else 1
-    if n_bands > MAX_BANDS or sum(s.op == "remap" for s in stages) > MAX_MAPS:
+    n_levels = chain_levels(stages).n_levels
+    if (n_bands > MAX_BANDS or sum(s.op == "remap" for s in stages) > MAX_MAPS
+            or n_levels > MAX_LEVELS):
         raise NotImplementedError(
-            f"{kernel}: at most {MAX_BANDS} output bands and {MAX_MAPS} remap stages a launch"
+            f"{kernel}: at most {MAX_BANDS} output bands, {MAX_MAPS} remap stages and "
+            f"{MAX_LEVELS} resolution levels a launch"
         )
     return resolved
 
@@ -193,12 +229,16 @@ def stage_params(s, mode: str, halo: tuple, weights: list, maps: list) -> dict:
 
 
 def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
-    """Plan the kernel's steps for a chain of the ported stages (others
-    raise `NotImplementedError`).  Slot 0 holds the input window; each band
-    takes a slot from its step until the last stage that reads it, and is
-    stored by the step that makes it when it is an output band."""
+    """Plan the kernel's steps for a chain (`NotImplementedError` past the
+    tables' limits).  Slot 0 holds the input window; each band takes a slot
+    from its step until the last stage that reads it, and is stored by the
+    step that makes it when it is an output band.  A step's ``rh, rw`` are
+    the rows and columns around the tile its source holds and ``oh, ow``
+    those its output covers, at the levels ``ls`` and ``lo`` of its source
+    and output; ``down`` is 2 for a strided last stage only, which stores
+    straight to its decimated band."""
     resolved = check_ported(stages, "stencil_chain")
-    ph_acc, pw_acc = chain_accumulated_halo(stages)
+    lv = chain_levels(stages)
     walk = band_walk(stages, carrier)
     final = {d: b for b, d in enumerate(walk.outs)}
     in_use = [True]  # slot 0 holds the input window
@@ -218,18 +258,22 @@ def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
 
     steps, weights, maps = [], [], []
     slot_of = {0: 0}
-    rh, rw = ph_acc, pw_acc
+    last = len(resolved) - 1
     if 0 in final:  # the input band is an output as it is
-        steps.append(step(op=_STORE, rh=rh, rw=rw, store=final[0]))
+        rh, rw = lv.need[0] if resolved else (0, 0)
+        steps.append(step(op=_STORE, rh=rh, rw=rw, oh=rh, ow=rw, store=final[0]))
     for k, (s, (op, mode, (hy, hx), *_rest), stage) in enumerate(zip(stages, resolved, walk.apps)):
         params = stage_params(s, mode, (hy, hx), weights, maps)
+        params["down"] = params["down"] if k == last else 1
+        (rh, rw), (oh, ow) = lv.need[k], lv.need_out(k)
         for srcs, dsts in stage:
-            # a strided stage stores straight from its last pass: no dst slot
+            # a strided last stage stores straight from its last pass: no dst slot
             dslots = [alloc() if params["down"] == 1 else -1 for _ in dsts]
-            tmp = alloc() if op in SEPARABLE_OPS else dslots[0]
+            tmp = alloc() if op in SEPARABLE_OPS or op == "pyr_up" else dslots[0]
             src = [slot_of[i] for i in srcs]
             steps.append(step(
                 src=src[0], src2=src[-1], dst=dslots[0], dst2=dslots[-1], tmp=tmp, rh=rh, rw=rw,
+                oh=oh, ow=ow, ls=lv.lv_in[k], lo=lv.lv_out[k],
                 store=final.get(dsts[0], -1), store2=final.get(dsts[-1], -1) if len(dsts) > 1 else -1,
                 pk=int(walk.meta[dsts[0]][0] == torch.uint8), **params,
             ))
@@ -239,7 +283,6 @@ def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
             for i in srcs:  # a map's source is replaced: free it at once
                 if walk.last_read[i] <= k and slot_of.get(i, -1) >= 0:
                     in_use[slot_of.pop(i)] = False
-        rh, rw = rh - hy, rw - hx
         for i in [i for i, sl in slot_of.items() if sl >= 0 and walk.last_read[i] <= k]:
             in_use[slot_of.pop(i)] = False
     if len(steps) > MAX_STEPS or len(weights) > MAX_WEIGHTS:
@@ -247,33 +290,45 @@ def compile_chain(stages, carrier: torch.dtype = torch.float32) -> ChainProgram:
             f"stencil_chain: {len(steps)} steps / {len(weights)} weights exceed the "
             f"kernel's table ({MAX_STEPS} / {MAX_WEIGHTS})"
         )
+    ph_acc, pw_acc = chain_accumulated_halo(stages)
     down_y, down_x = stride_product(stages)
     halo = (aligned_pad(ph_acc, down_y), aligned_pad(pw_acc, down_x))
     bands = tuple(walk.meta[i] for i in walk.outs)
-    return ChainProgram(tuple(steps), tuple(weights), len(in_use), bands, halo)
+    pads = (halo,) + lv.pads[1:]
+    return ChainProgram(tuple(steps), tuple(weights), len(in_use), bands, halo, lv, pads,
+                        (down_y, down_x))
 
 
 def pick_tile(prog: ChainProgram, lc: LaunchConfig) -> tuple[int, int, int]:
-    """Largest tile (halving from the configured one) whose window slots fit
-    the block's shared-memory budget.  Returns (tile_h, tile_w, bytes).  A
-    chain with a pyrDown needs even tiles, so that every tile starts on an
-    image-even row and column.  The window is the tile plus the chain's
-    accumulated halo, the gathers' included."""
-    down = max(prog.downs)
+    """Largest tile (halving from the configured one) whose slots fit the
+    block's shared-memory budget.  Returns (tile_h, tile_w, bytes).  A tile
+    is a multiple of the chain's stride product, so that every level's
+    tile is whole and starts on an image-even row and column above a
+    stride.  The tile is at the input's resolution; the window is the tile
+    plus the chain's accumulated halo, the gathers' included."""
+    hit = prog._memo.get(lc)
+    if hit is None:
+        hit = prog._memo[lc] = _pick_tile(prog, lc)
+    return hit
+
+
+def _pick_tile(prog: ChainProgram, lc: LaunchConfig) -> tuple[int, int, int]:
+    uy, ux = prog.unit
     th, tw = lc.tile_rows, lc.tile_cols
-    if th % down or tw % down:
-        raise ValueError(f"stencil_chain: a {th}x{tw} tile is not a multiple of the stride {down}")
-    ph, pw = prog.halo
+    if th % uy or tw % ux:
+        raise ValueError(
+            f"stencil_chain: a {th}x{tw} tile is not a multiple of the stride product {prog.unit}"
+        )
     while True:
-        smem = prog.n_slots * (th + 2 * ph) * (tw + 2 * pw) * 4
+        smem = prog.n_slots * prog.slot_floats(th, tw) * 4
         if smem + PROGRAM_BYTES <= lc.smem_budget:
             return th, tw, smem
-        if th == tw == down:
+        if th == uy and tw == ux:
             raise ValueError(
                 f"stencil_chain: a {th}x{tw} tile under the halo {prog.halo} needs "
                 f"{smem + PROGRAM_BYTES} bytes of shared memory, over the budget of {lc.smem_budget}"
             )
-        th, tw = max(down, th // 2 // down * down), max(down, tw // 2 // down * down)
+        th, tw = max(uy, th // 2 // uy * uy), max(ux, tw // 2 // ux * ux)
 
 
 def chain_key(stages) -> tuple:
@@ -334,15 +389,20 @@ def check_planes(name: str, planes: torch.Tensor) -> None:
         )
 
 
-def band_outputs(planes: torch.Tensor, bands, stages) -> tuple:
+def band_outputs(planes: torch.Tensor, bands, stages, levels: Levels, tile=(1, 1)) -> tuple:
     """One buffer per output band, (N, h_b, w_b) of the band's dtype ((H,
-    W), or `stage_out_hw` of the strided op that made it), and the `Bands`
-    table the kernel takes: those buffers and the remap stages' map planes,
-    which must lie on the planes' device as contiguous f32 (H, W)."""
+    W), or `plan.band_hw` of the resolution ops that made it), and the
+    `Bands` table the kernel takes: those buffers, the remap stages' map
+    planes, which must lie on the planes' device as contiguous f32 planes
+    of their level's size, and each level's image size and tile for an
+    input tile of `tile` (rows, cols)."""
     N, H, W = planes.shape
     outs, table = [], Bands()
-    for b, (dt, op) in enumerate(bands):
-        h, w = stage_out_hw(op, H, W)
+    for lv in range(levels.n_levels):
+        table.lh[lv], table.lw[lv] = levels.size(lv, H, W)
+        table.th[lv], table.tw[lv] = levels.tile(lv, *tile)
+    for b, (dt, ops) in enumerate(bands):
+        h, w = band_hw(ops, H, W)
         o = torch.empty((N, h, w), dtype=dt, device=planes.device)
         outs.append(o)
         table.out[b], table.u8[b], table.h[b], table.w[b] = o.data_ptr(), dt == torch.uint8, h, w
@@ -359,8 +419,9 @@ def band_outputs(planes: torch.Tensor, bands, stages) -> tuple:
 
 def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> tuple:
     """(N, H, W) u8 or f32 planes -> tuple of output bands in one launch:
-    (N, H, W) each, or decimated for a band a pyrDown (ceil) or resize2
-    (floor) made; of the carrier's dtype, f32 for a Sobel pair.
+    (N, H, W) each, or resized by the pyrDowns (ceil half), resize2s (floor
+    half) and pyrUps (double) that made the band; of the carrier's dtype,
+    f32 for a Sobel pair.
 
     The gathers' displacement bounds are checked first (`plan.check_gathers`,
     `ValueError`).  Then a CPU tensor runs the plain version; any other
@@ -375,7 +436,7 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
     prog, dev_prog = _program(stages, planes.dtype, planes.device)
     th, tw, _ = pick_tile(prog, lc)
     N, H, W = planes.shape
-    outs, table = band_outputs(planes, prog.bands, stages)
+    outs, table = band_outputs(planes, prog.bands, stages, prog.levels, (th, tw))
     with torch.cuda.device(planes.device):
         err = fn(
             planes.data_ptr(),
@@ -386,8 +447,7 @@ def stencil_chain(planes: torch.Tensor, stages, lc: LaunchConfig = DEFAULT) -> t
             W,
             th,
             tw,
-            prog.halo[0],
-            prog.halo[1],
+            prog.slot_floats(th, tw),
             prog.n_slots,
             lc.threads,
             int(planes.dtype == torch.uint8),

@@ -7,12 +7,13 @@ the image lies on) and an optional ``tap`` band index that switches the
 stage from mapping over the band state to appending its result.
 `resolve_chain` is the static band-arity walk every executor consumes.
 
-Ported: ``filter2d``, ``sep_filter`` (and its Gaussian builder), ``box``,
-``erode``, ``dilate``, ``threshold``, ``affine``, ``grad_mag`` (and its
-pair reduction), ``sobel``, the strided ``pyr_down`` and ``resize2``, and
-the gathers ``warp_affine`` and ``remap`` with the displacement-bound
-helpers they share with the planner.  ``pyr_up`` is queued (ROADMAP, the
-chain kernel's stage body (d)) and raises `NotImplementedError`.
+Every op of the JAX IR is ported: ``filter2d``, ``sep_filter`` (and its
+Gaussian builder), ``box``, ``erode``, ``dilate``, ``threshold``,
+``affine``, ``grad_mag`` (and its pair reduction), ``sobel``, the strided
+``pyr_down`` and ``resize2``, the 2x upsample ``pyr_up``, and the gathers
+``warp_affine`` and ``remap`` with the displacement-bound helpers they
+share with the planner.  `validate_next_base` is the cross-launch contract
+of a pyramid link.
 """
 
 from __future__ import annotations
@@ -39,14 +40,15 @@ _N_WEIGHTS = {
     "sobel": 0,
     "warp_affine": 0,
     "remap": 2,
+    "pyr_up": 0,
 }
 # (row, col) output decimation of the strided ops
 STRIDES = {"pyr_down": (2, 2), "resize2": (2, 2)}
+# (row, col) output upsample factor (a fractional stride)
+UPSAMPLES = {"pyr_up": (2, 2)}
 # gather stages: they read data-dependent (statically bounded) offsets at
 # the band's absolute image coordinates
 GATHER_OPS = frozenset({"warp_affine", "remap"})
-# ops of the JAX IR whose port is queued
-QUEUED_OPS = frozenset({"pyr_up"})
 
 
 def _gather_halo(by: float, bx: float) -> tuple[int, int]:
@@ -70,8 +72,6 @@ class Stage:
     tap: int | None = None
 
     def __post_init__(self):
-        if self.op in QUEUED_OPS:
-            raise NotImplementedError(f"stage op {self.op!r} is not ported yet")
         if self.op not in _N_WEIGHTS:
             raise ValueError(f"unknown stage op {self.op!r}")
         if len(self.weights) != _N_WEIGHTS[self.op]:
@@ -90,7 +90,7 @@ class Stage:
             return ky.shape[0] // 2, kx.shape[0] // 2
         if self.op in ("erode", "dilate", "box"):
             return self.static[0], self.static[0]
-        if self.op in ("grad_mag", "sobel"):
+        if self.op in ("grad_mag", "sobel", "pyr_up"):
             return 1, 1
         if self.op == "pyr_down":
             return 2, 2
@@ -108,7 +108,8 @@ class Stage:
 
     @property
     def upsample(self) -> tuple[int, int]:
-        return 1, 1
+        """(row, col) output upsample factor: 2 for pyrUp, else 1."""
+        return UPSAMPLES.get(self.op, (1, 1))
 
 
 def filter_stage(kernel, *, tap: int | None = None) -> Stage:
@@ -183,6 +184,14 @@ def resize2_stage(*, tap: int | None = None) -> Stage:
     """2x downsample by 2x2 mean (`cv.imgproc.resize_half`); out =
     floor(size/2)."""
     return Stage("resize2", tap=tap)
+
+
+def pyr_up_stage() -> Stage:
+    """OpenCV pyrUp: the 2x zero-insert upsample convolved with 4x the 5-tap
+    [1,4,6,4,1]/16 Gaussian; per axis the even output phase is [1,6,1]/8
+    and the odd one [4,4]/8; out = 2*size.  Map-only: an upsampled tap
+    would leave the band state at two resolutions mid-chain."""
+    return Stage("pyr_up")
 
 
 def _affine_disp_over(m, min_y, max_y, min_x, max_x) -> tuple[float, float]:
@@ -265,8 +274,9 @@ def resolve_chain(stages) -> list:
     stride, up, bands_in, bands_out, tap)``; mode is map, tap, emit or
     reduce, and ``tap`` is the normalised source band of a tap stage.  A
     Sobel emits (replaces the last band with its dx / dy pair), grad_mag
-    over two or more live bands reduces the last two, and a strided stage
-    that is not a map must be the chain's last (JAX's contract)."""
+    over two or more live bands reduces the last two, an upsampling stage
+    is map-only, and a strided stage that is not a map must be the chain's
+    last (JAX's contract); a strided map stage may sit anywhere."""
     n = 1
     out = []
     for s in stages:
@@ -280,6 +290,11 @@ def resolve_chain(stages) -> list:
         elif op == "grad_mag" and n >= 2:
             mode, halo, n2 = "reduce", (0, 0), n - 1
         elif tap is not None:
+            if tuple(s.upsample) != (1, 1):
+                raise ValueError(
+                    f"upsampling stage {op!r} does not support tap= (mixed-resolution states "
+                    "are map-only)"
+                )
             if not -n <= tap < n:
                 raise ValueError(f"stage {op!r}: tap={tap} out of range for {n} live band(s)")
             tap = tap % n
@@ -295,3 +310,19 @@ def resolve_chain(stages) -> list:
                 "(geometry-changing taps are terminal)"
             )
     return out
+
+
+def validate_next_base(stages) -> int:
+    """The next-base contract of a pyramid link: a chain whose last output
+    band feeds the next launch must end with a strided terminal tap (e.g.
+    `pyr_down_stage(tap=...)`), so that band is the downsampled base of the
+    next link while the full-resolution bands stay products.  Returns the
+    carry band's index in the chain's output tuple (always the last)."""
+    op, mode, _halo, stride, _up, _n_in, n_out, _tap = resolve_chain(stages)[-1]
+    if mode != "tap" or stride == (1, 1):
+        raise ValueError(
+            f"next_base contract: the final stage ({op!r}, mode {mode!r}, stride {stride}) is "
+            "not a strided terminal tap; a pyramid link must end with e.g. "
+            "pyr_down_stage(tap=...) so its last output band is the next launch's base"
+        )
+    return n_out - 1

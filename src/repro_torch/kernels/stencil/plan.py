@@ -13,25 +13,27 @@ to what the port's two kernels need.
   * `row_segments` — how many row segments of a plane run as blocks of
     their own;
   * `band_walk` — which stage reads and makes which band, and its dtype;
-  * `stage_out_hw`, `band_meta`, `stride_product`,
-    `check_strides` and `aligned_pad` — the geometry of a strided stage
-    and of each output band (the JAX planner's `build_chain_geom` and
-    `_band_meta`): each band's dtype, decimation and output size, the
-    stride product that step rows and column tiles must be multiples of,
-    and a left pad that puts local-even columns on image-even ones;
+  * `stage_out_hw`, `band_meta`, `band_hw`, `stride_product`,
+    `check_strides` and `aligned_pad` — the geometry of a strided or
+    upsampling stage and of each output band (the JAX planner's
+    `build_chain_geom` and `_band_meta`): each band's dtype, resolution
+    changes and output size, the stride product that step rows and column
+    tiles must be multiples of, and a left pad that puts local-even
+    columns on image-even ones;
+  * `kernel_walk` and `chain_levels` — the resolutions a kernel walks
+    through: a strided last stage is planned at its input's resolution
+    (the kernels decimate it as they store), every other strided or
+    upsampling map stage starts a new level, with its own frame (tile,
+    pad, image size) for the stages after it; `pyr_up_metas` states a
+    pyrUp's phase meta as the JAX planner does;
   * `gather_metas` — the gather stages' absolute origins (row step, row
     offset, column origin, column-origin step) and the check that each
     declared displacement bound covers the halo ring later stages read.
-
-The kernels run a strided stage only as the chain's last stage (a map
-pyrDown or resize2, or a terminal tap of one): they compute it at full
-resolution and keep its image-even rows and columns as they store them,
-so they plan its rows as those of a stride-1 stage (`kernel_walk`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -82,7 +84,8 @@ class BandWalk:
     destination ids)``: one per band of a map, one for a tap, a Sobel's
     two destinations, the pair reduction's two sources.  ``outs[b]`` is
     the id of output band b; ``last_read[i]`` the last stage that reads
-    band i (-1: none); ``meta[i]`` its ``(dtype, strided op)``."""
+    band i (-1: none); ``meta[i]`` its ``(dtype, resolution ops)``, the
+    strided and upsampling ops that made it or its sources, in order."""
 
     apps: tuple
     outs: tuple
@@ -94,10 +97,10 @@ def band_walk(stages, carrier: torch.dtype = torch.float32) -> BandWalk:
     """Walk the chain's band arity: a map replaces every band, a tap
     appends one, a Sobel replaces the last band with an f32 pair and the
     pair reduction the last two with their magnitude in the carrier.  A
-    band's strided op is the pyrDown or resize2 that made it or its
-    source (JAX `_band_meta` names the op of a tapped band)."""
-    ids, apps, last_read, meta = [0], [], {0: -1}, {0: (carrier, None)}
-    for k, (op, mode, _h, stride, _up, _n_in, _n_out, tap) in enumerate(resolve_chain(stages)):
+    band's resolution ops are the pyrDowns, resize2s and pyrUps that made
+    it or its sources (JAX `_band_meta` names the op of a tapped band)."""
+    ids, apps, last_read, meta = [0], [], {0: -1}, {0: (carrier, ())}
+    for k, (op, mode, _h, stride, up, _n_in, _n_out, tap) in enumerate(resolve_chain(stages)):
         if mode == "map":
             groups = [((b,), 1) for b in ids]
         elif mode == "tap":
@@ -108,12 +111,12 @@ def band_walk(stages, carrier: torch.dtype = torch.float32) -> BandWalk:
             groups = [((ids[-2], ids[-1]), 1)]
         stage, news = [], []
         for srcs, n_dst in groups:
-            dt, src_op = meta[srcs[0]]
+            dt, ops = meta[srcs[0]]
             dt = torch.float32 if mode == "emit" else carrier if mode == "reduce" else dt
-            src_op = op if stride != (1, 1) else src_op
+            ops = ops + (op,) if stride != (1, 1) or up != (1, 1) else ops
             dsts = tuple(range(len(meta), len(meta) + n_dst))
             for d in dsts:
-                last_read[d], meta[d] = -1, (dt, src_op)
+                last_read[d], meta[d] = -1, (dt, ops)
             for src in srcs:
                 last_read[src] = k
             stage.append((srcs, dsts))
@@ -131,11 +134,18 @@ def band_walk(stages, carrier: torch.dtype = torch.float32) -> BandWalk:
 
 
 def band_meta(stages, carrier: torch.dtype = torch.float32) -> list:
-    """Per output band, ``(dtype, op)``: the carrier, or f32 for a band of a
-    Sobel pair; and the strided op that made it ("pyr_down", "resize2"), or
-    None for a band at the input's resolution."""
+    """Per output band, ``(dtype, ops)``: the carrier, or f32 for a band of a
+    Sobel pair; and the resolution ops that made it ("pyr_down", "resize2",
+    "pyr_up"), in order, () for a band at the input's resolution."""
     walk = band_walk(stages, carrier)
     return [walk.meta[i] for i in walk.outs]
+
+
+def band_hw(ops, h: int, w: int) -> tuple[int, int]:
+    """(h, w) of a band made by resolution ops `ops` from an (h, w) input."""
+    for op in ops:
+        h, w = stage_out_hw(op, h, w)
+    return h, w
 
 
 def stride_product(stages) -> tuple[int, int]:
@@ -246,6 +256,8 @@ def gather_metas(stages, shape: tuple, rows: int, tile_w: int | None = None) -> 
             h_cur, w_cur = stage_out_hw(op, h_cur, w_cur)
             if stride[1] > 1:
                 co, cstep = co // stride[1], cstep // stride[1]
+            elif up[1] > 1:
+                co, cstep = co * up[1], cstep * up[1]
     return metas
 
 
@@ -256,16 +268,131 @@ def check_gathers(stages, shape: tuple, rows: int, tile_w: int | None = None) ->
 
 
 def kernel_walk(stages) -> list:
-    """`resolve_chain` as the kernels plan it: a strided stage must be the
-    last one (else `NotImplementedError`), and its rows are planned at full
-    resolution (stride 1); the kernels decimate as they store."""
+    """`resolve_chain` as the kernels plan it: a strided last stage (a map
+    pyrDown or resize2, or a terminal tap of one) is planned at its input's
+    resolution (stride 1), because the kernels decimate it as they store;
+    every other strided or upsampling map stage changes the resolution of
+    the stages after it (`chain_levels`)."""
     resolved = resolve_chain(stages)
-    for k, (op, mode, halo, stride, *rest) in enumerate(resolved):
-        if stride != (1, 1) and k != len(resolved) - 1:
-            raise NotImplementedError(
-                f"stencil kernels: a strided {op!r} stage before the chain's last is not ported yet"
-            )
-    return [(op, mode, halo, (1, 1), *rest) for op, mode, halo, _stride, *rest in resolved]
+    if resolved and resolved[-1][3] != (1, 1):
+        op, mode, halo, _stride, *rest = resolved[-1]
+        resolved[-1] = (op, mode, halo, (1, 1), *rest)
+    return resolved
+
+
+@dataclass(frozen=True)
+class Levels:
+    """The resolutions a kernel walks through a chain (`kernel_walk`).
+
+    Level 0 is the input's; every strided or upsampling map stage but a
+    strided last one starts a new level.  ``lv_in[k]`` / ``lv_out[k]``:
+    the levels of stage k's input and output.  ``steps[l]``: the
+    resolution changes from the input to level l, as ``(op, stride, up)``.
+    ``need[k]``: the (rows, cols) around the tile that stage k's input
+    must hold at its own level, so that every final band covers the tile:
+    the backward walk ``n -> s*n + h`` through a stride s, ``ceil(n/u) +
+    h`` through an upsample u, ``n + h`` otherwise (symmetric: a stride's
+    window is one row shorter below, which costs one row of work).
+    ``pads[l]``: the most any stage input of level l needs (the first
+    one's), 0 for a level that only the last stage writes."""
+
+    lv_in: tuple
+    lv_out: tuple
+    steps: tuple
+    need: tuple
+    pads: tuple
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.steps)
+
+    def need_out(self, k: int) -> tuple:
+        """(rows, cols) stage k's output must cover around the tile."""
+        return self.need[k + 1] if k + 1 < len(self.need) else (0, 0)
+
+    def size(self, level: int, h: int, w: int) -> tuple:
+        """Image (h, w) at `level` for an (h, w) input (`stage_out_hw`)."""
+        for op, _stride, _up in self.steps[level]:
+            h, w = stage_out_hw(op, h, w)
+        return h, w
+
+    def tile(self, level: int, th: int, tw: int) -> tuple:
+        """A (th, tw) input tile at `level`: divided by each stride (rounded
+        up: exact for tiles that are multiples of the stride product, and
+        covering for the one full-width tile), multiplied by each upsample."""
+        for _op, (sy, sx), (uy, ux) in self.steps[level]:
+            th, tw = -(-th // sy) * uy, -(-tw // sx) * ux
+        return th, tw
+
+
+def chain_levels(stages) -> Levels:
+    """`Levels` of a chain of stages."""
+    walk = kernel_walk(stages)
+    steps, lv_in, lv_out = [()], [], []
+    for op, mode, _halo, stride, up, *_rest in walk:
+        lv_in.append(len(steps) - 1)
+        if mode == "map" and (stride != (1, 1) or up != (1, 1)):
+            steps.append(steps[-1] + ((op, tuple(stride), tuple(up)),))
+        lv_out.append(len(steps) - 1)
+    need = [(0, 0)] * len(walk)
+    ny = nx = 0
+    for k in range(len(walk) - 1, -1, -1):
+        _op, mode, (hy, hx), (sy, sx), (uy, ux), *_rest = walk[k]
+        if mode == "map":
+            ny, nx = -(-ny // uy) * sy + hy, -(-nx // ux) * sx + hx
+        else:
+            ny, nx = ny + hy, nx + hx
+        need[k] = (ny, nx)
+    pads = [(0, 0)] * len(steps)
+    for k in range(len(walk) - 1, -1, -1):
+        pads[lv_in[k]] = need[k]
+    return Levels(tuple(lv_in), tuple(lv_out), tuple(steps), tuple(need), tuple(pads))
+
+
+def pyramid_plan(chains, shape, dtype=torch.float32, lc=None) -> list[dict]:
+    """Per link of a pyramid (`driver.chained_launches`), what it launches:
+    ``{"shape": (h, w)`` of its input planes, ``"halo"``: its chain's
+    accumulated halo, ``"mode"``: the mode `driver.resolve_mode` gives it
+    (every link launches; planes no larger than the halo take
+    "window")``}`` (JAX `plan.pyramid_plan`, whose no-launch fallback links
+    the port does not have).  Link k+1's input is link k's next base."""
+    from ...core.device import DEFAULT
+    from .driver import resolve_mode
+
+    lc = DEFAULT if lc is None else lc
+    h, w = int(shape[0]), int(shape[1])
+    out = []
+    for k, stages in enumerate(chains):
+        stages = tuple(stages)
+        out.append({"shape": (h, w), "halo": chain_accumulated_halo(stages),
+                     "mode": resolve_mode(stages, (1, h, w), dtype, lc)})
+        if k < len(chains) - 1:
+            hc, wc = h, w
+            for op, mode, *_rest in resolve_chain(stages):
+                if mode == "map":
+                    hc, wc = stage_out_hw(op, hc, wc)
+            h, w = stage_out_hw(stages[-1].op, hc, wc)
+    return out
+
+
+def pyr_up_metas(stages, rows: int) -> list:
+    """Per stage, a pyrUp's ``(p2, r_out)`` phase meta for `rows` rows a
+    step, else None (JAX `build_chain_geom`): the window kernel's pyrUp
+    output starts ``p2`` rows into the interleaved phases of its input
+    (``p2 = off_o - 2*off_k - 2``, the parity of the output origin) and
+    keeps ``r_out`` rows.  The kernels compute the phase of each output
+    row from its absolute image row instead; this is the planner's
+    statement of the same geometry."""
+    walk = resolve_chain(stages)
+    iface = chain_iface(walk, rows)
+    out = []
+    for k, (op, *_rest) in enumerate(walk):
+        if op == "pyr_up":
+            _, off_o, r_o = iface[k + 1]
+            out.append((off_o - 2 * iface[k][1] - 2, r_o))
+        else:
+            out.append(None)
+    return out
 
 
 def chain_halo(stages) -> tuple[int, int]:
@@ -339,20 +466,29 @@ class StreamLayout:
     """The rings of one `stencil_stream` block.
 
     A stream is the rows of one band after one stage (stream 0 is the
-    input).  At step i it holds its newest rows up to
-    ``y0 + (i+1)*rows + lead``; ``depth`` rows of it are kept in a ring
+    input), at that stage's level (`chain_levels`).  At step i it holds
+    its newest rows up to ``Y0 + (i+1)*mult + lead``, where ``mult`` is
+    the rows a step adds at its level (``rows`` at the last level, twice
+    that above a stride, half below an upsample) and ``Y0`` the segment's
+    first row at its level; ``depth`` rows of it are kept in a ring
     indexed by the absolute row modulo the depth.  A stream's depth is
-    ``rows`` plus the most any reader lags behind its newest row: a
-    stage's ring of ``2*halo`` rows, plus the delay (``d_rows``) of every
-    tap stage it passes through on the way, plus, for an output band, its
-    lead over the stored rows.  A final band with lead 0 that nothing
+    ``mult`` plus the most any reader lags behind its newest row: a
+    stage's ring of ``2*halo`` rows (``2*halo + 1`` below an odd-phase
+    upsample), plus the delay of every tap stage it passes through on the
+    way, plus, for an output band, its lead over the stored rows.  ``lead``
+    is also how far above ``Y0`` the stream's rows start: a segment primes
+    each ring from that row on.  A final band with lead 0 that nothing
     else reads has depth 0: it is stored from registers.
 
     ``apps`` lists one record per stage application in launch order:
     ``(stage index, source streams, destination streams)``: one source and
     one destination, but two destinations for a Sobel (its dx and dy) and
     two sources for the pair reduction.  ``outs[b]`` is the stream of
-    output band b.
+    output band b.  Columns: every stream of a level shares its frame, the
+    level's tile width plus ``col_pads[level]`` per side (level 0: the
+    accumulated halo, aligned to the stride product).  ``scratch`` lists
+    the row-pass scratch each step needs as ``(rows, level of its row
+    width)``; ``scratch_rows`` is the most rows of them.
     """
 
     rows: int
@@ -362,75 +498,126 @@ class StreamLayout:
     apps: tuple
     outs: tuple
     scratch_rows: int
+    mults: tuple = ()
+    levels: tuple = ()
+    col_pads: tuple = ()
+    scratch: tuple = ()
+    lv: Levels | None = None
+    # tile width -> smem_floats: the tiled2d planner asks for every
+    # candidate width on every call
+    _memo: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def smem_rows(self) -> int:
+        """Ring and scratch rows (one level: of the tile window's width)."""
         return sum(self.depths) + self.scratch_rows
+
+    @property
+    def prime_steps(self) -> int:
+        """Steps a segment runs before its first output rows: each ring must
+        start at its lead above the segment, ``2*lead`` below its newest
+        row at step 0."""
+        return max(-(-2 * ld // m) for ld, m in zip(self.leads, self.mults))
+
+    def width(self, level: int, tile_w: int) -> int:
+        """Columns of a level's frame for an input column tile of `tile_w`."""
+        return self.lv.tile(level, 1, tile_w)[1] + 2 * self.col_pads[level]
+
+    def smem_floats(self, tile_w: int) -> int:
+        hit = self._memo.get(tile_w)
+        if hit is None:
+            rings = sum(d * self.width(lv, tile_w) for d, lv in zip(self.depths, self.levels))
+            hit = rings + max([r * self.width(lv, tile_w) for r, lv in self.scratch], default=0)
+            self._memo[tile_w] = hit
+        return hit
 
     def smem_bytes(self, tile_w: int) -> int:
         """Shared memory of the rings and scratch for one column tile."""
-        return self.smem_rows * (tile_w + 2 * self.halo[1]) * F32
+        return self.smem_floats(tile_w) * F32
 
 
 def stream_layout(stages, rows: int) -> StreamLayout:
-    """Plan the streams, their leads and ring depths for `rows` per step
-    (a strided last stage planned at full resolution, `kernel_walk`).  The
-    column pad is aligned to the column stride product."""
-    plan = kernel_walk(stages)
-    iface = chain_iface(plan, rows)
-    sp = chain_stream_plan(plan, iface)
-    walk = band_walk(stages)
-    leads = [-iface[0][1]]
+    """Plan the streams, their leads and ring depths for `rows` per step at
+    the last level (a strided last stage planned at its input's
+    resolution, `kernel_walk`).  The column pad of level 0 is aligned to
+    the column stride product."""
+    walk = kernel_walk(stages)
+    lv = chain_levels(stages)
+    iface = chain_iface(walk, rows)
+    sp = chain_stream_plan(walk, iface)
+    bw = band_walk(stages)
+
+    def lead_of(k):  # the newest row's offset above a step's last one
+        mult, off, r = iface[k]
+        return off + r - mult
+
+    leads, mults, levels = [lead_of(0)], [iface[0][0]], [0]
     lags = [0]
     op_read = [False]
     apps = []
-    for k, stage in enumerate(walk.apps):
+    for k, stage in enumerate(bw.apps):
         sin_off = sp[k][0]
-        lead_out = -iface[k + 1][1]
         for srcs, dsts in stage:
             for src in srcs:
-                # the reader's oldest row at step i is y0 + i*rows + sin_off
+                # the reader's oldest row at step i is Y0 + i*mult + sin_off
                 lags[src] = max(lags[src], leads[src] - sin_off)
                 op_read[src] = True
-            leads.extend([lead_out] * len(dsts))
+            leads.extend([lead_of(k + 1)] * len(dsts))
+            mults.extend([iface[k + 1][0]] * len(dsts))
+            levels.extend([lv.lv_out[k]] * len(dsts))
             lags.extend([0] * len(dsts))
             op_read.extend([False] * len(dsts))
             apps.append((k, srcs, dsts))
-    bands = walk.outs
+    bands = bw.outs
     depths = []
     for s, (lead, lag) in enumerate(zip(leads, lags)):
         if s in bands:
             lag = max(lag, lead)  # the store reads rows y0 + i*rows on
         direct = s in bands and s != 0 and lead == 0 and not op_read[s]
-        depths.append(0 if direct else rows + lag)
-    sep_halo = [halo[0] for op, _, halo, *_ in plan if op in SEPARABLE_OPS]
-    scratch = rows + 2 * max(sep_halo) if sep_halo else 0
+        depths.append(0 if direct else mults[s] + lag)
+    scratch = []
+    for k, (op, _mode, (hy, _hx), _stride, _up, *_rest) in enumerate(walk):
+        mult_o, li, lo = iface[k + 1][0], lv.lv_in[k], lv.lv_out[k]
+        if op == "pyr_up":
+            scratch.append((mult_o, li))
+        elif op in SEPARABLE_OPS and li != lo:
+            scratch.append((2 * (mult_o - 1) + 2 * hy + 1, lo))
+        elif op in SEPARABLE_OPS:
+            scratch.append((mult_o + 2 * hy, li))
     ph, pw = chain_accumulated_halo(stages)
     halo = (ph, aligned_pad(pw, stride_product(stages)[1]))
+    col_pads = (halo[1],) + tuple(p[1] for p in lv.pads[1:])
     return StreamLayout(
-        rows, halo, tuple(leads), tuple(depths), tuple(apps), tuple(bands), scratch,
+        rows, halo, tuple(leads), tuple(depths), tuple(apps), tuple(bands),
+        max([r for r, _ in scratch], default=0), tuple(mults), tuple(levels), col_pads,
+        tuple(scratch), lv,
     )
 
 
-def _tile_candidates(width: int, lane: int = LANE) -> list[int]:
+def _tile_candidates(width: int, lane: int = LANE, down: int = 1) -> list[int]:
     """Tile-width candidates: the full width (one tile, the streaming
-    geometry) plus every lane multiple below it."""
+    geometry) plus every lane multiple below it that the column stride
+    product divides."""
     cands = [width]
     tw = lane
     while tw < width:
-        cands.append(tw)
+        if tw % down == 0:
+            cands.append(tw)
         tw += lane
     return cands
 
 
-def pick_tile_plan(layout: StreamLayout, width: int, budget: int, fixed: int) -> int | None:
+def pick_tile_plan(
+    layout: StreamLayout, width: int, budget: int, fixed: int, down: int = 1
+) -> int | None:
     """Tile width of the tiled2d plan: among the candidates whose rings fit,
     the least padded column work (``n_tiles * (tile + 2*pw)``: each tile
     recomputes its column halo), then the wider tile.  None means one
-    full-width tile."""
+    full-width tile.  `down`: the column stride product, which a tile
+    narrower than the plane must be a multiple of."""
     pw = layout.halo[1]
     best = None
-    for cand in _tile_candidates(width):
+    for cand in _tile_candidates(width, down=down):
         if layout.smem_bytes(cand) + fixed > budget:
             continue
         n_tiles = -(-width // cand)
@@ -453,6 +640,7 @@ def row_segments(n_planes: int, n_tiles: int, height: int, rows: int, sms: int) 
     plane, so each plane's rows are cut into segments of whole steps, each
     priming its own rings from the real rows above it.  The rule: aim for
     two blocks per SM, with at least two steps (``2*rows`` rows) a segment.
+    `height` and `rows` are at the chain's last level.
     Priming costs a segment about ``2*halo`` extra rows of its first stage
     (fewer for each later one); on the H100 the parallelism is worth more
     than that even for the octave's 34-row halo (PERF.md §6)."""

@@ -517,3 +517,94 @@ def test_align_and_detect_on_the_card(dev):
     for k in ("xy", "scale", "valid", "resp", "gray"):
         assert torch.equal(got[k], want[k]), k
     assert tuple(int(v) for v in got["xy"][0, 0]) == (37, 25)
+
+
+def _level_chain(dev, name, hw):
+    """Chains with pyrUp or a stride before the last stage; remap's map
+    planes on the card at the half-size image a pyrDown makes."""
+    h, w = (hw[0] + 1) // 2, (hw[1] + 1) // 2
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    return {
+        "pyr_up": (stencil.pyr_up_stage(),),
+        "up_gauss": (stencil.pyr_up_stage(), stencil.gaussian_stage(3)),
+        "down_up": (stencil.pyr_down_stage(), stencil.pyr_up_stage()),
+        "gauss_down_erode": (stencil.gaussian_stage(5), stencil.pyr_down_stage(),
+                             stencil.erode_stage(1)),
+        "resize_gauss": (stencil.resize2_stage(), stencil.gaussian_stage(3)),
+        "up_gauss_down_tap": (stencil.pyr_up_stage(), stencil.gaussian_stage(3),
+                              stencil.pyr_down_stage(tap=0)),
+        "down_sobel_grad": (stencil.pyr_down_stage(), stencil.sobel_stage(), stencil.grad_stage()),
+        "down_remap": (stencil.pyr_down_stage(),
+                       stencil.remap_stage(xx + 1.2 * torch.cos(yy / 5.0),
+                                           yy + 1.5 * torch.sin(xx / 7.0))),
+    }[name]
+
+
+LEVEL = ["pyr_up", "up_gauss", "down_up", "gauss_down_erode", "resize_gauss", "up_gauss_down_tap",
+         "down_sobel_grad", "down_remap"]
+
+
+@pytest.mark.parametrize("name", LEVEL)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape,lc", [
+    ((2, 37, 53, 1), LaunchConfig(tile_rows=16, tile_cols=16)),
+    ((1, 301, 211, 1), LaunchConfig(row_segments=5, stream_rows=4, tile_rows=8, tile_cols=8)),
+    ((1, 77, 640, 2), LaunchConfig(tile2d_cols=96, row_segments=3)),
+])
+@pytest.mark.parametrize("mode", ["window", "streaming", "tiled2d"])
+def test_level_chains_match_plain(dev, name, dtype, shape, lc, mode):
+    """pyrUp and strides before the last stage: every band bit for bit
+    against the plain version, in one launch and no plain call, across
+    several window tiles, column tiles and row segments."""
+    x = _image(dev, shape, dtype, seed=sum(shape) + len(name))
+    chain = _level_chain(dev, name, shape[1:3])
+    want = stencil.fused_chain(x, chain, mode="ref")
+    counters.reset()
+    if mode != "window":
+        prog, _ = exec_streaming.program(chain, lc.stream_rows, dtype, dev)
+        planes = (shape[0] * shape[3], *shape[1:3])
+        try:
+            exec_streaming.stream_geometry(prog, planes, lc, tiled=mode == "tiled2d")
+        except ValueError:  # rings over the budget: the explicit plan refuses
+            with pytest.raises(ValueError, match="bytes"):
+                stencil.fused_chain(x, chain, mode=mode, lc=lc)
+            assert sum(counters.LAUNCHES.values()) == 0
+            return
+    got = stencil.fused_chain(x, chain, mode=mode, lc=lc)
+    torch.cuda.synchronize()
+    kernel = "stencil_chain" if mode == "window" else "stencil_stream"
+    assert counters.LAUNCHES[kernel] == 1 and sum(counters.LAUNCHES.values()) == 1
+    assert counters.PLAIN_CALLS[kernel] == 0
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("mode", [None, "window", "streaming", "tiled2d"])
+def test_sift_pyramid_on_the_card(dev, mode):
+    """Four octaves, one launch each and no plain call; every band of the
+    pyramid equal to the plain version's, keypoints equal to a
+    `mode="ref"` run of the same batch on the card."""
+    # 96 columns: the full-width rings of octave 0 fit, so every mode runs
+    g = torch.stack([ImageStream().image((160, 96), channels=1, seed=s).to(dev).float()
+                     for s in range(2)])
+    chains = features.pyramid_chains(4)
+    counters.reset()
+    outs, scales = stencil.chained_launches(g[..., None], chains, mode=mode)
+    torch.cuda.synchronize()
+    assert sum(counters.LAUNCHES.values()) == 4 and sum(counters.PLAIN_CALLS.values()) == 0
+    want, _ = stencil.chained_launches(g[..., None], chains, mode="ref")
+    assert scales == [(1, 1), (2, 2), (4, 4), (8, 8)]
+    for a, b in zip(outs, want, strict=True):
+        for x, y in zip(a, b, strict=True):
+            assert torch.equal(x, y)
+    counters.reset()
+    got = features.sift_pyramid(g, n_octaves=4, max_kp=32, mode=mode)
+    torch.cuda.synchronize()
+    assert sum(counters.LAUNCHES.values()) == 4 and sum(counters.PLAIN_CALLS.values()) == 0
+    ref_kp = features.sift_pyramid(g, n_octaves=4, max_kp=32, mode="ref")
+    for k in ("xy", "octave", "scale", "resp", "valid"):
+        assert torch.equal(got[k], ref_kp[k]), k

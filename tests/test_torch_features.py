@@ -28,6 +28,7 @@ from repro.data.synthetic import ImageStream as JaxImageStream
 from repro_torch.cv import features as tfeatures
 from repro_torch.cv import imgproc as timgproc
 from repro_torch.cv.config import PipelineConfig
+from repro_torch.kernels import counters
 
 MAX_KP = 32
 
@@ -153,5 +154,10 @@ def test_gradients_match_jax():
 
 
 def test_sift_rejects_the_queued_pyramid():
-    with pytest.raises(NotImplementedError):
-        tfeatures.sift(torch.zeros((1, 32, 32)), PipelineConfig(n_octaves=2))
+    """The pyramid `sift` once refused: n_octaves=2 now runs it, one
+    octave chain a launch (two plain calls on the CPU), with the
+    fixed-capacity output of the single-octave detector."""
+    counters.reset()
+    out = tfeatures.sift(torch.zeros((1, 32, 32)), PipelineConfig(n_octaves=2))
+    assert counters.PLAIN_CALLS["stencil_chain"] == 2
+    assert tuple(out["desc"].shape) == (1, 32, 128) and not bool(out["valid"].any())

@@ -141,20 +141,21 @@ def test_plans_of_the_new_chains_match_jax(name, rows):
 
 
 def test_band_downs_and_stride_product():
-    """Each band's decimation (`plan.band_meta` names the strided op that
-    made a band) and the chain's stride product."""
+    """Each band's decimation (`plan.band_meta` names the resolution ops
+    that made a band, in order) and the chain's stride product."""
     octave = tfeatures.octave_chain(4)
-    assert [op for _, op in tplan.band_meta(octave)] == [None] * 7 + ["pyr_down"]
+    assert [ops for _, ops in tplan.band_meta(octave)] == [()] * 7 + [("pyr_down",)]
     assert tplan.stride_product(octave) == (2, 2)
-    assert [op for _, op in tplan.band_meta((tstencil.gaussian_stage(3, tap=0),
-                                             tstencil.pyr_down_stage()))] == ["pyr_down"] * 2
+    assert [ops for _, ops in tplan.band_meta((tstencil.gaussian_stage(3, tap=0),
+                                               tstencil.pyr_down_stage()))] == [("pyr_down",)] * 2
     assert tplan.stride_product(tfeatures.octave_chain(4, with_next_base=False)) == (1, 1)
     assert tplan.aligned_pad(35, 2) == 36 and tplan.aligned_pad(36, 2) == 36
 
 
 def test_strided_geometry_errors():
     """JAX's errors: odd step rows, an odd column tile narrower than the
-    plane; the kernels' own: a pyrDown that is not the last stage."""
+    plane.  A pyrDown that is not the last stage, once the kernels' own
+    refusal, now plans: its step rows and tiles obey the same rules."""
     x = torch.zeros((40, 70))
     pyr = (tstencil.pyr_down_stage(),)
     with pytest.raises(ValueError, match="stride product"):
@@ -162,11 +163,14 @@ def test_strided_geometry_errors():
     with pytest.raises(ValueError, match="tile_w=33"):
         tstencil.fused_chain(x, pyr, mode="tiled2d", tile_w=33)
     tstencil.fused_chain(x, pyr, mode="tiled2d", tile_w=70)  # one full-width tile
-    with pytest.raises(NotImplementedError, match="before the chain's last"):
-        tstencil.fused_chain(x, pyr + (tstencil.gaussian_stage(3),), mode="streaming")
-    # the plain version runs the general chain
-    out = tstencil.fused_chain(x, pyr + (tstencil.gaussian_stage(3),), mode="ref")
+    mid = pyr + (tstencil.gaussian_stage(3),)
+    with pytest.raises(ValueError, match="stride product"):
+        tstencil.fused_chain(x, mid, mode="streaming", lc=LaunchConfig(stream_rows=5))
+    with pytest.raises(ValueError, match="tile_w=33"):
+        tstencil.fused_chain(x, mid, mode="tiled2d", tile_w=33)
+    out = tstencil.fused_chain(x, mid, mode="streaming")
     assert tuple(out.shape) == (20, 35)
+    assert torch.equal(out, tstencil.fused_chain(x, mid, mode="ref"))
 
 
 def test_octave_next_base_full_width_streaming_raises_naming_the_bytes():

@@ -108,10 +108,10 @@ def test_plans_and_band_meta_match_jax(name):
         want = jplan._band_meta(jp, jdt)
         got = tplan.band_meta(tc, tdt)
         assert [str(dt).split(".")[-1] for dt, _ in got] == [jnp.dtype(dt).name for dt, _ in want]
-        # JAX names the op of a tapped band only; the port names a map
-        # stride's too (every band is decimated)
-        for (_, t_op), (_, j_op) in zip(got, want):
-            assert j_op is None or t_op == j_op
+        # JAX names the op of a tapped band only; the port names every
+        # resolution op that made a band, in order (a map stride's too)
+        for (_, t_ops), (_, j_op) in zip(got, want):
+            assert j_op is None or t_ops[-1:] == (j_op,)
 
 
 def test_sobel_rejects_tap():
@@ -207,9 +207,9 @@ def test_compile_chain_slots_of_the_pair():
     assert sob["dst"] != sob["dst2"] and sob["store"] == sob["store2"] == -1
     assert (red["op"], red["src"], red["src2"], red["pk"], red["store"]) == \
         (exec_window.GRAD_PAIR, sob["dst"], sob["dst2"], 1, 0)
-    assert prog.n_slots == 3 and prog.bands == ((torch.uint8, None),)
+    assert prog.n_slots == 3 and prog.bands == ((torch.uint8, ()),)
     pair = exec_window.compile_chain(chain(tstencil, "tap_sobel"), torch.uint8)
-    assert pair.bands == ((torch.uint8, None), (torch.float32, None), (torch.float32, None))
+    assert pair.bands == ((torch.uint8, ()), (torch.float32, ()), (torch.float32, ()))
     assert (pair.steps[0]["op"], pair.steps[0]["store"]) == (3, 0)  # the input band as it is
     assert (pair.steps[-1]["store"], pair.steps[-1]["store2"]) == (1, 2)
 

@@ -36,16 +36,33 @@ def _preprocess(pkg):
     return (pkg.gaussian_stage(5), pkg.erode_stage(1), pkg.grad_stage())
 
 
+def _level_chains(pkg):
+    """Chains that change resolution before their last stage, or upsample."""
+    return {
+        "pyr_up": (pkg.pyr_up_stage(),),
+        "down_up": (pkg.pyr_down_stage(), pkg.pyr_up_stage()),
+        "gauss_down_erode": (pkg.gaussian_stage(5), pkg.pyr_down_stage(), pkg.erode_stage(1)),
+        "resize_gauss": (pkg.resize2_stage(), pkg.gaussian_stage(3)),
+        "up_gauss": (pkg.pyr_up_stage(), pkg.gaussian_stage(3)),
+        "up_gauss_down_tap": (pkg.pyr_up_stage(), pkg.gaussian_stage(3),
+                              pkg.pyr_down_stage(tap=0)),
+        "down_sobel_grad": (pkg.pyr_down_stage(), pkg.sobel_stage(), pkg.grad_stage()),
+    }
+
+
 def _chains():
     """(name, JAX chain, port chain) for the BoW path's two chains, the
-    octave with its next base, and the lone pyrDown as a map stage."""
+    octave with its next base, the lone pyrDown as a map stage, and the
+    chains of `_level_chains`."""
     jo = jfeatures.octave_chain(4, with_next_base=False)
     to = tfeatures.octave_chain(4, with_next_base=False)
+    jl, tl = _level_chains(jstencil), _level_chains(tstencil)
     return {
         "preprocess": (_preprocess(jstencil), _preprocess(tstencil)),
         "octave": (jo, to),
         "octave_nb": (jfeatures.octave_chain(4), tfeatures.octave_chain(4)),
         "pyr_down": ((jstencil.pyr_down_stage(),), (tstencil.pyr_down_stage(),)),
+        **{k: (jl[k], tl[k]) for k in tl},
     }
 
 
@@ -56,6 +73,13 @@ CASES = [
     ("octave_nb", (2, 45, 39)),  # odd sizes, two tiles each way
     ("octave_nb", (1, 35, 33)),  # planes no larger than the next base's halo of 36
     ("pyr_down", (2, 37, 53)),
+    ("pyr_up", (2, 19, 23)),  # 38x46 out: two 16-row tiles of 32x32 output each way
+    ("down_up", (1, 45, 39)),
+    ("gauss_down_erode", (2, 45, 39)),
+    ("resize_gauss", (1, 37, 53)),
+    ("up_gauss", (1, 21, 35)),
+    ("up_gauss_down_tap", (1, 23, 19)),
+    ("down_sobel_grad", (1, 37, 29)),
 ]
 
 
@@ -151,21 +175,27 @@ def test_gaussian_kernel_matches_jax():
 
 @pytest.mark.parametrize("case", ["resize2", "resize2_stream", "pyr_up"])
 def test_unported_stage_ops_raise(case):
-    """pyrUp is still queued, and so is a strided stage before a chain's
-    last on the kernels (resize2 here; the plain version runs it)."""
+    """What the kernels once refused now plans: a strided stage before the
+    chain's last (resize2 here) compiles for both kernels into two levels,
+    and pyrUp is a stage of its own; the plain version of each equals
+    JAX's `chain_ref`.  What is still refused is JAX's refusal: pyrUp as a
+    tap."""
     if case == "pyr_up":
-        with pytest.raises(NotImplementedError):
-            tstencil.Stage("pyr_up")
-        return
-    chain = (tstencil.resize2_stage(), tstencil.gaussian_stage(3))
+        assert tstencil.Stage("pyr_up").upsample == (2, 2)
+        with pytest.raises(ValueError, match="tap"):
+            tstencil.resolve_chain((tstencil.gaussian_stage(3), tstencil.Stage("pyr_up", tap=0)))
+        chain = (tstencil.pyr_up_stage(), tstencil.gaussian_stage(3))
+        jchain = (jstencil.pyr_up_stage(), jstencil.gaussian_stage(3))
+    else:
+        chain = (tstencil.resize2_stage(), tstencil.gaussian_stage(3))
+        jchain = (jstencil.resize2_stage(), jstencil.gaussian_stage(3))
     compile_ = (exec_window.compile_chain if case == "resize2"
                 else lambda c: exec_streaming.compile_stream(c, 8))
-    with pytest.raises(NotImplementedError, match="before the chain's last"):
-        compile_(chain)
+    prog = compile_(chain)
+    assert [st["lo"] for st in prog.steps] == [1, 1]
     x = torch.from_numpy(_input((12, 10)))
     got = tstencil.fused_chain(x, chain, mode="ref")
-    want = jref.chain_ref(jnp.asarray(x.numpy()),
-                          (jstencil.resize2_stage(), jstencil.gaussian_stage(3)))
+    want = jref.chain_ref(jnp.asarray(x.numpy()), jchain)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
@@ -234,39 +264,125 @@ def _sobel(X):
     return (cd[:-2] + F32(2) * cd[1:-1]) + cd[2:], cs[2:] - cs[:-2]
 
 
+def _floor2(v):
+    return np.floor_divide(v, 2)
+
+
+def _row_pass(op, X, kx, kw):
+    """`row_pass` over the last axis: X holds kw + n - 1 columns -> n."""
+    n = X.shape[-1] - kw + 1
+    taps = [X[..., q:q + n] for q in range(kw)]
+    acc = kx[0] * taps[0] if op in (0, 9) else taps[0]
+    for q in range(1, kw):
+        acc = (acc + kx[q] * taps[q] if op in (0, 9) else acc + taps[q] if op == 6
+               else np.minimum(acc, taps[q]) if op == 1 else np.maximum(acc, taps[q]))
+    return acc
+
+
+def _col_pass(op, T, ky, kh, scale):
+    """`col_pass` over the first axis: T holds kh + n - 1 rows -> n."""
+    n = T.shape[0] - kh + 1
+    acc = ky[0] * T[0:n] if op in (0, 9) else T[0:n]
+    for q in range(1, kh):
+        c = T[q:q + n]
+        acc = (acc + ky[q] * c if op in (0, 9) else acc + c if op == 6
+               else np.minimum(acc, c) if op == 1 else np.maximum(acc, c))
+    return acc * scale if op == 6 else acc
+
+
+def _pyr_even(a, b, c):
+    return ((a + F32(6) * b) + c) * F32(0.125)
+
+
+def _pyr_odd(b, c):
+    return (b + c) * F32(0.5)
+
+
 def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int, maps=()) -> list:
     """Replay of `stencil_chain_kernel`: per (plane, tile) block, the window
-    load with clamped reads, then each step on its slots and region, and
-    the stores to each band's own buffer.  `maps`: each remap stage's
-    (map_x, map_y), in chain order."""
+    load with clamped reads, then each step on its slots, in the frames of
+    its source and output levels, and the stores to each band's own
+    buffer.  `maps`: each remap stage's (map_x, map_y), in chain order."""
     N, H, W = planes.shape
-    ph, pw = prog.halo
-    WH, WW = th + 2 * ph, tw + 2 * pw
+    lv = prog.levels
     wts = np.asarray(prog.weights, F32)
-    outs = [np.full((N, *tstencil.stage_out_hw(op, H, W)), np.nan, F32) for _dt, op in prog.bands]
+    outs = [np.full((N, *tstencil.plan.band_hw(ops, H, W)), np.nan, F32)
+            for _dt, ops in prog.bands]
+    slot = prog.slot_floats(th, tw)
+
+    def frame(level, ti, tj):
+        lth, ltw = lv.tile(level, th, tw)
+        py, px = prog.pads[level]
+        return lth, ltw, py, px, ltw + 2 * px, ti * lth - py, tj * ltw - px
+
     for n in range(N):
-        for ty0 in range(0, H, th):
-            for tx0 in range(0, W, tw):
-                oy, ox = ty0 - ph, tx0 - pw  # image coordinate of window (0, 0)
-                sm = np.full((prog.n_slots, WH, WW), np.nan, F32)
-                ys = np.clip(oy + np.arange(WH), 0, H - 1)
-                xs = np.clip(ox + np.arange(WW), 0, W - 1)
-                sm[0] = planes[n][ys][:, xs]
+        for ti in range(-(-H // th)):
+            for tj in range(-(-W // tw)):
+                sm = np.full((prog.n_slots, slot), np.nan, F32)
+
+                def view(k, WW):
+                    return sm[k, :slot // WW * WW].reshape(-1, WW)
+
+                th0, tw0, py0, px0, WW0, oy0, ox0 = frame(0, ti, tj)
+                ys = np.clip(oy0 + np.arange(th0 + 2 * py0), 0, H - 1)
+                xs = np.clip(ox0 + np.arange(WW0), 0, W - 1)
+                view(0, WW0)[:th0 + 2 * py0] = planes[n][ys][:, xs]
                 for s in prog.steps:
                     op, pk = s["op"], s["pk"]
-                    r0, r1 = ph - s["rh"], ph + th + s["rh"]
-                    c0, c1 = pw - s["rw"], pw + tw + s["rw"]
+                    sth, stw, spy, spx, WW, oy, ox = frame(s["ls"], ti, tj)
+                    dth, dtw, dpy, dpx, WWd, oyd, oxd = frame(s["lo"], ti, tj)
+                    r0, r1 = spy - s["rh"], spy + sth + s["rh"]
+                    c0, c1 = spx - s["rw"], spx + stw + s["rw"]
+                    i0, i1 = dpy - s["oh"], dpy + dth + s["oh"]
+                    j0, j1 = dpx - s["ow"], dpx + dtw + s["ow"]
                     hy, hx = s["kh"] // 2, s["kw"] // 2
-                    src, src2 = sm[s["src"]].copy(), sm[s["src2"]].copy()
+                    src, src2 = view(s["src"], WW).copy(), view(s["src2"], WW).copy()
+                    dst = view(s["dst"], WWd) if s["dst"] >= 0 else None
                     w0 = wts[s["wx"]:]
                     I, J = slice(r0 + hy, r1 - hy), slice(c0 + hx, c1 - hx)
                     nr, nc = r1 - r0 - 2 * hy, c1 - c0 - 2 * hx
-                    if op in (9, 12):  # strided: image-even rows and columns -> own band
-                        band = outs[s["store"]]
-                        i0 = r0 + hy + (oy + r0 + hy) % 2
-                        j0 = c0 + hx + (ox + c0 + hx) % 2
+                    if op == 15:  # pyrUp: row phases -> tmp, then column phases
+                        ii, jj = np.arange(i0, i1), np.arange(j0, j1)
+                        x0 = _floor2(oxd + j0) - 1 - ox
+                        x1 = _floor2(oxd + j1 - 1) + 2 - ox
+                        Y = oyd + ii
+                        q = _floor2(Y) - oy
+                        a, b, c = (src[q + d][:, x0:x1] for d in (-1, 0, 1))
+                        t = np.where((Y & 1)[:, None] == 1, _pyr_odd(b, c), _pyr_even(a, b, c))
+                        tmp = view(s["tmp"], WW)
+                        tmp[i0:i1, x0:x1] = t
+                        X = oxd + jj
+                        qc = _floor2(X) - ox
+                        T = tmp[i0:i1]
+                        v = np.where((X & 1)[None, :] == 1, _pyr_odd(T[:, qc], T[:, qc + 1]),
+                                     _pyr_even(T[:, qc - 1], T[:, qc], T[:, qc + 1]))
+                        dst[i0:i1, j0:j1] = _pack(v, pk)
+                    elif op in (9, 12) and s["down"] == 1:  # a stride mid-chain
+                        ii, jj = np.arange(i0, i1), np.arange(j0, j1)
+                        qs, xs_ = 2 * (oyd + ii) - oy, 2 * (oxd + jj) - ox
                         if op == 9:
-                            rows, cols = np.arange(i0, r1 - hy, 2), np.arange(j0, c1 - hx, 2)
+                            q0, q1 = qs[0] - hy, qs[-1] + hy + 1
+                            kx, ky = wts[s["wx"]:s["wx"] + 5], wts[s["wy"]:s["wy"] + 5]
+                            tmp = view(s["tmp"], WWd)
+                            acc = kx[0] * src[q0:q1][:, xs_ - hx]
+                            for d in range(1, 5):
+                                acc = acc + kx[d] * src[q0:q1][:, xs_ - hx + d]
+                            tmp[q0:q1, j0:j1] = acc
+                            T = tmp[:, j0:j1]
+                            v = ky[0] * T[qs - hy]
+                            for d in range(1, 5):
+                                v = v + ky[d] * T[qs - hy + d]
+                        else:
+                            a, b = src[qs][:, xs_], src[qs + 1][:, xs_]
+                            c, d = src[qs][:, xs_ + 1], src[qs + 1][:, xs_ + 1]
+                            v = ((a + b) + (c + d)) * F32(0.25)
+                        dst[i0:i1, j0:j1] = _pack(v, pk)
+                    elif op in (9, 12):  # strided last: image-even rows and columns -> own band
+                        band = outs[s["store"]]
+                        e0 = r0 + hy + (oy + r0 + hy) % 2
+                        f0 = c0 + hx + (ox + c0 + hx) % 2
+                        if op == 9:
+                            rows, cols = np.arange(e0, r1 - hy, 2), np.arange(f0, c1 - hx, 2)
                             kx, ky = wts[s["wx"]:s["wx"] + 5], wts[s["wy"]:s["wy"] + 5]
                             acc = kx[0] * src[r0:r1][:, cols - hx]
                             for q in range(1, 5):
@@ -275,7 +391,7 @@ def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int, maps=()) -> list
                             for q in range(1, 5):
                                 v = v + ky[q] * acc[rows - hy - r0 + q]
                         else:
-                            rows, cols = np.arange(i0, r1 - 1, 2), np.arange(j0, c1 - 1, 2)
+                            rows, cols = np.arange(e0, r1 - 1, 2), np.arange(f0, c1 - 1, 2)
                             a, b = src[rows][:, cols], src[rows + 1][:, cols]
                             c, d = src[rows][:, cols + 1], src[rows + 1][:, cols + 1]
                             v = ((a + b) + (c + d)) * F32(0.25)
@@ -283,22 +399,12 @@ def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int, maps=()) -> list
                         ky_, kx_ = ys < band.shape[1], xs < band.shape[2]
                         band[n, ys[ky_][:, None], xs[kx_][None, :]] = _pack(v, pk)[ky_][:, kx_]
                         continue
-                    if op in (0, 1, 5, 6):  # separable: row pass -> tmp, column pass
-                        taps = [src[r0:r1, c0 + q:c1 - 2 * hx + q] for q in range(s["kw"])]
-                        acc = w0[0] * taps[0] if op == 0 else taps[0]
-                        for q in range(1, s["kw"]):
-                            acc = (acc + w0[q] * taps[q] if op == 0 else acc + taps[q] if op == 6
-                                   else np.minimum(acc, taps[q]) if op == 1
-                                   else np.maximum(acc, taps[q]))
-                        sm[s["tmp"], r0:r1, J] = acc
-                        T = sm[s["tmp"], r0:r1, J]
-                        ky = wts[s["wy"]:]
-                        acc = ky[0] * T[0:nr] if op == 0 else T[0:nr]
-                        for q in range(1, s["kh"]):
-                            c = T[q:q + nr]
-                            acc = (acc + ky[q] * c if op == 0 else acc + c if op == 6
-                                   else np.minimum(acc, c) if op == 1 else np.maximum(acc, c))
-                        sm[s["dst"], I, J] = _pack(acc * w0[0] if op == 6 else acc, pk)
+                    elif op in (0, 1, 5, 6):  # separable: row pass -> tmp, column pass
+                        tmp = view(s["tmp"], WW)
+                        tmp[r0:r1, J] = _row_pass(op, src[r0:r1, c0:c1], w0, s["kw"])
+                        v = _col_pass(op, tmp[r0:r1, J], wts[s["wy"]:], s["kh"],
+                                      w0[0] if op == 6 else None)
+                        dst[I, J] = _pack(v, pk)
                     elif op == 4:  # filter2d, taps row-major
                         v = w0[0] * src[r0:r0 + nr, c0:c0 + nc]
                         for a in range(s["kh"]):
@@ -306,33 +412,37 @@ def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int, maps=()) -> list
                                 if a or b:
                                     v = v + w0[a * s["kw"] + b] * src[r0 + a:r0 + a + nr,
                                                                       c0 + b:c0 + b + nc]
-                        sm[s["dst"], I, J] = _pack(v, pk)
+                        dst[I, J] = _pack(v, pk)
                     elif op == 2:
                         dy = (src[r0 + 2:r1, J] - src[r0:r1 - 2, J]) * F32(0.5)
                         dx = (src[I, c0 + 2:c1] - src[I, c0:c1 - 2]) * F32(0.5)
-                        sm[s["dst"], I, J] = _pack(np.sqrt(dx * dx + dy * dy), pk)
+                        dst[I, J] = _pack(np.sqrt(dx * dx + dy * dy), pk)
                     elif op == 10:
                         dx, dy = _sobel(src[r0:r1, c0:c1])
-                        sm[s["dst"], I, J], sm[s["dst2"], I, J] = dx, dy
+                        dst[I, J], view(s["dst2"], WW)[I, J] = dx, dy
                     elif op == 11:
                         a, b = src[I, J], src2[I, J]
-                        sm[s["dst"], I, J] = _pack(np.sqrt(a * a + b * b), pk)
+                        dst[I, J] = _pack(np.sqrt(a * a + b * b), pk)
                     elif op in (13, 14):
                         ii, jj = np.meshgrid(np.arange(r0 + hy, r1 - hy), np.arange(c0 + hx, c1 - hx),
                                              indexing="ij")
-                        sy, sx = _gather_coords(op, w0, maps, s["wx"], oy + ii, ox + jj, H, W)
+                        lh, lw = lv.size(s["ls"], H, W)
+                        sy, sx = _gather_coords(op, w0, maps, s["wx"], oy + ii, ox + jj, lh, lw)
                         v = _bilinear(src, sy, sx, oy, ox, r0, r1, c0, c1)
-                        sm[s["dst"], I, J] = _pack(v, pk)
+                        dst[I, J] = _pack(v, pk)
                     elif op == 7:
                         v = np.where(src[I, J] > w0[0], w0[1], F32(0))
-                        sm[s["dst"], I, J] = _pack(v, pk)
+                        dst[I, J] = _pack(v, pk)
                     elif op == 8:
-                        sm[s["dst"], I, J] = _pack(src[I, J] * w0[0] + w0[1], pk)
-                    hh, ww = min(th, H - ty0), min(tw, W - tx0)
-                    for key, slot in (("store", "dst"), ("store2", "dst2")):
+                        dst[I, J] = _pack(src[I, J] * w0[0] + w0[1], pk)
+                    for key, slot_k in (("store", "dst"), ("store2", "dst2")):
                         if s[key] >= 0:
-                            outs[s[key]][n, ty0:ty0 + hh, tx0:tx0 + ww] = \
-                                sm[s[slot], ph:ph + hh, pw:pw + ww]
+                            band = outs[s[key]]
+                            hh = min(dth, band.shape[1] - ti * dth)
+                            ww = min(dtw, band.shape[2] - tj * dtw)
+                            if hh > 0 and ww > 0:
+                                band[n, ti * dth:ti * dth + hh, tj * dtw:tj * dtw + ww] = \
+                                    view(s[slot_k], WWd)[dpy:dpy + hh, dpx:dpx + ww]
     return outs
 
 
@@ -372,7 +482,8 @@ def test_compile_chain_slot_plan_for_the_octave_with_next_base():
     and stores straight to the half-resolution output (no slot of its
     own); the window pad is the 36-pixel halo, even already."""
     prog = exec_window.compile_chain(tfeatures.octave_chain(4))
-    assert prog.n_slots == 4 and prog.downs == (1,) * 7 + (2,) and prog.halo == (36, 36)
+    assert prog.n_slots == 4 and prog.halo == (36, 36)
+    assert [ops for _dt, ops in prog.bands] == [()] * 7 + [("pyr_down",)]
     last = prog.steps[-1]
     assert (last["op"], last["down"], last["dst"], last["store"]) == (9, 2, -1, 7)
     assert [s["store"] for s in prog.steps[:-1]] == list(range(7))
@@ -381,12 +492,16 @@ def test_compile_chain_slot_plan_for_the_octave_with_next_base():
 
 
 def test_strided_chains_need_even_tiles_and_a_last_pyr_down():
+    """A strided chain's tiles are multiples of its stride product.  A
+    pyrDown before the last stage no longer has to be the last: it starts a
+    second level, whose frame is the half-size tile plus the blur's halo."""
     prog = exec_window.compile_chain((tstencil.gaussian_stage(3), tstencil.pyr_down_stage()))
     assert prog.halo == (4, 4)  # the 3-pixel halo aligned to the stride
     with pytest.raises(ValueError, match="stride"):
         exec_window.pick_tile(prog, LaunchConfig(tile_rows=15, tile_cols=16))
-    with pytest.raises(NotImplementedError, match="before the chain's last"):
-        exec_window.compile_chain((tstencil.pyr_down_stage(), tstencil.gaussian_stage(3)))
+    prog = exec_window.compile_chain((tstencil.pyr_down_stage(), tstencil.gaussian_stage(3)))
+    assert prog.unit == (2, 2) and prog.pads == ((4, 4), (1, 1))
+    assert prog.frame(1, 32, 32) == (18, 18)
 
 
 def test_pick_tile_halves_under_a_small_budget():
@@ -417,6 +532,23 @@ def test_pyr_down_step_table_on_u8(chain, shape):
         "gauss_map": (tstencil.gaussian_stage(3), tstencil.pyr_down_stage()),
     }[chain]
     x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, shape, dtype=np.uint8))
+    prog = exec_window.compile_chain(stages, torch.uint8)
+    got = _emulate_kernel(x.numpy(), prog, 16, 16)
+    want = tref.chain_ref_planes(x, stages)
+    assert [tuple(w.shape) for w in want] == [g.shape for g in got]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy().astype(np.float32))
+
+
+@pytest.mark.parametrize("chain", ["pyr_up", "down_up", "gauss_down_erode", "resize_gauss",
+                                   "up_gauss_down_tap"])
+@pytest.mark.parametrize("shape", [(1, 37, 53), (2, 5, 5), (1, 34, 18)])
+def test_level_chains_step_table_on_u8(chain, shape):
+    """pyrUp and a stride before the chain's last stage on a u8 carrier, odd
+    and even sizes, 16x16 tiles: the packed row phases, the frames of each
+    level, bit for bit against the plain version."""
+    stages = _level_chains(tstencil)[chain]
+    x = torch.from_numpy(np.random.default_rng(8).integers(0, 256, shape, dtype=np.uint8))
     prog = exec_window.compile_chain(stages, torch.uint8)
     got = _emulate_kernel(x.numpy(), prog, 16, 16)
     want = tref.chain_ref_planes(x, stages)

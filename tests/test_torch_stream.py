@@ -69,6 +69,14 @@ def _stages(pkg, name):
         "pyr_down_tap": (pkg.gaussian_stage(3), pkg.pyr_down_stage(tap=0)),
         "mixed": (pkg.box_stage(1), pkg.gaussian_stage(3, tap=0), pkg.dilate_stage(1),
                   pkg.affine_stage(0.5, 3.25), pkg.filter_stage(K, tap=-1)),
+        # pyrUp and strides before a chain's last stage (tests/test_streaming.py:56-80, :224)
+        "pyr_up": (pkg.pyr_up_stage(),),
+        "up_gauss5": (pkg.pyr_up_stage(), pkg.gaussian_stage(5)),
+        "down_up": (pkg.pyr_down_stage(), pkg.pyr_up_stage()),
+        "pyr_down_map": (pkg.gaussian_stage(5), pkg.pyr_down_stage(), pkg.erode_stage(1)),
+        "resize2_mid": (pkg.resize2_stage(), pkg.gaussian_stage(3)),
+        "up_down_tap": (pkg.pyr_up_stage(), pkg.gaussian_stage(3), pkg.pyr_down_stage(tap=0)),
+        "down_sobel_grad": (pkg.pyr_down_stage(), pkg.sobel_stage(), pkg.grad_stage()),
     }[name]
 
 
@@ -84,6 +92,8 @@ SINGLE_OPS = ["filter2d", "sep_filter", "box", "erode", "dilate", "threshold", "
 EXACT = {"erode", "dilate", "threshold", "erode_r3"}
 SLICE_CHAINS = ["gaussian_filter2d_k13", "erode_r3", "acceptance", "preprocess", "octave",
                 "octave_nb", "pyr_down", "pyr_down_tap"]
+LEVEL_CHAINS = ["pyr_up", "up_gauss5", "down_up", "pyr_down_map", "resize2_mid", "up_down_tap",
+                "down_sobel_grad"]
 LAYOUTS = {"hw": (37, 53), "hwc": (37, 53, 3), "bhwc": (2, 40, 72, 3)}
 
 
@@ -337,46 +347,93 @@ def _pack(v, pk):
 
 def _emulate_stream(planes: np.ndarray, prog, geom, maps=()) -> list:
     """Replay of `stencil_stream_kernel`: per (plane, tile, segment) block,
-    the steps from the priming ones on, each stage's new rows from its
-    ring(s), direct stores from registers and the stores of ring-held
-    bands, into each band's own buffer.  `maps`: each remap stage's (map_x,
-    map_y), in chain order."""
-    from test_torch_stencil import _bilinear, _gather_coords, _sobel
+    the steps from the priming ones on, each stage's new rows at its level
+    from its ring(s), direct stores from registers and the stores of
+    ring-held bands, into each band's own buffer.  `maps`: each remap
+    stage's (map_x, map_y), in chain order."""
+    from test_torch_stencil import (
+        _bilinear, _col_pass, _floor2, _gather_coords, _pyr_even, _pyr_odd, _row_pass, _sobel,
+    )
 
     N, H, W = planes.shape
     lay = prog.layout
-    m = lay.rows
-    ph, pw = lay.halo
-    WW = geom.tile_w + 2 * pw
+    lv = lay.lv
+    m, last = lay.rows, lv.n_levels - 1
     wts = np.asarray(prog.weights, F32)
     streams = prog.streams
-    outs = [np.full((N, *tstencil.stage_out_hw(op, H, W)), np.nan) for _dt, op in prog.bands]
-
-    def rr(s, rows):
-        return streams[s]["offset"] + np.mod(rows, streams[s]["depth"])
+    outs = [np.full((N, *tstencil.plan.band_hw(ops, H, W)), np.nan) for _dt, ops in prog.bands]
+    tws = [lv.tile(lvl, 1, geom.tile_w)[1] for lvl in range(lv.n_levels)]
+    pads = lay.col_pads
+    widths = [tws[lvl] + 2 * pads[lvl] for lvl in range(lv.n_levels)]
+    HT, WT = lv.size(last, H, W)
 
     for n in range(N):
         for t in range(geom.n_tiles):
             for sg in range(geom.n_seg):
-                sm = np.full((prog.smem_rows, WW), np.nan, F32)
-                tx0, y0 = t * geom.tile_w, sg * geom.seg_rows
-                ox = tx0 - pw  # image column of local column 0
-                tw, y1 = min(geom.tile_w, W - tx0), min(y0 + geom.seg_rows, H)
-                xs = np.clip(ox + np.arange(WW), 0, W - 1)
-                for i in range((-2 * ph) // m, -(-(y1 - y0) // m)):
-                    rows = np.arange(max(y0 + i * m + ph, y0 - ph), y0 + (i + 1) * m + ph)
-                    sm[rr(0, rows)] = planes[n][np.clip(rows, 0, H - 1)][:, xs]
+                rings = [np.full((st["depth"], widths[st["level"]]), np.nan, F32) for st in streams]
+                scratch = {}
+                tx0 = t * tws[last]
+                oxT = tx0 - pads[last]
+                tw = min(tws[last], WT - tx0)
+                y0 = sg * geom.seg_rows
+                y1 = min(y0 + geom.seg_rows, HT)
+                step0 = y0 // m
+
+                def origin(lvl):
+                    return t * tws[lvl] - pads[lvl]
+
+                def rr(k, rows):
+                    return rings[k][np.mod(rows, streams[k]["depth"])]
+
+                for i in range(-lay.prime_steps, -(-(y1 - y0) // m)):
+                    st0 = streams[0]
+                    Y0 = step0 * st0["mult"]
+                    rows = np.arange(max(Y0 + i * st0["mult"] + st0["lead"], Y0 - st0["lead"]),
+                                     Y0 + (i + 1) * st0["mult"] + st0["lead"])
+                    xs = np.clip(origin(0) + np.arange(widths[0]), 0, W - 1)
+                    rings[0][np.mod(rows, st0["depth"])] = planes[n][np.clip(rows, 0, H - 1)][:, xs]
                     for st in prog.steps:
-                        lo = max(y0 + i * m + st["lead"], y0 - st["lead"])
-                        hi = y0 + (i + 1) * m + st["lead"]
+                        Y0 = step0 * st["mult"]
+                        lo = max(Y0 + i * st["mult"] + st["lead"], Y0 - st["lead"])
+                        hi = Y0 + (i + 1) * st["mult"] + st["lead"]
                         if lo >= hi:
                             continue
                         hy, hx, op, pk = st["kh"] // 2, st["kw"] // 2, st["op"], st["pk"]
-                        c0, c1 = pw - st["rw"] + hx, pw + geom.tile_w + st["rw"] - hx
+                        pw, oxd, ox = pads[st["lo"]], origin(st["lo"]), origin(st["ls"])
+                        c0, c1 = pw - st["cw"], pw + tws[st["lo"]] + st["cw"]
                         nr = hi - lo
-                        X = sm[rr(st["src"], np.arange(lo - hy, hi + hy))]
                         w0 = wts[st["wx"]:]
-                        if op in (9, 12):  # strided: image-even rows and columns -> own band
+                        if op == 15:  # pyrUp: row phases, then column phases
+                            Y = np.arange(lo, hi)
+                            x0 = _floor2(oxd + c0) - 1 - ox
+                            x1 = _floor2(oxd + c1 - 1) + 2 - ox
+                            a, b, c = (rr(st["src"], _floor2(Y) + d)[:, x0:x1] for d in (-1, 0, 1))
+                            T = np.full((nr, widths[st["ls"]]), np.nan, F32)
+                            T[:, x0:x1] = np.where((Y & 1)[:, None] == 1, _pyr_odd(b, c),
+                                                   _pyr_even(a, b, c))
+                            X = oxd + np.arange(c0, c1)
+                            q = _floor2(X) - ox
+                            v = np.where((X & 1)[None, :] == 1, _pyr_odd(T[:, q], T[:, q + 1]),
+                                         _pyr_even(T[:, q - 1], T[:, q], T[:, q + 1]))
+                            v, v2 = _pack(v, pk), None
+                        elif op in (9, 12) and st["down"] == 1:  # a stride before the last
+                            Y = np.arange(lo, hi)
+                            xs_ = 2 * (oxd + np.arange(c0, c1)) - ox
+                            if op == 9:
+                                ra = 2 * lo - hy
+                                X = rr(st["src"], np.arange(ra, 2 * (hi - 1) + hy + 1))
+                                cols = np.stack([X[:, x - hx:x + hx + 1] for x in xs_], axis=1)
+                                acc = _row_pass(op, cols, w0, st["kw"])[..., 0]
+                                v = np.stack([_col_pass(op, acc[2 * a:2 * a + st["kh"]],
+                                                        wts[st["wy"]:], st["kh"], None)[0]
+                                              for a in range(nr)])
+                            else:
+                                A, B = rr(st["src"], 2 * Y), rr(st["src"], 2 * Y + 1)
+                                v = ((A[:, xs_] + B[:, xs_]) + (A[:, xs_ + 1] + B[:, xs_ + 1])) \
+                                    * F32(0.25)
+                            v, v2 = _pack(v, pk), None
+                        elif op in (9, 12):  # strided last: image-even rows and columns -> own band
+                            X = rr(st["src"], np.arange(lo - hy, hi + hy))
                             band = outs[st["store"]]
                             cols = np.arange(c0 + (ox + c0) % 2, c1 - (op == 12), 2)
                             rows_e = np.arange(lo + lo % 2, hi - (op == 12), 2)
@@ -399,67 +456,63 @@ def _emulate_stream(planes: np.ndarray, prog, geom, maps=()) -> list:
                             band[n, rows_e[keep_r][:, None] // 2,
                                  (ox + cols[keep_c])[None, :] // 2] = v[keep_r][:, keep_c]
                             continue
-                        v2 = None
-                        if op in (0, 1, 5, 6):  # separable: row pass -> scratch
-                            taps = [X[:, c0 - hx + q:c1 - hx + q] for q in range(st["kw"])]
-                            acc = w0[0] * taps[0] if op == 0 else taps[0]
-                            for q in range(1, st["kw"]):
-                                acc = (acc + w0[q] * taps[q] if op == 0 else acc + taps[q]
-                                       if op == 6 else np.minimum(acc, taps[q]) if op == 1
-                                       else np.maximum(acc, taps[q]))
-                            sm[prog.scratch:prog.scratch + nr + 2 * hy, c0:c1] = acc
-                            T = sm[prog.scratch:prog.scratch + nr + 2 * hy, c0:c1]
-                            ky = wts[st["wy"]:]
-                            acc = ky[0] * T[0:nr] if op == 0 else T[0:nr]
-                            for q in range(1, st["kh"]):
-                                c = T[q:q + nr]
-                                acc = (acc + ky[q] * c if op == 0 else acc + c if op == 6
-                                       else np.minimum(acc, c) if op == 1 else np.maximum(acc, c))
-                            v = _pack(acc * w0[0] if op == 6 else acc, pk)
-                        elif op == 4:  # filter2d, taps row-major
-                            kw = st["kw"]
-                            v = w0[0] * X[0:nr, c0 - hx:c1 - hx]
-                            for a in range(st["kh"]):
-                                for b in range(kw):
-                                    if a or b:
-                                        v = v + w0[a * kw + b] * X[a:a + nr, c0 - hx + b:c1 - hx + b]
-                            v = _pack(v, pk)
-                        elif op == 2:
-                            dy = (X[2:, c0:c1] - X[:-2, c0:c1]) * F32(0.5)
-                            dx = (X[1:-1, c0 + 1:c1 + 1] - X[1:-1, c0 - 1:c1 - 1]) * F32(0.5)
-                            v = _pack(np.sqrt(dx * dx + dy * dy), pk)
-                        elif op == 10:
-                            v, v2 = _sobel(X[:, c0 - 1:c1 + 1])
-                        elif op == 11:
-                            Y = sm[rr(st["src2"], np.arange(lo, hi))]
-                            a, b = X[:, c0:c1], Y[:, c0:c1]
-                            v = _pack(np.sqrt(a * a + b * b), pk)
-                        elif op in (13, 14):
-                            ii, jj = np.meshgrid(np.arange(lo, hi), np.arange(c0, c1), indexing="ij")
-                            sy, sx = _gather_coords(op, w0, maps, st["wx"], ii, ox + jj, H, W)
-                            # X holds rows [lo - hy, hi + hy): local row 0 is image row lo - hy
-                            v = _bilinear(X, sy, sx, lo - hy, ox, 0, nr + 2 * hy, c0 - hx, c1 + hx)
-                            v = _pack(v, pk)
-                        elif op == 7:
-                            v = _pack(np.where(X[:, c0:c1] > w0[0], w0[1], F32(0)), pk)
                         else:
-                            v = _pack(X[:, c0:c1] * w0[0] + w0[1], pk)
+                            X = rr(st["src"], np.arange(lo - hy, hi + hy))
+                            v2 = None
+                            if op in (0, 1, 5, 6):  # separable: row pass -> scratch
+                                acc = _row_pass(op, X[:, c0 - hx:c1 + hx], w0, st["kw"])
+                                v = _pack(_col_pass(op, acc, wts[st["wy"]:], st["kh"],
+                                                    w0[0] if op == 6 else None), pk)
+                            elif op == 4:  # filter2d, taps row-major
+                                kw = st["kw"]
+                                v = w0[0] * X[0:nr, c0 - hx:c1 - hx]
+                                for a in range(st["kh"]):
+                                    for b in range(kw):
+                                        if a or b:
+                                            v = v + w0[a * kw + b] * X[a:a + nr,
+                                                                       c0 - hx + b:c1 - hx + b]
+                                v = _pack(v, pk)
+                            elif op == 2:
+                                dy = (X[2:, c0:c1] - X[:-2, c0:c1]) * F32(0.5)
+                                dx = (X[1:-1, c0 + 1:c1 + 1] - X[1:-1, c0 - 1:c1 - 1]) * F32(0.5)
+                                v = _pack(np.sqrt(dx * dx + dy * dy), pk)
+                            elif op == 10:
+                                v, v2 = _sobel(X[:, c0 - 1:c1 + 1])
+                            elif op == 11:
+                                Y2 = rr(st["src2"], np.arange(lo, hi))
+                                a, b = X[:, c0:c1], Y2[:, c0:c1]
+                                v = _pack(np.sqrt(a * a + b * b), pk)
+                            elif op in (13, 14):
+                                ii, jj = np.meshgrid(np.arange(lo, hi), np.arange(c0, c1),
+                                                     indexing="ij")
+                                lh, lw = lv.size(st["ls"], H, W)
+                                sy, sx = _gather_coords(op, w0, maps, st["wx"], ii, ox + jj, lh, lw)
+                                # X holds rows [lo - hy, hi + hy): local row 0 is image row lo - hy
+                                v = _bilinear(X, sy, sx, lo - hy, ox, 0, nr + 2 * hy, c0 - hx,
+                                              c1 + hx)
+                                v = _pack(v, pk)
+                            elif op == 7:
+                                v = _pack(np.where(X[:, c0:c1] > w0[0], w0[1], F32(0)), pk)
+                            else:
+                                v = _pack(X[:, c0:c1] * w0[0] + w0[1], pk)
                         for val, dst, store in ((v, st["dst"], st["store"]),
                                                 (v2, st["dst2"], st["store2"])):
                             if val is None:
                                 continue
                             if dst >= 0:
-                                sm[rr(dst, np.arange(lo, hi)), c0:c1] = val
+                                rings[dst][np.mod(np.arange(lo, hi), streams[dst]["depth"]),
+                                           c0:c1] = val
                             elif store >= 0:
                                 for a, r in enumerate(range(lo, hi)):
                                     if y0 <= r < y1:
-                                        outs[store][n, r, tx0:tx0 + tw] = val[a, pw - c0:pw - c0 + tw]
+                                        outs[store][n, r, tx0:tx0 + tw] = \
+                                            val[a, pads[last] - c0:pads[last] - c0 + tw]
                     if i >= 0:
                         rows = np.arange(y0 + i * m, min(y0 + (i + 1) * m, y1))
-                        for s, stream in enumerate(streams):
+                        for k, stream in enumerate(streams):
                             if stream["store"] >= 0:
                                 outs[stream["store"]][n, rows, tx0:tx0 + tw] = \
-                                    sm[rr(s, rows), pw:pw + tw]
+                                    rr(k, rows)[:, pads[last]:pads[last] + tw]
     return outs
 
 
@@ -479,6 +532,20 @@ REPLAY = [
     ("pyr_down", "f32", (1, 5, 5), {"rows": 2}),
     ("pyr_down_tap", "u8", (1, 39, 45), {"tiled": True, "tile_w": 8, "segments": 2,
                                          "rows": 4}),
+    ("pyr_up", "f32", (1, 19, 31), {"segments": 3, "rows": 4}),
+    ("pyr_up", "u8", (2, 31, 31), {"tiled": True, "tile_w": 8, "segments": 2, "rows": 6}),
+    ("pyr_up", "f32", (1, 48, 31), {"rows": 2}),
+    ("up_gauss5", "f32", (1, 19, 31), {"segments": 2, "rows": 6}),
+    ("up_gauss5", "u8", (1, 31, 29), {"tiled": True, "tile_w": 8, "rows": 4}),
+    ("down_up", "f32", (1, 48, 31), {"segments": 2}),
+    ("down_up", "u8", (2, 37, 30), {"tiled": True, "tile_w": 8, "segments": 3, "rows": 4}),
+    ("pyr_down_map", "u8", (1, 70, 61), {"segments": 3}),
+    ("pyr_down_map", "f32", (1, 45, 53), {"tiled": True, "tile_w": 16, "segments": 2,
+                                          "rows": 4}),
+    ("resize2_mid", "u8", (1, 70, 61), {"segments": 2}),
+    ("resize2_mid", "f32", (1, 37, 53), {"tiled": True, "tile_w": 8, "segments": 2, "rows": 2}),
+    ("up_down_tap", "f32", (1, 23, 19), {"tiled": True, "tile_w": 8, "segments": 2, "rows": 4}),
+    ("down_sobel_grad", "u8", (1, 37, 41), {"tiled": True, "tile_w": 16, "segments": 2}),
 ]
 
 
