@@ -25,28 +25,46 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# name -> (what it breaks, the source text, its replacement)
+# name -> (what it breaks, the source text, its replacement); each fault
+# edits the f16 / bf16 (wgmma) body, the serving path's
 FAULTS = {
     "zeros": (
-        "every output written as 0, in every dtype",
-        "f[e] = acc[r][c * PW + e] / den;",
-        "f[e] = 0.f;",
+        "in f16 / bf16, every output written as 0",
+        "P::pack(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);\n"
+        "      if (qi1 < S)\n"
+        "        *reinterpret_cast<uint32_t*>(og + size_t(qi1) * rs + ch) =\n"
+        "            P::pack(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);",
+        "P::pack(0.f, 0.f);\n"
+        "      if (qi1 < S)\n"
+        "        *reinterpret_cast<uint32_t*>(og + size_t(qi1) * rs + ch) = P::pack(0.f, 0.f);",
     ),
     "diag_bf16": (
         "in f16 / bf16, query rows from 512 on mask their own key (one key of a late tile)",
-        "const bool ok = ki < Tk && (!causal || ki <= qi);",
-        "const bool ok = ki < Tk && (!causal || ki <= qi) && !(PW == 2 && ki == qi && qi >= 512);",
+        "      const bool out0 = masked && (ki >= Tk || (causal && ki > qi0));\n"
+        "      const bool out1 = masked && (ki >= Tk || (causal && ki > qi1));",
+        "      const bool out0 = masked && (ki >= Tk || (causal && (ki > qi0 || (ki == qi0 && "
+        "qi0 >= 512))));\n"
+        "      const bool out1 = masked && (ki >= Tk || (causal && (ki > qi1 || (ki == qi1 && "
+        "qi1 >= 512))));",
     ),
     "last_key_bf16": (
-        "in f16 / bf16, the last key of each 64-key tile is unpacked with each odd channel "
-        "of v replaced by the even one before it",
-        "E::unpack(v_s[j * W + w], vf);",
-        "E::unpack(v_s[j * W + w], vf);\n          if (PW == 2 && j == BKV - 1) vf[1] = vf[0];",
+        "in f16 / bf16, the last key of each 64-key tile enters p.v with the probability of "
+        "the key before it",
+        "const float a = pf[4 * j + 2 * h], c = pf[4 * j + 2 * h + 1];",
+        "const float a = pf[4 * j + 2 * h], c = (j == 7 && (lane & 3) == 3) ? a : "
+        "pf[4 * j + 2 * h + 1];",
     ),
     "den_1pct_bf16": (
         "in f16 / bf16, every row's softmax sum is taken 1% too large",
-        "const float den = fmaxf(l_s[ty * TR + r], 1e-30f);",
-        "const float den = fmaxf(l_s[ty * TR + r], 1e-30f) * (PW == 2 ? 1.01f : 1.f);",
+        "    const float inv0 = __fdividef(1.f, fmaxf(l0, 1e-30f));\n"
+        "    const float inv1 = __fdividef(1.f, fmaxf(l1, 1e-30f));",
+        "    const float inv0 = __fdividef(1.f, fmaxf(l0, 1e-30f) * 1.01f);\n"
+        "    const float inv1 = __fdividef(1.f, fmaxf(l1, 1e-30f) * 1.01f);",
+    ),
+    "p_lo_dropped": (
+        "in f16 / bf16, p.v takes p_hi alone: one 16-bit pass of p, no p_lo",
+        "    wgmma_pv<T, N>(acc, lo_d + 32 * kk / 16, vd + kk * 16 * 128 / 16);\n",
+        "",
     ),
 }
 
@@ -119,6 +137,8 @@ def main() -> int:
             "path_share_of_jax_test_tol": max(c["share_of_jax_test_tol"] for c in path),
             "path_max_abs_err": max(c["max_abs_err"] for c in path),
             "jax_shapes_share_of_tol": max(c["share_of_tol"] for c in shapes),
+            "path_off_plain": max(c["off_plain"] for c in path if "off_plain" in c),
+            "jax_shapes_off_plain": max(c["off_plain"] for c in shapes if "off_plain" in c),
             "hidden_f32": out["hidden_f32"],
             "prefill_logits": out["prefill_logits"],
             "tokens": out["tokens"],
@@ -137,7 +157,10 @@ def main() -> int:
         print(f"fault {n}: {len(s['failed_checks'])} checks failed; kernel vs plain on the "
               f"path, share of the tolerance {s['path_share_of_tol']:.4g} (of the JAX test's "
               f"{s['path_share_of_jax_test_tol']:.4g}), max_abs_err {s['path_max_abs_err']:.4g}; "
-              f"JAX test shapes {s['jax_shapes_share_of_tol']:.4g}; f32 hidden states "
+              f"JAX test shapes {s['jax_shapes_share_of_tol']:.4g}; share of outputs off the "
+              f"plain version's {s['path_off_plain']:.4g} on the path, "
+              f"{s['jax_shapes_off_plain']:.4g} on the JAX test shapes (limit "
+              f"{kattn.OFF_PLAIN_SHARE:.4g}); f32 hidden states "
               f"{s['hidden_f32']['share_of_tol']:.4g}; f32 logits "
               f"{lg['f32 kernel vs plain']['max']:.4g} (limit 2e-3); bf16 logits "
               f"{lg['bf16 kernel vs plain']['max']:.4g} (limit "

@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-OWN_KERNELS = ("flash_attn_kernel",)
+OWN_KERNELS = ("flash_attn_wgmma_kernel", "flash_attn_simt_kernel")
 
 
 def _by_kernel(prof, torch) -> dict:

@@ -3,20 +3,25 @@
 `flash_attention` replaces `repro.kernels.attention._flash_kernel` (TPU,
 Pallas).  Bound on an H100: operations.  At gemma-7b's prefill (B = 8,
 S = T = 1024, 16 heads of 256, causal, bf16) the causal half of q.k and
-p.v is 34.4 GFLOP each.  q.k multiplies bf16 operands, exact in f32, so
-the card could run it on its tensor cores (989 TFLOP/s, ~0.035 ms); p.v
-takes f32 probabilities, so it needs f32 arithmetic (67 TFLOP/s, ~0.51
-ms): ~0.55 ms in all, against ~0.08 ms for its ~268 MB.  This kernel uses
-no tensor cores yet.  Design (``csrc/flash_attn.cu``):
-one block per (batch, head, 64-row query tile) loops over 64-row KV tiles
-with the running max, sum and accumulator in registers and shared memory;
-q, k and v are read in place in their (B, S, H, hd) layout and staged in
-their own dtype, f32 arithmetic throughout, no tensor cores yet.
+p.v is 34.4 GFLOP each, against ~268 MB (~0.08 ms at 3.35 TB/s).  One
+hand-written kernel a call, routed by dtype (``csrc/flash_attn.cu``):
+
+* f16 / bf16, the serving path: tensor cores.  One block of three
+  warpgroups per (batch, head, 128-row query tile): a producer thread
+  issues TMA loads of q and of a 2-stage ring of 64-row K / V tiles, read
+  in place in their (B, S, H, hd) layout; two consumer warpgroups of 64
+  rows run q.k as `wgmma` (16-bit products are exact in f32), the online
+  softmax in registers while the previous tile's p.v runs, and p.v as two
+  `wgmma`s on p_hi = T(p) and p_lo = T(p - p_hi), staged in shared memory
+  and summed in f32 (within ~2^-16 of f32 p.v).  Tensor work: q.k plus two
+  p.v passes, 103.2 GFLOP at the gemma shape, ~0.104 ms at 989 TFLOP/s.
+* f32: f32 FMAs (`flash_attn_simt_kernel`), one block of 256 threads per
+  (batch, head, 64-row query tile), q, k and v staged in shared memory.
 
 `flash_attention_plain` is the same online softmax over 64-key blocks in
-PyTorch, with the kernel's guards for rows that are masked so far.  It
-sums dot products in another order, so the two agree to rounding, not bit
-for bit: within `AGREE`.
+PyTorch, with the kernel's guards for rows that are masked so far, in f32
+throughout.  It sums dot products in another order, so kernel and plain
+version agree to rounding, not bit for bit: within `AGREE`.
 """
 
 from __future__ import annotations
@@ -31,9 +36,17 @@ from ..core.device import DEFAULT, LaunchConfig
 from . import _build, counters
 
 NEG = -1e30
-BQ = 64  # query rows per block of the kernel
-BKV = 64  # key / value rows per tile (kernel and plain version)
+BQ = 64  # query rows per block of the f32 kernel
+BKV = 64  # key / value rows per tile (both kernels and the plain version)
 MAX_HEAD_DIM = 256
+# the 16-bit kernel: query rows per block, channels per swizzled 128-byte
+# row, K / V ring stages, each consumer warpgroup's p_hi and p_lo tiles
+# (64 x 64, 16-bit), and the alignment slack and mbarriers of a block
+WGMMA_BQ = 128
+CHUNK = 64
+STAGES = 2
+P_TILES = 2 * 2 * 64 * BKV * 2
+WGMMA_EXTRA = 1024 + 8 * (1 + 4 * STAGES)
 
 # (rtol, atol) within which the kernel, its plain version and the f32
 # oracle agree.  Each computes in f32 and rounds once to the output dtype,
@@ -46,6 +59,13 @@ AGREE = {
     torch.bfloat16: (2.0**-7, 1e-4),
 }
 
+# The share of f16 / bf16 outputs that may differ from the plain version's
+# (f32 p.v, rounded once).  AGREE passes a single 16-bit pass of p, so this
+# is what shows the p_hi + p_lo split: on the CPU tests' shapes the replay of
+# the split reads 0.04-0.25% and a single pass 33-40%
+# (tests/test_torch_attention.py), and 2^-5 lies between them.
+OFF_PLAIN_SHARE = 2.0**-5
+
 # dtype code of the C launcher
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -55,11 +75,24 @@ LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def smem_bytes(head_dim: int, itemsize: int) -> int:
-    """Shared memory of one kernel block: the q and k tiles (rows padded by
-    one 32-bit word), the v tile, the 64 x 65 f32 score tile and three f32
-    row vectors."""
-    w = head_dim * itemsize // 4
-    return 4 * ((BQ + BKV) * (w + 1) + BKV * w + BQ * (BKV + 1) + 3 * BQ)
+    """Shared memory of one kernel block.  f32: the q and k tiles (rows
+    padded by one 32-bit word), the v tile, the 64 x 65 f32 score tile and
+    three f32 row vectors.  f16 / bf16: the 128-row q tile and 2 stages of
+    64-row K and V tiles, each of `chunks` 64-channel chunks of 128 bytes a
+    row (head dims below 256 padded to 64 or 128 channels), the p_hi and
+    p_lo tiles of both consumer warpgroups, the 1024-byte alignment slack
+    and 9 mbarriers.  The library's ``flash_attn_smem_bytes`` gives the same
+    figures (a card test holds the two together)."""
+    if itemsize == 4:
+        w = head_dim
+        return 4 * ((BQ + BKV) * (w + 1) + BKV * w + BQ * (BKV + 1) + 3 * BQ)
+    ring = chunks(head_dim) * (WGMMA_BQ + 2 * STAGES * BKV) * 2 * CHUNK
+    return ring + P_TILES + WGMMA_EXTRA
+
+
+def chunks(head_dim: int) -> int:
+    """64-channel chunks the 16-bit kernel pads `head_dim` to: 1, 2 or 4."""
+    return 1 if head_dim <= CHUNK else 2 if head_dim <= 2 * CHUNK else 4
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -13,8 +13,19 @@ Tolerances, with their reasons:
     three compute in f32 and round once, summing dot products in another
     order;
   * the port's `attention_ref` and `dense_attention` against JAX's: rtol =
-    atol = 1e-5 in f32, the same formula in another summation order.
+    atol = 1e-5 in f32, the same formula in another summation order;
+  * the replay of the 16-bit kernel's tile walk (`_replay_wgmma`) against
+    JAX's kernel and `flash_attention_plain`: `AGREE` in bf16 and f16 (it
+    too rounds once to the output dtype), and its output within 2^-16 of
+    max |v| from the same walk with f32 p.v (the p_hi + p_lo split leaves
+    ~2^-18 of p in bf16, ~2^-22 in f16 above its subnormals); the share of
+    its outputs that differ from the plain version's within
+    `OFF_PLAIN_SHARE`, which the same walk with p_hi alone exceeds.
 """
+
+import importlib.util
+import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -134,13 +145,122 @@ def test_flash_attention_refuses(bad):
 
 
 def test_smem_bytes_fit_the_card_at_hd_256():
-    """gemma-7b's head dim: 116,224 bytes a block in bf16 (a q, k and v tile
-    in their own dtype) and 214,528 in f32, both under the 227 KB a block
-    may use; f32 staging of all three tiles in bf16's place would not fit
-    beside the scores at BKV = 128 (the JAX kernel's block)."""
-    assert kattn.smem_bytes(256, 2) == 116_224
+    """gemma-7b's head dim: 230,472 bytes a block in bf16 and f16 (the
+    128-row q tile, 2 stages of 64-row K and V tiles, two warpgroups' p_hi
+    and p_lo tiles, the alignment slack and 9 mbarriers) and 214,528 in f32
+    (the SIMT body), both under the 227 KB a block may use.  The 16-bit
+    layout pads the head dim to 64-channel chunks: hd 16 takes hd 64's
+    bytes."""
+    assert kattn.smem_bytes(256, 2) == 230_472 <= SMEM_MAX_BYTES
     assert kattn.smem_bytes(256, 4) == 214_528 <= SMEM_MAX_BYTES
-    assert kattn.smem_bytes(16, 2) < kattn.smem_bytes(64, 2) < kattn.smem_bytes(128, 2)
+    assert kattn.smem_bytes(16, 2) == kattn.smem_bytes(64, 2) < kattn.smem_bytes(128, 2)
+    assert kattn.smem_bytes(128, 2) < kattn.smem_bytes(136, 2) == kattn.smem_bytes(256, 2)
+    assert kattn.smem_bytes(16, 4) < kattn.smem_bytes(64, 4) < kattn.smem_bytes(128, 4)
+
+
+def test_wgmma_layout_at_hd_256_fits_its_two_stage_ring():
+    """q 64 KB + 2 stages x (K 32 KB + V 32 KB) = 192 KB of tiles, with the
+    32 KB of p tiles, the slack and the mbarriers, fits the 227 KB a block
+    may use; a third stage (64 KB more) would not."""
+    row = 2 * 256  # bytes of one bf16 row at hd 256
+    tiles = (kattn.WGMMA_BQ + 2 * kattn.STAGES * kattn.BKV) * row
+    assert kattn.STAGES == 2 and tiles == 192 * 1024 and kattn.P_TILES == 32 * 1024
+    assert kattn.smem_bytes(256, 2) == tiles + kattn.P_TILES + kattn.WGMMA_EXTRA <= SMEM_MAX_BYTES
+    assert kattn.smem_bytes(256, 2) + 2 * kattn.BKV * row > SMEM_MAX_BYTES
+
+
+def _replay_wgmma(q, k, v, causal, split=True):
+    """The 16-bit kernel's arithmetic on the CPU: per 128-row query tile (a
+    causal tile stops at its last row), 64-key tiles, the online softmax in
+    f32, p split into p_hi = T(p) and p_lo = T(p - p_hi) in q's dtype T and
+    p_hi.v + p_lo.v summed in f32; out rounded once to T.  Returns that and
+    the largest distance of its f32 output from the same walk with f32 p.v,
+    over max |v|.  ``split=False`` drops p_lo: one 16-bit pass of p."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v))  # (B, H, n, hd)
+    out = torch.zeros((B, H, S, hd))
+    exact = torch.zeros((B, H, S, hd))
+    for q0 in range(0, S, kattn.WGMMA_BQ):
+        qb = qf[:, :, q0 : q0 + kattn.WGMMA_BQ]
+        qi = torch.arange(q0, q0 + qb.shape[2])[:, None]
+        m = torch.full(qb.shape[:3], kattn.NEG)
+        l = torch.zeros(qb.shape[:3])  # noqa: E741
+        acc = torch.zeros(qb.shape)
+        acc_f32 = torch.zeros(qb.shape)
+        kv_end = min(T, q0 + kattn.WGMMA_BQ, S) if causal else T
+        for k0 in range(0, kv_end, kattn.BKV):
+            kb, vb = kf[:, :, k0 : k0 + kattn.BKV], vf[:, :, k0 : k0 + kattn.BKV]
+            s = (qb @ kb.transpose(-1, -2)) * scale
+            if causal:
+                ki = torch.arange(k0, k0 + kb.shape[2])[None, :]
+                s = torch.where(ki <= qi, s, kattn.NEG)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            m_safe = torch.where(m_new <= kattn.NEG / 2, 0.0, m_new)
+            p = torch.exp(s - m_safe[..., None])
+            corr = torch.where(m <= kattn.NEG / 2, 0.0, torch.exp(m - m_safe))[..., None]
+            l = l * corr[..., 0] + torch.sum(p, dim=-1)  # noqa: E741
+            p_hi = p.to(q.dtype).to(torch.float32)
+            p_lo = (p - p_hi).to(q.dtype).to(torch.float32) if split else torch.zeros_like(p)
+            acc = acc * corr + (p_hi @ vb + p_lo @ vb)
+            acc_f32 = acc_f32 * corr + p @ vb
+            m = m_new
+        den = torch.clamp(l, min=1e-30)[..., None]
+        out[:, :, q0 : q0 + qb.shape[2]] = acc / den
+        exact[:, :, q0 : q0 + qb.shape[2]] = acc_f32 / den
+    dist = float((out - exact).abs().max() / vf.abs().max())
+    return out.transpose(1, 2).to(q.dtype), dist
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_replay_matches_jax_kernel_and_plain(shape, causal, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(shape, dtype, sum(shape) + causal)
+    got, dist = _replay_wgmma(tq, tk, tv, causal)
+    print(f"p_hi + p_lo against f32 p.v: {dist:.3g} of max |v| (2^{math.log2(dist or 2**-60):.1f})")
+    assert dist <= 2.0**-16
+    rtol, atol = kattn.AGREE[tq.dtype]
+    plain = kattn.flash_attention_plain(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=rtol, atol=atol)
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_p_split_is_needed_within_off_plain_share(shape, causal, dtype):
+    """`AGREE` passes one 16-bit pass of p as well as the split, so the card
+    also holds the kernel to `OFF_PLAIN_SHARE`: the share of outputs that
+    differ from the plain version's (f32 p.v, rounded once).  The replay of
+    the split stays within it, the same walk with p_hi alone does not."""
+    _, (tq, tk, tv) = _qkv(shape, dtype, sum(shape) + causal)
+    plain = kattn.flash_attention_plain(tq, tk, tv, causal=causal)
+    split, _ = _replay_wgmma(tq, tk, tv, causal)
+    single, _ = _replay_wgmma(tq, tk, tv, causal, split=False)
+    off_split = float((split != plain).float().mean())
+    off_single = float((single != plain).float().mean())
+    print(f"outputs off the plain version's: split {off_split:.5f}, p_hi alone {off_single:.5f}")
+    assert off_split <= kattn.OFF_PLAIN_SHARE < off_single
+
+
+def test_planted_faults_edit_the_kernel_source_once():
+    """scripts/torch_flash_faults.py plants each fault by one textual edit of
+    csrc/flash_attn.cu: each fault's source text is there exactly once."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "torch_flash_faults", root / "scripts" / "torch_flash_faults.py"
+    )
+    faults = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(faults)
+    text = (root / "src" / "repro_torch" / "csrc" / "flash_attn.cu").read_text()
+    assert set(faults.FAULTS) == {
+        "zeros", "diag_bf16", "last_key_bf16", "den_1pct_bf16", "p_lo_dropped"
+    }
+    for name, (_, old, new) in faults.FAULTS.items():
+        assert text.count(old) == 1 and new != old, name
 
 
 # ---------------------------------------------------------------------------

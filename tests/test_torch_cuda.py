@@ -23,7 +23,10 @@ it is held to `kernels.attention.AGREE`: one rounding apart in f16 / bf16
 test's, tests/test_kernels_attention.py:20).
 """
 
+import ctypes
 import math
+import shutil
+import subprocess
 
 import pytest
 import torch
@@ -33,6 +36,7 @@ from repro_torch.cv import features, pipeline
 from repro_torch.cv.config import PipelineConfig
 from repro_torch.data.synthetic import ImageStream
 from repro_torch.configs import reduced_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import attention as kattn
 from repro_torch.kernels import bow as kbow
 from repro_torch.kernels import counters
@@ -348,7 +352,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize(
     "B,S,T,H,hd",
     [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128), (2, 257, 257, 2, 16),
-     (1, 130, 130, 2, 256), (1, 100, 160, 2, 64), (2, 150, 70, 3, 32), (1, 1, 65, 1, 8)],
+     (1, 130, 130, 2, 256), (1, 100, 160, 2, 64), (2, 150, 70, 3, 32), (1, 1, 65, 1, 8),
+     # S and T off the 128-row query tile and the 64-key tile, hd off the 64-channel chunk
+     (1, 333, 517, 2, 192), (2, 191, 127, 3, 136), (1, 65, 63, 2, 40), (1, 77, 77, 1, 248),
+     # gemma-7b's prefill at a reduced batch and head count
+     (2, 1024, 1024, 4, 256)],
 )
 def test_flash_attention_matches_plain(dev, dtype, causal, B, S, T, H, hd):
     g = torch.Generator(device=dev).manual_seed(S * 7 + T + hd)
@@ -364,6 +372,61 @@ def test_flash_attention_matches_plain(dev, dtype, causal, B, S, T, H, hd):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     oracle = ref.attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), oracle.float(), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_library_runs_on_the_tensor_cores(dev):
+    """The built library's SASS: each 16-bit body (f16 and bf16 at 1, 2 and 4
+    channel chunks) issues HGMMA and loads by TMA (UTMALDG), and the f32
+    body runs FMAs without either.  Prints each body's ptxas report."""
+    kattn.flash_attention(*(3 * (torch.zeros((1, 8, 1, 8), device=dev, dtype=torch.bfloat16),)))
+    report = _build.build_log("flash_attn").splitlines()
+    for i, line in enumerate(report):
+        if "Compiling entry" in line:
+            print(line.split("'")[1], *(r.strip() for r in report[i + 1 : i + 4]), sep="\n  ")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.lib_path("flash_attn"))],
+                          capture_output=True, text=True, check=True).stdout
+    bodies = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        bodies[name] = part
+    wgmma = [b for n, b in bodies.items() if "flash_attn_wgmma_kernel" in n]
+    simt = [b for n, b in bodies.items() if "flash_attn_simt_kernel" in n]
+    assert len(wgmma) == 6 and simt
+    for body in wgmma:
+        assert "HGMMA" in body and "UTMALDG" in body
+    for body in simt:
+        assert "FFMA" in body and "HGMMA" not in body and "UTMALDG" not in body
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "B,S,T,H,hd", [(2, 200, 200, 4, 64), (1, 300, 300, 2, 128), (2, 1024, 1024, 4, 256)]
+)
+def test_flash_attention_p_split_within_off_plain_share(dev, dtype, causal, B, S, T, H, hd):
+    """`AGREE` passes one 16-bit pass of p as well as the p_hi + p_lo split.
+    The share of outputs that differ from the plain version's (f32 p.v,
+    rounded once) tells the two apart: tests/test_torch_attention.py replays
+    both and sets `OFF_PLAIN_SHARE` between them."""
+    g = torch.Generator(device=dev).manual_seed(S + hd + causal)
+    q, k, v = (torch.randn((B, n, H, hd), generator=g, device=dev).to(dtype) for n in (S, T, T))
+    got = kattn.flash_attention(q, k, v, causal=causal)
+    want = kattn.flash_attention(q, k, v, causal=causal, mode="ref")
+    off = float((got != want).float().mean())
+    print(f"outputs off the plain version's: {off:.5f} (limit {kattn.OFF_PLAIN_SHARE})")
+    assert off <= kattn.OFF_PLAIN_SHARE
+
+
+def test_flash_attention_smem_bytes_match_the_library(dev):
+    """The wrapper's shared-memory figure is the C launcher's: the 16-bit
+    body at 1, 2 and 4 channel chunks, and the f32 body."""
+    fn = _build.library("flash_attn").flash_attn_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for hd in (8, 64, 72, 128, 136, 256):
+        for dtype, code in kattn.DTYPES.items():
+            assert fn(hd, code) == kattn.smem_bytes(hd, dtype.itemsize), (hd, dtype)
 
 
 def test_flash_attention_refuses_gqa_and_an_over_budget_tile(dev):
