@@ -131,6 +131,7 @@ checkout of the repository.  Results also go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import math
@@ -424,6 +425,8 @@ def time_image_case(case, planes, resolved, want) -> dict:
         "library_ms": lib,
         "bound_ms": bms,
         "bound_by": by,
+        "stream_share": bms / min(s1, s2),
+        "window_share": bms / min(w1, w2),
         "bytes": n_bytes,
         "flops": n_flops,
     }
@@ -1780,9 +1783,16 @@ def main() -> int:
         results["checks"][f"image path {name}"] = {"resolved": resolved, "max_abs_err": 0.0}
         slice_times[name] = time_image_case(case, planes, resolved, want)
         t = slice_times[name]
-        print(f"time {name}: stream_ms={t['ms']:.5f} ({resolved}) window_ms={t['window_ms']:.5f} "
+        print(f"time {name}: mode None -> {resolved}, ms={t['ms']:.5f} "
+              f"stream_ms={t['stream_ms']:.5f} "
+              f"({'tiled2d' if t['stream_tiled'] else 'streaming'}, "
+              f"{100 * t['stream_share']:.2f}% of bound) window_ms={t['window_ms']:.5f} "
+              f"({100 * t['window_share']:.2f}% of bound) "
               f"plain_ms={t['plain_ms']} library_ms={t['library_ms']} bound_ms={t['bound_ms']:.5f} "
               f"({t['bound_by']}; {t['bytes']} B, {t['flops']} FLOP) card={card}")
+    wins = sum(t["stream_ms"] < t["window_ms"] for t in slice_times.values())
+    print(f"image path: stencil_stream faster than stencil_chain on {wins} of {len(slice_times)} "
+          f"shapes; mode None -> {sorted(collections.Counter(t['resolved'] for t in slice_times.values()).items())}")
     results["image_path"] = slice_times
 
     # -- 6. the fused-vs-staged-vs-seed pipeline benchmark ---------------------
@@ -1872,6 +1882,9 @@ def main() -> int:
             "run": lambda: kbow.linear_score(hist, wg, bg),
             "plain": lambda: kbow.linear_score_plain(hist, wg, bg),
             "library": lambda: torch.addmm(bg, hist, wg.T),
+            # also as device time: a CUDA graph of 100 calls replayed, as
+            # for the seed kernels (a call's event time is host-bound here)
+            "graph": True,
             "bytes": f32 * (hist.numel() + wg.numel() + bg.numel() + hist.shape[0] * wg.shape[0]),
             "flops": 2 * hist.shape[0] * wg.shape[0] * wg.shape[1],
             "shape": f"request of {PREDICT_BATCH} images",
@@ -1960,6 +1973,13 @@ def main() -> int:
             "bound_by": by,
             "library_ms": lib,
         }
+        if k.get("graph"):
+            graph_ms = load_bench().graph_ms
+            k_g = [graph_ms(k["run"], reps=100) for _ in range(2)]
+            lib_g = [graph_ms(k["library"], reps=100) for _ in range(2)]
+            entry |= {"graph_ms": min(k_g), "library_graph_ms": min(lib_g)}
+            print(f"time {k['name']} graph replay of 100 calls: ms={k_g[0]:.5f}/{k_g[1]:.5f} "
+                  f"library_ms={lib_g[0]:.5f}/{lib_g[1]:.5f} card={card}")
         line.append(entry)
         print(
             f"time {k['name']} ({k['shape']}): ms={k1:.5f}/{k2:.5f} "

@@ -7,7 +7,7 @@ several launch configurations, on one NVIDIA GPU.
 For each shape (the paper's filter2D and erode benches, the acceptance and
 BoW preprocess chains, one octave ladder) it times `stencil_stream` in the
 mode `mode=None` resolves to under each configuration (the thread ceiling
-`exec_streaming.MAX_THREADS`, row segments, column tile), and `stencil_chain` (mode "window") once,
+`exec_streaming.STREAM_THREADS`, row segments, column tile), and `stencil_chain` (mode "window") once,
 with CUDA events (the faster of two runs of 20 calls), after holding every
 configuration's output equal to the window kernel's bit for bit.  Prints a
 table and writes ``chiprun_out/stencil_sweep.json``.  Exits non-zero
@@ -105,22 +105,23 @@ def main() -> int:
         prog, _ = exec_streaming.program(chain, base.stream_rows, planes.dtype, dev)
         g0 = exec_streaming.stream_geometry(prog, tuple(planes.shape), base, tiled=tiled, sms=sms)
         want = exec_window.stencil_chain(planes, chain)
-        configs = {"default": (base, exec_streaming.MAX_THREADS)}
-        for t in (128, 256, 512):
+        configs = {"default": (base, exec_streaming.STREAM_THREADS)}
+        for t in (64, 128, 256):
             configs[f"threads<={t}"] = (base, t)
         for f in (0.5, 2, 4):
             lc = dataclasses.replace(base, row_segments=max(1, int(f * g0.n_seg)))
-            configs[f"segments x{f}"] = (lc, exec_streaming.MAX_THREADS)
+            configs[f"segments x{f}"] = (lc, exec_streaming.STREAM_THREADS)
         if tiled:
             for tw in (g0.tile_w // 2, g0.tile_w // 4):
                 if tw >= 32:
                     lc = dataclasses.replace(base, tile2d_cols=tw)
-                    configs[f"tile={tw}"] = (lc, exec_streaming.MAX_THREADS)
+                    configs[f"tile={tw}"] = (lc, exec_streaming.STREAM_THREADS)
         t_win = min(time_ms(lambda: exec_window.stencil_chain(planes, chain)) for _ in range(2))
         print(f"{name}: mode={mode} default geometry {g0}; window_ms={t_win:.5f}")
         for label, (lc, threads) in configs.items():
             # the block's thread ceiling is a module constant of the kernel's wrapper
-            exec_streaming.MAX_THREADS = threads
+            exec_streaming.STREAM_THREADS = threads
+            prog._memo.clear()  # the geometry is planned once per key, threads not in it
             got = exec_streaming.stencil_stream(planes, chain, lc, tiled=tiled)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 raise SystemExit(f"{name} {label}: differs from the window kernel")
@@ -135,7 +136,7 @@ def main() -> int:
                          "window_ms": t_win, "tile_w": g.tile_w, "n_tiles": g.n_tiles,
                          "n_seg": g.n_seg, "seg_rows": g.seg_rows, "blocks": blocks,
                          "smem_bytes": g.smem_bytes, "threads": g.threads})
-        exec_streaming.MAX_THREADS = configs["default"][1]
+        exec_streaming.STREAM_THREADS = configs["default"][1]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "stencil_sweep.json").write_text(json.dumps({"card": card, "rows": rows}, indent=1))

@@ -23,9 +23,12 @@
 // atomicAdd (sums of {0, 1} weights are exact in any order).
 //
 // linear_score replaces src/repro/kernels/bow.py `_score_kernel` (via
-// `linear_score`).  Bound on an H100: launch latency; (B, K) x (C, K)^T is
-// ~5 MFLOP at the predict batch.  Design: one thread per (image, class),
-// looping over K in order, then adding the bias.
+// `linear_score`).  Bound on an H100: latency; (B, K) x (C, K)^T is ~1.3
+// MFLOP and ~0.1 MB at the predict batch.  Design: one block per tile of 16
+// images and 32 classes (16 blocks for a request of 256), the tile's rows
+// of h and w staged into shared memory with coalesced loads, each thread one
+// (image, class) output walking K in ascending order from shared memory,
+// then adding the bias; each sum is ~K dependent adds (~0.5 us at K = 250).
 //
 // Arithmetic (every kernel here): fp32 on CUDA cores, no tensor cores, no TF32;
 // every product and sum is rounded on its own (__fmul_rn / __fadd_rn, no
@@ -33,6 +36,7 @@
 // versions in kernels/bow.py compute them.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <math_constants.h>
 
 namespace {
@@ -137,20 +141,79 @@ __global__ void bow_assign_kernel(const float* __restrict__ descs,
   }
 }
 
+// linear_score: a block scores a tile of kScoreRows images against
+// kScoreClasses classes.  K is walked in chunks of `kc` columns: the tile's
+// rows of h and of w are staged into shared memory (16-byte loads where the
+// rows are contiguous and aligned), then each thread walks its outputs'
+// products in ascending k from shared memory and keeps the running sum in
+// `acc_s` from chunk to chunk.
+constexpr int kScoreRows = 16;
+constexpr int kScoreClasses = 32;
+
+// Copy rows [0, n) x columns [k0, k0 + kn) of a row-major (., K) array at
+// `src` into `dst` with row stride `ld`.
+__device__ __forceinline__ void stage_rows(float* dst, int ld, const float* __restrict__ src,
+                                           int n, int K, int k0, int kn) {
+  const int total = n * kn;
+  if (kn == K && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    // the rows are one contiguous, aligned run of n*K floats
+    const int n4 = total / 4;
+    for (int e = threadIdx.x; e < n4; e += blockDim.x) {
+      const float4 v = reinterpret_cast<const float4*>(src)[e];
+      int r = 4 * e / K, k = 4 * e - r * K;
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        dst[r * ld + k] = vs[q];
+        if (++k == K) k = 0, ++r;
+      }
+    }
+    for (int e = 4 * n4 + threadIdx.x; e < total; e += blockDim.x) {
+      const int r = e / K;
+      dst[r * ld + e - r * K] = src[e];
+    }
+  } else {
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int r = e / kn, k = e - r * kn;
+      dst[r * ld + k] = src[size_t(r) * K + k0 + k];
+    }
+  }
+}
+
 __global__ void linear_score_kernel(const float* __restrict__ h, const float* __restrict__ w,
                                     const float* __restrict__ bias, float* __restrict__ out,
-                                    int B, int K, int C) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * C) return;
-  const int bi = int(t / C), c = int(t - (long long)bi * C);
-  const float* hr = h + size_t(bi) * K;
-  const float* wr = w + size_t(c) * K;
-  float acc = 0.f;
-  if (K > 0) {
-    acc = __fmul_rn(hr[0], wr[0]);
-    for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __fmul_rn(hr[k], wr[k]));
+                                    int B, int K, int C, int kc) {
+  extern __shared__ float sm[];
+  const int b0 = blockIdx.x * kScoreRows, c0 = blockIdx.y * kScoreClasses;
+  const int nb = min(kScoreRows, B - b0), nc = min(kScoreClasses, C - c0);
+  const int ld = kc | 1;  // odd: the rows a warp reads at one k fall in distinct banks
+  float* acc_s = sm;      // one running sum per output of the tile
+  float* hs = acc_s + kScoreRows * kScoreClasses;
+  float* ws = hs + kScoreRows * ld;
+  const int n_out = nb * nc;
+  for (int o = threadIdx.x; o < n_out; o += blockDim.x) acc_s[o] = K > 0 ? -0.0f : 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kc) {
+    const int kn = min(kc, K - k0);
+    __syncthreads();  // the previous chunk's reads are done
+    stage_rows(hs, ld, h + size_t(b0) * K, nb, K, k0, kn);
+    stage_rows(ws, ld, w + size_t(c0) * K, nc, K, k0, kn);
+    __syncthreads();
+    for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
+      const int i = o / nc, c = o - i * nc;
+      const float* hr = hs + i * ld;
+      const float* wr = ws + c * ld;
+      // -0 + p = p exactly, so the first product starts the sum as it is
+      float acc = acc_s[o];
+#pragma unroll 8
+      for (int k = 0; k < kn; ++k) acc = __fadd_rn(acc, __fmul_rn(hr[k], wr[k]));
+      acc_s[o] = acc;
+    }
   }
-  out[t] = __fadd_rn(acc, bias[c]);
+  __syncthreads();
+  for (int o = threadIdx.x; o < n_out; o += blockDim.x) {
+    const int i = o / nc, c = o - i * nc;
+    out[size_t(b0 + i) * C + c0 + c] = __fadd_rn(acc_s[o], bias[c0 + c]);
+  }
 }
 
 }  // namespace
@@ -192,13 +255,23 @@ extern "C" int bow_assign_launch(const float* descs, const float* cents, int* id
   return int(cudaGetLastError());
 }
 
+// The shared memory of a linear_score block: the tile's running sums, its
+// kScoreRows rows of h and min(C, kScoreClasses) rows of w, kc columns each
+// (row stride kc | 1).
+extern "C" int linear_score_smem_bytes(int kc, int C) {
+  const int nc = C < kScoreClasses ? C : kScoreClasses;
+  return int((kScoreRows * kScoreClasses + (kScoreRows + nc) * (kc | 1)) * sizeof(float));
+}
+
+// out (B, C) = h (B, K) . w (C, K)^T + bias, K walked in chunks of kc
+// columns (kernels/bow.py `score_geometry`, which keeps a block within the
+// 48 KB of shared memory a launch may take without opting in).  Returns
+// cudaGetLastError().
 extern "C" int linear_score_launch(const float* h, const float* w, const float* bias, float* out,
-                                   int B, int K, int C, int threads, void* stream) {
-  const long long total = (long long)B * C;
-  if (total == 0) return 0;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  linear_score_kernel<<<unsigned(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h, w, bias, out, B, K, C);
+                                   int B, int K, int C, int kc, int threads, void* stream) {
+  if (B == 0 || C == 0) return 0;
+  const dim3 grid((B + kScoreRows - 1) / kScoreRows, (C + kScoreClasses - 1) / kScoreClasses);
+  linear_score_kernel<<<grid, threads, linear_score_smem_bytes(kc, C),
+                        static_cast<cudaStream_t>(stream)>>>(h, w, bias, out, B, K, C, kc);
   return int(cudaGetLastError());
 }

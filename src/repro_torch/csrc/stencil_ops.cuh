@@ -104,8 +104,10 @@ __device__ __forceinline__ float pack(float v, bool u8) {
   return u8 ? fminf(fmaxf(rintf(v), 0.0f), 255.0f) : v;
 }
 
-// Row pass of a separable stage over the kw contiguous values at x.
-__device__ __forceinline__ float row_pass(int op, const float* x, const float* kx, int kw) {
+// Row pass of a separable stage over the kw contiguous values at x (f32, or
+// a u8 ring's values, each converted to f32 exactly).
+template <typename E>
+__device__ __forceinline__ float row_pass(int op, const E* x, const float* kx, int kw) {
   float acc;
   if (op == kSep || op == kPyrDown) {
     acc = __fmul_rn(kx[0], x[0]);
@@ -147,7 +149,9 @@ __device__ __forceinline__ float col_pass(int op, const float* x, int ld, const 
 
 // Row access for the bodies that read several rows.  `Rows::at(i)` names
 // source row i, `next(q)` the row below q and `ptr(q)` its first value, so
-// a ring pays its modulo once per output, not once per tap row.
+// a ring finds its slot once per output, not once per tap row.  The values
+// may be f32 or u8 (stencil_stream.cu's rings in the data's own dtype); a
+// u8 value converts to f32 exactly.
 struct LinRows {
   const float* p;
   int ld;
@@ -156,25 +160,13 @@ struct LinRows {
   __device__ __forceinline__ const float* ptr(int q) const { return p + q * ld; }
 };
 
-struct RingRows {
-  float* p;
-  int depth, ld;
-  __device__ __forceinline__ int at(int i) const {
-    int q = i % depth;
-    return q < 0 ? q + depth : q;
-  }
-  __device__ __forceinline__ int next(int q) const { return q + 1 == depth ? 0 : q + 1; }
-  __device__ __forceinline__ float* ptr(int q) const { return p + q * ld; }
-  __device__ __forceinline__ float* operator()(int i) const { return ptr(at(i)); }
-};
-
 // Direct correlation of the (kh, kw) window whose top-left value is source
 // row i, column j; taps run row-major.
 template <class Rows>
 __device__ __forceinline__ float filter2d_at(const Rows& rows, int i, int j, const float* k,
                                              int kh, int kw) {
   int q = rows.at(i);
-  const float* x = rows.ptr(q) + j;
+  const auto* x = rows.ptr(q) + j;
   float acc = __fmul_rn(k[0], x[0]);
   for (int b = 1; b < kw; ++b) acc = __fadd_rn(acc, __fmul_rn(k[b], x[b]));
   for (int a = 1; a < kh; ++a) {
@@ -190,7 +182,7 @@ template <class Rows>
 __device__ __forceinline__ float grad_at(const Rows& rows, int i, int j) {
   const int q0 = rows.at(i - 1), q1 = rows.next(q0), q2 = rows.next(q1);
   const float dy = __fmul_rn(__fsub_rn(rows.ptr(q2)[j], rows.ptr(q0)[j]), 0.5f);
-  const float* c = rows.ptr(q1);
+  const auto* c = rows.ptr(q1);
   const float dx = __fmul_rn(__fsub_rn(c[j + 1], c[j - 1]), 0.5f);
   return __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
 }
@@ -201,9 +193,9 @@ __device__ __forceinline__ float grad_at(const Rows& rows, int i, int j) {
 template <class Rows>
 __device__ __forceinline__ void sobel_at(const Rows& rows, int i, int j, float& dx, float& dy) {
   const int q0 = rows.at(i - 1), q1 = rows.next(q0), q2 = rows.next(q1);
-  const float* a = rows.ptr(q0) + j;
-  const float* b = rows.ptr(q1) + j;
-  const float* c = rows.ptr(q2) + j;
+  const auto* a = rows.ptr(q0) + j;
+  const auto* b = rows.ptr(q1) + j;
+  const auto* c = rows.ptr(q2) + j;
   const float cd0 = __fsub_rn(a[1], a[-1]), cd1 = __fsub_rn(b[1], b[-1]), cd2 = __fsub_rn(c[1], c[-1]);
   const float cs0 = __fadd_rn(__fadd_rn(a[-1], a[1]), __fmul_rn(2.0f, a[0]));
   const float cs2 = __fadd_rn(__fadd_rn(c[-1], c[1]), __fmul_rn(2.0f, c[0]));
@@ -221,8 +213,8 @@ __device__ __forceinline__ float grad_pair(float a, float b) {
 template <class Rows>
 __device__ __forceinline__ float resize2_at(const Rows& rows, int i, int j) {
   const int q0 = rows.at(i);
-  const float* a = rows.ptr(q0) + j;
-  const float* b = rows.ptr(rows.next(q0)) + j;
+  const auto* a = rows.ptr(q0) + j;
+  const auto* b = rows.ptr(rows.next(q0)) + j;
   return __fmul_rn(__fadd_rn(__fadd_rn(a[0], b[0]), __fadd_rn(a[1], b[1])), 0.25f);
 }
 
@@ -266,8 +258,8 @@ __device__ __forceinline__ float bilinear_at(const Rows& rows, float sy, float s
   const int ly = min(max(int(iy) - oy, rlo), rhi - 2);
   const int lx = min(max(int(ix) - ox, clo), chi - 2);
   const int q = rows.at(ly);
-  const float* a = rows.ptr(q) + lx;
-  const float* b = rows.ptr(rows.next(q)) + lx;
+  const auto* a = rows.ptr(q) + lx;
+  const auto* b = rows.ptr(rows.next(q)) + lx;
   const float top = __fadd_rn(a[0], __fmul_rn(__fsub_rn(a[1], a[0]), fx));
   const float bot = __fadd_rn(b[0], __fmul_rn(__fsub_rn(b[1], b[0]), fx));
   return __fadd_rn(top, __fmul_rn(__fsub_rn(bot, top), fy));

@@ -14,6 +14,7 @@ A missing ``nvcc`` or a failed build raises `RuntimeError`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -120,6 +121,15 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous float32 tensors, got {t.dtype}")
     return dev
+
+
+def on_device(dev: torch.device):
+    """A context that makes `dev` the current CUDA device, or none when it
+    already is (entering and leaving `torch.cuda.device` costs the host a
+    few microseconds a call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def cuda_stream(dev: torch.device) -> int:

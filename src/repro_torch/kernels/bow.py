@@ -18,7 +18,10 @@ its image's histogram row.  Normalisation happens outside the kernel, as in
 JAX.
 
 `linear_score` replaces `repro.kernels.bow._score_kernel`.  Bound on an
-H100: launch latency (~5 MFLOP).  Design: one thread per (image, class).
+H100: latency (~1.3 MFLOP at the predict batch).  Design: one block per
+tile of 16 images and 32 classes (`score_geometry`); the tile's rows of h
+and w are staged into shared memory with coalesced loads, and each thread
+walks one (image, class) sum over K in ascending order from there.
 
 The kernels compute in fp32 on CUDA cores with every product and sum
 rounded on its own, in ascending index order; the plain versions here do
@@ -38,6 +41,11 @@ from . import _build, counters
 
 DESC_BLOCK = 32  # descriptors per block of the nearest-word search (one per lane group)
 CODE_TILE = 32  # codebook rows staged through shared memory at a time
+# linear_score: images and classes a block scores (csrc/bow.cu kScoreRows,
+# kScoreClasses), and the shared memory a block stays within
+SCORE_ROWS = 16
+SCORE_CLASSES = 32
+SCORE_SMEM = 48 * 1024
 
 
 def normalize_hist(h: torch.Tensor) -> torch.Tensor:
@@ -106,14 +114,32 @@ def linear_score_plain(hists: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
     return acc + b.to(torch.float32)[None, :]
 
 
+def score_geometry(B: int, K: int, C: int) -> dict:
+    """One `linear_score` launch: ``blocks`` (image tiles, class tiles),
+    ``kc`` the columns of K a block stages at a time (the widest whose rows
+    of h and w fit `SCORE_SMEM`), and ``smem`` its bytes of shared memory:
+    the tile's running sums, then `SCORE_ROWS` rows of h and min(C,
+    `SCORE_CLASSES`) rows of w at row stride ``kc | 1``."""
+    kc, smem = _score_chunk(K, C)
+    return {"blocks": (-(-B // SCORE_ROWS), -(-C // SCORE_CLASSES)), "kc": kc, "smem": smem}
+
+
+@functools.cache
+def _score_chunk(K: int, C: int) -> tuple[int, int]:
+    nc = min(C, SCORE_CLASSES)
+    room = SCORE_SMEM // 4 - SCORE_ROWS * SCORE_CLASSES
+    kc = max(1, min(K, room // (SCORE_ROWS + nc) - 1))
+    return kc, 4 * (SCORE_ROWS * SCORE_CLASSES + (SCORE_ROWS + nc) * (kc | 1))
+
+
 # C signatures in csrc/bow.cu: pointers and the stream as c_void_p, ints as c_int
 LAUNCH_ARGTYPES = {
     # (descs, cents, idx, d2, N, D, K, bn, tk, threads, stream)
     "bow_assign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     # (descs, valids, cents, hist, B, N, D, K, bn, tk, threads, stream)
     "quantize_hist_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    # (h, w, bias, out, B, K, C, threads, stream)
-    "linear_score_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # (h, w, bias, out, B, K, C, kc, threads, stream)
+    "linear_score_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
 
@@ -237,8 +263,9 @@ def linear_score(
     dev = _build.check_cuda("linear_score", hists, w, b)
     B, K = hists.shape
     C = w.shape[0]
+    kc = _score_chunk(K, C)[0]
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         err = ls(
             hists.data_ptr(),
             w.data_ptr(),
@@ -247,6 +274,7 @@ def linear_score(
             B,
             K,
             C,
+            kc,
             lc.threads,
             _build.cuda_stream(dev),
         )

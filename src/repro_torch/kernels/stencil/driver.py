@@ -44,7 +44,7 @@ def resolve_mode(stages, shape, dtype, lc: LaunchConfig = DEFAULT) -> str:
     if H <= ph or W <= pw or ph == 0:
         return "window"
     prog, _ = exec_streaming.program(stages, lc.stream_rows, dtype, torch.device("cpu"))
-    fits = prog.layout.smem_bytes(W) + exec_streaming.PROGRAM_BYTES <= lc.smem_budget
+    fits = prog.layout.smem_bytes(W) + exec_streaming.STATIC_SMEM <= lc.smem_budget
     return "streaming" if fits else "tiled2d"
 
 

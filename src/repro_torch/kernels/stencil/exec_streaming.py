@@ -11,11 +11,13 @@ no stage's halo is recomputed from step to step.  See
 
 `compile_stream` turns a chain and `LaunchConfig.stream_rows` into the
 kernel's program: `plan.stream_layout`'s streams with their ring depths,
-levels, row rates and leads (the kernel lays the rings out by their
-levels' widths), and one step per stage application (a Sobel writes two
-streams, the pair reduction reads two; the bands a Sobel passes by wait
-in their own rings, as the bands of a tap stage do).  `stream_geometry`
-picks the column tile and the row segments of a launch.  Each stream lives
+dtypes, levels, row rates and leads (the kernel lays the rings out by
+their levels' widths), and one step per stage application (a Sobel writes
+two streams, the pair reduction reads two; the bands a Sobel passes by
+wait in their own rings, as the bands of a tap stage do), each marked
+whether it runs a register strip.  `stream_geometry` picks the column
+tile, the row segments, the threads of a launch and whether stream 0 is
+loaded a step ahead, so that two blocks fit on an SM.  Each stream lives
 at its stage's level (`plan.chain_levels`) and advances its own rows a
 step: twice the rows above a stride before the last stage, half below a
 pyrUp; its ring's columns are its level's frame.  A strided last stage
@@ -53,12 +55,12 @@ from .exec_window import (
 
 _STEP_FIELDS = (
     "op", "src", "src2", "dst", "dst2", "kh", "kw", "wx", "wy", "rw", "cw", "lead", "mult", "ls",
-    "lo", "store", "store2", "down", "pk",
+    "lo", "store", "store2", "down", "pk", "strip",
 )
-_STREAM_FIELDS = ("depth", "level", "mult", "lead", "store")
-# threads of a block: its rings leave room for about one block per SM, so it
-# takes more than the other kernels (scripts/torch_stencil_sweep.py)
-MAX_THREADS = 1024
+_STREAM_FIELDS = ("depth", "level", "mult", "lead", "store", "u8")
+# the most threads of a block (csrc/stencil_stream.cu kMaxThreads, its
+# __launch_bounds__ with two blocks an SM); fewer for narrow frames
+STREAM_THREADS = 256
 
 
 class _Step(ctypes.Structure):
@@ -78,7 +80,8 @@ class _Program(ctypes.Structure):
         ("n_levels", ctypes.c_int),
         ("rows", ctypes.c_int),
         ("prime", ctypes.c_int),
-        ("pad", ctypes.c_int * 3),
+        ("rd0", ctypes.c_int),
+        ("pad", ctypes.c_int * 2),
         ("steps", _Step * MAX_STEPS),
         ("streams", _Stream * (MAX_STEPS + 1)),
         ("col_pads", ctypes.c_int * MAX_LEVELS),
@@ -87,18 +90,21 @@ class _Program(ctypes.Structure):
 
 
 PROGRAM_BYTES = ctypes.sizeof(_Program)
-# stencil_stream_launch(in, bands*, prog, n, h, w, tile_w, n_seg, seg_rows, smem_floats,
-#                       threads, u8, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# the kernel's static shared memory: the step table, each ring's offset and
+# row stride, rounded up to the 16 bytes the dynamic part is aligned to
+# (csrc/stencil_stream.cu `stencil_stream_static_bytes`)
+STATIC_SMEM = -(-(PROGRAM_BYTES + 4 * (2 * (MAX_STEPS + 1) + 1)) // 16) * 16
+# stencil_stream_launch(in, bands*, prog, n, h, w, tile_w, n_seg, seg_rows, smem_bytes,
+#                       threads, u8, ahead, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
 class StreamProgram:
     """A chain compiled for `stencil_stream`: steps and streams as field
-    dicts, the flat weights, the ring layout, the rows of shared memory
-    (rings + scratch) one block needs per column of its tile window (one
-    level; `layout.smem_floats` in general), each output band's ``(dtype,
-    resolution ops)`` (`plan.band_meta`) and the chain's stride product."""
+    dicts, the flat weights, the ring layout (`layout.smem_bytes` gives a
+    block's shared memory), each output band's ``(dtype, resolution ops)``
+    (`plan.band_meta`) and the chain's stride product."""
 
     steps: tuple
     streams: tuple
@@ -129,6 +135,7 @@ class StreamProgram:
             n_levels=len(lay.col_pads),
             rows=lay.rows,
             prime=lay.prime_steps,
+            rd0=lay.rd0,
         )
         for k, st in enumerate(self.steps):
             p.steps[k] = _Step(**st)
@@ -147,7 +154,7 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
     resolved = check_ported(stages, "stencil_stream")
     down = plan.stride_product(stages)
     plan.check_strides(down, rows, 0)
-    layout = plan.stream_layout(stages, rows)
+    layout = plan.stream_layout(stages, rows, carrier)
     lv = layout.lv
     if len(layout.apps) > MAX_STEPS:
         raise ValueError(f"stencil_stream: {len(layout.apps)} steps exceed the table's {MAX_STEPS}")
@@ -165,6 +172,7 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
         streams.append({
             "depth": depth, "level": layout.levels[s], "mult": layout.mults[s],
             "lead": layout.leads[s], "store": band_of[s] if buffered_out else -1,
+            "u8": int(layout.esizes[s] == 1),
         })
     walk = plan.band_walk(stages, carrier)
     last = len(resolved) - 1
@@ -189,6 +197,7 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
             store=band_of[dsts[0]] if direct[0] else -1,
             store2=band_of[dsts[-1]] if len(dsts) > 1 and direct[-1] else -1,
             pk=int(walk.meta[dsts[0]][0] == torch.uint8),
+            strip=int(layout.strips[k]),
         )
         steps.append(st)
     bands = tuple(walk.meta[i] for i in walk.outs)
@@ -198,8 +207,10 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
 @dataclass(frozen=True)
 class StreamGeometry:
     """One launch's column tile (`tile_w` columns, `n_tiles` of them), row
-    segments (`n_seg` per plane, `seg_rows` rows each), the shared memory
-    one block takes and its threads."""
+    segments (`n_seg` per plane, `seg_rows` rows each), the dynamic shared
+    memory one block takes, its threads, whether stream 0 is loaded a step
+    ahead, and how many blocks an SM holds at once (`plan.blocks_per_sm`,
+    the static shared memory included)."""
 
     tile_w: int
     n_tiles: int
@@ -207,6 +218,8 @@ class StreamGeometry:
     seg_rows: int
     smem_bytes: int
     threads: int
+    ahead: bool = False
+    per_sm: int = 1
 
 
 def stream_geometry(
@@ -223,14 +236,18 @@ def stream_geometry(
     Untiled ("streaming"), the tile is the full width, and a chain whose
     rings do not fit `lc.smem_budget` raises `ValueError` naming the bytes.
     Tiled, the width is `tile_w`, else `lc.tile2d_cols`, else
-    `plan.pick_tile_plan`'s; a tile is at the input's resolution and its
-    frame halves through each stride and doubles through each pyrUp (one
-    full-width tile is rounded up to the stride product, so that each
-    level's tile is whole).
-    Segments (of the rows at the chain's last level): `lc.row_segments`,
-    else `plan.row_segments` for `sms` multiprocessors.  Threads:
-    `MAX_THREADS`, halved while they are at least as many as the values in
-    one step's rows of the tile window (small planes)."""
+    `plan.pick_stream_tile`'s (two blocks an SM unless that costs a wide
+    halo too much column work); a tile is at the input's resolution and
+    its frame halves through each stride and
+    doubles through each pyrUp (one full-width tile is rounded up to the
+    stride product, so that each level's tile is whole).  Stream 0 is
+    loaded a step ahead when its deeper ring still leaves room for two
+    blocks an SM.  Threads: `STREAM_THREADS`, halved while at least four
+    times the 4-column groups of the widest frame (narrow tiles and
+    planes).  Segments (of the rows at the chain's last level):
+    `lc.row_segments`, else `plan.row_segments` for `sms` multiprocessors
+    and the blocks one SM holds (at least two waves' worth where it holds
+    one)."""
     key = (tuple(shape), lc, tiled, tile_w, sms)
     hit = prog._memo.get(key)
     if hit is None:
@@ -241,6 +258,7 @@ def stream_geometry(
 def _stream_geometry(prog, shape, lc, tiled, tile_w, sms) -> StreamGeometry:
     N, H, W = shape
     layout = prog.layout
+    two = min(lc.smem_budget, plan.TWO_BLOCK_SMEM)
     if not tiled:
         tw = W
     elif tile_w is not None or lc.tile2d_cols is not None:
@@ -249,26 +267,32 @@ def _stream_geometry(prog, shape, lc, tiled, tile_w, sms) -> StreamGeometry:
             raise ValueError(f"stencil_stream: tile_w must be positive, got {tw}")
         plan.check_strides(prog.down, layout.rows, W, tw)
     else:
-        tw = plan.pick_tile_plan(layout, W, lc.smem_budget, PROGRAM_BYTES, prog.down[1]) or W
+        tw = plan.pick_stream_tile(layout, W, lc.smem_budget, STATIC_SMEM, prog.down[1]) or W
     if tw >= W:  # one tile: as wide as the plane, rounded up to the stride product
         tw = -(-W // prog.down[1]) * prog.down[1]
     smem = layout.smem_bytes(tw)
-    if smem + PROGRAM_BYTES > lc.smem_budget:
+    if smem + STATIC_SMEM > lc.smem_budget:
         what = "full-width" if not tiled else f"{tw}-column"
         raise ValueError(
             f"stencil_stream: the {what} rings of this chain need {smem} bytes of shared memory "
-            f"(+{PROGRAM_BYTES} for the step table), over the budget of {lc.smem_budget}"
+            f"(+{STATIC_SMEM} for the step table), over the budget of {lc.smem_budget}"
         )
+    ahead = layout.smem_bytes(tw, True) + STATIC_SMEM <= two
+    if ahead:
+        smem = layout.smem_bytes(tw, True)
     n_tiles = -(-W // tw)
+    frame = max(layout.width(lv, tw) for lv in range(layout.lv.n_levels))
+    threads = STREAM_THREADS
+    while threads > 32 and threads >= 4 * -(-frame // 4):
+        threads //= 2
+    per_sm = plan.blocks_per_sm(smem + STATIC_SMEM, threads)
     h_last = layout.lv.size(layout.lv.n_levels - 1, H, W)[0]
     if lc.row_segments is not None:
         n_seg, seg_rows = plan.fix_segments(lc.row_segments, h_last, layout.rows)
     else:
-        n_seg, seg_rows = plan.row_segments(N, n_tiles, h_last, layout.rows, sms)
-    threads = MAX_THREADS
-    while threads > 32 and threads >= layout.rows * (tw + 2 * layout.halo[1]):
-        threads //= 2
-    return StreamGeometry(tw, n_tiles, n_seg, seg_rows, smem, threads)
+        n_seg, seg_rows = plan.row_segments(N, n_tiles, h_last, layout.rows, sms,
+                                            min(max(per_sm, 2), 4), layout.prime_steps)
+    return StreamGeometry(tw, n_tiles, n_seg, seg_rows, smem, threads, ahead, per_sm)
 
 
 # (chain, rows, carrier, device) -> (StreamProgram, its packed table on the device)
@@ -296,10 +320,19 @@ def _launcher():
         raise RuntimeError("stencil_stream: StreamProgram layout differs between C and Python")
     if lib.stencil_bands_bytes() != ctypes.sizeof(Bands):
         raise RuntimeError("stencil_stream: Bands layout differs between C and Python")
+    static = [lib.stencil_stream_static_bytes(u8) for u8 in (0, 1)]
+    if static != [STATIC_SMEM] * 2:
+        raise RuntimeError(f"stencil_stream: static shared memory {static}, the planner "
+                           f"counts {STATIC_SMEM}")
     fn = lib.stencil_stream_launch
     fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stencil_stream_plain(planes: torch.Tensor, stages) -> tuple:
@@ -327,9 +360,7 @@ def stencil_stream(
     plain version; any other tensor launches the kernel or raises."""
     stages = tuple(stages)
     prog, table = program(stages, lc.stream_rows, planes.dtype, planes.device)
-    sms = 132
-    if planes.is_cuda:
-        sms = torch.cuda.get_device_properties(planes.device).multi_processor_count
+    sms = _sms(planes.device) if planes.is_cuda else 132
     geom = stream_geometry(prog, tuple(planes.shape), lc, tiled=tiled, tile_w=tile_w, sms=sms)
     plan.check_gathers(stages, planes.shape[-2:], lc.stream_rows, geom.tile_w)
     if planes.device.type == "cpu":
@@ -338,7 +369,7 @@ def stencil_stream(
     check_planes("stencil_stream", planes)
     N, H, W = planes.shape
     outs, bands = band_outputs(planes, prog.bands, stages, prog.layout.lv, (1, geom.tile_w))
-    with torch.cuda.device(planes.device):
+    with _build.on_device(planes.device):
         err = fn(
             planes.data_ptr(),
             ctypes.addressof(bands),
@@ -349,9 +380,10 @@ def stencil_stream(
             geom.tile_w,
             geom.n_seg,
             geom.seg_rows,
-            geom.smem_bytes // 4,
+            geom.smem_bytes,
             geom.threads,
             int(planes.dtype == torch.uint8),
+            int(geom.ahead),
             _build.cuda_stream(planes.device),
         )
     _build.check(err, "stencil_stream")

@@ -5,12 +5,16 @@ to what the port's two kernels need.
   * `chain_iface` / `chain_stream_plan` — the exact backward row walk and
     the streaming carry plan, as the JAX planner computes them;
   * `stream_layout` — the rings of one `stencil_stream` block: which
-    stream each stage reads and writes, how many rows each ring keeps,
-    and the row-pass scratch;
-  * `pick_tile_plan` — the tiled2d column-tile width, charging one tile's
-    rings against `LaunchConfig.smem_budget` (the JAX planner's
-    `pick_tile_plan` / `pick_tile_w` charge a working set against VMEM);
-  * `row_segments` — how many row segments of a plane run as blocks of
+    stream each stage reads and writes, how many rows each ring keeps and
+    in which dtype, which stages run register strips, and the row-pass
+    scratch of the others;
+  * `pick_tile_plan`, `pick_stream_tile` — the tiled2d column-tile width,
+    charging one tile's rings against a block's share of shared memory
+    (the JAX planner's `pick_tile_plan` / `pick_tile_w` charge a working
+    set against VMEM), two blocks an SM where that costs little column
+    work;
+  * `blocks_per_sm`, `row_segments` — how many blocks of a launch an SM
+    holds at once, and how many row segments of a plane run as blocks of
     their own;
   * `band_walk` — which stage reads and makes which band, and its dtype;
   * `stage_out_hw`, `band_meta`, `band_hw`, `stride_product`,
@@ -39,11 +43,56 @@ import torch
 
 from .ir import GATHER_OPS, _affine_disp_over, _gather_halo, resolve_chain
 
-# ops whose body runs a row pass into scratch, then a column pass
+# ops whose body runs a row pass, then a column pass
 SEPARABLE_OPS = frozenset({"sep_filter", "box", "erode", "dilate", "pyr_down"})
+# the square kernel sizes stencil_stream runs as register strips, by op
+# (csrc/stencil_stream.cu `run_strip`); a strip needs no row-pass scratch
+STRIP_SIZES = {
+    "filter2d": (3, 5, 7, 9, 11, 13),
+    "sep_filter": (3, 5, 7, 9, 11, 13, 15),
+    "erode": (3, 5, 7),
+    "dilate": (3, 5, 7),
+    "box": (3, 5, 7),
+    "threshold": (1,),
+    "affine": (1,),
+}
 # tile-width step of the tiled2d candidates: one warp of columns
 LANE = 32
 F32 = 4
+# ring rows and ring starts are aligned to this many bytes, and each row has
+# as many bytes of slack after it (csrc/stencil_stream.cu kAlign)
+RING_ALIGN = 16
+# an H100 SM: shared memory for all its resident blocks (228 KB), the part
+# the system keeps for each of them, its threads and its registers
+SM_SMEM = 233_472
+BLOCK_RESERVED = 1024
+SM_THREADS = 2048
+SM_REGS = 65_536
+# registers a `stencil_stream` thread takes: the cap that its
+# ``__launch_bounds__(256, 2)`` sets, which ptxas reaches (chip_smoke.py
+# prints its report)
+STREAM_REGS = SM_REGS // (2 * 256)
+
+
+def blocks_per_sm(smem_bytes: int, threads: int) -> int:
+    """Blocks of `threads` `stencil_stream` threads taking `smem_bytes` of
+    shared memory each (static and dynamic) that one SM holds at once: the
+    least of what its threads, its shared memory and its registers allow."""
+    return min(SM_THREADS // threads, SM_SMEM // (smem_bytes + BLOCK_RESERVED),
+               SM_REGS // (STREAM_REGS * threads))
+
+
+# the most shared memory a block may take (static and dynamic) and still
+# have a second one beside it on the SM
+TWO_BLOCK_SMEM = SM_SMEM // 2 - BLOCK_RESERVED
+# how much more column work (tiles recomputing their halo) a tiled2d plan
+# may take to keep two blocks an SM rather than one
+TWO_BLOCK_WORK = 1.5
+
+
+def strip_stage(op: str, kh: int, kw: int) -> bool:
+    """Does `stencil_stream` run this stage as a register strip?"""
+    return kh == kw and kh in STRIP_SIZES.get(op, ())
 
 
 def chain_accumulated_halo(stages) -> tuple[int, int]:
@@ -478,17 +527,26 @@ class StreamLayout:
     way, plus, for an output band, its lead over the stored rows.  ``lead``
     is also how far above ``Y0`` the stream's rows start: a segment primes
     each ring from that row on.  A final band with lead 0 that nothing
-    else reads has depth 0: it is stored from registers.
+    else reads has depth 0: it is stored from registers.  A launch that
+    loads stream 0 a step ahead gives it ``mults[0]`` more rows.
 
     ``apps`` lists one record per stage application in launch order:
     ``(stage index, source streams, destination streams)``: one source and
     one destination, but two destinations for a Sobel (its dx and dy) and
     two sources for the pair reduction.  ``outs[b]`` is the stream of
-    output band b.  Columns: every stream of a level shares its frame, the
-    level's tile width plus ``col_pads[level]`` per side (level 0: the
-    accumulated halo, aligned to the stride product).  ``scratch`` lists
-    the row-pass scratch each step needs as ``(rows, level of its row
-    width)``; ``scratch_rows`` is the most rows of them.
+    output band b.  ``esizes[s]`` is the bytes of one value of stream s's
+    ring: 1 for a u8 band (the input of a u8 chain, every packed result),
+    4 for an f32 one.  Columns: every stream of a level shares its frame,
+    the level's tile width plus ``col_pads[level]`` per side: the need of
+    the level's stages, rounded up to 4 columns (level 0: the accumulated
+    halo, aligned to the stride product and rounded up to 16 bytes of the
+    input, so that a row's copy from device memory aligns).  ``strips[k]``
+    says whether stage k runs a register strip (`strip_stage`); the others
+    of ``SEPARABLE_OPS`` and pyrUp need row-pass scratch, listed in
+    ``scratch`` as ``(rows, level of its row width)``; ``scratch_rows`` is
+    the most rows of them.  ``rd0`` is the last application that reads
+    stream 0 (``len(apps)`` when stream 0 is an output band, which the
+    stores read).
     """
 
     rows: int
@@ -503,13 +561,16 @@ class StreamLayout:
     col_pads: tuple = ()
     scratch: tuple = ()
     lv: Levels | None = None
-    # tile width -> smem_floats: the tiled2d planner asks for every
+    esizes: tuple = ()
+    strips: tuple = ()
+    rd0: int = 0
+    # (tile width, ahead) -> bytes: the tiled2d planner asks for every
     # candidate width on every call
     _memo: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def smem_rows(self) -> int:
-        """Ring and scratch rows (one level: of the tile window's width)."""
+        """Ring and scratch rows (without stream 0's rows loaded ahead)."""
         return sum(self.depths) + self.scratch_rows
 
     @property
@@ -523,29 +584,39 @@ class StreamLayout:
         """Columns of a level's frame for an input column tile of `tile_w`."""
         return self.lv.tile(level, 1, tile_w)[1] + 2 * self.col_pads[level]
 
-    def smem_floats(self, tile_w: int) -> int:
-        hit = self._memo.get(tile_w)
+    def row_bytes(self, stream: int, tile_w: int) -> int:
+        """A ring row of `stream`: its frame's values, rounded up to
+        `RING_ALIGN` bytes, and `RING_ALIGN` bytes of slack."""
+        row = self.width(self.levels[stream], tile_w) * self.esizes[stream]
+        return -(-row // RING_ALIGN) * RING_ALIGN + RING_ALIGN
+
+    def smem_bytes(self, tile_w: int, ahead: bool = False) -> int:
+        """Shared memory of the rings and scratch for one column tile: the
+        slack before the first ring, each ring's depth (stream 0's with
+        its rows loaded ahead, if `ahead`) times its row bytes, then the
+        f32 scratch."""
+        key = (tile_w, ahead)
+        hit = self._memo.get(key)
         if hit is None:
-            rings = sum(d * self.width(lv, tile_w) for d, lv in zip(self.depths, self.levels))
-            hit = rings + max([r * self.width(lv, tile_w) for r, lv in self.scratch], default=0)
-            self._memo[tile_w] = hit
+            rings = RING_ALIGN + sum(
+                (d + (self.mults[0] if ahead and s == 0 else 0)) * self.row_bytes(s, tile_w)
+                for s, d in enumerate(self.depths))
+            scratch = max([r * self.width(lv, tile_w) * F32 for r, lv in self.scratch], default=0)
+            hit = self._memo[key] = rings + scratch
         return hit
 
-    def smem_bytes(self, tile_w: int) -> int:
-        """Shared memory of the rings and scratch for one column tile."""
-        return self.smem_floats(tile_w) * F32
 
-
-def stream_layout(stages, rows: int) -> StreamLayout:
-    """Plan the streams, their leads and ring depths for `rows` per step at
-    the last level (a strided last stage planned at its input's
-    resolution, `kernel_walk`).  The column pad of level 0 is aligned to
-    the column stride product."""
+def stream_layout(stages, rows: int, carrier: torch.dtype = torch.float32) -> StreamLayout:
+    """Plan the streams, their leads, ring depths and dtypes for `rows` per
+    step at the last level (a strided last stage planned at its input's
+    resolution, `kernel_walk`), for input planes of `carrier`.  The column
+    pad of level 0 is aligned to the column stride product and to 16 bytes
+    of the input."""
     walk = kernel_walk(stages)
     lv = chain_levels(stages)
     iface = chain_iface(walk, rows)
     sp = chain_stream_plan(walk, iface)
-    bw = band_walk(stages)
+    bw = band_walk(stages, carrier)
 
     def lead_of(k):  # the newest row's offset above a step's last one
         mult, off, r = iface[k]
@@ -555,6 +626,7 @@ def stream_layout(stages, rows: int) -> StreamLayout:
     lags = [0]
     op_read = [False]
     apps = []
+    rd0 = -1
     for k, stage in enumerate(bw.apps):
         sin_off = sp[k][0]
         for srcs, dsts in stage:
@@ -562,6 +634,8 @@ def stream_layout(stages, rows: int) -> StreamLayout:
                 # the reader's oldest row at step i is Y0 + i*mult + sin_off
                 lags[src] = max(lags[src], leads[src] - sin_off)
                 op_read[src] = True
+            if 0 in srcs:
+                rd0 = len(apps)
             leads.extend([lead_of(k + 1)] * len(dsts))
             mults.extend([iface[k + 1][0]] * len(dsts))
             levels.extend([lv.lv_out[k]] * len(dsts))
@@ -569,28 +643,33 @@ def stream_layout(stages, rows: int) -> StreamLayout:
             op_read.extend([False] * len(dsts))
             apps.append((k, srcs, dsts))
     bands = bw.outs
+    if 0 in bands:
+        rd0 = len(apps)
     depths = []
     for s, (lead, lag) in enumerate(zip(leads, lags)):
         if s in bands:
             lag = max(lag, lead)  # the store reads rows y0 + i*rows on
         direct = s in bands and s != 0 and lead == 0 and not op_read[s]
         depths.append(0 if direct else mults[s] + lag)
-    scratch = []
-    for k, (op, _mode, (hy, _hx), _stride, _up, *_rest) in enumerate(walk):
+    esizes = tuple(1 if bw.meta[s][0] == torch.uint8 else F32 for s in range(len(depths)))
+    strips, scratch = [], []
+    for k, (op, _mode, (hy, hx), _stride, _up, *_rest) in enumerate(walk):
         mult_o, li, lo = iface[k + 1][0], lv.lv_in[k], lv.lv_out[k]
+        strips.append(li == lo and strip_stage(op, 2 * hy + 1, 2 * hx + 1))
         if op == "pyr_up":
             scratch.append((mult_o, li))
         elif op in SEPARABLE_OPS and li != lo:
             scratch.append((2 * (mult_o - 1) + 2 * hy + 1, lo))
-        elif op in SEPARABLE_OPS:
+        elif op in SEPARABLE_OPS and not strips[-1]:
             scratch.append((mult_o + 2 * hy, li))
     ph, pw = chain_accumulated_halo(stages)
     halo = (ph, aligned_pad(pw, stride_product(stages)[1]))
-    col_pads = (halo[1],) + tuple(p[1] for p in lv.pads[1:])
+    vals = RING_ALIGN // esizes[0]
+    col_pads = (-(-halo[1] // vals) * vals,) + tuple(-(-p[1] // 4) * 4 for p in lv.pads[1:])
     return StreamLayout(
         rows, halo, tuple(leads), tuple(depths), tuple(apps), tuple(bands),
         max([r for r, _ in scratch], default=0), tuple(mults), tuple(levels), col_pads,
-        tuple(scratch), lv,
+        tuple(scratch), lv, esizes, tuple(strips), rd0,
     )
 
 
@@ -633,19 +712,46 @@ def pick_tile_plan(
     return None if best[1] >= width else best[1]
 
 
-def row_segments(n_planes: int, n_tiles: int, height: int, rows: int, sms: int) -> tuple[int, int]:
+def pick_stream_tile(layout: StreamLayout, width: int, budget: int, fixed: int,
+                     down: int = 1) -> int | None:
+    """The tiled2d tile `stencil_stream` takes: `pick_tile_plan`'s under
+    `TWO_BLOCK_SMEM` (two blocks an SM), unless that tile's column work
+    exceeds `TWO_BLOCK_WORK` times the work of the tile that fits `budget`
+    (one block an SM: a chain with a wide halo, whose narrow tiles would
+    mostly recompute it), then that one."""
+    one = pick_tile_plan(layout, width, budget, fixed, down)
+    try:
+        two = pick_tile_plan(layout, width, min(budget, TWO_BLOCK_SMEM), fixed, down)
+    except ValueError:
+        return one
+
+    def work(tile):
+        tile = width if tile is None else tile
+        return -(-width // tile) * (tile + 2 * layout.halo[1])
+
+    return two if work(two) <= TWO_BLOCK_WORK * work(one) else one
+
+
+def row_segments(n_planes: int, n_tiles: int, height: int, rows: int, sms: int,
+                 per_sm: int = 2, prime: int = 0) -> tuple[int, int]:
     """(segments per plane, rows per segment) of a `stencil_stream` launch.
 
     One block per (plane, tile) leaves most SMs idle on a single large
     plane, so each plane's rows are cut into segments of whole steps, each
     priming its own rings from the real rows above it.  The rule: aim for
-    two blocks per SM, with at least two steps (``2*rows`` rows) a segment.
-    `height` and `rows` are at the chain's last level.
-    Priming costs a segment about ``2*halo`` extra rows of its first stage
-    (fewer for each later one); on the H100 the parallelism is worth more
-    than that even for the octave's 34-row halo (PERF.md §6)."""
-    want = -(-2 * sms // max(1, n_planes * n_tiles))
+    `per_sm` blocks per SM (the blocks one SM holds at once, up to 4;
+    `blocks_per_sm`), with at least two steps (``2*rows`` rows) a segment,
+    or one step where two-step segments give fewer than two blocks an SM
+    and the chain primes in at most two steps (`prime`,
+    `StreamLayout.prime_steps`).  `height` and `rows` are at the chain's
+    last level.  Priming costs a segment about ``2*halo`` extra rows of its
+    first stage (fewer for each later one); on the H100 the parallelism is
+    worth more than that even for the octave's 34-row halo (PERF.md §6)."""
+    blocks = max(1, n_planes * n_tiles)
+    want = -(-per_sm * sms // blocks)
     cap = max(1, height // (2 * rows))
+    if cap * blocks < 2 * sms and prime <= 2:
+        cap = max(1, height // rows)
     return fix_segments(max(1, min(want, cap)), height, rows)
 
 

@@ -158,6 +158,38 @@ def test_plain_versions_sum_in_index_order():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("B", [1, 7, 256, 1000])
+def test_linear_score_tile_geometry(B):
+    """The kernel's tiles: one block per 16 images and 32 classes, K staged
+    whole when the rows of h and w fit 48 KB (the predict shape, K = 250,
+    C = 10: 16 blocks for a request of 256), in chunks otherwise; a numpy
+    replay of that walk (each output's sum carried from chunk to chunk in
+    ascending k, from -0) equals the plain version bit for bit."""
+    g = tbow.score_geometry(B, 250, 10)
+    assert g["blocks"] == (-(-B // 16), 1) and g["kc"] == 250
+    assert g["smem"] == 4 * (16 * 32 + (16 + 10) * 251) <= tbow.SCORE_SMEM
+    K, C = 257, 33
+    g = tbow.score_geometry(B, K, C)
+    assert g["blocks"] == (-(-B // 16), 2) and g["kc"] == 244
+    assert g["smem"] == 4 * (16 * 32 + (16 + 32) * 245) <= tbow.SCORE_SMEM
+    rng = np.random.default_rng(B)
+    h = rng.random((B, K)).astype(np.float32)
+    w = rng.standard_normal((C, K)).astype(np.float32)
+    b = rng.standard_normal(C).astype(np.float32)
+    got = np.full((B, C), np.nan, np.float32)
+    for bi in range(g["blocks"][0]):
+        for ci in range(g["blocks"][1]):
+            rows = slice(16 * bi, min(16 * bi + 16, B))
+            cls = slice(32 * ci, min(32 * ci + 32, C))
+            acc = np.full((rows.stop - rows.start, cls.stop - cls.start), -0.0, np.float32)
+            for k0 in range(0, K, g["kc"]):
+                for k in range(k0, min(k0 + g["kc"], K)):
+                    acc = acc + h[rows, k, None] * w[None, cls, k]
+            got[rows, cls] = acc + b[cls]
+    want = tbow.linear_score_plain(torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(b))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 def test_bow_assign_ref_matches_jax():
     rng = np.random.default_rng(5)
     d = rng.standard_normal((64, 16)).astype(np.float32)

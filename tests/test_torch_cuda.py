@@ -154,11 +154,47 @@ def test_window_streaming_and_tiled2d_are_bit_identical(dev, name, dtype):
 
 
 def test_streaming_over_the_budget_raises_on_the_card(dev):
-    x = torch.zeros((2160, 3840), dtype=torch.uint8, device=dev)
+    # f32 rings: a 4K k=13 input ring of 20 rows takes ~300 KB
+    x = torch.zeros((2160, 3840), dtype=torch.float32, device=dev)
     counters.reset()
     with pytest.raises(ValueError, match="bytes"):
         stencil.fused_chain(x, _slice_chains()["filter2d_k13"], mode="streaming")
     assert counters.snapshot()["launches"]["stencil_stream"] == 0
+
+
+@pytest.mark.parametrize("name", ["filter2d_k13", "erode_r3", "acceptance", "preprocess",
+                                  "mixed"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 37, 33, 1), (1, 301, 1919, 1), (1, 45, 3841, 1),
+                                   (2, 19, 1920, 1)])
+@pytest.mark.parametrize("mode", ["streaming", "tiled2d"])
+def test_stencil_stream_odd_sizes_match_plain(dev, name, dtype, shape, mode):
+    """Widths that are not a multiple of 16 (so rows of the plane do not
+    align with the rings' 16-byte rows), odd heights and row segments that
+    start mid-plane: the kernel's copies and edge columns, bit for bit."""
+    x = _image(dev, shape, dtype, seed=sum(shape))
+    chain = _slice_chains()[name]
+    lc = LaunchConfig(row_segments=3)
+    counters.reset()
+    planes = (shape[0] * shape[3], shape[1], shape[2])
+    if mode == "streaming" and stencil.resolve_mode(chain, planes, dtype, lc) == "tiled2d":
+        with pytest.raises(ValueError, match="bytes"):
+            stencil.fused_chain(x, chain, mode=mode, lc=lc)
+        return
+    got = stencil.fused_chain(x, chain, mode=mode, lc=lc)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["stencil_stream"] == 1 and sum(counters.PLAIN_CALLS.values()) == 0
+    want = stencil.fused_chain(x, chain, mode="ref")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_stencil_stream_static_smem_is_the_planners(dev):
+    lib = _build.library("stencil_stream")
+    assert [lib.stencil_stream_static_bytes(u8) for u8 in (0, 1)] == \
+        [exec_streaming.STATIC_SMEM] * 2
 
 
 @pytest.mark.parametrize("mode", ["window", "streaming", "tiled2d"])
@@ -329,13 +365,22 @@ def test_train_on_the_card(dev, head):
     assert pred.shape == (64,) and pred.device.type == "cuda"
 
 
-@pytest.mark.parametrize("B,K,C", [(256, 250, 10), (3, 1, 7)])
+@pytest.mark.parametrize("B", [1, 7, 256, 1000, 3])
+@pytest.mark.parametrize("K", [1, 250, 257])
+@pytest.mark.parametrize("C", [1, 10, 33, 7])
 def test_linear_score_matches_plain(dev, B, K, C):
     g = torch.Generator(device=dev).manual_seed(B + K + C)
     h = torch.rand((B, K), generator=g, device=dev)
     w = torch.randn((C, K), generator=g, device=dev)
     b = torch.randn((C,), generator=g, device=dev)
     assert torch.equal(kbow.linear_score(h, w, b), kbow.linear_score_plain(h, w, b))
+
+
+@pytest.mark.parametrize("K,C", [(250, 10), (257, 33), (1, 1), (0, 3), (4000, 5)])
+def test_linear_score_smem_is_the_planners(dev, K, C):
+    fn = _build.library("bow").linear_score_smem_bytes
+    geom = kbow.score_geometry(256, K, C)
+    assert fn(geom["kc"], C) == geom["smem"] <= kbow.SCORE_SMEM
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -233,12 +233,16 @@ def test_chain_iface_and_stream_plan_match_jax(name, rows):
 
 def test_stream_layout_of_the_preprocess_chain():
     """Input ring 8 + 2*2 rows, the blur's and the erosion's 8 + 2*1; the
-    magnitude is stored from registers; scratch for the 5-tap row pass."""
+    magnitude is stored from registers; the blur and the erosion run
+    register strips, so no stage needs row-pass scratch."""
     lay = plan.stream_layout(_stages(tstencil, "preprocess"), 8)
     assert lay.leads == (4, 2, 1, 0)
     assert lay.depths == (12, 10, 10, 0)
-    assert lay.outs == (3,) and lay.scratch_rows == 12
-    assert lay.smem_bytes(32) == 44 * 40 * 4
+    assert lay.outs == (3,) and lay.scratch_rows == 0
+    assert lay.strips == (True, True, False) and lay.rd0 == 0
+    assert lay.esizes == (4, 4, 4, 4) and lay.col_pads == (4,)
+    # 16 bytes before the first ring; rows of 32 + 2*4 f32 values and 16 bytes of slack
+    assert lay.smem_bytes(32) == 16 + 32 * (40 * 4 + 16)
 
 
 def test_stream_layout_delays_the_octave_bands():
@@ -275,12 +279,14 @@ def test_mode_resolution_rules():
     assert driver.resolve_mode(_stages(tstencil, "octave_nb"), (1, 37, 37), f32) == "streaming"
     pyr = _stages(tstencil, "pyr_down")
     assert driver.resolve_mode(pyr, (1, 1080, 1920), torch.uint8) == "streaming"
-    assert driver.resolve_mode(pyr, (1, 2160, 3840), torch.uint8) == "tiled2d"
+    assert driver.resolve_mode(pyr, (1, 2160, 3840), torch.uint8) == "tiled2d"  # f32 scratch
     k13 = _stages(tstencil, "gaussian_filter2d_k13")
     assert driver.resolve_mode(k13, (1, 1080, 1920), torch.uint8) == "streaming"
-    assert driver.resolve_mode(k13, (1, 2160, 3840), torch.uint8) == "tiled2d"
+    # u8 rings: a quarter of the f32 bytes, so 4K and 8K u8 stream at full width
+    assert driver.resolve_mode(k13, (1, 2160, 3840), torch.uint8) == "streaming"
+    assert driver.resolve_mode(k13, (1, 2160, 3840), f32) == "tiled2d"
     assert driver.resolve_mode(_stages(tstencil, "erode_r3"), (1, 4320, 7680), torch.uint8) \
-        == "tiled2d"
+        == "streaming"
 
 
 def test_mode_none_on_cpu_runs_the_resolved_kernels_plain_version():
@@ -301,7 +307,7 @@ def test_tile_w_outside_tiled2d_raises(mode):
 
 def test_streaming_over_the_budget_raises_naming_the_bytes():
     """An explicit full-width streaming plan never shrinks its geometry."""
-    x = torch.zeros((2160, 3840), dtype=torch.uint8)
+    x = torch.zeros((2160, 3840), dtype=torch.float32)
     with pytest.raises(ValueError, match=r"full-width rings .* need \d+ bytes"):
         tstencil.fused_chain(x, _stages(tstencil, "gaussian_filter2d_k13"), mode="streaming")
     small = LaunchConfig(smem_budget=16 * 1024)
@@ -322,14 +328,22 @@ def test_launch_config_stream_knobs_validate():
 
 
 def test_row_segment_rule():
-    # one 1080p plane: segments of two 8-row steps, 68 blocks
-    assert plan.row_segments(1, 1, 1080, 8, 132) == (68, 16)
+    # one 1080p plane: two-step segments would give 67 blocks, under two an
+    # SM, so segments of one 8-row step
+    assert plan.row_segments(1, 1, 1080, 8, 132) == (135, 8)
+    # one 4K plane: 264 blocks wanted, 270 one-step segments
+    assert plan.row_segments(1, 1, 2160, 8, 132) == (270, 8)
     # 768 small planes already fill the card: one segment each
     assert plan.row_segments(768, 1, 32, 8, 132) == (1, 32)
-    # an octave plane in 3 tiles: 32 segments, whatever its 34-row halo
-    assert plan.row_segments(1, 3, 512, 8, 132) == (32, 16)
+    # an octave plane in 3 tiles: 64 one-step segments where the chain
+    # primes in a step or two; 32 two-step ones under its 34-row halo (9
+    # priming steps)
+    assert plan.row_segments(1, 3, 512, 8, 132) == (64, 8)
+    assert plan.row_segments(1, 3, 512, 8, 132, prime=9) == (32, 16)
     # an 8K plane in 30 tiles: about two blocks per SM
     assert plan.row_segments(1, 30, 4320, 8, 132) == (9, 480)
+    # 24 planes where an SM holds four blocks: 528 blocks
+    assert plan.row_segments(24, 1, 512, 8, 132, 4) == (22, 24)
     assert plan.fix_segments(4, 37, 8) == (3, 16)
     assert plan.fix_segments(1, 5, 8) == (1, 8)
 
@@ -345,11 +359,52 @@ def _pack(v, pk):
     return np.clip(np.rint(v), 0, 255).astype(F32) if pk else np.asarray(v, F32)
 
 
+def _strip_filter2d(X, w, K, nr, c0, c1):
+    """The kernel's filter2d strip over output rows [0, nr) at columns [c0,
+    c1): X holds the nr + K - 1 source rows; each source row in turn adds
+    its taps to every output row that reads it, starting from -0."""
+    H = K // 2
+    acc = np.full((nr, c1 - c0), -0.0, F32)
+    for s in range(nr + K - 1):
+        for r in range(max(0, s - K + 1), min(nr, s + 1)):
+            a = s - r
+            for b in range(K):
+                acc[r] = acc[r] + w[a * K + b] * X[s, c0 - H + b:c1 - H + b]
+    return acc
+
+
+def _strip_sep(op, X, kx, ky, K, nr, c0, c1):
+    """The kernel's separable strip: each source row's row pass, then its
+    turn in the column pass of every output row that reads it (sums from
+    -0, erode from +inf, dilate from -inf); box scales at the end."""
+    H = K // 2
+    init = {0: -0.0, 6: -0.0, 1: np.inf, 5: -np.inf}[op]
+    acc = np.full((nr, c1 - c0), init, F32)
+    for s in range(nr + K - 1):
+        taps = [X[s, c0 - H + q:c1 - H + q] for q in range(K)]
+        rp = kx[0] * taps[0] if op == 0 else taps[0]
+        for q in range(1, K):
+            rp = (rp + kx[q] * taps[q] if op == 0 else rp + taps[q] if op == 6
+                  else np.minimum(rp, taps[q]) if op == 1 else np.maximum(rp, taps[q]))
+        for r in range(max(0, s - K + 1), min(nr, s + 1)):
+            c = ky[s - r] * rp if op == 0 else rp
+            acc[r] = (acc[r] + c if op in (0, 6) else np.minimum(acc[r], c) if op == 1
+                      else np.maximum(acc[r], c))
+    return acc * kx[0] if op == 6 else acc
+
+
 def _emulate_stream(planes: np.ndarray, prog, geom, maps=()) -> list:
     """Replay of `stencil_stream_kernel`: per (plane, tile, segment) block,
     the steps from the priming ones on, each stage's new rows at its level
     from its ring(s), direct stores from registers and the stores of
-    ring-held bands, into each band's own buffer.  `maps`: each remap
+    ring-held bands, into each band's own buffer.  Rings hold their
+    stream's dtype (a u8 ring takes only integers in [0, 255]); the strip
+    stages run the kernel's register-strip order; stream 0's rows of the
+    next step are written when the kernel issues their copies (a step
+    ahead, into the deeper ring, or once the last stage that reads stream 0
+    is done), so a copy that overwrote a row still read would show; every
+    read and ring write must fall in the rows the ring holds at that step,
+    which the kernel's slot arithmetic assumes.  `maps`: each remap
     stage's (map_x, map_y), in chain order."""
     from test_torch_stencil import (
         _bilinear, _col_pass, _floor2, _gather_coords, _pyr_even, _pyr_odd, _row_pass, _sobel,
@@ -366,156 +421,187 @@ def _emulate_stream(planes: np.ndarray, prog, geom, maps=()) -> list:
     pads = lay.col_pads
     widths = [tws[lvl] + 2 * pads[lvl] for lvl in range(lv.n_levels)]
     HT, WT = lv.size(last, H, W)
+    depths = [st["depth"] + (st["mult"] if geom.ahead and k == 0 else 0)
+              for k, st in enumerate(streams)]
 
     for n in range(N):
         for t in range(geom.n_tiles):
             for sg in range(geom.n_seg):
-                rings = [np.full((st["depth"], widths[st["level"]]), np.nan, F32) for st in streams]
-                scratch = {}
+                rings = [np.full((d, widths[st["level"]]), np.nan, F32)
+                         for d, st in zip(depths, streams)]
                 tx0 = t * tws[last]
                 oxT = tx0 - pads[last]
                 tw = min(tws[last], WT - tx0)
                 y0 = sg * geom.seg_rows
                 y1 = min(y0 + geom.seg_rows, HT)
                 step0 = y0 // m
+                n_last = -(-(y1 - y0) // m)
+                i = -lay.prime_steps
 
                 def origin(lvl):
                     return t * tws[lvl] - pads[lvl]
 
-                def rr(k, rows):
-                    return rings[k][np.mod(rows, streams[k]["depth"])]
+                def held(k, rows):
+                    newest = (step0 + i + 1) * streams[k]["mult"] + streams[k]["lead"] - 1
+                    rows = np.asarray(rows)
+                    assert ((rows > newest - depths[k]) & (rows <= newest)).all(), \
+                        f"stream {k} at step {i}: rows {rows} outside its ring"
+                    return np.mod(rows, depths[k])
 
-                for i in range(-lay.prime_steps, -(-(y1 - y0) // m)):
+                def rr(k, rows):
+                    return rings[k][held(k, rows)]
+
+                def write(k, rows, c0, c1, val):
+                    if streams[k]["u8"]:
+                        assert np.all((val == np.rint(val)) & (val >= 0) & (val <= 255))
+                        val = val.astype(np.uint8).astype(F32)
+                    rings[k][held(k, rows), c0:c1] = val
+
+                def load(step):  # stream 0's rows of `step`, clamped at the image's edges
                     st0 = streams[0]
                     Y0 = step0 * st0["mult"]
-                    rows = np.arange(max(Y0 + i * st0["mult"] + st0["lead"], Y0 - st0["lead"]),
-                                     Y0 + (i + 1) * st0["mult"] + st0["lead"])
+                    rows = np.arange(max(Y0 + step * st0["mult"] + st0["lead"], Y0 - st0["lead"]),
+                                     Y0 + (step + 1) * st0["mult"] + st0["lead"])
                     xs = np.clip(origin(0) + np.arange(widths[0]), 0, W - 1)
-                    rings[0][np.mod(rows, st0["depth"])] = planes[n][np.clip(rows, 0, H - 1)][:, xs]
-                    for st in prog.steps:
+                    rings[0][np.mod(rows, depths[0])] = planes[n][np.clip(rows, 0, H - 1)][:, xs]
+                def step(st, lo, hi):
+                    """One stage application's rows [lo, hi) at its level."""
+                    hy, hx, op, pk = st["kh"] // 2, st["kw"] // 2, st["op"], st["pk"]
+                    pw, oxd, ox = pads[st["lo"]], origin(st["lo"]), origin(st["ls"])
+                    c0, c1 = pw - st["cw"], pw + tws[st["lo"]] + st["cw"]
+                    nr = hi - lo
+                    w0 = wts[st["wx"]:]
+                    v2 = None
+                    if op == 15:  # pyrUp: row phases, then column phases
+                        Y = np.arange(lo, hi)
+                        x0 = _floor2(oxd + c0) - 1 - ox
+                        x1 = _floor2(oxd + c1 - 1) + 2 - ox
+                        a, b, c = (rr(st["src"], _floor2(Y) + d)[:, x0:x1] for d in (-1, 0, 1))
+                        T = np.full((nr, widths[st["ls"]]), np.nan, F32)
+                        T[:, x0:x1] = np.where((Y & 1)[:, None] == 1, _pyr_odd(b, c),
+                                               _pyr_even(a, b, c))
+                        X = oxd + np.arange(c0, c1)
+                        q = _floor2(X) - ox
+                        v = np.where((X & 1)[None, :] == 1, _pyr_odd(T[:, q], T[:, q + 1]),
+                                     _pyr_even(T[:, q - 1], T[:, q], T[:, q + 1]))
+                        v = _pack(v, pk)
+                    elif op in (9, 12) and st["down"] == 1:  # a stride before the last
+                        Y = np.arange(lo, hi)
+                        xs_ = 2 * (oxd + np.arange(c0, c1)) - ox
+                        if op == 9:
+                            ra = 2 * lo - hy
+                            X = rr(st["src"], np.arange(ra, 2 * (hi - 1) + hy + 1))
+                            cols = np.stack([X[:, x - hx:x + hx + 1] for x in xs_], axis=1)
+                            acc = _row_pass(op, cols, w0, st["kw"])[..., 0]
+                            v = np.stack([_col_pass(op, acc[2 * a:2 * a + st["kh"]],
+                                                    wts[st["wy"]:], st["kh"], None)[0]
+                                          for a in range(nr)])
+                        else:
+                            A, B = rr(st["src"], 2 * Y), rr(st["src"], 2 * Y + 1)
+                            v = ((A[:, xs_] + B[:, xs_]) + (A[:, xs_ + 1] + B[:, xs_ + 1])) \
+                                * F32(0.25)
+                        v = _pack(v, pk)
+                    elif op in (9, 12):  # strided last: image-even rows and columns -> own band
+                        X = rr(st["src"], np.arange(lo - hy, hi + hy))
+                        band = outs[st["store"]]
+                        cols = np.arange(c0 + (ox + c0) % 2, c1 - (op == 12), 2)
+                        rows_e = np.arange(lo + lo % 2, hi - (op == 12), 2)
+                        if op == 9:
+                            ky = wts[st["wy"]:]
+                            acc = w0[0] * X[:, cols - hx]
+                            for q in range(1, 5):
+                                acc = acc + w0[q] * X[:, cols - hx + q]
+                            v = ky[0] * acc[rows_e - lo]
+                            for q in range(1, 5):
+                                v = v + ky[q] * acc[rows_e - lo + q]
+                        else:
+                            a, b = X[rows_e - lo][:, cols], X[rows_e - lo + 1][:, cols]
+                            c, d = X[rows_e - lo][:, cols + 1], X[rows_e - lo + 1][:, cols + 1]
+                            v = ((a + b) + (c + d)) * F32(0.25)
+                        v = _pack(v, pk)
+                        keep_r = (rows_e >= y0) & (rows_e < y1) & (rows_e // 2 < band.shape[1])
+                        keep_c = ((ox + cols >= tx0) & (ox + cols < tx0 + tw)
+                                  & ((ox + cols) // 2 < band.shape[2]))
+                        band[n, rows_e[keep_r][:, None] // 2,
+                             (ox + cols[keep_c])[None, :] // 2] = v[keep_r][:, keep_c]
+                        return
+                    else:
+                        X = rr(st["src"], np.arange(lo - hy, hi + hy))
+                        if st["strip"] and op == 4:  # register strips
+                            v = _pack(_strip_filter2d(X, w0, st["kh"], nr, c0, c1), pk)
+                        elif st["strip"] and op in (0, 1, 5, 6):
+                            v = _pack(_strip_sep(op, X, w0, wts[st["wy"]:], st["kh"], nr, c0,
+                                                 c1), pk)
+                        elif op in (0, 1, 5, 6):  # separable: row pass -> scratch
+                            acc = _row_pass(op, X[:, c0 - hx:c1 + hx], w0, st["kw"])
+                            v = _pack(_col_pass(op, acc, wts[st["wy"]:], st["kh"],
+                                                w0[0] if op == 6 else None), pk)
+                        elif op == 4:  # filter2d, taps row-major
+                            kw = st["kw"]
+                            v = w0[0] * X[0:nr, c0 - hx:c1 - hx]
+                            for a in range(st["kh"]):
+                                for b in range(kw):
+                                    if a or b:
+                                        v = v + w0[a * kw + b] * X[a:a + nr,
+                                                                   c0 - hx + b:c1 - hx + b]
+                            v = _pack(v, pk)
+                        elif op == 2:
+                            dy = (X[2:, c0:c1] - X[:-2, c0:c1]) * F32(0.5)
+                            dx = (X[1:-1, c0 + 1:c1 + 1] - X[1:-1, c0 - 1:c1 - 1]) * F32(0.5)
+                            v = _pack(np.sqrt(dx * dx + dy * dy), pk)
+                        elif op == 10:
+                            v, v2 = _sobel(X[:, c0 - 1:c1 + 1])
+                        elif op == 11:
+                            Y2 = rr(st["src2"], np.arange(lo, hi))
+                            a, b = X[:, c0:c1], Y2[:, c0:c1]
+                            v = _pack(np.sqrt(a * a + b * b), pk)
+                        elif op in (13, 14):
+                            ii, jj = np.meshgrid(np.arange(lo, hi), np.arange(c0, c1),
+                                                 indexing="ij")
+                            lh, lw = lv.size(st["ls"], H, W)
+                            sy, sx = _gather_coords(op, w0, maps, st["wx"], ii, ox + jj, lh, lw)
+                            # X holds rows [lo - hy, hi + hy): local row 0 is image row lo - hy
+                            v = _bilinear(X, sy, sx, lo - hy, ox, 0, nr + 2 * hy, c0 - hx,
+                                          c1 + hx)
+                            v = _pack(v, pk)
+                        elif op == 7:
+                            v = _pack(np.where(X[:, c0:c1] > w0[0], w0[1], F32(0)), pk)
+                        else:
+                            v = _pack(X[:, c0:c1] * w0[0] + w0[1], pk)
+                    for val, dst, store in ((v, st["dst"], st["store"]),
+                                            (v2, st["dst2"], st["store2"])):
+                        if val is None:
+                            continue
+                        if dst >= 0:
+                            write(dst, np.arange(lo, hi), c0, c1, val)
+                        elif store >= 0:
+                            for a, r in enumerate(range(lo, hi)):
+                                if y0 <= r < y1:
+                                    outs[store][n, r, tx0:tx0 + tw] = \
+                                        val[a, pads[last] - c0:pads[last] - c0 + tw]
+
+                load(i)
+                for i in range(-lay.prime_steps, n_last):
+                    if geom.ahead and i + 1 < n_last:
+                        load(i + 1)
+                    for si, st in enumerate(prog.steps):
                         Y0 = step0 * st["mult"]
                         lo = max(Y0 + i * st["mult"] + st["lead"], Y0 - st["lead"])
                         hi = Y0 + (i + 1) * st["mult"] + st["lead"]
-                        if lo >= hi:
-                            continue
-                        hy, hx, op, pk = st["kh"] // 2, st["kw"] // 2, st["op"], st["pk"]
-                        pw, oxd, ox = pads[st["lo"]], origin(st["lo"]), origin(st["ls"])
-                        c0, c1 = pw - st["cw"], pw + tws[st["lo"]] + st["cw"]
-                        nr = hi - lo
-                        w0 = wts[st["wx"]:]
-                        if op == 15:  # pyrUp: row phases, then column phases
-                            Y = np.arange(lo, hi)
-                            x0 = _floor2(oxd + c0) - 1 - ox
-                            x1 = _floor2(oxd + c1 - 1) + 2 - ox
-                            a, b, c = (rr(st["src"], _floor2(Y) + d)[:, x0:x1] for d in (-1, 0, 1))
-                            T = np.full((nr, widths[st["ls"]]), np.nan, F32)
-                            T[:, x0:x1] = np.where((Y & 1)[:, None] == 1, _pyr_odd(b, c),
-                                                   _pyr_even(a, b, c))
-                            X = oxd + np.arange(c0, c1)
-                            q = _floor2(X) - ox
-                            v = np.where((X & 1)[None, :] == 1, _pyr_odd(T[:, q], T[:, q + 1]),
-                                         _pyr_even(T[:, q - 1], T[:, q], T[:, q + 1]))
-                            v, v2 = _pack(v, pk), None
-                        elif op in (9, 12) and st["down"] == 1:  # a stride before the last
-                            Y = np.arange(lo, hi)
-                            xs_ = 2 * (oxd + np.arange(c0, c1)) - ox
-                            if op == 9:
-                                ra = 2 * lo - hy
-                                X = rr(st["src"], np.arange(ra, 2 * (hi - 1) + hy + 1))
-                                cols = np.stack([X[:, x - hx:x + hx + 1] for x in xs_], axis=1)
-                                acc = _row_pass(op, cols, w0, st["kw"])[..., 0]
-                                v = np.stack([_col_pass(op, acc[2 * a:2 * a + st["kh"]],
-                                                        wts[st["wy"]:], st["kh"], None)[0]
-                                              for a in range(nr)])
-                            else:
-                                A, B = rr(st["src"], 2 * Y), rr(st["src"], 2 * Y + 1)
-                                v = ((A[:, xs_] + B[:, xs_]) + (A[:, xs_ + 1] + B[:, xs_ + 1])) \
-                                    * F32(0.25)
-                            v, v2 = _pack(v, pk), None
-                        elif op in (9, 12):  # strided last: image-even rows and columns -> own band
-                            X = rr(st["src"], np.arange(lo - hy, hi + hy))
-                            band = outs[st["store"]]
-                            cols = np.arange(c0 + (ox + c0) % 2, c1 - (op == 12), 2)
-                            rows_e = np.arange(lo + lo % 2, hi - (op == 12), 2)
-                            if op == 9:
-                                ky = wts[st["wy"]:]
-                                acc = w0[0] * X[:, cols - hx]
-                                for q in range(1, 5):
-                                    acc = acc + w0[q] * X[:, cols - hx + q]
-                                v = ky[0] * acc[rows_e - lo]
-                                for q in range(1, 5):
-                                    v = v + ky[q] * acc[rows_e - lo + q]
-                            else:
-                                a, b = X[rows_e - lo][:, cols], X[rows_e - lo + 1][:, cols]
-                                c, d = X[rows_e - lo][:, cols + 1], X[rows_e - lo + 1][:, cols + 1]
-                                v = ((a + b) + (c + d)) * F32(0.25)
-                            v = _pack(v, pk)
-                            keep_r = (rows_e >= y0) & (rows_e < y1) & (rows_e // 2 < band.shape[1])
-                            keep_c = ((ox + cols >= tx0) & (ox + cols < tx0 + tw)
-                                      & ((ox + cols) // 2 < band.shape[2]))
-                            band[n, rows_e[keep_r][:, None] // 2,
-                                 (ox + cols[keep_c])[None, :] // 2] = v[keep_r][:, keep_c]
-                            continue
-                        else:
-                            X = rr(st["src"], np.arange(lo - hy, hi + hy))
-                            v2 = None
-                            if op in (0, 1, 5, 6):  # separable: row pass -> scratch
-                                acc = _row_pass(op, X[:, c0 - hx:c1 + hx], w0, st["kw"])
-                                v = _pack(_col_pass(op, acc, wts[st["wy"]:], st["kh"],
-                                                    w0[0] if op == 6 else None), pk)
-                            elif op == 4:  # filter2d, taps row-major
-                                kw = st["kw"]
-                                v = w0[0] * X[0:nr, c0 - hx:c1 - hx]
-                                for a in range(st["kh"]):
-                                    for b in range(kw):
-                                        if a or b:
-                                            v = v + w0[a * kw + b] * X[a:a + nr,
-                                                                       c0 - hx + b:c1 - hx + b]
-                                v = _pack(v, pk)
-                            elif op == 2:
-                                dy = (X[2:, c0:c1] - X[:-2, c0:c1]) * F32(0.5)
-                                dx = (X[1:-1, c0 + 1:c1 + 1] - X[1:-1, c0 - 1:c1 - 1]) * F32(0.5)
-                                v = _pack(np.sqrt(dx * dx + dy * dy), pk)
-                            elif op == 10:
-                                v, v2 = _sobel(X[:, c0 - 1:c1 + 1])
-                            elif op == 11:
-                                Y2 = rr(st["src2"], np.arange(lo, hi))
-                                a, b = X[:, c0:c1], Y2[:, c0:c1]
-                                v = _pack(np.sqrt(a * a + b * b), pk)
-                            elif op in (13, 14):
-                                ii, jj = np.meshgrid(np.arange(lo, hi), np.arange(c0, c1),
-                                                     indexing="ij")
-                                lh, lw = lv.size(st["ls"], H, W)
-                                sy, sx = _gather_coords(op, w0, maps, st["wx"], ii, ox + jj, lh, lw)
-                                # X holds rows [lo - hy, hi + hy): local row 0 is image row lo - hy
-                                v = _bilinear(X, sy, sx, lo - hy, ox, 0, nr + 2 * hy, c0 - hx,
-                                              c1 + hx)
-                                v = _pack(v, pk)
-                            elif op == 7:
-                                v = _pack(np.where(X[:, c0:c1] > w0[0], w0[1], F32(0)), pk)
-                            else:
-                                v = _pack(X[:, c0:c1] * w0[0] + w0[1], pk)
-                        for val, dst, store in ((v, st["dst"], st["store"]),
-                                                (v2, st["dst2"], st["store2"])):
-                            if val is None:
-                                continue
-                            if dst >= 0:
-                                rings[dst][np.mod(np.arange(lo, hi), streams[dst]["depth"]),
-                                           c0:c1] = val
-                            elif store >= 0:
-                                for a, r in enumerate(range(lo, hi)):
-                                    if y0 <= r < y1:
-                                        outs[store][n, r, tx0:tx0 + tw] = \
-                                            val[a, pads[last] - c0:pads[last] - c0 + tw]
+                        if lo < hi:
+                            step(st, lo, hi)
+                        if not geom.ahead and si == lay.rd0 and i + 1 < n_last:
+                            load(i + 1)
                     if i >= 0:
                         rows = np.arange(y0 + i * m, min(y0 + (i + 1) * m, y1))
                         for k, stream in enumerate(streams):
-                            if stream["store"] >= 0:
+                            if stream["store"] >= 0 and stream["depth"] > 0:
                                 outs[stream["store"]][n, rows, tx0:tx0 + tw] = \
                                     rr(k, rows)[:, pads[last]:pads[last] + tw]
+                    if not geom.ahead and lay.rd0 >= len(prog.steps) and i + 1 < n_last:
+                        load(i + 1)
+
     return outs
-
-
 REPLAY = [
     ("preprocess", "f32", (3, 37, 29), {}),
     ("preprocess", "u8", (2, 37, 29), {"tiled": True, "tile_w": 8}),
@@ -580,12 +666,132 @@ def test_compile_stream_for_the_acceptance_chain():
     assert exec_streaming.PROGRAM_BYTES <= 48 * 1024  # static shared memory
 
 
-@pytest.mark.parametrize("shape,threads", [((768, 32, 32), 256), ((1, 64, 8), 64),
-                                           ((1, 1080, 960), 1024)])
+@pytest.mark.parametrize("shape,threads", [((768, 32, 32), 32), ((1, 64, 8), 32),
+                                           ((1, 1080, 960), 256)])
 def test_stream_threads_follow_one_steps_work(shape, threads):
-    """A block takes `MAX_THREADS`, halved while they are at least as
-    many as one step's values (8 rows of a 40-column window: 256)."""
+    """A block takes `STREAM_THREADS`, halved while they are at least four
+    times the 4-column groups of its frame (a 40-column frame: 10 groups,
+    32 threads; a 968-column one: 242 groups, 256)."""
     prog, _ = exec_streaming.program(_stages(tstencil, "preprocess"), 8, torch.float32,
                                      torch.device("cpu"))
     geom = exec_streaming.stream_geometry(prog, shape, LaunchConfig(), tiled=False)
     assert geom.threads == threads
+
+
+# ---------------------------------------------------------------------------
+# The planner's figures: ring bytes by dtype, full-width 4K, two blocks an SM
+# ---------------------------------------------------------------------------
+
+def test_ring_bytes_follow_the_dtype():
+    """u8 rings take one byte a value, f32 rings four; a Sobel pair stays f32
+    on a u8 chain and the pair's magnitude is packed to u8 again."""
+    pre = _stages(tstencil, "preprocess")
+    f32 = plan.stream_layout(pre, 8, torch.float32)
+    u8 = plan.stream_layout(pre, 8, torch.uint8)
+    assert f32.esizes == (4, 4, 4, 4) and u8.esizes == (1, 1, 1, 1)
+    # level 0's pad is rounded up to 16 bytes of the input: 16 u8 columns, 4 f32 ones
+    assert u8.col_pads == (16,) and f32.col_pads == (4,)
+    assert u8.row_bytes(0, 32) == 64 + 16 and f32.row_bytes(0, 32) == 160 + 16
+    assert u8.smem_bytes(32) == 16 + 32 * 80
+    # loading stream 0 a step ahead adds a step's rows to its ring
+    assert u8.smem_bytes(32, ahead=True) - u8.smem_bytes(32) == 8 * 80
+    sob = plan.stream_layout(_stages(tstencil, "down_sobel_grad"), 8, torch.uint8)
+    assert sob.esizes == (1, 1, 4, 4, 1)
+    k13 = plan.stream_layout(_stages(tstencil, "gaussian_filter2d_k13"), 8, torch.uint8)
+    k13f = plan.stream_layout(_stages(tstencil, "gaussian_filter2d_k13"), 8, torch.float32)
+    assert k13.smem_bytes(3840) == 16 + 20 * (3840 + 32 + 16)
+    assert k13f.smem_bytes(3840) == 16 + 20 * ((3840 + 16) * 4 + 16)  # pad 6 -> 8
+
+
+@pytest.mark.parametrize("op,size", [("erode", r) for r in (1, 2, 3)]
+                         + [("filter2d", k) for k in (3, 5, 7, 9, 11, 13)])
+def test_4k_u8_image_ops_stream_at_full_width(op, size):
+    if op == "erode":
+        chain = (tstencil.erode_stage(size),)
+    else:
+        k1 = tref.gaussian_kernel1d(size)
+        chain = (tstencil.filter_stage(torch.outer(k1, k1)),)
+    assert driver.resolve_mode(chain, (1, 2160, 3840), torch.uint8) == "streaming"
+
+
+def _image_path_shapes():
+    """The 24 image-path shapes of chip_smoke.py, as (name, chain, planes,
+    dtype)."""
+    from repro_torch.cv import features as tfeat
+
+    res = {"1080p": (1080, 1920), "4K": (2160, 3840), "8K": (4320, 7680)}
+    out = []
+    for r in ("1080p", "4K"):
+        for k in (3, 5, 7, 9, 11, 13):
+            k1 = tref.gaussian_kernel1d(k)
+            out.append((f"filter2d k={k} {r}", (tstencil.filter_stage(torch.outer(k1, k1)),),
+                        (1, *res[r]), torch.uint8))
+    for r in ("1080p", "4K", "8K"):
+        for rad in (1, 2, 3):
+            out.append((f"erode r={rad} {r}", (tstencil.erode_stage(rad),), (1, *res[r]),
+                        torch.uint8))
+    out.append(("acceptance", _stages(tstencil, "acceptance"), (24, 512, 512), torch.uint8))
+    out.append(("preprocess", _stages(tstencil, "preprocess"), (24, 512, 512), torch.float32))
+    out.append(("octave", tfeat.octave_chain(4, with_next_base=False), (1, 512, 512),
+                torch.float32))
+    return out
+
+
+def test_two_blocks_fit_an_sm_on_every_image_path_shape():
+    """By the planner's own figures (shared memory, static included, and
+    threads; `plan.blocks_per_sm`), every image-path shape's
+    `stencil_stream` launch leaves room for at least two blocks an SM, and
+    the launch has at least 132 blocks."""
+    shapes = _image_path_shapes()
+    assert len(shapes) == 24
+    for name, chain, shape, dtype in shapes:
+        mode = driver.resolve_mode(chain, shape, dtype)
+        prog, _ = exec_streaming.program(chain, 8, dtype, torch.device("cpu"))
+        geom = exec_streaming.stream_geometry(prog, shape, LaunchConfig(),
+                                              tiled=mode == "tiled2d")
+        per_sm = plan.blocks_per_sm(geom.smem_bytes + exec_streaming.STATIC_SMEM, geom.threads)
+        assert per_sm == geom.per_sm >= 2, (name, geom)
+        assert geom.smem_bytes + exec_streaming.STATIC_SMEM <= plan.TWO_BLOCK_SMEM, name
+        assert shape[0] * geom.n_tiles * geom.n_seg >= 132, (name, geom)
+        assert mode == ("tiled2d" if name == "octave" else "streaming"), name
+
+
+def test_loads_ahead_only_where_two_blocks_still_fit():
+    """Stream 0 gets a step's rows more when its ring then still leaves
+    room for a second block: 4K filter2d k=13 does, 8K erode does not."""
+    k13 = _image_path_shapes()[11]
+    assert k13[0] == "filter2d k=13 4K"
+    for (name, chain, shape, dtype), ahead in ((k13, True), (_image_path_shapes()[18], False)):
+        prog, _ = exec_streaming.program(chain, 8, dtype, torch.device("cpu"))
+        geom = exec_streaming.stream_geometry(prog, shape, LaunchConfig(), tiled=False)
+        assert geom.ahead is ahead, name
+        assert geom.smem_bytes == prog.layout.smem_bytes(geom.tile_w, ahead)
+
+
+def test_strip_sizes_match_the_kernel():
+    """The planner marks as strips exactly the (op, size) pairs the kernel
+    has a register-strip body for (csrc/stencil_stream.cu `run_strip`)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tstencil.__file__).resolve().parents[2] / "csrc" / "stencil_stream.cu").read_text()
+    names = {"kFilter2d": "filter2d", "kSep": "sep_filter", "kErode": "erode",
+             "kDilate": "dilate", "kBox": "box", "kThreshold": "threshold", "kAffine": "affine"}
+    got = {}
+    for op, k in re.findall(r"STRIP_K\((k\w+), (\d+)\)", src):
+        got.setdefault(names[op], []).append(int(k))
+    assert {op: tuple(ks) for op, ks in got.items()} == plan.STRIP_SIZES
+
+
+def test_tiled2d_keeps_two_blocks_unless_the_halo_costs_too_much():
+    """The 512² octave keeps 64-column tiles (two blocks an SM, 1.35x the
+    column work of the one-block 192-column tile); with its next base the
+    two-block tile is 32 columns, over `plan.TWO_BLOCK_WORK` times the
+    work of the 128-column one, so that one is taken."""
+    from repro_torch.cv import features as tfeat
+
+    for nb, tile, per_sm in ((False, 64, 2), (True, 128, 1)):
+        prog, _ = exec_streaming.program(tfeat.octave_chain(4, with_next_base=nb), 8,
+                                         torch.float32, torch.device("cpu"))
+        geom = exec_streaming.stream_geometry(prog, (1, 512, 512), LaunchConfig(), tiled=True)
+        assert (geom.tile_w, geom.per_sm) == (tile, per_sm), nb
