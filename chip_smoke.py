@@ -10,7 +10,13 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
   2. hold each kernel against its plain PyTorch version on the card at
      shapes beyond the BoW path's (phase 10 repeats it on the path's tensors);
      each chain runs under the kernel `mode=None` resolves to and under the
-     window kernel;
+     window kernel; then the chains fixed-size tables once refused
+     (`table_phase`): even taps (2x2, 4x4, 6/6 separable, odd x even) and
+     four 13x13 filters (676 weights), 33 stages, 9 resolution levels, 17
+     output bands and 5 remaps, on a 600x700 u8 image and its f32 copy, in
+     every mode, one launch each, bit-equal to the plain version; nine
+     pyrDowns on the same image run plain and are refused by both kernels
+     with the limit that binds (the stride product 512, shared memory);
   3. the training path on the card, once per head (SVM, GBDT): 1000
      ImageStream images at 32x32, a 250-word dictionary, the §4.5 config,
      k-means seeded from a CPU generator at seed 0.  Each training launches
@@ -35,9 +41,9 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      call, max_abs_err 0 against the plain version, and the three kernel
      modes bit-identical; a full-width streaming plan over the
      shared-memory budget must raise `ValueError`.  Then `stencil_stream`
-     and `stencil_chain` are timed on each shape, the plain version on the
-     4K shapes, and `conv2d` as the library call for gaussian_filter2d
-     k = 5 and 13;
+     and `stencil_chain` are timed on each shape (all 24 in window mode), the
+     plain version on the 4K shapes, and `conv2d` as the library call for
+     gaussian_filter2d k = 5 and 13;
   6. the fused-vs-staged-vs-seed pipeline benchmark (`pipeline_phase`):
      the seed kernels against their plain versions (512x512, 1081x1919 and
      37x53 u8, k = 3, 5, 7, r = 1, 2, 3, the thresholds of the seed's
@@ -118,7 +124,9 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      descriptors and final centroids), hold each kernel against its plain
      version again, then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 11. print the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
+ 11. print the window arithmetic of the request's octave with its frames
+     cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
+     the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
      the 4K u8 gaussian_filter2d k = 13 under mode=None, `flash_attention`
      at the prefill's layer 0, the seed kernels on one 512x512 u8 plane),
      then the card line and the device line.
@@ -324,6 +332,76 @@ def image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream) -> 
     return cases
 
 
+def table_chains(stencil, hw, dev) -> dict:
+    """Chains the TPU kernels take that fixed-size step tables on the card
+    once refused (ROADMAP Queue 2), for an (H, W) image on `dev`:
+    even taps (2x2, 4x4 filters, 6/6 separable, odd x even mixes, taps
+    beside a map) and chains past the old tables: four 13x13 filters (676
+    weights), 33 stages, 9 resolution levels (pyrDown / pyrUp x 4, then a
+    pyrDown), 17 output bands, 5 remaps.  Taps are seeded, positive and
+    sum to 1, so a u8 chain stays in range (tests/test_torch_stencil.py
+    `table_chain` builds the same chains)."""
+    import numpy as np
+    import torch
+
+    def taps(seed, *shape):
+        w = np.random.default_rng(seed).random(shape, dtype=np.float32) + np.float32(0.25)
+        return torch.from_numpy((w / w.sum()).astype(np.float32))
+
+    def sep(nx, ny, seed, **kw):
+        return stencil.sep_filter_stage(taps(seed, nx), taps(seed + 1, ny), **kw)
+
+    h, w = hw
+    remaps = []
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    # displacements under a pixel; each remap budgets the halo the later
+    # ones read (out-of-image lookups clamp to the map's edge)
+    for i, e in enumerate((15, 7, 3, 1, 0)):
+        mx = (xx + (0.3 + 0.05 * i) * torch.cos(yy / 5.0)).contiguous()
+        my = (yy + (0.45 - 0.05 * i) * torch.sin(xx / 7.0)).contiguous()
+        remaps.append(stencil.remap_stage(mx, my, extend=(e, e)))
+    ops3 = (lambda: stencil.gaussian_stage(3), lambda: stencil.affine_stage(0.9375, 3.0),
+            lambda: stencil.erode_stage(1))
+    return {
+        "even 2x2": (stencil.filter_stage(taps(1, 2, 2)),),
+        "even 4x4": (stencil.filter_stage(taps(2, 4, 4)),),
+        "even sep 6/6": (sep(6, 6, 3),),
+        "odd x even": (stencil.filter_stage(taps(4, 3, 4)), sep(5, 2, 5),
+                       stencil.filter_stage(taps(6, 4, 5))),
+        "even taps beside a map": (stencil.gaussian_stage(3), sep(4, 6, 7, tap=0),
+                                   stencil.erode_stage(1), stencil.filter_stage(taps(8, 2, 6)),
+                                   sep(2, 2, 9, tap=-2)),
+        "676 weights": tuple(stencil.filter_stage(taps(10 + i, 13, 13)) for i in range(4)),
+        "33 stages": tuple(ops3[i % 3]() for i in range(33)),
+        "9 levels": tuple(stencil.pyr_down_stage() if i % 2 == 0 else stencil.pyr_up_stage()
+                          for i in range(8)) + (stencil.pyr_down_stage(),),
+        "17 bands": tuple(stencil.gaussian_stage(3 + 2 * (i % 3), tap=0) for i in range(16)),
+        "5 remaps": tuple(remaps),
+    }
+
+
+TABLE_HW = (600, 700)
+
+
+def table_cases(dev, stencil, ImageStream) -> list:
+    """`table_chains` on a 600x700 u8 image and its f32 copy, in the
+    image-path case format: the 9-level chain with 32-row steps (its stride
+    product is 32), the 17-band chain with 4-row steps (17 rings)."""
+    from repro_torch.core.device import LaunchConfig
+
+    img = ImageStream().image(TABLE_HW, seed=21).to(dev)
+    cases = []
+    for dt, x in (("u8", img), ("f32", img.float())):
+        for name, chain in table_chains(stencil, TABLE_HW, dev).items():
+            lc = LaunchConfig(stream_rows={"9 levels": 32, "17 bands": 4}.get(name, 8))
+            cases.append({"name": f"{name} 600x700 {dt}", "img": x, "chain": chain, "lc": lc,
+                          "plain": False, "lib": None,
+                          "call": lambda mode, x=x, chain=chain, lc=lc:
+                          stencil.fused_chain(x, chain, mode=mode, lc=lc)})
+    return cases
+
+
 def check_modes(case, counters, stencil, ref, path_counts: dict, max_err: dict) -> tuple:
     """One image-path shape in every mode (None, window, streaming,
     tiled2d): one launch of the kernel the mode names and no plain call,
@@ -336,7 +414,10 @@ def check_modes(case, counters, stencil, ref, path_counts: dict, max_err: dict) 
     name, img, chain, call = case["name"], case["img"], case["chain"], case["call"]
     want = as_tuple(stencil.fused_chain(img, chain, mode="ref"))
     planes = ref.to_planes(img)
-    resolved = stencil.resolve_mode(chain, planes.shape, img.dtype)
+    if "lc" in case:
+        resolved = stencil.resolve_mode(chain, planes.shape, img.dtype, case["lc"])
+    else:
+        resolved = stencil.resolve_mode(chain, planes.shape, img.dtype)
     outs = {}
     for mode in (None, "window", "streaming", "tiled2d"):
         kernel = "stencil_chain" if (mode or resolved) == "window" else "stencil_stream"
@@ -374,6 +455,65 @@ def check_modes(case, counters, stencil, ref, path_counts: dict, max_err: dict) 
     print(f"check {name}: window, streaming and tiled2d bit-identical "
           f"({'streaming over budget' if 'streaming' not in outs else 'all three ran'})")
     return want, planes, resolved
+
+
+def table_phase(dev, counters, stencil, ref, ImageStream, max_err: dict, results: dict) -> None:
+    """Phase 2's chains that fixed-size tables once refused (`table_cases`):
+    each in every mode, one launch and bit-equal to the plain version
+    (`check_modes`); then nine pyrDowns on a 600x700 u8 plane, which the
+    plain version runs and both kernels refuse by `ValueError` naming the
+    limit that binds: a tile and a step must be multiples of the stride
+    product 512, and a 512-row tile's window is far over a block's shared
+    memory."""
+    import torch
+
+    from repro_torch.core.device import LaunchConfig
+
+    counts = {}
+    for case in table_cases(dev, stencil, ImageStream):
+        check_modes(case, counters, stencil, ref, counts, max_err)
+        results["checks"][f"table chain {case['name']}"] = {"max_abs_err": 0.0}
+    img = ImageStream().image(TABLE_HW, seed=22).to(dev)
+    nine = tuple(stencil.pyr_down_stage() for _ in range(9))
+    want = stencil.fused_chain(img, nine, mode="ref")
+    check(tuple(want.shape) == (2, 2), f"nine pyrDowns: plain shape {tuple(want.shape)}")
+    for mode, lc, limit in (("window", LaunchConfig(), "stride product"),
+                            ("window", LaunchConfig(tile_rows=512, tile_cols=512), "shared memory"),
+                            ("streaming", LaunchConfig(stream_rows=64), "stride product"),
+                            ("tiled2d", LaunchConfig(stream_rows=64), "stride product")):
+        counters.reset()
+        try:
+            stencil.fused_chain(img, nine, mode=mode, lc=lc)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and limit in raised,
+              f"nine pyrDowns {mode}: want a ValueError naming the {limit}, got {raised}")
+        check(sum(counters.LAUNCHES.values()) == 0, f"nine pyrDowns {mode}: launched")
+        print(f"check nine pyrDowns 600x700 u8 {mode}: ValueError as required "
+              f"({(raised or '')[:120]})")
+    torch.cuda.synchronize()
+    results["checks"]["nine pyrDowns 600x700 u8"] = "refused by the stride product and shared memory"
+
+
+def window_floor_ms(stages, shape, dtype) -> dict:
+    """The arithmetic `stencil_chain`'s windows do for (N, H, W) planes
+    (`exec_window.window_flops` at the launch's tile), with the frames cut
+    and with every frame full, and each at the f32 rate."""
+    import dataclasses
+
+    from repro_torch.core.device import DEFAULT
+    from repro_torch.kernels.stencil import exec_window
+
+    prog = exec_window.compile_chain(stages, dtype)
+    th, tw, _ = exec_window.pick_tile(prog, DEFAULT, shape)
+    full = dataclasses.replace(prog, frames=tuple(
+        f | {"ly": exec_window.UNCUT, "lx": exec_window.UNCUT} for f in prog.frames), _memo={})
+    out = {}
+    for tag, p in (("cut", prog), ("full", full)):
+        flops = shape[0] * exec_window.window_flops(p, th, tw, tuple(shape[1:]))
+        out[tag] = {"flops": flops, "ms": flops / PEAK_FP32_FLOPS * 1e3}
+    return out
 
 
 def time_image_case(case, planes, resolved, want) -> dict:
@@ -1543,6 +1683,7 @@ def main() -> int:
     check_chain("preprocess", uniform(64, 256, 256, 3), pre_chain)
     check_chain("octave", uniform(256, 256, 256, 1), oct_chain)
     check_chain("octave planes<=halo", uniform(1024, 32, 32, 1), oct_chain)
+    table_phase(dev, counters, stencil, ref, ImageStream, max_err, results)
 
     def check_hist(name, descs, valids, cents):
         got = kbow.bow_quantize_hist(descs, valids, cents, normalize=False)
@@ -1852,6 +1993,9 @@ def main() -> int:
             "run": lambda: stencil.fused_chain(gray[..., None], oct_chain),
             "plain": lambda: stencil.fused_chain(gray[..., None], oct_chain, mode="ref"),
             "library": None,
+            # also as device time: a CUDA graph of 100 calls replayed (a
+            # call's event time includes the host's planning)
+            "graph": True,
             # the input read once, every band written once
             "bytes": f32 * n_oct * (1 + len(oct_chain)),
             "flops": n_oct * chain_flops(oct_chain),
@@ -1871,6 +2015,7 @@ def main() -> int:
             "run": lambda: kbow.bow_quantize_hist(qd, qv, cents_g),
             "plain": lambda: kbow.normalize_hist(kbow.quantize_hist_plain(qd, qv, cents_g)),
             "library": None,
+            "graph": True,
             "bytes": f32 * (qd.numel() + qv.numel() + cents_g.numel() + hist.numel()),
             "flops": 2 * qd.shape[0] * qd.shape[1] * cents_g.shape[0] * qd.shape[2],
             "shape": f"request of {PREDICT_BATCH} images",
@@ -1896,6 +2041,7 @@ def main() -> int:
             "run": lambda: kbow.bow_assign(train_desc, cents_g),
             "plain": lambda: kbow.bow_assign_plain(train_desc, cents_g),
             "library": None,
+            "graph": True,
             # descriptors and codebook read once; word index (i32) and d2 written once
             "bytes": f32 * (train_desc.numel() + cents_g.numel() + 2 * n_tr),
             "flops": 2 * n_tr * k_w * train_desc.shape[1],
@@ -1976,10 +2122,22 @@ def main() -> int:
         if k.get("graph"):
             graph_ms = load_bench().graph_ms
             k_g = [graph_ms(k["run"], reps=100) for _ in range(2)]
-            lib_g = [graph_ms(k["library"], reps=100) for _ in range(2)]
-            entry |= {"graph_ms": min(k_g), "library_graph_ms": min(lib_g)}
-            print(f"time {k['name']} graph replay of 100 calls: ms={k_g[0]:.5f}/{k_g[1]:.5f} "
-                  f"library_ms={lib_g[0]:.5f}/{lib_g[1]:.5f} card={card}")
+            entry |= {"graph_ms": min(k_g)}
+            lib_txt = ""
+            if k["library"]:
+                lib_g = [graph_ms(k["library"], reps=100) for _ in range(2)]
+                entry |= {"library_graph_ms": min(lib_g)}
+                lib_txt = f" library_ms={lib_g[0]:.5f}/{lib_g[1]:.5f}"
+            print(f"time {k['name']} graph replay of 100 calls: ms={k_g[0]:.5f}/{k_g[1]:.5f}"
+                  f"{lib_txt} card={card}")
+        if k["name"] == "stencil_chain":
+            floor = window_floor_ms(oct_chain, tuple(ref.to_planes(gray[..., None]).shape),
+                                    torch.float32)
+            results["window_floor"] = floor
+            print(f"window arithmetic of the octave of a request: cut frames "
+                  f"{floor['cut']['flops']:.0f} FLOP ({floor['cut']['ms']:.5f} ms at 67 TFLOP/s), "
+                  f"full windows {floor['full']['flops']:.0f} FLOP ({floor['full']['ms']:.5f} ms) "
+                  f"card={card}")
         line.append(entry)
         print(
             f"time {k['name']} ({k['shape']}): ms={k1:.5f}/{k2:.5f} "

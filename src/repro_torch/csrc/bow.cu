@@ -4,23 +4,35 @@
 // bow_assign replaces src/repro/kernels/bow.py `_bow_kernel` (via
 // `bow_assign`).  Bound on an H100: operations.  At the training shape
 // (N = 32000 descriptors of D = 128 against K = 250 words) it does
-// 2*N*K*D = 2.05 GFLOP of fp32 and moves ~16.8 MB.  Design: the nearest-word
-// search of bow_quantize_hist (below), over the flattened descriptor rows,
-// writing each descriptor's word index and min + |d|^2 instead of adding
-// into a histogram; the (N, K) score matrix never reaches device memory.
+// 2*N*K*D = 2.05 GFLOP of fp32 and moves ~16.8 MB.  The products and sums
+// may not be contracted into FMAs (every one is rounded on its own, in
+// ascending q, as the plain version computes them), and tensor cores round
+// otherwise, so the attainable floor is about twice the 67 TFLOP/s bound.
 //
 // bow_quantize_hist replaces src/repro/kernels/bow.py `_hist_kernel` (via
-// `bow_quantize_hist`).  Bound on an H100: operations.  At the predict
-// batch (B*N = 32768 descriptors of D = 128 against K = 250 words) it does
-// 2*B*N*K*D = 2.1 GFLOP of fp32 on CUDA cores and moves ~17 MB, so the dot
-// products, not the bytes, set its floor.  Design: one block per (image,
-// block of descriptors).  The descriptors stay in shared memory while the
-// codebook streams through it in tiles; each of a descriptor's `lanes`
-// threads keeps a running argmin over its strided share of the words, and a
-// warp-shuffle merge picks the minimum with ties to the lower word index.
-// The (N, K) score matrix and the word indices never reach device memory:
-// each descriptor's valid weight is added to its image's histogram row with
-// atomicAdd (sums of {0, 1} weights are exact in any order).
+// `bow_quantize_hist`).  Bound on an H100: operations, 2*B*N*K*D = 2.1
+// GFLOP at the predict batch (B*N = 32768 rows) against ~17 MB moved.
+//
+// Both run one nearest-word search (`nearest_words`) over flattened
+// descriptor rows: a block takes kTileN = 64 rows and walks the codebook in
+// tiles of kTileK = 64 words; each of its 256 threads owns a 4 x 4 register
+// micro-tile (4 rows by 4 words), so every shared-memory value it loads
+// feeds 4 products.  Rows and words are staged in q-major layout (a 16-byte
+// load gives a thread 4 rows' or 4 words' q-th value), kChunk values of q
+// at a time, with cp.async double-buffering: the next chunk's copies fly
+// while this one computes.  Every dot product is one ascending-q chain of
+// __fmul_rn / __fadd_rn, kept in registers from chunk to chunk; s = -2 d.c
+// + |c|^2 is compared as the old one-lane-per-word search did, and a
+// running argmin per (row, thread) takes its words in ascending k with a
+// strict <, so ties keep the lower word; the 16 threads of a row then merge
+// by shuffles, ties to the lower word.  |c|^2 of a tile's words (+inf past
+// K, so pad words never win) and, for bow_assign, |d|^2 of the rows are
+// summed in the same ascending order inside the chunk loop, one word or row
+// a thread, instead of in a serial pass.  The (N, K) score matrix never
+// reaches device memory: bow_assign writes each row's word index and min +
+// |d|^2; bow_quantize_hist adds each valid row's weight to its own image's
+// histogram row with atomicAdd (sums of {0, 1} weights are exact in any
+// order).
 //
 // linear_score replaces src/repro/kernels/bow.py `_score_kernel` (via
 // `linear_score`).  Bound on an H100: latency; (B, K) x (C, K)^T is ~1.3
@@ -41,103 +53,194 @@
 
 namespace {
 
-// Loads the block's descriptors (rows row0 .. row0 + n_valid - 1 of a
-// row-major (rows, D) matrix; bn slots, zero past n_valid) into shared
-// memory and finds each one's nearest word: the minimum over k of
-// s = -2 d.c_k + |c_k|^2, ties to the lowest k.  Every thread of the block
-// must call it; on return, every lane of descriptor slot `i` holds the
-// slot's minimum and word.  Returns the slot's descriptor row in shared
-// memory.
-__device__ const float* nearest_words(const float* __restrict__ descs,
-                                      const float* __restrict__ cents, size_t row0,
-                                      int n_valid, int D, int K, int bn, int tk, int i, int lane,
-                                      int lanes, float& best, int& best_k) {
-  extern __shared__ float sm[];
-  const int ds = D + 1;  // padded row: a warp's lanes read distinct banks
-  float* d_s = sm;                // bn x ds descriptors
-  float* c_s = d_s + bn * ds;     // tk x ds codebook tile
-  float* c2_s = c_s + tk * ds;    // tk |c|^2, +inf past K
+// kernels/bow.py SEARCH_ROWS, SEARCH_WORDS, SEARCH_CHUNK, SEARCH_THREADS
+constexpr int kTileN = 64;    // rows a block searches
+constexpr int kTileK = 64;    // words a tile of the codebook holds
+constexpr int kChunk = 32;    // values of q staged at a time
+constexpr int kLd = kTileN + 4;  // q-major row stride: 16-byte aligned
+constexpr int kThreads = 256;   // 16 x 16 threads of 4 x 4 outputs
+constexpr int kMicro = 4;
 
-  for (int e = threadIdx.x; e < bn * D; e += blockDim.x) {
-    const int r = e / D, q = e - r * D;
-    d_s[r * ds + q] = r < n_valid ? descs[(row0 + r) * D + q] : 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stage values q0 .. q0 + kChunk - 1 of `n` rows of a row-major (., D)
+// matrix starting at row `r0` into dst[q][r] (q-major, stride kLd), one
+// 4-byte cp.async a value: thread t copies value q = t % kChunk of rows t /
+// kChunk + i * (kThreads / kChunk), so a warp reads runs of kChunk
+// consecutive values.  Rows past `n` and values past D are zero (they are
+// never read as real data: a row past n is not stored, a word past K scores
+// +inf, and q past D is not summed).
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, size_t r0, int n,
+                                      int D, int q0) {
+  constexpr int kRowsPass = kThreads / kChunk;
+  const int q = threadIdx.x % kChunk, rb = threadIdx.x / kChunk;
+  const bool in_q = q0 + q < D;
+  const float* s = src + (r0 + rb) * size_t(D) + q0 + q;
+#pragma unroll
+  for (int i = 0; i < kTileN / kRowsPass; ++i) {
+    const int r = rb + i * kRowsPass;
+    float* d = dst + q * kLd + r;
+    if (r < n && in_q)
+      cp_async4(d, s + size_t(i) * kRowsPass * D);
+    else
+      *d = 0.0f;
   }
+}
 
-  best = CUDART_INF_F;
-  best_k = 0;
-  for (int k0 = 0; k0 < K; k0 += tk) {
-    __syncthreads();  // the previous tile is consumed (and d_s is loaded)
-    for (int e = threadIdx.x; e < tk * D; e += blockDim.x) {
-      const int r = e / D, q = e - r * D, k = k0 + r;
-      c_s[r * ds + q] = k < K ? cents[size_t(k) * D + q] : 0.f;
+// The nearest word of each of the block's rows (row0 .. row0 + n - 1 of a
+// row-major (rows, D) matrix): the minimum over k of s = -2 d.c_k +
+// |c_k|^2, ties to the lowest k.  Every thread of the block calls it; on
+// return the thread with tx == 0 of each ty holds, for rows 4 ty + i, the
+// minimum best[i] and its word best_k[i]; with `dd`, d2_s[r] holds |d_r|^2.
+__device__ void nearest_words(const float* __restrict__ descs, const float* __restrict__ cents,
+                              size_t row0, int n, int D, int K, bool dd,
+                              float (&best)[kMicro], int (&best_k)[kMicro], float*& d2_out) {
+  extern __shared__ __align__(16) float sm[];
+  float* ds = sm;                               // [2][kChunk][kLd] rows
+  float* cs = ds + 2 * kChunk * kLd;            // [2][kChunk][kLd] words
+  float* c2_s = cs + 2 * kChunk * kLd;          // [kTileK] |c|^2 of the tile's words
+  float* d2_s = c2_s + kTileK;                  // [kTileN] |d|^2 of the rows
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n_chunks = (D + kChunk - 1) / kChunk, n_tiles = (K + kTileK - 1) / kTileK;
+  const int total = n_chunks * n_tiles;
+
+  float acc[kMicro][kMicro];
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) {
+    best[i] = CUDART_INF_F;
+    best_k[i] = 0;
+#pragma unroll
+    for (int j = 0; j < kMicro; ++j) acc[i][j] = -0.0f;
+  }
+  float c2 = -0.0f, d2 = -0.0f;  // thread tid < 64: word tid; 64 <= tid < 128: row tid - 64
+
+  stage(ds, descs, row0, n, D, 0);
+  stage(cs, cents, 0, K, D, 0);
+  cp_async_commit();
+  int ch = 0, k0 = 0;
+  for (int it = 0; it < total; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < total) {  // the next chunk flies while this one computes
+      const int nch = ch + 1 == n_chunks ? 0 : ch + 1, nk0 = ch + 1 == n_chunks ? k0 + kTileK : k0;
+      stage(ds + (buf ^ 1) * kChunk * kLd, descs, row0, n, D, nch * kChunk);
+      stage(cs + (buf ^ 1) * kChunk * kLd, cents, nk0, K - nk0, D, nch * kChunk);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
-    for (int r = threadIdx.x; r < tk; r += blockDim.x) {
-      const float* c = c_s + r * ds;
-      float a = __fmul_rn(c[0], c[0]);
-      for (int q = 1; q < D; ++q) a = __fadd_rn(a, __fmul_rn(c[q], c[q]));
-      c2_s[r] = k0 + r < K ? a : CUDART_INF_F;
+    const float* dq = ds + buf * kChunk * kLd;
+    const float* cq = cs + buf * kChunk * kLd;
+    const int nq = min(kChunk, D - ch * kChunk);
+#pragma unroll 4
+    for (int q = 0; q < nq; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(dq + q * kLd + kMicro * ty);
+      const float4 b = *reinterpret_cast<const float4*>(cq + q * kLd + kMicro * tx);
+      const float av[kMicro] = {a.x, a.y, a.z, a.w}, bv[kMicro] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < kMicro; ++i)
+#pragma unroll
+        for (int j = 0; j < kMicro; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(av[i], bv[j]));
+      if (tid < kTileK) {
+        const float c = cq[q * kLd + tid];
+        c2 = __fadd_rn(c2, __fmul_rn(c, c));
+      } else if (dd && k0 == 0 && tid < kTileK + kTileN) {
+        const float d = dq[q * kLd + tid - kTileK];
+        d2 = __fadd_rn(d2, __fmul_rn(d, d));
+      }
     }
-    __syncthreads();
-    const float* d = d_s + i * ds;
-    for (int r = lane; r < tk; r += lanes) {
-      const float* c = c_s + r * ds;
-      float acc = __fmul_rn(d[0], c[0]);
-      for (int q = 1; q < D; ++q) acc = __fadd_rn(acc, __fmul_rn(d[q], c[q]));
-      const float s = __fadd_rn(__fmul_rn(-2.f, acc), c2_s[r]);
-      if (s < best) {  // strict: ascending k keeps the lowest index on ties
-        best = s;
-        best_k = k0 + r;
+    if (ch + 1 == n_chunks) {  // the tile's sums are whole: score its words
+      if (tid < kTileK) c2_s[tid] = k0 + tid < K ? c2 : CUDART_INF_F;
+      if (dd && k0 == 0 && tid >= kTileK && tid < kTileK + kTileN) d2_s[tid - kTileK] = d2;
+      c2 = -0.0f;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) {
+        const float cj = c2_s[kMicro * tx + j];
+#pragma unroll
+        for (int i = 0; i < kMicro; ++i) {
+          const float s = __fadd_rn(__fmul_rn(-2.f, acc[i][j]), cj);
+          if (s < best[i]) {  // strict: ascending k keeps the lowest word on ties
+            best[i] = s;
+            best_k[i] = k0 + kMicro * tx + j;
+          }
+          acc[i][j] = -0.0f;
+        }
+      }
+      ch = 0;
+      k0 += kTileK;
+    } else {
+      ++ch;
+    }
+    __syncthreads();  // this chunk is consumed before its buffer is staged again
+  }
+  // merge the 16 threads of each row group (lanes of one half-warp)
+#pragma unroll
+  for (int i = 0; i < kMicro; ++i) {
+    for (int off = 8; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int ok = __shfl_xor_sync(0xffffffffu, best_k[i], off);
+      if (ov < best[i] || (ov == best[i] && ok < best_k[i])) {
+        best[i] = ov;
+        best_k[i] = ok;
       }
     }
   }
-  // merge the descriptor's lanes (consecutive threads of one warp)
-  for (int off = lanes / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-    const int ok = __shfl_xor_sync(0xffffffffu, best_k, off);
-    if (ov < best || (ov == best && ok < best_k)) {
-      best = ov;
-      best_k = ok;
+  d2_out = d2_s;
+}
+
+// A request's 8,192 rows are 128 blocks, under one an SM: no register cap
+// (a 64-register one spills).
+__global__ void __launch_bounds__(kThreads, 2)
+    quantize_hist_kernel(const float* __restrict__ descs, const float* __restrict__ valids,
+                         const float* __restrict__ cents, float* __restrict__ hist, int rows,
+                         int N, int D, int K) {
+  const size_t row0 = size_t(blockIdx.x) * kTileN;
+  float best[kMicro], *d2_s;
+  int best_k[kMicro];
+  nearest_words(descs, cents, row0, min(kTileN, int(rows - row0)), D, K, false, best, best_k,
+                d2_s);
+  if (threadIdx.x % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+      const size_t r = row0 + kMicro * (threadIdx.x / 16) + i;
+      if (r < size_t(rows)) {
+        const float wv = valids[r];
+        if (wv != 0.f) atomicAdd(hist + (r / N) * K + best_k[i], wv);
+      }
     }
   }
-  return d_s + i * ds;
 }
 
-__global__ void quantize_hist_kernel(const float* __restrict__ descs,
-                                     const float* __restrict__ valids,
-                                     const float* __restrict__ cents, float* __restrict__ hist,
-                                     int N, int D, int K, int bn, int tk, int n_blocks) {
-  const int b = blockIdx.x / n_blocks;
-  const int n0 = (blockIdx.x - b * n_blocks) * bn;
-  const int lanes = blockDim.x / bn;
-  const int i = threadIdx.x / lanes, lane = threadIdx.x - i * lanes;
-  float best;
-  int best_k;
-  nearest_words(descs, cents, size_t(b) * N + n0, N - n0, D, K, bn, tk, i, lane, lanes, best,
-                best_k);
-  const int n = n0 + i;
-  if (lane == 0 && n < N) {
-    const float wv = valids[size_t(b) * N + n];
-    if (wv != 0.f) atomicAdd(hist + size_t(b) * K + best_k, wv);
-  }
-}
-
-__global__ void bow_assign_kernel(const float* __restrict__ descs,
-                                  const float* __restrict__ cents, int* __restrict__ idx,
-                                  float* __restrict__ d2, int N, int D, int K, int bn, int tk) {
-  const int n0 = blockIdx.x * bn;
-  const int lanes = blockDim.x / bn;
-  const int i = threadIdx.x / lanes, lane = threadIdx.x - i * lanes;
-  float best;
-  int best_k;
-  const float* d = nearest_words(descs, cents, size_t(n0), N - n0, D, K, bn, tk, i, lane, lanes,
-                                 best, best_k);
-  const int n = n0 + i;
-  if (lane == 0 && n < N) {
-    float dd = __fmul_rn(d[0], d[0]);
-    for (int q = 1; q < D; ++q) dd = __fadd_rn(dd, __fmul_rn(d[q], d[q]));
-    idx[n] = best_k;
-    d2[n] = __fadd_rn(best, dd);
+// Four blocks an SM (64 registers a thread): the 500 blocks of a training
+// assignment (32,000 rows) run in one wave on 132 SMs.
+__global__ void __launch_bounds__(kThreads, 4)
+    bow_assign_kernel(const float* __restrict__ descs, const float* __restrict__ cents,
+                      int* __restrict__ idx, float* __restrict__ d2, int N, int D, int K) {
+  const size_t row0 = size_t(blockIdx.x) * kTileN;
+  float best[kMicro], *d2_s;
+  int best_k[kMicro];
+  nearest_words(descs, cents, row0, min(kTileN, int(N - row0)), D, K, true, best, best_k, d2_s);
+  if (threadIdx.x % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < kMicro; ++i) {
+      const int r = kMicro * (threadIdx.x / 16) + i;
+      if (row0 + r < size_t(N)) {
+        idx[row0 + r] = best_k[i];
+        d2[row0 + r] = __fadd_rn(best[i], d2_s[r]);
+      }
+    }
   }
 }
 
@@ -218,40 +321,34 @@ __global__ void linear_score_kernel(const float* __restrict__ h, const float* __
 
 }  // namespace
 
-static size_t nearest_words_smem(int D, int bn, int tk) {
-  return (size_t(bn + tk) * (D + 1) + tk) * sizeof(float);
+// The search's shared memory: two chunks of rows and of words, the tile's
+// |c|^2 and the rows' |d|^2.
+extern "C" int nearest_words_smem_bytes() {
+  return int((4 * kChunk * kLd + kTileK + kTileN) * sizeof(float));
 }
 
-// hist (B, K) must be zeroed by the caller.  Returns cudaGetLastError().
+// hist (B, K) must be zeroed by the caller; the B*N rows are searched as
+// one flattened matrix.  Returns cudaGetLastError().
 extern "C" int quantize_hist_launch(const float* descs, const float* valids, const float* cents,
-                                    float* hist, int B, int N, int D, int K, int bn, int tk,
-                                    int threads, void* stream) {
-  const int n_blocks = (N + bn - 1) / bn;
-  const long long blocks = (long long)B * n_blocks;
+                                    float* hist, int B, int N, int D, int K, void* stream) {
+  const long long rows = (long long)B * N;
+  const long long blocks = (rows + kTileN - 1) / kTileN;
   if (blocks == 0 || K == 0) return 0;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  const size_t smem = nearest_words_smem(D, bn, tk);
-  cudaError_t err = cudaFuncSetAttribute(
-      quantize_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  quantize_hist_kernel<<<unsigned(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      descs, valids, cents, hist, N, D, K, bn, tk, n_blocks);
+  if (blocks > 0x7fffffffLL || rows > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  quantize_hist_kernel<<<unsigned(blocks), kThreads, nearest_words_smem_bytes(),
+                         static_cast<cudaStream_t>(stream)>>>(descs, valids, cents, hist,
+                                                              int(rows), N, D, K);
   return int(cudaGetLastError());
 }
 
 // idx (N,) i32 and d2 (N,) f32 are written for every row.  Returns
 // cudaGetLastError().
 extern "C" int bow_assign_launch(const float* descs, const float* cents, int* idx, float* d2,
-                                 int N, int D, int K, int bn, int tk, int threads, void* stream) {
-  const long long blocks = (N + (long long)bn - 1) / bn;
+                                 int N, int D, int K, void* stream) {
+  const long long blocks = (N + (long long)kTileN - 1) / kTileN;
   if (blocks == 0 || K == 0) return 0;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  const size_t smem = nearest_words_smem(D, bn, tk);
-  cudaError_t err = cudaFuncSetAttribute(
-      bow_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  bow_assign_kernel<<<unsigned(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      descs, cents, idx, d2, N, D, K, bn, tk);
+  bow_assign_kernel<<<unsigned(blocks), kThreads, nearest_words_smem_bytes(),
+                      static_cast<cudaStream_t>(stream)>>>(descs, cents, idx, d2, N, D, K);
   return int(cudaGetLastError());
 }
 

@@ -46,9 +46,11 @@ enum Op : int {
   kPyrUp = 15,     // 2x upsample: the even / odd phases per axis, rows then columns
 };
 
-constexpr int kMaxBands = 16;
-constexpr int kMaxMaps = 4;
-constexpr int kMaxLevels = 8;
+// sizes of the per-launch tables below (kernels/stencil/exec_window.py
+// MAX_BANDS, MAX_MAPS, MAX_LEVELS): 1,792 bytes of kernel parameters
+constexpr int kMaxBands = 64;
+constexpr int kMaxMaps = 16;
+constexpr int kMaxLevels = 16;
 
 // The output bands of a launch, the remap stages' map planes and the
 // chain's levels, passed to the kernel by value: band b is an (n, h[b],

@@ -58,9 +58,15 @@
 //    values at a time, or straight to the band from registers (a final band
 //    with lead 0), 4 bytes or 16 bytes a store where aligned.
 //  * The other stage bodies (gathers, pyrUp, pyrDown, resize2, Sobel, the
-//    pair reduction, grad, other kernel sizes) run the generic path: a 2-D
-//    thread layout over the step's rows and columns, with ring slots found
-//    from the step's oldest held row instead of a modulo.
+//    pair reduction, grad, other kernel sizes, even taps) run the generic
+//    path: a 2-D thread layout over the step's rows and columns, with ring
+//    slots found from the step's oldest held row instead of a modulo, and
+//    the taps' extents read at run time (an even k reads rows o - k/2 ..
+//    o - k/2 + k - 1, within the rings' k/2 halo).
+//  * The program (steps, streams, column pads, weights) is copied into the
+//    front of the block's dynamic shared memory at the size the chain uses,
+//    followed by each ring's offset and row stride; there is no fixed table,
+//    and no static shared memory.
 //  * A band held in a ring is stored after every step, 16 bytes a copy
 //    where the ring row and the band row align.
 //
@@ -106,9 +112,6 @@ namespace {
 
 using namespace stencil;
 
-constexpr int kMaxSteps = 32;
-constexpr int kMaxStreams = kMaxSteps + 1;
-constexpr int kMaxWeights = 512;
 constexpr int kMaxThreads = 256;  // kernels/stencil/exec_streaming.py STREAM_THREADS
 constexpr int kAlign = 16;        // ring rows and ring starts, in bytes
 constexpr int kStripRows = 8;     // most rows of a register strip
@@ -141,15 +144,22 @@ struct Stream {
   int u8;     // 1: a u8 ring, else f32
 };
 
-struct StreamProgram {
+// The program, as exec_streaming.py `StreamProgram.packed` lays it out: a
+// header, one StreamStep per stage application, one Stream per stream, each
+// level's column pad (ints), then the weights (floats).  Each block copies
+// it into the front of its dynamic shared memory at the size the chain
+// uses, followed by each ring's first byte and row stride.
+struct Header {
   int n_steps, n_streams, n_levels, rows, prime;
   int rd0;  // the last step that reads stream 0 (n_steps: the stores read it)
-  int pad[2];
-  StreamStep steps[kMaxSteps];
-  Stream streams[kMaxStreams];
-  int col_pads[kMaxLevels];
-  float weights[kMaxWeights];
+  int n_weights, pad;
 };
+
+// Bytes of the table and the ring offsets before the rings (exec_streaming.py
+// `StreamProgram.table_smem`), 16-byte aligned.
+__host__ __device__ __forceinline__ int table_smem(int prog_ints, int n_streams) {
+  return ((prog_ints + 2 * n_streams + 1) * 4 + kAlign - 1) / kAlign * kAlign;
+}
 
 __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __device__ __forceinline__ int mod(int i, int d) {
@@ -529,27 +539,27 @@ __device__ __forceinline__ void store_row(T* g, const T* s, int n) {
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-    stencil_stream_kernel(const T* __restrict__ in, const Bands bd,
-                          const StreamProgram* __restrict__ prog, int n, int h, int w,
-                          int tile_w, int tiles_x, int n_seg, int seg_rows, int ahead) {
-  __shared__ StreamProgram sp;
-  __shared__ int ring_at[kMaxStreams + 1];  // each ring's first byte; then the scratch
-  __shared__ int ring_ld[kMaxStreams];      // each ring's row stride in bytes
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  {
-    const int* from = reinterpret_cast<const int*>(prog);
-    int* to = reinterpret_cast<int*>(&sp);
-    for (int e = threadIdx.x; e < int(sizeof(StreamProgram) / sizeof(int)); e += blockDim.x)
-      to[e] = from[e];
-  }
+    stencil_stream_kernel(const T* __restrict__ in, const Bands bd, const int* __restrict__ prog,
+                          int prog_ints, int n, int h, int w, int tile_w, int tiles_x, int n_seg,
+                          int seg_rows, int ahead) {
+  extern __shared__ __align__(16) unsigned char smem_all[];
+  int* table = reinterpret_cast<int*>(smem_all);
+  for (int e = threadIdx.x; e < prog_ints; e += blockDim.x) table[e] = prog[e];
   __syncthreads();
+  const Header sp = *reinterpret_cast<const Header*>(table);
+  const StreamStep* steps = reinterpret_cast<const StreamStep*>(table + 8);
+  const Stream* streams = reinterpret_cast<const Stream*>(table + 8 + 20 * sp.n_steps);
+  const int* col_pads = table + 8 + 20 * sp.n_steps + 6 * sp.n_streams;
+  const float* weights = reinterpret_cast<const float*>(col_pads + sp.n_levels);
+  int* ring_at = table + prog_ints;           // each ring's first byte; then the scratch
+  int* ring_ld = ring_at + sp.n_streams + 1;  // each ring's row stride in bytes
+  unsigned char* smem = smem_all + table_smem(prog_ints, sp.n_streams);
   if (threadIdx.x == 0) {
     int at = kAlign;  // slack before the first ring
     for (int s = 0; s < sp.n_streams; ++s) {
-      const Stream& st = sp.streams[s];
+      const Stream& st = streams[s];
       const int l = st.level;
-      const int width = bd.tw[l] + 2 * sp.col_pads[l];
+      const int width = bd.tw[l] + 2 * col_pads[l];
       ring_ld[s] = (width * (st.u8 ? 1 : 4) + kAlign - 1) / kAlign * kAlign + kAlign;
       ring_at[s] = at;
       at += (st.depth + (s == 0 && ahead ? st.mult : 0)) * ring_ld[s];
@@ -565,7 +575,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   const int tile = rem / n_seg;
   const int seg = rem - tile * n_seg;
   // the last level's frame: stores and direct stores
-  const int pwT = sp.col_pads[last], tileT = bd.tw[last];
+  const int pwT = col_pads[last], tileT = bd.tw[last];
   const int tx0 = tile * tileT;                 // image column of the tile at the last level
   const int oxT = tx0 - pwT;                    // ... of its frame's column 0
   const int tw = min(tileT, bd.lw[last] - tx0);  // columns of this tile inside the band
@@ -576,11 +586,11 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   float* scratch = reinterpret_cast<float*>(smem + ring_at[sp.n_streams]);
   const int n_last = ceil_div(y1 - y0, m);
 
-  auto width = [&](int l) { return bd.tw[l] + 2 * sp.col_pads[l]; };
-  auto origin = [&](int l) { return tile * bd.tw[l] - sp.col_pads[l]; };
+  auto width = [&](int l) { return bd.tw[l] + 2 * col_pads[l]; };
+  auto origin = [&](int l) { return tile * bd.tw[l] - col_pads[l]; };
   // stream s's ring at step i
   auto ring = [&](int s, int i) {
-    const Stream& st = sp.streams[s];
+    const Stream& st = streams[s];
     const int depth = st.depth + (s == 0 && ahead ? st.mult : 0);
     const int newest = (step0 + i + 1) * st.mult + st.lead - 1;
     const int base = newest - depth + 1;
@@ -596,12 +606,12 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   // stream 0: the plane's columns the frame holds, and its rows of a step
   const int W0 = width(0), ox0 = origin(0);
   const int ja = min(W0, max(0, -ox0)), jb = max(ja, min(W0, w - ox0));
-  const int D0 = sp.streams[0].depth + (ahead ? sp.streams[0].mult : 0);
+  const int D0 = streams[0].depth + (ahead ? streams[0].mult : 0);
   T* const r0p = reinterpret_cast<T*>(smem + ring_at[0]);
   const int ld0 = ring_ld[0] / int(sizeof(T));
   auto issue = [&](int i) {
     int lo, hi;
-    new_rows(sp.streams[0].mult, sp.streams[0].lead, i, lo, hi);
+    new_rows(streams[0].mult, streams[0].lead, i, lo, hi);
     for (int r = lo; r < hi; ++r) {
       const T* g = src_plane + size_t(min(max(r, 0), h - 1)) * w + ox0;
       load_row(r0p + mod(r, D0) * ld0, g, ja, jb);
@@ -609,7 +619,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   };
   auto edges = [&](int i) {  // the columns past the image's edges, from the edge column
     int lo, hi;
-    new_rows(sp.streams[0].mult, sp.streams[0].lead, i, lo, hi);
+    new_rows(streams[0].mult, streams[0].lead, i, lo, hi);
     const int nl = ja, nrt = W0 - jb;
     for2d(max(0, hi - lo), 0, nl + nrt, [&](int a, int t) {
       T* row = r0p + mod(lo + a, D0) * ld0;
@@ -628,16 +638,16 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     if (ahead && i + 1 < n_last) issue(i + 1);
 
     for (int si = 0; si < sp.n_steps; ++si) {
-      const StreamStep s = sp.steps[si];
+      const StreamStep s = steps[si];
       // the destination stream's new rows [lo, hi) at this step, at its level
       int lo, hi;
       new_rows(s.mult, s.lead, i, lo, hi);
       if (lo < hi) {
         const RawRing sr = ring(s.src, i);
         const RawRing dr = s.dst < 0 ? RawRing{nullptr, 1, 0, 0, 0, 0} : ring(s.dst, i);
-        const int pw = sp.col_pads[s.lo];
+        const int pw = col_pads[s.lo];
         const int c0 = pw - s.cw, c1 = pw + bd.tw[s.lo] + s.cw;  // output columns
-        const float* wts = sp.weights + s.wx;
+        const float* wts = weights + s.wx;
         bool done = false;
         if (s.strip) {
           Strip a;
@@ -652,7 +662,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
             a.out = static_cast<unsigned char*>(bd.out[s.store]) + at * (a.out_u8 ? 1 : 4);
           }
           a.kx = wts;
-          a.ky = sp.weights + s.wy;
+          a.ky = weights + s.wy;
           a.lo = lo, a.hi = hi, a.c0 = c0, a.c1 = c1, a.pk = s.pk;
           a.y0 = y0, a.y1 = y1, a.pwT = pwT, a.tw = tw;
           done = sr.u8 ? run_strip<uint8_t>(s.op, s.kh, a) : run_strip<float>(s.op, s.kh, a);
@@ -708,7 +718,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
               __syncthreads();
               for2d(nr, c0, c1, [&](int a, int j) {
                 const float v = col_pass(s.op, scratch + 2 * a * WWd + j, WWd,
-                                         sp.weights + s.wy, s.kh, wts[0]);
+                                         weights + s.wy, s.kh, wts[0]);
                 put(dr, s.store, lo + a, j, pack(v, s.pk));
               });
             } else if (s.op == kResize2 && s.down == 1) {
@@ -733,7 +743,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
                 if (r >= y0 && r < y1 && x >= tx0 && x < tx0 + tw && r / 2 < bd.h[s.store] &&
                     x / 2 < bd.w[s.store]) {
                   const float v = col_pass(s.op, scratch + (r - lo) * WWs + j, WWs,
-                                           sp.weights + s.wy, s.kh, wts[0]);
+                                           weights + s.wy, s.kh, wts[0]);
                   store_band(bd, s.store, plane, r / 2, x / 2, pack(v, s.pk));
                 }
               });
@@ -756,7 +766,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
               });
               __syncthreads();
               for2d(nr, c0, c1, [&](int a, int j) {
-                const float v = col_pass(s.op, scratch + a * WWs + j, WWs, sp.weights + s.wy,
+                const float v = col_pass(s.op, scratch + a * WWs + j, WWs, weights + s.wy,
                                          s.kh, wts[0]);
                 put(dr, s.store, lo + a, j, pack(v, s.pk));
               });
@@ -821,7 +831,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       const int lo = y0 + i * m, hi = min(lo + m, y1);
       bool any = false;
       for (int k = 0; k < sp.n_streams; ++k) {
-        const Stream& st = sp.streams[k];
+        const Stream& st = streams[k];
         if (st.store < 0 || st.depth == 0) continue;
         any = true;
         const RawRing rr = ring(k, i);
@@ -842,8 +852,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 }
 
 template <typename T>
-int launch(const void* in, const Bands& bd, const void* prog, int n, int h, int w, int tile_w,
-           int n_seg, int seg_rows, int smem_bytes, int threads, int ahead, cudaStream_t stream) {
+int launch(const void* in, const Bands& bd, const void* prog, int prog_bytes, int n, int h, int w,
+           int tile_w, int n_seg, int seg_rows, int smem_bytes, int threads, int ahead,
+           cudaStream_t stream) {
   const int tiles_x = (w + tile_w - 1) / tile_w;
   // the kernel's attributes on this device, set when a launch needs more
   // shared memory than any before it there (setting them costs the host
@@ -869,19 +880,25 @@ int launch(const void* in, const Bands& bd, const void* prog, int n, int h, int 
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
   if (threads > kMaxThreads) return int(cudaErrorInvalidConfiguration);
   stencil_stream_kernel<T><<<unsigned(blocks), threads, smem_bytes, stream>>>(
-      static_cast<const T*>(in), bd, static_cast<const StreamProgram*>(prog), n, h, w, tile_w,
-      tiles_x, n_seg, seg_rows, ahead);
+      static_cast<const T*>(in), bd, static_cast<const int*>(prog), prog_bytes / 4, n, h, w,
+      tile_w, tiles_x, n_seg, seg_rows, ahead);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int stencil_stream_program_bytes() { return int(sizeof(StreamProgram)); }
+// The byte sizes of the program's header, step and stream records
+// (exec_streaming.py checks them against its own).
+extern "C" void stencil_stream_layout(int* out) {
+  out[0] = int(sizeof(Header));
+  out[1] = int(sizeof(StreamStep));
+  out[2] = int(sizeof(Stream));
+}
 
 extern "C" int stencil_bands_bytes() { return int(sizeof(Bands)); }
 
-// The kernel's static shared memory (the step table and the ring offsets),
-// which the planner adds to the rings' bytes; -1 on an error.
+// The kernel's static shared memory (none: the table and the ring offsets
+// are dynamic, sized per chain); -1 on an error.
 extern "C" int stencil_stream_static_bytes(int u8) {
   cudaFuncAttributes a;
   const cudaError_t err = u8 ? cudaFuncGetAttributes(&a, stencil_stream_kernel<uint8_t>)
@@ -889,20 +906,22 @@ extern "C" int stencil_stream_static_bytes(int u8) {
   return err == cudaSuccess ? int(a.sharedSizeBytes) : -1;
 }
 
-// Launch on `stream` for u8 (u8 != 0) or f32 planes, column tiles of tile_w
-// input columns, n_seg segments of seg_rows rows (at the chain's last level)
-// a plane, smem_bytes of rings and scratch a block, stream 0's rows loaded a
-// step ahead when `ahead`; `bands` (host memory) names every output band's
+// Launch on `stream` for u8 (u8 != 0) or f32 planes, the program of
+// prog_bytes at `prog` (device memory), column tiles of tile_w input
+// columns, n_seg segments of seg_rows rows (at the chain's last level) a
+// plane, smem_bytes of table, rings and scratch a block, stream 0's rows
+// loaded a step ahead when `ahead`; `bands` (host memory) names every output band's
 // buffer, the remap stages' map planes and the levels' sizes.  Returns
 // cudaGetLastError() after the launch (0 = ok).
-extern "C" int stencil_stream_launch(const void* in, const void* bands, const void* prog, int n,
-                                     int h, int w, int tile_w, int n_seg, int seg_rows,
-                                     int smem_bytes, int threads, int u8, int ahead, void* stream) {
+extern "C" int stencil_stream_launch(const void* in, const void* bands, const void* prog,
+                                     int prog_bytes, int n, int h, int w, int tile_w, int n_seg,
+                                     int seg_rows, int smem_bytes, int threads, int u8, int ahead,
+                                     void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const Bands& bd = *static_cast<const Bands*>(bands);
   if (u8)
-    return launch<uint8_t>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_bytes, threads,
-                           ahead, st);
-  return launch<float>(in, bd, prog, n, h, w, tile_w, n_seg, seg_rows, smem_bytes, threads, ahead,
-                       st);
+    return launch<uint8_t>(in, bd, prog, prog_bytes, n, h, w, tile_w, n_seg, seg_rows, smem_bytes,
+                           threads, ahead, st);
+  return launch<float>(in, bd, prog, prog_bytes, n, h, w, tile_w, n_seg, seg_rows, smem_bytes,
+                       threads, ahead, st);
 }

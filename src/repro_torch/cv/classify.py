@@ -70,9 +70,7 @@ class ClassifyPlan:
         """descs (B, N, D) + valids (B, N) -> word histograms (B, K)."""
         descs = descs.to(torch.float32).contiguous()
         if self.resolve_mode(mode) == "fused":
-            return kbow.bow_quantize_hist(
-                descs, valids, self.centroids, normalize=self.normalize, lc=self.lc
-            )
+            return kbow.bow_quantize_hist(descs, valids, self.centroids, normalize=self.normalize)
         h = kbow.quantize_hist_plain(descs, valids, self.centroids)
         return kbow.normalize_hist(h) if self.normalize else h
 

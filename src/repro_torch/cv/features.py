@@ -14,6 +14,7 @@ pixel order (as XLA's scatter does), so two runs give identical bits.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -44,12 +45,14 @@ def ladder_taps(n_scales: int, sigma0: float, max_ksize: int | None = None) -> l
     return taps
 
 
+@functools.lru_cache(maxsize=64)
 def octave_chain(
     n_scales: int = 4, sigma0: float = 1.6, max_ksize: int = 15, with_next_base: bool = True
 ) -> tuple:
     """The stage chain of one octave: base blur -> incremental tap ladder ->
     optional terminal pyrDown tap of scale `n_scales` (the 2x-sigma image),
-    emitting the next octave's base."""
+    emitting the next octave's base.  Built once per setting (the kernels'
+    planners find a chain they saw by its stage objects)."""
     taps = ladder_taps(n_scales, sigma0, max_ksize)
     stages = [stencil.gaussian_stage(*taps[0])]
     stages += [stencil.gaussian_stage(k, s, tap=-1) for k, s in taps[1:]]

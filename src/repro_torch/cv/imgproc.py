@@ -4,6 +4,8 @@ remap, the 2x2-mean resize, Sobel), and the BoW preprocess chain."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core.device import DEFAULT, LaunchConfig
@@ -39,12 +41,19 @@ def preprocess_bow(
 ) -> torch.Tensor:
     """BoW preprocessing (blur -> erode -> gradient magnitude) as one fused
     launch over the whole (B, H, W, C) f32 batch."""
-    chain = (
+    return stencil.fused_chain(imgs, preprocess_chain(blur_ksize, sigma, erode_r), mode=mode,
+                               lc=lc)
+
+
+@functools.lru_cache(maxsize=32)
+def preprocess_chain(blur_ksize: int = 5, sigma: float | None = None, erode_r: int = 1) -> tuple:
+    """The preprocess chain's stages, built once per setting (the kernels'
+    planners find a chain they saw by its stage objects)."""
+    return (
         stencil.gaussian_stage(blur_ksize, sigma),
         stencil.erode_stage(erode_r),
         stencil.grad_stage(),
     )
-    return stencil.fused_chain(imgs, chain, mode=mode, lc=lc)
 
 
 def _hw(img: torch.Tensor) -> tuple[int, int]:

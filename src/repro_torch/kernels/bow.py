@@ -4,18 +4,25 @@ counterpart of `repro.kernels.bow`).
 
 `bow_assign` replaces `repro.kernels.bow._bow_kernel` (TPU, Pallas).  Bound
 on an H100: operations, 2*N*K*D fp32 dot-product FLOP on CUDA cores (2.05
-GFLOP at the training shape, N = 32000), against ~16.8 MB moved.  Design:
-the nearest-word search of `bow_quantize_hist` over the flattened
-descriptor rows, writing each row's word index and min + |d|^2.
+GFLOP at the training shape, N = 32000), against ~16.8 MB moved; the
+products and sums may not be contracted, so the attainable floor is about
+twice the 67 TFLOP/s bound.  It writes each row's word index and min +
+|d|^2.
 
 `bow_quantize_hist` replaces `repro.kernels.bow._hist_kernel` (TPU,
 Pallas).  Bound on an H100: operations, 2*B*N*K*D fp32 dot-product FLOP on
-CUDA cores (2.1 GFLOP at the predict batch), against ~17 MB moved.  Design:
-one block per (image, descriptor block); the codebook streams through
-shared memory in tiles, a running argmin per descriptor (ties to the lowest
-word) never leaves the block, and each valid weight is `atomicAdd`ed into
-its image's histogram row.  Normalisation happens outside the kernel, as in
-JAX.
+CUDA cores (2.1 GFLOP at the predict batch), against ~17 MB moved.  It
+flattens the (B, N) rows as `bow_assign` does and `atomicAdd`s each valid
+row's weight into its own image's histogram row.  Normalisation happens
+outside the kernel, as in JAX.
+
+Both run one nearest-word search (``csrc/bow.cu`` `nearest_words`): a block
+of `SEARCH_THREADS` takes `SEARCH_ROWS` rows against codebook tiles of
+`SEARCH_WORDS` words, each thread a 4 x 4 register micro-tile, the operands
+staged q-major through shared memory `SEARCH_CHUNK` values of q at a time
+with cp.async double-buffering; a running argmin per (row, thread) over
+ascending words, merged across a row's threads with ties to the lower
+word; |c|^2 summed once per tile inside the same loop.
 
 `linear_score` replaces `repro.kernels.bow._score_kernel`.  Bound on an
 H100: latency (~1.3 MFLOP at the predict batch).  Design: one block per
@@ -39,8 +46,14 @@ import torch
 from ..core.device import DEFAULT, LaunchConfig
 from . import _build, counters
 
-DESC_BLOCK = 32  # descriptors per block of the nearest-word search (one per lane group)
-CODE_TILE = 32  # codebook rows staged through shared memory at a time
+# the nearest-word search's block (csrc/bow.cu kTileN, kTileK, kChunk,
+# kThreads): rows a block takes, words of a codebook tile, values of q staged
+# at a time, threads (16 x 16, each 4 rows x 4 words)
+SEARCH_ROWS = 64
+SEARCH_WORDS = 64
+SEARCH_CHUNK = 32
+SEARCH_THREADS = 256
+SEARCH_MICRO = 4
 # linear_score: images and classes a block scores (csrc/bow.cu kScoreRows,
 # kScoreClasses), and the shared memory a block stays within
 SCORE_ROWS = 16
@@ -134,10 +147,10 @@ def _score_chunk(K: int, C: int) -> tuple[int, int]:
 
 # C signatures in csrc/bow.cu: pointers and the stream as c_void_p, ints as c_int
 LAUNCH_ARGTYPES = {
-    # (descs, cents, idx, d2, N, D, K, bn, tk, threads, stream)
-    "bow_assign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    # (descs, valids, cents, hist, B, N, D, K, bn, tk, threads, stream)
-    "quantize_hist_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    # (descs, cents, idx, d2, N, D, K, stream)
+    "bow_assign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    # (descs, valids, cents, hist, B, N, D, K, stream)
+    "quantize_hist_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     # (h, w, bias, out, B, K, C, kc, threads, stream)
     "linear_score_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
@@ -155,7 +168,7 @@ def _launchers():
     return fns
 
 
-def bow_assign(desc: torch.Tensor, centroids: torch.Tensor, *, lc: LaunchConfig = DEFAULT):
+def bow_assign(desc: torch.Tensor, centroids: torch.Tensor):
     """Nearest word of every descriptor: desc (N, D) or (B, N, D), centroids
     (K, D) f32 -> (word index i32, min s + |d|^2 f32) with the input's
     leading shape, in one launch.  N = 0 returns empty tensors and launches
@@ -163,7 +176,7 @@ def bow_assign(desc: torch.Tensor, centroids: torch.Tensor, *, lc: LaunchConfig 
     the kernel or raises."""
     if desc.ndim == 3:  # flattened into one (B*N, D) launch, as JAX does
         B, N, D = desc.shape
-        idx, d2 = bow_assign(desc.reshape(B * N, D), centroids, lc=lc)
+        idx, d2 = bow_assign(desc.reshape(B * N, D), centroids)
         return idx.reshape(B, N), d2.reshape(B, N)
     if desc.ndim != 2 or centroids.ndim != 2 or desc.shape[1] != centroids.shape[1]:
         raise ValueError(f"bow_assign: shapes {tuple(desc.shape)} / {tuple(centroids.shape)}")
@@ -191,9 +204,6 @@ def bow_assign(desc: torch.Tensor, centroids: torch.Tensor, *, lc: LaunchConfig 
             N,
             D,
             K,
-            DESC_BLOCK,
-            CODE_TILE,
-            lc.threads,
             _build.cuda_stream(dev),
         )
     _build.check(err, "bow_assign")
@@ -207,7 +217,6 @@ def bow_quantize_hist(
     centroids: torch.Tensor,
     *,
     normalize: bool = True,
-    lc: LaunchConfig = DEFAULT,
 ) -> torch.Tensor:
     """Fused quantize -> histogram: descs (B, N, D), valids (B, N) -> word
     histograms (B, K) in one launch.  A CPU tensor runs the plain version;
@@ -237,9 +246,6 @@ def bow_quantize_hist(
             N,
             D,
             K,
-            DESC_BLOCK,
-            CODE_TILE,
-            lc.threads,
             _build.cuda_stream(dev),
         )
     _build.check(err, "bow_quantize_hist")

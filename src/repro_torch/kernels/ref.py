@@ -459,6 +459,8 @@ def from_planes(band: torch.Tensor, like_shape) -> torch.Tensor:
     if len(like_shape) == 3:
         return band.permute(1, 2, 0)
     B, C = like_shape[0], like_shape[-1]
+    if C == 1:  # one plane an image: the same values, one view
+        return band.unsqueeze(-1)
     return band.reshape(B, C, *band.shape[1:]).permute(0, 2, 3, 1)
 
 

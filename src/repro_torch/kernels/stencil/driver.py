@@ -40,11 +40,12 @@ MODES = ("window", "streaming", "tiled2d", "ref")
 def resolve_mode(stages, shape, dtype, lc: LaunchConfig = DEFAULT) -> str:
     """The mode `mode=None` takes for (N, H, W) planes of `dtype`."""
     _, H, W = shape
-    ph, pw = plan.chain_accumulated_halo(stages)
+    ph, pw = exec_window.by_stages(stages, ("halo",),
+                                   lambda: plan.chain_accumulated_halo(stages))
     if H <= ph or W <= pw or ph == 0:
         return "window"
     prog, _ = exec_streaming.program(stages, lc.stream_rows, dtype, torch.device("cpu"))
-    fits = prog.layout.smem_bytes(W) + exec_streaming.STATIC_SMEM <= lc.smem_budget
+    fits = prog.layout.smem_bytes(W) + prog.table_smem <= lc.smem_budget
     return "streaming" if fits else "tiled2d"
 
 

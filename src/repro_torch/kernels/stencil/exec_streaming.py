@@ -36,17 +36,16 @@ import ctypes
 import functools
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ...core.device import DEFAULT, LaunchConfig
 from .. import _build, counters, ref
 from . import plan
 from .exec_window import (
-    MAX_LEVELS,
-    MAX_STEPS,
-    MAX_WEIGHTS,
     Bands,
     band_outputs,
+    by_stages,
     check_planes,
     check_ported,
     chain_key,
@@ -63,40 +62,12 @@ _STREAM_FIELDS = ("depth", "level", "mult", "lead", "store", "u8")
 STREAM_THREADS = 256
 
 
-class _Step(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_int) for f in _STEP_FIELDS]
-
-
-class _Stream(ctypes.Structure):
-    _fields_ = [(f, ctypes.c_int) for f in _STREAM_FIELDS]
-
-
-class _Program(ctypes.Structure):
-    """Mirror of ``StreamProgram`` in csrc/stencil_stream.cu."""
-
-    _fields_ = [
-        ("n_steps", ctypes.c_int),
-        ("n_streams", ctypes.c_int),
-        ("n_levels", ctypes.c_int),
-        ("rows", ctypes.c_int),
-        ("prime", ctypes.c_int),
-        ("rd0", ctypes.c_int),
-        ("pad", ctypes.c_int * 2),
-        ("steps", _Step * MAX_STEPS),
-        ("streams", _Stream * (MAX_STEPS + 1)),
-        ("col_pads", ctypes.c_int * MAX_LEVELS),
-        ("weights", ctypes.c_float * MAX_WEIGHTS),
-    ]
-
-
-PROGRAM_BYTES = ctypes.sizeof(_Program)
-# the kernel's static shared memory: the step table, each ring's offset and
-# row stride, rounded up to the 16 bytes the dynamic part is aligned to
-# (csrc/stencil_stream.cu `stencil_stream_static_bytes`)
-STATIC_SMEM = -(-(PROGRAM_BYTES + 4 * (2 * (MAX_STEPS + 1) + 1)) // 16) * 16
-# stencil_stream_launch(in, bands*, prog, n, h, w, tile_w, n_seg, seg_rows, smem_bytes,
-#                       threads, u8, ahead, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# ints of the program's header: steps, streams, levels, rows a step, priming
+# steps, the last step that reads stream 0, weights, padding
+HEADER_INTS = 8
+# stencil_stream_launch(in, bands*, prog, prog_bytes, n, h, w, tile_w, n_seg, seg_rows,
+#                       smem_bytes, threads, u8, ahead, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 @dataclass(frozen=True)
@@ -127,25 +98,33 @@ class StreamProgram:
     def smem_rows(self) -> int:
         return self.layout.smem_rows
 
+    @property
+    def table_bytes(self) -> int:
+        """Bytes of the packed program: the header, the steps, the streams,
+        each level's column pad, the weights."""
+        ints = (HEADER_INTS + len(_STEP_FIELDS) * len(self.steps)
+                + len(_STREAM_FIELDS) * len(self.streams) + len(self.layout.col_pads))
+        return 4 * (ints + len(self.weights))
+
+    @property
+    def table_smem(self) -> int:
+        """The shared memory a block keeps before its rings: the program,
+        then each ring's first byte and row stride (and the scratch's first
+        byte), rounded up to the 16 bytes the rings are aligned to
+        (csrc/stencil_stream.cu `table_smem`), sized per chain."""
+        return -(-(self.table_bytes + 4 * (2 * len(self.streams) + 1)) // 16) * 16
+
     def packed(self) -> bytes:
         lay = self.layout
-        p = _Program(
-            n_steps=len(self.steps),
-            n_streams=len(self.streams),
-            n_levels=len(lay.col_pads),
-            rows=lay.rows,
-            prime=lay.prime_steps,
-            rd0=lay.rd0,
-        )
-        for k, st in enumerate(self.steps):
-            p.steps[k] = _Step(**st)
-        for k, st in enumerate(self.streams):
-            p.streams[k] = _Stream(**st)
-        for k, v in enumerate(lay.col_pads):
-            p.col_pads[k] = v
-        for k, v in enumerate(self.weights):
-            p.weights[k] = v
-        return bytes(p)
+        ints = [len(self.steps), len(self.streams), len(lay.col_pads), lay.rows, lay.prime_steps,
+                lay.rd0, len(self.weights), 0]
+        for st in self.steps:
+            ints += [st[f] for f in _STEP_FIELDS]
+        for st in self.streams:
+            ints += [st[f] for f in _STREAM_FIELDS]
+        ints += list(lay.col_pads)
+        return (np.asarray(ints, dtype=np.int32).tobytes()
+                + np.asarray(self.weights, dtype=np.float32).tobytes())
 
 
 def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> StreamProgram:
@@ -156,15 +135,11 @@ def compile_stream(stages, rows: int, carrier: torch.dtype = torch.float32) -> S
     plan.check_strides(down, rows, 0)
     layout = plan.stream_layout(stages, rows, carrier)
     lv = layout.lv
-    if len(layout.apps) > MAX_STEPS:
-        raise ValueError(f"stencil_stream: {len(layout.apps)} steps exceed the table's {MAX_STEPS}")
     weights: list = []
     maps: list = []
     params = [
         stage_params(s, r[1], r[2], weights, maps) for s, r in zip(stages, resolved)
     ]
-    if len(weights) > MAX_WEIGHTS:
-        raise ValueError(f"stencil_stream: {len(weights)} weights exceed the table's {MAX_WEIGHTS}")
     band_of = {s: b for b, s in enumerate(layout.outs)}
     streams = []
     for s, depth in enumerate(layout.depths):
@@ -210,7 +185,7 @@ class StreamGeometry:
     segments (`n_seg` per plane, `seg_rows` rows each), the dynamic shared
     memory one block takes, its threads, whether stream 0 is loaded a step
     ahead, and how many blocks an SM holds at once (`plan.blocks_per_sm`,
-    the static shared memory included)."""
+    the program's table included)."""
 
     tile_w: int
     n_tiles: int
@@ -267,17 +242,17 @@ def _stream_geometry(prog, shape, lc, tiled, tile_w, sms) -> StreamGeometry:
             raise ValueError(f"stencil_stream: tile_w must be positive, got {tw}")
         plan.check_strides(prog.down, layout.rows, W, tw)
     else:
-        tw = plan.pick_stream_tile(layout, W, lc.smem_budget, STATIC_SMEM, prog.down[1]) or W
+        tw = plan.pick_stream_tile(layout, W, lc.smem_budget, prog.table_smem, prog.down[1]) or W
     if tw >= W:  # one tile: as wide as the plane, rounded up to the stride product
         tw = -(-W // prog.down[1]) * prog.down[1]
     smem = layout.smem_bytes(tw)
-    if smem + STATIC_SMEM > lc.smem_budget:
+    if smem + prog.table_smem > lc.smem_budget:
         what = "full-width" if not tiled else f"{tw}-column"
         raise ValueError(
             f"stencil_stream: the {what} rings of this chain need {smem} bytes of shared memory "
-            f"(+{STATIC_SMEM} for the step table), over the budget of {lc.smem_budget}"
+            f"(+{prog.table_smem} for the step table), over the budget of {lc.smem_budget}"
         )
-    ahead = layout.smem_bytes(tw, True) + STATIC_SMEM <= two
+    ahead = layout.smem_bytes(tw, True) + prog.table_smem <= two
     if ahead:
         smem = layout.smem_bytes(tw, True)
     n_tiles = -(-W // tw)
@@ -285,7 +260,7 @@ def _stream_geometry(prog, shape, lc, tiled, tile_w, sms) -> StreamGeometry:
     threads = STREAM_THREADS
     while threads > 32 and threads >= 4 * -(-frame // 4):
         threads //= 2
-    per_sm = plan.blocks_per_sm(smem + STATIC_SMEM, threads)
+    per_sm = plan.blocks_per_sm(smem + prog.table_smem, threads)
     h_last = layout.lv.size(layout.lv.n_levels - 1, H, W)[0]
     if lc.row_segments is not None:
         n_seg, seg_rows = plan.fix_segments(lc.row_segments, h_last, layout.rows)
@@ -301,29 +276,37 @@ _PROGRAMS: dict = {}
 
 def program(stages, rows: int, carrier: torch.dtype, device: torch.device) -> tuple:
     """The chain's compiled program and, off the CPU, its table copied to
-    `device` once per chain."""
-    key = (chain_key(stages), rows, carrier, str(device))
-    hit = _PROGRAMS.get(key)
-    if hit is None:
-        prog = compile_stream(stages, rows, carrier)
-        table = None
-        if device.type != "cpu":
-            table = torch.frombuffer(bytearray(prog.packed()), dtype=torch.uint8).to(device)
-        hit = _PROGRAMS[key] = (prog, table)
-    return hit
+    `device` once per chain (memoised on the stage objects too:
+    `exec_window.by_stages`)."""
+
+    def build():
+        key = (chain_key(stages), rows, carrier, str(device))
+        hit = _PROGRAMS.get(key)
+        if hit is None:
+            prog = compile_stream(stages, rows, carrier)
+            table = None
+            if device.type != "cpu":
+                table = torch.frombuffer(bytearray(prog.packed()), dtype=torch.uint8).to(device)
+            hit = _PROGRAMS[key] = (prog, table)
+        return hit
+
+    return by_stages(stages, ("stream", rows, carrier, str(device)), build)
 
 
 @functools.cache
 def _launcher():
     lib = _build.library("stencil_stream")
-    if lib.stencil_stream_program_bytes() != PROGRAM_BYTES:
-        raise RuntimeError("stencil_stream: StreamProgram layout differs between C and Python")
+    sizes = (ctypes.c_int * 3)()
+    lib.stencil_stream_layout(sizes)
+    want = [4 * HEADER_INTS, 4 * len(_STEP_FIELDS), 4 * len(_STREAM_FIELDS)]
+    if list(sizes) != want:
+        raise RuntimeError(f"stencil_stream: program layout {list(sizes)} in C, {want} in Python")
     if lib.stencil_bands_bytes() != ctypes.sizeof(Bands):
         raise RuntimeError("stencil_stream: Bands layout differs between C and Python")
     static = [lib.stencil_stream_static_bytes(u8) for u8 in (0, 1)]
-    if static != [STATIC_SMEM] * 2:
-        raise RuntimeError(f"stencil_stream: static shared memory {static}, the planner "
-                           f"counts {STATIC_SMEM}")
+    if static != [0, 0]:
+        raise RuntimeError(f"stencil_stream: {static} bytes of static shared memory, the "
+                           "planner counts none")
     fn = lib.stencil_stream_launch
     fn.argtypes = LAUNCH_ARGTYPES
     fn.restype = ctypes.c_int
@@ -374,13 +357,14 @@ def stencil_stream(
             planes.data_ptr(),
             ctypes.addressof(bands),
             table.data_ptr(),
+            prog.table_bytes,
             N,
             H,
             W,
             geom.tile_w,
             geom.n_seg,
             geom.seg_rows,
-            geom.smem_bytes,
+            geom.smem_bytes + prog.table_smem,
             geom.threads,
             int(planes.dtype == torch.uint8),
             int(geom.ahead),

@@ -74,12 +74,45 @@ SM_REGS = 65_536
 STREAM_REGS = SM_REGS // (2 * 256)
 
 
-def blocks_per_sm(smem_bytes: int, threads: int) -> int:
-    """Blocks of `threads` `stencil_stream` threads taking `smem_bytes` of
-    shared memory each (static and dynamic) that one SM holds at once: the
-    least of what its threads, its shared memory and its registers allow."""
+def blocks_per_sm(smem_bytes: int, threads: int, regs: int = STREAM_REGS) -> int:
+    """Blocks of `threads` threads taking `smem_bytes` of shared memory each
+    (static and dynamic) and `regs` registers a thread (a `stencil_stream`
+    thread's by default) that one SM holds at once: the least of what its
+    threads, its shared memory and its registers allow."""
     return min(SM_THREADS // threads, SM_SMEM // (smem_bytes + BLOCK_RESERVED),
-               SM_REGS // (STREAM_REGS * threads))
+               SM_REGS // (regs * threads))
+
+
+# registers a `stencil_chain` thread may take: the cap of its
+# ``__launch_bounds__(512, 2)`` (csrc/stencil_chain.cu kMaxThreads)
+CHAIN_REGS = SM_REGS // (2 * 512)
+# the block sizes `chain_threads` chooses from, widest first, and how much
+# more than the least cost a narrower one may take
+CHAIN_THREADS = (512, 256, 128)
+CHAIN_COST_SLACK = 1.05
+
+
+def chain_threads(n_blocks: int, smem_bytes: int, items: int, sms: int = 132) -> tuple:
+    """Threads of a `stencil_chain` block, and the blocks an SM holds.  Each
+    size of `CHAIN_THREADS` costs its waves of blocks (``n_blocks`` over
+    ``sms`` times the blocks an SM holds) times the rounds of a block's
+    largest pass (``items`` strips of 4 outputs over its threads); the
+    narrowest size within `CHAIN_COST_SLACK` of the least cost wins (more
+    blocks an SM hide one block's barriers).  So the 256 planes of a BoW
+    request (one 32x32 tile each, 64x64 frames) take 512 threads, two
+    blocks an SM: one wave with 32 warps an SM; the single ops and pyrUp on
+    32x32 tiles of large images take 128 (measured on an H100, PERF.md
+    §6)."""
+    costs = []
+    for t in CHAIN_THREADS:
+        per_sm = blocks_per_sm(smem_bytes, t, CHAIN_REGS)
+        if per_sm:
+            costs.append((-(-n_blocks // (sms * per_sm)) * -(-items // t), t, per_sm))
+    if not costs:
+        raise ValueError(f"stencil_chain: {smem_bytes} bytes of shared memory a block exceed an SM")
+    least = min(c for c, _t, _n in costs)
+    _c, t, per_sm = min((c for c in costs if c[0] <= least * CHAIN_COST_SLACK), key=lambda c: c[1])
+    return t, per_sm
 
 
 # the most shared memory a block may take (static and dynamic) and still
@@ -88,6 +121,17 @@ TWO_BLOCK_SMEM = SM_SMEM // 2 - BLOCK_RESERVED
 # how much more column work (tiles recomputing their halo) a tiled2d plan
 # may take to keep two blocks an SM rather than one
 TWO_BLOCK_WORK = 1.5
+
+
+def stage_taps(s) -> tuple[int, int]:
+    """(kh, kw): a filter's own tap extents, odd or even (halo k // 2); for
+    the other stencils 2 * halo + 1."""
+    if s.op == "filter2d":
+        return tuple(s.weights[0].shape)
+    if s.op == "sep_filter":
+        return len(s.weights[1]), len(s.weights[0])
+    hy, hx = s.halo
+    return 2 * hy + 1, 2 * hx + 1
 
 
 def strip_stage(op: str, kh: int, kw: int) -> bool:
@@ -653,9 +697,9 @@ def stream_layout(stages, rows: int, carrier: torch.dtype = torch.float32) -> St
         depths.append(0 if direct else mults[s] + lag)
     esizes = tuple(1 if bw.meta[s][0] == torch.uint8 else F32 for s in range(len(depths)))
     strips, scratch = [], []
-    for k, (op, _mode, (hy, hx), _stride, _up, *_rest) in enumerate(walk):
+    for k, (st, (op, _mode, (hy, hx), _stride, _up, *_rest)) in enumerate(zip(stages, walk)):
         mult_o, li, lo = iface[k + 1][0], lv.lv_in[k], lv.lv_out[k]
-        strips.append(li == lo and strip_stage(op, 2 * hy + 1, 2 * hx + 1))
+        strips.append(li == lo and strip_stage(op, *stage_taps(st)))
         if op == "pyr_up":
             scratch.append((mult_o, li))
         elif op in SEPARABLE_OPS and li != lo:

@@ -274,3 +274,133 @@ def test_bow_assign_plain_is_the_quantize_argmin():
     want = tbow.quantize_hist_plain(torch.from_numpy(descs), torch.from_numpy(valids),
                                     torch.from_numpy(cents))
     np.testing.assert_array_equal(h.numpy(), want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The micro-tiled nearest-word search of csrc/bow.cu, replayed in numpy
+# ---------------------------------------------------------------------------
+
+def _seq_dot(a, b):
+    """a (M, D) . b (K, D)^T summed over D in ascending order from -0, every
+    product and sum rounded to f32 (the kernel's register chains)."""
+    acc = np.full((a.shape[0], b.shape[0]), -0.0, np.float32)
+    for q in range(a.shape[1]):
+        acc = acc + a[:, q:q + 1] * b[:, q][None, :]
+    return acc
+
+
+def _seq_sq(x):
+    acc = np.full(x.shape[0], -0.0, np.float32)
+    for q in range(x.shape[1]):
+        acc = acc + x[:, q] * x[:, q]
+    return acc
+
+
+def _replay_search(desc, cents):
+    """`nearest_words` over rows of `desc` (M, D): blocks of SEARCH_ROWS rows
+    zero-filled past M, codebook tiles of SEARCH_WORDS words zero-filled past
+    K with |c|^2 = +inf there; thread (tx, ty) scores rows 4 ty + i against
+    words k0 + 4 tx + j, tiles ascending then j, keeping its minimum with a
+    strict <; then the 16 threads of a row merge by shuffle xor 8, 4, 2, 1,
+    ties to the lower word.  -> (word index (M,), min s (M,))."""
+    R, W, m = tbow.SEARCH_ROWS, tbow.SEARCH_WORDS, tbow.SEARCH_MICRO
+    M, D = desc.shape
+    K = cents.shape[0]
+    Mp, Kp = -(-M // R) * R, -(-K // W) * W
+    d = np.zeros((Mp, D), np.float32)
+    d[:M] = desc
+    c = np.zeros((Kp, D), np.float32)
+    c[:K] = cents
+    c2 = _seq_sq(c)
+    c2[K:] = np.inf
+    s = np.float32(-2.0) * _seq_dot(d, c) + c2[None, :]
+    n_tx = W // m
+    best = np.full((Mp, n_tx), np.inf, np.float32)
+    best_k = np.zeros((Mp, n_tx), np.int64)
+    for k0 in range(0, Kp, W):
+        for j in range(m):
+            for tx in range(n_tx):
+                k = k0 + m * tx + j
+                better = s[:, k] < best[:, tx]
+                best[better, tx] = s[better, k]
+                best_k[better, tx] = k
+    lane = np.arange(n_tx)
+    for off in (8, 4, 2, 1):
+        ov, ok = best[:, lane ^ off], best_k[:, lane ^ off]
+        take = (ov < best) | ((ov == best) & (ok < best_k))
+        best, best_k = np.where(take, ov, best), np.where(take, ok, best_k)
+    assert (best == best[:, :1]).all() and (best_k == best_k[:, :1]).all()
+    return best_k[:M, 0], best[:M, 0]
+
+
+@pytest.mark.parametrize("K", [1, 63, 64, 65, 250])
+@pytest.mark.parametrize("M,D", [(100, 128), (64, 16), (33, 37)])
+def test_search_replay_matches_bow_assign_plain(K, M, D):
+    """Rows not a multiple of the block, K at and around a tile: the
+    replay's index and min + |d|^2 equal `bow_assign_plain` bit for bit."""
+    rng = np.random.default_rng(K + M + D)
+    desc = rng.standard_normal((M, D)).astype(np.float32)
+    cents = rng.standard_normal((K, D)).astype(np.float32)
+    idx, best = _replay_search(desc, cents)
+    want_i, want_d2 = tbow.bow_assign_plain(torch.from_numpy(desc), torch.from_numpy(cents))
+    np.testing.assert_array_equal(idx, want_i.numpy())
+    np.testing.assert_array_equal((best + _seq_sq(desc)).astype(np.float32), want_d2.numpy())
+
+
+@pytest.mark.parametrize("lo,hi", [(63, 64), (3, 200), (0, 249), (64, 128)])
+def test_search_replay_ties_across_a_tile_go_low(lo, hi):
+    """Word `hi` duplicates word `lo`, across (or at) a word-tile boundary;
+    rows sitting on it tie exactly, and the lower word wins, as in the plain
+    version; so do all-equal rows against a codebook of equal words."""
+    rng = np.random.default_rng(lo * 1000 + hi)
+    cents = rng.standard_normal((250, 24)).astype(np.float32)
+    cents[hi] = cents[lo]
+    desc = (cents[lo][None, :] + np.float32(1e-3) * rng.standard_normal((70, 24))).astype(np.float32)
+    idx, _ = _replay_search(desc, cents)
+    want, _ = tbow.bow_assign_plain(torch.from_numpy(desc), torch.from_numpy(cents))
+    np.testing.assert_array_equal(idx, want.numpy())
+    assert (idx == lo).mean() > 0.5
+    same = np.ones((65, 24), np.float32)
+    flat = np.tile(np.float32(0.5) * np.ones(24, np.float32), (130, 1))
+    idx, _ = _replay_search(same, flat)
+    assert (idx == 0).all()
+    np.testing.assert_array_equal(idx, tbow.bow_assign_plain(torch.from_numpy(same),
+                                                             torch.from_numpy(flat))[0].numpy())
+
+
+def test_search_replay_histograms_with_invalid_rows():
+    """bow_quantize_hist flattens (B, N) rows into the same search and adds
+    each valid row's weight to its own image's row: the replay's histograms
+    equal the plain version's, invalid rows (and a whole invalid image)
+    adding nothing."""
+    descs, valids, cents = _problem(12, 5, 37, 32, 70, p_valid=0.6)
+    valids[2] = 0
+    B, N, D = descs.shape
+    idx, _ = _replay_search(descs.reshape(B * N, D), cents)
+    h = np.zeros((B, cents.shape[0]), np.float32)
+    for r in range(B * N):
+        if valids.reshape(-1)[r] != 0:
+            h[r // N, idx[r]] += valids.reshape(-1)[r]
+    want = tbow.quantize_hist_plain(torch.from_numpy(descs), torch.from_numpy(valids),
+                                    torch.from_numpy(cents))
+    np.testing.assert_array_equal(h, want.numpy())
+    assert h[2].sum() == 0
+
+
+def test_search_block_geometry_matches_the_kernel():
+    """The replay's block is the kernel's (csrc/bow.cu kTileN, kTileK,
+    kChunk, kThreads) and its shared memory stays within the 48 KB a launch
+    takes without opting in."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tbow.__file__).resolve().parents[1] / "csrc" / "bow.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kTileN"]), int(consts["kTileK"]), int(consts["kChunk"]),
+            int(consts["kThreads"]), int(consts["kMicro"])) == (
+        tbow.SEARCH_ROWS, tbow.SEARCH_WORDS, tbow.SEARCH_CHUNK, tbow.SEARCH_THREADS,
+        tbow.SEARCH_MICRO)
+    assert (tbow.SEARCH_ROWS // tbow.SEARCH_MICRO) * (tbow.SEARCH_WORDS // tbow.SEARCH_MICRO) \
+        == tbow.SEARCH_THREADS
+    ld = tbow.SEARCH_ROWS + 4
+    assert 4 * (4 * tbow.SEARCH_CHUNK * ld + tbow.SEARCH_WORDS + tbow.SEARCH_ROWS) <= 48 * 1024

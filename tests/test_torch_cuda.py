@@ -192,9 +192,15 @@ def test_stencil_stream_odd_sizes_match_plain(dev, name, dtype, shape, mode):
 
 
 def test_stencil_stream_static_smem_is_the_planners(dev):
+    """No static shared memory: the program's table is dynamic, sized per
+    chain (`StreamProgram.table_smem`), and laid out as the planner packs
+    it."""
     lib = _build.library("stencil_stream")
-    assert [lib.stencil_stream_static_bytes(u8) for u8 in (0, 1)] == \
-        [exec_streaming.STATIC_SMEM] * 2
+    assert [lib.stencil_stream_static_bytes(u8) for u8 in (0, 1)] == [0, 0]
+    sizes = (ctypes.c_int * 3)()
+    lib.stencil_stream_layout(sizes)
+    assert list(sizes) == [4 * exec_streaming.HEADER_INTS, 4 * len(exec_streaming._STEP_FIELDS),
+                           4 * len(exec_streaming._STREAM_FIELDS)]
 
 
 @pytest.mark.parametrize("mode", ["window", "streaming", "tiled2d"])
@@ -716,3 +722,108 @@ def test_sift_pyramid_on_the_card(dev, mode):
     ref_kp = features.sift_pyramid(g, n_octaves=4, max_kp=32, mode="ref")
     for k in ("xy", "octave", "scale", "resp", "valid"):
         assert torch.equal(got[k], ref_kp[k]), k
+
+
+# ---------------------------------------------------------------------------
+# Chains the fixed tables once refused; the cut-frame window; the tiled search
+# ---------------------------------------------------------------------------
+
+def _table_chains(dev, hw):
+    """chip_smoke.py's `table_chains` (loaded by path: the checkout's root)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_chains", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.table_chains(stencil, hw, dev)
+
+
+TABLE_NAMES = ["even 2x2", "even 4x4", "even sep 6/6", "odd x even", "even taps beside a map",
+               "676 weights", "33 stages", "9 levels", "17 bands", "5 remaps"]
+
+
+@pytest.mark.parametrize("name", TABLE_NAMES)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("mode", ["window", "streaming", "tiled2d"])
+@pytest.mark.parametrize("hw", [(96, 160), (37, 53)])
+def test_table_chains_match_plain(dev, name, dtype, mode, hw):
+    """Even taps and the chains past the old tables (676 weights, 33 stages,
+    9 levels, 17 bands, 5 remaps), each in one launch of the kernel its mode
+    names, bit for bit against the plain version; a streaming plan over the
+    budget raises instead, naming the bytes."""
+    x = _image(dev, (2, *hw), dtype, seed=sum(hw))
+    chain = _table_chains(dev, hw)[name]
+    lc = LaunchConfig(stream_rows={"9 levels": 32, "17 bands": 4}.get(name, 8),
+                      tile2d_cols=64 if mode == "tiled2d" else None)
+    want = stencil.fused_chain(x[..., None], chain, mode="ref")
+    counters.reset()
+    try:
+        got = stencil.fused_chain(x[..., None], chain, mode=mode, lc=lc)
+    except ValueError as e:
+        assert mode == "streaming" and "bytes" in str(e)
+        return
+    torch.cuda.synchronize()
+    kernel = "stencil_chain" if mode == "window" else "stencil_stream"
+    assert counters.LAUNCHES[kernel] == 1 and sum(counters.PLAIN_CALLS.values()) == 0
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,tile", [((256, 32, 32), 32), ((3, 45, 39), 16), ((2, 37, 53), 8),
+                                        ((1, 512, 512), 32), ((5, 33, 31), 32)])
+@pytest.mark.parametrize("name", ["octave", "octave_nb", "preprocess"])
+def test_cut_window_is_bit_equal_to_plain(dev, shape, tile, name):
+    """The window kernel with cut frames, at the request's 32x32 planes, odd
+    sizes with edge and interior tiles, and a 512x512 plane: every band
+    equal to the plain version bit for bit."""
+    x = _image(dev, shape, torch.float32, seed=sum(shape) + tile)
+    chain = _chains()[name]
+    counters.reset()
+    got = stencil.fused_chain(x[..., None], chain, mode="window",
+                              lc=LaunchConfig(tile_rows=tile, tile_cols=tile))
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["stencil_chain"] == 1
+    want = stencil.fused_chain(x[..., None], chain, mode="ref")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,D,K", [(32000, 128, 250), (8192, 128, 250), (100, 128, 63),
+                                   (129, 37, 64), (65, 16, 65), (3, 5, 1)])
+def test_tiled_search_matches_plain(dev, N, D, K):
+    """bow_assign's 64 x 64 tiles: rows not a multiple of the tile, K at and
+    around a tile, D not a multiple of the staged chunk; a word duplicated
+    across a tile boundary (ties to the lower word); all-equal rows."""
+    g = torch.Generator(device=dev).manual_seed(N + D + K)
+    desc = torch.randn((N, D), generator=g, device=dev)
+    cents = torch.randn((K, D), generator=g, device=dev)
+    if K > 64:
+        cents[K - 1] = cents[63]
+        desc[: min(N, 40)] = cents[63] + 1e-3 * desc[: min(N, 40)]
+    got_i, got_d2 = kbow.bow_assign(desc, cents)
+    want_i, want_d2 = kbow.bow_assign_plain(desc, cents)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d2, want_d2)
+    same = torch.ones((70, D), device=dev)
+    flat = torch.full((K, D), 0.5, device=dev)
+    si, sd = kbow.bow_assign(same, flat)
+    assert bool((si == 0).all()) and torch.equal(sd, kbow.bow_assign_plain(same, flat)[1])
+
+
+@pytest.mark.parametrize("B,N", [(256, 32), (7, 45), (1, 1)])
+def test_tiled_search_histograms_match_plain(dev, B, N):
+    """bow_quantize_hist flattens its (B, N) rows into the same search; an
+    image of invalid rows adds nothing."""
+    g = torch.Generator(device=dev).manual_seed(B * N)
+    descs = torch.randn((B, N, 128), generator=g, device=dev)
+    cents = torch.randn((250, 128), generator=g, device=dev)
+    valids = torch.rand((B, N), generator=g, device=dev) < 0.7
+    valids[0] = False
+    got = kbow.bow_quantize_hist(descs, valids, cents, normalize=False)
+    assert torch.equal(got, kbow.quantize_hist_plain(descs, valids, cents))
+    assert float(got[0].sum()) == 0.0

@@ -382,7 +382,9 @@ def test_mode_resolution_and_window_tiles_of_the_warp_chain():
     assert prog.halo == (59, 58)
     assert (32 + 118) * (32 + 116) * 4 == 88800
     th, tw, smem = exec_window.pick_tile(prog, LaunchConfig())
-    assert (th, tw) == (16, 16) and smem == prog.n_slots * (16 + 118) * (16 + 116) * 4
+    # the warp's source frame, uncut: (16 + 118) rows at an odd stride of 16 + 116 + 1
+    assert prog.slot_floats(16, 16) == (16 + 118) * (16 + 116 + 1)
+    assert (th, tw) == (16, 16) and smem == prog.table_smem() + prog.n_slots * 134 * 133 * 4
     with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
         exec_window.pick_tile(prog, LaunchConfig(smem_budget=60_000))
     # the 1080p / 4K warps of the image ops stream (one tile) or tile

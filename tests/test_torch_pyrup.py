@@ -242,13 +242,16 @@ def test_levels_of_a_mid_chain_stride():
 
 def test_levels_of_pyr_up():
     """A lone pyrUp: its input level needs one row each way, the output
-    level none; the window slot holds the doubled frame; the stream's
-    input ring advances half the rows a step."""
+    level none; the window's slots hold the input frame and the row phases
+    (the doubled tile's rows by the 34 source columns they read), the
+    output goes out as it is made; the stream's input ring advances half
+    the rows a step."""
     chain = (tstencil.pyr_up_stage(),)
     lv = tstencil.chain_levels(chain)
     assert lv.tile(1, 32, 32) == (64, 64) and lv.pads == ((1, 1), (0, 0))
     prog = exec_window.compile_chain(chain)
-    assert prog.frame(0, 32, 32) == (34, 34) and prog.slot_floats(32, 32) == 64 * 64
+    assert prog.frame_spans(32, 32) == [(34, 34), (64, 64)]
+    assert prog.n_slots == 2 and prog.slot_floats(32, 32) == 64 * 35
     lay = plan.stream_layout(chain, 8)
     assert lay.mults == (4, 8) and lay.depths[1] == 0  # stored from registers
     sprog = exec_streaming.compile_stream(chain, 8, torch.uint8)

@@ -298,151 +298,191 @@ def _pyr_odd(b, c):
     return (b + c) * F32(0.5)
 
 
+class _Frame:
+    """A band frame of one block in the replay: image rows [y0, y1) x
+    columns [x0, x1) in a slot (None: a band that only goes out), at a row
+    stride of its columns rounded up to odd, as csrc/stencil_chain.cu lays
+    it out; reads clamp into the frame."""
+
+    def __init__(self, sm, slot, y0, y1, x0, x1):
+        self.y0, self.y1, self.x0, self.x1 = int(y0), int(y1), int(x0), int(x1)
+        rows, cols = self.y1 - self.y0, self.x1 - self.x0
+        ld = cols | 1
+        assert rows > 0 and cols > 0
+        self.a = None
+        if slot is not None and slot >= 0:
+            assert rows * ld <= sm.shape[1], "a frame larger than its slot"
+            self.a = sm[slot, :rows * ld].reshape(rows, ld)[:, :cols]
+
+    def at(self, Y, X):
+        """Values at image rows Y, columns X (broadcast), clamped into the frame."""
+        Y = np.clip(Y, self.y0, self.y1 - 1) - self.y0
+        X = np.clip(X, self.x0, self.x1 - 1) - self.x0
+        return self.a[Y, X]
+
+    def rows(self):
+        return np.arange(self.y0, self.y1)
+
+    def cols(self):
+        return np.arange(self.x0, self.x1)
+
+
 def _emulate_kernel(planes: np.ndarray, prog, th: int, tw: int, maps=()) -> list:
-    """Replay of `stencil_chain_kernel`: per (plane, tile) block, the window
-    load with clamped reads, then each step on its slots, in the frames of
-    its source and output levels, and the stores to each band's own
-    buffer.  `maps`: each remap stage's (map_x, map_y), in chain order."""
+    """Replay of `stencil_chain_kernel`: per (plane, tile) block, the input
+    band's frame loaded with clamped reads, then each step from the frames
+    of its sources to its output frame (cut frames read through a clamp
+    into the frame), the row-pass scratch in its own frame, and each output
+    band stored from the tile's part of the step's values.  Every frame and
+    scratch must fit the planned slot; slots start as NaN, so a read of a
+    value no step wrote propagates.  `maps`: each remap stage's (map_x,
+    map_y), in chain order."""
     N, H, W = planes.shape
     lv = prog.levels
     wts = np.asarray(prog.weights, F32)
     outs = [np.full((N, *tstencil.plan.band_hw(ops, H, W)), np.nan, F32)
             for _dt, ops in prog.bands]
-    slot = prog.slot_floats(th, tw)
+    slot = prog.slot_floats(th, tw, (H, W))
 
-    def frame(level, ti, tj):
-        lth, ltw = lv.tile(level, th, tw)
-        py, px = prog.pads[level]
-        return lth, ltw, py, px, ltw + 2 * px, ti * lth - py, tj * ltw - px
+    def frame_of(b, sm, sl, ti, tj):
+        fr = prog.frames[b]
+        lth, ltw = lv.tile(fr["level"], th, tw)
+        lh, lw = lv.size(fr["level"], H, W)
+        ty, tx = ti * lth, tj * ltw
+        return _Frame(sm, sl, max(ty - fr["ry"], -fr["ly"]), min(ty + lth + fr["ry"], lh + fr["ly"]),
+                      max(tx - fr["rx"], -fr["lx"]), min(tx + ltw + fr["rx"], lw + fr["lx"]))
+
+    def put(f, band, level, ti, tj, n, Y, X, v):
+        """Write v (rows Y x cols X) to the frame's slot and the tile's part
+        of `band`."""
+        if f.a is not None:
+            f.a[np.ix_(Y - f.y0, X - f.x0)] = v
+        if band >= 0:
+            o = outs[band]
+            lth, ltw = lv.tile(level, th, tw)
+            ry = (Y >= ti * lth) & (Y < min(ti * lth + lth, o.shape[1]))
+            rx = (X >= tj * ltw) & (X < min(tj * ltw + ltw, o.shape[2]))
+            o[n][np.ix_(Y[ry], X[rx])] = v[ry][:, rx]
 
     for n in range(N):
         for ti in range(-(-H // th)):
             for tj in range(-(-W // tw)):
                 sm = np.full((prog.n_slots, slot), np.nan, F32)
-
-                def view(k, WW):
-                    return sm[k, :slot // WW * WW].reshape(-1, WW)
-
-                th0, tw0, py0, px0, WW0, oy0, ox0 = frame(0, ti, tj)
-                ys = np.clip(oy0 + np.arange(th0 + 2 * py0), 0, H - 1)
-                xs = np.clip(ox0 + np.arange(WW0), 0, W - 1)
-                view(0, WW0)[:th0 + 2 * py0] = planes[n][ys][:, xs]
+                f0 = frame_of(0, sm, 0, ti, tj)
+                ys, xs = np.clip(f0.rows(), 0, H - 1), np.clip(f0.cols(), 0, W - 1)
+                f0.a[:] = planes[n][np.ix_(ys, xs)]
                 for s in prog.steps:
                     op, pk = s["op"], s["pk"]
-                    sth, stw, spy, spx, WW, oy, ox = frame(s["ls"], ti, tj)
-                    dth, dtw, dpy, dpx, WWd, oyd, oxd = frame(s["lo"], ti, tj)
-                    r0, r1 = spy - s["rh"], spy + sth + s["rh"]
-                    c0, c1 = spx - s["rw"], spx + stw + s["rw"]
-                    i0, i1 = dpy - s["oh"], dpy + dth + s["oh"]
-                    j0, j1 = dpx - s["ow"], dpx + dtw + s["ow"]
-                    hy, hx = s["kh"] // 2, s["kw"] // 2
-                    src, src2 = view(s["src"], WW).copy(), view(s["src2"], WW).copy()
-                    dst = view(s["dst"], WWd) if s["dst"] >= 0 else None
-                    w0 = wts[s["wx"]:]
-                    I, J = slice(r0 + hy, r1 - hy), slice(c0 + hx, c1 - hx)
-                    nr, nc = r1 - r0 - 2 * hy, c1 - c0 - 2 * hx
-                    if op == 15:  # pyrUp: row phases -> tmp, then column phases
-                        ii, jj = np.arange(i0, i1), np.arange(j0, j1)
-                        x0 = _floor2(oxd + j0) - 1 - ox
-                        x1 = _floor2(oxd + j1 - 1) + 2 - ox
-                        Y = oyd + ii
-                        q = _floor2(Y) - oy
-                        a, b, c = (src[q + d][:, x0:x1] for d in (-1, 0, 1))
-                        t = np.where((Y & 1)[:, None] == 1, _pyr_odd(b, c), _pyr_even(a, b, c))
-                        tmp = view(s["tmp"], WW)
-                        tmp[i0:i1, x0:x1] = t
-                        X = oxd + jj
-                        qc = _floor2(X) - ox
-                        T = tmp[i0:i1]
-                        v = np.where((X & 1)[None, :] == 1, _pyr_odd(T[:, qc], T[:, qc + 1]),
-                                     _pyr_even(T[:, qc - 1], T[:, qc], T[:, qc + 1]))
-                        dst[i0:i1, j0:j1] = _pack(v, pk)
-                    elif op in (9, 12) and s["down"] == 1:  # a stride mid-chain
-                        ii, jj = np.arange(i0, i1), np.arange(j0, j1)
-                        qs, xs_ = 2 * (oyd + ii) - oy, 2 * (oxd + jj) - ox
-                        if op == 9:
-                            q0, q1 = qs[0] - hy, qs[-1] + hy + 1
-                            kx, ky = wts[s["wx"]:s["wx"] + 5], wts[s["wy"]:s["wy"] + 5]
-                            tmp = view(s["tmp"], WWd)
-                            acc = kx[0] * src[q0:q1][:, xs_ - hx]
-                            for d in range(1, 5):
-                                acc = acc + kx[d] * src[q0:q1][:, xs_ - hx + d]
-                            tmp[q0:q1, j0:j1] = acc
-                            T = tmp[:, j0:j1]
-                            v = ky[0] * T[qs - hy]
-                            for d in range(1, 5):
-                                v = v + ky[d] * T[qs - hy + d]
-                        else:
-                            a, b = src[qs][:, xs_], src[qs + 1][:, xs_]
-                            c, d = src[qs][:, xs_ + 1], src[qs + 1][:, xs_ + 1]
-                            v = ((a + b) + (c + d)) * F32(0.25)
-                        dst[i0:i1, j0:j1] = _pack(v, pk)
-                    elif op in (9, 12):  # strided last: image-even rows and columns -> own band
-                        band = outs[s["store"]]
-                        e0 = r0 + hy + (oy + r0 + hy) % 2
-                        f0 = c0 + hx + (ox + c0 + hx) % 2
-                        if op == 9:
-                            rows, cols = np.arange(e0, r1 - hy, 2), np.arange(f0, c1 - hx, 2)
-                            kx, ky = wts[s["wx"]:s["wx"] + 5], wts[s["wy"]:s["wy"] + 5]
-                            acc = kx[0] * src[r0:r1][:, cols - hx]
-                            for q in range(1, 5):
-                                acc = acc + kx[q] * src[r0:r1][:, cols - hx + q]
-                            v = ky[0] * acc[rows - hy - r0]
-                            for q in range(1, 5):
-                                v = v + ky[q] * acc[rows - hy - r0 + q]
-                        else:
-                            rows, cols = np.arange(e0, r1 - 1, 2), np.arange(f0, c1 - 1, 2)
-                            a, b = src[rows][:, cols], src[rows + 1][:, cols]
-                            c, d = src[rows][:, cols + 1], src[rows + 1][:, cols + 1]
-                            v = ((a + b) + (c + d)) * F32(0.25)
-                        ys, xs = (oy + rows) // 2, (ox + cols) // 2
-                        ky_, kx_ = ys < band.shape[1], xs < band.shape[2]
-                        band[n, ys[ky_][:, None], xs[kx_][None, :]] = _pack(v, pk)[ky_][:, kx_]
+                    fs = frame_of(s["fs"], sm, s["src"], ti, tj)
+                    hy, hx, kh, kw = s["kh"] // 2, s["kw"] // 2, s["kh"], s["kw"]
+                    w0, ky = wts[s["wx"]:], wts[s["wy"]:]
+                    sth, stw = lv.tile(s["ls"], th, tw)
+                    sty, stx = ti * sth, tj * stw
+                    if op == 3:  # the input band as it is
+                        o = outs[s["store"]]
+                        Y = np.arange(sty, min(sty + sth, o.shape[1]))
+                        X = np.arange(stx, min(stx + stw, o.shape[2]))
+                        o[n][np.ix_(Y, X)] = fs.at(Y[:, None], X[None, :])
                         continue
-                    elif op in (0, 1, 5, 6):  # separable: row pass -> tmp, column pass
-                        tmp = view(s["tmp"], WW)
-                        tmp[r0:r1, J] = _row_pass(op, src[r0:r1, c0:c1], w0, s["kw"])
-                        v = _col_pass(op, tmp[r0:r1, J], wts[s["wy"]:], s["kh"],
-                                      w0[0] if op == 6 else None)
-                        dst[I, J] = _pack(v, pk)
-                    elif op == 4:  # filter2d, taps row-major
-                        v = w0[0] * src[r0:r0 + nr, c0:c0 + nc]
-                        for a in range(s["kh"]):
-                            for b in range(s["kw"]):
-                                if a or b:
-                                    v = v + w0[a * s["kw"] + b] * src[r0 + a:r0 + a + nr,
-                                                                      c0 + b:c0 + b + nc]
-                        dst[I, J] = _pack(v, pk)
+                    if s["down"] == 2:  # strided last: the tile's even rows and columns
+                        o = outs[s["store"]]
+                        Y, X = np.arange(sty, sty + sth, 2), np.arange(stx, stx + stw, 2)
+                        if op == 9:
+                            tmp = _Frame(sm, s["tmp"], sty - hy, sty + sth + hy, 0, len(X))
+                            q = tmp.rows()
+                            acc = w0[0] * fs.a[np.ix_(q - fs.y0, X - hx - fs.x0)]
+                            for d in range(1, kw):
+                                acc = acc + w0[d] * fs.a[np.ix_(q - fs.y0, X - hx + d - fs.x0)]
+                            tmp.a[:] = acc
+                            v = ky[0] * tmp.a[Y - hy - tmp.y0]
+                            for d in range(1, kh):
+                                v = v + ky[d] * tmp.a[Y - hy + d - tmp.y0]
+                        else:
+                            a, b = fs.a[np.ix_(Y - fs.y0, X - fs.x0)], fs.a[np.ix_(Y + 1 - fs.y0, X - fs.x0)]
+                            c = fs.a[np.ix_(Y - fs.y0, X + 1 - fs.x0)]
+                            d = fs.a[np.ix_(Y + 1 - fs.y0, X + 1 - fs.x0)]
+                            v = ((a + b) + (c + d)) * F32(0.25)
+                        ky_, kx_ = Y // 2 < o.shape[1], X // 2 < o.shape[2]
+                        o[n][np.ix_(Y[ky_] // 2, X[kx_] // 2)] = _pack(v, pk)[ky_][:, kx_]
+                        continue
+                    fd = frame_of(s["fd"], sm, s["dst"], ti, tj)
+                    Y, X = fd.rows(), fd.cols()
+                    YY, XX = Y[:, None], X[None, :]
+
+                    def out(v, f=fd, band=s["store"]):
+                        put(f, band, s["lo"], ti, tj, n, Y, X, v)
+
+                    if op in (0, 1, 5, 6):  # separable: row pass -> scratch, column pass
+                        tmp = _Frame(sm, s["tmp"], max(fd.y0 - hy, fs.y0),
+                                     min(fd.y1 - 1 - hy + kh - 1, fs.y1 - 1) + 1, fd.x0, fd.x1)
+                        T = tmp.rows()[:, None]
+                        tmp.a[:] = _row_pass(op, fs.at(T, np.arange(fd.x0 - hx, fd.x1 - hx + kw - 1)[None, :]),
+                                             w0, kw)
+                        C = tmp.at(np.arange(fd.y0 - hy, fd.y1 - hy + kh - 1)[:, None], XX)
+                        out(_pack(_col_pass(op, C, ky, kh, w0[0] if op == 6 else None), pk))
+                    elif op == 4:  # filter2d, taps row-major from -0
+                        v = np.full((len(Y), len(X)), -0.0, F32)
+                        for a in range(kh):
+                            for b in range(kw):
+                                v = v + w0[a * kw + b] * fs.at(YY - hy + a, XX - hx + b)
+                        out(_pack(v, pk))
                     elif op == 2:
-                        dy = (src[r0 + 2:r1, J] - src[r0:r1 - 2, J]) * F32(0.5)
-                        dx = (src[I, c0 + 2:c1] - src[I, c0:c1 - 2]) * F32(0.5)
-                        dst[I, J] = _pack(np.sqrt(dx * dx + dy * dy), pk)
+                        dy = (fs.at(YY + 1, XX) - fs.at(YY - 1, XX)) * F32(0.5)
+                        dx = (fs.at(YY, XX + 1) - fs.at(YY, XX - 1)) * F32(0.5)
+                        out(_pack(np.sqrt(dx * dx + dy * dy), pk))
                     elif op == 10:
-                        dx, dy = _sobel(src[r0:r1, c0:c1])
-                        dst[I, J], view(s["dst2"], WW)[I, J] = dx, dy
+                        src3 = fs.at(np.arange(fd.y0 - 1, fd.y1 + 1)[:, None],
+                                     np.arange(fd.x0 - 1, fd.x1 + 1)[None, :])
+                        dx, dy = _sobel(src3)
+                        out(dx)
+                        f2 = frame_of(s["fd2"], sm, s["dst2"], ti, tj)
+                        put(f2, s["store2"], s["lo"], ti, tj, n, Y, X, dy)
                     elif op == 11:
-                        a, b = src[I, J], src2[I, J]
-                        dst[I, J] = _pack(np.sqrt(a * a + b * b), pk)
+                        fs2 = frame_of(s["fs2"], sm, s["src2"], ti, tj)
+                        a, b = fs.at(YY, XX), fs2.at(YY, XX)
+                        out(_pack(np.sqrt(a * a + b * b), pk))
                     elif op in (13, 14):
-                        ii, jj = np.meshgrid(np.arange(r0 + hy, r1 - hy), np.arange(c0 + hx, c1 - hx),
-                                             indexing="ij")
                         lh, lw = lv.size(s["ls"], H, W)
-                        sy, sx = _gather_coords(op, w0, maps, s["wx"], oy + ii, ox + jj, lh, lw)
-                        v = _bilinear(src, sy, sx, oy, ox, r0, r1, c0, c1)
-                        dst[I, J] = _pack(v, pk)
+                        yy, xx = np.meshgrid(Y, X, indexing="ij")
+                        sy, sx = _gather_coords(op, w0, maps, s["wx"], yy, xx, lh, lw)
+                        v = _bilinear(fs.a, sy, sx, fs.y0, fs.x0, sty - s["rh"] - fs.y0,
+                                      sty + sth + s["rh"] - fs.y0, stx - s["rw"] - fs.x0,
+                                      stx + stw + s["rw"] - fs.x0)
+                        out(_pack(v, pk))
                     elif op == 7:
-                        v = np.where(src[I, J] > w0[0], w0[1], F32(0))
-                        dst[I, J] = _pack(v, pk)
+                        out(_pack(np.where(fs.at(YY, XX) > w0[0], w0[1], F32(0)), pk))
                     elif op == 8:
-                        dst[I, J] = _pack(src[I, J] * w0[0] + w0[1], pk)
-                    for key, slot_k in (("store", "dst"), ("store2", "dst2")):
-                        if s[key] >= 0:
-                            band = outs[s[key]]
-                            hh = min(dth, band.shape[1] - ti * dth)
-                            ww = min(dtw, band.shape[2] - tj * dtw)
-                            if hh > 0 and ww > 0:
-                                band[n, ti * dth:ti * dth + hh, tj * dtw:tj * dtw + ww] = \
-                                    view(s[slot_k], WWd)[dpy:dpy + hh, dpx:dpx + ww]
+                        out(_pack(fs.at(YY, XX) * w0[0] + w0[1], pk))
+                    elif op == 15:  # pyrUp: row phases -> scratch, then column phases
+                        tmp = _Frame(sm, s["tmp"], fd.y0, fd.y1, _floor2(fd.x0) - 1,
+                                     _floor2(fd.x1 - 1) + 2)
+                        q = _floor2(Y)[:, None]
+                        xs_ = tmp.cols()[None, :] - fs.x0
+                        a, b, c = (fs.a[q + d - fs.y0, xs_] for d in (-1, 0, 1))
+                        tmp.a[:] = np.where((Y & 1)[:, None] == 1, _pyr_odd(b, c), _pyr_even(a, b, c))
+                        qc = _floor2(X) - tmp.x0
+                        Tm = tmp.a
+                        v = np.where((X & 1)[None, :] == 1, _pyr_odd(Tm[:, qc], Tm[:, qc + 1]),
+                                     _pyr_even(Tm[:, qc - 1], Tm[:, qc], Tm[:, qc + 1]))
+                        out(_pack(v, pk))
+                    elif op == 9:  # a pyrDown before the last stage
+                        tmp = _Frame(sm, s["tmp"], 2 * fd.y0 - hy, 2 * (fd.y1 - 1) + hy + 1,
+                                     fd.x0, fd.x1)
+                        q = tmp.rows()[:, None]
+                        acc = w0[0] * fs.a[q - fs.y0, 2 * XX - hx - fs.x0]
+                        for d in range(1, kw):
+                            acc = acc + w0[d] * fs.a[q - fs.y0, 2 * XX - hx + d - fs.x0]
+                        tmp.a[:] = acc
+                        v = ky[0] * tmp.a[2 * Y - hy - tmp.y0]
+                        for d in range(1, kh):
+                            v = v + ky[d] * tmp.a[2 * Y - hy + d - tmp.y0]
+                        out(_pack(v, pk))
+                    elif op == 12:  # a resize2 before the last stage
+                        r, c = 2 * YY - fs.y0, 2 * XX - fs.x0
+                        a, b = fs.a[r, c], fs.a[r + 1, c]
+                        c_, d = fs.a[r, c + 1], fs.a[r + 1, c + 1]
+                        out(_pack(((a + b) + (c_ + d)) * F32(0.25), pk))
+                    else:
+                        raise AssertionError(f"op {op}")
     return outs
 
 
@@ -456,9 +496,10 @@ def test_kernel_step_table_reproduces_plain_version(name, shape, tile):
     x = torch.from_numpy(_input(shape, seed=3))
     planes = tref.to_planes(x if len(shape) == 4 else x[..., None])
     prog = exec_window.compile_chain(tc)
-    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig(tile_rows=tile, tile_cols=tile))
+    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig(tile_rows=tile, tile_cols=tile),
+                                         tuple(planes.shape))
     assert (th, tw) == (tile, tile)
-    assert smem + exec_window.PROGRAM_BYTES <= LaunchConfig().smem_budget
+    assert smem <= LaunchConfig().smem_budget
     got = _emulate_kernel(planes.numpy(), prog, th, tw)
     want = tref.chain_ref_planes(planes, tc)
     assert len(want) == prog.n_bands
@@ -468,27 +509,43 @@ def test_kernel_step_table_reproduces_plain_version(name, shape, tile):
 
 def test_compile_chain_slot_plan_for_the_octave():
     """The octave ladder needs three shared-memory slots (source band, new
-    band, row-pass scratch) and stores each of its seven bands once."""
+    band, row-pass scratch; the last band only goes out) and stores each of
+    its seven bands once.  On a request's 32x32 planes every frame is cut
+    to the rows and columns that are distinct: 64x64 at most (100x100
+    uncut), so three 16.6 KB slots, and 256 planes take one wave of 512
+    threads, two blocks an SM."""
     prog = exec_window.compile_chain(tfeatures.octave_chain(4, with_next_base=False))
     assert prog.n_slots == 3 and prog.n_bands == 7 and prog.halo == (34, 34)
     stores = [s["store"] for s in prog.steps if s["store"] >= 0]
     assert stores == list(range(7))
-    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig())
-    assert (th, tw) == (32, 32) and smem == 3 * 100 * 100 * 4
+    assert [f["ly"] for f in prog.frames] == [0, 5, 8, 12, 16, 21, 27, 34]
+    assert [r for r, _c in prog.frame_spans(32, 32, (32, 32))] == [32, 42, 48, 56, 64, 58, 46, 32]
+    assert prog.steps[-1]["dst"] == -1
+    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig(), (256, 32, 32))
+    assert (th, tw) == (32, 32) and smem == prog.table_smem() + 3 * 64 * 65 * 4
+    g = exec_window.window_geometry(prog, LaunchConfig(), (256, 32, 32))
+    assert (g.threads, g.per_sm) == (512, 2) and 256 <= 132 * g.per_sm
+    # uncut (an interior tile of a large plane): the full 100x100 window
+    assert prog.slot_floats(32, 32) == 100 * 101
 
 
 def test_compile_chain_slot_plan_for_the_octave_with_next_base():
-    """The next-base tap keeps scale 4's slot alive to the end (four slots)
-    and stores straight to the half-resolution output (no slot of its
-    own); the window pad is the 36-pixel halo, even already."""
+    """The next-base tap keeps scale 4's slot alive to the end and stores
+    straight to the half-resolution output (no slot of its own), as the last
+    scale does (three slots); scale 4, which the pyrDown reads, keeps its
+    full frame (62x62 on a 32x32 plane), the other bands are cut."""
     prog = exec_window.compile_chain(tfeatures.octave_chain(4))
-    assert prog.n_slots == 4 and prog.halo == (36, 36)
+    assert prog.n_slots == 3 and prog.halo == (36, 36)
     assert [ops for _dt, ops in prog.bands] == [()] * 7 + [("pyr_down",)]
     last = prog.steps[-1]
     assert (last["op"], last["down"], last["dst"], last["store"]) == (9, 2, -1, 7)
     assert [s["store"] for s in prog.steps[:-1]] == list(range(7))
-    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig())
-    assert (th, tw) == (32, 32) and smem == 4 * 104 * 104 * 4
+    cut = [f["ly"] < exec_window.UNCUT for f in prog.frames]
+    assert cut == [True] * 5 + [False] + [True] * 2 + [False]
+    assert prog.frame_spans(32, 32, (32, 32))[5] == (62, 62)
+    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig(), (1, 32, 32))
+    assert (th, tw) == (32, 32) and prog.slot_floats(32, 32, (32, 32)) == 64 * 65
+    assert smem == prog.table_smem() + 3 * 64 * 65 * 4
 
 
 def test_strided_chains_need_even_tiles_and_a_last_pyr_down():
@@ -500,13 +557,14 @@ def test_strided_chains_need_even_tiles_and_a_last_pyr_down():
     with pytest.raises(ValueError, match="stride"):
         exec_window.pick_tile(prog, LaunchConfig(tile_rows=15, tile_cols=16))
     prog = exec_window.compile_chain((tstencil.pyr_down_stage(), tstencil.gaussian_stage(3)))
-    assert prog.unit == (2, 2) and prog.pads == ((4, 4), (1, 1))
-    assert prog.frame(1, 32, 32) == (18, 18)
+    assert prog.unit == (2, 2) and prog.levels.pads == ((4, 4), (1, 1))
+    assert [f["level"] for f in prog.frames] == [0, 1, 1]
+    assert prog.frame_spans(32, 32) == [(40, 40), (18, 18), (16, 16)]
 
 
 def test_pick_tile_halves_under_a_small_budget():
     prog = exec_window.compile_chain(tfeatures.octave_chain(4, with_next_base=False))
-    budget = exec_window.PROGRAM_BYTES + 3 * (16 + 68) ** 2 * 4
+    budget = prog.table_smem() + 3 * (16 + 68) * (16 + 68 + 1) * 4
     th, tw, _ = exec_window.pick_tile(prog, LaunchConfig(smem_budget=budget))
     assert (th, tw) == (16, 16)
 
@@ -555,3 +613,253 @@ def test_level_chains_step_table_on_u8(chain, shape):
     assert [tuple(w.shape) for w in want] == [g.shape for g in got]
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy().astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Chains the TPU kernels take that the card's tables refused: even taps and
+# chains past the old fixed tables (32 steps, 512 weights, 8 levels, 16
+# bands, 4 remaps)
+# ---------------------------------------------------------------------------
+
+def _taps(seed, *shape):
+    """Seeded positive taps that sum to 1 (a u8 chain stays in range)."""
+    w = np.random.default_rng(seed).random(shape, dtype=np.float32) + np.float32(0.25)
+    return (w / w.sum()).astype(np.float32)
+
+
+def _smooth_maps(h, w, a, b):
+    """An identity map plus a smooth field under a pixel (chip_smoke.py's)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return (xx + np.float32(a) * np.cos(yy / np.float32(5.0))).astype(np.float32), \
+        (yy + np.float32(b) * np.sin(xx / np.float32(7.0))).astype(np.float32)
+
+
+def table_chain(pkg, name, hw=None):
+    """One chain of the card's former refusals, built with either package
+    (`hw`: the image size, for the remap chain's map planes)."""
+    def f2(*shape, seed):
+        k = _taps(seed, *shape)
+        return pkg.filter_stage(k if pkg is jstencil else torch.from_numpy(k))
+
+    def sep(nx, ny, seed, **kw):
+        kx, ky = _taps(seed, nx), _taps(seed + 1, ny)
+        if pkg is not jstencil:
+            kx, ky = torch.from_numpy(kx), torch.from_numpy(ky)
+        return pkg.sep_filter_stage(kx, ky, **kw)
+
+    if name == "even2":
+        return (f2(2, 2, seed=1),)
+    if name == "even4":
+        return (f2(4, 4, seed=2),)
+    if name == "even6":
+        return (sep(6, 6, seed=3),)
+    if name == "odd_even":
+        return (f2(3, 4, seed=4), sep(5, 2, seed=5), f2(4, 5, seed=6))
+    if name == "even_mix":
+        return (pkg.gaussian_stage(3), sep(4, 6, seed=7, tap=0), pkg.erode_stage(1),
+                f2(2, 6, seed=8, ), sep(2, 2, seed=9, tap=-2))
+    if name == "weights676":  # four 13x13 filters: 676 weights
+        return tuple(f2(13, 13, seed=10 + i) for i in range(4))
+    if name == "stages33":
+        ops = (lambda: pkg.gaussian_stage(3), lambda: pkg.affine_stage(0.9375, 3.0),
+               lambda: pkg.erode_stage(1))
+        return tuple(ops[i % 3]() for i in range(33))
+    if name == "levels9":  # 9 resolution levels: pyrDown / pyrUp x 4, then a pyrDown
+        return tuple(pkg.pyr_down_stage() if i % 2 == 0 else pkg.pyr_up_stage() for i in range(8)) \
+            + (pkg.pyr_down_stage(),)
+    if name == "bands17":  # 16 taps of the input beside it: 17 output bands
+        return tuple(pkg.gaussian_stage(3 + 2 * (i % 3), tap=0) for i in range(16))
+    if name == "remaps5":
+        h, w = hw
+        out = []
+        for i, e in enumerate((15, 7, 3, 1, 0)):  # each budgets the later remaps' halo
+            mx, my = _smooth_maps(h, w, 0.3 + 0.05 * i, 0.45 - 0.05 * i)
+            if pkg is not jstencil:
+                mx, my = torch.from_numpy(mx), torch.from_numpy(my)
+            out.append(pkg.remap_stage(mx, my, extend=(e, e)))
+        return tuple(out)
+    if name == "pyr_down9":
+        return tuple(pkg.pyr_down_stage() for _ in range(9))
+    raise KeyError(name)
+
+
+EVEN_CHAINS = ["even2", "even4", "even6", "odd_even", "even_mix"]
+TABLE_CHAINS = ["weights676", "stages33", "levels9", "bands17", "remaps5"]
+
+
+def _table_input(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == "u8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    return rng.random(shape, dtype=np.float32) * np.float32(255.0)
+
+
+@pytest.mark.parametrize("name", EVEN_CHAINS + TABLE_CHAINS)
+@pytest.mark.parametrize("dtype", ["u8", "f32"])
+def test_table_chains_match_jax_fused_chain_ref(name, dtype):
+    """The plain version (what both kernels are held to) against JAX's
+    `fused_chain(mode="ref")`: u8 exact, f32 within the oracles' tolerance."""
+    shape = (2, 41, 37) if name != "levels9" else (1, 64, 96)
+    x = _table_input(shape, dtype, seed=20)
+    jc, tc = table_chain(jstencil, name, shape[1:]), table_chain(tstencil, name, shape[1:])
+    want = _tuple_np(jstencil.fused_chain(jnp.asarray(x[..., None]), jc, mode="ref"))
+    got = _tuple_np(tstencil.fused_chain(torch.from_numpy(x[..., None]), tc, mode="ref"))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if dtype == "u8":
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
+def _tuple_np(x):
+    return [np.asarray(v) for v in (x if isinstance(x, tuple) else (x,))]
+
+
+@pytest.mark.parametrize("name", EVEN_CHAINS + TABLE_CHAINS)
+@pytest.mark.parametrize("dtype,shape,tile", [("u8", (1, 41, 37), 16), ("f32", (2, 29, 35), 32)])
+def test_window_replay_of_table_chains(name, dtype, shape, tile):
+    """`stencil_chain` takes every one of these chains: its step table,
+    replayed block by block, equals the plain version bit for bit."""
+    if name == "levels9":
+        shape, tile = (1, 70, 45), 32
+    x = torch.from_numpy(_table_input(shape, dtype, seed=21))
+    chain = table_chain(tstencil, name, shape[1:])
+    prog = exec_window.compile_chain(chain, x.dtype)
+    th, tw, smem = exec_window.pick_tile(prog, LaunchConfig(tile_rows=tile, tile_cols=tile),
+                                         tuple(x.shape))
+    assert smem <= LaunchConfig().smem_budget
+    maps = [tuple(w.numpy() for w in s.weights) for s in chain if s.op == "remap"]
+    got = _emulate_kernel(x.numpy(), prog, th, tw, maps)
+    want = tref.chain_ref_planes(x, chain)
+    assert len(got) == len(want) == prog.n_bands
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy().astype(np.float32))
+
+
+def test_table_chains_pass_the_old_limits():
+    """Each chain is past a limit of the old fixed tables, and now plans in
+    both kernels: the program is sized per chain, and the per-launch tables
+    hold 64 bands, 16 remaps and 16 levels."""
+    hw = (41, 37)
+    prog = {n: exec_window.compile_chain(table_chain(tstencil, n, hw)) for n in TABLE_CHAINS}
+    assert len(prog["weights676"].weights) == 676
+    assert len(prog["stages33"].steps) == 33
+    assert prog["levels9"].levels.n_levels == 9
+    assert prog["bands17"].n_bands == 17
+    assert sum(s["op"] == exec_window.OP_CODES["remap"] for s in prog["remaps5"].steps) == 5
+    for n in TABLE_CHAINS:
+        sp = exec_streaming.compile_stream(table_chain(tstencil, n, hw), 32 if n == "levels9" else 8)
+        assert sp.table_bytes == len(sp.packed())
+    assert exec_window.MAX_BANDS == 64 and exec_window.MAX_LEVELS == 16
+
+
+def test_even_taps_plan_as_their_own_extents():
+    """Even taps keep their extents in the step tables (no zero tap added):
+    halo k // 2, the taps' own kh, kw."""
+    chain = table_chain(tstencil, "odd_even")
+    prog = exec_window.compile_chain(chain)
+    assert [(s["kh"], s["kw"]) for s in prog.steps] == [(3, 4), (2, 5), (4, 5)]
+    assert len(prog.weights) == 12 + 7 + 20
+    sp = exec_streaming.compile_stream(chain, 8)
+    assert [(s["kh"], s["kw"], s["strip"]) for s in sp.steps] == [(3, 4, 0), (2, 5, 0), (4, 5, 0)]
+
+
+def test_nine_pyr_downs_are_refused_by_the_geometry_not_a_table():
+    """Nine pyrDowns on a 600x700 plane: the levels fit the tables, but a
+    tile (and a step) must be a multiple of the stride product 512, and a
+    512-row tile's window (512 + 2 x 1022 rows) is far over a block's shared
+    memory; both kernels say which limit, by ValueError.  The plain version
+    runs it, equal to JAX's."""
+    chain = table_chain(tstencil, "pyr_down9")
+    prog = exec_window.compile_chain(chain, torch.uint8)
+    assert prog.levels.n_levels == 9 and prog.unit == (512, 512)
+    with pytest.raises(ValueError, match="stride product"):
+        exec_window.pick_tile(prog, LaunchConfig(), (1, 600, 700))
+    with pytest.raises(ValueError, match="shared memory"):
+        exec_window.pick_tile(prog, LaunchConfig(tile_rows=512, tile_cols=512), (1, 600, 700))
+    with pytest.raises(ValueError, match="stride product"):
+        exec_streaming.compile_stream(chain, 64, torch.uint8)
+    x = np.random.default_rng(22).integers(0, 256, (600, 700), dtype=np.uint8)
+    want = np.asarray(jstencil.fused_chain(jnp.asarray(x), table_chain(jstencil, "pyr_down9"),
+                                           mode="ref"))
+    got = tstencil.fused_chain(torch.from_numpy(x), chain, mode="ref").numpy()
+    assert got.shape == want.shape == (2, 2)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Cut frames: only the rows and columns that are distinct
+# ---------------------------------------------------------------------------
+
+def _uncut(prog):
+    """The same program with every frame full (the tile plus what its
+    readers need, nothing cut)."""
+    import dataclasses
+
+    frames = tuple(f | {"ly": exec_window.UNCUT, "lx": exec_window.UNCUT} for f in prog.frames)
+    return dataclasses.replace(prog, frames=frames, _memo={})
+
+
+@pytest.mark.parametrize("name", ["octave", "preprocess", "octave_nb"])
+@pytest.mark.parametrize("shape,tile", [((2, 32, 32), 32), ((1, 45, 39), 16), ((1, 37, 53), 8),
+                                        ((1, 50, 70), 16)])
+def test_cut_frames_equal_the_full_window(name, shape, tile):
+    """The cut frames' replay equals the full windows' bit for bit, band by
+    band, on the BoW chains: one tile covering a 32x32 plane, odd sizes,
+    and planes of several tiles, whose edge tiles are cut and interior
+    ones not."""
+    _, tc = _chains()[name]
+    x = _input(shape, seed=31)
+    if name == "preprocess":
+        x = x[..., :1].copy() if x.ndim == 4 else x
+    prog = exec_window.compile_chain(tc)
+    assert any(f["ly"] < exec_window.UNCUT for f in prog.frames)
+    full = _uncut(prog)
+    cut = _emulate_kernel(x, prog, tile, tile)
+    whole = _emulate_kernel(x, full, tile, tile)
+    assert prog.slot_floats(tile, tile, shape[1:]) <= full.slot_floats(tile, tile, shape[1:])
+    for a, b in zip(cut, whole, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_cut_frames_shrink_the_octave_work():
+    """On a request's 32x32 planes the octave's frames hold 0.54 of the
+    full windows' outputs (the window's arithmetic shrinks with them), and
+    its largest frame is 64x64 instead of 100x100."""
+    prog = exec_window.compile_chain(tfeatures.octave_chain(4, with_next_base=False))
+    full = _uncut(prog)
+    cut_f = exec_window.window_flops(prog, 32, 32, (32, 32))
+    full_f = exec_window.window_flops(full, 32, 32, (32, 32))
+    assert 0.5 < cut_f / full_f < 0.58
+    assert max(r for r, _c in prog.frame_spans(32, 32, (32, 32))) == 64
+    assert max(r for r, _c in full.frame_spans(32, 32, (32, 32))) == 100
+
+
+@pytest.mark.parametrize("chain", [
+    (tstencil.gaussian_stage(3), tstencil.pyr_down_stage(), tstencil.erode_stage(1)),
+    (tstencil.gaussian_stage(5), tstencil.pyr_down_stage(tap=0)),
+    (tstencil.gaussian_stage(3), tstencil.resize2_stage(), tstencil.gaussian_stage(3)),
+    (tstencil.gaussian_stage(3), tstencil.pyr_up_stage(), tstencil.gaussian_stage(3)),
+    (tstencil.gaussian_stage(3), tstencil.warp_affine_stage(
+        np.array([[1.0, 0.02, 1.5], [-0.02, 1.0, -2.0]]), shape=(40, 40)), tstencil.erode_stage(1)),
+])
+def test_gathers_and_strides_keep_full_frames(chain):
+    """A band a gather, a stride or a pyrUp reads keeps its full frame, as do
+    the bands at a level past a resolution change and the bands after a
+    gather; only bands of level-0, stride-1, position-independent lineage
+    whose every reader clamps are cut."""
+    prog = exec_window.compile_chain(chain)
+    unclamped = {"warp_affine", "remap", "pyr_down", "resize2", "pyr_up"}
+    walk = tstencil.plan.band_walk(chain)
+    after_gather = False
+    for k, (s, stage) in enumerate(zip(chain, walk.apps)):
+        for srcs, dsts in stage:
+            for i in srcs:
+                if s.op in unclamped:
+                    assert prog.frames[i]["ly"] == exec_window.UNCUT, (k, i)
+            for d in dsts:
+                if after_gather or s.op in unclamped or prog.frames[d]["level"] > 0:
+                    assert prog.frames[d]["ly"] == exec_window.UNCUT, (k, d)
+        after_gather = after_gather or s.op in ("warp_affine", "remap")

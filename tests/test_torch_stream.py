@@ -533,8 +533,10 @@ def _emulate_stream(planes: np.ndarray, prog, geom, maps=()) -> list:
                             v = _pack(_strip_sep(op, X, w0, wts[st["wy"]:], st["kh"], nr, c0,
                                                  c1), pk)
                         elif op in (0, 1, 5, 6):  # separable: row pass -> scratch
-                            acc = _row_pass(op, X[:, c0 - hx:c1 + hx], w0, st["kw"])
-                            v = _pack(_col_pass(op, acc, wts[st["wy"]:], st["kh"],
+                            # (even taps read one column and row fewer than 2 * halo)
+                            kw, kh = st["kw"], st["kh"]
+                            acc = _row_pass(op, X[:nr + kh - 1, c0 - hx:c1 - hx + kw - 1], w0, kw)
+                            v = _pack(_col_pass(op, acc, wts[st["wy"]:], kh,
                                                 w0[0] if op == 6 else None), pk)
                         elif op == 4:  # filter2d, taps row-major
                             kw = st["kw"]
@@ -663,7 +665,9 @@ def test_compile_stream_for_the_acceptance_chain():
     assert [st["dst"] for st in prog.steps] == [1, 2, -1]  # threshold stored from registers
     assert prog.weights[-2:] == (100.0, 255.0)
     assert prog.smem_rows == sum(s["depth"] for s in prog.streams) + prog.layout.scratch_rows
-    assert exec_streaming.PROGRAM_BYTES <= 48 * 1024  # static shared memory
+    # the table a block copies to shared memory: the chain's own size
+    assert prog.table_bytes == 4 * (8 + 20 * 3 + 6 * 4 + 1 + len(prog.weights))
+    assert prog.table_smem == -(-(prog.table_bytes + 4 * 9) // 16) * 16 <= 5744
 
 
 @pytest.mark.parametrize("shape,threads", [((768, 32, 32), 32), ((1, 64, 8), 32),
@@ -749,9 +753,9 @@ def test_two_blocks_fit_an_sm_on_every_image_path_shape():
         prog, _ = exec_streaming.program(chain, 8, dtype, torch.device("cpu"))
         geom = exec_streaming.stream_geometry(prog, shape, LaunchConfig(),
                                               tiled=mode == "tiled2d")
-        per_sm = plan.blocks_per_sm(geom.smem_bytes + exec_streaming.STATIC_SMEM, geom.threads)
+        per_sm = plan.blocks_per_sm(geom.smem_bytes + prog.table_smem, geom.threads)
         assert per_sm == geom.per_sm >= 2, (name, geom)
-        assert geom.smem_bytes + exec_streaming.STATIC_SMEM <= plan.TWO_BLOCK_SMEM, name
+        assert geom.smem_bytes + prog.table_smem <= plan.TWO_BLOCK_SMEM, name
         assert shape[0] * geom.n_tiles * geom.n_seg >= 132, (name, geom)
         assert mode == ("tiled2d" if name == "octave" else "streaming"), name
 
@@ -795,3 +799,52 @@ def test_tiled2d_keeps_two_blocks_unless_the_halo_costs_too_much():
                                          torch.float32, torch.device("cpu"))
         geom = exec_streaming.stream_geometry(prog, (1, 512, 512), LaunchConfig(), tiled=True)
         assert (geom.tile_w, geom.per_sm) == (tile, per_sm), nb
+
+
+# ---------------------------------------------------------------------------
+# Even taps and chains past the old fixed tables, in stencil_stream
+# ---------------------------------------------------------------------------
+
+from test_torch_stencil import EVEN_CHAINS, TABLE_CHAINS, _table_input, table_chain  # noqa: E402
+
+TABLE_REPLAY = [
+    ("u8", (1, 45, 61), {"segments": 2}),
+    ("f32", (2, 41, 70), {"tiled": True, "tile_w": 32, "segments": 2}),
+]
+
+
+@pytest.mark.parametrize("name", EVEN_CHAINS + TABLE_CHAINS)
+@pytest.mark.parametrize("dtype,shape,opts", TABLE_REPLAY)
+def test_kernel_loop_of_table_chains(name, dtype, shape, opts):
+    """`stencil_stream` takes every one of these chains (even taps through
+    the generic body, which reads kh and kw at run time; the program sized
+    per chain): its block loop, replayed, equals the plain version bit for
+    bit."""
+    rows = {"levels9": 32, "bands17": 4}.get(name, 8)  # 17 bands' rings at 4 rows a step
+    if opts.get("tiled") and name in ("levels9", "bands17"):
+        opts = opts | {"tile_w": 64 if name == "levels9" else 16}
+    x = torch.from_numpy(_table_input(shape, dtype, seed=23))
+    chain = table_chain(tstencil, name, shape[1:])
+    lc = LaunchConfig(stream_rows=rows, row_segments=opts["segments"])
+    prog, _ = exec_streaming.program(chain, lc.stream_rows, x.dtype, x.device)
+    geom = exec_streaming.stream_geometry(prog, tuple(x.shape), lc, tiled=opts.get("tiled", False),
+                                          tile_w=opts.get("tile_w"))
+    assert geom.smem_bytes + prog.table_smem <= lc.smem_budget
+    maps = [tuple(w.numpy() for w in s.weights) for s in chain if s.op == "remap"]
+    got = _emulate_stream(x.numpy(), prog, geom, maps)
+    want = exec_streaming.stencil_stream_plain(x, chain)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy().astype(np.float64))
+
+
+def test_even_taps_never_run_a_strip():
+    """A strip body is specialised on an odd square size; a 4x5 or 6x6
+    filter runs the generic body (its extents at run time), and an odd
+    square one keeps its strip."""
+    k4 = torch.full((4, 5), 0.05)
+    for chain, strip in (((tstencil.filter_stage(k4),), 0),
+                         ((tstencil.sep_filter_stage(torch.full((6,), 1 / 6), torch.full((6,), 1 / 6)),), 0),
+                         ((tstencil.gaussian_stage(5),), 1)):
+        assert plan.stream_layout(chain, 8).strips == (bool(strip),)
+        assert exec_streaming.compile_stream(chain, 8).steps[0]["strip"] == strip
