@@ -8,7 +8,10 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 10 repeats it on the path's tensors);
+     shapes beyond the BoW path's (phase 10 repeats it on the path's tensors;
+     `bow_quantize_hist` bit for bit, unnormalised and normalised, with the
+     valids and with fractional weights, two runs bit-identical, at N = 32,
+     45, 100 and K = 5 to 1300, one to eight CTAs a cluster);
      each chain runs under the kernel `mode=None` resolves to and under the
      window kernel; then the chains fixed-size tables once refused
      (`table_phase`): even taps (2x2, 4x4, 6/6 separable, odd x even) and
@@ -45,9 +48,9 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      plain version on the 4K shapes, and `conv2d` as the library call for
      gaussian_filter2d k = 5 and 13;
   6. the fused-vs-staged-vs-seed pipeline benchmark (`pipeline_phase`):
-     the seed kernels against their plain versions (512x512, 1081x1919 and
-     37x53 u8, k = 3, 5, 7, r = 1, 2, 3, the thresholds of the seed's
-     table), max_abs_err 0; then `scripts/torch_pipeline_bench.py` `run`:
+     the seed kernels against their plain versions (512x512, 1081x1919,
+     37x53 and 511x513 u8, blur k = 1..31 on the odd sizes, r = 1, 2, 3,
+     the thresholds of the seed's table), max_abs_err 0; then `scripts/torch_pipeline_bench.py` `run`:
      the chain gaussian(5) -> erode(1) -> threshold(100) on (8, 512, 512,
      3) u8 fused in every mode (one launch each, bit-identical to the plain
      version), staged (72 stencil launches) and seed (24 launches of each
@@ -122,7 +125,9 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      and the bf16 paths' logits within twice the bf16 model's own error;
   10. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
-     version again, then time each kernel, its plain version and (for
+     version again, count the device activities of one `bow_quantize_hist`
+     call with torch.profiler (exactly its kernel: no memset, cast or
+     normalising launch), then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
  11. print the window arithmetic of the request's octave with its frames
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
@@ -622,9 +627,9 @@ def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: di
 
     # -- the seed kernels against their plain versions -------------------------
     for name, x in (("512x512", u8(512, 512)), ("1081x1919", u8(1081, 1919)),
-                    ("37x53", u8(37, 53))):
-        small = name == "37x53"
-        for k in (3, 5, 7) if small else (5,):
+                    ("37x53", u8(37, 53)), ("511x513", u8(511, 513))):
+        small = name in ("37x53", "511x513")
+        for k in range(1, 32, 2) if small else (5,):
             exact("seed_gaussian_blur", f"seed blur k={k} {name}",
                   unfused.seed_gaussian_blur_2d(x, k), unfused.seed_gaussian_blur_2d(x, k, mode="ref"))
         for r in (1, 2, 3) if small else (1,):
@@ -633,7 +638,7 @@ def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: di
         for t in SEED_THRESHOLDS if small else (100.0,):
             exact("seed_threshold", f"seed threshold {t} {name}",
                   unfused.seed_threshold_2d(x, t), unfused.seed_threshold_2d(x, t, mode="ref"))
-        print(f"check seed kernels {name} u8: max_abs_err 0 (blur k={(3, 5, 7) if small else 5}, "
+        print(f"check seed kernels {name} u8: max_abs_err 0 (blur k={'1..31' if small else 5}, "
               f"erode r={(1, 2, 3) if small else 1}, thresholds "
               f"{SEED_THRESHOLDS if small else (100.0,)})")
 
@@ -1686,23 +1691,52 @@ def main() -> int:
     table_phase(dev, counters, stencil, ref, ImageStream, max_err, results)
 
     def check_hist(name, descs, valids, cents):
-        got = kbow.bow_quantize_hist(descs, valids, cents, normalize=False)
-        want = kbow.quantize_hist_plain(descs, valids, cents)
+        """The cluster kernel against its plain version bit for bit,
+        unnormalised and normalised, with the valids as they are and as
+        fractional weights (whose sums depend on their order); two runs
+        bit-identical."""
         B, N, D = descs.shape
-        ties = (near_tie_mask(descs, cents) & valids.reshape(-1)).reshape(B, N).sum(1)
-        l1 = (got - want).abs().sum(1)
-        check(bool((l1 <= 2 * ties).all()), f"bow_quantize_hist {name}: differs off near-ties")
-        err = float((got - want).abs().max())
+        g = torch.Generator(device=dev).manual_seed(B * N + cents.shape[0])
+        frac = torch.rand((B, N), generator=g, device=dev) * valids
+        err = 0.0
+        for what, w in (("valids", valids), ("fractional weights", frac)):
+            for normalize in (False, True):
+                got = kbow.bow_quantize_hist(descs, w, cents, normalize=normalize)
+                again = kbow.bow_quantize_hist(descs, w, cents, normalize=normalize)
+                want = kbow.quantize_hist_plain(descs, w, cents, normalize=normalize)
+                torch.cuda.synchronize()
+                tag = f"bow_quantize_hist {name} {what} normalize={normalize}"
+                check(torch.equal(got, again), f"{tag}: two runs differ")
+                e = float((got - want).abs().max())
+                check(e == 0.0, f"{tag}: max_abs_err {e} against the plain version")
+                err = max(err, e)
         print(
-            f"check bow_quantize_hist {name} ({B},{N},{D}) K={cents.shape[0]}: "
-            f"max_abs_err={err:.3g} near_ties={int(ties.sum())} "
-            f"images_differing={int((l1 > 0).sum())}"
+            f"check bow_quantize_hist {name} ({B},{N},{D}) K={cents.shape[0]} "
+            f"({kbow.hist_ranks(cents.shape[0])} CTAs a cluster): max_abs_err={err:.3g} "
+            "(unnormalised and normalised, valids and fractional weights; two runs bit-identical)"
         )
         max_err["bow_quantize_hist"] = max(max_err["bow_quantize_hist"], err)
-        results["checks"][f"bow_quantize_hist {name}"] = {
-            "max_abs_err": err,
-            "near_ties": int(ties.sum()),
-        }
+        results["checks"][f"bow_quantize_hist {name}"] = {"max_abs_err": err}
+
+    def hist_device_activities(descs, valids, cents):
+        """The device activities of one `bow_quantize_hist` call, by
+        torch.profiler: the kernel alone, no memset, cast or normalising
+        launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        kbow.bow_quantize_hist(descs, valids, cents)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kbow.bow_quantize_hist(descs, valids, cents)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        K = cents.shape[0]
+        held = _build.library("bow").quantize_hist_max_clusters(K)
+        print(f"check bow_quantize_hist device activities a call (torch.profiler): {names}; "
+              f"{descs.shape[0]} clusters of {kbow.hist_ranks(K)} CTAs, the card holds {held} "
+              "at once")
+        check(len(names) == 1 and "quantize_hist_kernel" in names[0],
+              f"bow_quantize_hist: a call ran {names} on the device, not one kernel")
 
     def check_score(name, h, w, b):
         got = kbow.linear_score(h, w, b)
@@ -1758,6 +1792,12 @@ def main() -> int:
     valids = torch.rand((B, N), generator=gen, device=dev) < 0.9
     cents = unit_rows(K, D)
     check_hist("random", descs, valids, cents)
+    # rows over one tile of 32 (N = 45, 100), one to eight ranks (K = 5, 33,
+    # 250, 700, 1300: at 1300 ranks 0-2 walk two word tiles), a single image
+    for b_, n_, k_ in ((1, 32, 250), (3, 45, 5), (2, 100, 33), (2, 100, 700), (5, 45, 250),
+                       (2, 40, 1300)):
+        check_hist(f"B={b_} N={n_} K={k_}", unit_rows(b_, n_, D),
+                   torch.rand((b_, n_), generator=gen, device=dev) < 0.9, unit_rows(k_, D))
     h = kbow.normalize_hist(kbow.quantize_hist_plain(descs, valids, cents))
     w = torch.randn((C, K), generator=gen, device=dev)
     b = torch.randn((C,), generator=gen, device=dev)
@@ -1976,6 +2016,7 @@ def main() -> int:
     check_chain("preprocess main path", xb, pre_chain)
     check_chain("octave main path", gray[..., None], oct_chain)
     check_hist("main path", qd, qv, cents_g)
+    hist_device_activities(qd, qv, cents_g)
     check_score("main path", hist, wg, bg)
     check_assign("training descriptors", train_desc, cents_g)
     check_gbdt("main path", hist_g, m_gbdt)
@@ -2013,10 +2054,13 @@ def main() -> int:
             "source": "src/repro_torch/csrc/bow.cu",
             "replaces": "src/repro/kernels/bow.py:135",
             "run": lambda: kbow.bow_quantize_hist(qd, qv, cents_g),
-            "plain": lambda: kbow.normalize_hist(kbow.quantize_hist_plain(qd, qv, cents_g)),
+            "plain": lambda: kbow.quantize_hist_plain(qd, qv, cents_g, normalize=True),
             "library": None,
             "graph": True,
-            "bytes": f32 * (qd.numel() + qv.numel() + cents_g.numel() + hist.numel()),
+            # descriptors, valids (in their own dtype) and codebook read once,
+            # the histograms written once
+            "bytes": f32 * (qd.numel() + cents_g.numel() + hist.numel())
+            + qv.numel() * qv.element_size(),
             "flops": 2 * qd.shape[0] * qd.shape[1] * cents_g.shape[0] * qd.shape[2],
             "shape": f"request of {PREDICT_BATCH} images",
         },
@@ -2058,6 +2102,9 @@ def main() -> int:
                 hist_g, m_gbdt.feat, m_gbdt.thr, m_gbdt.leaf, m_gbdt.base
             ),
             "library": None,
+            # also as device time: a CUDA graph of 100 calls replayed (a
+            # call's event time is host-bound)
+            "graph": True,
             "bytes": f32
             * (
                 hist_g.numel()

@@ -38,9 +38,10 @@ class LaunchConfig:
     tile_rows / tile_cols: output tile of one `stencil_chain` block; the
         block also holds the tile's accumulated halo, so the wrapper halves
         the tile until the window fits `smem_budget`.
-    threads: threads per block for every kernel, a multiple of 32 (a
-        `bow_quantize_hist` block gives each of its 32 descriptors
-        threads / 32 lanes).
+    threads: threads per block of `linear_score` and `gbdt_score`, a power
+        of two from 32 to 1024 (the stencil kernels size their blocks by
+        their plans; the nearest-word searches and the seed kernels fix
+        theirs in ``csrc``).
     smem_budget: shared memory a block may use.
     stream_rows: output rows one `stencil_stream` step advances by (the
         counterpart of `VectorConfig.rows()`); every ring holds this many
@@ -66,7 +67,6 @@ class LaunchConfig:
                 f"smem_budget must be in (0, {SMEM_MAX_BYTES}], got {self.smem_budget}"
             )
         if self.threads not in (32, 64, 128, 256, 512, 1024):
-            # one descriptor's threads / 32 lanes reduce with warp shuffles
             raise ValueError(f"threads must be a power of two in [32, 1024], got {self.threads}")
         if not 1 <= self.stream_rows <= 64:
             raise ValueError(f"stream_rows must be in [1, 64], got {self.stream_rows}")

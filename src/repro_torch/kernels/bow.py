@@ -11,18 +11,29 @@ twice the 67 TFLOP/s bound.  It writes each row's word index and min +
 
 `bow_quantize_hist` replaces `repro.kernels.bow._hist_kernel` (TPU,
 Pallas).  Bound on an H100: operations, 2*B*N*K*D fp32 dot-product FLOP on
-CUDA cores (2.1 GFLOP at the predict batch), against ~17 MB moved.  It
-flattens the (B, N) rows as `bow_assign` does and `atomicAdd`s each valid
-row's weight into its own image's histogram row.  Normalisation happens
-outside the kernel, as in JAX.
+CUDA cores (0.52 GFLOP at the predict request, B = 256 images of N = 32
+rows), against ~4.3 MB moved.  Blocks own images, and a thread-block
+cluster splits the codebook: a cluster of `hist_ranks(K)` CTAs of
+`HIST_THREADS` serves one image, rank r searching word tiles r, r + S, ...
+of the image's rows `HIST_ROWS` at a time; the ranks write their rows'
+(min, word) pairs into rank 0's shared memory, and rank 0 merges them on
+(value, then word), adds each row's weight to its word in ascending n,
+sums the image's total weight in ascending n, divides (with
+``normalize``) and writes the image's row.  No atomics, memset or cast:
+one launch a call, and the same histogram from run to run, also for
+fractional weights (`quantize_hist_plain` sums in the same order).
 
 Both run one nearest-word search (``csrc/bow.cu`` `nearest_words`): a block
-of `SEARCH_THREADS` takes `SEARCH_ROWS` rows against codebook tiles of
-`SEARCH_WORDS` words, each thread a 4 x 4 register micro-tile, the operands
-staged q-major through shared memory `SEARCH_CHUNK` values of q at a time
-with cp.async double-buffering; a running argmin per (row, thread) over
-ascending words, merged across a row's threads with ties to the lower
-word; |c|^2 summed once per tile inside the same loop.
+takes a tile of rows against codebook tiles of words, each thread a
+register micro-tile, the operands staged q-major through shared memory a
+chunk of q at a time with cp.async double-buffering; a running argmin per
+(row, thread) over ascending words, merged across a row's threads with ties
+to the lower word; |c|^2 summed once per tile inside the same loop.
+`bow_assign`'s block: `SEARCH_THREADS` threads of 4 x 4, `SEARCH_ROWS`
+rows, tiles of `SEARCH_WORDS` words, `SEARCH_CHUNK` values of q at a time;
+`bow_quantize_hist`'s CTA: `HIST_THREADS` threads of `HIST_MICRO_ROWS` x
+`HIST_MICRO_WORDS`, tiles of `HIST_WORDS` words, `HIST_CHUNK` values of q
+(`scripts/torch_bow_sweep.py` times other shapes).
 
 `linear_score` replaces `repro.kernels.bow._score_kernel`.  Bound on an
 H100: latency (~1.3 MFLOP at the predict batch).  Design: one block per
@@ -54,6 +65,19 @@ SEARCH_WORDS = 64
 SEARCH_CHUNK = 32
 SEARCH_THREADS = 256
 SEARCH_MICRO = 4
+# bow_quantize_hist's CTA (csrc/bow.cu kHistRows, kHistWords, kHistThreads,
+# kHistChunk, kHistMicroRows, kHistMicroWords, kHistMinBlocks,
+# kHistMaxRanks): rows of an image a CTA walks at a time, words of a codebook
+# tile, threads, values of q staged at a time, a thread's micro-tile (rows x
+# words), CTAs an SM its launch bounds ask for, CTAs a cluster may hold
+HIST_ROWS = 32
+HIST_WORDS = 128
+HIST_THREADS = 128
+HIST_CHUNK = 16
+HIST_MICRO_ROWS = 4
+HIST_MICRO_WORDS = 8
+HIST_MIN_BLOCKS = 4
+HIST_MAX_RANKS = 8
 # linear_score: images and classes a block scores (csrc/bow.cu kScoreRows,
 # kScoreClasses), and the shared memory a block stays within
 SCORE_ROWS = 16
@@ -62,7 +86,8 @@ SCORE_SMEM = 48 * 1024
 
 
 def normalize_hist(h: torch.Tensor) -> torch.Tensor:
-    """Word counts (B, K) -> per-image frequencies."""
+    """Word counts (B, K) -> per-image frequencies, each row divided by its
+    sum over K (JAX's normalisation)."""
     return h / torch.clamp(torch.sum(h, dim=1, keepdim=True), min=1e-6)
 
 
@@ -101,9 +126,14 @@ def bow_assign_plain(desc: torch.Tensor, centroids: torch.Tensor):
     return idx.to(torch.int32), torch.gather(s, 1, idx[:, None])[:, 0] + _sq_norms(d)
 
 
-def quantize_hist_plain(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor):
+def quantize_hist_plain(
+    descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor, *, normalize: bool = False
+):
     """Plain version of the quantize + histogram kernel: descs (B, N, D),
-    valids (B, N), centroids (K, D) -> unnormalised word counts (B, K)."""
+    valids (B, N) weights, centroids (K, D) -> word histograms (B, K): each
+    row's weight added to its nearest word in ascending n; with
+    ``normalize``, divided by max(total, 1e-6), the image's weights summed
+    in ascending n (with {0, 1} weights bit-equal to `normalize_hist`)."""
     counters.PLAIN_CALLS["bow_quantize_hist"] += 1
     B, N, D = descs.shape
     K = centroids.shape[0]
@@ -111,8 +141,12 @@ def quantize_hist_plain(descs: torch.Tensor, valids: torch.Tensor, centroids: to
     if B * N == 0 or K == 0:
         return h
     idx = torch.argmin(_word_scores(descs.reshape(B * N, D), centroids), dim=1).reshape(B, N)
-    h.scatter_add_(1, idx, valids.to(torch.float32))
-    return h
+    w = valids.to(torch.float32)
+    total = torch.zeros((B,), dtype=torch.float32, device=descs.device)
+    for n in range(N):  # one add a row of h, in ascending n
+        h.scatter_add_(1, idx[:, n : n + 1], w[:, n : n + 1])
+        total = total + w[:, n]
+    return h / torch.clamp(total, min=1e-6)[:, None] if normalize else h
 
 
 def linear_score_plain(hists: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -149,8 +183,12 @@ def _score_chunk(K: int, C: int) -> tuple[int, int]:
 LAUNCH_ARGTYPES = {
     # (descs, cents, idx, d2, N, D, K, stream)
     "bow_assign_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # (descs, valids, cents, hist, B, N, D, K, stream)
-    "quantize_hist_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # (descs, valids, vbytes, cents, hist, B, N, D, K, normalize, stream)
+    "quantize_hist_launch": [ctypes.c_void_p] * 2
+    + [ctypes.c_int]
+    + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
     # (h, w, bias, out, B, K, C, kc, threads, stream)
     "linear_score_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
@@ -211,6 +249,24 @@ def bow_assign(desc: torch.Tensor, centroids: torch.Tensor):
     return idx, d2
 
 
+def hist_ranks(K: int) -> int:
+    """CTAs of one image's `bow_quantize_hist` cluster: one a codebook tile
+    of `HIST_WORDS` words, at most `HIST_MAX_RANKS` (csrc/bow.cu
+    `quantize_hist_ranks`)."""
+    return min(-(-K // HIST_WORDS), HIST_MAX_RANKS)
+
+
+def hist_smem_bytes() -> int:
+    """Shared memory of a `bow_quantize_hist` CTA (csrc/bow.cu
+    `quantize_hist_smem_bytes`): two q-major chunks of its rows and of a
+    word tile (row strides + 4 floats), the tile's |c|^2 and the rows'
+    |d|^2 slots, rank 0's weights and merged words, and the ranks' (min,
+    word) pairs for two row tiles."""
+    search = 2 * HIST_CHUNK * (HIST_ROWS + 4) + 2 * HIST_CHUNK * (HIST_WORDS + 4)
+    search += HIST_WORDS + HIST_ROWS
+    return 4 * (search + 2 * HIST_ROWS + 2 * 2 * HIST_MAX_RANKS * HIST_ROWS)
+
+
 def bow_quantize_hist(
     descs: torch.Tensor,
     valids: torch.Tensor,
@@ -218,12 +274,14 @@ def bow_quantize_hist(
     *,
     normalize: bool = True,
 ) -> torch.Tensor:
-    """Fused quantize -> histogram: descs (B, N, D), valids (B, N) -> word
-    histograms (B, K) in one launch.  A CPU tensor runs the plain version;
-    any other tensor launches the kernel or raises."""
+    """Fused quantize -> histogram: descs (B, N, D) f32, valids (B, N)
+    weights (bool, u8 or f32 read as they are; another dtype is cast to f32
+    first), centroids (K, D) f32 -> word histograms (B, K) in one launch,
+    normalised by each image's total weight with ``normalize``.  B, N or
+    K = 0 returns zeros and launches nothing.  A CPU tensor runs the plain
+    version; any other tensor launches the kernel or raises."""
     if descs.device.type == "cpu":
-        h = quantize_hist_plain(descs, valids, centroids)
-        return normalize_hist(h) if normalize else h
+        return quantize_hist_plain(descs, valids, centroids, normalize=normalize)
     qh = _launchers()["quantize_hist_launch"]
     if descs.ndim != 3 or centroids.ndim != 2 or descs.shape[2] != centroids.shape[1]:
         raise ValueError(
@@ -233,24 +291,32 @@ def bow_quantize_hist(
     K = centroids.shape[0]
     if valids.shape != (B, N) or D == 0:
         raise ValueError(f"bow_quantize_hist: valids {tuple(valids.shape)} for descs ({B}, {N})")
-    w = valids.to(torch.float32).contiguous()
-    dev = _build.check_cuda("bow_quantize_hist", descs, w, centroids)
-    h = torch.zeros((B, K), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    dev = _build.check_cuda("bow_quantize_hist", descs, centroids)
+    if valids.device != dev:
+        raise ValueError(f"bow_quantize_hist: valids on {valids.device}, descs on {dev}")
+    if valids.dtype not in (torch.bool, torch.uint8, torch.float32):
+        valids = valids.to(torch.float32)
+    valids = valids.contiguous()
+    if B * N * K == 0:
+        return torch.zeros((B, K), dtype=torch.float32, device=dev)
+    h = torch.empty((B, K), dtype=torch.float32, device=dev)
+    with _build.on_device(dev):
         err = qh(
             descs.data_ptr(),
-            w.data_ptr(),
+            valids.data_ptr(),
+            valids.element_size(),
             centroids.data_ptr(),
             h.data_ptr(),
             B,
             N,
             D,
             K,
+            int(normalize),
             _build.cuda_stream(dev),
         )
     _build.check(err, "bow_quantize_hist")
     counters.LAUNCHES["bow_quantize_hist"] += 1
-    return normalize_hist(h) if normalize else h
+    return h
 
 
 def linear_score(

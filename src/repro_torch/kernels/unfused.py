@@ -10,7 +10,13 @@ fused stencil engine, every intermediate plane through device memory.
 hand-written CUDA kernels of ``csrc/unfused.cu``.  Bound on an H100: bytes
 (one (H, W) u8 plane read and written once, 0.16 us for 512x512 at 3.35
 TB/s, below a launch's latency), so the rung measures launches and per-op
-traffic, which is what fusion removes.  Each wrapper takes one (H, W) u8
+traffic, which is what fusion removes.  The blur is latency-bound: a block
+of `BLUR_THREADS` takes a `BLUR_ROWS` x `BLUR_COLS` tile (a 512x512 plane in
+one wave), copies its window (`BLUR_PAD` columns either side) in 16-byte
+segments, clamping only at the plane's edges, runs the row pass in register
+strips of 4 outputs and the column pass from shared memory, one barrier
+between them; the kernel is compiled per odd ksize and takes its taps by
+value (`_host_taps`).  Each wrapper takes one (H, W) u8
 plane: the benchmark uses u8 only, and any other dtype raises `ValueError`
 (the JAX seed's other carriers are left to port, ROADMAP).
 
@@ -31,7 +37,7 @@ from . import _build, counters, ref
 
 # C signatures in csrc/unfused.cu: pointers and the stream as c_void_p, ints as c_int
 LAUNCH_ARGTYPES = {
-    # (in, out, taps, h, w, k, stream)
+    # (in, out, taps (host f32), h, w, k, stream)
     "seed_gaussian_blur_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # (in, out, h, w, r, stream)
     "seed_erode_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -39,6 +45,12 @@ LAUNCH_ARGTYPES = {
     "seed_threshold_launch": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 MODES = (None, "ref")
+# seed_gaussian_blur's block (csrc/unfused.cu kBlurRows, kBlurCols,
+# kBlurPad, kBlurThreads): output tile, window columns either side, threads
+BLUR_ROWS = 16
+BLUR_COLS = 128
+BLUR_PAD = 16
+BLUR_THREADS = 256
 
 
 @functools.cache
@@ -90,6 +102,13 @@ def _taps(ksize: int, device: str) -> torch.Tensor:
     return ref.gaussian_kernel1d(ksize).to(device)
 
 
+@functools.cache
+def _host_taps(ksize: int) -> ctypes.Array:
+    """The Gaussian taps as a host f32 array, which the launcher passes to
+    the kernel by value."""
+    return (ctypes.c_float * ksize)(*ref.gaussian_kernel1d(ksize).tolist())
+
+
 def seed_gaussian_blur_2d_plain(img: torch.Tensor, ksize: int) -> torch.Tensor:
     """Widened to f32, the row pass (taps left to right), then the column
     pass (top to bottom), each product and sum rounded on its own; round
@@ -118,10 +137,9 @@ def seed_gaussian_blur_2d(img: torch.Tensor, ksize: int, *, mode: str | None = N
     fn = _launcher("seed_gaussian_blur_launch", img)
     img = img.contiguous()
     out = torch.empty_like(img)
-    taps = _taps(ksize, str(img.device))
     h, w = img.shape
     with torch.cuda.device(img.device):
-        err = fn(img.data_ptr(), out.data_ptr(), taps.data_ptr(), h, w, ksize,
+        err = fn(img.data_ptr(), out.data_ptr(), ctypes.addressof(_host_taps(ksize)), h, w, ksize,
                  _build.cuda_stream(img.device))
     _build.check(err, "seed_gaussian_blur")
     counters.LAUNCHES["seed_gaussian_blur"] += 1

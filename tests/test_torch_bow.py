@@ -369,10 +369,10 @@ def test_search_replay_ties_across_a_tile_go_low(lo, hi):
 
 
 def test_search_replay_histograms_with_invalid_rows():
-    """bow_quantize_hist flattens (B, N) rows into the same search and adds
-    each valid row's weight to its own image's row: the replay's histograms
-    equal the plain version's, invalid rows (and a whole invalid image)
-    adding nothing."""
+    """The search over an image batch's rows flattened into one matrix (as
+    `bow_assign` takes them), each valid row's weight added to its own
+    image's row: the histograms equal the plain version's, invalid rows
+    (and a whole invalid image) adding nothing."""
     descs, valids, cents = _problem(12, 5, 37, 32, 70, p_valid=0.6)
     valids[2] = 0
     B, N, D = descs.shape
@@ -404,3 +404,190 @@ def test_search_block_geometry_matches_the_kernel():
         == tbow.SEARCH_THREADS
     ld = tbow.SEARCH_ROWS + 4
     assert 4 * (4 * tbow.SEARCH_CHUNK * ld + tbow.SEARCH_WORDS + tbow.SEARCH_ROWS) <= 48 * 1024
+
+
+# ---------------------------------------------------------------------------
+# bow_quantize_hist's cluster walk (csrc/bow.cu quantize_hist_kernel), in numpy
+# ---------------------------------------------------------------------------
+
+def _replay_clusters(descs, valids, cents, normalize):
+    """`quantize_hist_kernel` over (B, N, D) rows: one cluster of
+    `hist_ranks(K)` ranks an image; the image's rows in tiles of
+    `HIST_ROWS` (zero-filled past N); rank r walks word tiles r, r + S, ...
+    of `HIST_WORDS` (zero-filled past K, |c|^2 = +inf there), thread (tx,
+    ty) keeping its minimum over words k0 + 4 tx + 4 n_tx g + e (g <
+    `HIST_MICRO_WORDS` / 4, e < 4, n_tx threads a row), tiles ascending,
+    then g and e, with a strict <, the threads of a row merged by
+    shuffle xor (half their count down to 1), ties to the lower word; rank 0 merges the ranks' pairs in ascending rank on (value, then
+    word), adds each row's weight to its word in ascending n (carried
+    across row tiles), sums the total weight in ascending n and divides by
+    max(total, 1e-6) with ``normalize``.  -> (B, K) f32."""
+    R, W, m = tbow.HIST_ROWS, tbow.HIST_WORDS, tbow.HIST_MICRO_WORDS
+    B, N, D = descs.shape
+    K = cents.shape[0]
+    S = tbow.hist_ranks(K)
+    n_tiles = -(-K // W)
+    c = np.zeros((n_tiles * W, D), np.float32)
+    c[:K] = cents
+    c2 = _seq_sq(c)
+    c2[K:] = np.inf
+    w = valids.astype(np.float32)
+    n_tx = W // m
+    lane = np.arange(n_tx)
+    out = np.zeros((B, K), np.float32)
+    for b in range(B):
+        h = np.zeros(K, np.float32)
+        total = np.float32(0.0)
+        for n0 in range(0, N, R):
+            nr = min(R, N - n0)
+            d = np.zeros((R, D), np.float32)
+            d[:nr] = descs[b, n0:n0 + nr]
+            s = np.float32(-2.0) * _seq_dot(d, c) + c2[None, :]
+            cand_v, cand_k = [], []
+            for rank in range(S):
+                best = np.full((R, n_tx), np.inf, np.float32)
+                best_k = np.zeros((R, n_tx), np.int64)
+                for tile in range(rank, n_tiles, S):
+                    for j in range(m):  # thread tx's words 4 tx + 4 n_tx g + e, ascending
+                        ks = tile * W + 4 * lane + n_tx * (j & ~3) + (j & 3)
+                        better = s[:, ks] < best
+                        best = np.where(better, s[:, ks], best)
+                        best_k = np.where(better, ks[None, :], best_k)
+                off = n_tx // 2
+                while off:
+                    ov, ok = best[:, lane ^ off], best_k[:, lane ^ off]
+                    take = (ov < best) | ((ov == best) & (ok < best_k))
+                    best, best_k = np.where(take, ov, best), np.where(take, ok, best_k)
+                    off //= 2
+                cand_v.append(best[:, 0])
+                cand_k.append(best_k[:, 0])
+            v, k = cand_v[0], cand_k[0]
+            for ov, ok in zip(cand_v[1:], cand_k[1:]):
+                take = (ov < v) | ((ov == v) & (ok < k))
+                v, k = np.where(take, ov, v), np.where(take, ok, k)
+            for r in range(nr):
+                total = np.float32(total + w[b, n0 + r])
+            for r in range(nr):
+                h[k[r]] = np.float32(h[k[r]] + w[b, n0 + r])
+        out[b] = h / np.maximum(total, np.float32(1e-6)) if normalize else h
+    return out
+
+
+def _weights(valids, kind, seed):
+    if kind == "bool":
+        return valids
+    if kind == "unit_f32":
+        return valids.astype(np.float32)
+    rng = np.random.default_rng(seed)
+    return (rng.random(valids.shape) * valids).astype(np.float32)
+
+
+CLUSTER_SHAPES = [(3, 32, 128, 250), (2, 45, 128, 7), (1, 100, 16, 700), (4, 5, 16, 130),
+                  (2, 65, 24, 64), (1, 40, 16, 1300)]
+
+
+@pytest.mark.parametrize("kind", ["bool", "unit_f32", "fractional"])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("B,N,D,K", CLUSTER_SHAPES)
+def test_cluster_replay_is_bit_equal_to_plain(B, N, D, K, normalize, kind):
+    """Row tiles of 32 (N = 40, 45, 65, 100 take two to four), one to
+    eight ranks (K = 700: six; K = 1300: eight, ranks 0-2 walking two word
+    tiles), the rank-0 merge and the ordered sums: the replay equals
+    `quantize_hist_plain` bit for bit, for both normalisations and for
+    bool, {0, 1} f32 and fractional weights."""
+    descs, valids, cents = _problem(B + N + D + K, B, N, D, K)
+    valids[0, : N // 2] = False
+    w = _weights(valids, kind, seed=K)
+    got = _replay_clusters(descs, w, cents, normalize)
+    want = tbow.quantize_hist_plain(torch.from_numpy(descs), torch.from_numpy(w),
+                                    torch.from_numpy(cents), normalize=normalize).numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind == "fractional":  # the CPU wrapper runs the same plain version
+        np.testing.assert_array_equal(
+            tbow.bow_quantize_hist(torch.from_numpy(descs), torch.from_numpy(w),
+                                   torch.from_numpy(cents), normalize=normalize).numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,D,K", [(3, 32, 128, 250), (2, 45, 128, 7), (1, 100, 16, 700),
+                                     (4, 5, 16, 130)])
+def test_cluster_replay_matches_jax_kernel(B, N, D, K):
+    """Against JAX's `bow_quantize_hist` (interpret mode): the counts by the
+    near-tie rule, and the normalised rows bit for bit wherever the counts
+    agree ({0, 1} weights: the total weight is the row's sum)."""
+    descs, valids, cents = _problem(B * N + K + 1, B, N, D, K)
+    args = (jnp.asarray(descs), jnp.asarray(valids), jnp.asarray(cents))
+    counts = _replay_clusters(descs, valids, cents, False)
+    want = np.asarray(jbow.bow_quantize_hist(*args, vc=VC, normalize=False))
+    assert assert_hist_near_tie_rule(counts, want, descs, valids, cents) == 0
+    same = np.all(counts == want, axis=1)
+    got_n = _replay_clusters(descs, valids, cents, True)
+    want_n = np.asarray(jbow.bow_quantize_hist(*args, vc=VC, normalize=True))
+    np.testing.assert_array_equal(got_n[same], want_n[same])
+
+
+@pytest.mark.parametrize("kind", ["bool", "unit_f32"])
+def test_unit_weight_normalisations_are_bit_equal(kind):
+    """With {0, 1} weights every sum is an exact integer: dividing by the
+    total weight (the kernel's) equals dividing by the row sum of the counts
+    (`normalize_hist`, JAX's), bit for bit; an all-invalid image stays 0."""
+    descs, valids, cents = _problem(31, 6, 40, 32, 90)
+    valids[2] = False
+    w = torch.from_numpy(_weights(valids, kind, seed=0))
+    d, c = torch.from_numpy(descs), torch.from_numpy(cents)
+    by_total = tbow.quantize_hist_plain(d, w, c, normalize=True)
+    by_rows = tbow.normalize_hist(tbow.quantize_hist_plain(d, w, c))
+    assert torch.equal(by_total, by_rows)
+    assert float(by_total[2].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("K,lo,hi", [(250, 10, 200), (1300, 130, 1030)])
+def test_cluster_replay_ties_across_ranks_go_low(K, lo, hi):
+    """Word `hi` duplicates word `lo` in another rank's tile (at K = 1300,
+    word 1030 is rank 0's second tile and word 130 rank 1's first, so a
+    merge that kept the lower rank on a tie would take 1030): rows sitting
+    on them tie exactly, and rank 0's merge keeps the lower word, as the
+    plain argmin does; so does a codebook of equal words."""
+    rng = np.random.default_rng(K + lo)
+    cents = rng.standard_normal((K, 24)).astype(np.float32)
+    cents[hi] = cents[lo]
+    descs = (cents[lo] + np.float32(1e-3) * rng.standard_normal((2, 40, 24))).astype(np.float32)
+    valids = np.ones((2, 40), bool)
+    got = _replay_clusters(descs, valids, cents, False)
+    want = tbow.quantize_hist_plain(torch.from_numpy(descs), torch.from_numpy(valids),
+                                    torch.from_numpy(cents)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[:, lo].sum() > 40 and got[:, hi].sum() == 0
+    flat = np.full((700, 24), 0.5, np.float32)
+    got = _replay_clusters(np.ones((1, 33, 24), np.float32), np.ones((1, 33), bool), flat, False)
+    assert got[0, 0] == 33 and got.sum() == 33
+
+
+def test_hist_cluster_geometry_matches_the_kernel():
+    """The replay's CTA is the kernel's (csrc/bow.cu kHist*): its
+    micro-tiles cover the tile's rows x words, a row group's threads are
+    lanes of one warp; `HIST_MIN_BLOCKS` CTAs an SM (its __launch_bounds__)
+    fit the SM's 228 KB of shared memory with the 1 KB each CTA reserves;
+    the cluster takes a rank per word tile, at most eight."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tbow.__file__).resolve().parents[1] / "csrc" / "bow.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    names = ("Rows", "Words", "Threads", "Chunk", "MicroRows", "MicroWords", "MinBlocks",
+             "MaxRanks")
+    assert tuple(int(consts[f"kHist{n}"]) for n in names) == (
+        tbow.HIST_ROWS, tbow.HIST_WORDS, tbow.HIST_THREADS, tbow.HIST_CHUNK,
+        tbow.HIST_MICRO_ROWS, tbow.HIST_MICRO_WORDS, tbow.HIST_MIN_BLOCKS, tbow.HIST_MAX_RANKS)
+    n_tx = tbow.HIST_WORDS // tbow.HIST_MICRO_WORDS
+    assert (tbow.HIST_ROWS // tbow.HIST_MICRO_ROWS) * n_tx == tbow.HIST_THREADS
+    assert n_tx <= 32 and 32 % n_tx == 0
+    assert "__launch_bounds__(kHistThreads, kHistMinBlocks)" in src
+    assert tbow.HIST_MIN_BLOCKS * (tbow.hist_smem_bytes() + 1024) <= 228 * 1024
+    # shared memory would hold eight CTAs an SM; the registers the 4 x 8
+    # micro-tiles take (108 on the H100) hold `HIST_MIN_BLOCKS`
+    assert 8 * (tbow.hist_smem_bytes() + 1024) <= 228 * 1024
+    assert tbow.hist_smem_bytes() <= 48 * 1024  # no opt-in attribute needed
+    assert [tbow.hist_ranks(K) for K in (1, 128, 129, 250, 512, 513, 700, 1300)] == \
+        [1, 1, 2, 2, 4, 5, 6, 8]
+    # the predict request's clusters fit the card at once (one wave)
+    assert 256 * tbow.hist_ranks(250) <= tbow.HIST_MIN_BLOCKS * 132

@@ -817,8 +817,9 @@ def test_tiled_search_matches_plain(dev, N, D, K):
 
 @pytest.mark.parametrize("B,N", [(256, 32), (7, 45), (1, 1)])
 def test_tiled_search_histograms_match_plain(dev, B, N):
-    """bow_quantize_hist flattens its (B, N) rows into the same search; an
-    image of invalid rows adds nothing."""
+    """bow_quantize_hist runs the same search, an image's rows in tiles of
+    32 against the word tiles of its cluster's ranks; an image of invalid
+    rows adds nothing."""
     g = torch.Generator(device=dev).manual_seed(B * N)
     descs = torch.randn((B, N, 128), generator=g, device=dev)
     cents = torch.randn((250, 128), generator=g, device=dev)
@@ -827,3 +828,117 @@ def test_tiled_search_histograms_match_plain(dev, B, N):
     got = kbow.bow_quantize_hist(descs, valids, cents, normalize=False)
     assert torch.equal(got, kbow.quantize_hist_plain(descs, valids, cents))
     assert float(got[0].sum()) == 0.0
+
+
+def _hist_problem(dev, B, N, D, K, weights, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    descs = torch.randn((B, N, D), generator=g, device=dev)
+    cents = torch.randn((K, D), generator=g, device=dev)
+    valid = torch.rand((B, N), generator=g, device=dev) < 0.8
+    if weights == "bool":
+        return descs, valid, cents
+    if weights == "unit_f32":
+        return descs, valid.float(), cents
+    # fractional: sums of these depend on their order
+    return descs, torch.rand((B, N), generator=g, device=dev) * valid, cents
+
+
+@pytest.mark.parametrize("weights", ["bool", "unit_f32", "fractional"])
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("B,N,D,K", [(3, 32, 128, 250), (2, 45, 128, 5), (1, 100, 16, 700),
+                                     (4, 5, 16, 33), (256, 32, 128, 250), (2, 100, 128, 33),
+                                     (1, 32, 128, 250), (2, 40, 16, 1300)])
+def test_bow_quantize_hist_clusters_are_bit_equal_and_deterministic(dev, B, N, D, K, normalize,
+                                                                    weights):
+    """One launch a call; two runs bit-identical and equal to the plain
+    version (weights added and totals summed in ascending n), also for
+    fractional weights; N over one row tile (40, 45, 100), K from one rank
+    (5, 33) to six (700) and to eight ranks, three of them walking two word
+    tiles (1300)."""
+    descs, valids, cents = _hist_problem(dev, B, N, D, K, weights, seed=B * N + K)
+    counters.reset()
+    got = kbow.bow_quantize_hist(descs, valids, cents, normalize=normalize)
+    again = kbow.bow_quantize_hist(descs, valids, cents, normalize=normalize)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["bow_quantize_hist"] == 2 and sum(counters.PLAIN_CALLS.values()) == 0
+    want = kbow.quantize_hist_plain(descs, valids, cents, normalize=normalize)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("weights", ["bool", "unit_f32"])
+def test_bow_quantize_hist_normalisations_agree_on_unit_weights(dev, weights):
+    """With {0, 1} weights every sum is an exact integer, so dividing by the
+    total weight (the kernel) equals dividing by the row sum of the counts
+    (`normalize_hist`, JAX's), bit for bit; an all-invalid image stays 0."""
+    descs, valids, cents = _hist_problem(dev, 64, 32, 128, 250, weights, seed=5)
+    valids[3] = 0
+    got = kbow.bow_quantize_hist(descs, valids, cents, normalize=True)
+    want = kbow.normalize_hist(kbow.quantize_hist_plain(descs, valids, cents))
+    assert torch.equal(got, want)
+    assert float(got[3].abs().sum()) == 0.0
+
+
+def test_bow_quantize_hist_is_one_kernel_a_call(dev):
+    """Under torch.profiler a call runs exactly one device activity, the
+    cluster kernel: no memset of the histogram, no cast of the bool valids,
+    no normalising launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    descs, valids, cents = _hist_problem(dev, 256, 32, 128, 250, "bool", seed=6)
+    kbow.bow_quantize_hist(descs, valids, cents)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kbow.bow_quantize_hist(descs, valids, cents)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 1, [e.name for e in device]
+    assert "quantize_hist_kernel" in device[0].name
+
+
+@pytest.mark.parametrize("K", [1, 128, 129, 250, 700, 1300])
+def test_bow_quantize_hist_geometry_is_the_planners(dev, K):
+    """The library's CTA shared memory and cluster size are the Python
+    side's, and the card holds the predict request's clusters at once."""
+    lib = _build.library("bow")
+    assert lib.quantize_hist_smem_bytes() == kbow.hist_smem_bytes()
+    assert lib.quantize_hist_ranks(K) == kbow.hist_ranks(K)
+    if K == 250:
+        assert lib.quantize_hist_max_clusters(K) >= 256
+
+
+def test_bow_quantize_hist_empty_shapes_launch_nothing(dev):
+    descs, valids, cents = _hist_problem(dev, 3, 4, 16, 5, "bool", seed=7)
+    counters.reset()
+    for d, v, c in ((descs[:, :0], valids[:, :0], cents), (descs, valids, cents[:0]),
+                    (descs[:0], valids[:0], cents)):
+        got = kbow.bow_quantize_hist(d.contiguous(), v.contiguous(), c.contiguous())
+        assert got.shape == (d.shape[0], c.shape[0]) and float(got.abs().sum()) == 0.0
+    assert counters.LAUNCHES["bow_quantize_hist"] == 0
+
+
+@pytest.mark.parametrize("ksize", list(range(1, 32, 2)))
+@pytest.mark.parametrize("shape", [(1, 1), (1, 300), (37, 53), (511, 513), (512, 512),
+                                   (20, 4096)])
+def test_seed_gaussian_blur_strips_match_plain(dev, ksize, shape):
+    """Every kernel size the launcher compiles, on planes of one pixel, one
+    row, odd sizes (byte-wise windows) and widths a multiple of 16 (16-byte
+    windows, edge tiles clamped)."""
+    x = _image(dev, shape, torch.uint8, seed=ksize * 7 + shape[1])
+    counters.reset()
+    got = unfused.seed_gaussian_blur_2d(x, ksize)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["seed_gaussian_blur"] == 1
+    assert torch.equal(got, unfused.seed_gaussian_blur_2d(x, ksize, mode="ref"))
+
+
+@pytest.mark.parametrize("ksize", [3, 15, 31])
+def test_seed_gaussian_blur_unaligned_planes_match_plain(dev, ksize):
+    """A plane whose first byte is not 16-byte aligned (a view one byte into
+    its storage) takes the byte-wise window and word-wise or byte stores."""
+    h, w = 64, 512
+    big = _image(dev, (h * w + 1,), torch.uint8, seed=ksize)
+    x = big[1:].view(h, w)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    got = unfused.seed_gaussian_blur_2d(x, ksize)
+    assert torch.equal(got, unfused.seed_gaussian_blur_2d(x, ksize, mode="ref"))

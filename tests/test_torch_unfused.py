@@ -140,3 +140,87 @@ def test_seed_plain_versions_equal_the_fused_oracles():
     k1 = tref.gaussian_kernel1d(7)
     assert torch.equal(unfused.seed_gaussian_blur_2d(x, 7), tref.sep_filter2d_ref(x, k1, k1))
     assert torch.equal(unfused.seed_erode_2d(x, 2), tref.erode_ref(x, 2))
+
+
+# ---------------------------------------------------------------------------
+# seed_gaussian_blur's strip walk (csrc/unfused.cu), in numpy
+# ---------------------------------------------------------------------------
+
+def _replay_blur_strips(x: np.ndarray, ksize: int) -> np.ndarray:
+    """`seed_gaussian_blur_kernel<ksize>` over an (H, W) u8 plane: tiles of
+    BLUR_ROWS x BLUR_COLS; each window is the tile's rows +- k/2 (clamped)
+    by BLUR_PAD columns either side, read in 16-byte segments (raw bytes
+    where a segment lies inside a plane of a width that is a multiple of 16,
+    else byte by byte with clamped columns); the row pass in strips of 4
+    outputs, output j of a strip reading window columns BLUR_PAD - k/2 + c +
+    j + q for taps q ascending; the column pass over 4 columns a tap; each
+    product and sum rounded to f32; rint and saturate; stores only inside
+    the plane, each pixel once."""
+    h, w = x.shape
+    k1 = tref.gaussian_kernel1d(ksize).numpy()
+    hk = ksize // 2
+    R, C, P = unfused.BLUR_ROWS, unfused.BLUR_COLS, unfused.BLUR_PAD
+    out = np.zeros((h, w), np.uint8)
+    stores = np.zeros((h, w), np.int32)
+    strips = 4 * np.arange(C // 4)
+    for y0 in range(0, h, R):
+        for x0 in range(0, w, C):
+            rows = np.clip(np.arange(y0 - hk, y0 + R + hk), 0, h - 1)
+            win = np.empty((R + 2 * hk, C + 2 * P), np.uint8)
+            for sg in range((C + 2 * P) // 16):
+                gx = x0 - P + 16 * sg
+                if w % 16 == 0 and gx >= 0 and gx + 16 <= w:
+                    win[:, 16 * sg:16 * sg + 16] = x[rows, gx:gx + 16]
+                else:
+                    cols = np.clip(np.arange(gx, gx + 16), 0, w - 1)
+                    win[:, 16 * sg:16 * sg + 16] = x[rows][:, cols]
+            v = win.astype(np.float32)
+            seg = v[:, (P - hk + strips)[:, None] + np.arange(ksize + 3)[None, :]]  # (rows, strip, k+3)
+            row = np.empty((R + 2 * hk, C // 4, 4), np.float32)
+            for o in range(4):
+                acc = k1[0] * seg[:, :, o]
+                for q in range(1, ksize):
+                    acc = acc + k1[q] * seg[:, :, o + q]
+                row[:, :, o] = acc
+            row = row.reshape(R + 2 * hk, C)
+            acc = k1[0] * row[0:R]
+            for q in range(1, ksize):
+                acc = acc + k1[q] * row[q:q + R]
+            tile = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+            ny, nx = min(R, h - y0), min(C, w - x0)
+            out[y0:y0 + ny, x0:x0 + nx] = tile[:ny, :nx]
+            stores[y0:y0 + ny, x0:x0 + nx] += 1
+    assert (stores == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("ksize", list(range(1, 32, 2)))
+@pytest.mark.parametrize("shape", [(1, 1), (1, 300), (37, 53), (511, 513), (48, 512)])
+def test_blur_strip_replay_is_bit_equal_to_plain(ksize, shape):
+    """Every kernel size, on one pixel, one row, odd sizes and a width that
+    is a multiple of 16 (16-byte segments, edge tiles clamped): the strip
+    walk equals `seed_gaussian_blur_2d_plain` bit for bit."""
+    x = _plane(shape, seed=ksize + shape[0] * 3)
+    want = unfused.seed_gaussian_blur_2d(torch.from_numpy(x), ksize).numpy()
+    np.testing.assert_array_equal(_replay_blur_strips(x, ksize), want)
+
+
+def test_blur_block_geometry_matches_the_kernel():
+    """The replay's block is the kernel's (csrc/unfused.cu kBlurRows,
+    kBlurCols, kBlurPad, kBlurThreads); the pad covers the largest halo
+    (15) in one 16-byte segment; a block's static shared memory at k = 31
+    (the u8 window and the f32 row pass) stays within 48 KB; a 512x512
+    plane is one wave of blocks on 132 SMs."""
+    import re
+
+    src = (ROOT / "src" / "repro_torch" / "csrc" / "unfused.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kBlurRows"]), int(consts["kBlurCols"]), int(consts["kBlurPad"]),
+            int(consts["kBlurThreads"])) == (unfused.BLUR_ROWS, unfused.BLUR_COLS,
+                                             unfused.BLUR_PAD, unfused.BLUR_THREADS)
+    assert unfused.BLUR_PAD == 16 and unfused.BLUR_PAD >= 31 // 2 and unfused.BLUR_COLS % 16 == 0
+    wh = unfused.BLUR_ROWS + 2 * (31 // 2)
+    assert wh * (unfused.BLUR_COLS + 2 * unfused.BLUR_PAD) + 4 * wh * unfused.BLUR_COLS <= 48 * 1024
+    assert -(-512 // unfused.BLUR_ROWS) * -(-512 // unfused.BLUR_COLS) <= 132
+    for k in range(1, 32, 2):
+        assert f"case {k}: return launch_blur<{k}>" in src
