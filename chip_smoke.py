@@ -49,8 +49,9 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      gaussian_filter2d k = 5 and 13;
   6. the fused-vs-staged-vs-seed pipeline benchmark (`pipeline_phase`):
      the seed kernels against their plain versions (512x512, 1081x1919,
-     37x53 and 511x513 u8, blur k = 1..31 on the odd sizes, r = 1, 2, 3,
-     the thresholds of the seed's table), max_abs_err 0; then `scripts/torch_pipeline_bench.py` `run`:
+     37x53, 511x513, a 300x1 plane and a 37x53 plane at an odd address,
+     blur k = 1..31, erode r = 0-3, 7, 12, 32 and the thresholds of the
+     seed's table on all but the first two), max_abs_err 0; then `scripts/torch_pipeline_bench.py` `run`:
      the chain gaussian(5) -> erode(1) -> threshold(100) on (8, 512, 512,
      3) u8 fused in every mode (one launch each, bit-identical to the plain
      version), staged (72 stencil launches) and seed (24 launches of each
@@ -64,8 +65,10 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      at odd sizes with several tiles and segments; each octave kernel's
      device time with and without the next base; and each seed kernel's
      device time (a CUDA graph of 100 calls replayed), plain time, bound
-     and library call (`conv2d` for the blur, `torch.where` for the
-     threshold);
+     and library call (`conv2d` for the blur, `max_pool2d` of the negated
+     plane for the erode, checked equal to it, `torch.where` for the
+     threshold), beside the launch floor (a graph of 100 one-element
+     in-place adds);
   7. the geometric path (`geometric_phase`): `imgproc.warp_affine` (a
      1-degree rotation about the centre and a (4, -3) translation),
      `imgproc.remap` (an identity map plus a smooth field), `resize_half`,
@@ -626,20 +629,24 @@ def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: di
         return err
 
     # -- the seed kernels against their plain versions -------------------------
+    # the odd sizes, a width-1 plane and a plane at an odd address (a slice of
+    # a larger buffer at an element offset) take every radius and threshold
+    flat = u8(37 * 53 + 16)
     for name, x in (("512x512", u8(512, 512)), ("1081x1919", u8(1081, 1919)),
-                    ("37x53", u8(37, 53)), ("511x513", u8(511, 513))):
-        small = name in ("37x53", "511x513")
+                    ("37x53", u8(37, 53)), ("511x513", u8(511, 513)), ("300x1", u8(300, 1)),
+                    ("37x53 at byte offset 3", flat[3:3 + 37 * 53].view(37, 53))):
+        small = name not in ("512x512", "1081x1919")
         for k in range(1, 32, 2) if small else (5,):
             exact("seed_gaussian_blur", f"seed blur k={k} {name}",
                   unfused.seed_gaussian_blur_2d(x, k), unfused.seed_gaussian_blur_2d(x, k, mode="ref"))
-        for r in (1, 2, 3) if small else (1,):
+        for r in (0, 1, 2, 3, 7, 12, 32) if small else (1,):
             exact("seed_erode", f"seed erode r={r} {name}",
                   unfused.seed_erode_2d(x, r), unfused.seed_erode_2d(x, r, mode="ref"))
         for t in SEED_THRESHOLDS if small else (100.0,):
             exact("seed_threshold", f"seed threshold {t} {name}",
                   unfused.seed_threshold_2d(x, t), unfused.seed_threshold_2d(x, t, mode="ref"))
         print(f"check seed kernels {name} u8: max_abs_err 0 (blur k={'1..31' if small else 5}, "
-              f"erode r={(1, 2, 3) if small else 1}, thresholds "
+              f"erode r={(0, 1, 2, 3, 7, 12, 32) if small else 1}, thresholds "
               f"{SEED_THRESHOLDS if small else (100.0,)})")
 
     # -- the pipeline path and the octave with its next base, by the bench -------
@@ -745,13 +752,27 @@ def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: di
     hi, lo = (torch.tensor(v, dtype=torch.uint8, device=dev) for v in (255, 0))
     check(torch.equal(torch.where(plane > t8, hi, lo), unfused.seed_threshold_2d(plane, bench.THRESH)),
           "torch.where differs from the seed threshold")
+    # the erode's library call: a max filter of the negated plane, widened to
+    # f32 and edge-padded outside the timed call, as the blur's conv2d is
+    rr = bench.ERODE_R
+    xneg = (-ref.pad_replicate(plane.float(), rr, rr))[None, None].contiguous()
+    pooled = (-F.max_pool2d(xneg, 2 * rr + 1, stride=1))[0, 0].to(torch.uint8)
+    check(torch.equal(pooled, unfused.seed_erode_2d(plane, rr)),
+          "-max_pool2d(-x) differs from the seed erode")
+    # the launch floor: a graph of 100 launches of the shortest kernel
+    # PyTorch has, a one-element in-place add; no bound, the time a kernel
+    # as short as a launch takes
+    one = torch.zeros(1, device=dev)
+    floor = [bench.graph_ms(lambda: one.add_(1), reps=100) for _ in range(2)]
+    print(f"time launch floor (one.add_(1), graph replay of 100 calls): "
+          f"{floor[0]:.5f}/{floor[1]:.5f} ms card={card}")
     seeds = {
         "seed_gaussian_blur": (lambda: unfused.seed_gaussian_blur_2d(plane, bench.BLUR_K),
                                lambda: unfused.seed_gaussian_blur_2d(plane, bench.BLUR_K, mode="ref"),
                                lambda: F.conv2d(xpad, wt), 2 * 2 * bench.BLUR_K),
         "seed_erode": (lambda: unfused.seed_erode_2d(plane, bench.ERODE_R),
                        lambda: unfused.seed_erode_2d(plane, bench.ERODE_R, mode="ref"),
-                       None, 2 * 2 * bench.ERODE_R),
+                       lambda: F.max_pool2d(xneg, 2 * rr + 1, stride=1), 2 * 2 * bench.ERODE_R),
         "seed_threshold": (lambda: unfused.seed_threshold_2d(plane, bench.THRESH),
                            lambda: unfused.seed_threshold_2d(plane, bench.THRESH, mode="ref"),
                            lambda: torch.where(plane > t8, hi, lo), 1),
@@ -776,7 +797,8 @@ def pipeline_phase(dev, card: str, max_err: dict, path_counts: dict, results: di
         print(f"time {name} (one 512x512 u8 plane, graph replay): ms={k_1:.5f}/{k_2:.5f} "
               f"plain_ms={p1:.4f}/{p2:.4f} library_ms={lib_ms} issued_ms={issued:.5f} "
               f"bound_ms={bms:.6f} ({by}; {n_bytes} B, {n_px * flops_px} FLOP) card={card}")
-    results["pipeline"] = {"bench": row, "octave": o_row, "octave_ms": o_ms, "seed_times": timings}
+    results["pipeline"] = {"bench": row, "octave": o_row, "octave_ms": o_ms, "seed_times": timings,
+                           "launch_floor_ms": floor}
     return timings
 
 

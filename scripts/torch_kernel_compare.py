@@ -22,13 +22,18 @@ pyrUp at 1080p / 4K u8, the 4-octave pyramid's links at 512x512, 1080p and
 `bow_assign` at 32,000 x 128 x 250 and `bow_quantize_hist` at a request
 of 256 x 32 x 128 (K = 250, bool valids); `gbdt_score` at a request of 256
 histograms of 250 words against 16 trees of depth 3 and 10 classes; the
-seed kernels on one 512x512 u8 plane (blur k = 5, erode r = 1, threshold
-100); and, for the bow group, `bow_quantize_hist` with fractional weights
-run 20 times (distinct results, difference from the plain version).  Each
-is timed as the faster of two CUDA-event means of
-20 calls (``ms``, host issue included) and of two replays of a CUDA graph
-of 20 calls (``graph_ms``, device time).  Prints the card's name and power
-limit first.  Exits non-zero without a CUDA device.
+seed kernels on one 512x512 u8 plane (blur k = 5, erode r = 1, 2, 3, 7,
+12, 32, threshold 100), the seed rung (`seed_pipeline` on (8, 512, 512, 3)
+u8, 72 launches) and the launch floor (a one-element in-place add, the
+shortest kernel PyTorch launches); and, for the bow group,
+`bow_quantize_hist` with fractional weights run 20 times (distinct results,
+difference from the plain version).  Each is timed as the faster of two
+CUDA-event means of 20 calls (``ms``, host issue included) and of two
+replays of a CUDA graph of 20 calls (``graph_ms``, device time); the seed
+group also as two replays of a graph of 100 calls by
+`scripts/torch_pipeline_bench.py`'s `graph_ms` (``graph100_ms``, as
+chip_smoke.py times them).  Prints the card's name and power limit first.
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -209,15 +214,37 @@ def gbdt_cases(dev) -> dict:
 
 
 def seed_cases(dev) -> dict:
+    import torch
+
     from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels import unfused
 
-    plane = ImageStream().image((512, 512), seed=4).to(dev).contiguous()
+    st = ImageStream()
+    plane = st.image((512, 512), seed=4).to(dev).contiguous()
+    batch = torch.stack([st.image((512, 512), channels=3, seed=b) for b in range(8)]).to(dev)
+    one = torch.zeros(1, device=dev)
     return {
+        # the launch floor: the shortest kernel PyTorch launches, no kernel of the port
+        "launch floor one.add_(1)": lambda: one.add_(1),
         "seed_gaussian_blur 512x512 u8 k=5": lambda: unfused.seed_gaussian_blur_2d(plane, 5),
-        "seed_erode 512x512 u8 r=1": lambda: unfused.seed_erode_2d(plane, 1),
+        **{f"seed_erode 512x512 u8 r={r}": lambda r=r: unfused.seed_erode_2d(plane, r)
+           for r in (1, 2, 3, 7, 12, 32)},
         "seed_threshold 512x512 u8 t=100": lambda: unfused.seed_threshold_2d(plane, 100.0),
+        "seed rung (8,512,512,3) u8, 72 launches": lambda: unfused.seed_pipeline(
+            batch, blur_ksize=5, erode_r=1, thresh=100.0),
     }
+
+
+def pipeline_graph_ms():
+    """`scripts/torch_pipeline_bench.py`'s `graph_ms`, which chip_smoke.py
+    times the seed kernels and the launch floor with (a graph of 100 calls)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_pipeline_bench", Path(__file__).resolve().parent / "torch_pipeline_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.graph_ms
 
 
 def main() -> int:
@@ -252,15 +279,24 @@ def main() -> int:
                  "graph_ms": min(graph_ms(fn), graph_ms(fn))}
             results["times"][name] = t
             print(f"{tag} {name}: ms={t['ms']:.5f} graph_ms={t['graph_ms']:.5f}", flush=True)
-    calls = {}
+    calls, seed_calls = {}, {}
     for group, make in (("bow", bow_cases), ("gbdt", gbdt_cases), ("seed", seed_cases)):
         if group in groups:
-            calls |= make(dev)
+            made = make(dev)
+            calls |= made
+            if group == "seed":
+                seed_calls = made
+    graph100 = pipeline_graph_ms() if seed_calls else None
     for name, fn in calls.items():
         t = {"ms": min(event_ms(fn, 50), event_ms(fn, 50)),
              "graph_ms": min(graph_ms(fn), graph_ms(fn))}
+        extra = ""
+        if name in seed_calls:
+            # also as chip_smoke.py times them: one graph of 100 calls, twice
+            t["graph100_ms"] = [graph100(fn, reps=100), graph100(fn, reps=100)]
+            extra = f" graph100_ms={t['graph100_ms'][0]:.5f}/{t['graph100_ms'][1]:.5f}"
         results["times"][name] = t
-        print(f"{tag} {name}: ms={t['ms']:.5f} graph_ms={t['graph_ms']:.5f}", flush=True)
+        print(f"{tag} {name}: ms={t['ms']:.5f} graph_ms={t['graph_ms']:.5f}{extra}", flush=True)
     if "bow" in groups:
         results["hist_fractional_weights"] = hist_determinism(dev)
     out = Path(__file__).resolve().parents[1] / "chiprun_out"

@@ -16,7 +16,15 @@ one wave), copies its window (`BLUR_PAD` columns either side) in 16-byte
 segments, clamping only at the plane's edges, runs the row pass in register
 strips of 4 outputs and the column pass from shared memory, one barrier
 between them; the kernel is compiled per odd ksize and takes its taps by
-value (`_host_taps`).  Each wrapper takes one (H, W) u8
+value (`_host_taps`).  The erode is built the same way: a block of
+`ERODE_THREADS` takes an `ERODE_ROWS` x `ERODE_COLS` tile, copies its window
+in 16-byte segments, and each thread takes a 16-byte output strip: the min
+over 2r+1 rows four pixels an instruction (`__vminu4`), then over 2r+1
+columns from byte-shifted words (`__byte_perm`), one 16-byte store; a
+kernel per r in `ERODE_UNROLLED`, generic bodies above (`ERODE_GENERIC`).
+The threshold takes 16 bytes a thread (`THRESH_THREADS` a block, one wave
+at 512x512), one packed compare a word (`__vcmpgtu4`), the unaligned head
+and the tail byte by byte in the same launch.  Each wrapper takes one (H, W) u8
 plane: the benchmark uses u8 only, and any other dtype raises `ValueError`
 (the JAX seed's other carriers are left to port, ROADMAP).
 
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
@@ -51,6 +60,18 @@ BLUR_ROWS = 16
 BLUR_COLS = 128
 BLUR_PAD = 16
 BLUR_THREADS = 256
+# seed_erode's block (csrc/unfused.cu kErodeRows, kErodeCols, kErodeThreads,
+# kErodeMaxR): output tile, threads (one 16-byte output strip each), the
+# largest radius; r = 0..3 have a kernel each, larger r the generic body
+# sized for the least of ERODE_GENERIC at or above r
+ERODE_ROWS = 16
+ERODE_COLS = 128
+ERODE_THREADS = 128
+ERODE_MAX_R = 32
+ERODE_UNROLLED = (0, 1, 2, 3)
+ERODE_GENERIC = (8, 16, 32)
+# seed_threshold's block (csrc/unfused.cu kThreshThreads): one 16-byte vector a thread
+THRESH_THREADS = 256
 
 
 @functools.cache
@@ -65,11 +86,13 @@ def _launchers():
     return fns
 
 
+@functools.cache
 def to_u8(v: float) -> int:
     """A Python number cast to u8 as JAX casts it on the CPU: rounded to f32
     (`jnp.asarray`), truncated toward zero, then wrapped modulo 256 (-1 ->
-    255, 300 -> 44, 255.99999999 -> 256.0f -> 0)."""
-    return int(torch.tensor(v, dtype=torch.float32).item()) % 256
+    255, 300 -> 44, 255.99999999 -> 256.0f -> 0).  A pure function of `v`,
+    computed on the host without a tensor and cached."""
+    return int(struct.unpack("f", struct.pack("f", v))[0]) % 256
 
 
 def _check_plane(name: str, img: torch.Tensor, mode) -> bool:

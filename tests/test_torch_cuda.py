@@ -230,9 +230,17 @@ def test_seed_gaussian_blur_matches_plain(dev, ksize, shape):
     assert torch.equal(got, unfused.seed_gaussian_blur_2d(x, ksize, mode="ref"))
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
-@pytest.mark.parametrize("shape", [(37, 53), (512, 512), (1081, 1919)])
+# one pixel, one row, one column, odd sizes, a width that is a multiple of
+# 16, the benchmark's plane and an odd 1080p
+SEED_SHAPES = [(1, 1), (1, 300), (300, 1), (37, 53), (511, 513), (48, 512), (512, 512),
+               (1081, 1919)]
+SEED_THRESHOLDS = [0, 100.5, 254.5, 255.9, 255.99999999, 256, -0.5, -1, -5, 300, 511.7, -256]
+
+
+@pytest.mark.parametrize("r", [0, 1, 2, 3, 7, 12, 32])
+@pytest.mark.parametrize("shape", SEED_SHAPES)
 def test_seed_erode_matches_plain(dev, r, shape):
+    """r = 0..3 (a kernel each) and the generic bodies at 7, 12 and 32, bit for bit."""
     x = _image(dev, shape, torch.uint8, seed=r + shape[1])
     counters.reset()
     got = unfused.seed_erode_2d(x, r)
@@ -241,12 +249,48 @@ def test_seed_erode_matches_plain(dev, r, shape):
     assert torch.equal(got, unfused.seed_erode_2d(x, r, mode="ref"))
 
 
-@pytest.mark.parametrize(
-    "thresh", [0, 100.5, 254.5, 255.9, 255.99999999, 256, -0.5, -1, -5, 300, 511.7, -256])
-def test_seed_threshold_matches_plain(dev, thresh):
-    x = (torch.arange(37 * 53, device=dev) % 256).to(torch.uint8).reshape(37, 53)  # every value
+@pytest.mark.parametrize("thresh", SEED_THRESHOLDS)
+@pytest.mark.parametrize("shape", SEED_SHAPES)
+def test_seed_threshold_matches_plain(dev, thresh, shape):
+    """Every threshold of the table on every shape, every u8 value present
+    where the plane has room for it."""
+    x = _image(dev, shape, torch.uint8, seed=shape[0] + shape[1])
+    n = min(256, x.numel())
+    x.view(-1)[:n] = torch.arange(n, device=dev).to(torch.uint8)
+    counters.reset()
     got = unfused.seed_threshold_2d(x, thresh)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["seed_threshold"] == 1
     assert torch.equal(got, unfused.seed_threshold_2d(x, thresh, mode="ref"))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(1, 300), (37, 53), (48, 512), (512, 512)])
+def test_seed_erode_and_threshold_on_unaligned_views(dev, offset, shape):
+    """A contiguous plane at an odd (or 8-byte) address, as a slice of a
+    larger buffer at an element offset is, and a column slice made
+    contiguous: both kernels bit-equal to their plain versions."""
+    h, w = shape
+    flat = _image(dev, (h * w + 16,), torch.uint8, seed=offset + w)
+    views = [flat[offset:offset + h * w].view(h, w),
+             _image(dev, (h, w + 8), torch.uint8, seed=offset)[:, 3:3 + w].contiguous()]
+    assert views[0].is_contiguous() and views[0].data_ptr() % 16 == (flat.data_ptr() + offset) % 16 != 0
+    for x in views:
+        for r in (0, 1, 3, 7):
+            assert torch.equal(unfused.seed_erode_2d(x, r), unfused.seed_erode_2d(x, r, mode="ref"))
+        for t in (0, 100.5, -1, 255.9):
+            assert torch.equal(unfused.seed_threshold_2d(x, t),
+                               unfused.seed_threshold_2d(x, t, mode="ref"))
+    torch.cuda.synchronize()
+
+
+def test_seed_erode_and_threshold_are_deterministic(dev):
+    """100 runs of each kernel on one 512x512 plane give one result."""
+    x = _image(dev, (512, 512), torch.uint8, seed=5)
+    for fn in (lambda: unfused.seed_erode_2d(x, 1), lambda: unfused.seed_erode_2d(x, 7),
+               lambda: unfused.seed_threshold_2d(x, 100.0)):
+        first = fn()
+        assert all(torch.equal(fn(), first) for _ in range(100))
 
 
 def test_seed_pipeline_launches_per_plane_and_equals_staged(dev):
