@@ -8,10 +8,13 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 10 repeats it on the path's tensors;
+     shapes beyond the BoW path's (phase 11 repeats it on the path's tensors;
      `bow_quantize_hist` bit for bit, unnormalised and normalised, with the
      valids and with fractional weights, two runs bit-identical, at N = 32,
-     45, 100 and K = 5 to 1300, one to eight CTAs a cluster);
+     45, 100 and K = 5 to 1300, one to eight CTAs a cluster; `gbdt_score`
+     bit for bit and one launch at 16, 40 and 64 trees, 10 and 33 classes,
+     B = 1, 7, 256 and 1024, with x == thr at every level of tree 0 in the
+     first rows, and a 655,360-byte leaf table, 64 trees of depth 8);
      each chain runs under the kernel `mode=None` resolves to and under the
      window kernel; then the chains fixed-size tables once refused
      (`table_phase`): even taps (2x2, 4x4, 6/6 separable, odd x even) and
@@ -106,7 +109,19 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      walls and graph-replay device times); then pyr_up's times (both
      kernels, plain, `conv_transpose2d`, bound) and each pyramid link's
      mode, time, plain time and bound;
-  9. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
+  9. measured routing (`routing_phase`): `autotune.measure_chain` (n = 3)
+     on each of phase 5's 24 shapes and `measure_pyramid` on a 512x512
+     pyramid's 4 links, the plan table in a temporary directory; per shape
+     the fit rule's mode, the measured winner and their times; then
+     ``fused_chain(mode=None)`` / ``chained_launches(mode=None)`` launch
+     each winner's kernel (exact launch counts, no plain call) bit-equal to
+     the winner's explicit mode, from the cache and again from the table
+     read back under ``REPRO_TORCH_AUTOTUNE_CACHE_READ=1``; last one
+     injected ``lowering_error`` under the ladder ("streaming", "window"):
+     exactly one event, injected, and one `stencil_chain` launch; then the
+     benchmark's `run_small_kernel_routing`.  Every other phase ends with
+     an empty degradation log and no fault armed;
+ 10. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
      d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
      from a seeded generator; `flash_attention` held against its plain
      version within `kernels.attention.AGREE` (one rounding to the output
@@ -126,17 +141,19 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
      and the bf16 paths' logits within twice the bf16 model's own error;
-  10. on the paths' own tensors (the first request, the training
+ 11. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, count the device activities of one `bow_quantize_hist`
      call with torch.profiler (exactly its kernel: no memset, cast or
      normalising launch), then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 11. print the window arithmetic of the request's octave with its frames
+ 12. print the window arithmetic of the request's octave with its frames
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
-     the ``kernels`` JSON line (all ten kernels; `stencil_stream` at
-     the 4K u8 gaussian_filter2d k = 13 under mode=None, `flash_attention`
-     at the prefill's layer 0, the seed kernels on one 512x512 u8 plane),
+     the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
+     kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
+     mode=None, `flash_attention` at the prefill's layer 0, the seed kernels
+     on one 512x512 u8 plane, `gbdt_score`'s graph time beside the launch
+     floor),
      then the card line and the device line.
 
 Each path is driven with the launch counters set to 0 just before it and
@@ -1278,6 +1295,218 @@ def pyramid_phase(dev, card: str, max_err: dict, path_counts: dict, results: dic
                           "bench": row}
 
 
+def phase_clean(what: str) -> None:
+    """Each phase ends with an empty degradation log and no fault armed (a
+    rung change that was not injected fails the run), and the next starts
+    with an empty mode cache."""
+    from repro_torch.core import autotune, faultinject
+
+    log = faultinject.degradation_log()
+    check(not log, f"{what}: degradation events {log}")
+    check(faultinject.registry() is None, f"{what}: a fault is armed")
+    autotune.clear_mode_cache()
+
+
+ROUTING_LADDER = ("streaming", "window")
+
+
+def refused(fn) -> str:
+    """The `ValueError` message of `fn()`, or "" when it did not raise one."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def resolve_us(case: dict, n: int = 2000) -> float:
+    """Host microseconds a call of `stencil.resolve_mode` takes for `case`,
+    as `fused_chain(mode=None)` asks it."""
+    from repro_torch.kernels import ref, stencil
+
+    img, chain = case["img"], case["chain"]
+    planes, shape = ref.to_planes(img).shape, tuple(img.shape)
+    stencil.resolve_mode(chain, planes, img.dtype, img_shape=shape, device=img.device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        stencil.resolve_mode(chain, planes, img.dtype, img_shape=shape, device=img.device)
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def routing_phase(dev, card: str, cases: list, path_counts: dict, results: dict) -> None:
+    """Measured routing (`core.autotune`): `measure_chain` with n = 3 on each
+    of the 24 image-path shapes and `measure_pyramid` on the 512x512
+    pyramid's 4 links, the plan table in a temporary directory; then
+    ``fused_chain(mode=None)`` / ``chained_launches(mode=None)`` must launch
+    each winner's kernel (by the launch counters) with every band bit-equal
+    to the winner's explicit mode, from the in-process cache and again from
+    the table read back under ``REPRO_TORCH_AUTOTUNE_CACHE_READ=1``; no
+    plain version is called.  Last, one injected ``lowering_error`` under the
+    explicit ladder ("streaming", "window") must record exactly one event,
+    injected, and launch `stencil_chain` once: the only event of the run.
+    Then the benchmark's `run_small_kernel_routing`."""
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.core import autotune, faultinject
+    from repro_torch.cv import features
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ref, stencil
+
+    t0 = time.perf_counter()
+
+    def kernel(mode):
+        return "stencil_chain" if mode == "window" else "stencil_stream"
+
+    g = ImageStream().image((512, 512), channels=1, seed=0).to(dev).float()[None, ..., None]
+    chains = features.pyramid_chains(4)
+    saved = {k: os.environ.get(k) for k in (autotune.CACHE_ENV, autotune.CACHE_READ_ENV)}
+    rows, winners = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        table = os.path.join(tmp, "chain_autotune.json")
+        os.environ[autotune.CACHE_ENV] = table
+        os.environ.pop(autotune.CACHE_READ_ENV, None)
+        autotune.clear_mode_cache()
+        counters.reset()
+        try:
+            for case in cases:
+                img, chain = case["img"], case["chain"]
+                planes = ref.to_planes(img)
+                fit = stencil.fit_mode(chain, planes.shape, img.dtype)
+                e = autotune.measure_chain(img, chain, n=3)
+                check(fit in e["times"], f"routing {case['name']}: the fit rule's {fit} not timed")
+                winners[case["name"]] = e["mode"]
+                rows[case["name"]] = {"fit": fit, "winner": e["mode"], "times_s": e["times"]}
+                print(f"routing {case['name']}: fit rule {fit} "
+                      f"{e['times'][fit] * 1e3:.5f} ms, measured winner {e['mode']} "
+                      f"{e['times'][e['mode']] * 1e3:.5f} ms; "
+                      + " ".join(f"{m}={t * 1e3:.5f}" for m, t in e["times"].items())
+                      + f" ms card={card}")
+            links = autotune.measure_pyramid(g, chains, n=3)
+            base = g
+            for k, (chain, e) in enumerate(zip(chains, links, strict=True)):
+                planes = ref.to_planes(base)
+                fit = stencil.fit_mode(chain, planes.shape, base.dtype)
+                name = f"pyramid 512x512 link {k} {tuple(planes.shape[1:])}"
+                rows[name] = {"fit": fit, "winner": e["mode"], "times_s": e["times"]}
+                print(f"routing {name}: fit rule {fit} "
+                      + (f"{e['times'][fit] * 1e3:.5f} ms" if fit in e["times"] else "(not timed)")
+                      + f", measured winner {e['mode']} {e['times'][e['mode']] * 1e3:.5f} ms; "
+                      + " ".join(f"{m}={t * 1e3:.5f}" for m, t in e["times"].items())
+                      + f" ms card={card}")
+                base = stencil.fused_chain(base, chain, mode=e["mode"])[-1]
+            snap = counters.snapshot()
+            check(not any(snap["plain_calls"].values()), f"measure: plain calls {snap}")
+            check(len(json.loads(Path(table).read_text())) == len(cases) + len(chains),
+                  "routing: the plan table does not hold every measurement")
+
+            def route(tag):
+                for case in cases:
+                    img, chain, w = case["img"], case["chain"], winners[case["name"]]
+                    got, snap = counted(counters, lambda: stencil.fused_chain(img, chain))
+                    expect_counts(f"routing {tag} {case['name']} mode=None", snap, {kernel(w): 1})
+                    want = stencil.fused_chain(img, chain, mode=w)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(as_tuple(got), as_tuple(want),
+                                                              strict=True)),
+                          f"routing {tag} {case['name']}: mode None differs from {w}")
+                    path_counts[f"routing {tag} {case['name']}"] = snap
+                kernels = [kernel(e["mode"]) for e in links]
+                (outs, _), snap = counted(counters, lambda: stencil.chained_launches(g, chains))
+                expect_counts(f"routing {tag} pyramid mode=None", snap,
+                              {k: kernels.count(k) for k in set(kernels)})
+                path_counts[f"routing {tag} pyramid"] = snap
+                base = g
+                for k, (chain, e) in enumerate(zip(chains, links, strict=True)):
+                    want = as_tuple(stencil.fused_chain(base, chain, mode=e["mode"]))
+                    torch.cuda.synchronize()
+                    bands = want if k == len(chains) - 1 else want[:-1]  # less the carry
+                    check(len(outs[k]) == len(bands) and all(
+                        torch.equal(a, b) for a, b in zip(outs[k], bands)),
+                          f"routing {tag} pyramid link {k}: differs from {e['mode']}")
+                    base = want[-1]
+
+            route("measured")
+            wins = sum(r["winner"] == "window" for n, r in rows.items() if "link" not in n)
+            lookup_us = {"hit": resolve_us(cases[0])}
+            # the table read back routes the same way
+            autotune.clear_mode_cache()
+            os.environ[autotune.CACHE_READ_ENV] = "1"
+            for case in cases:
+                hit = autotune.cached_chain_mode(case["chain"], case["img"].shape,
+                                                 case["img"].dtype, device=dev)
+                check(hit == winners[case["name"]], f"read back {case['name']}: {hit}")
+            route("read back")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            autotune.clear_mode_cache()
+
+    lookup_us["nothing measured"] = resolve_us(cases[0])
+    print("time resolve_mode (mode=None's lookup, host) per call: "
+          + ", ".join(f"{k} {v:.3f} us" for k, v in lookup_us.items()) + f" card={card}")
+
+    # one injected rung change under an explicit ladder: the run's only event
+    case = next(c for c in cases if c["name"].startswith("acceptance"))
+    # the plain version is never a rung on the card: a ladder that moves to
+    # it, or a process-default mode "ref", raises before anything runs
+    counters.reset()
+    prev = stencil.set_default_chain_mode("ref")
+    try:
+        refusals = [refused(lambda: stencil.fused_chain(case["img"], case["chain"]))]
+    finally:
+        stencil.set_default_chain_mode(prev)
+    refusals.append(refused(lambda: stencil.fused_chain(case["img"], case["chain"], mode="window",
+                                                        ladder=("window", "ref"))))
+    snap = counters.snapshot()
+    check(all(refusals), f"'ref' on the card: not refused ({refusals})")
+    check(not any(snap["launches"].values()) and not any(snap["plain_calls"].values()),
+          f"'ref' on the card: something ran before the refusal {snap}")
+    print(f"check 'ref' on the card: default mode refused ({refusals[0]}); ladder refused "
+          f"({refusals[1]}); nothing launched")
+    check(stencil.fit_mode(case["chain"], ref.to_planes(case["img"]).shape,
+                           case["img"].dtype) == "streaming", "the acceptance chain must stream")
+    with faultinject.inject("lowering_error:count=1"):
+        got, snap = counted(counters, lambda: stencil.fused_chain(
+            case["img"], case["chain"], mode="streaming", ladder=ROUTING_LADDER))
+    expect_counts("injected lowering_error under the ladder", snap, {"stencil_chain": 1})
+    path_counts["routing injected lowering_error"] = snap
+    check(torch.equal(got, stencil.fused_chain(case["img"], case["chain"], mode="window")),
+          "the ladder's window rung differs from mode window")
+    log = faultinject.degradation_log()
+    check(len(log) == 1 and log[0].injected and (log[0].from_plan, log[0].to_plan)
+          == ROUTING_LADDER, f"injected lowering_error: events {log}")
+    print(f"check injected lowering_error under ladder {ROUTING_LADDER}: one event "
+          f"({log[0].stage}: {log[0].from_plan} -> {log[0].to_plan}, injected, {log[0].reason}), "
+          f"{snap_nonzero(snap)}")
+    faultinject.clear_degradation_log()  # the one event the run allows
+
+    # the benchmark's own routing check (3x3 filter2D, erode r = 3)
+    bench_rows, rec = load_bench().run_small_kernel_routing(dev)
+    path_counts.update(rec.paths)
+    for r in bench_rows:
+        times = " ".join(f"{k}={v * 1e3:.5f}" for k, v in r.items() if k.endswith("_s"))
+        print(f"check run_small_kernel_routing {r['case']} ({r['batch']} u8): mode None launched "
+              f"the measured winner {r['routed_mode']} once, bit-equal; ms: {times} card={card}")
+    autotune.clear_mode_cache()
+    n_img = len(cases)
+    wall = time.perf_counter() - t0
+    print(f"routing: the window kernel measured fastest on {wins} of {n_img} image-path shapes "
+          f"(the fit rule picks it on "
+          f"{sum(r['fit'] == 'window' for n, r in rows.items() if 'link' not in n)}); "
+          f"mode None launched every winner, bit-equal, from the cache and from the table read "
+          f"back; phase wall {wall:.2f} s card={card}")
+    results["routing"] = {"rows": rows, "window_wins": wins, "wall_s": wall,
+                          "resolve_us": lookup_us,
+                          "small_kernel_routing": bench_rows,
+                          "event": {f: getattr(log[0], f) for f in
+                                    ("stage", "from_plan", "to_plan", "reason", "injected")}}
+
+
 def snap_nonzero(snap: dict) -> dict:
     return {k: v for k, v in snap["launches"].items() if v}
 
@@ -1789,7 +2018,9 @@ def main() -> int:
         return got_i
 
     def check_gbdt(name, x, m):
+        counters.reset()
         got_s, got_li = kgbdt.gbdt_score(x, m.feat, m.thr, m.leaf, m.base)
+        check(counters.LAUNCHES["gbdt_score"] == 1, f"gbdt_score {name}: not one launch")
         want_s, want_li = kgbdt.gbdt_score_plain(x, m.feat, m.thr, m.leaf, m.base)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got_s).all()), f"gbdt_score {name}: non-finite scores")
@@ -1800,7 +2031,8 @@ def main() -> int:
             f"check gbdt_score {name} {tuple(x.shape)} trees={tuple(m.feat.shape)} "
             f"C={m.leaf.shape[2]}: max_abs_err={err:.3g} (scores and leaf indices)"
         )
-        check(err == 0.0, f"gbdt_score {name}: differs from its plain version")
+        check(err == 0.0 and torch.equal(got_li, want_li) and torch.equal(got_s, want_s),
+              f"gbdt_score {name}: differs from its plain version")
         max_err["gbdt_score"] = max(max_err["gbdt_score"], err)
         results["checks"][f"gbdt_score {name}"] = err
         return got_li
@@ -1852,6 +2084,28 @@ def main() -> int:
     li = check_gbdt("random+boundary", xg.contiguous(), gm)
     check(bool((li[:8, 0] == 0).all()), "gbdt_score: x == thr did not go left")
 
+    def gbdt_model(T, depth, C):
+        """A random model over the K words, tree 0's levels on words 0.. ."""
+        feat = torch.randint(0, K, (T, depth), generator=gen, device=dev, dtype=torch.int32)
+        feat[0] = torch.arange(depth, dtype=torch.int32, device=dev) % K
+        return GbdtModel(feat, torch.rand((T, depth), generator=gen, device=dev) * 0.02,
+                         torch.randn((T, 2**depth, C), generator=gen, device=dev),
+                         torch.randn((C,), generator=gen, device=dev), C)
+
+    # past a warp's 32 lanes in trees and in classes, one row, a row count
+    # that is no multiple of the block's 4, and a 655,360-byte leaf table
+    # (64 trees of depth 8, 10 classes), over one block's shared memory
+    for name, b_, (T_, d_, C_) in (("T=40", 256, (40, 3, 10)), ("C=33", 256, (16, 3, 33)),
+                                   ("B=1", 1, (16, 3, 10)), ("B=7", 7, (16, 3, 10)),
+                                   ("64 trees depth 8", 256, (64, 8, 10))):
+        m = gbdt_model(T_, d_, C_)
+        x = xg[:b_].clone()
+        x[: min(b_, 2), :d_] = m.thr[0]
+        li = check_gbdt(name, x.contiguous(), m)
+        check(bool((li[: min(b_, 2), 0] == 0).all()), f"gbdt_score {name}: x == thr went right")
+
+    phase_clean("phase 2")
+
     # -- 3. the training path on the card, once per head -----------------------
     stream = ImageStream(res=32)
     # integer splits: `hash` of a string is salted per process, of an int not
@@ -1899,6 +2153,8 @@ def main() -> int:
         print(f"train {head} (CPU, same seed): {t_cpu:.1f} s")
         models[head], models_cpu[head] = model, model_cpu
         results["train"][head] = {"wall_s": wall, "stages_s": timing, "cpu_s": t_cpu}
+
+    phase_clean("phase 3")
 
     # -- 4. the predict path on the card, once per head -------------------------
     batches = test_imgs.split(PREDICT_BATCH)
@@ -1977,6 +2233,8 @@ def main() -> int:
             "batches": per_batch,
             "wall_s": walls,
         }
+    phase_clean("phase 4")
+
     # -- 5. the paper's filter2D / erode image path, every mode --------------
     slice_cases = image_path_cases(dev, ops, imgproc, features, stencil, ref, ImageStream)
     slice_times = {}
@@ -1998,30 +2256,40 @@ def main() -> int:
           f"shapes; mode None -> {sorted(collections.Counter(t['resolved'] for t in slice_times.values()).items())}")
     results["image_path"] = slice_times
 
+    phase_clean("phase 5")
+
     # -- 6. the fused-vs-staged-vs-seed pipeline benchmark ---------------------
     seed_times = pipeline_phase(dev, card, max_err, path_counts, results)
+    phase_clean("phase 6")
 
     # -- 7. the geometric path -------------------------------------------------
     geometric_phase(dev, card, max_err, path_counts, results)
+    phase_clean("phase 7")
 
     # -- 8. the multi-octave pyramid path ---------------------------------------
     pyramid_phase(dev, card, max_err, path_counts, results, (imgs, labels), test_imgs)
+    phase_clean("phase 8")
 
-    # -- 9. the LM serving path ------------------------------------------------
+    # -- 9. measured routing ------------------------------------------------------
+    routing_phase(dev, card, slice_cases, path_counts, results)
+    phase_clean("phase 9")
+
+    # -- 10. the LM serving path -----------------------------------------------
     lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
                       gen_len=LM_GEN, max_err=max_err)
     path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
     results["lm"] = lm_out
+    phase_clean("phase 10")
 
     main_launches = {
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
-          f"geometric path + pyramid path + generate): {main_launches}")
+          f"geometric path + pyramid path + measured routing + generate): {main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 10. the kernels on the paths' own tensors, then timing -----------------
+    # -- 11. the kernels on the paths' own tensors, then timing -----------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -2192,13 +2460,17 @@ def main() -> int:
             graph_ms = load_bench().graph_ms
             k_g = [graph_ms(k["run"], reps=100) for _ in range(2)]
             entry |= {"graph_ms": min(k_g)}
+            if k["name"] == "gbdt_score":  # a kernel as short as a launch: its floor beside it
+                entry |= {"launch_floor_ms": min(results["pipeline"]["launch_floor_ms"])}
             lib_txt = ""
             if k["library"]:
                 lib_g = [graph_ms(k["library"], reps=100) for _ in range(2)]
                 entry |= {"library_graph_ms": min(lib_g)}
                 lib_txt = f" library_ms={lib_g[0]:.5f}/{lib_g[1]:.5f}"
+            floor_txt = (f" launch_floor_ms={entry['launch_floor_ms']:.5f}"
+                         if "launch_floor_ms" in entry else "")
             print(f"time {k['name']} graph replay of 100 calls: ms={k_g[0]:.5f}/{k_g[1]:.5f}"
-                  f"{lib_txt} card={card}")
+                  f"{lib_txt} bound_ms={bms:.7f}{floor_txt} card={card}")
         if k["name"] == "stencil_chain":
             floor = window_floor_ms(oct_chain, tuple(ref.to_planes(gray[..., None]).shape),
                                     torch.float32)
@@ -2216,6 +2488,7 @@ def main() -> int:
         )
         results["timing"][k["name"]] = entry | {"ms_runs": [k1, k2], "plain_runs": [p1, p2]}
 
+    phase_clean("phase 11")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))

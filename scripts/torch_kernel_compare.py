@@ -21,7 +21,8 @@ pyrUp at 1080p / 4K u8, the 4-octave pyramid's links at 512x512, 1080p and
 4K and the warp -> ladder chain on 512x512 f32, all in window mode; then
 `bow_assign` at 32,000 x 128 x 250 and `bow_quantize_hist` at a request
 of 256 x 32 x 128 (K = 250, bool valids); `gbdt_score` at a request of 256
-histograms of 250 words against 16 trees of depth 3 and 10 classes; the
+histograms of 250 words against 16 trees of depth 3 and 10 classes, beside
+the launch floor; the
 seed kernels on one 512x512 u8 plane (blur k = 5, erode r = 1, 2, 3, 7,
 12, 32, threshold 100), the seed rung (`seed_pipeline` on (8, 512, 512, 3)
 u8, 72 launches) and the launch floor (a one-element in-place add, the
@@ -29,8 +30,8 @@ shortest kernel PyTorch launches); and, for the bow group,
 `bow_quantize_hist` with fractional weights run 20 times (distinct results,
 difference from the plain version).  Each is timed as the faster of two
 CUDA-event means of 20 calls (``ms``, host issue included) and of two
-replays of a CUDA graph of 20 calls (``graph_ms``, device time); the seed
-group also as two replays of a graph of 100 calls by
+replays of a CUDA graph of 20 calls (``graph_ms``, device time); the gbdt
+and seed groups also as two replays of a graph of 100 calls by
 `scripts/torch_pipeline_bench.py`'s `graph_ms` (``graph100_ms``, as
 chip_smoke.py times them).  Prints the card's name and power limit first.
 Exits non-zero without a CUDA device.
@@ -209,7 +210,9 @@ def gbdt_cases(dev) -> dict:
     thr = torch.rand((T, depth), generator=gen, device=dev) * 0.008
     leaf = torch.randn((T, 2**depth, C), generator=gen, device=dev)
     base = torch.randn((C,), generator=gen, device=dev)
-    return {"gbdt_score 256x250, 16 trees of depth 3, C=10":
+    one = torch.zeros(1, device=dev)
+    return {"launch floor one.add_(1)": lambda: one.add_(1),
+            "gbdt_score 256x250, 16 trees of depth 3, C=10":
             lambda: kgbdt.gbdt_score(x, feat, thr, leaf, base)}
 
 
@@ -268,6 +271,10 @@ def main() -> int:
     print(f"card: {card}")
     for name in sources:
         B._LIBS[name] = ctypes.CDLL(str(B.lib_path(name)))
+        log = B.lib_path(name).with_suffix(".log")
+        for line in log.read_text().splitlines() if log.exists() else ():
+            if "registers" in line or "spill" in line:
+                print(f"{tag} ptxas[{name}]: {line.strip()}")
     from repro_torch.kernels.stencil import exec_window
 
     dev = torch.device("cuda")
@@ -284,8 +291,8 @@ def main() -> int:
         if group in groups:
             made = make(dev)
             calls |= made
-            if group == "seed":
-                seed_calls = made
+            if group in ("gbdt", "seed"):
+                seed_calls |= made
     graph100 = pipeline_graph_ms() if seed_calls else None
     for name, fn in calls.items():
         t = {"ms": min(event_ms(fn, 50), event_ms(fn, 50)),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Fused vs staged vs seed on one NVIDIA GPU: the port's counterpart of
-`benchmarks/pipeline_bench.py` `run`, `run_octave`, `run_warp` and
-`run_pyramid`.
+`benchmarks/pipeline_bench.py` `run`, `run_octave`, `run_warp`,
+`run_pyramid` and `run_small_kernel_routing`.
 
     PYTHONPATH=src python3 scripts/torch_pipeline_bench.py [--quick]
 
@@ -35,36 +35,48 @@ equal to the staged interior, and the launch counts; the device time of
 each fused mode as well as the best one's.
 
 `run_pyramid`: the multi-octave SIFT pyramid, 4 octaves of 4 scales on a
-512x512 f32 plane: fused (`stencil.chained_launches` over
+(1, 512, 512) f32 batch: first `autotune.measure_pyramid` caches each
+link's measured winner (every link measured: the port launches links no
+larger than their halo too); then fused (`stencil.chained_launches` over
 `features.pyramid_chains`, one launch per octave, 4 in all, each octave's
 chain taking the previous one's next-base band) in every mode that fits
 (full-width streaming of octave 0 is over the shared-memory budget and
-must raise) and under mode None (each link resolved for its own planes),
+must raise) and under mode None (each link launching its measured
+winner's kernel),
 against the staged pyramid (per octave one `gaussian_blur` a scale from
 the octave's base, and a `pyr_down` to the next base: 4*7 + 3 = 31
 launches).  Checks: `stencil.pyramid_plan` launches every link (the port
 has no plain-version tail on the card); `features.sift_pyramid` in each
 mode makes exactly 4 launches and no plain call, with keypoints equal to
 its plain version's; every band of every link bit-identical to the plain
-version; the launch counts.  JAX's `autotune.measure_pyramid` (the
-per-link measured-mode cache) is not ported (ROADMAP, Queue 1 item 6):
-the fastest kernel mode timed is the best mode.
+version; the launch counts.  The fastest kernel mode timed is the best
+mode.
+
+`run_small_kernel_routing`: `autotune.measure_chain` on the (8, 512, 512,
+3) u8 batch for a 3x3 filter2D and erode r = 3 (the JAX benchmark's two
+chains); the cache must hold the winner under the key ``mode=None`` looks
+up, and ``fused_chain(mode=None)`` must launch the winner's kernel once
+and no plain version, bit-equal to the winner's explicit mode.  Under
+``--quick`` an entry the cache already holds is not measured again.
 
 Times are host wall around a synchronised call, best and median of `RUNS`
 after one warm-up: every form is launch-bound, so the host's wall is what it
 costs.  Beside it, each form's device time with the host's issue cost taken
 out (`*_graph_ms`: ten calls captured in one CUDA graph, the replay timed
-with CUDA events).  `autotune.measure_chain` is not ported yet, so the best
-mode is taken here, as the fastest kernel mode timed; the plain version's
-wall is reported beside it (`fused_ref_s`) and never chosen.  Rows carry
+with CUDA events).  `run`, `run_octave`, `run_warp` and `run_pyramid` take
+the best mode as the fastest kernel mode they time; the plain version's
+wall is reported beside it (`fused_ref_s`) and never chosen.  The
+benchmark's measurements stay in the process (``persist=False``): it
+writes no plan table.  Rows carry
 the JAX benchmark's keys (`pallas_calls_*` count the kernel launches) plus
 the card; they go to ``chiprun_out/torch_pipeline_bench.json``, never to
 ``BENCH_results.json``.  A fused speedup under 1.3x is printed as a
 warning, as the JAX benchmark does.  Exits non-zero without a CUDA device.
 
-`run`, `run_octave`, `run_warp` and `run_pyramid` also return what
-`chip_smoke.py` reads of them: each path's launch counts and each
-kernel's largest error against its plain version.
+`run`, `run_octave`, `run_warp`, `run_pyramid` and
+`run_small_kernel_routing` also return what `chip_smoke.py` reads of them:
+each path's launch counts and each kernel's largest error against its
+plain version.
 """
 
 from __future__ import annotations
@@ -257,8 +269,7 @@ class Record:
 
 def time_modes(make_fn, modes=KERNEL_MODES) -> dict:
     """Time each kernel mode of `modes` and the plain version; the fastest
-    kernel mode is the best mode (autotune is not ported).  -> the row's
-    fused fields."""
+    kernel mode is the best mode.  -> the row's fused fields."""
     times = {m: wall_stats(make_fn(m)) for m in modes}
     best = min(times, key=lambda m: times[m]["best_s"])
     fields = {"fused_best_s": times[best]["best_s"], "fused_median_s": times[best]["median_s"],
@@ -437,6 +448,7 @@ def run_warp(dev, *, quick: bool = False) -> tuple[dict, Record]:
 
 
 def run_pyramid(dev, *, quick: bool = False) -> tuple[dict, Record]:
+    from repro_torch.core import autotune
     from repro_torch.cv import features
     from repro_torch.data.synthetic import ImageStream
     from repro_torch.kernels import counters, ops, stencil
@@ -450,9 +462,14 @@ def run_pyramid(dev, *, quick: bool = False) -> tuple[dict, Record]:
     check(len(plan) == N_OCTAVES and all(p["mode"] in KERNEL_MODES for p in plan),
           f"pyramid plan: {plan}")
     rec = Record(counters)
+    # the batch sift_pyramid makes of g[None], so that its links find the
+    # entries measured here: each link's own (shrinking) shape
+    gb = g[None, ..., None]
+    measured = [e["mode"] for e in autotune.measure_pyramid(gb, chains, n=1 if quick else 3,
+                                                            persist=False)]
 
     def bands(m):
-        return stencil.chained_launches(g[..., None], chains, mode=m)[0]
+        return stencil.chained_launches(gb, chains, mode=m)[0]
 
     want = bands("ref")
     want_kp = features.sift_pyramid(g[None], n_octaves=N_OCTAVES, n_scales=N_SCALES, mode="ref")
@@ -468,7 +485,7 @@ def run_pyramid(dev, *, quick: bool = False) -> tuple[dict, Record]:
                 print(f"{what}: ValueError as required ({e})")
                 continue
             raise BenchFailure(f"{what}: over-budget full-width streaming did not raise")
-        kernels = [kernel_of(m or p["mode"]) for p in plan]
+        kernels = [kernel_of(m or e) for e in measured]
         launches = {k: kernels.count(k) for k in set(kernels)}
         kp = rec.counted(f"sift_pyramid mode={m}", lambda m=m: features.sift_pyramid(
             g[None], n_octaves=N_OCTAVES, n_scales=N_SCALES, mode=m), launches)
@@ -493,6 +510,7 @@ def run_pyramid(dev, *, quick: bool = False) -> tuple[dict, Record]:
     return {
         "image": f"{H}x{W}", "dtype": "f32", "n_scales": N_SCALES, "n_octaves": N_OCTAVES,
         "bands_per_octave": N_SCALES + 3, "link_modes": [p["mode"] for p in plan],
+        "measured_link_modes": measured,
         "pallas_calls_fused": N_OCTAVES, "pallas_calls_staged": n_staged,
         **fields,
         "staged_best_s": t_staged["best_s"], "staged_median_s": t_staged["median_s"],
@@ -501,6 +519,47 @@ def run_pyramid(dev, *, quick: bool = False) -> tuple[dict, Record]:
         "fused_auto_graph_ms": graph_ms(lambda: bands(None)),
         "staged_graph_ms": graph_ms(lambda: staged_pyramid(g, ops)),
     }, rec
+
+
+def run_small_kernel_routing(dev, *, quick: bool = False) -> tuple[list, Record]:
+    """The counterpart of the JAX benchmark's `run_small_kernel_routing`:
+    the measured choice must route each chain to its winner's kernel."""
+    import torch
+    from repro_torch.core import autotune
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ref, stencil
+
+    shape = (4, 256, 256, 3) if quick else (8, 512, 512, 3)
+    B, H, W, C = shape
+    stream = ImageStream()
+    batch = torch.stack([stream.image((H, W), channels=C, seed=b) for b in range(B)]).to(dev)
+    k1 = ref.gaussian_kernel1d(3)
+    cases = [("filter2d_3x3", (stencil.filter_stage(torch.outer(k1, k1)),)),
+             ("erode_r3", (stencil.erode_stage(3),))]
+    rec = Record(counters)
+    rows = []
+    for name, ch in cases:
+        # under --quick an entry the cache already holds is the routing input
+        res = autotune.cached_chain_entry(ch, batch.shape, batch.dtype, device=dev) if quick else None
+        remeasured = res is None
+        if res is None:
+            res = autotune.measure_chain(batch, ch, n=1 if quick else 3, persist=False)
+        routed = autotune.cached_chain_mode(ch, batch.shape, batch.dtype, device=dev)
+        check(routed == res["mode"], f"{name}: the cache holds {routed!r}, measure_chain won "
+              f"{res['mode']!r}: mode None would not route there")
+        kernel = kernel_of(res["mode"])
+        auto = rec.counted(f"routing {name} mode=None", lambda ch=ch: stencil.fused_chain(batch, ch),
+                           {kernel: 1})
+        rec.exact(kernel, f"routing {name}", auto, stencil.fused_chain(batch, ch, mode=res["mode"]))
+        t_auto = wall_stats(lambda ch=ch: stencil.fused_chain(batch, ch))["best_s"]
+        t_best = min(res["times"].values())
+        if t_auto > 1.5 * t_best:  # informational: timing, not a gate
+            print(f"WARNING: {name} mode None {t_auto:.6f}s vs measured winner {res['mode']} "
+                  f"{t_best:.6f}s")
+        rows.append({"case": name, "batch": "x".join(map(str, shape)), "routed_mode": res["mode"],
+                     "remeasured": remeasured,
+                     **{f"{m}_s": t for m, t in res["times"].items()}, "auto_s": t_auto})
+    return rows, rec
 
 
 def card_line() -> str:
@@ -526,9 +585,11 @@ def main() -> int:
     rows = {"pipeline": run(dev, quick=args.quick)[0],
             "octave": run_octave(dev, quick=args.quick)[0],
             "warp": run_warp(dev, quick=args.quick)[0],
-            "pyramid": run_pyramid(dev, quick=args.quick)[0]}
+            "pyramid": run_pyramid(dev, quick=args.quick)[0],
+            "small_kernel_routing": run_small_kernel_routing(dev, quick=args.quick)[0]}
     for name, row in rows.items():
-        print(f"{name}: " + " ".join(f"{k}={v}" for k, v in row.items()))
+        for r in row if isinstance(row, list) else [row]:
+            print(f"{name}: " + " ".join(f"{k}={v}" for k, v in r.items()))
     speedup = rows["pipeline"]["fused_speedup"]
     if speedup < 1.3:
         print(f"WARNING: fused speedup {speedup:.2f}x below the 1.3x target")

@@ -38,10 +38,10 @@ class LaunchConfig:
     tile_rows / tile_cols: output tile of one `stencil_chain` block; the
         block also holds the tile's accumulated halo, so the wrapper halves
         the tile until the window fits `smem_budget`.
-    threads: threads per block of `linear_score` and `gbdt_score`, a power
-        of two from 32 to 1024 (the stencil kernels size their blocks by
-        their plans; the nearest-word searches and the seed kernels fix
-        theirs in ``csrc``).
+    threads: threads per block of `linear_score`, a power of two from 32
+        to 1024 (the stencil kernels size their blocks by their plans; the
+        nearest-word searches, `gbdt_score` and the seed kernels fix theirs
+        in ``csrc``).
     smem_budget: shared memory a block may use.
     stream_rows: output rows one `stencil_stream` step advances by (the
         counterpart of `VectorConfig.rows()`); every ring holds this many

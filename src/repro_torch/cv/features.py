@@ -70,15 +70,17 @@ def gaussian_octave(
     with_next_base: bool = True,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
+    ladder=None,
 ) -> tuple:
     """One SIFT octave over an (H, W) gray plane or a (B, H, W) batch as one
     launch.  Returns (pyr, next_base): pyr the (n_scales + 3, H, W) scale
     stack (with a leading B for a batch), next_base the pyrDown of scale
     `n_scales`, (ceil(H/2), ceil(W/2)) (with a leading B), or None when
     `with_next_base` is False (single-octave callers skip its work and its
-    +2 rows of halo)."""
+    +2 rows of halo).  `mode` and `ladder` go to `stencil.fused_chain`, as
+    in every detector here."""
     stages = octave_chain(n_scales, sigma0, max_ksize, with_next_base)
-    outs = stencil.fused_chain(g[..., None], stages, mode=mode, lc=lc)
+    outs = stencil.fused_chain(g[..., None], stages, mode=mode, lc=lc, ladder=ladder)
     outs = [o[..., 0] for o in outs]
     axis = g.ndim - 2  # the scale axis: after the batch axis, if any
     if with_next_base:
@@ -190,11 +192,13 @@ def detect_keypoints(
     border: int = 8,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
+    ladder=None,
 ) -> dict:
     """Single-octave DoG detector over a batch.  Returns dict: xy (B, max_kp,
     2) f32, scale (B, max_kp) i32, resp, valid (B, max_kp) bool, gray."""
     g = _normalize_gray(imgs)
-    pyr, _ = gaussian_octave(g, n_scales=n_scales, with_next_base=False, mode=mode, lc=lc)
+    pyr, _ = gaussian_octave(g, n_scales=n_scales, with_next_base=False, mode=mode, lc=lc,
+                             ladder=ladder)
     return _keypoints_from_pyr(
         pyr,
         g,
@@ -282,6 +286,7 @@ def sift_pyramid(
     border: int = 8,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
+    ladder=None,
 ) -> dict:
     """Multi-octave SIFT detector over a (B, H, W) gray or (B, H, W, 3) RGB
     batch: one launch per octave for the whole batch, octave k+1's chain
@@ -290,7 +295,8 @@ def sift_pyramid(
     `pyramid_keypoints`' dict."""
     g = _normalize_gray(imgs)
     chains = pyramid_chains(n_octaves, n_scales, sigma0, max_ksize)
-    outs, scales = stencil.chained_launches(g[..., None], chains, mode=mode, lc=lc)
+    outs, scales = stencil.chained_launches(g[..., None], chains, mode=mode, lc=lc,
+                                            ladder=ladder)
     octaves = [tuple(b[..., 0] for b in bands) for bands in outs]
     return pyramid_keypoints(
         octaves,
@@ -328,6 +334,7 @@ def align_and_detect(
     border: int = 8,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
+    ladder=None,
 ) -> dict:
     """Warp -> Gaussian ladder -> DoG keypoints on the aligned images, the
     warp fused into the octave: one launch for the whole aligned scale
@@ -336,7 +343,8 @@ def align_and_detect(
     Returns `detect_keypoints`' dict, with "gray" the warped gray."""
     g = _normalize_gray(imgs)
     chain = aligned_octave_chain(M, tuple(g.shape[-2:]), n_scales=n_scales)
-    outs = [o[..., 0] for o in stencil.fused_chain(g[..., None], chain, mode=mode, lc=lc)]
+    outs = stencil.fused_chain(g[..., None], chain, mode=mode, lc=lc, ladder=ladder)
+    outs = [o[..., 0] for o in outs]
     return _keypoints_from_pyr(
         torch.stack(outs[1:], dim=1),  # band 0 is the warped gray
         outs[0],
@@ -428,9 +436,10 @@ def sift(imgs: torch.Tensor, config: PipelineConfig | None = None) -> dict:
     carries its own."""
     cfg = config if config is not None else PipelineConfig(max_kp=64)
     if cfg.n_octaves <= 1:
-        det = detect_keypoints(imgs, max_kp=cfg.max_kp, mode=cfg.mode, lc=cfg.lc)
+        det = detect_keypoints(imgs, max_kp=cfg.max_kp, mode=cfg.mode, lc=cfg.lc,
+                               ladder=cfg.ladder)
     else:
         det = sift_pyramid(imgs, n_octaves=cfg.n_octaves, max_kp=cfg.max_kp, mode=cfg.mode,
-                           lc=cfg.lc)
+                           lc=cfg.lc, ladder=cfg.ladder)
     d = describe_keypoints(det)
     return {"xy": det["xy"], "desc": d["desc"], "valid": det["valid"], "resp": det["resp"]}

@@ -38,11 +38,13 @@ def preprocess_bow(
     erode_r: int = 1,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
+    ladder=None,
 ) -> torch.Tensor:
     """BoW preprocessing (blur -> erode -> gradient magnitude) as one fused
-    launch over the whole (B, H, W, C) f32 batch."""
+    launch over the whole (B, H, W, C) f32 batch; `mode` and `ladder` go
+    to `stencil.fused_chain`."""
     return stencil.fused_chain(imgs, preprocess_chain(blur_ksize, sigma, erode_r), mode=mode,
-                               lc=lc)
+                               lc=lc, ladder=ladder)
 
 
 @functools.lru_cache(maxsize=32)

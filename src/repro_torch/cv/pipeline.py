@@ -84,7 +84,8 @@ def extract_features(
     config.preprocess runs the fused blur -> erode -> gradient-magnitude
     chain over the whole batch first; config.n_octaves > 1 detects through
     the pyramid, keypoints in base-image coordinates, so the descriptor and
-    histogram stages downstream are unchanged."""
+    histogram stages downstream are unchanged.  config.mode / .ladder go to
+    every fused launch."""
     cfg = config if config is not None else PipelineConfig()
     dev = resolve_device(device)
     imgs = _on_device(imgs, dev)
@@ -93,9 +94,10 @@ def extract_features(
     x = imgs.to(torch.float32)
     if cfg.preprocess:
         if x.ndim == 3:  # (B, H, W) gray batch: add and strip a channel axis
-            x = imgproc.preprocess_bow(x[..., None], mode=cfg.mode, lc=cfg.lc)[..., 0]
+            x = imgproc.preprocess_bow(x[..., None], mode=cfg.mode, lc=cfg.lc,
+                                       ladder=cfg.ladder)[..., 0]
         else:
-            x = imgproc.preprocess_bow(x, mode=cfg.mode, lc=cfg.lc)
+            x = imgproc.preprocess_bow(x, mode=cfg.mode, lc=cfg.lc, ladder=cfg.ladder)
     out = features.sift(x, config=cfg)
     return {"desc": out["desc"], "valid": out["valid"]}
 

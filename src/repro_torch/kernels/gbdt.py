@@ -4,12 +4,14 @@
 `gbdt_score` replaces `repro.kernels.gbdt._gbdt_kernel` (TPU, Pallas).
 Bound on an H100: bytes, ~0.26 MB at the predict request (B = 256, F = 250),
 under 0.1 us at 3.35 TB/s and so below a launch's latency.  Design: the TPU
-kernel's four one-hot matmuls stand in for gathers the TPU lacks; here a
-block stages the model in shared memory, one thread per (row, tree) packs
-the leaf index from strict `>` compares, and one thread per (row, class)
-sums the picked leaf values over ascending trees, then adds the base
-(``csrc/gbdt.cu``).  `gbdt_score_plain` does the same arithmetic in
-PyTorch, so the two agree bit for bit.
+kernel's four one-hot matmuls stand in for gathers the TPU lacks; here one
+warp takes a row (`ROWS_PER_BLOCK` rows a block, no shared memory, so any
+model size launches): lane t packs tree t's leaf index from strict `>`
+compares, and lane c sums the picked leaf values over ascending trees,
+each tree's index shuffled from its lane, then adds the base; trees and
+classes past 32 go in chunks of 32 (``csrc/gbdt.cu``).
+`gbdt_score_plain` does the same arithmetic in PyTorch, so the two agree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -19,16 +21,15 @@ import functools
 
 import torch
 
-from ..core.device import DEFAULT, LaunchConfig
 from . import _build, counters
 from . import ref as kref
 
-ROW_BLOCK = 32  # rows of x per gbdt_score block
+ROWS_PER_BLOCK = 4  # rows a gbdt_score block, one warp each (kWarps in csrc/gbdt.cu)
 
 # C signature in csrc/gbdt.cu: pointers and the stream as c_void_p, ints as c_int
-# (x, feat, thr, leaf, base, scores, lidx, B, F, T, depth, C, rows, threads, smem_max, stream)
+# (x, feat, thr, leaf, base, scores, lidx, B, F, T, depth, C, stream)
 LAUNCH_ARGTYPES = {
-    "gbdt_score_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "gbdt_score_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 
 
@@ -73,12 +74,12 @@ def _launcher():
     return fn
 
 
-def gbdt_score(x, feat, thr, leaf, base, *, lc: LaunchConfig = DEFAULT):
+def gbdt_score(x, feat, thr, leaf, base):
     """Oblivious-tree ensemble: x (B, F) f32, feat (T, depth) i32, thr
     (T, depth) f32, leaf (T, 2^depth, C) f32, base (C,) f32 -> (scores
-    (B, C) f32, leaf indices (B, T) i32) in one launch.  A CPU tensor runs
-    the plain version; any other tensor launches the kernel or raises (also
-    when the model's tables exceed ``lc.smem_budget``)."""
+    (B, C) f32, leaf indices (B, T) i32) in one launch, for a model of any
+    size.  A CPU tensor runs the plain version; any other tensor launches
+    the kernel or raises."""
     _check_shapes(x, feat, thr, leaf, base)
     if x.device.type == "cpu":
         return gbdt_score_plain(x, feat, thr, leaf, base)
@@ -110,9 +111,6 @@ def gbdt_score(x, feat, thr, leaf, base, *, lc: LaunchConfig = DEFAULT):
             T,
             depth,
             C,
-            ROW_BLOCK,
-            lc.threads,
-            lc.smem_budget,
             _build.cuda_stream(dev),
         )
     _build.check(err, "gbdt_score")

@@ -16,11 +16,13 @@ carrier; a Sobel pair is f32 whatever the carrier, and a gather
 Modules: `ir` (Stage IR, the band-arity walk and the next-base contract),
 `plan` (halo, levels, row walk, carry plan, ring layout, tile width, row
 segments), `exec_window` and `exec_streaming` (each kernel's planner,
-wrapper and plain version), `driver` (`fused_chain`, its mode resolution,
-and `chained_launches`: a pyramid, one launch per link).
+wrapper and plain version), `ladder` (the modes, the degradation ladder and
+the process defaults), `driver` (`fused_chain`, its mode resolution:
+default, measured winner, fit rule; and `chained_launches`: a pyramid, one
+launch per link).
 """
 
-from .driver import MODES, chained_launches, fused_chain, resolve_mode
+from .driver import MODES, chained_launches, fit_mode, fused_chain, resolve_mode, streaming_fits
 from .ir import (
     Stage,
     affine_disp_bound,
@@ -42,6 +44,13 @@ from .ir import (
     validate_next_base,
     warp_affine_stage,
 )
+from .ladder import (
+    DEGRADATION_LADDER,
+    default_chain_mode,
+    default_ladder,
+    set_default_chain_mode,
+    set_default_ladder,
+)
 from .plan import (
     chain_accumulated_halo,
     chain_halo,
@@ -55,6 +64,7 @@ from .plan import (
 )
 
 __all__ = [
+    "DEGRADATION_LADDER",
     "MODES",
     "Stage",
     "affine_disp_bound",
@@ -66,9 +76,12 @@ __all__ = [
     "chain_iface",
     "chain_levels",
     "chain_stream_plan",
+    "default_chain_mode",
+    "default_ladder",
     "dilate_stage",
     "erode_stage",
     "filter_stage",
+    "fit_mode",
     "fused_chain",
     "gather_metas",
     "gaussian_stage",
@@ -82,8 +95,11 @@ __all__ = [
     "resolve_chain",
     "resolve_mode",
     "sep_filter_stage",
+    "set_default_chain_mode",
+    "set_default_ladder",
     "sobel_stage",
     "stage_out_hw",
+    "streaming_fits",
     "threshold_stage",
     "validate_next_base",
     "warp_affine_stage",

@@ -374,8 +374,23 @@ def test_bow_assign_ties_and_pad_words(dev):
     assert empty_i.shape == (0,)
 
 
-@pytest.mark.parametrize("B,F,T,depth,C", [(1024, 250, 16, 3, 10), (5, 7, 3, 2, 1)])
+@pytest.mark.parametrize(
+    "B,F,T,depth,C",
+    [
+        (1024, 250, 16, 3, 10),
+        (5, 7, 3, 2, 1),
+        (256, 250, 40, 3, 10),  # more trees than a warp's lanes
+        (256, 250, 16, 3, 33),  # more classes than a warp's lanes
+        (1, 250, 16, 3, 10),
+        (7, 250, 16, 3, 10),  # B not a multiple of the block's 4 rows
+        (256, 250, 64, 8, 10),  # a 655,360-byte leaf table, over one block's shared memory
+    ],
+)
 def test_gbdt_score_matches_plain(dev, B, F, T, depth, C):
+    """Bit-equal to the plain version in scores and leaf indices, one
+    launch, at any model size: the kernel stages nothing in shared memory,
+    so its launcher has no `cudaFuncSetAttribute` and no size check."""
+    assert "cudaFuncSetAttribute" not in (_build.CSRC / "gbdt.cu").read_text()
     g = torch.Generator(device=dev).manual_seed(B + F)
     x = torch.rand((B, F), generator=g, device=dev)
     feat = torch.randint(0, F, (T, depth), generator=g, device=dev, dtype=torch.int32)
@@ -986,3 +1001,52 @@ def test_seed_gaussian_blur_unaligned_planes_match_plain(dev, ksize):
     assert x.data_ptr() % 16 != 0 and x.is_contiguous()
     got = unfused.seed_gaussian_blur_2d(x, ksize)
     assert torch.equal(got, unfused.seed_gaussian_blur_2d(x, ksize, mode="ref"))
+
+
+def test_mode_none_launches_the_measured_winner(dev, tmp_path, monkeypatch):
+    """`measure_chain` on two shapes (the 512x512 octave, 4K u8 filter2D
+    k = 13) times only kernel modes, and ``mode=None`` then launches each
+    winner once, bit-equal to that mode, with no plain version.  Which
+    kernel wins freely is timing (printed, not asserted); the test then
+    seeds a different winner on each shape (``modes=("window",)`` and
+    ``("tiled2d",)``) and ``mode=None`` must follow each to its kernel.
+    Naming "ref" on the card raises, in a measurement and in a ladder."""
+    from repro_torch.core import autotune
+
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "chain_autotune.json"))
+    monkeypatch.setattr(autotune, "_MODE_CACHE", {})
+    st = ImageStream()
+    k1 = ref.gaussian_kernel1d(13)
+    cases = [
+        (st.image((512, 512), seed=2).to(dev).float(), features.octave_chain(4, with_next_base=False),
+         "window"),
+        (st.image((2160, 3840), seed=0).to(dev), (stencil.filter_stage(torch.outer(k1, k1)),),
+         "tiled2d"),
+    ]
+
+    def routes_to(img, chain, mode):
+        counters.reset()
+        got = stencil.fused_chain(img, chain)
+        torch.cuda.synchronize()
+        kernel = "stencil_chain" if mode == "window" else "stencil_stream"
+        assert counters.LAUNCHES[kernel] == 1 and sum(counters.LAUNCHES.values()) == 1
+        assert sum(counters.PLAIN_CALLS.values()) == 0
+        want = stencil.fused_chain(img, chain, mode=mode)
+        got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+        return kernel
+
+    kernels = []
+    for img, chain, seeded in cases:
+        with pytest.raises(ValueError, match="no candidate on the card"):
+            autotune.measure_chain(img, chain, modes=("window", "ref"))
+        with pytest.raises(ValueError, match="moves to 'ref'"):
+            stencil.fused_chain(img, chain, mode="window", ladder=("window", "ref"))
+        e = autotune.measure_chain(img, chain, n=3)
+        assert "ref" not in e["times"] and e["mode"] in ("window", "streaming", "tiled2d")
+        print(f"measured {tuple(img.shape)}: {e['mode']} {e['times']}")
+        routes_to(img, chain, e["mode"])
+        e = autotune.measure_chain(img, chain, n=1, modes=(seeded,))
+        assert e["mode"] == seeded
+        kernels.append(routes_to(img, chain, seeded))
+    assert kernels == ["stencil_chain", "stencil_stream"], kernels

@@ -164,3 +164,142 @@ def test_gbdt_train_matches_jax(n_trees, depth):
     pred = tgbdt.gbdt_predict_ref(got, torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(pred, np.asarray(jgbdt.gbdt_predict_ref(want, jnp.asarray(x))))
     assert (pred == y).mean() > 0.7
+
+
+def _gbdt_consts() -> dict:
+    """The kernel's constexprs, read from csrc/gbdt.cu."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "gbdt.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+def gbdt_warp_replay(x, feat, thr, leaf, base):
+    """numpy replay of csrc/gbdt.cu's walk: blocks of kWarps rows, one warp a
+    row, each of its 32 lanes a vector entry.  Per chunk of 32 classes (one
+    pass when C <= 32), per chunk of 32 trees: lane t gathers kLevels levels
+    at a time and packs tree t0 + t's leaf index (-1 for a feature outside
+    [0, F)); lane c then takes leaf index j of the chunk from lane j (the
+    shuffle), loads kLeaves leaf values at a time, and adds them in ascending
+    t, the first tree's value as the start; the base last.  Leaf indices are
+    written in the first class pass only.  Float sums are float32 numpy
+    adds, rounded one by one like ``__fadd_rn``."""
+    k = _gbdt_consts()
+    warps, levels, leaves = k["kWarps"], k["kLevels"], k["kLeaves"]
+    B, F = x.shape
+    T, depth = feat.shape
+    C = leaf.shape[2]
+    scores = np.full((B, C), -7.0, np.float32)  # sentinels: every entry must be written
+    lidx = np.full((B, T), -7, np.int32)
+    lanes = np.arange(32)
+    class_chunks = (C + 31) // 32 if C > 32 else 1
+    for blk in range(-(-B // warps)):
+        for w in range(warps):
+            row = blk * warps + w
+            if row >= B:
+                continue
+            xr = x[row]
+            for cc in range(class_chunks):
+                c = cc * 32 + lanes
+                has_c = c < C
+                acc = np.zeros(32, np.float32)
+                for t0 in range(0, T, 32):
+                    li = np.zeros(32, np.int64)
+                    for lane in range(32):
+                        t = t0 + lane
+                        if t >= T:
+                            continue
+                        v, bad = 0, False
+                        for l0 in range(0, depth, levels):
+                            ls = [l0 + u for u in range(levels) if l0 + u < depth]
+                            fs = [int(feat[t, lv]) for lv in ls]
+                            ok = [0 <= f < F for f in fs]
+                            bad |= not all(ok)
+                            xv = [xr[f] if o else np.float32(0) for f, o in zip(fs, ok)]
+                            for lv, xval in zip(ls, xv):
+                                if xval > thr[t, lv]:
+                                    v |= 1 << lv
+                        li[lane] = -1 if bad else v
+                        if cc == 0:
+                            lidx[row, t] = li[lane]
+                    nt = min(32, T - t0)
+                    for j0 in range(0, nt, leaves):
+                        vals = np.full((leaves, 32), np.nan, np.float32)
+                        for u in range(leaves):
+                            j = j0 + u
+                            lj = li[j & 31]  # __shfl_sync from lane j
+                            if j < nt and lj >= 0:
+                                vals[u, has_c] = leaf[t0 + j, lj, c[has_c]]
+                        for u in range(leaves):
+                            if j0 + u < nt:
+                                acc = vals[u].copy() if t0 + j0 + u == 0 else acc + vals[u]
+                scores[row, c[has_c]] = acc[has_c] + base[c[has_c]]
+    return scores, lidx
+
+
+def _boundary_model(seed, B, F, T, depth, C):
+    """A random model and x in (0, 1), with x == thr at every level of the
+    first trees in the first rows (those levels go left)."""
+    rng = np.random.default_rng(seed)
+    feat = rng.integers(0, F, (T, depth)).astype(np.int32)
+    thr = rng.random((T, depth)).astype(np.float32)
+    leaf = rng.standard_normal((T, 2**depth, C)).astype(np.float32)
+    base = rng.standard_normal(C).astype(np.float32)
+    x = rng.random((B, F)).astype(np.float32)
+    for t in range(min(T, 3)):
+        for lv in range(depth):
+            x[: min(B, 2), feat[t, lv]] = thr[t, lv]
+    return x, feat, thr, leaf, base
+
+
+@pytest.mark.parametrize(
+    "B,F,T,depth,C",
+    [
+        (9, 40, 40, 3, 33),  # trees and classes past one chunk of 32
+        (1, 12, 1, 1, 1),
+        (7, 30, 33, 9, 5),  # depth past kLevels: two gather rounds
+        (6, 20, 64, 2, 65),  # two tree chunks, three class chunks
+        (5, 250, 16, 3, 10),  # the predict head's model, B not a multiple of kWarps
+        (4, 10, 0, 2, 3),  # no trees: scores are the base
+        (3, 10, 5, 2, 0),  # no classes: leaf indices still written
+        (2, 16, 13, 8, 32),  # exactly one class chunk
+    ],
+)
+def test_warp_replay_is_bit_equal_to_plain(B, F, T, depth, C):
+    x, feat, thr, leaf, base = _boundary_model(B * 131 + T, B, F, T, depth, C)
+    got_s, got_li = gbdt_warp_replay(x, feat, thr, leaf, base)
+    want_s, want_li = kgbdt.gbdt_score_plain(
+        *(torch.from_numpy(a) for a in (x, feat, thr, leaf, base))
+    )
+    np.testing.assert_array_equal(got_li, want_li.numpy())
+    assert got_s.dtype == np.float32
+    np.testing.assert_array_equal(got_s, want_s.numpy())
+
+
+def test_warp_replay_marks_out_of_range_features():
+    """The kernel's own contract past the plain version (which raises): a
+    feature outside [0, F) is never read, its tree's index is -1 and the
+    row's scores NaN; other rows' trees are unaffected."""
+    x, feat, thr, leaf, base = _boundary_model(5, 3, 8, 4, 2, 3)
+    feat[2, 1] = 8
+    s, li = gbdt_warp_replay(x, feat, thr, leaf, base)
+    assert (li[:, 2] == -1).all() and (li[:, [0, 1, 3]] >= 0).all()
+    assert np.isnan(s).all()
+
+
+def test_kernel_geometry_and_launch_without_shared_memory():
+    """One warp a row (`ROWS_PER_BLOCK` rows a block is the source's
+    kWarps), 32 lanes per chunk, and nothing that a model's size could
+    overflow: no shared memory and no `cudaFuncSetAttribute`."""
+    from repro_torch.kernels import _build
+
+    k = _gbdt_consts()
+    assert k["kWarps"] == kgbdt.ROWS_PER_BLOCK
+    assert k["kLevels"] >= 1 and k["kLeaves"] >= 1 and 32 % k["kLeaves"] == 0
+    src = (_build.CSRC / "gbdt.cu").read_text()
+    assert "__shared__" not in src and "cudaFuncSetAttribute" not in src
+    assert "__syncthreads" not in src
+    # 256 rows take 64 blocks: one wave on 132 SMs
+    assert -(-256 // kgbdt.ROWS_PER_BLOCK) == 64

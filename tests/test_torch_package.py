@@ -30,14 +30,11 @@ from repro_torch.kernels import stencil as tstencil
 from repro_torch.kernels import unfused as tunfused
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py",
-    ROOT / "scripts" / "torch_predict_profile.py",
-    ROOT / "scripts" / "torch_stencil_sweep.py",
-    ROOT / "scripts" / "torch_lm_profile.py",
-    ROOT / "scripts" / "torch_flash_faults.py",
-    ROOT / "scripts" / "torch_pipeline_bench.py",
-]
+PORT_FILES = (
+    sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "scripts").glob("torch_*.py"))
+)
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -90,6 +87,10 @@ def test_ctypes_signatures_match_the_c_launchers():
     for name, argtypes in {**kbow.LAUNCH_ARGTYPES, **kgbdt.LAUNCH_ARGTYPES,
                            **kunfused.LAUNCH_ARGTYPES}.items():
         assert c[name] == argtypes, name
+    # gbdt_score: the model's pointers, B, F, T, depth, C and the stream;
+    # no shared-memory budget or thread count (the kernel stages nothing)
+    assert kgbdt.LAUNCH_ARGTYPES["gbdt_score_launch"] == (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     from repro_torch.kernels import attention as kattn
 
     assert c["flash_attn_launch"] == kattn.LAUNCH_ARGTYPES
