@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 11 repeats it on the path's tensors;
+     shapes beyond the BoW path's (phase 12 repeats it on the path's tensors;
      `bow_quantize_hist` bit for bit, unnormalised and normalised, with the
      valids and with fractional weights, two runs bit-identical, at N = 32,
      45, 100 and K = 5 to 1300, one to eight CTAs a cluster; `gbdt_score`
@@ -119,9 +119,28 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      read back under ``REPRO_TORCH_AUTOTUNE_CACHE_READ=1``; last one
      injected ``lowering_error`` under the ladder ("streaming", "window"):
      exactly one event, injected, and one `stencil_chain` launch; then the
-     benchmark's `run_small_kernel_routing`.  Every other phase ends with
-     an empty degradation log and no fault armed;
- 10. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
+     benchmark's `run_small_kernel_routing`.  Every phase ends with an
+     empty degradation log and no fault armed;
+ 10. the CV serving engine (`serve_phase`): `serve.cv_engine.CvEngine` at
+     full width (buckets 32², 64², 128², 256², ``max_batch=64``, phase 3's
+     config and models, K = 250): 512 requests (384 u8 RGB and 124 f32
+     gray frames of sides 24-256, two of 320x320, one of bad rank, one of
+     bad dtype), every well-formed one served with no retry, on
+     "streaming" or, where its full-width rings do not fit (the 256²
+     bucket, the 320² frames), on "tiled2d" after one recorded move, no
+     other rung change, `stencil_stream` twice a batch (three after such a
+     move) and no plain version, descriptors bit-equal to
+     `extract_features` at the batch's rung and
+     keypoints equal to a `mode="ref"` run on the card but at counted
+     near-ties; both heads' predictions equal to `pipeline.predict`
+     (`bow_quantize_hist` and the head's kernel once a batch); one fault
+     spec at a time (``lowering_error``, ``nan_input``, ``bucket_miss``,
+     ``measure_timeout`` on ``warm``, ``shard_oom`` and ``device_loss``
+     through virtual devices on the card), each with exactly its expected
+     events; a ladder to "ref" refused before any launch; then the host
+     wall of a 512-request `submit`, requests a second, each bucket's mean
+     batch latency, and `erode_vanherk` against `ops.erode` at 1080p u8;
+ 11. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
      d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
      from a seeded generator; `flash_attention` held against its plain
      version within `kernels.attention.AGREE` (one rounding to the output
@@ -141,13 +160,13 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
      and the bf16 paths' logits within twice the bf16 model's own error;
- 11. on the paths' own tensors (the first request, the training
+ 12. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, count the device activities of one `bow_quantize_hist`
      call with torch.profiler (exactly its kernel: no memset, cast or
      normalising launch), then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 12. print the window arithmetic of the request's octave with its frames
+ 13. print the window arithmetic of the request's octave with its frames
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
      the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
      kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
@@ -1507,6 +1526,335 @@ def routing_phase(dev, card: str, cases: list, path_counts: dict, results: dict)
                                     ("stage", "from_plan", "to_plan", "reason", "injected")}}
 
 
+SERVE_SEED = 25
+SERVE_SIDES = (24, 256)  # frame sides drawn from this range (inclusive)
+
+
+def serve_workload(n_rgb: int = 384, n_gray: int = 124, n_big: int = 2, bad: bool = True,
+                   seed: int = SERVE_SEED, sides: tuple = SERVE_SIDES) -> list:
+    """The serving phase's requests, made on the host from a seed: crops of
+    `ImageStream` images as u8 RGB frames and as f32 gray frames (sides drawn
+    from `SERVE_SIDES`), frames of 320x320 (larger than every bucket: the
+    exact-shape path), then one frame of bad rank and one of bad dtype."""
+    import numpy as np
+    from repro_torch.data.synthetic import ImageStream
+
+    n_src = 64
+    src = ImageStream(res=sides[1]).batch(n_src, split=seed)[0].numpy()
+    big = ImageStream(res=320).batch(max(n_big, 1), split=seed + 1)[0].numpy()
+    rng = np.random.default_rng(seed)
+    work = []
+    for i in range(n_rgb + n_gray):
+        h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+        y0, x0 = int(rng.integers(0, sides[1] - h + 1)), int(rng.integers(0, sides[1] - w + 1))
+        crop = src[i % n_src, y0:y0 + h, x0:x0 + w]
+        work.append(np.ascontiguousarray(crop) if i < n_rgb
+                    else crop.astype(np.float32).mean(axis=-1))
+    work += [big[i] for i in range(n_big)]
+    if bad:
+        work += [np.zeros((8, 8, 2), np.uint8), np.zeros((32, 32), np.int32)]
+    return work
+
+
+def served_batches(work: list, res: list, max_batch: int) -> list:
+    """The request indices of each batch the engine ran, in its order:
+    admitted requests grouped by (bucket, canonical shape, dtype) in order of
+    first appearance, each group split by `max_batch` (`CvEngine.submit`)."""
+    groups = {}
+    for i, r in enumerate(res):
+        if r.ok:
+            shape = tuple(r.bucket) + work[i].shape[2:]
+            groups.setdefault((tuple(r.bucket), shape, str(work[i].dtype)), []).append(i)
+    return [idx[lo:lo + max_batch] for idx in groups.values()
+            for lo in range(0, len(idx), max_batch)]
+
+
+def serve_phase(dev, card: str, cfgs: dict, models: dict, path_counts: dict,
+                results: dict) -> None:
+    """The CV serving engine (`serve.cv_engine.CvEngine`) on the card at full
+    width: the default buckets 32², 64², 128², 256², ``max_batch=64``,
+    phase 3's `PipelineConfig(preprocess=True, max_kp=32)` and models (K =
+    250).  Extract: 512 requests (`serve_workload`: 384 u8 RGB and 124 f32
+    gray frames of sides 24-256, two of 320x320, one of bad rank, one of bad
+    dtype): every well-formed request served with no retry, the two
+    malformed ones refused; each batch on "streaming", or, where the
+    streaming rung cannot plan it (the f32 octave's full-width rings over a
+    block's shared memory: the 256² bucket and the 320² frames), on
+    "tiled2d" after one recorded move; no other rung change (the log holds
+    those moves and the two "frame larger than every bucket" events);
+    `stencil_stream` twice a batch (three where the octave's streaming plan
+    refused after the preprocess chain ran) and no plain version;
+    descriptors bit-equal to `extract_features` on the captured batches at
+    each batch's rung, and keypoints equal to an explicit mode "ref" run on
+    the card but at counted near-ties (the descriptors of every image whose
+    keypoints are equal bit-equal).  Classify, both heads: predictions
+    equal to `pipeline.predict` on the captured batches at the same rung,
+    `bow_quantize_hist` and the head's kernel once a batch.  Faults, one spec at a time: ``lowering_error``
+    (``max_retries=0``: one injected event streaming -> tiled2d, that batch
+    bit-equal to a mode "tiled2d" run), ``nan_input`` (one sanitized event),
+    ``bucket_miss`` (one exact-shape batch), ``measure_timeout`` on
+    ``warm((32, 32))`` (None, one event), ``shard_oom`` and ``device_loss``
+    through a `ShardDispatcher(devices=["v0", "v1"])` on the card (outputs
+    equal to the fault-free run); each gives exactly its expected events.
+    Then a ladder to "ref" on the card must raise before any launch, and
+    the times: a 512-request `submit` (host wall, best of 3 after a warm
+    one), requests a second, each bucket's mean batch latency, and
+    `erode_vanherk` against `ops.erode` at 1080p u8, r = 1-3."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faultinject
+    from repro_torch.cv import features, imgproc, pipeline
+    from repro_torch.data.synthetic import ImageStream
+    from repro_torch.kernels import counters, ops
+    from repro_torch.kernels.stencil import exec_streaming
+    from repro_torch.serve.cv_engine import CvEngine
+    from repro_torch.serve.shard_dispatch import ShardDispatcher
+
+    cfg = cfgs["svm"]
+    mb = 64
+    out = {}
+    work = serve_workload()
+    n_ok, n_big = len(work) - 2, 2
+    octave = features.octave_chain(with_next_base=False)
+
+    def engine(model=None, head: str = "svm", **kw):
+        return CvEngine(model, config=cfgs[head], max_batch=mb, device=dev, **kw)
+
+    def events(*, expected: int, what: str) -> list:
+        log = faultinject.degradation_log()
+        check(len(log) == expected, f"serve {what}: {len(log)} events, expected {expected}: {log}")
+        faultinject.clear_degradation_log()
+        return log
+
+    def sift_at(batch, mode: str) -> dict:
+        """`extract_features` at `mode`, with the detector's keypoints."""
+        x = torch.as_tensor(batch).to(dev).float()
+        c = cfg.replace(mode=mode)
+        if x.ndim == 3:
+            x = imgproc.preprocess_bow(x[..., None], mode=mode)[..., 0]
+        else:
+            x = imgproc.preprocess_bow(x, mode=mode)
+        return features.sift(x, c)
+
+    # -- extract -----------------------------------------------------------------
+    eng = engine(capture_frames=True)
+    check(eng.ladder == ("streaming", "tiled2d", "window"), f"serve: ladder {eng.ladder}")
+    faultinject.clear_degradation_log()
+    prog, _ = exec_streaming.program(octave, cfg.lc.stream_rows, torch.float32,
+                                     torch.device("cpu"))
+
+    def over_budget(batches, captured) -> list:
+        """Per batch: does the streaming rung refuse it (the octave's
+        full-width rings over a block's shared memory, by the planner's own
+        figures)?"""
+        return [prog.layout.smem_bytes(b.shape[2]) + prog.table_smem > cfg.lc.smem_budget
+                for _, b in captured]
+
+    def check_rungs(what, res, batches, over) -> None:
+        """Each batch on streaming with no retry, or, where the streaming rung
+        cannot plan it, on tiled2d after one recorded move; the degradation
+        log holds those moves and the oversized frames' events, no other."""
+        for idx, o in zip(batches, over, strict=True):
+            want = ("tiled2d", True) if o else ("streaming", False)
+            check(all((res[i].plan, res[i].degraded) == want and res[i].retries == 0 for i in idx),
+                  f"serve {what}: a batch of {len(idx)} not served on {want[0]}")
+        log = events(expected=sum(over) + n_big, what=what)
+        moves = [e for e in log if e.from_plan == "streaming"]
+        check(len(moves) == sum(over) and all(
+            e.to_plan == "tiled2d" and e.reason.startswith("rung cannot plan this batch")
+            and not e.injected for e in moves), f"serve {what}: events {log}")
+        check(sum(e.reason == "frame larger than every bucket" for e in log) == n_big,
+              f"serve {what}: events {log}")
+
+    res, snap = counted(counters, lambda: eng.extract(work))
+    torch.cuda.synchronize()
+    batches = served_batches(work, res, mb)
+    check(len(batches) == len(eng.captured), "serve: batch bookkeeping differs from the engine's")
+    check(sum(r.ok for r in res) == n_ok, f"serve: {sum(r.ok for r in res)} of {n_ok} served")
+    check([r.error.split(":")[0] for r in res[-2:]] == ["bad_rank", "bad_dtype"],
+          f"serve: malformed frames {[r.error for r in res[-2:]]}")
+    over = over_budget(batches, eng.captured)
+    check_rungs("extract", res, batches, over)
+    # a batch the streaming rung refuses has launched its preprocess chain
+    # at streaming before the octave's plan refused: 3 launches, not 2
+    expect_counts("serve extract", snap, {"stencil_stream": 2 * len(batches) + sum(over)})
+    path_counts["serve extract"] = snap
+    n_off = n_near = n_kp = 0
+    for (bucket, b), idx, o in zip(eng.captured, batches, over, strict=True):
+        rung = "tiled2d" if o else "streaming"
+        want = pipeline.extract_features(b, cfg.replace(mode=rung), device=dev, validate=False)
+        det = sift_at(b, rung)
+        ref_det = sift_at(b, "ref")
+        wd, wv = want["desc"].cpu().numpy(), want["valid"].cpu().numpy()
+        for k, i in enumerate(idx):
+            check(np.array_equal(res[i].desc, wd[k]) and np.array_equal(res[i].valid, wv[k]),
+                  f"serve: request {i} differs from extract_features at mode {rung}")
+        check(torch.equal(det["desc"], want["desc"]), "serve: sift_at differs from extract_features")
+        off, near = keypoints_equal_but_near_ties(f"serve {bucket}", det, ref_det, ("xy", "valid"))
+        n_off, n_near, n_kp = n_off + off, n_near + near, n_kp + int(det["valid"].sum())
+        same = [j for j in range(len(idx)) if torch.equal(det["xy"][j], ref_det["xy"][j])
+                and torch.equal(det["valid"][j], ref_det["valid"][j])]
+        check(all(torch.equal(det["desc"][j], ref_det["desc"][j]) for j in same),
+              f"serve {bucket}: descriptors differ from mode ref at equal keypoints")
+    per_bucket = collections.Counter(tuple(b) for b, _ in eng.captured)
+    n_tiled = sum(len(idx) for idx, o in zip(batches, over) if o)
+    print(f"check serve extract: {len(work)} requests, {n_ok} served with no retry, "
+          f"{n_ok - n_tiled} on streaming, {n_tiled} in {sum(over)} batches on tiled2d (the "
+          f"streaming rung cannot plan them: full-width rings over the shared memory), 2 refused; "
+          f"{len(batches)} batches {dict(per_bucket)}; {snap_nonzero(snap)}; descriptors "
+          f"bit-equal to extract_features at each batch's rung; {n_kp} keypoints, {n_off} differ "
+          f"from mode='ref' on the card, each at a near-tie ({n_near} near-ties)")
+    out["extract"] = {"batches": len(batches), "per_bucket": {str(k): v for k, v in per_bucket.items()},
+                      "batches_on_tiled2d": sum(over), "requests_on_tiled2d": n_tiled,
+                      "launches": snap_nonzero(snap), "keypoints": n_kp,
+                      "keypoints_differing": n_off, "near_ties": n_near}
+    extract_res = res
+
+    # -- classify, both heads -------------------------------------------------------
+    good = work[:-2]
+    for head in HEADS:
+        ceng = engine(models[head], head, capture_frames=True)
+        res, snap = counted(counters, lambda ceng=ceng: ceng.classify(good))
+        torch.cuda.synchronize()
+        batches = served_batches(good, res, mb)
+        n = len(batches)
+        check(all(r.ok for r in res), f"serve classify {head}: a request failed")
+        cover = over_budget(batches, ceng.captured)
+        check_rungs(f"classify {head}", res, batches, cover)
+        expect_counts(f"serve classify {head}", snap,
+                      {"stencil_stream": 2 * n + sum(cover), "bow_quantize_hist": n,
+                       HEAD_KERNEL[head]: n})
+        path_counts[f"serve classify {head}"] = snap
+        for (_, b), idx, o in zip(ceng.captured, batches, cover, strict=True):
+            c = cfgs[head].replace(mode="tiled2d" if o else "streaming", classify_mode="fused")
+            want = pipeline.predict(models[head], b, c, device=dev, validate=False).cpu()
+            check([res[i].pred for i in idx] == want.tolist(),
+                  f"serve classify {head}: predictions differ from pipeline.predict")
+        labels = collections.Counter(r.pred for r in res)
+        print(f"check serve classify {head}: {len(good)} requests in {n} batches, {snap_nonzero(snap)}; "
+              f"predictions equal to pipeline.predict at each batch's rung; labels {dict(labels)}")
+        out[f"classify {head}"] = {"batches": n, "launches": snap_nonzero(snap)}
+
+    # -- faults on the card, one spec at a time -------------------------------------------
+    # sides up to 128 (buckets to 128², where the streaming rung plans every
+    # batch), so each event is the fault's
+    fwork = serve_workload(n_rgb=48, n_gray=16, n_big=0, bad=False, seed=SERVE_SEED + 7,
+                           sides=(24, 128))
+    base = engine().extract(fwork)
+    faultinject.clear_degradation_log()
+
+    feng = engine(max_retries=0, capture_frames=True)
+    with faultinject.inject("lowering_error:count=1"):
+        res = feng.extract(fwork)
+    (ev,) = events(expected=1, what="lowering_error")
+    check((ev.stage, ev.from_plan, ev.to_plan, ev.injected) == ("serve", "streaming", "tiled2d", True),
+          f"serve lowering_error: event {ev}")
+    batches = served_batches(fwork, res, mb)
+    (_, b0), idx0 = feng.captured[0], batches[0]
+    want = pipeline.extract_features(b0, cfg.replace(mode="tiled2d"), device=dev, validate=False)
+    check(all(res[i].plan == "tiled2d" and res[i].degraded for i in idx0)
+          and all(r.plan == "streaming" for i, r in enumerate(res) if i not in idx0),
+          "serve lowering_error: plans")
+    wd = want["desc"].cpu().numpy()
+    check(all(np.array_equal(res[i].desc, wd[k]) for k, i in enumerate(idx0)),
+          "serve lowering_error: the degraded batch differs from mode tiled2d")
+    print(f"check serve lowering_error:count=1: one injected event streaming -> tiled2d; its batch "
+          f"of {len(idx0)} bit-equal to mode tiled2d, the rest on streaming")
+
+    with faultinject.inject("nan_input:count=1"):
+        res = engine().extract(fwork)
+    (ev,) = events(expected=1, what="nan_input")
+    first_f32 = next(i for i, f in enumerate(fwork) if f.dtype == np.float32)
+    check(ev.to_plan == "sanitized" and ev.injected and ev.detail == f"request {first_f32}"
+          and res[first_f32].ok and res[first_f32].events == [ev] and all(r.ok for r in res),
+          f"serve nan_input: {ev}")
+    print(f"check serve nan_input:count=1: request {first_f32} (f32) sanitized with one event, "
+          "all served")
+
+    with faultinject.inject("bucket_miss:count=1"):
+        res = engine().extract(fwork)
+    (ev,) = events(expected=1, what="bucket_miss")
+    h, w = fwork[0].shape[:2]
+    check(ev.to_plan == "exact-shape" and ev.injected and res[0].bucket == (h, w)
+          and all(r.ok and r.plan == "streaming" for r in res),
+          f"serve bucket_miss: {ev}, bucket {res[0].bucket}")
+    print(f"check serve bucket_miss:count=1: request 0 served at its exact shape {h}x{w}")
+
+    weng = engine()
+    with faultinject.inject("measure_timeout:count=1"):
+        table = weng.warm((32, 32))
+    (ev,) = events(expected=1, what="measure_timeout")
+    check(table is None and ev.to_plan == "heuristic" and ev.injected, f"serve warm: {ev}")
+    print("check serve measure_timeout:count=1: warm((32, 32)) -> None with one event")
+
+    # two batches (buckets 64² and 128²), so the lost device stays quarantined throughout
+    src = ImageStream(res=128).batch(32, split=SERVE_SEED + 8)[0].numpy()
+    dwork = [src[i, :48, :60] for i in range(16)] + [src[i, :100, :128] for i in range(16, 32)]
+    local = engine().extract(dwork)
+    faultinject.clear_degradation_log()
+    for spec, want_ev in (("shard_oom:count=1", [("dispatch", "streaming", "tiled2d")]),
+                          ("device_loss:count=1", [("health", "healthy", "quarantined"),
+                                                   ("dispatch", "v0", "v1")])):
+        disp = ShardDispatcher(devices=["v0", "v1"], device=dev)
+        deng = engine(dispatcher=disp)
+        with faultinject.inject(spec):
+            res = deng.extract(dwork)
+        log = events(expected=len(want_ev), what=spec)
+        check([(e.stage, e.from_plan, e.to_plan) for e in log] == want_ev
+              and all(e.injected for e in log), f"serve {spec}: events {log}")
+        check(all(r.ok for r in res) and all(np.array_equal(a.desc, b.desc)
+                                             and np.array_equal(a.valid, b.valid)
+                                             for a, b in zip(res, local)),
+              f"serve {spec}: outputs differ from the fault-free run")
+        print(f"check serve {spec} (virtual devices v0, v1 on the card): {len(res)} requests in "
+              f"{deng.stats['sharded_batches']} sharded batches, events "
+              f"{[(e.stage, e.from_plan, e.to_plan) for e in log]}, outputs equal to the "
+              f"fault-free run; dispatcher {disp.stats}")
+
+    counters.reset()
+    msg = refused(lambda: CvEngine(ladder=("window", "ref"), device=dev))
+    check("plain version" in msg and not any(counters.LAUNCHES.values()),
+          f"serve: a ladder to ref on the card was not refused before any launch ({msg!r})")
+    print(f"check serve refusal: CvEngine(ladder=('window', 'ref')) on the card -> ValueError "
+          f"({msg[:60]}...), nothing launched")
+
+    # -- times ---------------------------------------------------------------------
+    teng = engine()
+    teng.extract(work)  # warm
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = teng.extract(work)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    faultinject.clear_degradation_log()
+    lat = collections.defaultdict(set)
+    for r in res:
+        if r.ok:
+            lat[tuple(r.bucket)].add(r.latency_s)
+    per_bucket = {f"{b[0]}x{b[1]}": 1e3 * sum(v) / len(v) for b, v in sorted(lat.items())}
+    best = min(walls)
+    print(f"time serve extract, {len(work)} requests (host wall, best of 3 after a warm one): "
+          f"{best:.4f} s ({walls}); {len(work) / best:.1f} requests/s; mean batch latency ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_bucket.items()) + f" card={card}")
+    out["times"] = {"submit_s": walls, "requests_per_s": len(work) / best,
+                    "batch_latency_ms": per_bucket}
+    hd = RES["1080p"]
+    x = torch.randint(0, 256, hd, dtype=torch.uint8, generator=torch.Generator().manual_seed(3)).to(dev)
+    vh = {}
+    for r in (1, 2, 3):
+        check(torch.equal(imgproc.erode_vanherk(x, r), ops.erode(x, r)),
+              f"erode_vanherk r={r} differs from ops.erode")
+        t_vh = time_ms(lambda r=r: imgproc.erode_vanherk(x, r), iters=20)
+        t_er = time_ms(lambda r=r: ops.erode(x, r), iters=20)
+        vh[r] = {"vanherk_ms": t_vh, "erode_ms": t_er}
+        print(f"time erode 1080p u8 r={r}: erode_vanherk (plain PyTorch) ms={t_vh:.5f}, ops.erode "
+              f"(mode None) ms={t_er:.5f}, equal; card={card}")
+    out["vanherk"] = vh
+    results["serve"] = out
+
+
 def snap_nonzero(snap: dict) -> dict:
     return {k: v for k, v in snap["launches"].items() if v}
 
@@ -2274,22 +2622,27 @@ def main() -> int:
     routing_phase(dev, card, slice_cases, path_counts, results)
     phase_clean("phase 9")
 
-    # -- 10. the LM serving path -----------------------------------------------
+    # -- 10. the CV serving engine ---------------------------------------------------
+    serve_phase(dev, card, cfgs, models, path_counts, results)
+    phase_clean("phase 10")
+
+    # -- 11. the LM serving path -----------------------------------------------
     lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
                       gen_len=LM_GEN, max_err=max_err)
     path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
     results["lm"] = lm_out
-    phase_clean("phase 10")
+    phase_clean("phase 11")
 
     main_launches = {
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
-          f"geometric path + pyramid path + measured routing + generate): {main_launches}")
+          f"geometric path + pyramid path + measured routing + CV serving + generate): "
+          f"{main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 11. the kernels on the paths' own tensors, then timing -----------------
+    # -- 12. the kernels on the paths' own tensors, then timing -----------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -2488,7 +2841,7 @@ def main() -> int:
         )
         results["timing"][k["name"]] = entry | {"ms_runs": [k1, k2], "plain_runs": [p1, p2]}
 
-    phase_clean("phase 11")
+    phase_clean("phase 12")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))

@@ -335,7 +335,8 @@ def _record(key: str, times: dict, persist: bool) -> dict:
 
 
 def measure_chain(img: torch.Tensor, stages, *, lc: LaunchConfig = DEFAULT, n: int = 3,
-                  modes=None, persist: bool = True, deadline_s: float | None = None) -> dict:
+                  modes=None, persist: bool = True, deadline_s: float | None = None,
+                  watchdog=None) -> dict:
     """Time a chain's modes on `img` and cache the winner, so that
     ``fused_chain(img, stages, mode=None)`` launches it.  Returns
     ``{"mode": winner, "times": {mode: best seconds}}`` (the fastest of `n`
@@ -349,6 +350,10 @@ def measure_chain(img: torch.Tensor, stages, *, lc: LaunchConfig = DEFAULT, n: i
     deadline_s: once the measurement has taken this long, the candidates
         not yet timed are skipped (recorded as an event) and the winner is
         picked from those timed; the first always runs.
+    watchdog: a `train.fault.StragglerWatchdog` that gets one ``.step(i,
+        seconds)`` per timed candidate, from the candidate's start (its
+        warm-up run included); a straggler is recorded as a
+        ``measure_chain`` event from the mode to the same mode.
     persist: also write the entry into the plan table on disk."""
     from ..kernels import stencil
 
@@ -369,11 +374,16 @@ def measure_chain(img: torch.Tensor, stages, *, lc: LaunchConfig = DEFAULT, n: i
         def run(m=mode):
             return stencil.fused_chain(img, stages, mode=m, lc=lc, ladder=())
 
+        t_cand = time.perf_counter()
         err = _warm(run, card)
         if err is not None:
             last_err = err
             continue
         times[mode] = _best_s(run, n, card)
+        if watchdog is not None and watchdog.step(i, time.perf_counter() - t_cand):
+            faultinject.record_degradation(stage="measure_chain", from_plan=mode, to_plan=mode,
+                                           reason="straggler candidate (watchdog alarm)",
+                                           detail=key)
     if not times:
         if skipped:
             raise MeasureTimeout(

@@ -65,15 +65,39 @@ def kmeans(
     return cents
 
 
-def histograms(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """Normalised word histograms: descs (B, N, D) + valids (B, N) -> (B, K),
-    assigning through `kernels.bow.bow_assign`, as JAX's default
-    (``use_kernel=True``) does."""
+def histograms(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor, *,
+               use_kernel: bool = True, fused: bool = False) -> torch.Tensor:
+    """Normalised word histograms, the one histogram entry point: batched
+    descs (B, N, D) + valids (B, N) -> (B, K); unbatched (N, D) + (N,) ->
+    (K,) through the same path (a leading batch axis of one).
+
+    ``fused=True`` runs the single-launch quantize -> histogram kernel
+    (`kernels.bow.bow_quantize_hist`, the `ClassifyPlan` fused mode); the
+    default materialises word indices through `kernels.bow.bow_assign`
+    (its plain version `bow_assign_plain` when ``use_kernel=False``) and
+    scatter-adds, which is what k-means training reuses."""
+    if descs.ndim == 2:
+        return histograms(descs[None], valids[None], centroids, use_kernel=use_kernel,
+                          fused=fused)[0]
+    descs = descs.to(torch.float32).contiguous()
+    centroids = centroids.to(torch.float32).contiguous()
+    if fused:
+        return kbow.bow_quantize_hist(descs, valids, centroids)
     B, N, D = descs.shape
-    idx, _ = kbow.bow_assign(
-        descs.reshape(B * N, D).to(torch.float32).contiguous(),
-        centroids.to(torch.float32).contiguous(),
-    )
+    assign = kbow.bow_assign if use_kernel else kbow.bow_assign_plain
+    idx, _ = assign(descs.reshape(B * N, D), centroids)
     h = torch.zeros((B, centroids.shape[0]), dtype=torch.float32, device=descs.device)
     h.scatter_add_(1, idx.long().reshape(B, N), valids.to(torch.float32))
     return kbow.normalize_hist(h)
+
+
+def histogram(desc: torch.Tensor, valid: torch.Tensor, centroids: torch.Tensor, *,
+              use_kernel: bool = True) -> torch.Tensor:
+    """Per-image histogram: the unbatched form of `histograms`."""
+    return histograms(desc, valid, centroids, use_kernel=use_kernel)
+
+
+def batch_histograms(descs: torch.Tensor, valids: torch.Tensor, centroids: torch.Tensor, *,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Batched histograms: an alias of `histograms` kept for JAX's call sites."""
+    return histograms(descs, valids, centroids, use_kernel=use_kernel)

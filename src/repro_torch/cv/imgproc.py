@@ -114,3 +114,45 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     if img.dtype == torch.uint8:
         return torch.clamp(torch.round(g), 0, 255).to(torch.uint8)
     return g.to(img.dtype)
+
+
+# -- van Herk-Gil-Werman morphology: 3 min-ops a pixel whatever the kernel size --------------
+# JAX writes it in jnp (no Pallas kernel), so the port writes it in plain PyTorch.
+
+
+def _vanherk_1d(x: torch.Tensor, w: int, axis: int, op: str) -> torch.Tensor:
+    """Running min / max with window `w` along `axis` (centred, edge-padded):
+    prefix and suffix scans over segments of `w`, then one min / max of a
+    suffix and a prefix per output."""
+    r = w // 2
+    x = torch.movedim(x, axis, -1)
+    n = x.shape[-1]
+    pad = (-(n + 2 * r)) % w
+    xp = torch.cat([x[..., :1].expand(*x.shape[:-1], r), x,
+                    x[..., -1:].expand(*x.shape[:-1], r + pad)], dim=-1)
+    m = xp.shape[-1] // w
+    seg = xp.reshape(*xp.shape[:-1], m, w)
+    scan, red = (torch.cummin, torch.minimum) if op == "min" else (torch.cummax, torch.maximum)
+    pre = scan(seg, dim=-1).values.reshape(*xp.shape[:-1], m * w)
+    suf = scan(seg.flip(-1), dim=-1).values.flip(-1).reshape(*xp.shape[:-1], m * w)
+    # the window starting at i (length w): red(suffix[i], prefix[i + w - 1])
+    out = red(suf[..., :n], pre[..., w - 1 : w - 1 + n])
+    return torch.movedim(out, -1, axis)
+
+
+def morph_vanherk(img: torch.Tensor, ksize: int, op: str = "min") -> torch.Tensor:
+    """Separable rectangular erosion / dilation, (2*ksize+1)^2, edge
+    borders, over axes 0 and 1 (an (H, W) or (H, W, C) image), in O(1)
+    min-ops a pixel; the output in the input's dtype, on its device."""
+    w = 2 * ksize + 1
+    out = _vanherk_1d(img, w, 0, op)
+    out = _vanherk_1d(out, w, 1, op)
+    return out.to(img.dtype)
+
+
+def erode_vanherk(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    return morph_vanherk(img, ksize, "min")
+
+
+def dilate_vanherk(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    return morph_vanherk(img, ksize, "max")

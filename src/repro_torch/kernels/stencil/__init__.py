@@ -52,6 +52,7 @@ from .ladder import (
     set_default_ladder,
 )
 from .plan import (
+    PlanOverBudget,
     chain_accumulated_halo,
     chain_halo,
     chain_iface,
@@ -66,6 +67,7 @@ from .plan import (
 __all__ = [
     "DEGRADATION_LADDER",
     "MODES",
+    "PlanOverBudget",
     "Stage",
     "affine_disp_bound",
     "affine_stage",

@@ -248,7 +248,7 @@ def _stream_geometry(prog, shape, lc, tiled, tile_w, sms) -> StreamGeometry:
     smem = layout.smem_bytes(tw)
     if smem + prog.table_smem > lc.smem_budget:
         what = "full-width" if not tiled else f"{tw}-column"
-        raise ValueError(
+        raise plan.PlanOverBudget(
             f"stencil_stream: the {what} rings of this chain need {smem} bytes of shared memory "
             f"(+{prog.table_smem} for the step table), over the budget of {lc.smem_budget}"
         )

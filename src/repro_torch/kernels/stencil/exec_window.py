@@ -46,6 +46,7 @@ from .. import _build, counters, ref
 from .plan import (
     SEPARABLE_OPS,
     Levels,
+    PlanOverBudget,
     aligned_pad,
     band_hw,
     band_walk,
@@ -539,7 +540,7 @@ def _window_geometry(prog, lc, shape, sms) -> WindowGeometry:
         if smem <= lc.smem_budget:
             break
         if th == uy and tw == ux:
-            raise ValueError(
+            raise PlanOverBudget(
                 f"stencil_chain: a {th}x{tw} tile under the halo {prog.halo} needs "
                 f"{smem} bytes of shared memory, over the budget of {lc.smem_budget}"
             )

@@ -43,6 +43,14 @@ import torch
 
 from .ir import GATHER_OPS, _affine_disp_over, _gather_halo, resolve_chain
 
+
+class PlanOverBudget(ValueError):
+    """A kernel plan that does not fit a block's shared memory even at its
+    smallest tile: the mode cannot take this shape (full-width streaming
+    rings, the narrowest tiled2d column tile, the smallest window tile).
+    A `ValueError`, so `fused_chain` raises it from every mode; the serving
+    engine and dispatcher move to their next rung on it."""
+
 # ops whose body runs a row pass, then a column pass
 SEPARABLE_OPS = frozenset({"sep_filter", "box", "erode", "dilate", "pyr_down"})
 # the square kernel sizes stencil_stream runs as register strips, by op
@@ -749,7 +757,7 @@ def pick_tile_plan(
             best = (key, cand)
     if best is None:
         narrow = min(LANE, width)
-        raise ValueError(
+        raise PlanOverBudget(
             f"stencil_stream: a {narrow}-column tile needs {layout.smem_bytes(narrow) + fixed} "
             f"bytes of shared memory, over the budget of {budget}"
         )

@@ -389,3 +389,60 @@ def test_show_cache_prints_the_table(cache_env):
                          capture_output=True, text=True, env=env, check=True, timeout=120).stdout
     assert f"# chain-mode autotune cache: {cache_env}" in out
     assert "erode(1,)tNonew|2x40x44x3|float32|" in out and "-> window" in out
+
+
+class ScriptedWatchdog:
+    """Records each ``step(i, seconds)`` and flags the steps in `slow`."""
+
+    def __init__(self, slow=()):
+        self.slow, self.steps = set(slow), []
+
+    def step(self, i, seconds):
+        self.steps.append((i, seconds))
+        return i in self.slow
+
+
+@pytest.mark.parametrize("slow", [(), (2,), (0, 3), (1, 2, 3)])
+def test_measure_chain_feeds_the_watchdog_as_jax(slow):
+    """One step a timed candidate, timed from its start, and a straggler
+    recorded as a measure_chain event from the mode to itself.  At 32x32 JAX
+    times all four modes (its planes no larger than the octave's halo run
+    `chain_ref` under each), as the port does on the CPU when asked for
+    them (its default leaves out streaming here: the fit rule)."""
+    x = np.random.default_rng(2).random((32, 32), dtype=np.float32)
+    evs, steps = {}, {}
+    for side, at, fi, feats, img in (
+        ("torch", tat, tfi, tfeatures, torch.from_numpy(x)),
+        ("jax", jat, jfi, jfeatures, jnp.asarray(x)),
+    ):
+        wd = ScriptedWatchdog(slow)
+        with fi.collect_events() as e:
+            entry = at.measure_chain(img, feats.octave_chain(with_next_base=False), n=1,
+                                     modes=jat.CHAIN_MODES, persist=False, watchdog=wd)
+        # (JAX also records its structural chain_ref fallbacks, stage fused_chain)
+        evs[side] = [(v.stage, v.from_plan, v.to_plan, v.reason, v.injected) for v in e
+                     if v.stage == "measure_chain"]
+        steps[side] = [i for i, _ in wd.steps]
+        assert all(s >= 0.0 for _, s in wd.steps)
+        assert len(wd.steps) == len(entry["times"]) == 4
+    assert steps["torch"] == steps["jax"] == [0, 1, 2, 3]
+    assert evs["torch"] == evs["jax"]
+    assert [e[1] for e in evs["torch"]] == [("streaming", "tiled2d", "window", "ref")[i]
+                                             for i in sorted(slow)]
+
+
+def test_measure_chain_watchdog_skips_untimed_candidates():
+    """A candidate cut by the deadline gets no step; a real watchdog in its
+    warm-up flags nothing."""
+    x = torch.from_numpy(np.random.default_rng(3).random((32, 32), dtype=np.float32))
+    wd = ScriptedWatchdog()
+    tat.measure_chain(x, tfeatures.octave_chain(with_next_base=False), n=1, persist=False,
+                      deadline_s=0.0, watchdog=wd)
+    assert [i for i, _ in wd.steps] == [0]
+    from repro_torch.train.fault import StragglerWatchdog
+
+    real = StragglerWatchdog(threshold=4.0, warmup=10)
+    with tfi.collect_events() as e:
+        tat.measure_chain(x, tfeatures.octave_chain(with_next_base=False), n=1, persist=False,
+                          watchdog=real)
+    assert real.n == 3 and not real.alarms  # tiled2d, window, ref and not [v for v in e if "straggler" in v.reason]

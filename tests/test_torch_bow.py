@@ -591,3 +591,61 @@ def test_hist_cluster_geometry_matches_the_kernel():
         [1, 1, 2, 2, 4, 5, 6, 8]
     # the predict request's clusters fit the card at once (one wave)
     assert 256 * tbow.hist_ranks(250) <= tbow.HIST_MIN_BLOCKS * 132
+
+
+# -- `cv.bow.histograms`: every form JAX's takes -------------------------------------------
+
+HIST_FORMS = {
+    # name: the call, the same API in both packages' `cv.bow`, on (descs, valids, cents)
+    "batched": lambda m, d, v, c: m.histograms(d, v, c),
+    "unbatched": lambda m, d, v, c: m.histograms(d[0], v[0], c),
+    "fused": lambda m, d, v, c: m.histograms(d, v, c, fused=True),
+    "fused unbatched": lambda m, d, v, c: m.histograms(d[1], v[1], c, fused=True),
+    "use_kernel=False": lambda m, d, v, c: m.histograms(d, v, c, use_kernel=False),
+    "histogram": lambda m, d, v, c: m.histogram(d[2], v[2], c),
+    "histogram use_kernel=False": lambda m, d, v, c: m.histogram(d[2], v[2], c, use_kernel=False),
+    "batch_histograms": lambda m, d, v, c: m.batch_histograms(d, v, c),
+}
+
+
+@pytest.mark.parametrize("form", HIST_FORMS)
+@pytest.mark.parametrize("B,N,D,K", [(3, 32, 128, 250), (4, 5, 16, 7)])
+def test_histogram_forms_match_jax(form, B, N, D, K):
+    from repro.cv import bow as jbow_cv
+
+    from repro_torch.cv import bow as tbow_cv
+
+    descs, valids, cents = _problem(7 * B + K, B, N, D, K)
+    call = HIST_FORMS[form]
+    want = np.asarray(call(jbow_cv, jnp.asarray(descs), jnp.asarray(valids), jnp.asarray(cents)))
+    got = call(tbow_cv, torch.from_numpy(descs), torch.from_numpy(valids),
+                torch.from_numpy(cents)).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    # back to counts, then the near-tie rule (exact on this data)
+    rows = {"unbatched": [0], "fused unbatched": [1], "histogram": [2],
+            "histogram use_kernel=False": [2]}.get(form, list(range(B)))
+    d, v = descs[rows], valids[rows]
+    counts = v.sum(axis=1, keepdims=True).clip(min=1)
+    n_ties = assert_hist_near_tie_rule(got.reshape(len(rows), K) * counts,
+                                       want.reshape(len(rows), K) * counts, d, v, cents)
+    assert n_ties == 0
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_histograms_route_by_option(monkeypatch):
+    """``use_kernel=False`` never reaches the `bow_assign` wrapper, and
+    ``fused=True`` only `bow_quantize_hist`."""
+    from repro_torch.cv import bow as tbow_cv
+
+    descs, valids, cents = (torch.from_numpy(a) for a in _problem(3, 2, 6, 16, 5))
+    calls = []
+    for name in ("bow_assign", "bow_assign_plain", "bow_quantize_hist"):
+        real = getattr(tbow, name)
+        monkeypatch.setattr(tbow, name, lambda *a, _n=name, _r=real, **k: (calls.append(_n),
+                                                                              _r(*a, **k))[1])
+    for kw, want in (({}, ["bow_assign", "bow_assign_plain"]),
+                     ({"use_kernel": False}, ["bow_assign_plain"]),
+                     ({"fused": True}, ["bow_quantize_hist"])):
+        calls.clear()
+        tbow_cv.histograms(descs, valids, cents, **kw)
+        assert calls == want, kw

@@ -1050,3 +1050,84 @@ def test_mode_none_launches_the_measured_winner(dev, tmp_path, monkeypatch):
         assert e["mode"] == seeded
         kernels.append(routes_to(img, chain, seeded))
     assert kernels == ["stencil_chain", "stencil_stream"], kernels
+
+
+# -- the serving engine on the card ------------------------------------------------------
+
+
+def _octave_streams(side: int) -> bool:
+    """Do the octave chain's full-width f32 rings fit a block's shared memory
+    at this width (the planner's own figures)?"""
+    lc = LaunchConfig()
+    prog, _ = exec_streaming.program(features.octave_chain(4, with_next_base=False),
+                                     lc.stream_rows, torch.float32, torch.device("cpu"))
+    return prog.layout.smem_bytes(side) + prog.table_smem <= lc.smem_budget
+
+
+@pytest.mark.parametrize("side", [32, 64, 128, 256])
+@pytest.mark.parametrize("batch", [1, 7, 64])
+def test_engine_streaming_rung_launches_on_every_bucket(dev, side, batch):
+    """The streaming rung launches `stencil_stream` for both chains on every
+    default bucket whose octave rings fit at full width, at the engine's
+    batch sizes (the port has no plain-version tail for planes no larger
+    than the octave's halo), bit-equal to `extract_features` at that mode;
+    on the 256x256 bucket, where they do not fit, the batch moves to
+    tiled2d with one event (the preprocess chain having launched once at
+    streaming first).  No plain version runs."""
+    from repro_torch.core import faultinject
+
+    g = torch.Generator().manual_seed(side * 100 + batch)
+    lo = side // 2 + 1
+    work = [torch.randint(0, 256, (int(torch.randint(lo, side + 1, (1,), generator=g)),
+                                   int(torch.randint(lo, side + 1, (1,), generator=g)), 3),
+                          generator=g, dtype=torch.uint8).numpy() for _ in range(batch)]
+    cfg = PipelineConfig(preprocess=True, max_kp=32)
+    eng = cv_engine.CvEngine(config=cfg, capture_frames=True, device=dev)
+    assert eng.ladder == ("streaming", "tiled2d", "window")
+    streams = _octave_streams(side)
+    assert streams == (side <= 128)
+    rung = "streaming" if streams else "tiled2d"
+    faultinject.clear_degradation_log()
+    counters.reset()
+    res = eng.extract(work)
+    torch.cuda.synchronize()
+    snap = counters.snapshot()
+    log = faultinject.degradation_log()
+    faultinject.clear_degradation_log()
+    assert all(r.ok and r.plan == rung and r.retries == 0 and r.bucket == (side, side)
+               for r in res)
+    assert [(e.from_plan, e.to_plan) for e in log] == ([] if streams else [("streaming", "tiled2d")])
+    assert snap["launches"]["stencil_stream"] == (2 if streams else 3)
+    assert sum(snap["launches"].values()) == snap["launches"]["stencil_stream"]
+    assert not any(snap["plain_calls"].values())
+    (_, b), = eng.captured
+    want = pipeline.extract_features(b, cfg.replace(mode=rung), device=dev)
+    for k, r in enumerate(res):
+        assert (r.desc == want["desc"][k].cpu().numpy()).all()
+        assert (r.valid == want["valid"][k].cpu().numpy()).all()
+
+
+def test_engine_refuses_a_ladder_to_ref_on_the_card(dev):
+    counters.reset()
+    for ladder in (("window", "ref"), cv_engine.DEFAULT_LADDER):
+        with pytest.raises(ValueError, match="plain version"):
+            cv_engine.CvEngine(ladder=ladder, device=dev)
+    assert cv_engine.CvEngine(ladder=("ref",), device=dev).ladder == ("ref",)
+    assert counters.snapshot()["launches"] == dict.fromkeys(counters.KERNELS, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("ksize", [0, 1, 3, 7])
+def test_vanherk_on_the_card_equals_the_cpu(dev, dtype, ksize):
+    from repro_torch.cv import imgproc
+
+    g = torch.Generator().manual_seed(ksize)
+    x = (torch.randint(0, 256, (37, 61, 3), generator=g).to(dtype) if dtype == torch.uint8
+         else torch.randn((37, 61, 3), generator=g))
+    for op in ("erode_vanherk", "dilate_vanherk"):
+        got = getattr(imgproc, op)(x.to(dev), ksize)
+        assert got.device.type == "cuda" and got.dtype == dtype
+        assert torch.equal(got.cpu(), getattr(imgproc, op)(x, ksize))
+    if dtype == torch.uint8 and ksize:
+        plane = x[..., 0].contiguous().to(dev)
+        assert torch.equal(imgproc.erode_vanherk(plane, ksize), ops.erode(plane, ksize))

@@ -848,3 +848,32 @@ def test_even_taps_never_run_a_strip():
                          ((tstencil.gaussian_stage(5),), 1)):
         assert plan.stream_layout(chain, 8).strips == (bool(strip),)
         assert exec_streaming.compile_stream(chain, 8).steps[0]["strip"] == strip
+
+
+# -- van Herk morphology (`cv.imgproc`, plain PyTorch as JAX's is jnp) -------------------------
+
+VANHERK_SHAPES = ((37, 53), (1, 9), (20, 1), (33, 17, 3), (5, 8, 1))
+
+
+@pytest.mark.parametrize("op", ["erode", "dilate"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("ksize", range(6))
+def test_vanherk_matches_jax(op, dtype, ksize):
+    from repro.cv import imgproc as jimgproc
+
+    rng = np.random.default_rng(ksize * 7 + (op == "erode"))
+    for shape in VANHERK_SHAPES:
+        x = (rng.integers(0, 256, shape).astype(dtype) if dtype == np.uint8
+             else rng.standard_normal(shape).astype(dtype))
+        want = np.asarray(getattr(jimgproc, f"{op}_vanherk")(jnp.asarray(x), ksize))
+        got = getattr(timgproc, f"{op}_vanherk")(torch.from_numpy(x), ksize)
+        assert got.dtype == torch.from_numpy(x).dtype and got.device.type == "cpu"
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{op} {shape} k={ksize}")
+
+
+@pytest.mark.parametrize("ksize", [1, 2, 3])
+def test_vanherk_equals_the_erode_op(ksize):
+    """As JAX's quickstart asserts: the direct erode equals van Herk on u8."""
+    x = torch.from_numpy(np.random.default_rng(ksize).integers(0, 256, (45, 61), dtype=np.uint8))
+    assert torch.equal(timgproc.erode_vanherk(x, ksize), tops.erode(x, ksize))
+    assert torch.equal(timgproc.dilate_vanherk(x, ksize), tops.dilate(x, ksize))
