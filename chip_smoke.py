@@ -140,8 +140,15 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      events; a ladder to "ref" refused before any launch; then the host
      wall of a 512-request `submit`, requests a second, each bucket's mean
      batch latency, and `erode_vanherk` against `ops.erode` at 1080p u8;
- 11. the LM serving path (`lm_phase`): gemma-7b at full width (28 layers,
-     d 3072, 16 heads of 256, bf16, ~8.5 B parameters) built on the card
+ 11. the LM serving path (`lm_phase`), once for each ported arch (`LM_RUNS`):
+     gemma-7b, starcoder2-7b (36 query heads over 4 KV heads, LayerNorm,
+     biases), h2o-danube-3-4b (32 over 8 of head dim 120, a 4096-position
+     window) at full width and depth, and qwen2-72b (64 over 8, QKV biases)
+     at full width cut to 8 of its 80 layers (~9.5 B parameters).  Below,
+     gemma-7b's numbers (28 layers, d 3072, 16 heads of 256, bf16, ~8.5 B
+     parameters); the other archs run the same checks at their own shapes
+     and layer counts, without the JAX test shapes and the head-dim
+     timings.  Each model is built on the card
      from a seeded generator; `flash_attention` held against its plain
      version within `kernels.attention.AGREE` (one rounding to the output
      dtype apart: rtol 2^-7 + atol 1e-4 in bf16, 2e-4 in f32) on every
@@ -159,7 +166,13 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      earlier price of the same work (p.v at the f32 rate); last, the same weights
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
-     and the bf16 paths' logits within twice the bf16 model's own error;
+     and the bf16 paths' logits within twice the bf16 model's own error.
+     Then h2o-danube-3-4b's long request (`long_prompt_phase`): 1 x 8704
+     prompt tokens + 8, past 8192 positions and past its window, so the
+     prefill runs `blockwise_attention` (no kernel launch, no plain call)
+     and decode reads the 4096-slot ring that holds the prompt's last 4096
+     positions; widened to f32, every step's logits within 2e-3 of one
+     full-sequence walk's at that position;
  12. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, count the device activities of one `bow_quantize_hist`
@@ -170,7 +183,8 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
      the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
      kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
-     mode=None, `flash_attention` at the prefill's layer 0, the seed kernels
+     mode=None, `flash_attention` at gemma-7b's prefill layer 0, with each
+     arch's layer 0 under ``by_arch``, the seed kernels
      on one 512x512 u8 plane, `gbdt_score`'s graph time beside the launch
      floor),
      then the card line and the device line.
@@ -210,9 +224,16 @@ HEADS = ("svm", "gbdt")
 HEAD_KERNEL = {"svm": "linear_score", "gbdt": "gbdt_score"}
 # the image-path shape whose stencil_stream numbers go on the kernels line
 STREAM_ENTRY = "gaussian_filter2d k=13 4K u8"
-# the LM serving path: gemma-7b at full width, 8 requests of 1024 + 32 tokens
-LM_ARCH = "gemma-7b"
+# the LM serving path: each ported arch at full width, 8 requests of 1024 + 32
+# tokens; (arch, layers kept): qwen2-72b's 80 layers (~145 GB in bf16) do not
+# fit the card's 80 GB, so its run keeps 8 (~19 GB, 38 GB widened to f32)
+LM_RUNS = (("gemma-7b", None), ("starcoder2-7b", None), ("h2o-danube-3-4b", None),
+           ("qwen2-72b", 8))
+LM_ARCH = LM_RUNS[0][0]  # the arch whose layer 0 goes on the kernels line
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
+# h2o-danube-3-4b's long request: past 8192 positions (blockwise attention)
+# and past its 4096-position window (the decode ring adopts the last 4096)
+LONG_ARCH, LONG_PROMPT, LONG_GEN = "h2o-danube-3-4b", 8704, 8
 
 
 class SmokeFailure(Exception):
@@ -1909,16 +1930,17 @@ def walk_prefill(model, tokens, *, mode=None, visit=None):
 
 
 def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: dict,
-             judge=check, timed: bool = True) -> dict:
+             judge=check, timed: bool = True, extras: bool = True) -> dict:
     """The LM serving path: build `cfg`'s model on the card from a seeded
     generator; hold `flash_attention` against its plain version within
     `AGREE` (and, in bf16, `OFF_PLAIN_SHARE`) on the path's own tensors (every layer's q, k, v of the bf16
-    prefill, an f32 copy of layer 0's) and on the JAX kernel test's shapes;
+    prefill, an f32 copy of layer 0's) and, with `extras`, on the JAX kernel test's shapes;
     greedy-generate `batch` x `prompt_len` + `gen_len` tokens (one launch
     per layer, no plain call); check the tokens (identical across two runs;
     teacher-forced through a `mode="ref"` prefill, each the plain path's
     argmax but at counted near-ties); time the kernel, its plain version,
-    SDPA, the prefill and a decode step (when `timed`); last, widen the
+    SDPA, the prefill and a decode step (when `timed`; with `extras` also
+    the kernel at head dims 64 and 128); last, widen the
     weights to f32 and hold the kernel path's hidden states at every prompt
     position, and its last-token logits, against the plain path's.
     `judge(ok, msg)` takes each check's verdict: `check` raises at the
@@ -1931,7 +1953,9 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     from repro_torch.models.attention import gqa_project_qkv
     from repro_torch.serve import cv_engine
 
-    out: dict = {"config": cfg.name, "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len}
+    out: dict = {"config": cfg.name, "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
+                 "n_layers": cfg.n_layers,
+                 "config_heads": f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.head_dim}"}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -1940,7 +1964,8 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     out["params"] = sum(p.numel() for p in model.parameters())
     out["weights_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
     print(f"lm {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{cfg.head_dim} over {cfg.n_kv_heads} KV heads, window {cfg.window}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}: "
           f"params={out['params']} weights={out['weights_bytes']} B init_s={out['init_s']:.2f} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
     rng = np.random.default_rng(0)
@@ -1997,8 +2022,9 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
         q, k, v = layer0.pop("qkv")
         check_flash("layer 0 of the prefill, f32 copy", q.float(), k.float(), v.float(), True)
         g = torch.Generator(dev).manual_seed(1)
-        for (b, s, t, h, hd) in [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128),
-                                 (1, 257, 257, 2, 64), (2, 100, 160, 2, 16), (1, 150, 70, 2, 256)]:
+        jax_shapes = [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128),
+                      (1, 257, 257, 2, 64), (2, 100, 160, 2, 16), (1, 150, 70, 2, 256)]
+        for (b, s, t, h, hd) in jax_shapes if extras else ():
             for dt in (torch.float32, torch.bfloat16):
                 qq, kk, vv = (torch.randn((b, n, h, hd), generator=g, device=dev).to(dt)
                               for n in (s, t, t))
@@ -2066,13 +2092,14 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     # -- times ---------------------------------------------------------------
     if timed:
         out["flash"] = time_flash(q, k, v)
-        # the same call at head dims 64 and 128 (width 4096): a tile's tensor
-        # work grows with hd and its softmax does not
-        g = torch.Generator(dev).manual_seed(2)
-        out["flash_head_dims"] = {
-            hd: time_flash(*(torch.randn(q.shape[:2] + (4096 // hd, hd), generator=g,
-                                         device=dev).to(q.dtype) for _ in range(3)))
-            for hd in (64, 128)}
+        if extras:
+            # the same call at head dims 64 and 128 (width 4096): a tile's tensor
+            # work grows with hd and its softmax does not
+            g = torch.Generator(dev).manual_seed(2)
+            out["flash_head_dims"] = {
+                hd: time_flash(*(torch.randn(q.shape[:2] + (4096 // hd, hd), generator=g,
+                                             device=dev).to(q.dtype) for _ in range(3)))
+                for hd in (64, 128)}
         lm_times(model, prompts, tokens, out)
     del q, k, v
 
@@ -2121,9 +2148,83 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     return out
 
 
+def sdpa_takes_gqa(torch) -> bool:
+    """`scaled_dot_product_attention` takes `enable_gqa` from torch 2.5 on."""
+    return tuple(int(x) for x in re.findall(r"\d+", torch.__version__)[:2]) >= (2, 5)
+
+
+def long_prompt_phase(dev, cfg, *, prompt_len: int, gen_len: int, judge=check) -> dict:
+    """One request of `prompt_len` tokens past 8192 positions and past the
+    window of `cfg` (a sliding-window arch): `generate` runs every prefill
+    layer through `blockwise_attention` (no `flash_attention` launch, no
+    plain call) and decodes against the window's ring, which holds the
+    prompt's last `window` positions (`cv_engine._adopt_prefill`).  Then,
+    with the weights widened to f32, each teacher-forced step's logits (the
+    prefill's last position, then every decode step fed generate's tokens)
+    must lie within 2e-3 of the logits one full-sequence walk over the prompt
+    and those tokens (`walk_prefill` plus the head) gives at that position."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import counters
+    from repro_torch.models import lm
+    from repro_torch.serve import cv_engine
+
+    out: dict = {"config": cfg.name, "prompt_len": prompt_len, "gen_len": gen_len,
+                 "window": cfg.window}
+    model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, prompt_len))).to(dev)
+
+    def run_generate():
+        return cv_engine.generate(model, prompts, steps=gen_len, device=dev)
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tokens, snap = counted(counters, run_generate)
+    torch.cuda.synchronize(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    expect_counts(f"generate {cfg.name} {prompt_len} + {gen_len}", snap, {}, judge)
+    judge(tokens.shape == (1, gen_len), f"long generate: shape {tuple(tokens.shape)}")
+    out["counters"] = snap
+    print(f"generate {cfg.name}: 1 x {prompt_len} + {gen_len} tokens (blockwise prefill, a ring "
+          f"of {cfg.window} slots) launches={snap_nonzero(snap)} wall_s={out['wall_s']:.3f} "
+          f"tokens {tokens[0].tolist()}")
+
+    model.float()  # widens the bf16 weights exactly
+    cfg32 = cfg.replace(dtype="float32")
+    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    with torch.inference_mode():
+        lg, pc = lm.prefill(model, prompts)
+        cache = cv_engine._adopt_prefill(
+            lm.init_cache(cfg32, 1, prompt_len + gen_len, device=dev), pc, cfg32)
+        ring = cache["groups"][0]["k"].shape[2]
+        del pc
+        steps = [lg]
+        for t in range(gen_len - 1):
+            lg, cache = lm.decode_step(model, tokens[:, t : t + 1], cache)
+            steps.append(lg)
+        del cache
+        seq = torch.cat([prompts, tokens[:, : gen_len - 1].to(prompts.dtype)], dim=1)
+        h = walk_prefill(model, seq)[:, prompt_len - 1 :]
+        full = h @ head
+    errs = [float((a - full[:, i]).abs().max()) for i, a in enumerate(steps)]
+    print(f"long prompt, f32: ring of {ring} slots; each step's logits against the full-sequence "
+          f"walk at its position (max |logit| {float(full.abs().max()):.4g}): max_abs_err "
+          f"{[round(e, 7) for e in errs]} (limit 2e-3)")
+    judge(ring == cfg.window, f"long prompt: a ring of {ring} slots, not {cfg.window}")
+    judge(max(errs) <= 2e-3, f"long prompt: decode logits {max(errs)} off the full walk's")
+    out["f32_step_errs"] = errs
+    del model, full, h
+    torch.cuda.empty_cache()
+    return out
+
+
 def time_flash(q, k, v) -> dict:
     """The kernel, its plain version and SDPA (`is_causal=True`, the
-    yardstick) on one causal call, and its bound."""
+    yardstick) on one causal call, and its bound.  With fewer KV heads than
+    query heads SDPA runs with `enable_gqa=True` where the installed torch
+    takes it, else on K and V repeated to the query heads outside the timed
+    call (`library_form` says which)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention as kattn
@@ -2131,7 +2232,16 @@ def time_flash(q, k, v) -> dict:
     run = lambda: kattn.flash_attention(q, k, v)  # noqa: E731
     plain = lambda: kattn.flash_attention(q, k, v, mode="ref")  # noqa: E731
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)  # noqa: E731
+    gqa = {}
+    form = "MHA"
+    if k.shape[2] != q.shape[2]:
+        if sdpa_takes_gqa(torch):
+            gqa, form = {"enable_gqa": True}, "enable_gqa=True"
+        else:
+            n_rep = q.shape[2] // k.shape[2]
+            kt, vt = (a.repeat_interleave(n_rep, dim=1) for a in (kt, vt))
+            form = "K and V repeated outside the timed call"
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)  # noqa: E731
     lib_err = float((sdpa().transpose(1, 2).float() - plain().float()).abs().max())
     check(lib_err <= 3e-2 * (1 + float(plain().float().abs().max())),
           f"SDPA disagrees with the plain version by {lib_err}")
@@ -2141,9 +2251,10 @@ def time_flash(q, k, v) -> dict:
     p2 = time_ms(plain, iters=3, warmup=1)
     lib = time_ms(sdpa, iters=20)
     t = {"ms_runs": [k1, k2], "plain_runs": [p1, p2], "library_ms": lib,
-         "sdpa_max_abs_diff": lib_err} | flash_bound(q, k)
+         "library_form": form, "sdpa_max_abs_diff": lib_err} | flash_bound(q, k)
     best = min(k1, k2)
-    print(f"time flash_attention ({tuple(q.shape)} {q.dtype} causal): ms={k1:.5f}/{k2:.5f} "
+    print(f"time flash_attention ({tuple(q.shape)} over {k.shape[2]} KV heads {q.dtype} causal; "
+          f"SDPA {form}): ms={k1:.5f}/{k2:.5f} "
           f"plain_ms={p1:.3f}/{p2:.3f} sdpa_ms={lib:.5f} bound_ms={t['bound_ms']:.5f} "
           f"({t['bound_by']}: q.k + p_hi.v + p_lo.v on the tensor cores; {t['bytes']} B, "
           f"{t['flops']} FLOP) share of the bound={t['bound_ms'] / best:.4f}; "
@@ -2627,10 +2738,18 @@ def main() -> int:
     phase_clean("phase 10")
 
     # -- 11. the LM serving path -----------------------------------------------
-    lm_out = lm_phase(dev, get_config(LM_ARCH), batch=LM_BATCH, prompt_len=LM_PROMPT,
-                      gen_len=LM_GEN, max_err=max_err)
-    path_counts[f"generate {LM_ARCH}"] = lm_out["generate"]["counters"]
-    results["lm"] = lm_out
+    lm_outs = {}
+    for arch, layers in LM_RUNS:
+        lm_out = lm_phase(dev, get_config(arch, n_layers=layers), batch=LM_BATCH,
+                          prompt_len=LM_PROMPT, gen_len=LM_GEN, max_err=max_err,
+                          extras=arch == LM_ARCH)
+        path_counts[f"generate {arch}"] = lm_out["generate"]["counters"]
+        lm_outs[arch] = lm_out
+    long_out = long_prompt_phase(dev, get_config(LONG_ARCH), prompt_len=LONG_PROMPT,
+                                 gen_len=LONG_GEN)
+    path_counts[f"generate {LONG_ARCH} {LONG_PROMPT} + {LONG_GEN}"] = long_out["counters"]
+    results["lm"], results["lm_long"] = lm_outs, long_out
+    lm_out = lm_outs[LM_ARCH]
     phase_clean("phase 11")
 
     main_launches = {
@@ -2638,8 +2757,8 @@ def main() -> int:
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
-          f"geometric path + pyramid path + measured routing + CV serving + generate): "
-          f"{main_launches}")
+          f"geometric path + pyramid path + measured routing + CV serving + generate x "
+          f"{len(LM_RUNS)} archs + the long prompt): {main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
     # -- 12. the kernels on the paths' own tensors, then timing -----------------
@@ -2765,6 +2884,15 @@ def main() -> int:
             "replaces": "src/repro/kernels/attention.py:31",
             "measured": lm_out["flash"],
             "shape": f"layer 0 of the {LM_ARCH} prefill, ({LM_BATCH}, {LM_PROMPT}, 16, 256) bf16",
+            # layer 0 of each arch's prefill: its kernel, plain, bound and SDPA times
+            "by_arch": {
+                arch: {"shape": f"({LM_BATCH}, {LM_PROMPT}, {o['config_heads']}) bf16",
+                       "launches": o["generate"]["counters"]["launches"]["flash_attention"],
+                       "ms": min(o["flash"]["ms_runs"]), "plain_ms": min(o["flash"]["plain_runs"]),
+                       "bound_ms": o["flash"]["bound_ms"], "library_ms": o["flash"]["library_ms"],
+                       "library_form": o["flash"]["library_form"]}
+                for arch, o in lm_outs.items()
+            },
         },
         *(
             {
@@ -2809,6 +2937,8 @@ def main() -> int:
             "bound_by": by,
             "library_ms": lib,
         }
+        if "by_arch" in k:
+            entry["by_arch"] = k["by_arch"]
         if k.get("graph"):
             graph_ms = load_bench().graph_ms
             k_g = [graph_ms(k["run"], reps=100) for _ in range(2)]

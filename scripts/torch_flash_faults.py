@@ -2,14 +2,15 @@
 """Plant known faults in a copy of the flash-attention kernel and report
 which of `chip_smoke.py`'s LM checks catch each one.
 
-    python3 scripts/torch_flash_faults.py [--arch gemma-7b] [--batch 8]
+    python3 scripts/torch_flash_faults.py [--arch gemma-7b] [--layers N] [--batch 8]
         [--prompt-len 1024] [--gen-len 32] [--faults none,zeros,...]
 
 Each fault is one textual edit of ``src/repro_torch/csrc/flash_attn.cu``.
 The edited source goes to ``build/flash_faults/<fault>/`` with the shared
 headers, the kernel library is rebuilt from there, and `chip_smoke.lm_phase`
-runs untimed on the model at full width with every check's verdict recorded
-instead of raised.  ``none`` is the unedited source, the control.  Prints
+runs untimed on the model at full width (``--layers`` keeps the first N
+layers, as `chip_smoke.LM_RUNS` cuts qwen2-72b) with every check's verdict
+recorded instead of raised.  ``none`` is the unedited source, the control.  Prints
 the checks each fault fails and one JSON summary (also written to
 ``chiprun_out/torch_flash_faults.json``).  Exits non-zero when the control
 fails a check or a planted fault passes them all.  Needs a CUDA device.
@@ -61,6 +62,11 @@ FAULTS = {
         "    const float inv0 = __fdividef(1.f, fmaxf(l0, 1e-30f) * 1.01f);\n"
         "    const float inv1 = __fdividef(1.f, fmaxf(l1, 1e-30f) * 1.01f);",
     ),
+    "kv_head_0": (
+        "in f16 / bf16, every query head reads KV head 0 (the group map dropped)",
+        "      const int kv_head = h / group;  // the KV head of this query head's group",
+        "      const int kv_head = 0;",
+    ),
     "p_lo_dropped": (
         "in f16 / bf16, p.v takes p_hi alone: one 16-bit pass of p, no p_lo",
         "    wgmma_pv<T, N>(acc, lo_d + 32 * kk / 16, vd + kk * 16 * 128 / 16);\n",
@@ -90,6 +96,7 @@ def plant(name: str, csrc: Path) -> Path:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="gemma-7b")
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--gen-len", type=int, default=32)
@@ -109,7 +116,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = get_config(args.arch)
+    cfg = get_config(args.arch, n_layers=args.layers)
     csrc = _build.CSRC
     print(f"card: {chip_smoke.card_line()}")
     summary = {}

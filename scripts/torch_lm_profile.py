@@ -1,9 +1,10 @@
 """Where the time of LM serving goes on the card (PyTorch port).
 
-    python3 scripts/torch_lm_profile.py [--reduced] [--requests 8]
-        [--prompt-len 1024] [--decode-steps 8]
+    python3 scripts/torch_lm_profile.py [--arch gemma-7b] [--layers N] [--reduced]
+        [--requests 8] [--prompt-len 1024] [--decode-steps 8]
 
-Builds gemma-7b at full width (or ``--reduced``) on the card from a seeded
+Builds ``--arch`` at full width (``--layers`` keeps its first N layers, as
+qwen2-72b needs on one 80 GB card; or ``--reduced``) on the card from a seeded
 generator, warms up with one `generate`, then traces with `torch.profiler`
 one prefill of ``--requests`` x ``--prompt-len`` tokens and, separately,
 ``--decode-steps`` decode steps against the prefill's cache, and prints for
@@ -14,7 +15,7 @@ each:
   * the device time by kernel name, `flash_attention`'s kernel first.
 
 Needs a CUDA device; writes the same report to
-``chiprun_out/torch_lm_profile.json``.
+``chiprun_out/torch_lm_profile_<arch>.json``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ def _by_kernel(prof, torch) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma-7b")
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
@@ -71,7 +74,10 @@ def main() -> int:
         timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda")
-    cfg = reduced_config("gemma-7b") if args.reduced else get_config("gemma-7b")
+    if args.reduced:
+        cfg = reduced_config(args.arch)
+    else:
+        cfg = get_config(args.arch, n_layers=args.layers)
     model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(
@@ -81,7 +87,7 @@ def main() -> int:
     tokens = cv_engine.generate(model, prompts, steps=steps + 1)  # warm-up
     torch.cuda.synchronize()
 
-    report = {"card": card, "arch": cfg.name, "reduced": args.reduced,
+    report = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers, "reduced": args.reduced,
               "requests": args.requests, "prompt_len": args.prompt_len,
               "decode_steps": steps, "phases": {}}
     print(f"card: {card}")
@@ -113,7 +119,8 @@ def main() -> int:
                 else f"{steps} decode steps of {args.requests}"
             )
             print(
-                f"traced {what} ({cfg.name}{' reduced' if args.reduced else ''}): wall "
+                f"traced {what} ({cfg.name}, {cfg.n_layers} layers"
+                f"{' reduced' if args.reduced else ''}): wall "
                 f"{wall_us / 1e3:.3f} ms, kernels {busy_us / 1e3:.3f} ms, device busy "
                 f"{busy_us / wall_us:.4f}, kernel launches {sum(n for _, n in by_kernel.values())}"
             )
@@ -128,7 +135,7 @@ def main() -> int:
             }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "torch_lm_profile.json").write_text(json.dumps(report, indent=1))
+    (out_dir / f"torch_lm_profile_{cfg.name}.json").write_text(json.dumps(report, indent=1))
     return 0
 
 

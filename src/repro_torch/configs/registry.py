@@ -12,15 +12,17 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["gemma-7b"]
+ARCHS = ["gemma-7b", "qwen2-72b", "starcoder2-7b", "h2o-danube-3-4b"]
 
-_MODULES = {"gemma-7b": "gemma_7b"}
+_MODULES = {
+    "gemma-7b": "gemma_7b",
+    "qwen2-72b": "qwen2_72b",
+    "starcoder2-7b": "starcoder2_7b",
+    "h2o-danube-3-4b": "h2o_danube3_4b",
+}
 
-# arch -> the step of ROADMAP Queue 2 item 8 (the LM stack) that ports it
+# arch -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
 _QUEUED = {
-    "qwen2-72b": "step 1 (GQA archs)",
-    "starcoder2-7b": "step 1 (GQA archs)",
-    "h2o-danube-3-4b": "step 2 (sliding window and soft cap)",
     "arctic-480b": "step 4 (MoE)",
     "deepseek-v3-671b": "step 5 (MLA)",
     "zamba2-2.7b": "step 6 (Mamba2 and xLSTM)",
@@ -33,7 +35,7 @@ _QUEUED = {
 def _module(name: str):
     if name in _QUEUED:
         raise KeyError(
-            f"arch {name!r} is not ported yet: ROADMAP Queue 2 item 8, {_QUEUED[name]}; "
+            f"arch {name!r} is not ported yet: ROADMAP Queue 1 item 8, {_QUEUED[name]}; "
             f"ported: {ARCHS}"
         )
     if name not in _MODULES:
@@ -41,8 +43,16 @@ def _module(name: str):
     return importlib.import_module(f"{__package__}.{_MODULES[name]}")
 
 
-def get_config(name: str) -> ModelConfig:
-    return _module(name).config()
+def get_config(name: str, *, n_layers: int | None = None) -> ModelConfig:
+    """`name`'s published config; `n_layers` keeps its first layers (a run
+    of one block kind), for an arch whose full depth does not fit one card
+    (qwen2-72b: ~145 GB of bf16 weights against 80 GB)."""
+    cfg = _module(name).config()
+    if n_layers is None:
+        return cfg
+    if len(cfg.blocks) != 1 or not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"{name}: cannot keep {n_layers} of {cfg.blocks}")
+    return cfg.replace(n_layers=n_layers, blocks=((cfg.blocks[0][0], n_layers),))
 
 
 def reduced_config(name: str) -> ModelConfig:

@@ -1,5 +1,11 @@
 // Flash attention forward: online-softmax attention of q (B, S, H, hd) over
-// k / v (B, T, H, hd), one head of q per head of k / v.
+// k / v (B, T, Hkv, hd) with H % Hkv == 0: query head h reads KV head
+// h / (H / Hkv), one group of H / Hkv query heads per KV head (GQA; MHA at
+// Hkv == H, MQA at Hkv == 1).  No KV is repeated: the blocks of one group
+// lie next to each other in the grid (adjacent heads, adjacent blocks), so
+// they read the same K and V tiles while those sit in L2.  Repeating K and V
+// instead would write and read ~0.27 GB a layer at qwen2-72b's 8 x 1024
+// prefill (64 query heads over 8), ~0.16 ms at 3.35 TB/s.
 //
 // flash_attn replaces src/repro/kernels/attention.py `_flash_kernel` (via
 // `flash_attention`, l.70).  Bound on an H100: operations.  At gemma-7b's
@@ -33,10 +39,11 @@
 // separate K and V "empty" ones (a K tile is free once q.k has read it, a
 // V tile once p.v has); it gives up registers (setmaxnreg 24) so that the
 // consumers may hold 240.  Warpgroups 0 and 1 own 64 query rows each.  The
-// tensor maps are 4-D (hd, H, S or T, B) over q, k and v as they lie in
-// memory, with a box of 64 channels x 1 head x rows x 1 and 128-byte
-// swizzle, so a row of hd 256 is four 128-byte boxes and nothing is
-// transposed or copied; TMA fills rows past S or T, and channels past hd,
+// tensor maps are 4-D (hd, heads, S or T, B) over q, k and v as they lie in
+// memory (k and v over their Hkv heads: the producer loads the tiles of its
+// block's KV head), with a box of 64 channels x 1 head x rows x 1 and
+// 128-byte swizzle, so a row of hd 256 is four 128-byte boxes and nothing
+// is transposed or copied; TMA fills rows past S or T, and channels past hd,
 // with zeros.  Per KV tile a consumer issues m64n64k16 `wgmma`s over the
 // channels (q and k both from swizzled shared memory) and keeps the 64 x 64
 // score tile in registers (32 a thread; a row lies on a quad of threads, so
@@ -52,8 +59,10 @@
 // that cross the diagonal or T are masked.  The epilogue divides by max(l,
 // 1e-30), rounds once to q's dtype and stores in place.  Shared memory at hd
 // 256: q 64 KB + 2 stages x (K 32 KB + V 32 KB) + p 32 KB = 224 KB; one
-// block an SM.  Head dims below 256 are padded to 64 or 128 channels
-// (zeros).
+// block an SM.  Head dims below 256 are padded to 64, 128 or 256 channels:
+// TMA fills the channels past hd with zeros (hd 120: channels 120-127 of
+// each row), which add nothing to q.k or p.v, and the epilogue stores
+// channels below hd only.
 //
 // f32: flash_attn_simt_kernel, f32 FMAs (its 2e-4 tolerance rules out
 // 16-bit splits of q and k).  One block of 256 threads owns one (batch,
@@ -124,7 +133,7 @@ template <typename T, int CPW>
 __global__ void __launch_bounds__(THREADS)
     flash_attn_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
-                           int hd, int causal, float scale, int n_qt, int BH) {
+                           int group, int hd, int causal, float scale, int n_qt, int BH) {
   using E = Elem<T>;
   constexpr int PW = E::PER_WORD;
   const int W = hd / PW;  // words per row
@@ -141,11 +150,13 @@ __global__ void __launch_bounds__(THREADS)
   const int qt = n_qt - 1 - int(blockIdx.x / unsigned(BH));  // longest causal rows first
   const int bh = int(blockIdx.x % unsigned(BH));
   const int b = bh / H, h = bh - b * H;
+  const int Hkv = H / group, kvh = h / group;  // this query head's KV head
   const int q0 = qt * BQ;
-  const size_t rs = size_t(H) * W;  // words between two rows of one head
+  const size_t rs = size_t(H) * W;       // words between two rows of one head of q
+  const size_t rs_kv = size_t(Hkv) * W;  // ... of k and v
   const uint32_t* qg = reinterpret_cast<const uint32_t*>(q) + (size_t(b) * S * H + h) * W;
-  const uint32_t* kg = reinterpret_cast<const uint32_t*>(k) + (size_t(b) * Tk * H + h) * W;
-  const uint32_t* vg = reinterpret_cast<const uint32_t*>(v) + (size_t(b) * Tk * H + h) * W;
+  const uint32_t* kg = reinterpret_cast<const uint32_t*>(k) + (size_t(b) * Tk * Hkv + kvh) * W;
+  const uint32_t* vg = reinterpret_cast<const uint32_t*>(v) + (size_t(b) * Tk * Hkv + kvh) * W;
   uint32_t* og = reinterpret_cast<uint32_t*>(o) + (size_t(b) * S * H + h) * W;
 
   const int tid = threadIdx.x;
@@ -167,8 +178,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // the previous tile's readers are done
-    stage_rows<BKV>(k_s, WS, kg, rs, k0, Tk, W);
-    stage_rows<BKV>(v_s, W, vg, rs, k0, Tk, W);
+    stage_rows<BKV>(k_s, WS, kg, rs_kv, k0, Tk, W);
+    stage_rows<BKV>(v_s, W, vg, rs_kv, k0, Tk, W);
     __syncthreads();
 
     // scores: rows ty*4 + r, keys tx + 16c
@@ -286,7 +297,7 @@ size_t simt_smem_bytes(int W) {
 
 template <int CPW>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                int H, int hd, int causal, size_t smem, cudaStream_t stream) {
+                int H, int Hkv, int hd, int causal, size_t smem, cudaStream_t stream) {
   const int n_qt = (S + BQ - 1) / BQ;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
@@ -296,21 +307,25 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int
   const float scale = float(1.0 / sqrt(double(hd)));
   flash_attn_simt_kernel<float, CPW><<<unsigned(blocks), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, Tk, H, hd, causal, scale, n_qt, B * H);
+      static_cast<float*>(o), S, Tk, H, H / Hkv, hd, causal, scale, n_qt, B * H);
   return int(cudaGetLastError());
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-               int hd, int causal, int smem_max, cudaStream_t stream) {
+               int Hkv, int hd, int causal, int smem_max, cudaStream_t stream) {
   const int W = hd;
   const size_t smem = simt_smem_bytes(W);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
   const int need = (W + 15) / 16;
-  if (need <= 1) return launch_simt<1>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
-  if (need <= 2) return launch_simt<2>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
-  if (need <= 4) return launch_simt<4>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
-  if (need <= 8) return launch_simt<8>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
-  return launch_simt<16>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
+  if (need <= 1)
+    return launch_simt<1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+  if (need <= 2)
+    return launch_simt<2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+  if (need <= 4)
+    return launch_simt<4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+  if (need <= 8)
+    return launch_simt<8>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+  return launch_simt<16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -650,7 +665,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                             __grid_constant__ const CUtensorMap k_map,
                             __grid_constant__ const CUtensorMap v_map, T* __restrict__ o, int S,
-                            int Tk, int H, int hd, int causal, float scale, int n_qt, int BH) {
+                            int Tk, int H, int group, int hd, int causal, float scale, int n_qt,
+                            int BH) {
   constexpr int N = NC * CHUNK;  // width of the p.v product
   using P = Half<T>;
   extern __shared__ uint8_t smem_raw[];
@@ -693,6 +709,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     // ---- producer: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (tid == 256) {
+      const int kv_head = h / group;  // the KV head of this query head's group
       mbar_expect_tx(q_full, NC * Q_CHUNK);
 #pragma unroll
       for (int c = 0; c < NC; ++c) tma_load(q_s + c * Q_CHUNK, &q_map, q_full, c * CHUNK, h, q0, b);
@@ -704,14 +721,14 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         mbar_expect_tx(k_full + 8 * s, NC * KV_CHUNK);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          tma_load(k_s + (s * NC + c) * KV_CHUNK, &k_map, k_full + 8 * s, c * CHUNK, h, kt * WKV,
-                   b);
+          tma_load(k_s + (s * NC + c) * KV_CHUNK, &k_map, k_full + 8 * s, c * CHUNK, kv_head,
+                   kt * WKV, b);
         if (kt >= STAGES) mbar_wait(v_empty + 8 * s, parity);
         mbar_expect_tx(v_full + 8 * s, NC * KV_CHUNK);
 #pragma unroll
         for (int c = 0; c < NC; ++c)
-          tma_load(v_s + (s * NC + c) * KV_CHUNK, &v_map, v_full + 8 * s, c * CHUNK, h, kt * WKV,
-                   b);
+          tma_load(v_s + (s * NC + c) * KV_CHUNK, &v_map, v_full + 8 * s, c * CHUNK, kv_head,
+                   kt * WKV, b);
       }
     }
   } else {
@@ -863,7 +880,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int h
 
 template <typename T, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-                 int hd, int causal, size_t smem, cudaStream_t stream) {
+                 int Hkv, int hd, int causal, size_t smem, cudaStream_t stream) {
   const int n_qt = (S + WQ - 1) / WQ;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
@@ -873,8 +890,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const void* vp = Tk > 0 ? v : q;
   const int rows = Tk > 0 ? Tk : 1;
   if (!encode_map<T>(&q_map, q, B, S, H, hd, WQ) ||
-      !encode_map<T>(&k_map, kp, B, rows, H, hd, WKV) ||
-      !encode_map<T>(&v_map, vp, B, rows, H, hd, WKV))
+      !encode_map<T>(&k_map, kp, B, rows, Hkv, hd, WKV) ||
+      !encode_map<T>(&v_map, vp, B, rows, Hkv, hd, WKV))
     return int(cudaErrorInvalidValue);
   auto kernel = flash_attn_wgmma_kernel<T, NC>;
   cudaError_t err =
@@ -882,41 +899,46 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err != cudaSuccess) return int(err);
   const float scale = float(1.0 / sqrt(double(hd)));
   kernel<<<unsigned(blocks), W_THREADS, smem, stream>>>(q_map, k_map, v_map, static_cast<T*>(o), S,
-                                                        Tk, H, hd, causal, scale, n_qt, B * H);
+                                                        Tk, H, H / Hkv, hd, causal, scale, n_qt,
+                                                        B * H);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_16bit(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-                 int hd, int causal, int smem_max, cudaStream_t stream) {
+                 int Hkv, int hd, int causal, int smem_max, cudaStream_t stream) {
   const int nc = wgmma_chunks(hd);
   const size_t smem = wgmma_smem_bytes(nc);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
-  if (nc == 1) return launch_wgmma<T, 1>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
-  if (nc == 2) return launch_wgmma<T, 2>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
-  return launch_wgmma<T, 4>(q, k, v, o, B, S, Tk, H, hd, causal, smem, stream);
+  if (nc == 1)
+    return launch_wgmma<T, 1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+  if (nc == 2)
+    return launch_wgmma<T, 2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+  return launch_wgmma<T, 4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError().  dtype: 0 f32 (the SIMT body), 1 f16, 2 bf16
 // (the wgmma body).  q and o are contiguous (B, S, H, hd), k and v
-// (B, T, H, hd), 16-byte aligned, with hd a multiple of 8 in [8, 256];
-// anything else, or a block's shared memory above smem_max, is refused with
-// cudaErrorInvalidValue before a launch.
+// (B, T, Hkv, hd) with Hkv dividing H, 16-byte aligned, with hd a multiple
+// of 8 in [8, 256]; anything else, or a block's shared memory above
+// smem_max, is refused with cudaErrorInvalidValue before a launch.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                 int S, int Tk, int H, int hd, int dtype, int causal, int smem_max,
-                                 void* stream) {
+                                 int S, int Tk, int H, int Hkv, int hd, int dtype, int causal,
+                                 int smem_max, void* stream) {
   if (hd < 8 || hd > 256 || hd % 8 != 0) return int(cudaErrorInvalidValue);
+  if (Hkv < 1 || H % Hkv != 0) return int(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_f32(q, k, v, o, B, S, Tk, H, hd, causal, smem_max, st);
+      return launch_f32(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem_max, st);
     case 1:
-      return launch_16bit<__half>(q, k, v, o, B, S, Tk, H, hd, causal, smem_max, st);
+      return launch_16bit<__half>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem_max, st);
     case 2:
-      return launch_16bit<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, hd, causal, smem_max, st);
+      return launch_16bit<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem_max,
+                                         st);
     default:
       return int(cudaErrorInvalidValue);
   }

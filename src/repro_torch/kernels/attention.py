@@ -3,8 +3,11 @@
 `flash_attention` replaces `repro.kernels.attention._flash_kernel` (TPU,
 Pallas).  Bound on an H100: operations.  At gemma-7b's prefill (B = 8,
 S = T = 1024, 16 heads of 256, causal, bf16) the causal half of q.k and
-p.v is 34.4 GFLOP each, against ~268 MB (~0.08 ms at 3.35 TB/s).  One
-hand-written kernel a call, routed by dtype (``csrc/flash_attn.cu``):
+p.v is 34.4 GFLOP each, against ~268 MB (~0.08 ms at 3.35 TB/s).  k and v
+may hold fewer heads than q (GQA): query head h reads KV head
+h // (H // Hkv), in the kernel and in the plain version, and no KV is
+repeated.  One hand-written kernel a call, routed by dtype
+(``csrc/flash_attn.cu``):
 
 * f16 / bf16, the serving path: tensor cores.  One block of three
   warpgroups per (batch, head, 128-row query tile): a producer thread
@@ -70,8 +73,8 @@ OFF_PLAIN_SHARE = 2.0**-5
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # C signature in csrc/flash_attn.cu: pointers and the stream as c_void_p, ints as c_int
-# (q, k, v, o, B, S, T, H, hd, dtype, causal, smem_max, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# (q, k, v, o, B, S, T, H, Hkv, hd, dtype, causal, smem_max, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def smem_bytes(head_dim: int, itemsize: int) -> int:
@@ -98,13 +101,13 @@ def chunks(head_dim: int) -> int:
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0]:
         raise ValueError(
-            f"flash_attention: expected q (B, S, H, hd) and k, v (B, T, H, hd), got "
+            f"flash_attention: expected q (B, S, H, hd) and k, v (B, T, Hkv, hd), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if k.shape[2] != q.shape[2]:
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2]:
         raise ValueError(
-            f"flash_attention: {q.shape[2]} query heads over {k.shape[2]} KV heads; the kernel "
-            "takes one KV head per query head (GQA: ROADMAP Queue 2 item 8, step 1)"
+            f"flash_attention: {q.shape[2]} query heads over {k.shape[2]} KV heads; the KV "
+            "head count must divide the query head count"
         )
     if k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: head dims {q.shape[3]} and {k.shape[3]} differ")
@@ -127,25 +130,27 @@ def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
     """Plain version of the kernel: an online softmax over 64-key blocks in
-    f32, with the kernel's guards; the result in q's dtype."""
+    f32, with the kernel's guards; the result in q's dtype.  Query heads are
+    taken in groups of H // Hkv, each group against its KV head (no repeat)."""
     counters.PLAIN_CALLS["flash_attention"] += 1
     B, S, H, hd = q.shape
-    T = k.shape[1]
+    T, G = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)
-    qf = q.to(torch.float32).transpose(1, 2)  # (B, H, S, hd)
-    kf = k.to(torch.float32).transpose(1, 2)
-    vf = v.to(torch.float32).transpose(1, 2)
-    m = torch.full((B, H, S), NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)  # noqa: E741
-    acc = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
+    # (B, G, R, S, hd) against (B, G, 1, T, hd): query head g * R + r reads KV head g
+    qf = q.to(torch.float32).transpose(1, 2).reshape(B, G, H // G, S, hd)
+    kf = k.to(torch.float32).transpose(1, 2)[:, :, None]
+    vf = v.to(torch.float32).transpose(1, 2)[:, :, None]
+    m = torch.full(qf.shape[:4], NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros(qf.shape[:4], dtype=torch.float32, device=q.device)  # noqa: E741
+    acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
     qi = torch.arange(S, device=q.device)[:, None]
     # under causal, keys past the last query row are masked for every row
     kv_end = min(T, S) if causal else T
     for k0 in range(0, kv_end, BKV):
-        kb, vb = kf[:, :, k0 : k0 + BKV], vf[:, :, k0 : k0 + BKV]
+        kb, vb = kf[:, :, :, k0 : k0 + BKV], vf[:, :, :, k0 : k0 + BKV]
         s = (qf @ kb.transpose(-1, -2)) * scale
         if causal:
-            ki = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
+            ki = torch.arange(k0, k0 + kb.shape[3], device=q.device)[None, :]
             s = torch.where(ki <= qi, s, NEG)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         m_safe = torch.where(m_new <= NEG / 2, 0.0, m_new)
@@ -154,7 +159,7 @@ def flash_attention_plain(
         l = l * corr + torch.sum(p, dim=-1)  # noqa: E741
         acc = acc * corr[..., None] + p @ vb
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, H, S, hd)
     return out.transpose(1, 2).to(q.dtype)
 
 
@@ -175,8 +180,9 @@ def flash_attention(
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
 ) -> torch.Tensor:
-    """q (B, S, H, hd), k / v (B, T, H, hd) of one dtype (f32, f16 or bf16),
-    one KV head per query head -> (B, S, H, hd) in q's dtype.  causal masks
+    """q (B, S, H, hd), k / v (B, T, Hkv, hd) of one dtype (f32, f16 or
+    bf16), Hkv dividing H (query head h reads KV head h // (H // Hkv)) ->
+    (B, S, H, hd) in q's dtype.  causal masks
     key index ki > query index qi.  A CPU tensor, or ``mode="ref"``, runs the
     plain version; a CUDA tensor launches the kernel once or raises (also
     when a block's shared memory would exceed ``lc.smem_budget``)."""
@@ -212,6 +218,7 @@ def flash_attention(
             S,
             k.shape[1],
             H,
+            k.shape[2],
             hd,
             DTYPES[q.dtype],
             int(causal),

@@ -1,8 +1,13 @@
 """Serving launcher: batched greedy generation (the counterpart of
 `repro.launch.serve`).
 
-    python -m repro_torch.launch.serve --arch gemma-7b [--reduced] \\
+    python -m repro_torch.launch.serve --arch gemma-7b [--reduced] [--layers N] \\
         --requests 8 --prompt-len 1024 --gen-len 32 [--device cuda] [--seed 0]
+
+``--arch`` takes each ported arch (`configs.ARCHS`: gemma-7b, qwen2-72b,
+starcoder2-7b, h2o-danube-3-4b).  ``--layers N`` keeps the first N layers
+of the published config: qwen2-72b's 80 (~145 GB of bf16 weights) do not
+fit one 80 GB card.
 
 Parameters come from the model's own seeded init (no weights are
 downloaded or needed); prompts from ``np.random.default_rng(seed)``.  The
@@ -28,6 +33,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)
@@ -36,7 +42,10 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(args.arch)
+    else:
+        cfg = get_config(args.arch, n_layers=args.layers)
     model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(

@@ -1,20 +1,33 @@
-"""Attention (the counterpart of `repro.models.attention`): the dense path,
-the routing to the flash kernel, and the GQA block (projections + rope +
-attention, prefill and decode).
+"""Attention (the counterpart of `repro.models.attention`): the dense and
+blockwise paths, the routing to the flash kernel, and the GQA block
+(projections + rope + attention, prefill and decode).
 
 Layout: q (B, S, Hq, hd), k / v (B, T, G, hd).  Masks come from absolute
 positions, as in JAX, so ring-buffer decode caches stay correct.
 
-`attention` routes self-attention with one KV head per query head, no
-window, soft cap, `kv_valid` or custom scale, and positions ``None``
-(``arange`` from 0) to `kernels.attention.flash_attention`: the card's
-kernel, at any length, or its plain version on a CPU tensor.  This is the
-JAX package's TPU deployment route (its Pallas kernel); the JAX LM itself
-runs `dense_attention` there.  The two compute the same function; the
-kernel keeps the probabilities in f32 where `dense_attention` rounds them
-to v's dtype before p.v.  Everything else runs `dense_attention`, as JAX
-does up to 8192 KV positions; `blockwise_attention` above that, MLA and
-cross-attention wait (ROADMAP Queue 2 item 8).
+`attention` decides its route from the arguments' shapes and settings
+before anything runs (`kernel_route`), never by catching a failure.  It
+sends a call to `kernels.attention.flash_attention` (the card's kernel, at
+any length, or its plain version on a CPU tensor) when all of these hold:
+
+  * ``q_pos``, ``kv_pos``, ``kv_valid``, ``soft_cap`` and ``scale`` are
+    None (positions ``arange`` from 0, the default scale);
+  * ``Hq % G == 0`` (MHA, GQA or MQA: the kernel maps query heads to KV
+    heads);
+  * the head dim is a multiple of 8 in [8, 256];
+  * there is no window, or S and T are both at most the window: with
+    positions from 0 every pair then lies inside it (``kp > qp - window``
+    holds for all), so the window masks nothing.
+
+This is the JAX package's TPU deployment route (its Pallas kernel); the JAX
+LM itself runs `dense_attention` there.  The two compute the same function;
+the kernel keeps the probabilities in f32 where `dense_attention` rounds
+them to v's dtype before p.v.  Every other call goes, as in JAX's
+`attention`, to `blockwise_attention` when T > 8192 and no ``kv_valid`` is
+given, and to `dense_attention` otherwise.  E.g. reduced starcoder2-7b (head
+dim 12) runs dense, and an h2o-danube-3-4b prompt longer than its 4096
+window runs dense up to 8192 positions and blockwise above.  MLA and
+cross-attention wait (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -112,6 +125,94 @@ def dense_attention(
     return torch.einsum("bhst,bthd->bshd", probs.to(vr.dtype), vr)
 
 
+def blockwise_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_pos: torch.Tensor | None = None,
+    kv_pos: torch.Tensor | None = None,
+    window: int | None = None,
+    soft_cap: float | None = None,
+    scale: float | None = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of `chunk` positions: JAX's
+    `blockwise_attention` (a `lax.scan` there, a loop here), with peak score
+    memory O(B * Hq * S * chunk).  Query heads stay in their (G, R) groups
+    against un-repeated KV.  As JAX's: the tail is padded with zeros at
+    position 2**30 (masked by the ``kp < 2**29`` rule); scores and p.v
+    accumulate in f32 (JAX's ``preferred_element_type``: the products are
+    computed in f32 here, not in the inputs' 16-bit type); p is rounded to
+    v's dtype before p.v; rows masked so far keep m at -1e30 and add 0; the
+    output is ``acc / max(l, 1e-30)`` in q's dtype."""
+    B, S, Hq, hd = q.shape
+    T, G = k.shape[1], k.shape[2]
+    hdv = v.shape[-1]
+    R = Hq // G
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if q_pos is None:
+        q_pos = torch.arange(S, device=q.device)
+    if kv_pos is None:
+        kv_pos = torch.arange(T, device=q.device)
+    if kv_pos.ndim == 2 and kv_pos.shape[0] == 1:
+        kv_pos = kv_pos[0]  # JAX reshapes kv_pos to (chunks, chunk): one row for the batch
+    if kv_pos.ndim != 1:
+        raise ValueError(f"blockwise_attention: kv_pos {tuple(kv_pos.shape)} is not one row")
+    n_chunks = -(-T // chunk)
+    pad = n_chunks * chunk - T
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=2**30)
+    qq = q.reshape(B, S, G, R, hd).float()
+    acc = torch.zeros((B, S, G, R, hdv), dtype=torch.float32, device=q.device)
+    mx = torch.full((B, S, G, R), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(mx)  # noqa: E741
+    for c0 in range(0, n_chunks * chunk, chunk):
+        kb, vb = k[:, c0 : c0 + chunk], v[:, c0 : c0 + chunk]
+        bias = _mask_bias(
+            q_pos, kv_pos[c0 : c0 + chunk], causal=causal, window=window, kv_valid=None
+        )
+        # bias (S, C) -> (1, S, 1, 1, C); (B, S, C) -> (B, S, 1, 1, C)
+        bb = bias[None, :, None, None, :] if bias.ndim == 2 else bias[:, :, None, None, :]
+        s = torch.einsum("bsgrd,bcgd->bsgrc", qq, kb.float()) * sc
+        s = _soft_cap(s, soft_cap) + bb
+        m_new = torch.maximum(mx, torch.amax(s, dim=-1))
+        # guard fully-masked rows
+        m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(torch.where(mx <= NEG_INF / 2, NEG_INF, mx) - m_safe)
+        corr = torch.where(mx <= NEG_INF / 2, 0.0, corr)
+        o = torch.einsum("bsgrc,bcgd->bsgrd", p.to(v.dtype).float(), vb.float())
+        acc = acc * corr[..., None] + o
+        l = l * corr + torch.sum(p, dim=-1)  # noqa: E741
+        mx = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, S, Hq, hdv).to(q.dtype)
+
+
+def kernel_route(q, k, *, q_pos=None, kv_pos=None, window=None, kv_valid=None,
+                 soft_cap=None, scale=None) -> bool:
+    """Whether `attention` sends this call to the flash kernel (module
+    docstring): decided from shapes and settings alone."""
+    S, Hq, hd = q.shape[1], q.shape[2], q.shape[3]
+    T, G = k.shape[1], k.shape[2]
+    return (
+        q_pos is None
+        and kv_pos is None
+        and kv_valid is None
+        and soft_cap is None
+        and scale is None
+        and G > 0
+        and Hq % G == 0
+        and hd % 8 == 0
+        and 8 <= hd <= kattn.MAX_HEAD_DIM
+        and (window is None or max(S, T) <= window)
+    )
+
+
 def attention(
     q,
     k,
@@ -124,37 +225,20 @@ def attention(
     kv_valid=None,
     soft_cap=None,
     scale=None,
+    chunk: int = 1024,
     mode: str | None = None,
 ):
-    """Route to the flash kernel or to `dense_attention` (module docstring).
-    `mode` reaches the kernel's wrapper only: ``"ref"`` runs its plain
-    version on the card too."""
-    if (
-        q.shape[2] == k.shape[2]
-        and q_pos is None
-        and kv_pos is None
-        and window is None
-        and kv_valid is None
-        and soft_cap is None
-        and scale is None
-    ):
+    """Route to the flash kernel, `blockwise_attention` (chunks of `chunk`
+    KV positions) or `dense_attention` (module docstring).  `mode` reaches
+    the kernel's wrapper only: ``"ref"`` runs its plain version on the card
+    too."""
+    masks = dict(q_pos=q_pos, kv_pos=kv_pos, window=window, soft_cap=soft_cap, scale=scale)
+    if kernel_route(q, k, kv_valid=kv_valid, **masks):
         return kattn.flash_attention(q, k, v, causal=causal, mode=mode)
     if k.shape[1] > BLOCKWISE_THRESHOLD and kv_valid is None:
-        raise NotImplementedError(
-            f"attention over {k.shape[1]} KV positions needs blockwise_attention, not ported "
-            "yet (ROADMAP Queue 2 item 8, step 3)"
-        )
+        return blockwise_attention(q, k, v, causal=causal, chunk=chunk, **masks)
     return dense_attention(
-        q,
-        k,
-        v,
-        causal=causal,
-        q_pos=q_pos,
-        kv_pos=kv_pos,
-        window=window,
-        kv_valid=kv_valid,
-        soft_cap=soft_cap,
-        scale=scale,
+        q, k, v, causal=causal, kv_valid=kv_valid, grouped=q.shape[2] != k.shape[2], **masks
     )
 
 
@@ -200,8 +284,9 @@ def gqa_project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
 
 def gqa_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None):
     """Full-sequence self-attention (prefill).  positions None means
-    ``arange(S)`` from 0, the case `attention` may route to the kernel.
-    Returns (out, (k, v))."""
+    ``arange(S)`` from 0, the case `attention` may route to the kernel;
+    above 8192 positions off that route it runs blockwise in chunks of
+    ``cfg.blockwise_chunk``.  Returns (out, (k, v))."""
     q_pos = positions
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -216,6 +301,7 @@ def gqa_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None
         window=cfg.window,
         soft_cap=cfg.attn_soft_cap,
         scale=cfg.attn_scale,
+        chunk=cfg.blockwise_chunk,
         mode=mode,
     )
     return out.reshape(*x.shape[:2], -1) @ p["w_o"], (k, v)

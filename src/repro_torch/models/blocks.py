@@ -3,7 +3,7 @@ full-sequence apply, decode apply and the KV cache of one layer.
 
 Ported: kind ``"attn"`` (self-attention with GQA/MQA/MHA + dense MLP).
 Every other kind of the JAX package raises `NotImplementedError` naming
-the step of ROADMAP Queue 2 item 8 that ports it.
+the step of ROADMAP Queue 1 item 8 that ports it.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from torch import nn
 from . import attention as attn_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
-# kind -> the step of ROADMAP Queue 2 item 8 (the LM stack) that ports it
+# kind -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
 _QUEUED = {
     "moe": "step 4 (MoE)",
     "mla": "step 5 (MLA)",
@@ -33,7 +33,7 @@ def check_kind(kind: str) -> None:
         return
     if kind in _QUEUED:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: ROADMAP Queue 2 item 8, {_QUEUED[kind]}"
+            f"block kind {kind!r} is not ported yet: ROADMAP Queue 1 item 8, {_QUEUED[kind]}"
         )
     raise ValueError(f"unknown block kind {kind!r}")
 

@@ -53,6 +53,8 @@ class ModelConfig:
     scale_embed: bool = False  # gemma multiplies embeddings by sqrt(d)
 
     dtype: str = "bfloat16"
+    # KV positions per step of `attention.blockwise_attention` (above 8192)
+    blockwise_chunk: int = 1024
 
     @property
     def param_dtype(self) -> torch.dtype:

@@ -6,7 +6,7 @@ leaves (``w_q``, ``scale``, ...), so a JAX parameter tree maps onto a
 module's ``state_dict`` name by name (`convert.from_jax_lm_params`).
 Weights keep the JAX layout ``(in, out)`` and are applied as ``x @ w``.
 The port serves only: parameters carry no gradient.
-`softmax_cross_entropy` waits for training (ROADMAP Queue 2 item 8).
+`softmax_cross_entropy` waits for training (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations

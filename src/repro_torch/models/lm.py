@@ -10,7 +10,7 @@ on a leading axis (`convert.from_jax_lm_params` unstacks it).  The KV
 cache keeps JAX's layout: per run of layers, ``k`` and ``v`` of shape
 (L, B, T, G, hd), and the next position ``pos`` (a Python int here).
 `forward` and the loss, and the encoder, context, shared-block and MoE
-branches wait (ROADMAP Queue 2 item 8); so does sharding, since this is
+branches wait (ROADMAP Queue 1 item 8); so does sharding, since this is
 one card.
 """
 

@@ -578,17 +578,33 @@ def generate(
 
 
 def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
-    """Copy the prefill KV (length S) into the decode buffers (length
-    cache_len >= S), in place."""
-    for (kind, _), buf, pre in zip(cfg.blocks, cache["groups"], pcache["groups"]):
+    """Copy the prefill KV (S positions) into the decode buffers (T slots),
+    in place.  With S <= T position p goes to slot p.  A sliding-window
+    arch's buffers are a ring of ``T = min(cache_len, window)`` slots
+    (`lm.init_cache`): when S > T, the last T positions ``S - T .. S - 1``
+    go to slots ``p % T``, so that after decode's first write (position S
+    at slot ``S % T``) the ring holds positions ``S - T + 1 .. S``, exactly
+    the window's keys, which `lm.ring_positions(S, T)` names.  A prompt
+    longer than buffers that are not the window's ring raises `ValueError`.
+
+    This departs from JAX's `_adopt_prefill` (`repro.serve.cv_engine`),
+    which keeps the zeroed ring when S > T, so that decode attends to zeros
+    marked valid: a fault of the reference.  The port is held to JAX's
+    `lm.forward` there, not to JAX's `generate`."""
+    for buf, pre in zip(cache["groups"], pcache["groups"]):
         S, T = pre["k"].shape[2], buf["k"].shape[2]
-        if S > T:
-            raise NotImplementedError(
-                f"{kind}: a prompt of {S} tokens over a {T}-slot cache needs the sliding "
-                "window (ROADMAP Queue 1 item 8, step 2)"
+        if S > T != cfg.window:
+            raise ValueError(
+                f"a prompt of {S} tokens does not fit a decode cache of {T} slots "
+                f"(window {cfg.window})"
             )
         for name in buf:
-            buf[name][:, :, :S] = pre[name].to(buf[name].dtype)
+            src = pre[name][:, :, max(0, S - T) :].to(buf[name].dtype)
+            if S <= T:
+                buf[name][:, :, :S] = src
+            else:
+                slots = torch.arange(S - T, S, device=src.device) % T
+                buf[name][:, :, slots] = src
     return dict(cache, pos=pcache["pos"])
 
 

@@ -20,7 +20,11 @@ Tolerances, with their reasons:
     max |v| from the same walk with f32 p.v (the p_hi + p_lo split leaves
     ~2^-18 of p in bf16, ~2^-22 in f16 above its subnormals); the share of
     its outputs that differ from the plain version's within
-    `OFF_PLAIN_SHARE`, which the same walk with p_hi alone exceeds.
+    `OFF_PLAIN_SHARE`, which the same walk with p_hi alone exceeds; the
+    same on GQA shapes (query head h reading KV head h // (H // Hkv)),
+    against JAX's kernel over the repeated KV;
+  * `blockwise_attention` against JAX's `attention` above 8192 positions:
+    rtol = atol = 1e-5 in f32, as `dense_attention`.
 """
 
 import importlib.util
@@ -124,8 +128,8 @@ def test_flash_attention_refuses(bad):
     q = torch.zeros((1, 8, 4, 16))
     k = v = torch.zeros((1, 8, 4, 16))
     kw = {}
-    if bad == "gqa":
-        k = v = torch.zeros((1, 8, 2, 16))
+    if bad == "gqa":  # a KV head count that does not divide the query heads
+        k = v = torch.zeros((1, 8, 3, 16))
     elif bad == "dtype":
         q = k = v = torch.zeros((1, 8, 4, 16), dtype=torch.float64)
     elif bad == "mixed_dtype":
@@ -175,11 +179,15 @@ def _replay_wgmma(q, k, v, causal, split=True):
     f32, p split into p_hi = T(p) and p_lo = T(p - p_hi) in q's dtype T and
     p_hi.v + p_lo.v summed in f32; out rounded once to T.  Returns that and
     the largest distance of its f32 output from the same walk with f32 p.v,
-    over max |v|.  ``split=False`` drops p_lo: one 16-bit pass of p."""
+    over max |v|.  ``split=False`` drops p_lo: one 16-bit pass of p.  k and v
+    may hold Hkv < H heads: the block of query head h reads KV head
+    h // (H // Hkv), as the kernel's K and V tensor maps do."""
     B, S, H, hd = q.shape
     T = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
-    qf, kf, vf = (x.to(torch.float32).transpose(1, 2) for x in (q, k, v))  # (B, H, n, hd)
+    group = torch.arange(H) // (H // k.shape[2])
+    qf = q.to(torch.float32).transpose(1, 2)  # (B, H, n, hd)
+    kf, vf = (x.to(torch.float32).transpose(1, 2)[:, group] for x in (k, v))
     out = torch.zeros((B, H, S, hd))
     exact = torch.zeros((B, H, S, hd))
     for q0 in range(0, S, kattn.WGMMA_BQ):
@@ -246,6 +254,50 @@ def test_p_split_is_needed_within_off_plain_share(shape, causal, dtype):
     assert off_split <= kattn.OFF_PLAIN_SHARE < off_single
 
 
+# (B, S, T, H, Hkv, hd): group ratios 2, 4 and 9 (starcoder2-7b's 36 over 4),
+# hd 120 (h2o-danube-3-4b's, padded to 128 channels by the kernel) and S != T
+GQA_SHAPES = [
+    (2, 130, 130, 4, 2, 64),
+    (1, 200, 200, 8, 2, 120),
+    (1, 140, 140, 36, 4, 128),
+    (2, 100, 160, 4, 1, 32),
+]
+
+
+def _gqa_qkv(shape, dtype, seed):
+    """q (B, S, H, hd), k / v (B, T, Hkv, hd) from a numpy seed: JAX's with k
+    and v repeated to H heads (its kernel is MHA only), the port's not."""
+    B, S, T, H, G, hd = shape
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in ((B, S, H, hd), (B, T, G, hd), (B, T, G, hd))]
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in arrs)
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch, dtype)) for a in (jq, jk, jv)]
+    return (jq, jattn._repeat_kv(jk, H // G), jattn._repeat_kv(jv, H // G)), tx
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", GQA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_replay_over_kv_head_groups(shape, causal, dtype):
+    """The 16-bit kernel's tile walk with each query head reading its group's
+    KV head: within `AGREE` of the plain version and of JAX's kernel over the
+    repeated KV, and within `OFF_PLAIN_SHARE` of the plain version, which the
+    same walk with p_hi alone exceeds."""
+    (jq, jk, jv), (tq, tk, tv) = _gqa_qkv(shape, dtype, sum(shape) + causal)
+    got, dist = _replay_wgmma(tq, tk, tv, causal)
+    assert dist <= 2.0**-16
+    rtol, atol = kattn.AGREE[tq.dtype]
+    plain = kattn.flash_attention_plain(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=rtol, atol=atol)
+    want = jops.flash_attention(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)), rtol=rtol, atol=atol)
+    single, _ = _replay_wgmma(tq, tk, tv, causal, split=False)
+    off_split = float((got != plain).float().mean())
+    off_single = float((single != plain).float().mean())
+    print(f"outputs off the plain version's: split {off_split:.5f}, p_hi alone {off_single:.5f}")
+    assert off_split <= kattn.OFF_PLAIN_SHARE < off_single
+
+
 def test_planted_faults_edit_the_kernel_source_once():
     """scripts/torch_flash_faults.py plants each fault by one textual edit of
     csrc/flash_attn.cu: each fault's source text is there exactly once."""
@@ -257,7 +309,7 @@ def test_planted_faults_edit_the_kernel_source_once():
     spec.loader.exec_module(faults)
     text = (root / "src" / "repro_torch" / "csrc" / "flash_attn.cu").read_text()
     assert set(faults.FAULTS) == {
-        "zeros", "diag_bf16", "last_key_bf16", "den_1pct_bf16", "p_lo_dropped"
+        "zeros", "diag_bf16", "last_key_bf16", "den_1pct_bf16", "kv_head_0", "p_lo_dropped"
     }
     for name, (_, old, new) in faults.FAULTS.items():
         assert text.count(old) == 1 and new != old, name
@@ -329,32 +381,55 @@ def _route(**kw):
         ({}, "flash"),
         ({"causal": False}, "flash"),
         ({"mode": "ref"}, "flash"),
-        ({"hq": 4}, "dense"),
+        ({"hq": 4, "window": 4}, "dense"),  # GQA, T = 10 over the window
         ({"window": 4}, "dense"),
         ({"soft_cap": 20.0}, "dense"),
         ({"scale": 0.5}, "dense"),
         ({"kv_valid": torch.ones(10, dtype=torch.bool)}, "dense"),
         ({"q_pos": torch.arange(10), "kv_pos": torch.arange(10)}, "dense"),
+        ({"hq": 4}, "flash"),  # GQA: two query heads a KV head
+        ({"hq": 6, "causal": False}, "flash"),
+        ({"window": 10}, "flash"),  # S = T = 10 within the window
+        ({"hq": 4, "window": 16}, "flash"),
     ],
 )
 def test_attention_routing(kw, path):
     got, out, (q, k, v) = _route(**kw)
     assert got == path
+    assert tattn.kernel_route(q, k, **{n: kw[n] for n in kw if n not in ("causal", "mode", "hq")}) == (
+        path == "flash"
+    )
     if path == "flash" or set(kw) <= {"q_pos", "kv_pos", "kv_valid"}:
-        # the same function either way: dense_attention agrees
+        # the same function either way: dense_attention (with the window) agrees
         causal = kw.get("causal", True)
-        want = tattn.dense_attention(q, k, v, causal=causal)
+        want = tattn.dense_attention(q, k, v, causal=causal, window=kw.get("window"))
         np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
 
 
 def test_attention_above_8192_positions_needs_blockwise():
-    q = torch.zeros((1, 1, 2, 8))
-    k = v = torch.zeros((1, 8193, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attention(q, k, v, q_pos=torch.tensor([8192]), kv_pos=torch.arange(8193))
+    """Off the kernel route, more than 8192 KV positions without `kv_valid`
+    go to `blockwise_attention`, as JAX's `attention` does, and match it."""
+    q, k, v = _rand((1, 3, 4, 8), 11), _rand((1, 8193, 2, 8), 12), _rand((1, 8193, 2, 8), 13)
+    qp = np.array([8190, 8191, 8192])
+    want = jattn.attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_pos=jnp.asarray(qp),
+        kv_pos=jnp.arange(8193), window=4096,
+    )
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    counters.reset()
+    got = tattn.attention(
+        tq, tk, tv, q_pos=torch.from_numpy(qp), kv_pos=torch.arange(8193), window=4096
+    )
+    assert counters.PLAIN_CALLS["flash_attention"] == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    blockwise = tattn.blockwise_attention(
+        tq, tk, tv, q_pos=torch.from_numpy(qp), kv_pos=torch.arange(8193), window=4096
+    )
+    assert torch.equal(got, blockwise)
     # a ring cache (kv_valid) stays dense at any length, as in JAX
+    q, k = torch.zeros((1, 1, 2, 8)), torch.zeros((1, 8193, 2, 8))
     out = tattn.attention(
-        q, k, v, q_pos=torch.tensor([8192]), kv_pos=torch.arange(8193),
+        q, k, k, q_pos=torch.tensor([8192]), kv_pos=torch.arange(8193),
         kv_valid=torch.ones(8193, dtype=torch.bool),
     )
     assert out.shape == q.shape

@@ -540,8 +540,10 @@ def test_flash_attention_smem_bytes_match_the_library(dev):
 
 
 def test_flash_attention_refuses_gqa_and_an_over_budget_tile(dev):
+    """A KV head count that does not divide the query heads (3 over 4) and a
+    block over the shared-memory budget are refused before any launch."""
     q = torch.zeros((1, 64, 4, 256), device=dev)
-    kv = torch.zeros((1, 64, 2, 256), device=dev)
+    kv = torch.zeros((1, 64, 3, 256), device=dev)
     counters.reset()
     with pytest.raises(ValueError, match="KV heads"):
         kattn.flash_attention(q, kv, kv)
@@ -552,6 +554,60 @@ def test_flash_attention_refuses_gqa_and_an_over_budget_tile(dev):
     assert counters.PLAIN_CALLS["flash_attention"] == 0
     out = kattn.flash_attention(q, q, q)
     assert counters.LAUNCHES["flash_attention"] == 1 and out.shape == q.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 120, 128])
+@pytest.mark.parametrize("H,Hkv", [(4, 1), (8, 2), (36, 4), (64, 8)])
+def test_flash_attention_over_kv_head_groups(dev, H, Hkv, hd, causal, dtype):
+    """Query head h reads KV head h // (H // Hkv): within `AGREE` of the plain
+    version (and, in f16 / bf16, within `OFF_PLAIN_SHARE`), and bit-equal to
+    the kernel over K and V repeated to H heads, since each block does the
+    same arithmetic on the same tiles.  hd 120 (h2o-danube-3-4b) pads to 128
+    channels; S and T lie off the 128-row and 64-key tiles."""
+    g = torch.Generator(device=dev).manual_seed(H * 1000 + Hkv * 10 + hd)
+    S, T = 257, 257 if causal else 190
+    q = torch.randn((2, S, H, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, T, Hkv, hd), generator=g, device=dev).to(dtype) for _ in range(2))
+    counters.reset()
+    got = kattn.flash_attention(q, k, v, causal=causal)
+    want = kattn.flash_attention(q, k, v, causal=causal, mode="ref")
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = kattn.AGREE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype != torch.float32:
+        assert float((got != want).float().mean()) <= kattn.OFF_PLAIN_SHARE
+    kr, vr = (x.repeat_interleave(H // Hkv, dim=2) for x in (k, v))
+    assert torch.equal(got, kattn.flash_attention(q, kr, vr, causal=causal))
+
+
+@pytest.mark.parametrize("prompt_len", [24, 40])
+@pytest.mark.parametrize("arch", ["qwen2-72b", "starcoder2-7b", "h2o-danube-3-4b"])
+def test_reduced_generate_of_each_grouped_arch(dev, arch, prompt_len):
+    """One `generate` of each reduced arch: the prefill launches the kernel
+    once a layer where `attention` routes it there (reduced starcoder2-7b's
+    head dim 12 and danube's prompt of 40 over its window of 32 route to
+    `dense_attention`), calls no plain version, and gives the same tokens
+    twice; the 40-token danube prompt is adopted into its 32-slot ring."""
+    from repro_torch.models.attention import kernel_route
+
+    cfg = reduced_config(arch)
+    model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (3, prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    routed = kernel_route(torch.zeros((1, prompt_len, cfg.n_heads, cfg.head_dim)),
+                          torch.zeros((1, prompt_len, cfg.n_kv_heads, cfg.head_dim)),
+                          window=cfg.window)
+    counters.reset()
+    out = cv_engine.generate(model, prompts, steps=5)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 5) and out.device.type == "cuda"
+    assert counters.LAUNCHES["flash_attention"] == (cfg.n_layers if routed else 0)
+    assert sum(counters.PLAIN_CALLS.values()) == 0
+    assert torch.equal(out, cv_engine.generate(model, prompts, steps=5))
 
 
 def test_reduced_generate_launches_flash_once_per_layer(dev):

@@ -61,18 +61,26 @@ def _f32(a) -> np.ndarray:
 
 
 def test_reduced_config_matches_jax_and_full_width_is_published():
-    for name in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size", "blocks"):
-        assert getattr(reduced_config("gemma-7b"), name) == getattr(jax_reduced_config("gemma-7b"), name)
-    full = get_config("gemma-7b")
-    assert (full.n_layers, full.d_model, full.n_heads, full.head_dim, full.d_ff, full.vocab_size) == (
-        28, 3072, 16, 256, 24576, 256000,
-    )
-    assert full.param_dtype == torch.bfloat16 and ARCHS == ["gemma-7b"]
+    published = {
+        "gemma-7b": (28, 3072, 16, 16, 256, 24576, 256000),
+        "qwen2-72b": (80, 8192, 64, 8, 128, 29568, 152064),
+        "starcoder2-7b": (32, 4608, 36, 4, 128, 18432, 49152),
+        "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000),
+    }
+    assert ARCHS == list(published)
+    for arch, widths in published.items():
+        for name in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size", "blocks",
+                     "window"):
+            assert getattr(reduced_config(arch), name) == getattr(jax_reduced_config(arch), name)
+        full = get_config(arch)
+        assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
+                full.d_ff, full.vocab_size) == widths, arch
+        assert full.param_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["qwen2-72b", "arctic-480b", "deepseek-v3-671b", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "arctic-480b", "deepseek-v3-671b", "xlstm-125m"])
 def test_registry_raises_on_an_unported_arch(arch):
-    with pytest.raises(KeyError, match="ROADMAP Queue 2 item 8"):
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 8, step [4-7]"):
         get_config(arch)
     with pytest.raises(KeyError, match="ROADMAP"):
         reduced_config(arch)
