@@ -143,8 +143,17 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
  11. the LM serving path (`lm_phase`), once for each ported arch (`LM_RUNS`):
      gemma-7b, starcoder2-7b (36 query heads over 4 KV heads, LayerNorm,
      biases), h2o-danube-3-4b (32 over 8 of head dim 120, a 4096-position
-     window) at full width and depth, and qwen2-72b (64 over 8, QKV biases)
-     at full width cut to 8 of its 80 layers (~9.5 B parameters).  Below,
+     window) at full width and depth, qwen2-72b (64 over 8, QKV biases)
+     at full width cut to 8 of its 80 layers (~9.5 B parameters),
+     arctic-480b (56 over 8, a 128-expert top-2 MoE FFN beside a dense one)
+     cut to 2 of its 35 layers (~27.7 B parameters; its f32 check on a
+     1-layer model, `F32_LAYERS`) and deepseek-v3-671b (MLA: 128 heads, q
+     and k of 192 channels, v of 128 padded to 192 on the kernel route; a
+     256-expert top-8 MoE FFN with a shared expert) cut to 4 of its 61
+     layers, 3 dense and 1 MoE (~15.1 B); each MoE arch prints its
+     prefill's ``moe_drop_frac`` and expert-load range per layer, and its
+     kernel and plain runs are compared on the sequences whose routing
+     agrees, changed choices counted as near-ties (`judge_routes`).  Below,
      gemma-7b's numbers (28 layers, d 3072, 16 heads of 256, bf16, ~8.5 B
      parameters); the other archs run the same checks at their own shapes
      and layer counts, without the JAX test shapes and the head-dim
@@ -226,9 +235,16 @@ HEAD_KERNEL = {"svm": "linear_score", "gbdt": "gbdt_score"}
 STREAM_ENTRY = "gaussian_filter2d k=13 4K u8"
 # the LM serving path: each ported arch at full width, 8 requests of 1024 + 32
 # tokens; (arch, layers kept): qwen2-72b's 80 layers (~145 GB in bf16) do not
-# fit the card's 80 GB, so its run keeps 8 (~19 GB, 38 GB widened to f32)
+# fit the card's 80 GB, so its run keeps 8 (~19 GB, 38 GB widened to f32);
+# arctic-480b keeps 2 of 35 (~27.2 GB a layer: 55.4 GB with the embedding and
+# the head) and deepseek-v3-671b 4 of 61 (its 3 dense MLA layers and one
+# MLA-MoE layer, ~30.2 GB; 60.4 GB widened)
 LM_RUNS = (("gemma-7b", None), ("starcoder2-7b", None), ("h2o-danube-3-4b", None),
-           ("qwen2-72b", 8))
+           ("qwen2-72b", 8), ("arctic-480b", 2), ("deepseek-v3-671b", 4))
+# the f32-widened check of an arch whose widened model does not fit the card
+# runs on a model of fewer layers, built after the bf16 one is freed:
+# arctic-480b at 2 layers would take ~111 GB in f32, at 1 ~55 GB
+F32_LAYERS = {"arctic-480b": 1}
 LM_ARCH = LM_RUNS[0][0]  # the arch whose layer 0 goes on the kernels line
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 # h2o-danube-3-4b's long request: past 8192 positions (blockwise attention)
@@ -1880,39 +1896,44 @@ def snap_nonzero(snap: dict) -> dict:
     return {k: v for k, v in snap["launches"].items() if v}
 
 
-def flash_bound(q, k, causal: bool = True) -> dict:
+def flash_bound(q, k, causal: bool = True, v_dim: int | None = None) -> dict:
     """The least time one flash-attention call could take on the card: q, k,
     v read once and o written once, over the memory rate; or its operations
     over the rate of the units that do them, counting 2 FLOP per (query, key,
     channel) of a product over the (query, key) pairs the mask keeps.  In f16
     / bf16 q.k and two 16-bit p.v passes (p_hi.v + p_lo.v) run on the tensor
-    cores; in f32 both products run as f32 FMAs.  `bound_ms_f32_pv` is the
-    earlier price of the same call, kept for comparison: q.k at the
+    cores; in f32 both products run as f32 FMAs.  v and o have `v_dim`
+    channels (None: q's head dim; MLA: 128 against q's 192, the zero channels
+    the call pads v with being no work of the function).  `bound_ms_f32_pv`
+    is the earlier price of the same call, kept for comparison: q.k at the
     tensor-core rate, one p.v at the f32 rate."""
     import torch
 
     B, S, H, hd = q.shape
-    T = k.shape[1]
+    T, G = k.shape[1], k.shape[2]
+    hdv = v_dim or hd
     pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
-    half = 2 * B * H * hd * pairs
-    n_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    qk, pv = 2 * B * H * hd * pairs, 2 * B * H * hdv * pairs
+    n_bytes = q.element_size() * (q.numel() + k.numel() + B * T * G * hdv + B * S * H * hdv)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     if q.dtype == torch.float32:
-        flops, rate, qk_rate = 2 * half, PEAK_FP32_FLOPS, PEAK_FP32_FLOPS
+        flops, rate, qk_rate = qk + pv, PEAK_FP32_FLOPS, PEAK_FP32_FLOPS
     else:
-        flops, rate, qk_rate = 3 * half, PEAK_BF16_FLOPS, PEAK_BF16_FLOPS
+        flops, rate, qk_rate = qk + 2 * pv, PEAK_BF16_FLOPS, PEAK_BF16_FLOPS
     t_ops = flops / rate * 1e3
-    t_f32_pv = (half / qk_rate + half / PEAK_FP32_FLOPS) * 1e3
-    return {"bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+    t_f32_pv = (qk / qk_rate + pv / PEAK_FP32_FLOPS) * 1e3
+    return {"bytes": n_bytes, "flops": flops, "flops_one_pv": qk + pv,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_ms_f32_pv": max(t_bytes, t_f32_pv),
-            "bound_ms_all_f32": max(t_bytes, 2 * half / PEAK_FP32_FLOPS * 1e3)}
+            "bound_ms_all_f32": max(t_bytes, (qk + pv) / PEAK_FP32_FLOPS * 1e3)}
 
 
-def walk_prefill(model, tokens, *, mode=None, visit=None):
+def walk_prefill(model, tokens, *, mode=None, visit=None, metrics=None):
     """The prefill's layers over `tokens` (`lm.prefill`'s loop) -> the
     final-normed hidden states at every position, (B, S, D); `visit(i, x)`
-    sees layer i's normed input first."""
+    sees layer i's normed input first; the list `metrics` receives each MoE
+    layer's metrics (``moe_drop_frac``, ``expert_load``, ...)."""
     from repro_torch.models import blocks, lm
     from repro_torch.models.layers import apply_norm
 
@@ -1924,13 +1945,73 @@ def walk_prefill(model, tokens, *, mode=None, visit=None):
         for p in layers:
             if visit is not None:
                 visit(i, apply_norm(h, p["ln1"], **norm))
-            h, _ = blocks.apply_block(kind, p, h, cfg, mode=mode)
+            h, _, m = blocks.apply_block(kind, p, h, cfg, mode=mode)
+            if metrics is not None and m:
+                metrics.append(m)
             i += 1
     return apply_norm(h, model.final_norm, **norm)
 
 
+class RouteRecorder:
+    """While active, records every MoE routing call (`models.moe._route`):
+    its selection scores (B, S, E) and chosen experts (B, S, k)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe._route
+
+        def route(p, x, m):
+            out = self._route(p, x, m)
+            self.calls.append((moe.selection_scores(p, x, m)[2], out[1]))
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._route
+
+
+def judge_routes(a: list, b: list, k: int, what: str, judge=check):
+    """Two runs' routing calls, in order (`RouteRecorder.calls`) -> (the
+    sequences with the same choices at every call (B,) bool, near-tie
+    tokens).  Top-k may choose another expert where the k-th and (k+1)-th
+    scores lie closer than the runs' rounding apart, and a changed choice
+    moves the slot ranks of its sequence's later tokens; so every changed
+    token must be a near-tie: run b's gap between its k-th and (k+1)-th
+    scores at most twice the largest score difference of the call's tokens
+    whose choices agree (on sequences with no change so far), the gap
+    printed.  Outputs are compared on the sequences with no change."""
+    import torch
+
+    clean, n_ties, gaps = None, 0, []
+    for (sa, ia), (sb, ib) in zip(a, b, strict=True):
+        if clean is None:
+            clean = torch.ones(ia.shape[0], dtype=torch.bool, device=ia.device)
+        changed = (ia.sort(-1).values != ib.sort(-1).values).any(-1)  # (B, S)
+        agree = ~changed & clean[:, None]
+        delta = float((sa - sb).abs()[agree].max()) if bool(agree.any()) else 0.0
+        top = torch.topk(sb, k + 1, dim=-1).values
+        gap = top[..., k - 1] - top[..., k]
+        off = changed & clean[:, None]
+        judge(bool((gap[off] <= 2 * delta).all()),
+              f"{what}: a routing change off a near-tie (gaps {gap[off].tolist()[:8]}, "
+              f"twice the largest score difference {2 * delta:.3g})")
+        n_ties += int(off.sum())
+        gaps.append(2 * delta)
+        clean &= ~changed.any(-1)
+    if clean is None:  # no MoE layer
+        return None, 0
+    print(f"routing {what}: {n_ties} near-tie tokens (changed choices, each within its call's "
+          f"stated gap, max {max(gaps):.3g}); {int((~clean).sum())} of {clean.numel()} "
+          f"sequences set aside")
+    return clean, n_ties
+
+
 def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: dict,
-             judge=check, timed: bool = True, extras: bool = True) -> dict:
+             judge=check, timed: bool = True, extras: bool = True,
+             f32_layers: int | None = None) -> dict:
     """The LM serving path: build `cfg`'s model on the card from a seeded
     generator; hold `flash_attention` against its plain version within
     `AGREE` (and, in bf16, `OFF_PLAIN_SHARE`) on the path's own tensors (every layer's q, k, v of the bf16
@@ -1942,20 +2023,33 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     SDPA, the prefill and a decode step (when `timed`; with `extras` also
     the kernel at head dims 64 and 128); last, widen the
     weights to f32 and hold the kernel path's hidden states at every prompt
-    position, and its last-token logits, against the plain path's.
+    position, and its last-token logits, against the plain path's (with
+    `f32_layers`, on a model of that many layers, seeded alike, built after
+    this one is freed).  MLA layers take q, k, v from the MLA projections, v
+    padded with zeros to q's head dim as `mla_attn` pads it.  An MoE arch
+    prints each prefill layer's ``moe_drop_frac`` and expert-load range, and
+    its hidden states and logits are compared only on sequences whose
+    routing agrees between the two runs (`judge_routes`).
     `judge(ok, msg)` takes each check's verdict: `check` raises at the
     first failure, scripts/torch_flash_faults.py records them all."""
     import numpy as np
     import torch
     from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import counters
-    from repro_torch.models import lm
-    from repro_torch.models.attention import gqa_project_qkv
+    from repro_torch.configs import cut_layers
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.attention import gqa_project_qkv, mla_project_qkv
     from repro_torch.serve import cv_engine
 
+    heads = f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.head_dim}"
+    v_dim = None
+    if cfg.mla is not None:
+        m = cfg.mla
+        v_dim = m.v_dim
+        heads = (f"{cfg.n_heads}/{cfg.n_heads}, {m.qk_nope_dim + m.qk_rope_dim}; v {v_dim} "
+                 f"padded to {m.qk_nope_dim + m.qk_rope_dim}")
     out: dict = {"config": cfg.name, "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
-                 "n_layers": cfg.n_layers,
-                 "config_heads": f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.head_dim}"}
+                 "n_layers": cfg.n_layers, "blocks": cfg.blocks, "config_heads": heads}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -1963,9 +2057,9 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     out["init_s"] = time.perf_counter() - t0
     out["params"] = sum(p.numel() for p in model.parameters())
     out["weights_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"lm {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
-          f"{cfg.head_dim} over {cfg.n_kv_heads} KV heads, window {cfg.window}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}, {cfg.dtype}: "
+    print(f"lm {cfg.name}: {cfg.n_layers} layers {cfg.blocks}, d {cfg.d_model}, heads {heads} "
+          f"over {cfg.n_kv_heads} KV heads, window {cfg.window}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, moe {cfg.moe}, mla {cfg.mla}, {cfg.dtype}: "
           f"params={out['params']} weights={out['weights_bytes']} B init_s={out['init_s']:.2f} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
     rng = np.random.default_rng(0)
@@ -2011,14 +2105,31 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     with torch.inference_mode():
         pos = torch.arange(prompt_len, device=dev)[None, :]
         layer0 = {}
+        kinds = cfg.block_list
 
         def visit(i, x):
-            q, k, v = gqa_project_qkv(model.blocks[i]["attn"], x, cfg, pos)
-            check_flash(f"layer {i} of the prefill", q, k, v, True)
+            if kinds[i] in blocks.MLA_KINDS:
+                q, k, v, _, _ = mla_project_qkv(model.blocks[i]["attn"], x, cfg, pos)
+                v = torch.nn.functional.pad(v, (0, k.shape[-1] - v.shape[-1]))
+            else:
+                q, k, v = gqa_project_qkv(model.blocks[i]["attn"], x, cfg, pos)
+            check_flash(f"layer {i} ({kinds[i]}) of the prefill", q, k, v, True)
             if i == 0:
                 layer0["qkv"] = (q, k, v)
 
-        walk_prefill(model, prompts, visit=visit)
+        moe_metrics = []
+        walk_prefill(model, prompts, visit=visit, metrics=moe_metrics)
+        if moe_metrics:
+            out["moe"] = [{"moe_drop_frac": float(mm["moe_drop_frac"]),
+                           "expert_load_min": float(mm["expert_load"].min()),
+                           "expert_load_max": float(mm["expert_load"].max()),
+                           "moe_aux": float(mm["moe_aux"])} for mm in moe_metrics]
+            for i, mm in enumerate(out["moe"]):
+                print(f"moe layer {i} of the {cfg.name} prefill ({batch} x {prompt_len}, capacity "
+                      f"factor {cfg.moe.capacity_factor}): moe_drop_frac={mm['moe_drop_frac']:.5f} "
+                      f"expert_load (tokens' share, sums to top_k {cfg.moe.top_k}) "
+                      f"min={mm['expert_load_min']:.5f} max={mm['expert_load_max']:.5f} "
+                      f"moe_aux={mm['moe_aux']:.4f}")
         q, k, v = layer0.pop("qkv")
         check_flash("layer 0 of the prefill, f32 copy", q.float(), k.float(), v.float(), True)
         g = torch.Generator(dev).manual_seed(1)
@@ -2078,7 +2189,6 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
           "teacher-forced kernel path does not reproduce generate's tokens")
     lp = forced("ref")
     diff = float((lk - lp).abs().max())
-    pre_k, pre_p = lk[:, 0].clone(), lp[:, 0].clone()  # prefill's last-token logits
     top2 = torch.topk(lp, 2, dim=-1).values
     margin = top2[..., 0] - top2[..., 1]
     off = lp.argmax(-1).to(tokens.dtype) != tokens
@@ -2091,7 +2201,7 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
 
     # -- times ---------------------------------------------------------------
     if timed:
-        out["flash"] = time_flash(q, k, v)
+        out["flash"] = time_flash(q, k, v, v_dim=v_dim)
         if extras:
             # the same call at head dims 64 and 128 (width 4096): a tile's tensor
             # work grows with hd and its softmax does not
@@ -2114,28 +2224,70 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     # within 2e-3 on the logits (tests/test_decode_consistency.py), and
     # within the kernel's own f32 tolerance on the final-normed hidden
     # states at every prompt position.
+    #
+    # An MoE arch's routing may change between two runs at near-ties (a
+    # changed choice moves its sequence's later slot ranks): the kernel and
+    # plain runs are compared on the sequences whose routing agrees.
+    if f32_layers is not None:
+        del model
+        torch.cuda.empty_cache()
+        cfg = cut_layers(cfg, f32_layers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        print(f"f32 check of {cfg.name} on a model of {f32_layers} of its layers {cfg.blocks} "
+              f"(the widened model of all of them does not fit the card)")
+    top_k = cfg.moe.top_k if cfg.moe is not None else 0
+
+    def last_logits(mode):
+        """The prefill's last-token logits from a walk (as `lm.prefill`'s),
+        its final hidden states and its routing calls."""
+        head = model.embed.T if cfg.tie_embeddings else model.lm_head
+        with torch.inference_mode(), RouteRecorder() as routes:
+            h = walk_prefill(model, prompts, mode=mode)
+            return (h[:, -1] @ head).float(), h, routes.calls
+
+    (pre_k, _, rk16), (pre_p, _, rp16) = last_logits(None), last_logits("ref")
     model.float()  # widens the bf16 weights exactly
-    with torch.inference_mode():
-        l32k, snap = counted(counters, lambda: lm.prefill(model, prompts)[0])
-        expect_counts("f32 prefill", snap, {"flash_attention": cfg.n_layers}, judge)
-        l32p = lm.prefill(model, prompts, mode="ref")[0]
-        hk, hp = walk_prefill(model, prompts), walk_prefill(model, prompts, mode="ref")
+    (l32k, hk, rk32), snap = counted(counters, lambda: last_logits(None))
+    expect_counts("f32 prefill", snap, {"flash_attention": cfg.n_layers}, judge)
+    l32p, hp, rp32 = last_logits("ref")
+    out["max_memory_allocated_f32"] = torch.cuda.max_memory_allocated(dev)
+    clean32, ties32 = judge_routes(rk32, rp32, top_k, f"{cfg.name} f32 kernel vs plain", judge)
+    clean16, ties16 = judge_routes(rk16, rp16, top_k, f"{cfg.name} bf16 kernel vs plain", judge)
+    # the model's own bf16 error, not a kernel check: printed, not judged
+    _, ties_w = judge_routes(rp16, rp32, top_k, f"{cfg.name} bf16 plain vs f32 plain",
+                             lambda ok, msg: None)
+    del rk16, rp16, rk32, rp32
+    every = torch.ones(batch, dtype=torch.bool, device=dev)
+    clean32 = every if clean32 is None else clean32
+    clean16 = every if clean16 is None else clean16
+    out["routing"] = {"near_tie_tokens": {"f32 kernel vs plain": ties32,
+                                          "bf16 kernel vs plain": ties16,
+                                          "bf16 plain vs f32 plain": ties_w},
+                      "sequences_compared": {"f32": int(clean32.sum()), "bf16": int(clean16.sum())}}
+    judge(bool(clean32.any()), "f32: every sequence's routing changed between kernel and plain")
+    hk, hp = hk[clean32], hp[clean32]
     rtol, atol = kattn.AGREE[torch.float32]
     h_share = float(((hk - hp).abs() / (atol + rtol * hp.abs())).max())
     h_err = float((hk - hp).abs().max())
-    print(f"f32 hidden states at all {batch} x {prompt_len} positions (max |h| "
-          f"{float(hp.abs().max()):.4g}): kernel vs plain max={h_err:.4g} "
-          f"share of the tolerance={h_share:.4g} (rtol = atol = {rtol})")
+    print(f"f32 hidden states at all {batch} x {prompt_len} positions of {int(clean32.sum())} "
+          f"sequences (max |h| {float(hp.abs().max()):.4g}): kernel vs plain max={h_err:.4g} "
+          f"share of the tolerance={h_share:.4g} (rtol = atol = {rtol}); "
+          f"max_memory_allocated={out['max_memory_allocated_f32']}")
     judge(h_share <= 1.0, f"f32 hidden states: kernel vs plain {h_share:.3g} times the tolerance")
     out["hidden_f32"] = {"max": h_err, "share_of_tol": h_share}
     del hk, hp
-    gaps = {"f32 kernel vs plain": (l32k, l32p), "bf16 kernel vs plain": (pre_k, pre_p),
+    gaps = {"f32 kernel vs plain": (l32k[clean32], l32p[clean32]),
+            "bf16 kernel vs plain": (pre_k[clean16], pre_p[clean16]),
             "bf16 plain vs f32 plain": (pre_p, l32p), "bf16 kernel vs f32 plain": (pre_k, l32p)}
-    gaps = {name: {"max": float((a - b).abs().max()), "rms": float((a - b).square().mean().sqrt()),
-                   "share_differing": float((a != b).float().mean())}
+    gaps = {name: {"sequences": a.shape[0],
+                   "max": float((a - b).abs().max()) if a.numel() else 0.0,
+                   "rms": float((a - b).square().mean().sqrt()) if a.numel() else 0.0,
+                   "share_differing": float((a != b).float().mean()) if a.numel() else 0.0}
             for name, (a, b) in gaps.items()}
     print(f"prefill last-token logits (max |logit| {float(l32p.abs().max()):.4g}): "
-          + "; ".join(f"{k} max={v['max']:.4g} rms={v['rms']:.4g} differing={v['share_differing']:.4f}"
+          + "; ".join(f"{k} ({v['sequences']} of {batch} sequences) max={v['max']:.4g} "
+                      f"rms={v['rms']:.4g} differing={v['share_differing']:.4f}"
                       for k, v in gaps.items()))
     err32, pre_err = gaps["f32 kernel vs plain"]["max"], gaps["bf16 kernel vs plain"]["max"]
     bf16_err = gaps["bf16 plain vs f32 plain"]["max"]
@@ -2219,19 +2371,44 @@ def long_prompt_phase(dev, cfg, *, prompt_len: int, gen_len: int, judge=check) -
     return out
 
 
-def time_flash(q, k, v) -> dict:
+def sdpa_backends(qt, kt, vt, **kw) -> list:
+    """The SDPA backends that take this causal call (each tried alone)."""
+    import torch
+    import torch.nn.functional as F
+
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+    except ImportError:
+        return ["unknown (no torch.nn.attention)"]
+    names = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **kw)
+            torch.cuda.synchronize()
+            names.append(b.name)
+        except RuntimeError:
+            pass
+    return names
+
+
+def time_flash(q, k, v, v_dim: int | None = None) -> dict:
     """The kernel, its plain version and SDPA (`is_causal=True`, the
     yardstick) on one causal call, and its bound.  With fewer KV heads than
     query heads SDPA runs with `enable_gqa=True` where the installed torch
     takes it, else on K and V repeated to the query heads outside the timed
-    call (`library_form` says which)."""
+    call (`library_form` says which).  `v_dim` (MLA): v holds that many real
+    channels, padded with zeros to q's head dim for the kernel; SDPA gets
+    the unpadded v and `library_form` lists the backends that take it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import attention as kattn
 
+    hdv = v_dim or v.shape[-1]
     run = lambda: kattn.flash_attention(q, k, v)  # noqa: E731
     plain = lambda: kattn.flash_attention(q, k, v, mode="ref")  # noqa: E731
-    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v[..., :hdv].contiguous()))
     gqa = {}
     form = "MHA"
     if k.shape[2] != q.shape[2]:
@@ -2241,17 +2418,26 @@ def time_flash(q, k, v) -> dict:
             n_rep = q.shape[2] // k.shape[2]
             kt, vt = (a.repeat_interleave(n_rep, dim=1) for a in (kt, vt))
             form = "K and V repeated outside the timed call"
+    if hdv != q.shape[-1]:
+        form += f", v at {hdv} channels; backends that take it: {sdpa_backends(qt, kt, vt, **gqa)}"
+        if hasattr(torch, "_fused_sdp_choice"):
+            from torch.nn.attention import SDPBackend
+
+            choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True, **gqa)).name
+            form += f"; the default dispatch runs {choice}"
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)  # noqa: E731
-    lib_err = float((sdpa().transpose(1, 2).float() - plain().float()).abs().max())
-    check(lib_err <= 3e-2 * (1 + float(plain().float().abs().max())),
+    want = plain()[..., :hdv].float()
+    lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
+    check(lib_err <= 3e-2 * (1 + float(want.abs().max())),
           f"SDPA disagrees with the plain version by {lib_err}")
+    del want
     p1 = time_ms(plain, iters=3, warmup=1)
     k1 = time_ms(run, iters=10)
     k2 = time_ms(run, iters=10)
     p2 = time_ms(plain, iters=3, warmup=1)
     lib = time_ms(sdpa, iters=20)
     t = {"ms_runs": [k1, k2], "plain_runs": [p1, p2], "library_ms": lib,
-         "library_form": form, "sdpa_max_abs_diff": lib_err} | flash_bound(q, k)
+         "library_form": form, "sdpa_max_abs_diff": lib_err} | flash_bound(q, k, v_dim=hdv)
     best = min(k1, k2)
     print(f"time flash_attention ({tuple(q.shape)} over {k.shape[2]} KV heads {q.dtype} causal; "
           f"SDPA {form}): ms={k1:.5f}/{k2:.5f} "
@@ -2262,7 +2448,7 @@ def time_flash(q, k, v) -> dict:
           f"all-f32 bound_ms={t['bound_ms_all_f32']:.4f}; SDPA share of the bound="
           f"{t['bound_ms'] / lib:.4f}, kernel / SDPA={best / lib:.3f}; kernel "
           f"{t['flops'] / best / 1e9:.1f} TFLOP/s of q.k + 2 p.v, SDPA "
-          f"{2 * t['flops'] / 3 / lib / 1e9:.1f} of q.k + p.v")
+          f"{t['flops_one_pv'] / lib / 1e9:.1f} of q.k + p.v")
     return t
 
 
@@ -2742,7 +2928,7 @@ def main() -> int:
     for arch, layers in LM_RUNS:
         lm_out = lm_phase(dev, get_config(arch, n_layers=layers), batch=LM_BATCH,
                           prompt_len=LM_PROMPT, gen_len=LM_GEN, max_err=max_err,
-                          extras=arch == LM_ARCH)
+                          extras=arch == LM_ARCH, f32_layers=F32_LAYERS.get(arch))
         path_counts[f"generate {arch}"] = lm_out["generate"]["counters"]
         lm_outs[arch] = lm_out
     long_out = long_prompt_phase(dev, get_config(LONG_ARCH), prompt_len=LONG_PROMPT,

@@ -3,8 +3,9 @@
     python3 scripts/torch_lm_profile.py [--arch gemma-7b] [--layers N] [--reduced]
         [--requests 8] [--prompt-len 1024] [--decode-steps 8]
 
-Builds ``--arch`` at full width (``--layers`` keeps its first N layers, as
-qwen2-72b needs on one 80 GB card; or ``--reduced``) on the card from a seeded
+Builds ``--arch`` (any of `configs.ARCHS`) at full width (``--layers`` keeps
+its first N layers, as qwen2-72b, arctic-480b and deepseek-v3-671b need on one
+80 GB card: 8, 2 and 4 in chip_smoke.py; or ``--reduced``) on the card from a seeded
 generator, warms up with one `generate`, then traces with `torch.profiler`
 one prefill of ``--requests`` x ``--prompt-len`` tokens and, separately,
 ``--decode-steps`` decode steps against the prefill's cache, and prints for

@@ -12,19 +12,26 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["gemma-7b", "qwen2-72b", "starcoder2-7b", "h2o-danube-3-4b"]
+ARCHS = [
+    "gemma-7b",
+    "qwen2-72b",
+    "starcoder2-7b",
+    "h2o-danube-3-4b",
+    "arctic-480b",
+    "deepseek-v3-671b",
+]
 
 _MODULES = {
     "gemma-7b": "gemma_7b",
     "qwen2-72b": "qwen2_72b",
     "starcoder2-7b": "starcoder2_7b",
     "h2o-danube-3-4b": "h2o_danube3_4b",
+    "arctic-480b": "arctic_480b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 # arch -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
 _QUEUED = {
-    "arctic-480b": "step 4 (MoE)",
-    "deepseek-v3-671b": "step 5 (MLA)",
     "zamba2-2.7b": "step 6 (Mamba2 and xLSTM)",
     "xlstm-125m": "step 6 (Mamba2 and xLSTM)",
     "llama-3.2-vision-11b": "step 7 (cross-attention and enc-dec)",
@@ -44,15 +51,24 @@ def _module(name: str):
 
 
 def get_config(name: str, *, n_layers: int | None = None) -> ModelConfig:
-    """`name`'s published config; `n_layers` keeps its first layers (a run
-    of one block kind), for an arch whose full depth does not fit one card
-    (qwen2-72b: ~145 GB of bf16 weights against 80 GB)."""
+    """`name`'s published config; `n_layers` keeps its first layers, across
+    runs of block kinds, for an arch whose full depth does not fit one card
+    (qwen2-72b: ~145 GB of bf16 weights against 80 GB; deepseek-v3-671b at 4
+    layers is ``(("mla", 3), ("mla_moe", 1))``)."""
     cfg = _module(name).config()
-    if n_layers is None:
-        return cfg
-    if len(cfg.blocks) != 1 or not 0 < n_layers <= cfg.n_layers:
-        raise ValueError(f"{name}: cannot keep {n_layers} of {cfg.blocks}")
-    return cfg.replace(n_layers=n_layers, blocks=((cfg.blocks[0][0], n_layers),))
+    return cfg if n_layers is None else cut_layers(cfg, n_layers)
+
+
+def cut_layers(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """`cfg` keeping its first `n_layers` layers, across runs of block kinds."""
+    if not 0 < n_layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: cannot keep {n_layers} of {cfg.blocks}")
+    blocks, left = [], n_layers
+    for kind, count in cfg.blocks:
+        if left:
+            blocks.append((kind, min(count, left)))
+            left -= blocks[-1][1]
+    return cfg.replace(n_layers=n_layers, blocks=tuple(blocks))
 
 
 def reduced_config(name: str) -> ModelConfig:

@@ -86,7 +86,10 @@ def from_jax_lm_params(params: dict, cfg, *, device=None) -> LM:
     axis in JAX and is unstacked into one module per layer.  bf16 arrives as
     ``ml_dtypes.bfloat16``, which torch does not take: every array is widened
     to f32 in numpy and cast to its parameter's dtype, a round trip that is
-    exact.  The tree must name exactly the model's parameters."""
+    exact.  Nested trees carry over by their dotted paths: the MoE FFN's
+    (L, E, D, F) expert stacks, ``router``, ``router_bias``, ``shared.*``,
+    Arctic's ``dense_mlp.*`` and ``ln_dense.*``, MLA's ``q_norm.scale`` and
+    ``kv_norm.scale``.  The tree must name exactly the model's parameters."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta").to_empty(device=dev)
     flat = {}

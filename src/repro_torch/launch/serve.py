@@ -5,9 +5,11 @@
         --requests 8 --prompt-len 1024 --gen-len 32 [--device cuda] [--seed 0]
 
 ``--arch`` takes each ported arch (`configs.ARCHS`: gemma-7b, qwen2-72b,
-starcoder2-7b, h2o-danube-3-4b).  ``--layers N`` keeps the first N layers
-of the published config: qwen2-72b's 80 (~145 GB of bf16 weights) do not
-fit one 80 GB card.
+starcoder2-7b, h2o-danube-3-4b, arctic-480b, deepseek-v3-671b).  ``--layers
+N`` keeps the first N layers of the published config, across runs of block
+kinds: qwen2-72b's 80 (~145 GB of bf16 weights) do not fit one 80 GB card,
+nor arctic-480b's 35 (~27.2 GB a layer; 2 fit) or deepseek-v3-671b's 61 (4,
+3 dense MLA and 1 MLA-MoE, are ~30 GB).
 
 Parameters come from the model's own seeded init (no weights are
 downloaded or needed); prompts from ``np.random.default_rng(seed)``.  The

@@ -1,4 +1,5 @@
 """The LM stack (the counterpart of `repro.models`): config, layers,
-attention, blocks and the language model.  Ported so far: the dense
-self-attention block (kind ``"attn"``) and serving (prefill, decode);
-the other mixers and training follow ROADMAP Queue 1 item 8."""
+attention (GQA and MLA), the MoE FFN, blocks and the language model.
+Ported so far: the block kinds ``"attn"``, ``"moe"``, ``"mla"`` and
+``"mla_moe"`` and serving (prefill, decode); the other mixers, training
+and sharding follow ROADMAP Queue 1 item 8."""

@@ -12,6 +12,7 @@ any length, or its plain version on a CPU tensor) when all of these hold:
 
   * ``q_pos``, ``kv_pos``, ``kv_valid``, ``soft_cap`` and ``scale`` are
     None (positions ``arange`` from 0, the default scale);
+  * v has k's shape (the kernel reads one head dim for q, k and v);
   * ``Hq % G == 0`` (MHA, GQA or MQA: the kernel maps query heads to KV
     heads);
   * the head dim is a multiple of 8 in [8, 256];
@@ -26,8 +27,17 @@ them to v's dtype before p.v.  Every other call goes, as in JAX's
 `attention`, to `blockwise_attention` when T > 8192 and no ``kv_valid`` is
 given, and to `dense_attention` otherwise.  E.g. reduced starcoder2-7b (head
 dim 12) runs dense, and an h2o-danube-3-4b prompt longer than its 4096
-window runs dense up to 8192 positions and blockwise above.  MLA and
-cross-attention wait (ROADMAP Queue 1 item 8).
+window runs dense up to 8192 positions and blockwise above.
+
+MLA (DeepSeek-V2/V3, `mla_attn`) has q and k of ``qk_nope + qk_rope``
+channels (192) and v of ``v_dim`` (128).  On the kernel route it pads v
+with zero channels to q's head dim and keeps the output's first ``v_dim``
+(zero channels of v give zero outputs, so the function is unchanged; the
+16-bit kernel pads 192 channels to four 64-channel chunks either way).  Off
+the route it runs `dense_attention` / `blockwise_attention` unpadded, as in
+JAX.  Decode (`mla_decode`) attends in the latent space over the (c_kv,
+k_rope) cache, in f32, as JAX's does.  Cross-attention waits (ROADMAP
+Queue 1 item 8 step 7).
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import torch
 from torch import nn
 
 from ..kernels import attention as kattn
-from .layers import apply_rope, dense_init
+from .layers import _param, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 BLOCKWISE_THRESHOLD = 8192  # KV positions above which JAX goes blockwise
@@ -193,14 +203,15 @@ def blockwise_attention(
     return out.reshape(B, S, Hq, hdv).to(q.dtype)
 
 
-def kernel_route(q, k, *, q_pos=None, kv_pos=None, window=None, kv_valid=None,
+def kernel_route(q, k, v, *, q_pos=None, kv_pos=None, window=None, kv_valid=None,
                  soft_cap=None, scale=None) -> bool:
     """Whether `attention` sends this call to the flash kernel (module
-    docstring): decided from shapes and settings alone."""
+    docstring): decided from shapes and settings alone (of v, its shape)."""
     S, Hq, hd = q.shape[1], q.shape[2], q.shape[3]
     T, G = k.shape[1], k.shape[2]
     return (
-        q_pos is None
+        v.shape == k.shape
+        and q_pos is None
         and kv_pos is None
         and kv_valid is None
         and soft_cap is None
@@ -233,7 +244,7 @@ def attention(
     the kernel's wrapper only: ``"ref"`` runs its plain version on the card
     too."""
     masks = dict(q_pos=q_pos, kv_pos=kv_pos, window=window, soft_cap=soft_cap, scale=scale)
-    if kernel_route(q, k, kv_valid=kv_valid, **masks):
+    if kernel_route(q, k, v, kv_valid=kv_valid, **masks):
         return kattn.flash_attention(q, k, v, causal=causal, mode=mode)
     if k.shape[1] > BLOCKWISE_THRESHOLD and kv_valid is None:
         return blockwise_attention(q, k, v, causal=causal, chunk=chunk, **masks)
@@ -336,3 +347,119 @@ def gqa_decode(p, x: torch.Tensor, cfg, *, cache_k, cache_v, pos: int, kv_pos, k
         grouped=True,
     )
     return out.reshape(B, 1, -1) @ p["w_o"], (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg, *, device=None, generator=None) -> nn.ParameterDict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    init = dict(dtype=cfg.param_dtype, device=device, generator=generator)
+    qk_head = m.qk_nope_dim + m.qk_rope_dim
+
+    def norm(n):
+        return nn.ParameterDict(
+            {"scale": _param(torch.ones(n, dtype=torch.float32, device=device))}
+        )
+
+    return nn.ParameterDict(
+        {
+            "w_dq": dense_init((d, m.q_lora_rank), **init),
+            "q_norm": norm(m.q_lora_rank),
+            "w_uq": dense_init((m.q_lora_rank, h * qk_head), **init),
+            "w_dkv": dense_init((d, m.kv_lora_rank), **init),
+            "kv_norm": norm(m.kv_lora_rank),
+            "w_uk": dense_init((m.kv_lora_rank, h * m.qk_nope_dim), **init),
+            "w_uv": dense_init((m.kv_lora_rank, h * m.v_dim), **init),
+            "w_kr": dense_init((d, m.qk_rope_dim), **init),
+            "w_o": dense_init(
+                (h * m.v_dim, d), **init, scale=1.0 / math.sqrt(h * m.v_dim * 2 * cfg.n_layers)
+            ),
+        }
+    )
+
+
+def _mla_latents(p, x, cfg, positions):
+    """Compressed latents: c_kv (B, T, r_kv), k_rope (B, T, 1, rope_dim)."""
+    m = cfg.mla
+    c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"]["scale"], eps=cfg.norm_eps)
+    k_r = (x @ p["w_kr"]).reshape(*x.shape[:2], 1, m.qk_rope_dim)
+    k_r = apply_rope(k_r, positions, theta=cfg.rope_theta)
+    return c_kv, k_r
+
+
+def _mla_q(p, x, cfg, positions):
+    m = cfg.mla
+    cq = rms_norm(x @ p["w_dq"], p["q_norm"]["scale"], eps=cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(*x.shape[:2], cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    return q_nope, apply_rope(q_rope, positions, theta=cfg.rope_theta)
+
+
+def mla_project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """x (B, S, D) -> q, k (B, S, H, qk_nope + qk_rope), v (B, S, H, v_dim),
+    and the latents c_kv (B, S, r_kv), k_rope (B, S, rope_dim) the cache
+    keeps."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    c_kv, k_r = _mla_latents(p, x, cfg, positions)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, h, m.qk_nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, h, m.v_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_r.expand(B, S, h, m.qk_rope_dim)], dim=-1)
+    return q, k, v, c_kv, k_r[:, :, 0, :]
+
+
+def mla_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None):
+    """Prefill MLA (materialized heads) -> (out, (c_kv, k_rope)).  JAX passes
+    ``scale = 1 / sqrt(qk_nope + qk_rope)``, which is the default for q's
+    head dim: here None, so that the call may take the kernel route, where v
+    is padded with zeros to q's head dim (module docstring).  positions None
+    means ``arange(S)`` from 0, as in `gqa_attn`."""
+    m = cfg.mla
+    q_pos = positions
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v, c_kv, k_r = mla_project_qkv(p, x, cfg, positions)
+    kw = dict(causal=True, q_pos=q_pos, kv_pos=q_pos, chunk=cfg.blockwise_chunk, mode=mode)
+    # the route is decided on the kernel's shapes: v padded to k's head dim
+    if kernel_route(q, k, k, q_pos=q_pos, kv_pos=q_pos):
+        vp = torch.nn.functional.pad(v, (0, k.shape[-1] - m.v_dim))
+        out = attention(q, k, vp, **kw)[..., : m.v_dim]
+    else:
+        out = attention(q, k, v, **kw)
+    return out.reshape(*x.shape[:2], -1) @ p["w_o"], (c_kv, k_r)
+
+
+def mla_decode(p, x: torch.Tensor, cfg, *, cache_ckv, cache_kr, pos: int, kv_pos, kv_valid):
+    """Absorbed-matrix MLA decode: attention runs in the latent space, in
+    f32, and the cache stores only (c_kv, k_rope).  cache_ckv (B, T, r_kv)
+    and cache_kr (B, T, rope_dim) are written in place at slot ``pos % T``
+    (as `gqa_decode`'s).  Returns (out, (cache_ckv, cache_kr))."""
+    m = cfg.mla
+    B = x.shape[0]
+    h = cfg.n_heads
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    c_kv, k_r = _mla_latents(p, x, cfg, positions)  # (B, 1, r), (B, 1, 1, rd)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)  # (B, 1, h, *)
+    slot = pos % cache_ckv.shape[1]
+    cache_ckv[:, slot] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_kr[:, slot] = k_r[:, 0, 0].to(cache_kr.dtype)
+    # absorb: q_c = q_nope @ w_uk (per head), a latent-space query
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim).float()
+    q_c = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    ckv = cache_ckv.float()
+    s = torch.einsum("bshr,btr->bhst", q_c, ckv)
+    s = s + torch.einsum("bshd,btd->bhst", q_rope.float(), cache_kr.float())
+    bias = _mask_bias(positions, kv_pos, causal=True, window=None, kv_valid=kv_valid)
+    probs = torch.softmax(s * scale + bias[:, None], dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_dim).float()
+    out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv).to(x.dtype)
+    return out.reshape(B, 1, -1) @ p["w_o"], (cache_ckv, cache_kr)

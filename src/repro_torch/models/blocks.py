@@ -1,9 +1,18 @@
 """Per-layer blocks (the counterpart of `repro.models.blocks`): init,
-full-sequence apply, decode apply and the KV cache of one layer.
+full-sequence apply, decode apply and the cache of one layer.
 
-Ported: kind ``"attn"`` (self-attention with GQA/MQA/MHA + dense MLP).
-Every other kind of the JAX package raises `NotImplementedError` naming
-the step of ROADMAP Queue 1 item 8 that ports it.
+Ported kinds:
+  attn      self-attention (GQA/MQA/MHA, optional SWA) + dense MLP
+  moe       self-attention + MoE FFN (optionally + a parallel dense FFN
+            with its own ``ln_dense`` norm: Arctic)
+  mla       MLA attention + dense MLP            (DeepSeek dense layers)
+  mla_moe   MLA attention + MoE FFN              (DeepSeek MoE layers)
+
+A layer's cache entry is ``{"k", "v"}`` (B, T, G, hd) for attention and
+``{"ckv", "kr"}`` (B, T, r_kv) / (B, T, rope_dim) for MLA; the time axis
+is 1 in both.  Every other kind of the JAX package raises
+`NotImplementedError` naming the step of ROADMAP Queue 1 item 8 that ports
+it.
 """
 
 from __future__ import annotations
@@ -12,13 +21,15 @@ import torch
 from torch import nn
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+
+PORTED = ("attn", "moe", "mla", "mla_moe")
+MLA_KINDS = ("mla", "mla_moe")
+MOE_KINDS = ("moe", "mla_moe")
 
 # kind -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
 _QUEUED = {
-    "moe": "step 4 (MoE)",
-    "mla": "step 5 (MLA)",
-    "mla_moe": "step 5 (MLA)",
     "mamba": "step 6 (Mamba2 and xLSTM)",
     "mlstm": "step 6 (Mamba2 and xLSTM)",
     "slstm": "step 6 (Mamba2 and xLSTM)",
@@ -29,7 +40,7 @@ _QUEUED = {
 
 
 def check_kind(kind: str) -> None:
-    if kind == "attn":
+    if kind in PORTED:
         return
     if kind in _QUEUED:
         raise NotImplementedError(
@@ -45,38 +56,54 @@ def _norm(cfg) -> dict:
 def init_block(kind: str, cfg, *, device=None, generator=None) -> nn.ModuleDict:
     check_kind(kind)
     d = cfg.d_model
+    init = dict(device=device, generator=generator)
 
     def nrm():
         return init_norm(d, kind=cfg.norm, gemma_style=cfg.gemma_norm, device=device)
 
-    return nn.ModuleDict(
-        {
-            "ln1": nrm(),
-            "attn": attn_mod.init_gqa(cfg, device=device, generator=generator),
-            "ln2": nrm(),
-            "mlp": init_mlp(
-                d,
-                cfg.d_ff,
-                style=cfg.mlp_style,
-                dtype=cfg.param_dtype,
-                device=device,
-                generator=generator,
-            ),
-        }
-    )
+    def mlp():
+        return init_mlp(d, cfg.d_ff, style=cfg.mlp_style, dtype=cfg.param_dtype, **init)
+
+    attn = attn_mod.init_mla(cfg, **init) if kind in MLA_KINDS else attn_mod.init_gqa(cfg, **init)
+    p = {"ln1": nrm(), "attn": attn, "ln2": nrm()}
+    if kind in MOE_KINDS:
+        p["moe"] = moe_mod.init_moe(cfg, **init)
+        if cfg.moe.dense_parallel:
+            p["dense_mlp"] = mlp()
+            p["ln_dense"] = nrm()
+    else:
+        p["mlp"] = mlp()
+    return nn.ModuleDict(p)
+
+
+def _ffn(kind: str, p, h: torch.Tensor, cfg, *, capacity_factor=None):
+    """The block's second half: h -> (h + FFN(h), MoE metrics or {})."""
+    n = _norm(cfg)
+    x2 = apply_norm(h, p["ln2"], **n)
+    if kind not in MOE_KINDS:
+        return h + apply_mlp(p["mlp"], x2, act=cfg.act, style=cfg.mlp_style), {}
+    mo, metrics = moe_mod.moe_ffn(p["moe"], x2, cfg, capacity_factor=capacity_factor)
+    if "dense_mlp" in p:
+        xd = apply_norm(h, p["ln_dense"], **n)
+        mo = mo + apply_mlp(p["dense_mlp"], xd, act=cfg.act, style=cfg.mlp_style)
+    return h + mo, metrics
 
 
 def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, mode: str | None = None):
-    """Full-sequence apply (prefill) -> (h, cache entry {"k", "v"}).
-    positions None means ``arange(S)``; `mode` reaches the attention kernel."""
+    """Full-sequence apply (prefill) -> (h, cache entry, metrics), as JAX's:
+    the metrics are the MoE FFN's (``moe_aux``, ``moe_z``, ``expert_load``,
+    ``moe_drop_frac``), empty for a dense FFN.  positions None means
+    ``arange(S)``; `mode` reaches the attention kernel."""
     check_kind(kind)
-    n = _norm(cfg)
-    x = apply_norm(h, p["ln1"], **n)
-    a, (k, v) = attn_mod.gqa_attn(p["attn"], x, cfg, positions=positions, mode=mode)
-    h = h + a
-    x2 = apply_norm(h, p["ln2"], **n)
-    h = h + apply_mlp(p["mlp"], x2, act=cfg.act, style=cfg.mlp_style)
-    return h, {"k": k, "v": v}
+    x = apply_norm(h, p["ln1"], **_norm(cfg))
+    if kind in MLA_KINDS:
+        a, (ckv, kr) = attn_mod.mla_attn(p["attn"], x, cfg, positions=positions, mode=mode)
+        cache = {"ckv": ckv, "kr": kr}
+    else:
+        a, (k, v) = attn_mod.gqa_attn(p["attn"], x, cfg, positions=positions, mode=mode)
+        cache = {"k": k, "v": v}
+    h, metrics = _ffn(kind, p, h + a, cfg)
+    return h, cache, metrics
 
 
 def init_block_cache(
@@ -84,30 +111,34 @@ def init_block_cache(
 ) -> dict[str, torch.Tensor]:
     """Zero cache entry for one layer of `kind`."""
     check_kind(kind)
+    z = dict(dtype=dtype, device=device)
+    if kind in MLA_KINDS:
+        m = cfg.mla
+        return {
+            "ckv": torch.zeros((batch, cache_len, m.kv_lora_rank), **z),
+            "kr": torch.zeros((batch, cache_len, m.qk_rope_dim), **z),
+        }
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    return {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z)}
 
 
 def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, kv_pos, kv_valid):
     """One-token apply -> (h, cache entry), the entry's tensors written in
-    place (`attention.gqa_decode`)."""
+    place (`attention.gqa_decode`, `attention.mla_decode`).  The MoE FFN
+    runs at ``decode_capacity_factor``, as in JAX."""
     check_kind(kind)
-    n = _norm(cfg)
-    x = apply_norm(h, p["ln1"], **n)
-    a, (ck, cv) = attn_mod.gqa_decode(
-        p["attn"],
-        x,
-        cfg,
-        cache_k=cache["k"],
-        cache_v=cache["v"],
-        pos=pos,
-        kv_pos=kv_pos,
-        kv_valid=kv_valid,
-    )
-    h = h + a
-    x2 = apply_norm(h, p["ln2"], **n)
-    h = h + apply_mlp(p["mlp"], x2, act=cfg.act, style=cfg.mlp_style)
-    return h, dict(cache, k=ck, v=cv)
+    x = apply_norm(h, p["ln1"], **_norm(cfg))
+    mask = dict(pos=pos, kv_pos=kv_pos, kv_valid=kv_valid)
+    if kind in MLA_KINDS:
+        a, (ckv, kr) = attn_mod.mla_decode(
+            p["attn"], x, cfg, cache_ckv=cache["ckv"], cache_kr=cache["kr"], **mask
+        )
+        new_cache = dict(cache, ckv=ckv, kr=kr)
+    else:
+        a, (ck, cv) = attn_mod.gqa_decode(
+            p["attn"], x, cfg, cache_k=cache["k"], cache_v=cache["v"], **mask
+        )
+        new_cache = dict(cache, k=ck, v=cv)
+    cf = cfg.moe.decode_capacity_factor if kind in MOE_KINDS else None
+    h, _ = _ffn(kind, p, h + a, cfg, capacity_factor=cf)
+    return h, new_cache

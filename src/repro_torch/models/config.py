@@ -3,11 +3,11 @@
 A ModelConfig describes one architecture: the repeating layer pattern
 (`blocks`, run-length encoded), the attention settings, the FFN and the
 embedding/head layout.  It holds the JAX config's fields that the ported
-blocks read; a later slice adds the fields of what it ports (the MLA,
-MoE, SSM and xLSTM sub-configs, the encoder and cross-attention layout,
-the sharding and training settings), so a config that sets one of them
-before then is refused at construction.  `SHAPES` waits for the dry-run
-(ROADMAP Queue 1 item 9).
+blocks read, with the MLA and MoE sub-configs; a later slice adds the
+fields of what it ports (the SSM and xLSTM sub-configs, the encoder and
+cross-attention layout, the sharding and training settings), so a config
+that sets one of them before then is refused at construction.  `SHAPES`
+waits for the dry-run (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -16,6 +16,32 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 0
+    n_shared: int = 0  # DeepSeek shared experts
+    d_ff_shared: int = 0
+    dense_parallel: bool = False  # Arctic: dense FFN residual in parallel
+    router_style: str = "softmax"  # softmax | sigmoid (dsv3 aux-free)
+    norm_topk: bool = True
+    capacity_factor: float = 1.25
+    decode_capacity_factor: float = 4.0  # generous: decode batches are tiny
+    act: str = "silu"
+    aux_loss_weight: float = 0.01
+    z_loss_weight: float = 1e-3
 
 
 @dataclass(frozen=True)
@@ -47,6 +73,10 @@ class ModelConfig:
     window: int | None = None  # sliding-window attention
     attn_soft_cap: float | None = None
     attn_scale: float | None = None
+
+    # sub-configs
+    mla: MLAConfig | None = None
+    moe: MoEConfig | None = None
 
     # embeddings
     tie_embeddings: bool = False

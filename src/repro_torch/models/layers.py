@@ -124,10 +124,18 @@ def _trunc_normal(shape, *, device, generator) -> torch.Tensor:
 def dense_init(
     shape: tuple[int, ...], *, dtype, device=None, generator=None, scale: float | None = None
 ) -> nn.Parameter:
-    """Truncated-normal (at +-3 std) fan-in init, drawn in f32 and then cast."""
+    """Truncated-normal (at +-3 std) fan-in init, drawn in f32 and then cast.
+    A stack of matrices (the MoE experts, (E, D, F)) is drawn a matrix at a
+    time, so that its f32 draw never exists whole: arctic-480b's 128 experts
+    are 8.9 GB a stack in bf16, 17.8 GB in f32."""
     fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    return _param((_trunc_normal(shape, device=device, generator=generator) * std).to(dtype))
+    if len(shape) <= 2:
+        return _param((_trunc_normal(shape, device=device, generator=generator) * std).to(dtype))
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = _trunc_normal(shape[1:], device=device, generator=generator) * std
+    return _param(out)
 
 
 def embed_init(vocab: int, d: int, *, dtype, device=None, generator=None) -> nn.Parameter:

@@ -6,12 +6,13 @@ embedding, the layers and the head, and the two serving entry points.
 
 `LM` holds the parameters as modules named like the JAX parameter tree,
 with one module per layer where JAX stacks each homogeneous run of layers
-on a leading axis (`convert.from_jax_lm_params` unstacks it).  The KV
-cache keeps JAX's layout: per run of layers, ``k`` and ``v`` of shape
-(L, B, T, G, hd), and the next position ``pos`` (a Python int here).
-`forward` and the loss, and the encoder, context, shared-block and MoE
-branches wait (ROADMAP Queue 1 item 8); so does sharding, since this is
-one card.
+on a leading axis (`convert.from_jax_lm_params` unstacks it).  The cache
+keeps JAX's layout: per run of layers, each entry of a layer's cache
+stacked on a leading axis (``k`` and ``v`` (L, B, T, G, hd); MLA's ``ckv``
+(L, B, T, r_kv) and ``kr`` (L, B, T, rope_dim)), and the next position
+``pos`` (a Python int here).  `forward` and the loss, and the encoder,
+context and shared-block branches wait (ROADMAP Queue 1 item 8); so does
+sharding, since this is one card.
 """
 
 from __future__ import annotations
@@ -100,18 +101,18 @@ def _head(model: LM, h: torch.Tensor) -> torch.Tensor:
 
 def prefill(model: LM, tokens: torch.Tensor, *, mode: str | None = None):
     """tokens (B, S) -> (logits of the last position (B, V), cache).
-    `mode` reaches the attention kernel (``"ref"``: its plain version)."""
+    `mode` reaches the attention kernel (``"ref"``: its plain version).  The
+    MoE metrics are dropped, as JAX's prefill drops them."""
     cfg = model.cfg
     B, S = tokens.shape
     h = _embed(model, tokens)
     cache: dict = {"groups": [], "pos": S}
     for kind, layers in model.groups():
-        ks, vs = [], []
+        entries = []
         for p in layers:
-            h, c = blocks_mod.apply_block(kind, p, h, cfg, mode=mode)
-            ks.append(c["k"])
-            vs.append(c["v"])
-        cache["groups"].append({"k": torch.stack(ks), "v": torch.stack(vs)})
+            h, c, _ = blocks_mod.apply_block(kind, p, h, cfg, mode=mode)
+            entries.append(c)
+        cache["groups"].append({name: torch.stack([c[name] for c in entries]) for name in entries[0]})
     logits = _head(model, h[:, -1:, :])
     return logits[:, 0, :], cache
 
@@ -149,7 +150,7 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
             pos, _group_cache_len(kind, gcache), device=tokens.device
         )
         for li, p in enumerate(layers):
-            c = {"k": gcache["k"][li], "v": gcache["v"][li]}
+            c = {name: t[li] for name, t in gcache.items()}
             h, _ = blocks_mod.apply_block_decode(
                 kind, p, h, cfg, cache=c, pos=pos, kv_pos=kv_pos, kv_valid=kv_valid
             )
@@ -160,6 +161,8 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
 
 def _group_cache_len(kind: str, gcache) -> int:
     blocks_mod.check_kind(kind)
+    if kind in blocks_mod.MLA_KINDS:
+        return gcache["ckv"].shape[2]  # (L, B, T, r_kv)
     return gcache["k"].shape[2]  # (L, B, T, G, hd)
 
 
@@ -169,14 +172,15 @@ def _group_cache_len(kind: str, gcache) -> int:
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, device=None) -> dict:
-    """Zero KV cache in the weights' dtype for `cache_len` positions (a ring
-    of `cfg.window` slots when the arch has a window) on `device`
-    (None = "cuda")."""
+    """Zero cache in the weights' dtype for `cache_len` positions on `device`
+    (None = "cuda"): attention layers keep a ring of `cfg.window` slots when
+    the arch has a window, MLA layers the full length (as JAX's)."""
     dev = resolve_device(device)
     dtype = cfg.param_dtype
-    clen = min(cache_len, cfg.window) if cfg.window else cache_len
+    window_len = min(cache_len, cfg.window) if cfg.window else cache_len
     cache: dict = {"groups": [], "pos": 0}
     for kind, count in cfg.blocks:
+        clen = cache_len if kind in blocks_mod.MLA_KINDS else window_len
         one = blocks_mod.init_block_cache(kind, cfg, batch, clen, dtype, device=dev)
         cache["groups"].append(
             {name: t.new_zeros((count, *t.shape)) for name, t in one.items()}

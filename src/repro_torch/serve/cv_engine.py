@@ -586,13 +586,17 @@ def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
     at slot ``S % T``) the ring holds positions ``S - T + 1 .. S``, exactly
     the window's keys, which `lm.ring_positions(S, T)` names.  A prompt
     longer than buffers that are not the window's ring raises `ValueError`.
+    Every entry of a layer's cache is copied by name (``k`` / ``v``, MLA's
+    ``ckv`` / ``kr``); each has its time axis at 2 (L, B, T, ...).
 
     This departs from JAX's `_adopt_prefill` (`repro.serve.cv_engine`),
     which keeps the zeroed ring when S > T, so that decode attends to zeros
     marked valid: a fault of the reference.  The port is held to JAX's
     `lm.forward` there, not to JAX's `generate`."""
     for buf, pre in zip(cache["groups"], pcache["groups"]):
-        S, T = pre["k"].shape[2], buf["k"].shape[2]
+        if set(buf) != set(pre):
+            raise ValueError(f"prefill cache entries {sorted(pre)} against {sorted(buf)}")
+        S, T = (next(iter(c.values())).shape[2] for c in (pre, buf))
         if S > T != cfg.window:
             raise ValueError(
                 f"a prompt of {S} tokens does not fit a decode cache of {T} slots "

@@ -396,7 +396,7 @@ def _route(**kw):
 def test_attention_routing(kw, path):
     got, out, (q, k, v) = _route(**kw)
     assert got == path
-    assert tattn.kernel_route(q, k, **{n: kw[n] for n in kw if n not in ("causal", "mode", "hq")}) == (
+    assert tattn.kernel_route(q, k, v, **{n: kw[n] for n in kw if n not in ("causal", "mode", "hq")}) == (
         path == "flash"
     )
     if path == "flash" or set(kw) <= {"q_pos", "kv_pos", "kv_valid"}:

@@ -534,9 +534,13 @@ def test_flash_attention_smem_bytes_match_the_library(dev):
     fn = _build.library("flash_attn").flash_attn_smem_bytes
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
-    for hd in (8, 64, 72, 128, 136, 256):
+    for hd in (8, 64, 72, 128, 136, 192, 256):
         for dtype, code in kattn.DTYPES.items():
             assert fn(hd, code) == kattn.smem_bytes(hd, dtype.itemsize), (hd, dtype)
+    # deepseek-v3-671b's MLA head dim: four 64-channel chunks in the 16-bit
+    # body, as at 256; the f32 body's tiles at 192 channels
+    assert fn(192, kattn.DTYPES[torch.bfloat16]) == kattn.smem_bytes(256, 2) == 230_472
+    assert fn(192, kattn.DTYPES[torch.float32]) == 165_376
 
 
 def test_flash_attention_refuses_gqa_and_an_over_budget_tile(dev):
@@ -584,6 +588,68 @@ def test_flash_attention_over_kv_head_groups(dev, H, Hkv, hd, causal, dtype):
     assert torch.equal(got, kattn.flash_attention(q, kr, vr, causal=causal))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("mla", [False, True], ids=["mha", "mla_padded_v"])
+def test_flash_attention_at_head_dim_192(dev, mla, causal, dtype):
+    """deepseek-v3-671b's MLA head dim: q and k of 192 channels; with `mla`,
+    v of 128 channels padded with zeros to 192, as `models.attention.mla_attn`
+    pads it.  Within `AGREE` of the plain version (and, in bf16, within
+    `OFF_PLAIN_SHARE`); with `mla` the padded output channels exactly zero
+    and the first 128 within `AGREE` of the f32 oracle on the unpadded v.
+    S and T lie off the 128-row and 64-key tiles."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(192 + causal + 2 * mla)
+    S, T, H = 333, 333 if causal else 190, 4
+    q, k = (torch.randn((2, n, H, 192), generator=g, device=dev).to(dtype) for n in (S, T))
+    v = torch.randn((2, T, H, 128 if mla else 192), generator=g, device=dev).to(dtype)
+    vk = F.pad(v, (0, 64)) if mla else v
+    counters.reset()
+    got = kattn.flash_attention(q, k, vk, causal=causal)
+    want = kattn.flash_attention(q, k, vk, causal=causal, mode="ref")
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["flash_attention"] == 1
+    rtol, atol = kattn.AGREE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype != torch.float32:
+        assert float((got != want).float().mean()) <= kattn.OFF_PLAIN_SHARE
+    if mla:
+        assert not got[..., 128:].any()
+        oracle = ref.attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(got[..., :128].float(), oracle.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
+def test_reduced_generate_of_each_moe_arch(dev, arch):
+    """One `generate` of reduced arctic-480b (GQA + the MoE FFN beside a
+    dense one) and deepseek-v3-671b (MLA, v padded from 16 to 24 channels,
+    + the MoE FFN with a shared expert): the prefill launches the kernel
+    once a layer, calls no plain version, gives the same tokens twice, and
+    the MLA kinds' prefill equals a `mode="ref"` prefill's argmax but at a
+    counted near-tie."""
+    from repro_torch.models import lm
+
+    cfg = reduced_config(arch)
+    model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=torch.Generator().manual_seed(1))
+    counters.reset()
+    out = cv_engine.generate(model, prompts, steps=5)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 5) and out.device.type == "cuda"
+    assert counters.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert sum(counters.PLAIN_CALLS.values()) == 0
+    assert torch.equal(out, cv_engine.generate(model, prompts, steps=5))
+    with torch.inference_mode():
+        lk, ck = lm.prefill(model, prompts.to(dev))
+        lp, cp = lm.prefill(model, prompts.to(dev), mode="ref")
+    assert [set(g) for g in ck["groups"]] == [set(g) for g in cp["groups"]]
+    diff = float((lk.float() - lp.float()).abs().max())
+    top2 = torch.topk(lp.float(), 2, dim=-1).values
+    off = lk.argmax(-1) != lp.argmax(-1)
+    assert bool(((top2[:, 0] - top2[:, 1])[off] <= diff).all())
+
+
 @pytest.mark.parametrize("prompt_len", [24, 40])
 @pytest.mark.parametrize("arch", ["qwen2-72b", "starcoder2-7b", "h2o-danube-3-4b"])
 def test_reduced_generate_of_each_grouped_arch(dev, arch, prompt_len):
@@ -598,8 +664,8 @@ def test_reduced_generate_of_each_grouped_arch(dev, arch, prompt_len):
     model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (3, prompt_len),
                             generator=torch.Generator().manual_seed(1))
-    routed = kernel_route(torch.zeros((1, prompt_len, cfg.n_heads, cfg.head_dim)),
-                          torch.zeros((1, prompt_len, cfg.n_kv_heads, cfg.head_dim)),
+    kv = torch.zeros((1, prompt_len, cfg.n_kv_heads, cfg.head_dim))
+    routed = kernel_route(torch.zeros((1, prompt_len, cfg.n_heads, cfg.head_dim)), kv, kv,
                           window=cfg.window)
     counters.reset()
     out = cv_engine.generate(model, prompts, steps=5)

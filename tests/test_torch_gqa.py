@@ -97,7 +97,7 @@ def test_flash_attention_refuses_a_kv_head_count_that_does_not_divide(heads):
     with pytest.raises(ValueError, match="KV heads"):
         kattn.flash_attention(q, kv, kv)
     assert counters.PLAIN_CALLS["flash_attention"] == 0
-    assert not tattn.kernel_route(q, kv)
+    assert not tattn.kernel_route(q, kv, kv)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +169,7 @@ def _routed(S, T, H, G, hd, **kw):
     counters.reset()
     out = tattn.attention(q, k, v, **kw)
     route = "flash" if counters.PLAIN_CALLS["flash_attention"] else "other"
-    assert tattn.kernel_route(q, k, **{n: x for n, x in kw.items() if n not in ("causal", "chunk")}) == (
+    assert tattn.kernel_route(q, k, v, **{n: x for n, x in kw.items() if n not in ("causal", "chunk")}) == (
         route == "flash"
     )
     return route, out, (q, k, v)
@@ -297,9 +297,9 @@ def test_prefill_and_decode_match_jax_forward_f32(arch):
     full, _ = jlm.forward(params, cfg_j, {"tokens": jnp.asarray(toks)})
     counters.reset()
     lt, pcache = tlm.prefill(model, torch.from_numpy(toks[:, :S]))
+    kv = torch.zeros((1, S, cfg.n_kv_heads, cfg.head_dim))
     routed = tattn.kernel_route(
-        torch.zeros((1, S, cfg.n_heads, cfg.head_dim)),
-        torch.zeros((1, S, cfg.n_kv_heads, cfg.head_dim)), window=cfg.window)
+        torch.zeros((1, S, cfg.n_heads, cfg.head_dim)), kv, kv, window=cfg.window)
     assert counters.PLAIN_CALLS["flash_attention"] == (cfg.n_layers if routed else 0)
     assert float(np.max(np.abs(lt.numpy() - np.asarray(full[:, S - 1])))) < 2e-3
     assert pcache["groups"][0]["k"].shape == (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)

@@ -19,14 +19,18 @@ Tolerances, with their reasons:
   * layers: f32 within 1e-6 (rtol and atol), the embedding exactly.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
+from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced_config
 from repro.launch.mesh import make_host_mesh
+from repro.models import config as jconfig
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro.serve import cv_engine as jengine
@@ -36,6 +40,7 @@ from repro_torch.convert import from_jax_lm_params
 from repro_torch.kernels import counters
 from repro_torch.launch import serve as tserve
 from repro_torch.models import blocks as tblocks
+from repro_torch.models import config as tconfig
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models.lm import LM
@@ -66,21 +71,49 @@ def test_reduced_config_matches_jax_and_full_width_is_published():
         "qwen2-72b": (80, 8192, 64, 8, 128, 29568, 152064),
         "starcoder2-7b": (32, 4608, 36, 4, 128, 18432, 49152),
         "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000),
+        "arctic-480b": (35, 7168, 56, 8, 128, 4864, 32000),
+        "deepseek-v3-671b": (61, 7168, 128, 128, 128, 18432, 129280),
     }
     assert ARCHS == list(published)
     for arch, widths in published.items():
         for name in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size", "blocks",
                      "window"):
             assert getattr(reduced_config(arch), name) == getattr(jax_reduced_config(arch), name)
+        for name in ("moe", "mla"):
+            assert _fields(getattr(reduced_config(arch), name)) == _fields(
+                getattr(jax_reduced_config(arch), name))
         full = get_config(arch)
         assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
                 full.d_ff, full.vocab_size) == widths, arch
         assert full.param_dtype == torch.bfloat16
 
 
+def _fields(sub_config):
+    return None if sub_config is None else dataclasses.asdict(sub_config)
+
+
+def _assert_published(arch):
+    """Every field the port's config holds is JAX's, at full width and reduced."""
+    for port, ref in ((get_config(arch), jax_get_config(arch)),
+                      (reduced_config(arch), jax_reduced_config(arch))):
+        for f in dataclasses.fields(port):
+            want = getattr(ref, f.name)
+            got = getattr(port, f.name)
+            if f.name in ("moe", "mla"):
+                got, want = _fields(got), _fields(want)
+            assert got == want, (arch, f.name)
+
+
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "arctic-480b", "deepseek-v3-671b", "xlstm-125m"])
 def test_registry_raises_on_an_unported_arch(arch):
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 8, step [4-7]"):
+    if arch in ARCHS:
+        # arctic-480b and deepseek-v3-671b are ported (Queue 1 item 8 steps 4-5):
+        # their published and reduced configs are JAX's
+        _assert_published(arch)
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_config("no-such-arch")
+        return
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 8, step [6-7]"):
         get_config(arch)
     with pytest.raises(KeyError, match="ROADMAP"):
         reduced_config(arch)
@@ -94,14 +127,39 @@ def test_registry_raises_on_an_unported_arch(arch):
      ("cross_attn_layers", (1,)), ("shared_attn_every", 2), ("fsdp", True)],
 )
 def test_config_refuses_a_field_of_an_unported_part(field, value):
-    # the JAX config's fields for MoE, MLA, SSM, enc-dec, cross-attention,
-    # shared blocks and sharding join with the slice that reads them
+    # the JAX config's fields for SSM, enc-dec, cross-attention, shared
+    # blocks and sharding join with the slice that reads them
+    if field in ("moe", "mla"):
+        # ported (Queue 1 item 8 steps 4-5): the sub-config equals JAX's
+        # field for field, by default and in each arch that sets it
+        port_cls = {"moe": tconfig.MoEConfig, "mla": tconfig.MLAConfig}[field]
+        jax_cls = {"moe": jconfig.MoEConfig, "mla": jconfig.MLAConfig}[field]
+        assert _fields(port_cls()) == _fields(jax_cls())
+        for arch in ("arctic-480b", "deepseek-v3-671b"):
+            assert _fields(getattr(get_config(arch), field)) == _fields(
+                getattr(jax_get_config(arch), field))
+        return
     with pytest.raises(TypeError):
         reduced_config("gemma-7b").replace(**{field: value})
 
 
 @pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "xattn", "dec"])
 def test_unported_block_kinds_raise(kind):
+    if kind in ("moe", "mla"):
+        # ported (Queue 1 item 8 steps 4-5): a model of two such layers builds,
+        # prefills and decodes, with its kind's cache entries
+        arch = {"moe": "arctic-480b", "mla": "deepseek-v3-671b"}[kind]
+        cfg = reduced_config(arch).replace(blocks=((kind, 2),), dtype="float32")
+        model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        toks = torch.from_numpy(_tokens(cfg, 0, 10))
+        lg, pc = tlm.prefill(model, toks)
+        assert lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all())
+        names = {"moe": {"k", "v"}, "mla": {"ckv", "kr"}}[kind]
+        assert set(pc["groups"][0]) == names
+        cache = tengine._adopt_prefill(tlm.init_cache(cfg, B, 12, device="cpu"), pc, cfg)
+        lg, cache = tlm.decode_step(model, toks[:, :1], cache)
+        assert lg.shape == (B, cfg.vocab_size) and cache["pos"] == 11
+        return
     cfg = reduced_config("gemma-7b").replace(blocks=((kind, 2),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(cfg, device="cpu")
