@@ -13,8 +13,15 @@ each:
 
   * the host wall time (work ending in a synchronise) and the summed
     kernel time, whose ratio is the device busy share;
-  * the device time by kernel name, `flash_attention`'s kernel first.
+  * the device time by kernel name, `flash_attention`'s kernel first;
+  * the host and device time of named spans (`SPANS`): each block kind's
+    apply and, inside them, the Mamba2 in_proj GEMM, causal conv and SSD
+    scan, the mLSTM chunkwise cell and step, the sLSTM scan (a Python loop
+    of small launches) and the attention call.  Spans nest: a block's span
+    holds its parts', and what a block's span holds beyond its parts is
+    the rest of the block (out_proj, the norms, the gates).
 
+zamba2-2.7b and xlstm-125m run at full depth (``--layers`` not needed).
 Needs a CUDA device; writes the same report to
 ``chiprun_out/torch_lm_profile_<arch>.json``.
 """
@@ -22,6 +29,7 @@ Needs a CUDA device; writes the same report to
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import sys
@@ -30,12 +38,78 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OWN_KERNELS = ("flash_attn_wgmma_kernel", "flash_attn_simt_kernel")
+# (module, function) wrapped in a `record_function` span of that name while
+# tracing; each is looked up as a module global by its callers
+SPANS = (
+    ("blocks", "apply_block"),
+    ("blocks", "apply_block_decode"),
+    ("ssm", "_split_in_proj"),
+    ("ssm", "_causal_conv"),
+    ("ssm", "conv_step"),
+    ("ssm", "ssd_scan"),
+    ("xlstm", "mlstm_chunkwise"),
+    ("xlstm", "mlstm_step"),
+    ("xlstm", "slstm_scan"),
+    ("attention", "attention"),
+)
+
+
+def _spans(torch, modules: dict) -> None:
+    """Wrap each `SPANS` function in a span; a block's span is named by its
+    kind (``apply_block mamba``)."""
+    from torch.profiler import record_function
+
+    for mod_name, fn_name in SPANS:
+        mod = modules[mod_name]
+        fn = getattr(mod, fn_name)
+
+        def wrapped(*a, _fn=fn, _name=f"{mod_name}.{fn_name}", **k):
+            name = f"{_name} {a[0]}" if _name.startswith("blocks.") else _name
+            with record_function(name):
+                return _fn(*a, **k)
+
+        setattr(mod, fn_name, wrapped)
+
+
+def _by_span(prof, torch) -> dict:
+    """Each span's host time (its host-side ranges, summed), the device time
+    of the kernels inside its device-side ranges (first kernel's start to
+    last kernel's end), summed, so idle gaps are left out, and those
+    ranges' length."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == cuda and not _is_span(e.name))
+    starts = [k[0] for k in kernels]
+    out = {}
+    for e in events:
+        if not _is_span(e.name):
+            continue
+        row = out.setdefault(e.name, {"host_us": 0.0, "kernel_us": 0.0, "device_span_us": 0.0,
+                                      "calls": 0})
+        a, b = e.time_range.start, e.time_range.end
+        if e.device_type != cuda:
+            row["host_us"] += b - a
+            row["calls"] += 1
+            continue
+        row["device_span_us"] += b - a
+        i = bisect.bisect_left(starts, a)
+        while i < len(kernels) and kernels[i][0] < b:
+            row["kernel_us"] += min(kernels[i][1], b) - kernels[i][0]
+            i += 1
+    return out
+
+
+def _is_span(key: str) -> bool:
+    return key.split(" ")[0] in {f"{m}.{f}" for m, f in SPANS}
 
 
 def _by_kernel(prof, torch) -> dict:
+    """Device time and calls by kernel name (the spans' device-side
+    annotations left out)."""
     out = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or _is_span(e.key):
             continue
         t = getattr(e, "self_device_time_total", None)
         if t is None:
@@ -64,7 +138,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.models import lm
+    from repro_torch.models import attention, blocks, lm, ssm, xlstm
     from repro_torch.serve import cv_engine
 
     card = subprocess.run(
@@ -92,6 +166,7 @@ def main() -> int:
               "requests": args.requests, "prompt_len": args.prompt_len,
               "decode_steps": steps, "phases": {}}
     print(f"card: {card}")
+    _spans(torch, {"blocks": blocks, "ssm": ssm, "xlstm": xlstm, "attention": attention})
     with torch.inference_mode():
         for phase in ("prefill", "decode"):
             if phase == "decode":
@@ -128,7 +203,15 @@ def main() -> int:
             print(f"{'device us':>12} {'calls':>7}  kernel")
             for name, (t, n) in rows[:15]:
                 print(f"{t:12.1f} {n:7d}  {name[:110]}")
+            spans = _by_span(prof, torch)
+            print(f"{'host us':>12} {'kernel us':>12} {'span us':>12} {'calls':>7}  span "
+                  "(spans nest; kernel us: the kernels inside its device-side range, summed; "
+                  "span us: that range, first kernel's start to last kernel's end)")
+            for name, v in sorted(spans.items(), key=lambda kv: -kv[1]["host_us"]):
+                print(f"{v['host_us']:12.1f} {v['kernel_us']:12.1f} {v['device_span_us']:12.1f} "
+                      f"{v['calls']:7d}  {name}")
             report["phases"][phase] = {
+                "spans": spans,
                 "wall_us": wall_us,
                 "kernel_us": busy_us,
                 "device_busy_share": busy_us / wall_us,

@@ -19,6 +19,8 @@ ARCHS = [
     "h2o-danube-3-4b",
     "arctic-480b",
     "deepseek-v3-671b",
+    "zamba2-2.7b",
+    "xlstm-125m",
 ]
 
 _MODULES = {
@@ -28,12 +30,12 @@ _MODULES = {
     "h2o-danube-3-4b": "h2o_danube3_4b",
     "arctic-480b": "arctic_480b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 # arch -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
 _QUEUED = {
-    "zamba2-2.7b": "step 6 (Mamba2 and xLSTM)",
-    "xlstm-125m": "step 6 (Mamba2 and xLSTM)",
     "llama-3.2-vision-11b": "step 7 (cross-attention and enc-dec)",
     "seamless-m4t-large-v2": "step 7 (cross-attention and enc-dec)",
 }

@@ -89,15 +89,19 @@ def from_jax_lm_params(params: dict, cfg, *, device=None) -> LM:
     exact.  Nested trees carry over by their dotted paths: the MoE FFN's
     (L, E, D, F) expert stacks, ``router``, ``router_bias``, ``shared.*``,
     Arctic's ``dense_mlp.*`` and ``ln_dense.*``, MLA's ``q_norm.scale`` and
-    ``kv_norm.scale``.  The tree must name exactly the model's parameters."""
+    ``kv_norm.scale``, the state kinds' ``mixer.*`` and ``cell.*`` (with
+    ``cell.ffn.*`` and the sLSTM's (L, 4, NH, DH, DH) ``cell.r_gates``), and
+    Zamba's ``shared_block.*``, which JAX does not stack.  The tree must
+    name exactly the model's parameters."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta").to_empty(device=dev)
     flat = {}
     for name in ("embed", "lm_head"):
         if name in params:
             flat[name] = params[name]
-    for path, arr in _leaves(params["final_norm"], "final_norm."):
-        flat[path] = arr
+    for name in ("final_norm", "shared_block"):  # not stacked
+        if name in params:
+            flat.update(_leaves(params[name], f"{name}."))
     first = 0
     for (kind, count), group in zip(cfg.blocks, params["groups"], strict=True):
         for path, arr in _leaves(group):

@@ -5,11 +5,14 @@
         --requests 8 --prompt-len 1024 --gen-len 32 [--device cuda] [--seed 0]
 
 ``--arch`` takes each ported arch (`configs.ARCHS`: gemma-7b, qwen2-72b,
-starcoder2-7b, h2o-danube-3-4b, arctic-480b, deepseek-v3-671b).  ``--layers
-N`` keeps the first N layers of the published config, across runs of block
-kinds: qwen2-72b's 80 (~145 GB of bf16 weights) do not fit one 80 GB card,
-nor arctic-480b's 35 (~27.2 GB a layer; 2 fit) or deepseek-v3-671b's 61 (4,
-3 dense MLA and 1 MLA-MoE, are ~30 GB).
+starcoder2-7b, h2o-danube-3-4b, arctic-480b, deepseek-v3-671b, zamba2-2.7b,
+xlstm-125m).  ``--layers N`` keeps the first N layers of the published
+config, across runs of block kinds: qwen2-72b's 80 (~145 GB of bf16
+weights) do not fit one 80 GB card, nor arctic-480b's 35 (~27.2 GB a layer;
+2 fit) or deepseek-v3-671b's 61 (4, 3 dense MLA and 1 MLA-MoE, are ~30 GB).
+zamba2-2.7b (~4.8 GB) and xlstm-125m (~0.3 GB) need no ``--layers``; a
+zamba2-2.7b prompt past its shared block's 4096-slot ring raises
+`ValueError`.
 
 Parameters come from the model's own seeded init (no weights are
 downloaded or needed); prompts from ``np.random.default_rng(seed)``.  The

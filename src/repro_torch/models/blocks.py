@@ -7,32 +7,58 @@ Ported kinds:
             with its own ``ln_dense`` norm: Arctic)
   mla       MLA attention + dense MLP            (DeepSeek dense layers)
   mla_moe   MLA attention + MoE FFN              (DeepSeek MoE layers)
+  mamba     Mamba2 mixer                          (Zamba2 backbone)
+  mlstm     xLSTM mLSTM block
+  slstm     xLSTM sLSTM block
 
 A layer's cache entry is ``{"k", "v"}`` (B, T, G, hd) for attention and
-``{"ckv", "kr"}`` (B, T, r_kv) / (B, T, rope_dim) for MLA; the time axis
-is 1 in both.  Every other kind of the JAX package raises
-`NotImplementedError` naming the step of ROADMAP Queue 1 item 8 that ports
-it.
+``{"ckv", "kr"}`` (B, T, r_kv) / (B, T, rope_dim) for MLA, the time axis 1
+in both.  The state kinds (`STATE_KINDS`: ``ln1`` and their mixer or cell,
+no MLP) keep their f32 state by name, with no time axis: ``mamba``
+``{"ssm", "conv"}``, ``mlstm`` ``{"C", "n", "m", "conv"}``, ``slstm``
+``{"c", "n", "h", "m"}``.  Decode writes every entry in place.  Every other
+kind of the JAX package raises `NotImplementedError` naming the step of
+ROADMAP Queue 1 item 8 that ports it.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
-PORTED = ("attn", "moe", "mla", "mla_moe")
+PORTED = ("attn", "moe", "mla", "mla_moe", "mamba", "mlstm", "slstm")
 MLA_KINDS = ("mla", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
+STATE_KINDS = ("mamba", "mlstm", "slstm")
+
+
+class _StateKind(NamedTuple):
+    module: str  # the block's sub-module beside ``ln1``
+    init: Callable
+    apply: Callable  # full sequence -> (y, final state)
+    decode: Callable  # one token against a state -> (y, new state)
+    init_state: Callable
+
+
+_STATE = {
+    "mamba": _StateKind("mixer", ssm_mod.init_mamba2, ssm_mod.mamba2_mixer,
+                        ssm_mod.mamba2_decode, ssm_mod.init_mamba2_state),
+    "mlstm": _StateKind("cell", xlstm_mod.init_mlstm_block, xlstm_mod.mlstm_block,
+                        xlstm_mod.mlstm_block_decode, xlstm_mod.init_mlstm_state),
+    "slstm": _StateKind("cell", xlstm_mod.init_slstm_block, xlstm_mod.slstm_block,
+                        xlstm_mod.slstm_block_decode, xlstm_mod.init_slstm_state),
+}
 
 # kind -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
 _QUEUED = {
-    "mamba": "step 6 (Mamba2 and xLSTM)",
-    "mlstm": "step 6 (Mamba2 and xLSTM)",
-    "slstm": "step 6 (Mamba2 and xLSTM)",
     "xattn": "step 7 (cross-attention and enc-dec)",
     "enc": "step 7 (cross-attention and enc-dec)",
     "dec": "step 7 (cross-attention and enc-dec)",
@@ -64,6 +90,9 @@ def init_block(kind: str, cfg, *, device=None, generator=None) -> nn.ModuleDict:
     def mlp():
         return init_mlp(d, cfg.d_ff, style=cfg.mlp_style, dtype=cfg.param_dtype, **init)
 
+    if kind in STATE_KINDS:
+        sk = _STATE[kind]
+        return nn.ModuleDict({"ln1": nrm(), sk.module: sk.init(cfg, **init)})
     attn = attn_mod.init_mla(cfg, **init) if kind in MLA_KINDS else attn_mod.init_gqa(cfg, **init)
     p = {"ln1": nrm(), "attn": attn, "ln2": nrm()}
     if kind in MOE_KINDS:
@@ -96,6 +125,10 @@ def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, mode: str
     ``arange(S)``; `mode` reaches the attention kernel."""
     check_kind(kind)
     x = apply_norm(h, p["ln1"], **_norm(cfg))
+    if kind in STATE_KINDS:
+        sk = _STATE[kind]
+        y, fin = sk.apply(p[sk.module], x, cfg)
+        return h + y, fin, {}
     if kind in MLA_KINDS:
         a, (ckv, kr) = attn_mod.mla_attn(p["attn"], x, cfg, positions=positions, mode=mode)
         cache = {"ckv": ckv, "kr": kr}
@@ -109,8 +142,11 @@ def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, mode: str
 def init_block_cache(
     kind: str, cfg, batch: int, cache_len: int, dtype, *, device=None
 ) -> dict[str, torch.Tensor]:
-    """Zero cache entry for one layer of `kind`."""
+    """Zero cache entry for one layer of `kind`: a state kind's is f32 and
+    has no time axis, whatever `dtype` and `cache_len` (as JAX's)."""
     check_kind(kind)
+    if kind in STATE_KINDS:
+        return _STATE[kind].init_state(cfg, batch, device=device)
     z = dict(dtype=dtype, device=device)
     if kind in MLA_KINDS:
         m = cfg.mla
@@ -124,10 +160,17 @@ def init_block_cache(
 
 def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, kv_pos, kv_valid):
     """One-token apply -> (h, cache entry), the entry's tensors written in
-    place (`attention.gqa_decode`, `attention.mla_decode`).  The MoE FFN
-    runs at ``decode_capacity_factor``, as in JAX."""
+    place (`attention.gqa_decode`, `attention.mla_decode`; a state kind's
+    new state copied into its entry).  The MoE FFN runs at
+    ``decode_capacity_factor``, as in JAX."""
     check_kind(kind)
     x = apply_norm(h, p["ln1"], **_norm(cfg))
+    if kind in STATE_KINDS:
+        sk = _STATE[kind]
+        y, new = sk.decode(p[sk.module], x, cfg, state=cache)
+        for entry, t in new.items():
+            cache[entry].copy_(t)
+        return h + y, cache
     mask = dict(pos=pos, kv_pos=kv_pos, kv_valid=kv_valid)
     if kind in MLA_KINDS:
         a, (ckv, kr) = attn_mod.mla_decode(

@@ -3,11 +3,11 @@
 A ModelConfig describes one architecture: the repeating layer pattern
 (`blocks`, run-length encoded), the attention settings, the FFN and the
 embedding/head layout.  It holds the JAX config's fields that the ported
-blocks read, with the MLA and MoE sub-configs; a later slice adds the
-fields of what it ports (the SSM and xLSTM sub-configs, the encoder and
-cross-attention layout, the sharding and training settings), so a config
-that sets one of them before then is refused at construction.  `SHAPES`
-waits for the dry-run (ROADMAP Queue 1 item 9).
+blocks read: the MLA, MoE, SSM (Mamba2) and xLSTM sub-configs and Zamba's
+``shared_attn_every``.  A later slice adds the fields of what it ports (the
+encoder and cross-attention layout, the sharding and training settings),
+so a config that sets one of them before then is refused at construction.
+`SHAPES` waits for the dry-run (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -45,6 +45,29 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_inner: int = 0
+    d_state: int = 64
+    d_conv: int = 4
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    n_heads: int = 4
+    d_inner_m: int = 0  # mLSTM inner dim (proj_factor * d)
+    d_conv: int = 4
+    chunk: int = 256
+    slstm_layers: tuple[int, ...] = ()  # layer indices that use sLSTM
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     n_layers: int
@@ -77,6 +100,11 @@ class ModelConfig:
     # sub-configs
     mla: MLAConfig | None = None
     moe: MoEConfig | None = None
+    ssm: SSMConfig | None = None
+    xlstm: XLSTMConfig | None = None
+
+    # zamba-style shared transformer block, applied after every run of blocks
+    shared_attn_every: int = 0
 
     # embeddings
     tie_embeddings: bool = False

@@ -9,10 +9,14 @@ with one module per layer where JAX stacks each homogeneous run of layers
 on a leading axis (`convert.from_jax_lm_params` unstacks it).  The cache
 keeps JAX's layout: per run of layers, each entry of a layer's cache
 stacked on a leading axis (``k`` and ``v`` (L, B, T, G, hd); MLA's ``ckv``
-(L, B, T, r_kv) and ``kr`` (L, B, T, rope_dim)), and the next position
-``pos`` (a Python int here).  `forward` and the loss, and the encoder,
-context and shared-block branches wait (ROADMAP Queue 1 item 8); so does
-sharding, since this is one card.
+(L, B, T, r_kv) and ``kr`` (L, B, T, rope_dim); a state kind's f32 state,
+e.g. Mamba2's ``ssm`` (L, B, H, N, P) and ``conv`` (L, B, K - 1, C)); under
+``shared``, one ``{"k", "v"}`` (B, T, G, hd) entry for each application
+of Zamba's shared block; and the next position ``pos`` (a Python int
+here).  With ``cfg.shared_attn_every`` set, `LM.shared_block` (one
+``"attn"`` block) runs after every run of `cfg.blocks`, as in JAX.
+`forward` and the loss, and the encoder and context branches wait
+(ROADMAP Queue 1 item 8); so does sharding, since this is one card.
 """
 
 from __future__ import annotations
@@ -25,6 +29,10 @@ from torch import nn
 from ..core.device import resolve_device
 from . import blocks as blocks_mod
 from .layers import apply_norm, dense_init, embed_init, init_norm
+
+# slots of each shared-block application's KV ring (JAX `lm.init_cache`:
+# a windowed cache, DESIGN §4 of the JAX package)
+SHARED_ATTN_SLOTS = 4096
 
 
 def _model_device(device) -> torch.device:
@@ -56,6 +64,8 @@ class LM(nn.Module):
             self.lm_head = dense_init(
                 (cfg.d_model, cfg.vocab_size), dtype=cfg.param_dtype, scale=0.02, **init
             )
+        if cfg.shared_attn_every:
+            self.shared_block = blocks_mod.init_block("attn", cfg, **init)
 
     @property
     def device(self) -> torch.device:
@@ -106,13 +116,17 @@ def prefill(model: LM, tokens: torch.Tensor, *, mode: str | None = None):
     cfg = model.cfg
     B, S = tokens.shape
     h = _embed(model, tokens)
-    cache: dict = {"groups": [], "pos": S}
+    cache: dict = {"groups": [], "shared": [], "pos": S}
     for kind, layers in model.groups():
         entries = []
         for p in layers:
             h, c, _ = blocks_mod.apply_block(kind, p, h, cfg, mode=mode)
             entries.append(c)
         cache["groups"].append({name: torch.stack([c[name] for c in entries]) for name in entries[0]})
+        del entries
+        if cfg.shared_attn_every:
+            h, c, _ = blocks_mod.apply_block("attn", model.shared_block, h, cfg, mode=mode)
+            cache["shared"].append(c)
     logits = _head(model, h[:, -1:, :])
     return logits[:, 0, :], cache
 
@@ -144,23 +158,31 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
     cfg = model.cfg
     pos = cache["pos"]
     h = _embed(model, tokens)
-    new_cache: dict = {"groups": [], "pos": pos + 1}
-    for (kind, layers), gcache in zip(model.groups(), cache["groups"]):
-        kv_pos, kv_valid = ring_positions(
-            pos, _group_cache_len(kind, gcache), device=tokens.device
+    for gi, ((kind, layers), gcache) in enumerate(zip(model.groups(), cache["groups"])):
+        cache_len = _group_cache_len(kind, gcache)
+        kv_pos, kv_valid = (
+            ring_positions(pos, cache_len, device=tokens.device) if cache_len else (None, None)
         )
         for li, p in enumerate(layers):
             c = {name: t[li] for name, t in gcache.items()}
             h, _ = blocks_mod.apply_block_decode(
                 kind, p, h, cfg, cache=c, pos=pos, kv_pos=kv_pos, kv_valid=kv_valid
             )
-        new_cache["groups"].append(gcache)
+        if cfg.shared_attn_every:
+            sc = cache["shared"][gi]
+            sp, sv = ring_positions(pos, sc["k"].shape[1], device=tokens.device)
+            h, _ = blocks_mod.apply_block_decode(
+                "attn", model.shared_block, h, cfg, cache=sc, pos=pos, kv_pos=sp, kv_valid=sv
+            )
     logits = _head(model, h)
-    return logits[:, 0, :], new_cache
+    return logits[:, 0, :], dict(cache, pos=pos + 1)
 
 
-def _group_cache_len(kind: str, gcache) -> int:
+def _group_cache_len(kind: str, gcache) -> int | None:
+    """Ring slots of a run's cache; None for a state kind (no time axis)."""
     blocks_mod.check_kind(kind)
+    if kind in blocks_mod.STATE_KINDS:
+        return None
     if kind in blocks_mod.MLA_KINDS:
         return gcache["ckv"].shape[2]  # (L, B, T, r_kv)
     return gcache["k"].shape[2]  # (L, B, T, G, hd)
@@ -174,15 +196,23 @@ def _group_cache_len(kind: str, gcache) -> int:
 def init_cache(cfg, batch: int, cache_len: int, *, device=None) -> dict:
     """Zero cache in the weights' dtype for `cache_len` positions on `device`
     (None = "cuda"): attention layers keep a ring of `cfg.window` slots when
-    the arch has a window, MLA layers the full length (as JAX's)."""
+    the arch has a window, MLA layers the full length, each application of
+    the shared block a ring of ``min(cache_len, SHARED_ATTN_SLOTS)`` slots,
+    and the state kinds their f32 state (as JAX's)."""
     dev = resolve_device(device)
     dtype = cfg.param_dtype
     window_len = min(cache_len, cfg.window) if cfg.window else cache_len
-    cache: dict = {"groups": [], "pos": 0}
+    cache: dict = {"groups": [], "shared": [], "pos": 0}
     for kind, count in cfg.blocks:
         clen = cache_len if kind in blocks_mod.MLA_KINDS else window_len
         one = blocks_mod.init_block_cache(kind, cfg, batch, clen, dtype, device=dev)
         cache["groups"].append(
-            {name: t.new_zeros((count, *t.shape)) for name, t in one.items()}
+            {name: t.new_empty((count, *t.shape)).copy_(t) for name, t in one.items()}
         )
+    if cfg.shared_attn_every:
+        shared_len = min(cache_len, SHARED_ATTN_SLOTS)
+        cache["shared"] = [
+            blocks_mod.init_block_cache("attn", cfg, batch, shared_len, dtype, device=dev)
+            for _ in cfg.blocks
+        ]
     return cache

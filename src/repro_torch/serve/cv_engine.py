@@ -75,6 +75,7 @@ from ..cv.config import _UNSET, PipelineConfig, resolve_config
 from ..kernels.stencil import PlanOverBudget
 from ..kernels.stencil.ladder import DEGRADATION_LADDER
 from ..models import lm
+from ..models.blocks import STATE_KINDS
 from ..train.fault import StragglerWatchdog
 from .shard_dispatch import KERNEL_LADDER, ShardDispatcher, check_ladder
 
@@ -555,7 +556,9 @@ def generate(
 ) -> torch.Tensor:
     """Greedy generation: prefill the (B, S) prompts, then decode; returns
     the (B, steps) int32 tokens.  Runs on `device` (None = "cuda"), where
-    the model must lie; `mode` reaches the attention kernel of the prefill."""
+    the model must lie; `mode` reaches the attention kernel of the prefill.
+    A prompt that the decode buffers cannot hold (`check_prompt_fits`)
+    raises `ValueError` before anything runs."""
     dev = resolve_device(device)
     here = model.device
     if here.type != dev.type or (dev.index is not None and here.index != dev.index):
@@ -565,10 +568,12 @@ def generate(
         prompt = torch.as_tensor(prompt_tokens, device=dev)
         B, S = prompt.shape
         cache_len = cache_len or (S + steps)
+        cache = lm.init_cache(cfg, B, cache_len, device=dev)
+        check_prompt_fits(cache, S, cfg)
         decode = make_decode_step()
         tok, pcache = make_prefill_step(mode=mode)(model, prompt)
-        # re-home the prefill cache into fixed-size decode buffers
-        cache = _adopt_prefill(lm.init_cache(cfg, B, cache_len, device=dev), pcache, cfg)
+        # re-home the prefill cache into the fixed-size decode buffers
+        cache = _adopt_prefill(cache, pcache, cfg)
         del pcache
         out = [tok]
         for _ in range(steps - 1):
@@ -577,38 +582,81 @@ def generate(
         return torch.stack(out, dim=1)
 
 
-def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
-    """Copy the prefill KV (S positions) into the decode buffers (T slots),
-    in place.  With S <= T position p goes to slot p.  A sliding-window
-    arch's buffers are a ring of ``T = min(cache_len, window)`` slots
-    (`lm.init_cache`): when S > T, the last T positions ``S - T .. S - 1``
-    go to slots ``p % T``, so that after decode's first write (position S
-    at slot ``S % T``) the ring holds positions ``S - T + 1 .. S``, exactly
-    the window's keys, which `lm.ring_positions(S, T)` names.  A prompt
-    longer than buffers that are not the window's ring raises `ValueError`.
-    Every entry of a layer's cache is copied by name (``k`` / ``v``, MLA's
-    ``ckv`` / ``kr``); each has its time axis at 2 (L, B, T, ...).
+def _slots(entry: dict, axis: int) -> int:
+    return next(iter(entry.values())).shape[axis]
 
-    This departs from JAX's `_adopt_prefill` (`repro.serve.cv_engine`),
-    which keeps the zeroed ring when S > T, so that decode attends to zeros
-    marked valid: a fault of the reference.  The port is held to JAX's
-    `lm.forward` there, not to JAX's `generate`."""
-    for buf, pre in zip(cache["groups"], pcache["groups"]):
-        if set(buf) != set(pre):
-            raise ValueError(f"prefill cache entries {sorted(pre)} against {sorted(buf)}")
-        S, T = (next(iter(c.values())).shape[2] for c in (pre, buf))
-        if S > T != cfg.window:
+
+def check_prompt_fits(cache: dict, S: int, cfg) -> None:
+    """Raise `ValueError` unless the decode buffers of `cache` can adopt a
+    prompt of `S` tokens: every attention run's buffer holds S slots or is
+    the window's ring, and every shared-block application's ring holds S
+    slots.  The state kinds hold any prompt."""
+    for (kind, _), buf in zip(cfg.blocks, cache["groups"]):
+        if kind not in STATE_KINDS and S > _slots(buf, 2) != cfg.window:
             raise ValueError(
-                f"a prompt of {S} tokens does not fit a decode cache of {T} slots "
+                f"a prompt of {S} tokens does not fit a decode cache of {_slots(buf, 2)} slots "
                 f"(window {cfg.window})"
             )
-        for name in buf:
-            src = pre[name][:, :, max(0, S - T) :].to(buf[name].dtype)
-            if S <= T:
-                buf[name][:, :, :S] = src
-            else:
-                slots = torch.arange(S - T, S, device=src.device) % T
-                buf[name][:, :, slots] = src
+    for buf in cache.get("shared", []):
+        if S > _slots(buf, 1):
+            raise ValueError(
+                f"a prompt of {S} tokens does not fit the shared block's ring of "
+                f"{_slots(buf, 1)} slots"
+            )
+
+
+def _put_positions(buf: dict, pre: dict, axis: int) -> None:
+    """Copy each prefill entry's S positions (at `axis`) into its buffer's T
+    slots: position p to slot p when S <= T, else the last T positions to
+    slots ``p % T``."""
+    for name, dst in buf.items():
+        S, T = pre[name].shape[axis], dst.shape[axis]
+        src = pre[name].narrow(axis, max(0, S - T), min(S, T)).to(dst.dtype)
+        if S <= T:
+            dst.narrow(axis, 0, S).copy_(src)
+        else:
+            dst.index_copy_(axis, torch.arange(S - T, S, device=src.device) % T, src)
+
+
+def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
+    """Copy the prefill cache into the decode buffers, in place, entry by
+    entry by name.
+
+    Attention and MLA runs: the prefill KV (S positions) goes into the
+    decode buffers (T slots), time axis 2 (L, B, T, ...).  With S <= T
+    position p goes to slot p.  A sliding-window arch's buffers are a ring
+    of ``T = min(cache_len, window)`` slots (`lm.init_cache`): when S > T,
+    the last T positions ``S - T .. S - 1`` go to slots ``p % T``, so that
+    after decode's first write (position S at slot ``S % T``) the ring
+    holds positions ``S - T + 1 .. S``, exactly the window's keys, which
+    `lm.ring_positions(S, T)` names.  The state kinds' entries (no time
+    axis) are copied whole.  Each shared-block application's ``k`` / ``v``
+    (time axis 1) go to its ring as a full cache's.  A prompt that does not
+    fit (`check_prompt_fits`) raises `ValueError`.
+
+    This departs from JAX's `_adopt_prefill` (`repro.serve.cv_engine`) in
+    three ways, each where JAX keeps a zeroed buffer: a sliding-window ring
+    when S > T, where JAX's decode attends to zeros marked valid; a shared
+    ring shorter than the prompt, which raises here; and a state entry
+    whose shape differs, which the port's prefill never makes (its conv
+    tail is always K - 1 rows, `models.ssm.conv_tail`).  The port is held
+    to JAX's `lm.forward` there, not to JAX's `generate`."""
+    check_prompt_fits(cache, pcache["pos"], cfg)
+    for (kind, _), buf, pre in zip(cfg.blocks, cache["groups"], pcache["groups"], strict=True):
+        if set(buf) != set(pre):
+            raise ValueError(f"prefill cache entries {sorted(pre)} against {sorted(buf)}")
+        if kind not in STATE_KINDS:
+            _put_positions(buf, pre, axis=2)
+            continue
+        for name, dst in buf.items():
+            if dst.shape != pre[name].shape:
+                raise ValueError(
+                    f"{kind} state {name}: prefill {tuple(pre[name].shape)} against "
+                    f"{tuple(dst.shape)}"
+                )
+            dst.copy_(pre[name])
+    for buf, pre in zip(cache.get("shared", []), pcache.get("shared", []), strict=True):
+        _put_positions(buf, pre, axis=1)
     return dict(cache, pos=pcache["pos"])
 
 

@@ -620,6 +620,58 @@ def test_flash_attention_at_head_dim_192(dev, mla, causal, dtype):
         torch.testing.assert_close(got[..., :128].float(), oracle.float(), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_at_head_dim_80(dev, causal, dtype):
+    """zamba2-2.7b's shared block: head dim 80, which the 16-bit body pads to
+    two 64-channel chunks (TMA zero-fills channels 80-127 of each row, so
+    no other head's channels come in) and the f32 body runs at width 80.
+    Within `AGREE` of the plain version (and, in f16 / bf16, within
+    `OFF_PLAIN_SHARE`), and within `AGREE` of the f32 oracle; the wrapper's
+    shared-memory figure is the library's.  S and T lie off the 128-row and
+    64-key tiles; 3 heads, so a row's neighbour head lies past channel 80."""
+    fn = _build.library("flash_attn").flash_attn_smem_bytes
+    fn.restype = ctypes.c_longlong
+    assert fn(80, kattn.DTYPES[dtype]) == kattn.smem_bytes(80, torch.tensor([], dtype=dtype).element_size())
+    g = torch.Generator(device=dev).manual_seed(80 + causal)
+    S, T, H = 333, 333 if causal else 190, 3
+    q = torch.randn((2, S, H, 80), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, T, H, 80), generator=g, device=dev).to(dtype) for _ in range(2))
+    counters.reset()
+    got = kattn.flash_attention(q, k, v, causal=causal)
+    want = kattn.flash_attention(q, k, v, causal=causal, mode="ref")
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = kattn.AGREE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype != torch.float32:
+        assert float((got != want).float().mean()) <= kattn.OFF_PLAIN_SHARE
+    oracle = ref.attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), oracle.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("prompt_len", [2, 40])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_reduced_generate_of_each_recurrent_arch(dev, arch, prompt_len):
+    """One `generate` of reduced zamba2-2.7b (Mamba2 layers + the shared
+    attention block after each run: one kernel launch an application) and
+    xlstm-125m (no attention: no launch): no plain version, the same tokens
+    twice, the f32 state entries on the card; a 2-token prompt lies under
+    the conv's 3 taps (the conv tail left-padded)."""
+    cfg = reduced_config(arch)
+    model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (3, prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    counters.reset()
+    out = cv_engine.generate(model, prompts, steps=5)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 5) and out.device.type == "cuda"
+    assert counters.LAUNCHES["flash_attention"] == (len(cfg.blocks) if cfg.shared_attn_every else 0)
+    assert sum(counters.PLAIN_CALLS.values()) == 0
+    assert torch.equal(out, cv_engine.generate(model, prompts, steps=5))
+
+
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
 def test_reduced_generate_of_each_moe_arch(dev, arch):
     """One `generate` of reduced arctic-480b (GQA + the MoE FFN beside a

@@ -73,19 +73,24 @@ def test_reduced_config_matches_jax_and_full_width_is_published():
         "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000),
         "arctic-480b": (35, 7168, 56, 8, 128, 4864, 32000),
         "deepseek-v3-671b": (61, 7168, 128, 128, 128, 18432, 129280),
+        "zamba2-2.7b": (54, 2560, 32, 32, 80, 10240, 32000),
+        "xlstm-125m": (12, 768, 4, 4, 192, 0, 50304),
     }
     assert ARCHS == list(published)
     for arch, widths in published.items():
         for name in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size", "blocks",
-                     "window"):
+                     "window", "shared_attn_every"):
             assert getattr(reduced_config(arch), name) == getattr(jax_reduced_config(arch), name)
-        for name in ("moe", "mla"):
+        for name in SUB_CONFIGS:
             assert _fields(getattr(reduced_config(arch), name)) == _fields(
                 getattr(jax_reduced_config(arch), name))
         full = get_config(arch)
         assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
                 full.d_ff, full.vocab_size) == widths, arch
         assert full.param_dtype == torch.bfloat16
+
+
+SUB_CONFIGS = ("moe", "mla", "ssm", "xlstm")
 
 
 def _fields(sub_config):
@@ -99,7 +104,7 @@ def _assert_published(arch):
         for f in dataclasses.fields(port):
             want = getattr(ref, f.name)
             got = getattr(port, f.name)
-            if f.name in ("moe", "mla"):
+            if f.name in SUB_CONFIGS:
                 got, want = _fields(got), _fields(want)
             assert got == want, (arch, f.name)
 
@@ -107,8 +112,9 @@ def _assert_published(arch):
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "arctic-480b", "deepseek-v3-671b", "xlstm-125m"])
 def test_registry_raises_on_an_unported_arch(arch):
     if arch in ARCHS:
-        # arctic-480b and deepseek-v3-671b are ported (Queue 1 item 8 steps 4-5):
-        # their published and reduced configs are JAX's
+        # all four are ported (arctic-480b and deepseek-v3-671b in Queue 1 item 8
+        # steps 4-5, zamba2-2.7b and xlstm-125m in step 6): their published and
+        # reduced configs are JAX's
         _assert_published(arch)
         with pytest.raises(KeyError, match="unknown arch"):
             get_config("no-such-arch")
@@ -127,17 +133,29 @@ def test_registry_raises_on_an_unported_arch(arch):
      ("cross_attn_layers", (1,)), ("shared_attn_every", 2), ("fsdp", True)],
 )
 def test_config_refuses_a_field_of_an_unported_part(field, value):
-    # the JAX config's fields for SSM, enc-dec, cross-attention, shared
-    # blocks and sharding join with the slice that reads them
-    if field in ("moe", "mla"):
-        # ported (Queue 1 item 8 steps 4-5): the sub-config equals JAX's
+    # the JAX config's fields for enc-dec, cross-attention and sharding join
+    # with the slice that reads them
+    if field in ("moe", "mla", "ssm"):
+        # ported (Queue 1 item 8 steps 4-6): the sub-config equals JAX's
         # field for field, by default and in each arch that sets it
-        port_cls = {"moe": tconfig.MoEConfig, "mla": tconfig.MLAConfig}[field]
-        jax_cls = {"moe": jconfig.MoEConfig, "mla": jconfig.MLAConfig}[field]
+        port_cls = {"moe": tconfig.MoEConfig, "mla": tconfig.MLAConfig,
+                    "ssm": tconfig.SSMConfig}[field]
+        jax_cls = {"moe": jconfig.MoEConfig, "mla": jconfig.MLAConfig,
+                   "ssm": jconfig.SSMConfig}[field]
         assert _fields(port_cls()) == _fields(jax_cls())
-        for arch in ("arctic-480b", "deepseek-v3-671b"):
+        for arch in ("arctic-480b", "deepseek-v3-671b", "zamba2-2.7b"):
             assert _fields(getattr(get_config(arch), field)) == _fields(
                 getattr(jax_get_config(arch), field))
+        if field == "ssm":
+            assert get_config("zamba2-2.7b").ssm.n_heads == jax_get_config("zamba2-2.7b").ssm.n_heads == 80
+            assert _fields(tconfig.XLSTMConfig()) == _fields(jconfig.XLSTMConfig())
+        return
+    if field == "shared_attn_every":
+        # ported (Queue 1 item 8 step 6): JAX's default and zamba2-2.7b's value
+        assert reduced_config("gemma-7b").replace(**{field: value}).shared_attn_every == value
+        assert tconfig.ModelConfig.__dataclass_fields__[field].default == 0
+        for arch in ("zamba2-2.7b", "gemma-7b"):
+            assert get_config(arch).shared_attn_every == jax_get_config(arch).shared_attn_every
         return
     with pytest.raises(TypeError):
         reduced_config("gemma-7b").replace(**{field: value})
@@ -145,16 +163,16 @@ def test_config_refuses_a_field_of_an_unported_part(field, value):
 
 @pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "xattn", "dec"])
 def test_unported_block_kinds_raise(kind):
-    if kind in ("moe", "mla"):
-        # ported (Queue 1 item 8 steps 4-5): a model of two such layers builds,
+    if kind in ("moe", "mla", "mamba"):
+        # ported (Queue 1 item 8 steps 4-6): a model of two such layers builds,
         # prefills and decodes, with its kind's cache entries
-        arch = {"moe": "arctic-480b", "mla": "deepseek-v3-671b"}[kind]
+        arch = {"moe": "arctic-480b", "mla": "deepseek-v3-671b", "mamba": "zamba2-2.7b"}[kind]
         cfg = reduced_config(arch).replace(blocks=((kind, 2),), dtype="float32")
         model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
         toks = torch.from_numpy(_tokens(cfg, 0, 10))
         lg, pc = tlm.prefill(model, toks)
         assert lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all())
-        names = {"moe": {"k", "v"}, "mla": {"ckv", "kr"}}[kind]
+        names = {"moe": {"k", "v"}, "mla": {"ckv", "kr"}, "mamba": {"ssm", "conv"}}[kind]
         assert set(pc["groups"][0]) == names
         cache = tengine._adopt_prefill(tlm.init_cache(cfg, B, 12, device="cpu"), pc, cfg)
         lg, cache = tlm.decode_step(model, toks[:, :1], cache)
