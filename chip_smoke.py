@@ -160,7 +160,23 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      `generate`) and xlstm-125m (mLSTM / sLSTM blocks: no attention, no
      launch, no plain call) at full depth, each also with its f32-widened
      decode steps within 2e-3 of a full-sequence walk at 1024 + 32 and on
-     prompts of 2 tokens + 8 (the conv tail under its 3 taps).  Below,
+     prompts of 2 tokens + 8 (the conv tail under its 3 taps); the
+     cross-attention archs at full depth, their gates set to `GATE` (0.5;
+     JAX's init of 0 makes a gated layer the identity) and their context
+     input drawn as `launch.serve.make_extras` draws it: llama-3.2-vision-11b
+     (~8.0 B parameters; JAX's blocks: 24 self-attention layers of 32 over
+     8 heads of 128 and 8 gated cross-attention layers over ``image_embeds``
+     (8, 1600, 4096)) and seamless-m4t-large-v2 (~1.6 B; a 24-layer
+     bidirectional encoder over ``audio_frames`` (8, 1024, 1024), then 24
+     decoder layers of causal self-attention and cross-attention over the
+     encoder's output, 16 heads of 64): every application checked at its
+     own mask (cross-attention and the encoder at ``causal=False``), a
+     decode step's cross-attention (S = 1) in bf16 and f32, 32 + 8 x 31 =
+     280 and 72 + 24 x 31 = 816 launches a `generate` (one a prefill
+     application, one a cross-attention layer each decode step), the
+     f32-widened decode steps within 2e-3 of a full-sequence walk over the
+     same context, and the kernel, plain and SDPA (``is_causal`` at the
+     call's mask) timed on the first application of each kind.  Below,
      gemma-7b's numbers (28 layers, d 3072, 16 heads of 256, bf16, ~8.5 B
      parameters); the other archs run the same checks at their own shapes
      and layer counts, without the JAX test shapes and the head-dim
@@ -200,7 +216,9 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
      kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
      mode=None, `flash_attention` at gemma-7b's prefill layer 0, with each
-     attention arch's first application under ``by_arch``, the seed kernels
+     attention arch's first application under ``by_arch`` and, for the
+     cross-attention archs, the first of each kind of call (self-attention,
+     bidirectional, cross-attention) under its ``by_call``, the seed kernels
      on one 512x512 u8 plane, `gbdt_score`'s graph time beside the launch
      floor),
      then the card line and the device line.
@@ -245,10 +263,13 @@ STREAM_ENTRY = "gaussian_filter2d k=13 4K u8"
 # fit the card's 80 GB, so its run keeps 8 (~19 GB, 38 GB widened to f32);
 # arctic-480b keeps 2 of 35 (~27.2 GB a layer: 55.4 GB with the embedding and
 # the head) and deepseek-v3-671b 4 of 61 (its 3 dense MLA layers and one
-# MLA-MoE layer, ~30.2 GB; 60.4 GB widened)
+# MLA-MoE layer, ~30.2 GB; 60.4 GB widened); the cross-attention archs run
+# whole (llama-3.2-vision-11b ~16 GB, 32 GB widened; seamless-m4t-large-v2
+# ~3.3 GB)
 LM_RUNS = (("gemma-7b", None), ("starcoder2-7b", None), ("h2o-danube-3-4b", None),
            ("qwen2-72b", 8), ("arctic-480b", 2), ("deepseek-v3-671b", 4),
-           ("zamba2-2.7b", None), ("xlstm-125m", None))
+           ("zamba2-2.7b", None), ("xlstm-125m", None),
+           ("llama-3.2-vision-11b", None), ("seamless-m4t-large-v2", None))
 # the f32-widened check of an arch whose widened model does not fit the card
 # runs on a model of fewer layers, built after the bf16 one is freed:
 # arctic-480b at 2 layers would take ~111 GB in f32, at 1 ~55 GB
@@ -261,6 +282,9 @@ LONG_ARCH, LONG_PROMPT, LONG_GEN = "h2o-danube-3-4b", 8704, 8
 # the recurrent archs' short request: a prompt under the conv's K - 1 = 3
 # taps, the port's fourth departure from JAX (models/ssm.py)
 SHORT_PROMPT, SHORT_GEN = 2, 8
+# the cross-attention archs' gates after the seeded init (JAX's init: 0, so
+# that a gated layer is the identity and no check could see it)
+GATE = 0.5
 
 
 class SmokeFailure(Exception):
@@ -1940,57 +1964,115 @@ def flash_bound(q, k, causal: bool = True, v_dim: int | None = None) -> dict:
             "bound_ms_all_f32": max(t_bytes, (qk + pv) / PEAK_FP32_FLOPS * 1e3)}
 
 
-def walk_prefill(model, tokens, *, mode=None, visit=None, metrics=None):
-    """The prefill's layers over `tokens` (`lm.prefill`'s loop, Zamba's
-    shared block after every run of layers) -> the final-normed hidden
-    states at every position, (B, S, D).  `visit(i, what, kind, p, x)` sees
-    the i-th attention application first: its block `p` of kind `kind` and
-    its normed input `x` (`what` names it: ``layer 3 (attn)`` or ``shared
-    application 2 (attn)``); the state layers (Mamba2, xLSTM) are not
-    visited.  The list `metrics` receives each MoE layer's metrics
-    (``moe_drop_frac``, ``expert_load``, ...)."""
+# each block kind's calls of `models.attention.attention`, in order
+CALLS = {"enc": ("bidirectional self-attention",), "xattn": ("cross-attention",),
+         "dec": ("self-attention", "cross-attention")}
+
+
+def walk_prefill(model, tokens, *, context=None, mode=None, visit=None, metrics=None):
+    """The prefill's layers over `tokens` (`lm.prefill`'s loop: an
+    encoder-decoder's encoder over ``context["audio_frames"]`` first, its
+    blocks one by one; Zamba's shared block after every run of layers) ->
+    the final-normed hidden states at every position, (B, S, D).  `context`
+    holds a cross-attention arch's context input (`configs.extra_inputs`).
+    `visit(i, what, q, k, v, causal)` sees the i-th attention application,
+    before it runs, with the tensors `models.attention.attention` gets there
+    (MLA's v padded as `mla_attn` pads it): every self-attention layer,
+    every encoder layer, each cross-attention (an ``xattn`` layer's one, a
+    ``dec`` layer's second, `CALLS`) and each shared-block application;
+    `what` names it (``layer 3 (dec) cross-attention``, ``encoder layer 0
+    (enc) bidirectional self-attention``, ``shared application 2 (attn)
+    self-attention``).  The state layers (Mamba2, xLSTM) have none.  The
+    list `metrics` receives each MoE layer's metrics (``moe_drop_frac``,
+    ``expert_load``, ...)."""
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import blocks, lm
     from repro_torch.models.layers import apply_norm
 
     cfg = model.cfg
     norm = dict(kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
-    h = lm._embed(model, tokens)
-    i = layer = 0
+    route = attn_mod.attention
+    at = {"i": 0, "block": None, "j": 0}
 
-    def apply(kind, p, what):
-        nonlocal h, i
-        if visit is not None and kind not in blocks.STATE_KINDS:
-            visit(i, what, kind, p, apply_norm(h, p["ln1"], **norm))
-            i += 1
-        h, _, m = blocks.apply_block(kind, p, h, cfg, mode=mode)
+    def attend(q, k, v, **kw):
+        what, kind = at["block"]
+        visit(at["i"], f"{what} {CALLS.get(kind, ('self-attention',))[at['j']]}", q, k, v,
+              kw.get("causal", True))
+        at["i"] += 1
+        at["j"] += 1
+        return route(q, k, v, **kw)
+
+    def apply(kind, p, what, h, ctx=None):
+        at.update(block=(what, kind), j=0)
+        h, _, m = blocks.apply_block(kind, p, h, cfg, ctx=ctx, mode=mode)
         if metrics is not None and m:
             metrics.append(m)
+        return h
 
-    for gi, (kind, layers) in enumerate(model.groups()):
-        for p in layers:
-            apply(kind, p, f"layer {layer} ({kind})")
-            layer += 1
-        if cfg.shared_attn_every:
-            apply("attn", model.shared_block, f"shared application {gi} (attn)")
+    if visit is not None:
+        attn_mod.attention = attend
+    try:
+        ctx = None
+        if cfg.encdec:
+            hc = context["audio_frames"].to(model.embed.dtype)
+            for n, p in enumerate(model.encoder["blocks"]):
+                hc = apply("enc", p, f"encoder layer {n} (enc)", hc)
+            ctx = apply_norm(hc, model.encoder["final_norm"], **norm)
+        elif lm.context_input(cfg):
+            ctx = context["image_embeds"].to(model.embed.dtype)
+        h = lm._embed(model, tokens)
+        layer = 0
+        for gi, (kind, layers) in enumerate(model.groups()):
+            for p in layers:
+                h = apply(kind, p, f"layer {layer} ({kind})", h, ctx)
+                layer += 1
+            if cfg.shared_attn_every:
+                h = apply("attn", model.shared_block, f"shared application {gi} (attn)", h)
+    finally:
+        attn_mod.attention = route
     return apply_norm(h, model.final_norm, **norm)
 
 
+def set_gates(model) -> int:
+    """Set every gate of a cross-attention arch (``xattn``'s
+    ``attn.gate_attn`` and ``gate_mlp``; JAX initialises them to 0, which
+    makes a gated layer the identity) to `GATE` -> how many."""
+    import torch
+
+    gates = [p for name, p in model.named_parameters() if name.endswith(("gate_attn", "gate_mlp"))]
+    with torch.no_grad():
+        for p in gates:
+            p.fill_(GATE)
+    return len(gates)
+
+
+def cross_applications(cfg) -> int:
+    """Cross-attention layers: one `flash_attention` call each a decode step
+    (``xattn``, ``dec``; decode's self-attention runs `dense_attention`)."""
+    from repro_torch.models import blocks
+
+    return sum(c for k, c in cfg.blocks if k in blocks.CONTEXT_ENTRIES)
+
+
 def attention_applications(cfg) -> int:
-    """`flash_attention` calls of one prefill: every attention layer, and
+    """`flash_attention` calls of one prefill: every attention layer (a
+    ``dec`` layer's self- and cross-attention two), every encoder layer, and
     each application of Zamba's shared block (one after every run of
     layers); 0 for an arch of state layers only."""
     from repro_torch.models import blocks
 
     n = sum(c for k, c in cfg.blocks if k not in blocks.STATE_KINDS)
+    n += sum(c for k, c in cfg.blocks if k == "dec") + cfg.n_enc_layers
     return n + (len(cfg.blocks) if cfg.shared_attn_every else 0)
 
 
-def decode_vs_walk(model, cfg, prompts, tokens) -> tuple[list, float]:
+def decode_vs_walk(model, cfg, prompts, tokens, context=None) -> tuple[list, float]:
     """With `model`'s weights in f32 (`cfg` its f32 config): the logits of
     the prefill's last position and of each decode step fed `tokens`
     (B, n; n - 1 steps), each against the logits one full-sequence walk
-    over the prompt and those tokens (`walk_prefill` plus the head) gives
-    at that position -> (each step's max |difference|, max |logit|)."""
+    over the prompt and those tokens (`walk_prefill` plus the head, over the
+    same `context`) gives at that position -> (each step's max |difference|,
+    max |logit|)."""
     import torch
     from repro_torch.models import lm
     from repro_torch.serve import cv_engine
@@ -1999,9 +2081,10 @@ def decode_vs_walk(model, cfg, prompts, tokens) -> tuple[list, float]:
     n = tokens.shape[1]
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
     with torch.inference_mode():
-        lg, pc = lm.prefill(model, prompts)
+        lg, pc = lm.prefill(model, prompts, extras=context)
+        ctx_len = lm.context_len(cfg, context, B)
         cache = cv_engine._adopt_prefill(
-            lm.init_cache(cfg, B, S + n, device=prompts.device), pc, cfg)
+            lm.init_cache(cfg, B, S + n, ctx_len=ctx_len, device=prompts.device), pc, cfg)
         del pc
         steps = [lg]
         for t in range(n - 1):
@@ -2009,7 +2092,7 @@ def decode_vs_walk(model, cfg, prompts, tokens) -> tuple[list, float]:
             steps.append(lg)
         del cache
         seq = torch.cat([prompts, tokens[:, : n - 1].to(prompts.dtype)], dim=1)
-        full = walk_prefill(model, seq)[:, S - 1 :] @ head
+        full = walk_prefill(model, seq, context=context)[:, S - 1 :] @ head
     return [float((a - full[:, i]).abs().max()) for i, a in enumerate(steps)], float(full.abs().max())
 
 
@@ -2071,18 +2154,25 @@ def judge_routes(a: list, b: list, k: int, what: str, judge=check):
 
 
 def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: dict,
-             judge=check, timed: bool = True, extras: bool = True,
+             judge=check, timed: bool = True, jax_shapes: bool = True,
              f32_layers: int | None = None) -> dict:
     """The LM serving path: build `cfg`'s model on the card from a seeded
-    generator; hold `flash_attention` against its plain version within
-    `AGREE` (and, in bf16, `OFF_PLAIN_SHARE`) on the path's own tensors (every layer's q, k, v of the bf16
-    prefill, an f32 copy of layer 0's) and, with `extras`, on the JAX kernel test's shapes;
-    greedy-generate `batch` x `prompt_len` + `gen_len` tokens (one launch
-    per layer, no plain call); check the tokens (identical across two runs;
-    teacher-forced through a `mode="ref"` prefill, each the plain path's
-    argmax but at counted near-ties); time the kernel, its plain version,
-    SDPA, the prefill and a decode step (when `timed`; with `extras` also
-    the kernel at head dims 64 and 128); last, widen the
+    generator (a cross-attention arch's gates then set to `GATE`, its
+    context input drawn as `launch.serve.make_extras` draws it); hold
+    `flash_attention` against its plain version within `AGREE` (and, in
+    bf16, `OFF_PLAIN_SHARE`) on the path's own tensors (every attention
+    application's q, k, v of the bf16 prefill: self-attention, encoder and
+    cross-attention, each at its own mask; an f32 copy of the first's; a
+    decode step's cross-attention, S = 1, in bf16 and f32) and, with
+    `jax_shapes`, on the JAX kernel test's shapes; greedy-generate `batch` x
+    `prompt_len` + `gen_len` tokens (one launch per prefill application and
+    one per cross-attention layer a decode step, no plain call); check the
+    tokens (identical across two runs; teacher-forced through a
+    `mode="ref"` prefill, each the plain path's argmax but at counted
+    near-ties); time the kernel, its plain version, SDPA (at the call's
+    mask), on the first application of each kind (`CALLS`), the prefill and
+    a decode step (when `timed`; with `jax_shapes` also the kernel at head
+    dims 64 and 128); last, widen the
     weights to f32 and hold the kernel path's hidden states at every prompt
     position, and its last-token logits, against the plain path's (with
     `f32_layers`, on a model of that many layers, seeded alike, built after
@@ -2095,7 +2185,8 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     shared-block application (zamba2-2.7b: 9), or never (xlstm-125m); its
     f32-widened decode steps are held within 2e-3 of a full-sequence walk
     (`decode_vs_walk`), on the phase's prompts and on prompts of
-    `SHORT_PROMPT` tokens.
+    `SHORT_PROMPT` tokens; a cross-attention arch's too, on the phase's
+    prompts and context.
     `judge(ok, msg)` takes each check's verdict: `check` raises at the
     first failure, scripts/torch_flash_faults.py records them all."""
     import numpy as np
@@ -2104,7 +2195,7 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     from repro_torch.kernels import counters
     from repro_torch.configs import cut_layers
     from repro_torch.models import blocks, lm
-    from repro_torch.models.attention import gqa_project_qkv, mla_project_qkv
+    from repro_torch.launch.serve import make_extras
     from repro_torch.serve import cv_engine
 
     heads = f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.head_dim}"
@@ -2114,11 +2205,11 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
         v_dim = m.v_dim
         heads = (f"{cfg.n_heads}/{cfg.n_heads}, {m.qk_nope_dim + m.qk_rope_dim}; v {v_dim} "
                  f"padded to {m.qk_nope_dim + m.qk_rope_dim}")
-    n_attn = attention_applications(cfg)
+    n_attn, n_cross = attention_applications(cfg), cross_applications(cfg)
     recurrent = any(k in blocks.STATE_KINDS for k, _ in cfg.blocks)
     out: dict = {"config": cfg.name, "batch": batch, "prompt_len": prompt_len, "gen_len": gen_len,
                  "n_layers": cfg.n_layers, "blocks": cfg.blocks, "config_heads": heads,
-                 "attention_applications": n_attn}
+                 "attention_applications": n_attn, "cross_applications": n_cross}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
@@ -2130,11 +2221,21 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
           f"over {cfg.n_kv_heads} KV heads, window {cfg.window}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}, moe {cfg.moe}, mla {cfg.mla}, ssm {cfg.ssm}, "
           f"xlstm {cfg.xlstm}, shared block after every run: {bool(cfg.shared_attn_every)}, "
-          f"{cfg.dtype}: "
+          f"encoder layers {cfg.n_enc_layers}, {cfg.dtype}: "
           f"params={out['params']} weights={out['weights_bytes']} B init_s={out['init_s']:.2f} "
           f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)}")
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt_len))).to(dev)
+    context = make_extras(cfg, batch, prompt_len, generator=torch.Generator(dev).manual_seed(3),
+                          device=dev)
+    ctx_len = lm.context_len(cfg, context, batch)
+    gates = set_gates(model)
+    if context:
+        shapes = ", ".join(f"{n} {tuple(t.shape)} {t.dtype}" for n, t in context.items())
+        gated = (f"{gates} gates (JAX's init: 0, which makes a gated layer the identity) set to "
+                 f"{GATE}" if gates else "no gate")
+        print(f"lm {cfg.name}: context input {shapes}; {gated}; {n_attn} kernel calls a prefill, "
+              f"{n_cross} a decode step")
 
     # -- the kernel against its plain version --------------------------------
     # held to kattn.AGREE (one rounding to the output dtype apart); the JAX
@@ -2174,22 +2275,15 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
         max_err["flash_attention"] = max(max_err["flash_attention"], err)
 
     with torch.inference_mode():
-        pos = torch.arange(prompt_len, device=dev)[None, :]
-        layer0 = {}
+        firsts = {}  # the first application of each kind of call: its q, k, v and mask
 
-        def visit(i, what, kind, p, x):
-            if kind in blocks.MLA_KINDS:
-                q, k, v, _, _ = mla_project_qkv(p["attn"], x, cfg, pos)
-                v = torch.nn.functional.pad(v, (0, k.shape[-1] - v.shape[-1]))
-            else:
-                q, k, v = gqa_project_qkv(p["attn"], x, cfg, pos)
-            check_flash(f"{what} of the prefill", q, k, v, True)
-            if i == 0:
-                layer0["qkv"] = (q, k, v)
+        def visit(i, what, q, k, v, causal):
+            check_flash(f"{what} of the prefill", q, k, v, causal)
+            firsts.setdefault(what.split(") ")[-1], (q, k, v, causal))
 
         moe_metrics = []
         torch.cuda.reset_peak_memory_stats(dev)
-        walk_prefill(model, prompts, visit=visit, metrics=moe_metrics)
+        walk_prefill(model, prompts, context=context, visit=visit, metrics=moe_metrics)
         out["walk_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
         if moe_metrics:
             out["moe"] = [{"moe_drop_frac": float(mm["moe_drop_frac"]),
@@ -2202,17 +2296,26 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
                       f"expert_load (tokens' share, sums to top_k {cfg.moe.top_k}) "
                       f"min={mm['expert_load_min']:.5f} max={mm['expert_load_max']:.5f} "
                       f"moe_aux={mm['moe_aux']:.4f}")
-        q, k, v = layer0.pop("qkv", (None,) * 3)
+        q, k, v, causal = next(iter(firsts.values()), (None,) * 4)
         if n_attn:
             check_flash("the first attention application of the prefill, f32 copy", q.float(),
-                        k.float(), v.float(), True)
-        else:
+                        k.float(), v.float(), causal)
+        if "cross-attention" in firsts:
+            # a decode step's call: one query row (of the 16-bit body's 128-row
+            # tile) over the context's K / V
+            qx, kx, vx, _ = firsts["cross-attention"]
+            q1 = qx[:, :1].contiguous()
+            for dt in (torch.bfloat16, torch.float32):
+                check_flash("a decode step's cross-attention (S = 1)", q1.to(dt), kx.to(dt),
+                            vx.to(dt), False)
+            del qx, kx, vx, q1
+        if not n_attn:
             print(f"lm {cfg.name}: no attention layer; the path launches no kernel and calls no "
                   "plain version")
         g = torch.Generator(dev).manual_seed(1)
-        jax_shapes = [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128),
+        jax_test_shapes = [(1, 128, 128, 1, 64), (2, 200, 200, 4, 64), (1, 300, 300, 2, 128),
                       (1, 257, 257, 2, 64), (2, 100, 160, 2, 16), (1, 150, 70, 2, 256)]
-        for (b, s, t, h, hd) in jax_shapes if extras else ():
+        for (b, s, t, h, hd) in jax_test_shapes if jax_shapes else ():
             for dt in (torch.float32, torch.bfloat16):
                 qq, kk, vv = (torch.randn((b, n, h, hd), generator=g, device=dev).to(dt)
                               for n in (s, t, t))
@@ -2220,15 +2323,17 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
                     check_flash("JAX test shape", qq, kk, vv, causal)
     out["checks"] = checks
 
-    # -- generate: one flash launch per layer, no plain call -----------------
+    # -- generate: one flash launch per prefill application and per decode
+    # step's cross-attention layer, no plain call ------------------------------
     def run_generate():
-        return cv_engine.generate(model, prompts, steps=gen_len, device=dev)
+        return cv_engine.generate(model, prompts, steps=gen_len, extras=context, device=dev)
 
     t0 = time.perf_counter()
     tokens, snap = counted(counters, run_generate)
     torch.cuda.synchronize(dev)
     wall1 = time.perf_counter() - t0
-    expect_counts(f"generate {cfg.name}", snap, {"flash_attention": n_attn}, judge)
+    expect_counts(f"generate {cfg.name}", snap,
+                  {"flash_attention": n_attn + (gen_len - 1) * n_cross}, judge)
     judge(tokens.shape == (batch, gen_len), f"generate: shape {tuple(tokens.shape)}")
     t0 = time.perf_counter()
     again = run_generate()
@@ -2253,11 +2358,12 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
     # embedding, scaled by sqrt(d), dominates the residual stream, so every
     # step's argmax is the token fed in, whatever attention returns.  The
     # checks that depend on attention are the per-layer one above and the
-    # f32 hidden states at every position below.
+    # f32 hidden states at every position below.  Decode takes no mode: its
+    # cross-attention runs the kernel on both paths.
     def forced(mode):
         with torch.inference_mode():
-            lg, pc = lm.prefill(model, prompts, mode=mode)
-            cache = lm.init_cache(cfg, batch, prompt_len + gen_len, device=dev)
+            lg, pc = lm.prefill(model, prompts, extras=context, mode=mode)
+            cache = lm.init_cache(cfg, batch, prompt_len + gen_len, ctx_len=ctx_len, device=dev)
             cache = cv_engine._adopt_prefill(cache, pc, cfg)
             del pc
             steps = [lg.float()]
@@ -2283,9 +2389,13 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
 
     # -- times ---------------------------------------------------------------
     if timed:
-        if n_attn:
-            out["flash"] = time_flash(q, k, v, v_dim=v_dim)
-        if extras:
+        by_call = {what: time_flash(*qkv[:3], v_dim=v_dim, causal=qkv[3])
+                   for what, qkv in firsts.items()}
+        if by_call:
+            out["flash"] = next(iter(by_call.values()))
+        if len(by_call) > 1:
+            out["flash_by_call"] = by_call
+        if jax_shapes:
             # the same call at head dims 64 and 128 (width 4096): a tile's tensor
             # work grows with hd and its softmax does not
             g = torch.Generator(dev).manual_seed(2)
@@ -2293,8 +2403,8 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
                 hd: time_flash(*(torch.randn(q.shape[:2] + (4096 // hd, hd), generator=g,
                                              device=dev).to(q.dtype) for _ in range(3)))
                 for hd in (64, 128)}
-        lm_times(model, prompts, tokens, out)
-    del q, k, v
+        lm_times(model, prompts, tokens, out, context)
+    del q, k, v, firsts
 
     # -- the same weights in f32: every position, and the last-token logits --
     # The kernel changes an attention output by a bf16 rounding at most, and
@@ -2327,7 +2437,7 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
         its final hidden states and its routing calls."""
         head = model.embed.T if cfg.tie_embeddings else model.lm_head
         with torch.inference_mode(), RouteRecorder() as routes:
-            h = walk_prefill(model, prompts, mode=mode)
+            h = walk_prefill(model, prompts, context=context, mode=mode)
             return (h[:, -1] @ head).float(), h, routes.calls
 
     (pre_k, _, rk16), (pre_p, _, rp16) = last_logits(None), last_logits("ref")
@@ -2380,21 +2490,24 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
           f"bf16 prefill logits: kernel vs plain {pre_err} > twice the bf16 error {bf16_err}")
     out["prefill_logits"] = gaps
     del l32k, l32p
-    if recurrent:
-        # the chunked scans (SSD, mLSTM) against their step recurrences at
-        # full width: each decode step against a full-sequence walk, in f32;
-        # then a prompt under the conv's taps (the port's departure from JAX)
+    if recurrent or n_cross:
+        # the chunked scans (SSD, mLSTM) against their step recurrences, and
+        # decode's cross-attention (S = 1) against the prefill's, at full
+        # width: each decode step against a full-sequence walk, in f32; then
+        # a recurrent arch's prompt under the conv's taps (the port's
+        # departure from JAX)
         cfg32 = cfg.replace(dtype="float32")
-        errs, top = decode_vs_walk(model, cfg32, prompts, tokens)
-        errs_s, top_s = decode_vs_walk(model, cfg32, short, short_tok)
-        for what, e, t, (b, n, g) in (("", errs, top, (batch, prompt_len, gen_len)),
-                                      (" short prompt", errs_s, top_s,
-                                       (batch, SHORT_PROMPT, SHORT_GEN))):
+        runs = [("", *decode_vs_walk(model, cfg32, prompts, tokens, context),
+                 (batch, prompt_len, gen_len))]
+        if recurrent:
+            runs.append((" short prompt", *decode_vs_walk(model, cfg32, short, short_tok),
+                         (batch, SHORT_PROMPT, SHORT_GEN)))
+        for what, e, t, (b, n, g) in runs:
             print(f"{cfg.name}{what} f32, {b} x {n} + {g}: each step's logits against the "
                   f"full-sequence walk at its position (max |logit| {t:.4g}): max_abs_err "
                   f"max={max(e):.4g} {[round(x, 7) for x in e[:8]]}... (limit 2e-3)")
             judge(max(e) <= 2e-3, f"{cfg.name}{what}: decode logits {max(e)} off the full walk's")
-        out["f32_step_errs"], out["f32_step_errs_short"] = errs, errs_s
+            out["f32_step_errs_short" if what else "f32_step_errs"] = e
     del model
     torch.cuda.empty_cache()
     return out
@@ -2458,7 +2571,7 @@ def long_prompt_phase(dev, cfg, *, prompt_len: int, gen_len: int, judge=check) -
 
 
 def sdpa_backends(qt, kt, vt, **kw) -> list:
-    """The SDPA backends that take this causal call (each tried alone)."""
+    """The SDPA backends that take this call (each tried alone)."""
     import torch
     import torch.nn.functional as F
 
@@ -2471,7 +2584,7 @@ def sdpa_backends(qt, kt, vt, **kw) -> list:
               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([b]):
-                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **kw)
+                F.scaled_dot_product_attention(qt, kt, vt, **kw)
             torch.cuda.synchronize()
             names.append(b.name)
         except RuntimeError:
@@ -2479,9 +2592,9 @@ def sdpa_backends(qt, kt, vt, **kw) -> list:
     return names
 
 
-def time_flash(q, k, v, v_dim: int | None = None) -> dict:
-    """The kernel, its plain version and SDPA (`is_causal=True`, the
-    yardstick) on one causal call, and its bound.  With fewer KV heads than
+def time_flash(q, k, v, v_dim: int | None = None, causal: bool = True) -> dict:
+    """The kernel, its plain version and SDPA (``is_causal=causal``, the
+    yardstick) on one call, and its bound.  With fewer KV heads than
     query heads SDPA runs with `enable_gqa=True` where the installed torch
     takes it, else on K and V repeated to the query heads outside the timed
     call (`library_form` says which).  `v_dim` (MLA): v holds that many real
@@ -2492,14 +2605,14 @@ def time_flash(q, k, v, v_dim: int | None = None) -> dict:
     from repro_torch.kernels import attention as kattn
 
     hdv = v_dim or v.shape[-1]
-    run = lambda: kattn.flash_attention(q, k, v)  # noqa: E731
-    plain = lambda: kattn.flash_attention(q, k, v, mode="ref")  # noqa: E731
+    run = lambda: kattn.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: kattn.flash_attention(q, k, v, causal=causal, mode="ref")  # noqa: E731
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v[..., :hdv].contiguous()))
-    gqa = {}
+    gqa = {"is_causal": causal}
     form = "MHA"
     if k.shape[2] != q.shape[2]:
         if sdpa_takes_gqa(torch):
-            gqa, form = {"enable_gqa": True}, "enable_gqa=True"
+            gqa, form = gqa | {"enable_gqa": True}, "enable_gqa=True"
         else:
             n_rep = q.shape[2] // k.shape[2]
             kt, vt = (a.repeat_interleave(n_rep, dim=1) for a in (kt, vt))
@@ -2509,9 +2622,9 @@ def time_flash(q, k, v, v_dim: int | None = None) -> dict:
         if hasattr(torch, "_fused_sdp_choice"):
             from torch.nn.attention import SDPBackend
 
-            choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True, **gqa)).name
+            choice = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, **gqa)).name
             form += f"; the default dispatch runs {choice}"
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, **gqa)  # noqa: E731
     want = plain()[..., :hdv].float()
     lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
     check(lib_err <= 3e-2 * (1 + float(want.abs().max())),
@@ -2523,9 +2636,12 @@ def time_flash(q, k, v, v_dim: int | None = None) -> dict:
     p2 = time_ms(plain, iters=3, warmup=1)
     lib = time_ms(sdpa, iters=20)
     t = {"ms_runs": [k1, k2], "plain_runs": [p1, p2], "library_ms": lib,
-         "library_form": form, "sdpa_max_abs_diff": lib_err} | flash_bound(q, k, v_dim=hdv)
+         "library_form": form, "sdpa_max_abs_diff": lib_err, "causal": causal,
+         "shape": f"{tuple(q.shape)} over {tuple(k.shape)} {q.dtype}"} | flash_bound(
+             q, k, causal=causal, v_dim=hdv)
     best = min(k1, k2)
-    print(f"time flash_attention ({tuple(q.shape)} over {k.shape[2]} KV heads {q.dtype} causal; "
+    print(f"time flash_attention ({tuple(q.shape)} over {k.shape[2]} KV heads of T={k.shape[1]} "
+          f"{q.dtype} causal={causal}; "
           f"SDPA {form}): ms={k1:.5f}/{k2:.5f} "
           f"plain_ms={p1:.3f}/{p2:.3f} sdpa_ms={lib:.5f} bound_ms={t['bound_ms']:.5f} "
           f"({t['bound_by']}: q.k + p_hi.v + p_lo.v on the tensor cores; {t['bytes']} B, "
@@ -2538,8 +2654,9 @@ def time_flash(q, k, v, v_dim: int | None = None) -> dict:
     return t
 
 
-def lm_times(model, prompts, tokens, out: dict) -> None:
-    """The prefill (three runs) and each decode step of `tokens`, into `out`."""
+def lm_times(model, prompts, tokens, out: dict, context=None) -> None:
+    """The prefill (three runs) and each decode step of `tokens`, over the
+    context input `context` of a cross-attention arch, into `out`."""
     import torch
     from repro_torch.models import lm
     from repro_torch.serve import cv_engine
@@ -2552,11 +2669,12 @@ def lm_times(model, prompts, tokens, out: dict) -> None:
         for _ in range(3):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            _, pc = lm.prefill(model, prompts)
+            _, pc = lm.prefill(model, prompts, extras=context)
             torch.cuda.synchronize(dev)
             t_pre.append(time.perf_counter() - t0)
+        ctx_len = lm.context_len(cfg, context, batch)
         cache = cv_engine._adopt_prefill(
-            lm.init_cache(cfg, batch, prompt_len + gen_len, device=dev), pc, cfg)
+            lm.init_cache(cfg, batch, prompt_len + gen_len, ctx_len=ctx_len, device=dev), pc, cfg)
         del pc
         t_dec = []
         for t in range(gen_len - 1):
@@ -2573,6 +2691,13 @@ def lm_times(model, prompts, tokens, out: dict) -> None:
     print(f"time prefill {batch} x {prompt_len}: s={[round(x, 4) for x in t_pre]} "
           f"({out['prefill_tok_s']:.0f} tok/s at the fastest); decode step (median of "
           f"{len(t_dec)}): {dec_s * 1e3:.3f} ms ({out['decode_tok_s']:.1f} tok/s)")
+
+
+def flash_times(t: dict) -> dict:
+    """A `time_flash` result's numbers for the ``kernels`` line."""
+    return {"ms": min(t["ms_runs"]), "plain_ms": min(t["plain_runs"]), "bound_ms": t["bound_ms"],
+            "library_ms": t["library_ms"], "library_form": t["library_form"],
+            "causal": t["causal"]}
 
 
 def counted(counters, fn):
@@ -3014,7 +3139,7 @@ def main() -> int:
     for arch, layers in LM_RUNS:
         lm_out = lm_phase(dev, get_config(arch, n_layers=layers), batch=LM_BATCH,
                           prompt_len=LM_PROMPT, gen_len=LM_GEN, max_err=max_err,
-                          extras=arch == LM_ARCH, f32_layers=F32_LAYERS.get(arch))
+                          jax_shapes=arch == LM_ARCH, f32_layers=F32_LAYERS.get(arch))
         path_counts[f"generate {arch}"] = lm_out["generate"]["counters"]
         lm_outs[arch] = lm_out
     long_out = long_prompt_phase(dev, get_config(LONG_ARCH), prompt_len=LONG_PROMPT,
@@ -3156,13 +3281,16 @@ def main() -> int:
             "replaces": "src/repro/kernels/attention.py:31",
             "measured": lm_out["flash"],
             "shape": f"layer 0 of the {LM_ARCH} prefill, ({LM_BATCH}, {LM_PROMPT}, 16, 256) bf16",
-            # layer 0 of each arch's prefill: its kernel, plain, bound and SDPA times
+            # the first attention application of each arch's prefill: its
+            # kernel, plain, bound and SDPA times; a cross-attention arch's
+            # first application of each kind of call (`CALLS`) under "by_call"
             "by_arch": {
                 arch: {"shape": f"({LM_BATCH}, {LM_PROMPT}, {o['config_heads']}) bf16",
                        "launches": o["generate"]["counters"]["launches"]["flash_attention"],
-                       "ms": min(o["flash"]["ms_runs"]), "plain_ms": min(o["flash"]["plain_runs"]),
-                       "bound_ms": o["flash"]["bound_ms"], "library_ms": o["flash"]["library_ms"],
-                       "library_form": o["flash"]["library_form"]}
+                       **flash_times(o["flash"]),
+                       **({"by_call": {what: {"shape": t["shape"], **flash_times(t)}
+                                       for what, t in o["flash_by_call"].items()}}
+                          if "flash_by_call" in o else {})}
                 for arch, o in lm_outs.items() if "flash" in o
             },
         },

@@ -17,11 +17,16 @@ each:
   * the host and device time of named spans (`SPANS`): each block kind's
     apply and, inside them, the Mamba2 in_proj GEMM, causal conv and SSD
     scan, the mLSTM chunkwise cell and step, the sLSTM scan (a Python loop
-    of small launches) and the attention call.  Spans nest: a block's span
+    of small launches), the cross-attention (its q projection, the kernel
+    call, w_o and the gate) and the attention call.  Spans nest: a block's span
     holds its parts', and what a block's span holds beyond its parts is
     the rest of the block (out_proj, the norms, the gates).
 
-zamba2-2.7b and xlstm-125m run at full depth (``--layers`` not needed).
+zamba2-2.7b, xlstm-125m, llama-3.2-vision-11b and seamless-m4t-large-v2 run
+at full depth (``--layers`` not needed); the last two get their context
+input (`launch.serve.make_extras`, from the model's generator after the
+init) and, cross-attention being the point, their gates set to 0.5 (JAX's
+init: 0).
 Needs a CUDA device; writes the same report to
 ``chiprun_out/torch_lm_profile_<arch>.json``.
 """
@@ -50,6 +55,7 @@ SPANS = (
     ("xlstm", "mlstm_chunkwise"),
     ("xlstm", "mlstm_step"),
     ("xlstm", "slstm_scan"),
+    ("attention", "cross_attn"),
     ("attention", "attention"),
 )
 
@@ -138,6 +144,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import make_extras
     from repro_torch.models import attention, blocks, lm, ssm, xlstm
     from repro_torch.serve import cv_engine
 
@@ -153,13 +160,20 @@ def main() -> int:
         cfg = reduced_config(args.arch)
     else:
         cfg = get_config(args.arch, n_layers=args.layers)
-    model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    gen = torch.Generator(dev).manual_seed(0)
+    model = lm.LM(cfg, device=dev, generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("gate_attn", "gate_mlp")):
+                p.fill_(0.5)
+    extras = make_extras(cfg, args.requests, args.prompt_len, generator=gen, device=dev)
+    ctx_len = lm.context_len(cfg, extras, args.requests)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len))
     ).to(dev)
     steps = args.decode_steps
-    tokens = cv_engine.generate(model, prompts, steps=steps + 1)  # warm-up
+    tokens = cv_engine.generate(model, prompts, steps=steps + 1, extras=extras)  # warm-up
     torch.cuda.synchronize()
 
     report = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers, "reduced": args.reduced,
@@ -170,14 +184,15 @@ def main() -> int:
     with torch.inference_mode():
         for phase in ("prefill", "decode"):
             if phase == "decode":
-                cache = lm.init_cache(cfg, args.requests, args.prompt_len + steps, device=dev)
+                cache = lm.init_cache(cfg, args.requests, args.prompt_len + steps,
+                                      ctx_len=ctx_len, device=dev)
                 cache = cv_engine._adopt_prefill(cache, pcache, cfg)
                 del pcache
                 torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 if phase == "prefill":
-                    _, pcache = lm.prefill(model, prompts)
+                    _, pcache = lm.prefill(model, prompts, extras=extras)
                 else:
                     for t in range(steps):
                         _, cache = lm.decode_step(model, tokens[:, t : t + 1], cache)

@@ -1,9 +1,8 @@
 """Architecture registry (the counterpart of `repro.configs.registry`):
-``--arch <id>`` lookup and the reduced smoke-test variants.
+``--arch <id>`` lookup, the reduced smoke-test variants and the context
+inputs of the cross-attention archs (`extra_inputs`).
 
-`ARCHS` lists the archs the port runs.  The JAX package's other archs wait
-for the parts of the LM stack they need; asking for one raises `KeyError`
-naming the ROADMAP step that ports it.
+`ARCHS` lists the archs the port runs: all ten of the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,6 +20,8 @@ ARCHS = [
     "deepseek-v3-671b",
     "zamba2-2.7b",
     "xlstm-125m",
+    "llama-3.2-vision-11b",
+    "seamless-m4t-large-v2",
 ]
 
 _MODULES = {
@@ -32,21 +33,12 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "zamba2-2.7b": "zamba2_2p7b",
     "xlstm-125m": "xlstm_125m",
-}
-
-# arch -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
-_QUEUED = {
-    "llama-3.2-vision-11b": "step 7 (cross-attention and enc-dec)",
-    "seamless-m4t-large-v2": "step 7 (cross-attention and enc-dec)",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "seamless-m4t-large-v2": "seamless_m4t_v2",
 }
 
 
 def _module(name: str):
-    if name in _QUEUED:
-        raise KeyError(
-            f"arch {name!r} is not ported yet: ROADMAP Queue 1 item 8, {_QUEUED[name]}; "
-            f"ported: {ARCHS}"
-        )
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {ARCHS}")
     return importlib.import_module(f"{__package__}.{_MODULES[name]}")
@@ -76,3 +68,18 @@ def cut_layers(cfg: ModelConfig, n_layers: int) -> ModelConfig:
 def reduced_config(name: str) -> ModelConfig:
     """Tiny same-family variant for CPU smoke tests."""
     return _module(name).reduced()
+
+
+def extra_inputs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, tuple[tuple[int, ...], str]]:
+    """The modality frontends' stub inputs of `cfg` for `batch` prompts of
+    `seq` tokens: name -> (shape, dtype name), as JAX's.  The frontends (the
+    image encoder, the speech feature extractor) are stubs; their
+    precomputed embeddings are model inputs: ``audio_frames`` (B,
+    min(seq, 4096), d) for an encoder-decoder, ``image_embeds`` (B,
+    n_image_tokens, d) for an arch with ``xattn`` layers."""
+    out: dict[str, tuple[tuple[int, ...], str]] = {}
+    if cfg.encdec:
+        out["audio_frames"] = ((batch, min(seq, 4096), cfg.d_model), cfg.dtype)
+    if any(k == "xattn" for k, _ in cfg.blocks):
+        out["image_embeds"] = ((batch, cfg.n_image_tokens, cfg.d_model), cfg.dtype)
+    return out

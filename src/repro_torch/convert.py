@@ -90,9 +90,12 @@ def from_jax_lm_params(params: dict, cfg, *, device=None) -> LM:
     (L, E, D, F) expert stacks, ``router``, ``router_bias``, ``shared.*``,
     Arctic's ``dense_mlp.*`` and ``ln_dense.*``, MLA's ``q_norm.scale`` and
     ``kv_norm.scale``, the state kinds' ``mixer.*`` and ``cell.*`` (with
-    ``cell.ffn.*`` and the sLSTM's (L, 4, NH, DH, DH) ``cell.r_gates``), and
-    Zamba's ``shared_block.*``, which JAX does not stack.  The tree must
-    name exactly the model's parameters."""
+    ``cell.ffn.*`` and the sLSTM's (L, 4, NH, DH, DH) ``cell.r_gates``),
+    ``xattn``'s scalar gates ``attn.gate_attn`` and ``gate_mlp`` ((L,) in
+    JAX), ``dec``'s ``ln_x.*`` and ``xattn.*``, Zamba's ``shared_block.*``,
+    which JAX does not stack, and the encoder's ``encoder.groups[0]``
+    (stacked, into ``encoder.blocks.<i>``) and ``encoder.final_norm.*``.
+    The tree must name exactly the model's parameters."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta").to_empty(device=dev)
     flat = {}
@@ -102,14 +105,20 @@ def from_jax_lm_params(params: dict, cfg, *, device=None) -> LM:
     for name in ("final_norm", "shared_block"):  # not stacked
         if name in params:
             flat.update(_leaves(params[name], f"{name}."))
-    first = 0
-    for (kind, count), group in zip(cfg.blocks, params["groups"], strict=True):
+    runs = [("blocks", kind, count, group)
+            for (kind, count), group in zip(cfg.blocks, params["groups"], strict=True)]
+    if "encoder" in params:
+        enc = params["encoder"]
+        flat.update(_leaves(enc["final_norm"], "encoder.final_norm."))
+        runs += [("encoder.blocks", "enc", cfg.n_enc_layers, g) for g in enc["groups"]]
+    first = dict.fromkeys(("blocks", "encoder.blocks"), 0)
+    for where, kind, count, group in runs:
         for path, arr in _leaves(group):
             if len(arr) != count:
                 raise ValueError(f"from_jax_lm_params: {kind} {path} stacks {len(arr)} of {count}")
             for li in range(count):
-                flat[f"blocks.{first + li}.{path}"] = arr[li]
-        first += count
+                flat[f"{where}.{first[where] + li}.{path}"] = arr[li]
+        first[where] += count
     state = model.state_dict()
     if set(flat) != set(state):
         raise ValueError(

@@ -1,5 +1,5 @@
 """The LM stack (the counterpart of `repro.models`): config, layers,
-attention (GQA and MLA), the MoE FFN, blocks and the language model.
-Ported so far: the block kinds ``"attn"``, ``"moe"``, ``"mla"`` and
-``"mla_moe"`` and serving (prefill, decode); the other mixers, training
-and sharding follow ROADMAP Queue 1 item 8."""
+attention (GQA, MLA and cross-attention), the MoE FFN, the Mamba2 and
+xLSTM mixers, blocks and the language model.  Ported: every block kind of
+the JAX package and serving (prefill, decode); training and sharding
+follow ROADMAP Queue 1 item 8 steps 8-9."""

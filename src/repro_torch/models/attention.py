@@ -36,8 +36,15 @@ with zero channels to q's head dim and keeps the output's first ``v_dim``
 16-bit kernel pads 192 channels to four 64-channel chunks either way).  Off
 the route it runs `dense_attention` / `blockwise_attention` unpadded, as in
 JAX.  Decode (`mla_decode`) attends in the latent space over the (c_kv,
-k_rope) cache, in f32, as JAX's does.  Cross-attention waits (ROADMAP
-Queue 1 item 8 step 7).
+k_rope) cache, in f32, as JAX's does.
+
+Cross-attention (`cross_attn`: Llama-3.2-Vision's gated layers, the
+encoder-decoder's) attends over a context's K and V (`cross_kv`, no RoPE).
+JAX calls `dense_attention` there with ``causal=False`` and every position
+0, which masks nothing; the port calls `attention` with ``causal=False``
+and no positions, the same function, so that it takes the kernel route:
+in the prefill (S query rows over the T context rows) and in decode (S =
+1, against the context's K / V of the cache).
 """
 
 from __future__ import annotations
@@ -347,6 +354,49 @@ def gqa_decode(p, x: torch.Tensor, cfg, *, cache_k, cache_v, pos: int, kv_pos, k
         grouped=True,
     )
     return out.reshape(B, 1, -1) @ p["w_o"], (cache_k, cache_v)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM gated layers, encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(cfg, *, gated: bool, device=None, generator=None) -> nn.ParameterDict:
+    """`init_gqa`'s projections and, when `gated`, the scalar f32
+    ``gate_attn``, 0 at init as in JAX (so a gated layer starts as the
+    identity)."""
+    p = init_gqa(cfg, device=device, generator=generator)
+    if gated:
+        p["gate_attn"] = _param(torch.zeros((), dtype=torch.float32, device=device))
+    return p
+
+
+def cross_kv(p, ctx: torch.Tensor, cfg):
+    """Project the context (B, T, D) to K / V (B, T, G, hd) once (no RoPE)."""
+    B, T, _ = ctx.shape
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def proj(w, b):
+        y = ctx @ p[w]
+        return (y + p[b] if b in p else y).to(ctx.dtype).reshape(B, T, g, hd)
+
+    return proj("w_k", "b_k"), proj("w_v", "b_v")
+
+
+def cross_attn(p, x: torch.Tensor, ctx_kv, cfg, *, mode: str | None = None):
+    """x (B, S, D) attends over the context's (k, v) (B, T, G, hd), every
+    pair unmasked (module docstring) -> (B, S, D), times ``tanh(gate_attn)``
+    (in f32, cast to the output's dtype, as JAX's) when the layer is gated.
+    `mode` reaches the attention kernel."""
+    B, S, _ = x.shape
+    y = x @ p["w_q"]
+    q = (y + p["b_q"] if "b_q" in p else y).to(x.dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k, v = ctx_kv
+    out = attention(q, k, v, causal=False, scale=cfg.attn_scale, mode=mode)
+    out = out.reshape(B, S, -1) @ p["w_o"]
+    if "gate_attn" in p:
+        out = torch.tanh(p["gate_attn"]).to(out.dtype) * out
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Per-layer blocks (the counterpart of `repro.models.blocks`): init,
 full-sequence apply, decode apply and the cache of one layer.
 
-Ported kinds:
+Kinds (all of the JAX package's):
   attn      self-attention (GQA/MQA/MHA, optional SWA) + dense MLP
   moe       self-attention + MoE FFN (optionally + a parallel dense FFN
             with its own ``ln_dense`` norm: Arctic)
@@ -10,15 +10,23 @@ Ported kinds:
   mamba     Mamba2 mixer                          (Zamba2 backbone)
   mlstm     xLSTM mLSTM block
   slstm     xLSTM sLSTM block
+  xattn     gated cross-attention + gated MLP     (Llama-3.2-Vision)
+  enc       bidirectional self-attention + MLP    (encoder)
+  dec       causal self-attn + cross-attn + MLP   (decoder)
 
 A layer's cache entry is ``{"k", "v"}`` (B, T, G, hd) for attention and
 ``{"ckv", "kr"}`` (B, T, r_kv) / (B, T, rope_dim) for MLA, the time axis 1
 in both.  The state kinds (`STATE_KINDS`: ``ln1`` and their mixer or cell,
 no MLP) keep their f32 state by name, with no time axis: ``mamba``
 ``{"ssm", "conv"}``, ``mlstm`` ``{"C", "n", "m", "conv"}``, ``slstm``
-``{"c", "n", "h", "m"}``.  Decode writes every entry in place.  Every other
-kind of the JAX package raises `NotImplementedError` naming the step of
-ROADMAP Queue 1 item 8 that ports it.
+``{"c", "n", "h", "m"}``.  The kinds that attend over a context
+(``xattn``, ``dec``: `CONTEXT_ENTRIES`) keep its K and V under JAX's names,
+filled by the prefill and read, never written, by decode: ``xattn``
+``{"k", "v"}`` (B, T_ctx, G, hd), ``dec`` its self-attention's ``{"k",
+"v"}`` and the context's ``{"xk", "xv"}``.  ``enc`` runs in the encoder's
+prefill only and has no decode.  Decode writes every other entry in place.
+The gates of ``xattn`` (``attn.gate_attn``, ``gate_mlp``) are scalar f32
+parameters, 0 at init as in JAX: a fresh layer is the identity.
 """
 
 from __future__ import annotations
@@ -32,12 +40,14 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import apply_mlp, apply_norm, init_mlp, init_norm
+from .layers import _param, apply_mlp, apply_norm, init_mlp, init_norm
 
-PORTED = ("attn", "moe", "mla", "mla_moe", "mamba", "mlstm", "slstm")
+PORTED = ("attn", "moe", "mla", "mla_moe", "mamba", "mlstm", "slstm", "xattn", "enc", "dec")
 MLA_KINDS = ("mla", "mla_moe")
 MOE_KINDS = ("moe", "mla_moe")
 STATE_KINDS = ("mamba", "mlstm", "slstm")
+# kind -> the cache entries that hold the context's K and V (no prompt positions)
+CONTEXT_ENTRIES = {"xattn": ("k", "v"), "dec": ("xk", "xv")}
 
 
 class _StateKind(NamedTuple):
@@ -57,22 +67,9 @@ _STATE = {
                         xlstm_mod.slstm_block_decode, xlstm_mod.init_slstm_state),
 }
 
-# kind -> the step of ROADMAP Queue 1 item 8 (the LM stack) that ports it
-_QUEUED = {
-    "xattn": "step 7 (cross-attention and enc-dec)",
-    "enc": "step 7 (cross-attention and enc-dec)",
-    "dec": "step 7 (cross-attention and enc-dec)",
-}
-
-
 def check_kind(kind: str) -> None:
-    if kind in PORTED:
-        return
-    if kind in _QUEUED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: ROADMAP Queue 1 item 8, {_QUEUED[kind]}"
-        )
-    raise ValueError(f"unknown block kind {kind!r}")
+    if kind not in PORTED:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _norm(cfg) -> dict:
@@ -93,6 +90,15 @@ def init_block(kind: str, cfg, *, device=None, generator=None) -> nn.ModuleDict:
     if kind in STATE_KINDS:
         sk = _STATE[kind]
         return nn.ModuleDict({"ln1": nrm(), sk.module: sk.init(cfg, **init)})
+    if kind == "xattn":
+        p = nn.ModuleDict({"ln1": nrm(), "attn": attn_mod.init_cross_attn(cfg, gated=True, **init),
+                           "ln2": nrm(), "mlp": mlp()})
+        p.register_parameter("gate_mlp", _param(torch.zeros((), dtype=torch.float32, device=device)))
+        return p
+    if kind == "dec":
+        return nn.ModuleDict({"ln1": nrm(), "attn": attn_mod.init_gqa(cfg, **init), "ln_x": nrm(),
+                              "xattn": attn_mod.init_cross_attn(cfg, gated=False, **init),
+                              "ln2": nrm(), "mlp": mlp()})
     attn = attn_mod.init_mla(cfg, **init) if kind in MLA_KINDS else attn_mod.init_gqa(cfg, **init)
     p = {"ln1": nrm(), "attn": attn, "ln2": nrm()}
     if kind in MOE_KINDS:
@@ -118,32 +124,55 @@ def _ffn(kind: str, p, h: torch.Tensor, cfg, *, capacity_factor=None):
     return h + mo, metrics
 
 
-def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, mode: str | None = None):
+def _gated_ffn(p, h: torch.Tensor, cfg) -> torch.Tensor:
+    """``xattn``'s second half: h + tanh(gate_mlp) * MLP(h), the gate in f32
+    cast to the MLP's dtype, as JAX's."""
+    m = apply_mlp(p["mlp"], apply_norm(h, p["ln2"], **_norm(cfg)), act=cfg.act, style=cfg.mlp_style)
+    return h + torch.tanh(p.gate_mlp).to(m.dtype) * m
+
+
+def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, ctx=None,
+                mode: str | None = None):
     """Full-sequence apply (prefill) -> (h, cache entry, metrics), as JAX's:
     the metrics are the MoE FFN's (``moe_aux``, ``moe_z``, ``expert_load``,
     ``moe_drop_frac``), empty for a dense FFN.  positions None means
-    ``arange(S)``; `mode` reaches the attention kernel."""
+    ``arange(S)``; `ctx` (B, T, D) is the context of ``xattn`` and ``dec``
+    (the image embeddings, the encoder's output); `mode` reaches the
+    attention kernel.  ``enc`` is ``attn`` at ``causal=False``."""
     check_kind(kind)
     x = apply_norm(h, p["ln1"], **_norm(cfg))
     if kind in STATE_KINDS:
         sk = _STATE[kind]
         y, fin = sk.apply(p[sk.module], x, cfg)
         return h + y, fin, {}
+    if kind == "xattn":
+        k, v = attn_mod.cross_kv(p["attn"], ctx, cfg)
+        h = h + attn_mod.cross_attn(p["attn"], x, (k, v), cfg, mode=mode)
+        return _gated_ffn(p, h, cfg), {"k": k, "v": v}, {}
     if kind in MLA_KINDS:
         a, (ckv, kr) = attn_mod.mla_attn(p["attn"], x, cfg, positions=positions, mode=mode)
         cache = {"ckv": ckv, "kr": kr}
     else:
-        a, (k, v) = attn_mod.gqa_attn(p["attn"], x, cfg, positions=positions, mode=mode)
+        self_cfg = cfg.replace(causal=False) if kind == "enc" else cfg
+        a, (k, v) = attn_mod.gqa_attn(p["attn"], x, self_cfg, positions=positions, mode=mode)
         cache = {"k": k, "v": v}
-    h, metrics = _ffn(kind, p, h + a, cfg)
+    h = h + a
+    if kind == "dec":
+        xk, xv = attn_mod.cross_kv(p["xattn"], ctx, cfg)
+        x = apply_norm(h, p["ln_x"], **_norm(cfg))
+        h = h + attn_mod.cross_attn(p["xattn"], x, (xk, xv), cfg, mode=mode)
+        cache |= {"xk": xk, "xv": xv}
+    h, metrics = _ffn(kind, p, h, cfg)
     return h, cache, metrics
 
 
 def init_block_cache(
-    kind: str, cfg, batch: int, cache_len: int, dtype, *, device=None
+    kind: str, cfg, batch: int, cache_len: int, dtype, *, ctx_len: int | None = None, device=None
 ) -> dict[str, torch.Tensor]:
     """Zero cache entry for one layer of `kind`: a state kind's is f32 and
-    has no time axis, whatever `dtype` and `cache_len` (as JAX's)."""
+    has no time axis, whatever `dtype` and `cache_len` (as JAX's); the
+    context's K / V hold `ctx_len` rows (None: ``xattn`` n_image_tokens,
+    ``dec`` `cache_len`, as JAX's)."""
     check_kind(kind)
     if kind in STATE_KINDS:
         return _STATE[kind].init_state(cfg, batch, device=device)
@@ -154,16 +183,28 @@ def init_block_cache(
             "ckv": torch.zeros((batch, cache_len, m.kv_lora_rank), **z),
             "kr": torch.zeros((batch, cache_len, m.qk_rope_dim), **z),
         }
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z)}
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    if kind == "xattn":
+        shape = (batch, ctx_len or cfg.n_image_tokens, g, hd)
+        return {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z)}
+    shape = (batch, cache_len, g, hd)
+    entry = {"k": torch.zeros(shape, **z), "v": torch.zeros(shape, **z)}
+    if kind == "dec":
+        shape = (batch, ctx_len or cache_len, g, hd)
+        entry |= {"xk": torch.zeros(shape, **z), "xv": torch.zeros(shape, **z)}
+    return entry
 
 
 def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, kv_pos, kv_valid):
     """One-token apply -> (h, cache entry), the entry's tensors written in
     place (`attention.gqa_decode`, `attention.mla_decode`; a state kind's
-    new state copied into its entry).  The MoE FFN runs at
-    ``decode_capacity_factor``, as in JAX."""
+    new state copied into its entry); the context's K / V are read only
+    (``xattn`` returns its entry as it was).  The MoE FFN runs at
+    ``decode_capacity_factor``, as in JAX.  ``enc`` has no decode
+    (`ValueError`, as in JAX)."""
     check_kind(kind)
+    if kind == "enc":
+        raise ValueError("block kind 'enc' runs in the encoder's prefill only: it has no decode")
     x = apply_norm(h, p["ln1"], **_norm(cfg))
     if kind in STATE_KINDS:
         sk = _STATE[kind]
@@ -171,6 +212,9 @@ def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, k
         for entry, t in new.items():
             cache[entry].copy_(t)
         return h + y, cache
+    if kind == "xattn":
+        h = h + attn_mod.cross_attn(p["attn"], x, (cache["k"], cache["v"]), cfg)
+        return _gated_ffn(p, h, cfg), cache
     mask = dict(pos=pos, kv_pos=kv_pos, kv_valid=kv_valid)
     if kind in MLA_KINDS:
         a, (ckv, kr) = attn_mod.mla_decode(
@@ -182,6 +226,10 @@ def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, k
             p["attn"], x, cfg, cache_k=cache["k"], cache_v=cache["v"], **mask
         )
         new_cache = dict(cache, k=ck, v=cv)
+    h = h + a
+    if kind == "dec":
+        x = apply_norm(h, p["ln_x"], **_norm(cfg))
+        h = h + attn_mod.cross_attn(p["xattn"], x, (cache["xk"], cache["xv"]), cfg)
     cf = cfg.moe.decode_capacity_factor if kind in MOE_KINDS else None
-    h, _ = _ffn(kind, p, h + a, cfg, capacity_factor=cf)
+    h, _ = _ffn(kind, p, h, cfg, capacity_factor=cf)
     return h, new_cache

@@ -3,11 +3,12 @@
 A ModelConfig describes one architecture: the repeating layer pattern
 (`blocks`, run-length encoded), the attention settings, the FFN and the
 embedding/head layout.  It holds the JAX config's fields that the ported
-blocks read: the MLA, MoE, SSM (Mamba2) and xLSTM sub-configs and Zamba's
-``shared_attn_every``.  A later slice adds the fields of what it ports (the
-encoder and cross-attention layout, the sharding and training settings),
-so a config that sets one of them before then is refused at construction.
-`SHAPES` waits for the dry-run (ROADMAP Queue 1 item 9).
+blocks read: the MLA, MoE, SSM (Mamba2) and xLSTM sub-configs, Zamba's
+``shared_attn_every``, the cross-attention layout (``cross_attn_layers``,
+``n_image_tokens``) and the encoder's (``encdec``, ``n_enc_layers``).  A
+later slice adds the sharding and training settings, so a config that sets
+one of them before then is refused at construction.  `SHAPES` waits for
+the dry-run (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -105,6 +106,16 @@ class ModelConfig:
 
     # zamba-style shared transformer block, applied after every run of blocks
     shared_attn_every: int = 0
+
+    # VLM cross-attention: the ``xattn`` layers attend over n_image_tokens
+    # precomputed image embeddings (the ``image_embeds`` input)
+    cross_attn_layers: tuple[int, ...] = ()
+    n_image_tokens: int = 1600
+
+    # encoder-decoder: n_enc_layers ``enc`` layers over the ``audio_frames``
+    # input give the context the ``dec`` layers attend over
+    encdec: bool = False
+    n_enc_layers: int = 0
 
     # embeddings
     tie_embeddings: bool = False

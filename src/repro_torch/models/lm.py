@@ -1,8 +1,8 @@
 """Top-level language model (the counterpart of `repro.models.lm`): the
 embedding, the layers and the head, and the two serving entry points.
 
-  prefill(model, tokens)              -> (last_logits, cache)
-  decode_step(model, tokens, cache)   -> (logits, cache)
+  prefill(model, tokens, extras=None)  -> (last_logits, cache)
+  decode_step(model, tokens, cache)    -> (logits, cache)
 
 `LM` holds the parameters as modules named like the JAX parameter tree,
 with one module per layer where JAX stacks each homogeneous run of layers
@@ -10,13 +10,23 @@ on a leading axis (`convert.from_jax_lm_params` unstacks it).  The cache
 keeps JAX's layout: per run of layers, each entry of a layer's cache
 stacked on a leading axis (``k`` and ``v`` (L, B, T, G, hd); MLA's ``ckv``
 (L, B, T, r_kv) and ``kr`` (L, B, T, rope_dim); a state kind's f32 state,
-e.g. Mamba2's ``ssm`` (L, B, H, N, P) and ``conv`` (L, B, K - 1, C)); under
-``shared``, one ``{"k", "v"}`` (B, T, G, hd) entry for each application
-of Zamba's shared block; and the next position ``pos`` (a Python int
-here).  With ``cfg.shared_attn_every`` set, `LM.shared_block` (one
-``"attn"`` block) runs after every run of `cfg.blocks`, as in JAX.
-`forward` and the loss, and the encoder and context branches wait
-(ROADMAP Queue 1 item 8); so does sharding, since this is one card.
+e.g. Mamba2's ``ssm`` (L, B, H, N, P) and ``conv`` (L, B, K - 1, C); the
+context's K / V of ``xattn`` (``k``, ``v``) and ``dec`` (``xk``, ``xv``),
+(L, B, T_ctx, G, hd)); under ``shared``, one ``{"k", "v"}`` (B, T, G, hd)
+entry for each application of Zamba's shared block; and the next position
+``pos`` (a Python int here).  JAX's cache also keeps the context itself
+under ``ctx``, which its decode never reads; the port's does not.  With
+``cfg.shared_attn_every`` set, `LM.shared_block` (one ``"attn"`` block)
+runs after every run of `cfg.blocks`, as in JAX.
+
+The cross-attention archs take a context input (`extras`, JAX's batch
+entries beside the tokens; `configs.extra_inputs` names them):
+``image_embeds`` (B, n_image_tokens, D), cast to the weights' dtype, for
+the ``xattn`` layers; ``audio_frames`` (B, T_enc, D) for an
+encoder-decoder, whose encoder (`LM.encoder`: ``n_enc_layers`` ``enc``
+blocks and its ``final_norm``) turns them into the context of the ``dec``
+layers (`_run_encoder`).  `forward` and the loss wait (ROADMAP Queue 1
+item 8 step 8); so does sharding, since this is one card.
 """
 
 from __future__ import annotations
@@ -66,6 +76,13 @@ class LM(nn.Module):
             )
         if cfg.shared_attn_every:
             self.shared_block = blocks_mod.init_block("attn", cfg, **init)
+        if cfg.encdec:
+            self.encoder = nn.ModuleDict({
+                "blocks": nn.ModuleList(
+                    blocks_mod.init_block("enc", cfg, **init) for _ in range(cfg.n_enc_layers)),
+                "final_norm": init_norm(
+                    cfg.d_model, kind=cfg.norm, gemma_style=cfg.gemma_norm, device=dev),
+            })
 
     @property
     def device(self) -> torch.device:
@@ -84,6 +101,10 @@ class LM(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _norm(cfg) -> dict:
+    return dict(kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
+
+
 def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     x = model.embed[tokens]
     if model.cfg.scale_embed:
@@ -96,12 +117,58 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 
 def _head(model: LM, h: torch.Tensor) -> torch.Tensor:
     cfg = model.cfg
-    h = apply_norm(
-        h, model.final_norm, kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm
-    )
+    h = apply_norm(h, model.final_norm, **_norm(cfg))
     if cfg.tie_embeddings:
         return h @ model.embed.T
     return h @ model.lm_head
+
+
+def _run_encoder(model: LM, frames: torch.Tensor, *, mode: str | None = None) -> torch.Tensor:
+    """The encoder over `frames` (B, T, D), in the weights' dtype, positions
+    from 0 -> the final-normed context (B, T, D)."""
+    h = frames.to(model.embed.dtype)
+    for p in model.encoder["blocks"]:
+        h, _, _ = blocks_mod.apply_block("enc", p, h, model.cfg, mode=mode)
+    return apply_norm(h, model.encoder["final_norm"], **_norm(model.cfg))
+
+
+def context_input(cfg) -> str | None:
+    """The context input `cfg`'s prefill takes (`configs.extra_inputs`):
+    ``audio_frames``, ``image_embeds`` or None."""
+    if cfg.encdec:
+        return "audio_frames"
+    if cfg.cross_attn_layers or any(k == "xattn" for k, _ in cfg.blocks):
+        return "image_embeds"
+    return None
+
+
+def context_len(cfg, extras: dict | None, batch: int) -> int | None:
+    """Rows of the context (the cache's ``ctx_len``) that `extras` give
+    `batch` prompts of `cfg`; None for an arch without one.  Raises
+    `ValueError` if the input is missing or is not (batch, T, d_model)."""
+    name = context_input(cfg)
+    if name is None:
+        return None
+    t = (extras or {}).get(name)
+    if t is None or t.ndim != 3 or t.shape[0] != batch or t.shape[2] != cfg.d_model:
+        got = None if t is None else tuple(t.shape)
+        raise ValueError(
+            f"{cfg.name} needs the context input {name!r} of shape ({batch}, T, {cfg.d_model}) "
+            f"(configs.extra_inputs), got {got}"
+        )
+    return t.shape[1]
+
+
+def _context(model: LM, extras: dict | None, batch: int, *, mode: str | None = None):
+    """Cross-attention context: the image embeddings (VLM) or the encoder's
+    output, in the weights' dtype (JAX: ``cfg.param_dtype``, the same unless
+    the weights were widened); None for an arch without one."""
+    if context_len(model.cfg, extras, batch) is None:
+        return None
+    x = extras[context_input(model.cfg)].to(model.device)
+    if model.cfg.encdec:
+        return _run_encoder(model, x, mode=mode)
+    return x.to(model.embed.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -109,18 +176,21 @@ def _head(model: LM, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def prefill(model: LM, tokens: torch.Tensor, *, mode: str | None = None):
+def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
+            mode: str | None = None):
     """tokens (B, S) -> (logits of the last position (B, V), cache).
-    `mode` reaches the attention kernel (``"ref"``: its plain version).  The
-    MoE metrics are dropped, as JAX's prefill drops them."""
+    `extras` holds the context input of a cross-attention arch (module
+    docstring).  `mode` reaches the attention kernel (``"ref"``: its plain
+    version).  The MoE metrics are dropped, as JAX's prefill drops them."""
     cfg = model.cfg
     B, S = tokens.shape
+    ctx = _context(model, extras, B, mode=mode)
     h = _embed(model, tokens)
     cache: dict = {"groups": [], "shared": [], "pos": S}
     for kind, layers in model.groups():
         entries = []
         for p in layers:
-            h, c, _ = blocks_mod.apply_block(kind, p, h, cfg, mode=mode)
+            h, c, _ = blocks_mod.apply_block(kind, p, h, cfg, ctx=ctx, mode=mode)
             entries.append(c)
         cache["groups"].append({name: torch.stack([c[name] for c in entries]) for name in entries[0]})
         del entries
@@ -179,9 +249,10 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
 
 
 def _group_cache_len(kind: str, gcache) -> int | None:
-    """Ring slots of a run's cache; None for a state kind (no time axis)."""
+    """Ring slots of a run's cache; None for a state kind (no time axis) and
+    for ``xattn`` (its slots are the context's, which decode reads whole)."""
     blocks_mod.check_kind(kind)
-    if kind in blocks_mod.STATE_KINDS:
+    if kind in blocks_mod.STATE_KINDS or kind == "xattn":
         return None
     if kind in blocks_mod.MLA_KINDS:
         return gcache["ckv"].shape[2]  # (L, B, T, r_kv)
@@ -193,19 +264,22 @@ def _group_cache_len(kind: str, gcache) -> int | None:
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg, batch: int, cache_len: int, *, device=None) -> dict:
+def init_cache(cfg, batch: int, cache_len: int, *, ctx_len: int | None = None,
+               device=None) -> dict:
     """Zero cache in the weights' dtype for `cache_len` positions on `device`
     (None = "cuda"): attention layers keep a ring of `cfg.window` slots when
     the arch has a window, MLA layers the full length, each application of
     the shared block a ring of ``min(cache_len, SHARED_ATTN_SLOTS)`` slots,
-    and the state kinds their f32 state (as JAX's)."""
+    the state kinds their f32 state, and the context's K / V `ctx_len` rows
+    (`blocks.init_block_cache`; as JAX's)."""
     dev = resolve_device(device)
     dtype = cfg.param_dtype
     window_len = min(cache_len, cfg.window) if cfg.window else cache_len
     cache: dict = {"groups": [], "shared": [], "pos": 0}
     for kind, count in cfg.blocks:
         clen = cache_len if kind in blocks_mod.MLA_KINDS else window_len
-        one = blocks_mod.init_block_cache(kind, cfg, batch, clen, dtype, device=dev)
+        one = blocks_mod.init_block_cache(kind, cfg, batch, clen, dtype, ctx_len=ctx_len,
+                                          device=dev)
         cache["groups"].append(
             {name: t.new_empty((count, *t.shape)).copy_(t) for name, t in one.items()}
         )

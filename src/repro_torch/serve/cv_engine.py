@@ -75,7 +75,7 @@ from ..cv.config import _UNSET, PipelineConfig, resolve_config
 from ..kernels.stencil import PlanOverBudget
 from ..kernels.stencil.ladder import DEGRADATION_LADDER
 from ..models import lm
-from ..models.blocks import STATE_KINDS
+from ..models.blocks import CONTEXT_ENTRIES, STATE_KINDS
 from ..train.fault import StragglerWatchdog
 from .shard_dispatch import KERNEL_LADDER, ShardDispatcher, check_ladder
 
@@ -524,11 +524,12 @@ class CvEngine:
 
 
 def make_prefill_step(*, mode: str | None = None):
-    """-> prefill_step(model, tokens (B, S)) -> (next token (B,) int32, cache).
-    `mode` reaches the attention kernel (``"ref"``: its plain version)."""
+    """-> prefill_step(model, tokens (B, S), extras=None) -> (next token (B,)
+    int32, cache).  `mode` reaches the attention kernel (``"ref"``: its
+    plain version)."""
 
-    def prefill_step(model, tokens):
-        logits, cache = lm.prefill(model, tokens, mode=mode)
+    def prefill_step(model, tokens, extras=None):
+        logits, cache = lm.prefill(model, tokens, extras=extras, mode=mode)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return prefill_step
@@ -551,14 +552,19 @@ def generate(
     *,
     steps: int,
     cache_len: int | None = None,
+    extras: dict | None = None,
     device=None,
     mode: str | None = None,
 ) -> torch.Tensor:
     """Greedy generation: prefill the (B, S) prompts, then decode; returns
     the (B, steps) int32 tokens.  Runs on `device` (None = "cuda"), where
     the model must lie; `mode` reaches the attention kernel of the prefill.
-    A prompt that the decode buffers cannot hold (`check_prompt_fits`)
-    raises `ValueError` before anything runs."""
+    `extras` holds a cross-attention arch's context input
+    (`configs.extra_inputs`: ``image_embeds`` or ``audio_frames``, moved to
+    `device`); its rows size the cache's context entries, as JAX sizes them
+    from the prefill's context.  A missing or misshapen context input
+    (`lm.context_len`) and a prompt that the decode buffers cannot hold
+    (`check_prompt_fits`) raise `ValueError` before anything runs."""
     dev = resolve_device(device)
     here = model.device
     if here.type != dev.type or (dev.index is not None and here.index != dev.index):
@@ -566,12 +572,14 @@ def generate(
     cfg = model.cfg
     with torch.inference_mode():
         prompt = torch.as_tensor(prompt_tokens, device=dev)
+        extras = {name: torch.as_tensor(t, device=dev) for name, t in (extras or {}).items()}
         B, S = prompt.shape
+        ctx_len = lm.context_len(cfg, extras, B)
         cache_len = cache_len or (S + steps)
-        cache = lm.init_cache(cfg, B, cache_len, device=dev)
+        cache = lm.init_cache(cfg, B, cache_len, ctx_len=ctx_len, device=dev)
         check_prompt_fits(cache, S, cfg)
         decode = make_decode_step()
-        tok, pcache = make_prefill_step(mode=mode)(model, prompt)
+        tok, pcache = make_prefill_step(mode=mode)(model, prompt, extras)
         # re-home the prefill cache into the fixed-size decode buffers
         cache = _adopt_prefill(cache, pcache, cfg)
         del pcache
@@ -582,26 +590,26 @@ def generate(
         return torch.stack(out, dim=1)
 
 
-def _slots(entry: dict, axis: int) -> int:
-    return next(iter(entry.values())).shape[axis]
-
-
 def check_prompt_fits(cache: dict, S: int, cfg) -> None:
     """Raise `ValueError` unless the decode buffers of `cache` can adopt a
-    prompt of `S` tokens: every attention run's buffer holds S slots or is
-    the window's ring, and every shared-block application's ring holds S
-    slots.  The state kinds hold any prompt."""
+    prompt of `S` tokens: every attention run's buffer (`lm._group_cache_len`:
+    ``k`` by name, MLA's ``ckv``) holds S slots or is the window's ring,
+    and every shared-block application's ring holds S slots.  The state
+    kinds hold any prompt; an ``xattn`` run's slots are the context's, not
+    the prompt's (a ``dec`` run's ``xk`` / ``xv`` likewise, beside its
+    ``k``)."""
     for (kind, _), buf in zip(cfg.blocks, cache["groups"]):
-        if kind not in STATE_KINDS and S > _slots(buf, 2) != cfg.window:
+        slots = lm._group_cache_len(kind, buf)
+        if slots is not None and S > slots != cfg.window:
             raise ValueError(
-                f"a prompt of {S} tokens does not fit a decode cache of {_slots(buf, 2)} slots "
+                f"a prompt of {S} tokens does not fit a decode cache of {slots} slots "
                 f"(window {cfg.window})"
             )
     for buf in cache.get("shared", []):
-        if S > _slots(buf, 1):
+        if S > buf["k"].shape[1]:
             raise ValueError(
                 f"a prompt of {S} tokens does not fit the shared block's ring of "
-                f"{_slots(buf, 1)} slots"
+                f"{buf['k'].shape[1]} slots"
             )
 
 
@@ -630,31 +638,35 @@ def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
     after decode's first write (position S at slot ``S % T``) the ring
     holds positions ``S - T + 1 .. S``, exactly the window's keys, which
     `lm.ring_positions(S, T)` names.  The state kinds' entries (no time
-    axis) are copied whole.  Each shared-block application's ``k`` / ``v``
-    (time axis 1) go to its ring as a full cache's.  A prompt that does not
-    fit (`check_prompt_fits`) raises `ValueError`.
+    axis) and the context's K / V (``xattn``'s ``k`` / ``v``, ``dec``'s
+    ``xk`` / ``xv``: `blocks.CONTEXT_ENTRIES`, sized by `generate` from
+    the context input) are copied whole; a shape that differs raises
+    `ValueError`.  Each shared-block application's ``k`` / ``v`` (time axis
+    1) go to its ring as a full cache's.  A prompt that does not fit
+    (`check_prompt_fits`) raises `ValueError`.
 
     This departs from JAX's `_adopt_prefill` (`repro.serve.cv_engine`) in
     three ways, each where JAX keeps a zeroed buffer: a sliding-window ring
     when S > T, where JAX's decode attends to zeros marked valid; a shared
-    ring shorter than the prompt, which raises here; and a state entry
-    whose shape differs, which the port's prefill never makes (its conv
-    tail is always K - 1 rows, `models.ssm.conv_tail`).  The port is held
-    to JAX's `lm.forward` there, not to JAX's `generate`."""
+    ring shorter than the prompt, which raises here; and a state or
+    context entry whose shape differs, which the port's prefill never makes
+    (its conv tail is always K - 1 rows, `models.ssm.conv_tail`; `generate`
+    sizes the context entries from the input).  The port is held to JAX's
+    `lm.forward` there, not to JAX's `generate`."""
     check_prompt_fits(cache, pcache["pos"], cfg)
     for (kind, _), buf, pre in zip(cfg.blocks, cache["groups"], pcache["groups"], strict=True):
         if set(buf) != set(pre):
             raise ValueError(f"prefill cache entries {sorted(pre)} against {sorted(buf)}")
-        if kind not in STATE_KINDS:
-            _put_positions(buf, pre, axis=2)
-            continue
-        for name, dst in buf.items():
-            if dst.shape != pre[name].shape:
+        whole = tuple(buf) if kind in STATE_KINDS else CONTEXT_ENTRIES.get(kind, ())
+        for name in whole:
+            if buf[name].shape != pre[name].shape:
                 raise ValueError(
-                    f"{kind} state {name}: prefill {tuple(pre[name].shape)} against "
-                    f"{tuple(dst.shape)}"
+                    f"{kind} {name}: prefill {tuple(pre[name].shape)} against "
+                    f"{tuple(buf[name].shape)}"
                 )
-            dst.copy_(pre[name])
+        _put_positions({n: t for n, t in buf.items() if n not in whole}, pre, axis=2)
+        for name in whole:
+            buf[name].copy_(pre[name])
     for buf, pre in zip(cache.get("shared", []), pcache.get("shared", []), strict=True):
         _put_positions(buf, pre, axis=1)
     return dict(cache, pos=pcache["pos"])

@@ -438,3 +438,32 @@ def test_attention_above_8192_positions_needs_blockwise():
     counters.reset()
     assert tattn.attention(x, x, x).shape == x.shape
     assert counters.PLAIN_CALLS["flash_attention"] == 1
+
+
+# (B, S, T, H, Hkv, hd): llama-3.2-vision-11b's cross-attention, 32 query
+# heads over 8 KV heads of 128 against its 1600 image tokens (25 full key
+# tiles), non-causal: a decode step's single query row (127 of the 128-row
+# query tile past S) and one request of the prefill's 1024 rows
+CROSS_SHAPES = [(1, 1, 1600, 32, 8, 128), (1, 1024, 1600, 32, 8, 128)]
+
+
+@pytest.mark.parametrize("shape", CROSS_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wgmma_replay_at_the_cross_attention_shapes(shape):
+    """The 16-bit kernel's tile walk at ``causal=False`` on the
+    cross-attention shapes, bf16: within `AGREE` of JAX's `attention_ref`
+    (over the repeated KV) and of the plain version, and within
+    `OFF_PLAIN_SHARE` of the plain version, which the same walk with p_hi
+    alone exceeds."""
+    (jq, jk, jv), (tq, tk, tv) = _gqa_qkv(shape, "bfloat16", sum(shape))
+    got, dist = _replay_wgmma(tq, tk, tv, False)
+    assert dist <= 2.0**-16
+    rtol, atol = kattn.AGREE[tq.dtype]
+    want = jref.attention_ref(jq, jk, jv, causal=False)
+    np.testing.assert_allclose(_np(got), np.asarray(want.astype(jnp.float32)), rtol=rtol, atol=atol)
+    plain = kattn.flash_attention_plain(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=rtol, atol=atol)
+    single, _ = _replay_wgmma(tq, tk, tv, False, split=False)
+    off_split = float((got != plain).float().mean())
+    off_single = float((single != plain).float().mean())
+    print(f"outputs off the plain version's: split {off_split:.5f}, p_hi alone {off_single:.5f}")
+    assert off_split <= kattn.OFF_PLAIN_SHARE < off_single

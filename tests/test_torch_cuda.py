@@ -672,6 +672,76 @@ def test_reduced_generate_of_each_recurrent_arch(dev, arch, prompt_len):
     assert torch.equal(out, cv_engine.generate(model, prompts, steps=5))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,T,H,Hkv,hd", [(1, 1600, 32, 8, 128), (1024, 1600, 32, 8, 128),
+                                          (1, 1024, 16, 16, 64), (1024, 1024, 16, 16, 64),
+                                          (1, 1601, 4, 2, 128), (130, 70, 4, 4, 64)])
+def test_flash_attention_off_the_causal_mask(dev, S, T, H, Hkv, hd, dtype):
+    """The cross-attention archs' non-causal calls: llama-3.2-vision-11b's 32
+    query heads over 8 KV heads of 128 against its 1600 image tokens,
+    seamless-m4t-large-v2's 16 heads of 64 (one 64-channel chunk) against
+    its encoder's 1024 rows and in its encoder, each at a decode step's
+    single query row (127 rows of the 16-bit body's 128-row tile past S)
+    and at a 1024-row prefill; then a key tail of one row past a tile and
+    S > T.  Within `AGREE` of the plain version (and, in bf16, within
+    `OFF_PLAIN_SHARE`) and of the f32 oracle, one launch each."""
+    g = torch.Generator(device=dev).manual_seed(S + T + H + hd)
+    q = torch.randn((2, S, H, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, T, Hkv, hd), generator=g, device=dev).to(dtype) for _ in range(2))
+    counters.reset()
+    got = kattn.flash_attention(q, k, v, causal=False)
+    want = kattn.flash_attention(q, k, v, causal=False, mode="ref")
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["flash_attention"] == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = kattn.AGREE[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    if dtype != torch.float32:
+        assert float((got != want).float().mean()) <= kattn.OFF_PLAIN_SHARE
+    rep = H // Hkv
+    oracle = ref.attention_ref(q, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2),
+                               causal=False)
+    torch.testing.assert_close(got.float(), oracle.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-large-v2"])
+def test_reduced_generate_of_each_cross_attention_arch(dev, arch):
+    """One `generate` of reduced llama-3.2-vision-11b (gated cross-attention
+    layers over 16 image tokens, the gates set to 0.5) and
+    seamless-m4t-large-v2 (the encoder over 40 audio frames, then decoder
+    layers of self- and cross-attention): the prefill launches the kernel
+    once an attention application (the encoder's included), each decode
+    step once a cross-attention layer; no plain version; the same tokens
+    twice; other context inputs give other tokens."""
+    from repro_torch.launch.serve import make_extras
+    from repro_torch.models import lm
+    from repro_torch.models.blocks import CONTEXT_ENTRIES
+
+    cfg = reduced_config(arch)
+    model = LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("gate_attn", "gate_mlp")):
+                p.fill_(0.5)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=torch.Generator().manual_seed(1))
+    extras = make_extras(cfg, 3, 40, generator=torch.Generator(dev).manual_seed(2), device=dev)
+    n_cross = sum(c for k, c in cfg.blocks if k in CONTEXT_ENTRIES)
+    n_self = sum(c for k, c in cfg.blocks if k != "xattn")
+    counters.reset()
+    out = cv_engine.generate(model, prompts, steps=5, extras=extras)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 5) and out.device.type == "cuda"
+    assert counters.LAUNCHES["flash_attention"] == (
+        cfg.n_enc_layers + n_self + n_cross + 4 * n_cross)
+    assert sum(counters.PLAIN_CALLS.values()) == 0
+    assert torch.equal(out, cv_engine.generate(model, prompts, steps=5, extras=extras))
+    other = {n: t * 50 for n, t in extras.items()}
+    with torch.inference_mode():
+        a, _ = lm.prefill(model, prompts.to(dev), extras=extras)
+        b, _ = lm.prefill(model, prompts.to(dev), extras=other)
+    assert float((a.float() - b.float()).abs().max()) > 1e-2
+
+
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
 def test_reduced_generate_of_each_moe_arch(dev, arch):
     """One `generate` of reduced arctic-480b (GQA + the MoE FFN beside a

@@ -75,11 +75,14 @@ def test_reduced_config_matches_jax_and_full_width_is_published():
         "deepseek-v3-671b": (61, 7168, 128, 128, 128, 18432, 129280),
         "zamba2-2.7b": (54, 2560, 32, 32, 80, 10240, 32000),
         "xlstm-125m": (12, 768, 4, 4, 192, 0, 50304),
+        "llama-3.2-vision-11b": (40, 4096, 32, 8, 128, 14336, 128256),
+        "seamless-m4t-large-v2": (24, 1024, 16, 16, 64, 8192, 256206),
     }
     assert ARCHS == list(published)
     for arch, widths in published.items():
         for name in ("d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff", "vocab_size", "blocks",
-                     "window", "shared_attn_every"):
+                     "window", "shared_attn_every", "cross_attn_layers", "n_image_tokens",
+                     "encdec", "n_enc_layers"):
             assert getattr(reduced_config(arch), name) == getattr(jax_reduced_config(arch), name)
         for name in SUB_CONFIGS:
             assert _fields(getattr(reduced_config(arch), name)) == _fields(
@@ -109,22 +112,19 @@ def _assert_published(arch):
             assert got == want, (arch, f.name)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "arctic-480b", "deepseek-v3-671b", "xlstm-125m"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "arctic-480b", "deepseek-v3-671b", "xlstm-125m",
+                                  "llama-3.2-vision-11b", "seamless-m4t-large-v2"])
 def test_registry_raises_on_an_unported_arch(arch):
-    if arch in ARCHS:
-        # all four are ported (arctic-480b and deepseek-v3-671b in Queue 1 item 8
-        # steps 4-5, zamba2-2.7b and xlstm-125m in step 6): their published and
-        # reduced configs are JAX's
-        _assert_published(arch)
-        with pytest.raises(KeyError, match="unknown arch"):
-            get_config("no-such-arch")
-        return
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 8, step [6-7]"):
-        get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        reduced_config(arch)
+    # all six are ported (arctic-480b and deepseek-v3-671b in Queue 1 item 8
+    # steps 4-5, zamba2-2.7b and xlstm-125m in step 6, llama-3.2-vision-11b and
+    # seamless-m4t-large-v2 in step 7): their published and reduced configs are
+    # JAX's; only an arch the JAX package lacks raises
+    assert arch in ARCHS
+    _assert_published(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
+    with pytest.raises(KeyError, match="unknown arch"):
+        reduced_config("no-such-arch")
 
 
 @pytest.mark.parametrize(
@@ -150,6 +150,16 @@ def test_config_refuses_a_field_of_an_unported_part(field, value):
             assert get_config("zamba2-2.7b").ssm.n_heads == jax_get_config("zamba2-2.7b").ssm.n_heads == 80
             assert _fields(tconfig.XLSTMConfig()) == _fields(jconfig.XLSTMConfig())
         return
+    if field in ("encdec", "cross_attn_layers"):
+        # ported (Queue 1 item 8 step 7): JAX's defaults, with n_enc_layers and
+        # n_image_tokens, and the values of the archs that set them
+        for name in ("encdec", "n_enc_layers", "cross_attn_layers", "n_image_tokens"):
+            assert (tconfig.ModelConfig.__dataclass_fields__[name].default
+                    == jconfig.ModelConfig.__dataclass_fields__[name].default)
+            for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2", "gemma-7b"):
+                assert getattr(get_config(arch), name) == getattr(jax_get_config(arch), name)
+        assert getattr(reduced_config("gemma-7b").replace(**{field: value}), field) == value
+        return
     if field == "shared_attn_every":
         # ported (Queue 1 item 8 step 6): JAX's default and zamba2-2.7b's value
         assert reduced_config("gemma-7b").replace(**{field: value}).shared_attn_every == value
@@ -163,24 +173,31 @@ def test_config_refuses_a_field_of_an_unported_part(field, value):
 
 @pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "xattn", "dec"])
 def test_unported_block_kinds_raise(kind):
-    if kind in ("moe", "mla", "mamba"):
-        # ported (Queue 1 item 8 steps 4-6): a model of two such layers builds,
-        # prefills and decodes, with its kind's cache entries
-        arch = {"moe": "arctic-480b", "mla": "deepseek-v3-671b", "mamba": "zamba2-2.7b"}[kind]
-        cfg = reduced_config(arch).replace(blocks=((kind, 2),), dtype="float32")
-        model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-        toks = torch.from_numpy(_tokens(cfg, 0, 10))
-        lg, pc = tlm.prefill(model, toks)
-        assert lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all())
-        names = {"moe": {"k", "v"}, "mla": {"ckv", "kr"}, "mamba": {"ssm", "conv"}}[kind]
-        assert set(pc["groups"][0]) == names
-        cache = tengine._adopt_prefill(tlm.init_cache(cfg, B, 12, device="cpu"), pc, cfg)
-        lg, cache = tlm.decode_step(model, toks[:, :1], cache)
-        assert lg.shape == (B, cfg.vocab_size) and cache["pos"] == 11
-        return
-    cfg = reduced_config("gemma-7b").replace(blocks=((kind, 2),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg, device="cpu")
+    # every kind is ported (Queue 1 item 8 steps 4-7): a model of two such
+    # layers builds, prefills and decodes, with its kind's cache entries; xattn
+    # and dec over a context of 7 rows (image embeddings; the encoder's
+    # output).  Only a kind the JAX package lacks raises.
+    arch = {"moe": "arctic-480b", "mla": "deepseek-v3-671b", "mamba": "zamba2-2.7b",
+            "xattn": "llama-3.2-vision-11b", "dec": "seamless-m4t-large-v2"}[kind]
+    cfg = reduced_config(arch).replace(blocks=((kind, 2),), dtype="float32")
+    model = LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(cfg, 0, 10))
+    extras = {name: torch.randn(B, 7, cfg.d_model, generator=torch.Generator().manual_seed(1))
+              for name in [tlm.context_input(cfg)] if name}
+    lg, pc = tlm.prefill(model, toks, extras=extras)
+    assert lg.shape == (B, cfg.vocab_size) and bool(torch.isfinite(lg).all())
+    names = {"moe": {"k", "v"}, "mla": {"ckv", "kr"}, "mamba": {"ssm", "conv"},
+             "xattn": {"k", "v"}, "dec": {"k", "v", "xk", "xv"}}[kind]
+    assert set(pc["groups"][0]) == names
+    if kind in ("xattn", "dec"):
+        for name in tblocks.CONTEXT_ENTRIES[kind]:
+            assert pc["groups"][0][name].shape == (2, B, 7, cfg.n_kv_heads, cfg.head_dim)
+    cache = tengine._adopt_prefill(
+        tlm.init_cache(cfg, B, 12, ctx_len=7 if extras else None, device="cpu"), pc, cfg)
+    lg, cache = tlm.decode_step(model, toks[:, :1], cache)
+    assert lg.shape == (B, cfg.vocab_size) and cache["pos"] == 11
+    with pytest.raises(ValueError, match="unknown block kind"):
+        LM(reduced_config("gemma-7b").replace(blocks=(("no-such-kind", 2),)), device="cpu")
 
 
 def test_prefill_and_decode_match_jax_f32():
