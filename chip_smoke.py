@@ -205,13 +205,30 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      and decode reads the 4096-slot ring that holds the prompt's last 4096
      positions; widened to f32, every step's logits within 2e-3 of one
      full-sequence walk's at that position;
- 12. on the paths' own tensors (the first request, the training
+ 12. the LM training path (`train_phase`): gemma-7b at full width (d 3072,
+     16 heads of 256, d_ff 24576, vocab 256000, bf16, remat on), 4 x 1024
+     tokens a step through `train.loop.train`: (a) 8 of 28 layers with
+     AdamW, 4 steps on a repeated batch at warmup 1, the loss falling, 16
+     `flash_attention` launches a step (8 forward, 8 recomputed under
+     remat) and 8 plain backward calls (`counters.BACKWARD_CALLS`), no
+     plain forward; step times, tokens a second, peak memory, a profiled
+     step's device time with the kernel's and the plain backward's
+     shares, and one layer's kernel output against its plain version
+     within `AGREE`; (b) all 28 layers with Adafactor, 2 steps, peak
+     memory and step time; (c) at 2 layers in f32, the loss and every
+     gradient against the plain route (`mode="ref"`), w_q / w_k / w_v
+     gradients non-zero, and the same in bf16 at bf16's bounds; (d) one
+     step of each arch's reduced config in f32 against the plain route,
+     each route at the launches the config's attention layers imply;
+     a checkpoint round trip (preempted at step 2, resumed, against an
+     unbroken run);
+ 13. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, count the device activities of one `bow_quantize_hist`
      call with torch.profiler (exactly its kernel: no memset, cast or
      normalising launch), then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 13. print the window arithmetic of the request's octave with its frames
+ 14. print the window arithmetic of the request's octave with its frames
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
      the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
      kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
@@ -282,6 +299,24 @@ LONG_ARCH, LONG_PROMPT, LONG_GEN = "h2o-danube-3-4b", 8704, 8
 # the recurrent archs' short request: a prompt under the conv's K - 1 = 3
 # taps, the port's fourth departure from JAX (models/ssm.py)
 SHORT_PROMPT, SHORT_GEN = 2, 8
+# the training path (`train_phase`): gemma-7b at full width, 4 x 1024 tokens a
+# step; (a) 8 of its 28 layers with AdamW (~3.0 B parameters, ~36 GB with the
+# f32 moments), 4 steps on a repeated batch at warmup 1 and peak lr 1e-4 (a
+# smaller step leaves most bf16 weights unchanged: 1e-4 is ~1/180 of a weight
+# of the init's 1 / sqrt(3072), bf16's ulp is 1/128 to 1/256 of a value);
+# (b) all 28 with Adafactor (~8.5 B, ~34 GB of weights and gradients), 2
+# steps, else the most layers of the fallbacks that fit; (c) the gradient
+# check at 2 layers, 2 x 1024 tokens, in f32 (loss within 1e-5 relative, every
+# gradient within 1e-3 in relative L2 of the plain route) and in bf16 (loss
+# within 2^-10, every gradient within 2^-6 in relative L2, the card test's
+# bound: an H100 read 6.8e-6 and 0.18-0.40%); (d) one step of each arch's
+# reduced config in f32, 2 x 128 tokens
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "gemma-7b", 4, 1024
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 8, 4, 1e-4
+TRAIN_FULL_STEPS, TRAIN_FALLBACK_LAYERS = 2, (28, 20, 14)
+GRAD_LAYERS, GRAD_BATCH, GRAD_LOSS_RTOL, GRAD_RTOL = 2, 2, 1e-5, 1e-3
+GRAD_BF16_LOSS_RTOL, GRAD_BF16_RTOL = 2.0**-10, 2.0**-6
+REDUCED_BATCH, REDUCED_SEQ = 2, 128
 # the cross-attention archs' gates after the seeded init (JAX's init: 0, so
 # that a gated layer is the identity and no check could see it)
 GATE = 0.5
@@ -2066,6 +2101,39 @@ def attention_applications(cfg) -> int:
     return n + (len(cfg.blocks) if cfg.shared_attn_every else 0)
 
 
+def kernel_applications(cfg, seq: int) -> int:
+    """The attention applications of one forward of `cfg` over `seq`
+    positions from 0 (`attention_applications`) that take the flash kernel,
+    by `models.attention.kernel_route`'s rules worked out on the config
+    alone: the head dim (MLA's qk_nope + qk_rope, v padded to it) a multiple
+    of 8 in [8, MAX_HEAD_DIM], no ``attn_scale``; self-attention (the
+    encoder's over its ``min(seq, 4096)`` frames too) also no soft cap and
+    no window or one that covers the sequence; MLA and cross-attention take
+    neither."""
+    from repro_torch.kernels.attention import MAX_HEAD_DIM
+    from repro_torch.models import blocks
+
+    if cfg.attn_scale is not None:
+        return 0
+
+    def fits(hd: int) -> bool:
+        return hd % 8 == 0 and 8 <= hd <= MAX_HEAD_DIM
+
+    def self_ok(n: int) -> bool:
+        return (fits(cfg.head_dim) and cfg.attn_soft_cap is None
+                and (cfg.window is None or n <= cfg.window))
+
+    n_self = sum(c for k, c in cfg.blocks
+                 if k not in blocks.STATE_KINDS + blocks.MLA_KINDS and k != "xattn")
+    n_self += len(cfg.blocks) if cfg.shared_attn_every else 0
+    n_mla = sum(c for k, c in cfg.blocks if k in blocks.MLA_KINDS)
+    n = n_self * self_ok(seq) + cfg.n_enc_layers * self_ok(min(seq, 4096))
+    n += cross_applications(cfg) * fits(cfg.head_dim)
+    if n_mla:
+        n += n_mla * fits(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
+    return n
+
+
 def decode_vs_walk(model, cfg, prompts, tokens, context=None) -> tuple[list, float]:
     """With `model`'s weights in f32 (`cfg` its f32 config): the logits of
     the prefill's last position and of each decode step fed `tokens`
@@ -2510,6 +2578,357 @@ def lm_phase(dev, cfg, *, batch: int, prompt_len: int, gen_len: int, max_err: di
             out["f32_step_errs_short" if what else "f32_step_errs"] = e
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+class RepeatedBatch:
+    """A data stream whose every step is `stream`'s step 0, with `extras`
+    (a context input) beside the tokens: the repeated batch of JAX's
+    test_loss_decreases, on which the loss must fall."""
+
+    def __init__(self, stream, extras: dict | None = None):
+        self.batch = stream.batch_at(0) | (extras or {})
+
+    def batch_at(self, step: int) -> dict:
+        return self.batch
+
+
+def rel_l2(a, b) -> float:
+    """|a - b| / |b| in f32 (|a| where b is 0)."""
+    den = float(b.float().norm())
+    diff = float((a.float() - b.float()).norm())
+    return diff / den if den else diff
+
+
+def loss_and_grads(model, batch: dict, mode=None) -> tuple:
+    """One `train.step.loss_fn` and its backward -> (loss, metrics, {name:
+    a copy of the gradient}); the model's gradients are cleared after."""
+    import torch
+    from repro_torch.train import step as tstep
+
+    model.zero_grad(set_to_none=True)
+    loss, metrics = tstep.loss_fn(model, batch, mode=mode)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters() if p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def profile_step(step_fn, state: dict, batch: dict) -> dict:
+    """One train step under torch.profiler: the device time of every
+    activity on the card, of the flash kernel's launches, and of the plain
+    backward (its ``flash_attention_backward`` range); the host wall of
+    the step (with the profiler's own cost)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn(state, batch)  # warm-up: cuBLAS handles, the allocator's pools
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # the device's activities; the range's mirror on the device timeline
+    # (a user annotation, not an activity) would count the backward twice
+    dev_us = [(e.name, e.time_range.elapsed_us()) for e in events
+              if e.device_type == cuda and e.name != "flash_attention_backward"]
+    busy = sum(t for _, t in dev_us) / 1e3
+    flash = sum(t for n, t in dev_us if "flash_attn" in n) / 1e3
+
+    def device_total(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    bwd = sum(device_total(e) for e in events
+              if e.name == "flash_attention_backward" and e.device_type != cuda) / 1e3
+    return {"device_ms": busy, "flash_kernel_ms": flash, "plain_backward_ms": bwd,
+            "wall_ms": wall_ms, "activities": len(dev_us),
+            "flash_share": flash / busy if busy else None,
+            "plain_backward_share": bwd / busy if busy else None}
+
+
+def train_phase(dev, card: str, path_counts: dict, results: dict) -> dict:
+    """The training path (`train.loop.train`, `train.step`, the optimizers,
+    `lm.forward` with remat, `flash_attention` under autograd):
+    (a) `TRAIN_ARCH` at full width cut to `TRAIN_LAYERS` layers, AdamW (the
+        launcher's default), bf16, remat on, `TRAIN_BATCH` x `TRAIN_SEQ`
+        tokens, `TRAIN_STEPS` steps on a repeated batch at warmup 1 and
+        peak lr `TRAIN_LR`: the loss finite and falling, 2 kernel launches
+        a layer a step (the forward and the recompute) and one plain
+        backward, no plain forward; step times, tokens a second, peak
+        memory; then, in a process of its own (`train_profile_main`), a
+        warm-up step and a step under torch.profiler (the kernel's and the
+        plain backward's shares of its device time); and one layer's
+        attention: the kernel's output held to its plain version within
+        `kernels.attention.AGREE`, the plain backward timed beside SDPA's;
+    (b) the same at full depth with Adafactor, `TRAIN_FULL_STEPS` steps
+        (the most layers of `TRAIN_FALLBACK_LAYERS` that fit);
+    (c) at `GRAD_LAYERS` layers in f32, the loss and every gradient of the
+        kernel route against `mode="ref"` (within `GRAD_LOSS_RTOL` and
+        `GRAD_RTOL`), w_q / w_k / w_v gradients non-zero; in bf16 the same
+        within `GRAD_BF16_LOSS_RTOL` and `GRAD_BF16_RTOL`;
+    (d) one train step of each arch's reduced config in f32, kernel against
+        `mode="ref"` (loss and grad norm within (c)'s bounds), each route
+        calling the kernel, or its plain version, and the plain backward as
+        often as `kernel_applications` works out from the config;
+    and a checkpoint round trip of reduced gemma-7b in f32: a 4-step run
+    preempted after step 2 (SIGTERM, as JAX's test), resumed from its
+    checkpoint, against an unbroken run.  (a) and (b) go into
+    `path_counts`; (c), (d) and the round trip compare and do not."""
+    import gc
+    import os
+    import signal
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS, get_config, reduced_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import counters
+    from repro_torch.launch.serve import make_extras
+    from repro_torch.models import lm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import loop
+    from repro_torch.train import step as tstep
+
+    out: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def device_batch(batch):
+        return {k: v.to(dev) for k, v in batch.items()}
+
+    def run(cfg, steps, optimizer, tag):
+        stream = RepeatedBatch(TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH))
+        torch.cuda.reset_peak_memory_stats(dev)
+        counters.reset()
+        state, hist = loop.train(cfg, stream, steps=steps, optimizer=optimizer,
+                                 peak_lr=TRAIN_LR, warmup=1, log_every=1, async_save=False,
+                                 device=dev, log=lambda m: print(f"{tag}: {m}"))
+        snap = counters.snapshot()
+        n_attn = attention_applications(cfg)
+        expect_counts(tag, snap, {"flash_attention": 2 * n_attn * steps})
+        check(snap["backward_calls"]["flash_attention"] == n_attn * steps,
+              f"{tag}: plain backward calls {snap['backward_calls']} != {n_attn * steps}")
+        losses = [h["loss"] for h in hist]
+        times = [h["seconds"] for h in hist]
+        check(all(math.isfinite(x) for x in losses), f"{tag}: loss not finite: {losses}")
+        n_params = sum(p.numel() for p in state["model"].parameters())
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        res = {"layers": cfg.n_layers, "optimizer": optimizer, "params": n_params,
+               "losses": losses, "step_s": times, "tokens_per_s": tokens / min(times[1:]),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "max_memory_reserved": torch.cuda.max_memory_reserved(dev),
+               "counters": snap}
+        print(f"{tag}: {n_params / 1e9:.3f} B parameters, losses={losses}, step_s={times}, "
+              f"tokens_per_s={res['tokens_per_s']:.1f} (best step after the first), "
+              f"max_memory_allocated={res['max_memory_allocated']} "
+              f"max_memory_reserved={res['max_memory_reserved']}, launches="
+              f"{snap_nonzero(snap)} backward_calls={snap['backward_calls']} card={card}")
+        path_counts[tag] = snap
+        return state, res
+
+    # -- (a) full width, TRAIN_LAYERS layers, AdamW -----------------------------
+    cfg_a = get_config(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    tag = f"train {cfg_a.name} x{TRAIN_LAYERS} adamw"
+    state, res = run(cfg_a, TRAIN_STEPS, "adamw", tag)
+    check(res["losses"][-1] < res["losses"][0],
+          f"{tag}: the loss did not fall on a repeated batch: {res['losses']}")
+    out["a"] = res
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the profiled step runs in a process of its own (`train_profile_main`):
+    # on an H100, a second torch.profiler run in one process (phase 13's
+    # device-activity check) recorded no activity of the card
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--train-profile"],
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"{tag}: the profiled step failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    res["profile"] = prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"{tag}: one step under torch.profiler (its own process, after a warm-up step): "
+          f"device_ms={prof['device_ms']:.3f} ({prof['activities']} activities) "
+          f"flash_kernel_ms={prof['flash_kernel_ms']:.3f} (share {prof['flash_share']}) "
+          f"plain_backward_ms={prof['plain_backward_ms']:.3f} (share "
+          f"{prof['plain_backward_share']}) wall_ms={prof['wall_ms']:.3f} card={card}")
+
+    # one layer's attention of (a): the kernel forward, the plain backward and
+    # SDPA's forward + backward (the yardstick), on the same bf16 tensors
+    g = torch.Generator(dev).manual_seed(3)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg_a.n_heads, cfg_a.head_dim)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o = kattn.flash_attention(q, k, v)
+    want = kattn.flash_attention_plain(q, k, v, causal=True)
+    rtol, atol = kattn.AGREE[q.dtype]
+    diff = (o.float() - want.float()).abs()
+    excess = float((diff / (atol + rtol * want.float().abs())).max())
+    off = float((o != want).float().mean())
+    print(f"check flash_attention train layer {shape} bf16 causal: max_abs_err="
+          f"{float(diff.max()):.3g} share of the tolerance={excess:.3g} (rtol {rtol:.3g}, atol "
+          f"{atol:.3g}); outputs off the plain version's: {off:.5f} (limit {kattn.OFF_PLAIN_SHARE})")
+    check(excess <= 1.0 and off <= kattn.OFF_PLAIN_SHARE,
+          f"flash_attention train layer: {excess:.3g} times its tolerance, {off:.3g} off plain")
+    del want, diff
+    bwd = [time_ms(lambda: kattn.flash_attention_backward(q, k, v, o, do), iters=5)
+           for _ in range(2)]
+    fwd = [time_ms(lambda: kattn.flash_attention(q, k, v), iters=20) for _ in range(2)]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), iters=20)
+    b = flash_bound(q, k)
+    # the backward's work: q.k recomputed, then dV, dP, dQ and dK, five
+    # products of the forward's q.k size, at the tensor cores' rate; q, k,
+    # v, o and dO read once, dq, dk and dv written once
+    bwd_bytes = 8 * q.numel() * q.element_size()
+    bwd_bound = max(bwd_bytes / PEAK_BYTES_PER_S, 5 * b["flops_one_pv"] / 2 / PEAK_BF16_FLOPS) * 1e3
+    out["attention_layer"] = {"shape": list(shape), "forward_ms": min(fwd),
+                              "plain_backward_ms": min(bwd), "plain_backward_runs": bwd,
+                              "backward_bound_ms": bwd_bound, "sdpa_fwd_bwd_ms": sdpa}
+    print(f"time flash_attention train layer {shape} bf16 causal: kernel forward ms={fwd} "
+          f"plain backward ms={bwd} (bound {bwd_bound:.5f}, operations) SDPA forward+backward "
+          f"ms={sdpa:.5f} card={card}")
+    del q, k, v, do, o, qt, kt, vt, dot
+
+    # -- (b) full depth, Adafactor ------------------------------------------------
+    for layers in TRAIN_FALLBACK_LAYERS:
+        cfg_b = get_config(TRAIN_ARCH, n_layers=layers)
+        tag = f"train {cfg_b.name} x{layers} adafactor"
+        try:
+            state, res = run(cfg_b, TRAIN_FULL_STEPS, "adafactor", tag)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"{tag}: does not fit the card ({str(e).splitlines()[0]}); fewer layers")
+            state = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        break
+    check(state is not None, f"train {TRAIN_ARCH} adafactor: no depth of "
+          f"{TRAIN_FALLBACK_LAYERS} fits the card")
+    out["b"] = res
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (c) the gradients of the kernel route against the plain route ---------
+    batch = device_batch(TokenStream(vocab_size=cfg_a.vocab_size, seq_len=TRAIN_SEQ,
+                                     global_batch=GRAD_BATCH).batch_at(0))
+    out["c"] = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg_c = get_config(TRAIN_ARCH, n_layers=GRAD_LAYERS).replace(dtype=dtype)
+        model = lm.make_trainable(lm.LM(cfg_c, device=dev,
+                                        generator=torch.Generator(dev).manual_seed(0)))
+        counters.reset()
+        lk, _, gk = loss_and_grads(model, batch)
+        snap_k = counters.snapshot()
+        counters.reset()
+        lr_, _, gr = loss_and_grads(model, batch, mode="ref")
+        snap_r = counters.snapshot()
+        n_attn = attention_applications(cfg_c)
+        expect_counts(f"grad check {dtype} kernel route", snap_k, {"flash_attention": 2 * n_attn})
+        check(snap_r["plain_calls"]["flash_attention"] == 2 * n_attn
+              and not any(snap_r["launches"].values()),
+              f"grad check {dtype} plain route: {snap_r}")
+        dist = {n: rel_l2(gk[n], gr[n]) for n in gk}
+        qkv = {n: float(gk[n].float().norm()) for n in gk if n.endswith(("w_q", "w_k", "w_v"))}
+        loss_rel = abs(lk - lr_) / abs(lr_)
+        worst = max(dist, key=dist.get)
+        out["c"][dtype] = {"loss": lk, "loss_ref": lr_, "loss_rel": loss_rel, "grad_rel_l2": dist,
+                           "qkv_grad_norms": qkv}
+        print(f"grad check {cfg_c.name} x{GRAD_LAYERS} {dtype} {GRAD_BATCH}x{TRAIN_SEQ}: loss "
+              f"{lk} vs plain route {lr_} (rel {loss_rel:.3g}); gradient rel L2 max "
+              f"{dist[worst]:.3g} ({worst}), median {statistics.median(dist.values()):.3g}; "
+              f"w_q/w_k/w_v gradient norms {qkv} card={card}")
+        check(all(v > 0 for v in qkv.values()), f"grad check {dtype}: a zero q/k/v gradient")
+        loss_tol, grad_tol = ((GRAD_LOSS_RTOL, GRAD_RTOL) if dtype == "float32" else
+                              (GRAD_BF16_LOSS_RTOL, GRAD_BF16_RTOL))
+        check(loss_rel <= loss_tol, f"grad check {dtype}: loss off by {loss_rel}")
+        check(dist[worst] <= grad_tol, f"grad check {dtype}: {worst} off by {dist[worst]}")
+        del model, gk, gr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (d) one step of each reduced config, kernel against the plain route ----
+    out["d"] = {}
+    for arch in ARCHS:
+        cfg_d = reduced_config(arch).replace(dtype="float32")
+
+        def one_step(mode):
+            state = tstep.init_state(cfg_d, device=dev,
+                                     generator=torch.Generator(dev).manual_seed(0))
+            if lm.context_input(cfg_d):
+                set_gates(state["model"])
+            extras = make_extras(cfg_d, REDUCED_BATCH, REDUCED_SEQ,
+                                 generator=torch.Generator(dev).manual_seed(1), device=dev)
+            batch = device_batch(TokenStream(vocab_size=cfg_d.vocab_size, seq_len=REDUCED_SEQ,
+                                             global_batch=REDUCED_BATCH).batch_at(0)) | extras
+            counters.reset()
+            _, m = tstep.make_train_step(cfg_d, peak_lr=1e-3, warmup=1, mode=mode)(state, batch)
+            return {k: float(m[k]) for k in ("loss", "grad_norm")}, counters.snapshot()
+
+        mk, sk = one_step(None)
+        mr, sr = one_step("ref")
+        want = kernel_applications(cfg_d, REDUCED_SEQ)
+        expect_counts(f"train step {arch} reduced", sk, {"flash_attention": want})
+        check(sr["plain_calls"]["flash_attention"] == want and not any(sr["launches"].values()),
+              f"train step {arch} reduced plain route: {snap_nonzero(sr)} != {want} plain calls")
+        check(sk["backward_calls"] == sr["backward_calls"] == {"flash_attention": want},
+              f"train step {arch} reduced: backward calls {sk['backward_calls']} / "
+              f"{sr['backward_calls']} != {want}")
+        rel = {k: abs(mk[k] - mr[k]) / abs(mr[k]) for k in mk}
+        out["d"][arch] = {"kernel": mk, "plain": mr, "rel": rel, "launches": want}
+        print(f"train step {arch} reduced f32 {REDUCED_BATCH}x{REDUCED_SEQ}: loss {mk['loss']} / "
+              f"{mr['loss']} (rel {rel['loss']:.3g}), grad_norm {mk['grad_norm']} / "
+              f"{mr['grad_norm']} (rel {rel['grad_norm']:.3g}), {want} launches "
+              f"(of {attention_applications(cfg_d)} attention applications)")
+        check(rel["loss"] <= GRAD_LOSS_RTOL and rel["grad_norm"] <= GRAD_RTOL,
+              f"train step {arch} reduced: kernel and plain routes differ: {rel}")
+
+    # -- the checkpoint round trip --------------------------------------------
+    cfg_r = reduced_config(TRAIN_ARCH).replace(dtype="float32")
+    stream_r = TokenStream(vocab_size=cfg_r.vocab_size, seq_len=REDUCED_SEQ, global_batch=4)
+    kw = dict(steps=4, peak_lr=1e-3, warmup=1, log_every=1, device=dev)
+    quiet = lambda m: None  # noqa: E731
+    full, h_full = loop.train(cfg_r, stream_r, log=quiet, async_save=False, **kw)
+
+    def preempt_after_step_1(msg):
+        if msg.startswith("[train] step 1 "):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with tempfile.TemporaryDirectory() as d:
+        part, _ = loop.train(cfg_r, stream_r, ckpt_dir=d, ckpt_every=100,
+                             log=preempt_after_step_1, **kw)
+        check(part["step"] == 2 and ckpt.latest_step(d) == 2,
+              f"round trip: preempted at step {part['step']}, checkpoint {ckpt.latest_step(d)}")
+        saved = {k: t.detach().clone() for k, t in tstep.state_tensors(part).items()}
+        back, _ = ckpt.restore(d, tstep.state_tensors(part))
+        exact = all(torch.equal(back[k], saved[k]) for k in saved)
+        resumed, h_res = loop.train(cfg_r, stream_r, ckpt_dir=d, ckpt_every=2, log=quiet, **kw)
+    check(exact, "round trip: a restored tensor differs from the one saved")
+    pf = {n: p.detach() for n, p in full["model"].named_parameters()}
+    num = sum(float((p.detach() - pf[n]).float().norm()) ** 2
+              for n, p in resumed["model"].named_parameters())
+    den = sum(float(p.float().norm()) ** 2 for p in pf.values())
+    params_rel = (num / den) ** 0.5
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(h_res, h_full[2:]))
+    out["round_trip"] = {"restored_bit_equal": exact, "params_rel_l2": params_rel,
+                         "loss_rel": loss_rel, "resumed_steps": [h["step"] for h in h_res]}
+    print(f"checkpoint round trip {cfg_r.name} reduced f32: preempted after step 2, restored "
+          f"bit-equal={exact}, resumed steps {[h['step'] for h in h_res]}, losses within "
+          f"{loss_rel:.3g} and parameters within {params_rel:.3g} (rel L2) of an unbroken run")
+    check(resumed["step"] == 4 and [h["step"] for h in h_res] == [2, 3],
+          f"round trip: resumed at {[h['step'] for h in h_res]}")
+    check(loss_rel <= GRAD_LOSS_RTOL and params_rel <= GRAD_RTOL,
+          f"round trip: the resumed run differs from the unbroken one ({loss_rel}, {params_rel})")
+    results["train"] = out
     return out
 
 
@@ -3149,16 +3568,20 @@ def main() -> int:
     lm_out = lm_outs[LM_ARCH]
     phase_clean("phase 11")
 
+    # -- 12. the LM training path ----------------------------------------------
+    train_out = train_phase(dev, card, path_counts, results)
+    phase_clean("phase 12")
+
     main_launches = {
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
           f"geometric path + pyramid path + measured routing + CV serving + generate x "
-          f"{len(LM_RUNS)} archs + the long prompt): {main_launches}")
+          f"{len(LM_RUNS)} archs + the long prompt + LM training x2): {main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 12. the kernels on the paths' own tensors, then timing -----------------
+    # -- 13. the kernels on the paths' own tensors, then timing -----------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -3293,6 +3716,16 @@ def main() -> int:
                           if "flash_by_call" in o else {})}
                 for arch, o in lm_outs.items() if "flash" in o
             },
+            # the training path: its launches a step, one layer's kernel
+            # forward and plain backward, a profiled step's shares
+            "train": {
+                "launches_per_step": train_out["a"]["counters"]["launches"]["flash_attention"]
+                / TRAIN_STEPS,
+                "plain_backward_calls_per_step":
+                train_out["a"]["counters"]["backward_calls"]["flash_attention"] / TRAIN_STEPS,
+                **train_out["attention_layer"],
+                "profiled_step": train_out["a"]["profile"],
+            },
         },
         *(
             {
@@ -3337,8 +3770,9 @@ def main() -> int:
             "bound_by": by,
             "library_ms": lib,
         }
-        if "by_arch" in k:
-            entry["by_arch"] = k["by_arch"]
+        for extra in ("by_arch", "train"):
+            if extra in k:
+                entry[extra] = k[extra]
         if k.get("graph"):
             graph_ms = load_bench().graph_ms
             k_g = [graph_ms(k["run"], reps=100) for _ in range(2)]
@@ -3371,7 +3805,7 @@ def main() -> int:
         )
         results["timing"][k["name"]] = entry | {"ms_runs": [k1, k2], "plain_runs": [p1, p2]}
 
-    phase_clean("phase 12")
+    phase_clean("phase 13")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
@@ -3387,5 +3821,32 @@ def main() -> int:
     return 0
 
 
+def train_profile_main() -> int:
+    """``chip_smoke.py --train-profile`` (run by `train_phase`): one
+    profiled train step of phase 12 (a)'s model and batch, after a warm-up
+    step, printed as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    state = tstep.init_state(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH).batch_at(0)
+    step_fn = tstep.make_train_step(cfg, optimizer="adamw", peak_lr=TRAIN_LR, warmup=1,
+                                    total_steps=TRAIN_STEPS)
+    print(json.dumps(profile_step(step_fn, state, {k: v.to(dev) for k, v in batch.items()})))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_profile_main() if sys.argv[1:] == ["--train-profile"] else main())

@@ -51,4 +51,5 @@ def reduced() -> ModelConfig:
             capacity_factor=64.0,
             decode_capacity_factor=64.0,
         ),
+        remat=False,
     )

@@ -57,4 +57,5 @@ def reduced() -> ModelConfig:
             capacity_factor=64.0,
             decode_capacity_factor=64.0,
         ),
+        remat=False,
     )

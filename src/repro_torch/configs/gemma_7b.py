@@ -35,4 +35,5 @@ def reduced() -> ModelConfig:
         d_ff=128,
         vocab_size=512,
         blocks=(("attn", 2),),
+        remat=False,
     )

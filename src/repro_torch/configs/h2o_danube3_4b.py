@@ -35,4 +35,5 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("attn", 2),),
         window=32,
+        remat=False,
     )

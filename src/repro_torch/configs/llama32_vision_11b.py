@@ -40,4 +40,5 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("attn", 1), ("xattn", 1)) * 2,
         n_image_tokens=16,
+        remat=False,
     )

@@ -34,4 +34,5 @@ def reduced() -> ModelConfig:
         d_ff=160,
         vocab_size=512,
         blocks=(("attn", 2),),
+        remat=False,
     )

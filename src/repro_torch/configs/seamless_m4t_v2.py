@@ -39,4 +39,5 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("dec", 2),),
         n_enc_layers=2,
+        remat=False,
     )

@@ -36,4 +36,5 @@ def reduced() -> ModelConfig:
         d_ff=144,
         vocab_size=512,
         blocks=(("attn", 2),),
+        remat=False,
     )

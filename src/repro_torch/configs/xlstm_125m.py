@@ -33,4 +33,5 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("mlstm", 2), ("slstm", 1)),
         xlstm=XLSTMConfig(n_heads=2, d_inner_m=128, d_conv=4, chunk=16),
+        remat=False,
     )

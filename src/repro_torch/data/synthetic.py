@@ -1,16 +1,49 @@
-"""Synthetic CIFAR-like image data (a copy of `repro.data.synthetic.ImageStream`
-that returns CPU torch tensors).
+"""Deterministic synthetic data (copies of `repro.data.synthetic`'s
+`TokenStream` and `ImageStream` that return CPU torch tensors).
 
-`batch` seeds its generator with ``hash(split)``, as the JAX package's
-does.  Python salts the hash of a string per process, so a string split
-gives the same images within one process only; an integer split (whose
-hash is itself) gives the same images in every process.
+`TokenStream.batch_at(step)` is a pure function of (seed, shard, step),
+so restarts resume exactly: Zipfian unigrams with a Markov bigram rule,
+so that the cross-entropy has a learnable signal; JAX's values, as int64.
+
+`ImageStream.batch` seeds its generator with ``hash(split)``, as the JAX
+package's does.  Python salts the hash of a string per process, so a
+string split gives the same images within one process only; an integer
+split (whose hash is itself) gives the same images in every process.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+class TokenStream:
+    def __init__(self, *, vocab_size: int, seq_len: int, global_batch: int,
+                 seed: int = 0, n_shards: int = 1, shard: int = 0):
+        if global_batch % n_shards:
+            raise ValueError(f"global batch {global_batch} over {n_shards} shards")
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.batch = global_batch // n_shards
+        self.seed = seed
+        self.shard = shard
+        # fixed Markov mixing parameters (the vocab-sized state stays implicit)
+        self._a = 1664525
+        self._c = 1013904223
+
+    def batch_at(self, step: int) -> dict:
+        """step -> {"tokens": (B, S), "labels": (B, S)}, int64 on the CPU."""
+        rng = np.random.default_rng((self.seed, self.shard, step))
+        zipf = rng.zipf(1.3, size=(self.batch, self.seq + 1))
+        base = (zipf - 1) % self.vocab
+        # bigram structure: with p = 0.5 the next token is a fixed function
+        # of the previous one (the learnable signal)
+        follow = (base[:, :-1] * self._a + self._c) % self.vocab
+        coin = rng.random((self.batch, self.seq)) < 0.5
+        seq = np.where(coin, follow, base[:, 1:])
+        tokens = np.concatenate([base[:, :1], seq[:, :-1]], axis=1)
+        return {"tokens": torch.from_numpy(tokens.astype(np.int64)),
+                "labels": torch.from_numpy(seq.astype(np.int64))}
 
 
 class ImageStream:

@@ -25,6 +25,15 @@ repeated.  One hand-written kernel a call, routed by dtype
 PyTorch, with the kernel's guards for rows that are masked so far, in f32
 throughout.  It sums dot products in another order, so kernel and plain
 version agree to rounding, not bit for bit: within `AGREE`.
+
+Training differentiates `flash_attention` through `FlashAttention`, a
+`torch.autograd.Function`: its forward is the wrapper's (the kernel on a
+CUDA tensor, the plain version on the CPU or under ``mode="ref"``), so both
+routes get one gradient, `flash_attention_backward`.  That gradient is
+plain PyTorch in f32, because the JAX package has no backward kernel: its
+`_flash_kernel` has no `custom_vjp`, and its LM trains through `jnp`
+autodiff of `dense_attention`.  A hand-written backward kernel is speed
+work for later (ROADMAP Notes).
 """
 
 from __future__ import annotations
@@ -185,10 +194,19 @@ def flash_attention(
     (B, S, H, hd) in q's dtype.  causal masks
     key index ki > query index qi.  A CPU tensor, or ``mode="ref"``, runs the
     plain version; a CUDA tensor launches the kernel once or raises (also
-    when a block's shared memory would exceed ``lc.smem_budget``)."""
+    when a block's shared memory would exceed ``lc.smem_budget``).  When
+    grad is enabled and q, k or v requires it, the call goes through
+    `FlashAttention`, whose backward is `flash_attention_backward`."""
     if mode not in (None, "ref"):
         raise ValueError(f"flash_attention: unknown mode {mode!r} (expected None or 'ref')")
     _check_inputs(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, mode, lc)
+    return _forward(q, k, v, causal=causal, mode=mode, lc=lc)
+
+
+def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> torch.Tensor:
+    """The wrapper's body, its inputs checked: the plain version or one launch."""
     if mode == "ref" or q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     launch = _launcher()
@@ -228,3 +246,99 @@ def flash_attention(
     _build.check(err, "flash_attention")
     counters.LAUNCHES["flash_attention"] += 1
     return out
+
+
+# f32 scratch of one score-sized tensor (B, H, rows, T) of the backward; its
+# query rows are cut to fit (deepseek-v3's (8, 128, 1024, 1024) scores would
+# be 4.3 GB whole)
+BWD_SCRATCH_BYTES = 1 << 28
+
+
+def backward_rows(B: int, H: int, S: int, T: int) -> int:
+    """Query rows a block of `flash_attention_backward` takes: as many as
+    keep one (B, H, rows, T) f32 tensor within `BWD_SCRATCH_BYTES`, a
+    multiple of 64 when over 64, at least 1 and at most S."""
+    rows = max(1, BWD_SCRATCH_BYTES // max(1, B * H * T * 4))
+    if rows > 64:
+        rows -= rows % 64
+    return min(rows, max(S, 1))
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of `flash_attention` in plain PyTorch, in f32: for each
+    block of query rows (`backward_rows`) it recomputes the masked, scaled
+    scores and P = softmax, then dV += P^T dO, dP = dO V^T, dS = P (dP -
+    rowsum(dO O)), dQ = dS K scale and dK += dS^T Q scale.  dK and dV sum
+    over each group of H // Hkv query heads (no KV is repeated, as in the
+    forward).  Under causal a block reads only the keys up to its last row.
+    -> (dq, dk, dv), each rounded once to its input's dtype."""
+    counters.BACKWARD_CALLS["flash_attention"] += 1
+    B, S, H, hd = q.shape
+    T, G = k.shape[1], k.shape[2]
+    R = H // G
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+
+    def heads(t, s0, s1):  # (B, S, H, hd) rows s0:s1 -> (B, G, R, rows, hd) f32
+        return t[:, s0:s1].to(f32).transpose(1, 2).reshape(B, G, R, s1 - s0, hd)
+
+    kf = k.to(f32).transpose(1, 2)[:, :, None]  # (B, G, 1, T, hd)
+    vf = v.to(f32).transpose(1, 2)[:, :, None]
+    dq = torch.empty((B, G, R, S, hd), dtype=f32, device=q.device)
+    dk = torch.zeros((B, G, T, hd), dtype=f32, device=q.device)
+    dv = torch.zeros((B, G, T, hd), dtype=f32, device=q.device)
+    rows = backward_rows(B, H, S, T)
+    for s0 in range(0, S, rows):
+        s1 = min(S, s0 + rows)
+        t1 = min(T, s1) if causal else T
+        qb, ob, dob = heads(q, s0, s1), heads(out, s0, s1), heads(dout, s0, s1)
+        kb, vb = kf[:, :, :, :t1], vf[:, :, :, :t1]
+        s = (qb @ kb.transpose(-1, -2)) * scale  # (B, G, R, rows, t1)
+        if causal:
+            qi = torch.arange(s0, s1, device=q.device)[:, None]
+            ki = torch.arange(t1, device=q.device)[None, :]
+            s = torch.where(ki <= qi, s, NEG)
+        m = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(m <= NEG / 2, 0.0, m))  # a masked row: p = 0
+        del s
+        p /= torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+        dv[:, :, :t1] += torch.einsum("bgrst,bgrsd->bgtd", p, dob)
+        ds = dob @ vb.transpose(-1, -2)  # dP
+        ds -= torch.sum(dob * ob, dim=-1, keepdim=True)
+        ds *= p
+        del p
+        dq[:, :, :, s0:s1] = (ds @ kb) * scale
+        dk[:, :, :t1] += torch.einsum("bgrst,bgrsd->bgtd", ds, qb) * scale
+        del ds
+    dq = dq.reshape(B, H, S, hd).transpose(1, 2).to(q.dtype)
+    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` under autograd (module docstring): the forward is
+    the wrapper's route, the backward `flash_attention_backward`.  Under
+    `torch.utils.checkpoint` the forward runs again when the layer is
+    recomputed, and launches the kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, mode: str | None, lc: LaunchConfig):
+        out = _forward(q, k, v, causal=causal, mode=mode, lc=lc)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        # a named range, so that a profile of a train step can attribute its time
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=ctx.causal)
+        return dq, dk, dv, None, None, None

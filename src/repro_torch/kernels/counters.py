@@ -5,6 +5,11 @@ A kernel's wrapper adds one to ``LAUNCHES[name]`` where it launches the
 kernel and nowhere else; a plain version adds one to ``PLAIN_CALLS[name]``
 each time it runs.  A run on the card resets both, drives the main path,
 and reads them back to show that every kernel ran and no plain version did.
+
+``BACKWARD_CALLS`` counts the plain PyTorch gradients of the kernels that
+training differentiates (`attention.flash_attention`'s backward).  Such a
+gradient is neither a kernel nor a kernel's plain version, so it has a
+counter of its own, outside `KERNELS`.
 """
 
 from __future__ import annotations
@@ -24,13 +29,20 @@ KERNELS = (
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+BACKWARD_CALLS: dict[str, int] = {"flash_attention": 0}
 
 
 def reset() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
         PLAIN_CALLS[name] = 0
+    for name in BACKWARD_CALLS:
+        BACKWARD_CALLS[name] = 0
 
 
 def snapshot() -> dict:
-    return {"launches": dict(LAUNCHES), "plain_calls": dict(PLAIN_CALLS)}
+    return {
+        "launches": dict(LAUNCHES),
+        "plain_calls": dict(PLAIN_CALLS),
+        "backward_calls": dict(BACKWARD_CALLS),
+    }

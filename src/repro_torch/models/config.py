@@ -5,10 +5,12 @@ A ModelConfig describes one architecture: the repeating layer pattern
 embedding/head layout.  It holds the JAX config's fields that the ported
 blocks read: the MLA, MoE, SSM (Mamba2) and xLSTM sub-configs, Zamba's
 ``shared_attn_every``, the cross-attention layout (``cross_attn_layers``,
-``n_image_tokens``) and the encoder's (``encdec``, ``n_enc_layers``).  A
-later slice adds the sharding and training settings, so a config that sets
-one of them before then is refused at construction.  `SHAPES` waits for
-the dry-run (ROADMAP Queue 1 item 9).
+``n_image_tokens``), the encoder's (``encdec``, ``n_enc_layers``) and the
+training settings ``remat`` (recompute each layer in the backward pass,
+`lm.forward`) and ``z_loss`` (`layers.softmax_cross_entropy`), with JAX's
+defaults.  The sharding settings (``fsdp``, ``dp_over_model``) wait for
+ROADMAP Queue 1 item 8 step 9, so a config that sets one of them is
+refused at construction.  `SHAPES` waits for the dry-run (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -122,6 +124,10 @@ class ModelConfig:
     scale_embed: bool = False  # gemma multiplies embeddings by sqrt(d)
 
     dtype: str = "bfloat16"
+    # training: recompute each layer in the backward pass (JAX's jax.checkpoint)
+    # and the weight of the mean squared log-partition in the loss
+    remat: bool = True
+    z_loss: float = 1e-4
     # KV positions per step of `attention.blockwise_attention` (above 8192)
     blockwise_chunk: int = 1024
 

@@ -5,8 +5,9 @@ Parameters live in `nn.ParameterDict`s named as the JAX package's pytree
 leaves (``w_q``, ``scale``, ...), so a JAX parameter tree maps onto a
 module's ``state_dict`` name by name (`convert.from_jax_lm_params`).
 Weights keep the JAX layout ``(in, out)`` and are applied as ``x @ w``.
-The port serves only: parameters carry no gradient.
-`softmax_cross_entropy` waits for training (ROADMAP Queue 1 item 8).
+Parameters are made frozen (``requires_grad=False``), so that serving
+builds no graph; `lm.make_trainable` turns them on for training.
+`softmax_cross_entropy` is the training loss.
 """
 
 from __future__ import annotations
@@ -184,3 +185,30 @@ def apply_mlp(p, x: torch.Tensor, *, act: str, style: str) -> torch.Tensor:
     if style == "glu":
         return (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     return linear(a(linear(x, p["w_up"], p["b_up"])), p["w_down"], p["b_down"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy loss
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float = 0.0
+) -> tuple[torch.Tensor, dict]:
+    """Mean cross-entropy, as JAX's: logits (..., V) of any float dtype,
+    labels (...) of any integer dtype -> (loss, metrics).  The reduction is
+    f32 with the row max detached (JAX's ``stop_gradient``); ``nll`` is the
+    mean negative log-likelihood and, when `z_loss` is set, ``z_loss`` is
+    ``z_loss * mean(lse ** 2)``, added to the loss."""
+    lf = logits.to(torch.float32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    sum_exp = torch.sum(torch.exp(lf - m), dim=-1)
+    lse = torch.log(sum_exp) + m[..., 0]
+    ll = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
+    loss = torch.mean(lse - ll)
+    metrics = {"nll": loss}
+    if z_loss:
+        zl = z_loss * torch.mean(torch.square(lse))
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    return loss, metrics

@@ -1,8 +1,10 @@
 """Top-level language model (the counterpart of `repro.models.lm`): the
-embedding, the layers and the head, and the two serving entry points.
+embedding, the layers and the head, the training forward and the two
+serving entry points.
 
-  prefill(model, tokens, extras=None)  -> (last_logits, cache)
-  decode_step(model, tokens, cache)    -> (logits, cache)
+  forward(model, tokens, extras=None)  -> (logits, metrics)       [train]
+  prefill(model, tokens, extras=None)  -> (last_logits, cache)    [serving]
+  decode_step(model, tokens, cache)    -> (logits, cache)         [serving]
 
 `LM` holds the parameters as modules named like the JAX parameter tree,
 with one module per layer where JAX stacks each homogeneous run of layers
@@ -25,16 +27,27 @@ entries beside the tokens; `configs.extra_inputs` names them):
 the ``xattn`` layers; ``audio_frames`` (B, T_enc, D) for an
 encoder-decoder, whose encoder (`LM.encoder`: ``n_enc_layers`` ``enc``
 blocks and its ``final_norm``) turns them into the context of the ``dec``
-layers (`_run_encoder`).  `forward` and the loss wait (ROADMAP Queue 1
-item 8 step 8); so does sharding, since this is one card.
+layers (`_run_encoder`).
+
+`forward` returns every position's logits and JAX's merged MoE metrics.
+With ``cfg.remat`` set and grad enabled, each layer (the encoder's too)
+runs under `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` of the scan
+body): its activations are recomputed in the backward pass, and its
+attention kernel launches again there.  The parameters are frozen as
+built; `make_trainable` turns on their gradients for training (all but the
+sigmoid router's ``router_bias``, which JAX reaches only through a
+``stop_gradient`` and `train.step` updates by its own rule).  Sharding
+waits for ROADMAP Queue 1 item 8 step 9.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from . import blocks as blocks_mod
@@ -123,12 +136,74 @@ def _head(model: LM, h: torch.Tensor) -> torch.Tensor:
     return h @ model.lm_head
 
 
+def make_trainable(model: LM) -> LM:
+    """Turn on the gradient of every parameter but ``router_bias`` (JAX's
+    gradient of it is 0: it reaches the loss only through the top-k's
+    ``stop_gradient``).  Returns `model`."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(name.rsplit(".", 1)[-1] != "router_bias")
+    return model
+
+
+class Leaf(NamedTuple):
+    """One leaf of JAX's parameter tree: its dotted path (``embed``,
+    ``groups.0.attn.w_q``, ``encoder.groups.0.ln1.scale``) and the port's
+    parameters it holds, one a layer where JAX stacks a run of layers on a
+    leading axis (`stacked`)."""
+
+    name: str
+    params: list
+    stacked: bool
+
+
+def _leaf_key(name: str) -> tuple:
+    # JAX flattens dict keys in sorted order and list entries by index
+    return tuple(int(c) if c.isdigit() else c for c in name.split("."))
+
+
+def param_leaves(model: LM) -> list[Leaf]:
+    """The model's parameters as JAX's parameter tree holds them, in JAX's
+    flattening order: a run of ``cfg.blocks`` is ``groups.<run>``, the
+    encoder's layers ``encoder.groups.0``, each stacked over its layers; the
+    rest (embedding, head, final norms, Zamba's shared block) one tensor a
+    leaf.  The optimizers read the stacking (`optim.adamw`): JAX's weight
+    decay and Adafactor factoring go by the rank of the stacked leaf."""
+    run_of = []
+    for gi, (_, count) in enumerate(model.cfg.blocks):
+        run_of += [gi] * count
+    leaves: dict[str, Leaf] = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            key, stacked = ".".join(["groups", str(run_of[int(parts[1])]), *parts[2:]]), True
+        elif parts[:2] == ["encoder", "blocks"]:
+            key, stacked = ".".join(["encoder", "groups", "0", *parts[3:]]), True
+        else:
+            key, stacked = name, False
+        leaves.setdefault(key, Leaf(key, [], stacked)).params.append(p)
+    return [leaves[k] for k in sorted(leaves, key=_leaf_key)]
+
+
+def _layer(kind: str, p, h: torch.Tensor, cfg, *, ctx=None, mode=None):
+    """One layer's full-sequence apply for `forward` -> (h, metrics), its
+    cache entry dropped; under `torch.utils.checkpoint` when ``cfg.remat``
+    is set and grad is enabled."""
+
+    def run(h, ctx):
+        out, _, metrics = blocks_mod.apply_block(kind, p, h, cfg, ctx=ctx, mode=mode)
+        return out, metrics
+
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(run, h, ctx, use_reentrant=False)
+    return run(h, ctx)
+
+
 def _run_encoder(model: LM, frames: torch.Tensor, *, mode: str | None = None) -> torch.Tensor:
     """The encoder over `frames` (B, T, D), in the weights' dtype, positions
     from 0 -> the final-normed context (B, T, D)."""
     h = frames.to(model.embed.dtype)
     for p in model.encoder["blocks"]:
-        h, _, _ = blocks_mod.apply_block("enc", p, h, model.cfg, mode=mode)
+        h, _ = _layer("enc", p, h, model.cfg, mode=mode)
     return apply_norm(h, model.encoder["final_norm"], **_norm(model.cfg))
 
 
@@ -169,6 +244,48 @@ def _context(model: LM, extras: dict | None, batch: int, *, mode: str | None = N
     if model.cfg.encdec:
         return _run_encoder(model, x, mode=mode)
     return x.to(model.embed.dtype)
+
+
+def _merge_metrics(all_metrics: list) -> dict:
+    """JAX's merge: per run of layers, each metric stacked over its layers
+    and averaged over them (the scalars and the (E,) ``expert_load``
+    alike), then summed over the runs."""
+    agg: dict = {}
+    for run in all_metrics:
+        if not run or not run[0]:
+            continue
+        for k in run[0]:
+            red = torch.mean(torch.stack([m[k] for m in run]), dim=0)
+            agg[k] = agg[k] + red if k in agg else red
+    return agg
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (training)
+# ---------------------------------------------------------------------------
+
+
+def forward(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
+            mode: str | None = None):
+    """tokens (B, S) -> (logits (B, S, V), metrics): positions from 0,
+    Zamba's shared block after every run of layers, each layer remat'd when
+    ``cfg.remat`` is set and grad is enabled (module docstring).  The
+    metrics are the MoE layers' merged as JAX's `_merge_metrics` (empty for
+    a dense arch).  `extras` and `mode` as in `prefill`."""
+    cfg = model.cfg
+    B, S = tokens.shape
+    ctx = _context(model, extras, B, mode=mode)
+    h = _embed(model, tokens)
+    metrics_list = []
+    for kind, layers in model.groups():
+        run = []
+        for p in layers:
+            h, m = _layer(kind, p, h, cfg, ctx=ctx, mode=mode)
+            run.append(m)
+        metrics_list.append(run)
+        if cfg.shared_attn_every:
+            h, _, _ = blocks_mod.apply_block("attn", model.shared_block, h, cfg, mode=mode)
+    return _head(model, h), _merge_metrics(metrics_list)
 
 
 # ---------------------------------------------------------------------------

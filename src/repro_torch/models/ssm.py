@@ -110,13 +110,23 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     dA = dtc * A  # (B, nc, L, H) log-decay
     cum = torch.cumsum(dA, dim=2)  # inclusive
     # intra-chunk: scores[b, c, i, j, h] = exp(cum_i - cum_j) (C_i . B_j) dt_j, j <= i;
-    # masked before the exp, where cum_i - cum_j > 0 may overflow
+    # masked before the exp, where cum_i - cum_j > 0 may overflow.  Without
+    # grad the (B, nc, L, L, H) f32 tensors are built in place, one at a
+    # time (the serving prefill's memory); autograd refuses the in-place exp
+    # and products (the exp's gradient reads its output), so with grad they
+    # are built out of place.
     scores = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, L, L, H)
     above = ~torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    scores.masked_fill_(above[None, None, :, :, None], -math.inf)
-    scores.exp_()
-    scores.mul_(torch.einsum("bclhn,bcjhn->bcljh", Cc, Bc))
-    scores.mul_(dtc[:, :, None, :, :])
+    cb = torch.einsum("bclhn,bcjhn->bcljh", Cc, Bc)
+    if torch.is_grad_enabled():
+        scores = scores.masked_fill(above[None, None, :, :, None], -math.inf).exp()
+        scores = scores * cb * dtc[:, :, None, :, :]
+    else:
+        scores.masked_fill_(above[None, None, :, :, None], -math.inf)
+        scores.exp_()
+        scores.mul_(cb)
+        scores.mul_(dtc[:, :, None, :, :])
+    del cb
     y = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
     del scores
 

@@ -1,2 +1,4 @@
-"""Training runtime (the counterpart of `repro.train`): so far the fault
-pieces of `fault.py` that the serving engine stands on."""
+"""Training runtime (the counterpart of `repro.train`): the train step and
+loss (`step.py`), checkpoints (`checkpoint.py`), the loop (`loop.py`) and
+the fault pieces (`fault.py`) that the loop and the serving engine stand
+on."""

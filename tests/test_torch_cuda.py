@@ -1375,3 +1375,72 @@ def test_vanherk_on_the_card_equals_the_cpu(dev, dtype, ksize):
     if dtype == torch.uint8 and ksize:
         plane = x[..., 0].contiguous().to(dev)
         assert torch.equal(imgproc.erode_vanherk(plane, ksize), ops.erode(plane, ksize))
+
+
+# ---------------------------------------------------------------------------
+# Training: `flash_attention` under autograd, a train step of each reduced arch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,G,hd,causal", [(2, 200, 200, 4, 4, 64, True),
+                                                 (1, 130, 300, 8, 2, 128, False),
+                                                 (2, 257, 257, 4, 1, 256, True)])
+def test_flash_training_gradient_kernel_against_plain(dev, dtype, B, S, T, H, G, hd, causal):
+    """The kernel route's forward under `FlashAttention` against the plain
+    route (``mode="ref"``): outputs within `AGREE`, and the gradients
+    (both from the one plain backward, fed each route's output) within
+    `AGREE`'s rtol in relative L2 in f32, 2^-6 in bf16 (the forward's
+    rounding enters dS through rowsum(dO o))."""
+    g = torch.Generator(dev).manual_seed(hd)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, T, G, hd), generator=g, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    grads = {}
+    for mode in (None, "ref"):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        counters.reset()
+        out = kattn.flash_attention(*ts, causal=causal, mode=mode)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert counters.BACKWARD_CALLS["flash_attention"] == 1
+        assert counters.LAUNCHES["flash_attention"] == (1 if mode is None else 0)
+        grads[mode] = (out.detach(), [t.grad for t in ts])
+    rtol, atol = kattn.AGREE[dtype]
+    torch.testing.assert_close(grads[None][0].float(), grads["ref"][0].float(), rtol=rtol,
+                               atol=atol)
+    tol = 2e-4 if dtype == torch.float32 else 2.0**-6
+    for a, b in zip(grads[None][1], grads["ref"][1]):
+        assert a.dtype == dtype
+        assert float((a.float() - b.float()).norm()) <= tol * float(b.float().norm())
+
+
+def test_reduced_train_steps_on_the_card(dev):
+    """One train step of each arch's reduced config in f32 on the card:
+    the kernel route against the plain route, loss and grad norm within
+    1e-5 and 1e-3 relative, one launch a plain call of the plain route."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import step as tstep
+
+    for arch in ARCHS:
+        cfg = reduced_config(arch).replace(dtype="float32")
+        out = {}
+        for mode in (None, "ref"):
+            state = tstep.init_state(cfg, device=dev,
+                                     generator=torch.Generator(dev).manual_seed(0))
+            batch = TokenStream(vocab_size=cfg.vocab_size, seq_len=128,
+                                global_batch=2).batch_at(0)
+            if cfg.encdec or any(k == "xattn" for k, _ in cfg.blocks):
+                from repro_torch.launch.serve import make_extras
+
+                batch |= make_extras(cfg, 2, 128, generator=torch.Generator(dev).manual_seed(1),
+                                     device=dev)
+            counters.reset()
+            _, m = tstep.make_train_step(cfg, mode=mode)(state, batch)
+            out[mode] = ({k: float(m[k]) for k in ("loss", "grad_norm")}, counters.snapshot())
+        (mk, sk), (mr, sr) = out[None], out["ref"]
+        assert sk["launches"]["flash_attention"] == sr["plain_calls"]["flash_attention"], arch
+        assert not any(sk["plain_calls"].values()), arch
+        assert abs(mk["loss"] - mr["loss"]) <= 1e-5 * abs(mr["loss"]), arch
+        assert abs(mk["grad_norm"] - mr["grad_norm"]) <= 1e-3 * mr["grad_norm"], arch

@@ -214,6 +214,7 @@ def test_kernel_dispatch_propagates_loader_failure(kernel, monkeypatch):
     assert counters.snapshot() == {
         "launches": dict.fromkeys(counters.KERNELS, 0),
         "plain_calls": dict.fromkeys(counters.KERNELS, 0),
+        "backward_calls": {"flash_attention": 0},
     }
 
 
