@@ -222,13 +222,26 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      each route at the launches the config's attention layers imply;
      a checkpoint round trip (preempted at step 2, resumed, against an
      unbroken run);
- 13. on the paths' own tensors (the first request, the training
+ 13. the sharded LM stack (`shard_phase`, in a process of its own, so that
+     no process group lives in this one): (a) one rank, NCCL, a (1, 1)
+     ("data", "model") mesh: phase 12 (a)'s model trained through the
+     launcher's code (`launch.train.main --model-parallel 1`) for 2 steps
+     of 4 x 1024 tokens, its losses within phase 12's bf16 bound (2^-10)
+     of the same steps unsharded, 16 `flash_attention` launches a step and
+     no plain call, step times and peak memory; then gemma-7b's 28 layers
+     generating 8 x 1024 + 8 tokens with ``mesh=``, the tokens identical to
+     the unsharded `generate`'s but at counted near-ties, 28 launches and
+     no plain call; (b) two gloo ranks on the one card (NCCL takes one rank
+     a card), a (2, 1) mesh, reduced deepseek-v3-671b in f32 on 4 x 32
+     tokens: the all-to-all MoE path taken, the logits within 1e-4 and
+     every gradient within 1e-3 of one rank's unsharded run;
+ 14. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, count the device activities of one `bow_quantize_hist`
      call with torch.profiler (exactly its kernel: no memset, cast or
      normalising launch), then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 14. print the window arithmetic of the request's octave with its frames
+ 15. print the window arithmetic of the request's octave with its frames
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
      the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
      kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
@@ -317,6 +330,13 @@ TRAIN_FULL_STEPS, TRAIN_FALLBACK_LAYERS = 2, (28, 20, 14)
 GRAD_LAYERS, GRAD_BATCH, GRAD_LOSS_RTOL, GRAD_RTOL = 2, 2, 1e-5, 1e-3
 GRAD_BF16_LOSS_RTOL, GRAD_BF16_RTOL = 2.0**-10, 2.0**-6
 REDUCED_BATCH, REDUCED_SEQ = 2, 128
+# the sharded LM stack (`shard_phase`): (a) phase 12 (a)'s model and batch,
+# SHARD_STEPS steps through the launcher on a one-rank NCCL mesh, and gemma-7b
+# generating LM_BATCH x LM_PROMPT + SHARD_GEN tokens; (b) SHARD_RANKS gloo
+# ranks on the one card, reduced deepseek-v3-671b in f32 on SHARD_B x SHARD_S
+# tokens, within JAX's bounds for its all-to-all path (tests/test_moe.py)
+SHARD_STEPS, SHARD_GEN, SHARD_RANKS = 2, 8, 2
+SHARD_B, SHARD_S, SHARD_LOGITS_TOL, SHARD_GRAD_TOL = 4, 32, 1e-4, 1e-3
 # the cross-attention archs' gates after the seeded init (JAX's init: 0, so
 # that a gated layer is the identity and no check could see it)
 GATE = 0.5
@@ -3572,16 +3592,21 @@ def main() -> int:
     train_out = train_phase(dev, card, path_counts, results)
     phase_clean("phase 12")
 
+    # -- 13. the sharded LM stack (its own process) -----------------------------
+    shard_phase(card, path_counts, results)
+    phase_clean("phase 13")
+
     main_launches = {
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
           f"geometric path + pyramid path + measured routing + CV serving + generate x "
-          f"{len(LM_RUNS)} archs + the long prompt + LM training x2): {main_launches}")
+          f"{len(LM_RUNS)} archs + the long prompt + LM training x2 + the sharded stack): "
+          f"{main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 13. the kernels on the paths' own tensors, then timing -----------------
+    # -- 14. the kernels on the paths' own tensors, then timing -----------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -3805,7 +3830,7 @@ def main() -> int:
         )
         results["timing"][k["name"]] = entry | {"ms_runs": [k1, k2], "plain_runs": [p1, p2]}
 
-    phase_clean("phase 13")
+    phase_clean("phase 14")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
@@ -3819,6 +3844,263 @@ def main() -> int:
     }
     print(json.dumps({"ok": True, "device": device}))
     return 0
+
+
+def first_gap(model, prompts, tokens, row: int, t: int) -> tuple[float, float]:
+    """`model`'s (unsharded) top-two logit gap and top logit for `row` at
+    greedy step `t`, teacher-forced with `tokens`' first t steps."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import cv_engine
+
+    cfg = model.cfg
+    B, S = prompts.shape
+    with torch.inference_mode():
+        lg, pc = lm.prefill(model, prompts)
+        cache = cv_engine._adopt_prefill(
+            lm.init_cache(cfg, B, S + t + 1, device=prompts.device), pc, cfg)
+        for i in range(t):
+            lg, cache = lm.decode_step(model, tokens[:, i : i + 1], cache)
+    top = torch.topk(lg[row].float(), 2).values
+    return float(top[0] - top[1]), float(top[0])
+
+
+def shard_phase(card: str, path_counts: dict, results: dict) -> dict:
+    """Phase 13, the sharded LM stack, in a process of its own
+    (`shard_phase_main`, one NCCL rank by torchrun's environment on
+    ``tcp://127.0.0.1``; its (b) spawns two more): its report lines
+    printed, its counters added to the main path's."""
+    import gc
+    import os
+
+    import torch
+    from repro_torch.launch.mesh import free_port
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--shard-phase"],
+                          capture_output=True, text=True, timeout=900, env=env)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    check(proc.returncode == 0 and bool(lines),
+          f"the sharded phase failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    a = out["a"]
+    path_counts[f"train {TRAIN_ARCH} x{TRAIN_LAYERS} adamw sharded (1, 1)"] = a["train"]["counters"]
+    path_counts[f"generate {LM_ARCH} sharded (1, 1)"] = a["generate"]["counters"]
+    path_counts[f"forward + backward deepseek-v3-671b reduced sharded (2, 1) gloo"] = (
+        out["b"]["counters"])
+    results["shard"] = out
+    return out
+
+
+def shard_phase_main() -> int:
+    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a) and (b),
+    their lines printed, then one JSON line."""
+    import os
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    out = {"a": shard_one(torch.device("cuda"), card), "b": shard_two(card)}
+    print(json.dumps(out, default=str))
+    return 0
+
+
+def shard_one(dev, card: str) -> dict:
+    """(a): one NCCL rank, a (1, 1) mesh: training through the launcher
+    against the same steps unsharded, then `generate` with ``mesh=``."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import counters
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import lm
+    from repro_torch.serve.cv_engine import generate
+    from repro_torch.train import loop
+
+    out: dict = {}
+    cfg = get_config(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    n_attn = attention_applications(cfg)
+    tag = f"train {cfg.name} x{TRAIN_LAYERS} adamw sharded"
+    argv = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS), "--steps", str(SHARD_STEPS),
+            "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+            "--warmup", "1", "--model-parallel", "1"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    state, hist = launch_train.main(argv)
+    snap = counters.snapshot()
+    mesh = state["model"].mesh
+    check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+          and mesh.mesh_dim_names == ("data", "model"),
+          f"{tag}: mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} over {dist.get_backend()}")
+    check(type(state["model"].embed).__name__ == "DTensor", f"{tag}: the parameters are no DTensors")
+    expect_counts(tag, snap, {"flash_attention": 2 * n_attn * SHARD_STEPS})
+    check(snap["backward_calls"]["flash_attention"] == n_attn * SHARD_STEPS,
+          f"{tag}: plain backward calls {snap['backward_calls']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same steps unsharded: phase 12 (a)'s code path on the launcher's stream
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, ref = loop.train(cfg, stream, steps=SHARD_STEPS, peak_lr=TRAIN_LR, warmup=1,
+                            log_every=1, async_save=False, device=dev, log=lambda m: None)
+    peak_ref = torch.cuda.max_memory_allocated(dev)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, losses_ref = [h["loss"] for h in hist], [h["loss"] for h in ref]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_ref))
+    out["train"] = {"losses": losses, "losses_unsharded": losses_ref, "loss_rel": rel,
+                    "step_s": [h["seconds"] for h in hist],
+                    "step_s_unsharded": [h["seconds"] for h in ref],
+                    "max_memory_allocated": peak, "max_memory_allocated_unsharded": peak_ref,
+                    "counters": snap}
+    print(f"{tag} (1, 1) NCCL through launch.train: losses={losses} against unsharded "
+          f"{losses_ref} (rel {rel:.3g}, bound {GRAD_BF16_LOSS_RTOL:.3g}); step_s="
+          f"{out['train']['step_s']} (unsharded {out['train']['step_s_unsharded']}); "
+          f"max_memory_allocated={peak} (unsharded {peak_ref}); launches={snap_nonzero(snap)} "
+          f"backward_calls={snap['backward_calls']} card={card}")
+    check(rel <= GRAD_BF16_LOSS_RTOL, f"{tag}: the sharded losses differ by {rel}")
+
+    # generate with mesh= on the published model, against the unsharded generate
+    cfg_g = get_config(LM_ARCH)
+    model = lm.LM(cfg_g, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(0, cfg_g.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    want = generate(model, prompts, steps=SHARD_GEN, device=dev)
+    lm.shard_model(model, mesh)
+    counters.reset()
+    t0 = time.perf_counter()
+    got = generate(model, prompts, steps=SHARD_GEN, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    snap = counters.snapshot()
+    expect_counts(f"generate {LM_ARCH} sharded", snap,
+                  {"flash_attention": attention_applications(cfg_g)})
+    rows = [int(r) for r in torch.nonzero((got != want).any(1)).flatten()]
+    gaps = []
+    if rows:  # the unsharded weights are the sharded ones' local parts: a one-rank mesh
+        ref_model = lm.LM(cfg_g, device="meta")
+        ref_model.load_state_dict({n: p.to_local() for n, p in model.state_dict().items()},
+                                  assign=True)
+        for r in rows:
+            t = int(torch.nonzero(got[r] != want[r])[0])
+            gap, top = first_gap(ref_model, prompts, want, r, t)
+            gaps.append(gap)
+            check(gap <= 4 * 2.0**-8 * abs(top),
+                  f"generate {LM_ARCH} sharded: row {r} differs at step {t} off a near-tie "
+                  f"(gap {gap}, top logit {top})")
+    out["generate"] = {"rows_differing": rows, "near_tie_gaps": gaps, "wall_s": wall,
+                       "counters": snap}
+    print(f"generate {LM_ARCH} sharded (1, 1) {LM_BATCH} x {LM_PROMPT} + {SHARD_GEN}: "
+          f"{len(rows)} of {LM_BATCH} rows differ from the unsharded generate (near-ties, gaps "
+          f"{gaps}); wall_s={wall:.3f} (first call); launches={snap_nonzero(snap)} card={card}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return out
+
+
+def shard_two(card: str) -> dict:
+    """(b): `SHARD_RANKS` gloo ranks on the one card (`shard_two_rank`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(shard_two_rank, args=(d, free_port(), card), nprocs=SHARD_RANKS)
+        return json.loads(Path(d, "b.json").read_text())
+
+
+def shard_two_rank(rank: int, d: str, port: int, card: str) -> None:
+    """One rank of (b): reduced deepseek-v3-671b in f32 on a (2, 1) mesh of
+    two gloo ranks on the one card, against one rank's unsharded run."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.sharding import comm, rules
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=SHARD_RANKS, timeout=datetime.timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((SHARD_RANKS, 1), ("data", "model"), device=dev, backend="gloo")
+    cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
+    model = lm.make_trainable(lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)))
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (SHARD_B, SHARD_S), generator=g, device=dev)
+             for k in ("tokens", "labels")}
+    with torch.no_grad():
+        logits_1, _ = lm.forward(model, batch["tokens"])
+    loss_1, _ = tstep.loss_fn(model, batch)
+    loss_1.backward()
+    grads_1 = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    lm.shard_model(model, mesh)
+    hint = rules.make_hint(mesh, cfg)
+    plan = moe._a2a_plan(mesh, cfg, (SHARD_B, SHARD_S, cfg.d_model), None)
+    check(plan is not None and plan["a2a_axes"] == ("data", "model") and plan["n_ep"] == 2,
+          f"shard (b): the all-to-all plan is {plan}")
+    counters.reset()
+    logits, _ = lm.forward(model, batch["tokens"], hint=hint)
+    loss, _ = tstep.loss_fn(model, batch, hint=hint)
+    (loss / SHARD_RANKS).backward()
+    torch.cuda.synchronize(dev)
+    snap = counters.snapshot()
+    logits = comm.all_gather(logits.detach(), 0, comm.axes_group(mesh, ("data",)))
+    logits_err = float((logits - logits_1).abs().max())
+    grad_err, worst = 0.0, None
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            # the port's own gather: DTensor's (`full_tensor`) crashed with
+            # SIGSEGV over gloo on CUDA tensors (torch 2.11 on an H100)
+            full = comm.full(p.grad.to_local(), mesh, p.grad.placements)
+            e = float((full - grads_1[n]).abs().max())
+            if e >= grad_err:
+                grad_err, worst = e, n
+    if rank == 0:
+        res = {"logits_err": logits_err, "grad_err": grad_err, "worst": worst,
+               "plan": {k: plan[k] for k in ("a2a_axes", "L", "C", "n_ep")}, "counters": snap}
+        print(f"forward + backward {cfg.name} reduced f32 sharded (2, 1) over {SHARD_RANKS} gloo "
+              f"ranks on one card, {SHARD_B} x {SHARD_S}: all-to-all plan {res['plan']}; logits "
+              f"within {logits_err:.3g} (bound {SHARD_LOGITS_TOL}), gradients within "
+              f"{grad_err:.3g} ({worst}; bound {SHARD_GRAD_TOL}) of one rank's; launches="
+              f"{snap_nonzero(snap)} card={card}", flush=True)
+        Path(d, "b.json").write_text(json.dumps(res, default=str))
+    check(logits_err <= SHARD_LOGITS_TOL and grad_err <= SHARD_GRAD_TOL,
+          f"shard (b): logits off by {logits_err}, gradients by {grad_err} ({worst})")
+    dist.barrier()
+    dist.destroy_process_group()
+
 
 
 def train_profile_main() -> int:
@@ -3849,4 +4131,5 @@ def train_profile_main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(train_profile_main() if sys.argv[1:] == ["--train-profile"] else main())
+    ENTRIES = {"--train-profile": train_profile_main, "--shard-phase": shard_phase_main}
+    sys.exit(ENTRIES[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in ENTRIES else main())

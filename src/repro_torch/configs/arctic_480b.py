@@ -51,5 +51,6 @@ def reduced() -> ModelConfig:
             capacity_factor=64.0,
             decode_capacity_factor=64.0,
         ),
+        fsdp=False,
         remat=False,
     )

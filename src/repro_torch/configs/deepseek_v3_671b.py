@@ -57,5 +57,6 @@ def reduced() -> ModelConfig:
             capacity_factor=64.0,
             decode_capacity_factor=64.0,
         ),
+        fsdp=False,
         remat=False,
     )

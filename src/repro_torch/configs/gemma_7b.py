@@ -35,5 +35,6 @@ def reduced() -> ModelConfig:
         d_ff=128,
         vocab_size=512,
         blocks=(("attn", 2),),
+        fsdp=False,
         remat=False,
     )

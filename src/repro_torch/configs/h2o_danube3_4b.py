@@ -35,5 +35,6 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("attn", 2),),
         window=32,
+        fsdp=False,
         remat=False,
     )

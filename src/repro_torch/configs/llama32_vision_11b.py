@@ -40,5 +40,6 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("attn", 1), ("xattn", 1)) * 2,
         n_image_tokens=16,
+        fsdp=False,
         remat=False,
     )

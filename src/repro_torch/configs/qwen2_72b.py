@@ -34,5 +34,6 @@ def reduced() -> ModelConfig:
         d_ff=160,
         vocab_size=512,
         blocks=(("attn", 2),),
+        fsdp=False,
         remat=False,
     )

@@ -39,5 +39,6 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("dec", 2),),
         n_enc_layers=2,
+        fsdp=False,
         remat=False,
     )

@@ -36,5 +36,6 @@ def reduced() -> ModelConfig:
         d_ff=144,
         vocab_size=512,
         blocks=(("attn", 2),),
+        fsdp=False,
         remat=False,
     )

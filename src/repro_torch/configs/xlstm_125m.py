@@ -20,6 +20,8 @@ def config() -> ModelConfig:
         blocks=(("mlstm", 4), ("slstm", 1), ("mlstm", 6), ("slstm", 1)),
         xlstm=XLSTMConfig(n_heads=4, d_inner_m=1536, d_conv=4, chunk=256),
         tie_embeddings=True,
+        fsdp=False,
+        dp_over_model=True,
     )
 
 
@@ -33,5 +35,6 @@ def reduced() -> ModelConfig:
         vocab_size=512,
         blocks=(("mlstm", 2), ("slstm", 1)),
         xlstm=XLSTMConfig(n_heads=2, d_inner_m=128, d_conv=4, chunk=16),
+        fsdp=False,
         remat=False,
     )

@@ -38,5 +38,6 @@ def reduced() -> ModelConfig:
         blocks=(("mamba", 2),) * 2,
         shared_attn_every=2,
         ssm=SSMConfig(d_inner=128, d_state=16, d_conv=4, head_dim=32, n_groups=1, chunk=16),
+        fsdp=False,
         remat=False,
     )

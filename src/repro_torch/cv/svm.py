@@ -1,5 +1,8 @@
-"""Multi-class linear SVM training (the counterpart of `repro.cv.svm`):
-squared-hinge one-vs-rest by full-batch gradient descent with momentum."""
+"""Multi-class SVM (the counterpart of `repro.cv.svm`): one-vs-rest
+linear, trained by squared-hinge full-batch gradient descent with
+momentum, its prediction (the paper's stage III), and an explicit RBF
+feature map.  Plain PyTorch on the tensors' device: JAX's versions are no
+Pallas kernels either."""
 
 from __future__ import annotations
 
@@ -38,3 +41,16 @@ def svm_train(
         vb = 0.9 * vb - lr * gb
         w, b = w + vw, b + vb
     return {"w": w, "b": b, "final_loss": _loss(x, t, w, b, c)[0]}
+
+
+def svm_predict(model: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (N, D) -> the predicted class (N,) int32: the argmax of
+    ``x @ w.T + b`` (the first of equal scores)."""
+    scores = x @ model["w"].T + model["b"][None, :]
+    return torch.argmax(scores, dim=1).to(torch.int32)
+
+
+def rbf_features(x: torch.Tensor, anchors: torch.Tensor, gamma: float = 10.0) -> torch.Tensor:
+    """x (N, D), anchors (M, D) -> exp(-gamma * |x - anchor|^2) (N, M)."""
+    d2 = torch.sum((x[:, None, :] - anchors[None]) ** 2, dim=-1)
+    return torch.exp(-gamma * d2)

@@ -1,0 +1,5 @@
+"""Synthetic data (the counterpart of `repro.data`)."""
+
+from .synthetic import ImageStream, TokenStream
+
+__all__ = ["ImageStream", "TokenStream"]

@@ -23,11 +23,18 @@ generator after the init, standard normals in the weights' dtype times
 0.02, as JAX's launcher makes them (`make_extras`).  The
 device defaults to CUDA and the launcher raises without one; ``--device
 cpu --reduced`` runs the plain versions on the CPU.
+
+Under torchrun (``WORLD_SIZE`` set) every rank builds the same model,
+shards it over a ("data", "model") mesh of the world
+(`launch.mesh.make_host_mesh`, as JAX's launcher serves on its host mesh)
+and generates its rows of the requests; every rank prints every row's
+tokens.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -35,7 +42,7 @@ import torch
 
 from ..configs import extra_inputs, get_config, reduced_config
 from ..core.device import resolve_device
-from ..models.lm import LM
+from ..models.lm import LM, shard_model
 from ..serve.cv_engine import generate
 
 
@@ -74,8 +81,15 @@ def main(argv=None) -> None:
         rng.integers(0, cfg.vocab_size, (args.requests, args.prompt_len), dtype=np.int64)
     )
 
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        from .mesh import init_process_group, make_host_mesh
+
+        init_process_group(dev)
+        mesh = make_host_mesh(device=dev)
+        shard_model(model, mesh)
     t0 = time.perf_counter()
-    out = generate(model, prompts, steps=args.gen_len, extras=extras, device=dev)
+    out = generate(model, prompts, steps=args.gen_len, extras=extras, device=dev, mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt_s = time.perf_counter() - t0

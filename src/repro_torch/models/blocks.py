@@ -111,13 +111,13 @@ def init_block(kind: str, cfg, *, device=None, generator=None) -> nn.ModuleDict:
     return nn.ModuleDict(p)
 
 
-def _ffn(kind: str, p, h: torch.Tensor, cfg, *, capacity_factor=None):
+def _ffn(kind: str, p, h: torch.Tensor, cfg, *, capacity_factor=None, hint=None):
     """The block's second half: h -> (h + FFN(h), MoE metrics or {})."""
     n = _norm(cfg)
     x2 = apply_norm(h, p["ln2"], **n)
     if kind not in MOE_KINDS:
         return h + apply_mlp(p["mlp"], x2, act=cfg.act, style=cfg.mlp_style), {}
-    mo, metrics = moe_mod.moe_ffn(p["moe"], x2, cfg, capacity_factor=capacity_factor)
+    mo, metrics = moe_mod.moe_ffn(p["moe"], x2, cfg, capacity_factor=capacity_factor, hint=hint)
     if "dense_mlp" in p:
         xd = apply_norm(h, p["ln_dense"], **n)
         mo = mo + apply_mlp(p["dense_mlp"], xd, act=cfg.act, style=cfg.mlp_style)
@@ -132,13 +132,14 @@ def _gated_ffn(p, h: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, ctx=None,
-                mode: str | None = None):
+                mode: str | None = None, hint=None):
     """Full-sequence apply (prefill) -> (h, cache entry, metrics), as JAX's:
     the metrics are the MoE FFN's (``moe_aux``, ``moe_z``, ``expert_load``,
     ``moe_drop_frac``), empty for a dense FFN.  positions None means
     ``arange(S)``; `ctx` (B, T, D) is the context of ``xattn`` and ``dec``
     (the image embeddings, the encoder's output); `mode` reaches the
-    attention kernel.  ``enc`` is ``attn`` at ``causal=False``."""
+    attention kernel.  ``enc`` is ``attn`` at ``causal=False``.  `hint`
+    reaches the MoE FFN (`moe.moe_ffn`)."""
     check_kind(kind)
     x = apply_norm(h, p["ln1"], **_norm(cfg))
     if kind in STATE_KINDS:
@@ -162,7 +163,7 @@ def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, ctx=None,
         x = apply_norm(h, p["ln_x"], **_norm(cfg))
         h = h + attn_mod.cross_attn(p["xattn"], x, (xk, xv), cfg, mode=mode)
         cache |= {"xk": xk, "xv": xv}
-    h, metrics = _ffn(kind, p, h, cfg)
+    h, metrics = _ffn(kind, p, h, cfg, hint=hint)
     return h, cache, metrics
 
 
@@ -195,7 +196,8 @@ def init_block_cache(
     return entry
 
 
-def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, kv_pos, kv_valid):
+def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, kv_pos, kv_valid,
+                       hint=None):
     """One-token apply -> (h, cache entry), the entry's tensors written in
     place (`attention.gqa_decode`, `attention.mla_decode`; a state kind's
     new state copied into its entry); the context's K / V are read only
@@ -231,5 +233,5 @@ def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, k
         x = apply_norm(h, p["ln_x"], **_norm(cfg))
         h = h + attn_mod.cross_attn(p["xattn"], x, (cache["xk"], cache["xv"]), cfg)
     cf = cfg.moe.decode_capacity_factor if kind in MOE_KINDS else None
-    h, _ = _ffn(kind, p, h, cfg, capacity_factor=cf)
+    h, _ = _ffn(kind, p, h, cfg, capacity_factor=cf, hint=hint)
     return h, new_cache

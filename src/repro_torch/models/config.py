@@ -7,10 +7,12 @@ blocks read: the MLA, MoE, SSM (Mamba2) and xLSTM sub-configs, Zamba's
 ``shared_attn_every``, the cross-attention layout (``cross_attn_layers``,
 ``n_image_tokens``), the encoder's (``encdec``, ``n_enc_layers``) and the
 training settings ``remat`` (recompute each layer in the backward pass,
-`lm.forward`) and ``z_loss`` (`layers.softmax_cross_entropy`), with JAX's
-defaults.  The sharding settings (``fsdp``, ``dp_over_model``) wait for
-ROADMAP Queue 1 item 8 step 9, so a config that sets one of them is
-refused at construction.  `SHAPES` waits for the dry-run (Queue 1 item 9).
+`lm.forward`) and ``z_loss`` (`layers.softmax_cross_entropy`), and the
+sharding settings that `sharding.rules` reads (``fsdp``: weights stored
+sharded over the data axis too; ``dp_over_model``: a pure data-parallel
+arch whose batch is split over the model axis as well; the
+``heads_shardable`` and ``kv_heads_shardable`` properties), with JAX's
+defaults.  `SHAPES` waits for the dry-run (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -124,6 +126,10 @@ class ModelConfig:
     scale_embed: bool = False  # gemma multiplies embeddings by sqrt(d)
 
     dtype: str = "bfloat16"
+    # sharding (`sharding.rules`): weights stored over the data axis too
+    # (FSDP), and the batch split over the model axis as well (pure DP)
+    fsdp: bool = True
+    dp_over_model: bool = False
     # training: recompute each layer in the backward pass (JAX's jax.checkpoint)
     # and the weight of the mean squared log-partition in the loss
     remat: bool = True
@@ -134,6 +140,15 @@ class ModelConfig:
     @property
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def heads_shardable(self) -> bool:
+        """Can the q heads be tensor-parallel over a 16-way model axis?"""
+        return self.n_heads % 16 == 0
+
+    @property
+    def kv_heads_shardable(self) -> bool:
+        return self.n_kv_heads % 16 == 0
 
     @property
     def block_list(self) -> list[str]:

@@ -129,6 +129,8 @@ def dense_init(
     A stack of matrices (the MoE experts, (E, D, F)) is drawn a matrix at a
     time, so that its f32 draw never exists whole: arctic-480b's 128 experts
     are 8.9 GB a stack in bf16, 17.8 GB in f32."""
+    if device is not None and torch.device(device).type == "meta":  # shapes only
+        return _param(torch.empty(shape, dtype=dtype, device=device))
     fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
     std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
     if len(shape) <= 2:

@@ -36,12 +36,25 @@ body): its activations are recomputed in the backward pass, and its
 attention kernel launches again there.  The parameters are frozen as
 built; `make_trainable` turns on their gradients for training (all but the
 sigmoid router's ``router_bias``, which JAX reaches only through a
-``stop_gradient`` and `train.step` updates by its own rule).  Sharding
-waits for ROADMAP Queue 1 item 8 step 9.
+``stop_gradient`` and `train.step` updates by its own rule).
+
+On a mesh (`shard_model`, then the entry points with ``hint=`` a
+`sharding.rules.make_hint`): each parameter is stored as a DTensor with
+the placements of `sharding.rules.param_specs` (JAX's memory layout: FSDP
+over "data" when ``cfg.fsdp``, TP over "model", the MoE expert stacks over
+("data", "model")).  Each rank computes its part of the batch
+(`sharding.rules.shard_batch`: `forward` and `prefill` take the global
+batch, which every rank holds, and return the rank's rows); a layer's
+parameters are gathered where it reads them, inside its remat'd function,
+so the backward pass gathers them again (`sharding.comm.gather_param`);
+the MoE layer runs JAX's all-to-all path on its rank's slice of the
+sequence (`models.moe`).  The attention kernel and every other kernel see
+plain local tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -50,8 +63,55 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
+from ..sharding import comm
+from ..sharding import rules
 from . import blocks as blocks_mod
 from .layers import apply_norm, dense_init, embed_init, init_norm
+
+def sharded(hint) -> bool:
+    """Does `hint` run the model on a mesh?"""
+    return getattr(hint, "mesh", None) is not None
+
+
+class Gathered:
+    """A module's parameters as a layer reads them on a mesh: item, key and
+    attribute access as on the module, each DTensor parameter gathered at
+    its first read (`sharding.comm.gather_param`) and kept for the view's
+    life, each sub-module a view in turn; `local` gives a parameter's local
+    part instead (`sharding.comm.local_param`)."""
+
+    __slots__ = ("_m", "_seen")
+
+    def __init__(self, module: nn.Module):
+        self._m = module
+        self._seen = {}
+
+    def _wrap(self, key, v):
+        from torch.distributed.tensor import DTensor
+
+        if not isinstance(v, (DTensor, nn.Module)):
+            return v
+        if key not in self._seen:
+            self._seen[key] = Gathered(v) if isinstance(v, nn.Module) else comm.gather_param(v)
+        return self._seen[key]
+
+    def __getitem__(self, key):
+        return self._wrap(key, self._m[key])
+
+    def __getattr__(self, key):
+        return self._wrap(key, getattr(self._m, key))
+
+    def __contains__(self, key) -> bool:
+        return key in self._m
+
+    def local(self, key) -> torch.Tensor:
+        return comm.local_param(self._m[key])
+
+
+def _at(module, hint):
+    """`module` as a layer reads it: a `Gathered` view on a mesh."""
+    return Gathered(module) if sharded(hint) else module
+
 
 # slots of each shared-block application's KV ring (JAX `lm.init_cache`:
 # a windowed cache, DESIGN §4 of the JAX package)
@@ -118,8 +178,8 @@ def _norm(cfg) -> dict:
     return dict(kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
 
 
-def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens]
+def _embed(model: LM, tokens: torch.Tensor, hint=None) -> torch.Tensor:
+    x = _at(model, hint).embed[tokens]
     if model.cfg.scale_embed:
         # JAX rounds sqrt(d) to the weight dtype first: 55.5 in bf16 at d 3072
         # (and so does a bf16 model whose weights were widened to f32)
@@ -128,8 +188,9 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _head(model: LM, h: torch.Tensor) -> torch.Tensor:
+def _head(model: LM, h: torch.Tensor, hint=None) -> torch.Tensor:
     cfg = model.cfg
+    model = _at(model, hint)
     h = apply_norm(h, model.final_norm, **_norm(cfg))
     if cfg.tie_embeddings:
         return h @ model.embed.T
@@ -184,13 +245,34 @@ def param_leaves(model: LM) -> list[Leaf]:
     return [leaves[k] for k in sorted(leaves, key=_leaf_key)]
 
 
-def _layer(kind: str, p, h: torch.Tensor, cfg, *, ctx=None, mode=None):
+def shard_model(model: LM, mesh) -> LM:
+    """Store each parameter of `model` as a DTensor on `mesh`, in place,
+    with the placements of `sharding.rules.param_specs` (a layer's
+    parameter: its leaf's spec without the layer axis) -> `model`, whose
+    ``mesh`` is then set.  Every rank holds the same full model before (the
+    same seed); a rank keeps its parts only."""
+    specs = rules.param_specs(param_leaves(model), model.cfg, mesh)
+    where = {id(p): (lf.name, lf.stacked) for lf in param_leaves(model) for p in lf.params}
+    for mod in model.modules():
+        for pname, p in list(mod._parameters.items()):
+            name, stacked = where[id(p)]
+            spec = rules.P(*specs[name][1:]) if stacked else specs[name]
+            pl = rules.placements(spec, mesh)
+            mod._parameters[pname] = nn.Parameter(
+                rules.shard_tensor(p.detach(), mesh, pl), requires_grad=p.requires_grad)
+    model.mesh = mesh
+    return model
+
+
+def _layer(kind: str, p, h: torch.Tensor, cfg, *, ctx=None, mode=None, hint=None):
     """One layer's full-sequence apply for `forward` -> (h, metrics), its
     cache entry dropped; under `torch.utils.checkpoint` when ``cfg.remat``
-    is set and grad is enabled."""
+    is set and grad is enabled (on a mesh its parameters are gathered
+    inside, so the recompute gathers them again)."""
 
     def run(h, ctx):
-        out, _, metrics = blocks_mod.apply_block(kind, p, h, cfg, ctx=ctx, mode=mode)
+        out, _, metrics = blocks_mod.apply_block(kind, _at(p, hint), h, cfg, ctx=ctx, mode=mode,
+                                                 hint=hint)
         return out, metrics
 
     if cfg.remat and torch.is_grad_enabled():
@@ -198,13 +280,14 @@ def _layer(kind: str, p, h: torch.Tensor, cfg, *, ctx=None, mode=None):
     return run(h, ctx)
 
 
-def _run_encoder(model: LM, frames: torch.Tensor, *, mode: str | None = None) -> torch.Tensor:
+def _run_encoder(model: LM, frames: torch.Tensor, *, mode: str | None = None,
+                 hint=None) -> torch.Tensor:
     """The encoder over `frames` (B, T, D), in the weights' dtype, positions
     from 0 -> the final-normed context (B, T, D)."""
     h = frames.to(model.embed.dtype)
     for p in model.encoder["blocks"]:
-        h, _ = _layer("enc", p, h, model.cfg, mode=mode)
-    return apply_norm(h, model.encoder["final_norm"], **_norm(model.cfg))
+        h, _ = _layer("enc", p, h, model.cfg, mode=mode, hint=hint)
+    return apply_norm(h, _at(model.encoder["final_norm"], hint), **_norm(model.cfg))
 
 
 def context_input(cfg) -> str | None:
@@ -234,7 +317,8 @@ def context_len(cfg, extras: dict | None, batch: int) -> int | None:
     return t.shape[1]
 
 
-def _context(model: LM, extras: dict | None, batch: int, *, mode: str | None = None):
+def _context(model: LM, extras: dict | None, batch: int, *, mode: str | None = None,
+             hint=None):
     """Cross-attention context: the image embeddings (VLM) or the encoder's
     output, in the weights' dtype (JAX: ``cfg.param_dtype``, the same unless
     the weights were widened); None for an arch without one."""
@@ -242,7 +326,7 @@ def _context(model: LM, extras: dict | None, batch: int, *, mode: str | None = N
         return None
     x = extras[context_input(model.cfg)].to(model.device)
     if model.cfg.encdec:
-        return _run_encoder(model, x, mode=mode)
+        return _run_encoder(model, x, mode=mode, hint=hint)
     return x.to(model.embed.dtype)
 
 
@@ -265,27 +349,48 @@ def _merge_metrics(all_metrics: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def local_batch(batch: dict, hint):
+    """On a mesh: this rank's rows of a global batch (`rules.shard_batch`)
+    and `hint` knowing the global batch size; else both as given."""
+    if not sharded(hint):
+        return batch, hint
+    n = batch["tokens"].shape[0]
+    return (rules.shard_batch(batch, hint.mesh, hint.cfg),
+            dataclasses.replace(hint, batch=n))
+
+
 def forward(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
-            mode: str | None = None):
+            mode: str | None = None, hint=None):
     """tokens (B, S) -> (logits (B, S, V), metrics): positions from 0,
     Zamba's shared block after every run of layers, each layer remat'd when
     ``cfg.remat`` is set and grad is enabled (module docstring).  The
     metrics are the MoE layers' merged as JAX's `_merge_metrics` (empty for
-    a dense arch).  `extras` and `mode` as in `prefill`."""
+    a dense arch).  `extras` and `mode` as in `prefill`.  With a sharded
+    `hint` the model is `shard_model`'s, `tokens` and `extras` the global
+    batch, and the logits and metrics this rank's rows'."""
+    batch, hint = local_batch({"tokens": tokens, **(extras or {})}, hint)
+    tokens = batch.pop("tokens")
+    return forward_local(model, tokens, extras=batch or None, mode=mode, hint=hint)
+
+
+def forward_local(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
+                  mode: str | None = None, hint=None):
+    """`forward` on this rank's rows (`local_batch`)."""
     cfg = model.cfg
     B, S = tokens.shape
-    ctx = _context(model, extras, B, mode=mode)
-    h = _embed(model, tokens)
+    ctx = _context(model, extras, B, mode=mode, hint=hint)
+    h = _embed(model, tokens, hint)
     metrics_list = []
     for kind, layers in model.groups():
         run = []
         for p in layers:
-            h, m = _layer(kind, p, h, cfg, ctx=ctx, mode=mode)
+            h, m = _layer(kind, p, h, cfg, ctx=ctx, mode=mode, hint=hint)
             run.append(m)
         metrics_list.append(run)
         if cfg.shared_attn_every:
-            h, _, _ = blocks_mod.apply_block("attn", model.shared_block, h, cfg, mode=mode)
-    return _head(model, h), _merge_metrics(metrics_list)
+            h, _, _ = blocks_mod.apply_block("attn", _at(model.shared_block, hint), h, cfg,
+                                             mode=mode, hint=hint)
+    return _head(model, h, hint), _merge_metrics(metrics_list)
 
 
 # ---------------------------------------------------------------------------
@@ -294,27 +399,34 @@ def forward(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
 
 
 def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
-            mode: str | None = None):
+            mode: str | None = None, hint=None):
     """tokens (B, S) -> (logits of the last position (B, V), cache).
     `extras` holds the context input of a cross-attention arch (module
     docstring).  `mode` reaches the attention kernel (``"ref"``: its plain
-    version).  The MoE metrics are dropped, as JAX's prefill drops them."""
+    version).  The MoE metrics are dropped, as JAX's prefill drops them.
+    With a sharded `hint`, as in `forward`: the logits and the cache are
+    this rank's rows'."""
+    batch, hint = local_batch({"tokens": tokens, **(extras or {})}, hint)
+    tokens = batch.pop("tokens")
+    extras = batch or None
     cfg = model.cfg
     B, S = tokens.shape
-    ctx = _context(model, extras, B, mode=mode)
-    h = _embed(model, tokens)
+    ctx = _context(model, extras, B, mode=mode, hint=hint)
+    h = _embed(model, tokens, hint)
     cache: dict = {"groups": [], "shared": [], "pos": S}
     for kind, layers in model.groups():
         entries = []
         for p in layers:
-            h, c, _ = blocks_mod.apply_block(kind, p, h, cfg, ctx=ctx, mode=mode)
+            h, c, _ = blocks_mod.apply_block(kind, _at(p, hint), h, cfg, ctx=ctx, mode=mode,
+                                             hint=hint)
             entries.append(c)
         cache["groups"].append({name: torch.stack([c[name] for c in entries]) for name in entries[0]})
         del entries
         if cfg.shared_attn_every:
-            h, c, _ = blocks_mod.apply_block("attn", model.shared_block, h, cfg, mode=mode)
+            h, c, _ = blocks_mod.apply_block("attn", _at(model.shared_block, hint), h, cfg,
+                                             mode=mode, hint=hint)
             cache["shared"].append(c)
-    logits = _head(model, h[:, -1:, :])
+    logits = _head(model, h[:, -1:, :], hint)
     return logits[:, 0, :], cache
 
 
@@ -338,13 +450,14 @@ def ring_positions(pos: int, cache_len: int, *, device=None):
     return kv_pos, valid
 
 
-def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
+def decode_step(model: LM, tokens: torch.Tensor, cache: dict, *, hint=None):
     """tokens (B, 1): append one token at absolute position ``cache["pos"]``
     -> (logits (B, V), cache).  The cache's tensors are written in place;
-    the returned dict holds them and ``pos + 1``."""
+    the returned dict holds them and ``pos + 1``.  With a sharded `hint`,
+    the tokens and the cache are this rank's rows (`prefill`'s)."""
     cfg = model.cfg
     pos = cache["pos"]
-    h = _embed(model, tokens)
+    h = _embed(model, tokens, hint)
     for gi, ((kind, layers), gcache) in enumerate(zip(model.groups(), cache["groups"])):
         cache_len = _group_cache_len(kind, gcache)
         kv_pos, kv_valid = (
@@ -353,15 +466,17 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict):
         for li, p in enumerate(layers):
             c = {name: t[li] for name, t in gcache.items()}
             h, _ = blocks_mod.apply_block_decode(
-                kind, p, h, cfg, cache=c, pos=pos, kv_pos=kv_pos, kv_valid=kv_valid
+                kind, _at(p, hint), h, cfg, cache=c, pos=pos, kv_pos=kv_pos, kv_valid=kv_valid,
+                hint=hint,
             )
         if cfg.shared_attn_every:
             sc = cache["shared"][gi]
             sp, sv = ring_positions(pos, sc["k"].shape[1], device=tokens.device)
             h, _ = blocks_mod.apply_block_decode(
-                "attn", model.shared_block, h, cfg, cache=sc, pos=pos, kv_pos=sp, kv_valid=sv
+                "attn", _at(model.shared_block, hint), h, cfg, cache=sc, pos=pos, kv_pos=sp,
+                kv_valid=sv, hint=hint,
             )
-    logits = _head(model, h)
+    logits = _head(model, h, hint)
     return logits[:, 0, :], dict(cache, pos=pos + 1)
 
 

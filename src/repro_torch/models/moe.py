@@ -15,11 +15,17 @@ Routing styles:
              ``router_bias`` (aux-free load balancing), weights are the
              *unbiased* scores normalized over the selected k.
 
-`moe_ffn` is JAX's grouped-scatter path (`_moe_ffn_scatter`) on one card:
-it takes no mesh.  JAX's all-to-all expert-parallel path (`_a2a_plan`,
-`_moe_ffn_a2a`) waits for sharding (ROADMAP Queue 1 item 8 step 9), and
-the update of ``router_bias`` for training (step 8).  The expert products
-are batched matmuls over E, as JAX's einsums are (no Pallas kernel there).
+`moe_ffn` chooses between JAX's two paths as JAX does: on a mesh whose
+shapes divide (`_a2a_plan`), the all-to-all expert-parallel path
+(`_moe_ffn_a2a`): each rank takes its slice of the sequence on the model
+axis, scatters its tokens into (E, C, D) buffers, sends each expert's
+buffer to the rank holding that expert (an all-to-all over the
+expert-parallel axes), runs its local experts and sends the outputs back;
+otherwise the grouped-scatter path (`_moe_ffn_scatter`) with the experts
+gathered, whose load statistics are averaged over the ranks that split the
+batch, so that the aux loss is the global batch's, as under JAX's GSPMD.
+``router_bias`` is updated by `train.step`.  The expert products are
+batched matmuls over E, as JAX's einsums are (no Pallas kernel there).
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import comm
+from ..sharding import rules
 from .layers import ACTIVATIONS, _param, apply_mlp, dense_init, init_mlp
 
 
@@ -47,7 +55,7 @@ def init_moe(cfg, *, device=None, generator=None) -> nn.ParameterDict:
         ),
     }
     if m.router_style == "sigmoid":
-        # non-trainable: a training loop updates it (ROADMAP Queue 1 item 8 step 8)
+        # non-trainable: `train.step` moves it by the aux-free balancing rule
         p["router_bias"] = _param(torch.zeros(e, dtype=torch.float32, device=device))
     if m.n_shared:
         p["shared"] = init_mlp(d, m.d_ff_shared * m.n_shared, style="glu", dtype=dt, **init)
@@ -68,8 +76,11 @@ def selection_scores(p, x: torch.Tensor, m):
     return logits, probs, probs
 
 
-def _route(p, x: torch.Tensor, m):
-    """x (B, S, D) -> (weights (B, S, k) f32, idx (B, S, k) int64, metrics)."""
+def _route(p, x: torch.Tensor, m, group=None):
+    """x (B, S, D) -> (weights (B, S, k) f32, idx (B, S, k) int64, metrics).
+    With `group`, the ranks that split the batch: the load statistics and
+    the z loss are averaged over them before the aux loss (the global
+    batch's)."""
     logits, probs, sel = selection_scores(p, x, m)
     w, idx = torch.topk(sel, m.top_k, dim=-1)
     if m.router_style == "sigmoid":
@@ -80,8 +91,10 @@ def _route(p, x: torch.Tensor, m):
     # Switch-style load-balance aux loss + router z-loss (both f32)
     f_e = torch.mean(torch.sum(F.one_hot(idx, e).to(torch.float32), dim=-2), dim=(0, 1))
     p_e = torch.mean(probs, dim=(0, 1))
-    aux = e * torch.sum(f_e / m.top_k * p_e)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    if group is not None:
+        f_e, p_e, z = (comm.mean_over(t, group) for t in (f_e, p_e, z))
+    aux = e * torch.sum(f_e / m.top_k * p_e)
     return w, idx, {"moe_aux": aux, "moe_z": z, "expert_load": f_e}
 
 
@@ -92,18 +105,131 @@ def capacity(cfg, seq_len: int, capacity_factor: float | None = None) -> int:
     return max(int(math.ceil(seq_len * m.top_k / m.n_experts * cf)), 1)
 
 
-def moe_ffn(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None):
-    """x (B, S, D) -> (out (B, S, D), metrics): route, dispatch each group's
-    kept choices into (B, E, C, D) buffers, run the experts as batched
-    matmuls over E, gather each choice's output back and sum its k weighted
-    outputs; plus the shared experts.  `capacity_factor` None is the
-    config's (decode passes ``decode_capacity_factor``)."""
+def moe_ffn(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None, hint=None):
+    """x (B, S, D) -> (out (B, S, D), metrics).  `capacity_factor` None is
+    the config's (decode passes ``decode_capacity_factor``).  With a
+    sharded `hint` (`sharding.rules.make_hint`, its ``batch`` the global
+    batch size), `x` is this rank's rows and `p` a `lm.Gathered` view: the
+    all-to-all path when `_a2a_plan` gives a plan, as in JAX."""
+    mesh = getattr(hint, "mesh", None)
+    if mesh is None:
+        return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor)
+    B, S, D = x.shape
+    n = hint.batch if S > 1 else B
+    plan = _a2a_plan(mesh, cfg, (n, S, D), capacity_factor)
+    if plan is not None:
+        if "model" in rules.dp_axes(mesh, cfg):
+            raise ValueError(f"{cfg.name}: the all-to-all MoE path needs the batch off the "
+                             "model axis (dp_over_model is set)")
+        return _moe_ffn_a2a(p, x, cfg, plan)
+    axes = rules.batch_axes(n, mesh, cfg) if S > 1 else ()
+    group = comm.axes_group(mesh, axes) if axes else None
+    return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor, group=group)
+
+
+def _a2a_plan(mesh, cfg, xshape, capacity_factor):
+    """JAX's plan of the all-to-all path for a global batch of shape
+    `xshape` (B, S, D), or None (decode, one rank, indivisible shapes):
+    the batch axes ``bdp``, the expert-parallel axes ``a2a_axes`` and their
+    rank count ``n_ep``, every axis of the metrics' mean ``all_axes``, and
+    a shard's tokens ``L`` and expert capacity ``C``."""
+    m = cfg.moe
+    B, S, D = xshape
+    sizes = rules.mesh_axis_sizes(mesh)
+    bdp = tuple(a for a in ("pod", "data") if a in sizes)  # batch axes
+    n_b = math.prod(sizes[a] for a in bdp)
+    n_s = sizes.get("model", 1)  # the sequence axis
+    ep_total = sizes.get("data", 1) * n_s
+    if m.n_experts % ep_total == 0 and ep_total > 1:
+        a2a_axes: tuple = ("data", "model")
+        n_ep = ep_total
+    elif m.n_experts % n_s == 0 and n_s > 1:
+        a2a_axes = ("model",)
+        n_ep = n_s
+    else:
+        return None
+    # decode (S == 1) stays on the scatter path; indivisible shapes too
+    if S == 1 or B % n_b or (S % n_s if S > 1 else 0):
+        return None
+    cf = capacity_factor if capacity_factor is not None else m.capacity_factor
+    L = (B // n_b) * (S // n_s)  # tokens a shard
+    C = max(int(math.ceil(L * m.top_k / m.n_experts * cf)), 1)
+    return {"mesh": mesh, "bdp": bdp, "a2a_axes": a2a_axes,
+            "all_axes": bdp + (("model",) if n_s > 1 else ()),
+            "L": L, "C": C, "n_ep": n_ep}
+
+
+def _moe_ffn_a2a(p, x: torch.Tensor, cfg, plan):
+    """JAX's expert-parallel path on this rank's rows `x` (B_loc, S, D),
+    the same on every rank of the model axis: the rank's sequence slice
+    routed, its L * k choices ranked by a cumsum over the shard (capacity
+    C a shard), scattered into (E, C, D), the all-to-all to the experts'
+    ranks, the local experts, the all-to-all back, the weighted k-sum, and
+    the slices gathered again over the model axis; the metrics averaged
+    over all the plan's axes; the shared experts on the whole of `x`."""
+    m = cfg.moe
+    mesh = plan["mesh"]
+    L, C, n_ep = plan["L"], plan["C"], plan["n_ep"]
+    E, k = m.n_experts, m.top_k
+    E_loc = E // n_ep
+    D = x.shape[-1]
+    seq = comm.axes_group(mesh, ("model",)) if "model" in plan["all_axes"] else None
+    xl = comm.slice_dim(x, 1, seq) if seq is not None else x
+    if xl.shape[0] * xl.shape[1] != L:
+        raise ValueError(f"_moe_ffn_a2a: {tuple(xl.shape)} is not this plan's {L} tokens a shard")
+    pr = {"router": p["router"]}
+    if "router_bias" in p:
+        pr["router_bias"] = p["router_bias"]
+    w, idx, metrics = _route(pr, xl, m)
+    idxf = idx.reshape(L * k)
+    oh = F.one_hot(idxf, E)
+    slot = torch.gather(torch.cumsum(oh, dim=0) - oh, 1, idxf[:, None])[:, 0]
+    del oh
+    keep = slot < C
+    slot_c = torch.clamp(slot, max=C - 1)
+    upd = torch.where(keep[:, None], torch.repeat_interleave(xl.reshape(L, D), k, dim=0),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    buf = x.new_zeros((E, C, D)).index_put((idxf, slot_c), upd, accumulate=True)
+    # dispatch: expert e's buffer to the rank holding it -> (E_loc, n_ep * C, D)
+    ep = comm.axes_group(mesh, plan["a2a_axes"])
+    xe = comm.all_to_all(buf.reshape(n_ep, E_loc, C, D), ep)
+    xe = xe.transpose(0, 1).reshape(E_loc, n_ep * C, D)
+    act = ACTIVATIONS[m.act]
+    wg, wu, wd = (p.local(n) for n in ("w_gate", "w_up", "w_down"))
+    ye = torch.bmm(act(torch.bmm(xe, wg)) * torch.bmm(xe, wu), wd)
+    # combine: each source rank's outputs back to it -> (E, C, D)
+    yb = comm.all_to_all(ye.reshape(E_loc, n_ep, C, D).transpose(0, 1), ep).reshape(E, C, D)
+    y = yb[idxf, slot_c]
+    y = y * (w.reshape(L * k, 1) * keep[:, None]).to(y.dtype)
+    out = torch.sum(y.reshape(L, k, D), dim=1).reshape(xl.shape)
+    drop = 1.0 - torch.mean(keep.to(torch.float32))
+    everyone = comm.axes_group(mesh, plan["all_axes"])
+    mets = comm.mean_over(torch.stack([metrics["moe_aux"], metrics["moe_z"], drop]), everyone)
+    load = comm.mean_over(metrics["expert_load"], everyone)
+    if seq is not None:
+        out = comm.gather_dim(out, 1, seq)
+    metrics = {"moe_aux": mets[0], "moe_z": mets[1], "moe_drop_frac": mets[2],
+               "expert_load": load}
+    if m.n_shared and "shared" in p:
+        out = out + apply_mlp(p["shared"], x, act=m.act, style="glu")
+    return out, metrics
+
+
+def _moe_ffn_scatter(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None,
+                     group=None):
+    """The grouped-scatter path: route, dispatch each group's kept choices
+    into (B, E, C, D) buffers, run the experts as batched matmuls over E,
+    gather each choice's output back and sum its k weighted outputs; plus
+    the shared experts.  `group` as in `_route` (its drop share averaged
+    too)."""
     m = cfg.moe
     B, S, D = x.shape
     k, E = m.top_k, m.n_experts
     C = capacity(cfg, S, capacity_factor)
 
-    w, idx, metrics = _route(p, x, m)
+    # JAX's three-argument call off a mesh (`_route` is wrapped by the route
+    # recorders of the checks)
+    w, idx, metrics = _route(p, x, m) if group is None else _route(p, x, m, group)
 
     # group-local slot assignment (group = sequence)
     idxg = idx.reshape(B, S * k)
@@ -113,6 +239,8 @@ def moe_ffn(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None):
     del ohg, ranks
     keep = slot < C
     metrics["moe_drop_frac"] = 1.0 - torch.mean(keep.to(torch.float32))
+    if group is not None:
+        metrics["moe_drop_frac"] = comm.mean_over(metrics["moe_drop_frac"], group)
     slot_c = torch.clamp(slot, max=C - 1)
 
     # dispatch: a kept choice to its slot; a dropped one adds zero at C - 1

@@ -152,33 +152,40 @@ def adafactor_update(leaves, grads, state: dict, *, lr, eps: float = 1e-30, clip
     """One Adafactor step in place (`grads` and `lr` as in `adamw_update`).
     A leaf's step is computed twice, once for its RMS and once to apply
     it, so that no more than a layer's step exists at a time."""
-    state["count"] += 1
-    c = torch.tensor(state["count"], dtype=F32)
-    b2 = 1.0 - c**-0.8
     for leaf, gs in zip(leaves, grads):
-        if not _trainable(leaf):
-            continue
-        units = _units(leaf, gs, state["f"][leaf.name])
-        sq = torch.zeros((), dtype=F32, device=leaf.params[0].device)
-        n = 0
-        for _, grad, f, _ in units:
-            gf = grad()
-            g2 = gf * gf + eps
-            if "vr" in f:
-                f["vr"].mul_(b2).add_((1 - b2) * torch.mean(g2, dim=-1))
-                f["vc"].mul_(b2).add_((1 - b2) * torch.mean(g2, dim=-2))
-            else:
-                f["v"].mul_(b2).add_((1 - b2) * g2)
-            del g2
-            step = _adafactor_step(gf, f, eps)
-            sq += torch.sum(step * step)
-            n += step.numel()
-        rms = torch.sqrt(sq / n + eps)
-        div = torch.clamp(rms / clip, min=1.0)
-        for idx, grad, f, whole in units:
-            step = _adafactor_step(grad(), f, eps) / div
-            steps = list(step) if whole else [step]
-            for i, st in zip(idx, steps):
-                if wd and _decay(leaf):
-                    st = st + wd * leaf.params[i].to(F32)
-                _apply(leaf.params[i], st, lr)
+        adafactor_leaf_update(leaf, gs, state, lr=lr, eps=eps, clip=clip, wd=wd)
+    state["count"] += 1
+
+
+@torch.no_grad()
+def adafactor_leaf_update(leaf, gs, state: dict, *, lr, eps: float = 1e-30, clip: float = 1.0,
+                          wd: float = 0.0) -> None:
+    """`adafactor_update`'s step of one leaf, at the state's count + 1."""
+    if not _trainable(leaf):
+        return
+    c = torch.tensor(state["count"] + 1, dtype=F32)
+    b2 = 1.0 - c**-0.8
+    units = _units(leaf, gs, state["f"][leaf.name])
+    sq = torch.zeros((), dtype=F32, device=leaf.params[0].device)
+    n = 0
+    for _, grad, f, _ in units:
+        gf = grad()
+        g2 = gf * gf + eps
+        if "vr" in f:
+            f["vr"].mul_(b2).add_((1 - b2) * torch.mean(g2, dim=-1))
+            f["vc"].mul_(b2).add_((1 - b2) * torch.mean(g2, dim=-2))
+        else:
+            f["v"].mul_(b2).add_((1 - b2) * g2)
+        del g2
+        step = _adafactor_step(gf, f, eps)
+        sq += torch.sum(step * step)
+        n += step.numel()
+    rms = torch.sqrt(sq / n + eps)
+    div = torch.clamp(rms / clip, min=1.0)
+    for idx, grad, f, whole in units:
+        step = _adafactor_step(grad(), f, eps) / div
+        steps = list(step) if whole else [step]
+        for i, st in zip(idx, steps):
+            if wd and _decay(leaf):
+                st = st + wd * leaf.params[i].to(F32)
+            _apply(leaf.params[i], st, lr)

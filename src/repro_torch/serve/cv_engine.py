@@ -62,6 +62,7 @@ place (`models.attention.gqa_decode`).
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
@@ -76,6 +77,7 @@ from ..kernels.stencil import PlanOverBudget
 from ..kernels.stencil.ladder import DEGRADATION_LADDER
 from ..models import lm
 from ..models.blocks import CONTEXT_ENTRIES, STATE_KINDS
+from ..sharding import comm, rules
 from ..train.fault import StragglerWatchdog
 from .shard_dispatch import KERNEL_LADDER, ShardDispatcher, check_ladder
 
@@ -523,24 +525,32 @@ class CvEngine:
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(*, mode: str | None = None):
+def _serve_hint(cfg, mesh):
+    return rules.make_hint(mesh, cfg) if mesh is not None else None
+
+
+def make_prefill_step(cfg=None, mesh=None, *, mode: str | None = None):
     """-> prefill_step(model, tokens (B, S), extras=None) -> (next token (B,)
     int32, cache).  `mode` reaches the attention kernel (``"ref"``: its
-    plain version)."""
+    plain version).  With `mesh` (and `cfg`), the model is
+    `lm.shard_model`'s, the tokens and extras the global batch, and the
+    next tokens and the cache this rank's rows (`lm.prefill`)."""
+    hint = _serve_hint(cfg, mesh)
 
     def prefill_step(model, tokens, extras=None):
-        logits, cache = lm.prefill(model, tokens, extras=extras, mode=mode)
+        logits, cache = lm.prefill(model, tokens, extras=extras, mode=mode, hint=hint)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return prefill_step
 
 
-def make_decode_step():
+def make_decode_step(cfg=None, mesh=None):
     """-> serve_step(model, cache, tokens (B, 1)) -> (next token (B,) int32,
-    cache)."""
+    cache); with `mesh` (and `cfg`), on this rank's rows (`lm.decode_step`)."""
+    hint = _serve_hint(cfg, mesh)
 
     def serve_step(model, cache, tokens):
-        logits, cache = lm.decode_step(model, tokens, cache)
+        logits, cache = lm.decode_step(model, tokens, cache, hint=hint)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return serve_step
@@ -555,6 +565,7 @@ def generate(
     extras: dict | None = None,
     device=None,
     mode: str | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Greedy generation: prefill the (B, S) prompts, then decode; returns
     the (B, steps) int32 tokens.  Runs on `device` (None = "cuda"), where
@@ -564,7 +575,10 @@ def generate(
     `device`); its rows size the cache's context entries, as JAX sizes them
     from the prefill's context.  A missing or misshapen context input
     (`lm.context_len`) and a prompt that the decode buffers cannot hold
-    (`check_prompt_fits`) raise `ValueError` before anything runs."""
+    (`check_prompt_fits`) raise `ValueError` before anything runs.  With
+    `mesh` the model is `lm.shard_model`'s on it: every rank passes the
+    same prompts, runs the rows `sharding.rules.batch_specs` gives it, and
+    returns every row's tokens."""
     dev = resolve_device(device)
     here = model.device
     if here.type != dev.type or (dev.index is not None and here.index != dev.index):
@@ -576,10 +590,12 @@ def generate(
         B, S = prompt.shape
         ctx_len = lm.context_len(cfg, extras, B)
         cache_len = cache_len or (S + steps)
-        cache = lm.init_cache(cfg, B, cache_len, ctx_len=ctx_len, device=dev)
+        rows = rules.batch_axes(B, mesh, cfg) if mesh is not None else ()
+        n_split = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in rows)
+        cache = lm.init_cache(cfg, B // n_split, cache_len, ctx_len=ctx_len, device=dev)
         check_prompt_fits(cache, S, cfg)
-        decode = make_decode_step()
-        tok, pcache = make_prefill_step(mode=mode)(model, prompt, extras)
+        decode = make_decode_step(cfg, mesh)
+        tok, pcache = make_prefill_step(cfg, mesh, mode=mode)(model, prompt, extras)
         # re-home the prefill cache into the fixed-size decode buffers
         cache = _adopt_prefill(cache, pcache, cfg)
         del pcache
@@ -587,7 +603,10 @@ def generate(
         for _ in range(steps - 1):
             tok, cache = decode(model, cache, out[-1][:, None])
             out.append(tok)
-        return torch.stack(out, dim=1)
+        out = torch.stack(out, dim=1)
+        if rows:
+            out = comm.all_gather(out, 0, comm.axes_group(mesh, rows))
+        return out
 
 
 def check_prompt_fits(cache: dict, S: int, cfg) -> None:

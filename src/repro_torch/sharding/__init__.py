@@ -1,2 +1,2 @@
-"""Sharding rules (the counterpart of `repro.sharding`): so far the CV
-batch rules of `rules.py`."""
+"""Sharding (the counterpart of `repro.sharding`): the rules of `rules.py`
+and the collectives of `comm.py`."""

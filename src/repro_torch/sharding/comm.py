@@ -1,0 +1,245 @@
+"""The collectives of the sharded LM stack, each differentiable with its
+adjoint as its backward.
+
+A rank's backward pass computes its share of the gradient of the global
+loss, and the true gradient of anything is the sum of the ranks' shares:
+each rank differentiates ``loss / world_size``, where its loss is the mean
+over its batch part (`train.step`), and every collective's backward is its
+adjoint (all-gather <-> reduce-scatter, a slice <-> zero padding, an
+all-to-all <-> the inverse all-to-all, a mean all-reduce <-> itself).  So
+a parameter gathered at use (`gather_param`) gets, in its backward, its
+gradient reduce-scattered over the mesh dimensions that split it and
+summed over those that replicate it: the FSDP pattern, with JAX's
+per-parameter specs (`sharding.rules.param_specs`), whether the ranks
+along the model axis computed the same thing or each its slice (the MoE
+layer's sequence slices).
+
+Every function runs on `torch.distributed` groups: NCCL on the card, gloo
+on the CPU (`launch.mesh`).  A group of one rank is skipped.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+_GROUPS: dict = {}
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def axes_group(mesh, axes: tuple):
+    """The process group over the ranks of `mesh` that differ only along
+    `axes` (names, in the mesh's order; the first major), which every rank
+    of the mesh makes together at its first call."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(a for a in names if a in axes)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = (id(mesh), axes)
+    if key not in _GROUPS:
+        ranks = mesh.mesh
+        idx = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in idx]
+        rows = ranks.permute(*rest, *idx).reshape(-1, math.prod(mesh.size(i) for i in idx))
+        if rows.shape[0] == 1 and rows[0].tolist() == list(range(dist.get_world_size())):
+            _GROUPS[key] = dist.group.WORLD
+        else:
+            _GROUPS[key], _ = dist.new_subgroups_by_enumeration(rows.tolist())
+    return _GROUPS[key]
+
+
+# ---------------------------------------------------------------------------
+# The plain collectives
+# ---------------------------------------------------------------------------
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim`, in rank order."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along `dim` of the ranks' `x` summed."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
+    out = chunks.new_empty(chunks.shape[1:])
+    dist.reduce_scatter_tensor(out, chunks.reshape(-1, *chunks.shape[2:]), group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The ranks' `x` reduced (in place; returned)."""
+    if group_size(group) > 1:
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def full(local: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The full tensor of which each rank holds `local` under `placements`
+    (no autograd)."""
+    x = local
+    for i in reversed(range(len(placements))):  # the minor mesh dimension first
+        if placements[i].is_shard():
+            x = all_gather(x, placements[i].dim, mesh.get_group(i))
+    return x
+
+
+def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = group_size(group)
+    return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous() if n > 1 else x
+
+
+# ---------------------------------------------------------------------------
+# Differentiable forms
+# ---------------------------------------------------------------------------
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        out = full(local, mesh, placements)
+        return local.view_as(local) if out is local else out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        for i, pl in enumerate(ctx.placements):
+            if pl.is_shard():
+                g = reduce_scatter(g, pl.dim, ctx.mesh.get_group(i))
+            else:
+                g = all_reduce(g.clone(), ctx.mesh.get_group(i))
+        return g, None, None
+
+
+class _SumReplicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        for i, pl in enumerate(ctx.placements):
+            if not pl.is_shard():
+                all_reduce(g, ctx.mesh.get_group(i))
+        return g, None, None
+
+
+def _mesh_of_one(p) -> bool:
+    return p.device_mesh.size() == 1
+
+
+def gather_param(p) -> torch.Tensor:
+    """The full value of a DTensor parameter, as a plain tensor: gathered
+    over the mesh dimensions that split it; in the backward, its gradient
+    reduce-scattered back over them and summed over the others."""
+    if _mesh_of_one(p):
+        return p.to_local()
+    return _GatherParam.apply(p.to_local(), p.device_mesh, tuple(p.placements))
+
+
+def local_param(p) -> torch.Tensor:
+    """This rank's part of a DTensor parameter, as a plain tensor, used
+    where it lies (the MoE experts of the all-to-all path); in the backward,
+    its gradient summed over the mesh dimensions that replicate it."""
+    if _mesh_of_one(p):
+        return p.to_local()
+    return _SumReplicas.apply(p.to_local(), p.device_mesh, tuple(p.placements))
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.shape = dim, group, x.shape
+        return _own(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = group_size(ctx.group)
+        full = g.new_zeros(ctx.shape)
+        size = ctx.shape[ctx.dim] // n
+        full.narrow(ctx.dim, dist.get_rank(ctx.group) * size, size).copy_(g)
+        return full, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.group)
+        return out, None
+
+
+class _Mean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group) / group_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group) / group_size(ctx.group), None
+
+
+def slice_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk of `x` (the same on every rank of `group`) along
+    `dim`."""
+    if group_size(group) == 1:
+        return x
+    return _Slice.apply(x, dim, group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim`."""
+    if group_size(group) == 1:
+        return x
+    return _Gather.apply(x, dim, group)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` (n, ...) with n the group's size: chunk j to rank j; the result's
+    chunk j came from rank j."""
+    if group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' `x` averaged."""
+    if group_size(group) == 1:
+        return x
+    return _Mean.apply(x, group)

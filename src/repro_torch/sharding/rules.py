@@ -1,19 +1,47 @@
-"""CV batch rules for the sharded serve (the counterpart of the ``cv_*``
-helpers of `repro.sharding.rules`).
+"""Sharding rules (the counterpart of `repro.sharding.rules`): the LM
+stack's parameter, batch and cache specs and activation hints, and the CV
+batch rules of the sharded serve.
+
+Mesh axes: ("pod", "data", "model") multi-pod or ("data", "model") single-pod.
+  data  DP (batch); also the FSDP storage axis of the weights, and the
+        expert-parallel axis of the MoE expert stacks.
+  model TP: attention heads, FFN hidden, vocab; the sequence axis of the
+        MoE layer's all-to-all path.
+  pod   extra DP.
+
+The rules are JAX's, line for line: an axis is used on a dimension only
+when it divides it (`_maybe`).  They read nothing of a mesh but its axis
+names and sizes, so a `MeshShape` describes a mesh without processes.  A
+spec is a `PartitionSpec`: per dimension an axis name, a tuple of names or
+None, as JAX's; `placements` turns it into DTensor placements over a
+`DeviceMesh` (`launch.mesh.make_mesh`).
+
+What the port stores and computes (`models.lm.shard_model`): each parameter
+is a DTensor with the placements of `param_specs`, JAX's memory layout;
+each rank computes its batch shard (`batch_specs`, `shard_batch`) with the
+layer's parameters gathered at use (`sharding.comm`), and the MoE layer
+takes its rank's slice of the sequence on the model axis for the
+all-to-all path (`models.moe`).  `make_hint`'s table is JAX's, and
+`constrain` applies to DTensor activations only: the port's activations
+are plain local tensors, so the layouts JAX's hints ask GSPMD for (the
+sequence-parallel activations, split-K decode over the cache's time axis)
+are not reproduced.  `cache_specs` gives JAX's cache layout.
 
 The CV serving path shards one thing: the image-batch axis of a bucket
 batch, and of everything the pipeline derives from it (descriptors,
 validity masks and predictions all keep the batch axis leading).  Shards
 are contiguous slices of that axis.  JAX's `cv_batch_spec`,
-`cv_batch_sharding` and `cv_out_specs` build `PartitionSpec` and
-`NamedSharding` layouts for `shard_map`, which have no PyTorch meaning:
-the port's dispatcher places each slice on its device itself, so they are
-not ported.  The LM stack's rules come with ROADMAP Queue 1 item 8, step 9.
+`cv_batch_sharding` and `cv_out_specs` build layouts for `shard_map`: the
+port's dispatcher places each slice on its device itself, so they are not
+ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 
 def cv_data_devices(mesh) -> list:
@@ -35,3 +63,367 @@ def cv_batch_split(batch: np.ndarray, n: int) -> tuple[list, int]:
         batch = np.concatenate([batch, batch[-1:].repeat(pad, axis=0)])
     per = batch.shape[0] // n
     return [batch[i * per:(i + 1) * per] for i in range(n)], per
+
+
+# ---------------------------------------------------------------------------
+# Specs and meshes
+# ---------------------------------------------------------------------------
+
+
+class PartitionSpec(tuple):
+    """JAX's `PartitionSpec`: per dimension an axis name, a tuple of axis
+    names (the dimension split over their product, the first major) or
+    None (not split); dimensions past its length are not split.  A tuple
+    of one name is that name, as in JAX."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (a[0] if isinstance(a, tuple) and len(a) == 1 else a
+                                     for a in axes))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, without devices or processes: what
+    the rules read of a `DeviceMesh` (``mesh_dim_names``, ``shape``)."""
+
+    shape: tuple
+    mesh_dim_names: tuple
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def dp_axes(mesh, cfg=None) -> tuple:
+    dp = ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+    # small archs with nothing to tensor-parallelize (xlstm-125m) run pure
+    # DP: the batch is split over the model axis as well
+    if cfg is not None and getattr(cfg, "dp_over_model", False):
+        dp = dp + ("model",)
+    return dp
+
+
+def _maybe(axis, dim: int, sizes: dict[str, int]):
+    """`axis` (a name or a tuple) on a dimension only if it divides it."""
+    if axis is None:
+        return None
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    total = 1
+    for a in axes:
+        total *= sizes.get(a, 1)
+    if total > 1 and dim % total == 0:
+        return axis
+    # shrink a tuple from the left (("data", "model") -> "model")
+    if not isinstance(axis, str) and len(axes) > 1:
+        return _maybe(axes[-1], dim, sizes)
+    return None
+
+
+def prune(shape, spec: PartitionSpec, mesh) -> PartitionSpec:
+    """`spec` for a tensor of `shape`, each axis that does not divide its
+    dimension dropped (`constrain`'s rule)."""
+    sizes = mesh_axis_sizes(mesh)
+    axes = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return P(*[_maybe(ax, dim, sizes) for dim, ax in zip(shape, axes)])
+
+
+def constrain(x, spec: PartitionSpec, mesh):
+    """JAX's `with_sharding_constraint` with the indivisible axes pruned:
+    a DTensor `x` is redistributed to the pruned spec; a plain tensor (every
+    activation of the port, a rank's local part) is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, placements(prune(x.shape, spec, mesh), x.device_mesh))
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs (by JAX's parameter path)
+# ---------------------------------------------------------------------------
+
+
+def _leaf_spec(path: tuple, shape: tuple, cfg, sizes) -> PartitionSpec:
+    name = path[-1]
+    fsdp = "data" if cfg.fsdp else None
+    tp_attn = cfg.heads_shardable and cfg.kv_heads_shardable
+    in_mixer = "mixer" in path or "cell" in path
+    in_moe_stack = len(shape) == 3 and name in ("w_gate", "w_up", "w_down")
+
+    def spec(*axes):
+        return P(*[_maybe(a, d, sizes) for a, d in zip(axes, shape)])
+
+    if name == "embed":
+        return spec("model", fsdp)  # vocab-sharded
+    if name == "lm_head":
+        return spec(fsdp, "model")
+    if in_moe_stack:  # (E, D, F) / (E, F, D)
+        # pure EP: experts over data x model jointly when divisible, else "model"
+        return spec(("data", "model"), None, None)
+    if name == "router":
+        return spec(None, None)
+    if name in ("router_bias", "b_i", "b_f", "A_log", "D", "dt_bias", "b_gates",
+                "gate_attn", "gate_mlp"):
+        return P(*([None] * len(shape)))
+    if in_mixer:
+        # Mamba2 / xLSTM internals: the fused in / up projections keep their
+        # output dimension whole; the output projection is row-parallel
+        if name in ("in_proj", "w_up"):
+            return spec(fsdp, None)
+        if name in ("out_proj", "w_down"):
+            return spec("model", fsdp)
+        if name in ("w_q", "w_k", "w_v"):
+            return spec(None, None)
+        if name in ("conv_w", "conv_b", "w_if", "r_gates"):
+            return P(*([None] * len(shape)))
+    # attention projections: TP over heads only when q and kv heads both
+    # divide the model axis
+    if name == "w_q":
+        return spec(fsdp, "model") if tp_attn else spec(fsdp, None)
+    if name in ("w_k", "w_v"):
+        return spec(fsdp, "model") if tp_attn else spec(fsdp, None)
+    if name == "w_o":
+        return spec("model", fsdp) if tp_attn else spec(fsdp, None)
+    if name == "b_q":
+        return spec("model" if tp_attn else None)
+    if name in ("b_k", "b_v"):
+        return spec("model" if tp_attn else None)
+    # MLA
+    if name in ("w_dq", "w_dkv", "w_kr"):
+        return spec(fsdp, None)
+    if name in ("w_uq", "w_uk", "w_uv"):
+        return spec(None, "model" if tp_attn else None)
+    # dense MLP: TP over F when attention is TP'd, else FSDP-stored only
+    if name in ("w_gate", "w_up"):
+        return spec(fsdp, "model") if tp_attn else spec(fsdp, None)
+    if name == "w_down":
+        return spec("model", fsdp) if tp_attn else spec(fsdp, None)
+    if name in ("b_up",):
+        return spec("model" if tp_attn else None)
+    if name in ("b_down",):
+        return spec(None)
+    # norms and everything else: replicated
+    return P(*([None] * len(shape)))
+
+
+def _leaf_shape(leaf) -> tuple:
+    """A `models.lm.Leaf`'s shape in JAX's tree (a stacked leaf has the
+    layer axis first)."""
+    p = leaf.params[0]
+    return (len(leaf.params), *p.shape) if leaf.stacked else tuple(p.shape)
+
+
+def param_specs(leaves, cfg, mesh) -> dict[str, PartitionSpec]:
+    """JAX's `param_specs` over `models.lm.param_leaves`: name -> spec of
+    the leaf in JAX's tree.  The names are JAX's paths (``groups.0.attn.w_q``)
+    and a stacked leaf's spec has None for its layer axis, which the rule
+    skips, as JAX's (a layer's parameter takes the rest of the spec)."""
+    sizes = mesh_axis_sizes(mesh)
+    out = {}
+    for leaf in leaves:
+        names = tuple(leaf.name.split("."))
+        shape = _leaf_shape(leaf)
+        stacked = "groups" in names
+        eff = shape[1:] if stacked and shape else shape
+        spec = _leaf_spec(names, eff, cfg, sizes)
+        out[leaf.name] = P(None, *spec) if stacked else spec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Activation hints
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Hint:
+    """`make_hint`'s callable: ``hint(x, name)`` constrains `x` to the
+    table's spec for `name` (`constrain`), and carries the `mesh` and `cfg`
+    that the layers read (the MoE all-to-all plan).  `batch` is the global
+    batch size of the call running under it, which a layer, seeing only
+    its rank's part, cannot know (`models.lm` sets it)."""
+
+    mesh: object
+    cfg: object
+    table: dict
+    batch: int | None = None
+
+    def __call__(self, x, name: str = "act"):
+        spec = self.table.get(name)
+        if spec is None or x.ndim < len(spec):
+            return x
+        return constrain(x, spec, self.mesh)
+
+
+def make_hint(mesh, cfg) -> Hint:
+    """The activation hints of `cfg` on `mesh`: JAX's table."""
+    dp = dp_axes(mesh, cfg)
+    heads_ok = cfg.heads_shardable
+    kv_ok = cfg.kv_heads_shardable
+    ssm_heads_ok = (cfg.ssm is not None
+                    and cfg.ssm.n_heads % mesh_axis_sizes(mesh).get("model", 1) == 0)
+    if "model" in dp:  # pure-DP arch: "model" already taken by the batch
+        table = {
+            "act": P(dp, None, None),
+            "heads_q": P(dp, None, None, None),
+            "heads_kv": P(dp, None, None, None),
+            "ffn": P(dp, None, None),
+            "moe_dispatch": P(("data", "model"), None, None),
+            "moe_ffn": P(("data", "model"), None, None),
+            "moe_group": P(dp, None, None, None),
+            "ssm_heads": P(dp, None, None, None),
+            "logits": P(dp, None, None),
+        }
+    else:
+        tp = heads_ok and kv_ok
+        table = {
+            "act": P(dp, "model", None),
+            "heads_q": P(dp, None, "model", None) if tp else P(dp, "model", None, None),
+            "heads_kv": P(dp, None, "model", None) if tp else P(dp, None, None, None),
+            "ffn": P(dp, None, "model") if tp else P(dp, "model", None),
+            "moe_dispatch": P(("data", "model"), None, None),
+            "moe_ffn": P(("data", "model"), None, None),
+            "moe_group": P(dp, "model", None, None),
+            "ssm_heads": P(dp, None, "model", None) if ssm_heads_ok else P(dp, None, None, None),
+            "logits": P(dp, None, "model"),
+        }
+    return Hint(mesh, cfg, table)
+
+
+# ---------------------------------------------------------------------------
+# Batch / cache specs
+# ---------------------------------------------------------------------------
+
+
+def batch_specs(batch: dict, mesh, cfg=None) -> dict[str, PartitionSpec]:
+    """Tokens, labels and context inputs: the leading (batch) dimension
+    over the DP axes, when they divide it."""
+    dp = dp_axes(mesh, cfg)
+    sizes = mesh_axis_sizes(mesh)
+    out = {}
+    for k, t in batch.items():
+        nd = len(t.shape)
+        out[k] = P(_maybe(dp, t.shape[0], sizes), *([None] * (nd - 1))) if nd else P()
+    return out
+
+
+CACHE_TIME_ENTRIES = ("k", "v", "xk", "xv", "ckv", "kr", "ctx")
+
+
+def cache_specs(cache: dict, mesh, cfg) -> dict:
+    """Decode caches (`models.lm.init_cache`'s tree, JAX's layout): batch
+    over DP, the time axis of the K / V and latent entries over "model"
+    (split-K decode); a run's entries have the stacked layer axis first.
+    The same tree with a spec at each tensor (``pos``: ``P()``)."""
+    dp = dp_axes(mesh, cfg)
+    sizes = mesh_axis_sizes(mesh)
+
+    def one(name: str, shape: tuple, stacked: bool):
+        eff = shape[1:] if stacked else shape
+        if not eff:
+            return P()
+        axes: list = [None] * len(eff)
+        axes[0] = _maybe(dp, eff[0], sizes)
+        model_free = "model" not in (axes[0] or ()) and axes[0] != "model"
+        if name in CACHE_TIME_ENTRIES and len(eff) >= 2 and model_free:
+            axes[1] = _maybe("model", eff[1], sizes)
+        return P(None, *axes) if stacked else P(*axes)
+
+    def walk(node, stacked):
+        if isinstance(node, dict):
+            return {k: (walk(v, stacked) if isinstance(v, (dict, list))
+                        else one(k, tuple(getattr(v, "shape", ())), stacked))
+                    for k, v in node.items()}
+        return [walk(v, stacked) for v in node]
+
+    return {k: walk(v, k == "groups") if isinstance(v, (dict, list))
+            else one(k, tuple(getattr(v, "shape", ())), False) for k, v in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements and local parts
+# ---------------------------------------------------------------------------
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """DTensor placements of `spec` over `mesh`: ``Shard(d)`` on each mesh
+    dimension that splits tensor dimension d, ``Replicate()`` elsewhere.  A
+    dimension split over a tuple of axes is split over them in the mesh's
+    order, the first major, as in JAX; a tuple in another order raises
+    `ValueError`."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        axes = (ax,) if isinstance(ax, str) else tuple(ax)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: the axes {axes} of dimension {d} are not in the "
+                             f"mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """JAX's `NamedSharding`: a mesh and a spec, or DTensor placements
+    directly (`placements`)."""
+
+    mesh: object
+    spec: PartitionSpec | tuple
+
+    @property
+    def placements(self) -> tuple:
+        if isinstance(self.spec, PartitionSpec):
+            return placements(self.spec, self.mesh)
+        return tuple(self.spec)
+
+
+def local_part(t: torch.Tensor, mesh, placements_) -> torch.Tensor:
+    """This rank's part of the full tensor `t` under `placements_` (a view;
+    no communication: every rank holds `t`).  Several mesh dimensions on one
+    tensor dimension split it in the mesh's order."""
+    from torch.distributed.tensor import Shard
+
+    for i, pl in enumerate(placements_):
+        if isinstance(pl, Shard):
+            n = mesh.size(i)
+            if t.shape[pl.dim] % n:
+                raise ValueError(f"dimension {pl.dim} of {tuple(t.shape)} does not divide "
+                                 f"over {n} ranks")
+            t = t.chunk(n, dim=pl.dim)[mesh.get_local_rank(i)]
+    return t
+
+
+def shard_tensor(t: torch.Tensor, mesh, placements_):
+    """A DTensor holding this rank's part of the full tensor `t` (which
+    every rank holds) under `placements_`: a copy when it is a strict part,
+    so that `t` can be freed; `t` itself on a mesh of one rank."""
+    from torch.distributed.tensor import DTensor
+
+    part = local_part(t, mesh, placements_)
+    part = part.clone(memory_format=torch.contiguous_format) if part.numel() < t.numel() else t
+    return DTensor.from_local(part, mesh, placements_, run_check=False)
+
+
+def shard_batch(batch: dict, mesh, cfg=None) -> dict:
+    """This rank's part of a global batch (every rank holds it) under
+    `batch_specs`."""
+    specs = batch_specs(batch, mesh, cfg)
+    return {k: local_part(t, mesh, placements(specs[k], mesh)) for k, t in batch.items()}
+
+
+def batch_axes(n: int, mesh, cfg=None) -> tuple:
+    """The mesh axes that split a batch of `n` rows (`batch_specs`' rule)."""
+    ax = _maybe(dp_axes(mesh, cfg), n, mesh_axis_sizes(mesh))
+    return () if ax is None else ((ax,) if isinstance(ax, str) else tuple(ax))

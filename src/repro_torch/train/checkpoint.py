@@ -12,10 +12,13 @@
     truncated step is skipped for the one before it;
   * keep-last-k garbage collection; `AsyncSaver` writes from a thread.
 
-The leaves are a state's named tensors in a fixed order
-(`train.step.state_tensors`).  JAX's elastic restore onto another mesh
-waits for sharding (ROADMAP Queue 1 item 8 step 9): `restore` places each
-leaf on its target's device, in its target's dtype.
+The leaves are named tensors in a fixed order; a training state's are
+JAX's checkpoint's (`train.step.state_tensors`), so that either package
+resumes the other's.  On a mesh, a DTensor leaf is written whole: every
+rank gathers it, rank 0 writes, and every rank waits for the publish.
+`restore` places each leaf on its target's device in its target's dtype,
+or, elastically, as a DTensor on the mesh and with the placements that
+`shardings` gives it (a DTensor target: its own), whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -28,12 +31,29 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..sharding import comm, rules
+
+
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _writer() -> bool:
+    """Does this process write (rank 0, or no process group)?"""
+    return not _distributed() or dist.get_rank() == 0
 
 
 def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A tensor -> (a host copy of it as written to disk, its logical
     dtype).  A copy also of a CPU tensor: training updates its tensors in
-    place, so an `AsyncSaver` thread must not read the live ones."""
+    place, so an `AsyncSaver` thread must not read the live ones.  A
+    DTensor is gathered whole (every rank of its mesh takes part)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = comm.full(t.to_local(), t.device_mesh, t.placements)
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its raw u16
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -69,8 +89,15 @@ def _write(ckpt_dir: str, step: int, host: dict, keep: int) -> str:
 
 def save(ckpt_dir: str, step: int, tensors: dict, *, keep: int = 3) -> str:
     """Synchronous atomic save of `tensors` (name -> tensor, in order).
-    Returns the published directory."""
-    return _write(ckpt_dir, step, {k: _host(t) for k, t in tensors.items()}, keep)
+    Returns the published directory.  In a process group every rank calls
+    it: rank 0 writes, and all return after the publish."""
+    host = {k: _host(t) for k, t in tensors.items()}
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _writer():
+        path = _write(ckpt_dir, step, host, keep)
+    if _distributed():
+        dist.barrier()
+    return path
 
 
 class AsyncSaver:
@@ -83,6 +110,8 @@ class AsyncSaver:
     def save(self, ckpt_dir: str, step: int, tensors: dict, *, keep: int = 3):
         self.wait()
         host = {k: _host(t) for k, t in tensors.items()}
+        if not _writer():
+            return
         self._thread = threading.Thread(target=_write, args=(ckpt_dir, step, host, keep),
                                         daemon=True)
         self._thread.start()
@@ -127,13 +156,34 @@ def _tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _place(t: torch.Tensor, tgt, sharding):
+    """A restored full tensor in its target's dtype: as a DTensor on
+    ``sharding``'s mesh with its placements (a `sharding.rules.NamedSharding`,
+    or a DTensor target's own layout), else on the target's device."""
+    from torch.distributed.tensor import DTensor
+
+    if sharding is None and isinstance(tgt, DTensor):
+        sharding = rules.NamedSharding(tgt.device_mesh, tuple(tgt.placements))
+    if sharding is None:
+        return t.to(device=tgt.device, dtype=tgt.dtype)
+    mesh = sharding.mesh
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()
+                       if mesh.device_type == "cuda" else None)
+    local = rules.local_part(t, mesh, sharding.placements)
+    return DTensor.from_local(local.to(device=dev, dtype=tgt.dtype).contiguous(), mesh,
+                              sharding.placements, run_check=False)
+
+
 def restore(ckpt_dir: str, target: dict, *, step: int | None = None,
-            verify: bool = True) -> tuple[dict, int]:
+            shardings: dict | None = None, verify: bool = True) -> tuple[dict, int]:
     """The newest usable step (or `step`) -> (tensors named as `target`,
-    each on its target's device in its target's dtype, the step).  A step
-    whose names differ from `target`'s, or that fails its checks, is
-    skipped for an older one.  Raises `FileNotFoundError` if none is
-    usable."""
+    each in its target's dtype, the step).  A leaf goes to its target's
+    device, or, elastic restore, as a DTensor onto the mesh and placements
+    of its entry in `shardings` (name -> `sharding.rules.NamedSharding`), a
+    DTensor target's own by default.  A step whose names differ from
+    `target`'s, or that fails its checks, is skipped for an older one.
+    Raises `FileNotFoundError` if none is usable."""
+    shardings = shardings or {}
     candidates = [step] if step is not None else _steps(ckpt_dir)[::-1]
     names = list(target)
     for s in candidates:
@@ -150,7 +200,6 @@ def restore(ckpt_dir: str, target: dict, *, step: int | None = None,
         out = {}
         for name, meta in zip(names, manifest["leaves"]):
             t = _tensor(np.load(os.path.join(path, meta["file"])), meta["dtype"])
-            tgt = target[name]
-            out[name] = t.to(device=tgt.device, dtype=tgt.dtype)
+            out[name] = _place(t, target[name], shardings.get(name))
         return out, s
     raise FileNotFoundError(f"no usable checkpoint in {ckpt_dir}")

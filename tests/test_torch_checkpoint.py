@@ -130,8 +130,10 @@ def test_train_state_round_trip(tmp_path, optimizer):
     for i in range(2):
         state, _ = ts(state, stream.batch_at(i))
     names = list(tstep.state_tensors(state))
-    assert names[0] == "params.embed" and names[-1] == "step"
-    assert "opt.count" in names
+    # JAX's checkpoint order and key paths: the flattened {"opt", "params", "step"}
+    assert names[0] == "['opt']['count']" and names[-1] == "['step']"
+    assert names == tstep.state_names(state)
+    assert "['params']['embed']" in names and "['params']['groups'][1]['moe']['w_gate']" in names
     ck.save(str(tmp_path), 2, tstep.state_tensors(state))
     fresh = tstep.init_state(cfg, optimizer=optimizer, device="cpu",
                              generator=torch.Generator().manual_seed(1))

@@ -167,8 +167,19 @@ def test_config_refuses_a_field_of_an_unported_part(field, value):
         for arch in ("zamba2-2.7b", "gemma-7b"):
             assert get_config(arch).shared_attn_every == jax_get_config(arch).shared_attn_every
         return
-    with pytest.raises(TypeError):
-        reduced_config("gemma-7b").replace(**{field: value})
+    # fsdp: ported with the sharding slice (Queue 1 item 8 step 9): fsdp and
+    # dp_over_model take JAX's defaults and each arch's values, published and
+    # reduced, and the head-sharding properties follow JAX's
+    assert field == "fsdp"
+    for name in ("fsdp", "dp_over_model"):
+        assert (tconfig.ModelConfig.__dataclass_fields__[name].default
+                == jconfig.ModelConfig.__dataclass_fields__[name].default)
+    for arch in ARCHS:
+        for port, ref in ((get_config(arch), jax_get_config(arch)),
+                          (reduced_config(arch), jax_reduced_config(arch))):
+            for name in ("fsdp", "dp_over_model", "heads_shardable", "kv_heads_shardable"):
+                assert getattr(port, name) == getattr(ref, name), (arch, name)
+    assert reduced_config("gemma-7b").replace(**{field: value}).fsdp is value
 
 
 @pytest.mark.parametrize("kind", ["moe", "mla", "mamba", "xattn", "dec"])

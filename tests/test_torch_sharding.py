@@ -1,0 +1,309 @@
+"""The sharded LM stack on 8 gloo ranks on the CPU, a (4, 2) ("data",
+"model") mesh, against the port's single-process run and the JAX package.
+
+The ranks run once (`tests/torch_sharding_job.py`, one spawn with its own
+timeout) and so does the JAX side on 8 host devices (`run_subprocess`,
+JAX's own multi-device tests' way); the two run at the same time.  The
+single-process references run here.
+
+Tolerances, with their reasons (f32 throughout):
+  * the sharded forward of reduced deepseek-v3-671b (the all-to-all MoE
+    path, which the plan must take): logits within 1e-4 and every
+    gradient within 1e-3 of the single-process port and of JAX's
+    `lm.forward` / `jax.grad` with the same parameters: JAX's own bounds
+    for its all-to-all path against its scatter path (`tests/test_moe.py`);
+    the loss differs from the single-process one only by the aux loss,
+    which the all-to-all path takes per shard, as JAX's (`moe_aux_weight`
+    times the difference, within 1e-6);
+  * `compressed_psum`: the mean within the quantization scale of the true
+    mean (JAX's `tests/test_compression.py`) and within 1e-6 of JAX's
+    output; `bf16_psum` within bfloat16's rounding of its inputs and
+    partial sums (2^-9 relative each) of the true mean, and within twice
+    that of JAX's (the two sum in other orders);
+  * two train steps of reduced gemma-7b (AdamW, Adafactor, the
+    accumulation step): losses within 1e-5 and parameters within 1e-4 of
+    the single-process steps (the training parity bounds of
+    `tests/test_torch_optim.py`);
+  * two train steps of reduced deepseek-v3-671b (AdamW, ``router_bias``
+    moved): losses within 1e-5 and parameters within 1e-4 of JAX's
+    sharded steps on the same mesh, which take the aux loss per shard as
+    the port does; the single-process steps take it over the whole batch,
+    so against them the first loss differs by the aux loss's share only;
+  * the elastic restore and the resharded training state: equal.
+"""
+
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from conftest import run_subprocess
+from repro.configs import reduced_config as jax_reduced_config
+from repro.models import lm as jlm
+from repro.train import step as jstep
+
+from repro_torch.configs import reduced_config
+from repro_torch.convert import from_jax_lm_params
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.models import lm as tlm
+from repro_torch.serve.cv_engine import generate
+from repro_torch.train import step as tstep
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+JOB_TIMEOUT_S = 300
+B, S = 4, 32
+LOGITS_TOL, GRAD_TOL = 1e-4, 1e-3
+LOSS_TOL, PARAM_TOL = 1e-5, 1e-4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 32, 8, 1e-3  # the job's
+
+JAX_SIDE = """
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.core.compat import shard_map
+from repro.launch.mesh import make_mesh
+from repro.configs import reduced_config
+from repro.data.synthetic import TokenStream
+from repro.optim.compression import compressed_psum, bf16_psum
+from repro.train import step as step_mod
+out = {}
+mesh = make_mesh((8,), ("data",))
+g = jnp.asarray(np.load(%(g)r))
+def body(gl, rl):
+    return compressed_psum(gl, rl, "data")
+mean, res = shard_map(body, mesh=mesh, in_specs=(P("data"), P("data")),
+                      out_specs=(P("data"), P("data")))(g, jnp.zeros_like(g))
+out["psum_mean"], out["psum_residuals"] = np.asarray(mean), np.asarray(res)
+bf = shard_map(lambda gl: bf16_psum(gl, "data"), mesh=mesh, in_specs=P("data"),
+               out_specs=P("data"))(g)
+out["bf16_mean"] = np.asarray(bf)
+mesh = make_mesh((4, 2), ("data", "model"))
+cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
+from repro.models import lm
+from repro.optim import adamw_init
+params = jax.jit(lambda k: lm.init_params(k, cfg))(jax.random.key(0))
+state = {"params": params, "opt": adamw_init(params), "step": jnp.zeros((), jnp.int32)}
+fn = jax.jit(step_mod.make_train_step(cfg, mesh, peak_lr=%(lr)r, warmup=1))
+stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=%(seq)d, global_batch=%(batch)d)
+with mesh:
+    for i in range(2):
+        state, m = fn(state, stream.batch_at(i))
+        out[f"loss{i}"] = np.asarray(m["loss"])
+flat = jax.tree_util.tree_flatten_with_path(state["params"])[0]
+for kp, v in flat:
+    out["p." + ".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)] = np.asarray(v)
+np.savez(%(out)r, **out)
+print("JAX_SIDE_OK")
+"""
+
+
+def _jax_deepseek():
+    cfg_j = jax_reduced_config("deepseek-v3-671b").replace(dtype="float32")
+    # jitted, as the JAX side draws them (eager dispatch takes ~10 s)
+    return jax.jit(lambda k: jlm.init_params(k, cfg_j))(jax.random.key(0)), cfg_j
+
+
+def _port_from_jax(params):
+    cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
+    return tlm.make_trainable(from_jax_lm_params(params, cfg, device="cpu")), cfg
+
+
+def _single_train(cfg, *, optimizer="adamw", model=None, accum=None):
+    state = tstep.init_state(cfg, optimizer=optimizer, device="cpu", model=model,
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(optimizer=optimizer, peak_lr=TRAIN_LR, warmup=1)
+    fn = (tstep.make_accum_train_step(cfg, accum=accum, **kw) if accum
+          else tstep.make_train_step(cfg, **kw))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    metrics = []
+    for i in range(2):
+        state, m = fn(state, stream.batch_at(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics,
+            "params": {n: p.detach().clone() for n, p in state["model"].named_parameters()}}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("sharding"))
+    params_j, cfg_j = _jax_deepseek()
+    model, cfg = _port_from_jax(params_j)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    g = rng.standard_normal((8, 64)).astype(np.float32)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 12)))
+    np.save(os.path.join(d, "g.npy"), g)
+    torch.save({"deepseek": model.state_dict(), "tokens": tokens, "labels": labels,
+                "g": torch.from_numpy(g), "prompts": prompts}, os.path.join(d, "inputs.pt"))
+    job = subprocess.Popen([sys.executable, os.path.join(HERE, "torch_sharding_job.py"), d],
+                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    jax_out = os.path.join(d, "jax.npz")
+    pool = ThreadPoolExecutor(1)
+    try:
+        jax_side = pool.submit(run_subprocess, JAX_SIDE % dict(
+            g=os.path.join(d, "g.npy"), out=jax_out, lr=TRAIN_LR, seq=TRAIN_SEQ,
+            batch=TRAIN_BATCH), timeout=JOB_TIMEOUT_S)
+        ref = {}
+        # the single-process port and JAX, unsharded
+        logits, _ = tlm.forward(model, tokens)
+        loss, metrics = tstep.loss_fn(model, {"tokens": tokens, "labels": labels})
+        loss.backward()
+        ref["port"] = {"logits": logits.detach(), "loss": float(loss.detach()),
+                       "moe_aux": float(metrics["moe_aux"]),
+                       "grads": {n: p.grad.clone() for n, p in model.named_parameters()
+                                 if p.grad is not None}}
+        batch_j = {"tokens": jnp.asarray(tokens.numpy()), "labels": jnp.asarray(labels.numpy())}
+        logits_j, _ = jlm.forward(params_j, cfg_j, batch_j)
+        grads_j = jax.jit(jax.grad(lambda p: jstep.loss_fn(p, cfg_j, batch_j)[0]))(params_j)
+        ref["jax"] = {"logits": np.asarray(logits_j),
+                      "grads": tlm.make_trainable(from_jax_lm_params(grads_j, cfg, device="cpu"))}
+        gemma = reduced_config("gemma-7b").replace(dtype="float32")
+        for tag, kw in (("gemma adamw", {}), ("gemma adafactor", {"optimizer": "adafactor"}),
+                        ("gemma accum", {"accum": 2})):
+            ref[tag] = _single_train(gemma, **kw)
+        ref["deepseek adamw"] = _single_train(cfg, model=_port_from_jax(params_j)[0])
+        from repro_torch.train import loop
+
+        _, h = loop.train(gemma, TokenStream(vocab_size=gemma.vocab_size, seq_len=TRAIN_SEQ,
+                                             global_batch=TRAIN_BATCH),
+                          steps=3, peak_lr=TRAIN_LR, warmup=1, log_every=1, log=lambda m: None,
+                          device="cpu")
+        ref["loop"] = [x["loss"] for x in h]
+        ref["generate"] = generate(_port_from_jax(params_j)[0], prompts, steps=6, device="cpu")
+        assert "JAX_SIDE_OK" in jax_side.result()
+        ref["jax sharded"] = dict(np.load(jax_out))
+        log, _ = job.communicate(timeout=JOB_TIMEOUT_S)
+    finally:
+        job.kill()
+        pool.shutdown(wait=False)
+    assert job.returncode == 0, log[-4000:]
+    return torch.load(os.path.join(d, "out.pt")), ref, g
+
+
+def test_the_all_to_all_path_is_taken(run):
+    out, _, _ = run
+    assert out["plan"] == {"a2a_axes": ("data", "model"), "L": B // 4 * S // 2,
+                           "C": out["plan"]["C"], "n_ep": 8}
+
+
+def test_sharded_forward_and_gradients(run):
+    out, ref, _ = run
+    for want in (ref["port"]["logits"], torch.from_numpy(ref["jax"]["logits"])):
+        assert float((out["logits"] - want).abs().max()) < LOGITS_TOL
+    port_g = ref["port"]["grads"]
+    jax_g = dict(ref["jax"]["grads"].named_parameters())
+    assert set(out["grads"]) == set(port_g)
+    for name, g in out["grads"].items():
+        assert float((g - port_g[name]).abs().max()) < GRAD_TOL, name
+        assert float((g - jax_g[name].detach()).abs().max()) < GRAD_TOL, name
+    # the loss differs only by the aux loss, per shard here (JAX's a2a path)
+    aux_w = reduced_config("deepseek-v3-671b").moe.aux_loss_weight
+    d_aux = aux_w * (out["moe_aux"] - ref["port"]["moe_aux"])
+    assert abs(out["loss"] - ref["port"]["loss"] - d_aux) < 1e-6
+
+
+def test_compressed_psum_over_8_ranks(run):
+    out, ref, g = run
+    jax_side = ref["jax sharded"]
+    scale = float(np.abs(g).max() / 127.0)
+    assert float((out["psum_mean"] - torch.from_numpy(g.mean(0))).abs().max()) <= scale
+    # JAX's shard_map holds one row a device: every row the mean
+    np.testing.assert_allclose(out["psum_mean"].numpy(), jax_side["psum_mean"][0], atol=1e-6)
+    np.testing.assert_allclose(out["psum_residuals"].numpy().reshape(8, 64),
+                               jax_side["psum_residuals"], atol=1e-6)
+    # bf16_psum: the 8 inputs and the 7 partial sums each rounded to bfloat16
+    # (2^-9 relative), so the mean within 2^-9 * sum |g| of the true one;
+    # the packages within twice that of each other (gloo and XLA sum in
+    # other orders)
+    bound = 2.0**-9 * np.abs(g).sum(0)
+    assert (np.abs(out["bf16_mean"].numpy() - g.mean(0)) <= bound).all()
+    assert (np.abs(out["bf16_mean"].numpy() - jax_side["bf16_mean"][0]) <= 2 * bound).all()
+    # make_compressed_allreduce over "data": the mean over each model column
+    cols = g.reshape(4, 2, 64)
+    for r in range(8):
+        want = cols[:, r % 2].mean(0)
+        assert float(np.abs(out["data_means"][r].numpy() - want).max()) <= np.abs(
+            cols[:, r % 2]).max() / 127.0
+
+
+@pytest.mark.parametrize("tag", ["gemma adamw", "gemma adafactor", "gemma accum"])
+def test_two_sharded_train_steps(run, tag):
+    out, ref, _ = run
+    got, want = out[tag], ref[tag]
+    for a, b in zip(got["metrics"], want["metrics"]):
+        assert abs(a["loss"] - b["loss"]) < LOSS_TOL, (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) < 1e-4 * b["grad_norm"]
+    for name, p in want["params"].items():
+        assert float((got["params"][name] - p).abs().max()) < PARAM_TOL, name
+
+
+def test_two_sharded_moe_train_steps_against_jax(run):
+    out, ref, _ = run
+    got, jax_side = out["deepseek adamw"], ref["jax sharded"]
+    for i in range(2):
+        assert abs(got["metrics"][i]["loss"] - float(jax_side[f"loss{i}"])) < LOSS_TOL
+    leaves = {lf.name: lf for lf in tlm.param_leaves(
+        tlm.LM(reduced_config("deepseek-v3-671b"), device="meta"))}
+    names = {n: p for n, p in got["params"].items()}
+    start = 0
+    for key, arr in jax_side.items():
+        if not key.startswith("p."):
+            continue
+        leaf = key[2:]
+        port = [n for n in names if _leaf_of(n) == leaf]
+        stacked = torch.stack([names[n] for n in port]) if leaves[leaf].stacked else names[port[0]]
+        assert float((stacked - torch.from_numpy(arr)).abs().max()) < PARAM_TOL, leaf
+        start += 1
+    assert start == len(leaves)
+    # router_bias moved by the aux-free rule, as in the single-process steps
+    rb = [n for n in names if n.endswith("router_bias")]
+    assert rb and all(float(names[n].abs().max()) > 0 for n in rb)
+    single = ref["deepseek adamw"]
+    for n in rb:
+        assert torch.equal(names[n], single["params"][n])
+    # against the single-process steps: the first loss by the aux share only
+    m0, s0 = got["metrics"][0], single["metrics"][0]
+    assert abs(m0["nll"] - s0["nll"]) < LOSS_TOL
+    assert abs(m0["loss"] - s0["loss"]) < 1e-3
+
+
+def _leaf_of(param_name: str) -> str:
+    """A parameter's leaf in JAX's tree, for reduced deepseek-v3-671b
+    (layer 0 the ``mla`` run, layers 1-2 the ``mla_moe`` run)."""
+    parts = param_name.split(".")
+    if parts[0] != "blocks":
+        return param_name
+    run_ = 0 if int(parts[1]) == 0 else 1
+    return ".".join(["groups", str(run_), *parts[2:]])
+
+
+def test_elastic_restore_onto_another_mesh(run):
+    out, ref, _ = run
+    e = out["elastic"]
+    assert e["step"] == 7 and e["mesh"] == (2, 4)
+    assert e["placements"] == ["S(1)", "S(0)"] or e["placements"] == [
+        "Shard(dim=1)", "Shard(dim=0)"]
+    assert torch.equal(e["value"], torch.arange(64, dtype=torch.float32).reshape(8, 8))
+    assert out["state_remesh"] == {"equal": True, "step": 2, "mesh": (2, 4)}
+    # the loop resumed onto (2, 4) from (4, 2)'s checkpoint: the losses of an
+    # unbroken single-process run, rank 0 logging
+    loop_out = out["loop"]
+    assert loop_out["steps"] == [0, 1, 2]
+    assert loop_out["logged"][0] == "[train] resumed from step 2"
+    for a, b in zip(loop_out["losses"], ref["loop"]):
+        assert abs(a - b) < LOSS_TOL, (loop_out["losses"], ref["loop"])
+
+
+def test_constrain_and_generate(run):
+    out, ref, _ = run
+    assert out["constrain"][0] == [str(p) for p in out["constrain"][0]]
+    odd, even = out["constrain"]
+    assert all("Replicate" in p or p == "R" for p in odd)
+    assert all("Shard" in p or p.startswith("S(") for p in even)
+    assert torch.equal(out["generate"], ref["generate"])

@@ -1,0 +1,178 @@
+"""The multi-rank half of `tests/test_torch_sharding.py`: 8 gloo ranks on
+the CPU, a (4, 2) ("data", "model") mesh, every check in one spawn.
+
+    python tests/torch_sharding_job.py OUT_DIR
+
+reads ``OUT_DIR/inputs.pt`` (the reduced deepseek-v3-671b model in f32
+carried across from JAX, its batch; the seeded gradients of the
+compressed all-reduce) and writes rank 0's results to ``OUT_DIR/out.pt``:
+the sharded forward's logits, loss and gradients (whole), the compressed
+all-reduces, two sharded train steps of reduced gemma-7b (AdamW,
+Adafactor, the accumulation step) and reduced deepseek-v3-671b (AdamW),
+the elastic restore from (4, 2) onto (2, 4) (a tensor, a training state,
+the training loop's restart), a DTensor under `constrain` and a sharded
+`generate`.  Every rank waits at most `TIMEOUT_S` in a
+collective, so a hung rendezvous fails instead of stalling.
+"""
+
+import datetime
+import os
+import sys
+import tempfile
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+WORLD, SHAPE, AXES = 8, (4, 2), ("data", "model")
+TIMEOUT_S = 120
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 32, 8, 1e-3
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
+
+
+def _train(cfg, mesh, *, optimizer="adamw", model=None, accum=None):
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.train import step as tstep
+
+    state = tstep.init_state(cfg, optimizer=optimizer, device="cpu", model=model, mesh=mesh,
+                             generator=torch.Generator().manual_seed(0))
+    kw = dict(optimizer=optimizer, peak_lr=TRAIN_LR, warmup=1)
+    fn = (tstep.make_accum_train_step(cfg, mesh, accum=accum, **kw) if accum
+          else tstep.make_train_step(cfg, mesh, **kw))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    metrics = []
+    for i in range(2):
+        state, m = fn(state, stream.batch_at(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+    params = {n: _full(p) for n, p in state["model"].named_parameters()}
+    return state, {"metrics": metrics, "params": params}
+
+
+def rank_main(rank: int, out_dir: str, port: int) -> None:
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=WORLD, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    torch.set_num_threads(1)
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, moe
+    from repro_torch.optim import compression
+    from repro_torch.serve.cv_engine import generate
+    from repro_torch.sharding import comm, rules
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import step as tstep
+
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"))
+    mesh = make_mesh(SHAPE, AXES, device="cpu")
+    out: dict = {}
+
+    # -- the sharded forward and gradients of reduced deepseek-v3-671b --------
+    cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
+    model = lm.LM(cfg, device="cpu")
+    model.load_state_dict(inp["deepseek"])
+    lm.make_trainable(lm.shard_model(model, mesh))
+    hint = rules.make_hint(mesh, cfg)
+    tokens, labels = inp["tokens"], inp["labels"]
+    plan = moe._a2a_plan(mesh, cfg, (*tokens.shape, cfg.d_model), None)
+    out["plan"] = {k: plan[k] for k in ("a2a_axes", "L", "C", "n_ep")}
+    logits, _ = lm.forward(model, tokens, hint=hint)
+    out["logits"] = comm.all_gather(logits.detach(), 0, comm.axes_group(mesh, ("data",)))
+    loss, metrics = tstep.loss_fn(model, {"tokens": tokens, "labels": labels}, hint=hint)
+    (loss / WORLD).backward()
+    out["loss"] = float(comm.all_reduce(loss.detach().clone(), dist.group.WORLD) / WORLD)
+    out["moe_aux"] = float(metrics["moe_aux"])
+    out["grads"] = {n: _full(p.grad) for n, p in model.named_parameters() if p.grad is not None}
+    del model
+
+    # -- the compressed all-reduce ---------------------------------------------
+    g = inp["g"][rank]
+    mean, res = compression.compressed_psum(g, torch.zeros_like(g))
+    out["psum_mean"] = mean
+    out["psum_residuals"] = comm.all_gather(res[None], 0, dist.group.WORLD)
+    out["bf16_mean"] = compression.bf16_psum(g)
+    allreduce = compression.make_compressed_allreduce(mesh, "data")
+    means, _ = allreduce({"a": [g]}, {"a": [torch.zeros_like(g)]})
+    out["data_means"] = comm.all_gather(means["a"][0][None], 0, dist.group.WORLD)
+
+    # -- two sharded train steps -----------------------------------------------
+    gemma = reduced_config("gemma-7b").replace(dtype="float32")
+    for tag, kw in (("gemma adamw", {}), ("gemma adafactor", {"optimizer": "adafactor"}),
+                    ("gemma accum", {"accum": 2})):
+        _, out[tag] = _train(gemma, mesh, **kw)
+    model = lm.LM(cfg, device="cpu")
+    model.load_state_dict(inp["deepseek"])
+    ds_state, out["deepseek adamw"] = _train(cfg, mesh, model=model)
+
+    # -- elastic restore: (4, 2) -> (2, 4) --------------------------------------
+    mesh_b = make_mesh((2, 4), AXES, device="cpu")
+    with tempfile.TemporaryDirectory() as d0:
+        d = [d0]
+        dist.broadcast_object_list(d, src=0)
+        w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+        t = {"w": rules.shard_tensor(w, mesh, rules.placements(rules.P("data", "model"), mesh))}
+        ck.save(os.path.join(d[0], "w"), 7, t)
+        back, step = ck.restore(os.path.join(d[0], "w"), t,
+                                shardings={"w": rules.NamedSharding(mesh_b, rules.P("model", "data"))})
+        out["elastic"] = {"step": step, "placements": [str(p) for p in back["w"].placements],
+                          "mesh": tuple(back["w"].device_mesh.shape), "value": _full(back["w"])}
+        # the deepseek training state, saved from (4, 2), resumed onto (2, 4)
+        ck.save(os.path.join(d[0], "state"), 2, tstep.state_tensors(ds_state))
+        fresh = tstep.init_state(cfg, device="cpu", mesh=mesh_b,
+                                 generator=torch.Generator().manual_seed(5))
+        tensors, _ = ck.restore(os.path.join(d[0], "state"), tstep.state_tensors(fresh))
+        tstep.load_state_tensors(fresh, tensors)
+        same = all(torch.equal(_full(a), _full(b)) for a, b in zip(
+            tstep.state_tensors(fresh).values(), tstep.state_tensors(ds_state).values()))
+        out["state_remesh"] = {"equal": same, "step": fresh["step"],
+                               "mesh": tuple(fresh["model"].embed.device_mesh.shape)}
+        # the loop: 2 steps on (4, 2), an elastic restart onto (2, 4) for the third
+        from repro_torch.data.synthetic import TokenStream
+        from repro_torch.train import loop
+
+        stream = TokenStream(vocab_size=gemma.vocab_size, seq_len=TRAIN_SEQ,
+                             global_batch=TRAIN_BATCH)
+        kw = dict(peak_lr=TRAIN_LR, warmup=1, log_every=1, async_save=False, device="cpu")
+        _, h1 = loop.train(gemma, stream, steps=2, mesh=mesh, ckpt_dir=os.path.join(d[0], "loop"),
+                           ckpt_every=2, log=lambda m: None, **kw)
+        logged = []
+        _, h2 = loop.train(gemma, stream, steps=3, mesh=mesh_b,
+                           ckpt_dir=os.path.join(d[0], "loop"), log=logged.append, **kw)
+        out["loop"] = {"losses": [h["loss"] for h in h1 + h2],
+                       "steps": [h["step"] for h in h1 + h2], "logged": logged}
+        dist.barrier()
+
+    # -- constrain on DTensors ------------------------------------------------
+    odd = rules.shard_tensor(torch.ones(3, 7), mesh, rules.placements(rules.P(), mesh))
+    even = rules.shard_tensor(torch.ones(8, 4), mesh, rules.placements(rules.P(), mesh))
+    out["constrain"] = [
+        [str(p) for p in rules.constrain(x, rules.P("data", "model"), mesh).placements]
+        for x in (odd, even)]
+
+    # -- sharded generate --------------------------------------------------------
+    model = lm.LM(cfg, device="cpu")
+    model.load_state_dict(inp["deepseek"])
+    lm.shard_model(model, mesh)
+    out["generate"] = generate(model, inp["prompts"], steps=6, device="cpu", mesh=mesh)
+
+    if rank == 0:
+        torch.save(out, os.path.join(out_dir, "out.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def main(out_dir: str) -> None:
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")])
+    from repro_torch.launch.mesh import free_port
+
+    mp.spawn(rank_main, args=(out_dir, free_port()), nprocs=WORLD)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
