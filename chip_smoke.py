@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      ``src/repro_torch/csrc`` with nvcc, one process per source, and print
      the build time;
   2. hold each kernel against its plain PyTorch version on the card at
-     shapes beyond the BoW path's (phase 12 repeats it on the path's tensors;
+     shapes beyond the BoW path's (phase 15 repeats it on the path's tensors;
      `bow_quantize_hist` bit for bit, unnormalised and normalised, with the
      valids and with fractional weights, two runs bit-identical, at N = 32,
      45, 100 and K = 5 to 1300, one to eight CTAs a cluster; `gbdt_score`
@@ -235,13 +235,22 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      a card), a (2, 1) mesh, reduced deepseek-v3-671b in f32 on 4 x 32
      tokens: the all-to-all MoE path taken, the logits within 1e-4 and
      every gradient within 1e-3 of one rank's unsharded run;
- 14. on the paths' own tensors (the first request, the training
+ 14. the dry run and the roofline (`dryrun_phase`): (a) gemma-7b's
+     decode_32k cell and its long_500k skip cell through
+     ``python -m repro_torch.launch.dryrun --cell``, each in a process of
+     its own on a fake process group of 256 ranks (no card), their roofline
+     rows printed; (b) phase 12 (a)'s train step traced on the meta device
+     and run on the card, each under `roofline.cost.CostMode`: the flops,
+     bytes and `flash_attention` calls (16) equal, no link bytes; the
+     roofline's three terms and step time beside a measured step, the
+     predicted peak beside `torch.cuda.max_memory_allocated`;
+ 15. on the paths' own tensors (the first request, the training
      descriptors and final centroids), hold each kernel against its plain
      version again, count the device activities of one `bow_quantize_hist`
      call with torch.profiler (exactly its kernel: no memset, cast or
      normalising launch), then time each kernel, its plain version and (for
      `linear_score`) one PyTorch call computing the same function;
- 15. print the window arithmetic of the request's octave with its frames
+ 16. print the window arithmetic of the request's octave with its frames
      cut and full (`window_floor_ms`) beside `stencil_chain`'s time, then
      the ``kernels`` JSON line (all ten kernels, the port of all eleven TPU
      kernels; `stencil_stream` at the 4K u8 gaussian_filter2d k = 13 under
@@ -337,6 +346,10 @@ REDUCED_BATCH, REDUCED_SEQ = 2, 128
 # tokens, within JAX's bounds for its all-to-all path (tests/test_moe.py)
 SHARD_STEPS, SHARD_GEN, SHARD_RANKS = 2, 8, 2
 SHARD_B, SHARD_S, SHARD_LOGITS_TOL, SHARD_GRAD_TOL = 4, 32, 1e-4, 1e-3
+# the dry run (`dryrun_phase`): (a) a full-size pod cell whose trace is short
+# (a decode) and a skip cell, each through the command line; (b) phase 12
+# (a)'s step traced on the meta device and run on the card
+DRYRUN_CELLS = ("gemma-7b:decode_32k:pod", "gemma-7b:long_500k:pod")
 # the cross-attention archs' gates after the seeded init (JAX's init: 0, so
 # that a gated layer is the identity and no check could see it)
 GATE = 0.5
@@ -3596,17 +3609,22 @@ def main() -> int:
     shard_phase(card, path_counts, results)
     phase_clean("phase 13")
 
+    # -- 14. the dry run and the roofline ------------------------------------------
+    dryrun_phase(dev, card, path_counts, results)
+    phase_clean("phase 14")
+
     main_launches = {
         k: sum(p["launches"][k] for p in path_counts.values()) for k in counters.KERNELS
     }
     results["path_counts"] = path_counts
     print(f"main-path launches (training x2 + predict x2 + image path + pipeline benchmark + "
           f"geometric path + pyramid path + measured routing + CV serving + generate x "
-          f"{len(LM_RUNS)} archs + the long prompt + LM training x2 + the sharded stack): "
+          f"{len(LM_RUNS)} archs + the long prompt + LM training x2 + the sharded stack + the dry "
+          f"run's train step x2): "
           f"{main_launches}")
     check(all(v > 0 for v in main_launches.values()), f"a kernel never ran: {main_launches}")
 
-    # -- 14. the kernels on the paths' own tensors, then timing -----------------
+    # -- 15. the kernels on the paths' own tensors, then timing -----------------
     xb = batches[0].to(dev).float()
     gray = features._normalize_gray(imgproc.preprocess_bow(xb))
     det = features.detect_keypoints(imgproc.preprocess_bow(xb), max_kp=cfgs["svm"].max_kp)
@@ -3830,7 +3848,8 @@ def main() -> int:
         )
         results["timing"][k["name"]] = entry | {"ms_runs": [k1, k2], "plain_runs": [p1, p2]}
 
-    phase_clean("phase 14")
+    phase_clean("phase 15")
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(results, indent=1, default=str))
@@ -3844,6 +3863,131 @@ def main() -> int:
     }
     print(json.dumps({"ok": True, "device": device}))
     return 0
+
+
+def dryrun_phase(dev, card: str, path_counts: dict, results: dict) -> dict:
+    """Phase 14, the dry run and the roofline (`launch.dryrun`, `roofline`):
+    (a) each of `DRYRUN_CELLS` through ``python -m repro_torch.launch.dryrun
+    --cell``, in a process of its own on a fake process group of 256 ranks
+    (the meta device, no card): the decode cell "ok" with its parameters
+    counted, the skip cell "skip" with its arch's reason, their roofline
+    rows printed; (b) phase 12 (a)'s step (`TRAIN_ARCH` at `TRAIN_LAYERS`
+    layers, `TRAIN_BATCH` x `TRAIN_SEQ` tokens, AdamW) traced on the meta
+    device, then run on the card under the same recorder: flops, bytes and
+    each kernel's calls equal, no link bytes, one `flash_attention` launch
+    a layer and one in its recompute; the roofline's three terms and step
+    time beside a second step timed outside the recorder, the predicted peak
+    beside `torch.cuda.max_memory_allocated`.  The card's two steps go into
+    `path_counts`."""
+    import gc
+    import os
+
+    import torch
+    from repro_torch.configs import cell_status, get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import counters
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline import analyze
+    from repro_torch.roofline.cost import CostMode
+    from repro_torch.train import step as tstep
+
+    out = {"cells": {}}
+    # -- (a) two cells of the production mesh, each in its own process ---------
+    art = ROOT / "chiprun_out" / "dryrun_smoke"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH", "")) if p))
+    rows = []
+    for cell in DRYRUN_CELLS:
+        arch, shape, mesh = cell.split(":")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+                               "--cell", cell, "--out", str(art)],
+                              capture_output=True, text=True, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"dryrun {cell} failed ({proc.returncode}): "
+                                    f"{proc.stdout[-1000:]} {proc.stderr[-3000:]}")
+        rec = json.loads((art / f"{arch}__{shape}__{dryrun.MESHES[mesh][0]}.json").read_text())
+        cfg = get_config(arch)
+        reason = cell_status(cfg, shape)
+        if reason:
+            check(rec["status"] == "skip" and rec["reason"] == reason,
+                  f"dryrun {cell}: {rec['status']} {rec.get('reason')!r}, expected skip {reason!r}")
+        else:
+            leaves = lm.param_leaves(lm.LM(cfg, device="meta", generator=torch.Generator()))
+            check(rec["status"] == "ok", f"dryrun {cell}: {rec['status']} {rec.get('error')}")
+            check(rec["params_total"] == dryrun.count_params(leaves, False, cfg)
+                  and rec["ranks"] == 256 and rec["cost"]["flops"] > 0,
+                  f"dryrun {cell}: params {rec['params_total']}, ranks {rec['ranks']}, "
+                  f"flops {rec['cost']['flops']}")
+        row = analyze.analyze_cell(rec)
+        rows.append(row)
+        out["cells"][cell] = {"status": rec["status"], "wall_s": wall,
+                              "seconds_trace": rec.get("seconds_trace"), "row": row}
+        print(f"dryrun {cell}: {rec['status']} {rec.get('reason', '')} (wall {wall:.1f} s, "
+              f"trace {rec.get('seconds_trace', 0):.1f} s, 256 fake ranks, no card)")
+    print(analyze.table(rows, "16x16"))
+
+    # -- (b) phase 12 (a)'s step: traced on meta, then run on the card ------------
+    cfg = get_config(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    sh = ShapeConfig(f"train_{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = dryrun.trace_cell(cfg, sh)
+    row = analyze.analyze_cell(rec)
+    meta = rec["cost"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = tstep.init_state(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    # the dry run's inputs are int32 (`dryrun.input_specs`)
+    batch = {k: v.to(dev, torch.int32) for k, v in stream.batch_at(0).items()}
+    step_fn = tstep.make_train_step(cfg, optimizer="adamw")
+    counters.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cm = CostMode()
+    with cm:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    recorded = counters.snapshot()
+    t0 = time.perf_counter()
+    step_fn(state, batch)  # outside the recorder
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    path_counts[f"dry run (b): train {TRAIN_ARCH} x{TRAIN_LAYERS} adamw x2"] = counters.snapshot()
+    real = cm.summary()
+    launches = 2 * TRAIN_LAYERS  # a layer's forward and its recompute
+    check(real["flops"] == meta["flops"] and real["matmul_flops"] == meta["matmul_flops"],
+          f"dry run (b): card flops {real['flops']} ({real['matmul_flops']} in products) "
+          f"against the meta trace's {meta['flops']} ({meta['matmul_flops']})")
+    check(real["hbm_bytes"] == meta["hbm_bytes"] and real["n_ops"] == meta["n_ops"],
+          f"dry run (b): card bytes {real['hbm_bytes']} over {real['n_ops']} ops against "
+          f"{meta['hbm_bytes']} over {meta['n_ops']}")
+    check(real["by_kernel"] == meta["by_kernel"]
+          and meta["by_kernel"]["flash_attention"]["launches"] == launches,
+          f"dry run (b): kernel calls {real['by_kernel']} against {meta['by_kernel']}")
+    check(recorded["launches"]["flash_attention"] == launches
+          and not any(recorded["plain_calls"].values()),
+          f"dry run (b): counters {recorded}")
+    check(real["link_bytes"] == 0 and meta["link_bytes"] == 0,
+          f"dry run (b): link bytes {real['link_bytes']} / {meta['link_bytes']}")
+    mem = rec["memory"]
+    out["train"] = {"meta": meta, "card": real, "row": row, "step_s": step_s,
+                    "max_memory_allocated": peak, "memory": mem}
+    print(f"dry run (b) {TRAIN_ARCH} x{TRAIN_LAYERS} {TRAIN_BATCH}x{TRAIN_SEQ} adamw: meta trace "
+          f"= card step: {meta['flops']:.6e} FLOP ({meta['matmul_flops']:.6e} in products), "
+          f"{meta['hbm_bytes']:.6e} B over {meta['n_ops']} ops, flash_attention "
+          f"{meta['by_kernel']['flash_attention']['launches']} calls; roofline (989 TFLOP/s, "
+          f"3.35 TB/s): t_compute {row['t_compute']:.4f} s, t_memory {row['t_memory']:.4f} s, "
+          f"t_collective {row['t_collective']:.4f} s, step {row['est_step_time']:.4f} s against "
+          f"a measured step of {step_s:.4f} s; peak {mem['peak_bytes']} B predicted "
+          f"(arguments {mem['argument_bytes']}) against max_memory_allocated {peak} card={card}")
+    del state, batch, cm
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["dryrun"] = out
+    return out
 
 
 def first_gap(model, prompts, tokens, row: int, t: int) -> tuple[float, float]:

@@ -5,6 +5,7 @@ as `repro.configs.arctic_480b`.  One layer is ~13.6 B parameters (27.2 GB
 of bf16, almost all of it the 128 experts): its card runs cut the layers."""
 
 from ..models.config import ModelConfig, MoEConfig
+from .gemma_7b import FULL_ATTN_SKIP
 
 
 def config() -> ModelConfig:
@@ -30,6 +31,7 @@ def config() -> ModelConfig:
         act="silu",
         mlp_style="glu",
         rope_theta=1e6,
+        skip_shapes=FULL_ATTN_SKIP,
     )
 
 

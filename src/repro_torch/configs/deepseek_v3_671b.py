@@ -6,6 +6,7 @@ omitted.  The same values as `repro.configs.deepseek_v3_671b`.  Its card
 runs cut the layers: 4 (3 dense MLA, 1 MLA-MoE) are ~15.1 B parameters."""
 
 from ..models.config import MLAConfig, ModelConfig, MoEConfig
+from .gemma_7b import FULL_ATTN_SKIP
 
 
 def config() -> ModelConfig:
@@ -33,6 +34,7 @@ def config() -> ModelConfig:
         ),
         act="silu",
         mlp_style="glu",
+        skip_shapes=FULL_ATTN_SKIP,
     )
 
 

@@ -4,6 +4,8 @@ d_ff=24576 GeGLU, vocab 256000, tied + sqrt(d)-scaled embeddings,
 
 from ..models.config import ModelConfig
 
+FULL_ATTN_SKIP = (("long_500k", "pure full-attention arch: 500k dense KV out of scope (DESIGN §4)"),)
+
 
 def config() -> ModelConfig:
     return ModelConfig(
@@ -22,6 +24,7 @@ def config() -> ModelConfig:
         tie_embeddings=True,
         scale_embed=True,
         rope_theta=10000.0,
+        skip_shapes=FULL_ATTN_SKIP,
     )
 
 

@@ -9,6 +9,7 @@ port (``n_layers`` still scales ``w_o``'s init, as in JAX).  ~8.0 B
 parameters (~16 GB of bf16): its card runs keep every layer."""
 
 from ..models.config import ModelConfig
+from .gemma_7b import FULL_ATTN_SKIP
 
 
 def config() -> ModelConfig:
@@ -26,6 +27,7 @@ def config() -> ModelConfig:
         mlp_style="glu",
         rope_theta=500000.0,
         n_image_tokens=1600,
+        skip_shapes=FULL_ATTN_SKIP,
     )
 
 

@@ -4,6 +4,7 @@ The same values as `repro.configs.qwen2_72b`.  At 2 bytes a parameter
 (~145 GB) it does not fit one 80 GB card: its card runs cut the layers."""
 
 from ..models.config import ModelConfig
+from .gemma_7b import FULL_ATTN_SKIP
 
 
 def config() -> ModelConfig:
@@ -21,6 +22,7 @@ def config() -> ModelConfig:
         mlp_style="glu",
         qkv_bias=True,
         rope_theta=1e6,
+        skip_shapes=FULL_ATTN_SKIP,
     )
 
 

@@ -1,6 +1,7 @@
 """Architecture registry (the counterpart of `repro.configs.registry`):
-``--arch <id>`` lookup, the reduced smoke-test variants and the context
-inputs of the cross-attention archs (`extra_inputs`).
+``--arch <id>`` lookup, the reduced smoke-test variants, the context
+inputs of the cross-attention archs (`extra_inputs`) and the dry run's
+(arch, shape) cells that an arch skips (`cell_status`).
 
 `ARCHS` lists the archs the port runs: all ten of the JAX package's.
 """
@@ -83,3 +84,12 @@ def extra_inputs(cfg: ModelConfig, batch: int, seq: int) -> dict[str, tuple[tupl
     if any(k == "xattn" for k, _ in cfg.blocks):
         out["image_embeds"] = ((batch, cfg.n_image_tokens, cfg.d_model), cfg.dtype)
     return out
+
+
+def cell_status(cfg: ModelConfig, shape_name: str) -> str | None:
+    """None if the (arch, shape) cell runs; otherwise the skip reason
+    (``cfg.skip_shapes``)."""
+    for sname, reason in cfg.skip_shapes:
+        if sname == shape_name:
+            return reason
+    return None

@@ -25,6 +25,7 @@ def config() -> ModelConfig:
         mlp_style="plain",
         norm="layernorm",
         norm_eps=1e-5,
+        skip_shapes=(("long_500k", "full-attention enc-dec: 500k decoder cache out of scope"),),
     )
 
 

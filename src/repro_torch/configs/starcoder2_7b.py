@@ -4,6 +4,7 @@ vocab 49152, rope theta 1e5.  The same values as
 `repro.configs.starcoder2_7b`."""
 
 from ..models.config import ModelConfig
+from .gemma_7b import FULL_ATTN_SKIP
 
 
 def config() -> ModelConfig:
@@ -23,6 +24,7 @@ def config() -> ModelConfig:
         norm="layernorm",
         norm_eps=1e-5,
         rope_theta=1e5,
+        skip_shapes=FULL_ATTN_SKIP,
     )
 
 

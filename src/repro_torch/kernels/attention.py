@@ -34,6 +34,17 @@ plain PyTorch in f32, because the JAX package has no backward kernel: its
 `_flash_kernel` has no `custom_vjp`, and its LM trains through `jnp`
 autodiff of `dense_attention`.  A hand-written backward kernel is speed
 work for later (ROADMAP Notes).
+
+A tensor on the meta device (the dry run, `launch.dryrun`) holds no data,
+so the wrapper's meta route only shapes the output, ``torch.empty_like(q)``,
+and reports the call to the active cost recorders (`counters.record`,
+`flash_work`): it launches nothing and counts no launch.  It first holds
+the call to the card route's checks of shape and dtype (the block's shared
+memory against ``lc.smem_budget`` too), so a dry run refuses what the card
+would.  It is a shape
+function, not a fallback: a CUDA tensor still launches the kernel or
+raises, and reports the same work while a recorder is active, so a traced
+step and a real one count alike.
 """
 
 from __future__ import annotations
@@ -194,8 +205,9 @@ def flash_attention(
     (B, S, H, hd) in q's dtype.  causal masks
     key index ki > query index qi.  A CPU tensor, or ``mode="ref"``, runs the
     plain version; a CUDA tensor launches the kernel once or raises (also
-    when a block's shared memory would exceed ``lc.smem_budget``).  When
-    grad is enabled and q, k or v requires it, the call goes through
+    when a block's shared memory would exceed ``lc.smem_budget``); a meta
+    tensor gets its output's shape and launches nothing (module docstring).
+    When grad is enabled and q, k or v requires it, the call goes through
     `FlashAttention`, whose backward is `flash_attention_backward`."""
     if mode not in (None, "ref"):
         raise ValueError(f"flash_attention: unknown mode {mode!r} (expected None or 'ref')")
@@ -205,17 +217,32 @@ def flash_attention(
     return _forward(q, k, v, causal=causal, mode=mode, lc=lc)
 
 
+def causal_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs the function computes: with causal, key ki <= query
+    qi, i.e. min(qi + 1, T) keys for query qi; else S x T."""
+    if not causal:
+        return S * T
+    n = min(S, T)
+    return n * (n + 1) // 2 + (S - n) * T
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool) -> tuple[float, float]:
+    """(operations, bytes) of one `flash_attention` call: the q.k and p.v
+    products over the computed pairs (`causal_pairs`), 2 x 2 B H hd a pair,
+    and q, k, v and the output each once.  This is the function's work,
+    not the kernel's (its two 16-bit p.v passes), so a redesign of the
+    kernel leaves it unchanged."""
+    B, S, H, hd = q.shape
+    flops = 4.0 * B * H * hd * causal_pairs(S, k.shape[1], causal)
+    return flops, float((2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+
+
 def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> torch.Tensor:
-    """The wrapper's body, its inputs checked: the plain version or one launch."""
+    """The wrapper's body, its inputs checked: the plain version, one launch,
+    or on the meta device the output's shape (module docstring)."""
     if mode == "ref" or q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    launch = _launcher()
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"flash_attention: {name} on {t.device}, expected {dev}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
     B, S, H, hd = q.shape
     smem = smem_bytes(hd, q.element_size())
     if smem > lc.smem_budget:
@@ -223,6 +250,19 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> to
             f"flash_attention: a block at head dim {hd} in {q.dtype} needs {smem} bytes of "
             f"shared memory, over the budget of {lc.smem_budget}"
         )
+    if q.device.type == "meta":
+        if k.device.type != "meta" or v.device.type != "meta":
+            raise ValueError(f"flash_attention: q on meta, k on {k.device}, v on {v.device}")
+        if counters.RECORDERS:
+            counters.record("flash_attention", *flash_work(q, k, v, causal))
+        return torch.empty_like(q)
+    launch = _launcher()
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"flash_attention: {name} on {t.device}, expected {dev}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -245,6 +285,8 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> to
         )
     _build.check(err, "flash_attention")
     counters.LAUNCHES["flash_attention"] += 1
+    if counters.RECORDERS:
+        counters.record("flash_attention", *flash_work(q, k, v, causal))
     return out
 
 

@@ -10,6 +10,12 @@ and reads them back to show that every kernel ran and no plain version did.
 training differentiates (`attention.flash_attention`'s backward).  Such a
 gradient is neither a kernel nor a kernel's plain version, so it has a
 counter of its own, outside `KERNELS`.
+
+``RECORDERS`` holds the active cost recorders (`roofline.cost.CostMode`).
+A wrapper that reports its work calls `record` for every call it answers
+with a launch or, on the meta device, with the output's shape alone
+(`attention.flash_attention`), behind ``if RECORDERS:``: with no recorder
+active that costs one empty-list check and the work is not computed.
 """
 
 from __future__ import annotations
@@ -46,3 +52,13 @@ def snapshot() -> dict:
         "plain_calls": dict(PLAIN_CALLS),
         "backward_calls": dict(BACKWARD_CALLS),
     }
+
+
+RECORDERS: list = []
+
+
+def record(name: str, flops: float, nbytes: float) -> None:
+    """Report one call of kernel `name` to the active cost recorders: the
+    function's operations and the bytes of its inputs and output, each once."""
+    for r in RECORDERS:
+        r(name, flops, nbytes)

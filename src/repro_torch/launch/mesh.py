@@ -3,6 +3,8 @@
 The LM stack's meshes are `torch.distributed` `DeviceMesh`es over the
 process group this process joined (`init_process_group`: torchrun's
 environment, or one rank on localhost): NCCL on the card, gloo on the CPU.
+The dry run (`launch.dryrun`) joins a fake group of 256 or 512 ranks as
+rank 0 (`init_fake_process_group`), whose collectives move nothing.
 `make_mesh` raises without a process group, or when the mesh's shape does
 not multiply to the world size (as JAX's fails over too few devices), or
 when the group's backend is not the one asked for: no mesh falls back to
@@ -52,6 +54,20 @@ def init_process_group(device=None) -> None:
                                 world_size=1, rank=0)
 
 
+def init_fake_process_group(world_size: int) -> None:
+    """Join a process group of `world_size` ranks as rank 0 on PyTorch's
+    fake backend (``torch.testing._internal.distributed.fake_pg``): every
+    collective returns at once and moves nothing, so one process traces a
+    rank's step over a mesh of any size.  Raises `RuntimeError` when this
+    torch lacks the fake backend: no dry run falls back to fewer ranks."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(f"this torch ({torch.__version__}) has no fake process group "
+                           f"backend (torch.testing._internal.distributed.fake_pg): {e}") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+
+
 def make_mesh(shape, axes, *, device=None, backend: str | None = None):
     """A `DeviceMesh` of `shape` with ``mesh_dim_names=axes`` over the
     initialised process group, on `device`'s type (None = "cuda").  Raises
@@ -79,12 +95,13 @@ def make_mesh(shape, axes, *, device=None, backend: str | None = None):
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
+def make_production_mesh(*, multi_pod: bool = False, device=None, backend: str | None = None):
     """JAX's production mesh: (16, 16) ("data", "model"), or (2, 16, 16)
-    ("pod", "data", "model") over two pods: 256 or 512 ranks."""
+    ("pod", "data", "model") over two pods: 256 or 512 ranks (`backend` as
+    in `make_mesh`; the dry run's is "fake")."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+    return make_mesh(shape, axes, device=device, backend=backend)
 
 
 def make_host_mesh(model: int = 1, *, device=None):

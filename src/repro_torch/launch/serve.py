@@ -94,14 +94,17 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(dev)
     dt_s = time.perf_counter() - t0
     toks = args.requests * args.gen_len
-    print(
-        f"[serve] {cfg.name} on {dev}: generated {toks} tokens in {dt_s:.2f}s "
+
+    def say(line: str) -> None:
+        # one write a line: the ranks under torchrun share one stdout
+        print(line + "\n", end="", flush=True)
+
+    say(f"[serve] {cfg.name} on {dev}: generated {toks} tokens in {dt_s:.2f}s "
         f"({toks / dt_s:.1f} tok/s, first call, kernel builds included) - "
-        f"output shape {tuple(out.shape)}"
-    )
+        f"output shape {tuple(out.shape)}")
     for name, t in extras.items():
-        print(f"[serve] context input {name} {tuple(t.shape)} {t.dtype}")
-    print("[serve] first request tokens:", out[0].tolist())
+        say(f"[serve] context input {name} {tuple(t.shape)} {t.dtype}")
+    say(f"[serve] first request tokens: {out[0].tolist()}")
 
 
 if __name__ == "__main__":

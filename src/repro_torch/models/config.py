@@ -11,8 +11,10 @@ training settings ``remat`` (recompute each layer in the backward pass,
 sharding settings that `sharding.rules` reads (``fsdp``: weights stored
 sharded over the data axis too; ``dp_over_model``: a pure data-parallel
 arch whose batch is split over the model axis as well; the
-``heads_shardable`` and ``kv_heads_shardable`` properties), with JAX's
-defaults.  `SHAPES` waits for the dry-run (Queue 1 item 9).
+``heads_shardable`` and ``kv_heads_shardable`` properties), and the
+shapes an arch skips (``skip_shapes``, `configs.registry.cell_status`),
+with JAX's defaults.  `SHAPES` holds JAX's four input-shape cells of the
+dry run (`launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -137,6 +139,9 @@ class ModelConfig:
     # KV positions per step of `attention.blockwise_attention` (above 8192)
     blockwise_chunk: int = 1024
 
+    # shapes this arch skips in the dry run, and why: (shape name, reason)
+    skip_shapes: tuple[tuple[str, str], ...] = ()
+
     @property
     def param_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
@@ -159,3 +164,25 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the dry run (JAX's)."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

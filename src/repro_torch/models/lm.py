@@ -120,7 +120,8 @@ SHARED_ATTN_SLOTS = 4096
 
 def _model_device(device) -> torch.device:
     """`resolve_device`, and the meta device for a model whose parameters
-    are filled in afterwards (`convert.from_jax_lm_params`)."""
+    are filled in afterwards (`convert.from_jax_lm_params`) or that is only
+    traced (`launch.dryrun`)."""
     if device is not None and torch.device(device).type == "meta":
         return torch.device("meta")
     return resolve_device(device)
@@ -499,12 +500,13 @@ def _group_cache_len(kind: str, gcache) -> int | None:
 def init_cache(cfg, batch: int, cache_len: int, *, ctx_len: int | None = None,
                device=None) -> dict:
     """Zero cache in the weights' dtype for `cache_len` positions on `device`
-    (None = "cuda"): attention layers keep a ring of `cfg.window` slots when
-    the arch has a window, MLA layers the full length, each application of
-    the shared block a ring of ``min(cache_len, SHARED_ATTN_SLOTS)`` slots,
-    the state kinds their f32 state, and the context's K / V `ctx_len` rows
-    (`blocks.init_block_cache`; as JAX's)."""
-    dev = resolve_device(device)
+    (None = "cuda"; "meta" for the dry run, as `LM`): attention layers keep
+    a ring of `cfg.window` slots when the arch has a window, MLA layers the
+    full length, each application of the shared block a ring of
+    ``min(cache_len, SHARED_ATTN_SLOTS)`` slots, the state kinds their f32
+    state, and the context's K / V `ctx_len` rows (`blocks.init_block_cache`;
+    as JAX's)."""
+    dev = _model_device(device)
     dtype = cfg.param_dtype
     window_len = min(cache_len, cfg.window) if cfg.window else cache_len
     cache: dict = {"groups": [], "shared": [], "pos": 0}

@@ -15,7 +15,9 @@ along the model axis computed the same thing or each its slice (the MoE
 layer's sequence slices).
 
 Every function runs on `torch.distributed` groups: NCCL on the card, gloo
-on the CPU (`launch.mesh`).  A group of one rank is skipped.
+on the CPU, the fake backend in the dry run (`launch.mesh`).  A group of
+one rank is skipped.  Every collective issued is reported to the active
+cost recorders (`RECORDERS`, `roofline.cost`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,19 @@ import torch
 import torch.distributed as dist
 
 _GROUPS: dict = {}
+
+# The active cost recorders (`roofline.cost.CostMode`): each collective below
+# calls every one with (kind, bytes of its result, the ranks of its group),
+# the kinds named as XLA's HLO names them.  With none active a collective
+# pays one empty-list check.
+RECORDERS: list = []
+
+
+def _record(kind: str, out: torch.Tensor, group) -> None:
+    if RECORDERS:
+        ranks = tuple(dist.get_process_group_ranks(group))
+        for r in RECORDERS:
+            r(kind, out.numel() * out.element_size(), ranks)
 
 
 def group_size(group) -> int:
@@ -65,6 +80,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         return x
     out = x.new_empty((n * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    _record("all-gather", out, group)
     return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
 
 
@@ -76,6 +92,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
     out = chunks.new_empty(chunks.shape[1:])
     dist.reduce_scatter_tensor(out, chunks.reshape(-1, *chunks.shape[2:]), group=group)
+    _record("reduce-scatter", out, group)
     return out
 
 
@@ -83,6 +100,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """The ranks' `x` reduced (in place; returned)."""
     if group_size(group) > 1:
         dist.all_reduce(x, op=op, group=group)
+        _record("all-reduce", x, group)
     return x
 
 
@@ -187,21 +205,23 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(g.contiguous(), ctx.dim, ctx.group), None, None
 
 
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    _record("all-to-all", out, group)
+    return out
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=group)
-        return out
+        return _all_to_all(x, group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous()
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g, group=ctx.group)
-        return out, None
+        return _all_to_all(g, ctx.group), None
 
 
 class _Mean(torch.autograd.Function):

@@ -151,9 +151,19 @@ def _boom(name):
     raise RuntimeError(f"loader failed for {name}")
 
 
+class _CardTensor(torch.Tensor):
+    """A meta tensor that reports a CUDA device: the card's stand-in for a
+    wrapper whose meta tensors take a route of their own (`flash_attention`
+    shapes its output there for the dry run)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
 def _meta_calls():
     """Kernel wrappers fed tensors that are not on the CPU (the meta device
-    stands in for the card here)."""
+    stands in for the card here; `_CardTensor` where meta has its route)."""
     meta = torch.device("meta")
     chain = (tstencil.gaussian_stage(5), tstencil.erode_stage(1), tstencil.grad_stage())
 
@@ -188,7 +198,8 @@ def _meta_calls():
             torch.zeros(6, device=meta),
         ),
         "flash_attention": lambda: tattn.flash_attention(
-            *(torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=meta),) * 3
+            *(torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16, device=meta)
+              .as_subclass(_CardTensor),) * 3
         ),
         "seed_gaussian_blur": lambda: tunfused.seed_gaussian_blur_2d(plane(), 5),
         "seed_erode": lambda: tunfused.seed_erode_2d(plane(), 1),

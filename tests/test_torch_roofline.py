@@ -1,0 +1,395 @@
+"""The port's roofline (`repro_torch.roofline`) against JAX's
+(`repro.roofline`): the cost counter against `hlo_cost.analyze` on
+`tests/test_hlo_cost.py`'s two functions and on a reduced gemma-7b train
+step; traces over an 8-rank fake (4, 2) mesh against one-rank traces of a
+rank's rows and against the collectives the test derives from
+`sharding.rules.param_specs` and the MoE all-to-all plan; `analyze_cell`
+against JAX's on synthetic records; the ring model; and the
+`flash_attention` meta route.
+
+The fake process group is process-wide, so the mesh traces run once, in a
+subprocess, and hand their numbers back as JSON.
+"""
+
+import dataclasses
+import json
+import math
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+import torch.nn.functional as F
+from repro.launch.mesh import make_host_mesh
+from repro.roofline import analyze as jax_analyze
+from repro.roofline.hlo_cost import _collective_traffic, analyze
+from repro.configs import reduced_config as jax_reduced_config
+from repro.train import step as jstep
+
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import attention as kattn
+from repro_torch.kernels import counters
+from repro_torch.launch import dryrun
+from repro_torch.models import lm
+from repro_torch.models import moe
+from repro_torch.models.config import ShapeConfig
+from repro_torch.roofline import analyze as tanalyze
+from repro_torch.roofline import collectives as coll
+from repro_torch.roofline.cost import CostMode
+from repro_torch.sharding import rules
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# -- the cost counter against JAX's walker -------------------------------------
+
+
+def _mlp(w1, w2, x):
+    return torch.mean((F.gelu(x @ w1, approximate="tanh") @ w2) ** 2)
+
+
+def _mlp_scanned(w1, w2, x):
+    h = x
+    for _ in range(10):
+        h = F.gelu(h @ w1, approximate="tanh") @ w2
+    return torch.mean(h**2)
+
+
+def _jax_mlp(w1, w2, x):
+    return jnp.mean((jax.nn.gelu(x @ w1) @ w2) ** 2)
+
+
+def _jax_mlp_scanned(w1, w2, x):
+    def body(h, _):
+        return jax.nn.gelu(h @ w1) @ w2, None
+
+    h, _ = jax.lax.scan(body, x, None, length=10)
+    return jnp.mean(h**2)
+
+
+@pytest.mark.parametrize("fns", [(_mlp, _jax_mlp), (_mlp_scanned, _jax_mlp_scanned)],
+                         ids=["mlp", "mlp_scanned_10"])
+def test_cost_counter_flops_match_jax_walker(fns):
+    """JAX's own test bounds its walker within 0.9-1.1 of XLA; the same band
+    here (the products are exact; elementwise ops fuse differently)."""
+    ours, theirs = fns
+    shapes = {"w1": (256, 512), "w2": (512, 256), "x": (64, 256)}
+    sds = [jax.ShapeDtypeStruct(shapes[k], jnp.float32) for k in ("w1", "w2", "x")]
+    want = analyze(jax.jit(theirs).lower(*sds).compile().as_text())["flops"]
+    with CostMode() as cm:
+        ours(*(torch.empty(shapes[k], device="meta") for k in ("w1", "w2", "x")))
+    assert 0.9 < cm.flops / want < 1.1
+
+
+def test_reduced_gemma_train_step_flops_match_jax_walker():
+    """One reduced gemma-7b AdamW step, 4 x 64 tokens, on one rank.  Band
+    0.9-1.1, JAX's walker's own against XLA: both count the products
+    exactly, the elementwise ops differ (XLA fuses and rewrites them,
+    the port counts each eager op once; measured 0.978)."""
+    B, S = 4, 64
+    cfg = jax_reduced_config("gemma-7b")
+    state = jax.eval_shape(lambda k: jstep.init_state(k, cfg, optimizer="adamw"),
+                           jax.random.key(0))
+    batch = {k: jax.ShapeDtypeStruct((B, S), jnp.int32) for k in ("tokens", "labels")}
+    fn = jax.jit(jstep.make_train_step(cfg, make_host_mesh(), optimizer="adamw"))
+    want = analyze(fn.lower(state, batch).compile().as_text())["flops"]
+    rec = dryrun.trace_cell(reduced_config("gemma-7b"), ShapeConfig("t", S, B, "train"))
+    assert 0.9 < rec["cost"]["flops"] / want < 1.1
+    assert rec["cost"]["by_kernel"]["flash_attention"]["launches"] == 2
+
+
+# -- traces over an 8-rank fake mesh -------------------------------------------
+
+MESH = ((4, 2), ("data", "model"))
+GB, SEQ = 8, 64  # the global batch: 2 rows a "data" rank
+CASES = [("gemma-7b", "adamw"), ("deepseek-v3-671b", "adafactor")]
+KINDS = ("train", "prefill", "decode")
+
+MESH_JOB = r"""
+import json, sys
+import torch
+from repro_torch.configs import reduced_config
+from repro_torch.launch import dryrun, mesh as M
+from repro_torch.models.config import ShapeConfig
+
+M.init_fake_process_group(8)
+mesh = M.make_mesh((4, 2), ("data", "model"), device="cpu", backend="fake")
+out = {}
+for arch, _ in json.loads(sys.argv[1]):
+    cfg = reduced_config(arch)
+    for kind in ("train", "prefill", "decode"):
+        r8 = dryrun.trace_cell(cfg, ShapeConfig(kind, %(S)d, %(B)d, kind), mesh)
+        r1 = dryrun.trace_cell(cfg, ShapeConfig(kind, %(S)d, %(B)d // 4, kind), None)
+        out[f"{arch}:{kind}"] = {
+            "mesh": r8["cost"], "rows": r1["cost"], "records": r8["collectives"]}
+print(json.dumps(out))
+""" % {"S": SEQ, "B": GB}
+
+
+@pytest.fixture(scope="module")
+def mesh_traces():
+    proc = subprocess.run([sys.executable, "-W", "ignore", "-c", MESH_JOB, json.dumps(CASES)],
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _moe_gemm_correction(cfg, kind: str) -> float:
+    """GEMM flops the all-to-all path saves a rank against the one-rank
+    trace of its rows, per step: the MoE layers' expert products over the
+    plan's (E, C) slots instead of the rows' (B, E, C1) groups, and the
+    router over the rank's sequence slice (L tokens) instead of all its
+    rows' tokens.  A train step does each product 3 times (forward, and
+    the two of the backward; the reduced configs have no remat)."""
+    m = cfg.moe
+    n_moe = sum(1 for k in cfg.block_list if k in ("moe", "mla_moe"))
+    ms = rules.MeshShape(*MESH)
+    plan = moe._a2a_plan(ms, cfg, (GB, SEQ, cfg.d_model), None)
+    rows = GB // 4
+    D, Fx, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    experts = 3 * 2 * D * Fx * (rows * E * moe.capacity(cfg, SEQ) - E * plan["C"])
+    router = 2 * D * E * (rows * SEQ - plan["L"])
+    return (3 if kind == "train" else 1) * n_moe * (experts + router)
+
+
+@pytest.mark.parametrize("arch,opt", CASES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_rank_flops_equal_the_rows_trace(arch, opt, kind, mesh_traces):
+    """A rank computes its 2 rows with every dense layer whole (the fifth
+    departure), so its flops are a one-rank trace of those rows within 1%
+    (AdamW updates the rank's shards only).  deepseek's MoE layers take the
+    all-to-all path in train and prefill, which splits the rows' sequence
+    over "model": its GEMMs are exactly the rows' less what the plan
+    saves (`_moe_gemm_correction`), its total within 1% of the same."""
+    t = mesh_traces[f"{arch}:{kind}"]
+    cfg = reduced_config(arch)
+    fix = _moe_gemm_correction(cfg, kind) if cfg.moe is not None and kind != "decode" else 0.0
+    if fix:
+        assert t["mesh"]["matmul_flops"] == t["rows"]["matmul_flops"] - fix
+    assert t["mesh"]["flops"] == pytest.approx(t["rows"]["flops"] - fix, rel=0.01)
+    assert t["mesh"]["by_kernel"] == t["rows"]["by_kernel"]
+
+
+def _placements(spec):
+    return rules.placements(spec, rules.MeshShape(*MESH))
+
+
+def _expected_collectives(arch: str, kind: str) -> list:
+    """(kind, result bytes, group size) of every collective rank 0 issues,
+    derived from the parameter specs (each parameter gathered where a layer
+    reads it, minor mesh dimension first; its gradient reduce-scattered
+    over the dimensions that split it and all-reduced over the others,
+    major first), the metrics' all-reduces, and the MoE plan."""
+    cfg = reduced_config(arch)
+    sizes = dict(zip(MESH[1], MESH[0]))
+    model = lm.LM(cfg, device="meta", generator=torch.Generator())
+    lm.make_trainable(model)
+    leaves = lm.param_leaves(model)
+    specs = rules.param_specs(leaves, cfg, rules.MeshShape(*MESH))
+    train = kind == "train"
+    out = []
+
+    def gather(p, spec, grad=True, uses=1):
+        pls = _placements(spec)
+        full = p.numel() * p.element_size()
+        local = full // math.prod(sizes[a] for a, pl in zip(MESH[1], pls) if pl.is_shard())
+        for _ in range(uses):
+            x = local
+            for ax, pl in reversed(list(zip(MESH[1], pls))):
+                if pl.is_shard():
+                    x *= sizes[ax]
+                    out.append(("all-gather", x, sizes[ax]))
+            if train and grad and p.requires_grad:
+                g = full
+                for ax, pl in zip(MESH[1], pls):
+                    if pl.is_shard():
+                        g //= sizes[ax]
+                        out.append(("reduce-scatter", g, sizes[ax]))
+                    else:
+                        out.append(("all-reduce", g, sizes[ax]))
+
+    a2a = cfg.moe is not None and kind != "decode"
+    plan = moe._a2a_plan(rules.MeshShape(*MESH), cfg, (GB, SEQ, cfg.d_model), None) if a2a else None
+    for lf in leaves:
+        spec = specs[lf.name]
+        if lf.stacked:
+            spec = rules.P(*spec[1:])
+        for p in lf.params:
+            expert = lf.name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down") and ".moe.w" in lf.name
+            if expert and a2a:
+                continue  # read where they lie (`p.local`): sharded on every mesh dim
+            uses = 2 if lf.name == "embed" and cfg.tie_embeddings else 1
+            gather(p, spec, uses=uses)
+    if a2a:
+        E, D, C = cfg.moe.n_experts, cfg.d_model, plan["C"]
+        n_moe = sum(1 for k in cfg.block_list if k in ("moe", "mla_moe"))
+        item = torch.empty((), dtype=cfg.param_dtype).element_size()
+        rows_bytes = (GB // 4) * SEQ * D * item
+        per_layer = [("all-to-all", E * C * D * item, 8)] * 2 + [
+            ("all-reduce", 3 * 4, 8), ("all-reduce", E * 4, 8), ("all-gather", rows_bytes, 2)]
+        if train:  # the adjoints; the expert load takes no gradient
+            per_layer += [("reduce-scatter", rows_bytes // 2, 2), ("all-reduce", 3 * 4, 8)]
+            per_layer += [("all-to-all", E * C * D * item, 8)] * 2
+        out += per_layer * n_moe
+    if train:
+        # loss, nll, z_loss; the MoE's aux, z and drop share, and its load
+        n_metrics = 3 + (3 if cfg.moe is not None else 0)
+        load = [("all-reduce", cfg.moe.n_experts * 4, 8)] if cfg.moe is not None else []
+        out += [("all-reduce", 4, 8)] * n_metrics + load + [("all-reduce", 4, 8)]
+        opt = dict(CASES)[arch]
+        if opt == "adafactor":  # each trainable leaf and its gradient gathered whole
+            for lf in leaves:
+                spec = rules.P(*specs[lf.name][1:]) if lf.stacked else specs[lf.name]
+                for p in lf.params:
+                    if p.requires_grad:
+                        gather(p, spec, grad=False, uses=2)
+    return out
+
+
+def _by_kind(ops) -> dict:
+    tot = {}
+    for kind, b, n in ops:
+        if n > 1:
+            tot[kind] = tot.get(kind, 0.0) + coll.traffic(kind, b, n)
+    return tot
+
+
+@pytest.mark.parametrize("arch,opt", CASES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_collective_bytes_by_kind_follow_the_specs_and_plan(arch, opt, kind, mesh_traces):
+    t = mesh_traces[f"{arch}:{kind}"]
+    want = _by_kind(_expected_collectives(arch, kind))
+    got = t["mesh"]["coll_by_kind"]
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12), k
+    assert t["records"]["count"] == sum(1 for _, _, n in _expected_collectives(arch, kind) if n > 1)
+    # a (4, 2) mesh over ranks 0-7 is one host: every group goes by NVLink
+    assert t["mesh"]["link_by_fabric"]["ib"] == 0.0
+    assert t["rows"]["link_bytes"] == 0.0
+
+
+# -- the ring model and the fabric -----------------------------------------------
+
+RING = [(k, n) for k in ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                         "collective-permute") for n in (1, 2, 16)]
+
+
+@pytest.mark.parametrize("kind,n", RING)
+def test_ring_model_is_jax_model(kind, n):
+    assert coll.traffic(kind, 12345, n) == _collective_traffic(kind, 12345, n)
+
+
+@pytest.mark.parametrize("ranks,fabric", [((0, 1, 7), "nvlink"), ((8, 15), "nvlink"),
+                                          ((7, 8), "ib"), (tuple(range(0, 256, 16)), "ib")])
+def test_fabric_is_nvlink_within_one_host(ranks, fabric):
+    assert coll.fabric(ranks) == fabric
+
+
+# -- analyze_cell against JAX's ---------------------------------------------------
+
+SYNTH = [
+    ("gemma-7b", "train_4k", "16x16", 1.1e15, 3.0e13, 2.0e12, 8.5e9, 1048576),
+    ("qwen2-72b", "prefill_32k", "16x16", 9.0e14, 5.0e14, 7.0e10, 7.27e10, 1048576),
+    ("deepseek-v3-671b", "decode_32k", "2x16x16", 2.0e11, 4.0e11, 9.0e11, 3.5e10, 128),
+    ("xlstm-125m", "long_500k", "2x16x16", 3.0e8, 2.0e8, 0.0, 1.55e8, 1),
+]
+
+
+def _synthetic(arch, shape, mesh, flops, hbm, link, n, tokens):
+    """A record both packages read: JAX's fallback keys (``cost`` "flops"
+    and "bytes accessed", ``collectives`` "link_bytes") and the port's
+    (every link byte over InfiniBand, so one bandwidth prices it)."""
+    return {"arch": arch, "shape": shape, "mesh": mesh, "status": "ok",
+            "params_total": n, "params_active": n, "tokens_per_step": tokens,
+            "cost": {"flops": flops, "bytes accessed": hbm, "hbm_bytes": hbm,
+                     "link_bytes": link, "link_by_fabric": {"nvlink": 0.0, "ib": link},
+                     "score_bytes": 0.0},
+            "collectives": {"link_bytes": link}}
+
+
+@pytest.mark.parametrize("case", SYNTH, ids=[f"{c[0]}:{c[1]}:{c[2]}" for c in SYNTH])
+def test_analyze_cell_follows_jax_formulas(case):
+    rec = _synthetic(*case)
+    j = jax_analyze.analyze_cell(rec, None)
+    t = tanalyze.analyze_cell(rec)
+    # each term times its own peak is the same count
+    assert t["t_compute"] * tanalyze.PEAK_FLOPS == pytest.approx(j["t_compute"] * jax_analyze.PEAK_FLOPS)
+    assert t["t_memory"] * tanalyze.HBM_BW == pytest.approx(j["t_memory"] * jax_analyze.HBM_BW)
+    assert t["t_collective"] * tanalyze.IB_BW == pytest.approx(
+        j["t_collective"] * jax_analyze.LINK_BW)
+    assert (t["chips"], t["model_flops"], t["useful_ratio"]) == (
+        j["chips"], j["model_flops"], j["useful_ratio"])
+    step = max(t["t_compute"], t["t_memory"], t["t_collective"])
+    assert t["est_step_time"] == step
+    assert t["est_mfu"] == pytest.approx(t["model_flops"] / (t["chips"] * tanalyze.PEAK_FLOPS * step))
+    assert t["est_mfu_flash"] == t["est_mfu"]  # no score bytes
+    assert t["est_tokens_per_s"] == pytest.approx(t["tokens_per_step"] / step)
+
+
+def test_analyze_prices_nvlink_and_ib_apart():
+    rec = _synthetic("gemma-7b", "train_4k", "16x16", 0.0, 0.0, 0.0, 1.0, 1)
+    rec["cost"]["link_by_fabric"] = {"nvlink": 450e9, "ib": 50e9}
+    rec["cost"]["score_bytes"] = 0.0
+    assert tanalyze.analyze_cell(rec)["t_collective"] == pytest.approx(2.0)
+
+
+def test_the_roofline_is_priced_for_the_h100():
+    """989 TFLOP/s bf16 and 3.35 TB/s (NVIDIA's H100 SXM data sheet), and no
+    TPU constant anywhere in the port."""
+    assert (tanalyze.PEAK_FLOPS, tanalyze.HBM_BW, tanalyze.NVLINK_BW) == (989e12, 3.35e12, 450e9)
+    assert tanalyze.IB_BW == 400e9 / 8
+    tpu = re.compile(r"197e12|819e9|197 ?TFLOP|819 ?GB")
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        assert not tpu.search(path.read_text()), path
+
+
+# -- the flash_attention meta route ---------------------------------------------
+
+FLASH = [((2, 100, 8, 64), (2, 120, 2, 64), True), ((2, 100, 8, 64), (2, 120, 2, 64), False),
+         ((1, 300, 4, 128), (1, 200, 4, 128), True), ((3, 64, 16, 256), (3, 64, 16, 256), True)]
+
+
+@pytest.mark.parametrize("qs,ks,causal", FLASH)
+def test_flash_meta_route_shapes_and_records_without_launching(qs, ks, causal):
+    q = torch.empty(qs, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(ks, dtype=torch.bfloat16, device="meta")
+    v = torch.empty_like(k)
+    before = counters.snapshot()
+    with CostMode() as cm:
+        out = kattn.flash_attention(q, k, v, causal=causal)
+    assert (out.shape, out.dtype, out.device.type) == (q.shape, q.dtype, "meta")
+    assert counters.snapshot() == before  # no launch, no plain call
+    B, S, H, hd = qs
+    T = ks[1]
+    pairs = sum(min(i + 1, T) for i in range(S)) if causal else S * T
+    assert cm.by_kernel == {"flash_attention": {
+        "launches": 1, "flops": 4.0 * B * H * hd * pairs,
+        "bytes": float((2 * q.numel() + k.numel() + v.numel()) * 2)}}
+
+
+def test_flash_meta_route_refuses_a_block_over_the_shared_memory_budget():
+    q = torch.empty((1, 64, 2, 256), dtype=torch.bfloat16, device="meta")
+    lc = dataclasses.replace(kattn.DEFAULT, smem_budget=kattn.smem_bytes(256, 2) - 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        kattn.flash_attention(q, q, q, lc=lc)
+
+
+def test_flash_meta_route_computes_no_work_without_a_recorder(monkeypatch):
+    def unwanted(*args):
+        raise AssertionError("flash_work called with no recorder active")
+
+    monkeypatch.setattr(kattn, "flash_work", unwanted)
+    q = torch.empty((1, 64, 2, 64), dtype=torch.bfloat16, device="meta")
+    assert kattn.flash_attention(q, q, q).shape == q.shape
+
+
+def test_flash_meta_route_refuses_mixed_devices():
+    q = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        kattn.flash_attention(q, torch.zeros((1, 8, 2, 16)), torch.zeros((1, 8, 2, 16)))

@@ -172,16 +172,25 @@ def test_backward_counter_is_outside_the_kernel_counters():
     assert set(counters.snapshot()["launches"]) == set(counters.KERNELS)
 
 
+class _CardTensor(torch.Tensor):
+    """A meta tensor that reports a CUDA device: the card's stand-in, since
+    a meta tensor takes `flash_attention`'s meta route (the dry run's)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
 def test_cuda_tensor_still_launches_or_raises(monkeypatch):
     """Under autograd a non-CPU tensor goes to the kernel's loader: with the
     loader made to fail, the error propagates and no plain version runs
-    (the meta device stands in for the card)."""
+    (a meta tensor reporting a CUDA device stands in for the card)."""
     def fail():
         raise RuntimeError("loader failed")
 
     monkeypatch.setattr(kattn, "_launcher", fail)
-    q = torch.zeros((1, 64, 2, 16), device="meta", requires_grad=True)
-    k = torch.zeros((1, 64, 2, 16), device="meta")
+    q = torch.zeros((1, 64, 2, 16), device="meta", requires_grad=True).as_subclass(_CardTensor)
+    k = torch.zeros((1, 64, 2, 16), device="meta").as_subclass(_CardTensor)
     counters.reset()
     with pytest.raises(RuntimeError, match="loader failed"):
         kattn.flash_attention(q, k, k)
