@@ -199,6 +199,13 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      widened to f32: the kernel and plain paths' final hidden states at
      every prompt position within 2e-4 and last-token logits within 2e-3,
      and the bf16 paths' logits within twice the bf16 model's own error.
+     Then `flash_attention` at query offsets (`flash_offset_phase`: a
+     rank's slice of the queries under the sequence-parallel layout),
+     bf16 and f32, at gemma-7b's (8, 1024, 16, 256) layer sliced over 2 and
+     16 ranks and at a GQA shape off the 128-row tiles: each slice bit for
+     bit the whole launch's rows, offset 0 bit for bit the call without
+     one, each within `AGREE` (16-bit: `OFF_PLAIN_SHARE`) of the plain
+     version at its offset.
      Then h2o-danube-3-4b's long request (`long_prompt_phase`): 1 x 8704
      prompt tokens + 8, past 8192 positions and past its window, so the
      prefill runs `blockwise_attention` (no kernel launch, no plain call)
@@ -234,7 +241,19 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      no plain call; (b) two gloo ranks on the one card (NCCL takes one rank
      a card), a (2, 1) mesh, reduced deepseek-v3-671b in f32 on 4 x 32
      tokens: the all-to-all MoE path taken, the logits within 1e-4 and
-     every gradient within 1e-3 of one rank's unsharded run;
+     every gradient within 1e-3 of one rank's unsharded run; (c) two gloo
+     ranks on the one card, a (1, 2) mesh: the model axis split as JAX's
+     hints lay it out (`sharding.rules.model_layout`), gemma-7b at full
+     width and 4 layers ("tp": 8 heads of 256 a rank, the FFN hidden and
+     the vocabulary split) and h2o-danube-3-4b at 8 of 24 layers ("sp": the sequence
+     split, rank 1's queries on the kernel at offset 512), each a bf16
+     prefill of 2 x 1024 against the same rank's unsharded prefill (the
+     last position's logits and layer 0's K cache: at most
+     `OFF_PLAIN_SHARE` of the entries outside `AGREE`), one launch a layer
+     and no plain call; then one f32 AdamW step of each layout's reduced
+     config (gemma-7b at 16 q and 16 KV heads, qwen2-72b) against the same
+     step unsharded: logits within 1e-4, the loss within 1e-5, every
+     parameter within 1e-4;
  14. the dry run and the roofline (`dryrun_phase`): (a) gemma-7b's
      decode_32k cell and its long_500k skip cell through
      ``python -m repro_torch.launch.dryrun --cell``, each in a process of
@@ -346,6 +365,41 @@ REDUCED_BATCH, REDUCED_SEQ = 2, 128
 # tokens, within JAX's bounds for its all-to-all path (tests/test_moe.py)
 SHARD_STEPS, SHARD_GEN, SHARD_RANKS = 2, 8, 2
 SHARD_B, SHARD_S, SHARD_LOGITS_TOL, SHARD_GRAD_TOL = 4, 32, 1e-4, 1e-3
+# (c) the model axis split as JAX's hints lay it out (`sharding.rules.
+# model_layout`), a (1, 2) ("data", "model") mesh of two gloo ranks on the one
+# card: (arch, layers kept, its layout) at full width, bf16, a prefill of
+# SHARD_AXIS_B x SHARD_AXIS_S tokens (gemma-7b: 8 heads of 256 a rank, 4
+# layers so that two ranks' copies fit; h2o-danube-3-4b at 8 of 24 layers,
+# for the phase's time: its 8 KV heads do not pass the 16-way test, so the
+# sequence splits and rank 1's queries take the kernel at offset 512); then
+# one f32 train step of each layout's reduced
+# config (SHARD_AXIS_TRAIN: 16 q and 16 KV heads for "tp") on
+# SHARD_AXIS_TRAIN_B x SHARD_AXIS_TRAIN_S tokens, at (b)'s bounds (logits,
+# the loss's gradients) and the training parity bounds (losses 1e-5,
+# parameters 1e-4)
+SHARD_AXIS_RUNS = (("gemma-7b", 4, "tp"), ("h2o-danube-3-4b", 8, "sp"))
+SHARD_AXIS_B, SHARD_AXIS_S = 2, 1024
+# the bf16 prefills' logits against the unsharded ones: "sp" at most
+# OFF_PLAIN_SHARE of entries outside AGREE (the same sums in the same order a
+# row); both layouts' RMS distance within SHARD_AXIS_RMS x the unsharded bf16
+# logits' RMS distance to the f32-widened model's (two bf16 roundings of one
+# function, each at that error, lie at most ~sqrt 2 of it apart; "tp" rounds
+# w_o's and w_down's partial sums before it adds them, so about half of its
+# logits fall outside AGREE).  Reduced on two CPU ranks: sound "tp" 0.89 of
+# it, "sp" 0; rank 1's w_o partial sums x (1 + 2^-4) 5.2, the query offset
+# one short 24.7 (mutated copies)
+SHARD_AXIS_RMS = 2.0**0.5
+SHARD_AXIS_TRAIN = (("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8}, "tp"),
+                    ("qwen2-72b", {}, "sp"))
+SHARD_AXIS_TRAIN_B, SHARD_AXIS_TRAIN_S, SHARD_LOSS_TOL, SHARD_PARAM_TOL = 2, 64, 1e-5, 1e-4
+# `flash_attention`'s query offsets (a rank's slice of the queries under the
+# sequence-parallel layout), on the card after the LM phase: (B, T, H, Hkv,
+# hd, rows, offsets): gemma-7b's prefill layer sliced over 2 and over 16
+# ranks of "model", and h2o-danube-3-4b's GQA heads (hd 120, padded to 128)
+# at offsets off the 128-row tiles; each slice the whole launch's rows bit
+# for bit, and the kernel against its plain version
+FLASH_OFFSETS = ((8, 1024, 16, 16, 256, 512, (0, 512)), (8, 1024, 16, 16, 256, 64, (960,)),
+                 (4, 1024, 32, 8, 120, 100, (0, 300, 924)))
 # the dry run (`dryrun_phase`): (a) a full-size pod cell whose trace is short
 # (a decode) and a skip cell, each through the command line; (b) phase 12
 # (a)'s step traced on the meta device and run on the card
@@ -2626,6 +2680,50 @@ class RepeatedBatch:
         return self.batch
 
 
+def flash_offset_phase(dev, card: str, max_err: dict, judge=check) -> dict:
+    """`flash_attention` at query offsets (`FLASH_OFFSETS`), bf16 and f32:
+    each slice of the queries at its offset bit-equal to the whole launch's
+    rows (a row walks the same 64-key tiles in the same order either way,
+    and a tile past its position adds exactly 0), and within `AGREE`
+    (16-bit: and `OFF_PLAIN_SHARE`) of the plain version at that offset.
+    The whole launch at offset 0 against an older checkout's kernel, bit
+    for bit: scripts/torch_flash_offset_compare.py."""
+    import torch
+    from repro_torch.kernels import attention as kattn
+
+    out = {}
+    g = torch.Generator(dev).manual_seed(11)
+    for (B, T, H, G, hd, rows, offs) in FLASH_OFFSETS:
+        base = [torch.randn((B, T, n, hd), generator=g, device=dev) for n in (H, G, G)]
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in base)
+            whole = kattn.flash_attention(q, k, v)
+            for off in offs:
+                qs = q[:, off:off + rows].contiguous()
+                got = kattn.flash_attention(qs, k, v, q_off=off)
+                plain = kattn.flash_attention(qs, k, v, q_off=off, mode="ref")
+                torch.cuda.synchronize(dev)
+                same = torch.equal(got, whole[:, off:off + rows])
+                rtol, atol = kattn.AGREE[dt]
+                diff = (got.float() - plain.float()).abs()
+                err = float(diff.max())
+                excess = float((diff / (atol + rtol * plain.float().abs())).max())
+                off_plain = float((got != plain).float().mean())
+                name = f"{tuple(qs.shape)} over T={T}, {G} KV heads, q_off={off}, {dt}"
+                print(f"check flash_attention offset {name}: the whole launch's rows bit for bit: "
+                      f"{same}; against the plain version max_abs_err={err:.3g} share of the "
+                      f"tolerance={excess:.3g}, outputs off it {off_plain:.5f} card={card}")
+                judge(same, f"flash offset {name}: the slice differs from the whole launch's rows")
+                judge(excess <= 1.0, f"flash offset {name}: {excess:.3g} times its tolerance")
+                if dt != torch.float32:
+                    judge(off_plain <= kattn.OFF_PLAIN_SHARE,
+                          f"flash offset {name}: {off_plain:.3g} of its outputs off the plain's")
+                out[name] = {"bit_equal_rows": same, "max_abs_err": err, "share_of_tol": excess,
+                             "off_plain": off_plain}
+                max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    return out
+
+
 def rel_l2(a, b) -> float:
     """|a - b| / |b| in f32 (|a| where b is 0)."""
     den = float(b.float().norm())
@@ -3594,6 +3692,7 @@ def main() -> int:
                           jax_shapes=arch == LM_ARCH, f32_layers=F32_LAYERS.get(arch))
         path_counts[f"generate {arch}"] = lm_out["generate"]["counters"]
         lm_outs[arch] = lm_out
+    results["flash_offsets"] = flash_offset_phase(dev, card, max_err)
     long_out = long_prompt_phase(dev, get_config(LONG_ARCH), prompt_len=LONG_PROMPT,
                                  gen_len=LONG_GEN)
     path_counts[f"generate {LONG_ARCH} {LONG_PROMPT} + {LONG_GEN}"] = long_out["counters"]
@@ -4037,13 +4136,15 @@ def shard_phase(card: str, path_counts: dict, results: dict) -> dict:
     path_counts[f"generate {LM_ARCH} sharded (1, 1)"] = a["generate"]["counters"]
     path_counts[f"forward + backward deepseek-v3-671b reduced sharded (2, 1) gloo"] = (
         out["b"]["counters"])
+    for tag, run in out["c"].items():
+        path_counts[f"{tag} sharded (1, 2) gloo"] = run["counters"]
     results["shard"] = out
     return out
 
 
 def shard_phase_main() -> int:
-    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a) and (b),
-    their lines printed, then one JSON line."""
+    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a), (b) and
+    (c), their lines printed, then one JSON line."""
     import os
 
     import torch
@@ -4056,7 +4157,8 @@ def shard_phase_main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    out = {"a": shard_one(torch.device("cuda"), card), "b": shard_two(card)}
+    out = {"a": shard_one(torch.device("cuda"), card), "b": shard_two(card),
+           "c": shard_axis(card)}
     print(json.dumps(out, default=str))
     return 0
 
@@ -4245,6 +4347,196 @@ def shard_two_rank(rank: int, d: str, port: int, card: str) -> None:
     dist.barrier()
     dist.destroy_process_group()
 
+
+
+def shard_axis(card: str) -> dict:
+    """(c): the model axis on a (1, 2) mesh of two gloo ranks on the one
+    card (`shard_axis_rank`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(shard_axis_rank, args=(d, free_port(), card), nprocs=2)
+        return json.loads(Path(d, "c.json").read_text())
+
+
+def rms(t) -> float:
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def share_off(got, want) -> tuple[float, float]:
+    """(the share of `got`'s entries outside `AGREE` of `want`'s at
+    `want`'s dtype, the largest |got - want|)."""
+    from repro_torch.kernels import attention as kattn
+
+    rtol, atol = kattn.AGREE[want.dtype]
+    w = want.float()
+    diff = (got.float() - w).abs()
+    return float((diff > atol + rtol * w.abs()).float().mean()), float(diff.max())
+
+
+def shard_axis_rank(rank: int, d: str, port: int, card: str, device: str = "cuda") -> None:
+    """One rank of (c): each of `SHARD_AXIS_RUNS` at full width, its bf16
+    prefill sharded against this rank's unsharded prefill of the same model:
+    layer 0's K cache (at most `OFF_PLAIN_SHARE` of entries outside
+    `AGREE`), the last position's logits (their RMS distance within
+    `SHARD_AXIS_RMS` x the unsharded's to the same weights widened to f32;
+    "sp": at most `OFF_PLAIN_SHARE` outside `AGREE`; "tp" rounds a
+    row-parallel product's partial sums to bf16 before it adds them, so its
+    logits are another bf16 rounding of the same function), their largest
+    error against the f32 model within twice the unsharded's, the attention
+    layers' launches and no plain call; then each of `SHARD_AXIS_TRAIN`'s
+    f32 models against the same model unsharded: the logits, the loss's
+    gradients (whole), and one AdamW step's loss and parameters.  `device`
+    "cpu" rehearses it on the CPU."""
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import comm, rules
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=300))
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev, backend="gloo")
+    res: dict = {}
+    for arch, layers, layout in SHARD_AXIS_RUNS:
+        cfg = get_config(arch, n_layers=layers)
+        tag = (f"prefill {arch} x{cfg.n_layers} {cfg.dtype} {SHARD_AXIS_B} x {SHARD_AXIS_S} "
+               f"{layout}")
+        check(rules.model_layout(cfg, mesh, SHARD_AXIS_S) == layout, f"{tag}: the layout")
+        model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        rng = np.random.default_rng(7)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (SHARD_AXIS_B, SHARD_AXIS_S))).to(dev)
+        with torch.inference_mode():
+            want, cache_1 = lm.prefill(model, prompts)
+        k_1 = cache_1["groups"][0]["k"][0].clone()
+        del cache_1
+        lm.shard_model(model, mesh)
+        hint = rules.make_hint(mesh, cfg)
+        torch.cuda.synchronize(dev)
+        counters.reset()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got, cache = lm.prefill(model, prompts, hint=hint)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        snap = counters.snapshot()
+        k_off, k_err = share_off(cache["groups"][0]["k"][0], k_1)
+        n_attn = attention_applications(cfg)
+        expect_counts(tag, snap, {"flash_attention": n_attn})
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        del model, cache, k_1
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same weights widened to f32, unsharded: the bf16 model's own error
+        model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)).float()
+        with torch.inference_mode():
+            ref, _ = lm.prefill(model, prompts)
+        l_off, l_err = share_off(got, want)
+        l_rms, own_rms = rms(got.float() - want.float()), rms(want.float() - ref)
+        err = float((got.float() - ref).abs().max())
+        own = float((want.float() - ref).abs().max())
+        check(bool(torch.isfinite(got).all()) and l_rms <= SHARD_AXIS_RMS * own_rms
+              and (layout != "sp" or l_off <= kattn.OFF_PLAIN_SHARE)
+              and k_off <= kattn.OFF_PLAIN_SHARE and err <= 2 * own,
+              f"{tag}: logits {l_rms:.3g} RMS off the unsharded's (its own {own_rms:.3g} off "
+              f"the f32 model's), {l_off:.3g} outside AGREE (max_abs_err {l_err:.3g}); "
+              f"{err:.3g} off the f32 model's (the unsharded's own {own:.3g}); {k_off:.3g} of "
+              f"layer 0's K off the unsharded")
+        res[tag] = {"logits_rms": l_rms, "own_rms_f32": own_rms, "logits_off": l_off,
+                    "logits_max_abs_err": l_err, "logits_err_f32": err, "own_err_f32": own,
+                    "k_off": k_off, "k_max_abs_err": k_err, "wall_s": wall, "counters": snap,
+                    "max_memory_allocated": peak}
+        if rank == 0:
+            print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card: last-position logits "
+                  f"{l_rms:.4g} RMS off the unsharded's (bound {SHARD_AXIS_RMS:.4f} x its own "
+                  f"{own_rms:.4g} off the f32-widened model's), {l_off:.5f} outside AGREE of "
+                  f"them (max_abs_err {l_err:.3g}; limit {kattn.OFF_PLAIN_SHARE} for sp), "
+                  f"{err:.3g} max off the f32-widened model's (the unsharded bf16's own "
+                  f"{own:.3g}; bound twice that), layer 0's K {k_off:.5f} "
+                  f"outside AGREE of the unsharded "
+                  f"(max_abs_err {k_err:.3g}; limit {kattn.OFF_PLAIN_SHARE}); wall_s={wall:.3f} "
+                  f"max_memory_allocated={peak} launches={snap_nonzero(snap)} card={card}",
+                  flush=True)
+        del model, want, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    g = torch.Generator(dev).manual_seed(2)
+    for arch, kw, layout in SHARD_AXIS_TRAIN:
+        cfg = reduced_config(arch).replace(dtype="float32", **kw)
+        tag = f"train {arch} reduced f32 {SHARD_AXIS_TRAIN_B} x {SHARD_AXIS_TRAIN_S} {layout}"
+        check(rules.model_layout(cfg, mesh, SHARD_AXIS_TRAIN_S) == layout, f"{tag}: the layout")
+        batch = {k: torch.randint(0, cfg.vocab_size, (SHARD_AXIS_TRAIN_B, SHARD_AXIS_TRAIN_S),
+                                  generator=g, device=dev) for k in ("tokens", "labels")}
+
+        def one_step(mesh_):
+            model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+            state = tstep.init_state(cfg, device=dev, model=model, mesh=mesh_)
+            hint = None if mesh_ is None else rules.make_hint(mesh_, cfg)
+            with torch.no_grad():
+                logits, _ = lm.forward(model, batch["tokens"], hint=hint)
+            # the loss's gradients, whole: AdamW's first step is ~lr sign(g),
+            # blind to a gradient counted m times over the model axis
+            loss, _ = tstep.loss_fn(model, batch, hint=hint)
+            (loss / (1 if mesh_ is None else dist.get_world_size())).backward()
+            grads = {n: (comm.full(p.grad.to_local(), mesh_, p.grad.placements)
+                         if mesh_ is not None else p.grad).detach().clone()
+                     for n, p in model.named_parameters() if p.grad is not None}
+            model.zero_grad(set_to_none=True)
+            fn = tstep.make_train_step(cfg, mesh_, peak_lr=1e-3, warmup=1)
+            counters.reset()
+            state, m = fn(state, batch)
+            torch.cuda.synchronize(dev)
+            snap = counters.snapshot()
+            with torch.no_grad():
+                params = {n: (comm.full(p.to_local(), mesh_, p.placements) if mesh_ is not None
+                              else p).detach() for n, p in state["model"].named_parameters()}
+            return logits, grads, float(m["loss"]), params, snap
+
+        logits_1, grads_1, loss_1, params_1, _ = one_step(None)
+        logits, grads, loss, params, snap = one_step(mesh)
+        l_err = float((logits - logits_1).abs().max())
+        check(grads.keys() == grads_1.keys(), f"{tag}: the gradients' leaves")
+        g_err, worst = max((float((grads[n] - grads_1[n]).abs().max()), n) for n in grads_1)
+        p_err = max(float((params[n] - params_1[n]).abs().max()) for n in params_1)
+        # the forward, and again under remat
+        n_attn = attention_applications(cfg) * (2 if cfg.remat else 1)
+        expect_counts(tag, snap, {"flash_attention": n_attn})
+        check(l_err <= SHARD_LOGITS_TOL and g_err <= SHARD_GRAD_TOL
+              and abs(loss - loss_1) <= SHARD_LOSS_TOL and p_err <= SHARD_PARAM_TOL,
+              f"{tag}: logits {l_err}, gradients {g_err} ({worst}), loss {abs(loss - loss_1)}, "
+              f"parameters {p_err} off")
+        res[tag] = {"logits_err": l_err, "grad_err": g_err, "grad_worst": worst, "loss": loss,
+                    "loss_unsharded": loss_1, "param_err": p_err, "counters": snap}
+        if rank == 0:
+            print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card, one AdamW step: logits "
+                  f"within {l_err:.3g} (bound {SHARD_LOGITS_TOL}), the loss's gradients within "
+                  f"{g_err:.3g} ({worst}; bound {SHARD_GRAD_TOL}), loss {loss:.7f} against "
+                  f"{loss_1:.7f} (bound {SHARD_LOSS_TOL}), parameters within {p_err:.3g} (bound "
+                  f"{SHARD_PARAM_TOL}); launches={snap_nonzero(snap)} "
+                  f"backward_calls={snap['backward_calls']} card={card}", flush=True)
+    if rank == 0:
+        Path(d, "c.json").write_text(json.dumps(res, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def train_profile_main() -> int:

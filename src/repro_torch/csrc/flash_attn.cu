@@ -14,7 +14,9 @@
 // ~268 MB (q, k, v read once, o written once), ~0.08 ms at 3.35 TB/s.
 //
 // Arithmetic, as `_flash_kernel`: s = (q.k) * scale with scale = 1/sqrt(hd);
-// entries with ki >= T, or ki > qi under causal, are NEG = -1e30; m_new =
+// entries with ki >= T, or ki > qi under causal, are NEG = -1e30, where query
+// row i stands at position qi = q_off + i (a slice of a longer sequence's
+// queries; q_off = 0 by default and changes nothing but the mask); m_new =
 // max(m, max s); m_safe = 0 while m_new <= NEG/2 (the row is masked so far);
 // p = exp(s - m_safe); corr = 0 while m <= NEG/2, else exp(m - m_safe);
 // l = l*corr + sum p; acc = acc*corr + p.v; out = acc / max(l, 1e-30),
@@ -133,7 +135,8 @@ template <typename T, int CPW>
 __global__ void __launch_bounds__(THREADS)
     flash_attn_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
-                           int group, int hd, int causal, float scale, int n_qt, int BH) {
+                           int group, int hd, int causal, int q_off, float scale, int n_qt,
+                           int BH) {
   using E = Elem<T>;
   constexpr int PW = E::PER_WORD;
   const int W = hd / PW;  // words per row
@@ -172,8 +175,9 @@ __global__ void __launch_bounds__(THREADS)
   }
   stage_rows<BQ>(q_s, WS, qg, rs, q0, S, W);
 
-  // under causal, keys past the tile's last query row are masked for all rows
-  const int kv_end = causal ? min(Tk, min(q0 + BQ, S)) : Tk;
+  // under causal, keys past the tile's last query position are masked for all
+  // rows (query row i stands at position q_off + i)
+  const int kv_end = causal ? min(Tk, min(q0 + BQ, S) + q_off) : Tk;
   const int n_kv = (kv_end + BKV - 1) / BKV;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * BKV;
@@ -204,7 +208,7 @@ __global__ void __launch_bounds__(THREADS)
     }
 #pragma unroll
     for (int r = 0; r < TR; ++r) {
-      const int qi = q0 + ty * TR + r;
+      const int qi = q_off + q0 + ty * TR + r;
 #pragma unroll
       for (int c = 0; c < TC; ++c) {
         const int ki = k0 + tx + 16 * c;
@@ -297,7 +301,7 @@ size_t simt_smem_bytes(int W) {
 
 template <int CPW>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                int H, int Hkv, int hd, int causal, size_t smem, cudaStream_t stream) {
+                int H, int Hkv, int hd, int causal, int q_off, size_t smem, cudaStream_t stream) {
   const int n_qt = (S + BQ - 1) / BQ;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
@@ -307,25 +311,25 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int
   const float scale = float(1.0 / sqrt(double(hd)));
   flash_attn_simt_kernel<float, CPW><<<unsigned(blocks), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, Tk, H, H / Hkv, hd, causal, scale, n_qt, B * H);
+      static_cast<float*>(o), S, Tk, H, H / Hkv, hd, causal, q_off, scale, n_qt, B * H);
   return int(cudaGetLastError());
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-               int Hkv, int hd, int causal, int smem_max, cudaStream_t stream) {
+               int Hkv, int hd, int causal, int q_off, int smem_max, cudaStream_t stream) {
   const int W = hd;
   const size_t smem = simt_smem_bytes(W);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
   const int need = (W + 15) / 16;
   if (need <= 1)
-    return launch_simt<1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+    return launch_simt<1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
   if (need <= 2)
-    return launch_simt<2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+    return launch_simt<2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
   if (need <= 4)
-    return launch_simt<4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+    return launch_simt<4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
   if (need <= 8)
-    return launch_simt<8>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
-  return launch_simt<16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+    return launch_simt<8>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+  return launch_simt<16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -665,8 +669,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                             __grid_constant__ const CUtensorMap k_map,
                             __grid_constant__ const CUtensorMap v_map, T* __restrict__ o, int S,
-                            int Tk, int H, int group, int hd, int causal, float scale, int n_qt,
-                            int BH) {
+                            int Tk, int H, int group, int hd, int causal, int q_off, float scale,
+                            int n_qt, int BH) {
   constexpr int N = NC * CHUNK;  // width of the p.v product
   using P = Half<T>;
   extern __shared__ uint8_t smem_raw[];
@@ -686,8 +690,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   const int bh = int(blockIdx.x % unsigned(BH));
   const int b = bh / H, h = bh - b * H;
   const int q0 = qt * WQ;
-  // under causal, keys past the tile's last query row are masked for all rows
-  const int kv_end = causal ? min(Tk, min(q0 + WQ, S)) : Tk;
+  // under causal, keys past the tile's last query position are masked for all
+  // rows (query row i stands at position q_off + i)
+  const int kv_end = causal ? min(Tk, min(q0 + WQ, S) + q_off) : Tk;
   // at least one tile, so that no wgmma lies on a branch (with no keys its
   // every entry is masked: out = 0)
   const int n_kv = max(1, (kv_end + WKV - 1) / WKV);
@@ -739,6 +744,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     const int qa = q0 + 64 * cw;
     // this thread's two rows (fragment rows r and r + 8 of its warp's 16)
     const int qi0 = qa + 16 * warp + (lane >> 2), qi1 = qi0 + 8;
+    // their positions and the warpgroup's first, which the causal mask reads
+    const int pa = qa + q_off, pi0 = qi0 + q_off, pi1 = qi1 + q_off;
     const int col = 2 * (lane & 3);  // its first column in every 8-column block
     const uint32_t qa_s = q_s + cw * (64 * 128);
 
@@ -768,8 +775,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       fence_regs(sc);
       __syncwarp();
       if (lane == 0) mbar_arrive(k_empty);
-      online_softmax(sc, scale, WKV > Tk || (causal && WKV - 1 > qa), 0, Tk, causal, qi0,
-                     qi1, col, m0, m1, l0, l1, corr0, corr1);
+      online_softmax(sc, scale, WKV > Tk || (causal && WKV - 1 > pa), 0, Tk, causal, pi0,
+                     pi1, col, m0, m1, l0, l1, corr0, corr1);
       store_p<T>(sc, hi_s, lo_s, r0, lane);
       p_written(cw);
     }
@@ -788,8 +795,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       fence_regs(sc);
       __syncwarp();
       if (lane == 0) mbar_arrive(k_empty + 8 * s);
-      online_softmax(sc, scale, k0 + WKV > Tk || (causal && k0 + WKV - 1 > qa), k0, Tk,
-                     causal, qi0, qi1, col, m0, m1, l0, l1, corr0, corr1);
+      online_softmax(sc, scale, k0 + WKV > Tk || (causal && k0 + WKV - 1 > pa), k0, Tk,
+                     causal, pi0, pi1, col, m0, m1, l0, l1, corr0, corr1);
       wg_wait<0>();  // p.v of tile kt - 1 done: its V stage and the p tiles are free
       fence_regs(acc);
       __syncwarp();
@@ -880,7 +887,7 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int h
 
 template <typename T, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-                 int Hkv, int hd, int causal, size_t smem, cudaStream_t stream) {
+                 int Hkv, int hd, int causal, int q_off, size_t smem, cudaStream_t stream) {
   const int n_qt = (S + WQ - 1) / WQ;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
@@ -899,22 +906,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err != cudaSuccess) return int(err);
   const float scale = float(1.0 / sqrt(double(hd)));
   kernel<<<unsigned(blocks), W_THREADS, smem, stream>>>(q_map, k_map, v_map, static_cast<T*>(o), S,
-                                                        Tk, H, H / Hkv, hd, causal, scale, n_qt,
-                                                        B * H);
+                                                        Tk, H, H / Hkv, hd, causal, q_off, scale,
+                                                        n_qt, B * H);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_16bit(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-                 int Hkv, int hd, int causal, int smem_max, cudaStream_t stream) {
+                 int Hkv, int hd, int causal, int q_off, int smem_max, cudaStream_t stream) {
   const int nc = wgmma_chunks(hd);
   const size_t smem = wgmma_smem_bytes(nc);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
   if (nc == 1)
-    return launch_wgmma<T, 1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+    return launch_wgmma<T, 1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
   if (nc == 2)
-    return launch_wgmma<T, 2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
-  return launch_wgmma<T, 4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem, stream);
+    return launch_wgmma<T, 2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+  return launch_wgmma<T, 4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
 }
 
 }  // namespace
@@ -922,23 +929,25 @@ int launch_16bit(const void* q, const void* k, const void* v, void* o, int B, in
 // Returns cudaGetLastError().  dtype: 0 f32 (the SIMT body), 1 f16, 2 bf16
 // (the wgmma body).  q and o are contiguous (B, S, H, hd), k and v
 // (B, T, Hkv, hd) with Hkv dividing H, 16-byte aligned, with hd a multiple
-// of 8 in [8, 256]; anything else, or a block's shared memory above
-// smem_max, is refused with cudaErrorInvalidValue before a launch.
+// of 8 in [8, 256]; query row i stands at position q_off + i (>= 0) for the
+// causal mask; anything else, or a block's shared memory above smem_max, is
+// refused with cudaErrorInvalidValue before a launch.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int B,
                                  int S, int Tk, int H, int Hkv, int hd, int dtype, int causal,
-                                 int smem_max, void* stream) {
-  if (hd < 8 || hd > 256 || hd % 8 != 0) return int(cudaErrorInvalidValue);
+                                 int q_off, int smem_max, void* stream) {
+  if (hd < 8 || hd > 256 || hd % 8 != 0 || q_off < 0) return int(cudaErrorInvalidValue);
   if (Hkv < 1 || H % Hkv != 0) return int(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_f32(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem_max, st);
+      return launch_f32(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem_max, st);
     case 1:
-      return launch_16bit<__half>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem_max, st);
+      return launch_16bit<__half>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem_max,
+                                  st);
     case 2:
-      return launch_16bit<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, smem_max,
-                                         st);
+      return launch_16bit<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off,
+                                         smem_max, st);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -93,8 +93,8 @@ OFF_PLAIN_SHARE = 2.0**-5
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # C signature in csrc/flash_attn.cu: pointers and the stream as c_void_p, ints as c_int
-# (q, k, v, o, B, S, T, H, Hkv, hd, dtype, causal, smem_max, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# (q, k, v, o, B, S, T, H, Hkv, hd, dtype, causal, q_off, smem_max, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def smem_bytes(head_dim: int, itemsize: int) -> int:
@@ -147,11 +147,12 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_off: int = 0
 ) -> torch.Tensor:
     """Plain version of the kernel: an online softmax over 64-key blocks in
     f32, with the kernel's guards; the result in q's dtype.  Query heads are
-    taken in groups of H // Hkv, each group against its KV head (no repeat)."""
+    taken in groups of H // Hkv, each group against its KV head (no repeat).
+    Query row i stands at position ``q_off + i`` for the causal mask."""
     counters.PLAIN_CALLS["flash_attention"] += 1
     B, S, H, hd = q.shape
     T, G = k.shape[1], k.shape[2]
@@ -163,9 +164,9 @@ def flash_attention_plain(
     m = torch.full(qf.shape[:4], NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros(qf.shape[:4], dtype=torch.float32, device=q.device)  # noqa: E741
     acc = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
-    qi = torch.arange(S, device=q.device)[:, None]
+    qi = torch.arange(q_off, q_off + S, device=q.device)[:, None]
     # under causal, keys past the last query row are masked for every row
-    kv_end = min(T, S) if causal else T
+    kv_end = min(T, S + q_off) if causal else T
     for k0 in range(0, kv_end, BKV):
         kb, vb = kf[:, :, :, k0 : k0 + BKV], vf[:, :, :, k0 : k0 + BKV]
         s = (qf @ kb.transpose(-1, -2)) * scale
@@ -199,11 +200,15 @@ def flash_attention(
     causal: bool = True,
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
+    q_off: int = 0,
 ) -> torch.Tensor:
     """q (B, S, H, hd), k / v (B, T, Hkv, hd) of one dtype (f32, f16 or
     bf16), Hkv dividing H (query head h reads KV head h // (H // Hkv)) ->
     (B, S, H, hd) in q's dtype.  causal masks
-    key index ki > query index qi.  A CPU tensor, or ``mode="ref"``, runs the
+    key index ki > query position qi, where query row i stands at position
+    ``q_off + i`` (`q_off` >= 0: a slice of the queries of a longer
+    sequence, each row seeing the keys its position sees; 0 by default,
+    and the offset changes nothing but the mask).  A CPU tensor, or ``mode="ref"``, runs the
     plain version; a CUDA tensor launches the kernel once or raises (also
     when a block's shared memory would exceed ``lc.smem_budget``); a meta
     tensor gets its output's shape and launches nothing (module docstring).
@@ -211,38 +216,46 @@ def flash_attention(
     `FlashAttention`, whose backward is `flash_attention_backward`."""
     if mode not in (None, "ref"):
         raise ValueError(f"flash_attention: unknown mode {mode!r} (expected None or 'ref')")
+    if isinstance(q_off, bool) or not isinstance(q_off, int) or q_off < 0:
+        raise ValueError(f"flash_attention: q_off must be an int >= 0, got {q_off!r}")
     _check_inputs(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, mode, lc)
-    return _forward(q, k, v, causal=causal, mode=mode, lc=lc)
+        return FlashAttention.apply(q, k, v, causal, mode, lc, q_off)
+    return _forward(q, k, v, causal=causal, mode=mode, lc=lc, q_off=q_off)
 
 
-def causal_pairs(S: int, T: int, causal: bool) -> int:
+def causal_pairs(S: int, T: int, causal: bool, q_off: int = 0) -> int:
     """(query, key) pairs the function computes: with causal, key ki <= query
-    qi, i.e. min(qi + 1, T) keys for query qi; else S x T."""
+    position qi = q_off + i, i.e. min(qi + 1, T) keys for query row i; else
+    S x T."""
     if not causal:
         return S * T
-    n = min(S, T)
-    return n * (n + 1) // 2 + (S - n) * T
+
+    def upto(rows):  # the pairs of query positions 0 .. rows - 1
+        n = min(rows, T)
+        return n * (n + 1) // 2 + (rows - n) * T
+
+    return upto(q_off + S) - upto(q_off)
 
 
 def flash_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool) -> tuple[float, float]:
+               causal: bool, q_off: int = 0) -> tuple[float, float]:
     """(operations, bytes) of one `flash_attention` call: the q.k and p.v
     products over the computed pairs (`causal_pairs`), 2 x 2 B H hd a pair,
     and q, k, v and the output each once.  This is the function's work,
     not the kernel's (its two 16-bit p.v passes), so a redesign of the
     kernel leaves it unchanged."""
     B, S, H, hd = q.shape
-    flops = 4.0 * B * H * hd * causal_pairs(S, k.shape[1], causal)
+    flops = 4.0 * B * H * hd * causal_pairs(S, k.shape[1], causal, q_off)
     return flops, float((2 * q.numel() + k.numel() + v.numel()) * q.element_size())
 
 
-def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> torch.Tensor:
+def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig,
+             q_off: int = 0) -> torch.Tensor:
     """The wrapper's body, its inputs checked: the plain version, one launch,
     or on the meta device the output's shape (module docstring)."""
     if mode == "ref" or q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
     B, S, H, hd = q.shape
     smem = smem_bytes(hd, q.element_size())
     if smem > lc.smem_budget:
@@ -254,7 +267,7 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> to
         if k.device.type != "meta" or v.device.type != "meta":
             raise ValueError(f"flash_attention: q on meta, k on {k.device}, v on {v.device}")
         if counters.RECORDERS:
-            counters.record("flash_attention", *flash_work(q, k, v, causal))
+            counters.record("flash_attention", *flash_work(q, k, v, causal, q_off))
         return torch.empty_like(q)
     launch = _launcher()
     dev = q.device
@@ -280,13 +293,14 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig) -> to
             hd,
             DTYPES[q.dtype],
             int(causal),
+            q_off,
             lc.smem_budget,
             _build.cuda_stream(dev),
         )
     _build.check(err, "flash_attention")
     counters.LAUNCHES["flash_attention"] += 1
     if counters.RECORDERS:
-        counters.record("flash_attention", *flash_work(q, k, v, causal))
+        counters.record("flash_attention", *flash_work(q, k, v, causal, q_off))
     return out
 
 
@@ -314,8 +328,10 @@ def flash_attention_backward(
     dout: torch.Tensor,
     *,
     causal: bool = True,
+    q_off: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of `flash_attention` in plain PyTorch, in f32: for each
+    """The gradient of `flash_attention` (query row i at position ``q_off +
+    i``) in plain PyTorch, in f32: for each
     block of query rows (`backward_rows`) it recomputes the masked, scaled
     scores and P = softmax, then dV += P^T dO, dP = dO V^T, dS = P (dP -
     rowsum(dO O)), dQ = dS K scale and dK += dS^T Q scale.  dK and dV sum
@@ -340,12 +356,12 @@ def flash_attention_backward(
     rows = backward_rows(B, H, S, T)
     for s0 in range(0, S, rows):
         s1 = min(S, s0 + rows)
-        t1 = min(T, s1) if causal else T
+        t1 = min(T, s1 + q_off) if causal else T
         qb, ob, dob = heads(q, s0, s1), heads(out, s0, s1), heads(dout, s0, s1)
         kb, vb = kf[:, :, :, :t1], vf[:, :, :, :t1]
         s = (qb @ kb.transpose(-1, -2)) * scale  # (B, G, R, rows, t1)
         if causal:
-            qi = torch.arange(s0, s1, device=q.device)[:, None]
+            qi = torch.arange(q_off + s0, q_off + s1, device=q.device)[:, None]
             ki = torch.arange(t1, device=q.device)[None, :]
             s = torch.where(ki <= qi, s, NEG)
         m = torch.amax(s, dim=-1, keepdim=True)
@@ -371,10 +387,10 @@ class FlashAttention(torch.autograd.Function):
     recomputed, and launches the kernel again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, mode: str | None, lc: LaunchConfig):
-        out = _forward(q, k, v, causal=causal, mode=mode, lc=lc)
+    def forward(ctx, q, k, v, causal: bool, mode: str | None, lc: LaunchConfig, q_off: int = 0):
+        out = _forward(q, k, v, causal=causal, mode=mode, lc=lc, q_off=q_off)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal = causal
+        ctx.causal, ctx.q_off = causal, q_off
         return out
 
     @staticmethod
@@ -382,5 +398,6 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out = ctx.saved_tensors
         # a named range, so that a profile of a train step can attribute its time
         with torch.profiler.record_function("flash_attention_backward"):
-            dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=ctx.causal)
-        return dq, dk, dv, None, None, None
+            dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=ctx.causal,
+                                                  q_off=ctx.q_off)
+        return dq, dk, dv, None, None, None, None

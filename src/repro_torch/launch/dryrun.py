@@ -1,9 +1,13 @@
 """The dry run (the counterpart of `repro.launch.dryrun`): every (arch x
 shape x mesh) cell of JAX's dry run, traced through the port's own step
-functions on the meta device as rank 0 of a fake process group of 256
+functions on the meta device as one rank of a fake process group of 256
 ranks (mesh (16, 16), ("data", "model")) or 512 ((2, 16, 16), ("pod",
 "data", "model")), its cost counted by `roofline.cost.CostMode` and
-priced for the H100 by `roofline.analyze`.  No card is needed.
+priced for the H100 by `roofline.analyze`.  No card is needed.  The
+traced rank is the last of the "model" axis (`TRACED`: the first of every
+other axis): under the sequence-parallel layout with a causal mask its
+slice of the queries sees the most keys, so it is the busiest rank; the
+record names it (``rank``, ``coords``).
 
 JAX lowers and compiles each cell for 512 host devices and reads XLA's
 cost and memory analyses and the partitioned HLO.  The port has no
@@ -12,9 +16,10 @@ step's Python while every ATen op only shapes its outputs; each kernel
 wrapper reports its work (`kernels.attention.flash_attention`'s meta
 route); the fake backend's collectives return at once while
 `sharding.comm` records them.  So a record holds the work of the port as
-it runs, a rank's own: under the fifth stated departure (ROADMAP) each
-rank computes its rows of the batch with the dense layers gathered whole,
-where JAX splits them over "model".
+it runs, a rank's own: its rows of the batch, their work split over the
+"model" axis as JAX's hints lay it out (`sharding.rules.model_layout`) in
+training and prefill, and whole in decode (split-K decode is not
+reproduced).
 
     python -m repro_torch.launch.dryrun --all --mesh pod   # a process a cell
     python -m repro_torch.launch.dryrun --cell gemma-7b:train_4k:pod
@@ -62,6 +67,9 @@ OPTIMIZER = {
 
 # --mesh name -> (the record's mesh name, ranks)
 MESHES = {"pod": ("16x16", 256), "multipod": ("2x16x16", 512)}
+# the traced rank on either mesh, row-major over its axes: the last of "model"
+# (16 ranks, the last axis), the first of every other axis
+TRACED = 16 - 1
 
 F32_BYTES = 4
 
@@ -216,6 +224,9 @@ def trace_cell(cfg, shape, mesh=None) -> dict:
     ranks = 1 if mesh is None else dist.get_world_size()
     rec = {"arch": cfg.name, "shape": sh.name, "mesh": mesh_name(mesh), "ranks": ranks,
            "status": "ok"}
+    if mesh is not None:
+        rec["rank"] = dist.get_rank()
+        rec["coords"] = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     spec_mesh = mesh if mesh is not None else MeshShape((1, 1), ("data", "model"))
     t0 = time.time()
     model = lm.LM(cfg, device="meta", generator=torch.Generator())
@@ -285,7 +296,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir) -> dict:
                    "reason": skip}
         else:
             if not dist.is_initialized():
-                init_fake_process_group(world)
+                init_fake_process_group(world, TRACED)
             mesh = make_production_mesh(multi_pod=multi_pod, device="cpu", backend="fake")
             rec = trace_cell(cfg, shape_name, mesh)
     except Exception as e:  # noqa: BLE001 — a cell's failure is its record

@@ -4,7 +4,8 @@ The LM stack's meshes are `torch.distributed` `DeviceMesh`es over the
 process group this process joined (`init_process_group`: torchrun's
 environment, or one rank on localhost): NCCL on the card, gloo on the CPU.
 The dry run (`launch.dryrun`) joins a fake group of 256 or 512 ranks as
-rank 0 (`init_fake_process_group`), whose collectives move nothing.
+the rank it traces (`init_fake_process_group`), whose collectives move
+nothing.
 `make_mesh` raises without a process group, or when the mesh's shape does
 not multiply to the world size (as JAX's fails over too few devices), or
 when the group's backend is not the one asked for: no mesh falls back to
@@ -54,18 +55,20 @@ def init_process_group(device=None) -> None:
                                 world_size=1, rank=0)
 
 
-def init_fake_process_group(world_size: int) -> None:
-    """Join a process group of `world_size` ranks as rank 0 on PyTorch's
+def init_fake_process_group(world_size: int, rank: int = 0) -> None:
+    """Join a process group of `world_size` ranks as `rank` on PyTorch's
     fake backend (``torch.testing._internal.distributed.fake_pg``): every
     collective returns at once and moves nothing, so one process traces a
     rank's step over a mesh of any size.  Raises `RuntimeError` when this
     torch lacks the fake backend: no dry run falls back to fewer ranks."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"init_fake_process_group: rank {rank} of {world_size}")
     try:
         from torch.testing._internal.distributed.fake_pg import FakeStore
     except ImportError as e:
         raise RuntimeError(f"this torch ({torch.__version__}) has no fake process group "
                            f"backend (torch.testing._internal.distributed.fake_pg): {e}") from e
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
 
 
 def make_mesh(shape, axes, *, device=None, backend: str | None = None):

@@ -16,9 +16,15 @@ any length, or its plain version on a CPU tensor) when all of these hold:
   * ``Hq % G == 0`` (MHA, GQA or MQA: the kernel maps query heads to KV
     heads);
   * the head dim is a multiple of 8 in [8, 256];
-  * there is no window, or S and T are both at most the window: with
-    positions from 0 every pair then lies inside it (``kp > qp - window``
-    holds for all), so the window masks nothing.
+  * there is no window, or the query positions (``q_off`` .. ``q_off + S
+    - 1``) and T are all below the window: with positions from 0 every
+    pair then lies inside it (``kp > qp - window`` holds for all), so the
+    window masks nothing.
+
+``q_off`` places the S query rows at positions ``q_off`` .. ``q_off + S -
+1`` of a longer sequence (the keys at 0 .. T - 1): a rank's slice of the
+queries under the sequence-parallel layout.  The kernel takes it as its
+query offset; off the kernel route it becomes ``q_pos``.
 
 This is the JAX package's TPU deployment route (its Pallas kernel); the JAX
 LM itself runs `dense_attention` there.  The two compute the same function;
@@ -55,6 +61,7 @@ import torch
 from torch import nn
 
 from ..kernels import attention as kattn
+from ..sharding import comm
 from .layers import _param, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -211,7 +218,7 @@ def blockwise_attention(
 
 
 def kernel_route(q, k, v, *, q_pos=None, kv_pos=None, window=None, kv_valid=None,
-                 soft_cap=None, scale=None) -> bool:
+                 soft_cap=None, scale=None, q_off: int = 0) -> bool:
     """Whether `attention` sends this call to the flash kernel (module
     docstring): decided from shapes and settings alone (of v, its shape)."""
     S, Hq, hd = q.shape[1], q.shape[2], q.shape[3]
@@ -227,7 +234,7 @@ def kernel_route(q, k, v, *, q_pos=None, kv_pos=None, window=None, kv_valid=None
         and Hq % G == 0
         and hd % 8 == 0
         and 8 <= hd <= kattn.MAX_HEAD_DIM
-        and (window is None or max(S, T) <= window)
+        and (window is None or max(q_off + S, T) <= window)
     )
 
 
@@ -245,14 +252,21 @@ def attention(
     scale=None,
     chunk: int = 1024,
     mode: str | None = None,
+    q_off: int = 0,
 ):
     """Route to the flash kernel, `blockwise_attention` (chunks of `chunk`
     KV positions) or `dense_attention` (module docstring).  `mode` reaches
     the kernel's wrapper only: ``"ref"`` runs its plain version on the card
-    too."""
+    too.  `q_off` as in the module docstring (with ``q_pos`` and ``kv_pos``
+    None)."""
     masks = dict(q_pos=q_pos, kv_pos=kv_pos, window=window, soft_cap=soft_cap, scale=scale)
-    if kernel_route(q, k, v, kv_valid=kv_valid, **masks):
-        return kattn.flash_attention(q, k, v, causal=causal, mode=mode)
+    if kernel_route(q, k, v, kv_valid=kv_valid, q_off=q_off, **masks):
+        return kattn.flash_attention(q, k, v, causal=causal, mode=mode, q_off=q_off)
+    if q_off:
+        if q_pos is not None or kv_pos is not None:
+            raise ValueError("attention: q_off with explicit positions")
+        masks["q_pos"] = torch.arange(q_off, q_off + q.shape[1], device=q.device)
+        masks["kv_pos"] = torch.arange(k.shape[1], device=q.device)
     if k.shape[1] > BLOCKWISE_THRESHOLD and kv_valid is None:
         return blockwise_attention(q, k, v, causal=causal, chunk=chunk, **masks)
     return dense_attention(
@@ -300,11 +314,51 @@ def gqa_project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     return q, k, v
 
 
-def gqa_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None):
+def local_heads(cfg, hint):
+    """`cfg` as a rank of the tensor-parallel layout computes attention: its
+    n_heads / m query and n_kv_heads / m KV heads; else `cfg`."""
+    if getattr(hint, "layout", None) != "tp":
+        return cfg
+    m = hint.model_size
+    return cfg.replace(n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m)
+
+
+def _slice_offset(x: torch.Tensor, hint) -> int:
+    """The position of the first row of this rank's slice of the sequence."""
+    return hint.model_rank * x.shape[1]
+
+
+def gqa_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None, hint=None):
     """Full-sequence self-attention (prefill).  positions None means
     ``arange(S)`` from 0, the case `attention` may route to the kernel;
     above 8192 positions off that route it runs blockwise in chunks of
-    ``cfg.blockwise_chunk``.  Returns (out, (k, v))."""
+    ``cfg.blockwise_chunk``.  Returns (out, (k, v)).
+
+    Under a model layout of `hint` (positions None), `x` is this rank's
+    slice of the sequence and so is the output.  "tp": the sequence is
+    gathered, `p` holds the rank's heads (q, k, v and ``w_o``'s rows:
+    JAX's ``"heads_q"`` / ``"heads_kv"`` over "model"), the kernel runs on
+    them, and ``w_o``'s partial sums are reduce-scattered to the slices; k
+    and v are the rank's heads.  "sp": q, k and v are projected on the
+    slice, k and v gathered over the sequence (JAX's ``"heads_q"`` over
+    the sequence, ``"heads_kv"`` whole) and the kernel takes the slice's
+    offset as its query offset; k and v are whole."""
+    layout = getattr(hint, "layout", None)
+    if layout == "tp":
+        seq = hint.seq_group
+        xf = comm.gather_dim(x, 1, seq)
+        out, kv = gqa_attn(p, xf, local_heads(cfg, hint), mode=mode)
+        return comm.scatter_dim(out, 1, seq), kv
+    if layout == "sp":
+        seq = hint.seq_group
+        off = _slice_offset(x, hint)
+        pos = torch.arange(off, off + x.shape[1], device=x.device)[None, :]
+        q, k, v = gqa_project_qkv(p, x, cfg, pos)
+        k, v = comm.gather_dim(k, 1, seq), comm.gather_dim(v, 1, seq)
+        out = attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                        soft_cap=cfg.attn_soft_cap, scale=cfg.attn_scale,
+                        chunk=cfg.blockwise_chunk, mode=mode, q_off=off)
+        return out.reshape(*x.shape[:2], -1) @ p["w_o"], (k, v)
     q_pos = positions
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -371,10 +425,11 @@ def init_cross_attn(cfg, *, gated: bool, device=None, generator=None) -> nn.Para
     return p
 
 
-def cross_kv(p, ctx: torch.Tensor, cfg):
-    """Project the context (B, T, D) to K / V (B, T, G, hd) once (no RoPE)."""
+def cross_kv(p, ctx: torch.Tensor, cfg, *, hint=None):
+    """Project the context (B, T, D) to K / V (B, T, G, hd) once (no RoPE);
+    under the tensor-parallel layout of `hint` the rank's G / m heads."""
     B, T, _ = ctx.shape
-    g, hd = cfg.n_kv_heads, cfg.head_dim
+    g, hd = local_heads(cfg, hint).n_kv_heads, cfg.head_dim
 
     def proj(w, b):
         y = ctx @ p[w]
@@ -383,17 +438,27 @@ def cross_kv(p, ctx: torch.Tensor, cfg):
     return proj("w_k", "b_k"), proj("w_v", "b_v")
 
 
-def cross_attn(p, x: torch.Tensor, ctx_kv, cfg, *, mode: str | None = None):
+def cross_attn(p, x: torch.Tensor, ctx_kv, cfg, *, mode: str | None = None, hint=None):
     """x (B, S, D) attends over the context's (k, v) (B, T, G, hd), every
     pair unmasked (module docstring) -> (B, S, D), times ``tanh(gate_attn)``
     (in f32, cast to the output's dtype, as JAX's) when the layer is gated.
-    `mode` reaches the attention kernel."""
+    `mode` reaches the attention kernel.  Under a model layout of `hint`
+    `x` is the rank's slice of the sequence and so is the output: "tp" runs
+    the rank's heads on the sequence gathered (`cross_kv`'s heads too) and
+    reduce-scatters ``w_o``'s partial sums, the gate applied after; "sp"
+    runs the slice's queries over the whole context."""
+    tp = getattr(hint, "layout", None) == "tp"
+    if tp:
+        x = comm.gather_dim(x, 1, hint.seq_group)
     B, S, _ = x.shape
+    hq = local_heads(cfg, hint).n_heads
     y = x @ p["w_q"]
-    q = (y + p["b_q"] if "b_q" in p else y).to(x.dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = (y + p["b_q"] if "b_q" in p else y).to(x.dtype).reshape(B, S, hq, cfg.head_dim)
     k, v = ctx_kv
     out = attention(q, k, v, causal=False, scale=cfg.attn_scale, mode=mode)
     out = out.reshape(B, S, -1) @ p["w_o"]
+    if tp:
+        out = comm.scatter_dim(out, 1, hint.seq_group)
     if "gate_attn" in p:
         out = torch.tanh(p["gate_attn"]).to(out.dtype) * out
     return out
@@ -453,36 +518,67 @@ def mla_project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     """x (B, S, D) -> q, k (B, S, H, qk_nope + qk_rope), v (B, S, H, v_dim),
     and the latents c_kv (B, S, r_kv), k_rope (B, S, rope_dim) the cache
     keeps."""
-    m = cfg.mla
-    B, S, _ = x.shape
-    h = cfg.n_heads
     c_kv, k_r = _mla_latents(p, x, cfg, positions)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
-    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, h, m.qk_nope_dim)
-    v = (c_kv @ p["w_uv"]).reshape(B, S, h, m.v_dim)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_r.expand(B, S, h, m.qk_rope_dim)], dim=-1)
+    q = torch.cat(_mla_q(p, x, cfg, positions), dim=-1)
+    k, v = _mla_expand(p, c_kv, k_r, cfg)
     return q, k, v, c_kv, k_r[:, :, 0, :]
 
 
-def mla_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None):
+def _mla_expand(p, c_kv: torch.Tensor, k_r: torch.Tensor, cfg):
+    """The latents c_kv (B, T, r_kv), k_rope (B, T, 1, rope_dim) -> the
+    heads' k (B, T, H, qk_nope + qk_rope) and v (B, T, H, v_dim)."""
+    m = cfg.mla
+    B, T, _ = c_kv.shape
+    h = cfg.n_heads
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, T, h, m.qk_nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, T, h, m.v_dim)
+    return torch.cat([k_nope, k_r.expand(B, T, h, m.qk_rope_dim)], dim=-1), v
+
+
+def _mla_attend(q, k, v, cfg, *, q_pos=None, mode=None, q_off: int = 0):
+    """`attention` of MLA's heads, v padded to q's head dim on the kernel
+    route (module docstring)."""
+    m = cfg.mla
+    kw = dict(causal=True, q_pos=q_pos, kv_pos=q_pos, chunk=cfg.blockwise_chunk, mode=mode,
+              q_off=q_off)
+    # the route is decided on the kernel's shapes: v padded to k's head dim
+    if kernel_route(q, k, k, q_pos=q_pos, kv_pos=q_pos, q_off=q_off):
+        vp = torch.nn.functional.pad(v, (0, k.shape[-1] - m.v_dim))
+        return attention(q, k, vp, **kw)[..., : m.v_dim]
+    return attention(q, k, v, **kw)
+
+
+def mla_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None, hint=None):
     """Prefill MLA (materialized heads) -> (out, (c_kv, k_rope)).  JAX passes
     ``scale = 1 / sqrt(qk_nope + qk_rope)``, which is the default for q's
     head dim: here None, so that the call may take the kernel route, where v
     is padded with zeros to q's head dim (module docstring).  positions None
-    means ``arange(S)`` from 0, as in `gqa_attn`."""
-    m = cfg.mla
+    means ``arange(S)`` from 0, as in `gqa_attn`.  Under a model layout of
+    `hint`, as `gqa_attn`: "tp" on the sequence gathered with the rank's
+    heads (``w_uq``, ``w_uk``, ``w_uv`` and ``w_o``'s rows), the latents
+    whole; "sp" the queries and latents on the slice, the latents gathered
+    over the sequence and expanded to K and V there; the latents returned
+    are whole."""
+    layout = getattr(hint, "layout", None)
+    if layout == "tp":
+        seq = hint.seq_group
+        out, lat = mla_attn(p, comm.gather_dim(x, 1, seq), local_heads(cfg, hint), mode=mode)
+        return comm.scatter_dim(out, 1, seq), lat
+    if layout == "sp":
+        seq = hint.seq_group
+        off = _slice_offset(x, hint)
+        pos = torch.arange(off, off + x.shape[1], device=x.device)[None, :]
+        c_kv, k_r = _mla_latents(p, x, cfg, pos)
+        q = torch.cat(_mla_q(p, x, cfg, pos), dim=-1)
+        c_kv, k_r = comm.gather_dim(c_kv, 1, seq), comm.gather_dim(k_r, 1, seq)
+        k, v = _mla_expand(p, c_kv, k_r, cfg)
+        out = _mla_attend(q, k, v, cfg, mode=mode, q_off=off)
+        return out.reshape(*x.shape[:2], -1) @ p["w_o"], (c_kv, k_r[:, :, 0, :])
     q_pos = positions
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v, c_kv, k_r = mla_project_qkv(p, x, cfg, positions)
-    kw = dict(causal=True, q_pos=q_pos, kv_pos=q_pos, chunk=cfg.blockwise_chunk, mode=mode)
-    # the route is decided on the kernel's shapes: v padded to k's head dim
-    if kernel_route(q, k, k, q_pos=q_pos, kv_pos=q_pos):
-        vp = torch.nn.functional.pad(v, (0, k.shape[-1] - m.v_dim))
-        out = attention(q, k, vp, **kw)[..., : m.v_dim]
-    else:
-        out = attention(q, k, v, **kw)
+    out = _mla_attend(q, k, v, cfg, q_pos=q_pos, mode=mode)
     return out.reshape(*x.shape[:2], -1) @ p["w_o"], (c_kv, k_r)
 
 

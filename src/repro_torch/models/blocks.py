@@ -27,6 +27,12 @@ filled by the prefill and read, never written, by decode: ``xattn``
 prefill only and has no decode.  Decode writes every other entry in place.
 The gates of ``xattn`` (``attn.gate_attn``, ``gate_mlp``) are scalar f32
 parameters, 0 at init as in JAX: a fresh layer is the identity.
+
+Under a model layout (`sharding.rules.model_layout`, the hint's) a block's
+input and output are the rank's slice of the sequence (JAX's ``"act"``):
+the norms run there, attention and the MLP split the work as the layout
+says (`attention`, `layers.apply_mlp`), and a recurrent mixer gathers the
+sequence at entry, computes it whole and keeps its slice at exit.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch import nn
 
+from ..sharding import comm
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -116,18 +123,19 @@ def _ffn(kind: str, p, h: torch.Tensor, cfg, *, capacity_factor=None, hint=None)
     n = _norm(cfg)
     x2 = apply_norm(h, p["ln2"], **n)
     if kind not in MOE_KINDS:
-        return h + apply_mlp(p["mlp"], x2, act=cfg.act, style=cfg.mlp_style), {}
+        return h + apply_mlp(p["mlp"], x2, act=cfg.act, style=cfg.mlp_style, hint=hint), {}
     mo, metrics = moe_mod.moe_ffn(p["moe"], x2, cfg, capacity_factor=capacity_factor, hint=hint)
     if "dense_mlp" in p:
         xd = apply_norm(h, p["ln_dense"], **n)
-        mo = mo + apply_mlp(p["dense_mlp"], xd, act=cfg.act, style=cfg.mlp_style)
+        mo = mo + apply_mlp(p["dense_mlp"], xd, act=cfg.act, style=cfg.mlp_style, hint=hint)
     return h + mo, metrics
 
 
-def _gated_ffn(p, h: torch.Tensor, cfg) -> torch.Tensor:
+def _gated_ffn(p, h: torch.Tensor, cfg, hint=None) -> torch.Tensor:
     """``xattn``'s second half: h + tanh(gate_mlp) * MLP(h), the gate in f32
     cast to the MLP's dtype, as JAX's."""
-    m = apply_mlp(p["mlp"], apply_norm(h, p["ln2"], **_norm(cfg)), act=cfg.act, style=cfg.mlp_style)
+    m = apply_mlp(p["mlp"], apply_norm(h, p["ln2"], **_norm(cfg)), act=cfg.act,
+                  style=cfg.mlp_style, hint=hint)
     return h + torch.tanh(p.gate_mlp).to(m.dtype) * m
 
 
@@ -139,29 +147,41 @@ def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, ctx=None,
     ``arange(S)``; `ctx` (B, T, D) is the context of ``xattn`` and ``dec``
     (the image embeddings, the encoder's output); `mode` reaches the
     attention kernel.  ``enc`` is ``attn`` at ``causal=False``.  `hint`
-    reaches the MoE FFN (`moe.moe_ffn`)."""
+    reaches the layers: under its layout `h` is the rank's slice of the
+    sequence (module docstring), positions must be None, and the cache
+    entry's K / V hold the rank's heads under "tp" (`lm.prefill` gathers
+    them)."""
     check_kind(kind)
+    layout = getattr(hint, "layout", None)
+    if layout is not None and positions is not None:
+        raise ValueError("apply_block: a model layout takes positions from 0 (positions=None)")
     x = apply_norm(h, p["ln1"], **_norm(cfg))
     if kind in STATE_KINDS:
         sk = _STATE[kind]
+        if layout is not None:
+            x = comm.gather_dim(x, 1, hint.seq_group)
         y, fin = sk.apply(p[sk.module], x, cfg)
+        if layout is not None:
+            y = comm.slice_dim(y, 1, hint.seq_group)
         return h + y, fin, {}
     if kind == "xattn":
-        k, v = attn_mod.cross_kv(p["attn"], ctx, cfg)
-        h = h + attn_mod.cross_attn(p["attn"], x, (k, v), cfg, mode=mode)
-        return _gated_ffn(p, h, cfg), {"k": k, "v": v}, {}
+        k, v = attn_mod.cross_kv(p["attn"], ctx, cfg, hint=hint)
+        h = h + attn_mod.cross_attn(p["attn"], x, (k, v), cfg, mode=mode, hint=hint)
+        return _gated_ffn(p, h, cfg, hint), {"k": k, "v": v}, {}
     if kind in MLA_KINDS:
-        a, (ckv, kr) = attn_mod.mla_attn(p["attn"], x, cfg, positions=positions, mode=mode)
+        a, (ckv, kr) = attn_mod.mla_attn(p["attn"], x, cfg, positions=positions, mode=mode,
+                                         hint=hint)
         cache = {"ckv": ckv, "kr": kr}
     else:
         self_cfg = cfg.replace(causal=False) if kind == "enc" else cfg
-        a, (k, v) = attn_mod.gqa_attn(p["attn"], x, self_cfg, positions=positions, mode=mode)
+        a, (k, v) = attn_mod.gqa_attn(p["attn"], x, self_cfg, positions=positions, mode=mode,
+                                      hint=hint)
         cache = {"k": k, "v": v}
     h = h + a
     if kind == "dec":
-        xk, xv = attn_mod.cross_kv(p["xattn"], ctx, cfg)
+        xk, xv = attn_mod.cross_kv(p["xattn"], ctx, cfg, hint=hint)
         x = apply_norm(h, p["ln_x"], **_norm(cfg))
-        h = h + attn_mod.cross_attn(p["xattn"], x, (xk, xv), cfg, mode=mode)
+        h = h + attn_mod.cross_attn(p["xattn"], x, (xk, xv), cfg, mode=mode, hint=hint)
         cache |= {"xk": xk, "xv": xv}
     h, metrics = _ffn(kind, p, h, cfg, hint=hint)
     return h, cache, metrics

@@ -7,7 +7,8 @@ module's ``state_dict`` name by name (`convert.from_jax_lm_params`).
 Weights keep the JAX layout ``(in, out)`` and are applied as ``x @ w``.
 Parameters are made frozen (``requires_grad=False``), so that serving
 builds no graph; `lm.make_trainable` turns them on for training.
-`softmax_cross_entropy` is the training loss.
+`softmax_cross_entropy` is the training loss, `softmax_cross_entropy_vp`
+the same function over logits split over the vocabulary.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..sharding import comm
 
 # ---------------------------------------------------------------------------
 # Normalization
@@ -182,11 +185,26 @@ def init_mlp(
     )
 
 
-def apply_mlp(p, x: torch.Tensor, *, act: str, style: str) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, *, act: str, style: str, hint=None) -> torch.Tensor:
+    """The MLP of `x` (..., D).  Under the tensor-parallel layout of `hint`
+    (`sharding.rules.model_layout`) `x` is the rank's slice of the sequence
+    (B, S / m, D) and `p` holds the rank's slice of the FFN hidden (JAX's
+    ``"ffn"``): the column-parallel ``w_gate`` / ``w_up`` run on the
+    sequence gathered, the row-parallel ``w_down``'s partial sums are
+    reduce-scattered back to the slices, and ``b_down`` is added once,
+    after.  Under "sp" the slice runs through the whole MLP."""
     a = ACTIVATIONS[act]
+    tp = getattr(hint, "layout", None) == "tp"
+    if tp:
+        x = comm.gather_dim(x, 1, hint.seq_group)
     if style == "glu":
-        return (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return linear(a(linear(x, p["w_up"], p["b_up"])), p["w_down"], p["b_down"])
+        y = (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+        return comm.scatter_dim(y, 1, hint.seq_group) if tp else y
+    h = a(linear(x, p["w_up"], p["b_up"]))
+    if not tp:
+        return linear(h, p["w_down"], p["b_down"])
+    y = comm.scatter_dim(h @ p["w_down"], 1, hint.seq_group)
+    return y + p["b_down"].to(y.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +225,38 @@ def softmax_cross_entropy(
     sum_exp = torch.sum(torch.exp(lf - m), dim=-1)
     lse = torch.log(sum_exp) + m[..., 0]
     ll = torch.gather(lf, -1, labels[..., None].to(torch.int64))[..., 0]
+    loss = torch.mean(lse - ll)
+    metrics = {"nll": loss}
+    if z_loss:
+        zl = z_loss * torch.mean(torch.square(lse))
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    return loss, metrics
+
+
+def softmax_cross_entropy_vp(
+    logits: torch.Tensor, labels: torch.Tensor, group, *, z_loss: float = 0.0
+) -> tuple[torch.Tensor, dict]:
+    """`softmax_cross_entropy` over logits split over the vocabulary: this
+    rank's shard (..., V / m) of the ranks of `group` in rank order (JAX's
+    ``"logits"`` layout), labels (...) whole.  The same function, the
+    (B, S, V) logits never gathered: the detached row max is the ranks'
+    maximum (`comm.max_over`), the sum of exponentials and the label's
+    logit (picked by the rank whose shard holds it, 0 elsewhere) are summed
+    over the ranks (`comm.sum_over`), and every rank of `group` returns the
+    same loss and metrics."""
+    import torch.distributed as dist
+
+    lf = logits.to(torch.float32)
+    rows = lf.shape[-1]
+    m = comm.max_over(torch.amax(lf, dim=-1, keepdim=True), group)
+    sum_exp = comm.sum_over(torch.sum(torch.exp(lf - m), dim=-1), group)
+    lse = torch.log(sum_exp) + m[..., 0]
+    idx = labels.to(torch.int64) - dist.get_rank(group) * rows
+    ok = (idx >= 0) & (idx < rows)
+    ll = torch.gather(lf, -1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+    ll = comm.sum_over(torch.where(ok, ll, torch.zeros((), dtype=ll.dtype, device=ll.device)),
+                       group)
     loss = torch.mean(lse - ll)
     metrics = {"nll": loss}
     if z_loss:

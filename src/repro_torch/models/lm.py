@@ -44,12 +44,17 @@ the placements of `sharding.rules.param_specs` (JAX's memory layout: FSDP
 over "data" when ``cfg.fsdp``, TP over "model", the MoE expert stacks over
 ("data", "model")).  Each rank computes its part of the batch
 (`sharding.rules.shard_batch`: `forward` and `prefill` take the global
-batch, which every rank holds, and return the rank's rows); a layer's
-parameters are gathered where it reads them, inside its remat'd function,
-so the backward pass gathers them again (`sharding.comm.gather_param`);
-the MoE layer runs JAX's all-to-all path on its rank's slice of the
-sequence (`models.moe`).  The attention kernel and every other kernel see
-plain local tensors.
+batch, which every rank holds, and return the rank's rows), and the ranks
+of the model axis split that part's work as JAX's hint table lays it out
+(`sharding.rules.model_layout`, "tp" or "sp"): the hidden states are the
+rank's slice of the sequence between layers (``"act"``), the embedding,
+the head and the loss vocab-parallel (`_embed`, `_head`,
+`layers.softmax_cross_entropy_vp`), and a layer's parameters are gathered
+where it reads them (a tensor-parallel one over "data" only), inside its
+remat'd function, so the backward pass gathers them again
+(`sharding.comm.gather_param`).  `prefill` hands decode every rank's rows
+whole (K / V heads gathered), as decode reads them.  The attention kernel
+and every other kernel see plain local tensors.
 """
 
 from __future__ import annotations
@@ -78,13 +83,17 @@ class Gathered:
     attribute access as on the module, each DTensor parameter gathered at
     its first read (`sharding.comm.gather_param`) and kept for the view's
     life, each sub-module a view in turn; `local` gives a parameter's local
-    part instead (`sharding.comm.local_param`)."""
+    part instead (`sharding.comm.local_param`).  A leaf named in `keep`
+    (`rules.local_leaves`: the tensor-parallel layout's) is gathered over
+    the axes `rules.gather_axes` gives, keeping its "model" shard; the
+    recurrent mixers (`rules.WHOLE_MODULES`) read every leaf whole."""
 
-    __slots__ = ("_m", "_seen")
+    __slots__ = ("_m", "_seen", "_keep")
 
-    def __init__(self, module: nn.Module):
+    def __init__(self, module: nn.Module, keep: frozenset = frozenset()):
         self._m = module
         self._seen = {}
+        self._keep = keep
 
     def _wrap(self, key, v):
         from torch.distributed.tensor import DTensor
@@ -92,7 +101,12 @@ class Gathered:
         if not isinstance(v, (DTensor, nn.Module)):
             return v
         if key not in self._seen:
-            self._seen[key] = Gathered(v) if isinstance(v, nn.Module) else comm.gather_param(v)
+            if isinstance(v, nn.Module):
+                self._seen[key] = Gathered(
+                    v, frozenset() if key in rules.WHOLE_MODULES else self._keep)
+            else:
+                axes = rules.gather_axes(v.device_mesh, key, v.ndim, self._keep)
+                self._seen[key] = comm.gather_param(v, axes)
         return self._seen[key]
 
     def __getitem__(self, key):
@@ -108,9 +122,16 @@ class Gathered:
         return comm.local_param(self._m[key])
 
 
+def _check_sharded(model, hint) -> None:
+    """A sharded `hint` needs `shard_model`'s model: the layers read its
+    parameters as the hint's layout lays them out."""
+    if sharded(hint) and getattr(model, "mesh", None) is None:
+        raise ValueError("a sharded hint needs the model stored on its mesh (lm.shard_model)")
+
+
 def _at(module, hint):
     """`module` as a layer reads it: a `Gathered` view on a mesh."""
-    return Gathered(module) if sharded(hint) else module
+    return Gathered(module, rules.local_leaves(hint)) if sharded(hint) else module
 
 
 # slots of each shared-block application's KV ring (JAX `lm.init_cache`:
@@ -179,8 +200,28 @@ def _norm(cfg) -> dict:
     return dict(kind=cfg.norm, eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
 
 
+def _layout(hint) -> str | None:
+    return getattr(hint, "layout", None)
+
+
 def _embed(model: LM, tokens: torch.Tensor, hint=None) -> torch.Tensor:
-    x = _at(model, hint).embed[tokens]
+    """tokens (B, S) -> (B, S, D); under a model layout (`rules.model_layout`)
+    the rank's slice of the sequence (B, S / m, D): vocab-parallel, each rank
+    looks its vocab rows up, zeros for the others, and the sums are
+    reduce-scattered over the sequence; with the vocabulary whole, the
+    slice's tokens are looked up."""
+    table = _at(model, hint).embed
+    if _layout(hint) is None:
+        x = table[tokens]
+    elif hint.vocab_parallel:
+        rows = table.shape[0]
+        idx = tokens - hint.model_rank * rows
+        ok = (idx >= 0) & (idx < rows)
+        x = table[idx.clamp(0, rows - 1)]
+        x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        x = comm.scatter_dim(x, 1, hint.seq_group)
+    else:
+        x = table[comm.slice_dim(tokens, 1, hint.seq_group)]
     if model.cfg.scale_embed:
         # JAX rounds sqrt(d) to the weight dtype first: 55.5 in bf16 at d 3072
         # (and so does a bf16 model whose weights were widened to f32)
@@ -190,12 +231,45 @@ def _embed(model: LM, tokens: torch.Tensor, hint=None) -> torch.Tensor:
 
 
 def _head(model: LM, h: torch.Tensor, hint=None) -> torch.Tensor:
+    """The final norm and the logits; under a model layout `h` is the
+    rank's slice of the sequence, normed there: vocab-parallel, it is
+    gathered and the logits come out in JAX's ``"logits"`` layout, (B, S,
+    V / m), the rank's vocab shard; with the vocabulary whole, the logits
+    are the slice's, (B, S / m, V) (`logits_layout`)."""
     cfg = model.cfg
     model = _at(model, hint)
     h = apply_norm(h, model.final_norm, **_norm(cfg))
+    if getattr(hint, "vocab_parallel", False):
+        h = comm.gather_dim(h, 1, hint.seq_group)
     if cfg.tie_embeddings:
         return h @ model.embed.T
     return h @ model.lm_head
+
+
+def logits_layout(hint) -> int | None:
+    """The dimension of `forward_local`'s logits that the model axis splits
+    under `hint`: 2 (the vocabulary) vocab-parallel, 1 (the sequence) under
+    a layout with the vocabulary whole, else None."""
+    if _layout(hint) is None:
+        return None
+    return 2 if hint.vocab_parallel else 1
+
+
+def _last_logits(model: LM, h: torch.Tensor, hint=None) -> torch.Tensor:
+    """The last position's logits (B, V): under a model layout the last
+    rank's slice ends the sequence, and a vocab-parallel head's shards are
+    gathered over the vocabulary (for the argmax)."""
+    if _layout(hint) is None:
+        return _head(model, h[:, -1:, :], hint)[:, 0]
+    seq = hint.seq_group
+    last = comm.all_gather(h[:, -1:, :], 1, seq)[:, -1:, :]
+    cfg = model.cfg
+    mv = _at(model, hint)
+    x = apply_norm(last, mv.final_norm, **_norm(cfg))
+    logits = x @ (mv.embed.T if cfg.tie_embeddings else mv.lm_head)
+    if hint.vocab_parallel:
+        logits = comm.all_gather(logits, 2, seq)
+    return logits[:, 0]
 
 
 def make_trainable(model: LM) -> LM:
@@ -284,11 +358,18 @@ def _layer(kind: str, p, h: torch.Tensor, cfg, *, ctx=None, mode=None, hint=None
 def _run_encoder(model: LM, frames: torch.Tensor, *, mode: str | None = None,
                  hint=None) -> torch.Tensor:
     """The encoder over `frames` (B, T, D), in the weights' dtype, positions
-    from 0 -> the final-normed context (B, T, D)."""
+    from 0 -> the final-normed context (B, T, D), whole on every rank.
+    Under a model layout of T positions it runs on the rank's slice of the
+    frames, as the decoder's layers do, and its output is gathered."""
+    if sharded(hint):
+        hint = hint.at(frames.shape[1])
     h = frames.to(model.embed.dtype)
+    if _layout(hint) is not None:
+        h = comm.slice_dim(h, 1, hint.seq_group)
     for p in model.encoder["blocks"]:
         h, _ = _layer("enc", p, h, model.cfg, mode=mode, hint=hint)
-    return apply_norm(h, _at(model.encoder["final_norm"], hint), **_norm(model.cfg))
+    h = apply_norm(h, _at(model.encoder["final_norm"], hint), **_norm(model.cfg))
+    return comm.gather_dim(h, 1, hint.seq_group) if _layout(hint) is not None else h
 
 
 def context_input(cfg) -> str | None:
@@ -352,12 +433,13 @@ def _merge_metrics(all_metrics: list) -> dict:
 
 def local_batch(batch: dict, hint):
     """On a mesh: this rank's rows of a global batch (`rules.shard_batch`)
-    and `hint` knowing the global batch size; else both as given."""
+    and `hint` knowing the global batch size and the call's layout
+    (`rules.model_layout` of the tokens' length); else both as given."""
     if not sharded(hint):
         return batch, hint
-    n = batch["tokens"].shape[0]
+    n, S = batch["tokens"].shape
     return (rules.shard_batch(batch, hint.mesh, hint.cfg),
-            dataclasses.replace(hint, batch=n))
+            dataclasses.replace(hint.at(S), batch=n))
 
 
 def forward(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
@@ -368,15 +450,25 @@ def forward(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
     metrics are the MoE layers' merged as JAX's `_merge_metrics` (empty for
     a dense arch).  `extras` and `mode` as in `prefill`.  With a sharded
     `hint` the model is `shard_model`'s, `tokens` and `extras` the global
-    batch, and the logits and metrics this rank's rows'."""
+    batch, and the logits and metrics this rank's rows' (the logits whole
+    over the vocabulary)."""
     batch, hint = local_batch({"tokens": tokens, **(extras or {})}, hint)
     tokens = batch.pop("tokens")
-    return forward_local(model, tokens, extras=batch or None, mode=mode, hint=hint)
+    logits, metrics = forward_local(model, tokens, extras=batch or None, mode=mode, hint=hint)
+    split = logits_layout(hint)
+    if split is not None:
+        logits = comm.gather_dim(logits, split, hint.seq_group)
+    return logits, metrics
 
 
 def forward_local(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
                   mode: str | None = None, hint=None):
-    """`forward` on this rank's rows (`local_batch`)."""
+    """`forward` on this rank's rows (`local_batch`), the logits split over
+    the model axis as `logits_layout` says: under a vocab-parallel hint the
+    rank's vocab shard (B, S, V / m), JAX's ``"logits"`` layout; under a
+    layout with the vocabulary whole, the rank's slice of the sequence (B,
+    S / m, V) (`_head`)."""
+    _check_sharded(model, hint)
     cfg = model.cfg
     B, S = tokens.shape
     ctx = _context(model, extras, B, mode=mode, hint=hint)
@@ -406,7 +498,10 @@ def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
     docstring).  `mode` reaches the attention kernel (``"ref"``: its plain
     version).  The MoE metrics are dropped, as JAX's prefill drops them.
     With a sharded `hint`, as in `forward`: the logits and the cache are
-    this rank's rows'."""
+    this rank's rows', whole (the last position's logits gathered over the
+    vocabulary, `_last_logits`; the K / V heads over the model axis,
+    `_whole_cache`), as decode reads them."""
+    _check_sharded(model, hint)
     batch, hint = local_batch({"tokens": tokens, **(extras or {})}, hint)
     tokens = batch.pop("tokens")
     extras = batch or None
@@ -420,15 +515,30 @@ def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
         for p in layers:
             h, c, _ = blocks_mod.apply_block(kind, _at(p, hint), h, cfg, ctx=ctx, mode=mode,
                                              hint=hint)
-            entries.append(c)
+            entries.append(_whole_cache(c, hint))
         cache["groups"].append({name: torch.stack([c[name] for c in entries]) for name in entries[0]})
         del entries
         if cfg.shared_attn_every:
             h, c, _ = blocks_mod.apply_block("attn", _at(model.shared_block, hint), h, cfg,
                                              mode=mode, hint=hint)
-            cache["shared"].append(c)
-    logits = _head(model, h[:, -1:, :], hint)
-    return logits[:, 0, :], cache
+            cache["shared"].append(_whole_cache(c, hint))
+    return _last_logits(model, h, hint), cache
+
+
+# cache entries that hold K / V heads (the tensor-parallel layout's are the rank's)
+HEAD_ENTRIES = ("k", "v", "xk", "xv")
+
+
+def _whole_cache(entry: dict, hint) -> dict:
+    """A layer's prefill cache entry as decode reads it: under the
+    tensor-parallel layout its K / V heads gathered over the model axis
+    (dimension 2); every other entry is whole already (the sequence-parallel
+    layout's K / V and MLA's latents are gathered over the sequence, a
+    recurrent mixer's state is computed whole)."""
+    if _layout(hint) != "tp":
+        return entry
+    return {name: comm.gather_dim(t, 2, hint.seq_group) if name in HEAD_ENTRIES else t
+            for name, t in entry.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -456,8 +566,11 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict, *, hint=None):
     -> (logits (B, V), cache).  The cache's tensors are written in place;
     the returned dict holds them and ``pos + 1``.  With a sharded `hint`,
     the tokens and the cache are this rank's rows (`prefill`'s)."""
+    _check_sharded(model, hint)
     cfg = model.cfg
     pos = cache["pos"]
+    if sharded(hint):
+        hint = hint.at(tokens.shape[1])
     h = _embed(model, tokens, hint)
     for gi, ((kind, layers), gcache) in enumerate(zip(model.groups(), cache["groups"])):
         cache_len = _group_cache_len(kind, gcache)

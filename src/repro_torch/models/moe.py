@@ -18,13 +18,18 @@ Routing styles:
 `moe_ffn` chooses between JAX's two paths as JAX does: on a mesh whose
 shapes divide (`_a2a_plan`), the all-to-all expert-parallel path
 (`_moe_ffn_a2a`): each rank takes its slice of the sequence on the model
-axis, scatters its tokens into (E, C, D) buffers, sends each expert's
+axis (the model layout's ``"act"``), scatters its tokens into (E, C, D) buffers, sends each expert's
 buffer to the rank holding that expert (an all-to-all over the
 expert-parallel axes), runs its local experts and sends the outputs back;
 otherwise the grouped-scatter path (`_moe_ffn_scatter`) with the experts
 gathered, whose load statistics are averaged over the ranks that split the
 batch, so that the aux loss is the global batch's, as under JAX's GSPMD.
-``router_bias`` is updated by `train.step`.  The expert products are
+Under a model layout (`sharding.rules.model_layout`) the input is the
+rank's slice of the sequence: the grouped-scatter path, whose capacity
+groups are whole sequences, gathers the sequence and keeps its slice of
+the output.  The
+shared experts run as the dense MLP does (`layers.apply_mlp`, "tp" or
+"sp").  ``router_bias`` is updated by `train.step`.  The expert products are
 batched matmuls over E, as JAX's einsums are (no Pallas kernel there).
 """
 
@@ -111,12 +116,22 @@ def moe_ffn(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None, hi
     sharded `hint` (`sharding.rules.make_hint`, its ``batch`` the global
     batch size), `x` is this rank's rows and `p` a `lm.Gathered` view: the
     all-to-all path when `_a2a_plan` gives a plan, as in JAX."""
+    out, metrics = _routed(p, x, cfg, capacity_factor, hint)
+    if cfg.moe.n_shared and "shared" in p:
+        out = out + apply_mlp(p["shared"], x, act=cfg.moe.act, style="glu", hint=hint)
+    return out, metrics
+
+
+def _routed(p, x: torch.Tensor, cfg, capacity_factor, hint):
+    """The routed experts of `moe_ffn` (its paths) -> (out, metrics)."""
     mesh = getattr(hint, "mesh", None)
     if mesh is None:
         return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor)
     B, S, D = x.shape
+    sliced = getattr(hint, "layout", None) is not None
+    S_glob = S * hint.model_size if sliced else S
     n = hint.batch if S > 1 else B
-    plan = _a2a_plan(mesh, cfg, (n, S, D), capacity_factor)
+    plan = _a2a_plan(mesh, cfg, (n, S_glob, D), capacity_factor)
     if plan is not None:
         if "model" in rules.dp_axes(mesh, cfg):
             raise ValueError(f"{cfg.name}: the all-to-all MoE path needs the batch off the "
@@ -124,7 +139,12 @@ def moe_ffn(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None, hi
         return _moe_ffn_a2a(p, x, cfg, plan)
     axes = rules.batch_axes(n, mesh, cfg) if S > 1 else ()
     group = comm.axes_group(mesh, axes) if axes else None
-    return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor, group=group)
+    if not sliced:
+        return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor, group=group)
+    seq = hint.seq_group
+    out, metrics = _moe_ffn_scatter(p, comm.gather_dim(x, 1, seq), cfg,
+                                    capacity_factor=capacity_factor, group=group)
+    return comm.slice_dim(out, 1, seq), metrics
 
 
 def _a2a_plan(mesh, cfg, xshape, capacity_factor):
@@ -160,34 +180,33 @@ def _a2a_plan(mesh, cfg, xshape, capacity_factor):
 
 
 def _moe_ffn_a2a(p, x: torch.Tensor, cfg, plan):
-    """JAX's expert-parallel path on this rank's rows `x` (B_loc, S, D),
-    the same on every rank of the model axis: the rank's sequence slice
-    routed, its L * k choices ranked by a cumsum over the shard (capacity
-    C a shard), scattered into (E, C, D), the all-to-all to the experts'
-    ranks, the local experts, the all-to-all back, the weighted k-sum, and
-    the slices gathered again over the model axis; the metrics averaged
-    over all the plan's axes; the shared experts on the whole of `x`."""
+    """JAX's expert-parallel path on this rank's rows' slice of the
+    sequence `x` (B_loc, S / m, D): a plan over a model axis of m > 1 ranks
+    comes only with a model layout (`rules.model_layout`: the plan and the
+    layout both need m to divide S), whose ``"act"`` is that slice, and
+    the output is too.  Its L * k choices ranked by a cumsum over the shard
+    (capacity C a shard), scattered into (E, C, D), the all-to-all to the
+    experts' ranks, the local experts, the all-to-all back, the weighted
+    k-sum; the metrics averaged over all the plan's axes."""
     m = cfg.moe
     mesh = plan["mesh"]
     L, C, n_ep = plan["L"], plan["C"], plan["n_ep"]
     E, k = m.n_experts, m.top_k
     E_loc = E // n_ep
     D = x.shape[-1]
-    seq = comm.axes_group(mesh, ("model",)) if "model" in plan["all_axes"] else None
-    xl = comm.slice_dim(x, 1, seq) if seq is not None else x
-    if xl.shape[0] * xl.shape[1] != L:
-        raise ValueError(f"_moe_ffn_a2a: {tuple(xl.shape)} is not this plan's {L} tokens a shard")
+    if x.shape[0] * x.shape[1] != L:
+        raise ValueError(f"_moe_ffn_a2a: {tuple(x.shape)} is not this plan's {L} tokens a shard")
     pr = {"router": p["router"]}
     if "router_bias" in p:
         pr["router_bias"] = p["router_bias"]
-    w, idx, metrics = _route(pr, xl, m)
+    w, idx, metrics = _route(pr, x, m)
     idxf = idx.reshape(L * k)
     oh = F.one_hot(idxf, E)
     slot = torch.gather(torch.cumsum(oh, dim=0) - oh, 1, idxf[:, None])[:, 0]
     del oh
     keep = slot < C
     slot_c = torch.clamp(slot, max=C - 1)
-    upd = torch.where(keep[:, None], torch.repeat_interleave(xl.reshape(L, D), k, dim=0),
+    upd = torch.where(keep[:, None], torch.repeat_interleave(x.reshape(L, D), k, dim=0),
                       torch.zeros((), dtype=x.dtype, device=x.device))
     buf = x.new_zeros((E, C, D)).index_put((idxf, slot_c), upd, accumulate=True)
     # dispatch: expert e's buffer to the rank holding it -> (E_loc, n_ep * C, D)
@@ -201,17 +220,13 @@ def _moe_ffn_a2a(p, x: torch.Tensor, cfg, plan):
     yb = comm.all_to_all(ye.reshape(E_loc, n_ep, C, D).transpose(0, 1), ep).reshape(E, C, D)
     y = yb[idxf, slot_c]
     y = y * (w.reshape(L * k, 1) * keep[:, None]).to(y.dtype)
-    out = torch.sum(y.reshape(L, k, D), dim=1).reshape(xl.shape)
+    out = torch.sum(y.reshape(L, k, D), dim=1).reshape(x.shape)
     drop = 1.0 - torch.mean(keep.to(torch.float32))
     everyone = comm.axes_group(mesh, plan["all_axes"])
     mets = comm.mean_over(torch.stack([metrics["moe_aux"], metrics["moe_z"], drop]), everyone)
     load = comm.mean_over(metrics["expert_load"], everyone)
-    if seq is not None:
-        out = comm.gather_dim(out, 1, seq)
     metrics = {"moe_aux": mets[0], "moe_z": mets[1], "moe_drop_frac": mets[2],
                "expert_load": load}
-    if m.n_shared and "shared" in p:
-        out = out + apply_mlp(p["shared"], x, act=m.act, style="glu")
     return out, metrics
 
 
@@ -219,9 +234,9 @@ def _moe_ffn_scatter(p, x: torch.Tensor, cfg, *, capacity_factor: float | None =
                      group=None):
     """The grouped-scatter path: route, dispatch each group's kept choices
     into (B, E, C, D) buffers, run the experts as batched matmuls over E,
-    gather each choice's output back and sum its k weighted outputs; plus
-    the shared experts.  `group` as in `_route` (its drop share averaged
-    too)."""
+    gather each choice's output back and sum its k weighted outputs (the
+    shared experts are `moe_ffn`'s).  `group` as in `_route` (its drop
+    share averaged too)."""
     m = cfg.moe
     B, S, D = x.shape
     k, E = m.top_k, m.n_experts
@@ -267,7 +282,4 @@ def _moe_ffn_scatter(p, x: torch.Tensor, cfg, *, capacity_factor: float | None =
     del y_e, y_eg
     y = y * (w.reshape(B, S * k, 1) * keep[:, :, None]).to(y.dtype)
     out = torch.sum(y.reshape(B, S, k, D), dim=2)
-
-    if m.n_shared and "shared" in p:
-        out = out + apply_mlp(p["shared"], x, act=m.act, style="glu")
     return out, metrics

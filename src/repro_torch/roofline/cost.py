@@ -88,7 +88,14 @@ _REDUCE = {
 
 
 def _tensors(tree) -> list:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of `tree`, a DTensor as its local part: what the rank
+    holds and moves (an op on a DTensor, such as the autograd engine's on a
+    parameter's gradient, reaches the mode whole, and its wrapper's storage
+    would count the global shape's bytes)."""
+    from torch.distributed.tensor import DTensor
+
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -11,8 +11,21 @@ a parameter gathered at use (`gather_param`) gets, in its backward, its
 gradient reduce-scattered over the mesh dimensions that split it and
 summed over those that replicate it: the FSDP pattern, with JAX's
 per-parameter specs (`sharding.rules.param_specs`), whether the ranks
-along the model axis computed the same thing or each its slice (the MoE
-layer's sequence slices).
+along the model axis computed the same thing or each its part (a slice of
+the sequence, a slice of the heads, the FFN hidden or the vocabulary).  A
+tensor-parallel parameter is gathered over "data" only (``axes=``) and
+keeps its "model" shard, whose gradient stays where it is.
+
+The Megatron-style sequence parallelism of `models` (the hidden states
+split over the sequence on the model axis between layers) takes three
+more: the sequence all-gather (`gather_dim`, whose adjoint is a
+reduce-scatter), the reduce-scatter of a row-parallel product's partial
+sums back to the sequence slices (`scatter_dim`, whose adjoint is an
+all-gather), and the vocab-parallel loss's sums over the model axis
+(`sum_over`, an all-reduce whose adjoint is itself; `max_over` for the
+detached row max, which takes no gradient).  A loss that the ranks of the
+model axis compute together is the same number on each of them, so that
+each differentiating ``loss / world_size`` counts it once over the mesh.
 
 Every function runs on `torch.distributed` groups: NCCL on the card, gloo
 on the CPU, the fake backend in the dry run (`launch.mesh`).  A group of
@@ -104,12 +117,13 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return x
 
 
-def full(local: torch.Tensor, mesh, placements) -> torch.Tensor:
+def full(local: torch.Tensor, mesh, placements, use=None) -> torch.Tensor:
     """The full tensor of which each rank holds `local` under `placements`
-    (no autograd)."""
+    (no autograd); with `use` (a bool a mesh dimension), gathered only over
+    the dimensions it marks."""
     x = local
     for i in reversed(range(len(placements))):  # the minor mesh dimension first
-        if placements[i].is_shard():
+        if placements[i].is_shard() and (use is None or use[i]):
             x = all_gather(x, placements[i].dim, mesh.get_group(i))
     return x
 
@@ -126,9 +140,9 @@ def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 class _GatherParam(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, mesh, placements):
-        ctx.mesh, ctx.placements = mesh, placements
-        out = full(local, mesh, placements)
+    def forward(ctx, local, mesh, placements, use):
+        ctx.mesh, ctx.placements, ctx.use = mesh, placements, use
+        out = full(local, mesh, placements, use)
         return local.view_as(local) if out is local else out
 
     @staticmethod
@@ -136,10 +150,11 @@ class _GatherParam(torch.autograd.Function):
         g = g.contiguous()
         for i, pl in enumerate(ctx.placements):
             if pl.is_shard():
-                g = reduce_scatter(g, pl.dim, ctx.mesh.get_group(i))
+                if ctx.use[i]:
+                    g = reduce_scatter(g, pl.dim, ctx.mesh.get_group(i))
             else:
                 g = all_reduce(g.clone(), ctx.mesh.get_group(i))
-        return g, None, None
+        return g, None, None, None
 
 
 class _SumReplicas(torch.autograd.Function):
@@ -161,13 +176,17 @@ def _mesh_of_one(p) -> bool:
     return p.device_mesh.size() == 1
 
 
-def gather_param(p) -> torch.Tensor:
+def gather_param(p, axes: tuple | None = None) -> torch.Tensor:
     """The full value of a DTensor parameter, as a plain tensor: gathered
     over the mesh dimensions that split it; in the backward, its gradient
-    reduce-scattered back over them and summed over the others."""
+    reduce-scattered back over them and summed over the others.  With
+    `axes` (mesh axis names), gathered over those only: a shard over any
+    other dimension stays this rank's, and so does its gradient."""
     if _mesh_of_one(p):
         return p.to_local()
-    return _GatherParam.apply(p.to_local(), p.device_mesh, tuple(p.placements))
+    names = p.device_mesh.mesh_dim_names
+    use = tuple(axes is None or n in axes for n in names)
+    return _GatherParam.apply(p.to_local(), p.device_mesh, tuple(p.placements), use)
 
 
 def local_param(p) -> torch.Tensor:
@@ -203,6 +222,28 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return reduce_scatter(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
 
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
@@ -248,6 +289,29 @@ def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _Gather.apply(x, dim, group)
+
+
+def scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along `dim` of the ranks' `x` summed (a row-parallel
+    product's partial sums back to the sequence slices)."""
+    if group_size(group) == 1:
+        return x
+    return _Scatter.apply(x, dim, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' `x` summed, on every rank."""
+    if group_size(group) == 1:
+        return x
+    return _Sum.apply(x, group)
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' `x`, element-wise maximum, on every rank; no gradient."""
+    x = x.detach()
+    if group_size(group) == 1:
+        return x
+    return all_reduce(x.clone(), group, op=dist.ReduceOp.MAX)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -18,14 +18,34 @@ None, as JAX's; `placements` turns it into DTensor placements over a
 
 What the port stores and computes (`models.lm.shard_model`): each parameter
 is a DTensor with the placements of `param_specs`, JAX's memory layout;
-each rank computes its batch shard (`batch_specs`, `shard_batch`) with the
-layer's parameters gathered at use (`sharding.comm`), and the MoE layer
-takes its rank's slice of the sequence on the model axis for the
-all-to-all path (`models.moe`).  `make_hint`'s table is JAX's, and
-`constrain` applies to DTensor activations only: the port's activations
-are plain local tensors, so the layouts JAX's hints ask GSPMD for (the
-sequence-parallel activations, split-K decode over the cache's time axis)
-are not reproduced.  `cache_specs` gives JAX's cache layout.
+each rank computes its batch shard (`batch_specs`, `shard_batch`).  The
+port's activations are plain local tensors, so `constrain` acts on
+DTensors only; the layouts JAX's hints ask GSPMD for are computed by the
+layers themselves, as `model_layout` reads `make_hint`'s table for a call
+over `seq_len` positions:
+
+  "tp"  q and KV heads both divide 16 (JAX's `tp_attn`) and the model
+        axis: the hidden states split over the sequence between layers
+        (``"act"``); attention over the rank's heads and the MLP over its
+        slice of the FFN hidden (``"heads_q"``, ``"heads_kv"``, ``"ffn"``),
+        each on the sequence gathered, its row-parallel output
+        reduce-scattered back to the sequence slices (Megatron-SP);
+  "sp"  the rest: ``"act"`` as above, attention queries, FFN and norms on
+        the rank's slice of the sequence, K and V gathered over it, every
+        weight gathered whole;
+  None  one rank on the model axis, the batch over it (``dp_over_model``),
+        or a sequence the axis does not divide (decode): every rank of the
+        model axis computes its rows whole, with every weight gathered.
+
+Under "tp" and "sp" the embedding, logits and loss are vocab-parallel
+(``"logits"``) when the vocabulary divides the axis (`vocab_parallel`).
+`gather_axes` gives the mesh axes over which a leaf is gathered at use:
+a tensor-parallel leaf keeps its "model" shard.  The MoE layer takes JAX's
+all-to-all path on the sequence slices; the recurrent mixers gather the
+sequence at entry and compute it whole on every rank of the model axis
+(JAX's ``"ssm_heads"`` split is not reproduced), and decode keeps every
+rank's rows whole (split-K decode over the cache's time axis is not
+reproduced).  `cache_specs` gives JAX's cache layout.
 
 The CV serving path shards one thing: the image-batch axis of a bucket
 batch, and of everything the pipeline derives from it (descriptors,
@@ -247,18 +267,104 @@ class Hint:
     table's spec for `name` (`constrain`), and carries the `mesh` and `cfg`
     that the layers read (the MoE all-to-all plan).  `batch` is the global
     batch size of the call running under it, which a layer, seeing only
-    its rank's part, cannot know (`models.lm` sets it)."""
+    its rank's part, cannot know, and `layout` the call's `model_layout`
+    (`models.lm` sets both; `at` gives the layout of another length)."""
 
     mesh: object
     cfg: object
     table: dict
     batch: int | None = None
+    layout: str | None = None
 
     def __call__(self, x, name: str = "act"):
         spec = self.table.get(name)
         if spec is None or x.ndim < len(spec):
             return x
         return constrain(x, spec, self.mesh)
+
+    def at(self, seq_len: int) -> "Hint":
+        """This hint for a call over `seq_len` positions."""
+        return dataclasses.replace(self, layout=model_layout(self.cfg, self.mesh, seq_len))
+
+    @property
+    def model_size(self) -> int:
+        return mesh_axis_sizes(self.mesh).get("model", 1)
+
+    @property
+    def seq_group(self):
+        """The process group of this rank's model axis (`sharding.comm`)."""
+        from . import comm
+
+        return comm.axes_group(self.mesh, ("model",))
+
+    @property
+    def model_rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank(self.seq_group)
+
+    @property
+    def vocab_parallel(self) -> bool:
+        return self.layout is not None and vocab_parallel(self.cfg, self.mesh)
+
+
+def tp_dims(cfg) -> tuple:
+    """The dimensions that the tensor-parallel layout splits over the model
+    axis: the q and KV heads, the FFN hidden of the dense MLP and of the MoE
+    layer's shared experts."""
+    dims = [cfg.n_heads, cfg.n_kv_heads]
+    if cfg.d_ff:
+        dims.append(cfg.d_ff)
+    if cfg.moe is not None and cfg.moe.n_shared:
+        dims.append(cfg.moe.d_ff_shared * cfg.moe.n_shared)
+    return tuple(dims)
+
+
+def model_layout(cfg, mesh, seq_len: int) -> str | None:
+    """How the model axis splits a call over `seq_len` positions: "tp",
+    "sp" or None (module docstring).  "tp" is JAX's `tp_attn` (q and KV
+    heads both divide 16, `make_hint`'s ``"heads_q"`` over heads) where the
+    axis divides every dimension it splits (`tp_dims`: else `_maybe` would
+    have left a weight whole)."""
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    if m == 1 or "model" in dp_axes(mesh, cfg) or seq_len % m:
+        return None
+    tp = cfg.heads_shardable and cfg.kv_heads_shardable
+    return "tp" if tp and all(d % m == 0 for d in tp_dims(cfg)) else "sp"
+
+
+def vocab_parallel(cfg, mesh) -> bool:
+    """Are the embedding and the head split over the vocabulary on the
+    model axis (``embed``'s spec: when the axis divides it)?"""
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    return m > 1 and cfg.vocab_size % m == 0
+
+
+# the leaves a tensor-parallel layer reads where they lie on the model axis
+# (the dense ones: the MoE expert stacks have three dimensions)
+TP_LEAVES = frozenset({"w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v", "w_gate", "w_up",
+                       "w_down", "b_up", "w_uq", "w_uk", "w_uv"})
+VOCAB_LEAVES = frozenset({"embed", "lm_head"})
+# sub-modules computed whole on every rank of the model axis
+WHOLE_MODULES = frozenset({"mixer", "cell"})
+
+
+def local_leaves(hint) -> frozenset:
+    """The leaf names a layer reads with their model shard kept, under
+    `hint`'s layout."""
+    if hint is None or getattr(hint, "layout", None) is None:
+        return frozenset()
+    names = TP_LEAVES if hint.layout == "tp" else frozenset()
+    return names | VOCAB_LEAVES if hint.vocab_parallel else names
+
+
+def gather_axes(mesh, name: str, ndim: int, keep: frozenset) -> tuple | None:
+    """The mesh axes over which the leaf `name` (of `ndim` dimensions) is
+    gathered at use: every axis but "model" for a leaf in `keep`
+    (`local_leaves`), else all (None)."""
+    if name in keep and ndim <= 2:
+        return tuple(a for a in mesh.mesh_dim_names if a != "model")
+    return None
 
 
 def make_hint(mesh, cfg) -> Hint:

@@ -13,7 +13,12 @@ On a mesh (``mesh=``, a `launch.mesh` mesh): the model's parameters are
 DTensors (`lm.shard_model`), each rank computes the loss of its rows of
 the global batch and differentiates ``loss / world_size``, so that every
 parameter's gradient arrives summed over the ranks and in its shards
-(`sharding.comm`).  AdamW's state lies in the parameters' shards, as JAX's
+(`sharding.comm`).  The ranks of the model axis split their rows' work
+(`sharding.rules.model_layout`) and compute the loss together over the
+vocab-parallel logits (`layers.softmax_cross_entropy_vp`), or, with the
+vocabulary whole, as the mean of their sequence slices' losses: each of
+them holds the same loss, so that the sum over the mesh of ``loss /
+world_size`` counts it once.  AdamW's state lies in the parameters' shards, as JAX's
 (its specs are the parameters'), and its update is the same elementwise
 arithmetic on each shard; Adafactor's factored state is replicated, as
 JAX's (no rule names ``vr`` / ``vc``), and a leaf's update runs on the
@@ -36,7 +41,7 @@ import torch.distributed as dist
 
 from ..core.device import resolve_device
 from ..models import lm
-from ..models.layers import softmax_cross_entropy
+from ..models.layers import softmax_cross_entropy, softmax_cross_entropy_vp
 from ..optim import adafactor_init, adafactor_update, adamw_init, adamw_update, cosine_schedule
 from ..optim.adamw import adafactor_leaf_update
 from ..sharding import comm
@@ -103,7 +108,17 @@ def loss_fn(model: lm.LM, batch: dict, *, mode: str | None = None, hint=None):
     tokens = batch.pop("tokens").to(model.device)
     labels = batch.pop("labels")
     logits, metrics = lm.forward_local(model, tokens, extras=batch or None, mode=mode, hint=hint)
-    loss, lmm = softmax_cross_entropy(logits, labels.to(model.device), z_loss=cfg.z_loss)
+    labels = labels.to(model.device)
+    split = lm.logits_layout(hint)
+    if split == 2:
+        loss, lmm = softmax_cross_entropy_vp(logits, labels, hint.seq_group, z_loss=cfg.z_loss)
+    elif split == 1:  # the slice's mean; the slices' mean is the rows' (equal slices)
+        labels = comm.slice_dim(labels, 1, hint.seq_group)
+        loss, lmm = softmax_cross_entropy(logits, labels, z_loss=cfg.z_loss)
+        loss = comm.mean_over(loss, hint.seq_group)
+        lmm = {k: comm.mean_over(v, hint.seq_group) for k, v in lmm.items()}
+    else:
+        loss, lmm = softmax_cross_entropy(logits, labels, z_loss=cfg.z_loss)
     del logits
     metrics = dict(metrics)
     metrics.update(lmm)

@@ -1,14 +1,17 @@
 """The port's roofline (`repro_torch.roofline`) against JAX's
 (`repro.roofline`): the cost counter against `hlo_cost.analyze` on
 `tests/test_hlo_cost.py`'s two functions and on a reduced gemma-7b train
-step; traces over an 8-rank fake (4, 2) mesh against one-rank traces of a
-rank's rows and against the collectives the test derives from
-`sharding.rules.param_specs` and the MoE all-to-all plan; `analyze_cell`
+step; traces over an 8-rank fake (4, 2) mesh, at both ranks of its first
+"model" column, against one-rank traces of a rank's rows and against the
+collectives the test derives from `sharding.rules.param_specs`, the
+sequence-parallel layout (`sharding.rules.model_layout`) and the MoE
+all-to-all plan; `analyze_cell`
 against JAX's on synthetic records; the ring model; and the
 `flash_attention` meta route.
 
-The fake process group is process-wide, so the mesh traces run once, in a
-subprocess, and hand their numbers back as JSON.
+The fake process group is process-wide, so the mesh traces run once a
+traced rank, in subprocesses side by side, and hand their numbers back as
+JSON.
 """
 
 import dataclasses
@@ -116,7 +119,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.launch import dryrun, mesh as M
 from repro_torch.models.config import ShapeConfig
 
-M.init_fake_process_group(8)
+M.init_fake_process_group(8, int(sys.argv[2]))
 mesh = M.make_mesh((4, 2), ("data", "model"), device="cpu", backend="fake")
 out = {}
 for arch, _ in json.loads(sys.argv[1]):
@@ -132,47 +135,49 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def mesh_traces():
-    proc = subprocess.run([sys.executable, "-W", "ignore", "-c", MESH_JOB, json.dumps(CASES)],
-                          capture_output=True, text=True, timeout=600,
-                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
-def _moe_gemm_correction(cfg, kind: str) -> float:
-    """GEMM flops the all-to-all path saves a rank against the one-rank
-    trace of its rows, per step: the MoE layers' expert products over the
-    plan's (E, C) slots instead of the rows' (B, E, C1) groups, and the
-    router over the rank's sequence slice (L tokens) instead of all its
-    rows' tokens.  A train step does each product 3 times (forward, and
-    the two of the backward; the reduced configs have no remat)."""
-    m = cfg.moe
-    n_moe = sum(1 for k in cfg.block_list if k in ("moe", "mla_moe"))
-    ms = rules.MeshShape(*MESH)
-    plan = moe._a2a_plan(ms, cfg, (GB, SEQ, cfg.d_model), None)
-    rows = GB // 4
-    D, Fx, E = cfg.d_model, m.d_ff_expert, m.n_experts
-    experts = 3 * 2 * D * Fx * (rows * E * moe.capacity(cfg, SEQ) - E * plan["C"])
-    router = 2 * D * E * (rows * SEQ - plan["L"])
-    return (3 if kind == "train" else 1) * n_moe * (experts + router)
+    """Rank 0's traces, and under ``"model 1"`` those of rank 1 (data 0,
+    model 1)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen([sys.executable, "-W", "ignore", "-c", MESH_JOB, json.dumps(CASES),
+                               str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for rank in (0, 1)]
+    outs = []
+    for proc in procs:
+        out, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return {**outs[0], "model 1": outs[1]}
 
 
 @pytest.mark.parametrize("arch,opt", CASES)
 @pytest.mark.parametrize("kind", KINDS)
 def test_rank_flops_equal_the_rows_trace(arch, opt, kind, mesh_traces):
-    """A rank computes its 2 rows with every dense layer whole (the fifth
-    departure), so its flops are a one-rank trace of those rows within 1%
-    (AdamW updates the rank's shards only).  deepseek's MoE layers take the
-    all-to-all path in train and prefill, which splits the rows' sequence
-    over "model": its GEMMs are exactly the rows' less what the plan
-    saves (`_moe_gemm_correction`), its total within 1% of the same."""
-    t = mesh_traces[f"{arch}:{kind}"]
+    """Decode: a rank computes its 2 rows whole, so its flops are a one-rank
+    trace of those rows within 1%.  Train and prefill: both reduced configs
+    (4 heads) take the sequence-parallel layout, so the two ranks of the
+    "model" axis split their rows' work: the attention kernel's pairs
+    exactly by the query offset (rank 1, the later slice, the busier), and
+    each rank's flops about half the rows' (0.45-0.6).  gemma-7b's prefill
+    products split exactly, its train step's within 3% (the plain
+    backward reads the keys up to each slice's last query, so the halves
+    skip more of the masked corner than the whole); deepseek's differ by
+    what the all-to-all plan saves and by the MLA latents each rank expands
+    to K and V over the whole sequence."""
+    t, t1 = mesh_traces[f"{arch}:{kind}"], mesh_traces["model 1"][f"{arch}:{kind}"]
     cfg = reduced_config(arch)
-    fix = _moe_gemm_correction(cfg, kind) if cfg.moe is not None and kind != "decode" else 0.0
-    if fix:
-        assert t["mesh"]["matmul_flops"] == t["rows"]["matmul_flops"] - fix
-    assert t["mesh"]["flops"] == pytest.approx(t["rows"]["flops"] - fix, rel=0.01)
-    assert t["mesh"]["by_kernel"] == t["rows"]["by_kernel"]
+    rows, r0, r1 = t["rows"], t["mesh"], t1["mesh"]
+    if kind == "decode":
+        assert r0["flops"] == pytest.approx(rows["flops"], rel=0.01)
+        assert r0["matmul_flops"] == rows["matmul_flops"] and r0["by_kernel"] == rows["by_kernel"]
+        return
+    k, k0, k1 = (x["by_kernel"]["flash_attention"] for x in (rows, r0, r1))
+    assert k0["launches"] == k1["launches"] == k["launches"]
+    assert k0["flops"] + k1["flops"] == k["flops"] and k1["flops"] > k0["flops"]
+    for r in (r0, r1):
+        assert 0.45 < r["flops"] / rows["flops"] < 0.6
+    if cfg.moe is None:
+        split = (r0["matmul_flops"] + r1["matmul_flops"]) / rows["matmul_flops"]
+        assert split == 1.0 if kind == "prefill" else 0.97 < split <= 1.0
 
 
 def _placements(spec):
@@ -182,59 +187,98 @@ def _placements(spec):
 def _expected_collectives(arch: str, kind: str) -> list:
     """(kind, result bytes, group size) of every collective rank 0 issues,
     derived from the parameter specs (each parameter gathered where a layer
-    reads it, minor mesh dimension first; its gradient reduce-scattered
-    over the dimensions that split it and all-reduced over the others,
-    major first), the metrics' all-reduces, and the MoE plan."""
+    reads it, minor mesh dimension first, a leaf the layout keeps local
+    (`rules.local_leaves`: here the vocab-parallel embedding) over "data"
+    only; its gradient reduce-scattered over the dimensions gathered and
+    all-reduced over the replicated ones, major first), the
+    sequence-parallel layout's activations in train and prefill (the
+    embedding's reduce-scatter, each layer's K / V or MLA latents gathered
+    over the sequence, the head's gather, the vocab-parallel loss's three
+    all-reduces or the prefill's last position and its logits gathered;
+    in train each with its adjoint), the metrics' all-reduces, and the MoE
+    plan (on the sequence slices already: nothing sliced or gathered)."""
     cfg = reduced_config(arch)
     sizes = dict(zip(MESH[1], MESH[0]))
+    ms = rules.MeshShape(*MESH)
     model = lm.LM(cfg, device="meta", generator=torch.Generator())
     lm.make_trainable(model)
     leaves = lm.param_leaves(model)
-    specs = rules.param_specs(leaves, cfg, rules.MeshShape(*MESH))
+    specs = rules.param_specs(leaves, cfg, ms)
     train = kind == "train"
+    layout = rules.model_layout(cfg, ms, SEQ if kind != "decode" else 1)
+    keep = rules.local_leaves(rules.Hint(ms, cfg, {}, layout=layout))
     out = []
 
-    def gather(p, spec, grad=True, uses=1):
+    def gather(p, spec, name, grad=True, uses=1, keep=frozenset()):
         pls = _placements(spec)
+        axes = rules.gather_axes(ms, name, p.ndim, keep)
+        use = [axes is None or ax in axes for ax in MESH[1]]
         full = p.numel() * p.element_size()
         local = full // math.prod(sizes[a] for a, pl in zip(MESH[1], pls) if pl.is_shard())
         for _ in range(uses):
             x = local
-            for ax, pl in reversed(list(zip(MESH[1], pls))):
-                if pl.is_shard():
+            for ax, pl, u in reversed(list(zip(MESH[1], pls, use))):
+                if pl.is_shard() and u:
                     x *= sizes[ax]
                     out.append(("all-gather", x, sizes[ax]))
             if train and grad and p.requires_grad:
-                g = full
-                for ax, pl in zip(MESH[1], pls):
+                g = x
+                for ax, pl, u in zip(MESH[1], pls, use):
                     if pl.is_shard():
-                        g //= sizes[ax]
-                        out.append(("reduce-scatter", g, sizes[ax]))
+                        if u:
+                            g //= sizes[ax]
+                            out.append(("reduce-scatter", g, sizes[ax]))
                     else:
                         out.append(("all-reduce", g, sizes[ax]))
 
     a2a = cfg.moe is not None and kind != "decode"
-    plan = moe._a2a_plan(rules.MeshShape(*MESH), cfg, (GB, SEQ, cfg.d_model), None) if a2a else None
+    plan = moe._a2a_plan(ms, cfg, (GB, SEQ, cfg.d_model), None) if a2a else None
     for lf in leaves:
         spec = specs[lf.name]
         if lf.stacked:
             spec = rules.P(*spec[1:])
+        name = lf.name.rsplit(".", 1)[-1]
         for p in lf.params:
-            expert = lf.name.rsplit(".", 1)[-1] in ("w_gate", "w_up", "w_down") and ".moe.w" in lf.name
+            expert = name in ("w_gate", "w_up", "w_down") and ".moe.w" in lf.name
             if expert and a2a:
                 continue  # read where they lie (`p.local`): sharded on every mesh dim
             uses = 2 if lf.name == "embed" and cfg.tie_embeddings else 1
-            gather(p, spec, uses=uses)
+            gather(p, spec, name, uses=uses, keep=keep)
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    rows, D, m = GB // 4, cfg.d_model, sizes["model"]
+    seq = SEQ // m
+
+    def seq_gather(per_token):  # a gather over the sequence and its adjoint
+        out.append(("all-gather", rows * SEQ * per_token, m))
+        if train:
+            out.append(("reduce-scatter", rows * seq * per_token, m))
+
+    if layout is not None:
+        assert layout == "sp" and rules.vocab_parallel(cfg, ms)
+        out.append(("reduce-scatter", rows * seq * D * item, m))  # the embedding
+        if train:
+            out.append(("all-gather", rows * SEQ * D * item, m))
+        for kind_ in cfg.block_list:
+            if kind_ in ("mla", "mla_moe"):
+                seq_gather(cfg.mla.kv_lora_rank * item)
+                seq_gather(cfg.mla.qk_rope_dim * item)
+            else:
+                seq_gather(cfg.n_kv_heads * cfg.head_dim * item)
+                seq_gather(cfg.n_kv_heads * cfg.head_dim * item)
+        if train:
+            seq_gather(D * item)  # the head
+            out += [("all-reduce", rows * SEQ * 4, m)] * 3  # max, sum of exp, the label's logit
+            out += [("all-reduce", rows * SEQ * 4, m)] * 2  # the two sums' adjoints
+        else:
+            out += [("all-gather", rows * m * D * item, m),
+                    ("all-gather", rows * cfg.vocab_size * item, m)]
     if a2a:
-        E, D, C = cfg.moe.n_experts, cfg.d_model, plan["C"]
+        E, C = cfg.moe.n_experts, plan["C"]
         n_moe = sum(1 for k in cfg.block_list if k in ("moe", "mla_moe"))
-        item = torch.empty((), dtype=cfg.param_dtype).element_size()
-        rows_bytes = (GB // 4) * SEQ * D * item
         per_layer = [("all-to-all", E * C * D * item, 8)] * 2 + [
-            ("all-reduce", 3 * 4, 8), ("all-reduce", E * 4, 8), ("all-gather", rows_bytes, 2)]
+            ("all-reduce", 3 * 4, 8), ("all-reduce", E * 4, 8)]
         if train:  # the adjoints; the expert load takes no gradient
-            per_layer += [("reduce-scatter", rows_bytes // 2, 2), ("all-reduce", 3 * 4, 8)]
-            per_layer += [("all-to-all", E * C * D * item, 8)] * 2
+            per_layer += [("all-reduce", 3 * 4, 8)] + [("all-to-all", E * C * D * item, 8)] * 2
         out += per_layer * n_moe
     if train:
         # loss, nll, z_loss; the MoE's aux, z and drop share, and its load
@@ -247,7 +291,7 @@ def _expected_collectives(arch: str, kind: str) -> list:
                 spec = rules.P(*specs[lf.name][1:]) if lf.stacked else specs[lf.name]
                 for p in lf.params:
                     if p.requires_grad:
-                        gather(p, spec, grad=False, uses=2)
+                        gather(p, spec, lf.name.rsplit(".", 1)[-1], grad=False, uses=2)
     return out
 
 

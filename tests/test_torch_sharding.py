@@ -29,7 +29,17 @@ Tolerances, with their reasons (f32 throughout):
     sharded steps on the same mesh, which take the aux loss per shard as
     the port does; the single-process steps take it over the whole batch,
     so against them the first loss differs by the aux loss's share only;
-  * the elastic restore and the resharded training state: equal.
+  * the elastic restore and the resharded training state: equal;
+  * the model axis's layouts (`LAYOUT_CASES`: reduced gemma-7b and
+    seamless-m4t-large-v2 at 16 q and 16 KV heads, tensor-parallel;
+    reduced qwen2-72b with random biases, sequence-parallel; reduced
+    deepseek-v3-671b above, sequence-parallel MLA with the all-to-all MoE
+    on the sequence slices): the sharded forward's logits within 1e-4 and
+    its gradients within 1e-3, two AdamW steps' losses within 1e-5 and
+    parameters within 1e-4, of the single-process port and of JAX's
+    sharded run on the same mesh (deepseek: its logits and gradients
+    against JAX's sharded ones as well); the "tp" case's sharded
+    `generate` equal to the single-process one.
 """
 
 import os
@@ -44,6 +54,7 @@ import torch
 import jax
 import jax.numpy as jnp
 from conftest import run_subprocess
+from torch_sharding_job import LAYOUT_CASES, layout_config
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import lm as jlm
 from repro.train import step as jstep
@@ -61,6 +72,7 @@ B, S = 4, 32
 LOGITS_TOL, GRAD_TOL = 1e-4, 1e-3
 LOSS_TOL, PARAM_TOL = 1e-5, 1e-4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 32, 8, 1e-3  # the job's
+LAYOUT_B, LAYOUT_S, LAYOUT_T = 8, 32, 16  # the layout cases' batch, sequence, context
 
 JAX_SIDE = """
 import numpy as np, jax, jax.numpy as jnp
@@ -101,6 +113,118 @@ np.savez(%(out)r, **out)
 print("JAX_SIDE_OK")
 """
 
+# JAX's sharded forward and gradients of deepseek and the layout cases, and the
+# layout cases' two steps: a second subprocess, beside `JAX_SIDE`
+JAX_LAYOUT = """
+import numpy as np, jax, jax.numpy as jnp
+from repro.launch.mesh import make_mesh
+from repro.configs import reduced_config
+from repro.models import lm
+from repro.optim import adamw_init
+from repro.sharding import rules
+from repro.train import step as step_mod
+out = {}
+mesh = make_mesh((4, 2), ("data", "model"))
+def leaves(tree):
+    return [np.asarray(x) for x in jax.tree.leaves(tree)]
+def sharded(cfg, params, batch, tag):
+    hint = rules.make_hint(mesh, cfg)
+    def both(p, b):
+        return (lm.forward(p, cfg, b, hint=hint)[0],
+                jax.grad(lambda q: step_mod.loss_fn(q, cfg, b, hint=hint)[0])(p))
+    with mesh:
+        logits, grads = jax.jit(both)(params, batch)
+    out[tag + ":logits"] = np.asarray(logits)
+    for i, g in enumerate(leaves(grads)):
+        out[f"{tag}:grad{i}"] = g
+ds = np.load(%(deepseek)r)
+cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
+sharded(cfg, jax.jit(lambda k: lm.init_params(k, cfg))(jax.random.key(0)),
+        {k: jnp.asarray(ds[k]) for k in ("tokens", "labels")}, "deepseek")
+for tag, (arch, kw, _) in %(cases)r.items():
+    cfg = reduced_config(arch).replace(dtype="float32", **kw)
+    z = np.load(%(layout)r %% tag.replace(" ", "_"))
+    shapes = jax.eval_shape(lambda k: lm.init_params(k, cfg), jax.random.key(0))
+    n = len(jax.tree.leaves(shapes))
+    params = jax.tree.unflatten(jax.tree.structure(shapes),
+                                [jnp.asarray(z[f"param{i}"]) for i in range(n)])
+    def batch_of(pre):
+        return {k[len(pre):]: jnp.asarray(z[k]) for k in z.files if k.startswith(pre)}
+    sharded(cfg, params, batch_of("b."), tag)
+    state = {"params": params, "opt": adamw_init(params), "step": jnp.zeros((), jnp.int32)}
+    fn = jax.jit(step_mod.make_train_step(cfg, mesh, peak_lr=%(lr)r, warmup=1))
+    with mesh:
+        for i in range(2):
+            state, m = fn(state, batch_of(f"s{i}."))
+            out[f"{tag}:loss{i}"] = np.asarray(m["loss"])
+    for i, v in enumerate(leaves(state["params"])):
+        out[f"{tag}:param{i}"] = v
+np.savez(%(out)r, **out)
+print("JAX_LAYOUT_OK")
+"""
+
+
+def _layout_inputs(tag: str, d: str, seed: int):
+    """A layout case's JAX parameters (JAX's init, reduced qwen2-72b's q, k
+    and v biases drawn at random, as JAX inits them to zero), its forward
+    batch and two train batches: the port's model, the batches as tensors,
+    and the same in an npz for JAX's side."""
+    cfg_j = layout_config(jax_reduced_config, tag)
+    cfg = layout_config(reduced_config, tag)
+    params = jax.jit(lambda k: jlm.init_params(k, cfg_j))(jax.random.key(seed))
+    rng = np.random.default_rng(seed)
+    if cfg.qkv_bias:
+        params = jax.tree_util.tree_map_with_path(
+            lambda kp, x: jnp.asarray(0.1 * rng.standard_normal(x.shape), x.dtype)
+            if str(getattr(kp[-1], "key", "")) in ("b_q", "b_k", "b_v") else x, params)
+
+    def batch():
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (LAYOUT_B, LAYOUT_S)),
+             "labels": rng.integers(0, cfg.vocab_size, (LAYOUT_B, LAYOUT_S))}
+        if cfg.encdec:
+            b["audio_frames"] = rng.standard_normal(
+                (LAYOUT_B, LAYOUT_T, cfg.d_model)).astype(np.float32)
+        return b
+
+    batches = [batch() for _ in range(3)]
+    z = {f"param{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(params))}
+    for pre, b in zip(("b.", "s0.", "s1."), batches):
+        z |= {pre + k: v for k, v in b.items()}
+    np.savez(os.path.join(d, f"layout_{tag.replace(' ', '_')}.npz"), **z)
+    model = from_jax_lm_params(params, cfg, device="cpu")
+    tb = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
+    return params, model, {"state": model.state_dict(), "batch": tb[0], "steps": tb[1:]}
+
+
+def _single_layout(tag: str, case: dict) -> dict:
+    """A layout case in one process: logits, gradients, two AdamW steps and
+    (gemma's "tp" case) `generate`."""
+    cfg = layout_config(reduced_config, tag)
+    batch = case["batch"]
+    extras = {k: v for k, v in batch.items() if k not in ("tokens", "labels")} or None
+    model = tlm.LM(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    tlm.make_trainable(model)
+    logits, _ = tlm.forward(model, batch["tokens"], extras=extras)
+    loss, _ = tstep.loss_fn(model, batch)
+    loss.backward()
+    out = {"logits": logits.detach(),
+           "grads": {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}}
+    if tag == "gemma tp":
+        with torch.no_grad():
+            out["generate"] = generate(model, batch["tokens"][:, :12], steps=6, device="cpu")
+    model = tlm.LM(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    state = tstep.init_state(cfg, device="cpu", model=model)
+    fn = tstep.make_train_step(cfg, peak_lr=TRAIN_LR, warmup=1)
+    metrics = []
+    for b in case["steps"]:
+        state, m = fn(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["steps"] = {"metrics": metrics, "params": {
+        n: p.detach().clone() for n, p in state["model"].named_parameters()}}
+    return out
+
 
 def _jax_deepseek():
     cfg_j = jax_reduced_config("deepseek-v3-671b").replace(dtype="float32")
@@ -139,16 +263,24 @@ def run(tmp_path_factory):
     g = rng.standard_normal((8, 64)).astype(np.float32)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 12)))
     np.save(os.path.join(d, "g.npy"), g)
+    np.savez(os.path.join(d, "deepseek_batch.npz"), tokens=tokens.numpy(), labels=labels.numpy())
+    layout = {tag: _layout_inputs(tag, d, seed) for seed, tag in enumerate(LAYOUT_CASES, 1)}
     torch.save({"deepseek": model.state_dict(), "tokens": tokens, "labels": labels,
-                "g": torch.from_numpy(g), "prompts": prompts}, os.path.join(d, "inputs.pt"))
+                "g": torch.from_numpy(g), "prompts": prompts,
+                "layout": {tag: case for tag, (_, _, case) in layout.items()}},
+               os.path.join(d, "inputs.pt"))
     job = subprocess.Popen([sys.executable, os.path.join(HERE, "torch_sharding_job.py"), d],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    jax_out = os.path.join(d, "jax.npz")
-    pool = ThreadPoolExecutor(1)
+    jax_out, jax_layout_out = os.path.join(d, "jax.npz"), os.path.join(d, "jax_layout.npz")
+    pool = ThreadPoolExecutor(2)
     try:
         jax_side = pool.submit(run_subprocess, JAX_SIDE % dict(
             g=os.path.join(d, "g.npy"), out=jax_out, lr=TRAIN_LR, seq=TRAIN_SEQ,
             batch=TRAIN_BATCH), timeout=JOB_TIMEOUT_S)
+        jax_layout = pool.submit(run_subprocess, JAX_LAYOUT % dict(
+            out=jax_layout_out, lr=TRAIN_LR, deepseek=os.path.join(d, "deepseek_batch.npz"),
+            cases=LAYOUT_CASES, layout=os.path.join(d, "layout_%s.npz")),
+            timeout=JOB_TIMEOUT_S)
         ref = {}
         # the single-process port and JAX, unsharded
         logits, _ = tlm.forward(model, tokens)
@@ -176,8 +308,12 @@ def run(tmp_path_factory):
                           device="cpu")
         ref["loop"] = [x["loss"] for x in h]
         ref["generate"] = generate(_port_from_jax(params_j)[0], prompts, steps=6, device="cpu")
+        for tag, (params, _, case) in layout.items():
+            ref[tag] = _single_layout(tag, case)
+            ref[tag]["jax params"] = params
         assert "JAX_SIDE_OK" in jax_side.result()
-        ref["jax sharded"] = dict(np.load(jax_out))
+        assert "JAX_LAYOUT_OK" in jax_layout.result()
+        ref["jax sharded"] = {**np.load(jax_out), **np.load(jax_layout_out)}
         log, _ = job.communicate(timeout=JOB_TIMEOUT_S)
     finally:
         job.kill()
@@ -307,3 +443,69 @@ def test_constrain_and_generate(run):
     assert all("Replicate" in p or p == "R" for p in odd)
     assert all("Shard" in p or p.startswith("S(") for p in even)
     assert torch.equal(out["generate"], ref["generate"])
+
+
+def _jax_tree(ref_tag: dict, jax_side: dict, key: str, tag: str):
+    """JAX's leaves ``<tag>:<key><i>`` in the tree of the case's parameters,
+    as the port's named tensors."""
+    params = ref_tag["jax params"]
+    n = len(jax.tree.leaves(params))
+    tree = jax.tree.unflatten(jax.tree.structure(params),
+                              [jnp.asarray(jax_side[f"{tag}:{key}{i}"]) for i in range(n)])
+    cfg = layout_config(reduced_config, tag)
+    return {k: v.detach() for k, v in
+            from_jax_lm_params(tree, cfg, device="cpu").named_parameters()}
+
+
+@pytest.mark.parametrize("tag", list(LAYOUT_CASES))
+def test_layout_case_takes_its_layout(run, tag):
+    out, _, _ = run
+    assert out[tag]["layout"] == LAYOUT_CASES[tag][2]
+
+
+@pytest.mark.parametrize("tag", list(LAYOUT_CASES))
+def test_layout_forward_and_gradients(run, tag):
+    out, ref, _ = run
+    got, single, jax_side = out[tag], ref[tag], ref["jax sharded"]
+    for want in (single["logits"], torch.from_numpy(jax_side[f"{tag}:logits"])):
+        assert float((got["logits"] - want).abs().max()) < LOGITS_TOL
+    jax_g = _jax_tree(single, jax_side, "grad", tag)
+    assert set(got["grads"]) == set(single["grads"])
+    for name, g in got["grads"].items():
+        assert float((g - single["grads"][name]).abs().max()) < GRAD_TOL, name
+        assert float((g - jax_g[name]).abs().max()) < GRAD_TOL, name
+
+
+@pytest.mark.parametrize("tag", list(LAYOUT_CASES))
+def test_layout_two_train_steps(run, tag):
+    out, ref, _ = run
+    got, single, jax_side = out[tag]["steps"], ref[tag]["steps"], ref["jax sharded"]
+    for i, (a, b) in enumerate(zip(got["metrics"], single["metrics"])):
+        assert abs(a["loss"] - b["loss"]) < LOSS_TOL, (a, b)
+        assert abs(a["loss"] - float(jax_side[f"{tag}:loss{i}"])) < LOSS_TOL
+    jax_p = _jax_tree(ref[tag], jax_side, "param", tag)
+    for name, p in single["params"].items():
+        assert float((got["params"][name] - p).abs().max()) < PARAM_TOL, name
+        assert float((got["params"][name] - jax_p[name]).abs().max()) < PARAM_TOL, name
+
+
+def test_layout_tp_generate_gathers_the_heads_for_decode(run):
+    out, ref, _ = run
+    assert torch.equal(out["gemma tp"]["generate"], ref["gemma tp"]["generate"])
+
+
+def test_deepseek_sharded_forward_and_gradients_against_jax_sharded(run):
+    """Reduced deepseek-v3-671b's sequence-parallel MLA and its all-to-all
+    MoE on the sequence slices against JAX's sharded run, which takes the
+    aux loss per shard too."""
+    out, ref, _ = run
+    jax_side = ref["jax sharded"]
+    assert float((out["logits"] - torch.from_numpy(jax_side["deepseek:logits"])).abs().max()) \
+        < LOGITS_TOL
+    params_j, _ = _jax_deepseek()
+    n = len(jax.tree.leaves(params_j))
+    tree = jax.tree.unflatten(jax.tree.structure(params_j),
+                              [jnp.asarray(jax_side[f"deepseek:grad{i}"]) for i in range(n)])
+    jax_g = dict(_port_from_jax(tree)[0].named_parameters())
+    for name, g in out["grads"].items():
+        assert float((g - jax_g[name].detach()).abs().max()) < GRAD_TOL, name

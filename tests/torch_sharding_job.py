@@ -5,13 +5,16 @@ the CPU, a (4, 2) ("data", "model") mesh, every check in one spawn.
 
 reads ``OUT_DIR/inputs.pt`` (the reduced deepseek-v3-671b model in f32
 carried across from JAX, its batch; the seeded gradients of the
-compressed all-reduce) and writes rank 0's results to ``OUT_DIR/out.pt``:
-the sharded forward's logits, loss and gradients (whole), the compressed
-all-reduces, two sharded train steps of reduced gemma-7b (AdamW,
-Adafactor, the accumulation step) and reduced deepseek-v3-671b (AdamW),
-the elastic restore from (4, 2) onto (2, 4) (a tensor, a training state,
-the training loop's restart), a DTensor under `constrain` and a sharded
-`generate`.  Every rank waits at most `TIMEOUT_S` in a
+compressed all-reduce; the models and batches of `LAYOUT_CASES`) and
+writes rank 0's results to ``OUT_DIR/out.pt``: the sharded forward's
+logits, loss and gradients (whole), the compressed all-reduces, two
+sharded train steps of reduced gemma-7b (AdamW, Adafactor, the
+accumulation step) and reduced deepseek-v3-671b (AdamW), the elastic
+restore from (4, 2) onto (2, 4) (a tensor, a training state, the training
+loop's restart), a DTensor under `constrain`, a sharded `generate`, and
+for each of `LAYOUT_CASES` the layout the model axis takes, the sharded
+forward's logits and gradients and two train steps (gemma's "tp" case
+also a sharded `generate`).  Every rank waits at most `TIMEOUT_S` in a
 collective, so a hung rendezvous fails instead of stalling.
 """
 
@@ -28,6 +31,26 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 WORLD, SHAPE, AXES = 8, (4, 2), ("data", "model")
 TIMEOUT_S = 120
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 32, 8, 1e-3
+
+# The model axis's layouts (`sharding.rules.model_layout`) on the (4, 2)
+# mesh: tag -> (arch, the reduced config's changes, the layout).  16 q and
+# 16 KV heads pass JAX's 16-way test (tensor-parallel heads and FFN);
+# reduced qwen2-72b's 8 over 2 do not (sequence-parallel, with its biases),
+# and its vocabulary of 511 does not divide the model axis (the embedding
+# and the head whole, the logits and the loss on the sequence slices).
+LAYOUT_CASES = {
+    "gemma tp": ("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8}, "tp"),
+    "qwen2 sp": ("qwen2-72b", {"vocab_size": 511}, "sp"),
+    "seamless tp": ("seamless-m4t-large-v2", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8},
+                    "tp"),
+}
+
+
+def layout_config(reduced_config, tag: str):
+    """The f32 reduced config of a `LAYOUT_CASES` case, in the package of
+    `reduced_config`."""
+    arch, kw, _ = LAYOUT_CASES[tag]
+    return reduced_config(arch).replace(dtype="float32", **kw)
 
 
 def _full(t):
@@ -52,6 +75,48 @@ def _train(cfg, mesh, *, optimizer="adamw", model=None, accum=None):
         metrics.append({k: float(v) for k, v in m.items()})
     params = {n: _full(p) for n, p in state["model"].named_parameters()}
     return state, {"metrics": metrics, "params": params}
+
+
+def _extras(batch: dict) -> dict | None:
+    return {k: v for k, v in batch.items() if k not in ("tokens", "labels")} or None
+
+
+def _layout_case(tag: str, case: dict, mesh) -> dict:
+    """A `LAYOUT_CASES` case on `mesh`: the layout, the forward's logits
+    (every row), the loss's gradients (whole) and two AdamW steps."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve.cv_engine import generate
+    from repro_torch.sharding import comm, rules
+    from repro_torch.train import step as tstep
+
+    cfg = layout_config(reduced_config, tag)
+    hint = rules.make_hint(mesh, cfg)
+    batch = case["batch"]
+    model = lm.LM(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    lm.make_trainable(lm.shard_model(model, mesh))
+    out = {"layout": rules.model_layout(cfg, mesh, batch["tokens"].shape[1])}
+    logits, _ = lm.forward(model, batch["tokens"], extras=_extras(batch), hint=hint)
+    out["logits"] = comm.all_gather(logits.detach(), 0, comm.axes_group(mesh, ("data",)))
+    loss, _ = tstep.loss_fn(model, batch, hint=hint)
+    (loss / WORLD).backward()
+    out["grads"] = {n: _full(p.grad) for n, p in model.named_parameters() if p.grad is not None}
+    if tag == "gemma tp":
+        with torch.no_grad():
+            out["generate"] = generate(model, batch["tokens"][:, :12], steps=6, device="cpu",
+                                       mesh=mesh)
+    model = lm.LM(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    state = tstep.init_state(cfg, device="cpu", model=model, mesh=mesh)
+    fn = tstep.make_train_step(cfg, mesh, peak_lr=TRAIN_LR, warmup=1)
+    metrics = []
+    for b in case["steps"]:
+        state, m = fn(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    out["steps"] = {"metrics": metrics,
+                    "params": {n: _full(p) for n, p in state["model"].named_parameters()}}
+    return out
 
 
 def rank_main(rank: int, out_dir: str, port: int) -> None:
@@ -158,6 +223,10 @@ def rank_main(rank: int, out_dir: str, port: int) -> None:
     model.load_state_dict(inp["deepseek"])
     lm.shard_model(model, mesh)
     out["generate"] = generate(model, inp["prompts"], steps=6, device="cpu", mesh=mesh)
+
+    # -- the model axis's layouts ------------------------------------------------
+    for tag in LAYOUT_CASES:
+        out[tag] = _layout_case(tag, inp["layout"][tag], mesh)
 
     if rank == 0:
         torch.save(out, os.path.join(out_dir, "out.pt"))
