@@ -205,7 +205,14 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      16 ranks and at a GQA shape off the 128-row tiles: each slice bit for
      bit the whole launch's rows, offset 0 bit for bit the call without
      one, each within `AGREE` (16-bit: `OFF_PLAIN_SHARE`) of the plain
-     version at its offset.
+     version at its offset.  Then its log-sum-exp output
+     (`flash_lse_phase`): at gemma-7b's prefill layer in bf16 and f32 and at
+     a decode step's cross-attention over llama-3.2-vision-11b's 1600 and
+     seamless-m4t-large-v2's 1024 context rows, every output bit for bit
+     the launch's without it, the log-sum-exp within 1e-5 of the plain
+     version's, and 2 and 16 context slices merged by it (split-K decode):
+     f32 within `AGREE` of the whole launch, bf16 within its parts'
+     roundings of the f32 plain version's.
      Then h2o-danube-3-4b's long request (`long_prompt_phase`): 1 x 8704
      prompt tokens + 8, past 8192 positions and past its window, so the
      prefill runs `blockwise_attention` (no kernel launch, no plain call)
@@ -248,12 +255,25 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      the vocabulary split) and h2o-danube-3-4b at 8 of 24 layers ("sp": the sequence
      split, rank 1's queries on the kernel at offset 512), each a bf16
      prefill of 2 x 1024 against the same rank's unsharded prefill (the
-     last position's logits and layer 0's K cache: at most
+     last position's logits and the rank's slots of layer 0's K cache: at most
      `OFF_PLAIN_SHARE` of the entries outside `AGREE`), one launch a layer
      and no plain call; then one f32 AdamW step of each layout's reduced
      config (gemma-7b at 16 q and 16 KV heads, qwen2-72b) against the same
      step unsharded: logits within 1e-4, the loss within 1e-5, every
-     parameter within 1e-4;
+     parameter within 1e-4; (d) the same mesh, decode over the model axis
+     (`sharding.rules.decode_layout`: each rank's slots of the cache,
+     split-K; "tp" heads and FFN; the MoE experts where they lie):
+     gemma-7b "tp" (4 layers), h2o-danube-3-4b (8 layers, split-K alone, a
+     4352-token prompt whose 4096-slot ring wraps over both ranks' 2048
+     slots), seamless-m4t-large-v2 "tp" (full depth, the cross-attention
+     on the kernel with its log-sum-exp over the rank's 512 encoder rows)
+     prefilled and decoded 16 steps teacher-forced in bf16 against rank
+     0's unsharded decode by (c)'s RMS rule, deepseek-v3-671b "tp" (4
+     layers, 128 of 256 experts a rank) widened to f32 on both sides within
+     2e-3 on the rows whose routing agrees; each step's time, each rank's
+     peak above its model's parts (below one whole expert stack's bytes),
+     the launches and no plain call; then each one's f32 reduced twin
+     within 1e-4;
  14. the dry run and the roofline (`dryrun_phase`): (a) gemma-7b's
      decode_32k cell and its long_500k skip cell through
      ``python -m repro_torch.launch.dryrun --cell``, each in a process of
@@ -392,6 +412,32 @@ SHARD_AXIS_RMS = 2.0**0.5
 SHARD_AXIS_TRAIN = (("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8}, "tp"),
                     ("qwen2-72b", {}, "sp"))
 SHARD_AXIS_TRAIN_B, SHARD_AXIS_TRAIN_S, SHARD_LOSS_TOL, SHARD_PARAM_TOL = 2, 64, 1e-5, 1e-4
+# (d): decode over the model axis (`sharding.rules.decode_layout`) on the same
+# (1, 2) mesh: (arch, layers kept (None: all), the decode layout, prompt
+# tokens, rows) at full width, bf16, prefilled and decoded SHARD_DECODE_STEPS
+# steps teacher-forced, against the same model's unsharded decode and its
+# f32-widened one (the bf16 model's own error) on rank 0, by (c)'s RMS rule;
+# gemma-7b "tp" at 4 layers; h2o-danube-3-4b at 8 layers, split-K alone (8 KV
+# heads), its prompt past the 4096-slot window, so that the ring wraps over
+# both ranks' 2048 slots; seamless-m4t-large-v2 "tp" at full depth, its
+# cross-attention on the kernel over the rank's 512 of the 1024 encoder rows,
+# merged by the log-sum-exp; deepseek-v3-671b "tp" at 4 layers (3 MLA + 1
+# MLA-MoE, 128 of its 256 experts a rank), widened to f32 on both sides
+# (in bf16 its top-8 of 256 routing flips on near-ties in every row: 29 of
+# the 4 x 64 prompt tokens, chip run 3) and held within SHARD_DECODE_F32_TOL
+# (JAX's f32 decode-consistency bound, tests/test_decode_consistency.py) on
+# the rows whose routing agrees at every call (`judge_routes`).  Then each
+# one's f32 reduced twin (SHARD_DECODE_TWINS: "tp" at 16 q and 16 KV heads)
+# within SHARD_LOGITS_TOL
+SHARD_DECODE_RUNS = (("gemma-7b", 4, "tp", 1024, 2), ("h2o-danube-3-4b", 8, "splitk", 4352, 2),
+                     ("seamless-m4t-large-v2", None, "tp", 1024, 2),
+                     ("deepseek-v3-671b", 4, "tp", 64, 4))
+SHARD_DECODE_STEPS, SHARD_DECODE_F32_TOL = 16, 2e-3
+SHARD_DECODE_TWINS = (("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8}, "tp", 12),
+                      ("h2o-danube-3-4b", {}, "splitk", 40),
+                      ("seamless-m4t-large-v2", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8},
+                       "tp", 12),
+                      ("deepseek-v3-671b", {"n_heads": 16, "n_kv_heads": 16}, "tp", 12))
 # `flash_attention`'s query offsets (a rank's slice of the queries under the
 # sequence-parallel layout), on the card after the LM phase: (B, T, H, Hkv,
 # hd, rows, offsets): gemma-7b's prefill layer sliced over 2 and over 16
@@ -400,6 +446,25 @@ SHARD_AXIS_TRAIN_B, SHARD_AXIS_TRAIN_S, SHARD_LOSS_TOL, SHARD_PARAM_TOL = 2, 64,
 # for bit, and the kernel against its plain version
 FLASH_OFFSETS = ((8, 1024, 16, 16, 256, 512, (0, 512)), (8, 1024, 16, 16, 256, 64, (960,)),
                  (4, 1024, 32, 8, 120, 100, (0, 300, 924)))
+# `flash_attention`'s log-sum-exp output (`flash_lse_phase`), after the offsets:
+# (label, B, S, T, H, Hkv, hd, causal, dtypes, slice counts): gemma-7b's
+# prefill layer in bf16 and f32, and a decode step's cross-attention (S = 1)
+# over llama-3.2-vision-11b's 1600 image rows and seamless-m4t-large-v2's 1024
+# encoder rows, whose context slices (a rank's of 2 or 16 under split-K
+# decode) are merged by their log-sum-exp (`models.attention.merge_lse`): in
+# f32 within `AGREE` of the whole launch; in bf16 each slice's output is
+# rounded before the merge, so the merge is held to the f32 plain version
+# within the roundings of its parts, FLASH_LSE_ATOL + 2^-8 x (the weighted
+# sum of the slices' |outputs| + |merged|) (2^-8: bf16's unit roundoff).
+# Every output bit for bit the same launch's without the log-sum-exp, which
+# is within FLASH_LSE_TOL of the plain version's
+FLASH_LSE = (("gemma-7b prefill layer", 8, 1024, 1024, 16, 16, 256, True,
+              ("bfloat16", "float32"), ()),
+             ("llama-3.2-vision-11b cross-attention decode", 8, 1, 1600, 32, 8, 128, False,
+              ("bfloat16", "float32"), (2, 16)),
+             ("seamless-m4t-large-v2 cross-attention decode", 8, 1, 1024, 16, 16, 64, False,
+              ("bfloat16", "float32"), (2, 16)))
+FLASH_LSE_TOL, FLASH_LSE_ATOL = 1e-5, 1e-4
 # the dry run (`dryrun_phase`): (a) a full-size pod cell whose trace is short
 # (a decode) and a skip cell, each through the command line; (b) phase 12
 # (a)'s step traced on the meta device and run on the card
@@ -2724,6 +2789,82 @@ def flash_offset_phase(dev, card: str, max_err: dict, judge=check) -> dict:
     return out
 
 
+class Stacked:
+    """`sharding.comm.Over` over slices stacked on a leading dimension of
+    one process: max / sum over that dimension, kept."""
+
+    def max(self, x):
+        return x.amax(0, keepdim=True)
+
+    def sum(self, x):
+        return x.sum(0, keepdim=True)
+
+
+def flash_lse_phase(dev, card: str, judge=check) -> dict:
+    """`flash_attention`'s log-sum-exp (`FLASH_LSE`): each launch's output
+    bit for bit the one without it, the log-sum-exp within `FLASH_LSE_TOL`
+    of the plain version's, and the cross-attention decode's context
+    slices merged by it, in f32 within `AGREE` of the whole launch, in
+    bf16 within its parts' roundings of the f32 plain version's.  The
+    kernel without it against an older checkout's, bit for bit:
+    scripts/torch_flash_offset_compare.py."""
+    import torch
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models import attention as attn_mod
+
+    out = {}
+    g = torch.Generator(dev).manual_seed(13)
+    for (label, B, S, T, H, G, hd, causal, dtypes, slices) in FLASH_LSE:
+        base = [torch.randn(shape, generator=g, device=dev)
+                for shape in ((B, S, H, hd), (B, T, G, hd), (B, T, G, hd))]
+        for dt in dtypes:
+            q, k, v = (t.to(getattr(torch, dt)) for t in base)
+            whole = kattn.flash_attention(q, k, v, causal=causal)
+            got, lse = kattn.flash_attention(q, k, v, causal=causal, lse=True)
+            _, plain = kattn.flash_attention(q, k, v, causal=causal, mode="ref", lse=True)
+            torch.cuda.synchronize(dev)
+            same = torch.equal(got, whole)
+            lse_err = float((lse - plain).abs().max())
+            name = f"{label} {tuple(q.shape)} over T={T}, {G} KV heads, {dt}"
+            row = {"bit_equal_without": same, "lse_max_abs_err": lse_err, "merged": {}}
+            merged_txt = []
+            exact = None
+            for n in slices:
+                parts = [kattn.flash_attention(q, kk.contiguous(), vv.contiguous(), causal=False,
+                                               lse=True)
+                         for kk, vv in zip(k.chunk(n, dim=1), v.chunk(n, dim=1))]
+                outs = torch.stack([o for o, _ in parts])
+                lses = torch.stack([lg for _, lg in parts])
+                merged = attn_mod.merge_lse(outs, lses, Stacked())[0].float()
+                diff = (merged - whole.float()).abs()
+                if q.dtype == torch.float32:
+                    rtol, atol = kattn.AGREE[q.dtype]
+                    what = "AGREE of the whole launch"
+                    excess = float((diff / (atol + rtol * whole.float().abs())).max())
+                else:
+                    if exact is None:
+                        exact = kattn.flash_attention(*(t.float() for t in (q, k, v)),
+                                                      causal=False, mode="ref")
+                    w = torch.softmax(lses, dim=0).transpose(-1, -2)[..., None]
+                    mag = (w * outs.float().abs()).sum(0)
+                    bound = FLASH_LSE_ATOL + 2.0**-8 * (mag + merged.abs())
+                    what = "its parts' roundings of the f32 plain version's"
+                    excess = float(((merged - exact).abs() / bound).max())
+                row["merged"][n] = {"max_abs_err_whole": float(diff.max()),
+                                    "share_of_tol": excess}
+                merged_txt.append(f"{n} slices merged by it {float(diff.max()):.3g} off the whole "
+                                  f"launch, {excess:.3g} of the tolerance ({what})")
+                judge(excess <= 1.0, f"flash lse {name}: {n} slices merged {excess:.3g} x {what}")
+            print(f"check flash_attention log-sum-exp {name}: outputs bit for bit the launch's "
+                  f"without it: {same}; within {lse_err:.3g} of the plain version's (bound "
+                  f"{FLASH_LSE_TOL}); {'; '.join(merged_txt) or 'causal: not sliced'} "
+                  f"card={card}")
+            judge(same, f"flash lse {name}: the outputs differ with the log-sum-exp asked")
+            judge(lse_err <= FLASH_LSE_TOL, f"flash lse {name}: {lse_err} off the plain version's")
+            out[name] = row
+    return out
+
+
 def rel_l2(a, b) -> float:
     """|a - b| / |b| in f32 (|a| where b is 0)."""
     den = float(b.float().norm())
@@ -3693,6 +3834,7 @@ def main() -> int:
         path_counts[f"generate {arch}"] = lm_out["generate"]["counters"]
         lm_outs[arch] = lm_out
     results["flash_offsets"] = flash_offset_phase(dev, card, max_err)
+    results["flash_lse"] = flash_lse_phase(dev, card)
     long_out = long_prompt_phase(dev, get_config(LONG_ARCH), prompt_len=LONG_PROMPT,
                                  gen_len=LONG_GEN)
     path_counts[f"generate {LONG_ARCH} {LONG_PROMPT} + {LONG_GEN}"] = long_out["counters"]
@@ -4138,13 +4280,15 @@ def shard_phase(card: str, path_counts: dict, results: dict) -> dict:
         out["b"]["counters"])
     for tag, run in out["c"].items():
         path_counts[f"{tag} sharded (1, 2) gloo"] = run["counters"]
+    for tag, run in out["d"].items():
+        path_counts[f"{tag} sharded (1, 2) gloo"] = run["counters"]
     results["shard"] = out
     return out
 
 
 def shard_phase_main() -> int:
-    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a), (b) and
-    (c), their lines printed, then one JSON line."""
+    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a), (b), (c)
+    and (d), their lines printed, then one JSON line."""
     import os
 
     import torch
@@ -4158,7 +4302,7 @@ def shard_phase_main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     out = {"a": shard_one(torch.device("cuda"), card), "b": shard_two(card),
-           "c": shard_axis(card)}
+           "c": shard_axis(card), "d": shard_decode(card)}
     print(json.dumps(out, default=str))
     return 0
 
@@ -4380,7 +4524,7 @@ def share_off(got, want) -> tuple[float, float]:
 def shard_axis_rank(rank: int, d: str, port: int, card: str, device: str = "cuda") -> None:
     """One rank of (c): each of `SHARD_AXIS_RUNS` at full width, its bf16
     prefill sharded against this rank's unsharded prefill of the same model:
-    layer 0's K cache (at most `OFF_PLAIN_SHARE` of entries outside
+    the rank's slots of layer 0's K cache (at most `OFF_PLAIN_SHARE` of entries outside
     `AGREE`), the last position's logits (their RMS distance within
     `SHARD_AXIS_RMS` x the unsharded's to the same weights widened to f32;
     "sp": at most `OFF_PLAIN_SHARE` outside `AGREE`; "tp" rounds a
@@ -4439,7 +4583,10 @@ def shard_axis_rank(rank: int, d: str, port: int, card: str, device: str = "cuda
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         snap = counters.snapshot()
-        k_off, k_err = share_off(cache["groups"][0]["k"][0], k_1)
+        # the rank's slots of layer 0's K (`rules.cache_specs`: time over "model")
+        k_got = cache["groups"][0]["k"][0]
+        n = k_got.shape[1]
+        k_off, k_err = share_off(k_got, k_1.narrow(1, hint.model_rank * n, n))
         n_attn = attention_applications(cfg)
         expect_counts(tag, snap, {"flash_attention": n_attn})
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
@@ -4535,6 +4682,258 @@ def shard_axis_rank(rank: int, d: str, port: int, card: str, device: str = "cuda
                   f"backward_calls={snap['backward_calls']} card={card}", flush=True)
     if rank == 0:
         Path(d, "c.json").write_text(json.dumps(res, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_decode(card: str) -> dict:
+    """(d): decode over the model axis on a (1, 2) mesh of two gloo ranks on
+    the one card (`shard_decode_rank`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(shard_decode_rank, args=(d, free_port(), card), nprocs=2)
+        return json.loads(Path(d, "d.json").read_text())
+
+
+def decode_logits(model, cfg, prompts, tokens, extras=None, mesh=None, times=None):
+    """`model` prefilled with `prompts` and decoded teacher-forced with
+    `tokens` (B, n), on `mesh` (a `shard_model` model: every rank's rows
+    over the model axis) or unsharded -> each step's logits (n, B, V) in
+    the model's dtype; each step's time appended to `times`."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve import cv_engine
+    from repro_torch.sharding import rules
+
+    B, S = prompts.shape
+    n = tokens.shape[1]
+    dev = prompts.device
+    hint = rules.make_hint(mesh, cfg) if mesh is not None else None
+    with torch.inference_mode():
+        _, pc = lm.prefill(model, prompts, extras=extras, hint=hint)
+        cache = lm.init_cache(cfg, B, S + n, ctx_len=lm.context_len(cfg, extras, B), device=dev,
+                              mesh=mesh)
+        cache = cv_engine._adopt_prefill(cache, pc, cfg, mesh=mesh)
+        del pc
+        out = []
+        for t in range(n):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lg, cache = lm.decode_step(model, tokens[:, t : t + 1], cache, hint=hint)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+            out.append(lg)
+    return torch.stack(out)
+
+
+def gather_prefill_routes(calls: list, group) -> list:
+    """A sharded run's routing calls with each prefill call's slices of the
+    sequence (S > 1: the all-to-all path's) gathered over the model axis."""
+    from repro_torch.sharding import comm
+
+    return [(s, i) if i.shape[1] == 1 else
+            (comm.all_gather(s, 1, group), comm.all_gather(i, 1, group)) for s, i in calls]
+
+
+def widen_parts(model) -> None:
+    """Each DTensor parameter's local part widened to f32, in place, one
+    at a time."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    for mod in model.modules():
+        for name, p in list(mod._parameters.items()):
+            mod._parameters[name] = torch.nn.Parameter(DTensor.from_local(
+                p.to_local().float(), p.device_mesh, p.placements, run_check=False),
+                requires_grad=False)
+
+
+def shard_decode_rank(rank: int, d: str, port: int, card: str, device: str = "cuda") -> None:
+    """One rank of (d): each of `SHARD_DECODE_RUNS` at full width, its bf16
+    decode sharded against rank 0's unsharded and f32-widened decodes of
+    the same model (rank 1 waits while rank 0 runs them, and the ranks
+    draw the model to shard one at a time, so that a whole model fits
+    beside nothing but the other rank's parts): every step's logits RMS
+    within `SHARD_AXIS_RMS` x the unsharded's own distance to the
+    f32-widened model's, their largest error against it within twice the
+    unsharded's; an MoE arch widened to f32 on both sides, within
+    `SHARD_DECODE_F32_TOL` on its rows whose routing agrees at every call
+    (`judge_routes`); the kernel's launches (the prefill's attention
+    applications, then one a cross-attention layer a step) and no plain
+    call, each step's time and each rank's peak memory above its model's
+    parts (below one whole expert stack's bytes for the MoE arch); then each
+    of `SHARD_DECODE_TWINS` in f32 within `SHARD_LOGITS_TOL`.  `device`
+    "cpu" rehearses it on the CPU."""
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import make_extras
+    from repro_torch.models import lm
+    from repro_torch.sharding import comm, rules
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=900))
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev, backend="gloo")
+    seq = comm.axes_group(mesh, ("model",))
+    res: dict = {}
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    for arch, layers, layout, S, B in SHARD_DECODE_RUNS:
+        cfg = get_config(arch, n_layers=layers) if layers else get_config(arch)
+        n = SHARD_DECODE_STEPS
+        tag = f"decode {arch} x{cfg.n_layers} {cfg.dtype} {B} x ({S} + {n}) {layout}"
+        check(rules.decode_layout(cfg, mesh) == layout, f"{tag}: the layout")
+        rng = np.random.default_rng(9)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, n))).to(dev)
+        extras = (make_extras(cfg, B, S, generator=torch.Generator(dev).manual_seed(3),
+                              device=dev) if lm.context_input(cfg) else None)
+
+        def build():
+            model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+            set_gates(model)
+            return model
+
+        widen = cfg.moe is not None
+        run_cfg = cfg.replace(dtype="float32") if widen else cfg
+        times_one: list = []
+        if rank == 0:  # the unsharded bf16 decode, then the same weights widened to f32
+            model = build()
+            if not widen:
+                want = decode_logits(model, cfg, prompts, tokens, extras, times=times_one)
+            model.float()
+            with RouteRecorder() as r_f32:
+                ref = decode_logits(model, cfg.replace(dtype="float32"), prompts, tokens,
+                                    extras).float()
+            del model
+            free()
+        dist.barrier()
+        for r in range(2):  # one rank at a time draws the whole model and keeps its parts
+            if rank == r:
+                model = build()
+                lm.shard_model(model, mesh)
+                if widen:
+                    widen_parts(model)
+                free()
+            dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        counters.reset()
+        times: list = []
+        with RouteRecorder() as r_got:
+            got = decode_logits(model, run_cfg, prompts, tokens, extras, mesh=mesh, times=times)
+        snap = counters.snapshot()
+        peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else 0
+        expect_counts(tag, snap, {"flash_attention": kernel_applications(cfg, S)
+                                  + n * cross_applications(cfg)})
+        stack = (cfg.moe.n_experts * cfg.d_model * cfg.moe.d_ff_expert
+                 * run_cfg.param_dtype.itemsize if widen else None)
+        if stack is not None:
+            check(peak < stack, f"{tag}: rank {rank}'s decode peaks {peak} B above its model, "
+                                f"a whole expert stack is {stack} B")
+        got_calls = gather_prefill_routes(r_got.calls, seq)
+        peaks = [None, None]
+        dist.all_gather_object(peaks, peak)
+        del model
+        free()
+        if rank == 0 and widen:
+            keep, _ = judge_routes(r_f32.calls, got_calls, cfg.moe.top_k,
+                                   f"{tag} f32-widened, sharded against unsharded")
+            check(bool(keep.any()), f"{tag}: no row's routing agrees")
+            err = float((got[:, keep].float() - ref[:, keep]).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= SHARD_DECODE_F32_TOL,
+                  f"{tag}: f32 logits {err:.3g} off the unsharded's")
+            res[tag] = {"logits_err_f32": err, "rows_compared": int(keep.sum()), "step_s": times,
+                        "decode_peak_bytes": peaks, "counters": snap}
+            print(f"{tag} widened to f32, sharded (1, 2) over 2 gloo ranks on one card, {n} "
+                  f"teacher-forced steps: logits within {err:.3g} of the unsharded f32 decode's "
+                  f"(bound {SHARD_DECODE_F32_TOL}) on the {int(keep.sum())} of {B} rows whose "
+                  f"routing agrees; step_s={[round(t, 5) for t in times]} card={card}; peak above "
+                  f"the model's parts {peaks} B a rank (a whole expert stack {stack} B); "
+                  f"launches={snap_nonzero(snap)}", flush=True)
+            del ref
+        elif rank == 0:
+            l_off, l_err = share_off(got, want)
+            l_rms, own_rms = rms(got.float() - want.float()), rms(want.float() - ref)
+            err = float((got.float() - ref).abs().max())
+            own = float((want.float() - ref).abs().max())
+            check(bool(torch.isfinite(got).all()) and l_rms <= SHARD_AXIS_RMS * own_rms
+                  and err <= 2 * own,
+                  f"{tag}: logits {l_rms:.3g} RMS off the unsharded's (its own {own_rms:.3g} off "
+                  f"the f32 model's), {err:.3g} off the f32 model's (the unsharded's own "
+                  f"{own:.3g})")
+            res[tag] = {"logits_rms": l_rms, "own_rms_f32": own_rms, "logits_off": l_off,
+                        "logits_max_abs_err": l_err, "logits_err_f32": err, "own_err_f32": own,
+                        "step_s": times, "step_s_unsharded": times_one,
+                        "decode_peak_bytes": peaks, "counters": snap}
+            print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card, {n} teacher-forced "
+                  f"steps: logits {l_rms:.4g} RMS off the unsharded's (bound "
+                  f"{SHARD_AXIS_RMS:.4f} x its own {own_rms:.4g} off the f32-widened model's), "
+                  f"{l_off:.5f} outside AGREE of them (max_abs_err {l_err:.3g}), {err:.3g} max "
+                  f"off the f32-widened model's (the unsharded bf16's own {own:.3g}; bound twice "
+                  f"that); step_s={[round(t, 5) for t in times]} (unsharded "
+                  f"{[round(t, 5) for t in times_one]}) card={card}; peak above the "
+                  f"model's parts {peaks} B a rank; launches={snap_nonzero(snap)}", flush=True)
+            del want, ref
+        del got
+        free()
+        dist.barrier()
+    for arch, kw, layout, S in SHARD_DECODE_TWINS:
+        cfg = reduced_config(arch).replace(dtype="float32", **kw)
+        n = SHARD_DECODE_STEPS
+        tag = f"decode {arch} reduced f32 2 x ({S} + {n}) {layout}"
+        check(rules.decode_layout(cfg, mesh) == layout, f"{tag}: the layout")
+        g = torch.Generator(dev).manual_seed(4)
+        prompts = torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (2, n), generator=g, device=dev)
+        extras = (make_extras(cfg, 2, S, generator=torch.Generator(dev).manual_seed(3),
+                              device=dev) if lm.context_input(cfg) else None)
+        model = lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        want = decode_logits(model, cfg, prompts, tokens, extras)
+        lm.shard_model(model, mesh)
+        counters.reset()
+        got = decode_logits(model, cfg, prompts, tokens, extras, mesh=mesh)
+        snap = counters.snapshot()
+        expect_counts(tag, snap, {"flash_attention": kernel_applications(cfg, S)
+                                  + n * cross_applications(cfg)})
+        err = float((got - want).abs().max())
+        check(err <= SHARD_LOGITS_TOL, f"{tag}: logits {err} off the unsharded's")
+        res[tag] = {"logits_err": err, "counters": snap}
+        if rank == 0:
+            print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card, {n} teacher-forced "
+                  f"steps: logits within {err:.3g} of the unsharded's (bound {SHARD_LOGITS_TOL}); "
+                  f"launches={snap_nonzero(snap)} card={card}", flush=True)
+        del model
+        free()
+    if rank == 0:
+        Path(d, "d.json").write_text(json.dumps(res, default=str))
     dist.barrier()
     dist.destroy_process_group()
 

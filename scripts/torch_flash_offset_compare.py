@@ -1,5 +1,5 @@
-"""`flash_attention` with its query offset against an older checkout's
-kernel (before the offset existed), on one card.
+"""`flash_attention` with its query offset and its log-sum-exp output
+against an older checkout's kernel (before either existed), on one card.
 
     python3 scripts/torch_flash_offset_compare.py OLDER_CHECKOUT
 
@@ -8,7 +8,8 @@ OLDER_CHECKOUT (one nvcc each, side by side, `_build.NVCC_FLAGS`), then at
 gemma-7b's prefill layer (8, 1024, 16, 256) and at a GQA shape (8, 1024, 32
 over 8 KV heads, hd 120) in bf16, and at (2, 1024, 16, 256) in f32:
 
-  * this kernel at offset 0 against the older one: bit for bit;
+  * this kernel at offset 0 against the older one: bit for bit, with and
+    without the log-sum-exp asked (`lse=True`);
   * a slice of the queries at an offset (the last 512 rows, a rank's slice
     under the sequence-parallel layout) against the whole launch's rows:
     bit for bit;
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -68,16 +70,23 @@ def main() -> int:
     _build._LIBS["flash_attn"] = ctypes.CDLL(str(libs["this"]))
     kattn._launcher.cache_clear()
     old = ctypes.CDLL(str(libs["older"])).flash_attn_launch
-    # the older signature: kattn's without q_off
-    old.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    # the older signature, read from its source: this one's without lse (and
+    # without q_off before the offset existed)
+    src = (older / "src" / "repro_torch" / "csrc" / "flash_attn.cu").read_text()
+    params = [p.strip() for p in re.search(r'extern "C" int flash_attn_launch\(([^)]*)\)',
+                                           src).group(1).split(",")]
+    names = [p.split()[-1].lstrip("*") for p in params]
+    old.argtypes = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     old.restype = ctypes.c_int
 
     def launch_old(q, k, v):
         o = torch.empty_like(q)
-        err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.shape[0], q.shape[1],
-                  k.shape[1], q.shape[2], k.shape[2], q.shape[3], kattn.DTYPES[q.dtype], 1,
-                  kattn.DEFAULT.smem_budget, _build.cuda_stream(q.device))
-        _build.check(err, "the older flash_attention")
+        args = {"q": q.data_ptr(), "k": k.data_ptr(), "v": v.data_ptr(), "o": o.data_ptr(),
+                "lse": None, "B": q.shape[0], "S": q.shape[1], "Tk": k.shape[1],
+                "H": q.shape[2], "Hkv": k.shape[2], "hd": q.shape[3],
+                "dtype": kattn.DTYPES[q.dtype], "causal": 1, "q_off": 0,
+                "smem_max": kattn.DEFAULT.smem_budget, "stream": _build.cuda_stream(q.device)}
+        _build.check(old(*[args[n] for n in names]), "the older flash_attention")
         return o
 
     def ms(fn) -> float:
@@ -99,10 +108,12 @@ def main() -> int:
         q, k, v = (torch.randn((B, T, n, hd), generator=g, device=dev).to(dtype)
                    for n in (H, G, G))
         new, prev = kattn.flash_attention(q, k, v), launch_old(q, k, v)
+        with_lse, _ = kattn.flash_attention(q, k, v, lse=True)
         qs = q[:, T - SLICE:].contiguous()
         part = kattn.flash_attention(qs, k, v, q_off=T - SLICE)
         torch.cuda.synchronize()
-        same, rows = torch.equal(new, prev), torch.equal(part, new[:, T - SLICE:])
+        same = torch.equal(new, prev) and torch.equal(with_lse, prev)
+        rows = torch.equal(part, new[:, T - SLICE:])
         order = ["older", "this", "this", "older"]
         runs = {"older": lambda: launch_old(q, k, v),
                 "this": lambda: kattn.flash_attention(q, k, v)}
@@ -114,8 +125,8 @@ def main() -> int:
                "slice_equals_rows": rows, "older_ms": times["older"], "this_ms": times["this"],
                "slice_ms": slice_ms, "slice": [B, SLICE, H, hd], "q_off": T - SLICE}
         results["shapes"][name] = rec
-        print(f"{name} {(B, T, H, hd)} over {G} KV heads {dt}: offset 0 bit-equal to the older "
-              f"kernel: {same}; the last {SLICE} rows at q_off={T - SLICE} bit-equal to the whole "
+        print(f"{name} {(B, T, H, hd)} over {G} KV heads {dt}: offset 0, with and without the "
+              f"log-sum-exp, bit-equal to the older kernel: {same}; the last {SLICE} rows at q_off={T - SLICE} bit-equal to the whole "
               f"launch's: {rows}; ms older {times['older']} this {times['this']}; the slice "
               f"{slice_ms:.5f} card={card}", flush=True)
     path = ROOT / "chiprun_out" / "torch_flash_offset_compare.json"

@@ -20,7 +20,12 @@
 // max(m, max s); m_safe = 0 while m_new <= NEG/2 (the row is masked so far);
 // p = exp(s - m_safe); corr = 0 while m <= NEG/2, else exp(m - m_safe);
 // l = l*corr + sum p; acc = acc*corr + p.v; out = acc / max(l, 1e-30),
-// rounded to q's dtype.  `flash_attention_plain` sums in PyTorch's order, so
+// rounded to q's dtype.  When asked (lse not null), each query row's
+// log-sum-exp over the keys it sees is written too, in f32, (B, H, S):
+// lse = m_safe + logf(l) in natural-log units of the scaled scores, NEG for
+// a row that sees no key (l == 0).  A split-K decode merges the normalised
+// outputs of slices of the keys by these weights.  The stores of o are the
+// same with or without it.  `flash_attention_plain` sums in PyTorch's order, so
 // the two agree to rounding, not bit for bit.
 //
 // f16 / bf16 (the serving path): flash_attn_wgmma_kernel, on the tensor
@@ -131,12 +136,14 @@ __device__ void stage_rows(uint32_t* dst, int ds, const uint32_t* src, size_t rs
 }
 
 // CPW: head-dimension words per thread in the p.v product (16 * CPW >= W).
-template <typename T, int CPW>
+// LSE: the log-sum-exp is written (a body of its own, so that the launch
+// without it runs the same code as before it existed).
+template <typename T, int CPW, bool LSE>
 __global__ void __launch_bounds__(THREADS)
     flash_attn_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
-                           int group, int hd, int causal, int q_off, float scale, int n_qt,
-                           int BH) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int S, int Tk, int H, int group, int hd,
+                           int causal, int q_off, float scale, int n_qt, int BH) {
   using E = Elem<T>;
   constexpr int PW = E::PER_WORD;
   const int W = hd / PW;  // words per row
@@ -281,6 +288,10 @@ __global__ void __launch_bounds__(THREADS)
   for (int r = 0; r < TR; ++r) {
     const int row = q0 + ty * TR + r;
     if (row >= S) continue;
+    if (LSE && tx == 0) {
+      const float l = l_s[ty * TR + r], m = m_s[ty * TR + r];
+      lse[(size_t(b) * H + h) * S + row] = l > 0.f ? (m <= NEG * 0.5f ? 0.f : m) + logf(l) : NEG;
+    }
     const float den = fmaxf(l_s[ty * TR + r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPW; ++c) {
@@ -300,36 +311,45 @@ size_t simt_smem_bytes(int W) {
 }
 
 template <int CPW>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-                int H, int Hkv, int hd, int causal, int q_off, size_t smem, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int Tk, int H, int Hkv, int hd, int causal, int q_off, size_t smem,
+                cudaStream_t stream) {
   const int n_qt = (S + BQ - 1) / BQ;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_simt_kernel<float, CPW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  auto kernel = lse != nullptr ? flash_attn_simt_kernel<float, CPW, true>
+                                : flash_attn_simt_kernel<float, CPW, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const float scale = float(1.0 / sqrt(double(hd)));
-  flash_attn_simt_kernel<float, CPW><<<unsigned(blocks), THREADS, smem, stream>>>(
+  kernel<<<unsigned(blocks), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, Tk, H, H / Hkv, hd, causal, q_off, scale, n_qt, B * H);
+      static_cast<float*>(o), lse, S, Tk, H, H / Hkv, hd, causal, q_off, scale, n_qt, B * H);
   return int(cudaGetLastError());
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-               int Hkv, int hd, int causal, int q_off, int smem_max, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+               int Tk, int H, int Hkv, int hd, int causal, int q_off, int smem_max,
+               cudaStream_t stream) {
   const int W = hd;
   const size_t smem = simt_smem_bytes(W);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
   const int need = (W + 15) / 16;
   if (need <= 1)
-    return launch_simt<1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+    return launch_simt<1>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                           stream);
   if (need <= 2)
-    return launch_simt<2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+    return launch_simt<2>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                           stream);
   if (need <= 4)
-    return launch_simt<4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+    return launch_simt<4>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                           stream);
   if (need <= 8)
-    return launch_simt<8>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
-  return launch_simt<16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+    return launch_simt<8>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                           stream);
+  return launch_simt<16>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                           stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -663,14 +683,15 @@ __device__ __forceinline__ void store_p(const float (&pf)[32], uint32_t hi_s, ui
     }
 }
 
-// NC: 64-channel chunks of the head dimension (hd padded to NC * 64 with zeros)
-template <typename T, int NC>
+// NC: 64-channel chunks of the head dimension (hd padded to NC * 64 with zeros);
+// LSE: the log-sum-exp is written (a body of its own, as the SIMT kernel's)
+template <typename T, int NC, bool LSE>
 __global__ void __launch_bounds__(W_THREADS, 1)
     flash_attn_wgmma_kernel(__grid_constant__ const CUtensorMap q_map,
                             __grid_constant__ const CUtensorMap k_map,
-                            __grid_constant__ const CUtensorMap v_map, T* __restrict__ o, int S,
-                            int Tk, int H, int group, int hd, int causal, int q_off, float scale,
-                            int n_qt, int BH) {
+                            __grid_constant__ const CUtensorMap v_map, T* __restrict__ o,
+                            float* __restrict__ lse, int S, int Tk, int H, int group, int hd,
+                            int causal, int q_off, float scale, int n_qt, int BH) {
   constexpr int N = NC * CHUNK;  // width of the p.v product
   using P = Half<T>;
   extern __shared__ uint8_t smem_raw[];
@@ -829,6 +850,11 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     T* og = o + (size_t(b) * S * H + h) * hd;
     const float inv0 = __fdividef(1.f, fmaxf(l0, 1e-30f));
     const float inv1 = __fdividef(1.f, fmaxf(l1, 1e-30f));
+    if (LSE && (lane & 3) == 0) {  // a row's m and l are its quad's
+      float* lg = lse + (size_t(b) * H + h) * S;
+      if (qi0 < S) lg[qi0] = l0 > 0.f ? (m0 <= NEG * 0.5f ? 0.f : m0) + logf(l0) : NEG;
+      if (qi1 < S) lg[qi1] = l1 > 0.f ? (m1 <= NEG * 0.5f ? 0.f : m1) + logf(l1) : NEG;
+    }
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       if (8 * j >= hd) break;
@@ -886,8 +912,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int rows, int H, int h
 }
 
 template <typename T, int NC>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-                 int Hkv, int hd, int causal, int q_off, size_t smem, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                 int Tk, int H, int Hkv, int hd, int causal, int q_off, size_t smem,
+                 cudaStream_t stream) {
   const int n_qt = (S + WQ - 1) / WQ;
   const long long blocks = (long long)n_qt * B * H;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
@@ -900,28 +927,33 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
       !encode_map<T>(&k_map, kp, B, rows, Hkv, hd, WKV) ||
       !encode_map<T>(&v_map, vp, B, rows, Hkv, hd, WKV))
     return int(cudaErrorInvalidValue);
-  auto kernel = flash_attn_wgmma_kernel<T, NC>;
+  auto kernel = lse != nullptr ? flash_attn_wgmma_kernel<T, NC, true>
+                                : flash_attn_wgmma_kernel<T, NC, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const float scale = float(1.0 / sqrt(double(hd)));
-  kernel<<<unsigned(blocks), W_THREADS, smem, stream>>>(q_map, k_map, v_map, static_cast<T*>(o), S,
-                                                        Tk, H, H / Hkv, hd, causal, q_off, scale,
-                                                        n_qt, B * H);
+  kernel<<<unsigned(blocks), W_THREADS, smem, stream>>>(q_map, k_map, v_map, static_cast<T*>(o),
+                                                        lse, S, Tk, H, H / Hkv, hd, causal, q_off,
+                                                        scale, n_qt, B * H);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch_16bit(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-                 int Hkv, int hd, int causal, int q_off, int smem_max, cudaStream_t stream) {
+int launch_16bit(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                 int Tk, int H, int Hkv, int hd, int causal, int q_off, int smem_max,
+                 cudaStream_t stream) {
   const int nc = wgmma_chunks(hd);
   const size_t smem = wgmma_smem_bytes(nc);
   if (smem > size_t(smem_max)) return int(cudaErrorInvalidValue);
   if (nc == 1)
-    return launch_wgmma<T, 1>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+    return launch_wgmma<T, 1>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                                 stream);
   if (nc == 2)
-    return launch_wgmma<T, 2>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
-  return launch_wgmma<T, 4>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem, stream);
+    return launch_wgmma<T, 2>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                                 stream);
+  return launch_wgmma<T, 4>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem,
+                                 stream);
 }
 
 }  // namespace
@@ -930,23 +962,24 @@ int launch_16bit(const void* q, const void* k, const void* v, void* o, int B, in
 // (the wgmma body).  q and o are contiguous (B, S, H, hd), k and v
 // (B, T, Hkv, hd) with Hkv dividing H, 16-byte aligned, with hd a multiple
 // of 8 in [8, 256]; query row i stands at position q_off + i (>= 0) for the
-// causal mask; anything else, or a block's shared memory above smem_max, is
-// refused with cudaErrorInvalidValue before a launch.
-extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                 int S, int Tk, int H, int Hkv, int hd, int dtype, int causal,
-                                 int q_off, int smem_max, void* stream) {
+// causal mask; lse is null or a contiguous f32 (B, H, S) that takes each
+// row's log-sum-exp; anything else, or a block's shared memory above
+// smem_max, is refused with cudaErrorInvalidValue before a launch.
+extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                                 int B, int S, int Tk, int H, int Hkv, int hd, int dtype,
+                                 int causal, int q_off, int smem_max, void* stream) {
   if (hd < 8 || hd > 256 || hd % 8 != 0 || q_off < 0) return int(cudaErrorInvalidValue);
   if (Hkv < 1 || H % Hkv != 0) return int(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_f32(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem_max, st);
+      return launch_f32(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off, smem_max, st);
     case 1:
-      return launch_16bit<__half>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off, smem_max,
-                                  st);
+      return launch_16bit<__half>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off,
+                                  smem_max, st);
     case 2:
-      return launch_16bit<__nv_bfloat16>(q, k, v, o, B, S, Tk, H, Hkv, hd, causal, q_off,
+      return launch_16bit<__nv_bfloat16>(q, k, v, o, lse, B, S, Tk, H, Hkv, hd, causal, q_off,
                                          smem_max, st);
     default:
       return int(cudaErrorInvalidValue);

@@ -26,6 +26,14 @@ PyTorch, with the kernel's guards for rows that are masked so far, in f32
 throughout.  It sums dot products in another order, so kernel and plain
 version agree to rounding, not bit for bit: within `AGREE`.
 
+With ``lse=True`` both also return each query row's log-sum-exp over the
+keys it sees, f32 (B, H, S): ``m_safe + log(l)`` in natural-log units of
+the scaled scores (the online softmax's running max, 0 while the row is
+masked, and its denominator), -1e30 for a row that sees no key.  A split-K
+decode (`models.attention.merge_lse`) merges the normalised outputs of
+slices of the keys by these weights; the outputs are the same with it or
+without.
+
 Training differentiates `flash_attention` through `FlashAttention`, a
 `torch.autograd.Function`: its forward is the wrapper's (the kernel on a
 CUDA tensor, the plain version on the CPU or under ``mode="ref"``), so both
@@ -93,8 +101,8 @@ OFF_PLAIN_SHARE = 2.0**-5
 DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 # C signature in csrc/flash_attn.cu: pointers and the stream as c_void_p, ints as c_int
-# (q, k, v, o, B, S, T, H, Hkv, hd, dtype, causal, q_off, smem_max, stream)
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# (q, k, v, o, lse, B, S, T, H, Hkv, hd, dtype, causal, q_off, smem_max, stream)
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def smem_bytes(head_dim: int, itemsize: int) -> int:
@@ -147,12 +155,15 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_off: int = 0
-) -> torch.Tensor:
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_off: int = 0,
+    lse: bool = False,
+):
     """Plain version of the kernel: an online softmax over 64-key blocks in
     f32, with the kernel's guards; the result in q's dtype.  Query heads are
     taken in groups of H // Hkv, each group against its KV head (no repeat).
-    Query row i stands at position ``q_off + i`` for the causal mask."""
+    Query row i stands at position ``q_off + i`` for the causal mask.  With
+    `lse`, -> (out, each row's log-sum-exp (B, H, S) f32; module
+    docstring)."""
     counters.PLAIN_CALLS["flash_attention"] += 1
     B, S, H, hd = q.shape
     T, G = k.shape[1], k.shape[2]
@@ -181,7 +192,11 @@ def flash_attention_plain(
         acc = acc * corr[..., None] + p @ vb
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, H, S, hd)
-    return out.transpose(1, 2).to(q.dtype)
+    out = out.transpose(1, 2).to(q.dtype)
+    if not lse:
+        return out
+    m_safe = torch.where(m <= NEG / 2, 0.0, m)
+    return out, torch.where(l > 0, m_safe + torch.log(l), NEG).reshape(B, H, S)
 
 
 @functools.cache
@@ -201,7 +216,8 @@ def flash_attention(
     mode: str | None = None,
     lc: LaunchConfig = DEFAULT,
     q_off: int = 0,
-) -> torch.Tensor:
+    lse: bool = False,
+):
     """q (B, S, H, hd), k / v (B, T, Hkv, hd) of one dtype (f32, f16 or
     bf16), Hkv dividing H (query head h reads KV head h // (H // Hkv)) ->
     (B, S, H, hd) in q's dtype.  causal masks
@@ -213,15 +229,19 @@ def flash_attention(
     when a block's shared memory would exceed ``lc.smem_budget``); a meta
     tensor gets its output's shape and launches nothing (module docstring).
     When grad is enabled and q, k or v requires it, the call goes through
-    `FlashAttention`, whose backward is `flash_attention_backward`."""
+    `FlashAttention`, whose backward is `flash_attention_backward`.  With
+    `lse`, -> (out, each query row's log-sum-exp (B, H, S) f32; module
+    docstring), which has no gradient: asked under autograd it raises."""
     if mode not in (None, "ref"):
         raise ValueError(f"flash_attention: unknown mode {mode!r} (expected None or 'ref')")
     if isinstance(q_off, bool) or not isinstance(q_off, int) or q_off < 0:
         raise ValueError(f"flash_attention: q_off must be an int >= 0, got {q_off!r}")
     _check_inputs(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if lse:
+            raise ValueError("flash_attention: the log-sum-exp output has no gradient")
         return FlashAttention.apply(q, k, v, causal, mode, lc, q_off)
-    return _forward(q, k, v, causal=causal, mode=mode, lc=lc, q_off=q_off)
+    return _forward(q, k, v, causal=causal, mode=mode, lc=lc, q_off=q_off, lse=lse)
 
 
 def causal_pairs(S: int, T: int, causal: bool, q_off: int = 0) -> int:
@@ -239,23 +259,24 @@ def causal_pairs(S: int, T: int, causal: bool, q_off: int = 0) -> int:
 
 
 def flash_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool, q_off: int = 0) -> tuple[float, float]:
+               causal: bool, q_off: int = 0, lse: bool = False) -> tuple[float, float]:
     """(operations, bytes) of one `flash_attention` call: the q.k and p.v
     products over the computed pairs (`causal_pairs`), 2 x 2 B H hd a pair,
-    and q, k, v and the output each once.  This is the function's work,
-    not the kernel's (its two 16-bit p.v passes), so a redesign of the
-    kernel leaves it unchanged."""
+    and q, k, v and the output each once (with `lse`, the f32 log-sum-exp
+    too).  This is the function's work, not the kernel's (its two 16-bit
+    p.v passes), so a redesign of the kernel leaves it unchanged."""
     B, S, H, hd = q.shape
     flops = 4.0 * B * H * hd * causal_pairs(S, k.shape[1], causal, q_off)
-    return flops, float((2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return flops, float(nbytes + (4 * B * H * S if lse else 0))
 
 
 def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig,
-             q_off: int = 0) -> torch.Tensor:
+             q_off: int = 0, lse: bool = False):
     """The wrapper's body, its inputs checked: the plain version, one launch,
     or on the meta device the output's shape (module docstring)."""
     if mode == "ref" or q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off, lse=lse)
     B, S, H, hd = q.shape
     smem = smem_bytes(hd, q.element_size())
     if smem > lc.smem_budget:
@@ -267,8 +288,9 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig,
         if k.device.type != "meta" or v.device.type != "meta":
             raise ValueError(f"flash_attention: q on meta, k on {k.device}, v on {v.device}")
         if counters.RECORDERS:
-            counters.record("flash_attention", *flash_work(q, k, v, causal, q_off))
-        return torch.empty_like(q)
+            counters.record("flash_attention", *flash_work(q, k, v, causal, q_off, lse))
+        out = torch.empty_like(q)
+        return (out, q.new_empty((B, H, S), dtype=torch.float32)) if lse else out
     launch = _launcher()
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -277,14 +299,16 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig,
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
     out = torch.empty_like(q)
+    lse_t = q.new_empty((B, H, S), dtype=torch.float32) if lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse_t) if lse else out
     with torch.cuda.device(dev):
         err = launch(
             q.data_ptr(),
             k.data_ptr(),
             v.data_ptr(),
             out.data_ptr(),
+            lse_t.data_ptr() if lse else None,
             B,
             S,
             k.shape[1],
@@ -300,8 +324,8 @@ def _forward(q, k, v, *, causal: bool, mode: str | None, lc: LaunchConfig,
     _build.check(err, "flash_attention")
     counters.LAUNCHES["flash_attention"] += 1
     if counters.RECORDERS:
-        counters.record("flash_attention", *flash_work(q, k, v, causal, q_off))
-    return out
+        counters.record("flash_attention", *flash_work(q, k, v, causal, q_off, lse))
+    return (out, lse_t) if lse else out
 
 
 # f32 scratch of one score-sized tensor (B, H, rows, T) of the backward; its

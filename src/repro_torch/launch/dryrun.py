@@ -18,8 +18,11 @@ route); the fake backend's collectives return at once while
 `sharding.comm` records them.  So a record holds the work of the port as
 it runs, a rank's own: its rows of the batch, their work split over the
 "model" axis as JAX's hints lay it out (`sharding.rules.model_layout`) in
-training and prefill, and whole in decode (split-K decode is not
-reproduced).
+training and prefill, and in decode as JAX's decode lays it out
+(`sharding.rules.decode_layout`): the rank's part of the cache
+(`rules.cache_specs`, the time axis over "model": split-K), "tp"'s heads
+and FFN hidden, the vocab-parallel embedding and head, the MoE experts
+where they lie.
 
     python -m repro_torch.launch.dryrun --all --mesh pod   # a process a cell
     python -m repro_torch.launch.dryrun --cell gemma-7b:train_4k:pod
@@ -218,7 +221,9 @@ def trace_cell(cfg, shape, mesh=None) -> dict:
     it: `train.step.make_train_step` with `OPTIMIZER`'s optimizer (else
     AdamW), `serve.cv_engine.make_prefill_step`, or
     `make_decode_step` over `lm.init_cache`'s cache of ``seq_len``
-    positions for this rank's rows -> the record (module docstring)."""
+    positions, this rank's part of it (``cache_bytes``; the whole batch's
+    whole cache: ``cache_bytes_global``) -> the record (module
+    docstring)."""
     sh = _shape_config(shape)
     opt_name = OPTIMIZER.get(cfg.name, "adamw")
     ranks = 1 if mesh is None else dist.get_world_size()
@@ -266,7 +271,7 @@ def trace_cell(cfg, shape, mesh=None) -> dict:
             lm.init_cache(cfg, B, S, ctx_len=ctx_len, device="meta")))
         fn = engine.make_decode_step(cfg, mesh)
         with torch.inference_mode():
-            cache = lm.init_cache(cfg, tokens.shape[0], S, ctx_len=ctx_len, device="meta")
+            cache = lm.init_cache(cfg, B, S, ctx_len=ctx_len, device="meta", mesh=mesh)
             memory["cache_bytes"] = tree_bytes(cache)
             cm.hold((model, cache, tokens))
             with cm:

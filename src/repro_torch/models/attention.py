@@ -51,6 +51,18 @@ JAX calls `dense_attention` there with ``causal=False`` and every position
 and no positions, the same function, so that it takes the kernel route:
 in the prefill (S query rows over the T context rows) and in decode (S =
 1, against the context's K / V of the cache).
+
+Decode on a mesh (`sharding.rules.decode_layout`) reads the rank's slots
+of the cache where `rules.cache_specs` splits its time axis over "model"
+(split-K): the self-attention and MLA's latent attention stay plain
+(`dense_attention`, as JAX's), their softmax's row max and denominator
+merged over the axis before the probabilities (`softmax_over`) and the
+p.v partials summed after; the cross-attention takes the kernel on the
+rank's context rows with its log-sum-exp and merges the normalised
+outputs by those weights (`merge_lse`).  Under "tp" the rank projects its
+heads, the new token's heads are gathered over the axis (the cache holds
+every head, as JAX's), every head attends over the rank's slots, and the
+rank's heads go into the row-parallel ``w_o``, summed over the axis.
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ from torch import nn
 
 from ..kernels import attention as kattn
 from ..sharding import comm
-from .layers import _param, apply_rope, dense_init, rms_norm
+from .layers import _param, apply_rope, dense_init, rms_norm, tp_rows, tp_sum
 
 NEG_INF = -1e30
 BLOCKWISE_THRESHOLD = 8192  # KV positions above which JAX goes blockwise
@@ -107,6 +119,30 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, t, h, n_rep, d).reshape(b, t, h * n_rep, d)
 
 
+def softmax_over(scores: torch.Tensor, merge=None) -> torch.Tensor:
+    """The softmax along the last axis of `scores`; with `merge`
+    (`sharding.comm.Over`) that axis is split over its ranks (a rank's
+    slots of the cache): the row max and the denominator are merged before
+    the probabilities, so each rank's are the whole softmax's.  A rank
+    whose slots are all masked (scores -1e30) gets exp(-1e30 - max) = 0."""
+    if merge is None:
+        return torch.softmax(scores, dim=-1)
+    e = torch.exp(scores - merge.max(torch.amax(scores, dim=-1, keepdim=True)))
+    return e / merge.sum(torch.sum(e, dim=-1, keepdim=True))
+
+
+def merge_lse(out: torch.Tensor, lse: torch.Tensor, merge) -> torch.Tensor:
+    """The attention output over the keys of all ranks of `merge` from each
+    rank's over its slice: `out` (B, S, H, hd) normalised over the slice,
+    `lse` (B, H, S) its log-sum-exp (`kernels.attention.flash_attention`'s).
+    Each slice is weighted by exp(lse - max) over the weights' sum, in f32
+    (a slice that sees no key, lse -1e30, weighs exactly 0), and the sum is
+    rounded once to out's dtype."""
+    w = torch.exp(lse - merge.max(lse))
+    w = (w / merge.sum(w)).transpose(-1, -2)[..., None]  # (B, S, H, 1)
+    return merge.sum(out.float() * w).to(out.dtype)
+
+
 def dense_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -120,10 +156,15 @@ def dense_attention(
     soft_cap: float | None = None,
     scale: float | None = None,
     grouped: bool = False,
+    merge=None,
 ) -> torch.Tensor:
     """Plain attention: f32 scores and softmax, probabilities rounded to v's
     dtype before p.v.  `grouped=True` keeps KV un-repeated and reshapes q
-    into (G, R) head groups (decode)."""
+    into (G, R) head groups (decode).  With `merge` (`sharding.comm.Over`)
+    k and v are this rank's slice of the keys (split-K): the softmax is
+    merged over the ranks (`softmax_over`) and the p.v partials, in f32,
+    summed over them and rounded once to v's dtype; soft cap and mask act
+    on each score as without."""
     B, S, Hq, hd = q.shape
     T, G = k.shape[1], k.shape[2]
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
@@ -139,14 +180,20 @@ def dense_attention(
         qg = q.reshape(B, S, G, R, hd)
         scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float()) * sc
         scores = _soft_cap(scores, soft_cap) + bias[:, :, None]
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bgrst,btgd->bsgrd", probs.to(v.dtype), v)
+        probs = softmax_over(scores, merge).to(v.dtype)
+        out = _pv("bgrst,btgd->bsgrd", probs, v, merge)
         return out.reshape(B, S, Hq, hd)
     kr, vr = _repeat_kv(k, Hq // G), _repeat_kv(v, Hq // G)
     scores = torch.einsum("bshd,bthd->bhst", q.float(), kr.float()) * sc
     scores = _soft_cap(scores, soft_cap) + bias
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bthd->bshd", probs.to(vr.dtype), vr)
+    return _pv("bhst,bthd->bshd", softmax_over(scores, merge).to(vr.dtype), vr, merge)
+
+
+def _pv(eq: str, probs: torch.Tensor, v: torch.Tensor, merge) -> torch.Tensor:
+    """p.v; with `merge`, the rank's partial in f32 summed over its ranks."""
+    if merge is None:
+        return torch.einsum(eq, probs, v)
+    return merge.sum(torch.einsum(eq, probs.float(), v.float())).to(v.dtype)
 
 
 def blockwise_attention(
@@ -379,7 +426,32 @@ def gqa_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None
     return out.reshape(*x.shape[:2], -1) @ p["w_o"], (k, v)
 
 
-def gqa_decode(p, x: torch.Tensor, cfg, *, cache_k, cache_v, pos: int, kv_pos, kv_valid):
+def _write_slot(caches, new, pos: int, slots) -> None:
+    """Write each new token's entry (B, 1, ...) into its cache (B, T, ...)
+    at slot ``pos % T``; with `slots` (first, total) the cache holds the
+    rank's slots first .. first + T - 1 of `total`, and only the rank that
+    holds slot ``pos % total`` writes it."""
+    T = caches[0].shape[1]
+    slot = pos % (slots[1] if slots else T) - (slots[0] if slots else 0)
+    if 0 <= slot < T:
+        for c, t in zip(caches, new):
+            c[:, slot] = t[:, 0].to(c.dtype)
+
+
+def _merge(slots, hint):
+    """The split-K merges of a cache whose time axis `slots` splits."""
+    return None if slots is None else comm.Over(hint.seq_group)
+
+
+def _own_heads(out: torch.Tensor, hint) -> torch.Tensor:
+    """The rank's heads (the "tp" layout's) of every head's output
+    (B, S, H * d)."""
+    width = out.shape[-1] // hint.model_size
+    return out.narrow(-1, hint.model_rank * width, width)
+
+
+def gqa_decode(p, x: torch.Tensor, cfg, *, cache_k, cache_v, pos: int, kv_pos, kv_valid,
+               slots=None, hint=None):
     """Single-token decode against a (possibly ring-buffer) KV cache.
 
     cache_k / cache_v: (B, T, G, hd), written in place at slot ``pos % T``
@@ -387,13 +459,20 @@ def gqa_decode(p, x: torch.Tensor, cfg, *, cache_k, cache_v, pos: int, kv_pos, k
     every layer at every step).  pos: absolute position of the new token;
     kv_pos: (T,) absolute position held by each slot after the write;
     kv_valid: (T,) bool.  Returns (out, (cache_k, cache_v)).
+
+    On a mesh (module docstring): `slots` (first, total) when the cache
+    holds the rank's T of `total` slots (the owner of slot ``pos % total``
+    writes the token; the attention is merged over the model axis), None
+    when it holds them all; under `hint`'s "tp" layout `p` holds the rank's
+    heads.
     """
     B = x.shape[0]
+    tp = getattr(hint, "layout", None) == "tp"
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k, v = gqa_project_qkv(p, x, cfg, positions)
-    slot = pos % cache_k.shape[1]
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    q, k, v = gqa_project_qkv(p, x, local_heads(cfg, hint), positions)
+    if tp:
+        q, k, v = (comm.all_gather(t, 2, hint.seq_group) for t in (q, k, v))
+    _write_slot((cache_k, cache_v), (k, v), pos, slots)
     out = dense_attention(
         q,
         cache_k,
@@ -406,8 +485,11 @@ def gqa_decode(p, x: torch.Tensor, cfg, *, cache_k, cache_v, pos: int, kv_pos, k
         soft_cap=cfg.attn_soft_cap,
         scale=cfg.attn_scale,
         grouped=True,
-    )
-    return out.reshape(B, 1, -1) @ p["w_o"], (cache_k, cache_v)
+        merge=_merge(slots, hint),
+    ).reshape(B, 1, -1)
+    if tp:
+        return tp_sum(_own_heads(out, hint) @ p["w_o"], hint), (cache_k, cache_v)
+    return out @ p["w_o"], (cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +520,8 @@ def cross_kv(p, ctx: torch.Tensor, cfg, *, hint=None):
     return proj("w_k", "b_k"), proj("w_v", "b_v")
 
 
-def cross_attn(p, x: torch.Tensor, ctx_kv, cfg, *, mode: str | None = None, hint=None):
+def cross_attn(p, x: torch.Tensor, ctx_kv, cfg, *, mode: str | None = None, hint=None,
+               split: bool = False):
     """x (B, S, D) attends over the context's (k, v) (B, T, G, hd), every
     pair unmasked (module docstring) -> (B, S, D), times ``tanh(gate_attn)``
     (in f32, cast to the output's dtype, as JAX's) when the layer is gated.
@@ -446,22 +529,48 @@ def cross_attn(p, x: torch.Tensor, ctx_kv, cfg, *, mode: str | None = None, hint
     `x` is the rank's slice of the sequence and so is the output: "tp" runs
     the rank's heads on the sequence gathered (`cross_kv`'s heads too) and
     reduce-scatters ``w_o``'s partial sums, the gate applied after; "sp"
-    runs the slice's queries over the whole context."""
+    runs the slice's queries over the whole context.  In decode
+    (``hint.decode``) `x` is the rows whole and (k, v) hold every head:
+    `split` when they are the rank's slice of the context rows
+    (`rules.cache_specs`), whose outputs are merged over the model axis
+    (`merge_lse`); under "tp" the rank's query heads are gathered, every
+    head attends, and the rank's heads go into ``w_o``, summed."""
     tp = getattr(hint, "layout", None) == "tp"
+    decode = getattr(hint, "decode", False)
     if tp:
-        x = comm.gather_dim(x, 1, hint.seq_group)
+        x = tp_rows(x, hint)
     B, S, _ = x.shape
     hq = local_heads(cfg, hint).n_heads
     y = x @ p["w_q"]
     q = (y + p["b_q"] if "b_q" in p else y).to(x.dtype).reshape(B, S, hq, cfg.head_dim)
+    if tp and decode:
+        q = comm.all_gather(q, 2, hint.seq_group)
     k, v = ctx_kv
-    out = attention(q, k, v, causal=False, scale=cfg.attn_scale, mode=mode)
-    out = out.reshape(B, S, -1) @ p["w_o"]
+    if split:
+        out = _cross_split(q, k, v, cfg, mode=mode, merge=comm.Over(hint.seq_group))
+    else:
+        out = attention(q, k, v, causal=False, scale=cfg.attn_scale, mode=mode)
+    out = out.reshape(B, S, -1)
+    if tp and decode:
+        out = _own_heads(out, hint)
+    out = out @ p["w_o"]
     if tp:
-        out = comm.scatter_dim(out, 1, hint.seq_group)
+        out = tp_sum(out, hint)
     if "gate_attn" in p:
         out = torch.tanh(p["gate_attn"]).to(out.dtype) * out
     return out
+
+
+def _cross_split(q, k, v, cfg, *, mode, merge):
+    """`cross_attn`'s attention over a rank's slice of the context rows,
+    merged over `merge`'s ranks: on the kernel route the kernel with its
+    log-sum-exp on each slice (`merge_lse`), else `dense_attention`'s
+    split-K form."""
+    if kernel_route(q, k, v, scale=cfg.attn_scale):
+        out, lse = kattn.flash_attention(q, k, v, causal=False, mode=mode, lse=True)
+        return merge_lse(out, lse, merge)
+    return dense_attention(q, k, v, causal=False, scale=cfg.attn_scale,
+                           grouped=q.shape[2] != k.shape[2], merge=merge)
 
 
 # ---------------------------------------------------------------------------
@@ -582,30 +691,45 @@ def mla_attn(p, x: torch.Tensor, cfg, *, positions=None, mode: str | None = None
     return out.reshape(*x.shape[:2], -1) @ p["w_o"], (c_kv, k_r)
 
 
-def mla_decode(p, x: torch.Tensor, cfg, *, cache_ckv, cache_kr, pos: int, kv_pos, kv_valid):
+def mla_decode(p, x: torch.Tensor, cfg, *, cache_ckv, cache_kr, pos: int, kv_pos, kv_valid,
+               slots=None, hint=None):
     """Absorbed-matrix MLA decode: attention runs in the latent space, in
     f32, and the cache stores only (c_kv, k_rope).  cache_ckv (B, T, r_kv)
     and cache_kr (B, T, rope_dim) are written in place at slot ``pos % T``
-    (as `gqa_decode`'s).  Returns (out, (cache_ckv, cache_kr))."""
+    (as `gqa_decode`'s).  Returns (out, (cache_ckv, cache_kr)).  On a mesh,
+    `slots` and `hint` as in `gqa_decode`: the latents are every rank's;
+    under "tp" the rank's heads' latent queries (``w_uq``, ``w_uk``) are
+    gathered over the model axis, every head attends over the rank's
+    slots, and the rank's heads of the merged latent output go through its
+    ``w_uv`` and its rows of ``w_o``, summed over the axis."""
     m = cfg.mla
     B = x.shape[0]
-    h = cfg.n_heads
+    tp = getattr(hint, "layout", None) == "tp"
+    lcfg = local_heads(cfg, hint)
+    h = lcfg.n_heads
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     c_kv, k_r = _mla_latents(p, x, cfg, positions)  # (B, 1, r), (B, 1, 1, rd)
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)  # (B, 1, h, *)
-    slot = pos % cache_ckv.shape[1]
-    cache_ckv[:, slot] = c_kv[:, 0].to(cache_ckv.dtype)
-    cache_kr[:, slot] = k_r[:, 0, 0].to(cache_kr.dtype)
+    q_nope, q_rope = _mla_q(p, x, lcfg, positions)  # (B, 1, h, *)
+    _write_slot((cache_ckv, cache_kr), (c_kv, k_r[:, :, 0]), pos, slots)
     # absorb: q_c = q_nope @ w_uk (per head), a latent-space query
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_dim).float()
     q_c = torch.einsum("bshd,rhd->bshr", q_nope.float(), w_uk)
+    q_rope = q_rope.float()
+    if tp:
+        q_c, q_rope = (comm.all_gather(t, 2, hint.seq_group) for t in (q_c, q_rope))
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     ckv = cache_ckv.float()
     s = torch.einsum("bshr,btr->bhst", q_c, ckv)
-    s = s + torch.einsum("bshd,btd->bhst", q_rope.float(), cache_kr.float())
+    s = s + torch.einsum("bshd,btd->bhst", q_rope, cache_kr.float())
     bias = _mask_bias(positions, kv_pos, causal=True, window=None, kv_valid=kv_valid)
-    probs = torch.softmax(s * scale + bias[:, None], dim=-1)
+    merge = _merge(slots, hint)
+    probs = softmax_over(s * scale + bias[:, None], merge)
     o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+    if merge is not None:
+        o_lat = merge.sum(o_lat)
+    if tp:
+        o_lat = o_lat.narrow(2, hint.model_rank * h, h)
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_dim).float()
     out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv).to(x.dtype)
-    return out.reshape(B, 1, -1) @ p["w_o"], (cache_ckv, cache_kr)
+    y = out.reshape(B, 1, -1) @ p["w_o"]
+    return (tp_sum(y, hint) if tp else y), (cache_ckv, cache_kr)

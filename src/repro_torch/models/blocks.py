@@ -32,7 +32,12 @@ Under a model layout (`sharding.rules.model_layout`, the hint's) a block's
 input and output are the rank's slice of the sequence (JAX's ``"act"``):
 the norms run there, attention and the MLP split the work as the layout
 says (`attention`, `layers.apply_mlp`), and a recurrent mixer gathers the
-sequence at entry, computes it whole and keeps its slice at exit.
+sequence at entry, computes it whole and keeps its slice at exit.  In
+decode (`sharding.rules.decode_layout`) the rows are whole on every rank
+of the model axis: attention reads the rank's slots of the cache
+(split-K), "tp" splits the heads and the FFN hidden, the MoE experts run
+where they lie, and a recurrent mixer computes its whole state, as JAX's
+(whose `cache_specs` does not split it).
 """
 
 from __future__ import annotations
@@ -217,13 +222,16 @@ def init_block_cache(
 
 
 def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, kv_pos, kv_valid,
-                       hint=None):
+                       hint=None, slots=None, ctx_split: bool = False):
     """One-token apply -> (h, cache entry), the entry's tensors written in
     place (`attention.gqa_decode`, `attention.mla_decode`; a state kind's
     new state copied into its entry); the context's K / V are read only
     (``xattn`` returns its entry as it was).  The MoE FFN runs at
     ``decode_capacity_factor``, as in JAX.  ``enc`` has no decode
-    (`ValueError`, as in JAX)."""
+    (`ValueError`, as in JAX).  On a mesh (`hint` a decode hint): `slots`
+    the rank's slot range of the self-attention's cache (`gqa_decode`),
+    `ctx_split` whether the context's K / V are the rank's rows of it
+    (`attention.cross_attn`)."""
     check_kind(kind)
     if kind == "enc":
         raise ValueError("block kind 'enc' runs in the encoder's prefill only: it has no decode")
@@ -235,9 +243,10 @@ def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, k
             cache[entry].copy_(t)
         return h + y, cache
     if kind == "xattn":
-        h = h + attn_mod.cross_attn(p["attn"], x, (cache["k"], cache["v"]), cfg)
-        return _gated_ffn(p, h, cfg), cache
-    mask = dict(pos=pos, kv_pos=kv_pos, kv_valid=kv_valid)
+        h = h + attn_mod.cross_attn(p["attn"], x, (cache["k"], cache["v"]), cfg, hint=hint,
+                                    split=ctx_split)
+        return _gated_ffn(p, h, cfg, hint), cache
+    mask = dict(pos=pos, kv_pos=kv_pos, kv_valid=kv_valid, slots=slots, hint=hint)
     if kind in MLA_KINDS:
         a, (ckv, kr) = attn_mod.mla_decode(
             p["attn"], x, cfg, cache_ckv=cache["ckv"], cache_kr=cache["kr"], **mask
@@ -251,7 +260,8 @@ def apply_block_decode(kind: str, p, h: torch.Tensor, cfg, *, cache, pos: int, k
     h = h + a
     if kind == "dec":
         x = apply_norm(h, p["ln_x"], **_norm(cfg))
-        h = h + attn_mod.cross_attn(p["xattn"], x, (cache["xk"], cache["xv"]), cfg)
+        h = h + attn_mod.cross_attn(p["xattn"], x, (cache["xk"], cache["xv"]), cfg, hint=hint,
+                                    split=ctx_split)
     cf = cfg.moe.decode_capacity_factor if kind in MOE_KINDS else None
     h, _ = _ffn(kind, p, h, cfg, capacity_factor=cf, hint=hint)
     return h, new_cache

@@ -185,6 +185,23 @@ def init_mlp(
     )
 
 
+def tp_rows(x: torch.Tensor, hint) -> torch.Tensor:
+    """The input rows of a tensor-parallel product under `hint`'s "tp"
+    layout: the sequence gathered (JAX's ``"act"`` slices); in decode
+    (``hint.decode``) every rank of the model axis holds them whole."""
+    return x if hint.decode else comm.gather_dim(x, 1, hint.seq_group)
+
+
+def tp_sum(y: torch.Tensor, hint) -> torch.Tensor:
+    """A row-parallel product's partial sums under `hint`'s "tp" layout:
+    reduce-scattered back to the sequence slices; in decode summed over the
+    model axis in f32 and rounded once (S = 1: nothing to scatter, and the
+    rows are few)."""
+    if hint.decode:
+        return comm.sum_over(y.float(), hint.seq_group).to(y.dtype)
+    return comm.scatter_dim(y, 1, hint.seq_group)
+
+
 def apply_mlp(p, x: torch.Tensor, *, act: str, style: str, hint=None) -> torch.Tensor:
     """The MLP of `x` (..., D).  Under the tensor-parallel layout of `hint`
     (`sharding.rules.model_layout`) `x` is the rank's slice of the sequence
@@ -192,18 +209,20 @@ def apply_mlp(p, x: torch.Tensor, *, act: str, style: str, hint=None) -> torch.T
     ``"ffn"``): the column-parallel ``w_gate`` / ``w_up`` run on the
     sequence gathered, the row-parallel ``w_down``'s partial sums are
     reduce-scattered back to the slices, and ``b_down`` is added once,
-    after.  Under "sp" the slice runs through the whole MLP."""
+    after (in decode the rows are whole and the partial sums summed over
+    the axis: `tp_rows`, `tp_sum`).  Under "sp" and "splitk" the rows run
+    through the whole MLP."""
     a = ACTIVATIONS[act]
     tp = getattr(hint, "layout", None) == "tp"
     if tp:
-        x = comm.gather_dim(x, 1, hint.seq_group)
+        x = tp_rows(x, hint)
     if style == "glu":
         y = (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-        return comm.scatter_dim(y, 1, hint.seq_group) if tp else y
+        return tp_sum(y, hint) if tp else y
     h = a(linear(x, p["w_up"], p["b_up"]))
     if not tp:
         return linear(h, p["w_down"], p["b_down"])
-    y = comm.scatter_dim(h @ p["w_down"], 1, hint.seq_group)
+    y = tp_sum(h @ p["w_down"], hint)
     return y + p["b_down"].to(y.dtype)
 
 

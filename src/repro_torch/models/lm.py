@@ -52,9 +52,16 @@ the head and the loss vocab-parallel (`_embed`, `_head`,
 `layers.softmax_cross_entropy_vp`), and a layer's parameters are gathered
 where it reads them (a tensor-parallel one over "data" only), inside its
 remat'd function, so the backward pass gathers them again
-(`sharding.comm.gather_param`).  `prefill` hands decode every rank's rows
-whole (K / V heads gathered), as decode reads them.  The attention kernel
-and every other kernel see plain local tensors.
+(`sharding.comm.gather_param`).  A decode step splits its rows' work over
+the model axis as JAX lays it out (`sharding.rules.decode_layout`): the
+cache's time axis over "model" where `sharding.rules.cache_specs` splits
+it (each rank attends over its slots, the softmax merged over the axis:
+split-K), under "tp" the heads and FFN hidden too, the embedding and head
+vocab-parallel, the MoE experts where they lie.  On a mesh the cache holds
+the rank's part of each entry (`init_cache(mesh=)`, and `prefill`'s for
+its S positions) and, under ``global``, the global batch and each time
+entry's global slots, which a local tensor cannot tell.  The attention
+kernel and every other kernel see plain local tensors.
 """
 
 from __future__ import annotations
@@ -209,7 +216,8 @@ def _embed(model: LM, tokens: torch.Tensor, hint=None) -> torch.Tensor:
     the rank's slice of the sequence (B, S / m, D): vocab-parallel, each rank
     looks its vocab rows up, zeros for the others, and the sums are
     reduce-scattered over the sequence; with the vocabulary whole, the
-    slice's tokens are looked up."""
+    slice's tokens are looked up.  In decode (``hint.decode``) the rows are
+    whole on every rank: the vocab-parallel sums are summed over the axis."""
     table = _at(model, hint).embed
     if _layout(hint) is None:
         x = table[tokens]
@@ -219,7 +227,11 @@ def _embed(model: LM, tokens: torch.Tensor, hint=None) -> torch.Tensor:
         ok = (idx >= 0) & (idx < rows)
         x = table[idx.clamp(0, rows - 1)]
         x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-        x = comm.scatter_dim(x, 1, hint.seq_group)
+        # decode: the rows whole on every rank, the one rank's row plus zeros
+        x = comm.sum_over(x, hint.seq_group) if hint.decode else comm.scatter_dim(
+            x, 1, hint.seq_group)
+    elif hint.decode:
+        x = table[tokens]
     else:
         x = table[comm.slice_dim(tokens, 1, hint.seq_group)]
     if model.cfg.scale_embed:
@@ -239,7 +251,7 @@ def _head(model: LM, h: torch.Tensor, hint=None) -> torch.Tensor:
     cfg = model.cfg
     model = _at(model, hint)
     h = apply_norm(h, model.final_norm, **_norm(cfg))
-    if getattr(hint, "vocab_parallel", False):
+    if getattr(hint, "vocab_parallel", False) and not hint.decode:
         h = comm.gather_dim(h, 1, hint.seq_group)
     if cfg.tie_embeddings:
         return h @ model.embed.T
@@ -497,10 +509,11 @@ def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
     `extras` holds the context input of a cross-attention arch (module
     docstring).  `mode` reaches the attention kernel (``"ref"``: its plain
     version).  The MoE metrics are dropped, as JAX's prefill drops them.
-    With a sharded `hint`, as in `forward`: the logits and the cache are
-    this rank's rows', whole (the last position's logits gathered over the
-    vocabulary, `_last_logits`; the K / V heads over the model axis,
-    `_whole_cache`), as decode reads them."""
+    With a sharded `hint`, as in `forward`: the logits are this rank's
+    rows' (the last position's gathered over the vocabulary,
+    `_last_logits`), and the cache is this rank's part of them in
+    `rules.cache_specs`' layout for S positions (`_cache_part`, one layer
+    at a time), with its ``global`` sizes (module docstring)."""
     _check_sharded(model, hint)
     batch, hint = local_batch({"tokens": tokens, **(extras or {})}, hint)
     tokens = batch.pop("tokens")
@@ -510,18 +523,27 @@ def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
     ctx = _context(model, extras, B, mode=mode, hint=hint)
     h = _embed(model, tokens, hint)
     cache: dict = {"groups": [], "shared": [], "pos": S}
+    glob: dict = {"batch": hint.batch, "groups": [], "shared": []} if sharded(hint) else {}
     for kind, layers in model.groups():
         entries = []
         for p in layers:
             h, c, _ = blocks_mod.apply_block(kind, _at(p, hint), h, cfg, ctx=ctx, mode=mode,
                                              hint=hint)
-            entries.append(_whole_cache(c, hint))
+            part, slots = _cache_part(kind, c, hint)
+            entries.append(part)
         cache["groups"].append({name: torch.stack([c[name] for c in entries]) for name in entries[0]})
         del entries
+        if glob:
+            glob["groups"].append(slots)
         if cfg.shared_attn_every:
             h, c, _ = blocks_mod.apply_block("attn", _at(model.shared_block, hint), h, cfg,
                                              mode=mode, hint=hint)
-            cache["shared"].append(_whole_cache(c, hint))
+            part, slots = _cache_part("attn", c, hint)
+            cache["shared"].append(part)
+            if glob:
+                glob["shared"].append(slots)
+    if glob:
+        cache["global"] = glob
     return _last_logits(model, h, hint), cache
 
 
@@ -529,16 +551,40 @@ def prefill(model: LM, tokens: torch.Tensor, *, extras: dict | None = None,
 HEAD_ENTRIES = ("k", "v", "xk", "xv")
 
 
-def _whole_cache(entry: dict, hint) -> dict:
-    """A layer's prefill cache entry as decode reads it: under the
-    tensor-parallel layout its K / V heads gathered over the model axis
-    (dimension 2); every other entry is whole already (the sequence-parallel
-    layout's K / V and MLA's latents are gathered over the sequence, a
-    recurrent mixer's state is computed whole)."""
-    if _layout(hint) != "tp":
-        return entry
-    return {name: comm.gather_dim(t, 2, hint.seq_group) if name in HEAD_ENTRIES else t
-            for name, t in entry.items()}
+def _cache_part(kind: str, entry: dict, hint) -> tuple[dict, dict]:
+    """A layer's prefill cache entry as the rank keeps it (`rules.cache_specs`
+    for its global batch): each K / V, latent or context entry's rank's
+    slice of the time axis (dimension 1) where the spec splits it, else the
+    entry whole; every head either way.  Under the tensor-parallel layout
+    the rank computed its heads for every position: one all-to-all trades
+    them for every head of its slots (`_heads_to_time`), or the heads are
+    gathered; the other layouts computed every head whole (the
+    sequence-parallel K / V and MLA's latents gathered over the sequence),
+    so the rank keeps its slice.  A recurrent state is whole.  -> (the
+    rank's entry, the global slots of each of its time entries)."""
+    if not sharded(hint) or kind in blocks_mod.STATE_KINDS:
+        return entry, {}
+    seq = hint.seq_group
+    out, slots = {}, {}
+    for name, t in entry.items():
+        split = rules.time_split(hint.batch, t.shape[1], hint.mesh, hint.cfg)
+        slots[name] = t.shape[1]
+        if _layout(hint) == "tp" and name in HEAD_ENTRIES:
+            t = _heads_to_time(t, seq) if split else comm.all_gather(t, 2, seq)
+        elif split:
+            t = comm.slice_dim(t, 1, seq)
+        out[name] = t
+    return out, slots
+
+
+def _heads_to_time(t: torch.Tensor, group) -> torch.Tensor:
+    """(B, T, G / m, hd), the rank's heads at every slot, -> (B, T / m, G,
+    hd), every head at the rank's slots: one all-to-all over `group`."""
+    m = comm.group_size(group)
+    B, T, g, hd = t.shape
+    x = t.reshape(B, m, T // m, g, hd).transpose(0, 1)  # chunk j: slot block j
+    y = comm.all_to_all(x, group)  # chunk j: rank j's heads of this rank's slots
+    return y.permute(1, 2, 0, 3, 4).reshape(B, T // m, m * g, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -565,44 +611,71 @@ def decode_step(model: LM, tokens: torch.Tensor, cache: dict, *, hint=None):
     """tokens (B, 1): append one token at absolute position ``cache["pos"]``
     -> (logits (B, V), cache).  The cache's tensors are written in place;
     the returned dict holds them and ``pos + 1``.  With a sharded `hint`,
-    the tokens and the cache are this rank's rows (`prefill`'s)."""
+    the tokens and the cache are this rank's rows and its part of each
+    entry (`init_cache(mesh=)`, `prefill`'s), the work split over the model
+    axis as `rules.decode_layout` says (module docstring)."""
     _check_sharded(model, hint)
     cfg = model.cfg
     pos = cache["pos"]
+    glob = cache.get("global")
     if sharded(hint):
-        hint = hint.at(tokens.shape[1])
+        if glob is None:
+            raise ValueError("a sharded decode needs a cache of init_cache(mesh=) or prefill(hint=)")
+        hint = hint.for_decode(glob["batch"])
+    dev = tokens.device
     h = _embed(model, tokens, hint)
     for gi, ((kind, layers), gcache) in enumerate(zip(model.groups(), cache["groups"])):
-        cache_len = _group_cache_len(kind, gcache)
-        kv_pos, kv_valid = (
-            ring_positions(pos, cache_len, device=tokens.device) if cache_len else (None, None)
-        )
+        gglob = glob["groups"][gi] if glob else None
+        cache_len = _group_cache_len(kind, gcache, gglob)
+        kv = (_slot_view(pos, cache_len, _time_len(kind, gcache), hint, dev) if cache_len
+              else dict(kv_pos=None, kv_valid=None))
+        ctx = blocks_mod.CONTEXT_ENTRIES.get(kind, ())
+        ctx_split = bool(ctx) and gglob is not None and gcache[ctx[0]].shape[2] != gglob[ctx[0]]
         for li, p in enumerate(layers):
             c = {name: t[li] for name, t in gcache.items()}
             h, _ = blocks_mod.apply_block_decode(
-                kind, _at(p, hint), h, cfg, cache=c, pos=pos, kv_pos=kv_pos, kv_valid=kv_valid,
-                hint=hint,
-            )
+                kind, _at(p, hint), h, cfg, cache=c, pos=pos, hint=hint, ctx_split=ctx_split, **kv)
         if cfg.shared_attn_every:
             sc = cache["shared"][gi]
-            sp, sv = ring_positions(pos, sc["k"].shape[1], device=tokens.device)
+            total = glob["shared"][gi]["k"] if glob else sc["k"].shape[1]
             h, _ = blocks_mod.apply_block_decode(
-                "attn", _at(model.shared_block, hint), h, cfg, cache=sc, pos=pos, kv_pos=sp,
-                kv_valid=sv, hint=hint,
+                "attn", _at(model.shared_block, hint), h, cfg, cache=sc, pos=pos, hint=hint,
+                **_slot_view(pos, total, sc["k"].shape[1], hint, dev),
             )
     logits = _head(model, h, hint)
+    if getattr(hint, "vocab_parallel", False):
+        logits = comm.all_gather(logits, 2, hint.seq_group)
     return logits[:, 0, :], dict(cache, pos=pos + 1)
 
 
-def _group_cache_len(kind: str, gcache) -> int | None:
-    """Ring slots of a run's cache; None for a state kind (no time axis) and
+def _slot_view(pos: int, total: int, local: int, hint, device) -> dict:
+    """The ring positions (`ring_positions`) of the slots a rank's cache
+    holds: `local` of `total` slots; when fewer, its block of them on the
+    model axis (`rules.cache_specs`' contiguous split) -> ``kv_pos``,
+    ``kv_valid`` and ``slots`` ((first, total) or None) for
+    `blocks.apply_block_decode`."""
+    kv_pos, kv_valid = ring_positions(pos, total, device=device)
+    if local == total:
+        return dict(kv_pos=kv_pos, kv_valid=kv_valid, slots=None)
+    first = hint.model_rank * local
+    return dict(kv_pos=kv_pos[first:first + local], kv_valid=kv_valid[first:first + local],
+                slots=(first, total))
+
+
+def _time_len(kind: str, gcache) -> int:
+    """Slots a run's self-attention or MLA cache holds here."""
+    return gcache["ckv" if kind in blocks_mod.MLA_KINDS else "k"].shape[2]
+
+
+def _group_cache_len(kind: str, gcache, glob: dict | None = None) -> int | None:
+    """Ring slots of a run's cache (its global count: `glob`, the run's
+    ``global`` slots on a mesh); None for a state kind (no time axis) and
     for ``xattn`` (its slots are the context's, which decode reads whole)."""
     blocks_mod.check_kind(kind)
     if kind in blocks_mod.STATE_KINDS or kind == "xattn":
         return None
-    if kind in blocks_mod.MLA_KINDS:
-        return gcache["ckv"].shape[2]  # (L, B, T, r_kv)
-    return gcache["k"].shape[2]  # (L, B, T, G, hd)
+    name = "ckv" if kind in blocks_mod.MLA_KINDS else "k"
+    return glob[name] if glob else gcache[name].shape[2]  # (L, B, T, ...)
 
 
 # ---------------------------------------------------------------------------
@@ -611,14 +684,39 @@ def _group_cache_len(kind: str, gcache) -> int | None:
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, ctx_len: int | None = None,
-               device=None) -> dict:
+               device=None, mesh=None) -> dict:
     """Zero cache in the weights' dtype for `cache_len` positions on `device`
     (None = "cuda"; "meta" for the dry run, as `LM`): attention layers keep
     a ring of `cfg.window` slots when the arch has a window, MLA layers the
     full length, each application of the shared block a ring of
     ``min(cache_len, SHARED_ATTN_SLOTS)`` slots, the state kinds their f32
     state, and the context's K / V `ctx_len` rows (`blocks.init_block_cache`;
-    as JAX's)."""
+    as JAX's).  With `mesh`, `batch` is the global batch and the cache this
+    rank's part of it, each entry as `rules.cache_specs` lays it out (the
+    rows over the batch axes, the time axis over "model"), with its
+    ``global`` sizes (module docstring)."""
+    if mesh is not None:
+        whole = init_cache(cfg, batch, cache_len, ctx_len=ctx_len, device="meta")
+        specs = rules.cache_specs(whole, mesh, cfg)
+        dev = _model_device(device)
+
+        def part(t, spec):
+            shape = rules.local_part(t, mesh, rules.placements(spec, mesh)).shape
+            return torch.zeros(shape, dtype=t.dtype, device=dev)
+
+        def time_slots(entry: dict, axis: int) -> dict:
+            return {n: t.shape[axis] for n, t in entry.items() if n in rules.CACHE_TIME_ENTRIES}
+
+        return {
+            "groups": [{n: part(t, specs["groups"][i][n]) for n, t in g.items()}
+                       for i, g in enumerate(whole["groups"])],
+            "shared": [{n: part(t, specs["shared"][i][n]) for n, t in g.items()}
+                       for i, g in enumerate(whole["shared"])],
+            "pos": 0,
+            "global": {"batch": batch,
+                       "groups": [time_slots(g, 2) for g in whole["groups"]],
+                       "shared": [time_slots(g, 1) for g in whole["shared"]]},
+        }
     dev = _model_device(device)
     dtype = cfg.param_dtype
     window_len = min(cache_len, cfg.window) if cfg.window else cache_len

@@ -27,9 +27,15 @@ batch, so that the aux loss is the global batch's, as under JAX's GSPMD.
 Under a model layout (`sharding.rules.model_layout`) the input is the
 rank's slice of the sequence: the grouped-scatter path, whose capacity
 groups are whole sequences, gathers the sequence and keeps its slice of
-the output.  The
-shared experts run as the dense MLP does (`layers.apply_mlp`, "tp" or
-"sp").  ``router_bias`` is updated by `train.step`.  The expert products are
+the output.  A decode step on a mesh (``hint.decode``) takes the
+expert-parallel path of JAX's ``"moe_group"`` / ``"moe_dispatch"`` hints
+at S = 1 (`_moe_decode_ep`): the experts stay where `rules.param_specs`
+lays them (over ("data", "model") or "model" alone), each rank runs its
+experts on every row routed to them, the rows gathered over the batch
+axes the stacks span, and the partial outputs are summed over the
+stacks' axes; no rank gathers an expert stack.  The shared experts run
+as the dense MLP does (`layers.apply_mlp`, "tp" or "sp").
+``router_bias`` is updated by `train.step`.  The expert products are
 batched matmuls over E, as JAX's einsums are (no Pallas kernel there).
 """
 
@@ -38,6 +44,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -128,6 +135,11 @@ def _routed(p, x: torch.Tensor, cfg, capacity_factor, hint):
     if mesh is None:
         return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor)
     B, S, D = x.shape
+    if getattr(hint, "decode", False):
+        plan = _ep_decode_plan(mesh, cfg, hint.batch)
+        if plan is not None:
+            return _moe_decode_ep(p, x, cfg, capacity_factor, plan)
+        return _moe_ffn_scatter(p, x, cfg, capacity_factor=capacity_factor)
     sliced = getattr(hint, "layout", None) is not None
     S_glob = S * hint.model_size if sliced else S
     n = hint.batch if S > 1 else B
@@ -228,6 +240,70 @@ def _moe_ffn_a2a(p, x: torch.Tensor, cfg, plan):
     metrics = {"moe_aux": mets[0], "moe_z": mets[1], "moe_drop_frac": mets[2],
                "expert_load": load}
     return out, metrics
+
+
+def _ep_decode_plan(mesh, cfg, batch: int):
+    """The expert-parallel decode of a global batch of `batch` rows on
+    `mesh`, or None where the expert stacks are whole on every rank: the
+    axes the stacks lie over (``ep``, `rules.param_specs`' rule) and the
+    batch axes among them over which the rows are
+    gathered (``rows``: a row is whole along "model", and along an axis
+    that does not split the batch every rank holds the same rows)."""
+    sizes = rules.mesh_axis_sizes(mesh)
+    ax = rules._maybe(("data", "model"), cfg.moe.n_experts, sizes)
+    if ax is None:
+        return None
+    ep = (ax,) if isinstance(ax, str) else tuple(ax)
+    rows = tuple(a for a in rules.batch_axes(batch, mesh, cfg) if a in ep)
+    return {"mesh": mesh, "ep": ep, "rows": rows}
+
+
+def _moe_decode_ep(p, x: torch.Tensor, cfg, capacity_factor, plan):
+    """The routed experts of a decode step (`_ep_decode_plan`) on this
+    rank's rows `x` (B, 1, D), whole on every rank of the model axis: the
+    rows, their choices and their weights gathered over ``plan["rows"]``,
+    this rank's experts (its part of the stacks, `lm.Gathered.local`) run on
+    every gathered row routed to them, the weighted outputs summed in f32
+    over the stacks' ranks and rounded once, and the rank's rows kept.
+    Each (row, expert) pair is computed on the one rank holding the expert.
+    The capacity is a row's (C = ceil(k / E x cf), as `_moe_ffn_scatter`'s
+    at S = 1): a choice past it weighs 0."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, k = m.n_experts, m.top_k
+    mesh = plan["mesh"]
+    w, idx, metrics = _route(p, x, m)
+    idx = idx.reshape(B * S, k)
+    oh = F.one_hot(idx, E)
+    slot = torch.gather(torch.cumsum(oh, dim=1) - oh, 2, idx[:, :, None])[:, :, 0]
+    del oh
+    keep = slot < capacity(cfg, S, capacity_factor)
+    metrics["moe_drop_frac"] = 1.0 - torch.mean(keep.to(torch.float32))
+    wk = w.reshape(B * S, k) * keep
+    xr = x.reshape(B * S, D)
+    rows = comm.axes_group(mesh, plan["rows"]) if plan["rows"] else None
+    if rows is not None:
+        xr, idx, wk = (comm.all_gather(t, 0, rows) for t in (xr, idx, wk))
+    wg, wu, wd = (p.local(n) for n in ("w_gate", "w_up", "w_down"))
+    ep = comm.axes_group(mesh, plan["ep"])
+    E_loc = wg.shape[0]
+    e0 = dist.get_rank(ep) * E_loc
+    mine = (idx >= e0) & (idx < e0 + E_loc)
+    e_loc = torch.clamp(idx - e0, 0, E_loc - 1)
+    n = xr.shape[0]
+    row = torch.arange(n, device=x.device)[:, None].expand(n, k)
+    upd = torch.where(mine[:, :, None], xr[:, None, :].expand(n, k, D),
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    x_e = xr.new_zeros((E_loc, n, D)).index_put_((e_loc, row), upd, accumulate=True)
+    del upd
+    act = ACTIVATIONS[m.act]
+    y_e = torch.bmm(act(torch.bmm(x_e, wg)) * torch.bmm(x_e, wu), wd)
+    del x_e
+    y = torch.sum(y_e[e_loc, row].float() * (wk * mine)[:, :, None], dim=1)
+    y = comm.sum_over(y, ep)
+    if rows is not None:
+        y = y.chunk(comm.group_size(rows))[dist.get_rank(rows)]
+    return y.to(x.dtype).reshape(B, S, D), metrics
 
 
 def _moe_ffn_scatter(p, x: torch.Tensor, cfg, *, capacity_factor: float | None = None,

@@ -62,12 +62,12 @@ place (`models.attention.gqa_decode`).
 
 from __future__ import annotations
 
-import math
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import autotune, faultinject
 from ..core.device import resolve_device
@@ -577,8 +577,10 @@ def generate(
     (`lm.context_len`) and a prompt that the decode buffers cannot hold
     (`check_prompt_fits`) raise `ValueError` before anything runs.  With
     `mesh` the model is `lm.shard_model`'s on it: every rank passes the
-    same prompts, runs the rows `sharding.rules.batch_specs` gives it, and
-    returns every row's tokens."""
+    same prompts, runs the rows `sharding.rules.batch_specs` gives it, holds
+    its part of their decode cache (`lm.init_cache(mesh=)`: the time axis
+    over "model" where `rules.cache_specs` splits it), and returns every
+    row's tokens."""
     dev = resolve_device(device)
     here = model.device
     if here.type != dev.type or (dev.index is not None and here.index != dev.index):
@@ -591,13 +593,12 @@ def generate(
         ctx_len = lm.context_len(cfg, extras, B)
         cache_len = cache_len or (S + steps)
         rows = rules.batch_axes(B, mesh, cfg) if mesh is not None else ()
-        n_split = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in rows)
-        cache = lm.init_cache(cfg, B // n_split, cache_len, ctx_len=ctx_len, device=dev)
+        cache = lm.init_cache(cfg, B, cache_len, ctx_len=ctx_len, device=dev, mesh=mesh)
         check_prompt_fits(cache, S, cfg)
         decode = make_decode_step(cfg, mesh)
         tok, pcache = make_prefill_step(cfg, mesh, mode=mode)(model, prompt, extras)
         # re-home the prefill cache into the fixed-size decode buffers
-        cache = _adopt_prefill(cache, pcache, cfg)
+        cache = _adopt_prefill(cache, pcache, cfg, mesh=mesh)
         del pcache
         out = [tok]
         for _ in range(steps - 1):
@@ -616,36 +617,58 @@ def check_prompt_fits(cache: dict, S: int, cfg) -> None:
     and every shared-block application's ring holds S slots.  The state
     kinds hold any prompt; an ``xattn`` run's slots are the context's, not
     the prompt's (a ``dec`` run's ``xk`` / ``xv`` likewise, beside its
-    ``k``)."""
-    for (kind, _), buf in zip(cfg.blocks, cache["groups"]):
-        slots = lm._group_cache_len(kind, buf)
+    ``k``).  On a mesh the global slots are judged (the cache's
+    ``global``)."""
+    glob = cache.get("global")
+    for gi, ((kind, _), buf) in enumerate(zip(cfg.blocks, cache["groups"])):
+        slots = lm._group_cache_len(kind, buf, glob["groups"][gi] if glob else None)
         if slots is not None and S > slots != cfg.window:
             raise ValueError(
                 f"a prompt of {S} tokens does not fit a decode cache of {slots} slots "
                 f"(window {cfg.window})"
             )
-    for buf in cache.get("shared", []):
-        if S > buf["k"].shape[1]:
+    for i, buf in enumerate(cache.get("shared", [])):
+        slots = glob["shared"][i]["k"] if glob else buf["k"].shape[1]
+        if S > slots:
             raise ValueError(
-                f"a prompt of {S} tokens does not fit the shared block's ring of "
-                f"{buf['k'].shape[1]} slots"
+                f"a prompt of {S} tokens does not fit the shared block's ring of {slots} slots"
             )
 
 
-def _put_positions(buf: dict, pre: dict, axis: int) -> None:
-    """Copy each prefill entry's S positions (at `axis`) into its buffer's T
-    slots: position p to slot p when S <= T, else the last T positions to
-    slots ``p % T``."""
-    for name, dst in buf.items():
-        S, T = pre[name].shape[axis], dst.shape[axis]
-        src = pre[name].narrow(axis, max(0, S - T), min(S, T)).to(dst.dtype)
-        if S <= T:
-            dst.narrow(axis, 0, S).copy_(src)
-        else:
-            dst.index_copy_(axis, torch.arange(S - T, S, device=src.device) % T, src)
+def _put_positions(dst: torch.Tensor, src: torch.Tensor, axis: int, first: int = 0,
+                   total: int | None = None) -> None:
+    """Copy a prefill entry's S positions (`src`, at `axis`) into a decode
+    buffer `dst` that holds slots ``first`` .. of `total` (all of them by
+    default): position p to slot p when S <= total, else the last `total`
+    positions to slots ``p % total``."""
+    S, n = src.shape[axis], dst.shape[axis]
+    total = total or n
+    src = src.to(dst.dtype)
+    if S <= total:
+        count = min(n, S - first)
+        if count > 0:
+            dst.narrow(axis, 0, count).copy_(src.narrow(axis, first, count))
+    else:  # slot g holds the position p in [S - total, S) with p % total == g
+        g = torch.arange(first, first + n, device=src.device)
+        dst.copy_(src.index_select(axis, g + total * ((S - 1 - g) // total)))
 
 
-def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
+def _adopt_entry(dst: torch.Tensor, src: torch.Tensor, axis: int, dst_total: int,
+                 src_total: int, seq, context: bool) -> None:
+    """`_adopt_prefill` for one layer's entry (its time axis `axis`) on a
+    mesh: the prefill's slice of the S positions gathered over the model
+    axis (`seq`) when it holds fewer than `src_total` (one collective), then
+    the buffer's own slots filled (a context entry: its rows)."""
+    if src.shape[axis] != src_total:
+        src = comm.all_gather(src, axis, seq)
+    first = dist.get_rank(seq) * dst.shape[axis] if dst.shape[axis] != dst_total else 0
+    if context:
+        dst.copy_(src.narrow(axis, first, dst.shape[axis]))
+    else:
+        _put_positions(dst, src, axis, first, dst_total)
+
+
+def _adopt_prefill(cache: dict, pcache: dict, cfg, mesh=None) -> dict:
     """Copy the prefill cache into the decode buffers, in place, entry by
     entry by name.
 
@@ -664,6 +687,12 @@ def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
     1) go to its ring as a full cache's.  A prompt that does not fit
     (`check_prompt_fits`) raises `ValueError`.
 
+    On a `mesh` both caches are a rank's parts (`lm.init_cache(mesh=)`,
+    `lm.prefill`'s): each layer's prefill entry, split over "model" or
+    whole, is gathered where split (one collective a layer and entry), and
+    the rank fills the decode slots it owns with the positions above (the
+    context's rows likewise), so that slot p % T lies on its owner.
+
     This departs from JAX's `_adopt_prefill` (`repro.serve.cv_engine`) in
     three ways, each where JAX keeps a zeroed buffer: a sliding-window ring
     when S > T, where JAX's decode attends to zeros marked valid; a shared
@@ -673,21 +702,48 @@ def _adopt_prefill(cache: dict, pcache: dict, cfg) -> dict:
     sizes the context entries from the input).  The port is held to JAX's
     `lm.forward` there, not to JAX's `generate`."""
     check_prompt_fits(cache, pcache["pos"], cfg)
-    for (kind, _), buf, pre in zip(cfg.blocks, cache["groups"], pcache["groups"], strict=True):
+    dglob, pglob = cache.get("global"), pcache.get("global")
+    if mesh is not None and (dglob is None or pglob is None):
+        raise ValueError("_adopt_prefill on a mesh takes init_cache(mesh=)'s and prefill's caches")
+    seq = comm.axes_group(mesh, ("model",)) if mesh is not None else None
+    for gi, ((kind, _), buf, pre) in enumerate(
+            zip(cfg.blocks, cache["groups"], pcache["groups"], strict=True)):
         if set(buf) != set(pre):
             raise ValueError(f"prefill cache entries {sorted(pre)} against {sorted(buf)}")
-        whole = tuple(buf) if kind in STATE_KINDS else CONTEXT_ENTRIES.get(kind, ())
-        for name in whole:
-            if buf[name].shape != pre[name].shape:
+        state = kind in STATE_KINDS
+        context = CONTEXT_ENTRIES.get(kind, ())
+        for name in tuple(buf) if state else context:
+            a, b = pre[name].shape, buf[name].shape
+            if state or seq is None:
+                bad = a != b
+            else:  # the rows of the context, globally
+                bad = (a[:2] + a[3:] != b[:2] + b[3:]
+                       or pglob["groups"][gi][name] != dglob["groups"][gi][name])
+            if bad:
                 raise ValueError(
                     f"{kind} {name}: prefill {tuple(pre[name].shape)} against "
                     f"{tuple(buf[name].shape)}"
                 )
-        _put_positions({n: t for n, t in buf.items() if n not in whole}, pre, axis=2)
-        for name in whole:
-            buf[name].copy_(pre[name])
-    for buf, pre in zip(cache.get("shared", []), pcache.get("shared", []), strict=True):
-        _put_positions(buf, pre, axis=1)
+        for name, dst in buf.items():
+            if state:
+                dst.copy_(pre[name])
+            elif seq is None:
+                if name in context:
+                    dst.copy_(pre[name])
+                else:
+                    _put_positions(dst, pre[name], 2)
+            else:
+                for li in range(dst.shape[0]):  # one layer at a time
+                    _adopt_entry(dst[li], pre[name][li], 1, dglob["groups"][gi][name],
+                                 pglob["groups"][gi][name], seq, name in context)
+    for i, (buf, pre) in enumerate(
+            zip(cache.get("shared", []), pcache.get("shared", []), strict=True)):
+        for name, dst in buf.items():
+            if seq is None:
+                _put_positions(dst, pre[name], 1)
+            else:
+                _adopt_entry(dst, pre[name], 1, dglob["shared"][i][name],
+                             pglob["shared"][i][name], seq, False)
     return dict(cache, pos=pcache["pos"])
 
 

@@ -26,6 +26,9 @@ all-gather), and the vocab-parallel loss's sums over the model axis
 detached row max, which takes no gradient).  A loss that the ranks of the
 model axis compute together is the same number on each of them, so that
 each differentiating ``loss / world_size`` counts it once over the mesh.
+Decode runs under inference mode and takes the same sums and maxima for
+its split-K softmax and its row-parallel products (`Over`), and
+`all_gather` for the heads of a new token and the MoE's tokens.
 
 Every function runs on `torch.distributed` groups: NCCL on the card, gloo
 on the CPU, the fake backend in the dry run (`launch.mesh`).  A group of
@@ -327,3 +330,20 @@ def mean_over(x: torch.Tensor, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _Mean.apply(x, group)
+
+
+class Over:
+    """The merges of a computation split over the ranks of `group` (a
+    split-K decode's softmax, `models.attention`): each rank's partial
+    maximum or sum reduced to the group's, on every rank (`max_over`,
+    `sum_over`).  Anything with these two methods stands in for it (a
+    test's slices on one process)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return max_over(x, self.group)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return sum_over(x, self.group)

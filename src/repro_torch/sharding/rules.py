@@ -34,8 +34,15 @@ over `seq_len` positions:
         the rank's slice of the sequence, K and V gathered over it, every
         weight gathered whole;
   None  one rank on the model axis, the batch over it (``dp_over_model``),
-        or a sequence the axis does not divide (decode): every rank of the
-        model axis computes its rows whole, with every weight gathered.
+        or a sequence the axis does not divide: every rank of the model axis
+        computes its rows whole, with every weight gathered.
+
+A decode step (`decode_layout`) holds its rows whole on every rank of the
+model axis, as JAX's does, and splits their work as JAX lays it out: the
+cache's time axis over "model" (`cache_specs`: each rank attends over its
+slots and the softmax is merged over the axis, split-K), and under "tp"
+the heads and the FFN hidden too (their row-parallel products summed over
+the axis); under "splitk" the weights are read whole.
 
 Under "tp" and "sp" the embedding, logits and loss are vocab-parallel
 (``"logits"``) when the vocabulary divides the axis (`vocab_parallel`).
@@ -43,9 +50,9 @@ Under "tp" and "sp" the embedding, logits and loss are vocab-parallel
 a tensor-parallel leaf keeps its "model" shard.  The MoE layer takes JAX's
 all-to-all path on the sequence slices; the recurrent mixers gather the
 sequence at entry and compute it whole on every rank of the model axis
-(JAX's ``"ssm_heads"`` split is not reproduced), and decode keeps every
-rank's rows whole (split-K decode over the cache's time axis is not
-reproduced).  `cache_specs` gives JAX's cache layout.
+(JAX's ``"ssm_heads"`` split is not reproduced); in decode the MoE
+experts run where they lie (expert-parallel) and a recurrent state stays
+whole, as in JAX's `cache_specs`.
 
 The CV serving path shards one thing: the image-batch axis of a bucket
 batch, and of everything the pipeline derives from it (descriptors,
@@ -275,6 +282,7 @@ class Hint:
     table: dict
     batch: int | None = None
     layout: str | None = None
+    decode: bool = False
 
     def __call__(self, x, name: str = "act"):
         spec = self.table.get(name)
@@ -285,6 +293,13 @@ class Hint:
     def at(self, seq_len: int) -> "Hint":
         """This hint for a call over `seq_len` positions."""
         return dataclasses.replace(self, layout=model_layout(self.cfg, self.mesh, seq_len))
+
+    def for_decode(self, batch: int) -> "Hint":
+        """This hint for a decode step of a global batch of `batch` rows
+        (`decode_layout`; `decode` set: the rows are whole on every rank of
+        the model axis)."""
+        return dataclasses.replace(self, layout=decode_layout(self.cfg, self.mesh), batch=batch,
+                                   decode=True)
 
     @property
     def model_size(self) -> int:
@@ -331,6 +346,20 @@ def model_layout(cfg, mesh, seq_len: int) -> str | None:
         return None
     tp = cfg.heads_shardable and cfg.kv_heads_shardable
     return "tp" if tp and all(d % m == 0 for d in tp_dims(cfg)) else "sp"
+
+
+def decode_layout(cfg, mesh) -> str | None:
+    """How the model axis splits a decode step: "tp" where `model_layout`'s
+    head test holds (the heads and FFN hidden over "model", as the weights
+    lie); else "splitk", the weights read whole over "model", as JAX stores
+    them for the grouped archs; None for one model rank or the batch over
+    it (``dp_over_model``).  Under either the cache entries that
+    `cache_specs` splits over time are attended split-K."""
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    if m == 1 or "model" in dp_axes(mesh, cfg):
+        return None
+    tp = cfg.heads_shardable and cfg.kv_heads_shardable
+    return "tp" if tp and all(d % m == 0 for d in tp_dims(cfg)) else "splitk"
 
 
 def vocab_parallel(cfg, mesh) -> bool:
@@ -422,6 +451,16 @@ def batch_specs(batch: dict, mesh, cfg=None) -> dict[str, PartitionSpec]:
 CACHE_TIME_ENTRIES = ("k", "v", "xk", "xv", "ckv", "kr", "ctx")
 
 
+def _entry_spec(name: str, shape: tuple, dp: tuple, sizes: dict) -> PartitionSpec:
+    """`cache_specs`' spec of one entry of `shape` (no layer axis)."""
+    axes: list = [None] * len(shape)
+    axes[0] = _maybe(dp, shape[0], sizes)
+    model_free = "model" not in (axes[0] or ()) and axes[0] != "model"
+    if name in CACHE_TIME_ENTRIES and len(shape) >= 2 and model_free:
+        axes[1] = _maybe("model", shape[1], sizes)
+    return P(*axes)
+
+
 def cache_specs(cache: dict, mesh, cfg) -> dict:
     """Decode caches (`models.lm.init_cache`'s tree, JAX's layout): batch
     over DP, the time axis of the K / V and latent entries over "model"
@@ -434,12 +473,8 @@ def cache_specs(cache: dict, mesh, cfg) -> dict:
         eff = shape[1:] if stacked else shape
         if not eff:
             return P()
-        axes: list = [None] * len(eff)
-        axes[0] = _maybe(dp, eff[0], sizes)
-        model_free = "model" not in (axes[0] or ()) and axes[0] != "model"
-        if name in CACHE_TIME_ENTRIES and len(eff) >= 2 and model_free:
-            axes[1] = _maybe("model", eff[1], sizes)
-        return P(None, *axes) if stacked else P(*axes)
+        spec = _entry_spec(name, eff, dp, sizes)
+        return P(None, *spec) if stacked else spec
 
     def walk(node, stacked):
         if isinstance(node, dict):
@@ -450,6 +485,14 @@ def cache_specs(cache: dict, mesh, cfg) -> dict:
 
     return {k: walk(v, k == "groups") if isinstance(v, (dict, list))
             else one(k, tuple(getattr(v, "shape", ())), False) for k, v in cache.items()}
+
+
+def time_split(batch: int, slots: int, mesh, cfg) -> bool:
+    """Does `cache_specs` split over "model" the time axis of a cache entry
+    of `slots` slots for a global batch of `batch` rows?  Not where the
+    axis does not divide the slots or the batch is over "model"."""
+    spec = _entry_spec("k", (batch, slots), dp_axes(mesh, cfg), mesh_axis_sizes(mesh))
+    return spec[1] == "model"
 
 
 # ---------------------------------------------------------------------------

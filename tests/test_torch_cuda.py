@@ -486,8 +486,9 @@ def test_flash_attention_matches_plain(dev, dtype, causal, B, S, T, H, hd):
 
 def test_flash_attention_library_runs_on_the_tensor_cores(dev):
     """The built library's SASS: each 16-bit body (f16 and bf16 at 1, 2 and 4
-    channel chunks) issues HGMMA and loads by TMA (UTMALDG), and the f32
-    body runs FMAs without either.  Prints each body's ptxas report."""
+    channel chunks, each with and without the log-sum-exp output) issues
+    HGMMA and loads by TMA (UTMALDG), and the f32 body runs FMAs without
+    either.  Prints each body's ptxas report."""
     kattn.flash_attention(*(3 * (torch.zeros((1, 8, 1, 8), device=dev, dtype=torch.bfloat16),)))
     report = _build.build_log("flash_attn").splitlines()
     for i, line in enumerate(report):
@@ -502,7 +503,7 @@ def test_flash_attention_library_runs_on_the_tensor_cores(dev):
         bodies[name] = part
     wgmma = [b for n, b in bodies.items() if "flash_attn_wgmma_kernel" in n]
     simt = [b for n, b in bodies.items() if "flash_attn_simt_kernel" in n]
-    assert len(wgmma) == 6 and simt
+    assert len(wgmma) == 12 and simt
     for body in wgmma:
         assert "HGMMA" in body and "UTMALDG" in body
     for body in simt:
@@ -702,6 +703,27 @@ def test_flash_attention_off_the_causal_mask(dev, S, T, H, Hkv, hd, dtype):
     oracle = ref.attention_ref(q, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2),
                                causal=False)
     torch.testing.assert_close(got.float(), oracle.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("S,T,H,Hkv,hd,causal,q_off", [
+    (1, 1600, 32, 8, 128, False, 0), (1, 1024, 16, 16, 64, False, 0),
+    (130, 300, 8, 2, 120, True, 0), (64, 1024, 16, 16, 256, True, 512), (5, 0, 4, 4, 64, False, 0)])
+def test_flash_attention_log_sum_exp(dev, S, T, H, Hkv, hd, causal, q_off, dtype):
+    """The kernel's log-sum-exp output: the outputs bit for bit the launch's
+    without it (one launch each), the log-sum-exp within 1e-5 of the plain
+    version's (-1e30 for a row without keys), in both bodies."""
+    g = torch.Generator(device=dev).manual_seed(S + T + H + hd)
+    q = torch.randn((2, S, H, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, T, Hkv, hd), generator=g, device=dev).to(dtype) for _ in range(2))
+    counters.reset()
+    plain = kattn.flash_attention(q, k, v, causal=causal, q_off=q_off)
+    got, lse = kattn.flash_attention(q, k, v, causal=causal, q_off=q_off, lse=True)
+    _, want = kattn.flash_attention(q, k, v, causal=causal, q_off=q_off, mode="ref", lse=True)
+    torch.cuda.synchronize()
+    assert counters.LAUNCHES["flash_attention"] == 2
+    assert torch.equal(got, plain) and lse.shape == (2, H, S) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-large-v2"])

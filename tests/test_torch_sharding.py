@@ -39,7 +39,17 @@ Tolerances, with their reasons (f32 throughout):
     parameters within 1e-4, of the single-process port and of JAX's
     sharded run on the same mesh (deepseek: its logits and gradients
     against JAX's sharded ones as well); the "tp" case's sharded
-    `generate` equal to the single-process one.
+    `generate` equal to the single-process one;
+  * decode over the model axis (`DECODE_CASES`: "tp", split-K alone, the
+    window ring wrapped over both model ranks, MLA split-K and "tp" with
+    the MoE expert-parallel over ("data", "model"), the MoE over "model"
+    alone with a pruned cache, zamba2's shared ring split beside its whole
+    Mamba2 states, the cross-attention's context split): the
+    teacher-forced logits of every step within 1e-4 of the single-process
+    port and of JAX's `lm.decode_step` on the same adopted cache, run
+    unsharded (the merged softmax sums in another order), and every
+    rank's cache entries `rules.cache_specs`' parts (T / 2 slots where the
+    axis divides T, whole where it does not; a state whole).
 """
 
 import os
@@ -54,7 +64,8 @@ import torch
 import jax
 import jax.numpy as jnp
 from conftest import run_subprocess
-from torch_sharding_job import LAYOUT_CASES, layout_config
+from torch_sharding_job import (DECODE_B, DECODE_CASES, DECODE_CTX, DECODE_STEPS, LAYOUT_CASES,
+                                decode_config, decode_run, layout_config)
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import lm as jlm
 from repro.train import step as jstep
@@ -196,6 +207,50 @@ def _layout_inputs(tag: str, d: str, seed: int):
     return params, model, {"state": model.state_dict(), "batch": tb[0], "steps": tb[1:]}
 
 
+def _decode_inputs(tag: str, seed: int):
+    """A decode case's JAX parameters (every leaf of JAX's tree drawn from
+    N(0, 0.1^2) with numpy: a decode's parity needs the same weights on
+    both sides, not JAX's initializers, and drawing them this way skips a
+    compile of `init_params` a config), prompts, teacher-forced tokens and
+    context input (seamless: `DECODE_CTX` frames): the JAX tree and the
+    port's case."""
+    cfg_j = decode_config(jax_reduced_config, tag)
+    cfg = decode_config(reduced_config, tag)
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda k: jlm.init_params(k, cfg_j), jax.random.key(seed))
+    params = jax.tree.map(
+        lambda x: jnp.asarray(0.1 * rng.standard_normal(x.shape), x.dtype), shapes)
+    S = DECODE_CASES[tag][2]
+    case = {"prompts": torch.from_numpy(rng.integers(0, cfg.vocab_size, (DECODE_B, S))),
+            "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (DECODE_B, DECODE_STEPS))),
+            "state": from_jax_lm_params(params, cfg, device="cpu").state_dict()}
+    if cfg.encdec:
+        case["extras"] = {"audio_frames": torch.from_numpy(
+            rng.standard_normal((DECODE_B, DECODE_CTX, cfg.d_model)).astype(np.float32))}
+    return params, case
+
+
+def _single_decode(tag: str, params, case: dict) -> dict:
+    """A decode case in one process (`decode_run`), and JAX's
+    `lm.decode_step` from the same adopted cache with the same tokens."""
+    cfg_j = decode_config(jax_reduced_config, tag)
+    cfg = decode_config(reduced_config, tag)
+    model = tlm.LM(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    out = decode_run(model, cfg, tag, case)
+    adopted = out.pop("adopted")
+    cache = {part: [{n: jnp.asarray(t.numpy()) for n, t in g.items()} for g in adopted[part]]
+             for part in ("groups", "shared")} | {"pos": jnp.asarray(adopted["pos"], jnp.int32)}
+    step = jax.jit(lambda p, t, c: jlm.decode_step(p, cfg_j, t, c))
+    logits = []
+    for t in range(DECODE_STEPS):
+        lg, cache = step(params, jnp.asarray(case["tokens"][:, t : t + 1].numpy(), jnp.int32),
+                         cache)
+        logits.append(np.asarray(lg))
+    out["jax"] = torch.from_numpy(np.stack(logits))
+    return out
+
+
 def _single_layout(tag: str, case: dict) -> dict:
     """A layout case in one process: logits, gradients, two AdamW steps and
     (gemma's "tp" case) `generate`."""
@@ -265,9 +320,11 @@ def run(tmp_path_factory):
     np.save(os.path.join(d, "g.npy"), g)
     np.savez(os.path.join(d, "deepseek_batch.npz"), tokens=tokens.numpy(), labels=labels.numpy())
     layout = {tag: _layout_inputs(tag, d, seed) for seed, tag in enumerate(LAYOUT_CASES, 1)}
+    decode = {tag: _decode_inputs(tag, seed) for seed, tag in enumerate(DECODE_CASES, 11)}
     torch.save({"deepseek": model.state_dict(), "tokens": tokens, "labels": labels,
                 "g": torch.from_numpy(g), "prompts": prompts,
-                "layout": {tag: case for tag, (_, _, case) in layout.items()}},
+                "layout": {tag: case for tag, (_, _, case) in layout.items()},
+                "decode": {tag: case for tag, (_, case) in decode.items()}},
                os.path.join(d, "inputs.pt"))
     job = subprocess.Popen([sys.executable, os.path.join(HERE, "torch_sharding_job.py"), d],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -311,6 +368,8 @@ def run(tmp_path_factory):
         for tag, (params, _, case) in layout.items():
             ref[tag] = _single_layout(tag, case)
             ref[tag]["jax params"] = params
+        ref["decode"] = {tag: _single_decode(tag, params, case)
+                         for tag, (params, case) in decode.items()}
         assert "JAX_SIDE_OK" in jax_side.result()
         assert "JAX_LAYOUT_OK" in jax_layout.result()
         ref["jax sharded"] = {**np.load(jax_out), **np.load(jax_layout_out)}
@@ -489,9 +548,74 @@ def test_layout_two_train_steps(run, tag):
         assert float((got["params"][name] - jax_p[name]).abs().max()) < PARAM_TOL, name
 
 
-def test_layout_tp_generate_gathers_the_heads_for_decode(run):
+def test_layout_tp_generate_decodes_over_the_model_axis(run):
     out, ref, _ = run
     assert torch.equal(out["gemma tp"]["generate"], ref["gemma tp"]["generate"])
+
+
+@pytest.mark.parametrize("tag", list(DECODE_CASES))
+def test_decode_over_the_model_axis(run, tag):
+    """Every teacher-forced step's logits, every row's, against the single
+    process and JAX's `decode_step` on the same cache."""
+    out, ref, _ = run
+    got, want = out["decode"][tag], ref["decode"][tag]
+    assert got["layout"] == DECODE_CASES[tag][4]
+    cfg = decode_config(reduced_config, tag)
+    assert got["logits"].shape == (DECODE_STEPS, DECODE_B, cfg.vocab_size)
+    for step in range(DECODE_STEPS):
+        for ref_logits in (want["logits"], want["jax"]):
+            err = float((got["logits"][step] - ref_logits[step]).abs().max())
+            assert err < LOGITS_TOL, (step, err)
+
+
+def _global_slots(cfg, name: str, T: int) -> int | None:
+    """The global slots of a decode case's cache entry; None for a state."""
+    if name in ("xk", "xv"):
+        return DECODE_CTX
+    if name.startswith("shared."):
+        return min(T, tlm.SHARED_ATTN_SLOTS)
+    if name not in ("k", "v", "ckv", "kr"):
+        return None
+    return min(T, cfg.window) if cfg.window and cfg.mla is None else T
+
+
+@pytest.mark.parametrize("tag", list(DECODE_CASES))
+def test_decode_cache_holds_the_rank_slots(run, tag):
+    """A rank's cache: its 2 of the 8 rows, and T / 2 slots of an entry whose
+    T the model axis divides (`rules.cache_specs`), else all T; a
+    recurrent state whole but for its rows."""
+    out, ref, _ = run
+    cfg = decode_config(reduced_config, tag)
+    T = DECODE_CASES[tag][3]
+    one = ref["decode"][tag]["shapes"]
+    for name, shape in out["decode"][tag]["shapes"].items():
+        full = _global_slots(cfg, name, T)
+        rows = 0 if name.startswith("shared.") else 1
+        assert shape[rows] == DECODE_B // 4, name
+        if full is None:
+            assert shape[2:] == one[name][2:], name
+        else:
+            t = shape[rows + 1]
+            assert t == (full // 2 if full % 2 == 0 else full), (name, shape, full)
+
+
+def test_decode_cases_split_and_prune_and_empty_a_rank(run):
+    """The cases cover a cache split over "model", one it prunes (whole),
+    a ring wrapped over both ranks, and steps where model rank 1's slots
+    hold no valid position (whose logits agree, above)."""
+    out, _, _ = run
+    shapes = {tag: out["decode"][tag]["shapes"] for tag in DECODE_CASES}
+    assert shapes["gemma tp"]["k"][2] == 12 and shapes["arctic 6 experts"]["k"][2] == 19
+    assert shapes["seamless tp"]["xk"][2] == DECODE_CTX // 2
+    assert shapes["seamless tp"]["k"][2] == 21
+    assert shapes["zamba2"]["shared.k"][1] == 10
+    S, T = DECODE_CASES["gemma tp"][2:4]
+    for step in range(T // 2 - S):  # positions S .. T / 2 - 1
+        _, valid = tlm.ring_positions(S + step, T)
+        assert not bool(valid[T // 2:].any())
+    S, T = DECODE_CASES["danube ring"][2:4]
+    pos, _ = tlm.ring_positions(S, 32)  # the window's ring: 32 slots
+    assert int(pos[:16].max()) >= 32 and int(pos[16:].max()) < 32 <= S
 
 
 def test_deepseek_sharded_forward_and_gradients_against_jax_sharded(run):

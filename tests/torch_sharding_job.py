@@ -11,13 +11,16 @@ logits, loss and gradients (whole), the compressed all-reduces, two
 sharded train steps of reduced gemma-7b (AdamW, Adafactor, the
 accumulation step) and reduced deepseek-v3-671b (AdamW), the elastic
 restore from (4, 2) onto (2, 4) (a tensor, a training state, the training
-loop's restart), a DTensor under `constrain`, a sharded `generate`, and
-for each of `LAYOUT_CASES` the layout the model axis takes, the sharded
+loop's restart), a DTensor under `constrain`, a sharded `generate`, for
+each of `LAYOUT_CASES` the layout the model axis takes, the sharded
 forward's logits and gradients and two train steps (gemma's "tp" case
-also a sharded `generate`).  Every rank waits at most `TIMEOUT_S` in a
-collective, so a hung rendezvous fails instead of stalling.
+also a sharded `generate`), and for each of `DECODE_CASES` a prefill and
+teacher-forced decode steps over the model axis (`decode_run`).  Every
+rank waits at most `TIMEOUT_S` in a collective, so a hung rendezvous
+fails instead of stalling.
 """
 
+import dataclasses
 import datetime
 import os
 import sys
@@ -44,6 +47,98 @@ LAYOUT_CASES = {
     "seamless tp": ("seamless-m4t-large-v2", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8},
                     "tp"),
 }
+
+
+# Decode over the model axis (`sharding.rules.decode_layout`) on the (4, 2)
+# mesh: tag -> (arch, the reduced config's changes, prompt length, cache
+# length, the decode layout), each prefilled (`DECODE_B` rows) and decoded
+# `DECODE_STEPS` steps teacher-forced.  gemma's 6-token prompt in 24 slots
+# leaves model rank 1's 12 slots without a valid position for the first 6
+# steps; qwen2 (8 over 2 heads, its biases) splits the cache alone; danube's
+# 40-token prompt wraps its 32-slot window ring over both ranks' 16 slots;
+# deepseek's MLA (4 heads: split-K alone; 16: "tp") and its 8 experts one a
+# rank over ("data", "model"); arctic at 6 experts, over "model" alone, a
+# prompt and a cache of odd length (the prefill unsplit, the cache whole:
+# `cache_specs` prunes the axis); zamba2's Mamba2 states whole and its
+# shared block's ring split; seamless's cross-attention over the rank's
+# `DECODE_CTX` / 2 context rows (its 21-slot self cache whole)
+DECODE_CASES = {
+    "gemma tp": ("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8}, 6, 24, "tp"),
+    "qwen2 splitk": ("qwen2-72b", {}, 12, 20, "splitk"),
+    "danube ring": ("h2o-danube-3-4b", {}, 40, 48, "splitk"),
+    "deepseek": ("deepseek-v3-671b", {}, 12, 24, "splitk"),
+    "deepseek tp": ("deepseek-v3-671b", {"n_heads": 16, "n_kv_heads": 16}, 12, 24, "tp"),
+    "arctic 6 experts": ("arctic-480b", {"n_experts": 6}, 11, 19, "splitk"),
+    "zamba2": ("zamba2-2.7b", {}, 12, 20, "splitk"),
+    "seamless tp": ("seamless-m4t-large-v2", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8},
+                    12, 21, "tp"),
+}
+DECODE_B, DECODE_STEPS, DECODE_CTX = 8, 8, 16
+
+
+def decode_config(reduced_config, tag: str):
+    """The f32 reduced config of a `DECODE_CASES` case, in the package of
+    `reduced_config`."""
+    arch, kw, *_ = DECODE_CASES[tag]
+    kw = dict(kw)
+    cfg = reduced_config(arch).replace(dtype="float32")
+    if "n_experts" in kw:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=kw.pop("n_experts")))
+    return cfg.replace(**kw)
+
+
+def decode_run(model, cfg, tag: str, case: dict, mesh=None) -> dict:
+    """A `DECODE_CASES` case: the prompts prefilled, adopted into a cache of
+    the case's length and decoded with the case's tokens, teacher-forced;
+    on `mesh` (a `shard_model` model) every rank runs its rows over the
+    model axis.  -> the logits of every step (steps, B, V), every row's;
+    the first run's cache entries' shapes and the first shared-block
+    application's (``shared.k``), a rank's; unsharded, the adopted cache
+    before the first step (for JAX's `decode_step`)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import cv_engine as engine
+    from repro_torch.sharding import comm, rules
+
+    T = DECODE_CASES[tag][3]
+    prompts, tokens, extras = case["prompts"], case["tokens"], case.get("extras")
+    B = prompts.shape[0]
+    hint = rules.make_hint(mesh, cfg) if mesh is not None else None
+    out: dict = {}
+    with torch.inference_mode():
+        _, pc = lm.prefill(model, prompts, extras=extras, hint=hint)
+        cache = lm.init_cache(cfg, B, T, ctx_len=lm.context_len(cfg, extras, B), device="cpu",
+                              mesh=mesh)
+        cache = engine._adopt_prefill(cache, pc, cfg, mesh=mesh)
+        out["shapes"] = {n: tuple(t.shape) for n, t in cache["groups"][0].items()}
+        for n, t in (cache["shared"][0].items() if cache["shared"] else ()):
+            out["shapes"][f"shared.{n}"] = tuple(t.shape)
+        if mesh is None:
+            out["adopted"] = {part: [{n: t.clone() for n, t in g.items()} for g in cache[part]]
+                              for part in ("groups", "shared")} | {"pos": cache["pos"]}
+        else:
+            tokens = rules.shard_batch({"tokens": tokens}, mesh, cfg)["tokens"]
+        logits = []
+        for t in range(tokens.shape[1]):
+            lg, cache = lm.decode_step(model, tokens[:, t : t + 1], cache, hint=hint)
+            logits.append(lg)
+    logits = torch.stack(logits)
+    if mesh is not None:
+        logits = comm.all_gather(logits, 1, comm.axes_group(mesh, ("data",)))
+    out["logits"] = logits
+    return out
+
+
+def _decode_case(tag: str, case: dict, mesh) -> dict:
+    """A `DECODE_CASES` case on `mesh`: its decode layout and `decode_run`."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+
+    cfg = decode_config(reduced_config, tag)
+    model = lm.LM(cfg, device="cpu")
+    model.load_state_dict(case["state"])
+    lm.shard_model(model, mesh)
+    return {"layout": rules.decode_layout(cfg, mesh), **decode_run(model, cfg, tag, case, mesh)}
 
 
 def layout_config(reduced_config, tag: str):
@@ -227,6 +322,9 @@ def rank_main(rank: int, out_dir: str, port: int) -> None:
     # -- the model axis's layouts ------------------------------------------------
     for tag in LAYOUT_CASES:
         out[tag] = _layout_case(tag, inp["layout"][tag], mesh)
+
+    # -- decode over the model axis ----------------------------------------------
+    out["decode"] = {tag: _decode_case(tag, inp["decode"][tag], mesh) for tag in DECODE_CASES}
 
     if rank == 0:
         torch.save(out, os.path.join(out_dir, "out.pt"))
