@@ -273,7 +273,17 @@ Phases (any failure exits non-zero; no failure is caught and carried past):
      2e-3 on the rows whose routing agrees; each step's time, each rank's
      peak above its model's parts (below one whole expert stack's bytes),
      the launches and no plain call; then each one's f32 reduced twin
-     within 1e-4;
+     within 1e-4; (e) the same mesh, the Mamba2 mixer's SSD heads over the
+     model axis and ZeRO-1's optimizer state: zamba2-2.7b at full width
+     and 6 layers (40 of 80 SSD heads a rank, ``out_proj`` its rows), a
+     bf16 prefill of 2 x 1024 decoded 8 steps teacher-forced by (d)'s
+     rule, then 2 AdamW steps within (a)'s loss bound of the same steps
+     unsharded; deepseek-v3-671b at full width, one MLA and one MLA-MoE
+     layer, 2 Adafactor steps in bf16, each rank's peak below its
+     parameters, gradients and state plus one whole expert stack; every
+     rank's state `opt_bytes_zero1`; each one's f32 reduced twin against
+     the same steps unsharded (logits 1e-4, losses 1e-5, parameters 1e-4);
+     the launches and no plain call;
  14. the dry run and the roofline (`dryrun_phase`): (a) gemma-7b's
      decode_32k cell and its long_500k skip cell through
      ``python -m repro_torch.launch.dryrun --cell``, each in a process of
@@ -438,6 +448,40 @@ SHARD_DECODE_TWINS = (("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim":
                       ("seamless-m4t-large-v2", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8},
                        "tp", 12),
                       ("deepseek-v3-671b", {"n_heads": 16, "n_kv_heads": 16}, "tp", 12))
+# (e): the Mamba2 mixer's SSD heads over "model" (JAX's "ssm_heads",
+# `sharding.rules.ssm_heads`) and the optimizer state in ZeRO-1's layout
+# (`sharding.rules.opt_state_specs`) on the same (1, 2) mesh.  zamba2-2.7b at
+# full width, its first SHARD_SSM_LAYERS layers (a run of Mamba2 layers and
+# its shared block; 40 of the 80 SSD heads a rank, `out_proj` the rank's rows),
+# a bf16 prefill of SHARD_SSM_B x SHARD_SSM_S tokens decoded SHARD_SSM_STEPS
+# steps teacher-forced, against rank 0's unsharded and f32-widened decodes by
+# (d)'s rule ((c)'s RMS bound; the prefill's last logits too), then
+# SHARD_TRAIN_STEPS AdamW steps of the same batch at (a)'s peak lr TRAIN_LR
+# against the same steps unsharded (the losses within GRAD_BF16_LOSS_RTOL,
+# (a)'s rule; at 1e-3, ten times TRAIN_LR, the third loss, after the first
+# step that moves the weights, read 1.35e-3 off on an H100).
+# deepseek-v3-671b at full width, SHARD_MOE_BLOCKS (one MLA and one MLA-MoE
+# layer, 128 of its 256 experts a rank), SHARD_TRAIN_STEPS Adafactor steps of
+# SHARD_MOE_B x SHARD_MOE_S tokens in bf16 (in f32 the two ranks' parameters and
+# gradients alone take ~107 GB of the card's 80), unsharded nowhere: at full
+# width this run checks memory only (each rank's peak below its parameters,
+# gradients and optimizer state plus one whole expert stack: a leaf gathered
+# whole would be that stack and its gradient; its state `opt_bytes_zero1`;
+# finite losses), and the numbers of the sharded MoE Adafactor update are
+# held by the f32 reduced twin below.  Then their f32 reduced twins against the same
+# steps unsharded (SHARD_SSM_TWIN_S tokens: the decode's logits within
+# SHARD_LOGITS_TOL, the losses within SHARD_LOSS_TOL, every parameter within
+# SHARD_PARAM_TOL, the loss's gradients whole within SHARD_GRAD_TOL; deepseek's
+# aux loss weighted 0, since the all-to-all path takes it per shard, as JAX's)
+SHARD_SSM_LAYERS, SHARD_SSM_B, SHARD_SSM_S, SHARD_SSM_STEPS = 6, 2, 1024, 8
+SHARD_MOE_BLOCKS, SHARD_MOE_B, SHARD_MOE_S = (("mla", 1), ("mla_moe", 1)), 4, 64
+SHARD_TRAIN_STEPS, SHARD_SSM_TWIN_S = 3, 32
+# the twins' peak lr: AdamW's step is ~lr g / (|g| + eps), so a component whose
+# gradient is at f32's rounding noise (B and C's in_proj columns sum both
+# ranks' heads in another order) may step +lr on one side and -lr on the
+# other (ROADMAP, "f32 noise"); at 1e-4 such a flip stays within
+# SHARD_PARAM_TOL unless its gradient exceeds AdamW's eps
+SHARD_TWIN_LR = 1e-4
 # `flash_attention`'s query offsets (a rank's slice of the queries under the
 # sequence-parallel layout), on the card after the LM phase: (B, T, H, Hkv,
 # hd, rows, offsets): gemma-7b's prefill layer sliced over 2 and over 16
@@ -2284,6 +2328,16 @@ def kernel_applications(cfg, seq: int) -> int:
     if n_mla:
         n += n_mla * fits(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
     return n
+
+
+def train_kernel_calls(cfg, seq: int) -> int:
+    """`flash_attention` calls of one train step over `seq` positions: the
+    forward's (`kernel_applications`) and, under remat, the layers' again
+    in the backward (Zamba's shared block runs outside the remat'd layers,
+    once)."""
+    n = kernel_applications(cfg, seq)
+    shared = n - kernel_applications(cfg.replace(shared_attn_every=0), seq)
+    return n + (n - shared if cfg.remat else 0)
 
 
 def decode_vs_walk(model, cfg, prompts, tokens, context=None) -> tuple[list, float]:
@@ -4280,15 +4334,16 @@ def shard_phase(card: str, path_counts: dict, results: dict) -> dict:
         out["b"]["counters"])
     for tag, run in out["c"].items():
         path_counts[f"{tag} sharded (1, 2) gloo"] = run["counters"]
-    for tag, run in out["d"].items():
-        path_counts[f"{tag} sharded (1, 2) gloo"] = run["counters"]
+    for part in ("d", "e"):
+        for tag, run in out[part].items():
+            path_counts[f"{tag} sharded (1, 2) gloo"] = run["counters"]
     results["shard"] = out
     return out
 
 
 def shard_phase_main() -> int:
-    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a), (b), (c)
-    and (d), their lines printed, then one JSON line."""
+    """``chip_smoke.py --shard-phase`` (run by `shard_phase`): (a) to (e),
+    their lines printed, then one JSON line."""
     import os
 
     import torch
@@ -4302,7 +4357,7 @@ def shard_phase_main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     out = {"a": shard_one(torch.device("cuda"), card), "b": shard_two(card),
-           "c": shard_axis(card), "d": shard_decode(card)}
+           "c": shard_axis(card), "d": shard_decode(card), "e": shard_ssm(card)}
     print(json.dumps(out, default=str))
     return 0
 
@@ -4699,11 +4754,12 @@ def shard_decode(card: str) -> dict:
         return json.loads(Path(d, "d.json").read_text())
 
 
-def decode_logits(model, cfg, prompts, tokens, extras=None, mesh=None, times=None):
+def decode_logits(model, cfg, prompts, tokens, extras=None, mesh=None, times=None, first=None):
     """`model` prefilled with `prompts` and decoded teacher-forced with
     `tokens` (B, n), on `mesh` (a `shard_model` model: every rank's rows
     over the model axis) or unsharded -> each step's logits (n, B, V) in
-    the model's dtype; each step's time appended to `times`."""
+    the model's dtype; each step's time appended to `times`, the prefill's
+    last logits (B, V) to `first`."""
     import torch
     from repro_torch.models import lm
     from repro_torch.serve import cv_engine
@@ -4714,7 +4770,9 @@ def decode_logits(model, cfg, prompts, tokens, extras=None, mesh=None, times=Non
     dev = prompts.device
     hint = rules.make_hint(mesh, cfg) if mesh is not None else None
     with torch.inference_mode():
-        _, pc = lm.prefill(model, prompts, extras=extras, hint=hint)
+        last, pc = lm.prefill(model, prompts, extras=extras, hint=hint)
+        if first is not None:
+            first.append(last)
         cache = lm.init_cache(cfg, B, S + n, ctx_len=lm.context_len(cfg, extras, B), device=dev,
                               mesh=mesh)
         cache = cv_engine._adopt_prefill(cache, pc, cfg, mesh=mesh)
@@ -4934,6 +4992,361 @@ def shard_decode_rank(rank: int, d: str, port: int, card: str, device: str = "cu
         free()
     if rank == 0:
         Path(d, "d.json").write_text(json.dumps(res, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def shard_ssm(card: str) -> dict:
+    """(e): the SSD heads and ZeRO-1 on a (1, 2) mesh of two gloo ranks on
+    the one card (`shard_ssm_rank`)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import free_port
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(shard_ssm_rank, args=(d, free_port(), card), nprocs=2)
+        return json.loads(Path(d, "e.json").read_text())
+
+
+def ssm_run_config():
+    """(e)'s zamba2-2.7b: full width, its first `SHARD_SSM_LAYERS` layers."""
+    from repro_torch.configs import get_config
+
+    return get_config("zamba2-2.7b", n_layers=SHARD_SSM_LAYERS)
+
+
+def moe_run_config():
+    """(e)'s deepseek-v3-671b: full width, `SHARD_MOE_BLOCKS`."""
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek-v3-671b").replace(
+        n_layers=sum(c for _, c in SHARD_MOE_BLOCKS), blocks=SHARD_MOE_BLOCKS)
+
+
+def zero1_bytes(state: dict, cfg, mesh, optimizer: str) -> tuple[int, float]:
+    """(this rank's optimizer-state bytes, `launch.dryrun.opt_bytes_zero1`)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+    from repro_torch.train import step as tstep
+
+    leaves = lm.param_leaves(state["model"])
+    held = sum(t.numel() * t.element_size() for _, t, _ in tstep._opt_entries(state, leaves))
+    return held, dryrun.opt_bytes_zero1(leaves, rules.param_specs(leaves, cfg, mesh), mesh,
+                                        optimizer)
+
+
+def shard_ssm_rank(rank: int, d: str, port: int, card: str, device: str = "cuda") -> None:
+    """One rank of (e), the constants' comment above `SHARD_SSM_LAYERS`:
+    zamba2-2.7b's bf16 prefill and decode sharded against rank 0's
+    unsharded and f32-widened decodes (the ranks draw the model to shard
+    one at a time), every Mamba2 scan over the rank's heads; its AdamW
+    steps against rank 0's unsharded steps; deepseek-v3-671b's Adafactor
+    steps and each rank's peak; each optimizer state's bytes; the
+    launches and no plain call; then the f32 reduced twins.  `device`
+    "cpu" rehearses it on the CPU (the run configs replaced)."""
+    import dataclasses
+    import datetime
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import counters
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, ssm
+    from repro_torch.sharding import comm, rules
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=900))
+    mesh = make_mesh((1, 2), ("data", "model"), device=dev, backend="gloo")
+    res: dict = {}
+    cuda = dev.type == "cuda"
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def one_at_a_time(build):
+        """Each rank in turn draws the whole model and keeps its parts."""
+        model = None
+        for r in range(2):
+            if rank == r:
+                model = lm.shard_model(build(), mesh)
+                free()
+            dist.barrier()
+        return model
+
+    def full(p):
+        return comm.full(p.to_local(), mesh, p.placements).detach()
+
+    def train(cfg, model, batch, optimizer, mesh_, peak_lr=TRAIN_LR):
+        """`SHARD_TRAIN_STEPS` steps -> (losses, step seconds, the state)."""
+        state = tstep.init_state(cfg, optimizer=optimizer, device=dev, model=model, mesh=mesh_)
+        fn = tstep.make_train_step(cfg, mesh_, optimizer=optimizer, peak_lr=peak_lr, warmup=1)
+        losses, secs = [], []
+        for _ in range(SHARD_TRAIN_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            state, m = fn(state, batch)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        return losses, secs, state
+
+    # -- zamba2-2.7b: the SSD heads over "model" ---------------------------------
+    cfg = ssm_run_config()
+    B, S, n = SHARD_SSM_B, SHARD_SSM_S, SHARD_SSM_STEPS
+    tag = f"prefill + decode {cfg.name} x{cfg.n_layers} {cfg.dtype} {B} x ({S} + {n}) ssm_heads"
+    layout = rules.model_layout(cfg, mesh, S)
+    check(rules.ssm_heads(cfg, mesh, layout), f"{tag}: the SSD heads do not split ({layout})")
+    rng = np.random.default_rng(11)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, n))).to(dev)
+
+    def build():
+        return lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+
+    if rank == 0:  # the unsharded bf16 decode, then the same weights widened to f32
+        model = build()
+        first_1, times_1 = [], []
+        want = decode_logits(model, cfg, prompts, tokens, times=times_1, first=first_1)
+        model.float()
+        first_f32 = []
+        ref = decode_logits(model, cfg.replace(dtype="float32"), prompts, tokens,
+                            first=first_f32).float()
+        del model
+        free()
+    dist.barrier()
+    model = one_at_a_time(build)
+    mixer = lm._at(model.blocks[0], rules.make_hint(mesh, cfg).at(S))["mixer"]
+    rows = tuple(mixer["out_proj"].shape)
+    del mixer
+    check(rows == (cfg.ssm.d_inner // 2, cfg.d_model), f"{tag}: out_proj read as {rows}")
+    scan, heads = ssm.ssd_scan, []
+
+    def scanned(x, *args, **kwargs):  # the heads of every scan this rank runs
+        heads.append(x.shape[2])
+        return scan(x, *args, **kwargs)
+
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    counters.reset()
+    ssm.ssd_scan = scanned
+    times, first = [], []
+    try:
+        got = decode_logits(model, cfg, prompts, tokens, mesh=mesh, times=times, first=first)
+    finally:
+        ssm.ssd_scan = scan
+    snap = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev) - base if cuda else 0
+    n_mamba = sum(c for k, c in cfg.blocks if k == "mamba")
+    check(heads == [cfg.ssm.n_heads // 2] * n_mamba,
+          f"{tag}: the prefill's scans ran over {heads} heads")
+    expect_counts(tag, snap, {"flash_attention": kernel_applications(cfg, S)})
+    peaks = [None, None]
+    dist.all_gather_object(peaks, peak)
+    if rank == 0:
+        stats = {}
+        for what, g, w, r in (("prefill", first[0][None], first_1[0][None], first_f32[0]),
+                              ("decode", got, want, ref)):
+            l_off, l_err = share_off(g, w)
+            l_rms, own_rms = rms(g.float() - w.float()), rms(w.float() - r.float())
+            err, own = float((g.float() - r.float()).abs().max()), float(
+                (w.float() - r.float()).abs().max())
+            check(bool(torch.isfinite(g).all()) and l_rms <= SHARD_AXIS_RMS * own_rms
+                  and err <= 2 * own,
+                  f"{tag}: {what} logits {l_rms:.3g} RMS off the unsharded's (its own "
+                  f"{own_rms:.3g} off the f32 model's), {err:.3g} off the f32 model's (the "
+                  f"unsharded's own {own:.3g})")
+            stats[what] = {"logits_rms": l_rms, "own_rms_f32": own_rms, "logits_off": l_off,
+                           "logits_max_abs_err": l_err, "logits_err_f32": err,
+                           "own_err_f32": own}
+        res[tag] = {**stats, "scan_heads": heads, "out_proj": rows, "step_s": times,
+                    "step_s_unsharded": times_1, "peak_bytes": peaks, "counters": snap}
+        print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card, {n} teacher-forced steps: "
+              + "; ".join(f"{w} logits {v['logits_rms']:.4g} RMS off the unsharded's (bound "
+                          f"{SHARD_AXIS_RMS:.4f} x its own {v['own_rms_f32']:.4g} off the "
+                          f"f32-widened model's), {v['logits_off']:.5f} outside AGREE, "
+                          f"{v['logits_err_f32']:.3g} max off the f32 model's (the unsharded's "
+                          f"own {v['own_err_f32']:.3g}; bound twice that)"
+                          for w, v in stats.items())
+              + f"; every scan over {heads[0]} of {cfg.ssm.n_heads} heads, out_proj {rows}; "
+              f"step_s={[round(t, 5) for t in times]} (unsharded "
+              f"{[round(t, 5) for t in times_1]}) card={card}; peak above the model's parts "
+              f"{peaks} B a rank; launches={snap_nonzero(snap)}", flush=True)
+        del want, ref
+    del got, model
+    free()
+    dist.barrier()
+
+    # -- zamba2-2.7b: AdamW steps, ZeRO-1 ------------------------------------------
+    tag = f"train {cfg.name} x{cfg.n_layers} {cfg.dtype} {B} x {S} adamw ssm_heads"
+    batch = {"tokens": prompts, "labels": torch.roll(prompts, -1, dims=1)}
+    if rank == 0:
+        losses_1, secs_1, state = train(cfg, build(), batch, "adamw", None)
+        del state
+        free()
+    dist.barrier()
+    model = one_at_a_time(build)
+    counters.reset()
+    losses, secs, state = train(cfg, model, batch, "adamw", mesh)
+    snap = counters.snapshot()
+    held, zero1 = zero1_bytes(state, cfg, mesh, "adamw")
+    del state, model
+    free()
+    n_attn = train_kernel_calls(cfg, S) * SHARD_TRAIN_STEPS
+    expect_counts(tag, snap, {"flash_attention": n_attn})
+    check(held == zero1, f"{tag}: rank {rank} holds {held} B of optimizer state, ZeRO-1 {zero1}")
+    if rank == 0:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_1))
+        check(all(np.isfinite(losses)) and rel <= GRAD_BF16_LOSS_RTOL,
+              f"{tag}: losses {losses} against unsharded {losses_1} (rel {rel})")
+        res[tag] = {"losses": losses, "losses_unsharded": losses_1, "loss_rel": rel,
+                    "step_s": secs, "step_s_unsharded": secs_1, "opt_bytes": held,
+                    "opt_bytes_zero1": zero1, "counters": snap}
+        print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card: losses={losses} against "
+              f"unsharded {losses_1} (rel {rel:.3g}, bound {GRAD_BF16_LOSS_RTOL:.3g}); "
+              f"step_s={[round(t, 4) for t in secs]} (unsharded {[round(t, 4) for t in secs_1]}) "
+              f"card={card}; optimizer state {held} B a rank = opt_bytes_zero1; "
+              f"launches={snap_nonzero(snap)} backward_calls={snap['backward_calls']}", flush=True)
+    dist.barrier()
+
+    # -- deepseek-v3-671b: Adafactor steps, ZeRO-1, no leaf gathered whole ---------
+    cfg = moe_run_config()
+    B, S = SHARD_MOE_B, SHARD_MOE_S
+    tag = (f"train {cfg.name} x{cfg.n_layers} ({'+'.join(k for k, _ in cfg.blocks)}) "
+           f"{cfg.dtype} {B} x {S} adafactor")
+    g = torch.Generator(dev).manual_seed(6)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+             for k in ("tokens", "labels")}
+    model = lm.make_trainable(one_at_a_time(
+        lambda: lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))))
+    params = sum(p.to_local().numel() * p.to_local().element_size() for p in model.parameters())
+    grads = sum(p.to_local().numel() * p.to_local().element_size()
+                for p in model.parameters() if p.requires_grad)
+    stack = cfg.moe.n_experts * cfg.d_model * cfg.moe.d_ff_expert * cfg.param_dtype.itemsize
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    counters.reset()
+    losses, secs, state = train(cfg, model, batch, "adafactor", mesh)
+    snap = counters.snapshot()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    held, zero1 = zero1_bytes(state, cfg, mesh, "adafactor")
+    del state, model
+    free()
+    bound = params + grads + held + stack
+    n_attn = train_kernel_calls(cfg, S) * SHARD_TRAIN_STEPS
+    expect_counts(tag, snap, {"flash_attention": n_attn})
+    check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
+    check(held == zero1, f"{tag}: rank {rank} holds {held} B of optimizer state, ZeRO-1 {zero1}")
+    check(not cuda or peak < bound,
+          f"{tag}: rank {rank} peaks at {peak} B, its parameters {params} + gradients {grads} "
+          f"+ state {held} + a whole expert stack {stack} = {bound}")
+    peaks = [None, None]
+    dist.all_gather_object(peaks, peak)
+    if rank == 0:
+        res[tag] = {"losses": losses, "step_s": secs, "peak_bytes": peaks, "param_bytes": params,
+                    "grad_bytes": grads, "opt_bytes": held, "opt_bytes_zero1": zero1,
+                    "expert_stack_bytes": stack, "counters": snap}
+        print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card: losses={losses}; "
+              f"step_s={[round(t, 4) for t in secs]} card={card}; peak {peaks} B a rank against "
+              f"its parameters {params} + gradients {grads} + state {held} (= opt_bytes_zero1) "
+              f"+ one whole expert stack {stack}; launches={snap_nonzero(snap)} "
+              f"backward_calls={snap['backward_calls']}", flush=True)
+    dist.barrier()
+
+    # -- the f32 reduced twins, against the same steps unsharded --------------------
+    twins = (("zamba2-2.7b", {}, "adamw"), ("deepseek-v3-671b", {}, "adafactor"))
+    for arch, kw, optimizer in twins:
+        cfg = reduced_config(arch).replace(dtype="float32", **kw)
+        if cfg.moe is not None:
+            cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, aux_loss_weight=0.0))
+        S, n = SHARD_SSM_TWIN_S, SHARD_SSM_STEPS
+        tag = f"{arch} reduced f32 2 x {S} {optimizer}"
+        g = torch.Generator(dev).manual_seed(8)
+        batch = {k: torch.randint(0, cfg.vocab_size, (2, S), generator=g, device=dev)
+                 for k in ("tokens", "labels")}
+
+        def build_twin():
+            return lm.LM(cfg, device=dev, generator=torch.Generator(dev).manual_seed(0))
+
+        out = {}
+        if cfg.ssm is not None:
+            check(rules.ssm_heads(cfg, mesh, rules.model_layout(cfg, mesh, S)),
+                  f"{tag}: the SSD heads do not split")
+            tokens = torch.randint(0, cfg.vocab_size, (2, n), generator=g, device=dev)
+            want = decode_logits(build_twin(), cfg, batch["tokens"], tokens)
+            got = decode_logits(lm.shard_model(build_twin(), mesh), cfg, batch["tokens"],
+                                tokens, mesh=mesh)
+            out["decode_err"] = float((got - want).abs().max())
+            check(out["decode_err"] <= SHARD_LOGITS_TOL,
+                  f"{tag}: decode logits {out['decode_err']} off the unsharded's")
+        # the loss's gradients, whole: AdamW's step is ~lr sign(g), blind to a
+        # gradient counted m times over the model axis
+        grads = []
+        for mesh_ in (None, mesh):
+            model = lm.make_trainable(build_twin() if mesh_ is None
+                                      else lm.shard_model(build_twin(), mesh))
+            loss, _ = tstep.loss_fn(model, batch,
+                                    hint=None if mesh_ is None else rules.make_hint(mesh_, cfg))
+            (loss / (1 if mesh_ is None else dist.get_world_size())).backward()
+            grads.append({name: (full(p.grad) if mesh_ is not None else p.grad).detach()
+                          for name, p in model.named_parameters() if p.grad is not None})
+            del model
+        check(grads[0].keys() == grads[1].keys(), f"{tag}: the gradients' leaves")
+        out["grad_err"], out["grad_worst"] = max(
+            (float((grads[1][k] - grads[0][k]).abs().max()), k) for k in grads[0])
+        check(out["grad_err"] <= SHARD_GRAD_TOL,
+              f"{tag}: gradients {out['grad_err']} ({out['grad_worst']}) off")
+        losses_1, _, state_1 = train(cfg, build_twin(), batch, optimizer, None, SHARD_TWIN_LR)
+        counters.reset()
+        losses, _, state = train(cfg, build_twin(), batch, optimizer, mesh, SHARD_TWIN_LR)
+        snap = counters.snapshot()
+        n_attn = train_kernel_calls(cfg, S) * SHARD_TRAIN_STEPS
+        expect_counts(tag, snap, {"flash_attention": n_attn})
+        with torch.no_grad():
+            p_err, worst = max((float((full(p) - p_1).abs().max()), name) for (name, p), p_1 in zip(
+                state["model"].named_parameters(), state_1["model"].parameters()))
+        l_err = max(abs(a - b) for a, b in zip(losses, losses_1))
+        held, zero1 = zero1_bytes(state, cfg, mesh, optimizer)
+        check(l_err <= SHARD_LOSS_TOL and p_err <= SHARD_PARAM_TOL and held == zero1,
+              f"{tag}: losses {l_err}, parameters {p_err} off; state {held} B against {zero1}")
+        out |= {"loss_err": l_err, "param_err": p_err, "param_worst": worst, "opt_bytes": held,
+                "opt_bytes_zero1": zero1, "counters": snap}
+        res[tag] = out
+        if rank == 0:
+            print(f"{tag} sharded (1, 2) over 2 gloo ranks on one card, {SHARD_TRAIN_STEPS} "
+                  f"steps against unsharded: "
+                  + (f"decode logits within {out['decode_err']:.3g}, " if "decode_err" in out
+                     else "")
+                  + f"the loss's gradients within {out['grad_err']:.3g} ({out['grad_worst']}; "
+                  f"bound {SHARD_GRAD_TOL}), losses within {l_err:.3g} (bound {SHARD_LOSS_TOL}), "
+                  f"parameters within "
+                  f"{p_err:.3g} ({worst}; bound {SHARD_PARAM_TOL}); state {held} B a rank = "
+                  f"opt_bytes_zero1; launches={snap_nonzero(snap)} card={card}", flush=True)
+        del state, state_1
+        free()
+    if rank == 0:
+        Path(d, "e.json").write_text(json.dumps(res, default=str))
     dist.barrier()
     dist.destroy_process_group()
 

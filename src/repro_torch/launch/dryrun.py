@@ -22,7 +22,11 @@ training and prefill, and in decode as JAX's decode lays it out
 (`sharding.rules.decode_layout`): the rank's part of the cache
 (`rules.cache_specs`, the time axis over "model": split-K), "tp"'s heads
 and FFN hidden, the vocab-parallel embedding and head, the MoE experts
-where they lie.
+where they lie.  A train cell's optimizer state is the rank's block of
+ZeRO-1's layout (`sharding.rules.opt_state_specs`, JAX's in and out
+shardings of the state), which the train step stores and updates in place
+(`optim.zero`): the record's ``opt_bytes``, traced, against
+``opt_bytes_zero1``, computed from the specs.
 
     python -m repro_torch.launch.dryrun --all --mesh pod   # a process a cell
     python -m repro_torch.launch.dryrun --cell gemma-7b:train_4k:pod
@@ -53,7 +57,7 @@ from ..roofline.collectives import top_collectives
 from ..roofline.cost import CostMode, storages
 from ..serve import cv_engine as engine
 from ..sharding import rules
-from ..sharding.rules import MeshShape, P
+from ..sharding.rules import MeshShape, P, opt_state_specs
 from ..train import step as step_mod
 from .mesh import init_fake_process_group, make_production_mesh
 
@@ -105,53 +109,6 @@ def input_specs(cfg, shape) -> dict:
     return batch
 
 
-def _zero1(spec: P, shape, mesh) -> P:
-    """ZeRO-1: shard optimizer state over every mesh axis the parameter
-    itself does not use ('model' for SP-FFN weights, 'pod' in multi-pod)."""
-    sizes = rules.mesh_axis_sizes(mesh)
-    fixed = list(tuple(spec) + (None,) * (len(shape) - len(spec)))
-    used = set()
-    for ax in fixed:
-        for a in ((ax,) if isinstance(ax, str) else (ax or ())):
-            used.add(a)
-    for extra in ("model", "pod"):
-        if extra not in sizes or extra in used:
-            continue
-        for i, (ax, d) in enumerate(zip(fixed, shape)):
-            if ax is None and d % sizes[extra] == 0 and d > 1:
-                fixed[i] = extra
-                used.add(extra)
-                break
-            if isinstance(ax, str) and d % (sizes[ax] * sizes[extra]) == 0:
-                fixed[i] = (ax, extra)
-                used.add(extra)
-                break
-    return P(*fixed)
-
-
-def opt_state_specs(leaves, pspecs: dict, mesh, optimizer: str) -> dict:
-    """JAX's optimizer-state specs under ZeRO-1 (`_zero1`) over
-    `lm.param_leaves` and their `rules.param_specs`: AdamW ``{"m": {leaf:
-    spec}, "v": ..., "count": P()}``; Adafactor ``{"f": [one a leaf: {"vr",
-    "vc"} for a leaf of rank >= 2, else {"v"}], "count": P()}``.  The port
-    keeps AdamW's moments in the parameters' shards instead and Adafactor's
-    factors whole (`train.step`): `opt_bytes` against `opt_bytes_zero1`."""
-    shapes = {lf.name: rules._leaf_shape(lf) for lf in leaves}
-    if optimizer == "adamw":
-        m = {lf.name: _zero1(pspecs[lf.name], shapes[lf.name], mesh) for lf in leaves}
-        return {"m": m, "v": dict(m), "count": P()}
-    f_specs = []
-    for lf in leaves:
-        sh, sp = shapes[lf.name], pspecs[lf.name]
-        axes = tuple(sp) + (None,) * (len(sh) - len(tuple(sp)))
-        if len(sh) >= 2:
-            f_specs.append({"vr": _zero1(P(*axes[:-1]), sh[:-1], mesh),
-                            "vc": _zero1(P(*axes[:-2], axes[-1]), sh[:-2] + sh[-1:], mesh)})
-        else:
-            f_specs.append({"v": P(*axes)})
-    return {"f": f_specs, "count": P()}
-
-
 def count_params(leaves, active: bool, cfg) -> float:
     """Total (or MoE-active) parameter count of `lm.param_leaves`, JAX's
     rule: with `active`, a leaf of rank >= 3 named ``w_gate``, ``w_up`` or
@@ -180,8 +137,9 @@ def spec_bytes(shape, spec: P, mesh, itemsize: int) -> float:
 
 
 def opt_bytes_zero1(leaves, pspecs: dict, mesh, optimizer: str) -> float:
-    """A rank's optimizer-state bytes (f32) as `opt_state_specs` would lay
-    them out."""
+    """A rank's optimizer-state bytes (f32) as `opt_state_specs` lays them
+    out (`sharding.rules`; the train step stores them so, and a record's
+    ``opt_bytes`` traces them)."""
     specs = opt_state_specs(leaves, pspecs, mesh, optimizer)
     total = 0.0
     for i, lf in enumerate(leaves):

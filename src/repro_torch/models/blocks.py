@@ -32,7 +32,12 @@ Under a model layout (`sharding.rules.model_layout`, the hint's) a block's
 input and output are the rank's slice of the sequence (JAX's ``"act"``):
 the norms run there, attention and the MLP split the work as the layout
 says (`attention`, `layers.apply_mlp`), and a recurrent mixer gathers the
-sequence at entry, computes it whole and keeps its slice at exit.  In
+sequence at entry.  The Mamba2 mixer then computes the rank's SSD heads
+where they divide the model axis (`sharding.rules.ssm_heads`, JAX's
+``"ssm_heads"``) and its row-parallel output is reduce-scattered back to
+the sequence slices; its final state is the rank's heads' part
+(`lm.prefill` gathers it).  Elsewhere, and the xLSTM cells always, the
+mixer computes the sequence whole and keeps its slice at exit.  In
 decode (`sharding.rules.decode_layout`) the rows are whole on every rank
 of the model axis: attention reads the rank's slots of the cache
 (split-K), "tp" splits the heads and the FFN hidden, the MoE experts run
@@ -165,6 +170,9 @@ def apply_block(kind: str, p, h: torch.Tensor, cfg, *, positions=None, ctx=None,
         sk = _STATE[kind]
         if layout is not None:
             x = comm.gather_dim(x, 1, hint.seq_group)
+        if kind == "mamba" and getattr(hint, "ssm_heads", False):
+            y, fin = ssm_mod.mamba2_mixer(p[sk.module], x, cfg, group=hint.seq_group)
+            return h + comm.scatter_dim(y, 1, hint.seq_group), fin, {}
         y, fin = sk.apply(p[sk.module], x, cfg)
         if layout is not None:
             y = comm.slice_dim(y, 1, hint.seq_group)

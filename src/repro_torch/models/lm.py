@@ -78,6 +78,7 @@ from ..core.device import resolve_device
 from ..sharding import comm
 from ..sharding import rules
 from . import blocks as blocks_mod
+from . import ssm as ssm_mod
 from .layers import apply_norm, dense_init, embed_init, init_norm
 
 def sharded(hint) -> bool:
@@ -93,7 +94,9 @@ class Gathered:
     part instead (`sharding.comm.local_param`).  A leaf named in `keep`
     (`rules.local_leaves`: the tensor-parallel layout's) is gathered over
     the axes `rules.gather_axes` gives, keeping its "model" shard; the
-    recurrent mixers (`rules.WHOLE_MODULES`) read every leaf whole."""
+    recurrent mixers (`rules.WHOLE_MODULES`) read every leaf whole, but the
+    Mamba2 mixer's ``out_proj`` under the SSD heads' split
+    (`rules.module_leaves`)."""
 
     __slots__ = ("_m", "_seen", "_keep")
 
@@ -109,8 +112,7 @@ class Gathered:
             return v
         if key not in self._seen:
             if isinstance(v, nn.Module):
-                self._seen[key] = Gathered(
-                    v, frozenset() if key in rules.WHOLE_MODULES else self._keep)
+                self._seen[key] = Gathered(v, rules.module_leaves(key, self._keep))
             else:
                 axes = rules.gather_axes(v.device_mesh, key, v.ndim, self._keep)
                 self._seen[key] = comm.gather_param(v, axes)
@@ -560,8 +562,13 @@ def _cache_part(kind: str, entry: dict, hint) -> tuple[dict, dict]:
     them for every head of its slots (`_heads_to_time`), or the heads are
     gathered; the other layouts computed every head whole (the
     sequence-parallel K / V and MLA's latents gathered over the sequence),
-    so the rank keeps its slice.  A recurrent state is whole.  -> (the
-    rank's entry, the global slots of each of its time entries)."""
+    so the rank keeps its slice.  A recurrent state is whole, as
+    `rules.cache_specs` keeps it: under the SSD heads' split
+    (`rules.ssm_heads`) the ranks' parts of a Mamba2 state are gathered
+    (`ssm.gather_state`).  -> (the rank's entry, the global slots of each
+    of its time entries)."""
+    if kind == "mamba" and getattr(hint, "ssm_heads", False):
+        return ssm_mod.gather_state(entry, hint.cfg, hint.seq_group), {}
     if not sharded(hint) or kind in blocks_mod.STATE_KINDS:
         return entry, {}
     seq = hint.seq_group

@@ -13,6 +13,15 @@ One departure from JAX: `mamba2_mixer` hands decode the conv input's last
 K - 1 rows left-padded with zeros, where JAX slices fewer rows from a
 prompt shorter than K - 1 tokens and its `_adopt_prefill` then keeps a
 zeroed conv state, so that its decode forgets the prompt's conv inputs.
+
+On a mesh, JAX's ``"ssm_heads"`` hint splits the SSD heads over the model
+axis (`sharding.rules.ssm_heads`): `mamba2_mixer(group=)` computes the
+rank's H / m heads on the whole sequence, reading ``in_proj``'s columns of
+its heads (and the groups' B and C whole), its channels of the depthwise
+conv, its slices of ``dt_bias``, ``A_log``, ``D`` and the norm's scale,
+the norm's mean of squares merged over the axis, and ``out_proj`` as its
+rows; it returns its partial sums of the output and its heads' part of
+the state, which `gather_state` makes whole for decode.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import comm
 from .layers import _param, dense_init, init_norm, rms_norm
 
 
@@ -151,29 +161,76 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
     return y.reshape(Bsz, nc * L, H, P)[:, :S].to(x.dtype), state
 
 
-def mamba2_mixer(p, x: torch.Tensor, cfg):
+def _heads(s, group) -> tuple[int, int]:
+    """(first head, heads) of this rank's SSD heads; all of them without
+    `group`."""
+    if group is None:
+        return 0, s.n_heads
+    hl = s.n_heads // comm.group_size(group)
+    return comm.group_rank(group) * hl, hl
+
+
+def _cols(w: torch.Tensor, spans, dim: int) -> torch.Tensor:
+    """`w`'s ranges `spans` ((start, stop) each) along `dim`, concatenated."""
+    return torch.cat([w.narrow(dim, a, b - a) for a, b in spans], dim=dim)
+
+
+def mamba2_mixer(p, x: torch.Tensor, cfg, *, group=None):
     """Full-sequence Mamba2 mixer: x (B, S, D) -> (y (B, S, D), final state
-    ``{"ssm", "conv"}``)."""
+    ``{"ssm", "conv"}``).  With `group` (the model axis's process group;
+    JAX's ``"ssm_heads"`` split, module docstring) the rank's heads h0 ..
+    h0 + H / m only: y is its partial sums of the output, which the ranks'
+    reduce-scatter completes, and the state its heads' ``ssm`` (B, H / m,
+    N, P) and ``conv`` its channels, (B, K - 1, d_inner / m + 2 G N)."""
     s = cfg.ssm
     B, S, _ = x.shape
     gn = s.n_groups * s.d_state
-    z, xs, Bm, Cm, dt = _split_in_proj(p, x, s)
+    H, P, N = s.n_heads, s.head_dim, s.d_state
+    h0, hl = _heads(s, group)
+    di, dl = s.d_inner, hl * P
+    own = (h0 * P, (h0 + hl) * P)  # the rank's channels of z, of xs, of y
+    if group is None:
+        z, xs, Bm, Cm, dt = _split_in_proj(p, x, s)
+        conv_w, conv_b, scale = p["conv_w"], p["conv_b"], p["norm"]["scale"]
+    else:  # in_proj column-parallel: the rank's heads' columns, B and C whole
+        w = _cols(p["in_proj"], [own, (di + own[0], di + own[1]), (2 * di, 2 * di + 2 * gn),
+                                 (2 * di + 2 * gn + h0, 2 * di + 2 * gn + h0 + hl)], 1)
+        z, xs, Bm, Cm, dt = torch.split(x @ w, [dl, dl, gn, gn, hl], dim=-1)
+        conv_w = _cols(p["conv_w"], [own, (di, di + 2 * gn)], 1)
+        conv_b = _cols(p["conv_b"], [own, (di, di + 2 * gn)], 0)
+        scale = p["norm"]["scale"][own[0]:own[1]]
     xbc = torch.cat([xs, Bm, Cm], dim=-1)
     tail = conv_tail(xbc, s.d_conv)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"]).to(x.dtype)
-    xs, Bm, Cm = torch.split(xbc, [s.d_inner, gn, gn], dim=-1)
-    H, P, N = s.n_heads, s.head_dim, s.d_state
-    xh = xs.reshape(B, S, H, P)
-    dtp = F.softplus(dt.to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    xbc = _causal_conv(xbc, conv_w, conv_b).to(x.dtype)
+    xs, Bm, Cm = torch.split(xbc, [dl, gn, gn], dim=-1)
+    xh = xs.reshape(B, S, hl, P)
+    dtp = F.softplus(dt.to(torch.float32) + p["dt_bias"][h0:h0 + hl])
+    A = -torch.exp(p["A_log"][h0:h0 + hl])
     y, fin = ssd_scan(
         xh, dtp, A, Bm.reshape(B, S, s.n_groups, N), Cm.reshape(B, S, s.n_groups, N),
         chunk=s.chunk,
     )
-    y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(B, S, s.d_inner)
-    y = rms_norm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm"]["scale"], eps=cfg.norm_eps)
+    y = y + p["D"][h0:h0 + hl].to(y.dtype)[None, None, :, None] * xh
+    y = y.reshape(B, S, dl)
+    y = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    if group is None:
+        y = rms_norm(y, scale, eps=cfg.norm_eps)
+    else:  # the mean of squares over d_inner: the ranks' f32 partial sums merged
+        yf = y.to(torch.float32)
+        var = comm.sum_over(torch.sum(yf * yf, dim=-1, keepdim=True), group) / di
+        y = (yf * torch.rsqrt(var + cfg.norm_eps) * scale.to(torch.float32)).to(y.dtype)
     return y @ p["out_proj"], {"ssm": fin, "conv": tail}
+
+
+def gather_state(state: dict, cfg, group) -> dict:
+    """The whole final state from each rank's part of it under the SSD
+    heads' split (`mamba2_mixer(group=)`): ``ssm`` gathered over the heads
+    and the conv tail's x channels over the ranks, B and C as they are."""
+    gn = cfg.ssm.n_groups * cfg.ssm.d_state
+    conv = state["conv"]
+    xs = comm.all_gather(conv[..., : conv.shape[-1] - 2 * gn], 2, group)
+    return {"ssm": comm.all_gather(state["ssm"], 1, group),
+            "conv": torch.cat([xs, conv[..., conv.shape[-1] - 2 * gn:]], dim=-1)}
 
 
 def init_mamba2_state(cfg, batch: int, *, dtype=torch.float32, device=None) -> dict:

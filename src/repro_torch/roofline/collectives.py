@@ -12,6 +12,7 @@ per-op link-traffic model is JAX's (ring algorithms; n the group's size):
   reduce-scatter     bytes(result) * (n-1)         (input = result * n)
   all-to-all         bytes(result) * (n-1)/n
   collective-permute bytes(result)
+  collective-broadcast bytes(result)       (each rank receives it once)
 
 Each op also names the fabric it crosses: ``"nvlink"`` when every rank of
 its group lies on one host of `RANKS_PER_HOST` ranks (an H100 host's eight
@@ -36,7 +37,7 @@ def traffic(kind: str, result_bytes: float, n: int) -> float:
         return result_bytes * (n - 1) / n
     if kind == "reduce-scatter":
         return float(result_bytes) * (n - 1)
-    return float(result_bytes)  # collective-permute
+    return float(result_bytes)  # collective-permute, collective-broadcast
 
 
 def fabric(ranks) -> str:

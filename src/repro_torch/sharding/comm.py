@@ -63,6 +63,10 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+def group_rank(group) -> int:
+    return dist.get_rank(group)
+
+
 def axes_group(mesh, axes: tuple):
     """The process group over the ranks of `mesh` that differ only along
     `axes` (names, in the mesh's order; the first major), which every rank
@@ -131,6 +135,31 @@ def full(local: torch.Tensor, mesh, placements, use=None) -> torch.Tensor:
     return x
 
 
+def spec_full(local: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """The full tensor of which each rank holds `local` under the JAX spec
+    `spec` (`sharding.rules.spec_part`: a dimension's axes the first major,
+    whatever the mesh's order), no autograd: gathered over each dimension's
+    axes, the minor first."""
+    x = local
+    for d, ax in enumerate(spec):
+        for a in reversed((ax,) if isinstance(ax, str) else tuple(ax or ())):
+            x = all_gather(x, d, mesh.get_group(a))
+    return x
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """`x` of the rank `src` of `group` (its index there) written into every
+    rank's `x`, in place (returned); reported as XLA's
+    ``collective-broadcast``."""
+    if group_size(group) > 1:
+        buf = x if x.is_contiguous() else x.contiguous()
+        dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+        if buf is not x:
+            x.copy_(buf)
+        _record("collective-broadcast", x, group)
+    return x
+
+
 def _own(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = group_size(group)
     return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous() if n > 1 else x
@@ -155,7 +184,7 @@ class _GatherParam(torch.autograd.Function):
             if pl.is_shard():
                 if ctx.use[i]:
                     g = reduce_scatter(g, pl.dim, ctx.mesh.get_group(i))
-            else:
+            elif ctx.mesh.size(i) > 1:
                 g = all_reduce(g.clone(), ctx.mesh.get_group(i))
         return g, None, None, None
 
@@ -168,10 +197,16 @@ class _SumReplicas(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        for i, pl in enumerate(ctx.placements):
-            if not pl.is_shard():
-                all_reduce(g, ctx.mesh.get_group(i))
+        # summed in place over the replicating dimensions, so copied first;
+        # a part that no dimension replicates (an expert stack over every
+        # axis) is passed on as it is, with no copy of its size
+        reps = [i for i, pl in enumerate(ctx.placements)
+                if not pl.is_shard() and ctx.mesh.size(i) > 1]
+        g = g.contiguous()
+        if reps:
+            g = g.clone()
+        for i in reps:
+            all_reduce(g, ctx.mesh.get_group(i))
         return g, None, None
 
 

@@ -48,11 +48,22 @@ Under "tp" and "sp" the embedding, logits and loss are vocab-parallel
 (``"logits"``) when the vocabulary divides the axis (`vocab_parallel`).
 `gather_axes` gives the mesh axes over which a leaf is gathered at use:
 a tensor-parallel leaf keeps its "model" shard.  The MoE layer takes JAX's
-all-to-all path on the sequence slices; the recurrent mixers gather the
-sequence at entry and compute it whole on every rank of the model axis
-(JAX's ``"ssm_heads"`` split is not reproduced); in decode the MoE
-experts run where they lie (expert-parallel) and a recurrent state stays
-whole, as in JAX's `cache_specs`.
+all-to-all path on the sequence slices.  The Mamba2 mixer takes JAX's
+``"ssm_heads"`` hint where the SSD heads divide the axis (`Hint.ssm_heads`):
+each rank computes its heads on the gathered sequence and reads
+``out_proj`` as its rows (row-parallel, `SSM_HEADS_LEAVES`); elsewhere, and
+the xLSTM cells always, a recurrent mixer gathers the sequence and computes
+it whole on every rank of the model axis.  In decode the MoE experts run
+where they lie (expert-parallel) and a recurrent state stays whole, as in
+JAX's `cache_specs`.
+
+The optimizer state lies as JAX's dry run lowers it (`opt_state_specs`):
+ZeRO-1 (`zero1`) adds "model", and "pod" on a multi-pod mesh, to a state
+tensor whose parameter does not use that axis.  Such a spec may name a
+dimension's axes in another order than the mesh's (("model", "pod")), which
+DTensor placements cannot say; `spec_part` gives a rank's block of any
+spec in JAX's order, the first axis major, and `NamedSharding.wrap` holds
+it as a DTensor where the orders agree, else as a `SpecPart`.
 
 The CV serving path shards one thing: the image-batch axis of a bucket
 batch, and of everything the pipeline derives from it (descriptors,
@@ -66,6 +77,8 @@ ported.
 from __future__ import annotations
 
 import dataclasses
+import math
+import typing
 
 import numpy as np
 import torch
@@ -322,6 +335,12 @@ class Hint:
     def vocab_parallel(self) -> bool:
         return self.layout is not None and vocab_parallel(self.cfg, self.mesh)
 
+    @property
+    def ssm_heads(self) -> bool:
+        """Does the Mamba2 mixer split its SSD heads over the model axis in
+        this call (`ssm_heads`; never in decode, whose state is whole)?"""
+        return not self.decode and ssm_heads(self.cfg, self.mesh, self.layout)
+
 
 def tp_dims(cfg) -> tuple:
     """The dimensions that the tensor-parallel layout splits over the model
@@ -362,6 +381,15 @@ def decode_layout(cfg, mesh) -> str | None:
     return "tp" if tp and all(d % m == 0 for d in tp_dims(cfg)) else "splitk"
 
 
+def ssm_heads(cfg, mesh, layout: str | None) -> bool:
+    """JAX's ``"ssm_heads"`` split of the Mamba2 mixer: its SSD heads over
+    "model" (``P(dp, None, "model", None)`` on (B, S, H, P)) in a call of
+    `layout` (`model_layout`: not None, so the model axis has more than one
+    rank and is no batch axis) where the heads divide the axis."""
+    m = mesh_axis_sizes(mesh).get("model", 1)
+    return layout is not None and cfg.ssm is not None and cfg.ssm.n_heads % m == 0
+
+
 def vocab_parallel(cfg, mesh) -> bool:
     """Are the embedding and the head split over the vocabulary on the
     model axis (``embed``'s spec: when the axis divides it)?"""
@@ -374,8 +402,11 @@ def vocab_parallel(cfg, mesh) -> bool:
 TP_LEAVES = frozenset({"w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v", "w_gate", "w_up",
                        "w_down", "b_up", "w_uq", "w_uk", "w_uv"})
 VOCAB_LEAVES = frozenset({"embed", "lm_head"})
-# sub-modules computed whole on every rank of the model axis
+# the recurrent sub-modules: computed whole on every rank of the model axis,
+# but the Mamba2 mixer under the SSD heads' split, which reads its
+# row-parallel output projection where it lies
 WHOLE_MODULES = frozenset({"mixer", "cell"})
+SSM_HEADS_LEAVES = frozenset({"out_proj"})
 
 
 def local_leaves(hint) -> frozenset:
@@ -384,7 +415,18 @@ def local_leaves(hint) -> frozenset:
     if hint is None or getattr(hint, "layout", None) is None:
         return frozenset()
     names = TP_LEAVES if hint.layout == "tp" else frozenset()
-    return names | VOCAB_LEAVES if hint.vocab_parallel else names
+    if hint.vocab_parallel:
+        names = names | VOCAB_LEAVES
+    return names | SSM_HEADS_LEAVES if hint.ssm_heads else names
+
+
+def module_leaves(key: str, keep: frozenset) -> frozenset:
+    """`keep` (`local_leaves`) as the sub-module `key` reads it: a recurrent
+    one (`WHOLE_MODULES`) keeps only the SSD heads' leaves, the Mamba2
+    mixer's, and only under their split."""
+    if key not in WHOLE_MODULES:
+        return keep
+    return keep & SSM_HEADS_LEAVES if key == "mixer" else frozenset()
 
 
 def gather_axes(mesh, name: str, ndim: int, keep: frozenset) -> tuple | None:
@@ -429,6 +471,60 @@ def make_hint(mesh, cfg) -> Hint:
             "logits": P(dp, None, "model"),
         }
     return Hint(mesh, cfg, table)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 optimizer-state specs (JAX's dry run: `repro.launch.dryrun`)
+# ---------------------------------------------------------------------------
+
+
+def zero1(spec: PartitionSpec, shape, mesh) -> PartitionSpec:
+    """ZeRO-1: shard optimizer state over every mesh axis the parameter
+    itself does not use ('model' for SP-FFN weights, 'pod' in multi-pod):
+    each such axis on the first dimension it divides, alone on a dimension
+    the spec leaves whole, else after the dimension's axis (JAX's
+    `_zero1`)."""
+    sizes = mesh_axis_sizes(mesh)
+    fixed = list(tuple(spec) + (None,) * (len(shape) - len(spec)))
+    used = {a for ax in fixed for a in spec_axes(ax)}
+    for extra in ("model", "pod"):
+        if extra not in sizes or extra in used:
+            continue
+        for i, (ax, d) in enumerate(zip(fixed, shape)):
+            if ax is None and d % sizes[extra] == 0 and d > 1:
+                fixed[i] = extra
+                used.add(extra)
+                break
+            if isinstance(ax, str) and d % (sizes[ax] * sizes[extra]) == 0:
+                fixed[i] = (ax, extra)
+                used.add(extra)
+                break
+    return P(*fixed)
+
+
+def factor_specs(spec: PartitionSpec, shape, mesh) -> dict:
+    """Adafactor's state specs of a leaf of `shape` and param `spec`:
+    ``vr`` the spec without its last axis and ``vc`` without its
+    second-to-last, each under `zero1`, for a leaf of rank 2 and above;
+    else ``v`` in the parameter's spec (JAX's `opt_state_specs`)."""
+    axes = tuple(spec) + (None,) * (len(shape) - len(spec))
+    if len(shape) >= 2:
+        return {"vr": zero1(P(*axes[:-1]), shape[:-1], mesh),
+                "vc": zero1(P(*axes[:-2], axes[-1]), shape[:-2] + shape[-1:], mesh)}
+    return {"v": P(*axes)}
+
+
+def opt_state_specs(leaves, pspecs: dict, mesh, optimizer: str) -> dict:
+    """JAX's optimizer-state specs under ZeRO-1 (`zero1`) over
+    `models.lm.param_leaves` and their `param_specs`: AdamW ``{"m": {leaf:
+    spec}, "v": ..., "count": P()}``; Adafactor ``{"f": [one a leaf:
+    `factor_specs`], "count": P()}``.  `train.step` stores the state so."""
+    shapes = {lf.name: _leaf_shape(lf) for lf in leaves}
+    if optimizer == "adamw":
+        m = {lf.name: zero1(pspecs[lf.name], shapes[lf.name], mesh) for lf in leaves}
+        return {"m": m, "v": dict(m), "count": P()}
+    return {"f": [factor_specs(pspecs[lf.name], shapes[lf.name], mesh) for lf in leaves],
+            "count": P()}
 
 
 # ---------------------------------------------------------------------------
@@ -523,6 +619,41 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
     return tuple(out)
 
 
+def spec_axes(ax) -> tuple:
+    """A spec entry's axis names, major first (None: none)."""
+    return (ax,) if isinstance(ax, str) else tuple(ax or ())
+
+
+def in_mesh_order(spec: PartitionSpec, mesh) -> bool:
+    """Does every dimension of `spec` name its axes in the mesh's order, so
+    that DTensor placements say its blocks (`placements`)?"""
+    names = tuple(mesh.mesh_dim_names)
+    return all(list(idx) == sorted(idx)
+               for idx in ([names.index(a) for a in spec_axes(ax)] for ax in spec))
+
+
+def spec_shape(shape, spec: PartitionSpec, mesh) -> tuple:
+    """The shape of a rank's block of a tensor of `shape` under `spec`."""
+    sizes = mesh_axis_sizes(mesh)
+    axes = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // math.prod(sizes[a] for a in spec_axes(ax)) for d, ax in zip(shape, axes))
+
+
+def spec_part(t: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
+    """This rank's block of the full tensor `t` under `spec`, as JAX's
+    `NamedSharding` places it (a view; no communication): a dimension over
+    several axes is split over their product, the first named major,
+    whatever the mesh's order.  In the mesh's order it is `local_part` of
+    `placements`."""
+    for d, ax in enumerate(spec):
+        for a in spec_axes(ax):
+            n = mesh.size(mesh.mesh_dim_names.index(a))
+            if t.shape[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(t.shape)} does not divide over {n} ranks")
+            t = t.chunk(n, dim=d)[mesh.get_local_rank(a)]
+    return t
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """JAX's `NamedSharding`: a mesh and a spec, or DTensor placements
@@ -536,6 +667,30 @@ class NamedSharding:
         if isinstance(self.spec, PartitionSpec):
             return placements(self.spec, self.mesh)
         return tuple(self.spec)
+
+    def part(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the full tensor `t`."""
+        if isinstance(self.spec, PartitionSpec):
+            return spec_part(t, self.mesh, self.spec)
+        return local_part(t, self.mesh, self.spec)
+
+    def wrap(self, local: torch.Tensor):
+        """`local`, this rank's block, as a DTensor of these placements, or a
+        `SpecPart` where the spec's order is not the mesh's."""
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(self.spec, PartitionSpec) and not in_mesh_order(self.spec, self.mesh):
+            return SpecPart(local, self)
+        return DTensor.from_local(local, self.mesh, self.placements, run_check=False)
+
+
+class SpecPart(typing.NamedTuple):
+    """A rank's block of a tensor under a spec whose order over the mesh
+    DTensor placements cannot say (`NamedSharding.wrap`); `sharding.comm.
+    spec_full` gathers it whole."""
+
+    local: torch.Tensor
+    sharding: NamedSharding
 
 
 def local_part(t: torch.Tensor, mesh, placements_) -> torch.Tensor:

@@ -14,11 +14,13 @@
 
 The leaves are named tensors in a fixed order; a training state's are
 JAX's checkpoint's (`train.step.state_tensors`), so that either package
-resumes the other's.  On a mesh, a DTensor leaf is written whole: every
-rank gathers it, rank 0 writes, and every rank waits for the publish.
-`restore` places each leaf on its target's device in its target's dtype,
-or, elastically, as a DTensor on the mesh and with the placements that
-`shardings` gives it (a DTensor target: its own), whatever mesh wrote it.
+resumes the other's.  On a mesh, a DTensor leaf (or a `sharding.rules.
+SpecPart`, a block of a ZeRO-1 spec that DTensor cannot say) is written
+whole: every rank gathers it, rank 0 writes, and every rank waits for the
+publish.  `restore` places each leaf on its target's device in its
+target's dtype, or, elastically, as the rank's block on the mesh and in
+the layout that `shardings` gives it (a DTensor or `SpecPart` target: its
+own), whatever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
     if isinstance(t, DTensor):
         t = comm.full(t.to_local(), t.device_mesh, t.placements)
+    elif isinstance(t, rules.SpecPart):
+        t = comm.spec_full(t.local, t.sharding.mesh, t.sharding.spec)
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:  # numpy has no bfloat16: its raw u16
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -157,21 +161,22 @@ def _tensor(arr: np.ndarray, logical: str) -> torch.Tensor:
 
 
 def _place(t: torch.Tensor, tgt, sharding):
-    """A restored full tensor in its target's dtype: as a DTensor on
-    ``sharding``'s mesh with its placements (a `sharding.rules.NamedSharding`,
-    or a DTensor target's own layout), else on the target's device."""
+    """A restored full tensor in its target's dtype: the rank's block on
+    ``sharding``'s mesh (a `sharding.rules.NamedSharding`, or a DTensor or
+    `SpecPart` target's own layout), as a DTensor or a `SpecPart`
+    (`NamedSharding.wrap`), else on the target's device."""
     from torch.distributed.tensor import DTensor
 
     if sharding is None and isinstance(tgt, DTensor):
         sharding = rules.NamedSharding(tgt.device_mesh, tuple(tgt.placements))
+    elif sharding is None and isinstance(tgt, rules.SpecPart):
+        sharding, tgt = tgt.sharding, tgt.local
     if sharding is None:
         return t.to(device=tgt.device, dtype=tgt.dtype)
     mesh = sharding.mesh
     dev = torch.device(mesh.device_type, torch.cuda.current_device()
                        if mesh.device_type == "cuda" else None)
-    local = rules.local_part(t, mesh, sharding.placements)
-    return DTensor.from_local(local.to(device=dev, dtype=tgt.dtype).contiguous(), mesh,
-                              sharding.placements, run_check=False)
+    return sharding.wrap(sharding.part(t).to(device=dev, dtype=tgt.dtype).contiguous())
 
 
 def restore(ckpt_dir: str, target: dict, *, step: int | None = None,

@@ -18,12 +18,13 @@ parameter's gradient arrives summed over the ranks and in its shards
 vocab-parallel logits (`layers.softmax_cross_entropy_vp`), or, with the
 vocabulary whole, as the mean of their sequence slices' losses: each of
 them holds the same loss, so that the sum over the mesh of ``loss /
-world_size`` counts it once.  AdamW's state lies in the parameters' shards, as JAX's
-(its specs are the parameters'), and its update is the same elementwise
-arithmetic on each shard; Adafactor's factored state is replicated, as
-JAX's (no rule names ``vr`` / ``vc``), and a leaf's update runs on the
-leaf gathered whole, one leaf at a time.  The global gradient norm sums
-each shard once.  The metrics are averaged over the ranks.
+world_size`` counts it once.  The optimizer's state lies as JAX's dry run
+lowers it, in ZeRO-1's layout (`sharding.rules.opt_state_specs`: AdamW's
+moments and Adafactor's factors split over the mesh axes their parameter
+does not use as well); each rank updates its slice of every parameter and
+the slices are gathered back (`optim.zero`), so no leaf is ever gathered
+whole.  The global gradient norm sums each shard once.  The metrics are
+averaged over the ranks.
 
 `state_tensors` lists a state's tensors as JAX's checkpoint holds them
 (the flattened ``{"opt", "params", "step"}`` tree, in its order, named by
@@ -43,7 +44,8 @@ from ..core.device import resolve_device
 from ..models import lm
 from ..models.layers import softmax_cross_entropy, softmax_cross_entropy_vp
 from ..optim import adafactor_init, adafactor_update, adamw_init, adamw_update, cosine_schedule
-from ..optim.adamw import adafactor_leaf_update
+from ..optim.adamw import pieces
+from ..optim.zero import zero_layout
 from ..sharding import comm
 from ..sharding import rules
 
@@ -79,7 +81,9 @@ def init_state(cfg, *, optimizer: str = "adamw", device=None, generator=None,
     "cuda") from `generator`, or `model` when given (e.g. one carried across
     by `convert.from_jax_lm_params`), made trainable (`lm.make_trainable`),
     with zero optimizer state at step 0.  With `mesh`, the model is
-    sharded onto it (`lm.shard_model`; every rank draws the same model)."""
+    sharded onto it (`lm.shard_model`; every rank draws the same model), and
+    on a sharded model the state is each rank's block of ZeRO-1's layout
+    (`_layouts`)."""
     init, _ = _optimizer(optimizer)
     if model is None:
         model = lm.LM(cfg, device=resolve_device(device), generator=generator)
@@ -87,9 +91,22 @@ def init_state(cfg, *, optimizer: str = "adamw", device=None, generator=None,
         lm.shard_model(model, mesh)
     lm.make_trainable(model)
     leaves = lm.param_leaves(model)
-    # AdamW's state in the parameters' shards; Adafactor's factored state whole
-    opt = init(local_leaves(leaves) if optimizer == "adamw" else leaves)
-    return {"model": model, "opt": opt, "step": 0}
+    return {"model": model,
+            "opt": init(local_leaves(leaves), _layouts(model, leaves, optimizer)[0]), "step": 0}
+
+
+def _layouts(model: lm.LM, leaves, optimizer: str) -> tuple:
+    """(`optim.zero.zero_layout`, `rules.opt_state_specs` or None off a
+    mesh) of the model's leaves for `optimizer`: made once for the model's
+    mesh, which fixes them, and kept on the model."""
+    mesh = getattr(model, "mesh", None)
+    kept = getattr(model, "opt_layouts", None)
+    if kept is None or kept[:2] != (mesh, optimizer):
+        specs = None if mesh is None else rules.opt_state_specs(
+            leaves, rules.param_specs(leaves, model.cfg, mesh), mesh, optimizer)
+        kept = (mesh, optimizer, zero_layout(leaves, model.cfg, mesh, optimizer), specs)
+        model.opt_layouts = kept
+    return kept[2:]
 
 
 def loss_fn(model: lm.LM, batch: dict, *, mode: str | None = None, hint=None):
@@ -155,13 +172,16 @@ def _replicas(leaves) -> list:
     return out
 
 
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(g[k].to(F32))) for k in pieces(g.shape))
+
+
 def _global_norm(grads, replicas=None) -> torch.Tensor:
     if replicas is None:
-        sq = sum(torch.sum(torch.square(g.to(F32))) for gs in grads if gs for g in gs)
+        sq = sum(_square_sum(g) for gs in grads if gs for g in gs)
         return torch.sqrt(sq)
     # each shard once: a shard's square sum over the ranks that hold it
-    sq = sum(torch.sum(torch.square(g.to(F32))) / r
-             for gs, r in zip(grads, replicas) if gs for g in gs)
+    sq = sum(_square_sum(g) / r for gs, r in zip(grads, replicas) if gs for g in gs)
     return torch.sqrt(comm.all_reduce(sq, dist.group.WORLD))
 
 
@@ -174,7 +194,8 @@ def _clip_by_global_norm(grads, max_norm: float, replicas=None) -> torch.Tensor:
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for gs in grads:
         for g in gs or ():
-            g.copy_(g.to(F32) * scale)
+            for k in pieces(g.shape):
+                g[k].copy_(g[k].to(F32) * scale)
     return norm
 
 
@@ -213,25 +234,12 @@ def _mean_metrics(metrics: dict, hint) -> dict:
 
 
 @torch.no_grad()
-def _update(optimizer: str, leaves, grads, opt: dict, lr, sharded_: bool) -> None:
-    """One optimizer step in place.  On a mesh, AdamW on the local parts;
-    Adafactor on each leaf gathered whole, its local parts written back."""
+def _update(optimizer: str, model: lm.LM, leaves, grads, opt: dict, lr) -> None:
+    """One optimizer step in place, on each rank's ZeRO-1 blocks of the
+    state and slices of the local parts (`_layouts`)."""
     _, update = _optimizer(optimizer)
-    if not sharded_:
-        update(leaves, grads, opt, lr=lr)
-        return
-    if optimizer == "adamw":
-        update(local_leaves(leaves), grads, opt, lr=lr)
-        return
-    for leaf, gs in zip(leaves, grads):
-        if gs is None:
-            continue
-        full = [comm.full(_local(p), p.device_mesh, p.placements) for p in leaf.params]
-        full_g = [comm.full(g, p.device_mesh, p.placements) for p, g in zip(leaf.params, gs)]
-        adafactor_leaf_update(lm.Leaf(leaf.name, full, leaf.stacked), full_g, opt, lr=lr)
-        for p, f in zip(leaf.params, full):
-            _local(p).copy_(rules.local_part(f, p.device_mesh, p.placements))
-    opt["count"] += 1
+    update(local_leaves(leaves), grads, opt, lr=lr, zero=_layouts(model, leaves, optimizer)[0])
+
 
 def make_train_step(cfg, mesh=None, *, optimizer: str = "adamw", peak_lr: float = 3e-4,
                     warmup: int = 200, total_steps: int = 10000, max_grad_norm: float = 1.0,
@@ -260,7 +268,7 @@ def make_train_step(cfg, mesh=None, *, optimizer: str = "adamw", peak_lr: float 
             grads, max_grad_norm, _replicas(leaves) if hint else None)
         lr = cosine_schedule(state["step"], peak_lr=peak_lr, warmup=warmup, total=total_steps)
         metrics["lr"] = lr
-        _update(optimizer, leaves, grads, state["opt"], lr, lm.sharded(hint))
+        _update(optimizer, model, leaves, grads, state["opt"], lr)
         del grads
         _zero_grads(model)
         if cfg.moe is not None and cfg.moe.router_style == "sigmoid" and "expert_load" in metrics:
@@ -302,7 +310,7 @@ def make_accum_train_step(cfg, mesh=None, *, optimizer: str = "adamw", accum: in
         _zero_grads(model)
         gnorm = _clip_by_global_norm(acc, max_grad_norm, _replicas(leaves) if hint else None)
         lr = cosine_schedule(state["step"], peak_lr=peak_lr, warmup=warmup, total=total_steps)
-        _update(optimizer, leaves, acc, state["opt"], lr, lm.sharded(hint))
+        _update(optimizer, model, leaves, acc, state["opt"], lr)
         state["step"] += 1
         return state, {"loss": torch.mean(torch.stack(losses)), "grad_norm": gnorm, "lr": lr}
 
@@ -331,34 +339,44 @@ def _shifted(placements) -> tuple:
 
 
 def _leaf_layout(leaf):
-    """(mesh, placements) of a leaf in JAX's stacked shape; None off a mesh."""
+    """The `rules.NamedSharding` of a leaf in JAX's stacked shape; None off
+    a mesh."""
     p = leaf.params[0]
     mesh = getattr(p, "device_mesh", None)
     if mesh is None:
         return None
-    return mesh, _shifted(p.placements) if leaf.stacked else tuple(p.placements)
+    return rules.NamedSharding(mesh, _shifted(p.placements) if leaf.stacked
+                               else tuple(p.placements))
 
 
 def _as_leaf(local: torch.Tensor, layout):
-    """A leaf's local part in JAX's shape as a DTensor on its mesh (as is
-    off a mesh)."""
-    if layout is None:
-        return local
-    from torch.distributed.tensor import DTensor
-
-    return DTensor.from_local(local, layout[0], layout[1], run_check=False)
+    """A leaf's local part in JAX's shape as a DTensor on its mesh, or a
+    `rules.SpecPart` (`rules.NamedSharding.wrap`); as is off a mesh."""
+    return local if layout is None else layout.wrap(local)
 
 
 def _opt_entries(state: dict, leaves) -> list:
-    """(JAX path, the state tensor, the leaf's layout or None) of the
-    optimizer's state in JAX's order: AdamW ``m`` then ``v`` per leaf (in
-    the parameters' shards); Adafactor ``f`` a list parallel to the leaves,
-    each ``vc`` before ``vr`` (replicated)."""
+    """(JAX path, the state tensor, its `rules.NamedSharding` or None) of
+    the optimizer's state in JAX's order: AdamW ``m`` then ``v`` per leaf;
+    Adafactor ``f`` a list parallel to the leaves, each ``vc`` before
+    ``vr``; on a mesh each in `rules.opt_state_specs`' layout."""
     opt = state["opt"]
-    if "m" in opt:
-        return [(jax_path("opt", key, lf.name), opt[key][lf.name], _leaf_layout(lf))
+    optimizer = "adamw" if "m" in opt else "adafactor"
+    mesh = getattr(state["model"], "mesh", None)
+    specs = _layouts(state["model"], leaves, optimizer)[1]
+
+    def layout(*keys):  # the spec under `keys` in `specs`, as a NamedSharding
+        if specs is None:
+            return None
+        spec = specs
+        for k in keys:
+            spec = spec[k]
+        return rules.NamedSharding(mesh, spec)
+
+    if optimizer == "adamw":
+        return [(jax_path("opt", key, lf.name), opt[key][lf.name], layout(key, lf.name))
                 for key in ("m", "v") for lf in leaves]
-    return [(jax_path("opt", "f", str(i), k), opt["f"][lf.name][k], None)
+    return [(jax_path("opt", "f", str(i), k), opt["f"][lf.name][k], layout("f", i, k))
             for i, lf in enumerate(leaves) for k in sorted(opt["f"][lf.name])]
 
 
@@ -367,8 +385,9 @@ def state_tensors(state: dict) -> dict:
     checkpoint: ``['opt']['count']``, the optimizer's state, each parameter
     leaf (`lm.param_leaves`, a run of layers stacked: a copy), then
     ``['step']``; the counters as 0-d int32 CPU tensors.  On a mesh each
-    tensor is a DTensor of its leaf's layout (Adafactor's state and the
-    counters plain)."""
+    tensor is a DTensor of its layout (a parameter's, or the state's
+    ZeRO-1 spec: a `rules.SpecPart` where DTensor cannot say it), the
+    counters plain."""
     leaves = lm.param_leaves(state["model"])
     out = {COUNT: torch.tensor(state["opt"]["count"], dtype=torch.int32)}
     for name, t, layout in _opt_entries(state, leaves):
@@ -388,22 +407,23 @@ def state_names(state: dict) -> list:
             + [jax_path("params", lf.name) for lf in leaves] + [STEP])
 
 
-def _part(src, mesh_placements):
-    """The local part of `src` (a full tensor, or a DTensor whose local part
-    is taken as it is) for a destination of layout `mesh_placements`."""
+def _part(src, layout):
+    """The local part of `src` (a full tensor, or a DTensor or
+    `rules.SpecPart` whose local part is taken as it is) for a destination
+    of `layout` (a `rules.NamedSharding` or None)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(src, DTensor):
         return src.to_local()
-    if mesh_placements is None:
-        return src
-    return rules.local_part(src, *mesh_placements)
+    if isinstance(src, rules.SpecPart):
+        return src.local
+    return src if layout is None else layout.part(src)
 
 
 @torch.no_grad()
 def load_state_tensors(state: dict, tensors: dict) -> None:
     """Write `tensors` (named as `state_tensors` names them: full tensors,
-    or DTensors of the state's layouts) into `state`: each copied into its
+    or DTensors and `rules.SpecPart`s of the state's layouts) into `state`: each copied into its
     place (a stacked leaf split over its layers), the counters set."""
     if list(tensors) != state_names(state):
         raise ValueError("load_state_tensors: the names do not match the state's")

@@ -317,13 +317,72 @@ def _expected_collectives(arch: str, kind: str) -> list:
         n_metrics = 3 + (3 if cfg.moe is not None else 0)
         load = [("all-reduce", cfg.moe.n_experts * 4, 8)] if cfg.moe is not None else []
         out += [("all-reduce", 4, 8)] * n_metrics + load + [("all-reduce", 4, 8)]
-        opt = dict(CASES)[arch]
-        if opt == "adafactor":  # each trainable leaf and its gradient gathered whole
-            for lf in leaves:
-                spec = rules.P(*specs[lf.name][1:]) if lf.stacked else specs[lf.name]
-                for p in lf.params:
-                    if p.requires_grad:
-                        gather(p, spec, lf.name.rsplit(".", 1)[-1], grad=False, uses=2)
+        out += _optimizer_collectives(leaves, specs, dict(CASES)[arch], ms, sizes)
+    return out
+
+
+def _optimizer_collectives(leaves, specs, opt: str, ms, sizes) -> list:
+    """The ZeRO-1 update's collectives (`rules.opt_state_specs`), rank 0's:
+    for a factored Adafactor leaf its row and column sums (f32) all-reduced
+    over the axes that split the reduced dimension, each factor gathered
+    over the axes ZeRO-1 adds to it (the minor first), the denominator's
+    sums all-reduced like the column sums; one all-reduce of every leaf's
+    squared step; then each updated slice gathered over the axes ZeRO-1
+    adds to the parameter's spec, or, on a stacked leaf's layer axis (a
+    leaf of matrices, taken layer by layer), each layer broadcast from its
+    owner.  An unfactored leaf's state lies in its parameter's spec: no
+    collective."""
+    def axes(ax):
+        return (ax,) if isinstance(ax, str) else tuple(ax or ())
+
+    def numel(shape, spec):  # of the rank's block
+        spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+        return math.prod(d // math.prod(sizes[a] for a in axes(ax)) for d, ax in zip(shape, spec))
+
+    def extra(base, spec):  # (dim, axis) of each axis `spec` adds, the major first
+        base = tuple(base) + (None,) * (len(spec) - len(base))
+        return [(d, a) for d, (b, z) in enumerate(zip(base, spec)) for a in axes(z)[len(axes(b)):]]
+
+    out, trained = [], 0
+    for lf in leaves:
+        if not lf.params[0].requires_grad:
+            continue
+        trained += 1
+        shape = rules._leaf_shape(lf)
+        nd = len(shape)
+        ps = tuple(specs[lf.name]) + (None,) * (nd - len(specs[lf.name]))
+        factored = opt == "adafactor" and nd >= 2
+        if factored:
+            f = rules.factor_specs(rules.P(*ps), shape, ms)
+            vc_base, vc_shape = ps[:-2] + (ps[-1],), shape[:-2] + shape[-1:]
+            sums = [(ps[-1], numel(shape[:-1], ps[:-1])), (ps[-2], numel(vc_shape, vc_base))]
+            for key, base, sh in (("vr", ps[:-1], shape[:-1]), ("vc", vc_base, vc_shape)):
+                block = numel(sh, f[key]) * 4
+                for _, a in reversed(extra(base, f[key])):
+                    block *= sizes[a]
+                    out.append(("all-gather", block, sizes[a]))
+            sums.append((ps[-2], numel(shape[:-2], ps[:-2])))
+            out += [("all-reduce", n * 4, math.prod(sizes[a] for a in axes(ax)))
+                    for ax, n in sums if axes(ax)]
+            update = rules.zero1(rules.P(*ps), shape, ms)
+        else:
+            update = rules.zero1(rules.P(*ps), shape, ms) if opt == "adamw" else rules.P(*ps)
+        cuts = extra(ps, update)
+        whole = not lf.stacked or (factored and nd == 2)
+        lead = [] if whole else [a for d, a in cuts if d == 0]
+        inner = cuts if whole else [(d, a) for d, a in cuts if d > 0]
+        unit = (numel(shape, ps) if whole else numel(shape[1:], ps[1:])) * lf.params[0].element_size()
+        units = 1 if whole else shape[0]
+        for _ in range(units // math.prod(sizes[a] for a in lead)):
+            block = unit // math.prod(sizes[a] for _, a in inner)
+            for _, a in reversed(inner):
+                block *= sizes[a]
+                out.append(("all-gather", block, sizes[a]))
+        for k, a in enumerate(lead):
+            dom = units // math.prod(sizes[b] for b in lead[:k])
+            out += [("collective-broadcast", unit, sizes[a])] * dom
+    if opt == "adafactor":
+        out.append(("all-reduce", trained * 4, 8))
     return out
 
 

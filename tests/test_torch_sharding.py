@@ -29,17 +29,32 @@ Tolerances, with their reasons (f32 throughout):
     sharded steps on the same mesh, which take the aux loss per shard as
     the port does; the single-process steps take it over the whole batch,
     so against them the first loss differs by the aux loss's share only;
+  * two Adafactor steps of reduced arctic-480b (the all-to-all MoE, its
+    expert stacks and their Adafactor factors split over ("data",
+    "model"), its aux loss weighted 0, the one term that path takes per
+    shard): losses within 1e-5 and parameters within 1e-4 of JAX's
+    `train_step`, run unsharded (the same function);
+  * the optimizer state of gemma's AdamW and Adafactor, deepseek's AdamW
+    and arctic's Adafactor runs: on every rank the local shapes of
+    `rules.opt_state_specs` (ZeRO-1), `opt_bytes_zero1` bytes, and a leaf
+    split over an axis its parameter does not use; a spec naming a
+    dimension's axes out of the mesh's order (("model", "data")) holds
+    JAX's block and gathers whole (`comm.spec_full`), exact;
   * the elastic restore and the resharded training state: equal;
   * the model axis's layouts (`LAYOUT_CASES`: reduced gemma-7b and
     seamless-m4t-large-v2 at 16 q and 16 KV heads, tensor-parallel;
     reduced qwen2-72b with random biases, sequence-parallel; reduced
     deepseek-v3-671b above, sequence-parallel MLA with the all-to-all MoE
-    on the sequence slices): the sharded forward's logits within 1e-4 and
-    its gradients within 1e-3, two AdamW steps' losses within 1e-5 and
-    parameters within 1e-4, of the single-process port and of JAX's
-    sharded run on the same mesh (deepseek: its logits and gradients
-    against JAX's sharded ones as well); the "tp" case's sharded
-    `generate` equal to the single-process one;
+    on the sequence slices; reduced zamba2-2.7b, its 4 SSD heads split 2
+    a rank, JAX's ``"ssm_heads"``): the sharded forward's logits within
+    1e-4 and its gradients within 1e-3, two AdamW steps' losses within
+    1e-5 and parameters within 1e-4, of the single-process port and of
+    JAX's sharded run on the same mesh (deepseek: its logits and gradients
+    against JAX's sharded ones as well; zamba2 against JAX unsharded,
+    `JAX_WHOLE`); the "tp" case's sharded `generate` equal to the
+    single-process one; zamba2's every scan over 2 heads, ``out_proj``
+    read as the rank's rows, and its prefill decoded 4 steps
+    teacher-forced within 1e-4 of the single process;
   * decode over the model axis (`DECODE_CASES`: "tp", split-K alone, the
     window ring wrapped over both model ranks, MLA split-K and "tp" with
     the MoE expert-parallel over ("data", "model"), the MoE over "model"
@@ -65,7 +80,8 @@ import jax
 import jax.numpy as jnp
 from conftest import run_subprocess
 from torch_sharding_job import (DECODE_B, DECODE_CASES, DECODE_CTX, DECODE_STEPS, LAYOUT_CASES,
-                                decode_config, decode_run, layout_config)
+                                SSM_CACHE, SSM_STEPS, arctic_config, decode_config, decode_run,
+                                layout_config, ssm_case)
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import lm as jlm
 from repro.train import step as jstep
@@ -84,6 +100,9 @@ LOGITS_TOL, GRAD_TOL = 1e-4, 1e-3
 LOSS_TOL, PARAM_TOL = 1e-5, 1e-4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 32, 8, 1e-3  # the job's
 LAYOUT_B, LAYOUT_S, LAYOUT_T = 8, 32, 16  # the layout cases' batch, sequence, context
+# layout cases JAX runs unsharded (one device): the same function, a
+# shorter compile; a MoE case's aux loss would change with the sharding
+JAX_WHOLE = ("zamba2 ssm_heads",)
 
 JAX_SIDE = """
 import numpy as np, jax, jax.numpy as jnp
@@ -125,7 +144,9 @@ print("JAX_SIDE_OK")
 """
 
 # JAX's sharded forward and gradients of deepseek and the layout cases, and the
-# layout cases' two steps: a second subprocess, beside `JAX_SIDE`
+# layout cases' two steps: a second subprocess, beside `JAX_SIDE`, and a third
+# for the `JAX_WHOLE` cases and arctic's Adafactor steps (``deepseek`` None),
+# so that the three take about as long
 JAX_LAYOUT = """
 import numpy as np, jax, jax.numpy as jnp
 from repro.launch.mesh import make_mesh
@@ -136,9 +157,11 @@ from repro.sharding import rules
 from repro.train import step as step_mod
 out = {}
 mesh = make_mesh((4, 2), ("data", "model"))
+one = make_mesh((1, 1), ("data", "model"))
+JAX_WHOLE = %(whole)r
 def leaves(tree):
     return [np.asarray(x) for x in jax.tree.leaves(tree)]
-def sharded(cfg, params, batch, tag):
+def sharded(cfg, params, batch, tag, mesh=mesh):
     hint = rules.make_hint(mesh, cfg)
     def both(p, b):
         return (lm.forward(p, cfg, b, hint=hint)[0],
@@ -148,10 +171,11 @@ def sharded(cfg, params, batch, tag):
     out[tag + ":logits"] = np.asarray(logits)
     for i, g in enumerate(leaves(grads)):
         out[f"{tag}:grad{i}"] = g
-ds = np.load(%(deepseek)r)
-cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
-sharded(cfg, jax.jit(lambda k: lm.init_params(k, cfg))(jax.random.key(0)),
-        {k: jnp.asarray(ds[k]) for k in ("tokens", "labels")}, "deepseek")
+if %(deepseek)r is not None:
+    ds = np.load(%(deepseek)r)
+    cfg = reduced_config("deepseek-v3-671b").replace(dtype="float32")
+    sharded(cfg, jax.jit(lambda k: lm.init_params(k, cfg))(jax.random.key(0)),
+            {k: jnp.asarray(ds[k]) for k in ("tokens", "labels")}, "deepseek")
 for tag, (arch, kw, _) in %(cases)r.items():
     cfg = reduced_config(arch).replace(dtype="float32", **kw)
     z = np.load(%(layout)r %% tag.replace(" ", "_"))
@@ -161,15 +185,37 @@ for tag, (arch, kw, _) in %(cases)r.items():
                                 [jnp.asarray(z[f"param{i}"]) for i in range(n)])
     def batch_of(pre):
         return {k[len(pre):]: jnp.asarray(z[k]) for k in z.files if k.startswith(pre)}
-    sharded(cfg, params, batch_of("b."), tag)
+    m = one if tag in JAX_WHOLE else mesh
+    sharded(cfg, params, batch_of("b."), tag, m)
     state = {"params": params, "opt": adamw_init(params), "step": jnp.zeros((), jnp.int32)}
-    fn = jax.jit(step_mod.make_train_step(cfg, mesh, peak_lr=%(lr)r, warmup=1))
-    with mesh:
+    fn = jax.jit(step_mod.make_train_step(cfg, m, peak_lr=%(lr)r, warmup=1))
+    with m:
         for i in range(2):
             state, m = fn(state, batch_of(f"s{i}."))
             out[f"{tag}:loss{i}"] = np.asarray(m["loss"])
     for i, v in enumerate(leaves(state["params"])):
         out[f"{tag}:param{i}"] = v
+if %(arctic)r is not None:
+    import dataclasses
+    from repro.data.synthetic import TokenStream
+    from repro.optim import adafactor_init
+    cfg = reduced_config("arctic-480b").replace(dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, aux_loss_weight=0.0))
+    z = np.load(%(arctic)r)
+    shapes = jax.eval_shape(lambda k: lm.init_params(k, cfg), jax.random.key(0))
+    params = jax.tree.unflatten(jax.tree.structure(shapes),
+                                [jnp.asarray(z[f"param{i}"]) for i in range(len(z.files))])
+    state = {"params": params, "opt": adafactor_init(params), "step": jnp.zeros((), jnp.int32)}
+    fn = jax.jit(step_mod.make_train_step(cfg, one, optimizer="adafactor", peak_lr=%(lr)r,
+                                          warmup=1))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=%(seq)d, global_batch=%(batch)d)
+    with one:
+        for i in range(2):
+            state, m = fn(state, stream.batch_at(i))
+            out[f"arctic:loss{i}"] = np.asarray(m["loss"])
+            out[f"arctic:grad_norm{i}"] = np.asarray(m["grad_norm"])
+    for i, v in enumerate(leaves(state["params"])):
+        out[f"arctic:param{i}"] = v
 np.savez(%(out)r, **out)
 print("JAX_LAYOUT_OK")
 """
@@ -230,6 +276,35 @@ def _decode_inputs(tag: str, seed: int):
     return params, case
 
 
+def _arctic_inputs(d: str):
+    """Reduced arctic-480b's parameters for its Adafactor steps (`arctic_config`),
+    every leaf of JAX's tree drawn from N(0, 0.1^2) with numpy, as
+    `_decode_inputs` draws them: the JAX tree, written to an npz for JAX's
+    side, and the port's state."""
+    cfg_j = arctic_config(jax_reduced_config)
+    rng = np.random.default_rng(21)
+    shapes = jax.eval_shape(lambda k: jlm.init_params(k, cfg_j), jax.random.key(0))
+    params = jax.tree.map(
+        lambda x: jnp.asarray(0.1 * rng.standard_normal(x.shape), x.dtype), shapes)
+    np.savez(os.path.join(d, "arctic.npz"),
+             **{f"param{i}": np.asarray(x) for i, x in enumerate(jax.tree.leaves(params))})
+    return params, from_jax_lm_params(params, arctic_config(reduced_config),
+                                      device="cpu").state_dict()
+
+
+def _jax_steps(params, jax_side: dict, tag: str, cfg) -> dict:
+    """JAX's two train steps ``<tag>:loss<i>``, ``<tag>:grad_norm<i>`` and
+    ``<tag>:param<i>`` in `_single_train`'s form, with the parameters as
+    the port's named tensors (`params`: the JAX tree they started from)."""
+    n = len(jax.tree.leaves(params))
+    tree = jax.tree.unflatten(jax.tree.structure(params),
+                              [jnp.asarray(jax_side[f"{tag}:param{i}"]) for i in range(n)])
+    return {"metrics": [{k: float(jax_side[f"{tag}:{k}{i}"]) for k in ("loss", "grad_norm")}
+                        for i in range(2)],
+            "params": {k: v.detach() for k, v in
+                       from_jax_lm_params(tree, cfg, device="cpu").named_parameters()}}
+
+
 def _single_decode(tag: str, params, case: dict) -> dict:
     """A decode case in one process (`decode_run`), and JAX's
     `lm.decode_step` from the same adopted cache with the same tokens."""
@@ -268,6 +343,8 @@ def _single_layout(tag: str, case: dict) -> dict:
     if tag == "gemma tp":
         with torch.no_grad():
             out["generate"] = generate(model, batch["tokens"][:, :12], steps=6, device="cpu")
+    if cfg.ssm is not None:
+        out["decode"] = decode_run(model, cfg, tag, ssm_case(batch), cache_len=SSM_CACHE)
     model = tlm.LM(cfg, device="cpu")
     model.load_state_dict(case["state"])
     state = tstep.init_state(cfg, device="cpu", model=model)
@@ -321,23 +398,29 @@ def run(tmp_path_factory):
     np.savez(os.path.join(d, "deepseek_batch.npz"), tokens=tokens.numpy(), labels=labels.numpy())
     layout = {tag: _layout_inputs(tag, d, seed) for seed, tag in enumerate(LAYOUT_CASES, 1)}
     decode = {tag: _decode_inputs(tag, seed) for seed, tag in enumerate(DECODE_CASES, 11)}
-    torch.save({"deepseek": model.state_dict(), "tokens": tokens, "labels": labels,
+    arctic_j, arctic = _arctic_inputs(d)
+    torch.save({"deepseek": model.state_dict(), "arctic": arctic, "tokens": tokens,
+                "labels": labels,
                 "g": torch.from_numpy(g), "prompts": prompts,
                 "layout": {tag: case for tag, (_, _, case) in layout.items()},
                 "decode": {tag: case for tag, (_, case) in decode.items()}},
                os.path.join(d, "inputs.pt"))
     job = subprocess.Popen([sys.executable, os.path.join(HERE, "torch_sharding_job.py"), d],
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    jax_out, jax_layout_out = os.path.join(d, "jax.npz"), os.path.join(d, "jax_layout.npz")
-    pool = ThreadPoolExecutor(2)
+    jax_out = os.path.join(d, "jax.npz")
+    jax_layout_out = [os.path.join(d, f"jax_layout{i}.npz") for i in range(2)]
+    pool = ThreadPoolExecutor(3)
     try:
         jax_side = pool.submit(run_subprocess, JAX_SIDE % dict(
             g=os.path.join(d, "g.npy"), out=jax_out, lr=TRAIN_LR, seq=TRAIN_SEQ,
             batch=TRAIN_BATCH), timeout=JOB_TIMEOUT_S)
-        jax_layout = pool.submit(run_subprocess, JAX_LAYOUT % dict(
-            out=jax_layout_out, lr=TRAIN_LR, deepseek=os.path.join(d, "deepseek_batch.npz"),
-            cases=LAYOUT_CASES, layout=os.path.join(d, "layout_%s.npz")),
-            timeout=JOB_TIMEOUT_S)
+        jax_layout = [pool.submit(run_subprocess, JAX_LAYOUT % dict(
+            out=out, lr=TRAIN_LR, deepseek=ds, layout=os.path.join(d, "layout_%s.npz"),
+            cases={t: c for t, c in LAYOUT_CASES.items() if (t in JAX_WHOLE) == whole},
+            whole=JAX_WHOLE, arctic=os.path.join(d, "arctic.npz") if whole else None,
+            seq=TRAIN_SEQ, batch=TRAIN_BATCH), timeout=JOB_TIMEOUT_S)
+            for out, ds, whole in ((jax_layout_out[0], os.path.join(d, "deepseek_batch.npz"),
+                                    False), (jax_layout_out[1], None, True))]
         ref = {}
         # the single-process port and JAX, unsharded
         logits, _ = tlm.forward(model, tokens)
@@ -371,8 +454,11 @@ def run(tmp_path_factory):
         ref["decode"] = {tag: _single_decode(tag, params, case)
                          for tag, (params, case) in decode.items()}
         assert "JAX_SIDE_OK" in jax_side.result()
-        assert "JAX_LAYOUT_OK" in jax_layout.result()
-        ref["jax sharded"] = {**np.load(jax_out), **np.load(jax_layout_out)}
+        assert all("JAX_LAYOUT_OK" in f.result() for f in jax_layout)
+        ref["jax sharded"] = {**np.load(jax_out), **np.load(jax_layout_out[0]),
+                              **np.load(jax_layout_out[1])}
+        ref["arctic adafactor"] = _jax_steps(arctic_j, ref["jax sharded"], "arctic",
+                                             arctic_config(reduced_config))
         log, _ = job.communicate(timeout=JOB_TIMEOUT_S)
     finally:
         job.kill()
@@ -427,7 +513,8 @@ def test_compressed_psum_over_8_ranks(run):
             cols[:, r % 2]).max() / 127.0
 
 
-@pytest.mark.parametrize("tag", ["gemma adamw", "gemma adafactor", "gemma accum"])
+@pytest.mark.parametrize("tag", ["gemma adamw", "gemma adafactor", "gemma accum",
+                                 "arctic adafactor"])
 def test_two_sharded_train_steps(run, tag):
     out, ref, _ = run
     got, want = out[tag], ref[tag]
@@ -468,6 +555,16 @@ def test_two_sharded_moe_train_steps_against_jax(run):
     assert abs(m0["loss"] - s0["loss"]) < 1e-3
 
 
+@pytest.mark.parametrize("tag", ["gemma adamw", "gemma adafactor", "deepseek adamw",
+                                 "arctic adafactor"])
+def test_train_state_lies_in_zero1_layout(run, tag):
+    """Every rank's optimizer state: the local shapes of `opt_state_specs`,
+    `opt_bytes_zero1` bytes, and a leaf split over an axis its parameter
+    does not use."""
+    out, _, _ = run
+    assert out[tag]["zero1"] == {"shapes": True, "bytes": True, "extra axis": True}
+
+
 def _leaf_of(param_name: str) -> str:
     """A parameter's leaf in JAX's tree, for reduced deepseek-v3-671b
     (layer 0 the ``mla`` run, layers 1-2 the ``mla_moe`` run)."""
@@ -493,6 +590,15 @@ def test_elastic_restore_onto_another_mesh(run):
     assert loop_out["logged"][0] == "[train] resumed from step 2"
     for a, b in zip(loop_out["losses"], ref["loop"]):
         assert abs(a - b) < LOSS_TOL, (loop_out["losses"], ref["loop"])
+
+
+def test_a_spec_out_of_the_mesh_order_gathers_whole(run):
+    """JAX's ("model", "data") on one dimension of the (4, 2) mesh: rank 0
+    (data 0, model 0) holds block 0 of 8, and `comm.spec_full` rebuilds
+    the tensor on every rank."""
+    out, _, _ = run
+    w = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    assert torch.equal(out["spec_full"]["block"], w[:1]) and out["spec_full"]["whole"]
 
 
 def test_constrain_and_generate(run):
@@ -551,6 +657,28 @@ def test_layout_two_train_steps(run, tag):
 def test_layout_tp_generate_decodes_over_the_model_axis(run):
     out, ref, _ = run
     assert torch.equal(out["gemma tp"]["generate"], ref["gemma tp"]["generate"])
+
+
+def test_ssm_heads_split_over_the_model_axis(run):
+    """Reduced zamba2-2.7b: every Mamba2 layer of the forward scans 2 of its
+    4 SSD heads on a rank (no (B, S, H, P) tensor over all H), and the
+    mixer reads ``out_proj`` as its rank's rows."""
+    out, _, _ = run
+    got = out["zamba2 ssm_heads"]["ssm"]
+    cfg = layout_config(reduced_config, "zamba2 ssm_heads")
+    assert got["split"] and cfg.ssm.n_heads == 4
+    assert got["heads"] == [2] * sum(1 for k in cfg.block_list if k == "mamba")
+    assert got["out_proj"] == (cfg.ssm.d_inner // 2, cfg.d_model)
+
+
+def test_ssm_heads_prefill_decodes_like_the_single_process(run):
+    """The zamba2 case's prefill under the split (the ranks' states
+    gathered), adopted and decoded `SSM_STEPS` steps teacher-forced: every
+    step's logits within 1e-4 of the single process."""
+    out, ref, _ = run
+    got, want = out["zamba2 ssm_heads"]["decode"], ref["zamba2 ssm_heads"]["decode"]
+    assert got["logits"].shape[0] == SSM_STEPS
+    assert float((got["logits"] - want["logits"]).abs().max()) < LOGITS_TOL
 
 
 @pytest.mark.parametrize("tag", list(DECODE_CASES))

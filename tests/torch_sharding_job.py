@@ -4,20 +4,26 @@ the CPU, a (4, 2) ("data", "model") mesh, every check in one spawn.
     python tests/torch_sharding_job.py OUT_DIR
 
 reads ``OUT_DIR/inputs.pt`` (the reduced deepseek-v3-671b model in f32
-carried across from JAX, its batch; the seeded gradients of the
+carried across from JAX, its batch; reduced arctic-480b's model from JAX's
+tree; the seeded gradients of the
 compressed all-reduce; the models and batches of `LAYOUT_CASES`) and
 writes rank 0's results to ``OUT_DIR/out.pt``: the sharded forward's
 logits, loss and gradients (whole), the compressed all-reduces, two
 sharded train steps of reduced gemma-7b (AdamW, Adafactor, the
-accumulation step) and reduced deepseek-v3-671b (AdamW), the elastic
-restore from (4, 2) onto (2, 4) (a tensor, a training state, the training
-loop's restart), a DTensor under `constrain`, a sharded `generate`, for
-each of `LAYOUT_CASES` the layout the model axis takes, the sharded
-forward's logits and gradients and two train steps (gemma's "tp" case
-also a sharded `generate`), and for each of `DECODE_CASES` a prefill and
-teacher-forced decode steps over the model axis (`decode_run`).  Every
-rank waits at most `TIMEOUT_S` in a collective, so a hung rendezvous
-fails instead of stalling.
+accumulation step), reduced deepseek-v3-671b (AdamW) and reduced
+arctic-480b (Adafactor, `arctic_config`), each
+optimizer's state checked against ZeRO-1's specs on every rank
+(`_zero1_state`), the elastic restore from (4, 2) onto (2, 4) (a tensor,
+a training state, the training loop's restart), a block of a spec out of
+the mesh's order gathered whole, a DTensor under `constrain`, a sharded
+`generate`, for each of `LAYOUT_CASES` the layout the model axis takes,
+the sharded forward's logits and gradients and two train steps (gemma's
+"tp" case also a sharded `generate`; zamba2's the SSD heads each rank
+scans, the rows of ``out_proj`` it reads, and a prefill decoded
+teacher-forced, `SSM_PROMPT`), and for each of `DECODE_CASES` a prefill
+and teacher-forced decode steps over the model axis (`decode_run`).
+Every rank waits at most `TIMEOUT_S` in a collective, so a hung
+rendezvous fails instead of stalling.
 """
 
 import dataclasses
@@ -41,12 +47,19 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 32, 8, 1e-3
 # reduced qwen2-72b's 8 over 2 do not (sequence-parallel, with its biases),
 # and its vocabulary of 511 does not divide the model axis (the embedding
 # and the head whole, the logits and the loss on the sequence slices).
+# Reduced zamba2-2.7b's 4 SSD heads divide the model axis (JAX's
+# "ssm_heads"): each rank scans 2; its 4 attention heads do not pass the
+# 16-way test, so its shared block is sequence-parallel.
 LAYOUT_CASES = {
     "gemma tp": ("gemma-7b", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8}, "tp"),
     "qwen2 sp": ("qwen2-72b", {"vocab_size": 511}, "sp"),
     "seamless tp": ("seamless-m4t-large-v2", {"n_heads": 16, "n_kv_heads": 16, "head_dim": 8},
                     "tp"),
+    "zamba2 ssm_heads": ("zamba2-2.7b", {}, "sp"),
 }
+# the zamba2 case's prefill: the batch's first tokens, then the next
+# `SSM_STEPS` teacher-forced into a cache of `SSM_CACHE` slots
+SSM_PROMPT, SSM_STEPS, SSM_CACHE = 16, 4, 24
 
 
 # Decode over the model axis (`sharding.rules.decode_layout`) on the (4, 2)
@@ -87,9 +100,10 @@ def decode_config(reduced_config, tag: str):
     return cfg.replace(**kw)
 
 
-def decode_run(model, cfg, tag: str, case: dict, mesh=None) -> dict:
-    """A `DECODE_CASES` case: the prompts prefilled, adopted into a cache of
-    the case's length and decoded with the case's tokens, teacher-forced;
+def decode_run(model, cfg, tag: str, case: dict, mesh=None, cache_len=None) -> dict:
+    """A `DECODE_CASES` case (or a cache of `cache_len` slots): the prompts
+    prefilled, adopted into a cache of the case's length and decoded with
+    the case's tokens, teacher-forced;
     on `mesh` (a `shard_model` model) every rank runs its rows over the
     model axis.  -> the logits of every step (steps, B, V), every row's;
     the first run's cache entries' shapes and the first shared-block
@@ -99,7 +113,7 @@ def decode_run(model, cfg, tag: str, case: dict, mesh=None) -> dict:
     from repro_torch.serve import cv_engine as engine
     from repro_torch.sharding import comm, rules
 
-    T = DECODE_CASES[tag][3]
+    T = cache_len or DECODE_CASES[tag][3]
     prompts, tokens, extras = case["prompts"], case["tokens"], case.get("extras")
     B = prompts.shape[0]
     hint = rules.make_hint(mesh, cfg) if mesh is not None else None
@@ -141,6 +155,15 @@ def _decode_case(tag: str, case: dict, mesh) -> dict:
     return {"layout": rules.decode_layout(cfg, mesh), **decode_run(model, cfg, tag, case, mesh)}
 
 
+def arctic_config(reduced_config):
+    """The f32 reduced arctic-480b of the Adafactor run, in the package of
+    `reduced_config`: its aux loss weighted 0, the one term the all-to-all
+    path takes per shard, so that the single process computes the same
+    function."""
+    cfg = reduced_config("arctic-480b").replace(dtype="float32")
+    return cfg.replace(moe=dataclasses.replace(cfg.moe, aux_loss_weight=0.0))
+
+
 def layout_config(reduced_config, tag: str):
     """The f32 reduced config of a `LAYOUT_CASES` case, in the package of
     `reduced_config`."""
@@ -152,6 +175,36 @@ def _full(t):
     from torch.distributed.tensor import DTensor
 
     return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
+
+
+def _zero1_state(state: dict, cfg, mesh, optimizer: str) -> dict:
+    """Every rank's optimizer state against ZeRO-1's specs: each tensor of
+    the local shape `rules.opt_state_specs` gives, their bytes summing to
+    `launch.dryrun.opt_bytes_zero1`, and some leaf's state split over an
+    axis its parameter does not use; each a bool, true on every rank."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.sharding import comm, rules
+
+    leaves = lm.param_leaves(state["model"])
+    pspecs = rules.param_specs(leaves, cfg, mesh)
+    specs = rules.opt_state_specs(leaves, pspecs, mesh, optimizer)
+    opt = state["opt"]
+    shapes, nbytes, extra = True, 0, False
+    for i, lf in enumerate(leaves):
+        sh = rules._leaf_shape(lf)
+        full = {"m": sh, "v": sh, "vr": sh[:-1], "vc": sh[:-2] + sh[-1:]}
+        own = ({k: (opt[k][lf.name], specs[k][lf.name]) for k in ("m", "v")} if "m" in opt
+               else {k: (opt["f"][lf.name][k], sp) for k, sp in specs["f"][i].items()})
+        used = {a for ax in pspecs[lf.name] for a in rules.spec_axes(ax)}
+        for k, (t, sp) in own.items():
+            shapes &= tuple(t.shape) == rules.spec_shape(full.get(k, sh), sp, mesh)
+            nbytes += t.numel() * t.element_size()
+            extra |= bool({a for ax in sp for a in rules.spec_axes(ax)} - used)
+    ok = torch.tensor([shapes, nbytes == dryrun.opt_bytes_zero1(leaves, pspecs, mesh, optimizer),
+                       extra], dtype=torch.float32)
+    ok = comm.all_reduce(ok, dist.group.WORLD, op=dist.ReduceOp.MIN)
+    return dict(zip(("shapes", "bytes", "extra axis"), map(bool, ok.tolist())))
 
 
 def _train(cfg, mesh, *, optimizer="adamw", model=None, accum=None):
@@ -169,11 +222,19 @@ def _train(cfg, mesh, *, optimizer="adamw", model=None, accum=None):
         state, m = fn(state, stream.batch_at(i))
         metrics.append({k: float(v) for k, v in m.items()})
     params = {n: _full(p) for n, p in state["model"].named_parameters()}
-    return state, {"metrics": metrics, "params": params}
+    return state, {"metrics": metrics, "params": params,
+                   "zero1": _zero1_state(state, cfg, mesh, optimizer)}
 
 
 def _extras(batch: dict) -> dict | None:
     return {k: v for k, v in batch.items() if k not in ("tokens", "labels")} or None
+
+
+def ssm_case(batch: dict) -> dict:
+    """The zamba2 layout case's prefill and teacher-forced tokens."""
+    tokens = batch["tokens"]
+    return {"prompts": tokens[:, :SSM_PROMPT],
+            "tokens": tokens[:, SSM_PROMPT:SSM_PROMPT + SSM_STEPS]}
 
 
 def _layout_case(tag: str, case: dict, mesh) -> dict:
@@ -185,14 +246,31 @@ def _layout_case(tag: str, case: dict, mesh) -> dict:
     from repro_torch.sharding import comm, rules
     from repro_torch.train import step as tstep
 
+    from repro_torch.models import ssm
+
     cfg = layout_config(reduced_config, tag)
     hint = rules.make_hint(mesh, cfg)
     batch = case["batch"]
     model = lm.LM(cfg, device="cpu")
     model.load_state_dict(case["state"])
     lm.make_trainable(lm.shard_model(model, mesh))
-    out = {"layout": rules.model_layout(cfg, mesh, batch["tokens"].shape[1])}
-    logits, _ = lm.forward(model, batch["tokens"], extras=_extras(batch), hint=hint)
+    S = batch["tokens"].shape[1]
+    out = {"layout": rules.model_layout(cfg, mesh, S)}
+    scan, heads = ssm.ssd_scan, []
+
+    def counted(x, *args, **kwargs):  # the heads of every scan a rank runs
+        heads.append(x.shape[2])
+        return scan(x, *args, **kwargs)
+
+    ssm.ssd_scan = counted
+    try:
+        logits, _ = lm.forward(model, batch["tokens"], extras=_extras(batch), hint=hint)
+    finally:
+        ssm.ssd_scan = scan
+    if cfg.ssm is not None:
+        mixer = lm._at(model.blocks[0], hint.at(S))["mixer"]
+        out["ssm"] = {"split": rules.ssm_heads(cfg, mesh, out["layout"]), "heads": heads,
+                      "out_proj": tuple(mixer["out_proj"].shape)}
     out["logits"] = comm.all_gather(logits.detach(), 0, comm.axes_group(mesh, ("data",)))
     loss, _ = tstep.loss_fn(model, batch, hint=hint)
     (loss / WORLD).backward()
@@ -201,6 +279,8 @@ def _layout_case(tag: str, case: dict, mesh) -> dict:
         with torch.no_grad():
             out["generate"] = generate(model, batch["tokens"][:, :12], steps=6, device="cpu",
                                        mesh=mesh)
+    if cfg.ssm is not None:
+        out["decode"] = decode_run(model, cfg, tag, ssm_case(batch), mesh, cache_len=SSM_CACHE)
     model = lm.LM(cfg, device="cpu")
     model.load_state_dict(case["state"])
     state = tstep.init_state(cfg, device="cpu", model=model, mesh=mesh)
@@ -267,6 +347,10 @@ def rank_main(rank: int, out_dir: str, port: int) -> None:
     model = lm.LM(cfg, device="cpu")
     model.load_state_dict(inp["deepseek"])
     ds_state, out["deepseek adamw"] = _train(cfg, mesh, model=model)
+    arctic = arctic_config(reduced_config)
+    model = lm.LM(arctic, device="cpu")
+    model.load_state_dict(inp["arctic"])
+    _, out["arctic adafactor"] = _train(arctic, mesh, optimizer="adafactor", model=model)
 
     # -- elastic restore: (4, 2) -> (2, 4) --------------------------------------
     mesh_b = make_mesh((2, 4), AXES, device="cpu")
@@ -280,6 +364,11 @@ def rank_main(rank: int, out_dir: str, port: int) -> None:
                                 shardings={"w": rules.NamedSharding(mesh_b, rules.P("model", "data"))})
         out["elastic"] = {"step": step, "placements": [str(p) for p in back["w"].placements],
                           "mesh": tuple(back["w"].device_mesh.shape), "value": _full(back["w"])}
+        # a spec out of the mesh's order (JAX's ("model", "data"): model-major)
+        spec = rules.P(("model", "data"), None)
+        part = rules.spec_part(w, mesh, spec)
+        out["spec_full"] = {"block": part.clone(),
+                            "whole": torch.equal(comm.spec_full(part, mesh, spec), w)}
         # the deepseek training state, saved from (4, 2), resumed onto (2, 4)
         ck.save(os.path.join(d[0], "state"), 2, tstep.state_tensors(ds_state))
         fresh = tstep.init_state(cfg, device="cpu", mesh=mesh_b,
